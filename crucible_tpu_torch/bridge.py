@@ -1,0 +1,80 @@
+"""Carry scene and camera parameters across as numpy arrays.
+
+The parity tests build a scene with the JAX package, turn its ``SceneData``
+and ``CameraParams`` leaves into numpy arrays (on the test's side: this
+package never sees JAX), and hand them to :func:`scene_data_from_arrays` /
+:func:`camera_params_from_arrays`, so that both packages compute on exactly
+the same inputs. :func:`scene_data_to_arrays` is the inverse for the port's
+own scenes.
+
+Array keys are the ``SceneData`` field names, with the texture table's
+fields prefixed ``tex_``; static keys are ``sky_kind``, ``num_spheres``,
+``num_tris``, ``animated``, ``motion_exact`` and ``max_nest``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import fields
+
+import numpy as np
+import torch
+
+from crucible_tpu_torch.models.camera import CameraParams
+from crucible_tpu_torch.models.scene import SceneData
+from crucible_tpu_torch.models.textures import TextureTable
+
+SCENE_ARRAYS = (
+    "sph_center", "sph_radius", "sph_mat", "sph_active",
+    "mat_type", "mat_tex", "mat_fuzz", "mat_ior", "mat_prob", "mat_emission",
+)
+TEX_ARRAYS = ("kind", "color", "inv_scale", "even", "odd", "image_id")
+SCENE_STATIC = ("sky_kind", "num_spheres", "num_tris", "animated", "motion_exact")
+CAMERA_ARRAYS = tuple(
+    f.name for f in fields(CameraParams) if f.name not in ("animated", "motion_exact")
+)
+
+
+def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(a), device=device)  # a copy
+
+
+def scene_data_from_arrays(
+    arrays: dict[str, np.ndarray], *, device, max_nest: int = 1, **static
+) -> SceneData:
+    """SceneData on ``device`` from numpy arrays (keys: module docstring).
+    Unknown static keys raise ``TypeError``."""
+    unknown = set(static) - set(SCENE_STATIC)
+    if unknown:
+        raise TypeError(f"unknown static scene fields {sorted(unknown)}")
+    tex = TextureTable(
+        **{k: _tensor(arrays[f"tex_{k}"], device) for k in TEX_ARRAYS},
+        max_nest=int(max_nest),
+    )
+    return SceneData(
+        **{k: _tensor(arrays[k], device) for k in SCENE_ARRAYS},
+        tex=tex,
+        **static,
+    )
+
+
+def scene_data_to_arrays(sd: SceneData) -> tuple[dict[str, np.ndarray], dict]:
+    """(arrays, static) such that ``scene_data_from_arrays(arrays,
+    device=..., **static)`` rebuilds ``sd``."""
+    arrays = {k: getattr(sd, k).cpu().numpy() for k in SCENE_ARRAYS}
+    arrays.update({f"tex_{k}": getattr(sd.tex, k).cpu().numpy() for k in TEX_ARRAYS})
+    static = {k: getattr(sd, k) for k in SCENE_STATIC}
+    static["max_nest"] = sd.tex.max_nest
+    return arrays, static
+
+
+def camera_params_from_arrays(
+    arrays: dict[str, np.ndarray], *, device, animated: bool = False,
+    motion_exact: bool = False,
+) -> CameraParams:
+    """CameraParams on ``device`` from numpy arrays keyed by field name.
+    A missing shutter delta (``look_from_d`` / ``look_at_d``) means zero."""
+    arrays = {"look_from_d": np.zeros(3), "look_at_d": np.zeros(3), **arrays}
+    vals = {
+        k: _tensor(np.asarray(arrays[k], np.float32), device) for k in CAMERA_ARRAYS
+    }
+    return CameraParams(**vals, animated=animated, motion_exact=motion_exact)

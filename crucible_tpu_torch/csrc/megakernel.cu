@@ -1,0 +1,359 @@
+// Persistent path-tracing megakernel for sphere scenes, forward mode, on Hopper.
+//
+// Replaces crucible_tpu/ops/pallas/megakernel.py::_kernel in forward mode
+// (run_megakernel), for its brute-sphere, static-camera, non-animated branch:
+// camera ray generation with jitter and defocus, the PCG4D counter hash, the
+// closest-root sphere quadratic over every table row, the winner's attribute
+// fetch, solid / checker-of-solid albedo, default sky, emission, and
+// Lambertian / metal / dielectric / emissive scatter, accumulated into per-lane
+// radiance sums.
+//
+// What bounds it on this card: per-thread FP32 work on the N-row quadratic
+// (about 20 flops and a square root per row per bounce), with divergence at
+// the material branches and at path termination.
+//
+// Design: one thread per lane. The thread walks its pixel's samples
+// sample0..spp-1 and, within each sample, bounces until the path ends; lanes
+// are independent, so the TPU kernel's lockstep regeneration bookkeeping
+// becomes this plain nested loop. The lanes arrive in the 32x16 pixel-block
+// order that integrator.trace_persistent_mega builds, so a warp covers 32
+// neighbouring pixels. The intersection columns of the table (center x/y/z,
+// |c|^2 - r^2, active) are staged once per block in shared memory as SoA;
+// every thread of a warp reads the same row at the same time, which shared
+// memory serves as a broadcast. The winner's row is read from global memory
+// by index: an indexed load is exact, so the TPU's one-hot MXU fetch and its
+// bf16 split have no counterpart here. On a miss no row is read.
+//
+// Numerics: every literal is float32 and the arithmetic follows the Pallas
+// kernel's association operation for operation. Build with -fmad=false and
+// without --use_fast_math (ops/kernels/build.py), so that no multiply-add is
+// contracted, sqrtf and '/' round correctly and sinf/cosf are the precise
+// versions: the kernel then agrees with its eager-torch version to rounding
+// of the transcendental functions. Re-enabling FMA contraction is left to a
+// later change that re-measures both speed and agreement.
+//
+// Interface: a plain C entry point, bound from Python with ctypes. It launches
+// on the caller's stream, allocates nothing and returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int C_IN = 32;           // table columns (sphere_shade.py layout)
+constexpr int SMEM_COLS = 5;       // staged columns: cx, cy, cz, csr, active
+constexpr int BLOCK = 128;         // threads per block (4 warps)
+constexpr float BIG = 3.0e38f;     // "no hit" distance
+constexpr float TWO_PI = 6.2831855f;  // float32(2*pi)
+constexpr uint32_t PCG_MULT = 1664525u;
+constexpr uint32_t PCG_ADD = 1013904223u;
+constexpr uint32_t STREAM_PIXEL_JITTER = 1u;
+constexpr uint32_t STREAM_BOUNCE_BASE = 3u;
+constexpr float METAL = 1.0f;
+constexpr float DIELECTRIC = 2.0f;
+constexpr float EMISSIVE = 3.0f;
+constexpr float TEX_CHECKER = 1.0f;
+
+struct U4 {
+  float x, y, z, w;
+};
+
+// PCG4D (utils/rng.py) in native uint32 arithmetic, which wraps as the
+// reference's uint32 arithmetic does.
+__device__ __forceinline__ U4 uniform4(uint32_t x, uint32_t y, uint32_t z,
+                                       uint32_t w) {
+  x = x * PCG_MULT + PCG_ADD;
+  y = y * PCG_MULT + PCG_ADD;
+  z = z * PCG_MULT + PCG_ADD;
+  w = w * PCG_MULT + PCG_ADD;
+  x += y * w;
+  y += z * x;
+  z += x * y;
+  w += y * z;
+  x ^= x >> 16;
+  y ^= y >> 16;
+  z ^= z >> 16;
+  w ^= w >> 16;
+  x += y * w;
+  y += z * x;
+  z += x * y;
+  w += y * z;
+  // Top 24 bits -> [0, 1), exact in float32.
+  const float s = 0x1p-24f;
+  return U4{(float)(x >> 8) * s, (float)(y >> 8) * s, (float)(z >> 8) * s,
+            (float)(w >> 8) * s};
+}
+
+__global__ void __launch_bounds__(BLOCK) megakernel_forward(
+    const int32_t* __restrict__ smem,     // (8,) [spp, seed, width, max_depth, ...]
+    const int32_t* __restrict__ pix_in,   // (R,) pixel ids
+    const int32_t* __restrict__ sample0,  // (R,) first sample (2^30 = padding)
+    const float* __restrict__ cam,        // (48,) camera constants
+    const float* __restrict__ table,      // (N, 32) sphere attribute table
+    int n, int r, float t_min,
+    float* __restrict__ out) {            // (3, R) radiance sums
+  extern __shared__ float sh[];
+  float* s_cx = sh;
+  float* s_cy = sh + n;
+  float* s_cz = sh + 2 * n;
+  float* s_csr = sh + 3 * n;
+  float* s_act = sh + 4 * n;
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    const float* row = table + (size_t)k * C_IN;
+    s_cx[k] = row[0];
+    s_cy[k] = row[1];
+    s_cz[k] = row[2];
+    s_csr[k] = row[4];
+    s_act[k] = row[5];
+  }
+  __syncthreads();
+
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= r) return;
+
+  const int spp = smem[0];
+  const uint32_t seed = (uint32_t)smem[1];
+  const int width = smem[2];
+  const int max_depth = smem[3];
+
+  const int pix = pix_in[lane];
+  const uint32_t upix = (uint32_t)pix;
+  const float fi = (float)(pix % width);
+  const float fj = (float)(pix / width);
+
+  // Static camera slots (megakernel.py CAM_SIZE layout).
+  const float p00x = cam[0], p00y = cam[1], p00z = cam[2];
+  const float dux = cam[3], duy = cam[4], duz = cam[5];
+  const float dvx = cam[6], dvy = cam[7], dvz = cam[8];
+  const float lfx = cam[9], lfy = cam[10], lfz = cam[11];
+  const float ubx = cam[12], uby = cam[13], ubz = cam[14];
+  const float vbx = cam[15], vby = cam[16], vbz = cam[17];
+  const float defr = cam[18];
+
+  float ax = 0.0f, ay = 0.0f, az = 0.0f;
+
+  for (int smp = sample0[lane]; smp < spp; ++smp) {
+    // --- primary ray: jitter + defocus from one hash -----------------------
+    const U4 uc = uniform4(upix, (uint32_t)smp, STREAM_PIXEL_JITTER, seed);
+    const float oxj = fi + (uc.x - 0.5f);
+    const float oyj = fj + (uc.y - 0.5f);
+    const float px = p00x + oxj * dux + oyj * dvx;
+    const float py = p00y + oxj * duy + oyj * dvy;
+    const float pz = p00z + oxj * duz + oyj * dvz;
+    const float dphi = TWO_PI * uc.w;
+    const float dru = sqrtf(uc.z);
+    const float da = dru * cosf(dphi) * defr;
+    const float db = dru * sinf(dphi) * defr;
+    float ox = lfx + da * ubx + db * vbx;
+    float oy = lfy + da * uby + db * vby;
+    float oz = lfz + da * ubz + db * vbz;
+    float dx = px - ox, dy = py - oy, dz = pz - oz;
+    float tx = 1.0f, ty = 1.0f, tz = 1.0f;
+
+    for (int bounce = 0;; ++bounce) {
+      // --- closest sphere: expanded quadratic, lowest row wins ties ---------
+      const float a_q = dx * dx + dy * dy + dz * dz;
+      const float d_dot_o = dx * ox + dy * oy + dz * oz;
+      const float o_sq = ox * ox + oy * oy + oz * oz;
+      const float inv_a = 1.0f / a_q;
+      float best = BIG;
+      int win = -1;
+      for (int k = 0; k < n; ++k) {
+        if (!(s_act[k] > 0.0f)) continue;
+        const float cx = s_cx[k], cy = s_cy[k], cz = s_cz[k];
+        const float dck = cx * dx + cy * dy + cz * dz;
+        const float ock = cx * ox + cy * oy + cz * oz;
+        const float h = dck - d_dot_o;
+        const float c_q = s_csr[k] - 2.0f * ock + o_sq;
+        const float disc = h * h - a_q * c_q;
+        if (!(disc >= 0.0f)) continue;
+        const float sq = sqrtf(disc);
+        const float root0 = (h - sq) * inv_a;
+        const float root1 = (h + sq) * inv_a;
+        const bool ok0 = (root0 > t_min) && (root0 < BIG);
+        const bool ok1 = (root1 > t_min) && (root1 < BIG);
+        if (!(ok0 || ok1)) continue;
+        const float root = ok0 ? root0 : root1;
+        if (root < best) {
+          best = root;
+          win = k;
+        }
+      }
+
+      const float dlen = fmaxf(sqrtf(a_q), 1e-20f);
+      if (win < 0) {
+        // Miss: default sky gradient on the unit direction; the path ends.
+        const float sky_a = 0.5f * (dy / dlen + 1.0f);
+        const float one_m_a = 1.0f - sky_a;
+        ax = ax + tx * (one_m_a + sky_a * 0.5f);
+        ay = ay + ty * (one_m_a + sky_a * 0.7f);
+        az = az + tz * (one_m_a + sky_a);
+        break;
+      }
+      const float* row = table + (size_t)win * C_IN;
+
+      // --- shading point + outward normal -----------------------------------
+      const float hx = ox + best * dx;
+      const float hy = oy + best * dy;
+      const float hz = oz + best * dz;
+      const float inv_r = 1.0f / fmaxf(row[3], 1e-20f);
+      float nx = (hx - row[0]) * inv_r;
+      float ny = (hy - row[1]) * inv_r;
+      float nz = (hz - row[2]) * inv_r;
+      const bool front = dx * nx + dy * ny + dz * nz < 0.0f;
+      const float sgn = front ? 1.0f : -1.0f;
+      nx = nx * sgn;
+      ny = ny * sgn;
+      nz = nz * sgn;
+
+      // --- emission ---------------------------------------------------------
+      ax = ax + tx * row[10];
+      ay = ay + ty * row[11];
+      az = az + tz * row[12];
+
+      // --- albedo: solid or 3-D checker of solids ---------------------------
+      const float inv_scale = row[17];
+      const int xf = (int)floorf(inv_scale * hx);
+      const int yf = (int)floorf(inv_scale * hy);
+      const int zf = (int)floorf(inv_scale * hz);
+      // C's '%' truncates, but "== 0" gives the same even/odd answer.
+      const bool is_even = (xf + yf + zf) % 2 == 0;
+      float alr, alg, alb;
+      if (row[13] == TEX_CHECKER) {
+        alr = is_even ? row[18] : row[21];
+        alg = is_even ? row[19] : row[22];
+        alb = is_even ? row[20] : row[23];
+      } else {
+        alr = row[14];
+        alg = row[15];
+        alb = row[16];
+      }
+
+      // --- scatter (models/materials.py) ------------------------------------
+      const float mat_type = row[6];
+      const U4 ub = uniform4(upix, (uint32_t)smp,
+                             STREAM_BOUNCE_BASE + (uint32_t)bounce, seed);
+      const float rz = 1.0f - 2.0f * ub.x;
+      const float rr = sqrtf(fmaxf(0.0f, 1.0f - rz * rz));
+      const float rphi = TWO_PI * ub.y;
+      const float rx = rr * cosf(rphi);
+      const float ry = rr * sinf(rphi);
+      const float u_dec = ub.z;
+
+      float ndx, ndy, ndz, atr, atg, atb;
+      bool scattered;
+      if (mat_type == DIELECTRIC) {
+        // Snell + Schlick on the unit incoming direction.
+        const float ior = row[8];
+        const float udx = dx / dlen, udy = dy / dlen, udz = dz / dlen;
+        const float ri = front ? 1.0f / fmaxf(ior, 1e-8f) : ior;
+        const float cos_t = fminf(-(udx * nx + udy * ny + udz * nz), 1.0f);
+        const float sin_t = sqrtf(fmaxf(1.0e-12f, 1.0f - cos_t * cos_t));
+        float r0 = (1.0f - ri) / (1.0f + ri);
+        r0 = r0 * r0;
+        const float one_m = 1.0f - cos_t;
+        const float om2 = one_m * one_m;
+        const float schlick = r0 + (1.0f - r0) * om2 * om2 * one_m;
+        if ((ri * sin_t > 1.0f) || (schlick > u_dec)) {
+          const float ud_dot_n = udx * nx + udy * ny + udz * nz;
+          ndx = udx - 2.0f * ud_dot_n * nx;
+          ndy = udy - 2.0f * ud_dot_n * ny;
+          ndz = udz - 2.0f * ud_dot_n * nz;
+        } else {
+          const float ppx = ri * (udx + cos_t * nx);
+          const float ppy = ri * (udy + cos_t * ny);
+          const float ppz = ri * (udz + cos_t * nz);
+          const float pp_sq = ppx * ppx + ppy * ppy + ppz * ppz;
+          const float par = -sqrtf(fabsf(1.0f - pp_sq));
+          ndx = ppx + par * nx;
+          ndy = ppy + par * ny;
+          ndz = ppz + par * nz;
+        }
+        atr = atg = atb = 1.0f;
+        scattered = true;
+      } else if (mat_type == METAL) {
+        // reflect(d, n) normalized + fuzz * unit vector; dies below the surface.
+        const float fuzz = row[7];
+        const float d_dot_n = dx * nx + dy * ny + dz * nz;
+        const float refx = dx - 2.0f * d_dot_n * nx;
+        const float refy = dy - 2.0f * d_dot_n * ny;
+        const float refz = dz - 2.0f * d_dot_n * nz;
+        const float rlen =
+            fmaxf(sqrtf(refx * refx + refy * refy + refz * refz), 1e-20f);
+        ndx = refx / rlen + fuzz * rx;
+        ndy = refy / rlen + fuzz * ry;
+        ndz = refz / rlen + fuzz * rz;
+        atr = alr;
+        atg = alg;
+        atb = alb;
+        scattered = ndx * nx + ndy * ny + ndz * nz > 0.0f;
+      } else {
+        // Lambertian (and emissive, which never scatters).
+        const float prob = row[9];
+        ndx = nx + rx;
+        ndy = ny + ry;
+        ndz = nz + rz;
+        if (fabsf(ndx) < 1e-8f && fabsf(ndy) < 1e-8f && fabsf(ndz) < 1e-8f) {
+          ndx = nx;
+          ndy = ny;
+          ndz = nz;
+        }
+        const float inv_prob = 1.0f / fmaxf(prob, 1e-8f);
+        atr = alr * inv_prob;
+        atg = alg * inv_prob;
+        atb = alb * inv_prob;
+        scattered = (u_dec <= prob) && (mat_type != EMISSIVE);
+      }
+
+      if (!(scattered && bounce + 1 < max_depth)) break;
+      tx = tx * atr;
+      ty = ty * atg;
+      tz = tz * atb;
+      ox = hx;
+      oy = hy;
+      oz = hz;
+      dx = ndx;
+      dy = ndy;
+      dz = ndz;
+    }
+  }
+
+  out[lane] = ax;
+  out[(size_t)r + lane] = ay;
+  out[2 * (size_t)r + lane] = az;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Bytes of dynamic shared memory the kernel needs for an N-row table.
+int crucible_megakernel_smem_bytes(int n) {
+  return n * SMEM_COLS * (int)sizeof(float);
+}
+
+// Launch the forward megakernel on `stream`; returns cudaGetLastError().
+int crucible_megakernel_forward(const int32_t* smem, const int32_t* pix,
+                                const int32_t* sample0, const float* cam,
+                                const float* table, int n, int r, float t_min,
+                                float* out, void* stream) {
+  const int smem_bytes = crucible_megakernel_smem_bytes(n);
+  if (smem_bytes > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        megakernel_forward, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int grid = (r + BLOCK - 1) / BLOCK;
+  if (grid > 0) {
+    megakernel_forward<<<grid, BLOCK, smem_bytes, (cudaStream_t)stream>>>(
+        smem, pix, sample0, cam, table, n, r, t_min, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+const char* crucible_cuda_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

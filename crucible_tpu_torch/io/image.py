@@ -1,0 +1,45 @@
+"""Film output: ASCII P3 PPM and PNG (port of the writers of
+``crucible_tpu/io/image.py``).
+
+PNG is encoded with the standard library's ``zlib`` (8-bit RGB, no
+filtering), so writing an image needs nothing beyond numpy.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+
+import numpy as np
+
+
+def write_ppm(path, img_u8: np.ndarray) -> None:
+    """Write (H, W, 3) uint8 as ASCII P3 PPM."""
+    img_u8 = np.asarray(img_u8, dtype=np.uint8)
+    h, w = img_u8.shape[:2]
+    flat = img_u8.reshape(-1, 3)
+    # One "r g b" triple per line.
+    body = "\n".join(f"{r} {g} {b}" for r, g, b in flat)
+    with open(path, "w") as f:
+        f.write(f"P3\n{w} {h}\n255\n{body}\n")
+
+
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    body = tag + data
+    return struct.pack(">I", len(data)) + body + struct.pack(">I", zlib.crc32(body))
+
+
+def write_png(path, img_u8: np.ndarray) -> None:
+    """Write (H, W, 3) uint8 as an 8-bit RGB PNG."""
+    img_u8 = np.ascontiguousarray(img_u8, dtype=np.uint8)
+    h, w = img_u8.shape[:2]
+    # Each scanline is prefixed with filter type 0 (none).
+    raw = np.concatenate(
+        [np.zeros((h, 1), np.uint8), img_u8.reshape(h, w * 3)], axis=1
+    ).tobytes()
+    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(_png_chunk(b"IHDR", header))
+        f.write(_png_chunk(b"IDAT", zlib.compress(raw, 6)))
+        f.write(_png_chunk(b"IEND", b""))

@@ -1,0 +1,199 @@
+"""Camera: viewport math, defocus, batched primary-ray generation.
+
+Port of ``crucible_tpu/models/camera.py``: :class:`Camera` is the host-side
+settings object with the original renderer's setter surface, and
+:class:`CameraParams` holds the tensors the integrator reads. The port
+renders static cameras (with defocus); animated cameras and exact-motion
+tracks raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from crucible_tpu_torch.ops import sampling
+from crucible_tpu_torch.utils import rng as crng
+from crucible_tpu_torch.utils import vec
+
+
+@dataclass
+class CameraParams:
+    """Camera tensors (float32 scalars and 3-vectors on one device)."""
+
+    look_from: torch.Tensor  # (3,) at shutter open
+    look_at: torch.Tensor  # (3,)
+    vup: torch.Tensor  # (3,)
+    vfov_rad: torch.Tensor  # ()
+    defocus_angle_rad: torch.Tensor  # ()
+    focus_dist: torch.Tensor  # ()
+    frame_time: torch.Tensor  # () = frame / frame_rate
+    shutter_length: torch.Tensor  # () = (shutter_angle/360) / frame_rate
+    look_from_d: torch.Tensor  # (3,) shutter-close minus shutter-open
+    look_at_d: torch.Tensor  # (3,)
+    animated: bool = False
+    motion_exact: bool = False
+
+
+def generate_rays(
+    cp: CameraParams,
+    width: int,
+    height: int,
+    pixel_ids: torch.Tensor,
+    sample_ids: torch.Tensor,
+    seed,
+):
+    """One primary ray per (pixel, sample) pair, static camera.
+
+    [-0.5,0.5)^2 pixel jitter and the defocus disk come from ONE PCG4D hash
+    (stream STREAM_PIXEL_JITTER); the shutter time from STREAM_TIME. The
+    direction is pixel position minus origin, unnormalized.
+
+    Args:
+      pixel_ids: (R,) integer flat pixel index j*width + i.
+      sample_ids: (R,) integer sample index within the pixel.
+      seed: uint32 render seed.
+
+    Returns: (origins (R,3), directions (R,3), times (R,))
+    """
+    if cp.animated or cp.motion_exact:
+        raise NotImplementedError(
+            "animated cameras are not ported to crucible_tpu_torch yet"
+        )
+    i = (pixel_ids % width).to(torch.float32)
+    j = torch.div(pixel_ids, width, rounding_mode="floor").to(torch.float32)
+
+    ux, uy, ud1, ud2 = crng.uniform4(
+        pixel_ids, sample_ids, crng.STREAM_PIXEL_JITTER, seed
+    )
+    u_t = crng.uniform1(pixel_ids, sample_ids, crng.STREAM_TIME, seed)
+    times = cp.frame_time + u_t * cp.shutter_length
+
+    lf = cp.look_from
+    la = cp.look_at
+    w = vec.unit(lf - la, eps=1e-12)
+    u = vec.unit(vec.cross(cp.vup, w), eps=1e-12)
+    v = vec.cross(w, u)
+
+    h = torch.tan(cp.vfov_rad / 2.0)
+    viewport_h = 2.0 * h * cp.focus_dist
+    viewport_w = viewport_h * (width / height)
+
+    viewport_u = viewport_w * u  # horizontal edge
+    viewport_v = viewport_h * (-v)  # vertical edge, image-down
+    du = viewport_u / width
+    dv = viewport_v / height
+    pixel00 = lf - cp.focus_dist * w - 0.5 * (width - 1) * du - 0.5 * (height - 1) * dv
+
+    offset = sampling.square_offset(ux, uy)  # (R, 2)
+    pixel_pos = (
+        pixel00
+        + (i + offset[:, 0])[:, None] * du
+        + (j + offset[:, 1])[:, None] * dv
+    )
+
+    defocus_radius = cp.focus_dist * torch.tan(cp.defocus_angle_rad / 2.0)
+    disk = sampling.in_unit_disk(ud1, ud2)  # (R, 2)
+    defocus_origin = (
+        lf
+        + (disk[:, 0] * defocus_radius)[:, None] * u
+        + (disk[:, 1] * defocus_radius)[:, None] * v
+    )
+    use_defocus = cp.defocus_angle_rad > 0.0
+    origins = torch.where(use_defocus, defocus_origin, lf)
+    origins = torch.broadcast_to(origins, pixel_pos.shape)
+    dirs = pixel_pos - origins
+    return origins, dirs, times
+
+
+@dataclass
+class Camera:
+    """Host-side camera settings, mirroring the original renderer's setters."""
+
+    aspect_ratio: float = 16.0 / 9.0
+    image_width: int = 400
+    frame_rate: float = 24.0
+    shutter_angle: float = 180.0
+
+    vfov_deg: float = 90.0
+    look_from_pt: tuple = (0.0, 0.0, 0.0)
+    look_at_pt: tuple = (0.0, 0.0, -1.0)
+    vup: tuple = (0.0, 1.0, 0.0)
+    defocus_angle_deg: float = 0.0
+    focus_dist: float = 10.0
+
+    samples: int = 10
+    max_depth: int = 10
+    frame: int = 0
+
+    @property
+    def image_height(self) -> int:
+        return max(1, int(self.image_width / self.aspect_ratio))
+
+    # --- setter surface ----------------------------------------------------
+    def set_samples(self, s: int) -> None:
+        assert s > 0, "samples must be positive"
+        self.samples = int(s)
+
+    def set_max_depth(self, d: int) -> None:
+        self.max_depth = int(d)
+
+    def set_vfov(self, deg: float) -> None:
+        self.vfov_deg = float(deg)
+
+    def set_hfov(self, deg: float) -> None:
+        """Convert a horizontal fov to the vertical one."""
+        h = math.tan(math.radians(deg) / 2.0)
+        v = h * (self.image_height / self.image_width)
+        self.vfov_deg = math.degrees(2.0 * math.atan(v))
+
+    def set_defocus_angle(self, deg: float) -> None:
+        self.defocus_angle_deg = float(deg)
+
+    def set_focus_dist(self, dist: float) -> None:
+        self.focus_dist = float(dist)
+
+    def set_threads(self, _n: int) -> None:
+        """Compatibility no-op: parallelism lives on the device."""
+
+    def look_from(self, p) -> None:
+        self.look_from_pt = tuple(float(x) for x in p)
+
+    def look_at(self, p) -> None:
+        self.look_at_pt = tuple(float(x) for x in p)
+
+    def next_frame(self) -> None:
+        self.frame += 1
+
+    def get_res(self) -> tuple:
+        return (self.image_width, self.image_height)
+
+    # --- tensors -------------------------------------------------------------
+    def frame_time(self) -> float:
+        return self.frame * (1.0 / self.frame_rate)
+
+    def shutter_window(self) -> tuple:
+        t_open = self.frame_time()
+        return t_open, t_open + (self.shutter_angle / 360.0) / self.frame_rate
+
+    def params(self, *, device) -> CameraParams:
+        """The camera's tensors on ``device`` (static camera)."""
+
+        def f32(x):
+            return torch.tensor(x, dtype=torch.float32, device=device)
+
+        t_open, _ = self.shutter_window()
+        return CameraParams(
+            look_from=f32(self.look_from_pt),
+            look_at=f32(self.look_at_pt),
+            vup=f32(self.vup),
+            vfov_rad=f32(math.radians(self.vfov_deg)),
+            defocus_angle_rad=f32(math.radians(self.defocus_angle_deg)),
+            focus_dist=f32(self.focus_dist),
+            frame_time=f32(t_open),
+            shutter_length=f32((self.shutter_angle / 360.0) / self.frame_rate),
+            look_from_d=f32((0.0, 0.0, 0.0)),
+            look_at_d=f32((0.0, 0.0, 0.0)),
+        )

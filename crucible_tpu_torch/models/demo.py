@@ -1,0 +1,111 @@
+"""Demo scenes (port of the sphere scenes of ``crucible_tpu/models/demo.py``).
+
+Scene generation takes an explicit seed and draws from numpy in the same
+order as the JAX package, so both packages build identical tables.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from crucible_tpu_torch.models.scene import (
+    CheckerTexture,
+    Dielectric,
+    Lambertian,
+    Metal,
+    Scene,
+    Sphere,
+)
+
+_CHECKER_GROUND = CheckerTexture.from_colors(0.32, (0.2, 0.3, 0.1), (0.9, 0.9, 0.9))
+
+
+def book1_end_scene(width: int = 400, seed: int = 7) -> Scene:
+    """"Ray Tracing in One Weekend" final scene (~480 random small spheres +
+    3 unit spheres + checker ground): 16:9, 500 spp, depth 50, vfov 20,
+    defocus 0.6deg/10.0, lambertian/metal/glass chosen at 0.8/0.15/0.05."""
+    sc = Scene.new_image(16.0 / 9.0, width, 24, 180.0)
+    cam = sc.scene_cam
+    cam.set_samples(500)
+    cam.set_max_depth(50)
+    cam.look_from((13.0, 2.0, 3.0))
+    cam.look_at((0.0, 0.0, 0.0))
+    cam.set_vfov(20.0)
+    cam.set_defocus_angle(0.6)
+    cam.set_focus_dist(10.0)
+
+    sc.add_element(
+        Sphere((0.0, -1000.0, 0.0), 1000.0, Lambertian.from_texture(_CHECKER_GROUND)),
+        "ground",
+    )
+
+    rng = np.random.default_rng(seed)
+    counter = 0
+    for a in range(-11, 11):
+        for b in range(-11, 11):
+            choose_mat = rng.random()
+            center = (
+                a + 0.9 * rng.random(),
+                0.2,
+                b + 0.9 * rng.random(),
+            )
+            if np.linalg.norm(np.subtract(center, (4.0, 0.2, 0.0))) > 0.9:
+                if choose_mat < 0.8:
+                    albedo = tuple(rng.random(3) * rng.random(3))
+                    material = Lambertian.from_color(albedo)
+                elif choose_mat < 0.95:
+                    albedo = tuple(rng.uniform(0.5, 1.0, 3))
+                    material = Metal(albedo, float(rng.uniform(0.0, 0.5)))
+                else:
+                    material = Dielectric(1.5)
+                sc.add_element(Sphere(center, 0.2, material), f"small{counter}")
+                counter += 1
+
+    sc.add_element(Sphere((0.0, 1.0, 0.0), 1.0, Dielectric(1.5)), "large_dielectric")
+    sc.add_element(
+        Sphere((-4.0, 1.0, 0.0), 1.0, Lambertian.from_color((0.4, 0.2, 0.1))),
+        "large_lambertian",
+    )
+    sc.add_element(
+        Sphere((4.0, 1.0, 0.0), 1.0, Metal((0.7, 0.6, 0.5), 0.0)), "large_metal"
+    )
+    return sc
+
+
+def checkered_spheres(width: int = 400) -> Scene:
+    """Two r=10 checker spheres."""
+    sc = Scene.new_image(16.0 / 9.0, width, 24, 180.0)
+    cam = sc.scene_cam
+    cam.set_samples(500)
+    cam.set_max_depth(50)
+    cam.look_from((13.0, 2.0, 3.0))
+    cam.look_at((0.0, 0.0, 0.0))
+    cam.set_vfov(20.0)
+    cam.set_defocus_angle(0.6)
+    cam.set_focus_dist(10.0)
+
+    mat = Lambertian.from_texture(_CHECKER_GROUND)
+    sc.add_element(Sphere((0.0, -10.0, 0.0), 10.0, mat), "bottom_sphere")
+    sc.add_element(Sphere((0.0, 10.0, 0.0), 10.0, mat), "top_sphere")
+    return sc
+
+
+def smoke_scene(width: int = 400) -> Scene:
+    """Single Lambertian sphere + ground, 16 spp, depth 8."""
+    sc = Scene.new_image(16.0 / 9.0, width, 24, 180.0)
+    cam = sc.scene_cam
+    cam.set_samples(16)
+    cam.set_max_depth(8)
+    cam.look_from((0.0, 0.5, 3.0))
+    cam.look_at((0.0, 0.0, -1.0))
+    cam.set_vfov(60.0)
+
+    sc.add_element(
+        Sphere((0.0, 0.0, -1.0), 0.5, Lambertian.from_color((0.7, 0.3, 0.3))), "ball"
+    )
+    sc.add_element(
+        Sphere((0.0, -100.5, -1.0), 100.0, Lambertian.from_color((0.8, 0.8, 0.0))),
+        "ground",
+    )
+    return sc
+

@@ -1,0 +1,121 @@
+"""Render drivers: the whole-image forward render.
+
+Port of the still-image path of ``crucible_tpu/models/render.py``:
+``render_image`` -> ``render_image_data`` -> ``render_image_persistent`` ->
+``integrator.trace_persistent_mega``, the ``mega`` schedule. A scene the
+megakernel cannot render raises ``NotImplementedError`` naming the missing
+feature; there is no other schedule to fall back to yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from crucible_tpu_torch.models import integrator
+from crucible_tpu_torch.models.camera import CameraParams
+from crucible_tpu_torch.models.scene import Scene, SceneData
+from crucible_tpu_torch.utils import color as color_mod
+
+# Above this sphere-table row count the JAX package walks a per-lane sphere
+# BVH instead of the brute loop (its CULL_MIN_ROWS); the port has only the
+# brute kernel, so bigger scenes raise.
+CULL_MIN_ROWS = 1024
+
+
+def _check_device(sd: SceneData, cp: CameraParams, device) -> None:
+    want = torch.device(device)
+    for name, t in (("scene", sd.sph_center), ("camera", cp.look_from)):
+        if t.device.type != want.type or (
+            want.index is not None and t.device.index != want.index
+        ):
+            raise ValueError(f"{name} tensors are on {t.device}, not {want}")
+
+
+def render_image_persistent(
+    sd: SceneData,
+    cp: CameraParams,
+    width: int,
+    height: int,
+    samples: int,
+    max_depth: int,
+    seed: int,
+    *,
+    device,
+    schedule: str = "auto",
+) -> torch.Tensor:
+    """Whole-image render in one megakernel call -> linear radiance
+    (height, width, 3) float32 on ``device``.
+
+    ``schedule``: 'mega' or 'auto' (which is 'mega' where
+    ``integrator.megakernel_supported`` holds). Other schedules are not
+    ported and raise ``NotImplementedError``."""
+    _check_device(sd, cp, device)
+    if schedule not in ("auto", "mega"):
+        raise NotImplementedError(
+            f"the {schedule!r} schedule is not ported to crucible_tpu_torch yet"
+        )
+    missing = integrator.megakernel_unsupported_reason(sd, cp)
+    if missing is not None:
+        raise NotImplementedError(
+            f"this scene needs {missing}, which crucible_tpu_torch does not "
+            f"render yet (its megakernel renders static sphere scenes)"
+        )
+    rows = int(sd.sph_center.shape[0])
+    if rows > CULL_MIN_ROWS:
+        raise NotImplementedError(
+            f"{rows} sphere rows need the sphere-BVH megakernel branch, which "
+            f"is not ported to crucible_tpu_torch yet (brute limit "
+            f"{CULL_MIN_ROWS})"
+        )
+    fb = integrator.trace_persistent_mega(
+        sd, cp, width, height, samples, max_depth, seed
+    )
+    return fb.reshape(height, width, 3) / samples
+
+
+def render_image_data(
+    sd: SceneData,
+    cp: CameraParams,
+    width: int,
+    height: int,
+    samples: int,
+    max_depth: int,
+    seed: int,
+    *,
+    device,
+) -> torch.Tensor:
+    """Render driver -> linear radiance (height, width, 3) on ``device``."""
+    return render_image_persistent(
+        sd, cp, width, height, samples, max_depth, seed, device=device
+    )
+
+
+def render_image(
+    scene: Scene,
+    samples: int | None = None,
+    max_depth: int | None = None,
+    seed: int | None = None,
+    *,
+    device,
+) -> torch.Tensor:
+    """Render the scene's camera view -> linear radiance (H, W, 3) float32
+    on ``device``."""
+    sd = scene.build(device=device)
+    cam = scene.scene_cam
+    return render_image_data(
+        sd,
+        cam.params(device=device),
+        cam.image_width,
+        cam.image_height,
+        samples if samples is not None else cam.samples,
+        max_depth if max_depth is not None else cam.max_depth,
+        seed if seed is not None else scene.seed,
+        device=device,
+    )
+
+
+def to_u8(img_linear: torch.Tensor) -> np.ndarray:
+    """Linear radiance (H, W, 3) -> uint8 film on the host."""
+    return color_mod.to_bytes(torch.as_tensor(img_linear)).cpu().numpy()
+

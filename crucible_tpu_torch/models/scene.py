@@ -1,0 +1,464 @@
+"""Scene: user-facing builder API + the SoA ``SceneData`` of tensors.
+
+Port of ``crucible_tpu/models/scene.py`` for sphere scenes. The host side
+keeps the original surface (aliased elements via an id vendor, show/hide)
+and ``Scene.build`` lowers the element list into flat arrays with numpy,
+exactly as the JAX package does, converting to tensors on the requested
+device only at the end. Triangles, OBJ assets, image textures, spherical
+skies, timelines and the sphere-structure tables of big scenes raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from crucible_tpu_torch.models import materials as mat_mod
+from crucible_tpu_torch.models import skybox as sky_mod
+from crucible_tpu_torch.models import textures as tex_mod
+from crucible_tpu_torch.models.camera import Camera
+
+# Sphere-table row padding (the JAX package's default, env override and all,
+# so both packages build identical tables).
+SPHERE_PAD = int(os.environ.get("CRUCIBLE_SPHERE_PAD", "8"))
+
+
+def _unported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to crucible_tpu_torch yet")
+
+
+# --------------------------------------------------------------------------
+# Host-side texture / material specs (hashable, deduped into tables at build)
+# --------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class SolidColor:
+    color: Tuple[float, float, float]
+
+
+@dataclass(frozen=True)
+class ImageTexture:
+    """Nearest-neighbor image lookup (not ported: building raises)."""
+
+    filename: str
+
+
+@dataclass(frozen=True)
+class CheckerTexture:
+    """3-D checker over two sub-textures."""
+
+    scale: float
+    even: "TextureSpec"
+    odd: "TextureSpec"
+
+    @classmethod
+    def from_colors(cls, scale, c1, c2):
+        return cls(scale, SolidColor(tuple(c1)), SolidColor(tuple(c2)))
+
+
+TextureSpec = Union[SolidColor, CheckerTexture, ImageTexture]
+
+
+@dataclass(frozen=True)
+class Lambertian:
+    """Textured albedo + Russian-roulette scatter probability."""
+
+    texture: TextureSpec
+    scatter_prob: float = 1.0
+
+    @classmethod
+    def from_color(cls, color, prob: float = 1.0):
+        return cls(SolidColor(tuple(float(c) for c in color)), prob)
+
+    @classmethod
+    def from_texture(cls, tex: TextureSpec, prob: float = 1.0):
+        return cls(tex, prob)
+
+
+@dataclass(frozen=True)
+class Metal:
+    """Fuzzy mirror; fuzz must be in [0, 1]."""
+
+    albedo: Tuple[float, float, float]
+    fuzz: float = 0.0
+
+    def __post_init__(self):
+        assert 0.0 <= self.fuzz <= 1.0, "A metal fuzz factor must be in [0, 1]"
+
+
+@dataclass(frozen=True)
+class Dielectric:
+    """Glass/water with Schlick reflectance."""
+
+    refraction_index: float
+
+
+@dataclass(frozen=True)
+class Emissive:
+    """Light-emitting material."""
+
+    emission: Tuple[float, float, float]
+
+
+MaterialSpec = Union[Lambertian, Metal, Dielectric, Emissive]
+
+
+# --------------------------------------------------------------------------
+# Host-side geometry elements
+# --------------------------------------------------------------------------
+
+
+@dataclass
+class Sphere:
+    center: Tuple[float, float, float]
+    radius: float
+    material: MaterialSpec
+    id: int = 0
+    hide: bool = False
+    timeline: Optional[object] = None  # animation: not ported (build raises)
+
+    def __post_init__(self):
+        assert self.radius >= 0.0, "Cannot make a sphere with negative radius"
+
+
+@dataclass
+class Triangle:
+    """Triangle element (not ported: adding one raises)."""
+
+    v0: Tuple[float, float, float]
+    v1: Tuple[float, float, float]
+    v2: Tuple[float, float, float]
+    material: MaterialSpec
+    id: int = 0
+    hide: bool = False
+    timelines: Optional[tuple] = None
+
+
+# --------------------------------------------------------------------------
+# Id vendor
+# --------------------------------------------------------------------------
+
+CAMERA_TYPE = "camera"
+SPHERE_TYPE = "sphere"
+TRIANGLE_TYPE = "triangle"
+MESH_TYPE = "triangle_mesh"
+
+
+class IdVendor:
+    """Alias -> (id, object type); id 0 is reserved for the camera."""
+
+    def __init__(self):
+        self._table: Dict[str, Tuple[int, str]] = {"cam": (0, CAMERA_TYPE)}
+        self._next = 1
+
+    def vend_id(self, alias: str, o_type: str) -> Optional[int]:
+        if alias in self._table:
+            return None  # collision
+        oid = self._next
+        self._next += 1
+        self._table[alias] = (oid, o_type)
+        return oid
+
+    def alias_lookup(self, alias: str) -> Optional[Tuple[int, str]]:
+        return self._table.get(alias)
+
+
+# --------------------------------------------------------------------------
+# Device-side scene
+# --------------------------------------------------------------------------
+
+
+@dataclass
+class SceneData:
+    """Flat SoA sphere scene: tensors on one device + static metadata.
+
+    Field names and layouts are those of the JAX package's ``SceneData``;
+    the triangle, BVH, motion, structure and sky-image fields are absent
+    because the port does not render them yet (``num_tris``, ``animated`` and
+    ``motion_exact`` still say whether a bridged scene needs them).
+    """
+
+    # Spheres (padded to SPHERE_PAD multiples; `sph_active` masks padding+hidden)
+    sph_center: torch.Tensor  # (N, 3) float32
+    sph_radius: torch.Tensor  # (N,) float32
+    sph_mat: torch.Tensor  # (N,) int32
+    sph_active: torch.Tensor  # (N,) bool
+
+    # Material table
+    mat_type: torch.Tensor  # (L,) int32
+    mat_tex: torch.Tensor  # (L,) int32 albedo texture id
+    mat_fuzz: torch.Tensor  # (L,)
+    mat_ior: torch.Tensor  # (L,)
+    mat_prob: torch.Tensor  # (L,)
+    mat_emission: torch.Tensor  # (L, 3)
+
+    tex: tex_mod.TextureTable
+
+    sky_kind: int = sky_mod.DEFAULT
+    num_spheres: int = 0
+    num_tris: int = 0
+    animated: bool = False
+    motion_exact: bool = False
+
+
+def _pad_to(n: int, mult: int) -> int:
+    return max(mult, ((n + mult - 1) // mult) * mult)
+
+
+class _TableBuilder:
+    """Dedupes material/texture specs into SoA tables (numpy rows)."""
+
+    def __init__(self):
+        self.tex_rows: List[dict] = []
+        self.tex_ids: Dict[TextureSpec, int] = {}
+        self.mat_rows: List[dict] = []
+        self.mat_ids: Dict[MaterialSpec, int] = {}
+
+    def texture(self, spec: TextureSpec) -> int:
+        if spec in self.tex_ids:
+            return self.tex_ids[spec]
+        if isinstance(spec, SolidColor):
+            row = dict(kind=tex_mod.SOLID, color=spec.color, inv_scale=1.0, even=0, odd=0, image=0)
+        elif isinstance(spec, ImageTexture):
+            raise _unported("image textures")
+        elif isinstance(spec, CheckerTexture):
+            even = self.texture(spec.even)
+            odd = self.texture(spec.odd)
+            row = dict(
+                kind=tex_mod.CHECKER,
+                color=(0.0, 0.0, 0.0),
+                inv_scale=1.0 / spec.scale,
+                even=even,
+                odd=odd,
+                image=0,
+            )
+        else:
+            raise TypeError(f"unknown texture spec {spec!r}")
+        tid = len(self.tex_rows)
+        self.tex_rows.append(row)
+        self.tex_ids[spec] = tid
+        return tid
+
+    def material(self, spec: MaterialSpec) -> int:
+        if spec in self.mat_ids:
+            return self.mat_ids[spec]
+        if isinstance(spec, Lambertian):
+            row = dict(
+                type=mat_mod.LAMBERTIAN,
+                tex=self.texture(spec.texture),
+                fuzz=0.0,
+                ior=1.0,
+                prob=spec.scatter_prob,
+                emission=(0.0, 0.0, 0.0),
+            )
+        elif isinstance(spec, Metal):
+            row = dict(
+                type=mat_mod.METAL,
+                tex=self.texture(SolidColor(tuple(spec.albedo))),
+                fuzz=spec.fuzz,
+                ior=1.0,
+                prob=1.0,
+                emission=(0.0, 0.0, 0.0),
+            )
+        elif isinstance(spec, Dielectric):
+            row = dict(
+                type=mat_mod.DIELECTRIC,
+                tex=self.texture(SolidColor((1.0, 1.0, 1.0))),
+                fuzz=0.0,
+                ior=spec.refraction_index,
+                prob=1.0,
+                emission=(0.0, 0.0, 0.0),
+            )
+        elif isinstance(spec, Emissive):
+            row = dict(
+                type=mat_mod.EMISSIVE,
+                tex=self.texture(SolidColor((0.0, 0.0, 0.0))),
+                fuzz=0.0,
+                ior=1.0,
+                prob=1.0,
+                emission=tuple(spec.emission),
+            )
+        else:
+            raise TypeError(f"unknown material spec {spec!r}")
+        mid = len(self.mat_rows)
+        self.mat_rows.append(row)
+        self.mat_ids[spec] = mid
+        return mid
+
+    def texture_table(self, device) -> tex_mod.TextureTable:
+        rows = self.tex_rows or [
+            dict(kind=tex_mod.SOLID, color=(0, 0, 0), inv_scale=1.0, even=0, odd=0, image=0)
+        ]
+        # Checker-nesting depth: children are created before their parent.
+        depth = [0] * len(rows)
+        for i, r in enumerate(rows):
+            if r["kind"] == tex_mod.CHECKER:
+                depth[i] = 1 + max(depth[r["even"]], depth[r["odd"]])
+
+        def col(key, dtype):
+            return torch.as_tensor(
+                np.asarray([r[key] for r in rows], dtype), device=device
+            )
+
+        return tex_mod.TextureTable(
+            max_nest=max(1, max(depth, default=1)),
+            kind=col("kind", np.int32),
+            color=col("color", np.float32),
+            inv_scale=col("inv_scale", np.float32),
+            even=col("even", np.int32),
+            odd=col("odd", np.int32),
+            image_id=col("image", np.int32),
+        )
+
+
+class Scene:
+    """User-facing scene builder."""
+
+    def __init__(
+        self,
+        aspect_ratio: float = 16.0 / 9.0,
+        image_width: int = 400,
+        frame_rate: float = 24.0,
+        shutter_angle: float = 180.0,
+        seed: int = 0,
+    ):
+        self.scene_cam = Camera(
+            aspect_ratio=aspect_ratio,
+            image_width=image_width,
+            frame_rate=frame_rate,
+            shutter_angle=shutter_angle,
+        )
+        self.elements: List[Sphere] = []
+        self.sky_kind: int = sky_mod.DEFAULT
+        self.id_vendor = IdVendor()
+        self.seed = seed
+        self._cache: Optional[SceneData] = None
+        self._cache_key = None
+
+    @classmethod
+    def new_image(cls, aspect_ratio, image_width, frame_rate=24.0, shutter_angle=180.0, threads=None):
+        del threads  # parallelism lives on the device
+        return cls(aspect_ratio, image_width, frame_rate, shutter_angle)
+
+    @classmethod
+    def new_movie(cls, *args, **kwargs):
+        raise _unported("movie rendering")
+
+    # --- element management -------------------------------------------------
+    def add_element(self, element: Union[Sphere, Triangle], alias: str) -> int:
+        """Vend a unique id for ``alias`` and add the element. Raises on
+        alias collision."""
+        if isinstance(element, Triangle):
+            raise _unported("triangle geometry")
+        oid = self.id_vendor.vend_id(alias, SPHERE_TYPE)
+        if oid is None:
+            raise ValueError(f"alias {alias!r} already exists in scene")
+        element.id = oid
+        self.elements.append(element)
+        self._cache = None
+        return oid
+
+    def load_asset(self, *args, **kwargs) -> int:
+        raise _unported("OBJ mesh assets")
+
+    def load_spherical_skybox(self, filename: str) -> None:
+        raise _unported("the spherical (equirect) sky")
+
+    def _set_hidden(self, alias: str, hide: bool) -> None:
+        info = self.id_vendor.alias_lookup(alias)
+        if info is None:
+            raise KeyError(f"unknown alias {alias!r}")
+        oid, _ = info
+        for el in self.elements:
+            if el.id == oid:
+                el.hide = hide
+        self._cache = None
+
+    def hide_element(self, alias: str) -> None:
+        self._set_hidden(alias, True)
+
+    def show_element(self, alias: str) -> None:
+        self._set_hidden(alias, False)
+
+    # --- lowering -----------------------------------------------------------
+    def build(self, *, device) -> SceneData:
+        """Lower the element list to a SceneData on ``device`` (cached until
+        the scene is mutated)."""
+        device = torch.device(device)
+        if self._cache is not None and self._cache_key == device:
+            return self._cache
+        if any(s.timeline is not None for s in self.elements):
+            raise _unported("timeline animation")
+
+        tables = _TableBuilder()
+        spheres = self.elements
+        n = len(spheres)
+        n_pad = _pad_to(n, SPHERE_PAD)
+
+        from crucible_tpu_torch.models.render import CULL_MIN_ROWS
+
+        if n_pad > CULL_MIN_ROWS:
+            raise _unported(
+                f"the sphere-structure tables for scenes above {CULL_MIN_ROWS} "
+                f"sphere rows ({n_pad} here)"
+            )
+        sph_center = np.zeros((n_pad, 3), np.float32)
+        sph_radius = np.ones((n_pad,), np.float32)
+        sph_mat = np.zeros((n_pad,), np.int32)
+        sph_active = np.zeros((n_pad,), bool)
+        for k, s in enumerate(spheres):
+            sph_center[k] = s.center
+            sph_radius[k] = s.radius
+            sph_mat[k] = tables.material(s.material)
+            sph_active[k] = not s.hide
+
+        if not tables.mat_rows:  # empty scene still needs one material row
+            tables.material(Lambertian.from_color((0.5, 0.5, 0.5)))
+        mat_rows = tables.mat_rows
+
+        def t(a, dtype):
+            return torch.as_tensor(np.asarray(a, dtype), device=device)
+
+        sd = SceneData(
+            sph_center=t(sph_center, np.float32),
+            sph_radius=t(sph_radius, np.float32),
+            sph_mat=t(sph_mat, np.int32),
+            sph_active=t(sph_active, bool),
+            mat_type=t([r["type"] for r in mat_rows], np.int32),
+            mat_tex=t([r["tex"] for r in mat_rows], np.int32),
+            mat_fuzz=t([r["fuzz"] for r in mat_rows], np.float32),
+            mat_ior=t([r["ior"] for r in mat_rows], np.float32),
+            mat_prob=t([r["prob"] for r in mat_rows], np.float32),
+            mat_emission=t([r["emission"] for r in mat_rows], np.float32),
+            tex=tables.texture_table(device),
+            sky_kind=self.sky_kind,
+            num_spheres=n,
+        )
+        self._cache = sd
+        self._cache_key = device
+        return sd
+
+
+def _timeline_method(name: str):
+    def method(self, *args, **kwargs):
+        raise _unported("timeline animation")
+
+    method.__name__ = name
+    return method
+
+
+# The animator surface of the JAX Scene: present, refusing until timelines
+# are ported.
+for _name in (
+    "translate_x", "translate_y", "translate_z", "translate_point",
+    "scale_r", "scale_x", "scale_y", "scale_z", "scale_point",
+    "scale_all_uniform", "cam_translate_x", "cam_translate_y",
+    "cam_translate_z", "cam_translate_point",
+):
+    setattr(Scene, _name, _timeline_method(_name))

@@ -1,0 +1,308 @@
+"""Persistent path-tracing megakernel for sphere scenes, forward mode.
+
+Port of ``crucible_tpu/ops/pallas/megakernel.py::run_megakernel`` for its
+brute-sphere, static-camera, non-animated branch. Given the lanes' pixel
+ids and first samples, the camera vector and the (N, 32) sphere table, it
+traces every lane's samples ``sample0..spp-1`` to the end and returns the
+per-lane radiance sums (3, R).
+
+- :func:`run_megakernel` is the wrapper. For CUDA tensors it launches the
+  hand-written kernel of ``csrc/megakernel.cu`` (one thread per lane; see
+  the note there) or raises; for CPU tensors it runs
+  :func:`run_megakernel_reference`.
+- :func:`run_megakernel_reference` computes the same function in eager
+  torch: all lanes in lockstep with per-lane sample regeneration, as the
+  TPU kernel runs them, the brute (lanes x N) quadratic in lane chunks, and
+  shading from the ported materials / textures / skybox / sampling code.
+- ``LAUNCHES`` counts kernel launches (not reference calls).
+
+Layouts: ``smem`` (8,) int32 ``[spp, seed, width, max_depth, 0...]`` (spp
+and seed are uint32 bit patterns); ``pix`` and ``sample0`` (1, R) int32
+(padding lanes carry ``sample0 = 2**30`` and never issue); ``cam`` (1, 48)
+float32 (static slots 0-18, layout below); ``table`` (N, 32) float32 in the
+``integrator.make_sphere_table`` layout.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from crucible_tpu_torch.models import materials as mat_mod
+from crucible_tpu_torch.models import skybox as sky_mod
+from crucible_tpu_torch.models import textures as tex_mod
+from crucible_tpu_torch.ops import sampling
+from crucible_tpu_torch.utils import rng as crng
+
+# Python floats holding float32 values, so that comparisons agree whether a
+# backend compares in float32 or float64.
+BIG = float(np.float32(3.0e38))
+T_MIN = float(np.float32(1.0e-3))
+
+# Lanes per pixel block of the swizzled lane order (32 x 16 pixels). The
+# GPU kernel does not need it; it keeps the lane order of the TPU kernel,
+# so that a warp covers 32 neighbouring pixels.
+TILE = 512
+C_IN = 32  # sphere attribute table columns (make_sphere_table layout)
+
+# Camera constant vector layout (1, 48) float32. Static-camera slots:
+#  0-2 pixel00, 3-5 du, 6-8 dv, 9-11 look_from, 12-14 basis u, 15-17 basis v,
+#  18 defocus_radius. Slots 19-37 carry the animated-camera extras (not
+#  ported), 38-47 are padding.
+CAM_SIZE = 48
+
+# The kernel stages five float32 columns per row in shared memory, of which
+# a Hopper block can use 227 KB (232,448 bytes).
+SHARED_MEM_BYTES = 232448
+SMEM_COLS = 5
+MAX_ROWS = SHARED_MEM_BYTES // (SMEM_COLS * 4)
+
+# Lanes x rows per step of the eager version's brute quadratic.
+REFERENCE_CHUNK_ELEMS = 1 << 22
+
+# Launches of the CUDA kernel since the last reset (reference calls excluded).
+LAUNCHES = 0
+
+
+def _unported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"the megakernel's {what} branch is not ported to crucible_tpu_torch yet"
+    )
+
+
+def run_megakernel(
+    smem,
+    pix,
+    sample0,
+    cam,
+    table,
+    cbounds=None,
+    sph_nodes=None,
+    sph_meta=None,
+    tri_nodes=None,
+    tris=None,
+    mats=None,
+    tri_meta=None,
+    *,
+    animated: bool,
+    cam_animated: bool = False,
+):
+    """Dispatch the persistent megakernel -> per-lane radiance sums (3, R).
+
+    CUDA tensors launch the CUDA kernel; CPU tensors run the eager
+    reference. The chunk-cull, sphere-BVH, triangle and animation branches
+    of the TPU kernel raise ``NotImplementedError``.
+    """
+    if cbounds is not None:
+        raise _unported("chunk-cull")
+    if sph_nodes is not None or sph_meta is not None:
+        raise _unported("sphere-BVH")
+    if any(x is not None for x in (tri_nodes, tris, mats, tri_meta)):
+        raise _unported("triangle-BVH")
+    if animated:
+        raise _unported("animated-sphere")
+    if cam_animated:
+        raise _unported("animated-camera")
+    _check_inputs(smem, pix, sample0, cam, table)
+    if table.device.type == "cpu":
+        return run_megakernel_reference(smem, pix, sample0, cam, table)
+    if table.device.type != "cuda":
+        raise ValueError(f"unsupported device {table.device}")
+    return _launch(smem, pix, sample0, cam, table)
+
+
+def _check_inputs(smem, pix, sample0, cam, table):
+    expect = (
+        ("smem", smem, torch.int32, (8,)),
+        ("pix", pix, torch.int32, None),
+        ("sample0", sample0, torch.int32, None),
+        ("cam", cam, torch.float32, (1, CAM_SIZE)),
+        ("table", table, torch.float32, None),
+    )
+    for name, x, dtype, shape in expect:
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{name} must be a tensor, got {type(x).__name__}")
+        if x.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+        if shape is not None and tuple(x.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if x.device != table.device:
+            raise ValueError(f"{name} is on {x.device}, table on {table.device}")
+    if pix.dim() != 2 or pix.shape[0] != 1 or sample0.shape != pix.shape:
+        raise ValueError(
+            f"pix and sample0 must both be (1, R), got {tuple(pix.shape)} "
+            f"and {tuple(sample0.shape)}"
+        )
+    if table.dim() != 2 or table.shape[1] != C_IN:
+        raise ValueError(f"table must be (N, {C_IN}), got {tuple(table.shape)}")
+
+
+def _launch(smem, pix, sample0, cam, table):
+    global LAUNCHES
+    from crucible_tpu_torch.ops.kernels import build
+
+    n = table.shape[0]
+    if n > MAX_ROWS:
+        raise ValueError(
+            f"{n} sphere rows exceed the {MAX_ROWS} rows whose intersection "
+            f"columns fit in a block's {SHARED_MEM_BYTES} bytes of shared "
+            f"memory; bigger scenes need the sphere-BVH kernel"
+        )
+    lib = build.load()
+    r = pix.shape[1]
+    out = torch.empty((3, r), dtype=torch.float32, device=table.device)
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.crucible_megakernel_forward(
+            smem.data_ptr(), pix.data_ptr(), sample0.data_ptr(),
+            cam.data_ptr(), table.data_ptr(), n, r,
+            ctypes.c_float(T_MIN), out.data_ptr(), stream,
+        )
+    if err != 0:
+        msg = lib.crucible_cuda_error_string(err).decode()
+        raise RuntimeError(f"megakernel launch failed: {msg} ({err})")
+    LAUNCHES += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Eager reference
+# ---------------------------------------------------------------------------
+
+
+def _closest_hit(table, o, d):
+    """Brute closest-root quadratic over all rows, in the kernel's expanded
+    form: h = c.d - d.o, c_q = csr - 2 c.o + |o|^2, roots (h -/+ sqrt(disc))
+    * (1/a). Lowest row index wins exact ties. o, d (L, 3) -> t (L,), idx
+    (L,); t = BIG on a miss."""
+    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
+    a_q = dx * dx + dy * dy + dz * dz
+    d_dot_o = dx * ox + dy * oy + dz * oz
+    o_sq = ox * ox + oy * oy + oz * oz
+    inv_a = 1.0 / a_q
+    n = table.shape[0]
+    cx, cy, cz = table[:, 0], table[:, 1], table[:, 2]
+    csr, active = table[:, 4], table[:, 5] > 0.0
+    rows = torch.arange(n, device=table.device)
+    step = max(1, REFERENCE_CHUNK_ELEMS // max(n, 1))
+    ts, idxs = [], []
+    for lo in range(0, o.shape[0], step):
+        s = slice(lo, lo + step)
+        dck = cx * dx[s] + cy * dy[s] + cz * dz[s]
+        ock = cx * ox[s] + cy * oy[s] + cz * oz[s]
+        h = dck - d_dot_o[s]
+        c_q = csr - 2.0 * ock + o_sq[s]
+        disc = h * h - a_q[s] * c_q
+        sqrtd = torch.sqrt(torch.clamp_min(disc, 0.0))
+        root0 = (h - sqrtd) * inv_a[s]
+        root1 = (h + sqrtd) * inv_a[s]
+        ok0 = (root0 > T_MIN) & (root0 < BIG)
+        ok1 = (root1 > T_MIN) & (root1 < BIG)
+        root = torch.where(ok0, root0, root1)
+        valid = (disc >= 0.0) & (ok0 | ok1) & active
+        t_all = torch.where(valid, root, BIG)
+        t = t_all.min(dim=1).values
+        idx = torch.where(t_all == t[:, None], rows, n).min(dim=1).values
+        ts.append(t)
+        idxs.append(idx)
+    return torch.cat(ts), torch.cat(idxs)
+
+
+def run_megakernel_reference(smem, pix, sample0, cam, table):
+    """Eager-torch version of the kernel: same inputs, same (3, R) output.
+
+    Lanes advance in lockstep, as on the TPU: each step issues a new sample
+    to every idle lane that has samples left, then traces one bounce of
+    every live lane. Per lane this is the kernel's nested loop, so each
+    lane's sum is the kernel's up to float rounding.
+    """
+    spp, seed, width, max_depth = (int(v) for v in smem[:4].tolist())
+    dev = table.device
+    pix = pix[0].to(torch.int64)
+    r = pix.shape[0]
+    fi = (pix % width).to(torch.float32)
+    fj = torch.div(pix, width, rounding_mode="floor").to(torch.float32)
+    c = cam[0]
+    p00, du, dv = c[0:3], c[3:6], c[6:9]
+    lf, ub, vb, defr = c[9:12], c[12:15], c[15:18], c[18]
+
+    sample_i = sample0[0].to(torch.int64).clone()
+    alive = torch.zeros(r, dtype=torch.bool, device=dev)
+    bounce = torch.zeros(r, dtype=torch.int64, device=dev)
+    o = torch.zeros((r, 3), dtype=torch.float32, device=dev)
+    d = torch.zeros((r, 3), dtype=torch.float32, device=dev)
+    thr = torch.zeros((r, 3), dtype=torch.float32, device=dev)
+    acc = torch.zeros((r, 3), dtype=torch.float32, device=dev)
+
+    while True:
+        issue = ~alive & (sample_i < spp)
+        live = torch.nonzero(alive | issue).squeeze(1)
+        if live.numel() == 0:
+            break
+        iss = issue[live]
+        # An issued lane traces sample_i; a continuing lane sample_i - 1.
+        smp = sample_i[live] - (~iss).to(torch.int64)
+        p = pix[live]
+
+        # --- primary rays for the issued lanes --------------------------
+        ux, uy, ud1, ud2 = crng.uniform4(p, smp, crng.STREAM_PIXEL_JITTER, seed)
+        off = sampling.square_offset(ux, uy)
+        pos = (
+            p00
+            + (fi[live] + off[:, 0])[:, None] * du
+            + (fj[live] + off[:, 1])[:, None] * dv
+        )
+        disk = sampling.in_unit_disk(ud1, ud2)
+        new_o = lf + (disk[:, 0] * defr)[:, None] * ub + (disk[:, 1] * defr)[:, None] * vb
+        o_l = torch.where(iss[:, None], new_o, o[live])
+        d_l = torch.where(iss[:, None], pos - new_o, d[live])
+        thr_l = torch.where(iss[:, None], 1.0, thr[live])
+        b_l = torch.where(iss, 0, bounce[live])
+
+        # --- closest hit; the winner's row only where there is one --------
+        t, idx = _closest_hit(table, o_l, d_l)
+        hit = t < BIG
+        row = torch.zeros((live.numel(), C_IN), dtype=torch.float32, device=dev)
+        on = torch.nonzero(hit).squeeze(1)
+        row[on] = table[idx[on]]
+
+        t_sh = torch.where(hit, t, 1.0)
+        hp = o_l + t_sh[:, None] * d_l
+        inv_r = 1.0 / torch.clamp_min(row[:, 3], 1e-20)
+        nrm = (hp - row[:, 0:3]) * inv_r[:, None]
+        front = d_l[:, 0] * nrm[:, 0] + d_l[:, 1] * nrm[:, 1] + d_l[:, 2] * nrm[:, 2] < 0.0
+        nrm = nrm * torch.where(front, 1.0, -1.0)[:, None]
+
+        # --- sky on a miss, emission on a hit ------------------------------
+        sky = sky_mod.default_gradient(d_l)
+        acc[live] = acc[live] + thr_l * torch.where(hit[:, None], row[:, 10:13], sky)
+
+        # --- albedo: solid or checker of solids ----------------------------
+        is_even = tex_mod.checker_is_even(row[:, 17], hp)
+        is_checker = (row[:, 13] == tex_mod.CHECKER)[:, None]
+        albedo = torch.where(
+            is_checker,
+            torch.where(is_even[:, None], row[:, 18:21], row[:, 21:24]),
+            row[:, 14:17],
+        )
+
+        # --- scatter -------------------------------------------------------
+        u1, u2, u_dec, _ = crng.uniform4(p, smp, crng.STREAM_BOUNCE_BASE + b_l, seed)
+        new_d, atten, scattered = mat_mod.scatter(
+            row[:, 6], row[:, 7], row[:, 8], row[:, 9], albedo, d_l, nrm, front,
+            u1, u2, u_dec,
+        )
+        cont = hit & scattered & (b_l + 1 < max_depth)
+        cont3 = cont[:, None]
+        thr[live] = torch.where(cont3, thr_l * atten, thr_l)
+        o[live] = torch.where(cont3, hp, o_l)
+        d[live] = torch.where(cont3, new_d, d_l)
+        bounce[live] = b_l + 1
+        alive[live] = cont
+        sample_i[live] = sample_i[live] + iss.to(torch.int64)
+    return acc.t().contiguous()

@@ -1,0 +1,251 @@
+"""K1, the forward megakernel: the port's eager version against the JAX
+package's Pallas kernel (interpret mode on the CPU) on the same bridged
+tables, the wrapper's dispatch and checks, and — on a GPU only — the CUDA
+kernel against its eager version."""
+
+import numpy as np
+import pytest
+import torch
+
+from crucible_tpu_torch.models import demo as tdemo
+from crucible_tpu_torch.models import integrator as tint
+from crucible_tpu_torch.models import scene as tscene
+from crucible_tpu_torch.ops.kernels import build as tbuild
+from crucible_tpu_torch.ops.kernels import megakernel as tmk
+
+# The JAX side is imported inside the helpers that use it, so that the
+# card-only tests at the end also run where JAX is not installed:
+#   python -m pytest --noconftest -m cuda tests/test_torch_megakernel.py
+
+INPUTS = ("smem", "pix", "sample0", "cam", "table")
+
+
+def _inputs(name, width, spp, depth, seed=0):
+    """Megakernel inputs as numpy: the table and camera vector built by the
+    JAX package, the lane layout by the port. Also returns lane_of and the
+    JAX scene."""
+    from crucible_tpu.models import demo as jdemo
+    from crucible_tpu.models import integrator as jint
+    from tests.test_torch_scene import bridged
+
+    js = getattr(jdemo, name)(width=width)
+    jsd, jcp = js.build(), js.scene_cam.params()
+    w, h = js.scene_cam.image_width, js.scene_cam.image_height
+    sd, cp = bridged(js)
+    inputs, lane_of = tint.mega_inputs(sd, cp, w, h, spp, depth, seed)
+    arrays = {k: v.numpy() for k, v in inputs.items()}
+    arrays["table"] = np.array(jint.make_sphere_table(jsd))  # writable copies
+    arrays["cam"] = np.array(jint.mega_cam_vector(jcp, w, h))
+    return arrays, lane_of.numpy(), js
+
+
+def _jax(arrays):
+    import jax.numpy as jnp
+    from crucible_tpu.ops.pallas import megakernel as jmk
+
+    acc = jmk.run_megakernel(
+        *(jnp.asarray(arrays[k]) for k in INPUTS), animated=False, interpret=True
+    )
+    return np.asarray(acc)
+
+
+def _port(arrays):
+    return tmk.run_megakernel(
+        **{k: torch.from_numpy(arrays[k]) for k in INPUTS}, animated=False
+    ).numpy()
+
+
+def test_smoke_matches_jax_kernel():
+    arrays, _, _ = _inputs("smoke_scene", 32, 4, 6)
+    want, got = _jax(arrays), _port(arrays)
+    assert got.shape == want.shape and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+def test_book1_matches_jax_kernel_statistically():
+    arrays, lane_of, _ = _inputs("book1_end_scene", 32, 2, 8)
+    want, got = _jax(arrays).T[lane_of] / 2, _port(arrays).T[lane_of] / 2
+    # Glass chains and self-intersections flip on last-ulp differences, and
+    # XLA's CPU code contracts multiply-adds where torch rounds each op, so
+    # book1 agrees only statistically. The JAX package's own staged and
+    # megakernel schedules agree on 97.7-99.4% of pixel values here (seeds
+    # 0-7), under the 0.99 of its earth/garden cross-path test; hence 0.97.
+    close = np.isclose(got, want, rtol=1e-3, atol=1e-3).mean()
+    assert close > 0.97, close
+    assert abs(got.mean() - want.mean()) <= 2e-3
+
+
+def test_lane_layout_matches_jax():
+    """mega_inputs lays lanes out as the JAX trace_persistent_mega does:
+    un-swizzling the JAX kernel's sums by the port's lane_of gives the JAX
+    path's per-pixel sums bit for bit."""
+    import jax.numpy as jnp
+    from crucible_tpu.models import integrator as jint
+
+    arrays, lane_of, js = _inputs("smoke_scene", 48, 2, 3)
+    w, h = js.scene_cam.image_width, js.scene_cam.image_height
+    want = jint.trace_persistent_mega(
+        js.build(), js.scene_cam.params(), w, h, jnp.uint32(2), 3, jnp.uint32(0),
+        interpret=True,
+    )
+    np.testing.assert_array_equal(_jax(arrays).T[lane_of], np.asarray(want))
+    assert (arrays["sample0"] == 2**30).sum() == arrays["pix"].size - w * h
+
+
+def test_cpu_tensors_take_the_reference(monkeypatch):
+    def no_launch(*args):
+        raise AssertionError("CPU tensors must not reach the kernel launch")
+
+    monkeypatch.setattr(tmk, "_launch", no_launch)
+    arrays, _, _ = _inputs("smoke_scene", 32, 2, 3)
+    before = tmk.LAUNCHES
+    got = _port(arrays)
+    ref = tmk.run_megakernel_reference(
+        **{k: torch.from_numpy(arrays[k]) for k in INPUTS}
+    ).numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert tmk.LAUNCHES == before
+
+
+def test_reference_lanes_are_independent():
+    """Any subset of lanes traces to the same sums (chip_smoke.py relies on
+    this to check a full-size launch on a few lanes)."""
+    arrays, _, _ = _inputs("book1_end_scene", 64, 2, 6)
+    full = _port(arrays)
+    lanes = np.r_[512:1024, 2048:2560]
+    sub = dict(arrays, pix=arrays["pix"][:, lanes], sample0=arrays["sample0"][:, lanes])
+    np.testing.assert_array_equal(_port(sub), full[:, lanes])
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [
+        dict(cbounds=torch.zeros(2, 8)),
+        dict(sph_nodes=torch.zeros(2, 16)),
+        dict(tri_nodes=torch.zeros(2, 16)),
+        dict(animated=True),
+        dict(cam_animated=True),
+    ],
+    ids=["cull", "sphere_bvh", "triangles", "animated", "cam_animated"],
+)
+def test_refuses_unported_branches(kwargs):
+    arrays, _, _ = _inputs("smoke_scene", 32, 1, 1)
+    kwargs = {"animated": False, **kwargs}
+    with pytest.raises(NotImplementedError):
+        tmk.run_megakernel(**{k: torch.from_numpy(arrays[k]) for k in INPUTS}, **kwargs)
+
+
+@pytest.mark.parametrize(
+    "name,change,error",
+    [
+        ("table", lambda t: t.double(), TypeError),
+        ("cam", lambda t: t.reshape(-1), ValueError),
+        ("table", lambda t: t.t().contiguous().t(), ValueError),
+        ("sample0", lambda t: t[:, :-1].contiguous(), ValueError),
+        ("table", lambda t: t[:, :16].contiguous(), ValueError),
+        ("pix", lambda t: t.long(), TypeError),
+    ],
+    ids=["dtype", "cam_shape", "contiguity", "lanes", "columns", "pix_dtype"],
+)
+def test_validates_inputs(name, change, error):
+    arrays, _, _ = _inputs("smoke_scene", 32, 1, 1)
+    t = {k: torch.from_numpy(arrays[k]) for k in INPUTS}
+    t[name] = change(t[name])
+    with pytest.raises(error):
+        tmk.run_megakernel(**t, animated=False)
+
+
+def test_ties_go_to_the_lowest_row():
+    """Two coincident emitters: every hit must shade with the first row."""
+    sc = tscene.Scene.new_image(1.0, 16)
+    sc.scene_cam.look_from((0.0, 0.0, 2.0))
+    sc.scene_cam.look_at((0.0, 0.0, 0.0))
+    sc.scene_cam.set_vfov(20.0)
+    for alias, color in (("red", (1.0, 0.0, 0.0)), ("green", (0.0, 1.0, 0.0))):
+        sc.add_element(tscene.Sphere((0.0, 0.0, 0.0), 1.0, tscene.Emissive(color)), alias)
+    sd, cp = sc.build(device="cpu"), sc.scene_cam.params(device="cpu")
+    acc = tint.trace_persistent_mega(sd, cp, 16, 16, 1, 1, 0)
+    assert torch.equal(acc, torch.tensor([1.0, 0.0, 0.0]).expand(256, 3))
+
+
+def test_a_miss_reads_no_row():
+    """With no active row every lane misses; poisoned shading columns must
+    not reach the sums, which are then the sky's."""
+    sc = tdemo.smoke_scene(width=32)
+    sc.hide_element("ball")
+    sc.hide_element("ground")
+    sd, cp = sc.build(device="cpu"), sc.scene_cam.params(device="cpu")
+    inputs, _ = tint.mega_inputs(sd, cp, 32, 18, 2, 4, 0)
+    clean = tmk.run_megakernel(**inputs, animated=False)
+    inputs["table"][:, 6:32] = float("nan")
+    poisoned = tmk.run_megakernel(**inputs, animated=False)
+    assert torch.isfinite(poisoned).all() and torch.equal(poisoned, clean)
+
+
+def test_max_rows_fill_a_blocks_shared_memory():
+    assert tmk.MAX_ROWS == 232448 // (5 * 4)
+
+
+def test_build_compiles_for_hopper_without_fast_math():
+    flags = " ".join(tbuild.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags and "-fmad=false" in flags
+    assert "fast_math" not in flags and "-shared" in flags
+    assert [s.name for s in tbuild.sources()] == ["megakernel.cu"]
+
+
+def test_build_without_nvcc_is_an_error(monkeypatch):
+    monkeypatch.setattr(tbuild.shutil, "which", lambda name: None)
+    monkeypatch.setattr(tbuild.os, "access", lambda path, mode: False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tbuild._nvcc()
+
+
+# --- on the card -------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip(
+            "needs an NVIDIA GPU: the CUDA kernel has no CPU mode (on the card: "
+            "python -m pytest --noconftest -m cuda tests/test_torch_megakernel.py)"
+        )
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "name,width,spp,depth",
+    [("smoke_scene", 64, 8, 8), ("book1_end_scene", 320, 8, 50)],
+)
+def test_kernel_matches_reference_on_card(cuda, name, width, spp, depth):
+    sc = getattr(tdemo, name)(width=width)
+    sd, cp = sc.build(device=cuda), sc.scene_cam.params(device=cuda)
+    w, h = sc.scene_cam.image_width, sc.scene_cam.image_height
+    inputs, lane_of = tint.mega_inputs(sd, cp, w, h, spp, depth, 0)
+    before = tmk.LAUNCHES
+    out = tmk.run_megakernel(**inputs, animated=False)
+    torch.cuda.synchronize()
+    assert tmk.LAUNCHES == before + 1
+    ref = tmk.run_megakernel_reference(**inputs)
+    if name == "smoke_scene":
+        assert (out - ref).abs().max().item() <= 1e-4
+    else:
+        a, b = out.t()[lane_of] / spp, ref.t()[lane_of] / spp
+        assert torch.isclose(a, b, rtol=1e-3, atol=1e-3).float().mean().item() > 0.99
+        assert abs(a.mean().item() - b.mean().item()) <= 2e-3
+
+
+@pytest.mark.cuda
+def test_cuda_tensors_never_take_the_reference(cuda, monkeypatch):
+    def no_reference(*args, **kwargs):
+        raise AssertionError("CUDA tensors must not reach the eager version")
+
+    monkeypatch.setattr(tmk, "run_megakernel_reference", no_reference)
+    sc = tdemo.smoke_scene(width=32)
+    inputs, _ = tint.mega_inputs(
+        sc.build(device=cuda), sc.scene_cam.params(device=cuda), 32, 18, 1, 2, 0
+    )
+    out = tmk.run_megakernel(**inputs, animated=False)
+    torch.cuda.synchronize()
+    assert out.is_cuda and torch.isfinite(out).all()
