@@ -1,27 +1,46 @@
 #!/usr/bin/env python3
-"""On-card check of crucible_tpu_torch: build, compare, render.
+"""On-card check of crucible_tpu_torch: build, compare, render, train.
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
 
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit (nvidia-smi).
-2. Builds the CUDA kernels from ``crucible_tpu_torch/csrc`` with nvcc.
-3. Holds the megakernel against its eager-torch version on the card, on the
-   inputs the render path gives it:
-   - ``smoke_scene`` 64 wide, 8 spp, depth 8 (Lambertian only): every
-     lane's sum within 1e-4;
-   - ``book1_end_scene`` 320 wide, 8 spp, depth 50: isclose(rtol=1e-3,
-     atol=1e-3) on more than 99% of pixel values and image means within
-     2e-3 (glass chains flip on last-ulp differences);
-   - ``book1_end_scene`` 1920x1080, 32 spp, depth 50: the full launch,
-     checked on a subset of lanes against the eager version under the same
-     bounds (lanes are independent).
-4. Renders book1 at 1920x1080, 32 spp, depth 50 through
-   ``render.render_image(..., device="cuda")``, checks the image, counts
-   the kernel's launches in that run and writes ``build/chip_smoke_book1.png``.
-5. Prints a JSON line describing each kernel, then, as the last line,
-   ``{"ok": true, "device": {...}}``.
+2. Builds the CUDA kernels from ``crucible_tpu_torch/csrc`` with nvcc, one
+   process per source, all at once.
+3. Holds every kernel against its eager-torch twin on the card:
+   - K1, the forward megakernel: ``smoke_scene`` 64 wide, 8 spp, depth 8
+     (every lane within 1e-4); ``book1_end_scene`` 320 wide, 8 spp, depth
+     50 (isclose(rtol=1e-3, atol=1e-3) on more than 99% of pixel values,
+     means within 2e-3); and the 1920x1080, 32 spp, depth 50 launch of the
+     forward render, on 64 pixel blocks (lanes are independent).
+   - K2, the record megakernel (fused and plain): smoke 64 wide and book1
+     320 wide, 4 spp, depth 8, bit for bit; the 1920x1080 launch of the
+     gradient step on 32768 lanes.
+   - K4, the replay forward: book1 320 wide and the 1920x1080 launch (on
+     32768 lanes), bit for bit.
+   - K3, the replay backward: book1 320 wide and 32768 lanes of the
+     1920x1080 shape, within the JAX package's scheme for its replay
+     backward (normalized differences above 2e-4 on < 0.5% of table
+     entries and < 2% of ray entries, none above 0.1); and two launches
+     give the same table cotangent, bit for bit.
+   - The gradient step at book1 64 wide, 2 spp, depth 8 on the card
+     against the same call on the CPU (the twins): loss within rel 1e-4,
+     gradients within normalized 1e-3.
+4. The forward render: ``render.render_image`` of book1 at 1920x1080, 32
+   spp, depth 50; checks the image, counts K1's launches, writes
+   ``build/chip_smoke_book1.png``.
+5. The gradient step, book1 at 1920x1080, 4 spp, depth 8, every pixel:
+   - ``grad.loss_and_grad``: one warm step, then 3 timed steps;
+   - ``grad.record_decisions``, then 3 frozen-decision steps
+     (``loss_and_grad(rec=...)``);
+   - 3 steps of ``grad.make_train_step`` with Adam on ``tex_color`` and
+     ``mat_emission``: the loss must go down.
+   Each phase zeroes the launch counts before it and reads them after; a
+   kernel of the phase that was not launched fails the run.
+6. Prints a JSON line describing each kernel (times at the comparison
+   shape, where kernel and twin run the same inputs in full), the card's
+   line again, and, as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero. Without CUDA, or
 without the package beside this file, it exits non-zero before printing a
@@ -39,10 +58,32 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 
+# Published peaks of one H100 SXM (NVIDIA data sheet): FP32 outside the
+# tensor cores, and HBM3 bandwidth.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+# FP32 operations counted from the kernel sources (multiplies, adds,
+# divides, square roots; compares and selects not counted):
+SEARCH_OPS = 22  # one ray against one table row in the closest-hit loop
+ROW_OPS = 52  # a replayed row: quadratic, hit point, normal, unit d, radiance
+SCATTER_OPS = 45  # a continuing row: albedo, the sampled direction, scatter
+ADJOINT_ROW_OPS = 60  # the adjoint of a row's radiance and pass-through
+ADJOINT_SCATTER_OPS = 150  # the adjoint of a continuing row's scatter
+N_SUB = 32768  # lanes of a 1920x1080 launch held against the twin
+
 
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
@@ -62,6 +103,27 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def host_ms(fn):
+    """(result, milliseconds) of one synchronized call."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def bound(ops: float, nbytes: float) -> tuple[float, str]:
+    """(least milliseconds, what bounds it) from the published peaks."""
+    t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def statistical_match(a, b, what: str) -> float:
     """Assert the cross-path bounds; return max |a - b|."""
     import torch
@@ -75,6 +137,36 @@ def statistical_match(a, b, what: str) -> float:
     return err
 
 
+def bit_equal(a, b, what: str) -> float:
+    """Assert a == b bit for bit; return max |a - b| (0)."""
+    import torch
+
+    err = (a.double() - b.double()).abs().max().item() if a.numel() else 0.0
+    print(f"  {what}: max|diff| {err:.3g}")
+    if not torch.equal(a, b):
+        raise AssertionError(f"{what}: kernel and eager twin differ")
+    return err
+
+
+def k3_scheme(got, want, what: str) -> float:
+    """Hold K3's cotangents to the JAX replay backward's scheme; return the
+    largest absolute difference."""
+    worst = 0.0
+    for name, a, b in zip(("g_table", "g_o", "g_d"), got, want):
+        if not bool(a.isfinite().all()):
+            raise AssertionError(f"{what} {name}: non-finite")
+        scale = max(b.abs().max().item(), 1e-6)
+        nd = (a - b).abs() / scale
+        frac, top = (nd > 2e-4).float().mean().item(), nd.max().item()
+        worst = max(worst, (a - b).abs().max().item())
+        print(f"  {what} {name}: outliers {frac:.5f}, max normalized {top:.3g} "
+              f"(scale {scale:.4g})")
+        cap = 0.005 if name == "g_table" else 0.02
+        if not (frac < cap and top < 0.1):
+            raise AssertionError(f"{what} {name}: kernel and twin disagree")
+    return worst
+
+
 def main() -> None:
     if not (REPO / "crucible_tpu_torch" / "__init__.py").is_file():
         raise SystemExit(f"chip_smoke: no crucible_tpu_torch package beside {__file__}")
@@ -84,8 +176,12 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
 
+    from crucible_tpu_torch import grad
     from crucible_tpu_torch.models import demo, integrator, render
+    from crucible_tpu_torch.models import replay
+    from crucible_tpu_torch.models.camera import generate_rays
     from crucible_tpu_torch.ops.kernels import build, megakernel as mk
+    from crucible_tpu_torch.ops.kernels import replay_kernel as rk
 
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
@@ -93,95 +189,396 @@ def main() -> None:
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
+    t_start = time.perf_counter()
 
-    # --- build --------------------------------------------------------------
-    lib_path, build_s, log = build.build()
-    print(f"build: {build_s:.2f} s -> {lib_path.relative_to(REPO)}")
+    # --- build ----------------------------------------------------------------
+    libs, build_s, log = build.build()
+    print(f"build: {build_s:.2f} s -> "
+          + ", ".join(str(p.relative_to(REPO)) for p in libs.values()))
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
+        if line.startswith("---") or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
-    build.load()
+    for stem in libs:
+        build.load(stem)
+    kernels = {}
 
-    # --- kernel vs eager version ----------------------------------------------
-    def compare(scene, spp, depth, lanes=None):
+    # --- K1: forward megakernel vs eager twin -----------------------------------
+    def compare_k1(scene, spp, depth, lanes=None):
         sd = scene.build(device=dev)
         cp = scene.scene_cam.params(device=dev)
         w, h = scene.scene_cam.image_width, scene.scene_cam.image_height
         inputs, lane_of = integrator.mega_inputs(sd, cp, w, h, spp, depth, 0)
         out = mk.run_megakernel(**inputs, animated=False)
         ms = cuda_ms(lambda: mk.run_megakernel(**inputs, animated=False), 3)
+        full = inputs
         if lanes is not None:  # eager version on a subset of the lanes
             inputs = dict(inputs, pix=inputs["pix"][:, lanes],
                           sample0=inputs["sample0"][:, lanes])
             out = out[:, lanes]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ref = mk.run_megakernel_reference(**inputs)
-        torch.cuda.synchronize()
-        plain_ms = 1e3 * (time.perf_counter() - t0)
-        return out, ref, lane_of, ms, plain_ms
+        ref, plain_ms = host_ms(lambda: mk.run_megakernel_reference(**inputs))
+        return out, ref, lane_of, ms, plain_ms, full
 
-    out, ref, _, ms, plain_ms = compare(demo.smoke_scene(width=64), 8, 8)
+    out, ref, _, ms, plain_ms, _ = compare_k1(demo.smoke_scene(width=64), 8, 8)
     err = (out - ref).abs().max().item()
-    print(f"smoke 64w 8spp d8: kernel {ms:.3f} ms, eager {plain_ms:.1f} ms, "
+    print(f"K1 smoke 64w 8spp d8: kernel {ms:.3f} ms, eager {plain_ms:.1f} ms, "
           f"max|diff| {err:.3g}")
     if not err <= 1e-4:
         raise AssertionError(f"smoke: kernel and eager version differ by {err}")
 
-    out, ref, lane_of, ms320, plain320 = compare(demo.book1_end_scene(width=320), 8, 50)
-    print(f"book1 320w 8spp d50: kernel {ms320:.3f} ms, eager {plain320:.1f} ms")
+    out, ref, lane_of, ms320, plain320, k1_in = compare_k1(
+        demo.book1_end_scene(width=320), 8, 50
+    )
+    print(f"K1 book1 320w 8spp d50: kernel {ms320:.3f} ms, eager {plain320:.1f} ms")
     err320 = statistical_match(out.t()[lane_of] / 8, ref.t()[lane_of] / 8, "book1 320w")
+    # The work K1 did: each (pixel, sample) path's closest-hit searches, as
+    # the record kernel counts them for the same paths (alive rows).
+    sc = demo.book1_end_scene(width=320)
+    p320 = 320 * 180
+    k1_rec = replay.trace_record_mega(
+        sc.build(device=dev), sc.scene_cam.params(device=dev), 320, 180,
+        torch.arange(p320, device=dev).repeat(8),
+        torch.arange(8, device=dev).repeat_interleave(p320), 0, 50,
+    )
+    n_active = int((k1_in["table"][:, 5] > 0).sum())
+    searches = int((k1_rec & 1).sum())
+    del k1_rec
+    k1_bound, k1_by = bound(
+        searches * n_active * SEARCH_OPS,
+        nbytes(*k1_in.values()) + 3 * k1_in["pix"].numel() * 4,
+    )
+    print(f"  K1 work: {searches} searches x {n_active} rows; bound {k1_bound:.3f} ms "
+          f"({k1_by})")
+    kernels["megakernel_forward"] = dict(
+        source="crucible_tpu_torch/csrc/megakernel.cu",
+        replaces="crucible_tpu/ops/pallas/megakernel.py:1681",
+        max_abs_err=err320, ms=ms320, plain_ms=plain320,
+        bound_ms=k1_bound, bound_by=k1_by,
+    )
 
-    # Full main-path launch; eager version on 64 pixel blocks spread over it.
+    # Full forward launch; eager version on 64 pixel blocks spread over it.
     g = torch.Generator().manual_seed(0)
     n_blocks = (1920 // 32) * math.ceil(1080 / 16)
     blocks = torch.randperm(n_blocks, generator=g)[:64].sort().values
     lanes = (blocks[:, None] * mk.TILE + torch.arange(mk.TILE)).reshape(-1).to(dev)
-    out, ref, _, ms_full, plain_sub = compare(
+    out, ref, _, ms_full, plain_sub, _ = compare_k1(
         demo.book1_end_scene(width=1920), 32, 50, lanes=lanes
     )
-    print(f"book1 1920x1080 32spp d50: kernel {ms_full:.1f} ms "
+    print(f"K1 book1 1920x1080 32spp d50: kernel {ms_full:.1f} ms "
           f"({1920 * 1080 * 32 / ms_full / 1e3:.2f} Mrays/s); eager on "
           f"{lanes.numel()} lanes {plain_sub:.1f} ms")
     statistical_match(out / 32, ref / 32, "book1 1080p lane subset")
+    # Its work, counted by the record kernel 4 samples at a time.
+    sc = demo.book1_end_scene(width=1920)
+    sd, cp = sc.build(device=dev), sc.scene_cam.params(device=dev)
+    p_full = 1920 * 1080
+    searches = 0
+    for s0 in range(0, 32, 4):
+        rec = replay.trace_record_mega(
+            sd, cp, 1920, 1080, torch.arange(p_full, device=dev).repeat(4),
+            torch.arange(s0, s0 + 4, device=dev).repeat_interleave(p_full), 0, 50,
+        )
+        searches += int((rec & 1).sum())
+    del rec
+    # Bytes: each pixel's id, first sample and sums, and the table.
+    b, by = bound(searches * n_active * SEARCH_OPS,
+                  (2 + 3) * p_full * 4 + nbytes(k1_in["table"]))
+    print(f"  K1 1080p work: {searches} searches x {n_active} rows; bound {b:.3f} ms ({by})")
 
-    # --- main path ------------------------------------------------------------
+    # --- K2, K4, K3 at the comparison shape: book1 320w, 4 spp, depth 8 -------
+    def grad_inputs(make, width, spp, depth):
+        """Inputs of K2 and of the replay kernels for every pixel of
+        ``make(width=width)`` at ``spp`` samples, lanes sample-major as
+        ``grad`` lays them out."""
+        sc = make(width=width)
+        sd, cp = sc.build(device=dev), sc.scene_cam.params(device=dev)
+        w, h = sc.scene_cam.image_width, sc.scene_cam.image_height
+        p = w * h
+        pix = torch.arange(p, device=dev, dtype=torch.int32).repeat(spp)
+        smp = torch.arange(spp, device=dev, dtype=torch.int32).repeat_interleave(p)
+        smem = torch.tensor([0, 0, w, depth, 0, 0, 0, 0], dtype=torch.int32, device=dev)
+        k2 = dict(smem=smem, pix=pix[None], sample0=smp[None],
+                  cam=integrator.mega_cam_vector(cp, w, h),
+                  table=integrator.make_sphere_table(sd).contiguous())
+        o, d, _ = generate_rays(cp, w, h, pix, smp, 0)
+        return k2, (k2["table"], o.contiguous(), d.contiguous(), torch.ones_like(pix),
+                    pix, smp)
+
+    def k2_check(k2, depth, what, sub=None):
+        acc, rec = mk.run_megakernel_record(**k2, max_depth=depth, radiance=True)
+        _, plain = mk.run_megakernel_record(**k2, max_depth=depth)
+        bit_equal(rec, plain, f"{what} fused vs plain records")
+        if sub is not None:
+            k2 = dict(k2, pix=k2["pix"][:, sub], sample0=k2["sample0"][:, sub])
+            acc, rec = acc[:, sub], rec[:, sub]
+        (ref_acc, ref_rec), plain_ms = host_ms(
+            lambda: mk.run_megakernel_record_reference(**k2, max_depth=depth, radiance=True)
+        )
+        bit_equal(rec, ref_rec, f"{what} records")
+        return bit_equal(acc, ref_acc, f"{what} fused radiance"), plain_ms, plain
+
+    k2_check(grad_inputs(demo.smoke_scene, 64, 4, 8)[0], 8, "K2 smoke 64w 4spp d8")
+
+    k2, rin = grad_inputs(demo.book1_end_scene, 320, 4, 8)
+    k2_err, k2_plain, rec320 = k2_check(k2, 8, "K2 book1 320w 4spp d8")
+    k2_ms = cuda_ms(lambda: mk.run_megakernel_record(**k2, max_depth=8, radiance=True), 3)
+    n_active = int((k2["table"][:, 5] > 0).sum())
+    searches = int((rec320 & 1).sum())
+    k2_bound, k2_by = bound(
+        searches * n_active * SEARCH_OPS,
+        nbytes(*k2.values()) + nbytes(rec320) + 3 * rec320.shape[1] * 4,
+    )
+    print(f"K2 book1 320w 4spp d8: kernel {k2_ms:.3f} ms, twin {k2_plain:.1f} ms, "
+          f"bound {k2_bound:.4f} ms ({k2_by}, {searches} searches)")
+    kernels["megakernel_record"] = dict(
+        source="crucible_tpu_torch/csrc/megakernel.cu",
+        replaces="crucible_tpu/ops/pallas/megakernel.py:1828",
+        max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain,
+        bound_ms=k2_bound, bound_by=k2_by,
+    )
+
+    def replay_work(rec):
+        alive = int((rec & 1).sum())
+        cont = int(((rec & 8) > 0).sum())
+        return alive, cont
+
+    rargs = (*rin, rec320, 0)
+    rad = rk.replay_forward(*rargs)
+    ref, k4_plain = host_ms(lambda: rk.replay_forward_reference(*rargs))
+    k4_err = bit_equal(rad, ref, "K4 book1 320w 4spp d8 radiance")
+    k4_ms = cuda_ms(lambda: rk.replay_forward(*rargs), 3)
+    alive, cont = replay_work(rec320)
+    k4_in = nbytes(*rin, rec320)
+    k4_bound, k4_by = bound(alive * ROW_OPS + cont * SCATTER_OPS, k4_in + nbytes(rad))
+    print(f"K4 book1 320w 4spp d8: kernel {k4_ms:.3f} ms, twin {k4_plain:.1f} ms, "
+          f"bound {k4_bound:.4f} ms ({k4_by}; {alive} alive rows, {cont} continuing)")
+    kernels["replay_forward"] = dict(
+        source="crucible_tpu_torch/csrc/replay_kernel.cu",
+        replaces="crucible_tpu/ops/pallas/replay_kernel.py:851",
+        max_abs_err=k4_err, ms=k4_ms, plain_ms=k4_plain,
+        bound_ms=k4_bound, bound_by=k4_by,
+    )
+
+    g_rad = torch.randn(rad.shape, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    got = rk.replay_backward(*rargs, g_rad)
+    again = rk.replay_backward(*rargs, g_rad)
+    bit_equal(got[0], again[0], "K3 g_table, launch vs launch")
+    want, k3_plain = host_ms(lambda: rk.replay_backward_reference(*rargs, g_rad))
+    k3_err = k3_scheme(got, want, "K3 book1 320w 4spp d8")
+    k3_ms = cuda_ms(lambda: rk.replay_backward(*rargs, g_rad), 3)
+    k3_bound, k3_by = bound(
+        2 * (alive * ROW_OPS + cont * SCATTER_OPS)
+        + alive * ADJOINT_ROW_OPS + cont * ADJOINT_SCATTER_OPS,
+        k4_in + nbytes(g_rad, *got),
+    )
+    print(f"K3 book1 320w 4spp d8: kernel {k3_ms:.3f} ms, twin {k3_plain:.1f} ms, "
+          f"bound {k3_bound:.4f} ms ({k3_by})")
+    kernels["replay_backward"] = dict(
+        source="crucible_tpu_torch/csrc/replay_kernel.cu",
+        replaces="crucible_tpu/ops/pallas/replay_kernel.py:871",
+        max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain,
+        bound_ms=k3_bound, bound_by=k3_by,
+    )
+    del k2, rin, rargs, rec320, got, again, want, g_rad
+
+    # --- K2, K4, K3 at the gradient step's shape: 1920x1080, 4 spp, depth 8 ---
+    k2, rin = grad_inputs(demo.book1_end_scene, 1920, 4, 8)
+    r = rin[1].shape[0]
+    sub = torch.randperm(r, generator=torch.Generator().manual_seed(1))[:N_SUB]
+    sub = sub.sort().values.to(dev)
+    k2_check(k2, 8, f"K2 1920x1080 4spp d8 on {N_SUB} lanes", sub=sub)
+    rec = mk.run_megakernel_record(**k2, max_depth=8)[1]
+    ms = cuda_ms(lambda: mk.run_megakernel_record(**k2, max_depth=8, radiance=True), 3)
+    searches = int((rec & 1).sum())
+    b, by = bound(searches * n_active * SEARCH_OPS,
+                  nbytes(*k2.values()) + nbytes(rec) + 3 * r * 4)
+    print(f"K2 1920x1080 4spp d8 (fused): {ms:.3f} ms, bound {b:.3f} ms ({by})")
+    rargs = (*rin, rec, 0)
+    rad = rk.replay_forward(*rargs)
+    sub_args = tuple(x[sub] for x in rin[1:]) + (rec[:, sub], 0)
+    bit_equal(rad[sub], rk.replay_forward_reference(rin[0], *sub_args),
+              f"K4 1920x1080 on {N_SUB} lanes")
+    ms = cuda_ms(lambda: rk.replay_forward(*rargs), 3)
+    alive, cont = replay_work(rec)
+    k4_in = nbytes(*rin, rec)
+    b, by = bound(alive * ROW_OPS + cont * SCATTER_OPS, k4_in + nbytes(rad))
+    print(f"K4 1920x1080 4spp d8: {ms:.3f} ms, bound {b:.3f} ms ({by})")
+    g_rad = torch.randn(rad.shape, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    got = rk.replay_backward(*rargs, g_rad)
+    bit_equal(got[0], rk.replay_backward(*rargs, g_rad)[0], "K3 1080p g_table, twice")
+    got_sub = rk.replay_backward(rin[0], *sub_args, g_rad[sub])
+    want_sub = rk.replay_backward_reference(rin[0], *sub_args, g_rad[sub])
+    k3_scheme(got_sub, want_sub, f"K3 on {N_SUB} lanes of 1080p")
+    k3_scheme((got_sub[0], got[1][sub], got[2][sub]), want_sub,
+              "K3 1080p launch, lane cotangents")
+    ms = cuda_ms(lambda: rk.replay_backward(*rargs, g_rad), 3)
+    b, by = bound(2 * (alive * ROW_OPS + cont * SCATTER_OPS)
+                  + alive * ADJOINT_ROW_OPS + cont * ADJOINT_SCATTER_OPS,
+                  k4_in + nbytes(g_rad, *got))
+    print(f"K3 1920x1080 4spp d8: {ms:.3f} ms, bound {b:.3f} ms ({by}); "
+          f"{alive} alive rows, {cont} continuing")
+    del k2, rin, rargs, rec, rad, got, g_rad, got_sub, want_sub
+
+    # --- the gradient step on the card vs on the CPU (twins), small -----------
+    sc = demo.book1_end_scene(width=64)
+    kw = dict(width=64, height=36, spp=2, max_depth=8)
+    results = []
+    for where in (dev, torch.device("cpu")):
+        sd, cp = sc.build(device=where), sc.scene_cam.params(device=where)
+        results.append(grad.loss_and_grad(
+            grad.extract_params(sd, cp), sd, cp, torch.zeros((64 * 36, 3), device=where),
+            torch.arange(64 * 36, device=where), 0, **kw,
+        ))
+    (lc, gc), (lp, gp) = results
+    rel = abs(lc.item() - lp.item()) / lp.item()
+    print(f"loss_and_grad book1 64w 2spp d8, card vs CPU: loss {lc.item():.6f} vs "
+          f"{lp.item():.6f} (rel {rel:.2g})")
+    if not rel <= 1e-4:
+        raise AssertionError("the gradient step on the card and on the CPU disagree")
+    for key in grad.TENSOR_KEYS:
+        a, b = gc[key].cpu(), gp[key]
+        nd = ((a - b).abs().max() / max(b.abs().max().item(), 1e-6)).item()
+        print(f"  {key}: max normalized diff {nd:.3g}")
+        if not nd <= 1e-3:
+            raise AssertionError(f"{key}: card and CPU gradients disagree")
+
+    # --- main path 1: the forward render ---------------------------------------
     scene = demo.book1_end_scene(width=1920)
     mk.LAUNCHES = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    img = render.render_image(scene, samples=32, max_depth=50, device="cuda")
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = mk.LAUNCHES
+    img, ms = host_ms(lambda: render.render_image(scene, samples=32, max_depth=50))
+    launches_k1 = mk.LAUNCHES
     if tuple(img.shape) != (1080, 1920, 3):
         raise AssertionError(f"image shape {tuple(img.shape)}")
     if not bool(torch.isfinite(img).all()):
         raise AssertionError("image has non-finite values")
-    if launches < 1:
+    if launches_k1 < 1:
         raise AssertionError("the render did not launch the megakernel")
-    mrays = 1920 * 1080 * 32 / seconds / 1e6
-    print(f"render_image book1 1920x1080 32spp d50: {seconds:.3f} s, "
-          f"{mrays:.2f} Mrays/s, mean {img.mean().item():.5f}, "
-          f"megakernel launches {launches}")
+    print(f"render_image book1 1920x1080 32spp d50: {ms / 1e3:.3f} s, "
+          f"{1920 * 1080 * 32 / ms / 1e3:.2f} Mrays/s, mean {img.mean().item():.5f}, "
+          f"megakernel launches {launches_k1}")
     from crucible_tpu_torch.io.image import write_png
 
     png = REPO / "build" / "chip_smoke_book1.png"
     png.parent.mkdir(parents=True, exist_ok=True)
     write_png(png, render.to_u8(img))
     print(f"wrote {png.relative_to(REPO)}")
+    del img
+    kernels["megakernel_forward"]["launches"] = launches_k1
+
+    # --- main path 2: the gradient step, 1920x1080, 4 spp, depth 8 --------------
+    sd, cp = scene.build(), scene.scene_cam.params()
+    w, h, spp = 1920, 1080, 4
+    pix = torch.arange(w * h, device=dev)
+    target = torch.zeros((w * h, 3), device=dev)
+    kw = dict(width=w, height=h, spp=spp, max_depth=8)
+    mrays = w * h * spp / 1e6
+    counts = {"megakernel_record": 0, "replay_forward": 0, "replay_backward": 0}
+
+    def zero_counts():
+        mk.LAUNCHES_RECORD = rk.LAUNCHES_FORWARD = rk.LAUNCHES_BACKWARD = 0
+
+    def read_counts(what, need):
+        got = {"megakernel_record": mk.LAUNCHES_RECORD,
+               "replay_forward": rk.LAUNCHES_FORWARD,
+               "replay_backward": rk.LAUNCHES_BACKWARD}
+        print(f"  {what} launches: {got}")
+        for name in need:
+            if got[name] < 1:
+                raise AssertionError(f"{what} did not launch {name}")
+        for name, n in got.items():
+            counts[name] += n
+
+    def check_grads(loss, grads):
+        if not math.isfinite(loss.item()):
+            raise AssertionError("non-finite loss")
+        for key in grad.TENSOR_KEYS:
+            g = grads[key]
+            if g.shape != grad.extract_params(sd, cp)[key].shape or not bool(g.isfinite().all()):
+                raise AssertionError(f"gradient {key}: bad shape or non-finite")
+
+    params = grad.extract_params(sd, cp)
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    (loss0, grads), ms = host_ms(lambda: grad.loss_and_grad(params, sd, cp, target, pix, 0, **kw))
+    check_grads(loss0, grads)
+    print(f"loss_and_grad 1920x1080 4spp d8, warm step: {ms / 1e3:.3f} s, "
+          f"loss {loss0.item():.6f}")
+    step_ms = []
+    for i in range(3):
+        (loss, grads), ms = host_ms(
+            lambda: grad.loss_and_grad(params, sd, cp, target, pix, 0, **kw))
+        check_grads(loss, grads)
+        step_ms.append(ms)
+        print(f"  step {i}: {ms / 1e3:.4f} s, {mrays / (ms / 1e3):.2f} Mrays/s")
+    print(f"  nvidia-smi: {smi()}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    read_counts("loss_and_grad", ("megakernel_record", "replay_backward"))
+
+    zero_counts()
+    rec, ms = host_ms(lambda: grad.record_decisions(sd, cp, pix, 0, **kw))
+    print(f"record_decisions 1920x1080 4spp d8: {ms / 1e3:.4f} s, records "
+          f"{tuple(rec.shape)} ({nbytes(rec) / 1e6:.0f} MB)")
+    for i in range(3):
+        (loss, grads), ms = host_ms(
+            lambda: grad.loss_and_grad(params, sd, cp, target, pix, 0, rec=rec, **kw))
+        check_grads(loss, grads)
+        print(f"  frozen step {i}: {ms / 1e3:.4f} s, {mrays / (ms / 1e3):.2f} Mrays/s, "
+              f"loss {loss.item():.6f}")
+    rel = abs(loss.item() - loss0.item()) / loss0.item()
+    if not rel <= 2e-3:
+        raise AssertionError(f"frozen and fused losses differ by rel {rel:.3g}")
+    read_counts("frozen-decision steps",
+                ("megakernel_record", "replay_forward", "replay_backward"))
+    del rec
+
+    opt_keys = ("tex_color", "mat_emission")
+    tparams = dict(params, **{k: params[k].clone().requires_grad_(True) for k in opt_keys})
+    step = grad.make_train_step(
+        torch.optim.Adam([tparams[k] for k in opt_keys], lr=0.05), **kw)
+    zero_counts()
+    losses = []
+    for i in range(3):
+        loss, ms = host_ms(lambda: step(tparams, sd, cp, target, pix, 0))
+        losses.append(loss.item())
+        print(f"  train step {i}: {ms / 1e3:.4f} s, {mrays / (ms / 1e3):.2f} Mrays/s, "
+              f"loss {losses[-1]:.6f}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"Adam steps did not lower the loss: {losses}")
+    read_counts("train steps", ("megakernel_record", "replay_backward"))
+    for name, n in counts.items():
+        kernels[name]["launches"] = n
+
+    # One step under the profiler: device time by kernel, against the
+    # median timed step's wall time.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        grad.loss_and_grad(params, sd, cp, target, pix, 0, **kw)
+        torch.cuda.synchronize()
+    rows = sorted(
+        (e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+        key=lambda e: -e.self_device_time_total,
+    )
+    total = sum(e.self_device_time_total for e in rows) / 1e3
+    wall = sorted(step_ms)[1]
+    print(f"profile of one loss_and_grad step: {total:.2f} ms in {sum(e.count for e in rows)} "
+          f"kernel launches = {100 * total / wall:.1f}% of the median step's {wall:.1f} ms")
+    for e in rows[:10]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d}x  {e.key[:70]}")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check")
 
     print(card)
-    print(json.dumps({"kernels": [{
-        "name": "megakernel_forward",
-        "route": "cuda",
-        "source": "crucible_tpu_torch/csrc/megakernel.cu",
-        "replaces": "crucible_tpu/ops/pallas/megakernel.py:1681",
-        "launches": launches,
-        "max_abs_err": err320,
-        "ms": ms320,
-        "plain_ms": plain320,
-    }]}))
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": k["source"],
+         "replaces": k["replaces"], "launches": k["launches"],
+         "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
+         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+         # No one PyTorch call computes any of these functions.
+         "library_ms": None}
+        for name, k in kernels.items()
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,9 @@ own scenes.
 Array keys are the ``SceneData`` field names, with the texture table's
 fields prefixed ``tex_``; static keys are ``sky_kind``, ``num_spheres``,
 ``num_tris``, ``animated``, ``motion_exact`` and ``max_nest``.
+:func:`params_from_arrays` / :func:`params_to_arrays` carry the gradient
+path's parameter dict (``grad.extract_params``) the same way. Packed
+decision records cross as int32 arrays.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from dataclasses import fields
 import numpy as np
 import torch
 
+from crucible_tpu_torch.grad import TENSOR_KEYS
 from crucible_tpu_torch.models.camera import CameraParams
 from crucible_tpu_torch.models.scene import SceneData
 from crucible_tpu_torch.models.textures import TextureTable
@@ -39,7 +43,7 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
 
 
 def scene_data_from_arrays(
-    arrays: dict[str, np.ndarray], *, device, max_nest: int = 1, **static
+    arrays: dict[str, np.ndarray], *, device="cuda", max_nest: int = 1, **static
 ) -> SceneData:
     """SceneData on ``device`` from numpy arrays (keys: module docstring).
     Unknown static keys raise ``TypeError``."""
@@ -68,7 +72,7 @@ def scene_data_to_arrays(sd: SceneData) -> tuple[dict[str, np.ndarray], dict]:
 
 
 def camera_params_from_arrays(
-    arrays: dict[str, np.ndarray], *, device, animated: bool = False,
+    arrays: dict[str, np.ndarray], *, device="cuda", animated: bool = False,
     motion_exact: bool = False,
 ) -> CameraParams:
     """CameraParams on ``device`` from numpy arrays keyed by field name.
@@ -78,3 +82,25 @@ def camera_params_from_arrays(
         k: _tensor(np.asarray(arrays[k], np.float32), device) for k in CAMERA_ARRAYS
     }
     return CameraParams(**vals, animated=animated, motion_exact=motion_exact)
+
+
+
+def params_from_arrays(arrays: dict, *, device="cuda") -> dict:
+    """A ``grad.extract_params`` dict on ``device`` from numpy arrays with
+    the same keys (``grad.TENSOR_KEYS`` hold the arrays). ``tex_images`` must be empty and ``sky_image`` None (the
+    port renders neither)."""
+    if len(arrays.get("tex_images", ())) or arrays.get("sky_image") is not None:
+        raise NotImplementedError(
+            "image textures and the spherical sky are not ported to "
+            "crucible_tpu_torch yet"
+        )
+    params = {
+        k: _tensor(np.asarray(arrays[k], np.float32), device) for k in TENSOR_KEYS
+    }
+    return {**params, "tex_images": (), "sky_image": None}
+
+
+def params_to_arrays(params: dict) -> dict:
+    """The inverse of :func:`params_from_arrays`."""
+    out = {k: params[k].detach().cpu().numpy() for k in TENSOR_KEYS}
+    return {**out, "tex_images": (), "sky_image": None}

@@ -1,28 +1,37 @@
-// Persistent path-tracing megakernel for sphere scenes, forward mode, on Hopper.
+// Persistent path-tracing megakernel for sphere scenes on Hopper: forward
+// mode (K1) and record mode (K2).
 //
-// Replaces crucible_tpu/ops/pallas/megakernel.py::_kernel in forward mode
-// (run_megakernel), for its brute-sphere, static-camera, non-animated branch:
-// camera ray generation with jitter and defocus, the PCG4D counter hash, the
-// closest-root sphere quadratic over every table row, the winner's attribute
-// fetch, solid / checker-of-solid albedo, default sky, emission, and
-// Lambertian / metal / dielectric / emissive scatter, accumulated into per-lane
-// radiance sums.
+// Replaces crucible_tpu/ops/pallas/megakernel.py::_kernel for its
+// brute-sphere, static-camera, non-animated branch, in both of its modes:
+// - forward (run_megakernel, pallas_call at megakernel.py:1681): camera ray
+//   generation with jitter and defocus, the PCG4D counter hash, the
+//   closest-root sphere quadratic over every table row, the winner's
+//   attribute fetch, solid / checker-of-solid albedo, default sky, emission,
+//   and Lambertian / metal / dielectric / emissive scatter, accumulated into
+//   per-lane radiance sums;
+// - record (run_megakernel_record, pallas_call at megakernel.py:1828): each
+//   lane traces one (pixel, sample) path and writes one packed decision word
+//   per bounce (winner id * 256 + flag byte, models/replay.py layout); the
+//   fused variant also accumulates that path's radiance from bounce
+//   smem[4] on.
+// Both modes are one templated kernel: the record flags only add the
+// decision words, so the forward instantiation's arithmetic is unchanged.
 //
 // What bounds it on this card: per-thread FP32 work on the N-row quadratic
 // (about 20 flops and a square root per row per bounce), with divergence at
-// the material branches and at path termination.
+// the material branches and at path termination. Record mode adds 4 bytes
+// per bounce per lane of stores (coalesced: row-major (D, R)).
 //
 // Design: one thread per lane. The thread walks its pixel's samples
-// sample0..spp-1 and, within each sample, bounces until the path ends; lanes
-// are independent, so the TPU kernel's lockstep regeneration bookkeeping
-// becomes this plain nested loop. The lanes arrive in the 32x16 pixel-block
-// order that integrator.trace_persistent_mega builds, so a warp covers 32
-// neighbouring pixels. The intersection columns of the table (center x/y/z,
-// |c|^2 - r^2, active) are staged once per block in shared memory as SoA;
-// every thread of a warp reads the same row at the same time, which shared
-// memory serves as a broadcast. The winner's row is read from global memory
-// by index: an indexed load is exact, so the TPU's one-hot MXU fetch and its
-// bf16 split have no counterpart here. On a miss no row is read.
+// sample0..spp-1 (record mode: sample0 only) and, within each sample,
+// bounces until the path ends; lanes are independent, so the TPU kernel's
+// lockstep regeneration bookkeeping becomes this plain nested loop. The
+// intersection columns of the table (center x/y/z, |c|^2 - r^2, active) are
+// staged once per block in shared memory as SoA; every thread of a warp
+// reads the same row at the same time, which shared memory serves as a
+// broadcast. The winner's row is read from global memory by index: an
+// indexed load is exact, so the TPU's one-hot MXU fetch and its bf16 split
+// have no counterpart here. On a miss no row is read.
 //
 // Numerics: every literal is float32 and the arithmetic follows the Pallas
 // kernel's association operation for operation. Build with -fmad=false and
@@ -32,66 +41,38 @@
 // of the transcendental functions. Re-enabling FMA contraction is left to a
 // later change that re-measures both speed and agreement.
 //
-// Interface: a plain C entry point, bound from Python with ctypes. It launches
-// on the caller's stream, allocates nothing and returns cudaGetLastError().
+// Interface: plain C entry points, bound from Python with ctypes. They
+// launch on the caller's stream, allocate nothing and return
+// cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
+
+using namespace crucible;
 
 constexpr int C_IN = 32;           // table columns (sphere_shade.py layout)
 constexpr int SMEM_COLS = 5;       // staged columns: cx, cy, cz, csr, active
 constexpr int BLOCK = 128;         // threads per block (4 warps)
 constexpr float BIG = 3.0e38f;     // "no hit" distance
-constexpr float TWO_PI = 6.2831855f;  // float32(2*pi)
-constexpr uint32_t PCG_MULT = 1664525u;
-constexpr uint32_t PCG_ADD = 1013904223u;
-constexpr uint32_t STREAM_PIXEL_JITTER = 1u;
-constexpr uint32_t STREAM_BOUNCE_BASE = 3u;
-constexpr float METAL = 1.0f;
-constexpr float DIELECTRIC = 2.0f;
-constexpr float EMISSIVE = 3.0f;
-constexpr float TEX_CHECKER = 1.0f;
+constexpr int NO_SAMPLE = 1 << 30;  // sample0 of a padding lane
 
-struct U4 {
-  float x, y, z, w;
-};
-
-// PCG4D (utils/rng.py) in native uint32 arithmetic, which wraps as the
-// reference's uint32 arithmetic does.
-__device__ __forceinline__ U4 uniform4(uint32_t x, uint32_t y, uint32_t z,
-                                       uint32_t w) {
-  x = x * PCG_MULT + PCG_ADD;
-  y = y * PCG_MULT + PCG_ADD;
-  z = z * PCG_MULT + PCG_ADD;
-  w = w * PCG_MULT + PCG_ADD;
-  x += y * w;
-  y += z * x;
-  z += x * y;
-  w += y * z;
-  x ^= x >> 16;
-  y ^= y >> 16;
-  z ^= z >> 16;
-  w ^= w >> 16;
-  x += y * w;
-  y += z * x;
-  z += x * y;
-  w += y * z;
-  // Top 24 bits -> [0, 1), exact in float32.
-  const float s = 0x1p-24f;
-  return U4{(float)(x >> 8) * s, (float)(y >> 8) * s, (float)(z >> 8) * s,
-            (float)(w >> 8) * s};
-}
-
-__global__ void __launch_bounds__(BLOCK) megakernel_forward(
-    const int32_t* __restrict__ smem,     // (8,) [spp, seed, width, max_depth, ...]
+// RECORD: one path per lane, decision words to `rec` (D, R).
+// RADIANCE: accumulate radiance into `out` (3, R); in record mode only from
+// bounce smem[4] on. Forward mode is <false, true>.
+template <bool RECORD, bool RADIANCE>
+__global__ void __launch_bounds__(BLOCK) megakernel(
+    const int32_t* __restrict__ smem,     // (8,) [spp, seed, width, max_depth, accum_from, ...]
     const int32_t* __restrict__ pix_in,   // (R,) pixel ids
     const int32_t* __restrict__ sample0,  // (R,) first sample (2^30 = padding)
     const float* __restrict__ cam,        // (48,) camera constants
     const float* __restrict__ table,      // (N, 32) sphere attribute table
     int n, int r, float t_min,
-    float* __restrict__ out) {            // (3, R) radiance sums
+    float* __restrict__ out,              // (3, R) radiance sums
+    int32_t* __restrict__ rec) {          // (max_depth, R) records (RECORD only)
   extern __shared__ float sh[];
   float* s_cx = sh;
   float* s_cy = sh + n;
@@ -115,6 +96,7 @@ __global__ void __launch_bounds__(BLOCK) megakernel_forward(
   const uint32_t seed = (uint32_t)smem[1];
   const int width = smem[2];
   const int max_depth = smem[3];
+  const int accum_from = RECORD ? smem[4] : 0;
 
   const int pix = pix_in[lane];
   const uint32_t upix = (uint32_t)pix;
@@ -131,8 +113,13 @@ __global__ void __launch_bounds__(BLOCK) megakernel_forward(
   const float defr = cam[18];
 
   float ax = 0.0f, ay = 0.0f, az = 0.0f;
+  // Record rows written so far; the rest are zeroed after the path ends.
+  int rows = 0;
 
-  for (int smp = sample0[lane]; smp < spp; ++smp) {
+  // Record mode issues one path (sample0 itself); padding lanes none.
+  const int s0 = sample0[lane];
+  const int s_end = RECORD ? (s0 < NO_SAMPLE ? s0 + 1 : s0) : spp;
+  for (int smp = s0; smp < s_end; ++smp) {
     // --- primary ray: jitter + defocus from one hash -----------------------
     const U4 uc = uniform4(upix, (uint32_t)smp, STREAM_PIXEL_JITTER, seed);
     const float oxj = fi + (uc.x - 0.5f);
@@ -181,13 +168,17 @@ __global__ void __launch_bounds__(BLOCK) megakernel_forward(
       }
 
       const float dlen = fmaxf(sqrtf(a_q), 1e-20f);
+      const bool acc_row = !RECORD || bounce >= accum_from;
       if (win < 0) {
         // Miss: default sky gradient on the unit direction; the path ends.
-        const float sky_a = 0.5f * (dy / dlen + 1.0f);
-        const float one_m_a = 1.0f - sky_a;
-        ax = ax + tx * (one_m_a + sky_a * 0.5f);
-        ay = ay + ty * (one_m_a + sky_a * 0.7f);
-        az = az + tz * (one_m_a + sky_a);
+        if (RADIANCE && acc_row) {
+          const float sky_a = 0.5f * (dy / dlen + 1.0f);
+          const float one_m_a = 1.0f - sky_a;
+          ax = ax + tx * (one_m_a + sky_a * 0.5f);
+          ay = ay + ty * (one_m_a + sky_a * 0.7f);
+          az = az + tz * (one_m_a + sky_a);
+        }
+        if (RECORD) rec[(size_t)(rows++) * r + lane] = F_ALIVE;
         break;
       }
       const float* row = table + (size_t)win * C_IN;
@@ -206,27 +197,29 @@ __global__ void __launch_bounds__(BLOCK) megakernel_forward(
       ny = ny * sgn;
       nz = nz * sgn;
 
-      // --- emission ---------------------------------------------------------
-      ax = ax + tx * row[10];
-      ay = ay + ty * row[11];
-      az = az + tz * row[12];
-
-      // --- albedo: solid or 3-D checker of solids ---------------------------
-      const float inv_scale = row[17];
-      const int xf = (int)floorf(inv_scale * hx);
-      const int yf = (int)floorf(inv_scale * hy);
-      const int zf = (int)floorf(inv_scale * hz);
-      // C's '%' truncates, but "== 0" gives the same even/odd answer.
-      const bool is_even = (xf + yf + zf) % 2 == 0;
-      float alr, alg, alb;
-      if (row[13] == TEX_CHECKER) {
-        alr = is_even ? row[18] : row[21];
-        alg = is_even ? row[19] : row[22];
-        alb = is_even ? row[20] : row[23];
-      } else {
-        alr = row[14];
-        alg = row[15];
-        alb = row[16];
+      // --- emission + albedo: solid or 3-D checker of solids ----------------
+      float alr = 0.0f, alg = 0.0f, alb = 0.0f;
+      if (RADIANCE) {
+        if (acc_row) {
+          ax = ax + tx * row[10];
+          ay = ay + ty * row[11];
+          az = az + tz * row[12];
+        }
+        const float inv_scale = row[17];
+        const int xf = (int)floorf(inv_scale * hx);
+        const int yf = (int)floorf(inv_scale * hy);
+        const int zf = (int)floorf(inv_scale * hz);
+        // C's '%' truncates, but "== 0" gives the same even/odd answer.
+        const bool is_even = (xf + yf + zf) % 2 == 0;
+        if (row[13] == TEX_CHECKER) {
+          alr = is_even ? row[18] : row[21];
+          alg = is_even ? row[19] : row[22];
+          alb = is_even ? row[20] : row[23];
+        } else {
+          alr = row[14];
+          alg = row[15];
+          alb = row[16];
+        }
       }
 
       // --- scatter (models/materials.py) ------------------------------------
@@ -305,10 +298,47 @@ __global__ void __launch_bounds__(BLOCK) megakernel_forward(
         scattered = (u_dec <= prob) && (mat_type != EMISSIVE);
       }
 
+      if (RECORD) {
+        // The record keeps every decision the replay re-reads, computed for
+        // every material as the Pallas kernel computes them (megakernel.py
+        // l.1450-1505): the dielectric reflect choice and the Lambertian
+        // degeneracy on the row's own scalars, and which quadratic root the
+        // winner used, from the per-winner (non-expanded) quadratic that the
+        // replay re-solves.
+        const float udx = dx / dlen, udy = dy / dlen, udz = dz / dlen;
+        const float ior = row[8];
+        const float ri = front ? 1.0f / fmaxf(ior, 1e-8f) : ior;
+        const float cos_t = fminf(-(udx * nx + udy * ny + udz * nz), 1.0f);
+        const float sin_t = sqrtf(fmaxf(1.0e-12f, 1.0f - cos_t * cos_t));
+        float r0 = (1.0f - ri) / (1.0f + ri);
+        r0 = r0 * r0;
+        const float one_m = 1.0f - cos_t;
+        const float om2 = one_m * one_m;
+        const float schlick = r0 + (1.0f - r0) * om2 * om2 * one_m;
+        const bool refl = (ri * sin_t > 1.0f) || (schlick > u_dec);
+        const bool degen = fabsf(nx + rx) < 1e-8f && fabsf(ny + ry) < 1e-8f &&
+                           fabsf(nz + rz) < 1e-8f;
+        const float r_ocx = row[0] - ox;
+        const float r_ocy = row[1] - oy;
+        const float r_ocz = row[2] - oz;
+        const float r_h = dx * r_ocx + dy * r_ocy + dz * r_ocz;
+        const float r_c =
+            r_ocx * r_ocx + r_ocy * r_ocy + r_ocz * r_ocz - row[3] * row[3];
+        const float r_disc = fmaxf(r_h * r_h - a_q * r_c, 0.0f);
+        const float r_root0 = (r_h - sqrtf(r_disc)) * inv_a;
+        const bool root1 = !(r_root0 > t_min);
+        const int flags = F_ALIVE | F_HIT | (scattered ? F_SCAT : 0) |
+                          (front ? F_FRONT : 0) | (refl ? F_REFL : 0) |
+                          (degen ? F_DEGEN : 0) | (root1 ? F_ROOT1 : 0);
+        rec[(size_t)(rows++) * r + lane] = win * REC_ID_SCALE + flags;
+      }
+
       if (!(scattered && bounce + 1 < max_depth)) break;
-      tx = tx * atr;
-      ty = ty * atg;
-      tz = tz * atb;
+      if (RADIANCE) {
+        tx = tx * atr;
+        ty = ty * atg;
+        tz = tz * atb;
+      }
       ox = hx;
       oy = hy;
       oz = hz;
@@ -318,9 +348,33 @@ __global__ void __launch_bounds__(BLOCK) megakernel_forward(
     }
   }
 
+  if (RECORD) {
+    // Rows after the path's end stay zero (F_ALIVE clear).
+    for (; rows < max_depth; ++rows) rec[(size_t)rows * r + lane] = 0;
+  }
   out[lane] = ax;
   out[(size_t)r + lane] = ay;
   out[2 * (size_t)r + lane] = az;
+}
+
+template <bool RECORD, bool RADIANCE>
+int launch(const int32_t* smem, const int32_t* pix, const int32_t* sample0,
+           const float* cam, const float* table, int n, int r, float t_min,
+           float* out, int32_t* rec, void* stream) {
+  const int smem_bytes = n * SMEM_COLS * (int)sizeof(float);
+  if (smem_bytes > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        megakernel<RECORD, RADIANCE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int grid = (r + BLOCK - 1) / BLOCK;
+  if (grid > 0) {
+    megakernel<RECORD, RADIANCE>
+        <<<grid, BLOCK, smem_bytes, (cudaStream_t)stream>>>(
+            smem, pix, sample0, cam, table, n, r, t_min, out, rec);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -332,24 +386,29 @@ int crucible_megakernel_smem_bytes(int n) {
   return n * SMEM_COLS * (int)sizeof(float);
 }
 
-// Launch the forward megakernel on `stream`; returns cudaGetLastError().
+// Launch the forward megakernel (K1) on `stream`; returns cudaGetLastError().
 int crucible_megakernel_forward(const int32_t* smem, const int32_t* pix,
                                 const int32_t* sample0, const float* cam,
                                 const float* table, int n, int r, float t_min,
                                 float* out, void* stream) {
-  const int smem_bytes = crucible_megakernel_smem_bytes(n);
-  if (smem_bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        megakernel_forward, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes);
-    if (e != cudaSuccess) return (int)e;
+  return launch<false, true>(smem, pix, sample0, cam, table, n, r, t_min, out,
+                             nullptr, stream);
+}
+
+// Launch the record-mode megakernel (K2): `rec` (smem[3], R) int32 packed
+// decision words; `out` (3, R) the fused radiance when `radiance` is nonzero,
+// else zeros. Returns cudaGetLastError().
+int crucible_megakernel_record(const int32_t* smem, const int32_t* pix,
+                               const int32_t* sample0, const float* cam,
+                               const float* table, int n, int r, float t_min,
+                               int radiance, float* out, int32_t* rec,
+                               void* stream) {
+  if (radiance) {
+    return launch<true, true>(smem, pix, sample0, cam, table, n, r, t_min, out,
+                              rec, stream);
   }
-  const int grid = (r + BLOCK - 1) / BLOCK;
-  if (grid > 0) {
-    megakernel_forward<<<grid, BLOCK, smem_bytes, (cudaStream_t)stream>>>(
-        smem, pix, sample0, cam, table, n, r, t_min, out);
-  }
-  return (int)cudaGetLastError();
+  return launch<true, false>(smem, pix, sample0, cam, table, n, r, t_min, out,
+                             rec, stream);
 }
 
 const char* crucible_cuda_error_string(int err) {

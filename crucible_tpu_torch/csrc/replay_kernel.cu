@@ -1,0 +1,825 @@
+// Differentiable replay of recorded path decisions on Hopper: forward (K4),
+// backward (K3) and the fixed-order reduce of K3's table cotangent.
+//
+// Replaces crucible_tpu/ops/pallas/replay_kernel.py, lane-blocked layout:
+// - forward, _build_blk.fwd_call (pallas_call at replay_kernel.py:851,
+//   _fwd_kernel_blk l.648): every lane walks its packed record rows
+//   (models/replay.py F_* layout), fetches the winner's table row by index
+//   and runs the bounce math of _bounce (l.130-276) with the recorded
+//   decisions, summing radiance over rows >= accum_from;
+// - backward, _build_blk.bwd_call (pallas_call at l.871, _bwd_kernel_blk
+//   l.702): re-runs the forward while storing the carry (o, d, throughput)
+//   each row enters with, then walks the rows in reverse through a
+//   hand-written adjoint of _bounce, giving the per-lane cotangents of o
+//   and d and the (N, 32) table cotangent summed over all lanes.
+//
+// What bounds them on this card: the per-lane bounce arithmetic (a few
+// hundred FP32 operations, three square roots, a sine and a cosine per
+// alive row) and, for the backward, the table-cotangent reduction; the
+// bytes (records, rays, ids: ~80 B per lane plus 4 B per row) take a
+// fraction of a millisecond at 3.35 TB/s for 8.3M lanes.
+//
+// Design: one thread per lane. The 22 table channels the bounce reads
+// (replay_kernel.py USED, l.62) are staged once per block in shared memory,
+// rows padded to an odd stride so that lanes with different winners spread
+// over banks; the winner's channels are then an indexed shared-memory read,
+// exact, where the TPU needed a one-hot MXU contraction split in three bf16
+// passes. A row whose F_ALIVE bit is clear is the identity on the carry and
+// adds nothing, so it is skipped; a row that does not continue (no F_SCAT)
+// only adds its radiance, so its scatter is not evaluated.
+//
+// The backward stores the 9-float carry of every alive row in a scratch
+// buffer (depth x 9 floats per thread, coalesced) and re-reads the winner
+// channels from shared memory in the reverse sweep. Its table cotangent is
+// deterministic, with no float atomics: within a warp, lanes with the same
+// winner are summed by their lowest lane in ascending lane order
+// (__match_any_sync + shuffles); the four warps then add their sums into a
+// per-block partial in shared memory one warp after another; each block
+// walks a fixed set of lane tiles (grid-stride over a fixed block count)
+// and writes its partial; reduce_partials sums the partials in block order.
+// Two launches on the same inputs therefore give the same bits.
+//
+// Numerics: the forward follows _bounce operation for operation, with the
+// eager twin in ops/kernels/replay_kernel.py rounding alike (build with
+// -fmad=false, no fast math). The adjoint follows the gradient rules of the
+// twin's torch ops: clamp_min/clamp_max pass the gradient at a tie
+// (x >= lo, x <= hi), where jnp.maximum/minimum split it in halves; abs and
+// where agree with jnp. Ties need exact equalities (a radius of 1e-20, a
+// ray exactly along the normal), so the two differ only there.
+//
+// Interface: plain C entry points, bound from Python with ctypes. They
+// launch on the caller's stream, allocate nothing (the wrapper passes the
+// scratch buffers) and return cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "common.cuh"
+
+namespace {
+
+using namespace crucible;
+
+constexpr int C_IN = 32;    // table columns (make_sphere_table layout)
+constexpr int NU = 22;      // channels the bounce reads (USED)
+constexpr int TS = 23;      // shared-memory row stride (odd: bank spread)
+constexpr int BLOCK = 128;  // threads per block (4 warps)
+constexpr int NWARPS = BLOCK / 32;
+constexpr int NCARRY = 9;   // o, d, throughput
+
+// Channel j of a staged row holds table column USED[j].
+__constant__ int USED[NU] = {0,  1,  2,  3,  6,  7,  8,  9,  10, 11, 12,
+                             13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23};
+constexpr int J_CX = 0, J_CY = 1, J_CZ = 2, J_R = 3, J_MAT = 4, J_FUZZ = 5,
+              J_IOR = 6, J_PROB = 7, J_EM = 8, J_KIND = 11, J_COLOR = 12,
+              J_INVS = 15, J_EVEN = 16, J_ODD = 19;
+
+struct Carry {
+  float ox, oy, oz, dx, dy, dz, tx, ty, tz;
+};
+
+struct Dec {
+  int idx;
+  bool alive, hit, cont, front, refl, degen, root1;
+};
+
+__device__ __forceinline__ Dec decode(int32_t w) {
+  Dec d;
+  d.idx = (int)((uint32_t)w >> 8);
+  d.alive = (w & F_ALIVE) != 0;
+  d.hit = (w & F_HIT) != 0;
+  d.cont = (w & F_SCAT) != 0;
+  d.front = (w & F_FRONT) != 0;
+  d.refl = (w & F_REFL) != 0;
+  d.degen = (w & F_DEGEN) != 0;
+  d.root1 = (w & F_ROOT1) != 0;
+  return d;
+}
+
+__device__ __forceinline__ void stage_table(const float* __restrict__ table,
+                                            int n, float* s_tab) {
+  for (int k = threadIdx.x; k < n * NU; k += blockDim.x) {
+    const int row = k / NU, j = k % NU;
+    s_tab[row * TS + j] = table[(size_t)row * C_IN + USED[j]];
+  }
+}
+
+__device__ __forceinline__ Carry load_carry(const float* __restrict__ o,
+                                            const float* __restrict__ d,
+                                            const int32_t* __restrict__ valid,
+                                            int lane) {
+  const float thr = valid[lane] > 0 ? 1.0f : 0.0f;
+  const size_t b = (size_t)lane * 3;
+  return Carry{o[b], o[b + 1], o[b + 2], d[b], d[b + 1], d[b + 2], thr, thr,
+               thr};
+}
+
+// Albedo at the hit: solid, or 3-D checker of solids (no gradient through
+// the parity: floor is flat).
+__device__ __forceinline__ const float* albedo_of(const float* ch, float hx,
+                                                  float hy, float hz) {
+  if (ch[J_KIND] == TEX_CHECKER) {
+    const float inv_scale = ch[J_INVS];
+    const int xf = (int)floorf(inv_scale * hx);
+    const int yf = (int)floorf(inv_scale * hy);
+    const int zf = (int)floorf(inv_scale * hz);
+    // C's '%' truncates, but "== 0" gives the same even/odd answer.
+    return (xf + yf + zf) % 2 == 0 ? ch + J_EVEN : ch + J_ODD;
+  }
+  return ch + J_COLOR;
+}
+
+// One replay bounce (replay_kernel.py::_bounce with a live row): updates
+// the carry in place and returns the radiance increment (zero unless `acc`).
+__device__ __forceinline__ void bounce_fwd(Carry& c, const float* ch,
+                                           const Dec& dec, float u1, float u2,
+                                           float ud, bool acc, float& dr,
+                                           float& dg, float& db) {
+  // Winner quadratic -> recorded root.
+  const float cwx = ch[J_CX], cwy = ch[J_CY], cwz = ch[J_CZ], rw = ch[J_R];
+  const float a_q = c.dx * c.dx + c.dy * c.dy + c.dz * c.dz;
+  const float ocx = cwx - c.ox, ocy = cwy - c.oy, ocz = cwz - c.oz;
+  const float h_q = c.dx * ocx + c.dy * ocy + c.dz * ocz;
+  const float c_q = (ocx * ocx + ocy * ocy + ocz * ocz) - rw * rw;
+  const float disc = h_q * h_q - a_q * c_q;
+  const float sqrtd = disc > 0.0f ? sqrtf(disc) : 0.0f;
+  const float t_sph = (h_q + (dec.root1 ? sqrtd : -sqrtd)) / a_q;
+  const float t_sh = dec.hit ? t_sph : 1.0f;
+  const float hx = c.ox + t_sh * c.dx;
+  const float hy = c.oy + t_sh * c.dy;
+  const float hz = c.oz + t_sh * c.dz;
+  const float rmax = fmaxf(rw, 1e-20f);
+  float nx = (hx - cwx) / rmax, ny = (hy - cwy) / rmax, nz = (hz - cwz) / rmax;
+  if (!dec.front) {
+    nx = -nx;
+    ny = -ny;
+    nz = -nz;
+  }
+  const float dlen = fmaxf(sqrtf(a_q), 1e-20f);
+  const float udx = c.dx / dlen, udy = c.dy / dlen, udz = c.dz / dlen;
+
+  dr = dg = db = 0.0f;
+  if (acc) {
+    // Default-gradient sky on a miss, emission on a hit.
+    float cr, cg, cb;
+    if (dec.hit) {
+      cr = ch[J_EM];
+      cg = ch[J_EM + 1];
+      cb = ch[J_EM + 2];
+    } else {
+      const float a_sky = 0.5f * (udy + 1.0f);
+      const float one_m = 1.0f - a_sky;
+      cr = one_m + a_sky * 0.5f;
+      cg = one_m + a_sky * 0.7f;
+      cb = one_m + a_sky;
+    }
+    dr = c.tx * cr;
+    dg = c.ty * cg;
+    db = c.tz * cb;
+  }
+  if (!dec.cont) return;  // the carry passes through unchanged
+
+  const float* al = albedo_of(ch, hx, hy, hz);
+  const float rz = 1.0f - 2.0f * u1;
+  const float rr = sqrtf(fmaxf(0.0f, 1.0f - rz * rz));
+  const float rphi = TWO_PI * u2;
+  const float rux = rr * cosf(rphi), ruy = rr * sinf(rphi), ruz = rz;
+
+  const float mat = ch[J_MAT];
+  float ndx, ndy, ndz, atr, atg, atb;
+  if (mat == DIELECTRIC) {
+    const float ior = ch[J_IOR];
+    const float ri = dec.front ? 1.0f / ior : ior;
+    const float ud_dot_n = udx * nx + udy * ny + udz * nz;
+    if (dec.refl) {
+      const float k2 = 2.0f * ud_dot_n;
+      ndx = udx - k2 * nx;
+      ndy = udy - k2 * ny;
+      ndz = udz - k2 * nz;
+    } else {
+      const float cos_t = fminf(-ud_dot_n, 1.0f);
+      const float ppx = ri * (udx + cos_t * nx);
+      const float ppy = ri * (udy + cos_t * ny);
+      const float ppz = ri * (udz + cos_t * nz);
+      const float pp_sq = (ppx * ppx + ppy * ppy) + ppz * ppz;
+      const float par = -sqrtf(fmaxf(fabsf(1.0f - pp_sq), 1e-12f));
+      ndx = ppx + par * nx;
+      ndy = ppy + par * ny;
+      ndz = ppz + par * nz;
+    }
+    atr = atg = atb = 1.0f;
+  } else if (mat == METAL) {
+    const float fuzz = ch[J_FUZZ];
+    const float k = 2.0f * (c.dx * nx + c.dy * ny + c.dz * nz);
+    const float refx = c.dx - k * nx;
+    const float refy = c.dy - k * ny;
+    const float refz = c.dz - k * nz;
+    const float rlen =
+        fmaxf(sqrtf((refx * refx + refy * refy) + refz * refz), 1e-20f);
+    ndx = refx / rlen + fuzz * rux;
+    ndy = refy / rlen + fuzz * ruy;
+    ndz = refz / rlen + fuzz * ruz;
+    atr = al[0];
+    atg = al[1];
+    atb = al[2];
+  } else {
+    if (dec.degen) {
+      ndx = nx;
+      ndy = ny;
+      ndz = nz;
+    } else {
+      ndx = nx + rux;
+      ndy = ny + ruy;
+      ndz = nz + ruz;
+    }
+    const float pmax = fmaxf(ch[J_PROB], 1e-8f);
+    atr = al[0] / pmax;
+    atg = al[1] / pmax;
+    atb = al[2] / pmax;
+  }
+  c.tx = c.tx * atr;
+  c.ty = c.ty * atg;
+  c.tz = c.tz * atb;
+  c.ox = hx;
+  c.oy = hy;
+  c.oz = hz;
+  c.dx = ndx;
+  c.dy = ndy;
+  c.dz = ndz;
+}
+
+__device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
+                                      float by, float bz) {
+  return ax * bx + ay * by + az * bz;
+}
+
+// Adjoint of bounce_fwd on a live row. `c` is the carry the row entered
+// with; `g` holds the cotangent of the carry it leaves with and is replaced
+// by the cotangent of `c`; (grr, grg, grb) is the radiance cotangent, used
+// when `acc`. Writes the cotangents of the row's NU channels to `gch`.
+__device__ __forceinline__ void bounce_bwd(const Carry& c, const float* ch,
+                                           const Dec& dec, float u1, float u2,
+                                           float ud, bool acc, float grr,
+                                           float grg, float grb, Carry& g,
+                                           float* gch) {
+#pragma unroll
+  for (int j = 0; j < NU; ++j) gch[j] = 0.0f;
+
+  // --- forward values ------------------------------------------------------
+  const float cwx = ch[J_CX], cwy = ch[J_CY], cwz = ch[J_CZ], rw = ch[J_R];
+  const float a_q = c.dx * c.dx + c.dy * c.dy + c.dz * c.dz;
+  const float ocx = cwx - c.ox, ocy = cwy - c.oy, ocz = cwz - c.oz;
+  const float h_q = c.dx * ocx + c.dy * ocy + c.dz * ocz;
+  const float c_q = (ocx * ocx + ocy * ocy + ocz * ocz) - rw * rw;
+  const float disc = h_q * h_q - a_q * c_q;
+  const bool pos = disc > 0.0f;
+  const float sqrtd = pos ? sqrtf(disc) : 0.0f;
+  const float t_sph = (h_q + (dec.root1 ? sqrtd : -sqrtd)) / a_q;
+  const float t_sh = dec.hit ? t_sph : 1.0f;
+  const float hx = c.ox + t_sh * c.dx;
+  const float hy = c.oy + t_sh * c.dy;
+  const float hz = c.oz + t_sh * c.dz;
+  const float rmax = fmaxf(rw, 1e-20f);
+  const float nsx = (hx - cwx) / rmax, nsy = (hy - cwy) / rmax,
+              nsz = (hz - cwz) / rmax;
+  const float sgn = dec.front ? 1.0f : -1.0f;
+  const float nx = sgn * nsx, ny = sgn * nsy, nz = sgn * nsz;
+  const float len = sqrtf(a_q);
+  const float dlen = fmaxf(len, 1e-20f);
+  const float udx = c.dx / dlen, udy = c.dy / dlen, udz = c.dz / dlen;
+
+  // Cotangents of the intermediates, accumulated as the sweep goes back.
+  float g_ox = 0.0f, g_oy = 0.0f, g_oz = 0.0f;
+  float g_dx = 0.0f, g_dy = 0.0f, g_dz = 0.0f;
+  float g_tx = 0.0f, g_ty = 0.0f, g_tz = 0.0f;
+  float g_udx = 0.0f, g_udy = 0.0f, g_udz = 0.0f;
+  float g_hx = 0.0f, g_hy = 0.0f, g_hz = 0.0f;
+  float g_nx = 0.0f, g_ny = 0.0f, g_nz = 0.0f;
+
+  // --- radiance: dr = tx * c_r -----------------------------------------------
+  if (acc) {
+    if (dec.hit) {
+      g_tx = grr * ch[J_EM];
+      g_ty = grg * ch[J_EM + 1];
+      g_tz = grb * ch[J_EM + 2];
+      gch[J_EM] = grr * c.tx;
+      gch[J_EM + 1] = grg * c.ty;
+      gch[J_EM + 2] = grb * c.tz;
+    } else {
+      const float a_sky = 0.5f * (udy + 1.0f);
+      const float one_m = 1.0f - a_sky;
+      g_tx = grr * (one_m + a_sky * 0.5f);
+      g_ty = grg * (one_m + a_sky * 0.7f);
+      g_tz = grb * (one_m + a_sky);
+      const float gcr = grr * c.tx, gcg = grg * c.ty, gcb = grb * c.tz;
+      const float g_one_m = gcr + gcg + gcb;
+      const float g_a_sky = gcr * 0.5f + gcg * 0.7f + gcb - g_one_m;
+      g_udy = 0.5f * g_a_sky;
+    }
+  }
+
+  if (!dec.cont) {
+    // The carry passed through: its cotangent does too.
+    g_ox = g.ox;
+    g_oy = g.oy;
+    g_oz = g.oz;
+    g_dx = g.dx;
+    g_dy = g.dy;
+    g_dz = g.dz;
+    g_tx += g.tx;
+    g_ty += g.ty;
+    g_tz += g.tz;
+  } else {
+    // --- forward values of the scatter ---------------------------------------
+    const float* al = albedo_of(ch, hx, hy, hz);
+    float g_al[3] = {0.0f, 0.0f, 0.0f};  // cotangent of the albedo
+    const float rz = 1.0f - 2.0f * u1;
+    const float rr = sqrtf(fmaxf(0.0f, 1.0f - rz * rz));
+    const float rphi = TWO_PI * u2;
+    const float rux = rr * cosf(rphi), ruy = rr * sinf(rphi), ruz = rz;
+    const float mat = ch[J_MAT];
+
+    // t' = t * at, o' = h, d' = nd.
+    g_hx = g.ox;
+    g_hy = g.oy;
+    g_hz = g.oz;
+    const float g_ndx = g.dx, g_ndy = g.dy, g_ndz = g.dz;
+
+    if (mat == DIELECTRIC) {
+      g_tx += g.tx;  // at = 1
+      g_ty += g.ty;
+      g_tz += g.tz;
+      const float ior = ch[J_IOR];
+      const float ri = dec.front ? 1.0f / ior : ior;
+      const float udn = udx * nx + udy * ny + udz * nz;
+      float g_udn = 0.0f;
+      if (dec.refl) {
+        // nd = ud - (2 udn) n
+        const float k2 = 2.0f * udn;
+        g_udx += g_ndx;
+        g_udy += g_ndy;
+        g_udz += g_ndz;
+        g_nx += -k2 * g_ndx;
+        g_ny += -k2 * g_ndy;
+        g_nz += -k2 * g_ndz;
+        g_udn += 2.0f * -dot3(g_ndx, g_ndy, g_ndz, nx, ny, nz);
+      } else {
+        // nd = pp + par n, pp = ri (ud + cos_t n),
+        // par = -sqrt(max(|1 - |pp|^2|, 1e-12)), cos_t = min(-udn, 1)
+        const float cos_t = fminf(-udn, 1.0f);
+        const float qx = udx + cos_t * nx, qy = udy + cos_t * ny,
+                    qz = udz + cos_t * nz;
+        const float ppx = ri * qx, ppy = ri * qy, ppz = ri * qz;
+        const float pp_sq = (ppx * ppx + ppy * ppy) + ppz * ppz;
+        const float w1 = 1.0f - pp_sq;
+        const float aw = fabsf(w1);
+        const float sq = sqrtf(fmaxf(aw, 1e-12f));
+        const float par = -sq;
+        float g_ppx = g_ndx, g_ppy = g_ndy, g_ppz = g_ndz;
+        const float g_par = dot3(g_ndx, g_ndy, g_ndz, nx, ny, nz);
+        g_nx += par * g_ndx;
+        g_ny += par * g_ndy;
+        g_nz += par * g_ndz;
+        const float g_mw = -g_par / (2.0f * sq);
+        const float g_aw = aw >= 1e-12f ? g_mw : 0.0f;
+        const float g_w1 = w1 > 0.0f ? g_aw : (w1 < 0.0f ? -g_aw : 0.0f);
+        const float g_ppsq = -g_w1;
+        g_ppx += 2.0f * ppx * g_ppsq;
+        g_ppy += 2.0f * ppy * g_ppsq;
+        g_ppz += 2.0f * ppz * g_ppsq;
+        const float g_ri = dot3(g_ppx, g_ppy, g_ppz, qx, qy, qz);
+        const float g_qx = ri * g_ppx, g_qy = ri * g_ppy, g_qz = ri * g_ppz;
+        g_udx += g_qx;
+        g_udy += g_qy;
+        g_udz += g_qz;
+        g_nx += cos_t * g_qx;
+        g_ny += cos_t * g_qy;
+        g_nz += cos_t * g_qz;
+        const float g_cos = dot3(g_qx, g_qy, g_qz, nx, ny, nz);
+        if (-udn <= 1.0f) g_udn += -g_cos;
+        gch[J_IOR] = dec.front ? -g_ri * (ri * ri) : g_ri;
+      }
+      // udn = ud . n
+      g_udx += g_udn * nx;
+      g_udy += g_udn * ny;
+      g_udz += g_udn * nz;
+      g_nx += g_udn * udx;
+      g_ny += g_udn * udy;
+      g_nz += g_udn * udz;
+    } else if (mat == METAL) {
+      // at = albedo
+      g_tx += g.tx * al[0];
+      g_ty += g.ty * al[1];
+      g_tz += g.tz * al[2];
+      g_al[0] = g.tx * c.tx;
+      g_al[1] = g.ty * c.ty;
+      g_al[2] = g.tz * c.tz;
+      // nd = ref / rlen + fuzz ru, ref = d - (2 d.n) n
+      const float k = 2.0f * (c.dx * nx + c.dy * ny + c.dz * nz);
+      const float refx = c.dx - k * nx, refy = c.dy - k * ny,
+                  refz = c.dz - k * nz;
+      const float rl = sqrtf((refx * refx + refy * refy) + refz * refz);
+      const float rlen = fmaxf(rl, 1e-20f);
+      gch[J_FUZZ] = dot3(g_ndx, g_ndy, g_ndz, rux, ruy, ruz);
+      float g_refx = g_ndx / rlen, g_refy = g_ndy / rlen, g_refz = g_ndz / rlen;
+      const float g_rlen = -(g_ndx * ((refx / rlen) / rlen) +
+                             g_ndy * ((refy / rlen) / rlen) +
+                             g_ndz * ((refz / rlen) / rlen));
+      const float g_rl = rl >= 1e-20f ? g_rlen : 0.0f;
+      const float g_rsq = g_rl / (2.0f * rl);
+      g_refx += 2.0f * refx * g_rsq;
+      g_refy += 2.0f * refy * g_rsq;
+      g_refz += 2.0f * refz * g_rsq;
+      g_dx += g_refx;
+      g_dy += g_refy;
+      g_dz += g_refz;
+      g_nx += -k * g_refx;
+      g_ny += -k * g_refy;
+      g_nz += -k * g_refz;
+      const float g_ddn = 2.0f * -dot3(g_refx, g_refy, g_refz, nx, ny, nz);
+      g_dx += g_ddn * nx;
+      g_dy += g_ddn * ny;
+      g_dz += g_ddn * nz;
+      g_nx += g_ddn * c.dx;
+      g_ny += g_ddn * c.dy;
+      g_nz += g_ddn * c.dz;
+    } else {
+      // Lambertian: nd = n (+ ru), at = albedo / max(prob, 1e-8)
+      g_nx += g_ndx;
+      g_ny += g_ndy;
+      g_nz += g_ndz;
+      const float prob = ch[J_PROB];
+      const float pmax = fmaxf(prob, 1e-8f);
+      const float atr = al[0] / pmax, atg = al[1] / pmax, atb = al[2] / pmax;
+      g_tx += g.tx * atr;
+      g_ty += g.ty * atg;
+      g_tz += g.tz * atb;
+      const float g_atr = g.tx * c.tx, g_atg = g.ty * c.ty, g_atb = g.tz * c.tz;
+      g_al[0] = g_atr / pmax;
+      g_al[1] = g_atg / pmax;
+      g_al[2] = g_atb / pmax;
+      const float g_pmax = -(g_atr * (atr / pmax) + g_atg * (atg / pmax) +
+                             g_atb * (atb / pmax));
+      gch[J_PROB] = prob >= 1e-8f ? g_pmax : 0.0f;
+    }
+
+    // The albedo is one of three channel triples; constant indices keep
+    // gch in registers.
+    const bool is_color = al == ch + J_COLOR, is_even = al == ch + J_EVEN;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      gch[J_COLOR + k] = is_color ? g_al[k] : 0.0f;
+      gch[J_EVEN + k] = is_even ? g_al[k] : 0.0f;
+      gch[J_ODD + k] = !is_color && !is_even ? g_al[k] : 0.0f;
+    }
+
+    // n = sgn * ns, ns = (h - cw) / rmax
+    const float g_nsx = sgn * g_nx, g_nsy = sgn * g_ny, g_nsz = sgn * g_nz;
+    g_hx += g_nsx / rmax;
+    g_hy += g_nsy / rmax;
+    g_hz += g_nsz / rmax;
+    gch[J_CX] -= g_nsx / rmax;
+    gch[J_CY] -= g_nsy / rmax;
+    gch[J_CZ] -= g_nsz / rmax;
+    const float g_rmax =
+        -(g_nsx * (nsx / rmax) + g_nsy * (nsy / rmax) + g_nsz * (nsz / rmax));
+    if (rw >= 1e-20f) gch[J_R] += g_rmax;
+
+    // h = o + t_sh d
+    g_ox += g_hx;
+    g_oy += g_hy;
+    g_oz += g_hz;
+    g_dx += t_sh * g_hx;
+    g_dy += t_sh * g_hy;
+    g_dz += t_sh * g_hz;
+    float g_aq = 0.0f;
+    if (dec.hit) {
+      const float g_tsph = dot3(g_hx, g_hy, g_hz, c.dx, c.dy, c.dz);
+      // t_sph = (h_q +- sqrtd) / a_q
+      const float g_num = g_tsph / a_q;
+      g_aq += -g_tsph * (t_sph / a_q);
+      float g_hq = g_num;
+      const float g_sqrtd = dec.root1 ? g_num : -g_num;
+      const float g_disc = pos ? g_sqrtd / (2.0f * sqrtd) : 0.0f;
+      // disc = h_q^2 - a_q c_q, c_q = |oc|^2 - rw^2
+      g_hq += 2.0f * h_q * g_disc;
+      g_aq += -c_q * g_disc;
+      const float g_cq = -a_q * g_disc;
+      gch[J_R] += -2.0f * rw * g_cq;
+      float g_ocx = 2.0f * ocx * g_cq, g_ocy = 2.0f * ocy * g_cq,
+            g_ocz = 2.0f * ocz * g_cq;
+      // h_q = d . oc
+      g_dx += g_hq * ocx;
+      g_dy += g_hq * ocy;
+      g_dz += g_hq * ocz;
+      g_ocx += g_hq * c.dx;
+      g_ocy += g_hq * c.dy;
+      g_ocz += g_hq * c.dz;
+      // oc = cw - o
+      gch[J_CX] += g_ocx;
+      gch[J_CY] += g_ocy;
+      gch[J_CZ] += g_ocz;
+      g_ox -= g_ocx;
+      g_oy -= g_ocy;
+      g_oz -= g_ocz;
+    }
+    // ud = d / dlen, dlen = max(sqrt(a_q), 1e-20)
+    g_dx += g_udx / dlen;
+    g_dy += g_udy / dlen;
+    g_dz += g_udz / dlen;
+    const float g_dlen =
+        -(g_udx * (udx / dlen) + g_udy * (udy / dlen) + g_udz * (udz / dlen));
+    if (len >= 1e-20f) g_aq += g_dlen / (2.0f * len);
+    // a_q = d . d
+    g_dx += 2.0f * c.dx * g_aq;
+    g_dy += 2.0f * c.dy * g_aq;
+    g_dz += 2.0f * c.dz * g_aq;
+    g.ox = g_ox;
+    g.oy = g_oy;
+    g.oz = g_oz;
+    g.dx = g_dx;
+    g.dy = g_dy;
+    g.dz = g_dz;
+    g.tx = g_tx;
+    g.ty = g_ty;
+    g.tz = g_tz;
+    return;
+  }
+
+  // Not continued: only the sky term reaches d (through ud).
+  if (acc && !dec.hit) {
+    g_dy += g_udy / dlen;
+    const float g_dlen = -(g_udy * (udy / dlen));
+    if (len >= 1e-20f) {
+      const float g_aq = g_dlen / (2.0f * len);
+      g_dx += 2.0f * c.dx * g_aq;
+      g_dy += 2.0f * c.dy * g_aq;
+      g_dz += 2.0f * c.dz * g_aq;
+    }
+  }
+  g.ox = g_ox;
+  g.oy = g_oy;
+  g.oz = g_oz;
+  g.dx = g_dx;
+  g.dy = g_dy;
+  g.dz = g_dz;
+  g.tx = g_tx;
+  g.ty = g_ty;
+  g.tz = g_tz;
+}
+
+__global__ void __launch_bounds__(BLOCK) replay_forward(
+    const float* __restrict__ table,    // (N, 32)
+    const float* __restrict__ o,        // (R, 3)
+    const float* __restrict__ d,        // (R, 3)
+    const int32_t* __restrict__ valid,  // (R,) initial-throughput mask
+    const int32_t* __restrict__ pix,    // (R,) pixel ids
+    const int32_t* __restrict__ smp,    // (R,) sample ids
+    const int32_t* __restrict__ rec,    // (depth, R) packed records
+    int n, int r, int depth, int accum_from, uint32_t seed,
+    float* __restrict__ rad) {          // (R, 3) out
+  extern __shared__ float s_tab[];
+  stage_table(table, n, s_tab);
+  __syncthreads();
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= r) return;
+
+  Carry c = load_carry(o, d, valid, lane);
+  const uint32_t up = (uint32_t)pix[lane], us = (uint32_t)smp[lane];
+  float ar = 0.0f, ag = 0.0f, ab = 0.0f;
+  for (int it = 0; it < depth; ++it) {
+    const Dec dec = decode(rec[(size_t)it * r + lane]);
+    if (!dec.alive) continue;
+    const U4 u = uniform4(up, us, STREAM_BOUNCE_BASE + (uint32_t)it, seed);
+    const bool acc = it >= accum_from;
+    float dr, dg, db;
+    bounce_fwd(c, s_tab + dec.idx * TS, dec, u.x, u.y, u.z, acc, dr, dg, db);
+    if (acc) {
+      ar = ar + dr;
+      ag = ag + dg;
+      ab = ab + db;
+    }
+  }
+  const size_t b = (size_t)lane * 3;
+  rad[b] = ar;
+  rad[b + 1] = ag;
+  rad[b + 2] = ab;
+}
+
+__global__ void __launch_bounds__(BLOCK) replay_backward(
+    const float* __restrict__ table,
+    const float* __restrict__ o,
+    const float* __restrict__ d,
+    const int32_t* __restrict__ valid,
+    const int32_t* __restrict__ pix,
+    const int32_t* __restrict__ smp,
+    const int32_t* __restrict__ rec,
+    const float* __restrict__ g_rad,   // (R, 3) radiance cotangent
+    int n, int r, int depth, int accum_from, uint32_t seed,
+    float* __restrict__ ck,            // (depth, 9, gridDim.x * BLOCK) scratch
+    float* __restrict__ part,          // (gridDim.x, n * NU) block partials
+    float* __restrict__ g_o,           // (R, 3) out
+    float* __restrict__ g_d) {         // (R, 3) out
+  extern __shared__ float sh[];
+  float* s_tab = sh;           // (n, TS) winner channels
+  float* s_part = sh + n * TS; // (n, TS) this block's table cotangent
+  stage_table(table, n, s_tab);
+  for (int k = threadIdx.x; k < n * TS; k += blockDim.x) s_part[k] = 0.0f;
+  __syncthreads();
+
+  const int nthreads = gridDim.x * BLOCK;
+  const int tid = blockIdx.x * BLOCK + threadIdx.x;
+  const int wl = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_tiles = (r + BLOCK - 1) / BLOCK;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int lane = tile * BLOCK + threadIdx.x;
+    const bool active = lane < r;
+    uint32_t up = 0, us = 0;
+    int last = -1;  // last alive row of this lane
+    if (active) {
+      up = (uint32_t)pix[lane];
+      us = (uint32_t)smp[lane];
+      // Phase 1: forward, storing the carry each alive row enters with.
+      Carry c = load_carry(o, d, valid, lane);
+      for (int it = 0; it < depth; ++it) {
+        const Dec dec = decode(rec[(size_t)it * r + lane]);
+        if (!dec.alive) continue;
+        float* slot = ck + (size_t)it * NCARRY * nthreads + tid;
+        slot[0 * (size_t)nthreads] = c.ox;
+        slot[1 * (size_t)nthreads] = c.oy;
+        slot[2 * (size_t)nthreads] = c.oz;
+        slot[3 * (size_t)nthreads] = c.dx;
+        slot[4 * (size_t)nthreads] = c.dy;
+        slot[5 * (size_t)nthreads] = c.dz;
+        slot[6 * (size_t)nthreads] = c.tx;
+        slot[7 * (size_t)nthreads] = c.ty;
+        slot[8 * (size_t)nthreads] = c.tz;
+        last = it;
+        const U4 u = uniform4(up, us, STREAM_BOUNCE_BASE + (uint32_t)it, seed);
+        float dr, dg, db;
+        bounce_fwd(c, s_tab + dec.idx * TS, dec, u.x, u.y, u.z, false, dr, dg,
+                   db);
+      }
+    }
+
+    // Phase 2: reverse sweep. Every row's radiance cotangent is g_rad
+    // itself (the radiance is a sum of row increments).
+    float grr = 0.0f, grg = 0.0f, grb = 0.0f;
+    if (active) {
+      const size_t b = (size_t)lane * 3;
+      grr = g_rad[b];
+      grg = g_rad[b + 1];
+      grb = g_rad[b + 2];
+    }
+    Carry g = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    for (int it = depth - 1; it >= 0; --it) {
+      Dec dec;
+      dec.alive = false;
+      if (it <= last) dec = decode(rec[(size_t)it * r + lane]);
+      if (!__syncthreads_or(dec.alive)) continue;  // block-uniform
+      float gch[NU];
+      bool contrib = false;
+      if (dec.alive) {
+        const float* slot = ck + (size_t)it * NCARRY * nthreads + tid;
+        const Carry c = {slot[0 * (size_t)nthreads], slot[1 * (size_t)nthreads],
+                         slot[2 * (size_t)nthreads], slot[3 * (size_t)nthreads],
+                         slot[4 * (size_t)nthreads], slot[5 * (size_t)nthreads],
+                         slot[6 * (size_t)nthreads], slot[7 * (size_t)nthreads],
+                         slot[8 * (size_t)nthreads]};
+        const U4 u = uniform4(up, us, STREAM_BOUNCE_BASE + (uint32_t)it, seed);
+        bounce_bwd(c, s_tab + dec.idx * TS, dec, u.x, u.y, u.z,
+                   it >= accum_from, grr, grg, grb, g, gch);
+        contrib = dec.hit;  // a miss reads no channel
+      } else {
+#pragma unroll
+        for (int j = 0; j < NU; ++j) gch[j] = 0.0f;
+      }
+
+      // Table cotangent, fixed order. Lanes of a warp with the same winner:
+      // the lowest one sums the others' values in ascending lane order.
+      const int key = contrib ? dec.idx : -1 - wl;  // non-contributors alone
+      const unsigned grp = __match_any_sync(0xffffffffu, key);
+      const int leader = __ffs(grp) - 1;
+      unsigned movers = __ballot_sync(0xffffffffu, wl != leader);
+      while (movers) {  // warp-uniform
+        const int src = __ffs(movers) - 1;
+        movers &= movers - 1;
+        const int dst = __shfl_sync(0xffffffffu, leader, src);
+#pragma unroll
+        for (int j = 0; j < NU; ++j) {
+          const float v = __shfl_sync(0xffffffffu, gch[j], src);
+          if (wl == dst) gch[j] += v;
+        }
+      }
+      // Then the warps, one after another, into the block's partial.
+      for (int w = 0; w < NWARPS; ++w) {
+        if (warp == w && contrib && wl == leader) {
+          float* p = s_part + dec.idx * TS;
+#pragma unroll
+          for (int j = 0; j < NU; ++j) p[j] += gch[j];
+        }
+        __syncthreads();
+      }
+    }
+    if (active) {
+      const size_t b = (size_t)lane * 3;
+      g_o[b] = g.ox;
+      g_o[b + 1] = g.oy;
+      g_o[b + 2] = g.oz;
+      g_d[b] = g.dx;
+      g_d[b + 1] = g.dy;
+      g_d[b + 2] = g.dz;
+    }
+  }
+  __syncthreads();
+  float* out = part + (size_t)blockIdx.x * n * NU;
+  for (int k = threadIdx.x; k < n * NU; k += blockDim.x) {
+    out[k] = s_part[(k / NU) * TS + k % NU];
+  }
+}
+
+// g_table (N, 32): column USED[j] is the sum over blocks, in block order,
+// of the partials' channel j; the other columns are zero.
+__global__ void reduce_partials(const float* __restrict__ part, int nblocks,
+                                int n, float* __restrict__ g_table) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n * C_IN) return;
+  const int row = k / C_IN, col = k % C_IN;
+  int j = -1;
+  for (int q = 0; q < NU; ++q) {
+    if (USED[q] == col) j = q;
+  }
+  float s = 0.0f;
+  if (j >= 0) {
+    for (int b = 0; b < nblocks; ++b) s += part[((size_t)b * n + row) * NU + j];
+  }
+  g_table[k] = s;
+}
+
+int set_smem(const void* kernel, int bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Bytes of dynamic shared memory for an N-row table: forward (backward=0)
+// or backward (backward=1).
+int crucible_replay_smem_bytes(int n, int backward) {
+  return (backward ? 2 : 1) * n * TS * (int)sizeof(float);
+}
+
+// Launch the replay forward (K4) on `stream`; returns cudaGetLastError().
+int crucible_replay_forward(const float* table, const float* o, const float* d,
+                            const int32_t* valid, const int32_t* pix,
+                            const int32_t* smp, const int32_t* rec, int n,
+                            int r, int depth, int accum_from, int seed,
+                            float* rad, void* stream) {
+  const int smem = crucible_replay_smem_bytes(n, 0);
+  int e = set_smem((const void*)replay_forward, smem);
+  if (e != 0) return e;
+  const int grid = (r + BLOCK - 1) / BLOCK;
+  if (grid > 0) {
+    replay_forward<<<grid, BLOCK, smem, (cudaStream_t)stream>>>(
+        table, o, d, valid, pix, smp, rec, n, r, depth, accum_from,
+        (uint32_t)seed, rad);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Launch the replay backward (K3) with `grid` blocks, then the reduce of its
+// block partials into g_table (N, 32). `ck` holds depth * 9 * grid * 128
+// floats, `part` grid * N * 22. Returns cudaGetLastError().
+int crucible_replay_backward(const float* table, const float* o,
+                             const float* d, const int32_t* valid,
+                             const int32_t* pix, const int32_t* smp,
+                             const int32_t* rec, const float* g_rad, int n,
+                             int r, int depth, int accum_from, int seed,
+                             int grid, float* ck, float* part, float* g_table,
+                             float* g_o, float* g_d, void* stream) {
+  const int smem = crucible_replay_smem_bytes(n, 1);
+  int e = set_smem((const void*)replay_backward, smem);
+  if (e != 0) return e;
+  if (grid > 0) {
+    replay_backward<<<grid, BLOCK, smem, (cudaStream_t)stream>>>(
+        table, o, d, valid, pix, smp, rec, g_rad, n, r, depth, accum_from,
+        (uint32_t)seed, ck, part, g_o, g_d);
+    e = (int)cudaGetLastError();
+    if (e != 0) return e;
+  }
+  const int entries = n * C_IN;
+  if (entries > 0) {
+    reduce_partials<<<(entries + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+        part, grid, n, g_table);
+  }
+  return (int)cudaGetLastError();
+}
+
+const char* crucible_cuda_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

@@ -1,0 +1,197 @@
+"""Differentiable rendering: parameter dicts, the L2 loss, gradient steps.
+
+Port of the unsplit gradient path of ``crucible_tpu/grad.py``. The
+parameters are a flat dict of the scene's and camera's differentiable
+tensors (:func:`extract_params`); :func:`loss_and_grad` returns the L2
+loss against target pixel radiances and its gradient with the same keys,
+through the record/replay path of ``models/replay.py`` (record K2, replay
+K4 forward and K3 backward). Frozen-decision training records the
+decisions once (:func:`record_decisions`) and replays them in every later
+step (``rec=``). :func:`make_train_step` wraps a ``torch.optim`` optimizer.
+
+Not ported yet: the direct-AD estimator (``method='ad'``), the depth-50
+budget (lane-narrowed replay), the capacity-overflow recovery ladder,
+sample-chunked accumulation and checkpoints.
+"""
+
+from __future__ import annotations
+
+from dataclasses import replace
+from typing import Any, Dict
+
+import torch
+
+from crucible_tpu_torch.models import replay as replay_mod
+from crucible_tpu_torch.models.camera import CameraParams
+from crucible_tpu_torch.models.scene import SceneData
+
+# Parameter keys whose value is a tensor (the others: texture images, a
+# tuple, and the sky image, None for the scenes the port renders).
+TENSOR_KEYS = (
+    "tex_color", "mat_emission", "mat_fuzz", "cam_look_from", "cam_look_at",
+    "cam_vfov", "cam_defocus", "cam_focus_dist",
+)
+
+
+def extract_params(sd: SceneData, cp: CameraParams) -> Dict[str, Any]:
+    """The differentiable leaves of (scene, camera) as a flat dict, keyed
+    as in the JAX package."""
+    return {
+        "tex_color": sd.tex.color,  # solid/checker albedos
+        "tex_images": sd.tex.images,  # texture texels (none are ported)
+        "mat_emission": sd.mat_emission,
+        "mat_fuzz": sd.mat_fuzz,
+        "sky_image": None,  # the spherical sky is not ported
+        "cam_look_from": cp.look_from,
+        "cam_look_at": cp.look_at,
+        "cam_vfov": cp.vfov_rad,
+        "cam_defocus": cp.defocus_angle_rad,
+        "cam_focus_dist": cp.focus_dist,
+    }
+
+
+def apply_params(sd: SceneData, cp: CameraParams, p: Dict[str, Any]):
+    """Write a parameter dict back into new (scene, camera) dataclasses."""
+    if p["sky_image"] is not None or len(p["tex_images"]):
+        raise NotImplementedError(
+            "image textures and the spherical sky are not ported to "
+            "crucible_tpu_torch yet"
+        )
+    sd = replace(
+        sd,
+        tex=replace(sd.tex, color=p["tex_color"]),
+        mat_emission=p["mat_emission"],
+        mat_fuzz=p["mat_fuzz"],
+    )
+    cp = replace(
+        cp,
+        look_from=p["cam_look_from"],
+        look_at=p["cam_look_at"],
+        vfov_rad=p["cam_vfov"],
+        defocus_angle_rad=p["cam_defocus"],
+        focus_dist=p["cam_focus_dist"],
+    )
+    return sd, cp
+
+
+def _lanes(pixel_ids: torch.Tensor, spp: int, sample0: int):
+    """Lane ids of a pixel batch: pixels tiled spp times, sample-major."""
+    p = pixel_ids.shape[0]
+    pix = pixel_ids.to(torch.int64).repeat(spp)
+    smp = torch.arange(
+        sample0, sample0 + spp, dtype=torch.int64, device=pixel_ids.device
+    ).repeat_interleave(p)
+    return pix, smp
+
+
+def render_pixels_mean(
+    params,
+    sd: SceneData,
+    cp: CameraParams,
+    pixel_ids: torch.Tensor,
+    width: int,
+    height: int,
+    spp: int,
+    max_depth: int,
+    seed,
+    method: str = "auto",
+    sample0: int = 0,
+    rec=None,
+    grad_split: bool | None = None,
+) -> torch.Tensor:
+    """Per-pixel mean radiance (P, 3) for the given pixels, differentiable
+    w.r.t. ``params``.
+
+    ``method``: 'replay' (record, then the differentiable replay) or
+    'auto' (the same); 'ad' (direct reverse mode) is not ported.
+    """
+    if method == "ad":
+        raise NotImplementedError(
+            "the direct-AD estimator (method='ad') is not ported to "
+            "crucible_tpu_torch yet"
+        )
+    if method not in ("auto", "replay"):
+        raise ValueError(f"unknown method {method!r}")
+    sd, cp = apply_params(sd, cp, params)
+    pix, smp = _lanes(pixel_ids, spp, sample0)
+    rad = replay_mod.render_rays_replay(
+        sd, cp, width, height, pix, smp, seed, max_depth, rec=rec, split=grad_split
+    )
+    return rad.reshape(spp, pixel_ids.shape[0], 3).mean(dim=0)
+
+
+def record_decisions(
+    sd: SceneData,
+    cp: CameraParams,
+    pixel_ids: torch.Tensor,
+    seed,
+    *,
+    width: int,
+    height: int,
+    spp: int,
+    max_depth: int,
+    sample0: int = 0,
+) -> torch.Tensor:
+    """Packed decision records (max_depth, spp * P) int32 for a pixel
+    batch — the reusable half of frozen-decision training.
+
+    Decisions (winner ids, scatter branches, termination) depend on
+    geometry, material scalars and the camera, not on albedo or emission,
+    so radiometric parameters can be fitted with replay-only steps
+    (``loss_and_grad(..., rec=...)``), re-recording when the geometry or
+    camera moves.
+    """
+    pix, smp = _lanes(pixel_ids, spp, sample0)
+    return replay_mod.trace_record_mega(
+        sd, cp, width, height, pix, smp, seed, max_depth
+    )
+
+
+def l2_loss(
+    params, sd, cp, target, pixel_ids, seed,
+    *, width, height, spp, max_depth, method="auto", sample0=0, rec=None,
+    grad_split=None,
+) -> torch.Tensor:
+    """Mean squared error of the rendered pixels against ``target`` (P, 3)."""
+    img = render_pixels_mean(
+        params, sd, cp, pixel_ids, width, height, spp, max_depth, seed,
+        method=method, sample0=sample0, rec=rec, grad_split=grad_split,
+    )
+    return torch.mean((img - target) ** 2)
+
+
+def loss_and_grad(params, sd, cp, target, pixel_ids, seed, **kw):
+    """(loss, grads): the :func:`l2_loss` value and its gradient, a dict
+    with the keys of ``params`` (``tex_images`` () and ``sky_image`` None,
+    as given). Keyword arguments are those of :func:`l2_loss`."""
+    leaves = {k: params[k].detach().requires_grad_(True) for k in TENSOR_KEYS}
+    with torch.enable_grad():
+        loss = l2_loss({**params, **leaves}, sd, cp, target, pixel_ids, seed, **kw)
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    out = {**params}
+    for (k, leaf), g in zip(leaves.items(), grads):
+        out[k] = torch.zeros_like(leaf) if g is None else g
+    return loss.detach(), out
+
+
+def make_train_step(
+    optimizer: torch.optim.Optimizer, width: int, height: int, spp: int, max_depth: int
+):
+    """One optimization step over a parameter dict whose optimized leaves
+    are the tensors ``optimizer`` was built on (``requires_grad`` set).
+
+    Returns ``step(params, sd, cp, target, pixel_ids, seed, rec=None) ->
+    loss``, which updates those leaves in place.
+    """
+
+    def step(params, sd, cp, target, pixel_ids, seed, rec=None):
+        optimizer.zero_grad(set_to_none=True)
+        loss = l2_loss(
+            params, sd, cp, target, pixel_ids, seed,
+            width=width, height=height, spp=spp, max_depth=max_depth, rec=rec,
+        )
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step

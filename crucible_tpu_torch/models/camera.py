@@ -178,7 +178,7 @@ class Camera:
         t_open = self.frame_time()
         return t_open, t_open + (self.shutter_angle / 360.0) / self.frame_rate
 
-    def params(self, *, device) -> CameraParams:
+    def params(self, *, device="cuda") -> CameraParams:
         """The camera's tensors on ``device`` (static camera)."""
 
         def f32(x):

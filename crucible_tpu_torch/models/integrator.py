@@ -4,7 +4,8 @@ Port of the forward-render parts of ``crucible_tpu/models/integrator.py``:
 the (N, 32) sphere attribute table, the megakernel's camera vector and
 predicate, and ``trace_persistent_mega``, which lays the pixels out as
 lanes, calls the megakernel and un-swizzles its per-lane sums. The staged
-wavefront schedules and the gradient paths are not ported yet.
+wavefront schedules are not ported yet; the record-mode predicate serves
+``models/replay.py``.
 """
 
 from __future__ import annotations
@@ -83,6 +84,25 @@ def megakernel_unsupported_reason(sd: SceneData, cp: CameraParams):
     return next((what for ok, what in checks if not ok), None)
 
 
+def megakernel_record_supported(sd: SceneData, cp: CameraParams) -> bool:
+    """The port's subset of the JAX record-mode predicate: sphere-only
+    static scenes seen by a static camera, with at most ``mk.MAX_ROWS`` table
+    rows. The record's decisions read no albedo or sky, so textures and the
+    sky do not limit it."""
+    return megakernel_record_unsupported_reason(sd, cp) is None
+
+
+def megakernel_record_unsupported_reason(sd: SceneData, cp: CameraParams):
+    """None if the record megakernel takes this scene, else what it lacks."""
+    checks = (
+        (sd.num_tris == 0, "triangle meshes"),
+        (not sd.animated and not sd.motion_exact, "moving spheres"),
+        (not cp.animated and not cp.motion_exact, "animated cameras"),
+        (int(sd.sph_center.shape[0]) <= mk.MAX_ROWS, f"more than {mk.MAX_ROWS} sphere rows"),
+    )
+    return next((what for ok, what in checks if not ok), None)
+
+
 def mega_cam_vector(cp: CameraParams, width: int, height: int) -> torch.Tensor:
     """Camera-constant vector (1, 48) for the megakernel: the static-camera
     specialization of ``camera.generate_rays`` (same formulas and eps;
@@ -152,12 +172,8 @@ def mega_inputs(
     ppx, ppy = p % width, p // width
     lane_of = ((ppy // bh) * gx + ppx // bw) * mk.TILE + (ppy % bh) * bw + ppx % bw
 
-    def as_i32(v: int) -> int:  # uint32 bit pattern as int32
-        v &= 0xFFFFFFFF
-        return v - (1 << 32) if v >= (1 << 31) else v
-
     smem = torch.tensor(
-        [as_i32(spp), as_i32(seed), width, max_depth, 0, 0, 0, 0],
+        [mk.as_i32(spp), mk.as_i32(seed), width, max_depth, 0, 0, 0, 0],
         dtype=torch.int32,
         device=dev,
     )

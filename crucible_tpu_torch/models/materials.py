@@ -60,8 +60,11 @@ def scatter(
         dielectric reflectance test).
 
     Returns:
-      (scatter_dir (R,3), attenuation (R,3), scattered (R,) bool);
-      ``scattered`` False means the path is absorbed.
+      (scatter_dir (R,3), attenuation (R,3), scattered (R,) bool,
+      reflect (R,) bool, degenerate (R,) bool); ``scattered`` False means
+      the path is absorbed. ``reflect`` (the dielectric's choice) and
+      ``degenerate`` (the Lambertian direction's) are evaluated for every
+      row whatever its material, as the record-mode megakernel stores them.
     """
     rnd_unit = sampling.unit_vector(u_dir1, u_dir2)
 
@@ -106,4 +109,4 @@ def scatter(
     )
     alive = is_diel | (is_metal & met_alive) | (~is_metal & ~is_diel & lam_alive)
     alive = alive & ~is_emissive  # emitters terminate the path
-    return out_dir, atten, alive
+    return out_dir, atten, alive, reflect_choice, degenerate

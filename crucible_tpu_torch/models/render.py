@@ -4,7 +4,9 @@ Port of the still-image path of ``crucible_tpu/models/render.py``:
 ``render_image`` -> ``render_image_data`` -> ``render_image_persistent`` ->
 ``integrator.trace_persistent_mega``, the ``mega`` schedule. A scene the
 megakernel cannot render raises ``NotImplementedError`` naming the missing
-feature; there is no other schedule to fall back to yet.
+feature; there is no other schedule to fall back to yet. Every entry point
+runs on ``device="cuda"`` unless the caller names another device; without
+CUDA that default raises (torch does), it never falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ def render_image_persistent(
     max_depth: int,
     seed: int,
     *,
-    device,
+    device="cuda",
     schedule: str = "auto",
 ) -> torch.Tensor:
     """Whole-image render in one megakernel call -> linear radiance
@@ -83,7 +85,7 @@ def render_image_data(
     max_depth: int,
     seed: int,
     *,
-    device,
+    device="cuda",
 ) -> torch.Tensor:
     """Render driver -> linear radiance (height, width, 3) on ``device``."""
     return render_image_persistent(
@@ -97,7 +99,7 @@ def render_image(
     max_depth: int | None = None,
     seed: int | None = None,
     *,
-    device,
+    device="cuda",
 ) -> torch.Tensor:
     """Render the scene's camera view -> linear radiance (H, W, 3) float32
     on ``device``."""

@@ -387,9 +387,9 @@ class Scene:
         self._set_hidden(alias, False)
 
     # --- lowering -----------------------------------------------------------
-    def build(self, *, device) -> SceneData:
+    def build(self, *, device="cuda") -> SceneData:
         """Lower the element list to a SceneData on ``device`` (cached until
-        the scene is mutated)."""
+        the scene is mutated). Without CUDA, name ``device="cpu"``."""
         device = torch.device(device)
         if self._cache is not None and self._cache_key == device:
             return self._cache

@@ -1,16 +1,19 @@
 """Build and load the port's CUDA kernels (``crucible_tpu_torch/csrc``).
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library
-with a plain C interface, which is loaded with ``ctypes``:
+Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` process into a
+shared library with a plain C interface, which is loaded with ``ctypes``;
+the processes start together, so the build takes as long as the slowest
+file:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-         -shared -Xcompiler -fPIC -o libcrucible_kernels.so csrc/*.cu
+         -shared -Xcompiler -fPIC -o lib<name>.so csrc/<name>.cu
 
-The library goes to ``build/crucible_tpu_torch/<hash>/`` beside the
-package, keyed by a hash of the sources and flags, and is built at first use.
-``-fmad=false`` keeps multiply-adds uncontracted so that the kernels round
-like their eager-torch versions; see the note in ``csrc/megakernel.cu``.
-A missing or failing ``nvcc`` is an error: nothing falls back to eager torch.
+The libraries go to ``build/crucible_tpu_torch/<hash>/`` beside the
+package, keyed by a hash of the sources and flags, and are built at first
+use. ``-fmad=false`` keeps multiply-adds uncontracted so that the kernels
+round like their eager-torch versions; see the note in
+``csrc/megakernel.cu``. A missing or failing ``nvcc`` is an error: nothing
+falls back to eager torch.
 """
 
 from __future__ import annotations
@@ -28,13 +31,31 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "crucible_tpu_torch"
-LIB_NAME = "libcrucible_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures of each library's entry points: name -> (argtypes, restype).
+SIGNATURES = {
+    "megakernel": {
+        "crucible_megakernel_forward": ([_P, _P, _P, _P, _P, _I, _I, _F, _P, _P], _I),
+        "crucible_megakernel_record": (
+            [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P, _P, _P], _I
+        ),
+        "crucible_megakernel_smem_bytes": ([_I], _I),
+        "crucible_cuda_error_string": ([_I], ctypes.c_char_p),
+    },
+    "replay_kernel": {
+        "crucible_replay_forward": ([_P] * 7 + [_I] * 5 + [_P] * 2, _I),
+        "crucible_replay_backward": ([_P] * 8 + [_I] * 6 + [_P] * 6, _I),
+        "crucible_replay_smem_bytes": ([_I, _I], _I),
+        "crucible_cuda_error_string": ([_I], ctypes.c_char_p),
+    },
+}
 
 
 def sources() -> list[Path]:
@@ -60,48 +81,62 @@ def _digest() -> str:
 
 
 @functools.cache
-def build() -> tuple[Path, float, str]:
-    """Compile the kernels if this source hash has no library yet.
+def build() -> tuple[dict[str, Path], float, str]:
+    """Compile every ``.cu`` whose library this source hash lacks, one
+    ``nvcc`` process per file, all at once.
 
-    Returns (library path, seconds spent compiling, nvcc's output). A cached
-    library reports 0 seconds and an empty log.
+    Returns ({stem: library path}, seconds spent compiling, nvcc's output).
+    Cached libraries report 0 seconds and an empty log.
     """
     out_dir = BUILD_ROOT / _digest()
-    lib = out_dir / LIB_NAME
-    if lib.exists():
-        return lib, 0.0, ""
+    libs = {s.stem: out_dir / f"lib{s.stem}.so" for s in sources() if s.suffix == ".cu"}
+    todo = {stem: lib for stem, lib in libs.items() if not lib.exists()}
+    if not todo:
+        return libs, 0.0, ""
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sources() if s.suffix == ".cu"]
-    # Compile to a temporary name, then rename: a concurrent build never
-    # sees a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-        capture_output=True,
-        text=True,
-    )
+    procs = {}
+    for stem in todo:
+        # Compile to a temporary name, then rename: a concurrent build
+        # never sees a half-written library.
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{stem}.cu")]
+        procs[stem] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ))
+    logs, failed = [], []
+    for stem, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        logs.append(f"--- {stem}.cu\n{out}")
+        if proc.returncode != 0:
+            failed.append(stem)
+            os.unlink(tmp)
+        else:
+            os.replace(tmp, todo[stem])
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, lib)
+    log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log}")
     (out_dir / "nvcc.log").write_text(log)
-    return lib, seconds, log
+    return libs, seconds, log
 
 
 @functools.cache
-def load() -> ctypes.CDLL:
-    """Build if needed, load the library and declare its C signatures."""
-    lib_path, _, _ = build()
-    lib = ctypes.CDLL(str(lib_path))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.crucible_megakernel_forward.argtypes = [p, p, p, p, p, i, i, f, p, p]
-    lib.crucible_megakernel_forward.restype = i
-    lib.crucible_megakernel_smem_bytes.argtypes = [i]
-    lib.crucible_megakernel_smem_bytes.restype = i
-    lib.crucible_cuda_error_string.argtypes = [i]
-    lib.crucible_cuda_error_string.restype = ctypes.c_char_p
+def load(stem: str) -> ctypes.CDLL:
+    """Build if needed, load ``lib<stem>.so`` and declare its C signatures."""
+    libs, _, _ = build()
+    lib = ctypes.CDLL(str(libs[stem]))
+    for name, (argtypes, restype) in SIGNATURES[stem].items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
     return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if err != 0:
+        msg = lib.crucible_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: {msg} ({err})")

@@ -1,0 +1,443 @@
+"""Differentiable replay of recorded path decisions: forward K4, backward K3.
+
+Port of ``crucible_tpu/ops/pallas/replay_kernel.py`` (the lane-blocked
+kernels ``_fwd_kernel_blk`` / ``_bwd_kernel_blk`` and their custom VJPs).
+Given the sphere table, the primary rays, the lanes' pixel and sample ids
+and the packed decision records of ``models/replay.py``, the replay
+re-derives every continuous quantity of each path (hit distance as the
+recorded root of the winner's quadratic, normal, albedo, scatter direction)
+with every discrete decision frozen, and sums its radiance.
+
+- :func:`replay_forward` (K4) -> radiance (R, 3); :func:`replay_backward`
+  (K3) -> cotangents of the table (N, 32), origins and directions (R, 3).
+  For CUDA tensors each launches its hand-written kernel of
+  ``csrc/replay_kernel.cu`` or raises; for CPU tensors it runs its twin.
+- Twins: :func:`bounce` (``_bounce``, one row on a batch of lanes),
+  :func:`replay_forward_reference` (an eager walk over the rows, exact row
+  gathers) and :func:`replay_backward_reference` (torch autograd through
+  that walk).
+- :class:`Replay` (forward K4, backward K3) and :class:`ReplayGiven`
+  (forward returns a given radiance, backward K3) mirror the JAX
+  ``replay`` / ``replay_given`` custom VJPs; :func:`trace_replay_mega` is
+  the entry point, with the JAX signature.
+- ``LAUNCHES_FORWARD`` and ``LAUNCHES_BACKWARD`` count kernel launches (not
+  twin calls).
+
+Layouts: ``table`` (N, 32) float32 (``integrator.make_sphere_table``),
+``o``/``d`` (R, 3) float32, ``valid``/``pix``/``smp`` (R,) int32 (the
+throughput starts at the 0/1 ``valid`` mask), ``rec`` (depth, R) int32,
+``seed`` a uint32 as a Python int.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from crucible_tpu_torch.models import materials as mat_mod
+from crucible_tpu_torch.models import skybox as sky_mod
+from crucible_tpu_torch.models import textures as tex_mod
+from crucible_tpu_torch.ops import sampling
+from crucible_tpu_torch.ops.kernels import build
+from crucible_tpu_torch.ops.kernels import megakernel as mk
+from crucible_tpu_torch.utils import rng as crng
+
+C_IN = 32
+# Table channels the bounce reads (integrator.make_sphere_table layout).
+USED = (
+    0, 1, 2, 3, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17,
+    18, 19, 20, 21, 22, 23,
+)
+NUSE = len(USED)
+
+# The backward kernel stages the USED channels and its table-cotangent
+# partial in a block's shared memory, rows at a stride of 23 floats.
+ROW_STRIDE = 23
+MAX_TABLE_ROWS = mk.SHARED_MEM_BYTES // (2 * ROW_STRIDE * 4)
+
+# Threads per block, and the fixed number of blocks of the backward's
+# grid-stride loop: its block partials are summed in block order, so a
+# fixed count keeps the table cotangent's bits the same launch to launch.
+BLOCK = 128
+BACKWARD_BLOCKS = 264
+
+# Launches of the CUDA kernels since the last reset (twin calls excluded).
+LAUNCHES_FORWARD = 0
+LAUNCHES_BACKWARD = 0
+
+
+def supported(sd, n_rows: int) -> bool:
+    """Can this scene's replay run in the kernels? Sphere-only static scenes
+    with solid / checker-of-solid textures under the default sky, and at
+    most ``MAX_TABLE_ROWS`` table rows."""
+    return (
+        sd.num_tris == 0
+        and not sd.animated
+        and not sd.motion_exact
+        and len(sd.tex.images) == 0
+        and sd.tex.max_nest <= 1
+        and sd.sky_kind == sky_mod.DEFAULT
+        and n_rows <= MAX_TABLE_ROWS
+    )
+
+
+def _decode(word: torch.Tensor) -> dict:
+    """Packed record words (models/replay.py layout) -> decision dict."""
+    return dict(
+        idx=torch.bitwise_right_shift(word, 8),  # words are non-negative
+        alive=(word & mk.F_ALIVE) > 0,
+        hit=(word & mk.F_HIT) > 0,
+        cont=(word & mk.F_SCAT) > 0,
+        front=(word & mk.F_FRONT) > 0,
+        refl=(word & mk.F_REFL) > 0,
+        degen=(word & mk.F_DEGEN) > 0,
+        root1=(word & mk.F_ROOT1) > 0,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Twins
+# ---------------------------------------------------------------------------
+
+
+def bounce(carry, ch, dec, u1, u2, u_dec, accumulate: bool):
+    """One replay bounce on a batch of lanes (``_bounce``, l.130-276).
+
+    ``carry`` is (ox, oy, oz, dx, dy, dz, tx, ty, tz), each (L,); ``ch``
+    maps a table column of ``USED`` to the winners' values (L,); ``dec`` is
+    :func:`_decode`'s dict. Operation for operation the arithmetic of
+    ``csrc/replay_kernel.cu``'s ``bounce_fwd``, so that both round alike.
+    Returns (carry', (dr, dg, db)); the increments are zeros unless
+    ``accumulate``.
+    """
+    ox, oy, oz, dx, dy, dz, tx, ty, tz = carry
+    hit, cont, front = dec["hit"], dec["cont"], dec["front"]
+
+    # Winner quadratic -> recorded root (double-where sqrt: AD-safe).
+    cwx, cwy, cwz, rw = ch[0], ch[1], ch[2], ch[3]
+    a_q = dx * dx + dy * dy + dz * dz
+    ocx, ocy, ocz = cwx - ox, cwy - oy, cwz - oz
+    h_q = dx * ocx + dy * ocy + dz * ocz
+    c_q = (ocx * ocx + ocy * ocy + ocz * ocz) - rw * rw
+    disc = h_q * h_q - a_q * c_q
+    pos = disc > 0.0
+    sqrtd = torch.where(pos, torch.sqrt(torch.where(pos, disc, 1.0)), 0.0)
+    t_sph = (h_q + torch.where(dec["root1"], sqrtd, -sqrtd)) / a_q
+
+    t_sh = torch.where(hit, t_sph, 1.0)
+    hx, hy, hz = ox + t_sh * dx, oy + t_sh * dy, oz + t_sh * dz
+    rmax = torch.clamp_min(rw, 1e-20)
+    nsx, nsy, nsz = (hx - cwx) / rmax, (hy - cwy) / rmax, (hz - cwz) / rmax
+    nx = torch.where(front, nsx, -nsx)
+    ny = torch.where(front, nsy, -nsy)
+    nz = torch.where(front, nsz, -nsz)
+
+    dlen = torch.clamp_min(torch.sqrt(a_q), 1e-20)
+    udx, udy, udz = dx / dlen, dy / dlen, dz / dlen
+
+    if accumulate:
+        a_sky = 0.5 * (udy + 1.0)
+        one_m = 1.0 - a_sky
+        dr = tx * torch.where(hit, ch[10], one_m + a_sky * 0.5)
+        dg = ty * torch.where(hit, ch[11], one_m + a_sky * 0.7)
+        db = tz * torch.where(hit, ch[12], one_m + a_sky)
+    else:
+        dr = dg = db = torch.zeros_like(tx)
+
+    # Albedo: solid or checker of solids (floor: no gradient).
+    hp = torch.stack([hx, hy, hz], dim=-1).detach()
+    is_even = tex_mod.checker_is_even(ch[17].detach(), hp)
+    is_checker = ch[13] == tex_mod.CHECKER
+    alr = torch.where(is_checker, torch.where(is_even, ch[18], ch[21]), ch[14])
+    alg = torch.where(is_checker, torch.where(is_even, ch[19], ch[22]), ch[15])
+    alb = torch.where(is_checker, torch.where(is_even, ch[20], ch[23]), ch[16])
+
+    # Scatter with the recorded decisions.
+    ru = sampling.unit_vector(u1, u2)
+    rux, ruy, ruz = ru[:, 0], ru[:, 1], ru[:, 2]
+
+    degen = dec["degen"]
+    lamx = torch.where(degen, nx, nx + rux)
+    lamy = torch.where(degen, ny, ny + ruy)
+    lamz = torch.where(degen, nz, nz + ruz)
+    pmax = torch.clamp_min(ch[9], 1e-8)
+    latr, latg, latb = alr / pmax, alg / pmax, alb / pmax
+
+    fuzz = ch[7]
+    k = 2.0 * (dx * nx + dy * ny + dz * nz)
+    refx, refy, refz = dx - k * nx, dy - k * ny, dz - k * nz
+    rlen = torch.clamp_min(torch.sqrt((refx * refx + refy * refy) + refz * refz), 1e-20)
+    metx = refx / rlen + fuzz * rux
+    mety = refy / rlen + fuzz * ruy
+    metz = refz / rlen + fuzz * ruz
+
+    ior = ch[8]
+    ri = torch.where(front, 1.0 / ior, ior)
+    ud_dot_n = udx * nx + udy * ny + udz * nz
+    cos_t = torch.clamp_max(-ud_dot_n, 1.0)
+    k2 = 2.0 * ud_dot_n
+    drefx, drefy, drefz = udx - k2 * nx, udy - k2 * ny, udz - k2 * nz
+    ppx = ri * (udx + cos_t * nx)
+    ppy = ri * (udy + cos_t * ny)
+    ppz = ri * (udz + cos_t * nz)
+    pp_sq = (ppx * ppx + ppy * ppy) + ppz * ppz
+    par = -torch.sqrt(torch.clamp_min(torch.abs(1.0 - pp_sq), 1e-12))
+    refl = dec["refl"]
+    diex = torch.where(refl, drefx, ppx + par * nx)
+    diey = torch.where(refl, drefy, ppy + par * ny)
+    diez = torch.where(refl, drefz, ppz + par * nz)
+
+    mat = ch[6]
+    is_metal = mat == mat_mod.METAL
+    is_diel = mat == mat_mod.DIELECTRIC
+    ndx = torch.where(is_diel, diex, torch.where(is_metal, metx, lamx))
+    ndy = torch.where(is_diel, diey, torch.where(is_metal, mety, lamy))
+    ndz = torch.where(is_diel, diez, torch.where(is_metal, metz, lamz))
+    atr = torch.where(is_diel, 1.0, torch.where(is_metal, alr, latr))
+    atg = torch.where(is_diel, 1.0, torch.where(is_metal, alg, latg))
+    atb = torch.where(is_diel, 1.0, torch.where(is_metal, alb, latb))
+
+    new = (
+        torch.where(cont, hx, ox), torch.where(cont, hy, oy), torch.where(cont, hz, oz),
+        torch.where(cont, ndx, dx), torch.where(cont, ndy, dy), torch.where(cont, ndz, dz),
+        torch.where(cont, tx * atr, tx), torch.where(cont, ty * atg, ty),
+        torch.where(cont, tz * atb, tz),
+    )
+    return new, (dr, dg, db)
+
+
+def _walk(table, o, d, valid, pix, smp, rec, seed, accum_from):
+    """The twins' replay: every row on the lanes alive there, winner rows
+    gathered by index -> radiance (R, 3). Differentiable w.r.t. table, o
+    and d; dead rows are skipped, as in the kernels."""
+    thr = (valid > 0).to(o.dtype)
+    carry = (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2], thr, thr, thr)
+    rad = [torch.zeros_like(thr) for _ in range(3)]
+    for it in range(rec.shape[0]):
+        live = torch.nonzero((rec[it] & mk.F_ALIVE) > 0).squeeze(1)
+        if live.numel() == 0:
+            continue
+        dec = _decode(rec[it, live])
+        rows = torch.index_select(table, 0, dec["idx"].long())
+        ch = {c: rows[:, c] for c in USED}
+        u1, u2, u_dec = crng.uniform3(
+            pix[live], smp[live], crng.STREAM_BOUNCE_BASE + it, seed
+        )
+        acc = it >= accum_from
+        new, inc = bounce(
+            tuple(x[live] for x in carry), ch, dec, u1, u2, u_dec, acc
+        )
+        carry = tuple(x.index_copy(0, live, y) for x, y in zip(carry, new))
+        if acc:
+            rad = [a.index_add(0, live, b) for a, b in zip(rad, inc)]
+    return torch.stack(rad, dim=1)
+
+
+def replay_forward_reference(table, o, d, valid, pix, smp, rec, seed, *, accum_from=0):
+    """Eager-torch version of the forward kernel: same inputs and output."""
+    with torch.no_grad():
+        return _walk(table, o, d, valid, pix, smp, rec, seed, accum_from)
+
+
+def replay_backward_reference(
+    table, o, d, valid, pix, smp, rec, seed, g_rad, *, accum_from=0
+):
+    """Eager-torch version of the backward kernel: torch autograd through
+    :func:`_walk` -> (g_table (N, 32), g_o (R, 3), g_d (R, 3))."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(True) for x in (table, o, d)]
+        rad = _walk(*leaves, valid, pix, smp, rec, seed, accum_from)
+        grads = torch.autograd.grad(rad, leaves, g_rad, allow_unused=True)
+    return tuple(
+        torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)
+    )
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_inputs(table, o, d, valid, pix, smp, rec, g_rad=None):
+    r = o.shape[0] if o.dim() == 2 else -1
+    expect = [
+        ("table", table, torch.float32, None),
+        ("o", o, torch.float32, (r, 3)),
+        ("d", d, torch.float32, (r, 3)),
+        ("valid", valid, torch.int32, (r,)),
+        ("pix", pix, torch.int32, (r,)),
+        ("smp", smp, torch.int32, (r,)),
+        ("rec", rec, torch.int32, None),
+    ]
+    if g_rad is not None:
+        expect.append(("g_rad", g_rad, torch.float32, (r, 3)))
+    for name, x, dtype, shape in expect:
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{name} must be a tensor, got {type(x).__name__}")
+        if x.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+        if shape is not None and tuple(x.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if x.device != table.device:
+            raise ValueError(f"{name} is on {x.device}, table on {table.device}")
+    if table.dim() != 2 or table.shape[1] != C_IN:
+        raise ValueError(f"table must be (N, {C_IN}), got {tuple(table.shape)}")
+    if rec.dim() != 2 or rec.shape[1] != r:
+        raise ValueError(f"rec must be (depth, {r}), got {tuple(rec.shape)}")
+    if table.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {table.device}")
+    if table.device.type == "cuda" and table.shape[0] > MAX_TABLE_ROWS:
+        raise ValueError(
+            f"{table.shape[0]} table rows exceed the replay kernels' "
+            f"{MAX_TABLE_ROWS} (shared memory)"
+        )
+
+
+def _lib():
+    return build.load("replay_kernel")
+
+
+def replay_forward(table, o, d, valid, pix, smp, rec, seed, *, accum_from=0):
+    """Replay forward (K4) -> radiance (R, 3): rows below ``accum_from``
+    update the carry only. CUDA tensors launch the kernel; CPU tensors run
+    the twin."""
+    global LAUNCHES_FORWARD
+    _check_inputs(table, o, d, valid, pix, smp, rec)
+    if table.device.type == "cpu":
+        return replay_forward_reference(
+            table, o, d, valid, pix, smp, rec, seed, accum_from=accum_from
+        )
+    lib = _lib()
+    n, r, depth = table.shape[0], o.shape[0], rec.shape[0]
+    rad = torch.empty((r, 3), dtype=torch.float32, device=table.device)
+    with torch.cuda.device(table.device):
+        err = lib.crucible_replay_forward(
+            table.data_ptr(), o.data_ptr(), d.data_ptr(), valid.data_ptr(),
+            pix.data_ptr(), smp.data_ptr(), rec.data_ptr(),
+            n, r, depth, int(accum_from), mk.as_i32(int(seed)),
+            rad.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    build.check(lib, err, "replay forward")
+    LAUNCHES_FORWARD += 1
+    return rad
+
+
+def replay_backward(table, o, d, valid, pix, smp, rec, seed, g_rad, *, accum_from=0):
+    """Replay backward (K3) -> (g_table (N, 32), g_o (R, 3), g_d (R, 3)),
+    the cotangents of :func:`replay_forward` for the radiance cotangent
+    ``g_rad``. The table cotangent is summed in a fixed order: two launches
+    on the same inputs give the same bits. CUDA tensors launch the kernel;
+    CPU tensors run the twin."""
+    global LAUNCHES_BACKWARD
+    _check_inputs(table, o, d, valid, pix, smp, rec, g_rad)
+    if table.device.type == "cpu":
+        return replay_backward_reference(
+            table, o, d, valid, pix, smp, rec, seed, g_rad, accum_from=accum_from
+        )
+    lib = _lib()
+    n, r, depth = table.shape[0], o.shape[0], rec.shape[0]
+    grid = min(BACKWARD_BLOCKS, (r + BLOCK - 1) // BLOCK)
+    dev = dict(dtype=torch.float32, device=table.device)
+    ck = torch.empty((depth * 9 * grid * BLOCK,), **dev)
+    part = torch.empty((grid * n * NUSE,), **dev)
+    g_table = torch.empty((n, C_IN), **dev)
+    g_o = torch.empty((r, 3), **dev)
+    g_d = torch.empty((r, 3), **dev)
+    with torch.cuda.device(table.device):
+        err = lib.crucible_replay_backward(
+            table.data_ptr(), o.data_ptr(), d.data_ptr(), valid.data_ptr(),
+            pix.data_ptr(), smp.data_ptr(), rec.data_ptr(), g_rad.data_ptr(),
+            n, r, depth, int(accum_from), mk.as_i32(int(seed)), grid,
+            ck.data_ptr(), part.data_ptr(), g_table.data_ptr(),
+            g_o.data_ptr(), g_d.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    build.check(lib, err, "replay backward")
+    LAUNCHES_BACKWARD += 1
+    return g_table, g_o, g_d
+
+
+# ---------------------------------------------------------------------------
+# Autograd
+# ---------------------------------------------------------------------------
+
+
+class Replay(torch.autograd.Function):
+    """Radiance replayed by K4; its VJP by K3 (the JAX ``replay``)."""
+
+    @staticmethod
+    def forward(ctx, table, o, d, valid, pix, smp, rec, seed, accum_from):
+        ctx.save_for_backward(table, o, d, valid, pix, smp, rec)
+        ctx.seed, ctx.accum_from = seed, accum_from
+        return replay_forward(table, o, d, valid, pix, smp, rec, seed, accum_from=accum_from)
+
+    @staticmethod
+    def backward(ctx, g_rad):
+        g = replay_backward(
+            *ctx.saved_tensors, ctx.seed, g_rad.contiguous(), accum_from=ctx.accum_from
+        )
+        return (*g, None, None, None, None, None, None)
+
+
+class ReplayGiven(torch.autograd.Function):
+    """A radiance computed elsewhere (the fused record pass) as the primal;
+    its VJP by K3 (the JAX ``replay_given``)."""
+
+    @staticmethod
+    def forward(ctx, table, o, d, valid, pix, smp, rec, seed, accum_from, rad):
+        ctx.save_for_backward(table, o, d, valid, pix, smp, rec)
+        ctx.seed, ctx.accum_from = seed, accum_from
+        return rad.clone()
+
+    @staticmethod
+    def backward(ctx, g_rad):
+        g = replay_backward(
+            *ctx.saved_tensors, ctx.seed, g_rad.contiguous(), accum_from=ctx.accum_from
+        )
+        return (*g, None, None, None, None, None, None, None)
+
+
+def trace_replay_mega(
+    table,
+    o,
+    d,
+    pixel_ids,
+    sample_ids,
+    seed,
+    rec,
+    *,
+    accum_from: int = 0,
+    valid=None,
+    rad_given=None,
+):
+    """Differentiable replay -> radiance (R, 3), differentiable w.r.t.
+    ``table``, ``o`` and ``d``.
+
+    ``valid`` (R,) bool: the throughput starts at this 0/1 mask (None = all
+    lanes live). ``rad_given`` (R, 3): a forward radiance already computed
+    for these records (the fused record pass); it becomes the primal and
+    only the backward kernel runs.
+    """
+    r = o.shape[0]
+    dev = table.device
+    valid_i = (
+        torch.ones((r,), dtype=torch.int32, device=dev)
+        if valid is None
+        else valid.to(torch.int32).contiguous()
+    )
+    args = (
+        table.contiguous(),
+        o.contiguous(),
+        d.contiguous(),
+        valid_i,
+        pixel_ids.to(torch.int32).contiguous(),
+        sample_ids.to(torch.int32).contiguous(),
+        rec.to(torch.int32).contiguous(),
+        int(seed) & 0xFFFFFFFF,
+        int(accum_from),
+    )
+    if rad_given is not None:
+        return ReplayGiven.apply(*args, rad_given.detach())
+    return Replay.apply(*args)
+

@@ -190,7 +190,11 @@ def test_build_compiles_for_hopper_without_fast_math():
     flags = " ".join(tbuild.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-fmad=false" in flags
     assert "fast_math" not in flags and "-shared" in flags
-    assert [s.name for s in tbuild.sources()] == ["megakernel.cu"]
+    assert [s.name for s in tbuild.sources()] == [
+        "common.cuh", "megakernel.cu", "replay_kernel.cu"
+    ]
+    # One library per .cu, each with its declared C entry points.
+    assert set(tbuild.SIGNATURES) == {s.stem for s in tbuild.sources() if s.suffix == ".cu"}
 
 
 def test_build_without_nvcc_is_an_error(monkeypatch):
