@@ -27,6 +27,19 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
    - The gradient step at book1 64 wide, 2 spp, depth 8 on the card
      against the same call on the CPU (the twins): loss within rel 1e-4,
      gradients within normalized 1e-3.
+   - K10, the closest sphere hit, bit for bit on t, idx and hit against
+     book1's table: 2^20 random rays, the primary rays of book1 320 wide at
+     4 spp, and the two launches of the direct-AD step's shape: its
+     1920x1080 4 spp primary rays (timed) and the rays of its second
+     bounce, which start on sphere surfaces.
+   - K9, the fused hit + fetch: garden's 1920x1080 primary rays against
+     garden's table, 2^20 random rays against book1's, and book1's table
+     with random motion columns and shutter fractions, bit for bit on all
+     28 output rows.
+   - The pixel schedule on the card against the CPU (garden 64 wide, 4
+     spp, depth 8), and book1 320 wide, 8 spp, depth 50 through the pixel
+     and the mega schedules: isclose(rtol=1e-3, atol=1e-3) on more than
+     97% of pixel values, means within 2e-3.
 4. The forward render: ``render.render_image`` of book1 at 1920x1080, 32
    spp, depth 50; checks the image, counts K1's launches, writes
    ``build/chip_smoke_book1.png``.
@@ -36,9 +49,18 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
      (``loss_and_grad(rec=...)``);
    - 3 steps of ``grad.make_train_step`` with Adam on ``tex_color`` and
      ``mat_emission``: the loss must go down.
-   Each phase zeroes the launch counts before it and reads them after; a
-   kernel of the phase that was not launched fails the run.
-6. Prints a JSON line describing each kernel (times at the comparison
+6. The staged forward render: ``render.render_image`` of garden (the
+   spherical sky) at 1920x1080, 32 spp, depth 50, which ``auto`` sends to
+   the pixel schedule: K9 launches and K1 does not; writes
+   ``build/chip_smoke_garden.png``.
+7. The direct-AD gradient step, ``loss_and_grad(method="ad")`` on book1 at
+   1920x1080, 4 spp, depth 8, every pixel: one warm step, 3 timed steps,
+   peak memory; K10 launches; held against the replay step of phase 5
+   (loss within rel 2e-3, ``tex_color`` and ``mat_emission`` gradients
+   within normalized 5e-3); one step under the profiler.
+   Each main-path phase zeroes the launch counts before it and reads them
+   after; a kernel of the phase that was not launched fails the run.
+8. Prints a JSON line describing each kernel (times at the comparison
    shape, where kernel and twin run the same inputs in full), the card's
    line again, and, as the last line, ``{"ok": true, "device": {...}}``.
 
@@ -65,6 +87,10 @@ PEAK_BYTES = 3.35e12
 # FP32 operations counted from the kernel sources (multiplies, adds,
 # divides, square roots; compares and selects not counted):
 SEARCH_OPS = 22  # one ray against one table row in the closest-hit loop
+# K10's and K9's searches (csrc/sphere_hit.cu via common.cuh, sphere_shade.cu)
+# per (ray, active row): up to the discriminant, then the square root and
+# the two roots where it is not negative.
+HIT_DISC_OPS, SHADE_DISC_OPS, ROOT_OPS = 17, 35, 5
 ROW_OPS = 52  # a replayed row: quadratic, hit point, normal, unit d, radiance
 SCATTER_OPS = 45  # a continuing row: albedo, the sampled direction, scatter
 ADJOINT_ROW_OPS = 60  # the adjoint of a row's radiance and pass-through
@@ -167,6 +193,34 @@ def k3_scheme(got, want, what: str) -> float:
     return worst
 
 
+def search_ops(o, d, w, table, disc_ops: int) -> int:
+    """FP32 operations of a closest-sphere search of these rays against the
+    table's active rows: ``disc_ops`` for each (ray, active row) pair, and
+    ROOT_OPS more where the discriminant is not negative (the kernels skip
+    the rest), counted with the kernels' motion-form discriminant."""
+    import torch
+
+    act = table[:, 5] > 0
+    rows = table[act]
+    c, s0, cd = rows[:, 0:3], rows[:, 4], rows[:, 24:27]
+    s1, s2 = rows[:, 28], rows[:, 29]
+    a = (d * d).sum(1, keepdim=True)
+    dot_o = (d * o).sum(1, keepdim=True)
+    o_sq = (o * o).sum(1, keepdim=True)
+    n_ok = 0
+    step = max(1, (1 << 24) // max(rows.shape[0], 1))
+    for lo in range(0, o.shape[0], step):
+        sl = slice(lo, lo + step)
+        wv = w[sl, None]
+        dc = d[sl] @ c.t() + wv * (d[sl] @ cd.t())
+        oc = o[sl] @ c.t() + wv * (o[sl] @ cd.t())
+        csr = s0 + 2.0 * wv * s1 + wv * wv * s2
+        h = dc - dot_o[sl]
+        disc = h * h - a[sl] * (csr - 2.0 * oc + o_sq[sl])
+        n_ok += int((disc >= 0).sum())
+    return o.shape[0] * rows.shape[0] * disc_ops + n_ok * ROOT_OPS
+
+
 def main() -> None:
     if not (REPO / "crucible_tpu_torch" / "__init__.py").is_file():
         raise SystemExit(f"chip_smoke: no crucible_tpu_torch package beside {__file__}")
@@ -177,11 +231,14 @@ def main() -> None:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
 
     from crucible_tpu_torch import grad
+    from crucible_tpu_torch.io.image import write_png
     from crucible_tpu_torch.models import demo, integrator, render
     from crucible_tpu_torch.models import replay
     from crucible_tpu_torch.models.camera import generate_rays
     from crucible_tpu_torch.ops.kernels import build, megakernel as mk
     from crucible_tpu_torch.ops.kernels import replay_kernel as rk
+    from crucible_tpu_torch.ops.kernels import sphere_hit as sh
+    from crucible_tpu_torch.ops.kernels import sphere_shade as ss
 
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
@@ -443,6 +500,136 @@ def main() -> None:
         if not nd <= 1e-3:
             raise AssertionError(f"{key}: card and CPU gradients disagree")
 
+    # --- K10: closest sphere hit vs its plain version ---------------------------
+    def k10_args(sd, o, d):
+        c = sd.sph_center
+        r = sd.sph_radius
+        csr = c[:, 0] * c[:, 0] + c[:, 1] * c[:, 1] + c[:, 2] * c[:, 2] - r * r
+        return (o.contiguous(), d.contiguous(), c.contiguous(), csr.contiguous(),
+                sd.sph_active.float().contiguous())
+
+    def k10_check(args, what):
+        out = sh.hit_spheres(*args)
+        ref, plain_ms = host_ms(lambda: sh.hit_spheres_reference(*args))
+        err = max(bit_equal(a, b, f"{what} {name}")
+                  for name, a, b in zip(("t", "idx", "hit"), out, ref))
+        print(f"  {what}: {out[2].float().mean().item():.3f} of the rays hit")
+        return plain_ms, err
+
+    def random_rays(n, seed):
+        """n rays from above book1's ground toward random points on it."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        u = torch.rand((n, 6), device=dev, generator=gen)
+        o = torch.stack([30 * u[:, 0] - 15, 0.5 + 4.5 * u[:, 1], 30 * u[:, 2] - 15], 1)
+        target = torch.stack([22 * u[:, 3] - 11, 1.2 * u[:, 4], 22 * u[:, 5] - 11], 1)
+        return o, target - o
+
+    sc = demo.book1_end_scene(width=320)
+    b1_sd, b1_cp = sc.build(device=dev), sc.scene_cam.params(device=dev)
+    b1_table = integrator.make_sphere_table(b1_sd).contiguous()
+    o, d = random_rays(1 << 20, 2)
+    args = k10_args(b1_sd, o, d)
+    plain_ms, _ = k10_check(args, "K10 2^20 random rays x book1")
+    ms = cuda_ms(lambda: sh.hit_spheres(*args), 5)
+    print(f"K10 2^20 rays x {b1_table.shape[0]} rows: kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.1f} ms")
+    p320 = 320 * 180
+    pix = torch.arange(p320, device=dev).repeat(4)
+    smp = torch.arange(4, device=dev).repeat_interleave(p320)
+    o, d, _ = generate_rays(b1_cp, 320, 180, pix, smp, 0)
+    k10_check(k10_args(b1_sd, o, d), "K10 book1 320w 4spp primary rays")
+    # The direct-AD step's launches: its first bounce, on the 1920x1080 4 spp
+    # primary rays (the main shape, timed), and its second, on rays that
+    # start on sphere surfaces (some inside a dielectric sphere).
+    sc = demo.book1_end_scene(width=1920)
+    b1080_sd, b1080_cp = sc.build(device=dev), sc.scene_cam.params(device=dev)
+    p_full = 1920 * 1080
+    pix = torch.arange(p_full, device=dev).repeat(4)
+    smp = torch.arange(4, device=dev).repeat_interleave(p_full)
+    o, d, _ = generate_rays(b1080_cp, 1920, 1080, pix, smp, 0)
+    args = k10_args(b1080_sd, o, d)
+    k10_plain, k10_err = k10_check(args, "K10 1920x1080 4spp primary rays")
+    k10_ms = cuda_ms(lambda: sh.hit_spheres(*args), 3)
+    k10_bound, k10_by = bound(
+        search_ops(o, d, torch.zeros(o.shape[0], device=dev), b1_table, HIT_DISC_OPS),
+        nbytes(*args) + 9 * o.shape[0],
+    )
+    print(f"K10 1920x1080 4spp primary rays ({o.shape[0]} x {b1_table.shape[0]} rows): "
+          f"kernel {k10_ms:.3f} ms, plain {k10_plain:.1f} ms, bound {k10_bound:.4f} ms "
+          f"({k10_by})")
+    kernels["sphere_hit"] = dict(
+        source="crucible_tpu_torch/csrc/sphere_hit.cu",
+        replaces="crucible_tpu/ops/pallas/sphere_hit.py:103",
+        max_abs_err=k10_err, ms=k10_ms, plain_ms=k10_plain,
+        bound_ms=k10_bound, bound_by=k10_by,
+    )
+    r = o.shape[0]
+    with torch.no_grad():
+        o, d, *_ = integrator._trace_bounce(
+            b1080_sd, pix, smp, 0, 0, o, d, torch.ones((r, 3), device=dev),
+            torch.zeros((r, 3), device=dev), torch.ones((r,), dtype=torch.bool, device=dev),
+        )
+    k10_check(k10_args(b1080_sd, o, d), "K10 1920x1080 4spp second-bounce rays")
+    del o, d, args, pix, smp
+
+    # --- K9: fused hit + fetch vs its plain version -----------------------------
+    def k9_check(o, d, w, table, what):
+        args = (o.contiguous(), d.contiguous(), w.contiguous(), table.contiguous())
+        out = ss.hit_spheres_fetch(*args)
+        ref, plain_ms = host_ms(lambda: ss.hit_spheres_fetch_reference(*args))
+        err = bit_equal(out, ref, f"{what}, all {ss.C_OUT} rows")
+        print(f"  {what}: {(out[0] < ss.BIG).float().mean().item():.3f} of the rays hit")
+        return args, err, plain_ms
+
+    o, d = random_rays(1 << 20, 3)
+    k9_check(o, d, torch.zeros(o.shape[0], device=dev), b1_table, "K9 2^20 random rays x book1")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    moving = b1_table.clone()
+    cd = 0.6 * torch.rand((moving.shape[0], 3), device=dev, generator=gen) - 0.3
+    rd = 0.1 * torch.rand((moving.shape[0],), device=dev, generator=gen) - 0.05
+    moving[:, 24:27], moving[:, 27] = cd, rd
+    moving[:, 28] = (moving[:, 0:3] * cd).sum(1) - moving[:, 3] * rd
+    moving[:, 29] = (cd * cd).sum(1) - rd * rd
+    w = torch.rand((o.shape[0],), device=dev, generator=gen)
+    k9_check(o, d, w, moving, "K9 2^20 random rays x book1 with motion, random w")
+    sc = demo.garden_skybox(width=1920)
+    g_sd, g_cp = sc.build(device=dev), sc.scene_cam.params(device=dev)
+    g_table = integrator.make_sphere_table(g_sd).contiguous()
+    pix = torch.arange(p_full, device=dev)
+    o, d, _ = generate_rays(g_cp, 1920, 1080, pix, torch.zeros_like(pix), 0)
+    k9_in, k9_err, k9_plain = k9_check(o, d, torch.zeros(p_full, device=dev), g_table,
+                                       "K9 garden 1920x1080 primary rays")
+    k9_ms = cuda_ms(lambda: ss.hit_spheres_fetch(*k9_in), 5)
+    k9_bound, k9_by = bound(search_ops(*k9_in, SHADE_DISC_OPS),
+                            nbytes(*k9_in) + ss.C_OUT * 4 * p_full)
+    print(f"K9 garden 1920x1080 ({p_full} rays x {g_table.shape[0]} rows): kernel "
+          f"{k9_ms:.4f} ms, plain {k9_plain:.2f} ms, bound {k9_bound:.4f} ms ({k9_by})")
+    kernels["sphere_shade"] = dict(
+        source="crucible_tpu_torch/csrc/sphere_shade.cu",
+        replaces="crucible_tpu/ops/pallas/sphere_shade.py:136",
+        max_abs_err=k9_err, ms=k9_ms, plain_ms=k9_plain,
+        bound_ms=k9_bound, bound_by=k9_by,
+    )
+    del o, d, w, moving, k9_in, pix
+
+    # --- the pixel schedule: card vs CPU, and vs the mega schedule ------------
+    sc = demo.garden_skybox(width=64)
+    card_img = render.render_image(sc, samples=4, max_depth=8)
+    cpu_img = render.render_image(sc, samples=4, max_depth=8, device="cpu")
+    statistical_match(card_img.cpu(), cpu_img, "pixel schedule garden 64w 4spp d8, card vs CPU")
+    imgs = {}
+    for schedule in ("pixel", "mega"):
+        imgs[schedule], ms = host_ms(lambda: render.render_image_persistent(
+            b1_sd, b1_cp, 320, 180, 8, 50, 0, schedule=schedule))
+        print(f"  book1 320w 8spp d50, {schedule} schedule: {ms:.1f} ms")
+    a, b = imgs["pixel"], imgs["mega"]
+    close = torch.isclose(a, b, rtol=1e-3, atol=1e-3).float().mean().item()
+    dmean = abs(a.mean().item() - b.mean().item())
+    print(f"  pixel vs mega: isclose {close:.5f}, |mean diff| {dmean:.3g}")
+    if not (close > 0.97 and dmean <= 2e-3):
+        raise AssertionError("the pixel and mega schedules disagree on book1")
+    del imgs, a, b, card_img, cpu_img
+
     # --- main path 1: the forward render ---------------------------------------
     scene = demo.book1_end_scene(width=1920)
     mk.LAUNCHES = 0
@@ -457,8 +644,6 @@ def main() -> None:
     print(f"render_image book1 1920x1080 32spp d50: {ms / 1e3:.3f} s, "
           f"{1920 * 1080 * 32 / ms / 1e3:.2f} Mrays/s, mean {img.mean().item():.5f}, "
           f"megakernel launches {launches_k1}")
-    from crucible_tpu_torch.io.image import write_png
-
     png = REPO / "build" / "chip_smoke_book1.png"
     png.parent.mkdir(parents=True, exist_ok=True)
     write_png(png, render.to_u8(img))
@@ -502,6 +687,7 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     (loss0, grads), ms = host_ms(lambda: grad.loss_and_grad(params, sd, cp, target, pix, 0, **kw))
     check_grads(loss0, grads)
+    replay_grads = grads  # held against the direct-AD step (main path 4)
     print(f"loss_and_grad 1920x1080 4spp d8, warm step: {ms / 1e3:.3f} s, "
           f"loss {loss0.item():.6f}")
     step_ms = []
@@ -554,19 +740,87 @@ def main() -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        grad.loss_and_grad(params, sd, cp, target, pix, 0, **kw)
-        torch.cuda.synchronize()
-    rows = sorted(
-        (e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-        key=lambda e: -e.self_device_time_total,
-    )
-    total = sum(e.self_device_time_total for e in rows) / 1e3
-    wall = sorted(step_ms)[1]
-    print(f"profile of one loss_and_grad step: {total:.2f} ms in {sum(e.count for e in rows)} "
-          f"kernel launches = {100 * total / wall:.1f}% of the median step's {wall:.1f} ms")
-    for e in rows[:10]:
-        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d}x  {e.key[:70]}")
+    def profile_step(what, fn, wall, kernel_key=None):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = sorted(
+            (e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+            key=lambda e: -e.self_device_time_total,
+        )
+        total = sum(e.self_device_time_total for e in rows) / 1e3
+        print(f"profile of one {what}: {total:.2f} ms in {sum(e.count for e in rows)} "
+              f"kernel launches = {100 * total / wall:.1f}% of the median step's {wall:.1f} ms")
+        for e in rows[:10]:
+            print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d}x  {e.key[:70]}")
+        if kernel_key is not None:
+            mine = sum(e.self_device_time_total for e in rows if kernel_key in e.key) / 1e3
+            print(f"  {kernel_key}: {mine:.2f} ms = {100 * mine / total:.1f}% of the step's "
+                  f"device time, {100 * mine / wall:.1f}% of its wall time")
+
+    profile_step("loss_and_grad step",
+                 lambda: grad.loss_and_grad(params, sd, cp, target, pix, 0, **kw),
+                 sorted(step_ms)[1])
+    del grads, tparams, step
+
+    # --- main path 3: the staged forward render (garden, pixel schedule) ------
+    scene = demo.garden_skybox(width=1920)
+    gsd, gcp = scene.build(), scene.scene_cam.params()
+    if integrator.megakernel_supported(gsd, gcp) or not integrator.fused_supported(gsd):
+        raise AssertionError("auto would not take the pixel schedule for garden")
+    mk.LAUNCHES = ss.LAUNCHES = 0
+    img, ms = host_ms(lambda: render.render_image(scene, samples=32, max_depth=50))
+    launches_k9, launches_k1 = ss.LAUNCHES, mk.LAUNCHES
+    if tuple(img.shape) != (1080, 1920, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"garden image: shape {tuple(img.shape)} or non-finite values")
+    if launches_k9 < 1 or launches_k1 != 0:
+        raise AssertionError(f"garden: K9 launched {launches_k9}, K1 {launches_k1} times")
+    print(f"render_image garden 1920x1080 32spp d50 (auto -> pixel): {ms / 1e3:.3f} s, "
+          f"{1920 * 1080 * 32 / ms / 1e3:.2f} Mrays/s, mean {img.mean().item():.5f}, "
+          f"K9 launches {launches_k9}, K1 launches {launches_k1}; nvidia-smi: {smi()}")
+    png = REPO / "build" / "chip_smoke_garden.png"
+    write_png(png, render.to_u8(img))
+    print(f"wrote {png.relative_to(REPO)}")
+    kernels["sphere_shade"]["launches"] = launches_k9
+    del img
+
+    # --- main path 4: the direct-AD gradient step, 1920x1080, 4 spp, depth 8 ----
+    akw = dict(kw, method="ad")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sh.LAUNCHES = 0
+    (ad_loss, ad_grads), ms = host_ms(
+        lambda: grad.loss_and_grad(params, sd, cp, target, pix, 0, **akw))
+    check_grads(ad_loss, ad_grads)
+    print(f"loss_and_grad(method='ad') 1920x1080 4spp d8, warm step: {ms / 1e3:.3f} s, "
+          f"loss {ad_loss.item():.6f}")
+    ad_ms = []
+    for i in range(3):
+        (ad_loss, ad_grads), ms = host_ms(
+            lambda: grad.loss_and_grad(params, sd, cp, target, pix, 0, **akw))
+        check_grads(ad_loss, ad_grads)
+        ad_ms.append(ms)
+        print(f"  ad step {i}: {ms / 1e3:.4f} s, {mrays / (ms / 1e3):.2f} Mrays/s")
+    launches_k10 = sh.LAUNCHES
+    print(f"  nvidia-smi: {smi()}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; K10 launches {launches_k10}")
+    if launches_k10 < 1:
+        raise AssertionError("the direct-AD steps did not launch K10")
+    kernels["sphere_hit"]["launches"] = launches_k10
+    rel = abs(ad_loss.item() - loss0.item()) / loss0.item()
+    print(f"  ad vs replay: loss {ad_loss.item():.6f} vs {loss0.item():.6f} (rel {rel:.3g})")
+    if not rel <= 2e-3:
+        raise AssertionError("the direct-AD and replay losses disagree")
+    for key in ("tex_color", "mat_emission"):
+        a, b = ad_grads[key], replay_grads[key]
+        nd = ((a - b).abs().max() / max(b.abs().max().item(), 1e-6)).item()
+        print(f"  {key}: max normalized diff ad vs replay {nd:.3g}")
+        if not nd <= 5e-3:
+            raise AssertionError(f"{key}: direct-AD and replay gradients disagree")
+    del ad_grads, replay_grads
+    profile_step("direct-AD step",
+                 lambda: grad.loss_and_grad(params, sd, cp, target, pix, 0, **akw),
+                 sorted(ad_ms)[1], kernel_key="sphere_hit")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check")
 
     print(card)

@@ -2,19 +2,21 @@
 
 The JAX package stays beside this one as the reference: every module here
 sits at the same relative path as its counterpart and keeps its public
-names. Plain tensor code is eager PyTorch; the persistent path-tracing
-megakernel is a CUDA C++ kernel written for Hopper (``csrc/megakernel.cu``),
-with an eager-torch version of the same function beside it for CPU tensors
-and for the comparisons.
+names. Plain tensor code is eager PyTorch; every TPU kernel on a ported
+path is a CUDA C++ kernel written for Hopper (``csrc/``), with a plain
+PyTorch version of the same function beside it for CPU tensors and for the
+comparisons.
 
-Ported so far: the forward render of sphere scenes (solid and
-checker-of-solid textures, default sky, static camera with defocus)
-through ``models.render.render_image``. Triangles, image textures, the
-spherical sky, animation and the gradient path raise
+Ported so far, for static sphere scenes (solid and checker-of-solid
+textures, the default or a spherical HDR sky, static camera with defocus):
+the forward render through ``models.render.render_image`` (the megakernel
+schedule, and the staged pixel schedule for the spherical sky) and the
+gradient through ``grad.loss_and_grad`` (record/replay, and direct AD).
+Triangles, image textures, animation and the rest raise
 ``NotImplementedError``.
 
-Every entry point takes an explicit ``device=``. This package never imports
-``jax`` or ``crucible_tpu``.
+Every entry point runs on ``device="cuda"`` unless the caller names
+another device. This package never imports ``jax`` or ``crucible_tpu``.
 """
 
 __version__ = "0.1.0"

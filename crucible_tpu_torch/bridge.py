@@ -9,7 +9,9 @@ own scenes.
 
 Array keys are the ``SceneData`` field names, with the texture table's
 fields prefixed ``tex_``; static keys are ``sky_kind``, ``num_spheres``,
-``num_tris``, ``animated``, ``motion_exact`` and ``max_nest``.
+``num_tris``, ``animated``, ``motion_exact`` and ``max_nest``. As in the JAX
+package, ``sky_image`` is a (1, 1, 3) zero placeholder under the default sky
+(the port's ``SceneData.sky_image`` is then None).
 :func:`params_from_arrays` / :func:`params_to_arrays` carry the gradient
 path's parameter dict (``grad.extract_params``) the same way. Packed
 decision records cross as int32 arrays.
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from crucible_tpu_torch.grad import TENSOR_KEYS
+from crucible_tpu_torch.models import skybox as sky_mod
 from crucible_tpu_torch.models.camera import CameraParams
 from crucible_tpu_torch.models.scene import SceneData
 from crucible_tpu_torch.models.textures import TextureTable
@@ -30,6 +33,7 @@ from crucible_tpu_torch.models.textures import TextureTable
 SCENE_ARRAYS = (
     "sph_center", "sph_radius", "sph_mat", "sph_active",
     "mat_type", "mat_tex", "mat_fuzz", "mat_ior", "mat_prob", "mat_emission",
+    "sky_image",
 )
 TEX_ARRAYS = ("kind", "color", "inv_scale", "even", "odd", "image_id")
 SCENE_STATIC = ("sky_kind", "num_spheres", "num_tris", "animated", "motion_exact")
@@ -54,9 +58,11 @@ def scene_data_from_arrays(
         **{k: _tensor(arrays[f"tex_{k}"], device) for k in TEX_ARRAYS},
         max_nest=int(max_nest),
     )
+    sky = static.get("sky_kind", sky_mod.DEFAULT) == sky_mod.SPHERICAL
     return SceneData(
-        **{k: _tensor(arrays[k], device) for k in SCENE_ARRAYS},
+        **{k: _tensor(arrays[k], device) for k in SCENE_ARRAYS if k != "sky_image"},
         tex=tex,
+        sky_image=_tensor(arrays["sky_image"], device) if sky else None,
         **static,
     )
 
@@ -64,7 +70,11 @@ def scene_data_from_arrays(
 def scene_data_to_arrays(sd: SceneData) -> tuple[dict[str, np.ndarray], dict]:
     """(arrays, static) such that ``scene_data_from_arrays(arrays,
     device=..., **static)`` rebuilds ``sd``."""
-    arrays = {k: getattr(sd, k).cpu().numpy() for k in SCENE_ARRAYS}
+    arrays = {k: getattr(sd, k).cpu().numpy() for k in SCENE_ARRAYS if k != "sky_image"}
+    arrays["sky_image"] = (
+        np.zeros((1, 1, 3), np.float32) if sd.sky_image is None
+        else sd.sky_image.cpu().numpy()
+    )
     arrays.update({f"tex_{k}": getattr(sd.tex, k).cpu().numpy() for k in TEX_ARRAYS})
     static = {k: getattr(sd, k) for k in SCENE_STATIC}
     static["max_nest"] = sd.tex.max_nest
@@ -84,23 +94,26 @@ def camera_params_from_arrays(
     return CameraParams(**vals, animated=animated, motion_exact=motion_exact)
 
 
-
 def params_from_arrays(arrays: dict, *, device="cuda") -> dict:
     """A ``grad.extract_params`` dict on ``device`` from numpy arrays with
-    the same keys (``grad.TENSOR_KEYS`` hold the arrays). ``tex_images`` must be empty and ``sky_image`` None (the
-    port renders neither)."""
-    if len(arrays.get("tex_images", ())) or arrays.get("sky_image") is not None:
+    the same keys (``grad.TENSOR_KEYS`` hold the arrays). ``sky_image`` is
+    an (H, W, 3) array or missing / None (the default sky); ``tex_images``
+    must be empty (image textures are not ported)."""
+    if len(arrays.get("tex_images", ())):
         raise NotImplementedError(
-            "image textures and the spherical sky are not ported to "
-            "crucible_tpu_torch yet"
+            "image textures are not ported to crucible_tpu_torch yet"
         )
     params = {
         k: _tensor(np.asarray(arrays[k], np.float32), device) for k in TENSOR_KEYS
     }
-    return {**params, "tex_images": (), "sky_image": None}
+    sky = arrays.get("sky_image")
+    sky = None if sky is None else _tensor(np.asarray(sky, np.float32), device)
+    return {**params, "tex_images": (), "sky_image": sky}
 
 
 def params_to_arrays(params: dict) -> dict:
     """The inverse of :func:`params_from_arrays`."""
     out = {k: params[k].detach().cpu().numpy() for k in TENSOR_KEYS}
-    return {**out, "tex_images": (), "sky_image": None}
+    sky = params["sky_image"]
+    return {**out, "tex_images": (),
+            "sky_image": None if sky is None else sky.detach().cpu().numpy()}

@@ -57,7 +57,6 @@ using namespace crucible;
 constexpr int C_IN = 32;           // table columns (sphere_shade.py layout)
 constexpr int SMEM_COLS = 5;       // staged columns: cx, cy, cz, csr, active
 constexpr int BLOCK = 128;         // threads per block (4 warps)
-constexpr float BIG = 3.0e38f;     // "no hit" distance
 constexpr int NO_SAMPLE = 1 << 30;  // sample0 of a padding lane
 
 // RECORD: one path per lane, decision words to `rec` (D, R).
@@ -145,27 +144,8 @@ __global__ void __launch_bounds__(BLOCK) megakernel(
       const float inv_a = 1.0f / a_q;
       float best = BIG;
       int win = -1;
-      for (int k = 0; k < n; ++k) {
-        if (!(s_act[k] > 0.0f)) continue;
-        const float cx = s_cx[k], cy = s_cy[k], cz = s_cz[k];
-        const float dck = cx * dx + cy * dy + cz * dz;
-        const float ock = cx * ox + cy * oy + cz * oz;
-        const float h = dck - d_dot_o;
-        const float c_q = s_csr[k] - 2.0f * ock + o_sq;
-        const float disc = h * h - a_q * c_q;
-        if (!(disc >= 0.0f)) continue;
-        const float sq = sqrtf(disc);
-        const float root0 = (h - sq) * inv_a;
-        const float root1 = (h + sq) * inv_a;
-        const bool ok0 = (root0 > t_min) && (root0 < BIG);
-        const bool ok1 = (root1 > t_min) && (root1 < BIG);
-        if (!(ok0 || ok1)) continue;
-        const float root = ok0 ? root0 : root1;
-        if (root < best) {
-          best = root;
-          win = k;
-        }
-      }
+      closest_sphere(s_cx, s_cy, s_cz, s_csr, s_act, n, 0, ox, oy, oz, dx, dy,
+                     dz, a_q, d_dot_o, o_sq, inv_a, t_min, best, win);
 
       const float dlen = fmaxf(sqrtf(a_q), 1e-20f);
       const bool acc_row = !RECORD || bounce >= accum_from;

@@ -3,34 +3,53 @@
 Port of the unsplit gradient path of ``crucible_tpu/grad.py``. The
 parameters are a flat dict of the scene's and camera's differentiable
 tensors (:func:`extract_params`); :func:`loss_and_grad` returns the L2
-loss against target pixel radiances and its gradient with the same keys,
-through the record/replay path of ``models/replay.py`` (record K2, replay
-K4 forward and K3 backward). Frozen-decision training records the
-decisions once (:func:`record_decisions`) and replays them in every later
-step (``rec=``). :func:`make_train_step` wraps a ``torch.optim`` optimizer.
+loss against target pixel radiances and its gradient with the same keys.
+Two estimators compute it:
 
-Not ported yet: the direct-AD estimator (``method='ad'``), the depth-50
-budget (lane-narrowed replay), the capacity-overflow recovery ladder,
-sample-chunked accumulation and checkpoints.
+- ``method='replay'``: the record/replay path of ``models/replay.py``
+  (record K2, replay K4 forward and K3 backward). Frozen-decision training
+  records the decisions once (:func:`record_decisions`) and replays them in
+  every later step (``rec=``).
+- ``method='ad'``: direct reverse mode through the checkpointed bounce loop
+  (``integrator.render_rays(differentiable=True)``, closest hits by K10),
+  the semantic reference; it also covers the spherical sky, whose image is
+  then a leaf (``sky_image``).
+
+``method='auto'`` takes the replay where the replay kernels take the scene
+and the direct AD elsewhere. :func:`make_train_step` wraps a
+``torch.optim`` optimizer.
+
+Not ported yet: the depth-50 budget (lane-narrowed replay), the
+capacity-overflow recovery ladder, sample-chunked accumulation and
+checkpoints.
 """
 
 from __future__ import annotations
 
+import sys
 from dataclasses import replace
 from typing import Any, Dict
 
 import torch
 
+from crucible_tpu_torch.models import integrator
 from crucible_tpu_torch.models import replay as replay_mod
 from crucible_tpu_torch.models.camera import CameraParams
 from crucible_tpu_torch.models.scene import SceneData
 
-# Parameter keys whose value is a tensor (the others: texture images, a
-# tuple, and the sky image, None for the scenes the port renders).
+# Parameter keys whose value is always a tensor. The others: the texture
+# images, a tuple (empty: image textures are not ported), and the sky
+# image, a tensor leaf where the scene has a spherical sky, else None.
 TENSOR_KEYS = (
     "tex_color", "mat_emission", "mat_fuzz", "cam_look_from", "cam_look_at",
     "cam_vfov", "cam_defocus", "cam_focus_dist",
 )
+
+
+def leaf_keys(params) -> tuple:
+    """The keys of ``params`` that are differentiable tensor leaves:
+    ``TENSOR_KEYS``, and ``sky_image`` where it is a tensor."""
+    return TENSOR_KEYS + (("sky_image",) if params["sky_image"] is not None else ())
 
 
 def extract_params(sd: SceneData, cp: CameraParams) -> Dict[str, Any]:
@@ -41,7 +60,7 @@ def extract_params(sd: SceneData, cp: CameraParams) -> Dict[str, Any]:
         "tex_images": sd.tex.images,  # texture texels (none are ported)
         "mat_emission": sd.mat_emission,
         "mat_fuzz": sd.mat_fuzz,
-        "sky_image": None,  # the spherical sky is not ported
+        "sky_image": sd.sky_image,  # None under the default sky
         "cam_look_from": cp.look_from,
         "cam_look_at": cp.look_at,
         "cam_vfov": cp.vfov_rad,
@@ -52,16 +71,16 @@ def extract_params(sd: SceneData, cp: CameraParams) -> Dict[str, Any]:
 
 def apply_params(sd: SceneData, cp: CameraParams, p: Dict[str, Any]):
     """Write a parameter dict back into new (scene, camera) dataclasses."""
-    if p["sky_image"] is not None or len(p["tex_images"]):
+    if len(p["tex_images"]):
         raise NotImplementedError(
-            "image textures and the spherical sky are not ported to "
-            "crucible_tpu_torch yet"
+            "image textures are not ported to crucible_tpu_torch yet"
         )
     sd = replace(
         sd,
         tex=replace(sd.tex, color=p["tex_color"]),
         mat_emission=p["mat_emission"],
         mat_fuzz=p["mat_fuzz"],
+        sky_image=p["sky_image"],
     )
     cp = replace(
         cp,
@@ -102,21 +121,39 @@ def render_pixels_mean(
     """Per-pixel mean radiance (P, 3) for the given pixels, differentiable
     w.r.t. ``params``.
 
-    ``method``: 'replay' (record, then the differentiable replay) or
-    'auto' (the same); 'ad' (direct reverse mode) is not ported.
+    ``method``: 'replay' (record, then the differentiable replay), 'ad'
+    (direct reverse mode through the checkpointed bounce loop — the
+    semantic reference) or 'auto' (replay wherever the replay kernels take
+    the scene, else 'ad').
     """
-    if method == "ad":
-        raise NotImplementedError(
-            "the direct-AD estimator (method='ad') is not ported to "
-            "crucible_tpu_torch yet"
-        )
-    if method not in ("auto", "replay"):
+    if method not in ("auto", "replay", "ad"):
         raise ValueError(f"unknown method {method!r}")
     sd, cp = apply_params(sd, cp, params)
+    if method == "auto":
+        if replay_mod.replay_supported(sd):
+            method = "replay"
+        else:
+            print(
+                "crucible_tpu_torch: WARNING: scene outside the replay kernels "
+                "(see replay.replay_supported); using the direct-AD estimator "
+                "(slower, memory-heavy at large pixel batches)",
+                file=sys.stderr,
+            )
+            method = "ad"
+    if rec is not None and method != "replay":
+        raise ValueError(
+            "precomputed decision records (rec=...) need the replay gradient "
+            f"path, but method resolved to {method!r}"
+        )
     pix, smp = _lanes(pixel_ids, spp, sample0)
-    rad = replay_mod.render_rays_replay(
-        sd, cp, width, height, pix, smp, seed, max_depth, rec=rec, split=grad_split
-    )
+    if method == "replay":
+        rad = replay_mod.render_rays_replay(
+            sd, cp, width, height, pix, smp, seed, max_depth, rec=rec, split=grad_split
+        )
+    else:
+        rad = integrator.render_rays(
+            sd, cp, width, height, pix, smp, seed, max_depth, differentiable=True
+        )
     return rad.reshape(spp, pixel_ids.shape[0], 3).mean(dim=0)
 
 
@@ -162,9 +199,10 @@ def l2_loss(
 
 def loss_and_grad(params, sd, cp, target, pixel_ids, seed, **kw):
     """(loss, grads): the :func:`l2_loss` value and its gradient, a dict
-    with the keys of ``params`` (``tex_images`` () and ``sky_image`` None,
-    as given). Keyword arguments are those of :func:`l2_loss`."""
-    leaves = {k: params[k].detach().requires_grad_(True) for k in TENSOR_KEYS}
+    with the keys of ``params`` (``tex_images`` (), and ``sky_image`` None
+    where the scene has no spherical sky, as given). Keyword arguments are
+    those of :func:`l2_loss`."""
+    leaves = {k: params[k].detach().requires_grad_(True) for k in leaf_keys(params)}
     with torch.enable_grad():
         loss = l2_loss({**params, **leaves}, sd, cp, target, pixel_ids, seed, **kw)
         grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)

@@ -1,16 +1,32 @@
-"""Film output: ASCII P3 PPM and PNG (port of the writers of
+"""Image decode (HDR only) and film output: ASCII P3 PPM and PNG (port of
 ``crucible_tpu/io/image.py``).
 
 PNG is encoded with the standard library's ``zlib`` (8-bit RGB, no
-filtering), so writing an image needs nothing beyond numpy.
+filtering), so writing an image needs nothing beyond numpy. Decoding LDR
+formats (the JAX package's PIL route, for image textures) is not ported.
 """
 
 from __future__ import annotations
 
 import struct
 import zlib
+from pathlib import Path
 
 import numpy as np
+
+from crucible_tpu_torch.io import hdr as hdr_io
+from crucible_tpu_torch.io.assets import build_asset_path
+
+
+def load_image(filename: str) -> np.ndarray:
+    """Load an asset image -> (H, W, 3) float32 linear radiance. ``.hdr``
+    files only; other formats raise ``NotImplementedError``."""
+    if Path(filename).suffix.lower() != ".hdr":
+        raise NotImplementedError(
+            f"decoding {filename!r}: only .hdr images are ported to "
+            "crucible_tpu_torch yet"
+        )
+    return hdr_io.read_hdr(build_asset_path(filename))
 
 
 def write_ppm(path, img_u8: np.ndarray) -> None:

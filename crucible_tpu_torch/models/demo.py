@@ -1,4 +1,5 @@
-"""Demo scenes (port of the sphere scenes of ``crucible_tpu/models/demo.py``).
+"""Demo scenes (port of the sphere scenes of ``crucible_tpu/models/demo.py``,
+and the garden under its procedural HDR sky).
 
 Scene generation takes an explicit seed and draws from numpy in the same
 order as the JAX package, so both packages build identical tables.
@@ -8,6 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from crucible_tpu_torch.io.procedural import ensure_garden_hdr
 from crucible_tpu_torch.models.scene import (
     CheckerTexture,
     Dielectric,
@@ -109,3 +111,20 @@ def smoke_scene(width: int = 400) -> Scene:
     )
     return sc
 
+
+def garden_skybox(width: int = 1920) -> Scene:
+    """Metal ball under the ``garden.hdr`` spherical sky. No asset set ships
+    that file; a procedural substitute is generated into ``assets/`` on
+    demand (``io/procedural.py``)."""
+    ensure_garden_hdr()
+    sc = Scene.new_image(16.0 / 9.0, width, 24, 180.0)
+    cam = sc.scene_cam
+    cam.set_samples(500)
+    cam.set_max_depth(50)
+    cam.look_from((0.0, 0.0, -12.0))
+    cam.look_at((0.0, 0.0, 0.0))
+    cam.set_vfov(40.0)
+
+    sc.add_element(Sphere((0.0, 0.0, 0.0), 2.0, Metal((0.8, 0.8, 0.8), 0.05)), "metal_ball")
+    sc.load_spherical_skybox("garden.hdr")
+    return sc

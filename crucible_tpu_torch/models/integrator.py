@@ -1,22 +1,179 @@
-"""Path integrator: the persistent megakernel schedule and its inputs.
+"""Path integrator: the wavefront bounce, the staged schedules and the
+persistent megakernel schedule.
 
-Port of the forward-render parts of ``crucible_tpu/models/integrator.py``:
-the (N, 32) sphere attribute table, the megakernel's camera vector and
-predicate, and ``trace_persistent_mega``, which lays the pixels out as
-lanes, calls the megakernel and un-swizzles its per-lane sums. The staged
-wavefront schedules are not ported yet; the record-mode predicate serves
-``models/replay.py``.
+Port of ``crucible_tpu/models/integrator.py`` for static sphere scenes:
+
+- the staged wavefront: :func:`intersect_scene` (closest hits through
+  ``ops/intersect.hit_spheres``, kernel K10), :func:`bounce_step`,
+  :func:`trace` (with ``differentiable=True`` the checkpointed bounce loop
+  that the direct-AD gradient runs) and :func:`render_rays`;
+- the ``pixel`` schedule :func:`trace_persistent`, whose fused bounce
+  :func:`bounce_step_fused` takes the winner's attributes from K9;
+- the ``mega`` schedule :func:`trace_persistent_mega` (K1) with its inputs
+  (the (N, 32) sphere attribute table, the camera vector) and the
+  megakernel predicates.
+
+Triangles, moving spheres and exact-time motion raise
+``NotImplementedError``. The radiance recursion of the original renderer
+unrolls into an iterative product over a flat batch of rays: on a miss
+L += throughput * sky, on a hit L += throughput * emission, and on a
+scatter throughput *= attenuation. Discrete decisions (hits, winners,
+material branches, random numbers) are detached samples; continuous
+quantities stay on the autograd tape.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from crucible_tpu_torch.models import materials as mat_mod
 from crucible_tpu_torch.models import skybox as sky_mod
-from crucible_tpu_torch.models.camera import CameraParams
+from crucible_tpu_torch.models import textures as tex_mod
+from crucible_tpu_torch.models.camera import CameraParams, generate_rays
 from crucible_tpu_torch.models.scene import SceneData
+from crucible_tpu_torch.ops import intersect
 from crucible_tpu_torch.ops.kernels import megakernel as mk
+from crucible_tpu_torch.ops.kernels import sphere_shade
+from crucible_tpu_torch.utils import rng as crng
 from crucible_tpu_torch.utils import vec
+
+T_MIN = mk.T_MIN  # shadow-acne epsilon
+BIG = mk.BIG
+
+
+def _check_static_spheres(sd: SceneData) -> None:
+    """Raise, naming what is missing, for what the staged path lacks."""
+    if sd.num_tris > 0:
+        raise NotImplementedError(
+            "triangle meshes are not ported to crucible_tpu_torch's staged "
+            "integrator yet"
+        )
+    if sd.motion_exact:
+        raise NotImplementedError(
+            "exact per-ray-time motion is not ported to crucible_tpu_torch yet"
+        )
+    if sd.animated:
+        raise NotImplementedError(
+            "moving spheres (linear-shutter motion) are not ported to "
+            "crucible_tpu_torch's staged integrator yet"
+        )
+
+
+def intersect_scene(sd: SceneData, o, d):
+    """Closest hit against the scene's spheres.
+
+    Returns a dict of per-ray tensors: hit (bool), t, point (R, 3), normal
+    (R, 3) the unit normal flipped against d, front (bool), u, v, mat
+    (int64), i_sph (the winning row)."""
+    _check_static_spheres(sd)
+    t, i_s, hit = intersect.hit_spheres(
+        o, d, sd.sph_center, sd.sph_radius, sd.sph_active, T_MIN
+    )
+    i_s = i_s.to(torch.int64)
+    # Miss lanes carry t = BIG; the shading point uses t = 1 there so that
+    # masked-out lanes stay finite (0 * inf would NaN their gradients).
+    t_shade = torch.where(hit, t, 1.0)
+    point = o + t_shade[:, None] * d
+    c_w = torch.index_select(sd.sph_center, 0, i_s)
+    r_w = torch.index_select(sd.sph_radius, 0, i_s)
+    n_out = (point - c_w) / torch.clamp_min(r_w, 1e-20)[:, None]
+    u, v = intersect.sphere_uv(n_out)
+    front = vec.dot(d, n_out) < 0.0
+    normal = torch.where(front[:, None], n_out, -n_out)
+    mat = torch.index_select(sd.sph_mat, 0, i_s).to(torch.int64)
+    return dict(hit=hit, t=t, point=point, normal=normal, front=front, u=u, v=v,
+                mat=mat, i_sph=i_s)
+
+
+def _bounce_uniforms(pixel_ids, sample_ids, bounce, seed):
+    """The bounce's three uniforms: direction u1, u2 and the decision."""
+    if isinstance(bounce, torch.Tensor):
+        bounce = bounce.to(torch.int64)
+    return crng.uniform3(pixel_ids, sample_ids, crng.STREAM_BOUNCE_BASE + bounce, seed)
+
+
+def bounce_step(sd: SceneData, o, d, pixel_ids, sample_ids, bounce, seed,
+                return_decisions: bool = False):
+    """One wavefront bounce: intersect, shade, sample the next direction.
+
+    ``bounce`` is an int (lockstep loop) or an (R,) tensor (each lane at
+    its own depth). Returns a dict: contrib (R, 3), the radiance before the
+    throughput weighting (sky on a miss, emission on a hit); hit,
+    scattered (R,) bool; new_o, new_d, atten (R, 3). With
+    ``return_decisions`` also decisions (dict of the dielectric's reflect
+    choice and the Lambertian degeneracy), front and i_sph.
+    """
+    h = intersect_scene(sd, o, d)
+    hit, mat = h["hit"], h["mat"]
+    sky = sky_mod.radiance(sd.sky_kind, sd.sky_image, d)
+    emission = torch.index_select(sd.mat_emission, 0, mat)
+    contrib = torch.where(hit[:, None], emission, sky)
+    albedo = tex_mod.value(sd.tex, torch.index_select(sd.mat_tex, 0, mat),
+                           h["u"], h["v"], h["point"])
+    u1, u2, u_dec = _bounce_uniforms(pixel_ids, sample_ids, bounce, seed)
+    new_d, atten, scattered, refl, degen = mat_mod.scatter(
+        torch.index_select(sd.mat_type, 0, mat),
+        torch.index_select(sd.mat_fuzz, 0, mat),
+        torch.index_select(sd.mat_ior, 0, mat),
+        torch.index_select(sd.mat_prob, 0, mat),
+        albedo, d, h["normal"], h["front"], u1, u2, u_dec,
+    )
+    out = dict(contrib=contrib, hit=hit, scattered=scattered, new_o=h["point"],
+               new_d=new_d, atten=atten)
+    if return_decisions:
+        out.update(decisions=dict(reflect=refl, degenerate=degen),
+                   front=h["front"], i_sph=h["i_sph"])
+    return out
+
+
+def _trace_bounce(sd, pixel_ids, sample_ids, seed, bounce, o, d, thr, rad, alive):
+    """One bounce of :func:`trace`'s lockstep loop -> the next carry."""
+    s = bounce_step(sd, o, d, pixel_ids, sample_ids, bounce, seed)
+    rad = rad + torch.where(alive[:, None], thr * s["contrib"], 0.0)
+    alive = alive & s["hit"] & s["scattered"]
+    keep = alive[:, None]
+    thr = torch.where(keep, thr * s["atten"], thr)
+    o = torch.where(keep, s["new_o"], o)
+    d = torch.where(keep, s["new_d"], d)
+    return o, d, thr, rad, alive
+
+
+def trace(sd: SceneData, o, d, pixel_ids, sample_ids, seed, max_depth: int,
+          differentiable: bool = False):
+    """Integrate radiance for a wavefront of primary rays -> (R, 3).
+
+    Lockstep bounce loop. ``differentiable=False`` loops while any ray is
+    alive (at most ``max_depth`` bounces); ``differentiable=True`` runs all
+    ``max_depth`` bounces, each under ``torch.utils.checkpoint``, so that
+    the backward pass holds one bounce's intermediates at a time (it
+    recomputes each bounce's forward). The two give identical results.
+    """
+    r = o.shape[0]
+    thr = torch.ones((r, 3), dtype=torch.float32, device=o.device)
+    rad = torch.zeros((r, 3), dtype=torch.float32, device=o.device)
+    alive = torch.ones((r,), dtype=torch.bool, device=o.device)
+    carry = (o, d, thr, rad, alive)
+    args = (sd, pixel_ids, sample_ids, seed)
+    for bounce in range(max_depth):
+        if differentiable:
+            carry = checkpoint(_trace_bounce, *args, bounce, *carry,
+                               use_reentrant=False, preserve_rng_state=False)
+        elif bool(carry[4].any()):
+            carry = _trace_bounce(*args, bounce, *carry)
+        else:
+            break
+    return carry[3]
+
+
+def render_rays(sd: SceneData, cp: CameraParams, width: int, height: int,
+                pixel_ids, sample_ids, seed, max_depth: int,
+                differentiable: bool = False):
+    """Primary-ray generation + path tracing for (pixel, sample) pairs ->
+    radiance (R, 3)."""
+    o, d, _ = generate_rays(cp, width, height, pixel_ids, sample_ids, seed)
+    return trace(sd, o, d, pixel_ids, sample_ids, seed, max_depth,
+                 differentiable=differentiable)
 
 
 def make_sphere_table(sd: SceneData) -> torch.Tensor:
@@ -207,3 +364,126 @@ def trace_persistent_mega(
         **inputs, animated=bool(sd.animated), cam_animated=bool(cp.animated)
     )
     return acc.t()[lane_of]
+
+
+def fused_supported(sd: SceneData) -> bool:
+    """The fused gather-free bounce applies to sphere-only scenes whose
+    textures are solid / checker-of-solid (the table bakes one level of
+    checker colors, and uv is not computed). The spherical sky is fine: it
+    is sampled outside the kernel. Exact per-ray-time motion stays on the
+    staged bounce."""
+    return (
+        sd.num_tris == 0
+        and len(sd.tex.images) == 0
+        and sd.tex.max_nest <= 1
+        and not sd.motion_exact
+    )
+
+
+def bounce_step_fused(sd: SceneData, table, o, d, pixel_ids, sample_ids, bounce, seed):
+    """Gather-free bounce for sphere scenes: K9 (``hit_spheres_fetch``)
+    returns the winner's shading attributes with its hit, so everything
+    after it is elementwise (no sphere-uv either: uv feeds only image
+    textures, absent here). Returns :func:`bounce_step`'s dict."""
+    _check_static_spheres(sd)
+    w = torch.zeros((o.shape[0],), dtype=torch.float32, device=o.device)
+    out = sphere_shade.hit_spheres_fetch(o.contiguous(), d.contiguous(), w, table, T_MIN)
+    t = out[0]
+    hit = t < BIG
+    center = out[2:5].t() + w[:, None] * out[24:27].t()
+    radius = out[5] + w * out[27]
+    point = o + torch.where(hit, t, 1.0)[:, None] * d
+    n_out = (point - center) / torch.clamp_min(radius, 1e-20)[:, None]
+    front = vec.dot(d, n_out) < 0.0
+    normal = torch.where(front[:, None], n_out, -n_out)
+
+    sky = sky_mod.radiance(sd.sky_kind, sd.sky_image, d)
+    contrib = torch.where(hit[:, None], out[10:13].t(), sky)
+
+    # Texture: solid or 3-D checker of solids.
+    is_even = tex_mod.checker_is_even(out[17], point)
+    checker = torch.where(is_even[:, None], out[18:21].t(), out[21:24].t())
+    albedo = torch.where((out[13] == tex_mod.CHECKER)[:, None], checker, out[14:17].t())
+
+    u1, u2, u_dec = _bounce_uniforms(pixel_ids, sample_ids, bounce, seed)
+    new_d, atten, scattered, _, _ = mat_mod.scatter(
+        out[6], out[7], out[8], out[9], albedo, d, normal, front, u1, u2, u_dec,
+    )
+    return dict(contrib=contrib, hit=hit, scattered=scattered, new_o=point,
+                new_d=new_d, atten=atten)
+
+
+def trace_persistent(
+    sd: SceneData,
+    cp: CameraParams,
+    width: int,
+    height: int,
+    spp: int,
+    max_depth: int,
+    seed,
+    lanes: int = 0,
+) -> torch.Tensor:
+    """Persistent-wavefront path tracer with lane-local sample regeneration
+    (the ``pixel`` schedule) -> per-pixel radiance SUM (width*height, 3)
+    over samples 0..spp-1.
+
+    Every lane is bound to one pixel and walks that pixel's samples in
+    turn: when its path dies (sky, absorption, depth) it starts the pixel's
+    next sample, so each lane accumulates privately and the framebuffer is
+    the accumulator. ``lanes`` is a TARGET lane count: the pixel grid is
+    replicated into G = ceil(lanes / pixels) sample groups (at most spp);
+    lane (g, p) traces pixel p's samples g, g+G, ... and the groups reduce
+    with one reshape-sum at the end. Pixels are padded to a multiple of 512
+    lanes; padding lanes start exhausted. Because every random number is a
+    hash of (pixel, sample, bounce), the image is that of :func:`trace` over
+    the same sample set, up to float32 summation order.
+
+    Each step runs the fused bounce (K9) where :func:`fused_supported`
+    holds, else :func:`bounce_step` (K10).
+    """
+    num_pixels = width * height
+    groups = min(int(spp), max(1, (max(lanes, 1) + num_pixels - 1) // num_pixels))
+    p_pad = ((num_pixels + 511) // 512) * 512
+    r = groups * p_pad
+    dev = sd.sph_center.device
+
+    lane = torch.arange(r, dtype=torch.int64, device=dev)
+    pix = torch.clamp_max(lane % p_pad, num_pixels - 1)
+    pad = (lane % p_pad) >= num_pixels
+    sample_i = torch.where(pad, int(spp), lane // p_pad)
+    alive = torch.zeros((r,), dtype=torch.bool, device=dev)
+    bounce = torch.zeros((r,), dtype=torch.int64, device=dev)
+    o = torch.zeros((r, 3), dtype=torch.float32, device=dev)
+    d = torch.ones((r, 3), dtype=torch.float32, device=dev)
+    thr = torch.zeros((r, 3), dtype=torch.float32, device=dev)
+    acc = torch.zeros((r, 3), dtype=torch.float32, device=dev)
+
+    fused = fused_supported(sd)
+    table = make_sphere_table(sd).contiguous() if fused else None
+    while bool((alive | (sample_i < spp)).any()):
+        # --- lane-local regeneration: this lane's next sample ---------------
+        issue = ~alive & (sample_i < spp)
+        no, nd, _ = generate_rays(cp, width, height, pix, sample_i, seed)
+        o = torch.where(issue[:, None], no, o)
+        d = torch.where(issue[:, None], nd, d)
+        thr = torch.where(issue[:, None], 1.0, thr)
+        bounce = torch.where(issue, 0, bounce)
+        alive = alive | issue
+        # The sample id of the path in flight (issued now or earlier).
+        smp = torch.where(alive & ~issue, sample_i - groups, sample_i)
+        sample_i = torch.where(issue, sample_i + groups, sample_i)
+
+        # --- one bounce for every lane ----------------------------------------
+        if fused:
+            s = bounce_step_fused(sd, table, o, d, pix, smp, bounce, seed)
+        else:
+            s = bounce_step(sd, o, d, pix, smp, bounce, seed)
+        acc = acc + torch.where(alive[:, None], thr * s["contrib"], 0.0)
+
+        cont = alive & s["hit"] & s["scattered"] & (bounce + 1 < max_depth)
+        thr = torch.where(cont[:, None], thr * s["atten"], thr)
+        o = torch.where(cont[:, None], s["new_o"], o)
+        d = torch.where(cont[:, None], s["new_d"], d)
+        bounce = bounce + 1
+        alive = cont
+    return acc.reshape(groups, p_pad, 3).sum(dim=0)[:num_pixels]

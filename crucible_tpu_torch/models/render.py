@@ -1,12 +1,17 @@
 """Render drivers: the whole-image forward render.
 
 Port of the still-image path of ``crucible_tpu/models/render.py``:
-``render_image`` -> ``render_image_data`` -> ``render_image_persistent`` ->
-``integrator.trace_persistent_mega``, the ``mega`` schedule. A scene the
-megakernel cannot render raises ``NotImplementedError`` naming the missing
-feature; there is no other schedule to fall back to yet. Every entry point
-runs on ``device="cuda"`` unless the caller names another device; without
-CUDA that default raises (torch does), it never falls back to the CPU.
+``render_image`` -> ``render_image_data`` -> ``render_image_persistent``,
+which runs one of two schedules:
+
+- ``mega``: ``integrator.trace_persistent_mega``, the megakernel (K1);
+- ``pixel``: ``integrator.trace_persistent``, the staged persistent
+  wavefront, with the fused hit + fetch kernel (K9) per bounce.
+
+A scene neither schedule renders raises ``NotImplementedError`` naming the
+missing feature. Every entry point runs on ``device="cuda"`` unless the
+caller names another device; without CUDA that default raises (torch
+does), it never falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -21,8 +26,13 @@ from crucible_tpu_torch.utils import color as color_mod
 
 # Above this sphere-table row count the JAX package walks a per-lane sphere
 # BVH instead of the brute loop (its CULL_MIN_ROWS); the port has only the
-# brute kernel, so bigger scenes raise.
+# brute megakernel, so the mega schedule refuses bigger scenes.
 CULL_MIN_ROWS = 1024
+
+# Target lane counts of the pixel schedule (sample groups replicate small
+# pixel grids up to this): enough to fill the card, modest on the CPU.
+LANES_CUDA = 1 << 20
+LANES_CPU = 1 << 13
 
 
 def _check_device(sd: SceneData, cp: CameraParams, device) -> None:
@@ -46,22 +56,43 @@ def render_image_persistent(
     device="cuda",
     schedule: str = "auto",
 ) -> torch.Tensor:
-    """Whole-image render in one megakernel call -> linear radiance
-    (height, width, 3) float32 on ``device``.
+    """Whole-image render in one schedule -> linear radiance (height,
+    width, 3) float32 on ``device``.
 
-    ``schedule``: 'mega' or 'auto' (which is 'mega' where
-    ``integrator.megakernel_supported`` holds). Other schedules are not
-    ported and raise ``NotImplementedError``."""
+    ``schedule``: 'mega' (the megakernel), 'pixel' (the staged persistent
+    wavefront: the fused bounce, K9, where ``integrator.fused_supported``
+    holds, else the staged bounce, K10) or 'auto' ('mega' where
+    ``integrator.megakernel_supported`` holds, else 'pixel' where
+    ``integrator.fused_supported`` does). The 'record' and 'queue'
+    schedules are not ported and raise ``NotImplementedError``. The pixel
+    schedule's target lane count is ``LANES_CUDA`` on a card, ``LANES_CPU``
+    elsewhere."""
     _check_device(sd, cp, device)
-    if schedule not in ("auto", "mega"):
+    if schedule == "auto":
+        if integrator.megakernel_supported(sd, cp):
+            schedule = "mega"
+        elif integrator.fused_supported(sd):
+            schedule = "pixel"
+        else:
+            raise NotImplementedError(
+                "this scene needs the 'record' schedule (record megakernel + "
+                "replay shading), which is not ported to crucible_tpu_torch yet"
+            )
+    if schedule == "pixel":
+        lanes = LANES_CUDA if torch.device(device).type == "cuda" else LANES_CPU
+        fb = integrator.trace_persistent(
+            sd, cp, width, height, samples, max_depth, seed, lanes=lanes
+        )
+        return fb.reshape(height, width, 3) / samples
+    if schedule != "mega":
         raise NotImplementedError(
             f"the {schedule!r} schedule is not ported to crucible_tpu_torch yet"
         )
     missing = integrator.megakernel_unsupported_reason(sd, cp)
     if missing is not None:
         raise NotImplementedError(
-            f"this scene needs {missing}, which crucible_tpu_torch does not "
-            f"render yet (its megakernel renders static sphere scenes)"
+            f"this scene needs {missing}, which crucible_tpu_torch's "
+            f"megakernel does not render yet"
         )
     rows = int(sd.sph_center.shape[0])
     if rows > CULL_MIN_ROWS:

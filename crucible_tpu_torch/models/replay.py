@@ -15,9 +15,10 @@ Port of the unsplit part of ``crucible_tpu/models/replay.py``:
 :func:`render_rays_replay` chains camera rays, record and replay. Integers
 carry no gradient, so the gradient is the replay's detached-sampling
 estimator. Not ported yet (each raises ``NotImplementedError``): the staged
-record (``trace_record``, which needs ``integrator.bounce_step``), the jnp
-replay for scenes outside the replay kernels, and the lane-narrowed replays
-of deep budgets (``record_two_level`` / ``replay_bucketed_2l``).
+record (``trace_record`` over ``integrator.bounce_step``), the jnp replay
+for scenes outside the replay kernels (the spherical sky among them), and
+the lane-narrowed replays of deep budgets (``record_two_level`` /
+``replay_bucketed_2l``).
 """
 
 from __future__ import annotations
@@ -66,6 +67,16 @@ def rec_winner_id(rec: torch.Tensor) -> torch.Tensor:
 def replay_supported(sd: SceneData) -> bool:
     """True where the port's replay runs: the replay kernels' scenes."""
     return rk.supported(sd, int(sd.sph_center.shape[0]))
+
+
+def _check_replay_supported(sd: SceneData) -> None:
+    if not replay_supported(sd):
+        raise NotImplementedError(
+            "this scene is outside the replay kernels (sphere-only static "
+            f"scenes, solid/checker textures, default sky, <= "
+            f"{rk.MAX_TABLE_ROWS} rows); the jnp-style replay that covers "
+            "the rest is not ported to crucible_tpu_torch yet"
+        )
 
 
 def trace_record_mega(
@@ -143,14 +154,7 @@ def trace_replay(
     Gradients reach the scene's tensors through ``make_sphere_table`` and
     the rays' through ``o`` and ``d``.
     """
-    n_rows = int(sd.sph_center.shape[0])
-    if not rk.supported(sd, n_rows):
-        raise NotImplementedError(
-            "this scene is outside the replay kernels (sphere-only static "
-            f"scenes, solid/checker textures, default sky, <= "
-            f"{rk.MAX_TABLE_ROWS} rows); the jnp-style replay that covers "
-            "the rest is not ported to crucible_tpu_torch yet"
-        )
+    _check_replay_supported(sd)
     return rk.trace_replay_mega(
         integrator.make_sphere_table(sd),
         o,
@@ -192,8 +196,8 @@ def render_rays_replay(
     """
     if record_mode == "staged":
         raise NotImplementedError(
-            "the staged record (trace_record over integrator.bounce_step, "
-            "kernels K9/K10) is not ported to crucible_tpu_torch yet"
+            "the staged record (trace_record over integrator.bounce_step) "
+            "is not ported to crucible_tpu_torch yet"
         )
     if record_mode not in ("auto", "mega"):
         raise ValueError(f"unknown record_mode {record_mode!r}")
@@ -206,6 +210,7 @@ def render_rays_replay(
             "ported to crucible_tpu_torch yet; pass split=False to replay "
             "unsplit"
         )
+    _check_replay_supported(sd)
     o, d, _ = generate_rays(cp, width, height, pixel_ids, sample_ids, seed)
     rad_mega = None
     if rec is None:

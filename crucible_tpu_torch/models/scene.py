@@ -4,9 +4,9 @@ Port of ``crucible_tpu/models/scene.py`` for sphere scenes. The host side
 keeps the original surface (aliased elements via an id vendor, show/hide)
 and ``Scene.build`` lowers the element list into flat arrays with numpy,
 exactly as the JAX package does, converting to tensors on the requested
-device only at the end. Triangles, OBJ assets, image textures, spherical
-skies, timelines and the sphere-structure tables of big scenes raise
-``NotImplementedError``.
+device only at the end. The spherical (equirect) sky loads from a ``.hdr``
+asset. Triangles, OBJ assets, image textures, timelines and the
+sphere-structure tables of big scenes raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from crucible_tpu_torch.io.image import load_image
 from crucible_tpu_torch.models import materials as mat_mod
 from crucible_tpu_torch.models import skybox as sky_mod
 from crucible_tpu_torch.models import textures as tex_mod
@@ -179,9 +180,11 @@ class SceneData:
     """Flat SoA sphere scene: tensors on one device + static metadata.
 
     Field names and layouts are those of the JAX package's ``SceneData``;
-    the triangle, BVH, motion, structure and sky-image fields are absent
-    because the port does not render them yet (``num_tris``, ``animated`` and
+    the triangle, BVH, motion and structure fields are absent because the
+    port does not render them yet (``num_tris``, ``animated`` and
     ``motion_exact`` still say whether a bridged scene needs them).
+    ``sky_image`` is None under the default sky (where the JAX package keeps
+    a (1, 1, 3) placeholder).
     """
 
     # Spheres (padded to SPHERE_PAD multiples; `sph_active` masks padding+hidden)
@@ -200,6 +203,7 @@ class SceneData:
 
     tex: tex_mod.TextureTable
 
+    sky_image: Optional[torch.Tensor] = None  # (H, W, 3) spherical sky
     sky_kind: int = sky_mod.DEFAULT
     num_spheres: int = 0
     num_tris: int = 0
@@ -336,6 +340,7 @@ class Scene:
         )
         self.elements: List[Sphere] = []
         self.sky_kind: int = sky_mod.DEFAULT
+        self.sky_image: Optional[np.ndarray] = None
         self.id_vendor = IdVendor()
         self.seed = seed
         self._cache: Optional[SceneData] = None
@@ -368,7 +373,11 @@ class Scene:
         raise _unported("OBJ mesh assets")
 
     def load_spherical_skybox(self, filename: str) -> None:
-        raise _unported("the spherical (equirect) sky")
+        """Spherical equirect sky from an image asset (full float HDR; only
+        ``.hdr`` files are ported)."""
+        self.sky_image = load_image(filename)
+        self.sky_kind = sky_mod.SPHERICAL
+        self._cache = None
 
     def _set_hidden(self, alias: str, hide: bool) -> None:
         info = self.id_vendor.alias_lookup(alias)
@@ -437,6 +446,7 @@ class Scene:
             mat_prob=t([r["prob"] for r in mat_rows], np.float32),
             mat_emission=t([r["emission"] for r in mat_rows], np.float32),
             tex=tables.texture_table(device),
+            sky_image=None if self.sky_image is None else t(self.sky_image, np.float32),
             sky_kind=self.sky_kind,
             num_spheres=n,
         )

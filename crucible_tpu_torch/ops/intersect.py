@@ -1,0 +1,91 @@
+"""Batched closest-hit sphere intersection with an O(R) backward (port of
+the sphere part of ``crucible_tpu/ops/intersect.py``).
+
+The primal is K10 (``ops/kernels/sphere_hit.py``): the CUDA kernel for
+CUDA tensors, its plain version for CPU tensors. The backward differentiates
+the hit distance as an IMPLICIT function of the winning sphere's quadratic
+f(t) = |o + t d - c|^2 - r^2 = 0: dt/dtheta = -(df/dtheta) / (df/dt), so it
+touches only the R winners instead of an (R, N) candidate matrix. Winners
+and hit flags are discrete and carry no gradient.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from crucible_tpu_torch.ops.kernels import sphere_hit
+from crucible_tpu_torch.utils.vec import safe_arccos, safe_arctan2
+
+BIG = sphere_hit.BIG
+
+
+class _ClosestHit(torch.autograd.Function):
+    """(o, d, centers, radii, active_f, t_min) -> (t, idx, hit)."""
+
+    @staticmethod
+    def forward(ctx, o, d, centers, radii, active_f, t_min):
+        c0, c1, c2 = centers[:, 0], centers[:, 1], centers[:, 2]
+        csr = c0 * c0 + c1 * c1 + c2 * c2 - radii * radii
+        t, idx, hit = sphere_hit.hit_spheres(
+            o.contiguous(), d.contiguous(), centers.contiguous(),
+            csr.contiguous(), active_f.contiguous(), t_min,
+        )
+        ctx.mark_non_differentiable(idx, hit)
+        ctx.save_for_backward(o, d, centers, radii, t, idx, hit)
+        return t, idx, hit
+
+    @staticmethod
+    def backward(ctx, t_bar, _idx_bar, _hit_bar):
+        o, d, centers, radii, t, idx, hit = ctx.saved_tensors
+        idx = idx.to(torch.int64)
+        c_w = torch.index_select(centers, 0, idx)
+        # Miss lanes carry t = BIG; BIG * |d| overflows to inf and 0 * inf
+        # would NaN the masked-out products below, so mask t first.
+        t_safe = torch.where(hit, t, 1.0)
+        nvec = o + t_safe[:, None] * d - c_w  # hit point minus center
+        den = (d * nvec).sum(-1)  # (df/dt) / 2 at the root
+        # Tangent hits (den ~ 0) have a diverging derivative: no gradient.
+        steep = torch.abs(den) > 1e-12
+        g = torch.where(hit & steep, t_bar / torch.where(steep, den, 1.0), 0.0)
+        need_o, need_d, need_c, need_r = ctx.needs_input_grad[:4]
+        go = -g[:, None] * nvec if need_o else None
+        gd = -(g * t_safe)[:, None] * nvec if need_d else None
+        gc = gr = None
+        if need_c:
+            gc_rows = torch.where(hit[:, None], g[:, None] * nvec, 0.0)
+            gc = torch.zeros_like(centers).index_add_(0, idx, gc_rows)
+        if need_r:
+            gr_rows = torch.where(hit, g * torch.index_select(radii, 0, idx), 0.0)
+            gr = torch.zeros_like(radii).index_add_(0, idx, gr_rows)
+        return go, gd, gc, gr, None, None
+
+
+def hit_spheres(o, d, centers, radii, active, t_min):
+    """Closest sphere hit per ray, differentiable in o, d, centers and radii.
+
+    Args:
+      o, d: (R, 3) float32 ray origins / directions (d need not be unit).
+      centers: (N, 3); radii: (N,); active: (N,) bool or 0/1, False for
+        hidden and padding rows.
+      t_min: float, the exclusive lower bound of accepted roots; roots are
+        accepted below BIG (the JAX callers' t_max is infinite).
+
+    Returns (t (R,), BIG on a miss; idx (R,) int32, 0 on a miss; hit (R,)).
+    """
+    if centers.dim() != 2:
+        raise NotImplementedError(
+            "per-ray sphere tables (exact-time motion) are not ported to "
+            "crucible_tpu_torch yet"
+        )
+    active_f = torch.as_tensor(active, device=centers.device).to(torch.float32)
+    return _ClosestHit.apply(o, d, centers, radii, active_f, float(t_min))
+
+
+def sphere_uv(n):
+    """(u, v) texture coordinates from the unit outward normal:
+    theta = acos(-y), phi = atan2(-z, x) + pi; u = phi / 2pi, v = theta / pi."""
+    theta = safe_arccos(-n[..., 1])
+    phi = safe_arctan2(-n[..., 2], n[..., 0]) + math.pi
+    return phi / (2.0 * math.pi), theta / math.pi

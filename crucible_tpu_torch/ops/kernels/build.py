@@ -28,6 +28,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "crucible_tpu_torch"
@@ -53,6 +55,14 @@ SIGNATURES = {
         "crucible_replay_forward": ([_P] * 7 + [_I] * 5 + [_P] * 2, _I),
         "crucible_replay_backward": ([_P] * 8 + [_I] * 6 + [_P] * 6, _I),
         "crucible_replay_smem_bytes": ([_I, _I], _I),
+        "crucible_cuda_error_string": ([_I], ctypes.c_char_p),
+    },
+    "sphere_hit": {
+        "crucible_sphere_hit": ([_P] * 5 + [_I, _I, _F] + [_P] * 3, _I),
+        "crucible_cuda_error_string": ([_I], ctypes.c_char_p),
+    },
+    "sphere_shade": {
+        "crucible_sphere_shade": ([_P] * 4 + [_I, _I, _F] + [_P] * 2, _I),
         "crucible_cuda_error_string": ([_I], ctypes.c_char_p),
     },
 }
@@ -133,6 +143,25 @@ def load(stem: str) -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = restype
     return lib
+
+
+def check_tensors(device: torch.device, expect) -> None:
+    """Validate a wrapper's inputs: ``expect`` holds (name, tensor, dtype,
+    shape or None) entries; each must be a contiguous tensor of that dtype
+    and shape on ``device``, which must be the CPU or a CUDA card."""
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    for name, x, dtype, shape in expect:
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{name} must be a tensor, got {type(x).__name__}")
+        if x.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+        if shape is not None and tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, not {device}")
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -33,20 +33,15 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from crucible_tpu_torch.models import materials as mat_mod
 from crucible_tpu_torch.models import skybox as sky_mod
 from crucible_tpu_torch.models import textures as tex_mod
 from crucible_tpu_torch.ops import sampling
-from crucible_tpu_torch.ops.kernels import build
+from crucible_tpu_torch.ops.kernels import build, sphere_hit
+from crucible_tpu_torch.ops.kernels.sphere_hit import BIG, T_MIN  # noqa: F401
 from crucible_tpu_torch.utils import rng as crng
-
-# Python floats holding float32 values, so that comparisons agree whether a
-# backend compares in float32 or float64.
-BIG = float(np.float32(3.0e38))
-T_MIN = float(np.float32(1.0e-3))
 
 # Lanes per pixel block of the swizzled lane order (32 x 16 pixels). The
 # GPU kernel does not need it; it keeps the lane order of the TPU kernel,
@@ -65,9 +60,6 @@ CAM_SIZE = 48
 SHARED_MEM_BYTES = 232448
 SMEM_COLS = 5
 MAX_ROWS = SHARED_MEM_BYTES // (SMEM_COLS * 4)
-
-# Lanes x rows per step of the eager version's brute quadratic.
-REFERENCE_CHUNK_ELEMS = 1 << 22
 
 # sample0 of a padding lane: it never issues.
 NO_SAMPLE = 2**30
@@ -138,30 +130,17 @@ def run_megakernel(
     _check_inputs(smem, pix, sample0, cam, table)
     if table.device.type == "cpu":
         return run_megakernel_reference(smem, pix, sample0, cam, table)
-    if table.device.type != "cuda":
-        raise ValueError(f"unsupported device {table.device}")
     return _launch(smem, pix, sample0, cam, table)
 
 
 def _check_inputs(smem, pix, sample0, cam, table):
-    expect = (
+    build.check_tensors(table.device, (
         ("smem", smem, torch.int32, (8,)),
         ("pix", pix, torch.int32, None),
         ("sample0", sample0, torch.int32, None),
         ("cam", cam, torch.float32, (1, CAM_SIZE)),
         ("table", table, torch.float32, None),
-    )
-    for name, x, dtype, shape in expect:
-        if not isinstance(x, torch.Tensor):
-            raise TypeError(f"{name} must be a tensor, got {type(x).__name__}")
-        if x.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
-        if shape is not None and tuple(x.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got {tuple(x.shape)}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if x.device != table.device:
-            raise ValueError(f"{name} is on {x.device}, table on {table.device}")
+    ))
     if pix.dim() != 2 or pix.shape[0] != 1 or sample0.shape != pix.shape:
         raise ValueError(
             f"pix and sample0 must both be (1, R), got {tuple(pix.shape)} "
@@ -216,8 +195,6 @@ def run_megakernel_record(smem, pix, sample0, cam, table, *, max_depth: int, rad
         return run_megakernel_record_reference(
             smem, pix, sample0, cam, table, max_depth=max_depth, radiance=radiance
         )
-    if table.device.type != "cuda":
-        raise ValueError(f"unsupported device {table.device}")
     smem = smem.clone()
     smem[3] = int(max_depth)
     return _launch_record(smem, pix, sample0, cam, table, max_depth, radiance)
@@ -257,45 +234,6 @@ def run_megakernel_record_reference(smem, pix, sample0, cam, table, *, max_depth
 # ---------------------------------------------------------------------------
 # Eager reference
 # ---------------------------------------------------------------------------
-
-
-def _closest_hit(table, o, d):
-    """Brute closest-root quadratic over all rows, in the kernel's expanded
-    form: h = c.d - d.o, c_q = csr - 2 c.o + |o|^2, roots (h -/+ sqrt(disc))
-    * (1/a). Lowest row index wins exact ties. o, d (L, 3) -> t (L,), idx
-    (L,); t = BIG on a miss."""
-    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
-    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
-    a_q = dx * dx + dy * dy + dz * dz
-    d_dot_o = dx * ox + dy * oy + dz * oz
-    o_sq = ox * ox + oy * oy + oz * oz
-    inv_a = 1.0 / a_q
-    n = table.shape[0]
-    cx, cy, cz = table[:, 0], table[:, 1], table[:, 2]
-    csr, active = table[:, 4], table[:, 5] > 0.0
-    rows = torch.arange(n, device=table.device)
-    step = max(1, REFERENCE_CHUNK_ELEMS // max(n, 1))
-    ts, idxs = [], []
-    for lo in range(0, o.shape[0], step):
-        s = slice(lo, lo + step)
-        dck = cx * dx[s] + cy * dy[s] + cz * dz[s]
-        ock = cx * ox[s] + cy * oy[s] + cz * oz[s]
-        h = dck - d_dot_o[s]
-        c_q = csr - 2.0 * ock + o_sq[s]
-        disc = h * h - a_q[s] * c_q
-        sqrtd = torch.sqrt(torch.clamp_min(disc, 0.0))
-        root0 = (h - sqrtd) * inv_a[s]
-        root1 = (h + sqrtd) * inv_a[s]
-        ok0 = (root0 > T_MIN) & (root0 < BIG)
-        ok1 = (root1 > T_MIN) & (root1 < BIG)
-        root = torch.where(ok0, root0, root1)
-        valid = (disc >= 0.0) & (ok0 | ok1) & active
-        t_all = torch.where(valid, root, BIG)
-        t = t_all.min(dim=1).values
-        idx = torch.where(t_all == t[:, None], rows, n).min(dim=1).values
-        ts.append(t)
-        idxs.append(idx)
-    return torch.cat(ts), torch.cat(idxs)
 
 
 def run_megakernel_reference(smem, pix, sample0, cam, table):
@@ -368,8 +306,11 @@ def _reference_loop(smem, pix, sample0, cam, table, *, rec_depth: int, radiance:
         b_l = torch.where(iss, 0, bounce[live])
 
         # --- closest hit; the winner's row only where there is one --------
-        t, idx = _closest_hit(table, o_l, d_l)
-        hit = t < BIG
+        # The brute search is K10's (the kernel shares its search routine).
+        t, idx, hit = sphere_hit.hit_spheres_reference(
+            o_l, d_l, table[:, 0:3], table[:, 4], table[:, 5], T_MIN
+        )
+        idx = idx.long()
         row = torch.zeros((live.numel(), C_IN), dtype=torch.float32, device=dev)
         on = torch.nonzero(hit).squeeze(1)
         row[on] = table[idx[on]]

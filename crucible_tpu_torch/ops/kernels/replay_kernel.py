@@ -270,23 +270,11 @@ def _check_inputs(table, o, d, valid, pix, smp, rec, g_rad=None):
     ]
     if g_rad is not None:
         expect.append(("g_rad", g_rad, torch.float32, (r, 3)))
-    for name, x, dtype, shape in expect:
-        if not isinstance(x, torch.Tensor):
-            raise TypeError(f"{name} must be a tensor, got {type(x).__name__}")
-        if x.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
-        if shape is not None and tuple(x.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got {tuple(x.shape)}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if x.device != table.device:
-            raise ValueError(f"{name} is on {x.device}, table on {table.device}")
+    build.check_tensors(table.device, expect)
     if table.dim() != 2 or table.shape[1] != C_IN:
         raise ValueError(f"table must be (N, {C_IN}), got {tuple(table.shape)}")
     if rec.dim() != 2 or rec.shape[1] != r:
         raise ValueError(f"rec must be (depth, {r}), got {tuple(rec.shape)}")
-    if table.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {table.device}")
     if table.device.type == "cuda" and table.shape[0] > MAX_TABLE_ROWS:
         raise ValueError(
             f"{table.shape[0]} table rows exceed the replay kernels' "

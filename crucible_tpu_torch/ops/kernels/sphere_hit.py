@@ -1,0 +1,122 @@
+"""Closest sphere hit per ray (K10): the CUDA kernel's wrapper, its launch
+count and its plain PyTorch version.
+
+Port of ``crucible_tpu/ops/pallas/sphere_hit.py``. For R rays and an
+N-row sphere table (centers, ``csr`` = |c|^2 - r^2 and a 0/1 ``active``
+mask), each ray's nearest root accepted in (t_min, BIG), in the Pallas
+kernel's expanded quadratic: h = c.d - d.o, c_q = csr - 2 c.o + |o|^2,
+roots (h -/+ sqrt(h^2 - a c_q)) * (1/a). The lowest row wins exact ties; a
+miss gives t = BIG and idx 0.
+
+:func:`hit_spheres` launches ``csrc/sphere_hit.cu`` for CUDA tensors (or
+raises) and runs :func:`hit_spheres_reference` for CPU tensors. The two
+round alike, operation for operation. ``LAUNCHES`` counts kernel launches
+(not plain-version calls). ``ops/intersect.hit_spheres`` wraps this primal
+in its winner-only autograd backward.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from crucible_tpu_torch.ops.kernels import build
+
+# Python floats holding float32 values, so that comparisons agree whether a
+# backend compares in float32 or float64. Every kernel wrapper takes them
+# from here.
+BIG = float(np.float32(3.0e38))
+T_MIN = float(np.float32(1.0e-3))
+
+# Rays x rows per step of the plain version.
+REFERENCE_CHUNK_ELEMS = 1 << 22
+
+# Launches of the CUDA kernel since the last reset.
+LAUNCHES = 0
+
+
+def hit_spheres(o, d, centers, csr, active, t_min: float = T_MIN):
+    """Closest sphere hit -> (t (R,) float32, BIG on a miss; idx (R,) int32,
+    0 on a miss; hit (R,) bool).
+
+    o, d: (R, 3) float32; centers (N, 3), csr (N,), active (N,) float32 0/1,
+    all contiguous on one device."""
+    r = o.shape[0] if o.dim() == 2 else -1
+    n = centers.shape[0] if centers.dim() == 2 else -1
+    f32 = torch.float32
+    build.check_tensors(o.device, (
+        ("o", o, f32, (r, 3)), ("d", d, f32, (r, 3)),
+        ("centers", centers, f32, (n, 3)), ("csr", csr, f32, (n,)),
+        ("active", active, f32, (n,)),
+    ))
+    if o.device.type == "cpu":
+        return hit_spheres_reference(o, d, centers, csr, active, t_min)
+    return _launch(o, d, centers, csr, active, t_min)
+
+
+def _launch(o, d, centers, csr, active, t_min):
+    global LAUNCHES
+    lib = build.load("sphere_hit")
+    n, r = centers.shape[0], o.shape[0]
+    t = torch.empty((r,), dtype=torch.float32, device=o.device)
+    idx = torch.empty((r,), dtype=torch.int32, device=o.device)
+    with torch.cuda.device(o.device):
+        err = lib.crucible_sphere_hit(
+            o.data_ptr(), d.data_ptr(), centers.data_ptr(), csr.data_ptr(),
+            active.data_ptr(), n, r, ctypes.c_float(t_min), t.data_ptr(),
+            idx.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    build.check(lib, err, "sphere_hit")
+    LAUNCHES += 1
+    return t, idx, t < BIG
+
+
+def hit_spheres_reference(o, d, centers, csr, active, t_min: float = T_MIN):
+    """Plain PyTorch version of :func:`hit_spheres`: the (rays x rows)
+    quadratic in ray chunks, in the kernel's association, every operation
+    rounded on its own. Inputs need not be contiguous."""
+    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
+    a_q = dx * dx + dy * dy + dz * dz
+    d_dot_o = dx * ox + dy * oy + dz * oz
+    o_sq = ox * ox + oy * oy + oz * oz
+    inv_a = 1.0 / a_q
+    r, n = o.shape[0], centers.shape[0]
+    cx, cy, cz = centers[:, 0], centers[:, 1], centers[:, 2]
+    on = active > 0.0
+    rows = torch.arange(n, device=o.device)
+    step = max(1, REFERENCE_CHUNK_ELEMS // max(n, 1))
+    ts, idxs = [], []
+    for lo in range(0, r, step):
+        s = slice(lo, lo + step)
+        dc = cx * dx[s] + cy * dy[s] + cz * dz[s]
+        oc = cx * ox[s] + cy * oy[s] + cz * oz[s]
+        t, idx = nearest_root(dc - d_dot_o[s], csr - 2.0 * oc + o_sq[s],
+                              a_q[s], inv_a[s], on, rows, t_min)
+        ts.append(t)
+        idxs.append(idx)
+    t = torch.cat(ts)
+    return t, torch.cat(idxs).to(torch.int32), t < BIG
+
+
+def nearest_root(h, c_q, a_q, inv_a, on, rows, t_min):
+    """The search's last steps on (rays, rows) terms h and c_q: disc =
+    h^2 - a c_q, roots (h -/+ sqrt(disc)) * (1/a), the near one where it
+    lies in (t_min, BIG), and the lowest row at the minimum. ``on`` (rows,)
+    bool masks inactive rows. -> (t (rays,), BIG on a miss; idx (rays,)
+    int64, 0 on a miss)."""
+    disc = h * h - a_q * c_q
+    sqrtd = torch.sqrt(torch.clamp_min(disc, 0.0))
+    root0 = (h - sqrtd) * inv_a
+    root1 = (h + sqrtd) * inv_a
+    ok0 = (root0 > t_min) & (root0 < BIG)
+    ok1 = (root1 > t_min) & (root1 < BIG)
+    root = torch.where(ok0, root0, root1)
+    valid = (disc >= 0.0) & (ok0 | ok1) & on
+    t_all = torch.where(valid, root, BIG)
+    t = t_all.min(dim=1).values
+    # A miss (every entry BIG) gives row 0, as the TPU kernel's does.
+    idx = torch.where(t_all == t[:, None], rows, rows.shape[0]).min(dim=1).values
+    return t, idx

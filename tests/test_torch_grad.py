@@ -3,6 +3,8 @@ against the JAX package's ``grad.loss_and_grad`` on bridged scenes,
 finite-difference checks on the port itself, frozen-decision training, the
 train step, and the entry points' device default."""
 
+from dataclasses import replace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -171,8 +173,12 @@ def test_params_bridge_round_trip():
         np.testing.assert_array_equal(arrays[k], np.asarray(jparams[k]), err_msg=k)
     back = bridge.params_from_arrays(arrays, device="cpu")
     assert all(torch.equal(back[k], params[k]) for k in G.TENSOR_KEYS)
-    with pytest.raises(NotImplementedError):
-        bridge.params_from_arrays(dict(arrays, sky_image=np.zeros((2, 2, 3))), device="cpu")
+    assert back["sky_image"] is None and arrays["sky_image"] is None
+    # A spherical sky's image crosses both ways.
+    sky = np.random.default_rng(0).random((2, 4, 3)).astype(np.float32)
+    back = bridge.params_from_arrays(dict(arrays, sky_image=sky), device="cpu")
+    assert G.leaf_keys(back) == G.TENSOR_KEYS + ("sky_image",)
+    np.testing.assert_array_equal(bridge.params_to_arrays(back)["sky_image"], sky)
 
 
 def test_apply_params_leaves_the_inputs_alone():
@@ -194,12 +200,15 @@ def test_split_false_replays_deep_budgets_unsplit():
 @pytest.mark.parametrize(
     "call",
     [
-        lambda a: G.loss_and_grad(*a[:6], method="ad", **a[6]),
+        lambda a: G.loss_and_grad(a[0], replace(a[1], animated=True), *a[2:6],
+                                  method="ad", **a[6]),
         lambda a: G.loss_and_grad(*a[:6], grad_split=True, **a[6]),
         lambda a: trep.render_rays_replay(
             a[1], a[2], 16, 9, a[4], torch.zeros_like(a[4]), 0, 2, record_mode="staged"
         ),
-        lambda a: G.apply_params(a[1], a[2], dict(a[0], sky_image=torch.zeros(2, 2, 3))),
+        lambda a: G.loss_and_grad(
+            dict(a[0], sky_image=torch.ones(2, 4, 3)), replace(a[1], sky_kind=1), *a[2:6],
+            method="replay", **a[6]),
     ],
     ids=["method_ad", "split", "staged_record", "sky_image"],
 )

@@ -191,7 +191,8 @@ def test_build_compiles_for_hopper_without_fast_math():
     assert "arch=compute_90a,code=sm_90a" in flags and "-fmad=false" in flags
     assert "fast_math" not in flags and "-shared" in flags
     assert [s.name for s in tbuild.sources()] == [
-        "common.cuh", "megakernel.cu", "replay_kernel.cu"
+        "common.cuh", "megakernel.cu", "replay_kernel.cu", "sphere_hit.cu",
+        "sphere_shade.cu",
     ]
     # One library per .cu, each with its declared C entry points.
     assert set(tbuild.SIGNATURES) == {s.stem for s in tbuild.sources() if s.suffix == ".cu"}

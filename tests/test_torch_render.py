@@ -122,13 +122,13 @@ def _bridged_triangles(sc):
         lambda sc: sc.translate_point((1.0, 0.0, 0.0), 1.0, 0, 0, "ball"),
         lambda sc: sc.load_asset("teapot.obj", "teapot", 0.5, (0, 0, 0),
                                  tscene.Metal((0.5, 0.5, 0.5))),
-        lambda sc: sc.load_spherical_skybox("garden.hdr"),
+        lambda sc: sc.load_spherical_skybox("garden.jpg"),
         lambda sc: tscene.Scene.new_movie(16 / 9, 32, 24.0, 180.0, 1.0),
         _too_many_spheres,
         _bridged_triangles,
         lambda sc: trender.render_image_persistent(
             sc.build(device="cpu"), sc.scene_cam.params(device="cpu"), 32, 18, 1, 1, 0,
-            device="cpu", schedule="pixel"),
+            device="cpu", schedule="record"),
     ],
     ids=["triangle", "image_texture", "timeline", "animator", "obj_asset",
          "spherical_sky", "movie", "structure_tables", "bridged_mesh", "schedule"],

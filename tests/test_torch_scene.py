@@ -190,7 +190,7 @@ def test_default_gradient_matches_jax():
     want = jsky.radiance(jsky.DEFAULT, None, jnp.asarray(d))
     got = tsky.radiance(tsky.DEFAULT, None, torch.from_numpy(d))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-6)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="image"):
         tsky.radiance(tsky.SPHERICAL, None, torch.from_numpy(d))
 
 
