@@ -40,6 +40,15 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
      spp, depth 8), and book1 320 wide, 8 spp, depth 50 through the pixel
      and the mega schedules: isclose(rtol=1e-3, atol=1e-3) on more than
      97% of pixel values, means within 2e-3.
+   - K5, the sphere-BVH walk: forward on ``sphere_stress`` with 7744 and
+     1936 rows, 320 wide, 8 spp, depth 50, and on 64 pixel blocks of the
+     n7744 1920x1080 32 spp d50 launch; record (fused and plain) on n1936,
+     320 wide, 4 spp, depth 8, and on 32768 lanes of its 1920x1080 launch.
+     Each bit for bit against the plain walk and against the brute kernel
+     (K1, K2) on the original table; the plain walk counts the node and
+     row tests that give K5's bound.
+   - K4 and K3 at n1936's 1936 rows (320 wide, 4 spp, depth 8): K4 bit for
+     bit, K3 within its scheme and the same bits twice.
 4. The forward render: ``render.render_image`` of book1 at 1920x1080, 32
    spp, depth 50; checks the image, counts K1's launches, writes
    ``build/chip_smoke_book1.png``.
@@ -58,11 +67,20 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
    peak memory; K10 launches; held against the replay step of phase 5
    (loss within rel 2e-3, ``tex_color`` and ``mat_emission`` gradients
    within normalized 5e-3); one step under the profiler.
+8. The big-scene forward render: ``render.render_image`` of
+   ``sphere_stress(1920, copies=16)`` (7744 rows) at 1920x1080, 32 spp,
+   depth 50: the walk launches once and K1 never; writes
+   ``build/chip_smoke_stress.png``.
+9. The big-scene gradient step, ``sphere_stress(1920, copies=4)`` (1936
+   rows) at 1920x1080, 4 spp, depth 8, every pixel: as phase 5 without the
+   train steps (the record walk, K3 and K4 launch, K2 never), and one
+   direct-AD step held against the replay step.
    Each main-path phase zeroes the launch counts before it and reads them
    after; a kernel of the phase that was not launched fails the run.
-8. Prints a JSON line describing each kernel (times at the comparison
-   shape, where kernel and twin run the same inputs in full), the card's
-   line again, and, as the last line, ``{"ok": true, "device": {...}}``.
+10. Prints a JSON line describing each kernel (times at the comparison
+   shape, where kernel and twin run the same inputs in full; K5's also at
+   its main shape), the card's line again, and, as the last line,
+   ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero. Without CUDA, or
 without the package beside this file, it exits non-zero before printing a
@@ -95,6 +113,10 @@ ROW_OPS = 52  # a replayed row: quadratic, hit point, normal, unit d, radiance
 SCATTER_OPS = 45  # a continuing row: albedo, the sampled direction, scatter
 ADJOINT_ROW_OPS = 60  # the adjoint of a row's radiance and pass-through
 ADJOINT_SCATTER_OPS = 150  # the adjoint of a continuing row's scatter
+# K5's walk: a node's slab test (the margin's 6 adds, 6 subtractions and 6
+# multiplies); a leaf row costs K10's HIT_DISC_OPS, plus ROOT_OPS where the
+# discriminant is not negative.
+SLAB_OPS = 18
 N_SUB = 32768  # lanes of a 1920x1080 launch held against the twin
 
 
@@ -630,6 +652,151 @@ def main() -> None:
         raise AssertionError("the pixel and mega schedules disagree on book1")
     del imgs, a, b, card_img, cpu_img
 
+    # --- K5: the sphere-BVH walk vs its plain version and vs K1 / K2 ----------
+    def stress_inputs(copies, width):
+        """sphere_stress at ``width``: (scene, camera, w, h, its BVH tables as
+        the wrappers take them)."""
+        sc = demo.sphere_stress(width=width, copies=copies)
+        sd, cp = sc.build(device=dev), sc.scene_cam.params(device=dev)
+        bvh = dict(sph_nodes=sd.sph_nodes, sph_meta=sd.sph_meta)
+        return sd, cp, sc.scene_cam.image_width, sc.scene_cam.image_height, bvh
+
+    def lane_subset(inputs, lanes):
+        return dict(inputs, pix=inputs["pix"][:, lanes], sample0=inputs["sample0"][:, lanes])
+
+    def walk_ops(counts):
+        return (counts["nodes"] * SLAB_OPS + counts["rows"] * HIT_DISC_OPS
+                + counts["roots"] * ROOT_OPS)
+
+    def plain_walk(fn):
+        """(result, ms, the walk's counted work) of one plain-walk call."""
+        mk.WALK_COUNTS.update(nodes=0, rows=0, roots=0)
+        out, ms = host_ms(fn)
+        return out, ms, dict(mk.WALK_COUNTS)
+
+    def k5_forward(copies, width, spp, depth, lanes=None):
+        """K5's forward launch on sphere_stress against the plain walk and
+        against K1 on the original table (on ``lanes`` of it if given)."""
+        sd, cp, w, h, bvh = stress_inputs(copies, width)
+        brute, _ = integrator.mega_inputs(sd, cp, w, h, spp, depth, 0)
+        walk = dict(brute, table=integrator.permute_table(brute["table"], sd.sph_perm))
+        out = mk.run_megakernel(**walk, **bvh, animated=False)
+        ms = cuda_ms(lambda: mk.run_megakernel(**walk, **bvh, animated=False), 2)
+        what = f"K5 n{sd.sph_center.shape[0]} {width}w {spp}spp d{depth}"
+        valid_all = int((walk["sample0"] < mk.NO_SAMPLE).sum())
+        r_all = walk["pix"].shape[1]
+        if lanes is not None:
+            brute, walk = lane_subset(brute, lanes), lane_subset(walk, lanes)
+            out = out[:, lanes]
+            what += f" on {lanes.numel()} lanes"
+        ref, plain_ms, counts = plain_walk(lambda: mk.run_megakernel_reference(**walk, **bvh))
+        err = bit_equal(out, ref, f"{what} vs plain walk")
+        bit_equal(out, mk.run_megakernel(**brute, animated=False), f"{what} vs K1")
+        k1_ms = cuda_ms(lambda: mk.run_megakernel(**brute, animated=False), 1)
+        k5_ms = cuda_ms(lambda: mk.run_megakernel(**walk, **bvh, animated=False), 1)
+        # Scale the checked lanes' work to the whole launch; bytes: the
+        # permuted table, the BVH, each lane's ids and sums.
+        scale = valid_all / int((walk["sample0"] < mk.NO_SAMPLE).sum())
+        b, by = bound(walk_ops(counts) * scale,
+                      nbytes(walk["table"], *bvh.values()) + 5 * 4 * r_all)
+        print(f"{what}: K5 {ms:.3f} ms, plain walk {plain_ms:.1f} ms, bound {b:.4f} ms ({by}); "
+              f"on the checked lanes K5 {k5_ms:.3f} ms vs K1 {k1_ms:.3f} ms "
+              f"({k1_ms / k5_ms:.2f}x); work {counts}, x{scale:.2f}")
+        return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b, bound_by=by,
+                    k1_ms=k1_ms, k5_ms=k5_ms, speedup=k1_ms / k5_ms)
+
+    k5_fwd = {}
+    for copies in (16, 4):
+        k5_fwd[copies] = k5_forward(copies, 320, 8, 50)
+    n_blocks = (1920 // 32) * math.ceil(1080 / 16)
+    blocks = torch.randperm(n_blocks, generator=torch.Generator().manual_seed(5))[:64]
+    lanes = (blocks.sort().values[:, None] * mk.TILE + torch.arange(mk.TILE)).reshape(-1).to(dev)
+    k5_main = k5_forward(16, 1920, 32, 50, lanes=lanes)
+    print(f"  K5 n7744 1920x1080 32spp d50: {k5_main['ms']:.1f} ms "
+          f"({1920 * 1080 * 32 / k5_main['ms'] / 1e3:.2f} Mrays/s)")
+    kernels["megakernel_walk"] = dict(
+        source="crucible_tpu_torch/csrc/megakernel.cu",
+        replaces="crucible_tpu/ops/pallas/megakernel.py:1681",
+        **{k: k5_fwd[16][k] for k in ("ms", "plain_ms", "max_abs_err", "bound_ms", "bound_by")},
+        ms_n1936=k5_fwd[4]["ms"], bound_ms_n1936=k5_fwd[4]["bound_ms"],
+        main_ms=k5_main["ms"], main_bound_ms=k5_main["bound_ms"],
+        main_checked_lanes_ms=k5_main["k5_ms"], main_checked_lanes_k1_ms=k5_main["k1_ms"],
+        main_checked_lanes_speedup=k5_main["speedup"],
+    )
+
+    def k5_record(width, spp, depth, sub=None):
+        """K5's record launches (fused and plain) on sphere_stress(copies=4)
+        against the plain walk and K2 on the original table (on ``sub`` of
+        the lanes if given) -> (entry, replay-kernel inputs, records)."""
+        sd, cp, w, h, bvh = stress_inputs(4, width)
+        p = w * h
+        pix = torch.arange(p, device=dev, dtype=torch.int32).repeat(spp)
+        smp = torch.arange(spp, device=dev, dtype=torch.int32).repeat_interleave(p)
+        smem = torch.tensor([0, 0, w, depth, 0, 0, 0, 0], dtype=torch.int32, device=dev)
+        brute = dict(smem=smem, pix=pix[None], sample0=smp[None],
+                     cam=integrator.mega_cam_vector(cp, w, h),
+                     table=integrator.make_sphere_table(sd).contiguous())
+        walk = dict(brute, table=integrator.permute_table(brute["table"], sd.sph_perm))
+        what = f"K5 record n1936 {width}w {spp}spp d{depth}"
+        acc, rec = mk.run_megakernel_record(**walk, **bvh, max_depth=depth, radiance=True)
+        plain = mk.run_megakernel_record(**walk, **bvh, max_depth=depth)[1]
+        bit_equal(rec, plain, f"{what}: fused vs plain records")
+        ms = cuda_ms(lambda: mk.run_megakernel_record(**walk, **bvh, max_depth=depth,
+                                                      radiance=True), 3)
+        o, d, _ = generate_rays(cp, w, h, pix, smp, 0)
+        rin = (brute["table"], o.contiguous(), d.contiguous(), torch.ones_like(pix), pix, smp)
+        full_rec, r = rec, pix.numel()
+        if sub is not None:
+            brute, walk = lane_subset(brute, sub), lane_subset(walk, sub)
+            acc, rec = acc[:, sub], rec[:, sub]
+            what += f" on {sub.numel()} lanes"
+        (ref_acc, ref_rec), plain_ms, counts = plain_walk(
+            lambda: mk.run_megakernel_record_reference(**walk, **bvh, max_depth=depth,
+                                                       radiance=True))
+        bit_equal(rec, ref_rec, f"{what}: records vs plain walk")
+        err = bit_equal(acc, ref_acc, f"{what}: fused radiance vs plain walk")
+        b_acc, b_rec = mk.run_megakernel_record(**brute, max_depth=depth, radiance=True)
+        bit_equal(rec, b_rec, f"{what}: records vs K2")
+        bit_equal(acc, b_acc, f"{what}: fused radiance vs K2")
+        scale = r / rec.shape[1]
+        b, by = bound(walk_ops(counts) * scale,
+                      nbytes(walk["table"], *bvh.values(), full_rec) + 5 * 4 * r)
+        print(f"{what}: K5 {ms:.3f} ms, plain walk {plain_ms:.1f} ms, bound {b:.4f} ms "
+              f"({by}); work {counts}, x{scale:.2f}")
+        return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b, bound_by=by), \
+            rin, full_rec
+
+    k5_rec, rin, rec320 = k5_record(320, 4, 8)
+    r = 1920 * 1080 * 4
+    sub = torch.randperm(r, generator=torch.Generator().manual_seed(6))[:N_SUB].sort().values
+    k5_rec_main, _, _ = k5_record(1920, 4, 8, sub=sub.to(dev))
+    kernels["megakernel_walk_record"] = dict(
+        source="crucible_tpu_torch/csrc/megakernel.cu",
+        replaces="crucible_tpu/ops/pallas/megakernel.py:1828",
+        **k5_rec, main_ms=k5_rec_main["ms"], main_bound_ms=k5_rec_main["bound_ms"],
+    )
+
+    # --- K4 and K3 at n1936's 1936 rows -----------------------------------------
+    rargs = (*rin, rec320, 0)
+    rad = rk.replay_forward(*rargs)
+    bit_equal(rad, rk.replay_forward_reference(*rargs), "K4 n1936 320w 4spp d8 radiance")
+    g_rad = torch.randn(rad.shape, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    got = rk.replay_backward(*rargs, g_rad)
+    bit_equal(got[0], rk.replay_backward(*rargs, g_rad)[0], "K3 n1936 g_table, launch vs launch")
+    want, plain_ms = host_ms(lambda: rk.replay_backward_reference(*rargs, g_rad))
+    err = k3_scheme(got, want, "K3 n1936 320w 4spp d8")
+    ms = cuda_ms(lambda: rk.replay_backward(*rargs, g_rad), 3)
+    alive, cont = replay_work(rec320)
+    b, by = bound(2 * (alive * ROW_OPS + cont * SCATTER_OPS)
+                  + alive * ADJOINT_ROW_OPS + cont * ADJOINT_SCATTER_OPS,
+                  nbytes(*rin, rec320, g_rad, *got))
+    print(f"K3 n1936 ({rin[0].shape[0]} rows) 320w 4spp d8: kernel {ms:.3f} ms, twin "
+          f"{plain_ms:.1f} ms, bound {b:.4f} ms ({by})")
+    kernels["replay_backward"].update(ms_1936_rows=ms, plain_ms_1936_rows=plain_ms,
+                                      bound_ms_1936_rows=b, max_abs_err_1936_rows=err)
+    del rin, rargs, rec320, rad, got, want, g_rad
+
     # --- main path 1: the forward render ---------------------------------------
     scene = demo.book1_end_scene(width=1920)
     mk.LAUNCHES = 0
@@ -652,29 +819,36 @@ def main() -> None:
     kernels["megakernel_forward"]["launches"] = launches_k1
 
     # --- main path 2: the gradient step, 1920x1080, 4 spp, depth 8 --------------
-    sd, cp = scene.build(), scene.scene_cam.params()
     w, h, spp = 1920, 1080, 4
     pix = torch.arange(w * h, device=dev)
     target = torch.zeros((w * h, 3), device=dev)
     kw = dict(width=w, height=h, spp=spp, max_depth=8)
     mrays = w * h * spp / 1e6
-    counts = {"megakernel_record": 0, "replay_forward": 0, "replay_backward": 0}
+    counters = {
+        "megakernel_record": lambda: mk.LAUNCHES_RECORD,
+        "megakernel_walk_record": lambda: mk.LAUNCHES_RECORD_WALK,
+        "replay_forward": lambda: rk.LAUNCHES_FORWARD,
+        "replay_backward": lambda: rk.LAUNCHES_BACKWARD,
+    }
+    counts = dict.fromkeys(counters, 0)
 
     def zero_counts():
-        mk.LAUNCHES_RECORD = rk.LAUNCHES_FORWARD = rk.LAUNCHES_BACKWARD = 0
+        mk.LAUNCHES_RECORD = mk.LAUNCHES_RECORD_WALK = 0
+        rk.LAUNCHES_FORWARD = rk.LAUNCHES_BACKWARD = 0
 
-    def read_counts(what, need):
-        got = {"megakernel_record": mk.LAUNCHES_RECORD,
-               "replay_forward": rk.LAUNCHES_FORWARD,
-               "replay_backward": rk.LAUNCHES_BACKWARD}
+    def read_counts(what, need, never=()):
+        got = {name: count() for name, count in counters.items()}
         print(f"  {what} launches: {got}")
         for name in need:
             if got[name] < 1:
                 raise AssertionError(f"{what} did not launch {name}")
+        for name in never:
+            if got[name]:
+                raise AssertionError(f"{what} launched {name}")
         for name, n in got.items():
             counts[name] += n
 
-    def check_grads(loss, grads):
+    def check_grads(loss, grads, sd, cp):
         if not math.isfinite(loss.item()):
             raise AssertionError("non-finite loss")
         for key in grad.TENSOR_KEYS:
@@ -682,41 +856,64 @@ def main() -> None:
             if g.shape != grad.extract_params(sd, cp)[key].shape or not bool(g.isfinite().all()):
                 raise AssertionError(f"gradient {key}: bad shape or non-finite")
 
-    params = grad.extract_params(sd, cp)
-    zero_counts()
-    torch.cuda.reset_peak_memory_stats()
-    (loss0, grads), ms = host_ms(lambda: grad.loss_and_grad(params, sd, cp, target, pix, 0, **kw))
-    check_grads(loss0, grads)
-    replay_grads = grads  # held against the direct-AD step (main path 4)
-    print(f"loss_and_grad 1920x1080 4spp d8, warm step: {ms / 1e3:.3f} s, "
-          f"loss {loss0.item():.6f}")
-    step_ms = []
-    for i in range(3):
-        (loss, grads), ms = host_ms(
+    def replay_steps(sd, cp, what, record, other):
+        """A warm and 3 timed ``loss_and_grad`` steps, ``record_decisions``
+        and 3 frozen-decision steps at 1920x1080, 4 spp, d8; ``record`` is
+        the record kernel that must launch, ``other`` the one that must not.
+        -> (params, the warm step's loss and gradients, the timed steps' ms)."""
+        params = grad.extract_params(sd, cp)
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        (loss0, grads), ms = host_ms(
             lambda: grad.loss_and_grad(params, sd, cp, target, pix, 0, **kw))
-        check_grads(loss, grads)
-        step_ms.append(ms)
-        print(f"  step {i}: {ms / 1e3:.4f} s, {mrays / (ms / 1e3):.2f} Mrays/s")
-    print(f"  nvidia-smi: {smi()}; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    read_counts("loss_and_grad", ("megakernel_record", "replay_backward"))
+        check_grads(loss0, grads, sd, cp)
+        print(f"loss_and_grad {what} 1920x1080 4spp d8, warm step: {ms / 1e3:.3f} s, "
+              f"loss {loss0.item():.6f}")
+        step_ms = []
+        for i in range(3):
+            (loss, timed), ms = host_ms(
+                lambda: grad.loss_and_grad(params, sd, cp, target, pix, 0, **kw))
+            check_grads(loss, timed, sd, cp)
+            step_ms.append(ms)
+            print(f"  step {i}: {ms / 1e3:.4f} s, {mrays / (ms / 1e3):.2f} Mrays/s")
+        print(f"  nvidia-smi: {smi()}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        read_counts("loss_and_grad", (record, "replay_backward"), (other,))
 
-    zero_counts()
-    rec, ms = host_ms(lambda: grad.record_decisions(sd, cp, pix, 0, **kw))
-    print(f"record_decisions 1920x1080 4spp d8: {ms / 1e3:.4f} s, records "
-          f"{tuple(rec.shape)} ({nbytes(rec) / 1e6:.0f} MB)")
-    for i in range(3):
-        (loss, grads), ms = host_ms(
-            lambda: grad.loss_and_grad(params, sd, cp, target, pix, 0, rec=rec, **kw))
-        check_grads(loss, grads)
-        print(f"  frozen step {i}: {ms / 1e3:.4f} s, {mrays / (ms / 1e3):.2f} Mrays/s, "
-              f"loss {loss.item():.6f}")
-    rel = abs(loss.item() - loss0.item()) / loss0.item()
-    if not rel <= 2e-3:
-        raise AssertionError(f"frozen and fused losses differ by rel {rel:.3g}")
-    read_counts("frozen-decision steps",
-                ("megakernel_record", "replay_forward", "replay_backward"))
-    del rec
+        zero_counts()
+        rec, ms = host_ms(lambda: grad.record_decisions(sd, cp, pix, 0, **kw))
+        print(f"record_decisions {what} 1920x1080 4spp d8: {ms / 1e3:.4f} s, records "
+              f"{tuple(rec.shape)} ({nbytes(rec) / 1e6:.0f} MB)")
+        for i in range(3):
+            (loss, frozen), ms = host_ms(
+                lambda: grad.loss_and_grad(params, sd, cp, target, pix, 0, rec=rec, **kw))
+            check_grads(loss, frozen, sd, cp)
+            print(f"  frozen step {i}: {ms / 1e3:.4f} s, {mrays / (ms / 1e3):.2f} Mrays/s, "
+                  f"loss {loss.item():.6f}")
+        rel = abs(loss.item() - loss0.item()) / loss0.item()
+        if not rel <= 2e-3:
+            raise AssertionError(f"frozen and fused losses differ by rel {rel:.3g}")
+        read_counts("frozen-decision steps", (record, "replay_forward", "replay_backward"),
+                    (other,))
+        return params, loss0, grads, step_ms
+
+    def ad_vs_replay(ad_loss, ad_grads, loss0, replay_grads):
+        """Hold a direct-AD step against the replay step of the same scene."""
+        rel = abs(ad_loss.item() - loss0.item()) / loss0.item()
+        print(f"  ad vs replay: loss {ad_loss.item():.6f} vs {loss0.item():.6f} (rel {rel:.3g})")
+        if not rel <= 2e-3:
+            raise AssertionError("the direct-AD and replay losses disagree")
+        for key in ("tex_color", "mat_emission"):
+            a, b = ad_grads[key], replay_grads[key]
+            nd = ((a - b).abs().max() / max(b.abs().max().item(), 1e-6)).item()
+            print(f"  {key}: max normalized diff ad vs replay {nd:.3g}")
+            if not nd <= 5e-3:
+                raise AssertionError(f"{key}: direct-AD and replay gradients disagree")
+
+    sd, cp = scene.build(), scene.scene_cam.params()
+    # replay_grads is held against the direct-AD step (main path 4).
+    params, loss0, replay_grads, step_ms = replay_steps(
+        sd, cp, "book1", "megakernel_record", "megakernel_walk_record")
 
     opt_keys = ("tex_color", "mat_emission")
     tparams = dict(params, **{k: params[k].clone().requires_grad_(True) for k in opt_keys})
@@ -732,8 +929,6 @@ def main() -> None:
     if not losses[-1] < losses[0]:
         raise AssertionError(f"Adam steps did not lower the loss: {losses}")
     read_counts("train steps", ("megakernel_record", "replay_backward"))
-    for name, n in counts.items():
-        kernels[name]["launches"] = n
 
     # One step under the profiler: device time by kernel, against the
     # median timed step's wall time.
@@ -761,7 +956,7 @@ def main() -> None:
     profile_step("loss_and_grad step",
                  lambda: grad.loss_and_grad(params, sd, cp, target, pix, 0, **kw),
                  sorted(step_ms)[1])
-    del grads, tparams, step
+    del tparams, step
 
     # --- main path 3: the staged forward render (garden, pixel schedule) ------
     scene = demo.garden_skybox(width=1920)
@@ -791,14 +986,14 @@ def main() -> None:
     sh.LAUNCHES = 0
     (ad_loss, ad_grads), ms = host_ms(
         lambda: grad.loss_and_grad(params, sd, cp, target, pix, 0, **akw))
-    check_grads(ad_loss, ad_grads)
+    check_grads(ad_loss, ad_grads, sd, cp)
     print(f"loss_and_grad(method='ad') 1920x1080 4spp d8, warm step: {ms / 1e3:.3f} s, "
           f"loss {ad_loss.item():.6f}")
     ad_ms = []
     for i in range(3):
         (ad_loss, ad_grads), ms = host_ms(
             lambda: grad.loss_and_grad(params, sd, cp, target, pix, 0, **akw))
-        check_grads(ad_loss, ad_grads)
+        check_grads(ad_loss, ad_grads, sd, cp)
         ad_ms.append(ms)
         print(f"  ad step {i}: {ms / 1e3:.4f} s, {mrays / (ms / 1e3):.2f} Mrays/s")
     launches_k10 = sh.LAUNCHES
@@ -807,30 +1002,63 @@ def main() -> None:
     if launches_k10 < 1:
         raise AssertionError("the direct-AD steps did not launch K10")
     kernels["sphere_hit"]["launches"] = launches_k10
-    rel = abs(ad_loss.item() - loss0.item()) / loss0.item()
-    print(f"  ad vs replay: loss {ad_loss.item():.6f} vs {loss0.item():.6f} (rel {rel:.3g})")
-    if not rel <= 2e-3:
-        raise AssertionError("the direct-AD and replay losses disagree")
-    for key in ("tex_color", "mat_emission"):
-        a, b = ad_grads[key], replay_grads[key]
-        nd = ((a - b).abs().max() / max(b.abs().max().item(), 1e-6)).item()
-        print(f"  {key}: max normalized diff ad vs replay {nd:.3g}")
-        if not nd <= 5e-3:
-            raise AssertionError(f"{key}: direct-AD and replay gradients disagree")
+    ad_vs_replay(ad_loss, ad_grads, loss0, replay_grads)
     del ad_grads, replay_grads
     profile_step("direct-AD step",
                  lambda: grad.loss_and_grad(params, sd, cp, target, pix, 0, **akw),
                  sorted(ad_ms)[1], kernel_key="sphere_hit")
+    del params
+
+    # --- main path 5: the big-scene forward render (n7744, the walk) ------------
+    scene = demo.sphere_stress(width=1920, copies=16)
+    _, ms = host_ms(lambda: scene.build())  # the host-side SAH build, cached
+    mk.LAUNCHES = mk.LAUNCHES_WALK = 0
+    img, ms_render = host_ms(lambda: render.render_image(scene, samples=32, max_depth=50))
+    launches_k5, launches_k1 = mk.LAUNCHES_WALK, mk.LAUNCHES
+    if tuple(img.shape) != (1080, 1920, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"stress image: shape {tuple(img.shape)} or non-finite values")
+    if launches_k5 != 1 or launches_k1 != 0:
+        raise AssertionError(f"stress: K5 launched {launches_k5}, K1 {launches_k1} times")
+    print(f"render_image sphere_stress n7744 1920x1080 32spp d50 (auto -> mega, walk): "
+          f"{ms_render / 1e3:.3f} s, {1920 * 1080 * 32 / ms_render / 1e3:.2f} Mrays/s, "
+          f"mean {img.mean().item():.5f}, K5 launches {launches_k5}, K1 launches "
+          f"{launches_k1}; scene build {ms / 1e3:.3f} s; nvidia-smi: {smi()}")
+    png = REPO / "build" / "chip_smoke_stress.png"
+    write_png(png, render.to_u8(img))
+    print(f"wrote {png.relative_to(REPO)}")
+    kernels["megakernel_walk"]["launches"] = launches_k5
+    del img
+
+    # --- main path 6: the big-scene gradient step (n1936), 1080p 4 spp d8 -------
+    scene = demo.sphere_stress(width=1920, copies=4)
+    sd, cp = scene.build(), scene.scene_cam.params()
+    if sd.sph_perm is None or not replay.replay_supported(sd):
+        raise AssertionError("sphere_stress n1936 should take the walk and the replay kernels")
+    params, loss0, replay_grads, step_ms = replay_steps(
+        sd, cp, "sphere_stress n1936", "megakernel_walk_record", "megakernel_record")
+    profile_step("sphere_stress n1936 loss_and_grad step",
+                 lambda: grad.loss_and_grad(params, sd, cp, target, pix, 0, **kw),
+                 sorted(step_ms)[1])
+    torch.cuda.empty_cache()
+    (ad_loss, ad_grads), ms = host_ms(
+        lambda: grad.loss_and_grad(params, sd, cp, target, pix, 0, **akw))
+    check_grads(ad_loss, ad_grads, sd, cp)
+    print(f"loss_and_grad(method='ad') sphere_stress n1936 1920x1080 4spp d8: "
+          f"{ms / 1e3:.3f} s")
+    ad_vs_replay(ad_loss, ad_grads, loss0, replay_grads)
+    del params, ad_grads, replay_grads
+    for name, n in counts.items():
+        kernels[name]["launches"] = n
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check")
 
     print(card)
+    standard = ("source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by")
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": k["source"],
-         "replaces": k["replaces"], "launches": k["launches"],
-         "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
-         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+        {"name": name, "route": "cuda", **{key: k[key] for key in standard},
          # No one PyTorch call computes any of these functions.
-         "library_ms": None}
+         "library_ms": None,
+         **{key: v for key, v in k.items() if key not in standard}}
         for name, k in kernels.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 // Pieces shared by the port's CUDA kernels: the PCG4D counter hash of
 // utils/rng.py, its stream ids, the record-word layout of models/replay.py,
-// and the closest-sphere search of the static kernels (K1, K2, K10).
+// and the closest-sphere search of the static kernels (K1, K2, K10, and K5
+// on each leaf it visits).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -67,13 +68,17 @@ __device__ __forceinline__ U4 uniform4(uint32_t x, uint32_t y, uint32_t z,
 // disc = h^2 - a c_q, roots (h -/+ sqrt(disc)) * (1/a), a root accepted in
 // (t_min, BIG). The caller passes a = |d|^2, d.o, |o|^2 and 1/a. A row
 // replaces (best, win) only when its root is strictly nearer, so the lowest
-// row wins ties; rows are numbered from `base`. Every product and sum is
-// rounded on its own (build with -fmad=false), as the eager versions round.
+// row wins ties; rows are numbered from `base`. With TIE_BY_ID (K5's leaves
+// of a permuted table) an exact tie goes instead to the row whose original
+// id, column 31 of `table`, is lower. Every product and sum is rounded on
+// its own (build with -fmad=false), as the eager versions round.
+template <bool TIE_BY_ID = false>
 __device__ __forceinline__ void closest_sphere(
     const float* cx, const float* cy, const float* cz, const float* csr,
     const float* act, int count, int base, float ox, float oy, float oz,
     float dx, float dy, float dz, float a_q, float d_dot_o, float o_sq,
-    float inv_a, float t_min, float& best, int& win) {
+    float inv_a, float t_min, float& best, int& win,
+    const float* table = nullptr) {
   for (int k = 0; k < count; ++k) {
     if (!(act[k] > 0.0f)) continue;
     const float c0 = cx[k], c1 = cy[k], c2 = cz[k];
@@ -93,6 +98,9 @@ __device__ __forceinline__ void closest_sphere(
     if (root < best) {
       best = root;
       win = base + k;
+    } else if (TIE_BY_ID && root == best &&
+               table[(size_t)(base + k) * 32 + 31] < table[(size_t)win * 32 + 31]) {
+      win = base + k;  // best < BIG here, so win is a row
     }
   }
 }

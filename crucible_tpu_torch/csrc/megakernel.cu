@@ -1,37 +1,63 @@
 // Persistent path-tracing megakernel for sphere scenes on Hopper: forward
-// mode (K1) and record mode (K2).
+// mode (K1), record mode (K2) and, for big scenes, both modes walking a
+// per-lane sphere BVH (K5).
 //
 // Replaces crucible_tpu/ops/pallas/megakernel.py::_kernel for its
-// brute-sphere, static-camera, non-animated branch, in both of its modes:
+// static-camera, non-animated sphere branches, in both of its modes:
 // - forward (run_megakernel, pallas_call at megakernel.py:1681): camera ray
 //   generation with jitter and defocus, the PCG4D counter hash, the
-//   closest-root sphere quadratic over every table row, the winner's
-//   attribute fetch, solid / checker-of-solid albedo, default sky, emission,
-//   and Lambertian / metal / dielectric / emissive scatter, accumulated into
-//   per-lane radiance sums;
+//   closest-root sphere quadratic, the winner's attribute fetch, solid /
+//   checker-of-solid albedo, default sky, emission, and Lambertian / metal /
+//   dielectric / emissive scatter, accumulated into per-lane radiance sums;
 // - record (run_megakernel_record, pallas_call at megakernel.py:1828): each
 //   lane traces one (pixel, sample) path and writes one packed decision word
 //   per bounce (winner id * 256 + flag byte, models/replay.py layout); the
 //   fused variant also accumulates that path's radiance from bounce
 //   smem[4] on.
-// Both modes are one templated kernel: the record flags only add the
-// decision words, so the forward instantiation's arithmetic is unchanged.
+// The closest hit is either the brute search over every table row (the
+// branch at megakernel.py:804-830; K1, K2) or the walk of the sphere BVH
+// (the n_sph_nodes branch, megakernel.py:618-803; K5) over the BVH-permuted
+// table, whose record words de-permute the winner through table column 31.
+// All variants are one templated kernel: the record flags only add the
+// decision words and the walk flag only replaces the search, so the brute
+// forward instantiation's arithmetic is unchanged.
 //
-// What bounds it on this card: per-thread FP32 work on the N-row quadratic
-// (about 20 flops and a square root per row per bounce), with divergence at
-// the material branches and at path termination. Record mode adds 4 bytes
-// per bounce per lane of stores (coalesced: row-major (D, R)).
+// What bounds it on this card: per-thread FP32 work on the quadratic (about
+// 20 flops and a square root per row tested per bounce; the walk adds a
+// slab test per node visited), with divergence at the material branches
+// and at path termination. Record mode adds 4 bytes per bounce per lane of
+// stores (coalesced: row-major (D, R)).
 //
 // Design: one thread per lane. The thread walks its pixel's samples
 // sample0..spp-1 (record mode: sample0 only) and, within each sample,
 // bounces until the path ends; lanes are independent, so the TPU kernel's
 // lockstep regeneration bookkeeping becomes this plain nested loop. The
 // intersection columns of the table (center x/y/z, |c|^2 - r^2, active) are
-// staged once per block in shared memory as SoA; every thread of a warp
-// reads the same row at the same time, which shared memory serves as a
-// broadcast. The winner's row is read from global memory by index: an
-// indexed load is exact, so the TPU's one-hot MXU fetch and its bf16 split
-// have no counterpart here. On a miss no row is read.
+// staged once per block in shared memory as SoA. The brute search has
+// every thread of a warp read the same row at the same time, which shared
+// memory serves as a broadcast. The winner's row is read from global memory
+// by index: an indexed load is exact, so the TPU's one-hot MXU fetch and its
+// bf16 split have no counterpart here. On a miss no row is read.
+//
+// The walk (K5) replaces the TPU's 16-node slab window, its scalar cursor
+// chase and its three-leaf batches with a stackless walk per thread over
+// the DFS skip links (ops/bvh.py): at node i a slab test of its box against
+// [t_min, best]; on a hit go on to i + 1 at an inner node, or test the
+// leaf's rows and go to miss[i]; on a miss go to miss[i]; stop at K. The
+// node boxes and [first, count, miss] sit in shared memory beside the
+// search columns. Threads of a warp stand at different nodes and leaves,
+// so these reads scatter over banks and leaves serialize: divergence is
+// the price of skipping rows.
+//
+// The walk returns what the brute search returns, bit for bit. A row's
+// root is the brute search's (common.cuh closest_sphere on the leaf's
+// rows), and an exact tie goes to the lower original row id (column 31),
+// as the brute search's strict '<' in row order gives it. The slab test is
+// conservative: each box is grown by SLAB_EPS * (1 + its largest
+// |coordinate|) on the host (ops/kernels/megakernel.py walk_inputs) and by
+// SLAB_EPS * the origin's largest |coordinate| here, which covers the
+// expanded quadratic's error on the hit point (up to ~1.7e-3 (|c| + |o|),
+// fault C6), so no leaf holding a winning root is skipped.
 //
 // Numerics: every literal is float32 and the arithmetic follows the Pallas
 // kernel's association operation for operation. Build with -fmad=false and
@@ -55,42 +81,75 @@ namespace {
 using namespace crucible;
 
 constexpr int C_IN = 32;           // table columns (sphere_shade.py layout)
+constexpr int COL_ID = 31;         // the table's original row id
 constexpr int SMEM_COLS = 5;       // staged columns: cx, cy, cz, csr, active
-constexpr int BLOCK = 128;         // threads per block (4 warps)
+constexpr int NODE_COLS = 6;       // staged per node: box lo x/y/z, hi x/y/z
+constexpr int META_COLS = 3;       // staged per node: first, count, miss
+constexpr int BLOCK = 128;         // threads per block, brute search (4 warps)
+constexpr int WALK_BLOCK = 256;    // threads per block, walk (8 warps)
 constexpr int NO_SAMPLE = 1 << 30;  // sample0 of a padding lane
+constexpr float SLAB_EPS = 4e-3f;  // the walk's slab margin (see above)
 
-// RECORD: one path per lane, decision words to `rec` (D, R).
-// RADIANCE: accumulate radiance into `out` (3, R); in record mode only from
-// bounce smem[4] on. Forward mode is <false, true>.
-template <bool RECORD, bool RADIANCE>
-__global__ void __launch_bounds__(BLOCK) megakernel(
-    const int32_t* __restrict__ smem,     // (8,) [spp, seed, width, max_depth, accum_from, ...]
-    const int32_t* __restrict__ pix_in,   // (R,) pixel ids
-    const int32_t* __restrict__ sample0,  // (R,) first sample (2^30 = padding)
-    const float* __restrict__ cam,        // (48,) camera constants
-    const float* __restrict__ table,      // (N, 32) sphere attribute table
-    int n, int r, float t_min,
-    float* __restrict__ out,              // (3, R) radiance sums
-    int32_t* __restrict__ rec) {          // (max_depth, R) records (RECORD only)
-  extern __shared__ float sh[];
-  float* s_cx = sh;
-  float* s_cy = sh + n;
-  float* s_cz = sh + 2 * n;
-  float* s_csr = sh + 3 * n;
-  float* s_act = sh + 4 * n;
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    const float* row = table + (size_t)k * C_IN;
-    s_cx[k] = row[0];
-    s_cy[k] = row[1];
-    s_cz[k] = row[2];
-    s_csr[k] = row[4];
-    s_act[k] = row[5];
+// Shared-memory views of what a block stages.
+struct Staged {
+  const float *cx, *cy, *cz, *csr, *act;  // (n,) search columns
+  const float* node;                      // (k, NODE_COLS) grown boxes
+  const int* meta;                        // (k, META_COLS)
+  int n, k;
+};
+
+__device__ __forceinline__ float safe_inv(float v) {
+  return 1.0f / (fabsf(v) < 1e-30f ? (v >= 0.0f ? 1e-30f : -1e-30f) : v);
+}
+
+// K5's closest hit: the stackless skip-link walk (see the note above) ->
+// (best, win), win a row of the permuted table, -1 on a miss.
+__device__ __forceinline__ void walk_closest(
+    const Staged& s, const float* __restrict__ table, float ox, float oy,
+    float oz, float dx, float dy, float dz, float a_q, float d_dot_o,
+    float o_sq, float inv_a, float t_min, float& best, int& win) {
+  const float ivx = safe_inv(dx), ivy = safe_inv(dy), ivz = safe_inv(dz);
+  const float pr = SLAB_EPS * fmaxf(fmaxf(fabsf(ox), fabsf(oy)), fabsf(oz));
+  int i = 0;
+  while (i < s.k) {
+    const float* b = s.node + i * NODE_COLS;
+    const int* m = s.meta + i * META_COLS;
+    const float t0x = ((b[0] - pr) - ox) * ivx;
+    const float t1x = ((b[3] + pr) - ox) * ivx;
+    const float t0y = ((b[1] - pr) - oy) * ivy;
+    const float t1y = ((b[4] + pr) - oy) * ivy;
+    const float t0z = ((b[2] - pr) - oz) * ivz;
+    const float t1z = ((b[5] + pr) - oz) * ivz;
+    const float enter = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                              fmaxf(fminf(t0z, t1z), t_min));
+    const float exitv = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                              fminf(fmaxf(t0z, t1z), best));
+    if (enter <= exitv) {
+      const int count = m[1];
+      if (count == 0) {  // inner node: its left child is next
+        ++i;
+        continue;
+      }
+      const int first = m[0];
+      closest_sphere<true>(s.cx + first, s.cy + first, s.cz + first,
+                           s.csr + first, s.act + first, count, first, ox, oy,
+                           oz, dx, dy, dz, a_q, d_dot_o, o_sq, inv_a, t_min,
+                           best, win, table);
+    }
+    i = m[2];
   }
-  __syncthreads();
+}
 
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= r) return;
-
+// One lane's paths. RECORD: one path per lane, decision words to `rec`
+// (D, R). RADIANCE: accumulate radiance into `out` (3, R); in record mode
+// only from bounce smem[4] on. Forward mode is <false, true>. WALK: the
+// closest hit walks the sphere BVH over the permuted table.
+template <bool RECORD, bool RADIANCE, bool WALK>
+__device__ __forceinline__ void trace_lane(
+    int lane, const Staged& s, const int32_t* __restrict__ smem,
+    const int32_t* __restrict__ pix_in, const int32_t* __restrict__ sample0,
+    const float* __restrict__ cam, const float* __restrict__ table, int r,
+    float t_min, float* __restrict__ out, int32_t* __restrict__ rec) {
   const int spp = smem[0];
   const uint32_t seed = (uint32_t)smem[1];
   const int width = smem[2];
@@ -144,8 +203,13 @@ __global__ void __launch_bounds__(BLOCK) megakernel(
       const float inv_a = 1.0f / a_q;
       float best = BIG;
       int win = -1;
-      closest_sphere(s_cx, s_cy, s_cz, s_csr, s_act, n, 0, ox, oy, oz, dx, dy,
-                     dz, a_q, d_dot_o, o_sq, inv_a, t_min, best, win);
+      if (WALK) {
+        walk_closest(s, table, ox, oy, oz, dx, dy, dz, a_q, d_dot_o, o_sq,
+                     inv_a, t_min, best, win);
+      } else {
+        closest_sphere(s.cx, s.cy, s.cz, s.csr, s.act, s.n, 0, ox, oy, oz, dx,
+                       dy, dz, a_q, d_dot_o, o_sq, inv_a, t_min, best, win);
+      }
 
       const float dlen = fmaxf(sqrtf(a_q), 1e-20f);
       const bool acc_row = !RECORD || bounce >= accum_from;
@@ -310,7 +374,10 @@ __global__ void __launch_bounds__(BLOCK) megakernel(
         const int flags = F_ALIVE | F_HIT | (scattered ? F_SCAT : 0) |
                           (front ? F_FRONT : 0) | (refl ? F_REFL : 0) |
                           (degen ? F_DEGEN : 0) | (root1 ? F_ROOT1 : 0);
-        rec[(size_t)(rows++) * r + lane] = win * REC_ID_SCALE + flags;
+        // The walk's winner is a permuted row: record its original id
+        // (exact in float32 below 2^24).
+        const int win_id = WALK ? (int)row[COL_ID] : win;
+        rec[(size_t)(rows++) * r + lane] = win_id * REC_ID_SCALE + flags;
       }
 
       if (!(scattered && bounce + 1 < max_depth)) break;
@@ -337,22 +404,70 @@ __global__ void __launch_bounds__(BLOCK) megakernel(
   out[2 * (size_t)r + lane] = az;
 }
 
-template <bool RECORD, bool RADIANCE>
+template <bool RECORD, bool RADIANCE, bool WALK, int NT>
+__global__ void __launch_bounds__(NT) megakernel(
+    const int32_t* __restrict__ smem,     // (8,) [spp, seed, width, max_depth, accum_from, ...]
+    const int32_t* __restrict__ pix_in,   // (R,) pixel ids
+    const int32_t* __restrict__ sample0,  // (R,) first sample (2^30 = padding)
+    const float* __restrict__ cam,        // (48,) camera constants
+    const float* __restrict__ table,      // (N, 32) sphere attribute table
+    const float* __restrict__ nodes,      // (K, 6) grown node boxes (WALK only)
+    const int32_t* __restrict__ meta,     // (K, 3) first, count, miss (WALK only)
+    int n, int k, int r, float t_min,
+    float* __restrict__ out,              // (3, R) radiance sums
+    int32_t* __restrict__ rec) {          // (max_depth, R) records (RECORD only)
+  extern __shared__ float sh[];
+  float* s_cx = sh;
+  float* s_cy = sh + n;
+  float* s_cz = sh + 2 * n;
+  float* s_csr = sh + 3 * n;
+  float* s_act = sh + 4 * n;
+  for (int q = threadIdx.x; q < n; q += blockDim.x) {
+    const float* row = table + (size_t)q * C_IN;
+    s_cx[q] = row[0];
+    s_cy[q] = row[1];
+    s_cz[q] = row[2];
+    s_csr[q] = row[4];
+    s_act[q] = row[5];
+  }
+  float* s_node = sh + SMEM_COLS * n;
+  int* s_meta = (int*)(s_node + NODE_COLS * k);
+  if (WALK) {
+    for (int q = threadIdx.x; q < k * NODE_COLS; q += blockDim.x) s_node[q] = nodes[q];
+    for (int q = threadIdx.x; q < k * META_COLS; q += blockDim.x) s_meta[q] = meta[q];
+  }
+  __syncthreads();
+  const Staged s{s_cx, s_cy, s_cz, s_csr, s_act, s_node, s_meta, n, k};
+
+  const int lane = blockIdx.x * NT + threadIdx.x;
+  if (lane < r) {
+    trace_lane<RECORD, RADIANCE, WALK>(lane, s, smem, pix_in, sample0, cam,
+                                       table, r, t_min, out, rec);
+  }
+}
+
+int smem_bytes(int n, int k) {
+  return n * SMEM_COLS * (int)sizeof(float) +
+         k * (NODE_COLS * (int)sizeof(float) + META_COLS * (int)sizeof(int));
+}
+
+template <bool RECORD, bool RADIANCE, bool WALK>
 int launch(const int32_t* smem, const int32_t* pix, const int32_t* sample0,
-           const float* cam, const float* table, int n, int r, float t_min,
-           float* out, int32_t* rec, void* stream) {
-  const int smem_bytes = n * SMEM_COLS * (int)sizeof(float);
-  if (smem_bytes > 48 * 1024) {
+           const float* cam, const float* table, const float* nodes,
+           const int32_t* meta, int n, int k, int r, float t_min, float* out,
+           int32_t* rec, void* stream) {
+  constexpr int NT = WALK ? WALK_BLOCK : BLOCK;
+  auto kernel = megakernel<RECORD, RADIANCE, WALK, NT>;
+  const int bytes = smem_bytes(n, WALK ? k : 0);
+  if (bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        megakernel<RECORD, RADIANCE>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  const int grid = (r + BLOCK - 1) / BLOCK;
+  const int grid = (r + NT - 1) / NT;
   if (grid > 0) {
-    megakernel<RECORD, RADIANCE>
-        <<<grid, BLOCK, smem_bytes, (cudaStream_t)stream>>>(
-            smem, pix, sample0, cam, table, n, r, t_min, out, rec);
+    kernel<<<grid, NT, bytes, (cudaStream_t)stream>>>(
+        smem, pix, sample0, cam, table, nodes, meta, n, k, r, t_min, out, rec);
   }
   return (int)cudaGetLastError();
 }
@@ -361,34 +476,51 @@ int launch(const int32_t* smem, const int32_t* pix, const int32_t* sample0,
 
 extern "C" {
 
-// Bytes of dynamic shared memory the kernel needs for an N-row table.
-int crucible_megakernel_smem_bytes(int n) {
-  return n * SMEM_COLS * (int)sizeof(float);
-}
+// Bytes of dynamic shared memory the kernel needs for an N-row table and
+// K sphere-BVH nodes (K = 0: the brute search).
+int crucible_megakernel_smem_bytes(int n, int k) { return smem_bytes(n, k); }
 
-// Launch the forward megakernel (K1) on `stream`; returns cudaGetLastError().
+// Launch the forward megakernel on `stream`: the brute search (K1) when
+// k == 0, else the walk over the K nodes (K5). Returns cudaGetLastError().
 int crucible_megakernel_forward(const int32_t* smem, const int32_t* pix,
                                 const int32_t* sample0, const float* cam,
-                                const float* table, int n, int r, float t_min,
-                                float* out, void* stream) {
-  return launch<false, true>(smem, pix, sample0, cam, table, n, r, t_min, out,
-                             nullptr, stream);
+                                const float* table, const float* nodes,
+                                const int32_t* meta, int n, int k, int r,
+                                float t_min, float* out, void* stream) {
+  if (k > 0) {
+    return launch<false, true, true>(smem, pix, sample0, cam, table, nodes,
+                                     meta, n, k, r, t_min, out, nullptr,
+                                     stream);
+  }
+  return launch<false, true, false>(smem, pix, sample0, cam, table, nullptr,
+                                    nullptr, n, 0, r, t_min, out, nullptr,
+                                    stream);
 }
 
-// Launch the record-mode megakernel (K2): `rec` (smem[3], R) int32 packed
+// Launch the record-mode megakernel: `rec` (smem[3], R) int32 packed
 // decision words; `out` (3, R) the fused radiance when `radiance` is nonzero,
-// else zeros. Returns cudaGetLastError().
+// else zeros. The brute search (K2) when k == 0, else the walk (K5).
+// Returns cudaGetLastError().
 int crucible_megakernel_record(const int32_t* smem, const int32_t* pix,
                                const int32_t* sample0, const float* cam,
-                               const float* table, int n, int r, float t_min,
-                               int radiance, float* out, int32_t* rec,
-                               void* stream) {
-  if (radiance) {
-    return launch<true, true>(smem, pix, sample0, cam, table, n, r, t_min, out,
-                              rec, stream);
+                               const float* table, const float* nodes,
+                               const int32_t* meta, int n, int k, int r,
+                               float t_min, int radiance, float* out,
+                               int32_t* rec, void* stream) {
+  if (k > 0) {
+    if (radiance) {
+      return launch<true, true, true>(smem, pix, sample0, cam, table, nodes,
+                                      meta, n, k, r, t_min, out, rec, stream);
+    }
+    return launch<true, false, true>(smem, pix, sample0, cam, table, nodes,
+                                     meta, n, k, r, t_min, out, rec, stream);
   }
-  return launch<true, false>(smem, pix, sample0, cam, table, n, r, t_min, out,
-                             rec, stream);
+  if (radiance) {
+    return launch<true, true, false>(smem, pix, sample0, cam, table, nullptr,
+                                     nullptr, n, 0, r, t_min, out, rec, stream);
+  }
+  return launch<true, false, false>(smem, pix, sample0, cam, table, nullptr,
+                                    nullptr, n, 0, r, t_min, out, rec, stream);
 }
 
 const char* crucible_cuda_error_string(int err) {

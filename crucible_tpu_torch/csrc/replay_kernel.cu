@@ -33,11 +33,15 @@
 // channels from shared memory in the reverse sweep. Its table cotangent is
 // deterministic, with no float atomics: within a warp, lanes with the same
 // winner are summed by their lowest lane in ascending lane order
-// (__match_any_sync + shuffles); the four warps then add their sums into a
-// per-block partial in shared memory one warp after another; each block
-// walks a fixed set of lane tiles (grid-stride over a fixed block count)
-// and writes its partial; reduce_partials sums the partials in block order.
-// Two launches on the same inputs therefore give the same bits.
+// (__match_any_sync + shuffles); the four warps then add their sums into
+// the block's own partial, one warp after another; each block walks a fixed
+// set of lane tiles (grid-stride over a fixed block count); reduce_partials
+// sums the partials in block order. Two launches on the same inputs
+// therefore give the same bits. The partial is the block's slice of the
+// `part` buffer in global memory (the block alone reads and writes it, and
+// its L1/L2 serve the read-modify-writes), so that shared memory holds only
+// the staged channels: 2048 rows (the JAX kernel's MAX_TABLE_ROWS) take
+// 188 KB of it.
 //
 // Numerics: the forward follows _bounce operation for operation, with the
 // eager twin in ops/kernels/replay_kernel.py rounding alike (build with
@@ -620,11 +624,11 @@ __global__ void __launch_bounds__(BLOCK) replay_backward(
     float* __restrict__ part,          // (gridDim.x, n * NU) block partials
     float* __restrict__ g_o,           // (R, 3) out
     float* __restrict__ g_d) {         // (R, 3) out
-  extern __shared__ float sh[];
-  float* s_tab = sh;           // (n, TS) winner channels
-  float* s_part = sh + n * TS; // (n, TS) this block's table cotangent
+  extern __shared__ float s_tab[];     // (n, TS) winner channels
   stage_table(table, n, s_tab);
-  for (int k = threadIdx.x; k < n * TS; k += blockDim.x) s_part[k] = 0.0f;
+  // This block's table cotangent (n, NU), read and written by it alone.
+  float* b_part = part + (size_t)blockIdx.x * n * NU;
+  for (int k = threadIdx.x; k < n * NU; k += blockDim.x) b_part[k] = 0.0f;
   __syncthreads();
 
   const int nthreads = gridDim.x * BLOCK;
@@ -711,10 +715,11 @@ __global__ void __launch_bounds__(BLOCK) replay_backward(
           if (wl == dst) gch[j] += v;
         }
       }
-      // Then the warps, one after another, into the block's partial.
+      // Then the warps, one after another, into the block's partial (the
+      // barrier orders the global writes within the block).
       for (int w = 0; w < NWARPS; ++w) {
         if (warp == w && contrib && wl == leader) {
-          float* p = s_part + dec.idx * TS;
+          float* p = b_part + (size_t)dec.idx * NU;
 #pragma unroll
           for (int j = 0; j < NU; ++j) p[j] += gch[j];
         }
@@ -730,11 +735,6 @@ __global__ void __launch_bounds__(BLOCK) replay_backward(
       g_d[b + 1] = g.dy;
       g_d[b + 2] = g.dz;
     }
-  }
-  __syncthreads();
-  float* out = part + (size_t)blockIdx.x * n * NU;
-  for (int k = threadIdx.x; k < n * NU; k += blockDim.x) {
-    out[k] = s_part[(k / NU) * TS + k % NU];
   }
 }
 
@@ -766,11 +766,9 @@ int set_smem(const void* kernel, int bytes) {
 
 extern "C" {
 
-// Bytes of dynamic shared memory for an N-row table: forward (backward=0)
-// or backward (backward=1).
-int crucible_replay_smem_bytes(int n, int backward) {
-  return (backward ? 2 : 1) * n * TS * (int)sizeof(float);
-}
+// Bytes of dynamic shared memory for an N-row table (forward and backward
+// stage the same channels).
+int crucible_replay_smem_bytes(int n) { return n * TS * (int)sizeof(float); }
 
 // Launch the replay forward (K4) on `stream`; returns cudaGetLastError().
 int crucible_replay_forward(const float* table, const float* o, const float* d,
@@ -778,7 +776,7 @@ int crucible_replay_forward(const float* table, const float* o, const float* d,
                             const int32_t* smp, const int32_t* rec, int n,
                             int r, int depth, int accum_from, int seed,
                             float* rad, void* stream) {
-  const int smem = crucible_replay_smem_bytes(n, 0);
+  const int smem = crucible_replay_smem_bytes(n);
   int e = set_smem((const void*)replay_forward, smem);
   if (e != 0) return e;
   const int grid = (r + BLOCK - 1) / BLOCK;
@@ -800,7 +798,7 @@ int crucible_replay_backward(const float* table, const float* o,
                              int r, int depth, int accum_from, int seed,
                              int grid, float* ck, float* part, float* g_table,
                              float* g_o, float* g_d, void* stream) {
-  const int smem = crucible_replay_smem_bytes(n, 1);
+  const int smem = crucible_replay_smem_bytes(n);
   int e = set_smem((const void*)replay_backward, smem);
   if (e != 0) return e;
   if (grid > 0) {

@@ -1,5 +1,6 @@
-"""Demo scenes (port of the sphere scenes of ``crucible_tpu/models/demo.py``,
-and the garden under its procedural HDR sky).
+"""Demo scenes (port of the sphere scenes of ``crucible_tpu/models/demo.py``
+— book1, its tiled stress scene, the checkered and smoke scenes — and the
+garden under its procedural HDR sky).
 
 Scene generation takes an explicit seed and draws from numpy in the same
 order as the JAX package, so both packages build identical tables.
@@ -89,6 +90,44 @@ def checkered_spheres(width: int = 400) -> Scene:
     mat = Lambertian.from_texture(_CHECKER_GROUND)
     sc.add_element(Sphere((0.0, -10.0, 0.0), 10.0, mat), "bottom_sphere")
     sc.add_element(Sphere((0.0, 10.0, 0.0), 10.0, mat), "top_sphere")
+    return sc
+
+
+def sphere_stress(width: int = 400, copies: int = 4, seed: int = 7) -> Scene:
+    """book1's random-sphere field tiled ``copies`` times across a grid —
+    the multi-tile sphere-table stress scene. Each extra copy is a fresh
+    22x22 random field offset by a 23-unit grid cell (nearest cells first),
+    so N ~ 484 * copies rows, most of them far from most rays. Camera and
+    quality settings are book1's."""
+    sc = book1_end_scene(width=width, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    counter = 0
+    side = int(np.ceil(np.sqrt(max(copies - 1, 0))))
+    offsets = []
+    for gx in range(-side, side + 1):
+        for gz in range(-side, side + 1):
+            if (gx, gz) != (0, 0):
+                offsets.append((gx * 23.0, gz * 23.0))
+    offsets.sort(key=lambda o: abs(o[0]) + abs(o[1]))
+    for dx, dz in offsets[: max(copies - 1, 0)]:
+        for a in range(-11, 11):
+            for b in range(-11, 11):
+                choose_mat = rng.random()
+                center = (
+                    dx + a + 0.9 * rng.random(),
+                    0.2,
+                    dz + b + 0.9 * rng.random(),
+                )
+                if choose_mat < 0.8:
+                    material = Lambertian.from_color(tuple(rng.random(3) * rng.random(3)))
+                elif choose_mat < 0.95:
+                    material = Metal(
+                        tuple(rng.uniform(0.5, 1.0, 3)), float(rng.uniform(0.0, 0.5))
+                    )
+                else:
+                    material = Dielectric(1.5)
+                sc.add_element(Sphere(center, 0.2, material), f"stress{counter}")
+                counter += 1
     return sc
 
 

@@ -9,9 +9,10 @@ Port of ``crucible_tpu/models/integrator.py`` for static sphere scenes:
   that the direct-AD gradient runs) and :func:`render_rays`;
 - the ``pixel`` schedule :func:`trace_persistent`, whose fused bounce
   :func:`bounce_step_fused` takes the winner's attributes from K9;
-- the ``mega`` schedule :func:`trace_persistent_mega` (K1) with its inputs
-  (the (N, 32) sphere attribute table, the camera vector) and the
-  megakernel predicates.
+- the ``mega`` schedule :func:`trace_persistent_mega` (K1, or K5 walking
+  the sphere BVH of a big scene) with its inputs (the (N, 32) sphere
+  attribute table, permuted into BVH leaf order for the walk; the camera
+  vector) and the megakernel predicates.
 
 Triangles, moving spheres and exact-time motion raise
 ``NotImplementedError``. The radiance recursion of the original renderer
@@ -244,20 +245,32 @@ def megakernel_unsupported_reason(sd: SceneData, cp: CameraParams):
 def megakernel_record_supported(sd: SceneData, cp: CameraParams) -> bool:
     """The port's subset of the JAX record-mode predicate: sphere-only
     static scenes seen by a static camera, with at most ``mk.MAX_ROWS`` table
-    rows. The record's decisions read no albedo or sky, so textures and the
-    sky do not limit it."""
+    rows or with the sphere-BVH tables (``sd.sph_perm``) that the walk
+    takes instead. The record's decisions read no albedo or sky, so
+    textures and the sky do not limit it."""
     return megakernel_record_unsupported_reason(sd, cp) is None
 
 
 def megakernel_record_unsupported_reason(sd: SceneData, cp: CameraParams):
     """None if the record megakernel takes this scene, else what it lacks."""
+    rows_ok = int(sd.sph_center.shape[0]) <= mk.MAX_ROWS or sd.sph_perm is not None
     checks = (
         (sd.num_tris == 0, "triangle meshes"),
         (not sd.animated and not sd.motion_exact, "moving spheres"),
         (not cp.animated and not cp.motion_exact, "animated cameras"),
-        (int(sd.sph_center.shape[0]) <= mk.MAX_ROWS, f"more than {mk.MAX_ROWS} sphere rows"),
+        (rows_ok, f"more than {mk.MAX_ROWS} sphere rows without the sphere-BVH tables"),
     )
     return next((what for ok, what in checks if not ok), None)
+
+
+def permute_table(table: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """The sphere table in BVH leaf order: zero rows appended up to
+    len(perm) (the ids >= N that ``perm`` ends with), then rows taken in
+    ``perm`` order. Column 31 keeps each row's original id."""
+    n_pad = perm.shape[0]
+    if n_pad > table.shape[0]:
+        table = torch.nn.functional.pad(table, (0, 0, 0, n_pad - table.shape[0]))
+    return torch.index_select(table, 0, perm.long()).contiguous()
 
 
 def mega_cam_vector(cp: CameraParams, width: int, height: int) -> torch.Tensor:
@@ -352,16 +365,32 @@ def trace_persistent_mega(
     spp: int,
     max_depth: int,
     seed: int,
+    cluster_perm=None,
+    sphere_nodes=None,
+    sphere_meta=None,
 ) -> torch.Tensor:
     """Whole render in one megakernel call -> per-pixel radiance SUM
     (width*height, 3) over samples 0..spp-1.
 
-    Every random number is pcg4d(pixel, sample, stream, seed), so the
-    per-pixel sums do not depend on the lane order (see :func:`mega_inputs`).
+    ``cluster_perm`` (N_pad,) int32, ``sphere_nodes`` (K, 16) float32 and
+    ``sphere_meta`` (3 * (K + 16),) int32 are ``mk.sphere_bvh_tables``'
+    outputs: the table is then padded and permuted into BVH leaf order and
+    the kernel walks the BVH (K5); without them it tests every row (K1).
+    The sums are the same, bit for bit. Every random number is
+    pcg4d(pixel, sample, stream, seed), so the per-pixel sums do not depend
+    on the lane order (see :func:`mega_inputs`).
     """
+    if (cluster_perm is None) != (sphere_nodes is None):
+        raise ValueError(
+            "cluster_perm and sphere_nodes go together (the chunk-cull branch, "
+            "which permutes without a BVH, is not ported)"
+        )
     inputs, lane_of = mega_inputs(sd, cp, width, height, spp, max_depth, seed)
+    if cluster_perm is not None:
+        inputs["table"] = permute_table(inputs["table"], cluster_perm)
     acc = mk.run_megakernel(
-        **inputs, animated=bool(sd.animated), cam_animated=bool(cp.animated)
+        **inputs, sph_nodes=sphere_nodes, sph_meta=sphere_meta,
+        animated=bool(sd.animated), cam_animated=bool(cp.animated),
     )
     return acc.t()[lane_of]
 

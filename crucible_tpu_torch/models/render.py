@@ -4,7 +4,9 @@ Port of the still-image path of ``crucible_tpu/models/render.py``:
 ``render_image`` -> ``render_image_data`` -> ``render_image_persistent``,
 which runs one of two schedules:
 
-- ``mega``: ``integrator.trace_persistent_mega``, the megakernel (K1);
+- ``mega``: ``integrator.trace_persistent_mega``, the megakernel: the
+  brute search (K1), or above ``CULL_MIN_ROWS`` rows the sphere-BVH walk
+  (K5);
 - ``pixel``: ``integrator.trace_persistent``, the staged persistent
   wavefront, with the fused hit + fetch kernel (K9) per bounce.
 
@@ -22,11 +24,13 @@ import torch
 from crucible_tpu_torch.models import integrator
 from crucible_tpu_torch.models.camera import CameraParams
 from crucible_tpu_torch.models.scene import Scene, SceneData
+from crucible_tpu_torch.ops.kernels import megakernel as mk
 from crucible_tpu_torch.utils import color as color_mod
 
-# Above this sphere-table row count the JAX package walks a per-lane sphere
-# BVH instead of the brute loop (its CULL_MIN_ROWS); the port has only the
-# brute megakernel, so the mega schedule refuses bigger scenes.
+# Above this sphere-table row count the mega schedule walks a per-lane
+# sphere BVH (K5) instead of testing every row (K1), as the JAX package
+# does. The crossover is the JAX package's, measured on a TPU; this card's
+# is not measured yet.
 CULL_MIN_ROWS = 1024
 
 # Target lane counts of the pixel schedule (sample groups replicate small
@@ -55,6 +59,7 @@ def render_image_persistent(
     *,
     device="cuda",
     schedule: str = "auto",
+    cull: bool | None = None,
 ) -> torch.Tensor:
     """Whole-image render in one schedule -> linear radiance (height,
     width, 3) float32 on ``device``.
@@ -66,8 +71,25 @@ def render_image_persistent(
     ``integrator.fused_supported`` does). The 'record' and 'queue'
     schedules are not ported and raise ``NotImplementedError``. The pixel
     schedule's target lane count is ``LANES_CUDA`` on a card, ``LANES_CPU``
-    elsewhere."""
+    elsewhere.
+
+    ``cull``: whether the mega schedule walks the sphere BVH (K5) instead
+    of testing every row (K1); None takes the walk for 'auto' / 'mega'
+    above ``CULL_MIN_ROWS`` rows. The image is the same bit for bit. The
+    walk uses the scene's ``sph_perm`` / ``sph_nodes`` / ``sph_meta`` and
+    raises ``ValueError`` on a scene without them; so does ``cull=False``
+    above the brute kernel's ``mk.MAX_ROWS``. The walk over an animated
+    scene needs the chunk-cull branch and raises ``NotImplementedError``."""
     _check_device(sd, cp, device)
+    rows = int(sd.sph_center.shape[0])
+    if cull is None:
+        cull = schedule in ("auto", "mega") and rows > CULL_MIN_ROWS
+    if not cull and rows > mk.MAX_ROWS and schedule in ("auto", "mega"):
+        raise ValueError(
+            f"the brute megakernel cannot take {rows} sphere rows (its shared "
+            f"memory holds {mk.MAX_ROWS}); pass cull=True (the sphere-BVH walk) "
+            f"or schedule='pixel'"
+        )
     if schedule == "auto":
         if integrator.megakernel_supported(sd, cp):
             schedule = "mega"
@@ -88,21 +110,30 @@ def render_image_persistent(
         raise NotImplementedError(
             f"the {schedule!r} schedule is not ported to crucible_tpu_torch yet"
         )
+    if cull and sd.animated:
+        raise NotImplementedError(
+            "big animated sphere scenes need the megakernel's chunk-cull branch "
+            "(cluster_spheres over motion-swept boxes), which is not ported to "
+            "crucible_tpu_torch yet"
+        )
     missing = integrator.megakernel_unsupported_reason(sd, cp)
     if missing is not None:
         raise NotImplementedError(
             f"this scene needs {missing}, which crucible_tpu_torch's "
             f"megakernel does not render yet"
         )
-    rows = int(sd.sph_center.shape[0])
-    if rows > CULL_MIN_ROWS:
-        raise NotImplementedError(
-            f"{rows} sphere rows need the sphere-BVH megakernel branch, which "
-            f"is not ported to crucible_tpu_torch yet (brute limit "
-            f"{CULL_MIN_ROWS})"
-        )
+    struct = {}
+    if cull:
+        if sd.sph_perm is None:
+            raise ValueError(
+                "cull=True needs the scene's sphere-BVH tables (sph_perm, "
+                "sph_nodes, sph_meta), which Scene.build makes for a static "
+                f"scene above {CULL_MIN_ROWS} rows with an active sphere"
+            )
+        struct = dict(cluster_perm=sd.sph_perm, sphere_nodes=sd.sph_nodes,
+                      sphere_meta=sd.sph_meta)
     fb = integrator.trace_persistent_mega(
-        sd, cp, width, height, samples, max_depth, seed
+        sd, cp, width, height, samples, max_depth, seed, **struct
     )
     return fb.reshape(height, width, 3) / samples
 

@@ -3,7 +3,8 @@
 Port of the unsplit part of ``crucible_tpu/models/replay.py``:
 
 1. :func:`trace_record_mega` — the fast, non-differentiable forward: the
-   record-mode megakernel (K2) traces one (pixel, sample) path per lane and
+   record-mode megakernel (K2; K5, the sphere-BVH walk, on scenes with
+   ``sd.sph_perm``) traces one (pixel, sample) path per lane and
    stores, per bounce, one packed int32 word: the winner's id and the
    discrete outcomes (alive / hit / scattered / front / reflect /
    degenerate / far root). With ``radiance=True`` the same loop also sums
@@ -16,9 +17,9 @@ Port of the unsplit part of ``crucible_tpu/models/replay.py``:
 carry no gradient, so the gradient is the replay's detached-sampling
 estimator. Not ported yet (each raises ``NotImplementedError``): the staged
 record (``trace_record`` over ``integrator.bounce_step``), the jnp replay
-for scenes outside the replay kernels (the spherical sky among them), and
-the lane-narrowed replays of deep budgets (``record_two_level`` /
-``replay_bucketed_2l``).
+for scenes outside the replay kernels (the spherical sky, tables above 2048
+rows), and the lane-narrowed replays of deep budgets (``record_two_level``
+/ ``replay_bucketed_2l``).
 """
 
 from __future__ import annotations
@@ -91,13 +92,16 @@ def trace_record_mega(
     radiance: bool = False,
     accum_from: int = 0,
 ):
-    """Record pass through the megakernel in record mode (K2).
+    """Record pass through the megakernel in record mode (K2; K5 where the
+    scene has the sphere-BVH tables, ``sd.sph_perm``).
 
     One lane per (pixel, sample) path; the kernel regenerates the primary
     rays from the pcg4d streams. Sample id ``2**30`` marks a padding lane,
     which never issues. Returns packed records (max_depth, R) int32; with
     ``radiance=True`` returns (rec, rad (R, 3)), the paths' radiance from
-    bounce ``accum_from`` on, summed by the same loop.
+    bounce ``accum_from`` on, summed by the same loop. The walk runs over
+    the table permuted by ``sd.sph_perm`` and records the winners'
+    original ids, so the records are the brute kernel's, bit for bit.
     """
     _check_record_capacity(sd)
     missing = integrator.megakernel_record_unsupported_reason(sd, cp)
@@ -117,12 +121,17 @@ def trace_record_mega(
             dtype=torch.int32,
             device=dev,
         )
+        table = integrator.make_sphere_table(sd).contiguous()
+        if sd.sph_perm is not None:
+            table = integrator.permute_table(table, sd.sph_perm)
         acc, rec = mk.run_megakernel_record(
             smem,
             lanes(pixel_ids),
             lanes(sample_ids),
             integrator.mega_cam_vector(cp, width, height),
-            integrator.make_sphere_table(sd).contiguous(),
+            table,
+            sph_nodes=sd.sph_nodes,
+            sph_meta=sd.sph_meta,
             max_depth=int(max_depth),
             radiance=radiance,
         )

@@ -5,8 +5,9 @@ keeps the original surface (aliased elements via an id vendor, show/hide)
 and ``Scene.build`` lowers the element list into flat arrays with numpy,
 exactly as the JAX package does, converting to tensors on the requested
 device only at the end. The spherical (equirect) sky loads from a ``.hdr``
-asset. Triangles, OBJ assets, image textures, timelines and the
-sphere-structure tables of big scenes raise ``NotImplementedError``.
+asset. Scenes above ``render.CULL_MIN_ROWS`` sphere rows also get the
+sphere-BVH tables of the megakernel's walk. Triangles, OBJ assets, image
+textures and timelines raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -180,9 +181,9 @@ class SceneData:
     """Flat SoA sphere scene: tensors on one device + static metadata.
 
     Field names and layouts are those of the JAX package's ``SceneData``;
-    the triangle, BVH, motion and structure fields are absent because the
-    port does not render them yet (``num_tris``, ``animated`` and
-    ``motion_exact`` still say whether a bridged scene needs them).
+    the triangle, triangle-BVH, motion and cluster-cull fields are absent
+    because the port does not render them yet (``num_tris``, ``animated``
+    and ``motion_exact`` still say whether a bridged scene needs them).
     ``sky_image`` is None under the default sky (where the JAX package keeps
     a (1, 1, 3) placeholder).
     """
@@ -209,6 +210,13 @@ class SceneData:
     num_tris: int = 0
     animated: bool = False
     motion_exact: bool = False
+
+    # Sphere-BVH tables of the megakernel's walk (megakernel.sphere_bvh_tables),
+    # built for static scenes above render.CULL_MIN_ROWS rows with an active
+    # sphere, else None. The permuted table's column 31 keeps original ids.
+    sph_perm: Optional[torch.Tensor] = None  # (N_pad,) int32 permutation
+    sph_nodes: Optional[torch.Tensor] = None  # (K, 16) float32 node boxes
+    sph_meta: Optional[torch.Tensor] = None  # (3 * (K + 16),) int32 metadata
 
 
 def _pad_to(n: int, mult: int) -> int:
@@ -409,14 +417,6 @@ class Scene:
         spheres = self.elements
         n = len(spheres)
         n_pad = _pad_to(n, SPHERE_PAD)
-
-        from crucible_tpu_torch.models.render import CULL_MIN_ROWS
-
-        if n_pad > CULL_MIN_ROWS:
-            raise _unported(
-                f"the sphere-structure tables for scenes above {CULL_MIN_ROWS} "
-                f"sphere rows ({n_pad} here)"
-            )
         sph_center = np.zeros((n_pad, 3), np.float32)
         sph_radius = np.ones((n_pad,), np.float32)
         sph_mat = np.zeros((n_pad,), np.int32)
@@ -427,12 +427,23 @@ class Scene:
             sph_mat[k] = tables.material(s.material)
             sph_active[k] = not s.hide
 
+        def t(a, dtype):
+            return torch.as_tensor(np.asarray(a, dtype), device=device)
+
+        # Sphere-BVH tables for the megakernel's walk, past the brute
+        # search's crossover (every scene built here is static).
+        from crucible_tpu_torch.models.render import CULL_MIN_ROWS
+        from crucible_tpu_torch.ops.kernels import megakernel as mk
+
+        sph_struct = {}
+        if n_pad > CULL_MIN_ROWS and bool(sph_active.any()):
+            perm_s, snodes, smeta = mk.sphere_bvh_tables(sph_center, sph_radius, sph_active)
+            sph_struct = dict(sph_perm=t(perm_s, np.int32), sph_nodes=t(snodes, np.float32),
+                              sph_meta=t(smeta, np.int32))
+
         if not tables.mat_rows:  # empty scene still needs one material row
             tables.material(Lambertian.from_color((0.5, 0.5, 0.5)))
         mat_rows = tables.mat_rows
-
-        def t(a, dtype):
-            return torch.as_tensor(np.asarray(a, dtype), device=device)
 
         sd = SceneData(
             sph_center=t(sph_center, np.float32),
@@ -449,6 +460,7 @@ class Scene:
             sky_image=None if self.sky_image is None else t(self.sky_image, np.float32),
             sky_kind=self.sky_kind,
             num_spheres=n,
+            **sph_struct,
         )
         self._cache = sd
         self._cache_key = device

@@ -1,25 +1,34 @@
 """Persistent path-tracing megakernel for sphere scenes: forward and record.
 
-Port of ``crucible_tpu/ops/pallas/megakernel.py`` for its brute-sphere,
-static-camera, non-animated branch, in both modes:
+Port of ``crucible_tpu/ops/pallas/megakernel.py`` for its static-camera,
+non-animated sphere branches — the brute search over every table row (K1,
+K2) and the per-lane sphere-BVH walk of big scenes (K5) — in both modes:
 
-- :func:`run_megakernel` (K1, forward): given the lanes' pixel ids and
-  first samples, the camera vector and the (N, 32) sphere table, it traces
-  every lane's samples ``sample0..spp-1`` to the end and returns the
-  per-lane radiance sums (3, R).
-- :func:`run_megakernel_record` (K2, record): each lane traces its one
+- :func:`run_megakernel` (forward): given the lanes' pixel ids and first
+  samples, the camera vector and the (N, 32) sphere table, it traces every
+  lane's samples ``sample0..spp-1`` to the end and returns the per-lane
+  radiance sums (3, R).
+- :func:`run_megakernel_record` (record): each lane traces its one
   (pixel, sample0) path and returns its packed decision words (D, R) int32
   (``models/replay.py`` layout) and, in the fused mode, that path's
   radiance (3, R).
+
+With ``sph_nodes`` / ``sph_meta`` (:func:`sphere_bvh_tables`) the table is
+the BVH-permuted one and the closest hit walks the BVH instead of testing
+every row; the result is the brute search's, bit for bit (see
+:func:`walk_closest_reference`), and records carry the original row ids
+(column 31 of the permuted row).
 
 For CUDA tensors each wrapper launches the hand-written kernel of
 ``csrc/megakernel.cu`` (one thread per lane; see the note there) or raises;
 for CPU tensors it runs its eager twin (:func:`run_megakernel_reference`,
 :func:`run_megakernel_record_reference`): all lanes in lockstep with
 per-lane sample regeneration, as the TPU kernel runs them, the brute
-(lanes x N) quadratic in lane chunks, and shading from the ported
-materials / textures / skybox / sampling code. ``LAUNCHES`` and
-``LAUNCHES_RECORD`` count kernel launches (not twin calls).
+(lanes x N) quadratic in lane chunks or the lockstep walk, and shading from
+the ported materials / textures / skybox / sampling code. ``LAUNCHES``,
+``LAUNCHES_RECORD`` (brute) and ``LAUNCHES_WALK``, ``LAUNCHES_RECORD_WALK``
+(the walk) count kernel launches (not twin calls); ``WALK_COUNTS`` counts
+the plain walk's work.
 
 Layouts: ``smem`` (8,) int32 ``[spp, seed, width, max_depth, accum_from,
 0...]`` (spp and seed are uint32 bit patterns; accum_from is read in record
@@ -33,11 +42,13 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from crucible_tpu_torch.models import materials as mat_mod
 from crucible_tpu_torch.models import skybox as sky_mod
 from crucible_tpu_torch.models import textures as tex_mod
+from crucible_tpu_torch.ops import bvh as bvh_mod
 from crucible_tpu_torch.ops import sampling
 from crucible_tpu_torch.ops.kernels import build, sphere_hit
 from crucible_tpu_torch.ops.kernels.sphere_hit import BIG, T_MIN  # noqa: F401
@@ -76,10 +87,33 @@ F_REFL = 32  # dielectric chose reflection over refraction
 F_DEGEN = 64  # Lambertian scatter direction was degenerate
 F_ROOT1 = 128  # sphere hit used the far quadratic root
 
+# Sphere-BVH tables (the JAX package's constants): rows per permutation
+# block, spheres per leaf, and the guard rows of ``sph_meta``.
+CLUSTER = 256
+SPH_LEAF = 128
+NODE_WIN = 16
+
+# The walk's slab test runs against each node box grown by SLAB_EPS * (1 +
+# the box's largest |coordinate| + the ray origin's largest |coordinate|).
+# The expanded quadratic's root puts a hit point up to ~1.7e-3 (|c| + |o|)
+# off its sphere (an error of a few ulps of |c|^2 and |o|^2 in c_q, fault
+# C6), and a box that missed such a point would skip a row that the brute
+# search takes; 4e-3 covers that bound more than twice.
+SLAB_EPS = float(np.float32(4e-3))
+# The walk stages the node boxes (6 float32) and [first, count, miss]
+# (3 int32) beside the five search columns.
+NODE_BYTES = 9 * 4
+
 # Launches of the CUDA kernels since the last reset (twin calls excluded):
-# K1 (forward) and K2 (record).
+# K1 (forward) and K2 (record) over every row, K5 walking the sphere BVH
+# (forward and record).
 LAUNCHES = 0
 LAUNCHES_RECORD = 0
+LAUNCHES_WALK = 0
+LAUNCHES_RECORD_WALK = 0
+# The plain walk's work since the last reset: slab tests of a node, rows
+# of a leaf tested, and rows whose discriminant was not negative.
+WALK_COUNTS = {"nodes": 0, "rows": 0, "roots": 0}
 
 
 def as_i32(v: int) -> int:
@@ -92,6 +126,64 @@ def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"the megakernel's {what} branch is not ported to crucible_tpu_torch yet"
     )
+
+
+def sphere_bvh_tables(center, radius, active, leaf_size=None):
+    """Host-side per-lane sphere BVH over the active spheres' boxes (SAH,
+    ``leaf_size`` spheres a leaf, default ``SPH_LEAF``) -> (perm, snodes,
+    smeta), in the JAX package's layout:
+
+    - ``perm`` (N_pad,) int32: active spheres in leaf order, then the
+      inactive ones, then ids >= N that address zero rows the caller
+      appends; N_pad = ceil(N / CLUSTER) * CLUSTER + CLUSTER;
+    - ``snodes`` (K, 16) float32: node box min (0-2) and max (3-5);
+    - ``smeta`` (3 * (K + NODE_WIN),) int32: [first, count, miss] per node
+      (first indexes the permuted table), then NODE_WIN guard rows [0, 0, K].
+    """
+    if leaf_size is None:
+        leaf_size = SPH_LEAF
+    center = np.asarray(center, np.float64)
+    radius = np.abs(np.asarray(radius, np.float64))
+    active = np.asarray(active).astype(bool)
+    n = center.shape[0]
+    ids = np.nonzero(active)[0]
+    if ids.size == 0:
+        raise ValueError("a sphere BVH needs at least one active sphere")
+    bbmin = (center[ids] - radius[ids, None]).astype(np.float32)
+    bbmax = (center[ids] + radius[ids, None]).astype(np.float32)
+    fb = bvh_mod.build_bvh(bbmin, bbmax, leaf_size=leaf_size, method="sah")
+    inact = np.nonzero(~active)[0]
+    assert leaf_size <= CLUSTER
+    n_pad = ((n + CLUSTER - 1) // CLUSTER) * CLUSTER + CLUSTER
+    perm = np.concatenate([ids[fb.perm], inact, np.arange(n, n_pad)]).astype(np.int32)
+    assert perm.shape[0] == n_pad
+    k = fb.num_nodes
+    snodes = np.zeros((k, 16), np.float32)
+    snodes[:, 0:3] = fb.node_min
+    snodes[:, 3:6] = fb.node_max
+    meta = np.stack([fb.node_first, fb.node_count, fb.node_miss], axis=1).astype(np.int32)
+    guard = np.broadcast_to(np.asarray([0, 0, k], np.int32), (NODE_WIN, 3))
+    smeta = np.concatenate([meta, guard]).reshape(-1)
+    return perm, snodes, smeta
+
+
+def walk_inputs(sph_nodes, sph_meta):
+    """What the walk reads from the sphere-BVH tables -> (nodes (K, 6)
+    float32, each box grown by SLAB_EPS * (1 + its largest |coordinate|),
+    the per-ray part of the margin being added in the walk; meta (K, 3)
+    int32 [first, count, miss]). The guard rows of ``sph_meta`` are not
+    read."""
+    if sph_nodes is None or sph_meta is None:
+        raise ValueError("the sphere-BVH walk needs both sph_nodes and sph_meta")
+    k = sph_nodes.shape[0] if sph_nodes.dim() == 2 else -1
+    build.check_tensors(sph_nodes.device, (
+        ("sph_nodes", sph_nodes, torch.float32, (k, 16)),
+        ("sph_meta", sph_meta, torch.int32, (3 * (k + NODE_WIN),)),
+    ))
+    lo, hi = sph_nodes[:, 0:3], sph_nodes[:, 3:6]
+    pad = SLAB_EPS * (1.0 + torch.maximum(lo.abs(), hi.abs()).amax(dim=1, keepdim=True))
+    nodes = torch.cat([lo - pad, hi + pad], dim=1).contiguous()
+    return nodes, sph_meta[: 3 * k].reshape(k, 3).contiguous()
 
 
 def run_megakernel(
@@ -113,24 +205,45 @@ def run_megakernel(
 ):
     """Dispatch the persistent megakernel -> per-lane radiance sums (3, R).
 
-    CUDA tensors launch the CUDA kernel; CPU tensors run the eager
-    reference. The chunk-cull, sphere-BVH, triangle and animation branches
-    of the TPU kernel raise ``NotImplementedError``.
+    With ``sph_nodes`` / ``sph_meta`` the closest hit walks the sphere BVH
+    over the permuted ``table`` (K5), else it tests every row (K1). CUDA
+    tensors launch the CUDA kernel; CPU tensors run the eager reference.
+    The chunk-cull, triangle and animation branches of the TPU kernel raise
+    ``NotImplementedError``.
     """
+    _check_unported(cbounds, (tri_nodes, tris, mats, tri_meta), animated, cam_animated)
+    _check_inputs(smem, pix, sample0, cam, table)
+    if table.device.type == "cpu":
+        return run_megakernel_reference(smem, pix, sample0, cam, table, sph_nodes, sph_meta)
+    return _launch(smem, pix, sample0, cam, table, _walk(sph_nodes, sph_meta, table))
+
+
+def _check_unported(cbounds, tri_inputs, animated=False, cam_animated=False):
     if cbounds is not None:
         raise _unported("chunk-cull")
-    if sph_nodes is not None or sph_meta is not None:
-        raise _unported("sphere-BVH")
-    if any(x is not None for x in (tri_nodes, tris, mats, tri_meta)):
+    if any(x is not None for x in tri_inputs):
         raise _unported("triangle-BVH")
     if animated:
         raise _unported("animated-sphere")
     if cam_animated:
         raise _unported("animated-camera")
-    _check_inputs(smem, pix, sample0, cam, table)
-    if table.device.type == "cpu":
-        return run_megakernel_reference(smem, pix, sample0, cam, table)
-    return _launch(smem, pix, sample0, cam, table)
+
+
+def _walk(sph_nodes, sph_meta, table):
+    """:func:`walk_inputs`, checked against the table, or None without a
+    sphere BVH."""
+    if sph_nodes is None and sph_meta is None:
+        return None
+    nodes, meta = walk_inputs(sph_nodes, sph_meta)
+    if nodes.device != table.device:
+        raise ValueError(f"sph_nodes is on {nodes.device}, not {table.device}")
+    first, count, miss = meta[:, 0], meta[:, 1], meta[:, 2]
+    ahead = torch.arange(1, meta.shape[0] + 1, device=meta.device)
+    if not bool(((first >= 0) & (count >= 0) & (first + count <= table.shape[0])).all()):
+        raise ValueError("sph_meta addresses rows outside the table")
+    if not bool((miss >= ahead).all()):  # the walk only moves forward
+        raise ValueError("sph_meta has a skip link that does not point past its node")
+    return nodes, meta
 
 
 def _check_inputs(smem, pix, sample0, cam, table):
@@ -150,84 +263,137 @@ def _check_inputs(smem, pix, sample0, cam, table):
         raise ValueError(f"table must be (N, {C_IN}), got {tuple(table.shape)}")
 
 
-def _check_rows(n: int) -> None:
-    if n > MAX_ROWS:
+def _check_rows(n: int, walk) -> None:
+    """Raise where the kernel's shared memory cannot hold what it stages."""
+    if walk is None:
+        if n > MAX_ROWS:
+            raise ValueError(
+                f"{n} sphere rows exceed the {MAX_ROWS} rows whose intersection "
+                f"columns fit in a block's {SHARED_MEM_BYTES} bytes of shared "
+                f"memory; bigger scenes need the sphere-BVH walk"
+            )
+        return
+    need = n * SMEM_COLS * 4 + walk[0].shape[0] * NODE_BYTES
+    if need > SHARED_MEM_BYTES:
         raise ValueError(
-            f"{n} sphere rows exceed the {MAX_ROWS} rows whose intersection "
-            f"columns fit in a block's {SHARED_MEM_BYTES} bytes of shared "
-            f"memory; bigger scenes need the sphere-BVH kernel"
+            f"the sphere-BVH walk stages {n} permuted rows and "
+            f"{walk[0].shape[0]} nodes, {need} bytes, more than a block's "
+            f"{SHARED_MEM_BYTES} bytes of shared memory; leaves read from "
+            f"global memory are not ported yet"
         )
 
 
-def _launch(smem, pix, sample0, cam, table):
-    global LAUNCHES
+def _walk_args(walk):
+    """(nodes pointer, meta pointer, node count) for the C entry points."""
+    if walk is None:
+        return None, None, 0
+    return walk[0].data_ptr(), walk[1].data_ptr(), walk[0].shape[0]
+
+
+def _launch(smem, pix, sample0, cam, table, walk):
+    global LAUNCHES, LAUNCHES_WALK
     n = table.shape[0]
-    _check_rows(n)
+    _check_rows(n, walk)
     lib = build.load("megakernel")
     r = pix.shape[1]
     out = torch.empty((3, r), dtype=torch.float32, device=table.device)
+    nodes, meta, k = _walk_args(walk)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.crucible_megakernel_forward(
             smem.data_ptr(), pix.data_ptr(), sample0.data_ptr(),
-            cam.data_ptr(), table.data_ptr(), n, r,
+            cam.data_ptr(), table.data_ptr(), nodes, meta, n, k, r,
             ctypes.c_float(T_MIN), out.data_ptr(), stream,
         )
     build.check(lib, err, "megakernel")
-    LAUNCHES += 1
+    if walk is None:
+        LAUNCHES += 1
+    else:
+        LAUNCHES_WALK += 1
     return out
 
 
-def run_megakernel_record(smem, pix, sample0, cam, table, *, max_depth: int, radiance: bool = False):
-    """Record-mode megakernel (K2) -> (acc (3, R) float32, rec (max_depth, R) int32).
+def run_megakernel_record(
+    smem,
+    pix,
+    sample0,
+    cam,
+    table,
+    tri_nodes=None,
+    tris=None,
+    mats=None,
+    tri_meta=None,
+    cbounds=None,
+    sph_nodes=None,
+    sph_meta=None,
+    *,
+    max_depth: int,
+    radiance: bool = False,
+):
+    """Record-mode megakernel -> (acc (3, R) float32, rec (max_depth, R) int32).
 
     Each lane traces the one path (pixel, sample0); row ``it`` of ``rec`` is
     its packed decision word at bounce ``it`` (zero after the path ends).
     ``acc`` is that path's radiance from bounce ``smem[4]`` on when
     ``radiance`` (the fused mode), else zeros; the records are the same in
     both modes. ``smem[3]`` is overridden by ``max_depth``, which sizes the
-    records. CUDA tensors launch the kernel; CPU tensors run the twin.
+    records. With ``sph_nodes`` / ``sph_meta`` the closest hit walks the
+    sphere BVH over the permuted ``table`` (K5) and the records hold the
+    winners' original ids; else it tests every row (K2). CUDA tensors
+    launch the kernel; CPU tensors run the twin. The triangle and
+    chunk-cull inputs raise ``NotImplementedError``.
     """
+    _check_unported(cbounds, (tri_nodes, tris, mats, tri_meta))
     _check_inputs(smem, pix, sample0, cam, table)
     if max_depth < 1:
         raise ValueError(f"max_depth must be positive, got {max_depth}")
     if table.device.type == "cpu":
         return run_megakernel_record_reference(
-            smem, pix, sample0, cam, table, max_depth=max_depth, radiance=radiance
+            smem, pix, sample0, cam, table, sph_nodes, sph_meta,
+            max_depth=max_depth, radiance=radiance,
         )
     smem = smem.clone()
     smem[3] = int(max_depth)
-    return _launch_record(smem, pix, sample0, cam, table, max_depth, radiance)
+    return _launch_record(smem, pix, sample0, cam, table, max_depth, radiance,
+                          _walk(sph_nodes, sph_meta, table))
 
 
-def _launch_record(smem, pix, sample0, cam, table, max_depth, radiance):
-    global LAUNCHES_RECORD
+def _launch_record(smem, pix, sample0, cam, table, max_depth, radiance, walk):
+    global LAUNCHES_RECORD, LAUNCHES_RECORD_WALK
     n = table.shape[0]
-    _check_rows(n)
+    _check_rows(n, walk)
     lib = build.load("megakernel")
     r = pix.shape[1]
     acc = torch.empty((3, r), dtype=torch.float32, device=table.device)
     rec = torch.empty((max_depth, r), dtype=torch.int32, device=table.device)
+    nodes, meta, k = _walk_args(walk)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.crucible_megakernel_record(
             smem.data_ptr(), pix.data_ptr(), sample0.data_ptr(),
-            cam.data_ptr(), table.data_ptr(), n, r,
+            cam.data_ptr(), table.data_ptr(), nodes, meta, n, k, r,
             ctypes.c_float(T_MIN), int(bool(radiance)),
             acc.data_ptr(), rec.data_ptr(), stream,
         )
     build.check(lib, err, "record megakernel")
-    LAUNCHES_RECORD += 1
+    if walk is None:
+        LAUNCHES_RECORD += 1
+    else:
+        LAUNCHES_RECORD_WALK += 1
     return acc, rec
 
 
-def run_megakernel_record_reference(smem, pix, sample0, cam, table, *, max_depth: int, radiance: bool = False):
+def run_megakernel_record_reference(
+    smem, pix, sample0, cam, table, sph_nodes=None, sph_meta=None, *,
+    max_depth: int, radiance: bool = False,
+):
     """Eager-torch version of the record kernel: same inputs and outputs
     as :func:`run_megakernel_record`."""
     smem = smem.clone()
     smem[3] = int(max_depth)
     return _reference_loop(
-        smem, pix, sample0, cam, table, rec_depth=int(max_depth), radiance=radiance
+        smem, pix, sample0, cam, table, rec_depth=int(max_depth), radiance=radiance,
+        walk=_walk(sph_nodes, sph_meta, table),
     )
 
 
@@ -236,7 +402,7 @@ def run_megakernel_record_reference(smem, pix, sample0, cam, table, *, max_depth
 # ---------------------------------------------------------------------------
 
 
-def run_megakernel_reference(smem, pix, sample0, cam, table):
+def run_megakernel_reference(smem, pix, sample0, cam, table, sph_nodes=None, sph_meta=None):
     """Eager-torch version of the kernel: same inputs, same (3, R) output.
 
     Lanes advance in lockstep, as on the TPU: each step issues a new sample
@@ -244,17 +410,122 @@ def run_megakernel_reference(smem, pix, sample0, cam, table):
     every live lane. Per lane this is the kernel's nested loop, so each
     lane's sum is the kernel's up to float rounding.
     """
-    acc, _ = _reference_loop(smem, pix, sample0, cam, table, rec_depth=0, radiance=True)
+    acc, _ = _reference_loop(smem, pix, sample0, cam, table, rec_depth=0, radiance=True,
+                             walk=_walk(sph_nodes, sph_meta, table))
     return acc
 
 
-def _reference_loop(smem, pix, sample0, cam, table, *, rec_depth: int, radiance: bool):
+def _safe_inv(v):
+    """1 / v with |v| raised to at least 1e-30 (keeping its sign)."""
+    tiny = float(np.float32(1e-30))
+    return 1.0 / torch.where(v.abs() < tiny, torch.where(v >= 0.0, tiny, -tiny), v)
+
+
+def walk_closest_reference(o, d, table, nodes, meta, t_min: float = T_MIN):
+    """Plain version of K5's closest hit: each ray walks the sphere BVH's
+    skip links on its own, all rays in lockstep -> (t (R,), BIG on a miss;
+    idx (R,) int64, the winner's row of the permuted ``table``, 0 on a
+    miss; hit (R,) bool).
+
+    At node i a ray slab-tests the box (``walk_inputs``' grown box, grown
+    again by SLAB_EPS * the origin's largest |coordinate|) against
+    [t_min, best]; on a hit it goes on to i + 1 at an inner node, or tests
+    the leaf's rows and goes to miss[i]; on a miss it goes to miss[i]. A
+    row's root is the brute search's (``sphere_hit.accepted_roots``, same
+    operations), and a root replaces the best where it is nearer or, at an
+    exact tie, where its original row id (column 31) is lower. With every
+    leaf visited that holds a root the brute search would take, the result
+    is the brute search's over the original table, bit for bit: its
+    nearest root, and the lowest row among equal roots. Adds the work done
+    to ``WALK_COUNTS``.
+    """
+    dev = o.device
+    m, k = o.shape[0], nodes.shape[0]
+    ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
+    dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
+    a_q = dx * dx + dy * dy + dz * dz
+    d_dot_o = dx * ox + dy * oy + dz * oz
+    o_sq = ox * ox + oy * oy + oz * oz
+    inv_a = 1.0 / a_q
+    ivx, ivy, ivz = _safe_inv(dx), _safe_inv(dy), _safe_inv(dz)
+    pr = SLAB_EPS * torch.maximum(torch.maximum(ox.abs(), oy.abs()), oz.abs())
+    first, count, miss = (meta[:, j].long() for j in range(3))
+    cx, cy, cz, csr, act, orig = (table[:, c] for c in (0, 1, 2, 4, 5, 31))
+    width = torch.arange(max(int(count.max()), 1), device=dev)
+
+    best = torch.full((m,), BIG, dtype=torch.float32, device=dev)
+    win = torch.zeros((m,), dtype=torch.int64, device=dev)
+    cur = torch.zeros((m,), dtype=torch.int64, device=dev)
+    while True:
+        lanes = torch.nonzero(cur < k).squeeze(1)
+        if lanes.numel() == 0:
+            break
+        c = cur[lanes]
+        b, p = nodes[c], pr[lanes]
+        lox, loy, loz = ox[lanes], oy[lanes], oz[lanes]
+        t0x = ((b[:, 0] - p) - lox) * ivx[lanes]
+        t1x = ((b[:, 3] + p) - lox) * ivx[lanes]
+        t0y = ((b[:, 1] - p) - loy) * ivy[lanes]
+        t1y = ((b[:, 4] + p) - loy) * ivy[lanes]
+        t0z = ((b[:, 2] - p) - loz) * ivz[lanes]
+        t1z = ((b[:, 5] + p) - loz) * ivz[lanes]
+        enter = torch.maximum(
+            torch.maximum(torch.minimum(t0x, t1x), torch.minimum(t0y, t1y)),
+            torch.clamp_min(torch.minimum(t0z, t1z), t_min),
+        )
+        exitv = torch.minimum(
+            torch.minimum(torch.maximum(t0x, t1x), torch.maximum(t0y, t1y)),
+            torch.minimum(torch.maximum(t0z, t1z), best[lanes]),
+        )
+        hit_node = enter <= exitv
+        cnt = count[c]
+        WALK_COUNTS["nodes"] += int(lanes.numel())
+
+        sel = torch.nonzero(hit_node & (cnt > 0)).squeeze(1)
+        if sel.numel():
+            ln = lanes[sel]
+            inside = width < cnt[sel][:, None]
+            rows = torch.where(inside, first[c[sel]][:, None] + width, 0)
+            rx, ry, rz = cx[rows], cy[rows], cz[rows]
+
+            def ex(v):  # a per-ray value against the leaf's rows
+                return v[ln][:, None]
+
+            dc = rx * ex(dx) + ry * ex(dy) + rz * ex(dz)
+            oc = rx * ex(ox) + ry * ex(oy) + rz * ex(oz)
+            t_all, disc = sphere_hit.accepted_roots(
+                dc - ex(d_dot_o), csr[rows] - 2.0 * oc + ex(o_sq), ex(a_q), ex(inv_a),
+                inside & (act[rows] > 0.0), t_min,
+            )
+            WALK_COUNTS["rows"] += int(inside.sum())
+            WALK_COUNTS["roots"] += int((inside & (disc >= 0.0)).sum())
+            t_leaf = t_all.min(dim=1).values
+            ids = orig[rows]
+            at_min = t_all == t_leaf[:, None]
+            id_leaf = torch.where(at_min, ids, float("inf")).min(dim=1).values
+            row_leaf = rows.gather(1, (at_min & (ids == id_leaf[:, None])).int().argmax(1, keepdim=True))[:, 0]
+            b_best = best[ln]
+            better = (t_leaf < b_best) | (
+                (t_leaf == b_best) & (t_leaf < BIG) & (id_leaf < orig[win[ln]])
+            )
+            best[ln] = torch.where(better, t_leaf, b_best)
+            win[ln] = torch.where(better, row_leaf, win[ln])
+        cur[lanes] = torch.where(hit_node & (cnt == 0), c + 1, miss[c])
+    hit = best < BIG
+    return best, torch.where(hit, win, 0), hit
+
+
+def _reference_loop(smem, pix, sample0, cam, table, *, rec_depth: int, radiance: bool,
+                    walk=None):
     """The lockstep loop of both eager versions -> (acc (3, R), rec).
 
     ``rec_depth`` 0 is forward mode (``rec`` is None). Otherwise record
     mode: each lane issues its ``sample0`` only, and row ``it`` of ``rec``
     (rec_depth, R) holds the lane's decision word at bounce ``it``;
     ``radiance`` then says whether to accumulate it, from bounce smem[4] on.
+    ``walk`` (``walk_inputs``' nodes and meta) takes the closest hit from
+    the sphere-BVH walk over the permuted table, the records' winner ids
+    from its column 31.
     """
     spp, seed, width, max_depth = (int(v) for v in smem[:4].tolist())
     accum_from = int(smem[4]) if rec_depth else 0
@@ -307,9 +578,12 @@ def _reference_loop(smem, pix, sample0, cam, table, *, rec_depth: int, radiance:
 
         # --- closest hit; the winner's row only where there is one --------
         # The brute search is K10's (the kernel shares its search routine).
-        t, idx, hit = sphere_hit.hit_spheres_reference(
-            o_l, d_l, table[:, 0:3], table[:, 4], table[:, 5], T_MIN
-        )
+        if walk is None:
+            t, idx, hit = sphere_hit.hit_spheres_reference(
+                o_l, d_l, table[:, 0:3], table[:, 4], table[:, 5], T_MIN
+            )
+        else:
+            t, idx, hit = walk_closest_reference(o_l, d_l, table, *walk)
         idx = idx.long()
         row = torch.zeros((live.numel(), C_IN), dtype=torch.float32, device=dev)
         on = torch.nonzero(hit).squeeze(1)
@@ -360,8 +634,10 @@ def _reference_loop(smem, pix, sample0, cam, table, *, rec_depth: int, radiance:
                 | torch.where(refl, F_REFL, 0) | torch.where(degen, F_DEGEN, 0)
                 | torch.where(root1, F_ROOT1, 0)
             )
-            # A miss keeps the alive bit alone (megakernel.py l.1498).
-            rec[it, live] = torch.where(hit, idx * REC_ID_SCALE + flags, F_ALIVE).to(torch.int32)
+            # A miss keeps the alive bit alone (megakernel.py l.1498). The
+            # walk's winner is a permuted row: record its original id.
+            win_id = idx if walk is None else row[:, 31].long()
+            rec[it, live] = torch.where(hit, win_id * REC_ID_SCALE + flags, F_ALIVE).to(torch.int32)
         cont3 = cont[:, None]
         if radiance:
             thr[live] = torch.where(cont3, thr_l * atten, thr_l)

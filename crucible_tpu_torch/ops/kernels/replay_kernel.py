@@ -49,10 +49,13 @@ USED = (
 )
 NUSE = len(USED)
 
-# The backward kernel stages the USED channels and its table-cotangent
-# partial in a block's shared memory, rows at a stride of 23 floats.
+# Both kernels stage the USED channels in a block's shared memory, rows at a
+# stride of 23 floats (the backward keeps its table-cotangent partial in
+# global memory), which holds up to 2526 rows; the routing limit is the JAX
+# kernel's MAX_TABLE_ROWS.
 ROW_STRIDE = 23
-MAX_TABLE_ROWS = mk.SHARED_MEM_BYTES // (2 * ROW_STRIDE * 4)
+MAX_TABLE_ROWS = 2048
+assert MAX_TABLE_ROWS * ROW_STRIDE * 4 <= mk.SHARED_MEM_BYTES
 
 # Threads per block, and the fixed number of blocks of the backward's
 # grid-stride loop: its block partials are summed in block order, so a

@@ -101,12 +101,11 @@ def hit_spheres_reference(o, d, centers, csr, active, t_min: float = T_MIN):
     return t, torch.cat(idxs).to(torch.int32), t < BIG
 
 
-def nearest_root(h, c_q, a_q, inv_a, on, rows, t_min):
-    """The search's last steps on (rays, rows) terms h and c_q: disc =
-    h^2 - a c_q, roots (h -/+ sqrt(disc)) * (1/a), the near one where it
-    lies in (t_min, BIG), and the lowest row at the minimum. ``on`` (rows,)
-    bool masks inactive rows. -> (t (rays,), BIG on a miss; idx (rays,)
-    int64, 0 on a miss)."""
+def accepted_roots(h, c_q, a_q, inv_a, on, t_min):
+    """Each (ray, row) pair's accepted root from the terms h and c_q:
+    disc = h^2 - a c_q, roots (h -/+ sqrt(disc)) * (1/a), the near one
+    where it lies in (t_min, BIG), else the far one. ``on`` masks rows
+    that may not win. -> (t_all, BIG where no root is accepted; disc)."""
     disc = h * h - a_q * c_q
     sqrtd = torch.sqrt(torch.clamp_min(disc, 0.0))
     root0 = (h - sqrtd) * inv_a
@@ -115,7 +114,15 @@ def nearest_root(h, c_q, a_q, inv_a, on, rows, t_min):
     ok1 = (root1 > t_min) & (root1 < BIG)
     root = torch.where(ok0, root0, root1)
     valid = (disc >= 0.0) & (ok0 | ok1) & on
-    t_all = torch.where(valid, root, BIG)
+    return torch.where(valid, root, BIG), disc
+
+
+def nearest_root(h, c_q, a_q, inv_a, on, rows, t_min):
+    """The search's last steps on (rays, rows) terms h and c_q: the
+    accepted roots (:func:`accepted_roots`) and the lowest row at their
+    minimum. ``on`` (rows,) bool masks inactive rows. -> (t (rays,), BIG on
+    a miss; idx (rays,) int64, 0 on a miss)."""
+    t_all, _ = accepted_roots(h, c_q, a_q, inv_a, on, t_min)
     t = t_all.min(dim=1).values
     # A miss (every entry BIG) gives row 0, as the TPU kernel's does.
     idx = torch.where(t_all == t[:, None], rows, rows.shape[0]).min(dim=1).values

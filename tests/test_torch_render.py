@@ -100,9 +100,14 @@ def _timeline(sc):
 
 
 def _too_many_spheres(sc):
+    """A big scene that moves needs the chunk-cull branch (K6), not the
+    sphere-BVH walk of static scenes."""
     for k in range(trender.CULL_MIN_ROWS + 1):
         sc.add_element(_sphere(), f"s{k}")
-    _render(sc)
+    arrays, static = bridge.scene_data_to_arrays(sc.build(device="cpu"))
+    sd = bridge.scene_data_from_arrays(arrays, device="cpu", **dict(static, animated=True))
+    trender.render_image_persistent(sd, sc.scene_cam.params(device="cpu"), 32, 18, 1, 2, 0,
+                                    device="cpu", schedule="mega")
 
 
 def _bridged_triangles(sc):

@@ -45,6 +45,8 @@ def jax_scene_arrays(sd):
     arrays.update(
         {f"tex_{k}": np.asarray(getattr(sd.tex, k)) for k in bridge.TEX_ARRAYS}
     )
+    arrays.update({k: np.asarray(getattr(sd, k)) for k in bridge.STRUCT_ARRAYS
+                   if getattr(sd, k) is not None})
     static = {k: getattr(sd, k) for k in bridge.SCENE_STATIC}
     static["max_nest"] = sd.tex.max_nest
     return arrays, static
