@@ -49,6 +49,17 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
      row tests that give K5's bound.
    - K4 and K3 at n1936's 1936 rows (320 wide, 4 spp, depth 8): K4 bit for
      bit, K3 within its scheme and the same bits twice.
+   - K8, the megakernel's motion variants, on "bouncing book1" (book1 in
+     motion: its Lambertian small spheres rise over the first 1/48 s, and
+     so does the camera; built here through the public API): each brute
+     instantiation (moving spheres, moving camera, both) at 320 wide, 8
+     spp, depth 50, and both on 64 pixel blocks of the 1920x1080 32 spp d50
+     launch; the walk with a moving camera on sphere_stress n1936 320 wide,
+     8 spp, depth 50 (also against the brute camera variant on the
+     original table). Each bit for bit against its plain version; K8 timed
+     beside K1 on the same lanes of static and bouncing book1; and bouncing
+     book1 through the pixel and mega schedules (isclose > 0.97, means
+     within 2e-3).
 4. The forward render: ``render.render_image`` of book1 at 1920x1080, 32
    spp, depth 50; checks the image, counts K1's launches, writes
    ``build/chip_smoke_book1.png``.
@@ -75,9 +86,17 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
    rows) at 1920x1080, 4 spp, depth 8, every pixel: as phase 5 without the
    train steps (the record walk, K3 and K4 launch, K2 never), and one
    direct-AD step held against the replay step.
+10. The forward render in motion: ``render.render_image`` of bouncing
+   book1 at 1920x1080, 32 spp, depth 50 (``auto`` -> mega: one K8 launch,
+   no K1 launch; writes ``build/chip_smoke_bounce.png``), and of
+   sphere_stress n1936 with a moving camera at 320 wide (one K8 walk).
+11. Movies: ``render.render_movie`` of ``first_movie(duration=0.25)``
+   (6 frames, 400 wide, 50 spp, depth 5; the pixel schedule, K9) and of a
+   2-frame bouncing book1 at 1920x1080, 32 spp, depth 50 (two K8
+   launches), into a temporary directory.
    Each main-path phase zeroes the launch counts before it and reads them
    after; a kernel of the phase that was not launched fails the run.
-10. Prints a JSON line describing each kernel (times at the comparison
+12. Prints a JSON line describing each kernel (times at the comparison
    shape, where kernel and twin run the same inputs in full; K5's also at
    its main shape), the card's line again, and, as the last line,
    ``{"ok": true, "device": {...}}``.
@@ -93,6 +112,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -117,7 +137,32 @@ ADJOINT_SCATTER_OPS = 150  # the adjoint of a continuing row's scatter
 # multiplies); a leaf row costs K10's HIT_DISC_OPS, plus ROOT_OPS where the
 # discriminant is not negative.
 SLAB_OPS = 18
+# K8: a moving row adds w (cd.d) and w (cd.o) (7 operations each) and
+# 2w s1 + w^2 s2 (4) to a search row; a moving camera costs CAM_OPS per
+# sample issued (the lerps, two normalizations, the cross products, du, dv
+# and pixel00).
+MOTION_SEARCH_OPS = SEARCH_OPS + 18
+CAM_OPS = 81
 N_SUB = 32768  # lanes of a 1920x1080 launch held against the twin
+
+
+def bouncing_book1(demo, width: int):
+    """Book1 in motion, the bouncing spheres of "Ray Tracing: The Next
+    Week" (section 2): every Lambertian small sphere rises by a random
+    height (numpy seed 11) over the first 1/48 s, and so does the camera's
+    position, by 0.5. Frame 0's shutter holds no keyframe strictly inside
+    it, so its motion is linear. tests/torch_motion_scenes.py builds the
+    same scene."""
+    sc = demo.book1_end_scene(width=width)
+    rng = __import__("numpy").random.default_rng(11)
+    k = 0
+    while sc.id_vendor.alias_lookup(f"small{k}") is not None:
+        el = next(e for e in sc.elements if e.id == sc.id_vendor.alias_lookup(f"small{k}")[0])
+        if type(el.material).__name__ == "Lambertian":
+            sc.translate_y(float(rng.uniform(0.0, 0.5)), 1.0 / 48.0, "lerp", "local", f"small{k}")
+        k += 1
+    sc.cam_translate_y(0.5, 1.0 / 48.0, "lerp", "local", "from")
+    return sc
 
 
 def card_line() -> str:
@@ -797,6 +842,123 @@ def main() -> None:
                                       bound_ms_1936_rows=b, max_abs_err_1936_rows=err)
     del rin, rargs, rec320, rad, got, want, g_rad
 
+    # --- K8: the motion variants vs their plain versions ------------------------
+    def k8_inputs(sc, spp, depth):
+        sd, cp = sc.build(device=dev), sc.scene_cam.params(device=dev)
+        w, h = sc.scene_cam.image_width, sc.scene_cam.image_height
+        return sd, cp, integrator.mega_inputs(sd, cp, w, h, spp, depth, 0)[0]
+
+    def plain_forward(fn):
+        """(result, ms, the plain forward's counted searches) of one call."""
+        mk.SEARCH_COUNTS.update(searches=0, issued=0)
+        mk.WALK_COUNTS.update(nodes=0, rows=0, roots=0)
+        out, ms = host_ms(fn)
+        return out, ms, dict(mk.SEARCH_COUNTS, **mk.WALK_COUNTS)
+
+    def k8_ops(counts, n_rows, animated, cam_animated):
+        row_ops = MOTION_SEARCH_OPS if animated else SEARCH_OPS
+        return counts["searches"] * n_rows * row_ops + cam_animated * counts["issued"] * CAM_OPS
+
+    flag_sets = {"animated": dict(animated=True, cam_animated=False),
+                 "camera": dict(animated=False, cam_animated=True),
+                 "both": dict(animated=True, cam_animated=True)}
+    b_sd, b_cp, b_in = k8_inputs(bouncing_book1(demo, 320), 8, 50)
+    if not (b_sd.animated and b_cp.animated) or b_sd.motion_exact or b_cp.motion_exact:
+        raise AssertionError("bouncing book1 should move linearly in frame 0")
+    n_active = int((b_in["table"][:, 5] > 0).sum())
+    k8 = {}
+    for tag, flags in flag_sets.items():
+        out = mk.run_megakernel(**b_in, **flags)
+        ms = cuda_ms(lambda: mk.run_megakernel(**b_in, **flags), 3)
+        ref, plain_ms, counts = plain_forward(
+            lambda: mk.run_megakernel_reference(**b_in, **flags))
+        err = bit_equal(out, ref, f"K8 {tag} bouncing book1 320w 8spp d50 vs plain")
+        b, by = bound(k8_ops(counts, n_active, **flags),
+                      nbytes(*b_in.values()) + 3 * b_in["pix"].numel() * 4)
+        print(f"K8 {tag} bouncing book1 320w 8spp d50: kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.1f} ms, bound {b:.4f} ms ({by}; {counts['searches']} searches "
+              f"x {n_active} rows, {counts['issued']} samples)")
+        k8[tag] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b, bound_by=by)
+
+    # What motion costs: K8 (both variants) beside K1 on the same lanes.
+    _, _, s_in = k8_inputs(demo.book1_end_scene(width=320), 8, 50)
+    both = flag_sets["both"]
+    for what, x in (("static book1", s_in), ("bouncing book1", b_in)):
+        k1_ms = cuda_ms(lambda: mk.run_megakernel(**x, animated=False), 3)
+        k8_ms = cuda_ms(lambda: mk.run_megakernel(**x, **both), 3)
+        a, b = mk.run_megakernel(**x, animated=False), mk.run_megakernel(**x, **both)
+        close = torch.isclose(a, b, rtol=1e-3, atol=1e-3).float().mean().item()
+        print(f"K8 beside K1 on {what} 320w 8spp d50 (same lanes): K1 {k1_ms:.3f} ms, "
+              f"K8 {k8_ms:.3f} ms, ratio {k8_ms / k1_ms:.3f}; lane sums isclose {close:.5f}")
+        k8[f"k1_ms_{what.split()[0]}"], k8[f"k8_ms_{what.split()[0]}"] = k1_ms, k8_ms
+
+    # The walk with a moving camera (K5's walk in K8's camera variant).
+    sc = demo.sphere_stress(width=320, copies=4)
+    sc.cam_translate_y(0.5, 1.0 / 48.0, "lerp", "local", "from")
+    w_sd, _, w_in = k8_inputs(sc, 8, 50)
+    bvh = dict(sph_nodes=w_sd.sph_nodes, sph_meta=w_sd.sph_meta)
+    walk = dict(w_in, table=integrator.permute_table(w_in["table"], w_sd.sph_perm), **bvh)
+    cam_only = flag_sets["camera"]
+    out = mk.run_megakernel(**walk, **cam_only)
+    ms = cuda_ms(lambda: mk.run_megakernel(**walk, **cam_only), 3)
+    ref, plain_ms, counts = plain_forward(
+        lambda: mk.run_megakernel_reference(**walk, cam_animated=True))
+    what = f"K8 walk camera n{w_sd.sph_center.shape[0]} 320w 8spp d50"
+    err = bit_equal(out, ref, f"{what} vs plain walk")
+    bit_equal(out, mk.run_megakernel(**w_in, **cam_only), f"{what} vs K8 brute camera")
+    b, by = bound(walk_ops(counts) + counts["issued"] * CAM_OPS,
+                  nbytes(walk["table"], *bvh.values()) + 5 * 4 * w_in["pix"].numel())
+    print(f"{what}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {b:.4f} ms ({by}); "
+          f"work {counts}")
+    k8["walk"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b, bound_by=by)
+
+    # The main path's launch: bouncing book1 1920x1080 32 spp d50, plain on
+    # 64 pixel blocks (lanes are independent); K1 on the same launch.
+    _, _, m_in = k8_inputs(bouncing_book1(demo, 1920), 32, 50)
+    out = mk.run_megakernel(**m_in, **both)
+    main_ms = cuda_ms(lambda: mk.run_megakernel(**m_in, **both), 2)
+    main_k1_ms = cuda_ms(lambda: mk.run_megakernel(**m_in, animated=False), 2)
+    blocks = torch.randperm(n_blocks, generator=torch.Generator().manual_seed(7))[:64]
+    lanes = (blocks.sort().values[:, None] * mk.TILE + torch.arange(mk.TILE)).reshape(-1).to(dev)
+    sub = lane_subset(m_in, lanes)
+    ref, plain_sub, counts = plain_forward(lambda: mk.run_megakernel_reference(**sub, **both))
+    bit_equal(out[:, lanes], ref, f"K8 both bouncing book1 1920x1080 32spp d50 on "
+                                  f"{lanes.numel()} lanes vs plain")
+    scale = int((m_in["sample0"] < mk.NO_SAMPLE).sum()) / int((sub["sample0"] < mk.NO_SAMPLE).sum())
+    main_b, main_by = bound(k8_ops(counts, n_active, **both) * scale,
+                            nbytes(*m_in.values()) + 3 * m_in["pix"].numel() * 4)
+    print(f"K8 both bouncing book1 1920x1080 32spp d50: {main_ms:.1f} ms "
+          f"({1920 * 1080 * 32 / main_ms / 1e3:.2f} Mrays/s), K1 on the same launch "
+          f"{main_k1_ms:.1f} ms (ratio {main_ms / main_k1_ms:.3f}); plain on "
+          f"{lanes.numel()} lanes {plain_sub:.1f} ms; bound {main_b:.3f} ms ({main_by}; "
+          f"work on the checked lanes {counts}, x{scale:.2f})")
+    del m_in, sub, out, ref
+    kernels["megakernel_motion"] = dict(
+        source="crucible_tpu_torch/csrc/megakernel.cu",
+        replaces="crucible_tpu/ops/pallas/megakernel.py:1681",
+        **k8["both"],
+        ms_animated=k8["animated"]["ms"], bound_ms_animated=k8["animated"]["bound_ms"],
+        ms_camera=k8["camera"]["ms"], bound_ms_camera=k8["camera"]["bound_ms"],
+        ms_walk_camera=k8["walk"]["ms"], plain_ms_walk_camera=k8["walk"]["plain_ms"],
+        bound_ms_walk_camera=k8["walk"]["bound_ms"],
+        main_ms=main_ms, main_bound_ms=main_b, main_k1_ms=main_k1_ms,
+        **{key: v for key, v in k8.items() if key.startswith(("k1_ms", "k8_ms"))},
+    )
+
+    # The pixel schedule (K9 with each path's w) against the mega schedule.
+    imgs = {}
+    for schedule in ("pixel", "mega"):
+        imgs[schedule], ms = host_ms(lambda: render.render_image_persistent(
+            b_sd, b_cp, 320, 180, 8, 50, 0, schedule=schedule))
+        print(f"  bouncing book1 320w 8spp d50, {schedule} schedule: {ms:.1f} ms")
+    a, b = imgs["pixel"], imgs["mega"]
+    close = torch.isclose(a, b, rtol=1e-3, atol=1e-3).float().mean().item()
+    dmean = abs(a.mean().item() - b.mean().item())
+    print(f"  bouncing book1 pixel vs mega: isclose {close:.5f}, |mean diff| {dmean:.3g}")
+    if not (close > 0.97 and dmean <= 2e-3):
+        raise AssertionError("the pixel and mega schedules disagree on bouncing book1")
+    del imgs, a, b, b_in, s_in, w_in, walk
+
     # --- main path 1: the forward render ---------------------------------------
     scene = demo.book1_end_scene(width=1920)
     mk.LAUNCHES = 0
@@ -1049,6 +1211,83 @@ def main() -> None:
     del params, ad_grads, replay_grads
     for name, n in counts.items():
         kernels[name]["launches"] = n
+
+    # --- main path 7: the forward render in motion (K8) -------------------------
+    def motion_launches():
+        return dict(k1=mk.LAUNCHES, k5=mk.LAUNCHES_WALK, k8=mk.LAUNCHES_MOTION,
+                    k8_walk=mk.LAUNCHES_MOTION_WALK, k9=ss.LAUNCHES)
+
+    def zero_motion_launches():
+        mk.LAUNCHES = mk.LAUNCHES_WALK = mk.LAUNCHES_MOTION = mk.LAUNCHES_MOTION_WALK = 0
+        ss.LAUNCHES = 0
+
+    scene = bouncing_book1(demo, 1920)
+    sd, cp = scene.build(), scene.scene_cam.params()
+    if not integrator.megakernel_supported(sd, cp):
+        raise AssertionError("auto would not take the megakernel for bouncing book1")
+    zero_motion_launches()
+    img, ms = host_ms(lambda: render.render_image(scene, samples=32, max_depth=50))
+    got = motion_launches()
+    if tuple(img.shape) != (1080, 1920, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"bouncing image: shape {tuple(img.shape)} or non-finite values")
+    if got["k8"] != 1 or got["k1"] != 0:
+        raise AssertionError(f"bouncing book1: launches {got}")
+    print(f"render_image bouncing book1 1920x1080 32spp d50 (auto -> mega, K8): "
+          f"{ms / 1e3:.3f} s, {1920 * 1080 * 32 / ms / 1e3:.2f} Mrays/s, mean "
+          f"{img.mean().item():.5f}; K8 {main_ms:.1f} ms by CUDA events, bound "
+          f"{main_b:.3f} ms ({main_by}); launches {got}; nvidia-smi: {smi()}")
+    png = REPO / "build" / "chip_smoke_bounce.png"
+    write_png(png, render.to_u8(img))
+    print(f"wrote {png.relative_to(REPO)}")
+    del img
+    launches_k8 = got["k8"]
+
+    sc = demo.sphere_stress(width=320, copies=4)
+    sc.cam_translate_y(0.5, 1.0 / 48.0, "lerp", "local", "from")
+    zero_motion_launches()
+    img, ms = host_ms(lambda: render.render_image(sc, samples=8, max_depth=50))
+    got = motion_launches()
+    if not bool(torch.isfinite(img).all()) or got["k8_walk"] != 1 or got["k5"] != 0:
+        raise AssertionError(f"sphere_stress with a moving camera: launches {got}")
+    print(f"render_image sphere_stress n1936 320w 8spp d50, moving camera (mega, the "
+          f"walk in K8): {ms:.1f} ms; launches {got}")
+    launches_k8 += got["k8_walk"]
+
+    # --- main path 8: movies through render_movie --------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        movie = demo.first_movie(duration=0.25)  # 15 s cut to 6 frames
+        frames = {}
+        zero_motion_launches()
+        out, ms = host_ms(lambda: render.render_movie(
+            movie, str(Path(tmp) / "first_movie"), verbose=False,
+            on_frame=lambda fi, dt: frames.__setitem__(fi, dt)))
+        got = motion_launches()
+        written = sorted(p.name for p in (Path(tmp) / "first_movie" / "artifacts").iterdir())
+        if sorted(frames) != list(range(6)) or len(written) != 6:
+            raise AssertionError(f"first_movie: frames {sorted(frames)}, files {written}")
+        if got["k9"] < 1 or got["k1"] or got["k8"]:
+            raise AssertionError(f"first_movie: launches {got}")
+        print(f"render_movie first_movie(duration=0.25) 400x225 50spp d5, 6 frames "
+              f"(pixel schedule): {ms / 1e3:.3f} s, {ms / 6e3:.3f} s per frame "
+              f"(dispatch to written: {', '.join(f'{frames[i]:.3f}' for i in range(6))} s); "
+              f"launches {got}; -> {Path(out).name}")
+        kernels["sphere_shade"]["launches"] += got["k9"]
+
+        movie = bouncing_book1(demo, 1920)
+        movie.duration = 2 / 24
+        movie.scene_cam.set_samples(32)
+        frames = {}
+        zero_motion_launches()
+        out, ms = host_ms(lambda: render.render_movie(
+            movie, str(Path(tmp) / "bouncing"), verbose=False,
+            on_frame=lambda fi, dt: frames.__setitem__(fi, dt)))
+        got = motion_launches()
+        if sorted(frames) != [0, 1] or got["k8"] != 2 or got["k1"]:
+            raise AssertionError(f"bouncing movie: frames {sorted(frames)}, launches {got}")
+        print(f"render_movie bouncing book1 1920x1080 32spp d50, 2 frames (frame 1 past "
+              f"the keyframe): {ms / 1e3:.3f} s, {ms / 2e3:.3f} s per frame; launches {got}")
+        launches_k8 += got["k8"]
+    kernels["megakernel_motion"]["launches"] = launches_k8
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check")
 
     print(card)

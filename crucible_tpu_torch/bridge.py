@@ -12,8 +12,8 @@ fields prefixed ``tex_``; static keys are ``sky_kind``, ``num_spheres``,
 ``num_tris``, ``animated``, ``motion_exact`` and ``max_nest``. As in the JAX
 package, ``sky_image`` is a (1, 1, 3) zero placeholder under the default sky
 (the port's ``SceneData.sky_image`` is then None). The sphere-BVH tables
-(``STRUCT_ARRAYS``) are optional keys: absent, or None, where the scene has
-none.
+(``STRUCT_ARRAYS``) and the motion fields (``MOTION_ARRAYS``) are optional
+keys (``OPTIONAL_ARRAYS``): absent, or None, where the scene has none.
 :func:`params_from_arrays` / :func:`params_to_arrays` carry the gradient
 path's parameter dict (``grad.extract_params``) the same way. Packed
 decision records cross as int32 arrays.
@@ -38,6 +38,8 @@ SCENE_ARRAYS = (
     "sky_image",
 )
 STRUCT_ARRAYS = ("sph_perm", "sph_nodes", "sph_meta")
+MOTION_ARRAYS = ("sph_center_d", "sph_radius_d", "motion_t0", "motion_t1")
+OPTIONAL_ARRAYS = STRUCT_ARRAYS + MOTION_ARRAYS
 TEX_ARRAYS = ("kind", "color", "inv_scale", "even", "odd", "image_id")
 SCENE_STATIC = ("sky_kind", "num_spheres", "num_tris", "animated", "motion_exact")
 CAMERA_ARRAYS = tuple(
@@ -62,13 +64,13 @@ def scene_data_from_arrays(
         max_nest=int(max_nest),
     )
     sky = static.get("sky_kind", sky_mod.DEFAULT) == sky_mod.SPHERICAL
-    struct = {k: _tensor(arrays[k], device) for k in STRUCT_ARRAYS
-              if arrays.get(k) is not None}
+    optional = {k: _tensor(arrays[k], device) for k in OPTIONAL_ARRAYS
+                if arrays.get(k) is not None}
     return SceneData(
         **{k: _tensor(arrays[k], device) for k in SCENE_ARRAYS if k != "sky_image"},
         tex=tex,
         sky_image=_tensor(arrays["sky_image"], device) if sky else None,
-        **struct,
+        **optional,
         **static,
     )
 
@@ -77,7 +79,7 @@ def scene_data_to_arrays(sd: SceneData) -> tuple[dict[str, np.ndarray], dict]:
     """(arrays, static) such that ``scene_data_from_arrays(arrays,
     device=..., **static)`` rebuilds ``sd``."""
     arrays = {k: getattr(sd, k).cpu().numpy() for k in SCENE_ARRAYS if k != "sky_image"}
-    arrays.update({k: getattr(sd, k).cpu().numpy() for k in STRUCT_ARRAYS
+    arrays.update({k: getattr(sd, k).cpu().numpy() for k in OPTIONAL_ARRAYS
                    if getattr(sd, k) is not None})
     arrays["sky_image"] = (
         np.zeros((1, 1, 3), np.float32) if sd.sky_image is None

@@ -1,7 +1,7 @@
 // Pieces shared by the port's CUDA kernels: the PCG4D counter hash of
 // utils/rng.py, its stream ids, the record-word layout of models/replay.py,
-// and the closest-sphere search of the static kernels (K1, K2, K10, and K5
-// on each leaf it visits).
+// the closest-sphere search of the static kernels (K1, K2, K10, and K5 on
+// each leaf it visits) and its linear-shutter form (K8).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -13,6 +13,7 @@ constexpr float BIG = 3.0e38f;        // "no hit" distance
 constexpr float TWO_PI = 6.2831855f;  // float32(2*pi)
 constexpr uint32_t PCG_MULT = 1664525u;
 constexpr uint32_t PCG_ADD = 1013904223u;
+constexpr uint32_t STREAM_TIME = 0u;
 constexpr uint32_t STREAM_PIXEL_JITTER = 1u;
 constexpr uint32_t STREAM_BOUNCE_BASE = 3u;
 
@@ -101,6 +102,46 @@ __device__ __forceinline__ void closest_sphere(
     } else if (TIE_BY_ID && root == best &&
                table[(size_t)(base + k) * 32 + 31] < table[(size_t)win * 32 + 31]) {
       win = base + k;  // best < BIG here, so win is a row
+    }
+  }
+}
+
+// closest_sphere against spheres moving on the linear shutter (K8), in the
+// Pallas megakernel's association (megakernel.py quad_t, l.595-616): at the
+// ray's shutter fraction w, with per-ray two_w = 2 w and w_sq = w w and the
+// rows' center deltas cd and s1 = c.cd - r rd, s2 = |cd|^2 - rd^2,
+//   c.d = (c.d) + w (cd.d),  c.o = (c.o) + w (cd.o),
+//   |c|^2 - r^2 = csr + two_w s1 + w_sq s2,
+// then closest_sphere's quadratic. A row replaces (best, win) only when
+// strictly nearer, so the lowest row wins ties.
+__device__ __forceinline__ void closest_sphere_moving(
+    const float* cx, const float* cy, const float* cz, const float* csr,
+    const float* act, const float* cdx, const float* cdy, const float* cdz,
+    const float* s1, const float* s2, int count, float ox, float oy,
+    float oz, float dx, float dy, float dz, float a_q, float d_dot_o,
+    float o_sq, float inv_a, float w, float two_w, float w_sq, float t_min,
+    float& best, int& win) {
+  for (int k = 0; k < count; ++k) {
+    if (!(act[k] > 0.0f)) continue;
+    const float c0 = cx[k], c1 = cy[k], c2 = cz[k];
+    const float e0 = cdx[k], e1 = cdy[k], e2 = cdz[k];
+    const float dck = (c0 * dx + c1 * dy + c2 * dz) + w * (e0 * dx + e1 * dy + e2 * dz);
+    const float ock = (c0 * ox + c1 * oy + c2 * oz) + w * (e0 * ox + e1 * oy + e2 * oz);
+    const float csrk = csr[k] + two_w * s1[k] + w_sq * s2[k];
+    const float h = dck - d_dot_o;
+    const float c_q = csrk - 2.0f * ock + o_sq;
+    const float disc = h * h - a_q * c_q;
+    if (!(disc >= 0.0f)) continue;
+    const float sq = sqrtf(disc);
+    const float root0 = (h - sq) * inv_a;
+    const float root1 = (h + sq) * inv_a;
+    const bool ok0 = (root0 > t_min) && (root0 < BIG);
+    const bool ok1 = (root1 > t_min) && (root1 < BIG);
+    if (!(ok0 || ok1)) continue;
+    const float root = ok0 ? root0 : root1;
+    if (root < best) {
+      best = root;
+      win = k;
     }
   }
 }

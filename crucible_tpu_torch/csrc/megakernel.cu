@@ -1,9 +1,10 @@
 // Persistent path-tracing megakernel for sphere scenes on Hopper: forward
-// mode (K1), record mode (K2) and, for big scenes, both modes walking a
-// per-lane sphere BVH (K5).
+// mode (K1), record mode (K2), for big scenes both modes walking a
+// per-lane sphere BVH (K5), and the forward mode's motion variants (K8).
 //
-// Replaces crucible_tpu/ops/pallas/megakernel.py::_kernel for its
-// static-camera, non-animated sphere branches, in both of its modes:
+// Replaces crucible_tpu/ops/pallas/megakernel.py::_kernel for its sphere
+// branches: static ones in both of its modes, and in forward mode the
+// animated (moving spheres) and cam_animated (keyframed camera) ones:
 // - forward (run_megakernel, pallas_call at megakernel.py:1681): camera ray
 //   generation with jitter and defocus, the PCG4D counter hash, the
 //   closest-root sphere quadratic, the winner's attribute fetch, solid /
@@ -21,6 +22,22 @@
 // All variants are one templated kernel: the record flags only add the
 // decision words and the walk flag only replaces the search, so the brute
 // forward instantiation's arithmetic is unchanged.
+//
+// K8, the motion variants (forward mode; megakernel.py l.509-555, 588-616
+// and the shading lerp l.1309-1314). Each path draws its shutter fraction
+// w = the first uniform of pcg4d(pix, sample, STREAM_TIME, seed), the
+// number the staged path's camera draws:
+// - ANIMATED: spheres move on the linear shutter. The search adds
+//   w (cd.d) and w (cd.o) to its dot products and 2w s1 + w^2 s2 to
+//   |c|^2 - r^2 (common.cuh closest_sphere_moving, table columns 24-29,
+//   staged in shared memory beside the five static columns: 10 floats a
+//   row), and the winner's center and radius are lerped for its normal;
+// - CAM_ANIMATED: at each new sample the lane lerps look_from and look_at
+//   (cam slots 9-11 / 19-21 plus w times the deltas in 22-27) and rebuilds
+//   the basis, pixel00, du and dv with true divisions and the 1e-12 floor,
+//   operation for operation as camera.generate_rays does.
+// The walk takes CAM_ANIMATED only: animated big scenes need the chunk-cull
+// branch (K6), not ported. Record mode takes neither (the next slice).
 //
 // What bounds it on this card: per-thread FP32 work on the quadratic (about
 // 20 flops and a square root per row tested per bounce; the walk adds a
@@ -83,6 +100,7 @@ using namespace crucible;
 constexpr int C_IN = 32;           // table columns (sphere_shade.py layout)
 constexpr int COL_ID = 31;         // the table's original row id
 constexpr int SMEM_COLS = 5;       // staged columns: cx, cy, cz, csr, active
+constexpr int MOTION_COLS = 5;     // and with ANIMATED: cd x/y/z, s1, s2
 constexpr int NODE_COLS = 6;       // staged per node: box lo x/y/z, hi x/y/z
 constexpr int META_COLS = 3;       // staged per node: first, count, miss
 constexpr int BLOCK = 128;         // threads per block, brute search (4 warps)
@@ -93,6 +111,7 @@ constexpr float SLAB_EPS = 4e-3f;  // the walk's slab margin (see above)
 // Shared-memory views of what a block stages.
 struct Staged {
   const float *cx, *cy, *cz, *csr, *act;  // (n,) search columns
+  const float *cdx, *cdy, *cdz, *s1, *s2;  // (n,) motion columns (ANIMATED)
   const float* node;                      // (k, NODE_COLS) grown boxes
   const int* meta;                        // (k, META_COLS)
   int n, k;
@@ -143,13 +162,17 @@ __device__ __forceinline__ void walk_closest(
 // One lane's paths. RECORD: one path per lane, decision words to `rec`
 // (D, R). RADIANCE: accumulate radiance into `out` (3, R); in record mode
 // only from bounce smem[4] on. Forward mode is <false, true>. WALK: the
-// closest hit walks the sphere BVH over the permuted table.
-template <bool RECORD, bool RADIANCE, bool WALK>
+// closest hit walks the sphere BVH over the permuted table. ANIMATED,
+// CAM_ANIMATED: K8's moving spheres and keyframed camera (forward only).
+template <bool RECORD, bool RADIANCE, bool WALK, bool ANIMATED, bool CAM_ANIMATED>
 __device__ __forceinline__ void trace_lane(
     int lane, const Staged& s, const int32_t* __restrict__ smem,
     const int32_t* __restrict__ pix_in, const int32_t* __restrict__ sample0,
     const float* __restrict__ cam, const float* __restrict__ table, int r,
     float t_min, float* __restrict__ out, int32_t* __restrict__ rec) {
+  static_assert(!(RECORD && (ANIMATED || CAM_ANIMATED)),
+                "K8's record mode is not ported");
+  static_assert(!(WALK && ANIMATED), "animated big scenes need K6");
   const int spp = smem[0];
   const uint32_t seed = (uint32_t)smem[1];
   const int width = smem[2];
@@ -162,12 +185,12 @@ __device__ __forceinline__ void trace_lane(
   const float fj = (float)(pix / width);
 
   // Static camera slots (megakernel.py CAM_SIZE layout).
-  const float p00x = cam[0], p00y = cam[1], p00z = cam[2];
-  const float dux = cam[3], duy = cam[4], duz = cam[5];
-  const float dvx = cam[6], dvy = cam[7], dvz = cam[8];
-  const float lfx = cam[9], lfy = cam[10], lfz = cam[11];
-  const float ubx = cam[12], uby = cam[13], ubz = cam[14];
-  const float vbx = cam[15], vby = cam[16], vbz = cam[17];
+  const float c_p00x = cam[0], c_p00y = cam[1], c_p00z = cam[2];
+  const float c_dux = cam[3], c_duy = cam[4], c_duz = cam[5];
+  const float c_dvx = cam[6], c_dvy = cam[7], c_dvz = cam[8];
+  const float c_lfx = cam[9], c_lfy = cam[10], c_lfz = cam[11];
+  const float c_ubx = cam[12], c_uby = cam[13], c_ubz = cam[14];
+  const float c_vbx = cam[15], c_vby = cam[16], c_vbz = cam[17];
   const float defr = cam[18];
 
   float ax = 0.0f, ay = 0.0f, az = 0.0f;
@@ -178,6 +201,49 @@ __device__ __forceinline__ void trace_lane(
   const int s0 = sample0[lane];
   const int s_end = RECORD ? (s0 < NO_SAMPLE ? s0 + 1 : s0) : spp;
   for (int smp = s0; smp < s_end; ++smp) {
+    // --- the path's shutter fraction (K8) ----------------------------------
+    float w = 0.0f;
+    if (ANIMATED || CAM_ANIMATED) {
+      w = uniform4(upix, (uint32_t)smp, STREAM_TIME, seed).x;
+    }
+    float p00x = c_p00x, p00y = c_p00y, p00z = c_p00z;
+    float dux = c_dux, duy = c_duy, duz = c_duz;
+    float dvx = c_dvx, dvy = c_dvy, dvz = c_dvz;
+    float lfx = c_lfx, lfy = c_lfy, lfz = c_lfz;
+    float ubx = c_ubx, uby = c_uby, ubz = c_ubz;
+    float vbx = c_vbx, vby = c_vby, vbz = c_vbz;
+    if (CAM_ANIMATED) {
+      // The camera at w: look_from / look_at lerped, then the basis as
+      // camera.generate_rays builds it (vec.unit with the 1e-12 floor).
+      lfx = cam[9] + w * cam[22];
+      lfy = cam[10] + w * cam[23];
+      lfz = cam[11] + w * cam[24];
+      const float lax = cam[19] + w * cam[25];
+      const float lay = cam[20] + w * cam[26];
+      const float laz = cam[21] + w * cam[27];
+      const float wx0 = lfx - lax, wy0 = lfy - lay, wz0 = lfz - laz;
+      const float wden = fmaxf(sqrtf(wx0 * wx0 + wy0 * wy0 + wz0 * wz0), 1e-12f);
+      const float wbx = wx0 / wden, wby = wy0 / wden, wbz = wz0 / wden;
+      const float ux0 = cam[29] * wbz - cam[30] * wby;  // cross(vup, w)
+      const float uy0 = cam[30] * wbx - cam[28] * wbz;
+      const float uz0 = cam[28] * wby - cam[29] * wbx;
+      const float uden = fmaxf(sqrtf(ux0 * ux0 + uy0 * uy0 + uz0 * uz0), 1e-12f);
+      ubx = ux0 / uden;
+      uby = uy0 / uden;
+      ubz = uz0 / uden;
+      vbx = wby * ubz - wbz * uby;  // cross(w, u)
+      vby = wbz * ubx - wbx * ubz;
+      vbz = wbx * uby - wby * ubx;
+      dux = cam[32] * ubx / cam[34];  // viewport_w * u / width
+      duy = cam[32] * uby / cam[34];
+      duz = cam[32] * ubz / cam[34];
+      dvx = -cam[31] * vbx / cam[35];  // viewport_h * (-v) / height
+      dvy = -cam[31] * vby / cam[35];
+      dvz = -cam[31] * vbz / cam[35];
+      p00x = lfx - cam[33] * wbx - cam[36] * dux - cam[37] * dvx;
+      p00y = lfy - cam[33] * wby - cam[36] * duy - cam[37] * dvy;
+      p00z = lfz - cam[33] * wbz - cam[36] * duz - cam[37] * dvz;
+    }
     // --- primary ray: jitter + defocus from one hash -----------------------
     const U4 uc = uniform4(upix, (uint32_t)smp, STREAM_PIXEL_JITTER, seed);
     const float oxj = fi + (uc.x - 0.5f);
@@ -206,6 +272,11 @@ __device__ __forceinline__ void trace_lane(
       if (WALK) {
         walk_closest(s, table, ox, oy, oz, dx, dy, dz, a_q, d_dot_o, o_sq,
                      inv_a, t_min, best, win);
+      } else if (ANIMATED) {
+        closest_sphere_moving(s.cx, s.cy, s.cz, s.csr, s.act, s.cdx, s.cdy,
+                              s.cdz, s.s1, s.s2, s.n, ox, oy, oz, dx, dy, dz,
+                              a_q, d_dot_o, o_sq, inv_a, w, 2.0f * w, w * w,
+                              t_min, best, win);
       } else {
         closest_sphere(s.cx, s.cy, s.cz, s.csr, s.act, s.n, 0, ox, oy, oz, dx,
                        dy, dz, a_q, d_dot_o, o_sq, inv_a, t_min, best, win);
@@ -231,10 +302,17 @@ __device__ __forceinline__ void trace_lane(
       const float hx = ox + best * dx;
       const float hy = oy + best * dy;
       const float hz = oz + best * dz;
-      const float inv_r = 1.0f / fmaxf(row[3], 1e-20f);
-      float nx = (hx - row[0]) * inv_r;
-      float ny = (hy - row[1]) * inv_r;
-      float nz = (hz - row[2]) * inv_r;
+      float wcx = row[0], wcy = row[1], wcz = row[2], wrad = row[3];
+      if (ANIMATED) {  // the winner at the path's shutter fraction
+        wcx = wcx + w * row[24];
+        wcy = wcy + w * row[25];
+        wcz = wcz + w * row[26];
+        wrad = wrad + w * row[27];
+      }
+      const float inv_r = 1.0f / fmaxf(wrad, 1e-20f);
+      float nx = (hx - wcx) * inv_r;
+      float ny = (hy - wcy) * inv_r;
+      float nz = (hz - wcz) * inv_r;
       const bool front = dx * nx + dy * ny + dz * nz < 0.0f;
       const float sgn = front ? 1.0f : -1.0f;
       nx = nx * sgn;
@@ -404,7 +482,8 @@ __device__ __forceinline__ void trace_lane(
   out[2 * (size_t)r + lane] = az;
 }
 
-template <bool RECORD, bool RADIANCE, bool WALK, int NT>
+template <bool RECORD, bool RADIANCE, bool WALK, bool ANIMATED, bool CAM_ANIMATED,
+          int NT>
 __global__ void __launch_bounds__(NT) megakernel(
     const int32_t* __restrict__ smem,     // (8,) [spp, seed, width, max_depth, accum_from, ...]
     const int32_t* __restrict__ pix_in,   // (R,) pixel ids
@@ -422,6 +501,11 @@ __global__ void __launch_bounds__(NT) megakernel(
   float* s_cz = sh + 2 * n;
   float* s_csr = sh + 3 * n;
   float* s_act = sh + 4 * n;
+  float* s_cdx = sh + 5 * n;  // the motion columns: ANIMATED only
+  float* s_cdy = sh + 6 * n;
+  float* s_cdz = sh + 7 * n;
+  float* s_s1 = sh + 8 * n;
+  float* s_s2 = sh + 9 * n;
   for (int q = threadIdx.x; q < n; q += blockDim.x) {
     const float* row = table + (size_t)q * C_IN;
     s_cx[q] = row[0];
@@ -429,36 +513,46 @@ __global__ void __launch_bounds__(NT) megakernel(
     s_cz[q] = row[2];
     s_csr[q] = row[4];
     s_act[q] = row[5];
+    if (ANIMATED) {
+      s_cdx[q] = row[24];
+      s_cdy[q] = row[25];
+      s_cdz[q] = row[26];
+      s_s1[q] = row[28];
+      s_s2[q] = row[29];
+    }
   }
-  float* s_node = sh + SMEM_COLS * n;
+  float* s_node = sh + (ANIMATED ? SMEM_COLS + MOTION_COLS : SMEM_COLS) * n;
   int* s_meta = (int*)(s_node + NODE_COLS * k);
   if (WALK) {
     for (int q = threadIdx.x; q < k * NODE_COLS; q += blockDim.x) s_node[q] = nodes[q];
     for (int q = threadIdx.x; q < k * META_COLS; q += blockDim.x) s_meta[q] = meta[q];
   }
   __syncthreads();
-  const Staged s{s_cx, s_cy, s_cz, s_csr, s_act, s_node, s_meta, n, k};
+  const Staged s{s_cx, s_cy, s_cz, s_csr, s_act, s_cdx, s_cdy, s_cdz,
+                 s_s1, s_s2, s_node, s_meta, n, k};
 
   const int lane = blockIdx.x * NT + threadIdx.x;
   if (lane < r) {
-    trace_lane<RECORD, RADIANCE, WALK>(lane, s, smem, pix_in, sample0, cam,
-                                       table, r, t_min, out, rec);
+    trace_lane<RECORD, RADIANCE, WALK, ANIMATED, CAM_ANIMATED>(
+        lane, s, smem, pix_in, sample0, cam, table, r, t_min, out, rec);
   }
 }
 
-int smem_bytes(int n, int k) {
-  return n * SMEM_COLS * (int)sizeof(float) +
+int smem_bytes(int n, int k, bool animated) {
+  const int cols = animated ? SMEM_COLS + MOTION_COLS : SMEM_COLS;
+  return n * cols * (int)sizeof(float) +
          k * (NODE_COLS * (int)sizeof(float) + META_COLS * (int)sizeof(int));
 }
 
-template <bool RECORD, bool RADIANCE, bool WALK>
+template <bool RECORD, bool RADIANCE, bool WALK, bool ANIMATED = false,
+          bool CAM_ANIMATED = false>
 int launch(const int32_t* smem, const int32_t* pix, const int32_t* sample0,
            const float* cam, const float* table, const float* nodes,
            const int32_t* meta, int n, int k, int r, float t_min, float* out,
            int32_t* rec, void* stream) {
   constexpr int NT = WALK ? WALK_BLOCK : BLOCK;
-  auto kernel = megakernel<RECORD, RADIANCE, WALK, NT>;
-  const int bytes = smem_bytes(n, WALK ? k : 0);
+  auto kernel = megakernel<RECORD, RADIANCE, WALK, ANIMATED, CAM_ANIMATED, NT>;
+  const int bytes = smem_bytes(n, WALK ? k : 0, ANIMATED);
   if (bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -477,20 +571,47 @@ int launch(const int32_t* smem, const int32_t* pix, const int32_t* sample0,
 extern "C" {
 
 // Bytes of dynamic shared memory the kernel needs for an N-row table and
-// K sphere-BVH nodes (K = 0: the brute search).
-int crucible_megakernel_smem_bytes(int n, int k) { return smem_bytes(n, k); }
+// K sphere-BVH nodes (K = 0: the brute search), with the motion columns
+// when `animated` is nonzero.
+int crucible_megakernel_smem_bytes(int n, int k, int animated) {
+  return smem_bytes(n, k, animated != 0);
+}
 
 // Launch the forward megakernel on `stream`: the brute search (K1) when
-// k == 0, else the walk over the K nodes (K5). Returns cudaGetLastError().
+// k == 0, else the walk over the K nodes (K5); with `animated` (brute
+// only) or `cam_animated` nonzero, their motion variants (K8). Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for an animated walk.
 int crucible_megakernel_forward(const int32_t* smem, const int32_t* pix,
                                 const int32_t* sample0, const float* cam,
                                 const float* table, const float* nodes,
                                 const int32_t* meta, int n, int k, int r,
-                                float t_min, float* out, void* stream) {
+                                float t_min, int animated, int cam_animated,
+                                float* out, void* stream) {
   if (k > 0) {
+    if (animated) return (int)cudaErrorInvalidValue;
+    if (cam_animated) {
+      return launch<false, true, true, false, true>(
+          smem, pix, sample0, cam, table, nodes, meta, n, k, r, t_min, out,
+          nullptr, stream);
+    }
     return launch<false, true, true>(smem, pix, sample0, cam, table, nodes,
                                      meta, n, k, r, t_min, out, nullptr,
                                      stream);
+  }
+  if (animated && cam_animated) {
+    return launch<false, true, false, true, true>(
+        smem, pix, sample0, cam, table, nullptr, nullptr, n, 0, r, t_min,
+        out, nullptr, stream);
+  }
+  if (animated) {
+    return launch<false, true, false, true, false>(
+        smem, pix, sample0, cam, table, nullptr, nullptr, n, 0, r, t_min,
+        out, nullptr, stream);
+  }
+  if (cam_animated) {
+    return launch<false, true, false, false, true>(
+        smem, pix, sample0, cam, table, nullptr, nullptr, n, 0, r, t_min,
+        out, nullptr, stream);
   }
   return launch<false, true, false>(smem, pix, sample0, cam, table, nullptr,
                                     nullptr, n, 0, r, t_min, out, nullptr,

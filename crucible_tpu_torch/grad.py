@@ -19,9 +19,10 @@ Two estimators compute it:
 and the direct AD elsewhere. :func:`make_train_step` wraps a
 ``torch.optim`` optimizer.
 
-Not ported yet: the depth-50 budget (lane-narrowed replay), the
-capacity-overflow recovery ladder, sample-chunked accumulation and
-checkpoints.
+Not ported yet: gradients of moving spheres and animated cameras (K8's
+record mode and the jnp-style replay), the depth-50 budget (lane-narrowed
+replay), the capacity-overflow recovery ladder, sample-chunked
+accumulation and checkpoints.
 """
 
 from __future__ import annotations
@@ -128,6 +129,12 @@ def render_pixels_mean(
     """
     if method not in ("auto", "replay", "ad"):
         raise ValueError(f"unknown method {method!r}")
+    if sd.animated or cp.animated:
+        raise NotImplementedError(
+            "gradients of moving spheres and animated cameras are not ported to "
+            "crucible_tpu_torch yet: they come with K8's record mode and the "
+            "jnp-style replay"
+        )
     sd, cp = apply_params(sd, cp, params)
     if method == "auto":
         if replay_mod.replay_supported(sd):

@@ -40,6 +40,14 @@ def write_ppm(path, img_u8: np.ndarray) -> None:
         f.write(f"P3\n{w} {h}\n255\n{body}\n")
 
 
+def write_image(path, img_u8: np.ndarray) -> None:
+    """Write by extension: ``.ppm`` as P3 text, anything else as PNG."""
+    if Path(path).suffix.lower() == ".ppm":
+        write_ppm(path, img_u8)
+    else:
+        write_png(path, img_u8)
+
+
 def _png_chunk(tag: bytes, data: bytes) -> bytes:
     body = tag + data
     return struct.pack(">I", len(data)) + body + struct.pack(">I", zlib.crc32(body))

@@ -2,16 +2,21 @@
 
 Port of ``crucible_tpu/models/camera.py``: :class:`Camera` is the host-side
 settings object with the original renderer's setter surface, and
-:class:`CameraParams` holds the tensors the integrator reads. The port
-renders static cameras (with defocus); animated cameras and exact-motion
-tracks raise ``NotImplementedError``.
+:class:`CameraParams` holds the tensors the integrator reads. Cameras may
+be keyframed (``from_timeline`` / ``at_timeline``, filled by the scene's
+``cam_translate_*`` animator): their position and target then move
+linearly over the shutter, and each ray re-derives the basis at its
+shutter fraction. A camera keyframe inside the shutter window needs
+exact-time tracks, which raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Optional
 
+import numpy as np
 import torch
 
 from crucible_tpu_torch.ops import sampling
@@ -21,7 +26,13 @@ from crucible_tpu_torch.utils import vec
 
 @dataclass
 class CameraParams:
-    """Camera tensors (float32 scalars and 3-vectors on one device)."""
+    """Camera tensors (float32 scalars and 3-vectors on one device).
+
+    An animated camera's position at a ray's shutter fraction w in [0, 1)
+    is ``look_from + w * look_from_d`` (and its target likewise), exact for
+    the timeline's tracks unless a keyframe falls inside the shutter; then
+    ``motion_exact`` is set, and the exact tracks are not ported.
+    """
 
     look_from: torch.Tensor  # (3,) at shutter open
     look_at: torch.Tensor  # (3,)
@@ -45,11 +56,12 @@ def generate_rays(
     sample_ids: torch.Tensor,
     seed,
 ):
-    """One primary ray per (pixel, sample) pair, static camera.
+    """One primary ray per (pixel, sample) pair.
 
     [-0.5,0.5)^2 pixel jitter and the defocus disk come from ONE PCG4D hash
     (stream STREAM_PIXEL_JITTER); the shutter time from STREAM_TIME. The
-    direction is pixel position minus origin, unnormalized.
+    direction is pixel position minus origin, unnormalized. An animated
+    camera re-derives its basis per ray at the ray's shutter fraction.
 
     Args:
       pixel_ids: (R,) integer flat pixel index j*width + i.
@@ -58,9 +70,10 @@ def generate_rays(
 
     Returns: (origins (R,3), directions (R,3), times (R,))
     """
-    if cp.animated or cp.motion_exact:
+    if cp.motion_exact:
         raise NotImplementedError(
-            "animated cameras are not ported to crucible_tpu_torch yet"
+            "exact-time camera motion (a camera keyframe inside the shutter "
+            "window) is not ported to crucible_tpu_torch yet"
         )
     i = (pixel_ids % width).to(torch.float32)
     j = torch.div(pixel_ids, width, rounding_mode="floor").to(torch.float32)
@@ -71,10 +84,15 @@ def generate_rays(
     u_t = crng.uniform1(pixel_ids, sample_ids, crng.STREAM_TIME, seed)
     times = cp.frame_time + u_t * cp.shutter_length
 
-    lf = cp.look_from
-    la = cp.look_at
+    if cp.animated:
+        w01 = u_t[:, None]  # (R, 1)
+        lf = cp.look_from[None, :] + w01 * cp.look_from_d[None, :]  # (R, 3)
+        la = cp.look_at[None, :] + w01 * cp.look_at_d[None, :]
+    else:
+        lf = cp.look_from
+        la = cp.look_at
     w = vec.unit(lf - la, eps=1e-12)
-    u = vec.unit(vec.cross(cp.vup, w), eps=1e-12)
+    u = vec.unit(vec.cross(torch.broadcast_to(cp.vup, w.shape), w), eps=1e-12)
     v = vec.cross(w, u)
 
     h = torch.tan(cp.vfov_rad / 2.0)
@@ -128,6 +146,10 @@ class Camera:
     max_depth: int = 10
     frame: int = 0
 
+    # Filled by the scene's animator for movie scenes (keyframed from / at).
+    from_timeline: Optional[object] = field(default=None, repr=False)
+    at_timeline: Optional[object] = field(default=None, repr=False)
+
     @property
     def image_height(self) -> int:
         return max(1, int(self.image_width / self.aspect_ratio))
@@ -159,10 +181,14 @@ class Camera:
         """Compatibility no-op: parallelism lives on the device."""
 
     def look_from(self, p) -> None:
+        """Set the camera position; resets any from-animation."""
         self.look_from_pt = tuple(float(x) for x in p)
+        self.from_timeline = None
 
     def look_at(self, p) -> None:
+        """Set the camera target; resets any at-animation."""
         self.look_at_pt = tuple(float(x) for x in p)
+        self.at_timeline = None
 
     def next_frame(self) -> None:
         self.frame += 1
@@ -179,21 +205,43 @@ class Camera:
         return t_open, t_open + (self.shutter_angle / 360.0) / self.frame_rate
 
     def params(self, *, device="cuda") -> CameraParams:
-        """The camera's tensors on ``device`` (static camera)."""
+        """The camera's tensors on ``device``: the shutter-open position and
+        target, and for a keyframed camera their shutter-close minus
+        shutter-open deltas. A timeline boundary strictly inside the
+        shutter window sets ``motion_exact`` (the linear lerp would depart
+        from the timeline there)."""
 
         def f32(x):
-            return torch.tensor(x, dtype=torch.float32, device=device)
+            return torch.tensor(np.asarray(x, np.float32), device=device)
 
-        t_open, _ = self.shutter_window()
+        t_open, t_close = self.shutter_window()
+        animated = self.from_timeline is not None or self.at_timeline is not None
+        if self.from_timeline is not None:
+            from_a = self.from_timeline.position_at(t_open)
+            from_b = self.from_timeline.position_at(t_close)
+        else:
+            from_a = from_b = self.look_from_pt
+        if self.at_timeline is not None:
+            at_a = self.at_timeline.position_at(t_open)
+            at_b = self.at_timeline.position_at(t_close)
+        else:
+            at_a = at_b = self.look_at_pt
+        exact = False
+        for tl in (self.from_timeline, self.at_timeline):
+            if tl is not None:
+                b = tl.boundary_times()
+                exact |= bool(np.any((b > t_open + 1e-9) & (b < t_close - 1e-9)))
         return CameraParams(
-            look_from=f32(self.look_from_pt),
-            look_at=f32(self.look_at_pt),
+            look_from=f32(from_a),
+            look_at=f32(at_a),
             vup=f32(self.vup),
             vfov_rad=f32(math.radians(self.vfov_deg)),
             defocus_angle_rad=f32(math.radians(self.defocus_angle_deg)),
             focus_dist=f32(self.focus_dist),
             frame_time=f32(t_open),
             shutter_length=f32((self.shutter_angle / 360.0) / self.frame_rate),
-            look_from_d=f32((0.0, 0.0, 0.0)),
-            look_at_d=f32((0.0, 0.0, 0.0)),
+            look_from_d=f32(np.subtract(from_b, from_a)),
+            look_at_d=f32(np.subtract(at_b, at_a)),
+            animated=animated,
+            motion_exact=exact,
         )

@@ -1,6 +1,8 @@
 """Demo scenes (port of the sphere scenes of ``crucible_tpu/models/demo.py``
-— book1, its tiled stress scene, the checkered and smoke scenes — and the
-garden under its procedural HDR sky).
+— book1, its tiled stress scene, the checkered and smoke scenes — the
+garden under its procedural HDR sky, and the movies: ``first_movie``, a
+keyframed camera walk around the garden's ball; ``moving_teapot`` needs
+the OBJ assets, which are not ported).
 
 Scene generation takes an explicit seed and draws from numpy in the same
 order as the JAX package, so both packages build identical tables.
@@ -19,6 +21,7 @@ from crucible_tpu_torch.models.scene import (
     Scene,
     Sphere,
 )
+from crucible_tpu_torch.models.timeline import LERP, WORLD
 
 _CHECKER_GROUND = CheckerTexture.from_colors(0.32, (0.2, 0.3, 0.1), (0.9, 0.9, 0.9))
 
@@ -167,3 +170,41 @@ def garden_skybox(width: int = 1920) -> Scene:
     sc.add_element(Sphere((0.0, 0.0, 0.0), 2.0, Metal((0.8, 0.8, 0.8), 0.05)), "metal_ball")
     sc.load_spherical_skybox("garden.hdr")
     return sc
+
+
+def first_movie(frame_rate: float = 24.0, duration: float = 15.0) -> Scene:
+    """Camera square-walk around a metal ball under the garden sky: 400
+    wide, 50 spp, depth 5, the camera keyframed by the timeline animator."""
+    ensure_garden_hdr()
+    sc = Scene.new_movie(16.0 / 9.0, 400, frame_rate, 180.0, duration)
+    cam = sc.scene_cam
+    cam.set_samples(50)
+    cam.set_max_depth(5)
+    cam.look_from((0.0, 0.0, -12.0))
+    cam.look_at((0.0, 0.0, 0.0))
+    cam.set_vfov(40.0)
+
+    sc.add_element(Sphere((0.0, 0.0, 0.0), 2.0, Metal((0.8, 0.8, 0.8), 0.05)), "metal_ball")
+    sc.load_spherical_skybox("garden.hdr")
+
+    sc.cam_translate_point((12.0, 0.0, 0.0), 2.5, LERP, WORLD, "from")
+    sc.cam_translate_point((0.0, 0.0, 12.0), 5.0, LERP, WORLD, "from")
+    sc.cam_translate_point((-12.0, 0.0, 0.0), 7.5, LERP, WORLD, "from")
+    sc.cam_translate_point((0.0, 0.0, -12.0), 10.0, LERP, WORLD, "from")
+    sc.cam_translate_point((0.0, 5.0, -20.0), 15.0, LERP, WORLD, "from")
+    return sc
+
+
+def moving_teapot(frame_rate: float = 24.0, duration: float = 5.0) -> Scene:
+    """The teapot movie needs the OBJ mesh assets and triangle meshes,
+    which are not ported: raises ``NotImplementedError``."""
+    raise NotImplementedError(
+        "moving_teapot needs OBJ mesh assets (teapot.obj) and triangle "
+        "meshes, which are not ported to crucible_tpu_torch yet"
+    )
+
+
+MOVIE_WORLDS = {
+    1: first_movie,
+    2: moving_teapot,
+}

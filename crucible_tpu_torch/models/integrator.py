@@ -1,21 +1,26 @@
 """Path integrator: the wavefront bounce, the staged schedules and the
 persistent megakernel schedule.
 
-Port of ``crucible_tpu/models/integrator.py`` for static sphere scenes:
+Port of ``crucible_tpu/models/integrator.py`` for sphere scenes, static
+or moving on the linear shutter:
 
 - the staged wavefront: :func:`intersect_scene` (closest hits through
-  ``ops/intersect.hit_spheres``, kernel K10), :func:`bounce_step`,
+  ``ops/intersect.hit_spheres``, kernel K10, or for moving spheres the
+  plain ``hit_spheres_moving``), :func:`bounce_step`,
   :func:`trace` (with ``differentiable=True`` the checkpointed bounce loop
   that the direct-AD gradient runs) and :func:`render_rays`;
 - the ``pixel`` schedule :func:`trace_persistent`, whose fused bounce
   :func:`bounce_step_fused` takes the winner's attributes from K9;
 - the ``mega`` schedule :func:`trace_persistent_mega` (K1, or K5 walking
-  the sphere BVH of a big scene) with its inputs (the (N, 32) sphere
+  the sphere BVH of a big scene; K8, their motion variants, for moving
+  spheres or an animated camera) with its inputs (the (N, 32) sphere
   attribute table, permuted into BVH leaf order for the walk; the camera
   vector) and the megakernel predicates.
 
-Triangles, moving spheres and exact-time motion raise
-``NotImplementedError``. The radiance recursion of the original renderer
+Moving spheres and animated cameras draw each path's shutter fraction w
+from the STREAM_TIME hash of its (pixel, sample), which the camera's ray
+generation draws too, so a path's rays share one shutter instant.
+Triangles and exact-time motion raise ``NotImplementedError``. The radiance recursion of the original renderer
 unrolls into an iterative product over a flat batch of rays: on a miss
 L += throughput * sky, on a hit L += throughput * emission, and on a
 scatter throughput *= attenuation. Discrete decisions (hits, winners,
@@ -43,7 +48,13 @@ T_MIN = mk.T_MIN  # shadow-acne epsilon
 BIG = mk.BIG
 
 
-def _check_static_spheres(sd: SceneData) -> None:
+EXACT_MOTION = (
+    "exact-time motion (a keyframe inside the shutter window) is not ported "
+    "to crucible_tpu_torch yet"
+)
+
+
+def _check_spheres(sd: SceneData) -> None:
     """Raise, naming what is missing, for what the staged path lacks."""
     if sd.num_tris > 0:
         raise NotImplementedError(
@@ -51,26 +62,42 @@ def _check_static_spheres(sd: SceneData) -> None:
             "integrator yet"
         )
     if sd.motion_exact:
-        raise NotImplementedError(
-            "exact per-ray-time motion is not ported to crucible_tpu_torch yet"
-        )
-    if sd.animated:
-        raise NotImplementedError(
-            "moving spheres (linear-shutter motion) are not ported to "
-            "crucible_tpu_torch's staged integrator yet"
-        )
+        raise NotImplementedError(EXACT_MOTION)
 
 
-def intersect_scene(sd: SceneData, o, d):
-    """Closest hit against the scene's spheres.
+def _motion_deltas(sd: SceneData):
+    """(center deltas (N, 3), radius deltas (N,)): the scene's, or zeros
+    where it has none."""
+    if sd.sph_center_d is not None:
+        return sd.sph_center_d, sd.sph_radius_d
+    return torch.zeros_like(sd.sph_center), torch.zeros_like(sd.sph_radius)
+
+
+def shutter_fraction(pixel_ids, sample_ids, seed):
+    """Each path's shutter fraction w in [0, 1): the first uniform of its
+    STREAM_TIME hash, as the camera draws it."""
+    return crng.uniform1(pixel_ids, sample_ids, crng.STREAM_TIME, seed)
+
+
+def intersect_scene(sd: SceneData, o, d, w=None):
+    """Closest hit against the scene's spheres; an animated scene's at the
+    rays' shutter fractions ``w`` (R,).
 
     Returns a dict of per-ray tensors: hit (bool), t, point (R, 3), normal
     (R, 3) the unit normal flipped against d, front (bool), u, v, mat
     (int64), i_sph (the winning row)."""
-    _check_static_spheres(sd)
-    t, i_s, hit = intersect.hit_spheres(
-        o, d, sd.sph_center, sd.sph_radius, sd.sph_active, T_MIN
-    )
+    _check_spheres(sd)
+    if sd.animated:
+        if w is None:
+            raise ValueError("an animated scene needs per-ray shutter fractions w")
+        cd, rd = _motion_deltas(sd)
+        t, i_s, hit = intersect.hit_spheres_moving(
+            o, d, w, sd.sph_center, cd, sd.sph_radius, rd, sd.sph_active, T_MIN
+        )
+    else:
+        t, i_s, hit = intersect.hit_spheres(
+            o, d, sd.sph_center, sd.sph_radius, sd.sph_active, T_MIN
+        )
     i_s = i_s.to(torch.int64)
     # Miss lanes carry t = BIG; the shading point uses t = 1 there so that
     # masked-out lanes stay finite (0 * inf would NaN their gradients).
@@ -78,6 +105,9 @@ def intersect_scene(sd: SceneData, o, d):
     point = o + t_shade[:, None] * d
     c_w = torch.index_select(sd.sph_center, 0, i_s)
     r_w = torch.index_select(sd.sph_radius, 0, i_s)
+    if sd.animated:
+        c_w = c_w + w[:, None] * torch.index_select(cd, 0, i_s)
+        r_w = r_w + w * torch.index_select(rd, 0, i_s)
     n_out = (point - c_w) / torch.clamp_min(r_w, 1e-20)[:, None]
     u, v = intersect.sphere_uv(n_out)
     front = vec.dot(d, n_out) < 0.0
@@ -99,13 +129,15 @@ def bounce_step(sd: SceneData, o, d, pixel_ids, sample_ids, bounce, seed,
     """One wavefront bounce: intersect, shade, sample the next direction.
 
     ``bounce`` is an int (lockstep loop) or an (R,) tensor (each lane at
-    its own depth). Returns a dict: contrib (R, 3), the radiance before the
+    its own depth). An animated scene is intersected at each path's
+    shutter fraction (:func:`shutter_fraction`). Returns a dict: contrib (R, 3), the radiance before the
     throughput weighting (sky on a miss, emission on a hit); hit,
     scattered (R,) bool; new_o, new_d, atten (R, 3). With
     ``return_decisions`` also decisions (dict of the dielectric's reflect
     choice and the Lambertian degeneracy), front and i_sph.
     """
-    h = intersect_scene(sd, o, d)
+    w = shutter_fraction(pixel_ids, sample_ids, seed) if sd.animated else None
+    h = intersect_scene(sd, o, d, w)
     hit, mat = h["hit"], h["mat"]
     sky = sky_mod.radiance(sd.sky_kind, sd.sky_image, d)
     emission = torch.index_select(sd.mat_emission, 0, mat)
@@ -184,10 +216,10 @@ def make_sphere_table(sd: SceneData) -> torch.Tensor:
       0-2 center, 3 radius, 4 |c|^2 - r^2, 5 active, 6 material type,
       7 fuzz, 8 ior, 9 scatter prob, 10-12 emission, 13 texture kind,
       14-16 solid color, 17 checker 1/scale, 18-20 even color,
-      21-23 odd color, 24-26 center delta, 27 radius delta, 28-29 motion
-      quadratic terms, 30 texture id, 31 row id.
+      21-23 odd color, 24-26 center delta, 27 radius delta, 28 s1 =
+      c.cd - r rd, 29 s2 = |cd|^2 - rd^2, 30 texture id, 31 row id.
 
-    Motion columns are zeros: the port renders static scenes."""
+    The motion columns 24-29 are zeros for a static scene."""
     n = sd.sph_center.shape[0]
     mat = sd.sph_mat.long()
     tid = sd.mat_tex[mat].long()
@@ -199,7 +231,7 @@ def make_sphere_table(sd: SceneData) -> torch.Tensor:
     color = sd.tex.color[tid]
     even = sd.tex.color[even_id]
     odd = sd.tex.color[odd_id]
-    zeros = torch.zeros_like(r)
+    cd, rd = _motion_deltas(sd)
     cols = [
         c[:, 0], c[:, 1], c[:, 2],
         r,
@@ -215,7 +247,10 @@ def make_sphere_table(sd: SceneData) -> torch.Tensor:
         sd.tex.inv_scale[tid],
         even[:, 0], even[:, 1], even[:, 2],
         odd[:, 0], odd[:, 1], odd[:, 2],
-        zeros, zeros, zeros, zeros, zeros, zeros,
+        cd[:, 0], cd[:, 1], cd[:, 2],
+        rd,
+        c[:, 0] * cd[:, 0] + c[:, 1] * cd[:, 1] + c[:, 2] * cd[:, 2] - r * rd,
+        cd[:, 0] * cd[:, 0] + cd[:, 1] * cd[:, 1] + cd[:, 2] * cd[:, 2] - rd * rd,
         tid.to(torch.float32),
         torch.arange(n, dtype=torch.float32, device=c.device),
     ]
@@ -223,9 +258,10 @@ def make_sphere_table(sd: SceneData) -> torch.Tensor:
 
 
 def megakernel_supported(sd: SceneData, cp: CameraParams) -> bool:
-    """The port's megakernel renders sphere-only static scenes with solid /
-    checker-of-solid textures under the default sky, seen by a static
-    camera. :func:`megakernel_unsupported_reason` names what is missing."""
+    """The port's megakernel renders sphere-only scenes, static or moving
+    on the linear shutter, with solid / checker-of-solid textures under the
+    default sky, seen by a static or linearly animated camera.
+    :func:`megakernel_unsupported_reason` names what is missing."""
     return megakernel_unsupported_reason(sd, cp) is None
 
 
@@ -236,18 +272,18 @@ def megakernel_unsupported_reason(sd: SceneData, cp: CameraParams):
         (len(sd.tex.images) == 0, "image textures"),
         (sd.tex.max_nest <= 1, "nested checker textures"),
         (sd.sky_kind == sky_mod.DEFAULT, "the spherical sky"),
-        (not sd.animated and not sd.motion_exact, "moving spheres"),
-        (not cp.animated and not cp.motion_exact, "animated cameras"),
+        (not sd.motion_exact and not cp.motion_exact, "exact-time motion"),
     )
     return next((what for ok, what in checks if not ok), None)
 
 
 def megakernel_record_supported(sd: SceneData, cp: CameraParams) -> bool:
     """The port's subset of the JAX record-mode predicate: sphere-only
-    static scenes seen by a static camera, with at most ``mk.MAX_ROWS`` table
-    rows or with the sphere-BVH tables (``sd.sph_perm``) that the walk
-    takes instead. The record's decisions read no albedo or sky, so
-    textures and the sky do not limit it."""
+    static scenes seen by a static camera (the record mode of K8 comes with
+    the gradient of moving scenes), with at most ``mk.MAX_ROWS`` table rows
+    or with the sphere-BVH tables (``sd.sph_perm``) that the walk takes
+    instead. The record's decisions read no albedo or sky, so textures and
+    the sky do not limit it."""
     return megakernel_record_unsupported_reason(sd, cp) is None
 
 
@@ -256,8 +292,10 @@ def megakernel_record_unsupported_reason(sd: SceneData, cp: CameraParams):
     rows_ok = int(sd.sph_center.shape[0]) <= mk.MAX_ROWS or sd.sph_perm is not None
     checks = (
         (sd.num_tris == 0, "triangle meshes"),
-        (not sd.animated and not sd.motion_exact, "moving spheres"),
-        (not cp.animated and not cp.motion_exact, "animated cameras"),
+        (not sd.animated and not sd.motion_exact,
+         "moving spheres (K8's record mode, with the gradient of moving scenes)"),
+        (not cp.animated and not cp.motion_exact,
+         "animated cameras (K8's record mode, with the gradient of moving scenes)"),
         (rows_ok, f"more than {mk.MAX_ROWS} sphere rows without the sphere-BVH tables"),
     )
     return next((what for ok, what in checks if not ok), None)
@@ -398,9 +436,9 @@ def trace_persistent_mega(
 def fused_supported(sd: SceneData) -> bool:
     """The fused gather-free bounce applies to sphere-only scenes whose
     textures are solid / checker-of-solid (the table bakes one level of
-    checker colors, and uv is not computed). The spherical sky is fine: it
-    is sampled outside the kernel. Exact per-ray-time motion stays on the
-    staged bounce."""
+    checker colors, and uv is not computed), static or moving on the
+    linear shutter. The spherical sky is fine: it is sampled outside the
+    kernel. Exact per-ray-time motion stays on the staged bounce."""
     return (
         sd.num_tris == 0
         and len(sd.tex.images) == 0
@@ -413,9 +451,14 @@ def bounce_step_fused(sd: SceneData, table, o, d, pixel_ids, sample_ids, bounce,
     """Gather-free bounce for sphere scenes: K9 (``hit_spheres_fetch``)
     returns the winner's shading attributes with its hit, so everything
     after it is elementwise (no sphere-uv either: uv feeds only image
-    textures, absent here). Returns :func:`bounce_step`'s dict."""
-    _check_static_spheres(sd)
-    w = torch.zeros((o.shape[0],), dtype=torch.float32, device=o.device)
+    textures, absent here). An animated scene's spheres move to each path's
+    shutter fraction; a static scene passes w = 0. Returns
+    :func:`bounce_step`'s dict."""
+    _check_spheres(sd)
+    if sd.animated:
+        w = shutter_fraction(pixel_ids, sample_ids, seed)
+    else:
+        w = torch.zeros((o.shape[0],), dtype=torch.float32, device=o.device)
     out = sphere_shade.hit_spheres_fetch(o.contiguous(), d.contiguous(), w, table, T_MIN)
     t = out[0]
     hit = t < BIG

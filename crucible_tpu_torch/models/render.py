@@ -1,14 +1,20 @@
-"""Render drivers: the whole-image forward render.
+"""Render drivers: the whole-image forward render and the movie driver.
 
-Port of the still-image path of ``crucible_tpu/models/render.py``:
+Port of ``crucible_tpu/models/render.py``'s persistent path:
 ``render_image`` -> ``render_image_data`` -> ``render_image_persistent``,
 which runs one of two schedules:
 
 - ``mega``: ``integrator.trace_persistent_mega``, the megakernel: the
   brute search (K1), or above ``CULL_MIN_ROWS`` rows the sphere-BVH walk
-  (K5);
+  (K5); for moving spheres or an animated camera their motion variants
+  (K8);
 - ``pixel``: ``integrator.trace_persistent``, the staged persistent
   wavefront, with the fused hit + fetch kernel (K9) per bounce.
+
+:func:`render_movie` renders ``ceil(duration * fps)`` frames of a movie
+scene to ``<fname>/artifacts/imageNNN.ppm`` and assembles them with ffmpeg
+where it is installed (:func:`make_mp4`); the frames persist, so
+``skip_existing`` resumes a cut render.
 
 A scene neither schedule renders raises ``NotImplementedError`` naming the
 missing feature. Every entry point runs on ``device="cuda"`` unless the
@@ -18,9 +24,18 @@ does), it never falls back to the CPU.
 
 from __future__ import annotations
 
+import math
+import shutil
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
 import numpy as np
 import torch
 
+from crucible_tpu_torch.io.image import write_image
 from crucible_tpu_torch.models import integrator
 from crucible_tpu_torch.models.camera import CameraParams
 from crucible_tpu_torch.models.scene import Scene, SceneData
@@ -79,8 +94,11 @@ def render_image_persistent(
     walk uses the scene's ``sph_perm`` / ``sph_nodes`` / ``sph_meta`` and
     raises ``ValueError`` on a scene without them; so does ``cull=False``
     above the brute kernel's ``mk.MAX_ROWS``. The walk over an animated
-    scene needs the chunk-cull branch and raises ``NotImplementedError``."""
+    scene needs the chunk-cull branch and raises ``NotImplementedError``,
+    as does exact-time motion (a keyframe inside the shutter window)."""
     _check_device(sd, cp, device)
+    if sd.motion_exact or cp.motion_exact:
+        raise NotImplementedError(integrator.EXACT_MOTION)
     rows = int(sd.sph_center.shape[0])
     if cull is None:
         cull = schedule in ("auto", "mega") and rows > CULL_MIN_ROWS
@@ -182,4 +200,99 @@ def render_image(
 def to_u8(img_linear: torch.Tensor) -> np.ndarray:
     """Linear radiance (H, W, 3) -> uint8 film on the host."""
     return color_mod.to_bytes(torch.as_tensor(img_linear)).cpu().numpy()
+
+
+def render_image_to_file(scene: Scene, fname: str, *, device="cuda") -> torch.Tensor:
+    """Render and write ``fname`` (``.ppm`` as P3 text, another extension as
+    PNG; a bare name gets ``.ppm``). Returns the linear image."""
+    img = render_image(scene, device=device)
+    path = Path(fname)
+    if not path.suffix:
+        path = path.with_suffix(".ppm")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    write_image(path, to_u8(img.cpu()))
+    return img
+
+
+def compute_frame_count(duration: float, fps: float) -> int:
+    """ceil(duration * fps)."""
+    return math.ceil(duration * fps)
+
+
+def render_movie(
+    scene: Scene,
+    fname: str,
+    skip_existing: bool = False,
+    verbose: bool = True,
+    on_frame=None,
+    *,
+    device="cuda",
+) -> Path:
+    """Render ``ceil(duration * fps)`` frames of a movie scene to
+    ``<fname>/artifacts/imageNNN.ppm`` and assemble ``<fname>/<name>.mp4``
+    (:func:`make_mp4`).
+
+    Each frame is the scene at its own shutter window: the camera's
+    ``frame`` steps through 0..n-1, and ``Scene.build`` and
+    ``Camera.params`` lower the timelines for that window. The loop is
+    pipelined: frame i is dispatched to the device, then frame i-1 is
+    fetched, quantized and written on one worker thread while the device
+    renders. ``skip_existing`` skips frames whose file exists (resume);
+    ``on_frame(frame_index, seconds)`` fires once per rendered frame, with
+    its dispatch-to-written time (which includes the overlap).
+    """
+    if scene.duration is None:
+        raise ValueError("render_movie needs a movie scene (Scene.duration set)")
+    out_dir = Path(fname)
+    artifacts = out_dir / "artifacts"
+    artifacts.mkdir(parents=True, exist_ok=True)
+    fps = scene.frame_rate
+    n_frames = compute_frame_count(scene.duration, fps)
+    pad = max(3, len(str(n_frames)))
+    cam = scene.scene_cam
+
+    def finish(path, img, t0, fi):
+        write_image(path, to_u8(img.cpu()))  # .cpu() waits for the frame
+        return fi, time.time() - t0
+
+    def report(pending):
+        done_fi, dt = pending.result()
+        if on_frame is not None:
+            on_frame(done_fi, dt)
+
+    pending = None
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        for fi in range(n_frames):
+            cam.frame = fi
+            frame_path = artifacts / f"image{fi:0{pad}d}.ppm"
+            if skip_existing and frame_path.exists():
+                continue
+            if verbose:
+                print(f"frame {fi + 1}/{n_frames}", file=sys.stderr)
+            t0 = time.time()
+            img = render_image(scene, device=device)
+            if pending is not None:
+                report(pending)
+            pending = ex.submit(finish, frame_path, img, t0, fi)
+        if pending is not None:
+            report(pending)
+    return make_mp4(artifacts, out_dir / f"{out_dir.name}.mp4", fps, pad)
+
+
+def make_mp4(artifacts: Path, out_path: Path, fps: float, pad: int) -> Path:
+    """Assemble ``artifacts/imageNNN.ppm`` into an H.264 mp4 with ffmpeg.
+    Where ffmpeg is not on PATH the frames stay as they are, and the
+    frames directory is returned."""
+    if shutil.which("ffmpeg") is None:
+        print("ffmpeg not found; frames left in", artifacts, file=sys.stderr)
+        return artifacts
+    cmd = [
+        "ffmpeg", "-y", "-framerate", str(fps),
+        "-i", str(artifacts / f"image%0{pad}d.ppm"),
+        "-vf", "scale=trunc(iw/2)*2:trunc(ih/2)*2",
+        "-c:v", "libx264", "-pix_fmt", "yuv420p", "-crf", "25",
+        str(out_path),
+    ]
+    subprocess.run(cmd, check=True, capture_output=True)
+    return out_path
 

@@ -5,9 +5,13 @@ keeps the original surface (aliased elements via an id vendor, show/hide)
 and ``Scene.build`` lowers the element list into flat arrays with numpy,
 exactly as the JAX package does, converting to tensors on the requested
 device only at the end. The spherical (equirect) sky loads from a ``.hdr``
-asset. Scenes above ``render.CULL_MIN_ROWS`` sphere rows also get the
-sphere-BVH tables of the megakernel's walk. Triangles, OBJ assets, image
-textures and timelines raise ``NotImplementedError``.
+asset. Static scenes above ``render.CULL_MIN_ROWS`` sphere rows also get
+the sphere-BVH tables of the megakernel's walk. Spheres and the camera are
+animated with keyframe timelines (``models/timeline.py``) through the
+animator surface (``translate_*``, ``scale_*``, ``cam_translate_*``);
+``Scene.build`` lowers them for one shutter window, linearly (centre and
+radius at shutter open plus their deltas to shutter close). Triangles, OBJ
+assets and image textures raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from crucible_tpu_torch.models import materials as mat_mod
 from crucible_tpu_torch.models import skybox as sky_mod
 from crucible_tpu_torch.models import textures as tex_mod
 from crucible_tpu_torch.models.camera import Camera
+from crucible_tpu_torch.models.timeline import TransformTimeline
 
 # Sphere-table row padding (the JAX package's default, env override and all,
 # so both packages build identical tables).
@@ -123,7 +128,7 @@ class Sphere:
     material: MaterialSpec
     id: int = 0
     hide: bool = False
-    timeline: Optional[object] = None  # animation: not ported (build raises)
+    timeline: Optional[object] = None  # TransformTimeline once animated
 
     def __post_init__(self):
         assert self.radius >= 0.0, "Cannot make a sphere with negative radius"
@@ -181,9 +186,9 @@ class SceneData:
     """Flat SoA sphere scene: tensors on one device + static metadata.
 
     Field names and layouts are those of the JAX package's ``SceneData``;
-    the triangle, triangle-BVH, motion and cluster-cull fields are absent
-    because the port does not render them yet (``num_tris``, ``animated``
-    and ``motion_exact`` still say whether a bridged scene needs them).
+    the triangle, triangle-BVH, exact-time track and cluster-cull fields
+    are absent because the port does not render them yet (``num_tris`` and
+    ``motion_exact`` still say whether a bridged scene needs them).
     ``sky_image`` is None under the default sky (where the JAX package keeps
     a (1, 1, 3) placeholder).
     """
@@ -205,6 +210,16 @@ class SceneData:
     tex: tex_mod.TextureTable
 
     sky_image: Optional[torch.Tensor] = None  # (H, W, 3) spherical sky
+
+    # Linear shutter-motion deltas (animated scenes, else None): a sphere at
+    # the per-ray shutter fraction w has center c + w * cd and radius
+    # r + w * rd (models/timeline.py).
+    sph_center_d: Optional[torch.Tensor] = None  # (N, 3) float32
+    sph_radius_d: Optional[torch.Tensor] = None  # (N,) float32
+    # The shutter window (absolute times) of a motion_exact scene, else None.
+    motion_t0: Optional[torch.Tensor] = None  # () float32
+    motion_t1: Optional[torch.Tensor] = None  # () float32
+
     sky_kind: int = sky_mod.DEFAULT
     num_spheres: int = 0
     num_tris: int = 0
@@ -338,6 +353,7 @@ class Scene:
         image_width: int = 400,
         frame_rate: float = 24.0,
         shutter_angle: float = 180.0,
+        duration: Optional[float] = None,
         seed: int = 0,
     ):
         self.scene_cam = Camera(
@@ -350,6 +366,8 @@ class Scene:
         self.sky_kind: int = sky_mod.DEFAULT
         self.sky_image: Optional[np.ndarray] = None
         self.id_vendor = IdVendor()
+        self.duration = duration  # seconds of a movie, None for an image
+        self.frame_rate = frame_rate
         self.seed = seed
         self._cache: Optional[SceneData] = None
         self._cache_key = None
@@ -357,11 +375,13 @@ class Scene:
     @classmethod
     def new_image(cls, aspect_ratio, image_width, frame_rate=24.0, shutter_angle=180.0, threads=None):
         del threads  # parallelism lives on the device
-        return cls(aspect_ratio, image_width, frame_rate, shutter_angle)
+        return cls(aspect_ratio, image_width, frame_rate, shutter_angle, None)
 
     @classmethod
-    def new_movie(cls, *args, **kwargs):
-        raise _unported("movie rendering")
+    def new_movie(cls, aspect_ratio, image_width, frame_rate, shutter_angle, duration,
+                  threads=None):
+        del threads
+        return cls(aspect_ratio, image_width, frame_rate, shutter_angle, duration)
 
     # --- element management -------------------------------------------------
     def add_element(self, element: Union[Sphere, Triangle], alias: str) -> int:
@@ -403,40 +423,182 @@ class Scene:
     def show_element(self, alias: str) -> None:
         self._set_hidden(alias, False)
 
+    # --- animation (the original renderer's scene-animator surface) ---------
+    def _check_alias(self, alias: str, invalid_types) -> int:
+        """Alias lookup and object-type check."""
+        info = self.id_vendor.alias_lookup(alias)
+        if info is None:
+            raise KeyError(f"unknown alias {alias!r}")
+        oid, o_type = info
+        if o_type in invalid_types:
+            raise TypeError(f"animation not valid for object type {o_type!r} ({alias!r})")
+        return oid
+
+    def _element_timelines(self, oid: int):
+        """The timelines of every element with id ``oid``, created on
+        demand (a sphere's starts at its center and radius)."""
+        out = []
+        for el in self.elements:
+            if el.id != oid:
+                continue
+            if el.timeline is None:
+                el.timeline = TransformTimeline(
+                    init_pos=tuple(el.center), init_scale=float(el.radius)
+                )
+            out.append(el.timeline)
+        self._cache = None
+        return out
+
+    def translate_x(self, x, keyframe, interp, space, alias):
+        for tl in self._element_timelines(self._check_alias(alias, [CAMERA_TYPE])):
+            tl.translate_x(x, keyframe, interp, space)
+
+    def translate_y(self, y, keyframe, interp, space, alias):
+        for tl in self._element_timelines(self._check_alias(alias, [CAMERA_TYPE])):
+            tl.translate_y(y, keyframe, interp, space)
+
+    def translate_z(self, z, keyframe, interp, space, alias):
+        for tl in self._element_timelines(self._check_alias(alias, [CAMERA_TYPE])):
+            tl.translate_z(z, keyframe, interp, space)
+
+    def translate_point(self, p, keyframe, interp, space, alias):
+        for tl in self._element_timelines(self._check_alias(alias, [CAMERA_TYPE])):
+            tl.translate_point(p, keyframe, interp, space)
+
+    def scale_r(self, r, keyframe, interp, alias):
+        """Sphere radius keyframe: spheres only."""
+        oid = self._check_alias(alias, [CAMERA_TYPE, MESH_TYPE, TRIANGLE_TYPE])
+        for tl in self._element_timelines(oid):
+            tl.scale_r(r, keyframe, interp)
+
+    def _axis_scale(self, alias: str):
+        """Timelines of a per-axis scale, which spheres refuse."""
+        return self._element_timelines(self._check_alias(alias, [CAMERA_TYPE, SPHERE_TYPE]))
+
+    def scale_x(self, f, keyframe, interp, alias):
+        for tl in self._axis_scale(alias):
+            tl.scale_x(f, keyframe, interp)
+
+    def scale_y(self, f, keyframe, interp, alias):
+        for tl in self._axis_scale(alias):
+            tl.scale_y(f, keyframe, interp)
+
+    def scale_z(self, f, keyframe, interp, alias):
+        for tl in self._axis_scale(alias):
+            tl.scale_z(f, keyframe, interp)
+
+    def scale_point(self, p, keyframe, interp, alias):
+        """Vector-valued scale keyframe: one key per axis."""
+        for tl in self._axis_scale(alias):
+            tl.scale_x(p[0], keyframe, interp)
+            tl.scale_y(p[1], keyframe, interp)
+            tl.scale_z(p[2], keyframe, interp)
+
+    def scale_all_uniform(self, f, keyframe, interp, alias):
+        for tl in self._axis_scale(alias):
+            tl.scale_uniform(f, keyframe, interp)
+
+    def _cam_timeline(self, which: str) -> TransformTimeline:
+        cam = self.scene_cam
+        if which == "from":
+            if cam.from_timeline is None:
+                cam.from_timeline = TransformTimeline(init_pos=cam.look_from_pt)
+            return cam.from_timeline
+        if which == "at":
+            if cam.at_timeline is None:
+                cam.at_timeline = TransformTimeline(init_pos=cam.look_at_pt)
+            return cam.at_timeline
+        raise KeyError(f"camera animation target must be 'from' or 'at', got {which!r}")
+
+    def cam_translate_x(self, x, keyframe, interp, space, which):
+        self._cam_timeline(which).translate_x(x, keyframe, interp, space)
+
+    def cam_translate_y(self, y, keyframe, interp, space, which):
+        self._cam_timeline(which).translate_y(y, keyframe, interp, space)
+
+    def cam_translate_z(self, z, keyframe, interp, space, which):
+        self._cam_timeline(which).translate_z(z, keyframe, interp, space)
+
+    def cam_translate_point(self, p, keyframe, interp, space, which):
+        self._cam_timeline(which).translate_point(p, keyframe, interp, space)
+
+    @property
+    def is_animated(self) -> bool:
+        """Whether any element has keyframes (the camera's do not count)."""
+        return any(e.timeline is not None and e.timeline.animated for e in self.elements)
+
     # --- lowering -----------------------------------------------------------
-    def build(self, *, device="cuda") -> SceneData:
-        """Lower the element list to a SceneData on ``device`` (cached until
-        the scene is mutated). Without CUDA, name ``device="cpu"``."""
+    def build(self, t_open: float | None = None, t_close: float | None = None, *,
+              device="cuda") -> SceneData:
+        """Lower the element list to a SceneData on ``device``, cached per
+        device and (for an animated scene) shutter window until the scene is
+        mutated. Without CUDA, name ``device="cpu"``.
+
+        An animated scene is lowered for the shutter window [t_open,
+        t_close] (default: the camera's current frame): each sphere's
+        center and radius at shutter open, and their deltas to shutter close
+        (``sph_center_d`` / ``sph_radius_d``); the renderers lerp them per
+        ray. A timeline boundary strictly inside the window sets
+        ``motion_exact`` (and ``motion_t0`` / ``motion_t1``): the linear
+        lowering departs from the timeline there, and the exact-time tracks
+        that the renderers would need are not ported.
+        """
         device = torch.device(device)
-        if self._cache is not None and self._cache_key == device:
+        animated = self.is_animated
+        if animated and t_open is None:
+            t_open, t_close = self.scene_cam.shutter_window()
+        key = (device, (t_open, t_close) if animated else None)
+        if self._cache is not None and self._cache_key == key:
             return self._cache
-        if any(s.timeline is not None for s in self.elements):
-            raise _unported("timeline animation")
+
+        def mid_shutter(tl) -> bool:
+            b = tl.boundary_times()
+            return bool(np.any((b > t_open + 1e-9) & (b < t_close - 1e-9)))
+
+        motion_exact = animated and any(
+            s.timeline is not None and mid_shutter(s.timeline) for s in self.elements
+        )
 
         tables = _TableBuilder()
         spheres = self.elements
         n = len(spheres)
         n_pad = _pad_to(n, SPHERE_PAD)
         sph_center = np.zeros((n_pad, 3), np.float32)
+        sph_center_b = np.zeros((n_pad, 3), np.float32)
         sph_radius = np.ones((n_pad,), np.float32)
+        sph_radius_b = np.ones((n_pad,), np.float32)
         sph_mat = np.zeros((n_pad,), np.int32)
         sph_active = np.zeros((n_pad,), bool)
         for k, s in enumerate(spheres):
-            sph_center[k] = s.center
-            sph_radius[k] = s.radius
+            if animated and s.timeline is not None:
+                sph_center[k] = s.timeline.position_at(t_open)
+                sph_center_b[k] = s.timeline.position_at(t_close)
+                sph_radius[k] = float(s.timeline.scale_at(t_open)[0])
+                sph_radius_b[k] = float(s.timeline.scale_at(t_close)[0])
+            else:
+                sph_center[k] = sph_center_b[k] = s.center
+                sph_radius[k] = sph_radius_b[k] = s.radius
             sph_mat[k] = tables.material(s.material)
             sph_active[k] = not s.hide
 
         def t(a, dtype):
             return torch.as_tensor(np.asarray(a, dtype), device=device)
 
+        motion = {}
+        if animated:
+            motion = dict(sph_center_d=t(sph_center_b - sph_center, np.float32),
+                          sph_radius_d=t(sph_radius_b - sph_radius, np.float32))
+        if motion_exact:
+            motion.update(motion_t0=t(t_open, np.float32), motion_t1=t(t_close, np.float32))
+
         # Sphere-BVH tables for the megakernel's walk, past the brute
-        # search's crossover (every scene built here is static).
+        # search's crossover. Static scenes only: animated big scenes need
+        # the chunk-cull branch over motion-swept boxes, not ported.
         from crucible_tpu_torch.models.render import CULL_MIN_ROWS
         from crucible_tpu_torch.ops.kernels import megakernel as mk
 
         sph_struct = {}
-        if n_pad > CULL_MIN_ROWS and bool(sph_active.any()):
+        if n_pad > CULL_MIN_ROWS and bool(sph_active.any()) and not animated:
             perm_s, snodes, smeta = mk.sphere_bvh_tables(sph_center, sph_radius, sph_active)
             sph_struct = dict(sph_perm=t(perm_s, np.int32), sph_nodes=t(snodes, np.float32),
                               sph_meta=t(smeta, np.int32))
@@ -460,27 +622,12 @@ class Scene:
             sky_image=None if self.sky_image is None else t(self.sky_image, np.float32),
             sky_kind=self.sky_kind,
             num_spheres=n,
+            animated=animated,
+            motion_exact=motion_exact,
+            **motion,
             **sph_struct,
         )
         self._cache = sd
-        self._cache_key = device
+        self._cache_key = key
         return sd
 
-
-def _timeline_method(name: str):
-    def method(self, *args, **kwargs):
-        raise _unported("timeline animation")
-
-    method.__name__ = name
-    return method
-
-
-# The animator surface of the JAX Scene: present, refusing until timelines
-# are ported.
-for _name in (
-    "translate_x", "translate_y", "translate_z", "translate_point",
-    "scale_r", "scale_x", "scale_y", "scale_z", "scale_point",
-    "scale_all_uniform", "cam_translate_x", "cam_translate_y",
-    "cam_translate_z", "cam_translate_point",
-):
-    setattr(Scene, _name, _timeline_method(_name))

@@ -7,6 +7,10 @@ the hit distance as an IMPLICIT function of the winning sphere's quadratic
 f(t) = |o + t d - c|^2 - r^2 = 0: dt/dtheta = -(df/dtheta) / (df/dt), so it
 touches only the R winners instead of an (R, N) candidate matrix. Winners
 and hit flags are discrete and carry no gradient.
+
+:func:`hit_spheres_moving` is the closest hit against linearly moving
+spheres, in plain torch: the semantic reference of the motion branches of
+K8 and K9, and the staged bounce's search for animated scenes.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import math
 import torch
 
 from crucible_tpu_torch.ops.kernels import sphere_hit
-from crucible_tpu_torch.utils.vec import safe_arccos, safe_arctan2
+from crucible_tpu_torch.utils.vec import dot, safe_arccos, safe_arctan2
 
 BIG = sphere_hit.BIG
 
@@ -81,6 +85,48 @@ def hit_spheres(o, d, centers, radii, active, t_min):
         )
     active_f = torch.as_tensor(active, device=centers.device).to(torch.float32)
     return _ClosestHit.apply(o, d, centers, radii, active_f, float(t_min))
+
+
+def hit_spheres_moving(o, d, w, ca, cd, ra, rd, active, t_min):
+    """Closest hit against linearly moving spheres: at the per-ray shutter
+    fraction w in [0, 1], sphere k has center ca_k + w cd_k and radius
+    ra_k + w rd_k.
+
+    The (R, N) terms expand as the JAX package expands them, so that no
+    (R, N, 3) tensor is formed: d.c(w) = d.ca + w (d.cd), |c(w)|^2 =
+    |ca|^2 + 2w (ca.cd) + w^2 |cd|^2 and r(w)^2 = ra^2 + 2w (ra rd) +
+    w^2 rd^2; a root needs a positive discriminant. Plain torch,
+    differentiable by autograd (the winner-only backward is not ported).
+
+    Args: o, d (R, 3); w (R,); ca, cd (N, 3); ra, rd (N,); active (N,)
+    bool or 0/1; t_min the exclusive lower bound of accepted roots (the
+    upper one is infinite).
+    Returns (t (R,), BIG on a miss; idx (R,) int32, 0 on a miss; hit (R,)).
+    """
+    act = torch.as_tensor(active, device=ca.device).to(torch.float32) > 0.0
+    wc = w[:, None]
+
+    def dots(v, c):  # (R, N) v . c_k
+        return v[:, 0:1] * c[:, 0] + v[:, 1:2] * c[:, 1] + v[:, 2:3] * c[:, 2]
+
+    d_dot_c = dots(d, ca) + wc * dots(d, cd)
+    o_dot_c = dots(o, ca) + wc * dots(o, cd)
+    c_sq = dot(ca, ca)[None, :] + 2.0 * wc * dot(ca, cd)[None, :] + (wc * wc) * dot(cd, cd)[None, :]
+    r_sq = (ra * ra)[None, :] + 2.0 * wc * (ra * rd)[None, :] + (wc * wc) * (rd * rd)[None, :]
+    a = dot(d, d)[:, None]
+    h = d_dot_c - dot(d, o)[:, None]
+    c = c_sq - 2.0 * o_dot_c + dot(o, o)[:, None] - r_sq
+    disc = h * h - a * c
+    pos = disc > 0.0
+    sqrtd = torch.where(pos, torch.sqrt(torch.where(pos, disc, 1.0)), 0.0)
+    root0 = (h - sqrtd) / a
+    root1 = (h + sqrtd) / a
+    ok0 = (root0 > t_min) & (root0 < math.inf)
+    ok1 = (root1 > t_min) & (root1 < math.inf)
+    root = torch.where(ok0, root0, root1)
+    t_all = torch.where(pos & (ok0 | ok1) & act[None, :], root, BIG)
+    t, idx = t_all.min(dim=1)
+    return t, idx.to(torch.int32), t < BIG
 
 
 def sphere_uv(n):

@@ -1,8 +1,10 @@
 """Persistent path-tracing megakernel for sphere scenes: forward and record.
 
-Port of ``crucible_tpu/ops/pallas/megakernel.py`` for its static-camera,
-non-animated sphere branches — the brute search over every table row (K1,
-K2) and the per-lane sphere-BVH walk of big scenes (K5) — in both modes:
+Port of ``crucible_tpu/ops/pallas/megakernel.py`` for its sphere branches
+— the brute search over every table row (K1, K2) and the per-lane
+sphere-BVH walk of big scenes (K5) in both modes, and in forward mode
+their motion variants (K8: ``animated`` spheres on the linear shutter,
+brute search only, and the ``cam_animated`` keyframed camera):
 
 - :func:`run_megakernel` (forward): given the lanes' pixel ids and first
   samples, the camera vector and the (N, 32) sphere table, it traces every
@@ -27,15 +29,16 @@ per-lane sample regeneration, as the TPU kernel runs them, the brute
 (lanes x N) quadratic in lane chunks or the lockstep walk, and shading from
 the ported materials / textures / skybox / sampling code. ``LAUNCHES``,
 ``LAUNCHES_RECORD`` (brute) and ``LAUNCHES_WALK``, ``LAUNCHES_RECORD_WALK``
-(the walk) count kernel launches (not twin calls); ``WALK_COUNTS`` counts
-the plain walk's work.
+(the walk) count the static kernels' launches, ``LAUNCHES_MOTION`` (brute)
+and ``LAUNCHES_MOTION_WALK`` K8's (not twin calls); ``WALK_COUNTS`` counts
+the plain walk's work and ``SEARCH_COUNTS`` the plain forward's.
 
 Layouts: ``smem`` (8,) int32 ``[spp, seed, width, max_depth, accum_from,
 0...]`` (spp and seed are uint32 bit patterns; accum_from is read in record
 mode only); ``pix`` and ``sample0`` (1, R) int32 (padding lanes carry
-``sample0 = 2**30`` and never issue); ``cam`` (1, 48) float32 (static slots
-0-18, layout below); ``table`` (N, 32) float32 in the
-``integrator.make_sphere_table`` layout.
+``sample0 = 2**30`` and never issue); ``cam`` (1, 48) float32 (layout
+below); ``table`` (N, 32) float32 in the ``integrator.make_sphere_table``
+layout (the motion columns 24-29 read by the ``animated`` variant).
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ from crucible_tpu_torch.models import skybox as sky_mod
 from crucible_tpu_torch.models import textures as tex_mod
 from crucible_tpu_torch.ops import bvh as bvh_mod
 from crucible_tpu_torch.ops import sampling
-from crucible_tpu_torch.ops.kernels import build, sphere_hit
+from crucible_tpu_torch.ops.kernels import build, sphere_hit, sphere_shade
 from crucible_tpu_torch.ops.kernels.sphere_hit import BIG, T_MIN  # noqa: F401
 from crucible_tpu_torch.utils import rng as crng
 
@@ -62,8 +65,10 @@ C_IN = 32  # sphere attribute table columns (make_sphere_table layout)
 
 # Camera constant vector layout (1, 48) float32. Static-camera slots:
 #  0-2 pixel00, 3-5 du, 6-8 dv, 9-11 look_from, 12-14 basis u, 15-17 basis v,
-#  18 defocus_radius. Slots 19-37 carry the animated-camera extras (not
-#  ported), 38-47 are padding.
+#  18 defocus_radius. Animated-camera slots: 19-21 look_at, 22-24 look_from
+#  delta, 25-27 look_at delta, 28-30 vup, 31 viewport_h, 32 viewport_w,
+#  33 focus_dist, 34 width, 35 height, 36 0.5 (width - 1), 37 0.5 (height -
+#  1). Slots 38-47 are padding.
 CAM_SIZE = 48
 
 # The kernel stages five float32 columns per row in shared memory, of which
@@ -71,6 +76,10 @@ CAM_SIZE = 48
 SHARED_MEM_BYTES = 232448
 SMEM_COLS = 5
 MAX_ROWS = SHARED_MEM_BYTES // (SMEM_COLS * 4)
+# The animated variant stages five motion columns more (center delta, s1,
+# s2): 10 floats a row.
+MOTION_COLS = 5
+MAX_ROWS_ANIMATED = SHARED_MEM_BYTES // ((SMEM_COLS + MOTION_COLS) * 4)
 
 # sample0 of a padding lane: it never issues.
 NO_SAMPLE = 2**30
@@ -111,9 +120,16 @@ LAUNCHES = 0
 LAUNCHES_RECORD = 0
 LAUNCHES_WALK = 0
 LAUNCHES_RECORD_WALK = 0
+# K8: the forward kernel's motion variants, brute (animated and / or
+# cam_animated) and walk (cam_animated).
+LAUNCHES_MOTION = 0
+LAUNCHES_MOTION_WALK = 0
 # The plain walk's work since the last reset: slab tests of a node, rows
 # of a leaf tested, and rows whose discriminant was not negative.
 WALK_COUNTS = {"nodes": 0, "rows": 0, "roots": 0}
+# The plain forward's work since the last reset: closest-hit searches (one
+# per lane and bounce traced) and primary rays issued.
+SEARCH_COUNTS = {"searches": 0, "issued": 0}
 
 
 def as_i32(v: int) -> int:
@@ -206,27 +222,32 @@ def run_megakernel(
     """Dispatch the persistent megakernel -> per-lane radiance sums (3, R).
 
     With ``sph_nodes`` / ``sph_meta`` the closest hit walks the sphere BVH
-    over the permuted ``table`` (K5), else it tests every row (K1). CUDA
-    tensors launch the CUDA kernel; CPU tensors run the eager reference.
-    The chunk-cull, triangle and animation branches of the TPU kernel raise
+    over the permuted ``table`` (K5), else it tests every row (K1).
+    ``animated`` moves the spheres on the linear shutter (table columns
+    24-29) and ``cam_animated`` re-derives the camera per path at its
+    shutter fraction (cam slots 19-37): K8, the kernel's motion variants.
+    CUDA tensors launch the CUDA kernel; CPU tensors run the eager
+    reference. The chunk-cull and triangle branches of the TPU kernel, and
+    an animated walk (which needs the chunk-cull branch), raise
     ``NotImplementedError``.
     """
-    _check_unported(cbounds, (tri_nodes, tris, mats, tri_meta), animated, cam_animated)
+    _check_unported(cbounds, (tri_nodes, tris, mats, tri_meta))
     _check_inputs(smem, pix, sample0, cam, table)
+    walk = _walk(sph_nodes, sph_meta, table)
+    if walk is not None and animated:
+        raise _unported("chunk-cull (K6: moving spheres in a big scene)")
+    motion = dict(animated=bool(animated), cam_animated=bool(cam_animated))
     if table.device.type == "cpu":
-        return run_megakernel_reference(smem, pix, sample0, cam, table, sph_nodes, sph_meta)
-    return _launch(smem, pix, sample0, cam, table, _walk(sph_nodes, sph_meta, table))
+        return run_megakernel_reference(smem, pix, sample0, cam, table, sph_nodes, sph_meta,
+                                        **motion)
+    return _launch(smem, pix, sample0, cam, table, walk, **motion)
 
 
-def _check_unported(cbounds, tri_inputs, animated=False, cam_animated=False):
+def _check_unported(cbounds, tri_inputs):
     if cbounds is not None:
         raise _unported("chunk-cull")
     if any(x is not None for x in tri_inputs):
         raise _unported("triangle-BVH")
-    if animated:
-        raise _unported("animated-sphere")
-    if cam_animated:
-        raise _unported("animated-camera")
 
 
 def _walk(sph_nodes, sph_meta, table):
@@ -263,12 +284,13 @@ def _check_inputs(smem, pix, sample0, cam, table):
         raise ValueError(f"table must be (N, {C_IN}), got {tuple(table.shape)}")
 
 
-def _check_rows(n: int, walk) -> None:
+def _check_rows(n: int, walk, animated: bool = False) -> None:
     """Raise where the kernel's shared memory cannot hold what it stages."""
     if walk is None:
-        if n > MAX_ROWS:
+        cap = MAX_ROWS_ANIMATED if animated else MAX_ROWS
+        if n > cap:
             raise ValueError(
-                f"{n} sphere rows exceed the {MAX_ROWS} rows whose intersection "
+                f"{n} sphere rows exceed the {cap} rows whose intersection "
                 f"columns fit in a block's {SHARED_MEM_BYTES} bytes of shared "
                 f"memory; bigger scenes need the sphere-BVH walk"
             )
@@ -290,10 +312,10 @@ def _walk_args(walk):
     return walk[0].data_ptr(), walk[1].data_ptr(), walk[0].shape[0]
 
 
-def _launch(smem, pix, sample0, cam, table, walk):
-    global LAUNCHES, LAUNCHES_WALK
+def _launch(smem, pix, sample0, cam, table, walk, animated, cam_animated):
+    global LAUNCHES, LAUNCHES_WALK, LAUNCHES_MOTION, LAUNCHES_MOTION_WALK
     n = table.shape[0]
-    _check_rows(n, walk)
+    _check_rows(n, walk, animated)
     lib = build.load("megakernel")
     r = pix.shape[1]
     out = torch.empty((3, r), dtype=torch.float32, device=table.device)
@@ -303,11 +325,18 @@ def _launch(smem, pix, sample0, cam, table, walk):
         err = lib.crucible_megakernel_forward(
             smem.data_ptr(), pix.data_ptr(), sample0.data_ptr(),
             cam.data_ptr(), table.data_ptr(), nodes, meta, n, k, r,
-            ctypes.c_float(T_MIN), out.data_ptr(), stream,
+            ctypes.c_float(T_MIN), int(animated), int(cam_animated),
+            out.data_ptr(), stream,
         )
     build.check(lib, err, "megakernel")
+    motion = animated or cam_animated
     if walk is None:
-        LAUNCHES += 1
+        if motion:
+            LAUNCHES_MOTION += 1
+        else:
+            LAUNCHES += 1
+    elif motion:
+        LAUNCHES_MOTION_WALK += 1
     else:
         LAUNCHES_WALK += 1
     return out
@@ -329,6 +358,8 @@ def run_megakernel_record(
     *,
     max_depth: int,
     radiance: bool = False,
+    animated: bool = False,
+    cam_animated: bool = False,
 ):
     """Record-mode megakernel -> (acc (3, R) float32, rec (max_depth, R) int32).
 
@@ -341,9 +372,17 @@ def run_megakernel_record(
     sphere BVH over the permuted ``table`` (K5) and the records hold the
     winners' original ids; else it tests every row (K2). CUDA tensors
     launch the kernel; CPU tensors run the twin. The triangle and
-    chunk-cull inputs raise ``NotImplementedError``.
+    chunk-cull inputs, and ``animated`` / ``cam_animated`` (K8's record
+    mode, which comes with the gradient of moving scenes), raise
+    ``NotImplementedError``.
     """
     _check_unported(cbounds, (tri_nodes, tris, mats, tri_meta))
+    if animated or cam_animated:
+        raise NotImplementedError(
+            "the record mode of the megakernel's motion variants (K8) is not "
+            "ported to crucible_tpu_torch yet: it comes with the gradient of "
+            "moving scenes"
+        )
     _check_inputs(smem, pix, sample0, cam, table)
     if max_depth < 1:
         raise ValueError(f"max_depth must be positive, got {max_depth}")
@@ -402,16 +441,20 @@ def run_megakernel_record_reference(
 # ---------------------------------------------------------------------------
 
 
-def run_megakernel_reference(smem, pix, sample0, cam, table, sph_nodes=None, sph_meta=None):
+def run_megakernel_reference(smem, pix, sample0, cam, table, sph_nodes=None, sph_meta=None,
+                             *, animated: bool = False, cam_animated: bool = False):
     """Eager-torch version of the kernel: same inputs, same (3, R) output.
 
     Lanes advance in lockstep, as on the TPU: each step issues a new sample
     to every idle lane that has samples left, then traces one bounce of
-    every live lane. Per lane this is the kernel's nested loop, so each
-    lane's sum is the kernel's up to float rounding.
+    every live lane. Per lane this is the kernel's nested loop, in its
+    order of operations, so each lane's sum is the kernel's.
     """
+    walk = _walk(sph_nodes, sph_meta, table)
+    if walk is not None and animated:
+        raise _unported("chunk-cull (K6: moving spheres in a big scene)")
     acc, _ = _reference_loop(smem, pix, sample0, cam, table, rec_depth=0, radiance=True,
-                             walk=_walk(sph_nodes, sph_meta, table))
+                             walk=walk, animated=animated, cam_animated=cam_animated)
     return acc
 
 
@@ -515,8 +558,36 @@ def walk_closest_reference(o, d, table, nodes, meta, t_min: float = T_MIN):
     return best, torch.where(hit, win, 0), hit
 
 
+def camera_at(c, w):
+    """K8's camera at the paths' shutter fractions w (L,), from the camera
+    vector ``c`` (48,), in the kernel's order of operations -> (pixel00,
+    du, dv, look_from, basis u, basis v), each (L, 3): look_from and
+    look_at lerped by w, then the basis as ``camera.generate_rays`` builds
+    it (true divisions, lengths floored at 1e-12)."""
+    wv = w[:, None]
+    lf = c[9:12] + wv * c[22:25]
+    w0 = lf - (c[19:22] + wv * c[25:28])
+
+    def unit(v):
+        n = torch.sqrt(v[:, 0] * v[:, 0] + v[:, 1] * v[:, 1] + v[:, 2] * v[:, 2])
+        return v / torch.clamp_min(n, 1e-12)[:, None]
+
+    def cross(a, b):
+        return torch.stack([a[..., 1] * b[:, 2] - a[..., 2] * b[:, 1],
+                            a[..., 2] * b[:, 0] - a[..., 0] * b[:, 2],
+                            a[..., 0] * b[:, 1] - a[..., 1] * b[:, 0]], dim=1)
+
+    wb = unit(w0)
+    ub = unit(cross(c[28:31], wb))
+    vb = cross(wb, ub)
+    du = c[32] * ub / c[34]
+    dv = -c[31] * vb / c[35]
+    p00 = lf - c[33] * wb - c[36] * du - c[37] * dv
+    return p00, du, dv, lf, ub, vb
+
+
 def _reference_loop(smem, pix, sample0, cam, table, *, rec_depth: int, radiance: bool,
-                    walk=None):
+                    walk=None, animated: bool = False, cam_animated: bool = False):
     """The lockstep loop of both eager versions -> (acc (3, R), rec).
 
     ``rec_depth`` 0 is forward mode (``rec`` is None). Otherwise record
@@ -525,7 +596,9 @@ def _reference_loop(smem, pix, sample0, cam, table, *, rec_depth: int, radiance:
     ``radiance`` then says whether to accumulate it, from bounce smem[4] on.
     ``walk`` (``walk_inputs``' nodes and meta) takes the closest hit from
     the sphere-BVH walk over the permuted table, the records' winner ids
-    from its column 31.
+    from its column 31. ``animated`` and ``cam_animated`` (forward mode)
+    are K8's: the moving-sphere search and winner lerp, and the camera at
+    each path's shutter fraction (:func:`camera_at`).
     """
     spp, seed, width, max_depth = (int(v) for v in smem[:4].tolist())
     accum_from = int(smem[4]) if rec_depth else 0
@@ -561,29 +634,43 @@ def _reference_loop(smem, pix, sample0, cam, table, *, rec_depth: int, radiance:
         smp = sample_i[live] - (~iss).to(torch.int64)
         p = pix[live]
 
+        # --- the paths' shutter fractions (K8) ---------------------------
+        if animated or cam_animated:
+            w = crng.uniform1(p, smp, crng.STREAM_TIME, seed)
+        l_p00, l_du, l_dv, l_lf, l_ub, l_vb = (
+            camera_at(c, w) if cam_animated else (p00, du, dv, lf, ub, vb)
+        )
+
         # --- primary rays for the issued lanes --------------------------
         ux, uy, ud1, ud2 = crng.uniform4(p, smp, crng.STREAM_PIXEL_JITTER, seed)
         off = sampling.square_offset(ux, uy)
         pos = (
-            p00
-            + (fi[live] + off[:, 0])[:, None] * du
-            + (fj[live] + off[:, 1])[:, None] * dv
+            l_p00
+            + (fi[live] + off[:, 0])[:, None] * l_du
+            + (fj[live] + off[:, 1])[:, None] * l_dv
         )
         disk = sampling.in_unit_disk(ud1, ud2)
-        new_o = lf + (disk[:, 0] * defr)[:, None] * ub + (disk[:, 1] * defr)[:, None] * vb
+        new_o = (l_lf + (disk[:, 0] * defr)[:, None] * l_ub
+                 + (disk[:, 1] * defr)[:, None] * l_vb)
         o_l = torch.where(iss[:, None], new_o, o[live])
         d_l = torch.where(iss[:, None], pos - new_o, d[live])
         thr_l = torch.where(iss[:, None], 1.0, thr[live])
         b_l = torch.where(iss, 0, bounce[live])
 
         # --- closest hit; the winner's row only where there is one --------
-        # The brute search is K10's (the kernel shares its search routine).
-        if walk is None:
+        # The brute search is K10's (the kernel shares its search routine),
+        # or for moving spheres K9's.
+        SEARCH_COUNTS["searches"] += int(live.numel())
+        SEARCH_COUNTS["issued"] += int(iss.sum())
+        if walk is not None:
+            t, idx, hit = walk_closest_reference(o_l, d_l, table, *walk)
+        elif animated:
+            t, idx = sphere_shade.moving_closest_reference(o_l, d_l, w, table, T_MIN)
+            hit = t < BIG
+        else:
             t, idx, hit = sphere_hit.hit_spheres_reference(
                 o_l, d_l, table[:, 0:3], table[:, 4], table[:, 5], T_MIN
             )
-        else:
-            t, idx, hit = walk_closest_reference(o_l, d_l, table, *walk)
         idx = idx.long()
         row = torch.zeros((live.numel(), C_IN), dtype=torch.float32, device=dev)
         on = torch.nonzero(hit).squeeze(1)
@@ -591,8 +678,12 @@ def _reference_loop(smem, pix, sample0, cam, table, *, rec_depth: int, radiance:
 
         t_sh = torch.where(hit, t, 1.0)
         hp = o_l + t_sh[:, None] * d_l
-        inv_r = 1.0 / torch.clamp_min(row[:, 3], 1e-20)
-        nrm = (hp - row[:, 0:3]) * inv_r[:, None]
+        w_c, w_r = row[:, 0:3], row[:, 3]
+        if animated:  # the winner at the path's shutter fraction
+            w_c = w_c + w[:, None] * row[:, 24:27]
+            w_r = w_r + w * row[:, 27]
+        inv_r = 1.0 / torch.clamp_min(w_r, 1e-20)
+        nrm = (hp - w_c) * inv_r[:, None]
         front = d_l[:, 0] * nrm[:, 0] + d_l[:, 1] * nrm[:, 1] + d_l[:, 2] * nrm[:, 2] < 0.0
         nrm = nrm * torch.where(front, 1.0, -1.0)[:, None]
 

@@ -76,9 +76,28 @@ def _launch(o, d, w, table, t_min):
 
 
 def hit_spheres_fetch_reference(o, d, w, table, t_min: float = T_MIN):
-    """Plain PyTorch version of :func:`hit_spheres_fetch`: the (rays x rows)
-    moving quadratic in ray chunks, in the kernel's association (the motion
-    terms even at w = 0), then the winner's row by an indexed read."""
+    """Plain PyTorch version of :func:`hit_spheres_fetch`: the search of
+    :func:`moving_closest_reference`, then the winner's row by an indexed
+    read."""
+    t, idx = moving_closest_reference(o, d, w, table, t_min)
+    r = o.shape[0]
+    hit = t < BIG
+    out = torch.zeros((C_OUT, r), dtype=torch.float32, device=o.device)
+    out[0] = t
+    out[1] = idx.to(torch.float32)
+    lanes = torch.nonzero(hit).squeeze(1)
+    win = torch.index_select(table, 0, idx[lanes])
+    out[2:6, lanes] = win[:, 0:4].t()
+    out[6:28, lanes] = win[:, 6:28].t()
+    return out
+
+
+def moving_closest_reference(o, d, w, table, t_min: float = T_MIN):
+    """The closest hit against the table's spheres moving on the linear
+    shutter, at the rays' fractions w: the (rays x rows) quadratic in ray
+    chunks, in the kernels' association (K9's, and K8's moving search; the
+    motion terms even at w = 0) -> (t (R,), BIG on a miss; idx (R,) int64,
+    the lowest row at the minimum, 0 on a miss)."""
     dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
     ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
     wv = w[:, None]
@@ -107,13 +126,4 @@ def hit_spheres_fetch_reference(o, d, w, table, t_min: float = T_MIN):
                               a_q[s], inv_a[s], on, rows, t_min)
         ts.append(t)
         idxs.append(idx)
-    t, idx = torch.cat(ts), torch.cat(idxs)
-    hit = t < BIG
-    out = torch.zeros((C_OUT, r), dtype=torch.float32, device=o.device)
-    out[0] = t
-    out[1] = idx.to(torch.float32)
-    lanes = torch.nonzero(hit).squeeze(1)
-    win = torch.index_select(table, 0, idx[lanes])
-    out[2:6, lanes] = win[:, 0:4].t()
-    out[6:28, lanes] = win[:, 6:28].t()
-    return out
+    return torch.cat(ts), torch.cat(idxs)

@@ -130,11 +130,17 @@ def test_reference_lanes_are_independent():
 )
 def test_refuses_unported_branches(kwargs):
     arrays, _, _ = _inputs("smoke_scene", 32, 1, 1)
-    kwargs = {"animated": False, **kwargs}
+    t = {k: torch.from_numpy(arrays[k]) for k in INPUTS}
+    if "animated" in kwargs or "cam_animated" in kwargs:
+        # K8's forward mode is ported (tests/test_torch_motion.py); its
+        # record mode comes with the gradient of moving scenes.
+        with pytest.raises(NotImplementedError, match="record mode"):
+            tmk.run_megakernel_record(**t, max_depth=1, **kwargs)
+        return
     # The sphere-BVH walk is ported (K5): half of its tables is an error.
     error = ValueError if "sph_nodes" in kwargs else NotImplementedError
     with pytest.raises(error):
-        tmk.run_megakernel(**{k: torch.from_numpy(arrays[k]) for k in INPUTS}, **kwargs)
+        tmk.run_megakernel(**t, animated=False, **kwargs)
 
 
 @pytest.mark.parametrize(

@@ -94,9 +94,21 @@ def _image_texture(sc):
 
 
 def _timeline(sc):
-    sc.add_element(tscene.Sphere((0.0, 0.0, -1.0), 0.5,
-                                 tscene.Metal((0.5, 0.5, 0.5)), timeline=object()), "m")
+    """A keyframe inside the shutter window needs exact-time motion."""
+    sc.translate_y(1.0, 1.0 / 96.0, "lerp", "local", "ball")
+    assert sc.build(device="cpu").motion_exact
     _render(sc)
+
+
+def _animator(sc):
+    """Moving spheres render forward; their gradient comes with K8's
+    record mode."""
+    sc.translate_point((1.0, 0.0, 0.0), 1.0, "lerp", "local", "ball")
+    sd, cp = sc.build(device="cpu"), sc.scene_cam.params(device="cpu")
+    assert sd.animated and integrator.megakernel_supported(sd, cp)
+    from crucible_tpu_torch.models import replay
+
+    replay.trace_record_mega(sd, cp, 32, 18, torch.arange(4), torch.zeros(4), 0, 2)
 
 
 def _too_many_spheres(sc):
@@ -124,11 +136,11 @@ def _bridged_triangles(sc):
         _triangle,
         _image_texture,
         _timeline,
-        lambda sc: sc.translate_point((1.0, 0.0, 0.0), 1.0, 0, 0, "ball"),
+        _animator,
         lambda sc: sc.load_asset("teapot.obj", "teapot", 0.5, (0, 0, 0),
                                  tscene.Metal((0.5, 0.5, 0.5))),
         lambda sc: sc.load_spherical_skybox("garden.jpg"),
-        lambda sc: tscene.Scene.new_movie(16 / 9, 32, 24.0, 180.0, 1.0),
+        lambda sc: tdemo.MOVIE_WORLDS[2](),  # moving_teapot needs OBJ assets
         _too_many_spheres,
         _bridged_triangles,
         lambda sc: trender.render_image_persistent(

@@ -45,7 +45,7 @@ def jax_scene_arrays(sd):
     arrays.update(
         {f"tex_{k}": np.asarray(getattr(sd.tex, k)) for k in bridge.TEX_ARRAYS}
     )
-    arrays.update({k: np.asarray(getattr(sd, k)) for k in bridge.STRUCT_ARRAYS
+    arrays.update({k: np.asarray(getattr(sd, k)) for k in bridge.OPTIONAL_ARRAYS
                    if getattr(sd, k) is not None})
     static = {k: getattr(sd, k) for k in bridge.SCENE_STATIC}
     static["max_nest"] = sd.tex.max_nest
@@ -153,9 +153,12 @@ def test_generate_rays_static_matches_jax(name):
 
 
 def test_generate_rays_refuses_animated_camera():
+    """A linearly animated camera renders (tests/test_torch_motion.py); one
+    whose keyframe falls inside the shutter needs exact-time tracks, which
+    are not ported."""
     cp = tdemo.smoke_scene(width=32).scene_cam.params(device="cpu")
-    cp.animated = True
-    with pytest.raises(NotImplementedError):
+    cp.animated = cp.motion_exact = True
+    with pytest.raises(NotImplementedError, match="exact-time"):
         tcam.generate_rays(cp, 32, 18, torch.zeros(4, dtype=torch.int64),
                            torch.zeros(4, dtype=torch.int64), 0)
 
