@@ -60,6 +60,18 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
      beside K1 on the same lanes of static and bouncing book1; and bouncing
      book1 through the pixel and mega schedules (isclose > 0.97, means
      within 2e-3).
+   - K8 in record mode (fused and plain): each brute instantiation on
+     bouncing book1 320 wide, 4 spp, depth 8; the walk with a moving camera
+     on sphere_stress n1936 320 wide (also against the brute camera
+     variant on the original table); 32768 lanes of bouncing book1's
+     1920x1080 4 spp d8 launch; and static book1's table given the animated
+     flag (zero motion columns) against K2. Each bit for bit.
+   - The moving-scene gradient step on the card against the same call on
+     the CPU, 64 wide, 2 spp, depth 8, on bouncing book1 (its radiometric
+     leaves, fault C4) and on smoke with its ball and camera moving (every
+     leaf): records equal on > 0.999 of the lanes; on the card's records,
+     loss within rel 1e-4 and gradients within normalized 1e-3; each on its
+     own records, loss within rel 2e-3 and gradients within 5e-3.
 4. The forward render: ``render.render_image`` of book1 at 1920x1080, 32
    spp, depth 50; checks the image, counts K1's launches, writes
    ``build/chip_smoke_book1.png``.
@@ -96,7 +108,18 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
    launches), into a temporary directory.
    Each main-path phase zeroes the launch counts before it and reads them
    after; a kernel of the phase that was not launched fails the run.
-12. Prints a JSON line describing each kernel (times at the comparison
+12. Gradients through the eager replay, ``grad.loss_and_grad`` at
+   1920x1080, 4 spp, depth 8, every pixel: bouncing book1 (K8 record; a
+   warm and 2 timed steps, ``record_decisions`` and 2 frozen-decision
+   steps, the step cut into its phases, one step under the profiler),
+   sphere_stress n7744 (K5 record; 7744 rows are above the replay kernels'
+   2048) and garden (K2 record; the spherical sky, ``sky_image`` a leaf):
+   wall time, Mrays/s, peak memory; K3 and K4 never launch. Then the replay
+   against direct AD on bouncing book1 and garden at 320x180, 2 spp, depth
+   8: loss within rel 2e-3, radiometric gradients within normalized 5e-3
+   (garden's sky image over 8x8-texel blocks: the nearest texel is a
+   choice the record does not hold).
+13. Prints a JSON line describing each kernel (times at the comparison
    shape, where kernel and twin run the same inputs in full; K5's also at
    its main shape), the card's line again, and, as the last line,
    ``{"ok": true, "device": {...}}``.
@@ -300,7 +323,7 @@ def main() -> None:
     from crucible_tpu_torch import grad
     from crucible_tpu_torch.io.image import write_png
     from crucible_tpu_torch.models import demo, integrator, render
-    from crucible_tpu_torch.models import replay
+    from crucible_tpu_torch.models import replay, skybox, textures
     from crucible_tpu_torch.models.camera import generate_rays
     from crucible_tpu_torch.ops.kernels import build, megakernel as mk
     from crucible_tpu_torch.ops.kernels import replay_kernel as rk
@@ -769,11 +792,11 @@ def main() -> None:
         main_checked_lanes_speedup=k5_main["speedup"],
     )
 
-    def k5_record(width, spp, depth, sub=None):
-        """K5's record launches (fused and plain) on sphere_stress(copies=4)
+    def k5_record(copies, width, spp, depth, sub=None):
+        """K5's record launches (fused and plain) on sphere_stress(copies)
         against the plain walk and K2 on the original table (on ``sub`` of
         the lanes if given) -> (entry, replay-kernel inputs, records)."""
-        sd, cp, w, h, bvh = stress_inputs(4, width)
+        sd, cp, w, h, bvh = stress_inputs(copies, width)
         p = w * h
         pix = torch.arange(p, device=dev, dtype=torch.int32).repeat(spp)
         smp = torch.arange(spp, device=dev, dtype=torch.int32).repeat_interleave(p)
@@ -782,7 +805,7 @@ def main() -> None:
                      cam=integrator.mega_cam_vector(cp, w, h),
                      table=integrator.make_sphere_table(sd).contiguous())
         walk = dict(brute, table=integrator.permute_table(brute["table"], sd.sph_perm))
-        what = f"K5 record n1936 {width}w {spp}spp d{depth}"
+        what = f"K5 record n{sd.sph_center.shape[0]} {width}w {spp}spp d{depth}"
         acc, rec = mk.run_megakernel_record(**walk, **bvh, max_depth=depth, radiance=True)
         plain = mk.run_megakernel_record(**walk, **bvh, max_depth=depth)[1]
         bit_equal(rec, plain, f"{what}: fused vs plain records")
@@ -811,14 +834,21 @@ def main() -> None:
         return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b, bound_by=by), \
             rin, full_rec
 
-    k5_rec, rin, rec320 = k5_record(320, 4, 8)
+    k5_rec, rin, rec320 = k5_record(4, 320, 4, 8)
     r = 1920 * 1080 * 4
     sub = torch.randperm(r, generator=torch.Generator().manual_seed(6))[:N_SUB].sort().values
-    k5_rec_main, _, _ = k5_record(1920, 4, 8, sub=sub.to(dev))
+    k5_rec_main, _, _ = k5_record(4, 1920, 4, 8, sub=sub.to(dev))
+    # n7744 (copies=16), whose 1080p 4 spp d8 record pass the gradient step
+    # of main path 9 launches: in full at 320w and on the same 32768 lanes.
+    k5_rec16, _, _ = k5_record(16, 320, 4, 8)
+    k5_rec16_main, _, _ = k5_record(16, 1920, 4, 8, sub=sub.to(dev))
     kernels["megakernel_walk_record"] = dict(
         source="crucible_tpu_torch/csrc/megakernel.cu",
         replaces="crucible_tpu/ops/pallas/megakernel.py:1828",
         **k5_rec, main_ms=k5_rec_main["ms"], main_bound_ms=k5_rec_main["bound_ms"],
+        ms_n7744=k5_rec16["ms"], plain_ms_n7744=k5_rec16["plain_ms"],
+        bound_ms_n7744=k5_rec16["bound_ms"], main_ms_n7744=k5_rec16_main["ms"],
+        main_bound_ms_n7744=k5_rec16_main["bound_ms"],
     )
 
     # --- K4 and K3 at n1936's 1936 rows -----------------------------------------
@@ -959,6 +989,233 @@ def main() -> None:
         raise AssertionError("the pixel and mega schedules disagree on bouncing book1")
     del imgs, a, b, b_in, s_in, w_in, walk
 
+    # --- K8 record: the motion variants in record mode vs their plain version -
+    def k8_record_check(k2, depth, flags, what, sub=None, bvh=None):
+        """K8's record launches (fused and plain) against the plain loop (on
+        ``sub`` of the lanes if given) -> (max|diff|, plain ms, the plain
+        loop's counted work, the fused launch's records)."""
+        bvh = bvh or {}
+        acc, rec = mk.run_megakernel_record(**k2, **bvh, max_depth=depth, radiance=True, **flags)
+        _, plain = mk.run_megakernel_record(**k2, **bvh, max_depth=depth, **flags)
+        bit_equal(rec, plain, f"{what}: fused vs plain records")
+        full_rec = rec
+        if sub is not None:
+            k2 = lane_subset(k2, sub)
+            acc, rec = acc[:, sub], rec[:, sub]
+        (ref_acc, ref_rec), plain_ms, counts = plain_forward(
+            lambda: mk.run_megakernel_record_reference(**k2, **bvh, max_depth=depth,
+                                                       radiance=True, **flags))
+        bit_equal(rec, ref_rec, f"{what}: records vs plain")
+        err = bit_equal(acc, ref_acc, f"{what}: fused radiance vs plain")
+        return err, plain_ms, counts, full_rec
+
+    def bouncing(width):
+        return bouncing_book1(demo, width)
+
+    k8r = {}
+    bk2, _ = grad_inputs(bouncing, 320, 4, 8)
+    n_active = int((bk2["table"][:, 5] > 0).sum())
+    for tag, flags in flag_sets.items():
+        what = f"K8 record {tag} bouncing book1 320w 4spp d8"
+        err, plain_ms, counts, rec = k8_record_check(bk2, 8, flags, what)
+        ms = cuda_ms(lambda: mk.run_megakernel_record(**bk2, max_depth=8, radiance=True,
+                                                      **flags), 3)
+        b, by = bound(k8_ops(counts, n_active, **flags),
+                      nbytes(*bk2.values()) + nbytes(rec) + 3 * 4 * rec.shape[1])
+        print(f"{what}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {b:.4f} ms ({by}; "
+              f"{counts['searches']} searches x {n_active} rows, {counts['issued']} samples)")
+        k8r[tag] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b, bound_by=by)
+    k2_ms = cuda_ms(lambda: mk.run_megakernel_record(**bk2, max_depth=8, radiance=True), 3)
+    print(f"  K2 on the same lanes (static kernel, bouncing table): {k2_ms:.3f} ms; K8 both / K2 "
+          f"{k8r['both']['ms'] / k2_ms:.3f}")
+
+    # The walk with a moving camera in record mode, n1936 320w 4 spp d8.
+    sc = demo.sphere_stress(width=320, copies=4)
+    sc.cam_translate_y(0.5, 1.0 / 48.0, "lerp", "local", "from")
+    w_sd = sc.build(device=dev)
+    wk2, _ = grad_inputs(lambda width: sc, 320, 4, 8)
+    walk = dict(wk2, table=integrator.permute_table(wk2["table"], w_sd.sph_perm))
+    bvh = dict(sph_nodes=w_sd.sph_nodes, sph_meta=w_sd.sph_meta)
+    cam_only = flag_sets["camera"]
+    what = f"K8 record walk camera n{w_sd.sph_center.shape[0]} 320w 4spp d8"
+    err, plain_ms, counts, rec = k8_record_check(walk, 8, cam_only, what, bvh=bvh)
+    b_acc, b_rec = mk.run_megakernel_record(**wk2, max_depth=8, radiance=True, **cam_only)
+    acc, _ = mk.run_megakernel_record(**walk, **bvh, max_depth=8, radiance=True, **cam_only)
+    bit_equal(rec, b_rec, f"{what}: records vs K8 brute camera")
+    bit_equal(acc, b_acc, f"{what}: fused radiance vs K8 brute camera")
+    ms = cuda_ms(lambda: mk.run_megakernel_record(**walk, **bvh, max_depth=8, radiance=True,
+                                                  **cam_only), 3)
+    b, by = bound(walk_ops(counts) + counts["issued"] * CAM_OPS,
+                  nbytes(walk["table"], *bvh.values(), rec) + 5 * 4 * rec.shape[1])
+    print(f"{what}: kernel {ms:.3f} ms, plain walk {plain_ms:.1f} ms, bound {b:.4f} ms ({by}); "
+          f"work {counts}")
+    k8r["walk"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b, bound_by=by)
+    del wk2, walk, b_acc, b_rec, acc
+
+    # A static table given the animated flag (all-zero motion columns): K2's words.
+    sk2, _ = grad_inputs(demo.book1_end_scene, 320, 4, 8)
+    if bool(sk2["table"][:, 24:30].any()):
+        raise AssertionError("static book1's table should have zero motion columns")
+    a2, r2 = mk.run_megakernel_record(**sk2, max_depth=8, radiance=True)
+    a8, r8 = mk.run_megakernel_record(**sk2, max_depth=8, radiance=True, animated=True)
+    bit_equal(r8, r2, "K8 record (animated, zero motion) vs K2 records, book1 320w 4spp d8")
+    bit_equal(a8, a2, "K8 record (animated, zero motion) vs K2 fused radiance")
+    del sk2, a2, r2, a8, r8
+
+    # The main path's launch: bouncing book1 1920x1080, 4 spp, d8 (both flags),
+    # plain on 32768 lanes; K2 on the same launch.
+    mk2, _ = grad_inputs(bouncing, 1920, 4, 8)
+    r = mk2["pix"].shape[1]
+    sub = torch.randperm(r, generator=torch.Generator().manual_seed(8))[:N_SUB].sort().values
+    _, _, counts, rec = k8_record_check(mk2, 8, both, f"K8 record both 1920x1080 4spp d8 on "
+                                                      f"{N_SUB} lanes", sub=sub.to(dev))
+    rec_main_ms = cuda_ms(lambda: mk.run_megakernel_record(**mk2, max_depth=8, radiance=True,
+                                                           **both), 3)
+    rec_main_k2_ms = cuda_ms(lambda: mk.run_megakernel_record(**mk2, max_depth=8,
+                                                              radiance=True), 3)
+    scale = r / N_SUB
+    rec_main_b, rec_main_by = bound(k8_ops(counts, n_active, **both) * scale,
+                                    nbytes(*mk2.values()) + nbytes(rec) + 3 * 4 * r)
+    print(f"K8 record both bouncing book1 1920x1080 4spp d8 (fused): {rec_main_ms:.3f} ms, K2 "
+          f"on the same launch {rec_main_k2_ms:.3f} ms (ratio {rec_main_ms / rec_main_k2_ms:.3f}); "
+          f"bound {rec_main_b:.3f} ms ({rec_main_by}; work on the checked lanes {counts}, "
+          f"x{scale:.1f})")
+    del mk2, rec
+    kernels["megakernel_motion_record"] = dict(
+        source="crucible_tpu_torch/csrc/megakernel.cu",
+        replaces="crucible_tpu/ops/pallas/megakernel.py:1828",
+        **k8r["both"],
+        ms_animated=k8r["animated"]["ms"], bound_ms_animated=k8r["animated"]["bound_ms"],
+        plain_ms_animated=k8r["animated"]["plain_ms"],
+        ms_camera=k8r["camera"]["ms"], bound_ms_camera=k8r["camera"]["bound_ms"],
+        plain_ms_camera=k8r["camera"]["plain_ms"],
+        ms_walk_camera=k8r["walk"]["ms"], plain_ms_walk_camera=k8r["walk"]["plain_ms"],
+        bound_ms_walk_camera=k8r["walk"]["bound_ms"], k2_ms_same_lanes=k2_ms,
+        main_ms=rec_main_ms, main_bound_ms=rec_main_b, main_k2_ms=rec_main_k2_ms,
+    )
+
+    # --- the moving-scene gradient step on the card vs on the CPU, small -----
+    # An animated camera rebuilds its basis per ray, so the card's and the
+    # CPU's primary rays differ in the last ulps of their square roots and
+    # divisions (torch on the card rounds them unlike torch on the CPU),
+    # which flips the odd grazing lane's record between the CPU's plain K8
+    # and the card's kernel. So the card's records are held to the CPU's
+    # lane by lane (> 0.999 equal), the step on the same records (the
+    # frozen-decision call, rec=, on both devices) at loss rel 1e-4 and
+    # gradients normalized 1e-3, and the step with each device's own
+    # records at the cross-path bounds (loss rel 2e-3, normalized 5e-3).
+    # Then the replay alone: the CPU's rays and records replayed on both
+    # devices. On book1 the replay's own sin / cos (the scatter's sampled
+    # directions) round unlike the CPU's too, and a few lanes amplify it:
+    # the checker's parity, floor(p / scale), is a choice the record does
+    # not hold, and a lane that lands on the other square reflects another
+    # albedo on. So bouncing book1 holds its radiometric leaves on every
+    # lane (fault C4); over the lanes whose parity agrees at every row, its
+    # loss and radiometric leaves at rel 1e-4 / normalized 1e-3 and its
+    # fuzz and camera leaves at normalized 1e-2 (lanes whose directions
+    # drift apart over later bounces stay in). Smoke in motion holds every
+    # leaf at 1e-3 in each comparison.
+    def moving_smoke(width):
+        sc = demo.smoke_scene(width=width)
+        sc.translate_y(0.3, 1.0 / 48.0, "lerp", "local", "ball")
+        sc.cam_translate_y(0.5, 1.0 / 48.0, "lerp", "local", "from")
+        return sc
+
+    def held_to(what, results, bounds, rel_max):
+        """Hold the card's (loss, gradients) to the CPU's: the loss at
+        ``rel_max``, each leaf of ``bounds`` at its normalized bound."""
+        (lc, gc), (lp, gp) = [r[:2] for r in results]
+        rel = abs(lc.item() - lp.item()) / lp.item()
+        print(f"  {what}: loss {lc.item():.6f} vs {lp.item():.6f} (rel {rel:.2g})")
+        if not rel <= rel_max:
+            raise AssertionError(f"{what}: the card's and the CPU's losses disagree")
+        for key in grad.TENSOR_KEYS:
+            a, b = gc[key].cpu(), gp[key]
+            nd = ((a - b).abs().max() / max(b.abs().max().item(), 1e-6)).item()
+            bound_key = bounds.get(key)
+            print(f"    {key}: max normalized diff {nd:.3g}"
+                  + (f" (held at {bound_key:g})" if bound_key else " (not held)"))
+            if bound_key and not nd <= bound_key:
+                raise AssertionError(f"{what} {key}: card and CPU gradients disagree")
+
+    cpu = torch.device("cpu")
+
+    def same_rays_step(sc, where, rec, keep=None):
+        """(loss, gradients, each row's checker parity (D, R)) of the step
+        whose replay runs on ``where`` from the CPU's primary rays and
+        ``rec``; the loss reads the lanes of ``keep`` (R,) bool, or all.
+        The camera leaves reach the loss through the CPU's ray generation
+        on both devices, so the two differ only in the replay's own
+        arithmetic."""
+        sd_c, cp_c = sc.build(device=cpu), sc.scene_cam.params(device=cpu)
+        params = grad.extract_params(sd_c, cp_c)
+        leaves = {k: params[k].detach().clone().requires_grad_(True)
+                  for k in grad.leaf_keys(params)}
+        _, cp_l = grad.apply_params(sd_c, cp_c, {**params, **leaves})
+        pl, sl = grad._lanes(torch.arange(64 * 36), 2, 0)
+        o, d, _ = generate_rays(cp_l, 64, 36, pl, sl, 0)
+        sd_w, _ = grad.apply_params(sc.build(device=where), sc.scene_cam.params(device=where),
+                                    {**params, **{k: v.to(where) for k, v in leaves.items()}})
+        args = (sd_w, o.to(where), d.to(where), pl.to(where), sl.to(where), 0, 8,
+                rec.to(where))
+        parity, is_even = [], textures.checker_is_even
+
+        def spy(inv_scale, p):
+            out = is_even(inv_scale, p)
+            parity.append(out.cpu())
+            return out
+
+        textures.checker_is_even = spy
+        try:
+            with torch.no_grad():
+                replay.trace_replay(*args)
+        finally:
+            textures.checker_is_even = is_even
+        rad = replay.trace_replay(*args)
+        if keep is not None:
+            rad = torch.where(keep.to(where)[:, None], rad, 0.0)
+        loss = torch.mean(rad.reshape(2, -1, 3).mean(dim=0) ** 2)
+        g = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+        return loss.detach().cpu(), {k: torch.zeros_like(v) if gk is None else gk
+                                     for (k, v), gk in zip(leaves.items(), g)}, \
+            torch.stack(parity)
+
+    kw = dict(width=64, height=36, spp=2, max_depth=8)
+    radiometric = ("tex_color", "mat_emission")
+    every = dict.fromkeys(grad.TENSOR_KEYS, 1e-3)
+    for what, sc, bounds, kept_bounds in (
+        ("bouncing book1", bouncing(64), dict.fromkeys(radiometric, 1e-3),
+         {**dict.fromkeys(grad.TENSOR_KEYS, 1e-2), **dict.fromkeys(radiometric, 1e-3)}),
+        ("moving smoke", moving_smoke(64), every, every),
+    ):
+        inputs = []
+        for where in (dev, cpu):
+            sd, cp = sc.build(device=where), sc.scene_cam.params(device=where)
+            pix = torch.arange(64 * 36, device=where)
+            inputs.append((sd, cp, pix, grad.record_decisions(sd, cp, pix, 0, **kw)))
+        rec_card, rec_cpu = inputs[0][3], inputs[1][3]
+        same = (rec_card.cpu() == rec_cpu).all(dim=0).float().mean().item()
+        print(f"loss_and_grad {what} 64w 2spp d8, card vs CPU: records equal on {same:.5f} "
+              f"of the lanes")
+        if not same > 0.999:
+            raise AssertionError(f"{what}: the card's and the CPU's records disagree")
+        frozen, own = [], []
+        for sd, cp, pix, rec in inputs:
+            args = (grad.extract_params(sd, cp), sd, cp,
+                    torch.zeros((64 * 36, 3), device=pix.device), pix, 0)
+            frozen.append(grad.loss_and_grad(*args, rec=rec_card.to(pix.device), **kw))
+            own.append(grad.loss_and_grad(*args, **kw))
+        held_to("on the card's records", frozen, bounds, 1e-4)
+        held_to("each on its own records", own, {k: 5e-3 for k in bounds}, 2e-3)
+        steps = [same_rays_step(sc, where, rec_cpu) for where in (dev, cpu)]
+        held_to("the CPU's rays and records replayed on both", steps, bounds, 1e-4)
+        flips = (steps[0][2] != steps[1][2]).any(dim=0)
+        held_to(f"the same without the {int(flips.sum())} of {flips.numel()} lanes whose "
+                f"checker parity differs at some row",
+                [same_rays_step(sc, where, rec_cpu, keep=~flips) for where in (dev, cpu)],
+                kept_bounds, 1e-4)
+    del inputs, frozen, own, steps
+
     # --- main path 1: the forward render ---------------------------------------
     scene = demo.book1_end_scene(width=1920)
     mk.LAUNCHES = 0
@@ -987,15 +1244,15 @@ def main() -> None:
     kw = dict(width=w, height=h, spp=spp, max_depth=8)
     mrays = w * h * spp / 1e6
     counters = {
-        "megakernel_record": lambda: mk.LAUNCHES_RECORD,
-        "megakernel_walk_record": lambda: mk.LAUNCHES_RECORD_WALK,
+        "megakernel_record": lambda: mk.RECORD_LAUNCHES["brute"],
+        "megakernel_walk_record": lambda: mk.RECORD_LAUNCHES["walk"],
         "replay_forward": lambda: rk.LAUNCHES_FORWARD,
         "replay_backward": lambda: rk.LAUNCHES_BACKWARD,
     }
     counts = dict.fromkeys(counters, 0)
 
     def zero_counts():
-        mk.LAUNCHES_RECORD = mk.LAUNCHES_RECORD_WALK = 0
+        mk.RECORD_LAUNCHES.update(dict.fromkeys(mk.RECORD_LAUNCHES, 0))
         rk.LAUNCHES_FORWARD = rk.LAUNCHES_BACKWARD = 0
 
     def read_counts(what, need, never=()):
@@ -1111,8 +1368,10 @@ def main() -> None:
         for e in rows[:10]:
             print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d}x  {e.key[:70]}")
         if kernel_key is not None:
-            mine = sum(e.self_device_time_total for e in rows if kernel_key in e.key) / 1e3
-            print(f"  {kernel_key}: {mine:.2f} ms = {100 * mine / total:.1f}% of the step's "
+            keys = (kernel_key,) if isinstance(kernel_key, str) else kernel_key
+            mine = sum(e.self_device_time_total for e in rows
+                       if any(k in e.key for k in keys)) / 1e3
+            print(f"  {'/'.join(keys)}: {mine:.2f} ms = {100 * mine / total:.1f}% of the step's "
                   f"device time, {100 * mine / wall:.1f}% of its wall time")
 
     profile_step("loss_and_grad step",
@@ -1194,7 +1453,7 @@ def main() -> None:
     # --- main path 6: the big-scene gradient step (n1936), 1080p 4 spp d8 -------
     scene = demo.sphere_stress(width=1920, copies=4)
     sd, cp = scene.build(), scene.scene_cam.params()
-    if sd.sph_perm is None or not replay.replay_supported(sd):
+    if sd.sph_perm is None or not replay._use_replay_kernel(sd):
         raise AssertionError("sphere_stress n1936 should take the walk and the replay kernels")
     params, loss0, replay_grads, step_ms = replay_steps(
         sd, cp, "sphere_stress n1936", "megakernel_walk_record", "megakernel_record")
@@ -1288,6 +1547,209 @@ def main() -> None:
               f"the keyframe): {ms / 1e3:.3f} s, {ms / 2e3:.3f} s per frame; launches {got}")
         launches_k8 += got["k8"]
     kernels["megakernel_motion"]["launches"] = launches_k8
+
+    # --- main path 9: gradients of moving scenes, big tables and the HDR sky --
+    # Each through grad.loss_and_grad(method="auto") at 1920x1080, 4 spp, d8:
+    # bouncing book1 (K8 record, the eager replay), sphere_stress n7744 (the
+    # record walk K5, the eager replay above the kernels' 2048 rows) and
+    # garden (K2 record, the eager replay under the spherical sky).
+    def grad_launches():
+        r = mk.RECORD_LAUNCHES
+        return dict(k2=r["brute"], k5=r["walk"], k8=r["motion"], k8_walk=r["motion_walk"],
+                    k4=rk.LAUNCHES_FORWARD, k3=rk.LAUNCHES_BACKWARD)
+
+    def check_leaves(loss, grads, params, what):
+        if not math.isfinite(loss.item()):
+            raise AssertionError(f"{what}: non-finite loss")
+        for key in grad.leaf_keys(params):
+            g = grads[key]
+            if g.shape != params[key].shape or not bool(g.isfinite().all()):
+                raise AssertionError(f"{what}: gradient {key} has a bad shape or is non-finite")
+
+    def eager_steps(sd, cp, what, record, timed=2):
+        """A warm and ``timed`` timed loss_and_grad steps; ``record`` the
+        record kernel that must launch, and K3 / K4 must not (the eager
+        replay). -> (params, warm loss, warm gradients, step ms, peak GiB)."""
+        params = grad.extract_params(sd, cp)
+        torch.cuda.empty_cache()
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        (loss0, grads), ms = host_ms(
+            lambda: grad.loss_and_grad(params, sd, cp, target, pix, 0, **kw))
+        check_leaves(loss0, grads, params, what)
+        print(f"loss_and_grad {what} 1920x1080 4spp d8 (auto -> replay, eager), warm step: "
+              f"{ms / 1e3:.3f} s, loss {loss0.item():.6f}")
+        step_ms = []
+        for i in range(timed):
+            (loss, g), ms = host_ms(
+                lambda: grad.loss_and_grad(params, sd, cp, target, pix, 0, **kw))
+            check_leaves(loss, g, params, what)
+            step_ms.append(ms)
+            print(f"  step {i}: {ms / 1e3:.4f} s, {mrays / (ms / 1e3):.2f} Mrays/s")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        got = grad_launches()
+        print(f"  nvidia-smi: {smi()}; peak memory {peak:.2f} GiB; launches {got}")
+        if got[record] < 1 or got["k3"] or got["k4"]:
+            raise AssertionError(f"{what}: launches {got}")
+        return params, loss0, grads, step_ms, peak
+
+    def split_step(sd, cp, params, what):
+        """One step cut into its phases, each synchronized: ray generation,
+        the record kernel, the eager replay's forward (with the loss) and
+        its backward."""
+        leaves = {k: params[k].detach().requires_grad_(True) for k in grad.leaf_keys(params)}
+        sd2, cp2 = grad.apply_params(sd, cp, {**params, **leaves})
+        pl, sl = grad._lanes(pix, spp, 0)
+        (o, d, _), t_rays = host_ms(lambda: generate_rays(cp2, w, h, pl, sl, 0))
+        rec, t_rec = host_ms(lambda: replay.trace_record_mega(sd2, cp2, w, h, pl, sl, 0, 8))
+
+        def forward():
+            rad = replay.trace_replay(sd2, o, d, pl, sl, 0, 8, rec)
+            return torch.mean((rad.reshape(spp, -1, 3).mean(dim=0) - target) ** 2)
+
+        loss, t_fwd = host_ms(forward)
+        _, t_bwd = host_ms(lambda: torch.autograd.grad(loss, list(leaves.values()),
+                                                       allow_unused=True))
+        total = t_rays + t_rec + t_fwd + t_bwd
+        print(f"  {what} step by phase: ray generation {t_rays:.1f} ms, record {t_rec:.1f} ms, "
+              f"replay forward {t_fwd:.1f} ms, replay backward {t_bwd:.1f} ms "
+              f"(sum {total:.1f} ms)")
+        return dict(rays=t_rays, record=t_rec, forward=t_fwd, backward=t_bwd)
+
+    w, h, spp = 1920, 1080, 4
+    grad_cells = {}
+    scene = bouncing(1920)
+    sd, cp = scene.build(), scene.scene_cam.params()
+    if replay._use_replay_kernel(sd) or not (sd.animated and cp.animated):
+        raise AssertionError("bouncing book1 should move and take the eager replay")
+    params, loss0, _, step_ms, peak = eager_steps(sd, cp, "bouncing book1", "k8")
+    launches_k8r = mk.RECORD_LAUNCHES["motion"]
+    zero_counts()
+    rec, ms = host_ms(lambda: grad.record_decisions(sd, cp, pix, 0, **kw))
+    print(f"record_decisions bouncing book1 1920x1080 4spp d8: {ms / 1e3:.4f} s")
+    frozen_ms = []
+    for i in range(2):
+        (loss, g), ms = host_ms(
+            lambda: grad.loss_and_grad(params, sd, cp, target, pix, 0, rec=rec, **kw))
+        check_leaves(loss, g, params, "bouncing book1 frozen")
+        frozen_ms.append(ms)
+        print(f"  frozen step {i}: {ms / 1e3:.4f} s, {mrays / (ms / 1e3):.2f} Mrays/s, "
+              f"loss {loss.item():.6f}")
+    if not torch.equal(loss, loss0):
+        raise AssertionError("the frozen step's loss is not the fused step's")
+    got = grad_launches()
+    if got["k8"] != 1 or got["k3"] or got["k4"]:
+        raise AssertionError(f"bouncing book1 frozen steps: launches {got}")
+    launches_k8r += got["k8"]
+    del rec, g
+    phases = split_step(sd, cp, params, "bouncing book1")
+    profile_step("bouncing book1 loss_and_grad step",
+                 lambda: grad.loss_and_grad(params, sd, cp, target, pix, 0, **kw),
+                 sorted(step_ms)[0], kernel_key=("indexFunc", "index_add"))
+    grad_cells["bouncing"] = dict(step_ms=step_ms, frozen_ms=frozen_ms, peak_gib=peak,
+                                  phases=phases)
+    kernels["megakernel_motion_record"]["launches"] = launches_k8r
+    del params
+
+    scene = demo.sphere_stress(width=1920, copies=16)
+    sd, cp = scene.build(), scene.scene_cam.params()
+    if replay._use_replay_kernel(sd) or sd.sph_perm is None:
+        raise AssertionError("sphere_stress n7744 should walk and take the eager replay")
+    params, _, _, step_ms, peak = eager_steps(sd, cp, "sphere_stress n7744", "k5")
+    kernels["megakernel_walk_record"]["launches"] += mk.RECORD_LAUNCHES["walk"]
+    phases = split_step(sd, cp, params, "sphere_stress n7744")
+    grad_cells["n7744"] = dict(step_ms=step_ms, peak_gib=peak, phases=phases)
+    del params
+
+    scene = demo.garden_skybox(width=1920)
+    sd, cp = scene.build(), scene.scene_cam.params()
+    if replay._use_replay_kernel(sd) or sd.sky_image is None:
+        raise AssertionError("garden should take the eager replay with the sky image a leaf")
+    params, _, grads, step_ms, peak = eager_steps(sd, cp, "garden", "k2")
+    if not grads["sky_image"].abs().sum().item() > 0:
+        raise AssertionError("garden: the sky image's gradient is zero")
+    kernels["megakernel_record"]["launches"] += mk.RECORD_LAUNCHES["brute"]
+    phases = split_step(sd, cp, params, "garden")
+    grad_cells["garden"] = dict(step_ms=step_ms, peak_gib=peak, phases=phases)
+    del params, grads
+
+    # The eager replay against direct AD on the card, 320x180, 2 spp, d8.
+    def pool8(g):
+        return torch.nn.functional.avg_pool2d(g.permute(2, 0, 1)[None], 8)[0]
+
+    def sky_texel_flips(params, sd, cp, kw_small):
+        """The texels read, bounce by bounce, by a lane whose nearest sky
+        texel differs between the replay and direct AD, and the count of
+        such lookups: each forward's sky lookups are read through the lookup
+        itself on an image of texel indices."""
+        image = sd.sky_image
+        hh, ww = image.shape[:2]
+        ids = torch.arange(hh * ww, dtype=torch.float32, device=image.device)
+        ids = ids.reshape(hh, ww, 1).expand(hh, ww, 3)
+        lookup = skybox.radiance
+        texels = {}
+        for method in ("replay", "ad"):
+            calls = texels[method] = []
+
+            def spy(kind, img, d, calls=calls):
+                if kind == skybox.SPHERICAL:
+                    calls.append(lookup(kind, ids, d)[:, 0].long())
+                return lookup(kind, img, d)
+
+            skybox.radiance = spy
+            try:
+                with torch.no_grad():
+                    grad.render_pixels_mean(params, sd, cp, pix_small, seed=0, method=method,
+                                            **kw_small)
+            finally:
+                skybox.radiance = lookup
+        flips, lanes = [], 0
+        for tr, ta in zip(texels["replay"], texels["ad"]):
+            moved = tr != ta
+            lanes += int(moved.sum())
+            flips += [tr[moved], ta[moved]]
+        return torch.cat(flips).unique(), lanes
+
+    kw_small = dict(width=320, height=180, spp=2, max_depth=8)
+    pix_small = torch.arange(320 * 180, device=dev)
+    target_small = torch.zeros((320 * 180, 3), device=dev)
+    for what, sc in (("bouncing book1", bouncing(320)), ("garden", demo.garden_skybox(width=320))):
+        sd, cp = sc.build(), sc.scene_cam.params()
+        params = grad.extract_params(sd, cp)
+        (lr, gr), ms_r = host_ms(lambda: grad.loss_and_grad(
+            params, sd, cp, target_small, pix_small, 0, **kw_small))
+        (la, ga), ms_a = host_ms(lambda: grad.loss_and_grad(
+            params, sd, cp, target_small, pix_small, 0, method="ad", **kw_small))
+        rel = abs(la.item() - lr.item()) / lr.item()
+        print(f"replay vs direct AD, {what} 320x180 2spp d8: loss {lr.item():.6f} vs "
+              f"{la.item():.6f} (rel {rel:.3g}); {ms_r:.1f} vs {ms_a:.1f} ms")
+        if not rel <= 2e-3:
+            raise AssertionError(f"{what}: the replay and direct-AD losses disagree")
+        for key in ("tex_color", "mat_emission") + (("sky_image",) if what == "garden" else ()):
+            a, b = ga[key], gr[key]
+            scale = max(b.abs().max().item(), 1e-6)
+            nd = ((a - b).abs().max() / scale).item()
+            print(f"  {key}: max normalized diff ad vs replay {nd:.3g}")
+            if key == "sky_image":
+                # The nearest texel, floor(u W), is a choice the record does
+                # not hold: where the two estimators' directions differ in
+                # their last ulps a lane on a texel border lands on the
+                # neighbour. The texels such lanes read are left out, every
+                # other texel is held on its own.
+                flipped, lanes = sky_texel_flips(params, sd, cp, kw_small)
+                per_texel = (a - b).abs().amax(dim=-1).reshape(-1) / scale
+                kept = torch.ones_like(per_texel, dtype=torch.bool)
+                kept[flipped] = False
+                nd = per_texel[kept].max().item()
+                pooled = ((pool8(a) - pool8(b)).abs().max() / scale).item()
+                print(f"  {key}: {lanes} sky lookups chose another texel, {flipped.numel()} "
+                      f"texels left out of {per_texel.numel()} ({int((b != 0).any(-1).sum())} "
+                      f"nonzero); max normalized diff per kept texel {nd:.3g}, over "
+                      f"8x8-texel blocks {pooled:.3g}")
+            if not nd <= 5e-3:
+                raise AssertionError(f"{what} {key}: direct-AD and replay gradients disagree")
+    del params, ga, gr
+    print("gradient cells: " + json.dumps(grad_cells))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check")
 
     print(card)

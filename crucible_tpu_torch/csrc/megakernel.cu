@@ -23,7 +23,7 @@
 // decision words and the walk flag only replaces the search, so the brute
 // forward instantiation's arithmetic is unchanged.
 //
-// K8, the motion variants (forward mode; megakernel.py l.509-555, 588-616
+// K8, the motion variants (both modes; megakernel.py l.509-555, 588-616
 // and the shading lerp l.1309-1314). Each path draws its shutter fraction
 // w = the first uniform of pcg4d(pix, sample, STREAM_TIME, seed), the
 // number the staged path's camera draws:
@@ -31,13 +31,19 @@
 //   w (cd.d) and w (cd.o) to its dot products and 2w s1 + w^2 s2 to
 //   |c|^2 - r^2 (common.cuh closest_sphere_moving, table columns 24-29,
 //   staged in shared memory beside the five static columns: 10 floats a
-//   row), and the winner's center and radius are lerped for its normal;
+//   row), and the winner's center and radius are lerped for its normal and,
+//   in record mode, for the per-winner quadratic that picks F_ROOT1, so that
+//   every flag is the moving sphere's (megakernel.py l.1309-1313, 1459-1466);
 // - CAM_ANIMATED: at each new sample the lane lerps look_from and look_at
 //   (cam slots 9-11 / 19-21 plus w times the deltas in 22-27) and rebuilds
 //   the basis, pixel00, du and dv with true divisions and the 1e-12 floor,
 //   operation for operation as camera.generate_rays does.
 // The walk takes CAM_ANIMATED only: animated big scenes need the chunk-cull
-// branch (K6), not ported. Record mode takes neither (the next slice).
+// branch (K6), not ported. Record mode (run_megakernel_record, pallas_call at
+// megakernel.py:1828) instantiates what a gradient reaches: the brute search
+// with either flag or both, and the walk with CAM_ANIMATED, each fused or
+// not; its words are K2's layout, with w drawn once per path for the camera
+// and the search alike.
 //
 // What bounds it on this card: per-thread FP32 work on the quadratic (about
 // 20 flops and a square root per row tested per bounce; the walk adds a
@@ -163,15 +169,13 @@ __device__ __forceinline__ void walk_closest(
 // (D, R). RADIANCE: accumulate radiance into `out` (3, R); in record mode
 // only from bounce smem[4] on. Forward mode is <false, true>. WALK: the
 // closest hit walks the sphere BVH over the permuted table. ANIMATED,
-// CAM_ANIMATED: K8's moving spheres and keyframed camera (forward only).
+// CAM_ANIMATED: K8's moving spheres and keyframed camera.
 template <bool RECORD, bool RADIANCE, bool WALK, bool ANIMATED, bool CAM_ANIMATED>
 __device__ __forceinline__ void trace_lane(
     int lane, const Staged& s, const int32_t* __restrict__ smem,
     const int32_t* __restrict__ pix_in, const int32_t* __restrict__ sample0,
     const float* __restrict__ cam, const float* __restrict__ table, int r,
     float t_min, float* __restrict__ out, int32_t* __restrict__ rec) {
-  static_assert(!(RECORD && (ANIMATED || CAM_ANIMATED)),
-                "K8's record mode is not ported");
   static_assert(!(WALK && ANIMATED), "animated big scenes need K6");
   const int spp = smem[0];
   const uint32_t seed = (uint32_t)smem[1];
@@ -440,12 +444,13 @@ __device__ __forceinline__ void trace_lane(
         const bool refl = (ri * sin_t > 1.0f) || (schlick > u_dec);
         const bool degen = fabsf(nx + rx) < 1e-8f && fabsf(ny + ry) < 1e-8f &&
                            fabsf(nz + rz) < 1e-8f;
-        const float r_ocx = row[0] - ox;
-        const float r_ocy = row[1] - oy;
-        const float r_ocz = row[2] - oz;
+        // The winner at the path's shutter fraction (row[0..3] when static).
+        const float r_ocx = wcx - ox;
+        const float r_ocy = wcy - oy;
+        const float r_ocz = wcz - oz;
         const float r_h = dx * r_ocx + dy * r_ocy + dz * r_ocz;
         const float r_c =
-            r_ocx * r_ocx + r_ocy * r_ocy + r_ocz * r_ocz - row[3] * row[3];
+            r_ocx * r_ocx + r_ocy * r_ocy + r_ocz * r_ocz - wrad * wrad;
         const float r_disc = fmaxf(r_h * r_h - a_q * r_c, 0.0f);
         const float r_root0 = (r_h - sqrtf(r_disc)) * inv_a;
         const bool root1 = !(r_root0 > t_min);
@@ -566,6 +571,43 @@ int launch(const int32_t* smem, const int32_t* pix, const int32_t* sample0,
   return (int)cudaGetLastError();
 }
 
+// The record instantiations for one value of RADIANCE.
+template <bool RADIANCE>
+int record_variant(const int32_t* smem, const int32_t* pix,
+                   const int32_t* sample0, const float* cam, const float* table,
+                   const float* nodes, const int32_t* meta, int n, int k, int r,
+                   float t_min, int animated, int cam_animated, float* out,
+                   int32_t* rec, void* stream) {
+  if (k > 0) {
+    if (animated) return (int)cudaErrorInvalidValue;
+    if (cam_animated) {
+      return launch<true, RADIANCE, true, false, true>(
+          smem, pix, sample0, cam, table, nodes, meta, n, k, r, t_min, out,
+          rec, stream);
+    }
+    return launch<true, RADIANCE, true>(smem, pix, sample0, cam, table, nodes,
+                                        meta, n, k, r, t_min, out, rec, stream);
+  }
+  if (animated && cam_animated) {
+    return launch<true, RADIANCE, false, true, true>(
+        smem, pix, sample0, cam, table, nullptr, nullptr, n, 0, r, t_min, out,
+        rec, stream);
+  }
+  if (animated) {
+    return launch<true, RADIANCE, false, true, false>(
+        smem, pix, sample0, cam, table, nullptr, nullptr, n, 0, r, t_min, out,
+        rec, stream);
+  }
+  if (cam_animated) {
+    return launch<true, RADIANCE, false, false, true>(
+        smem, pix, sample0, cam, table, nullptr, nullptr, n, 0, r, t_min, out,
+        rec, stream);
+  }
+  return launch<true, RADIANCE, false>(smem, pix, sample0, cam, table, nullptr,
+                                       nullptr, n, 0, r, t_min, out, rec,
+                                       stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -620,28 +662,25 @@ int crucible_megakernel_forward(const int32_t* smem, const int32_t* pix,
 
 // Launch the record-mode megakernel: `rec` (smem[3], R) int32 packed
 // decision words; `out` (3, R) the fused radiance when `radiance` is nonzero,
-// else zeros. The brute search (K2) when k == 0, else the walk (K5).
-// Returns cudaGetLastError().
+// else zeros. The brute search (K2) when k == 0, else the walk (K5); with
+// `animated` (brute only) or `cam_animated` nonzero, their motion variants
+// (K8). Returns cudaGetLastError(), or cudaErrorInvalidValue for an animated
+// walk.
 int crucible_megakernel_record(const int32_t* smem, const int32_t* pix,
                                const int32_t* sample0, const float* cam,
                                const float* table, const float* nodes,
                                const int32_t* meta, int n, int k, int r,
-                               float t_min, int radiance, float* out,
-                               int32_t* rec, void* stream) {
-  if (k > 0) {
-    if (radiance) {
-      return launch<true, true, true>(smem, pix, sample0, cam, table, nodes,
-                                      meta, n, k, r, t_min, out, rec, stream);
-    }
-    return launch<true, false, true>(smem, pix, sample0, cam, table, nodes,
-                                     meta, n, k, r, t_min, out, rec, stream);
-  }
+                               float t_min, int radiance, int animated,
+                               int cam_animated, float* out, int32_t* rec,
+                               void* stream) {
   if (radiance) {
-    return launch<true, true, false>(smem, pix, sample0, cam, table, nullptr,
-                                     nullptr, n, 0, r, t_min, out, rec, stream);
+    return record_variant<true>(smem, pix, sample0, cam, table, nodes, meta, n,
+                                k, r, t_min, animated, cam_animated, out, rec,
+                                stream);
   }
-  return launch<true, false, false>(smem, pix, sample0, cam, table, nullptr,
-                                    nullptr, n, 0, r, t_min, out, rec, stream);
+  return record_variant<false>(smem, pix, sample0, cam, table, nodes, meta, n,
+                               k, r, t_min, animated, cam_animated, out, rec,
+                               stream);
 }
 
 const char* crucible_cuda_error_string(int err) {

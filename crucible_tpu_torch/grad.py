@@ -7,27 +7,27 @@ loss against target pixel radiances and its gradient with the same keys.
 Two estimators compute it:
 
 - ``method='replay'``: the record/replay path of ``models/replay.py``
-  (record K2, replay K4 forward and K3 backward). Frozen-decision training
-  records the decisions once (:func:`record_decisions`) and replays them in
-  every later step (``rec=``).
+  (record K2, K5 or K8; replay K4 forward and K3 backward where the replay
+  kernels take the scene, else the eager per-bounce replay: moving spheres
+  and animated cameras, tables above 2048 rows, the spherical sky, whose
+  image is then a leaf, ``sky_image``). Frozen-decision training records
+  the decisions once (:func:`record_decisions`) and replays them in every
+  later step (``rec=``).
 - ``method='ad'``: direct reverse mode through the checkpointed bounce loop
-  (``integrator.render_rays(differentiable=True)``, closest hits by K10),
-  the semantic reference; it also covers the spherical sky, whose image is
-  then a leaf (``sky_image``).
+  (``integrator.render_rays(differentiable=True)``, closest hits by K10, or
+  for moving spheres ``intersect.hit_spheres_moving``), the semantic
+  reference.
 
-``method='auto'`` takes the replay where the replay kernels take the scene
-and the direct AD elsewhere. :func:`make_train_step` wraps a
-``torch.optim`` optimizer.
+``method='auto'`` takes the replay, as in the JAX package.
+:func:`make_train_step` wraps a ``torch.optim`` optimizer.
 
-Not ported yet: gradients of moving spheres and animated cameras (K8's
-record mode and the jnp-style replay), the depth-50 budget (lane-narrowed
-replay), the capacity-overflow recovery ladder, sample-chunked
-accumulation and checkpoints.
+Not ported yet: the depth-50 budget (lane-narrowed replay), the
+capacity-overflow recovery ladder, sample-chunked accumulation and
+checkpoints.
 """
 
 from __future__ import annotations
 
-import sys
 from dataclasses import replace
 from typing import Any, Dict
 
@@ -124,29 +124,13 @@ def render_pixels_mean(
 
     ``method``: 'replay' (record, then the differentiable replay), 'ad'
     (direct reverse mode through the checkpointed bounce loop — the
-    semantic reference) or 'auto' (replay wherever the replay kernels take
-    the scene, else 'ad').
+    semantic reference) or 'auto' (the replay, which takes every scene).
     """
     if method not in ("auto", "replay", "ad"):
         raise ValueError(f"unknown method {method!r}")
-    if sd.animated or cp.animated:
-        raise NotImplementedError(
-            "gradients of moving spheres and animated cameras are not ported to "
-            "crucible_tpu_torch yet: they come with K8's record mode and the "
-            "jnp-style replay"
-        )
     sd, cp = apply_params(sd, cp, params)
     if method == "auto":
-        if replay_mod.replay_supported(sd):
-            method = "replay"
-        else:
-            print(
-                "crucible_tpu_torch: WARNING: scene outside the replay kernels "
-                "(see replay.replay_supported); using the direct-AD estimator "
-                "(slower, memory-heavy at large pixel batches)",
-                file=sys.stderr,
-            )
-            method = "ad"
+        method = "replay"
     if rec is not None and method != "replay":
         raise ValueError(
             "precomputed decision records (rec=...) need the replay gradient "

@@ -278,25 +278,36 @@ def megakernel_unsupported_reason(sd: SceneData, cp: CameraParams):
 
 
 def megakernel_record_supported(sd: SceneData, cp: CameraParams) -> bool:
-    """The port's subset of the JAX record-mode predicate: sphere-only
-    static scenes seen by a static camera (the record mode of K8 comes with
-    the gradient of moving scenes), with at most ``mk.MAX_ROWS`` table rows
-    or with the sphere-BVH tables (``sd.sph_perm``) that the walk takes
-    instead. The record's decisions read no albedo or sky, so textures and
-    the sky do not limit it."""
+    """The port's subset of the JAX record-mode predicate
+    (``crucible_tpu/models/integrator.py:705-735``): sphere-only scenes,
+    static or moving on the linear shutter, seen by a static or linearly
+    animated camera (K8's record mode for motion), with at most
+    ``mk.MAX_ROWS`` table rows or with the sphere-BVH tables
+    (``sd.sph_perm``) that the walk takes instead; a moving table takes the
+    brute search only, up to ``mk.MAX_ROWS_ANIMATED`` rows. The record's
+    decisions read no albedo or sky, so textures and the sky do not limit
+    it."""
     return megakernel_record_unsupported_reason(sd, cp) is None
 
 
 def megakernel_record_unsupported_reason(sd: SceneData, cp: CameraParams):
     """None if the record megakernel takes this scene, else what it lacks."""
-    rows_ok = int(sd.sph_center.shape[0]) <= mk.MAX_ROWS or sd.sph_perm is not None
+    n = int(sd.sph_center.shape[0])
+    if sd.animated:
+        rows_ok = n <= mk.MAX_ROWS_ANIMATED and sd.sph_perm is None
+        rows_what = (
+            f"more than {mk.MAX_ROWS_ANIMATED} moving sphere rows, or moving "
+            "spheres with structure tables (animated big scenes need the "
+            "chunk-cull branch, K6, ROADMAP A6)"
+        )
+    else:
+        rows_ok = n <= mk.MAX_ROWS or sd.sph_perm is not None
+        rows_what = f"more than {mk.MAX_ROWS} sphere rows without the sphere-BVH tables"
     checks = (
-        (sd.num_tris == 0, "triangle meshes"),
-        (not sd.animated and not sd.motion_exact,
-         "moving spheres (K8's record mode, with the gradient of moving scenes)"),
-        (not cp.animated and not cp.motion_exact,
-         "animated cameras (K8's record mode, with the gradient of moving scenes)"),
-        (rows_ok, f"more than {mk.MAX_ROWS} sphere rows without the sphere-BVH tables"),
+        (sd.num_tris == 0, "triangle meshes (K7, ROADMAP A4)"),
+        (not sd.motion_exact and not cp.motion_exact,
+         "exact-time motion, a keyframe inside the shutter (ROADMAP A7)"),
+        (rows_ok, rows_what),
     )
     return next((what for ok, what in checks if not ok), None)
 

@@ -44,6 +44,8 @@ def scatter(
     u_dir1,
     u_dir2,
     u_decide,
+    forced_reflect=None,
+    forced_degenerate=None,
 ):
     """Evaluate all BSDF branches for a batch of hits and select by type.
 
@@ -58,19 +60,24 @@ def scatter(
       u_dir1, u_dir2: uniforms for the scatter-direction sample.
       u_decide: uniform for the material decision (Lambertian roulette /
         dielectric reflectance test).
+      forced_reflect, forced_degenerate: optional (R,) bool that replace the
+        computed dielectric reflect / Lambertian degenerate decisions with
+        recorded ones: the replay freezes every discrete decision, so that
+        a last-ulp change in a recomputed value never flips a branch.
 
     Returns:
       (scatter_dir (R,3), attenuation (R,3), scattered (R,) bool,
       reflect (R,) bool, degenerate (R,) bool); ``scattered`` False means
       the path is absorbed. ``reflect`` (the dielectric's choice) and
       ``degenerate`` (the Lambertian direction's) are evaluated for every
-      row whatever its material, as the record-mode megakernel stores them.
+      row whatever its material, as the record-mode megakernel stores them
+      (the forced ones where given).
     """
     rnd_unit = sampling.unit_vector(u_dir1, u_dir2)
 
     # --- Lambertian ------------------------------------------------------
     lam_dir = normal + rnd_unit
-    degenerate = vec.near_zero(lam_dir)
+    degenerate = vec.near_zero(lam_dir) if forced_degenerate is None else forced_degenerate
     lam_dir = torch.where(degenerate[:, None], normal, lam_dir)
     # Russian roulette with 1/p compensation; all demo scenes pass prob=1.
     lam_atten = albedo * (1.0 / torch.clamp_min(scatter_prob, 1e-8))[:, None]
@@ -88,7 +95,11 @@ def scatter(
     cos_theta = torch.clamp_max(vec.dot(-ud, normal), 1.0)
     sin_theta = torch.sqrt(torch.clamp_min(1.0 - cos_theta * cos_theta, 1.0e-12))
     cannot_refract = ri * sin_theta > 1.0
-    reflect_choice = cannot_refract | (schlick(cos_theta, ri) > u_decide)
+    reflect_choice = (
+        cannot_refract | (schlick(cos_theta, ri) > u_decide)
+        if forced_reflect is None
+        else forced_reflect
+    )
     die_dir = torch.where(
         reflect_choice[:, None],
         vec.reflect(ud, normal),

@@ -4,29 +4,40 @@ Port of the unsplit part of ``crucible_tpu/models/replay.py``:
 
 1. :func:`trace_record_mega` — the fast, non-differentiable forward: the
    record-mode megakernel (K2; K5, the sphere-BVH walk, on scenes with
-   ``sd.sph_perm``) traces one (pixel, sample) path per lane and
-   stores, per bounce, one packed int32 word: the winner's id and the
-   discrete outcomes (alive / hit / scattered / front / reflect /
-   degenerate / far root). With ``radiance=True`` the same loop also sums
-   each path's radiance (the fused mode).
-2. :func:`trace_replay` — the differentiable replay of those words
-   (``ops/kernels/replay_kernel.py``: forward K4, backward K3), which
-   re-derives every continuous quantity with the decisions frozen.
+   ``sd.sph_perm``; K8, their motion variants, for moving spheres and
+   animated cameras) traces one (pixel, sample) path per lane and stores,
+   per bounce, one packed int32 word: the winner's id and the discrete
+   outcomes (alive / hit / scattered / front / reflect / degenerate / far
+   root). With ``radiance=True`` the same loop also sums each path's
+   radiance (the fused mode).
+2. :func:`trace_replay` — the differentiable replay of those words, which
+   re-derives every continuous quantity with the decisions frozen: through
+   the replay kernels (``ops/kernels/replay_kernel.py``: forward K4,
+   backward K3) where they take the scene (:func:`_use_replay_kernel`),
+   else eagerly, one checkpointed bounce per record row (the JAX package's
+   jnp replay: moving spheres, tables above the kernels' rows, the
+   spherical sky).
 
 :func:`render_rays_replay` chains camera rays, record and replay. Integers
 carry no gradient, so the gradient is the replay's detached-sampling
 estimator. Not ported yet (each raises ``NotImplementedError``): the staged
-record (``trace_record`` over ``integrator.bounce_step``), the jnp replay
-for scenes outside the replay kernels (the spherical sky, tables above 2048
-rows), and the lane-narrowed replays of deep budgets (``record_two_level``
-/ ``replay_bucketed_2l``).
+record (``trace_record`` over ``integrator.bounce_step``), the eager
+replay's triangles, image textures, nested checkers and exact-time motion,
+and the lane-narrowed replays of deep budgets (``record_two_level`` /
+``replay_bucketed_2l``).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from crucible_tpu_torch.models import integrator
+from crucible_tpu_torch.models import materials as mat_mod
+from crucible_tpu_torch.models import skybox as sky_mod
+from crucible_tpu_torch.models import textures as tex_mod
 from crucible_tpu_torch.models.camera import CameraParams, generate_rays
 from crucible_tpu_torch.models.scene import SceneData
 from crucible_tpu_torch.ops.kernels import megakernel as mk
@@ -34,6 +45,7 @@ from crucible_tpu_torch.ops.kernels import replay_kernel as rk
 from crucible_tpu_torch.ops.kernels.megakernel import (  # the record layout
     F_ALIVE, F_DEGEN, F_FRONT, F_HIT, F_REFL, F_ROOT1, F_SCAT, F_TRI, REC_ID_SCALE,
 )
+from crucible_tpu_torch.utils import rng as crng
 
 # Packed word: bits 0..7 the flag byte (F_* bits, defined beside the
 # kernel that writes them), bits 8..30 the winner id when F_HIT (0
@@ -66,18 +78,32 @@ def rec_winner_id(rec: torch.Tensor) -> torch.Tensor:
 
 
 def replay_supported(sd: SceneData) -> bool:
-    """True where the port's replay runs: the replay kernels' scenes."""
+    """True for every scene: the replay kernels take what
+    :func:`_use_replay_kernel` accepts and the eager replay the rest (it
+    raises, naming the queue item, on what is not ported yet)."""
+    return True
+
+
+def _use_replay_kernel(sd: SceneData) -> bool:
+    """The routing predicate of the replay kernels (K4, K3): sphere-only
+    static scenes with solid / checker textures under the default sky, up
+    to ``rk.MAX_TABLE_ROWS`` rows."""
     return rk.supported(sd, int(sd.sph_center.shape[0]))
 
 
-def _check_replay_supported(sd: SceneData) -> None:
-    if not replay_supported(sd):
+def _check_eager(sd: SceneData) -> None:
+    """Raise for what the eager replay does not take yet."""
+    if sd.num_tris > 0:
         raise NotImplementedError(
-            "this scene is outside the replay kernels (sphere-only static "
-            f"scenes, solid/checker textures, default sky, <= "
-            f"{rk.MAX_TABLE_ROWS} rows); the jnp-style replay that covers "
-            "the rest is not ported to crucible_tpu_torch yet"
-        )
+            "the replay of triangle hits comes with meshes (K7, ROADMAP A4)")
+    if len(sd.tex.images) or sd.tex.max_nest > 1:
+        raise NotImplementedError(
+            "the replay of image textures and nested checkers is not ported to "
+            "crucible_tpu_torch yet (ROADMAP A5)")
+    if sd.motion_exact:
+        raise NotImplementedError(
+            "the replay of exact-time motion (a keyframe inside the shutter) is "
+            "not ported to crucible_tpu_torch yet (ROADMAP A7)")
 
 
 def trace_record_mega(
@@ -93,7 +119,8 @@ def trace_record_mega(
     accum_from: int = 0,
 ):
     """Record pass through the megakernel in record mode (K2; K5 where the
-    scene has the sphere-BVH tables, ``sd.sph_perm``).
+    scene has the sphere-BVH tables, ``sd.sph_perm``; K8 for moving spheres
+    or an animated camera, each path at its shutter fraction).
 
     One lane per (pixel, sample) path; the kernel regenerates the primary
     rays from the pcg4d streams. Sample id ``2**30`` marks a padding lane,
@@ -134,6 +161,8 @@ def trace_record_mega(
             sph_meta=sd.sph_meta,
             max_depth=int(max_depth),
             radiance=radiance,
+            animated=bool(sd.animated),
+            cam_animated=bool(cp.animated),
         )
     if radiance:
         return rec, acc.t()
@@ -149,33 +178,157 @@ def trace_replay(
     seed,
     max_depth: int,
     rec: torch.Tensor,
+    early_exit: bool = False,
+    bounce0: int = 0,
+    thr_in: torch.Tensor | None = None,
+    return_carry: bool = False,
     accum_from: int = 0,
     thr_mask: torch.Tensor | None = None,
     rad_given: torch.Tensor | None = None,
-) -> torch.Tensor:
+):
     """Differentiable replay of the first ``max_depth`` record rows ->
-    radiance (R, 3), through the replay kernels (K4 forward, K3 backward).
+    radiance (R, 3).
 
-    Rows below ``accum_from`` update the path carry but add no radiance;
-    ``thr_mask`` (R,) bool starts the throughput at that 0/1 mask;
-    ``rad_given`` (R, 3) is a forward radiance already summed for these
-    records (the fused record pass), which then stands as the primal.
-    Gradients reach the scene's tensors through ``make_sphere_table`` and
-    the rays' through ``o`` and ``d``.
+    The replay kernels (K4 forward, K3 backward) take the calls that the
+    JAX package sends to its kernel: a whole-path replay (no
+    ``early_exit``, no ``return_carry``, ``bounce0`` 0, a throughput that
+    starts at ones or at ``thr_mask``) of a scene :func:`_use_replay_kernel`
+    accepts. Every other call replays eagerly (:func:`_replay_eager`).
+
+    ``early_exit=True`` walks only the rows that hold a live lane.
+    ``bounce0`` is the absolute bounce of row 0 (a row slice of a longer
+    record keeps its random streams), ``thr_in`` (R, 3) the throughput to
+    start from, and ``return_carry=True`` also returns the carry (o, d,
+    thr) after the last row. Rows below ``accum_from`` update the carry but
+    add no radiance; ``thr_mask`` (R,) bool starts the throughput at that
+    0/1 mask (``thr_in``, where given, is its float form); ``rad_given``
+    (R, 3) is a forward radiance already summed for these records (the
+    fused record pass), which then stands as the kernels' primal. Gradients
+    reach the scene's tensors through ``make_sphere_table`` (and the sky
+    image) and the rays' through ``o`` and ``d``.
     """
-    _check_replay_supported(sd)
-    return rk.trace_replay_mega(
-        integrator.make_sphere_table(sd),
-        o,
-        d,
-        pixel_ids,
-        sample_ids,
-        seed,
-        rec[:max_depth],
-        accum_from=accum_from,
-        valid=thr_mask,
-        rad_given=rad_given,
+    rec = rec[:max_depth]
+    if (
+        not early_exit
+        and not return_carry
+        and bounce0 == 0
+        and (thr_in is None or thr_mask is not None)
+        and _use_replay_kernel(sd)
+    ):
+        return rk.trace_replay_mega(
+            integrator.make_sphere_table(sd), o, d, pixel_ids, sample_ids, seed, rec,
+            accum_from=accum_from, valid=thr_mask, rad_given=rad_given,
+        )
+    _check_eager(sd)
+    if thr_in is None:
+        thr_in = torch.ones_like(o) if thr_mask is None else (
+            torch.where(thr_mask[:, None], 1.0, torch.zeros_like(o)))
+    return _replay_eager(sd, integrator.make_sphere_table(sd), o, d, pixel_ids, sample_ids,
+                         seed, rec, early_exit=early_exit, bounce0=bounce0, thr_in=thr_in,
+                         return_carry=return_carry, accum_from=accum_from)
+
+
+# Table columns the eager replay fetches for a winner
+# (integrator.make_sphere_table layout): the replay kernels' channels, and
+# for moving spheres the center and radius deltas. Nothing else is fetched,
+# so the backward's index_add stays this narrow.
+EAGER_COLS = rk.USED
+MOTION_COLS = (24, 25, 26, 27)
+
+
+def _replay_row(sub, sky_image, o_c, d_c, thr, word, w, pixel_ids, sample_ids, *,
+                pos, sky_kind, seed, bounce, accumulate):
+    """One replayed bounce (the step of the JAX package's jnp replay,
+    ``crucible_tpu/models/replay.py:426-586``) -> (o, d, thr, the radiance
+    it adds). ``sub`` (N, K) holds the table columns ``pos`` maps to their
+    place; ``w`` (R,) the paths' shutter fractions, or None for a static
+    scene."""
+    dec = rk._decode(word)
+    hit, cont, front = dec["hit"], dec["cont"], dec["front"]
+
+    # The winner's row: an indexed load, whose backward is an index_add
+    # (fault C8), not the TPU's one-hot product.
+    srow = torch.index_select(sub, 0, dec["idx"].long())
+
+    def attr(c):
+        return srow[:, pos[c]]
+
+    def attr3(c):
+        return srow[:, pos[c]:pos[c] + 3]
+
+    c_w, r_w = attr3(0), attr(3)
+    if w is not None:  # the winner at the path's shutter fraction
+        c_w = c_w + w[:, None] * attr3(24)
+        r_w = r_w + w * attr(27)
+
+    # Hit t as the recorded root of the winner's quadratic.
+    a_q = (d_c * d_c).sum(-1)
+    oc = c_w - o_c
+    h_q = (d_c * oc).sum(-1)
+    c_q = (oc * oc).sum(-1) - r_w * r_w
+    disc = h_q * h_q - a_q * c_q
+    ok = disc > 0.0
+    sqrtd = torch.where(ok, torch.sqrt(torch.where(ok, disc, 1.0)), 0.0)
+    t_hit = (h_q + torch.where(dec["root1"], sqrtd, -sqrtd)) / a_q
+
+    t_shade = torch.where(hit, t_hit, 1.0)
+    point = o_c + t_shade[:, None] * d_c
+    n_out = (point - c_w) / torch.clamp_min(r_w, 1e-20)[:, None]
+    normal = torch.where(front[:, None], n_out, -n_out)
+
+    # Radiance: the sky on a miss, emission on a hit.
+    sky = sky_mod.radiance(sky_kind, sky_image, d_c)
+    contrib = torch.where(hit[:, None], attr3(10), sky)
+    live = dec["alive"] if accumulate else torch.zeros_like(hit)
+    add = torch.where(live[:, None], thr * contrib, 0.0)
+
+    # Albedo: solid or one-level checker, from the fetched row.
+    is_even = tex_mod.checker_is_even(attr(17), point)
+    checker = torch.where(is_even[:, None], attr3(18), attr3(21))
+    albedo = torch.where((attr(13) == tex_mod.CHECKER)[:, None], checker, attr3(14))
+
+    # Scatter with the recorded decisions.
+    u1, u2, u_dec = crng.uniform3(pixel_ids, sample_ids, crng.STREAM_BOUNCE_BASE + bounce, seed)
+    new_d, atten, _, _, _ = mat_mod.scatter(
+        attr(6), attr(7), attr(8), attr(9), albedo, d_c, normal, front, u1, u2, u_dec,
+        forced_reflect=dec["refl"], forced_degenerate=dec["degen"],
     )
+    keep = cont[:, None]
+    return (torch.where(keep, point, o_c), torch.where(keep, new_d, d_c),
+            torch.where(keep, thr * atten, thr), add)
+
+
+def _replay_eager(sd, table, o, d, pixel_ids, sample_ids, seed, rec, *, early_exit,
+                  bounce0, thr_in, return_carry, accum_from):
+    """The eager replay over ``table`` (N, 32), the scene's
+    ``make_sphere_table``: one :func:`_replay_row` per record row, each
+    under ``torch.utils.checkpoint`` where autograd records, so that the
+    backward holds one row's intermediates at a time and the carries (o, d,
+    thr) of each row (it recomputes the row's forward). The sky comes from
+    ``sd``."""
+    cols = EAGER_COLS + (MOTION_COLS if sd.animated else ())
+    sub = torch.index_select(table, 1, torch.tensor(cols, device=table.device))
+    pos = {c: i for i, c in enumerate(cols)}
+    w = integrator.shutter_fraction(pixel_ids, sample_ids, seed) if sd.animated else None
+    rows = rec.shape[0]
+    if early_exit:  # alive rows form a prefix: stop after the last live one
+        rows = int(((rec & F_ALIVE) > 0).any(dim=1).sum())
+    o_c, d_c, thr = o, d, thr_in
+    rad = torch.zeros_like(o)
+    for b in range(rows):
+        bounce = bounce0 + b
+        row = functools.partial(_replay_row, pos=pos, sky_kind=sd.sky_kind, seed=seed,
+                                bounce=bounce, accumulate=bounce >= accum_from)
+        args = (sub, sd.sky_image, o_c, d_c, thr, rec[b], w, pixel_ids, sample_ids)
+        if torch.is_grad_enabled():
+            o_c, d_c, thr, add = checkpoint(row, *args, use_reentrant=False,
+                                            preserve_rng_state=False)
+        else:
+            o_c, d_c, thr, add = row(*args)
+        rad = rad + add
+    if return_carry:
+        return rad, (o_c, d_c, thr)
+    return rad
 
 
 def render_rays_replay(
@@ -197,11 +350,13 @@ def render_rays_replay(
     where the scene allows it); 'staged' is not ported. ``rec``: packed
     records precomputed for these exact (pixel, sample, seed) lanes — the
     frozen-decision pattern (``grad.record_decisions``); the record pass is
-    skipped and the replay's forward kernel gives the primal. Otherwise the
-    fused record pass gives the primal and only the backward kernel runs in
-    the replay. ``split``: None replays unsplit up to
-    ``GRAD_SPLIT_MIN_DEPTH`` and raises above it; False replays unsplit at
-    any depth; True raises (the lane-narrowed replays are not ported).
+    skipped and the replay's forward gives the primal. Otherwise, where the
+    replay kernels take the scene, the fused record pass gives the primal
+    and only the backward kernel runs in the replay; elsewhere the record
+    pass writes the words alone and the eager replay gives the primal.
+    ``split``: None replays unsplit up to ``GRAD_SPLIT_MIN_DEPTH`` and
+    raises above it; False replays unsplit at any depth; True raises (the
+    lane-narrowed replays are not ported).
     """
     if record_mode == "staged":
         raise NotImplementedError(
@@ -216,17 +371,18 @@ def render_rays_replay(
         raise NotImplementedError(
             f"depth {max_depth} > {GRAD_SPLIT_MIN_DEPTH} needs the lane-narrowed "
             "replay (record_two_level / replay_bucketed_2l), which is not "
-            "ported to crucible_tpu_torch yet; pass split=False to replay "
-            "unsplit"
+            "ported to crucible_tpu_torch yet (ROADMAP A3); pass split=False "
+            "to replay unsplit"
         )
-    _check_replay_supported(sd)
+    fused = rec is None and _use_replay_kernel(sd)
     o, d, _ = generate_rays(cp, width, height, pixel_ids, sample_ids, seed)
     rad_mega = None
     if rec is None:
-        rec, rad_mega = trace_record_mega(
-            sd, cp, width, height, pixel_ids, sample_ids, seed, max_depth,
-            radiance=True,
-        )
+        args = (sd, cp, width, height, pixel_ids, sample_ids, seed, max_depth)
+        if fused:
+            rec, rad_mega = trace_record_mega(*args, radiance=True)
+        else:
+            rec = trace_record_mega(*args)
     return trace_replay(
         sd, o, d, pixel_ids, sample_ids, seed, max_depth, rec, rad_given=rad_mega
     )

@@ -9,8 +9,9 @@ touches only the R winners instead of an (R, N) candidate matrix. Winners
 and hit flags are discrete and carry no gradient.
 
 :func:`hit_spheres_moving` is the closest hit against linearly moving
-spheres, in plain torch: the semantic reference of the motion branches of
-K8 and K9, and the staged bounce's search for animated scenes.
+spheres, in plain torch with the same winner-only backward: the semantic
+reference of the motion branches of K8 and K9, and the staged bounce's
+search for animated scenes (direct AD on a moving scene runs it).
 """
 
 from __future__ import annotations
@@ -87,23 +88,8 @@ def hit_spheres(o, d, centers, radii, active, t_min):
     return _ClosestHit.apply(o, d, centers, radii, active_f, float(t_min))
 
 
-def hit_spheres_moving(o, d, w, ca, cd, ra, rd, active, t_min):
-    """Closest hit against linearly moving spheres: at the per-ray shutter
-    fraction w in [0, 1], sphere k has center ca_k + w cd_k and radius
-    ra_k + w rd_k.
-
-    The (R, N) terms expand as the JAX package expands them, so that no
-    (R, N, 3) tensor is formed: d.c(w) = d.ca + w (d.cd), |c(w)|^2 =
-    |ca|^2 + 2w (ca.cd) + w^2 |cd|^2 and r(w)^2 = ra^2 + 2w (ra rd) +
-    w^2 rd^2; a root needs a positive discriminant. Plain torch,
-    differentiable by autograd (the winner-only backward is not ported).
-
-    Args: o, d (R, 3); w (R,); ca, cd (N, 3); ra, rd (N,); active (N,)
-    bool or 0/1; t_min the exclusive lower bound of accepted roots (the
-    upper one is infinite).
-    Returns (t (R,), BIG on a miss; idx (R,) int32, 0 on a miss; hit (R,)).
-    """
-    act = torch.as_tensor(active, device=ca.device).to(torch.float32) > 0.0
+def _moving_closest(o, d, w, ca, cd, ra, rd, act, t_min):
+    """The (R, N) search of :func:`hit_spheres_moving` -> (t, idx int64)."""
     wc = w[:, None]
 
     def dots(v, c):  # (R, N) v . c_k
@@ -125,8 +111,74 @@ def hit_spheres_moving(o, d, w, ca, cd, ra, rd, active, t_min):
     ok1 = (root1 > t_min) & (root1 < math.inf)
     root = torch.where(ok0, root0, root1)
     t_all = torch.where(pos & (ok0 | ok1) & act[None, :], root, BIG)
-    t, idx = t_all.min(dim=1)
-    return t, idx.to(torch.int32), t < BIG
+    return t_all.min(dim=1)
+
+
+class _MovingHit(torch.autograd.Function):
+    """(o, d, w, ca, cd, ra, rd, act, t_min) -> (t, idx, hit), with the
+    winner-only backward of the JAX package's ``_moving_hit``
+    (``crucible_tpu/ops/intersect.py:224-264``)."""
+
+    @staticmethod
+    def forward(ctx, o, d, w, ca, cd, ra, rd, act, t_min):
+        with torch.no_grad():
+            t, idx = _moving_closest(o, d, w, ca, cd, ra, rd, act, t_min)
+        hit = t < BIG
+        idx = idx.to(torch.int32)
+        ctx.mark_non_differentiable(idx, hit)
+        ctx.save_for_backward(o, d, w, ca, cd, ra, rd, t, idx, hit)
+        return t, idx, hit
+
+    @staticmethod
+    def backward(ctx, t_bar, _idx_bar, _hit_bar):
+        o, d, w, ca, cd, ra, rd, t, idx, hit = ctx.saved_tensors
+        idx = idx.to(torch.int64)
+        wc = w[:, None]
+        c_w = torch.index_select(ca, 0, idx) + wc * torch.index_select(cd, 0, idx)
+        r_w = torch.index_select(ra, 0, idx) + w * torch.index_select(rd, 0, idx)
+        # Miss lanes carry t = BIG: mask it before it meets d (see _ClosestHit).
+        t_safe = torch.where(hit, t, 1.0)
+        nvec = o + t_safe[:, None] * d - c_w
+        den = (d * nvec).sum(-1)
+        steep = torch.abs(den) > 1e-12
+        g = torch.where(hit & steep, t_bar / torch.where(steep, den, 1.0), 0.0)
+        need = ctx.needs_input_grad
+        go = -g[:, None] * nvec if need[0] else None
+        gd = -(g * t_safe)[:, None] * nvec if need[1] else None
+        # w is a random sample: detached (its derivative would move the
+        # shutter instant, which the detached-sampling estimator excludes).
+        gw = torch.zeros_like(w) if need[2] else None
+        gc_rows = torch.where(hit[:, None], g[:, None] * nvec, 0.0)
+        gr_rows = torch.where(hit, g * r_w, 0.0)
+
+        def scatter(like, rows, on):  # index_add, not an indexed put (C8)
+            return torch.zeros_like(like).index_add_(0, idx, rows) if on else None
+
+        return (go, gd, gw, scatter(ca, gc_rows, need[3]), scatter(cd, wc * gc_rows, need[4]),
+                scatter(ra, gr_rows, need[5]), scatter(rd, w * gr_rows, need[6]), None, None)
+
+
+def hit_spheres_moving(o, d, w, ca, cd, ra, rd, active, t_min):
+    """Closest hit against linearly moving spheres: at the per-ray shutter
+    fraction w in [0, 1], sphere k has center ca_k + w cd_k and radius
+    ra_k + w rd_k.
+
+    The (R, N) terms expand as the JAX package expands them, so that no
+    (R, N, 3) tensor is formed: d.c(w) = d.ca + w (d.cd), |c(w)|^2 =
+    |ca|^2 + 2w (ca.cd) + w^2 |cd|^2 and r(w)^2 = ra^2 + 2w (ra rd) +
+    w^2 rd^2; a root needs a positive discriminant. The search runs
+    outside autograd; the backward touches the R winners only (the hit
+    distance as an implicit function of the winner's quadratic, as
+    :func:`hit_spheres`), the motion leaves with an extra factor w, and w,
+    a random sample, gets a zero gradient.
+
+    Args: o, d (R, 3); w (R,); ca, cd (N, 3); ra, rd (N,); active (N,)
+    bool or 0/1; t_min the exclusive lower bound of accepted roots (the
+    upper one is infinite).
+    Returns (t (R,), BIG on a miss; idx (R,) int32, 0 on a miss; hit (R,)).
+    """
+    act = torch.as_tensor(active, device=ca.device).to(torch.float32) > 0.0
+    return _MovingHit.apply(o, d, w, ca, cd, ra, rd, act, float(t_min))
 
 
 def sphere_uv(n):

@@ -2,9 +2,9 @@
 
 Port of ``crucible_tpu/ops/pallas/megakernel.py`` for its sphere branches
 — the brute search over every table row (K1, K2) and the per-lane
-sphere-BVH walk of big scenes (K5) in both modes, and in forward mode
-their motion variants (K8: ``animated`` spheres on the linear shutter,
-brute search only, and the ``cam_animated`` keyframed camera):
+sphere-BVH walk of big scenes (K5) in both modes, and their motion
+variants (K8: ``animated`` spheres on the linear shutter, brute search
+only, and the ``cam_animated`` keyframed camera), also in both modes:
 
 - :func:`run_megakernel` (forward): given the lanes' pixel ids and first
   samples, the camera vector and the (N, 32) sphere table, it traces every
@@ -27,11 +27,12 @@ for CPU tensors it runs its eager twin (:func:`run_megakernel_reference`,
 :func:`run_megakernel_record_reference`): all lanes in lockstep with
 per-lane sample regeneration, as the TPU kernel runs them, the brute
 (lanes x N) quadratic in lane chunks or the lockstep walk, and shading from
-the ported materials / textures / skybox / sampling code. ``LAUNCHES``,
-``LAUNCHES_RECORD`` (brute) and ``LAUNCHES_WALK``, ``LAUNCHES_RECORD_WALK``
-(the walk) count the static kernels' launches, ``LAUNCHES_MOTION`` (brute)
-and ``LAUNCHES_MOTION_WALK`` K8's (not twin calls); ``WALK_COUNTS`` counts
-the plain walk's work and ``SEARCH_COUNTS`` the plain forward's.
+the ported materials / textures / skybox / sampling code. ``LAUNCHES``
+(brute) and ``LAUNCHES_WALK`` count the static forward kernels' launches,
+``LAUNCHES_MOTION`` (brute) and ``LAUNCHES_MOTION_WALK`` K8's forward ones,
+and ``RECORD_LAUNCHES`` the record kernel's, keyed by variant (not twin
+calls); ``WALK_COUNTS`` counts the plain walk's work and ``SEARCH_COUNTS``
+the plain loop's (both modes).
 
 Layouts: ``smem`` (8,) int32 ``[spp, seed, width, max_depth, accum_from,
 0...]`` (spp and seed are uint32 bit patterns; accum_from is read in record
@@ -114,21 +115,23 @@ SLAB_EPS = float(np.float32(4e-3))
 NODE_BYTES = 9 * 4
 
 # Launches of the CUDA kernels since the last reset (twin calls excluded):
-# K1 (forward) and K2 (record) over every row, K5 walking the sphere BVH
-# (forward and record).
+# K1 over every row and K5 walking the sphere BVH (forward).
 LAUNCHES = 0
-LAUNCHES_RECORD = 0
 LAUNCHES_WALK = 0
-LAUNCHES_RECORD_WALK = 0
 # K8: the forward kernel's motion variants, brute (animated and / or
 # cam_animated) and walk (cam_animated).
 LAUNCHES_MOTION = 0
 LAUNCHES_MOTION_WALK = 0
+# The record kernel's launches by variant: K2 ("brute"), K5 ("walk"), K8
+# brute with animated and / or cam_animated ("motion") and the walk with
+# cam_animated ("motion_walk").
+RECORD_LAUNCHES = {"brute": 0, "walk": 0, "motion": 0, "motion_walk": 0}
 # The plain walk's work since the last reset: slab tests of a node, rows
 # of a leaf tested, and rows whose discriminant was not negative.
 WALK_COUNTS = {"nodes": 0, "rows": 0, "roots": 0}
-# The plain forward's work since the last reset: closest-hit searches (one
-# per lane and bounce traced) and primary rays issued.
+# The plain loop's work since the last reset (forward and record mode):
+# closest-hit searches (one per lane and bounce traced) and primary rays
+# issued.
 SEARCH_COUNTS = {"searches": 0, "issued": 0}
 
 
@@ -370,37 +373,36 @@ def run_megakernel_record(
     both modes. ``smem[3]`` is overridden by ``max_depth``, which sizes the
     records. With ``sph_nodes`` / ``sph_meta`` the closest hit walks the
     sphere BVH over the permuted ``table`` (K5) and the records hold the
-    winners' original ids; else it tests every row (K2). CUDA tensors
-    launch the kernel; CPU tensors run the twin. The triangle and
-    chunk-cull inputs, and ``animated`` / ``cam_animated`` (K8's record
-    mode, which comes with the gradient of moving scenes), raise
+    winners' original ids; else it tests every row (K2). ``animated`` and
+    ``cam_animated`` are K8's, as in :func:`run_megakernel`: each path's
+    words are those of the moving spheres and the camera at its shutter
+    fraction. CUDA tensors launch the kernel; CPU tensors run the twin.
+    The triangle and chunk-cull inputs, and an animated walk, raise
     ``NotImplementedError``.
     """
     _check_unported(cbounds, (tri_nodes, tris, mats, tri_meta))
-    if animated or cam_animated:
-        raise NotImplementedError(
-            "the record mode of the megakernel's motion variants (K8) is not "
-            "ported to crucible_tpu_torch yet: it comes with the gradient of "
-            "moving scenes"
-        )
     _check_inputs(smem, pix, sample0, cam, table)
     if max_depth < 1:
         raise ValueError(f"max_depth must be positive, got {max_depth}")
+    motion = dict(animated=bool(animated), cam_animated=bool(cam_animated))
     if table.device.type == "cpu":
         return run_megakernel_record_reference(
             smem, pix, sample0, cam, table, sph_nodes, sph_meta,
-            max_depth=max_depth, radiance=radiance,
+            max_depth=max_depth, radiance=radiance, **motion,
         )
+    walk = _walk(sph_nodes, sph_meta, table)
+    if walk is not None and animated:
+        raise _unported("chunk-cull (K6: moving spheres in a big scene)")
     smem = smem.clone()
     smem[3] = int(max_depth)
-    return _launch_record(smem, pix, sample0, cam, table, max_depth, radiance,
-                          _walk(sph_nodes, sph_meta, table))
+    return _launch_record(smem, pix, sample0, cam, table, max_depth, radiance, walk,
+                          **motion)
 
 
-def _launch_record(smem, pix, sample0, cam, table, max_depth, radiance, walk):
-    global LAUNCHES_RECORD, LAUNCHES_RECORD_WALK
+def _launch_record(smem, pix, sample0, cam, table, max_depth, radiance, walk,
+                   animated, cam_animated):
     n = table.shape[0]
-    _check_rows(n, walk)
+    _check_rows(n, walk, animated)
     lib = build.load("megakernel")
     r = pix.shape[1]
     acc = torch.empty((3, r), dtype=torch.float32, device=table.device)
@@ -411,28 +413,32 @@ def _launch_record(smem, pix, sample0, cam, table, max_depth, radiance, walk):
         err = lib.crucible_megakernel_record(
             smem.data_ptr(), pix.data_ptr(), sample0.data_ptr(),
             cam.data_ptr(), table.data_ptr(), nodes, meta, n, k, r,
-            ctypes.c_float(T_MIN), int(bool(radiance)),
-            acc.data_ptr(), rec.data_ptr(), stream,
+            ctypes.c_float(T_MIN), int(bool(radiance)), int(animated),
+            int(cam_animated), acc.data_ptr(), rec.data_ptr(), stream,
         )
     build.check(lib, err, "record megakernel")
-    if walk is None:
-        LAUNCHES_RECORD += 1
-    else:
-        LAUNCHES_RECORD_WALK += 1
+    variant = "motion" if animated or cam_animated else "brute"
+    if walk is not None:
+        variant = "walk" if variant == "brute" else "motion_walk"
+    RECORD_LAUNCHES[variant] += 1
     return acc, rec
 
 
 def run_megakernel_record_reference(
     smem, pix, sample0, cam, table, sph_nodes=None, sph_meta=None, *,
-    max_depth: int, radiance: bool = False,
+    max_depth: int, radiance: bool = False, animated: bool = False,
+    cam_animated: bool = False,
 ):
     """Eager-torch version of the record kernel: same inputs and outputs
     as :func:`run_megakernel_record`."""
+    walk = _walk(sph_nodes, sph_meta, table)
+    if walk is not None and animated:
+        raise _unported("chunk-cull (K6: moving spheres in a big scene)")
     smem = smem.clone()
     smem[3] = int(max_depth)
     return _reference_loop(
         smem, pix, sample0, cam, table, rec_depth=int(max_depth), radiance=radiance,
-        walk=_walk(sph_nodes, sph_meta, table),
+        walk=walk, animated=animated, cam_animated=cam_animated,
     )
 
 
@@ -596,9 +602,10 @@ def _reference_loop(smem, pix, sample0, cam, table, *, rec_depth: int, radiance:
     ``radiance`` then says whether to accumulate it, from bounce smem[4] on.
     ``walk`` (``walk_inputs``' nodes and meta) takes the closest hit from
     the sphere-BVH walk over the permuted table, the records' winner ids
-    from its column 31. ``animated`` and ``cam_animated`` (forward mode)
-    are K8's: the moving-sphere search and winner lerp, and the camera at
-    each path's shutter fraction (:func:`camera_at`).
+    from its column 31. ``animated`` and ``cam_animated`` (both modes)
+    are K8's: the moving-sphere search and winner lerp (which the record's
+    root choice reads too), and the camera at each path's shutter fraction
+    (:func:`camera_at`).
     """
     spp, seed, width, max_depth = (int(v) for v in smem[:4].tolist())
     accum_from = int(smem[4]) if rec_depth else 0
@@ -713,10 +720,11 @@ def _reference_loop(smem, pix, sample0, cam, table, *, rec_depth: int, radiance:
         cont = hit & scattered & (b_l + 1 < max_depth)
         if rec_depth:
             # Per-winner quadratic, as the replay re-solves it: which root.
+            # A moving winner's at the path's shutter fraction.
             a_q = d_l[:, 0] * d_l[:, 0] + d_l[:, 1] * d_l[:, 1] + d_l[:, 2] * d_l[:, 2]
-            oc = row[:, 0:3] - o_l
+            oc = w_c - o_l
             r_h = d_l[:, 0] * oc[:, 0] + d_l[:, 1] * oc[:, 1] + d_l[:, 2] * oc[:, 2]
-            r_c = oc[:, 0] * oc[:, 0] + oc[:, 1] * oc[:, 1] + oc[:, 2] * oc[:, 2] - row[:, 3] * row[:, 3]
+            r_c = oc[:, 0] * oc[:, 0] + oc[:, 1] * oc[:, 1] + oc[:, 2] * oc[:, 2] - w_r * w_r
             r_disc = torch.clamp_min(r_h * r_h - a_q * r_c, 0.0)
             root1 = ~((r_h - torch.sqrt(r_disc)) * (1.0 / a_q) > T_MIN)
             flags = (

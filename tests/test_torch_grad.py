@@ -200,14 +200,17 @@ def test_split_false_replays_deep_budgets_unsplit():
 @pytest.mark.parametrize(
     "call",
     [
-        lambda a: G.loss_and_grad(a[0], replace(a[1], animated=True), *a[2:6],
-                                  method="ad", **a[6]),
+        # Direct AD takes moving spheres; exact-time motion raises (A7).
+        lambda a: G.loss_and_grad(a[0], replace(a[1], animated=True, motion_exact=True),
+                                  *a[2:6], method="ad", **a[6]),
         lambda a: G.loss_and_grad(*a[:6], grad_split=True, **a[6]),
         lambda a: trep.render_rays_replay(
             a[1], a[2], 16, 9, a[4], torch.zeros_like(a[4]), 0, 2, record_mode="staged"
         ),
+        # The replay takes the spherical sky; nested checkers raise (A5).
         lambda a: G.loss_and_grad(
-            dict(a[0], sky_image=torch.ones(2, 4, 3)), replace(a[1], sky_kind=1), *a[2:6],
+            dict(a[0], sky_image=torch.ones(2, 4, 3)),
+            replace(a[1], sky_kind=1, tex=replace(a[1].tex, max_nest=2)), *a[2:6],
             method="replay", **a[6]),
     ],
     ids=["method_ad", "split", "staged_record", "sky_image"],

@@ -132,10 +132,19 @@ def test_refuses_unported_branches(kwargs):
     arrays, _, _ = _inputs("smoke_scene", 32, 1, 1)
     t = {k: torch.from_numpy(arrays[k]) for k in INPUTS}
     if "animated" in kwargs or "cam_animated" in kwargs:
-        # K8's forward mode is ported (tests/test_torch_motion.py); its
-        # record mode comes with the gradient of moving scenes.
-        with pytest.raises(NotImplementedError, match="record mode"):
-            tmk.run_megakernel_record(**t, max_depth=1, **kwargs)
+        # K8 is ported in both modes (tests/test_torch_motion.py,
+        # tests/test_torch_motion_grad.py); a moving table on the
+        # sphere-BVH walk needs the chunk-cull branch (K6), in either mode.
+        sc = tdemo.sphere_stress(width=16, copies=4)
+        sd = sc.build(device="cpu")
+        inputs, _ = tint.mega_inputs(sd, sc.scene_cam.params(device="cpu"), 16, 9, 1, 1, 0)
+        walk = dict(inputs, table=tint.permute_table(inputs["table"], sd.sph_perm),
+                    sph_nodes=sd.sph_nodes, sph_meta=sd.sph_meta)
+        motion = dict(animated=True, cam_animated="cam_animated" in kwargs)
+        with pytest.raises(NotImplementedError, match="chunk-cull"):
+            tmk.run_megakernel_record(**walk, max_depth=1, **motion)
+        with pytest.raises(NotImplementedError, match="chunk-cull"):
+            tmk.run_megakernel(**walk, **motion)
         return
     # The sphere-BVH walk is ported (K5): half of its tables is an error.
     error = ValueError if "sph_nodes" in kwargs else NotImplementedError

@@ -310,8 +310,11 @@ def test_what_still_raises():
     msd, mcp = moving.build(device="cpu"), moving.scene_cam.params(device="cpu")
     with pytest.raises(ValueError, match="shutter"):
         tint.intersect_scene(msd, torch.zeros(1, 3), torch.ones(1, 3))
-    with pytest.raises(NotImplementedError, match="K8"):
-        grad.loss_and_grad(grad.extract_params(msd, mcp), msd, mcp, torch.zeros(16 * 9, 3),
-                           torch.arange(16 * 9), 0, width=16, height=9, spp=1, max_depth=2)
-    assert not tint.megakernel_record_supported(msd, mcp)
+    # Linear motion differentiates (K8's record, the eager replay); exact
+    # time does not.
+    assert tint.megakernel_record_supported(msd, mcp)
+    cp = sc.scene_cam.params(device="cpu")
+    with pytest.raises(NotImplementedError, match="exact-time"):
+        grad.loss_and_grad(grad.extract_params(sd, cp), sd, cp, torch.zeros(32 * 18, 3),
+                           torch.arange(32 * 18), 0, width=32, height=18, spp=1, max_depth=2)
     assert math.isfinite(float(trender.render_image(moving, 1, 2, device="cpu").mean()))

@@ -145,8 +145,11 @@ def test_record_supported_predicate():
     sd, cp = sc.build(device="cpu"), sc.scene_cam.params(device="cpu")
     assert tint.megakernel_record_supported(sd, cp)
     assert not tint.megakernel_record_supported(replace(sd, num_tris=6), cp)
-    assert not tint.megakernel_record_supported(replace(sd, animated=True), cp)
-    assert not tint.megakernel_record_supported(sd, replace(cp, animated=True))
+    # Linear motion records through K8; exact-time motion does not.
+    assert tint.megakernel_record_supported(replace(sd, animated=True), cp)
+    assert tint.megakernel_record_supported(sd, replace(cp, animated=True))
+    assert not tint.megakernel_record_supported(replace(sd, motion_exact=True), cp)
+    assert not tint.megakernel_record_supported(sd, replace(cp, motion_exact=True))
     with pytest.raises(NotImplementedError, match="triangle"):
         trep.trace_record_mega(replace(sd, num_tris=6), cp, 16, 9, torch.arange(4),
                                torch.zeros(4), 0, 3)
@@ -161,11 +164,11 @@ def test_cpu_tensors_take_the_twin(monkeypatch):
     inputs, _ = tint.mega_inputs(
         sc.build(device="cpu"), sc.scene_cam.params(device="cpu"), 16, 9, 1, 4, 0
     )
-    before = tmk.LAUNCHES_RECORD
+    before = tmk.RECORD_LAUNCHES["brute"]
     acc, rec = tmk.run_megakernel_record(**inputs, max_depth=4, radiance=True)
     ref = tmk.run_megakernel_record_reference(**inputs, max_depth=4, radiance=True)
     assert torch.equal(acc, ref[0]) and torch.equal(rec, ref[1])
-    assert tmk.LAUNCHES_RECORD == before
+    assert tmk.RECORD_LAUNCHES["brute"] == before
 
 
 def test_depth_must_be_positive():
@@ -208,11 +211,11 @@ def _card_inputs(cuda, name, width, spp, depth):
 )
 def test_record_kernel_matches_twin_on_card(cuda, name, width, spp, depth):
     inputs = _card_inputs(cuda, name, width, spp, depth)
-    before = tmk.LAUNCHES_RECORD
+    before = tmk.RECORD_LAUNCHES["brute"]
     acc, rec = tmk.run_megakernel_record(**inputs, max_depth=depth, radiance=True)
     _, plain = tmk.run_megakernel_record(**inputs, max_depth=depth)
     torch.cuda.synchronize()
-    assert tmk.LAUNCHES_RECORD == before + 2
+    assert tmk.RECORD_LAUNCHES["brute"] == before + 2
     ref_acc, ref_rec = tmk.run_megakernel_record_reference(
         **inputs, max_depth=depth, radiance=True
     )

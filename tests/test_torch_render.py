@@ -101,14 +101,19 @@ def _timeline(sc):
 
 
 def _animator(sc):
-    """Moving spheres render forward; their gradient comes with K8's
-    record mode."""
+    """Moving spheres render forward and record (K8); a moving table above
+    the brute kernel's animated rows needs the chunk-cull branch (K6)."""
     sc.translate_point((1.0, 0.0, 0.0), 1.0, "lerp", "local", "ball")
     sd, cp = sc.build(device="cpu"), sc.scene_cam.params(device="cpu")
     assert sd.animated and integrator.megakernel_supported(sd, cp)
+    from dataclasses import replace
+
     from crucible_tpu_torch.models import replay
+    from crucible_tpu_torch.ops.kernels import megakernel as mk
 
     replay.trace_record_mega(sd, cp, 32, 18, torch.arange(4), torch.zeros(4), 0, 2)
+    big = replace(sd, sph_center=torch.zeros((mk.MAX_ROWS_ANIMATED + 1, 3)))
+    replay.trace_record_mega(big, cp, 32, 18, torch.arange(4), torch.zeros(4), 0, 2)
 
 
 def _too_many_spheres(sc):

@@ -442,11 +442,16 @@ def test_gradient_at_7744_rows_names_the_unported_replay():
     sc = tdemo.sphere_stress(width=16, copies=16)
     sd, cp = sc.build(device="cpu"), sc.scene_cam.params(device="cpu")
     assert sd.sph_center.shape[0] == 7744 and sd.sph_nodes.shape[0] == 121
-    assert not trep.replay_supported(sd)
-    with pytest.raises(NotImplementedError, match="jnp-style replay"):
-        G.loss_and_grad(G.extract_params(sd, cp), sd, cp, torch.zeros((16 * 9, 3)),
-                        torch.arange(16 * 9), 0, width=16, height=9, spp=1, max_depth=2,
-                        method="replay")
+    # Above the replay kernels' 2048 rows the eager replay takes it.
+    assert trep.replay_supported(sd) and not trep._use_replay_kernel(sd)
+    before = (trk.LAUNCHES_FORWARD, trk.LAUNCHES_BACKWARD, tmk.WALK_COUNTS["nodes"])
+    loss, grads = G.loss_and_grad(G.extract_params(sd, cp), sd, cp, torch.zeros((16 * 9, 3)),
+                                  torch.arange(16 * 9), 0, width=16, height=9, spp=1,
+                                  max_depth=2, method="replay")
+    assert tmk.WALK_COUNTS["nodes"] > before[2]  # the record pass walked the BVH
+    assert (trk.LAUNCHES_FORWARD, trk.LAUNCHES_BACKWARD) == before[:2]
+    assert np.isfinite(float(loss)) and torch.isfinite(grads["tex_color"]).all()
+    assert grads["tex_color"].abs().sum() > 0
     # The record pass itself takes the scene (the walk).
     rec = G.record_decisions(sd, cp, torch.arange(16), 0, width=16, height=9, spp=1,
                              max_depth=2)

@@ -61,12 +61,12 @@ def test_walk_record_equals_plain_walk_and_brute(cuda):
     smp = torch.arange(2, device=cuda).repeat_interleave(p)
     args = (cp, w, h, pix, smp, 0, 8)
     brute_sd = replace(sd, sph_perm=None, sph_nodes=None, sph_meta=None)
-    before = (tmk.LAUNCHES_RECORD, tmk.LAUNCHES_RECORD_WALK)
+    before = (tmk.RECORD_LAUNCHES["brute"], tmk.RECORD_LAUNCHES["walk"])
     rec, rad = trep.trace_record_mega(sd, *args, radiance=True)
     plain = trep.trace_record_mega(sd, *args)
     b_rec, b_rad = trep.trace_record_mega(brute_sd, *args, radiance=True)
     torch.cuda.synchronize()
-    assert (tmk.LAUNCHES_RECORD, tmk.LAUNCHES_RECORD_WALK) == (before[0] + 1, before[1] + 2)
+    assert (tmk.RECORD_LAUNCHES["brute"], tmk.RECORD_LAUNCHES["walk"]) == (before[0] + 1, before[1] + 2)
     assert torch.equal(rec, plain) and torch.equal(rec, b_rec) and torch.equal(rad, b_rad)
     inputs, _ = tint.mega_inputs(sd, cp, w, h, 1, 8, 0)
     table = tint.permute_table(tint.make_sphere_table(sd), sd.sph_perm)
