@@ -66,12 +66,25 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
      variant on the original table); 32768 lanes of bouncing book1's
      1920x1080 4 spp d8 launch; and static book1's table given the animated
      flag (zero motion columns) against K2. Each bit for bit.
+   - K7, the triangle-BVH stage for static meshes, on "torus_teapot"
+     (demo.load_teapot's scene with a procedural torus of the teapot's
+     6,320 triangles in place of teapot.obj; built here through the public
+     API): forward on the 80-triangle fan 64 wide and on torus_teapot 320
+     wide, 8 spp, depth 50, in full, and on 64 pixel blocks of its 1920x1080
+     32 spp d50 launch; record (fused and plain) on torus_teapot 320 wide, 4
+     spp, depth 8, in full and on 32768 lanes of its 1920x1080 launch. Each
+     bit for bit against the plain version, which counts the node and row
+     tests that give K7's bound. Then the plain walk against the brute
+     Möller–Trumbore over all rows on 2^16 random rays (winners differ on
+     < 0.1%), and K7's time at leaf sizes 4, 8, 16, 32 and 64.
    - The moving-scene gradient step on the card against the same call on
      the CPU, 64 wide, 2 spp, depth 8, on bouncing book1 (its radiometric
      leaves, fault C4) and on smoke with its ball and camera moving (every
      leaf): records equal on > 0.999 of the lanes; on the card's records,
      loss within rel 1e-4 and gradients within normalized 1e-3; each on its
-     own records, loss within rel 2e-3 and gradients within 5e-3.
+     own records, loss within rel 2e-3 and gradients within 5e-3. The fan's
+     step likewise (both sides built at leaf 32), from the CPU's rays and
+     records: loss within rel 1e-4, radiometric leaves within 1e-3.
 4. The forward render: ``render.render_image`` of book1 at 1920x1080, 32
    spp, depth 50; checks the image, counts K1's launches, writes
    ``build/chip_smoke_book1.png``.
@@ -119,7 +132,13 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
    8: loss within rel 2e-3, radiometric gradients within normalized 5e-3
    (garden's sky image over 8x8-texel blocks: the nearest texel is a
    choice the record does not hold).
-13. Prints a JSON line describing each kernel (times at the comparison
+13. The mesh: ``render.render_image`` of torus_teapot at 1920x1080, 32
+   spp, depth 50, twice (``auto`` -> mega: one K7 launch each, no K1; writes
+   ``build/chip_smoke_torus.png``), and its ``grad.loss_and_grad`` at
+   1920x1080, 4 spp, depth 8 (K7 record, then the eager replay's triangle
+   branch; K3 and K4 never launch): a warm and 2 timed steps, the step by
+   phase, peak memory, ``record_decisions`` and a frozen-decision step.
+14. Prints a JSON line describing each kernel (times at the comparison
    shape, where kernel and twin run the same inputs in full; K5's also at
    its main shape), the card's line again, and, as the last line,
    ``{"ok": true, "device": {...}}``.
@@ -166,6 +185,12 @@ SLAB_OPS = 18
 # and pixel00).
 MOTION_SEARCH_OPS = SEARCH_OPS + 18
 CAM_OPS = 81
+# K7's walk: a node's slab test (6 subtractions and 6 multiplies), and a
+# leaf row's Woop test (d'_z 5, o'_z 6, the division, t, o'_x and d'_x 11,
+# u 2, o'_y and d'_y 11, v 2, u + v 1: 40 with t's multiply), the rows the
+# plain walk tested (TRI_COUNTS), beside the sphere search's SEARCH_OPS.
+TRI_SLAB_OPS = 12
+WOOP_OPS = 40
 N_SUB = 32768  # lanes of a 1920x1080 launch held against the twin
 
 
@@ -185,6 +210,65 @@ def bouncing_book1(demo, width: int):
             sc.translate_y(float(rng.uniform(0.0, 0.5)), 1.0 / 48.0, "lerp", "local", f"small{k}")
         k += 1
     sc.cam_translate_y(0.5, 1.0 / 48.0, "lerp", "local", "from")
+    return sc
+
+
+def fan(scene, width: int):
+    """The 80-triangle fan over a ground sphere of the JAX package's
+    tests/test_integrator.py:320-361, through ``scene`` (the port's
+    models.scene). tests/torch_mesh_scenes.py builds the same scene."""
+    sc = scene.Scene.new_image(1.0, width)
+    cam = sc.scene_cam
+    cam.look_from((0.0, 1.5, 4.0))
+    cam.look_at((0.0, 0.3, 0.0))
+    cam.set_vfov(45.0)
+    sc.add_element(
+        scene.Sphere((0.0, -100.0, 0.0), 100.0, scene.Lambertian.from_color((0.6, 0.6, 0.2))),
+        "ground",
+    )
+    for i in range(80):
+        a0, a1 = 2 * math.pi * i / 80, 2 * math.pi * (i + 1) / 80
+        sc.add_element(scene.Triangle(
+            (0.8 * math.cos(a0), 0.3 + 0.1 * math.sin(5 * a0), 0.8 * math.sin(a0)),
+            (1.2 * math.cos(a1), 0.35, 1.2 * math.sin(a1)), (0.0, 0.5, 0.0),
+            scene.Metal((0.8, 0.7, 0.6), 0.2)), f"tri{i}")
+    return sc
+
+
+def torus_teapot(scene, width: int):
+    """demo.load_teapot's scene (camera, the metal, the checker ground) with
+    a procedural torus of the teapot's 6,320 triangles in place of
+    teapot.obj, which the repository lacks: axis vertical, centred at (0,
+    0.61, 0), major radius 1.5, minor radius 0.6, 79 x 40 quads of two
+    triangles. tests/torch_mesh_scenes.py builds the same scene."""
+    sc = scene.Scene.new_image(16.0 / 9.0, width, 24, 180.0)
+    cam = sc.scene_cam
+    cam.set_samples(200)
+    cam.set_max_depth(50)
+    cam.look_from((13.0, 10.0, 3.0))
+    cam.look_at((0.0, 0.0, 0.0))
+    cam.set_vfov(20.0)
+    cam.set_defocus_angle(0.6)
+    cam.set_focus_dist(10.0)
+
+    def point(i, j):
+        th, ph = 2 * math.pi * i / 79, 2 * math.pi * j / 40
+        rr = 1.5 + 0.6 * math.cos(ph)
+        return (rr * math.cos(th), 0.61 + 0.6 * math.sin(ph), rr * math.sin(th))
+
+    metal = scene.Metal((0.8, 0.3, 0.5), 0.05)
+    k = 0
+    for i in range(79):
+        for j in range(40):
+            a, b, c, d = point(i, j), point(i + 1, j), point(i + 1, j + 1), point(i, j + 1)
+            for tri in ((a, b, c), (a, c, d)):
+                sc.add_element(scene.Triangle(*tri, metal), f"tri{k}")
+                k += 1
+    checker = scene.CheckerTexture.from_colors(0.32, (0.2, 0.3, 0.1), (0.9, 0.9, 0.9))
+    sc.add_element(
+        scene.Sphere((0.0, -1000.0, 0.0), 1000.0, scene.Lambertian.from_texture(checker)),
+        "ground",
+    )
     return sc
 
 
@@ -324,6 +408,8 @@ def main() -> None:
     from crucible_tpu_torch.io.image import write_png
     from crucible_tpu_torch.models import demo, integrator, render
     from crucible_tpu_torch.models import replay, skybox, textures
+    from crucible_tpu_torch.models import scene as tscene
+    from crucible_tpu_torch.ops import intersect
     from crucible_tpu_torch.models.camera import generate_rays
     from crucible_tpu_torch.ops.kernels import build, megakernel as mk
     from crucible_tpu_torch.ops.kernels import replay_kernel as rk
@@ -1094,6 +1180,171 @@ def main() -> None:
         main_ms=rec_main_ms, main_bound_ms=rec_main_b, main_k2_ms=rec_main_k2_ms,
     )
 
+    # --- K7: the triangle-BVH stage vs its plain version -----------------------
+    def mesh_inputs(sc, spp, depth, record=False, leaf_size=None):
+        """(scene data, the kernel's inputs with the mesh's tables) for every
+        pixel of ``sc``; record mode lays the lanes out sample-major."""
+        sd = sc.build(leaf_size=leaf_size, device=dev)
+        cp = sc.scene_cam.params(device=dev)
+        w, h = sc.scene_cam.image_width, sc.scene_cam.image_height
+        inputs, _ = integrator.mega_inputs(sd, cp, w, h, spp, depth, 0)
+        inputs.update(zip(("tri_nodes", "tris", "mats", "tri_meta"),
+                          integrator.make_tri_tables(sd)))
+        if record:
+            p = w * h
+            inputs["pix"] = torch.arange(p, device=dev, dtype=torch.int32).repeat(spp)[None]
+            inputs["sample0"] = torch.arange(
+                spp, device=dev, dtype=torch.int32).repeat_interleave(p)[None]
+        return sd, inputs
+
+    def plain_tri(fn):
+        """(result, ms, the plain loop's counted work) of one plain K7 call."""
+        mk.SEARCH_COUNTS.update(searches=0, issued=0)
+        mk.TRI_COUNTS.update(nodes=0, rows=0)
+        out, ms = host_ms(fn)
+        return out, ms, dict(mk.SEARCH_COUNTS, **mk.TRI_COUNTS)
+
+    def tri_ops(counts, n_rows):
+        return (counts["searches"] * n_rows * SEARCH_OPS + counts["nodes"] * TRI_SLAB_OPS
+                + counts["rows"] * WOOP_OPS)
+
+    def tri_bytes(inputs, *extra):
+        """Bytes read and written once: the tables, each lane's ids and sums."""
+        tables = (inputs[k] for k in ("table", "tri_nodes", "tris", "mats", "tri_meta"))
+        return nbytes(*tables, *extra) + 5 * 4 * inputs["pix"].shape[1]
+
+    def k7_forward(sc, spp, depth, what, lanes=None, reps=2):
+        """K7's forward launch against the plain version, on ``lanes`` of it
+        if given, bit for bit; the counted work scaled to the whole launch."""
+        sd, full = mesh_inputs(sc, spp, depth)
+        out = mk.run_megakernel(**full, animated=False)
+        ms = cuda_ms(lambda: mk.run_megakernel(**full, animated=False), reps)
+        inputs = full
+        if lanes is not None:
+            inputs, out = lane_subset(full, lanes), out[:, lanes]
+            what += f" on {lanes.numel()} lanes"
+        ref, plain_ms, counts = plain_tri(lambda: mk.run_megakernel_reference(**inputs))
+        err = bit_equal(out, ref, f"{what} vs plain")
+        n_rows = int((full["table"][:, 5] > 0).sum())
+        scale = (int((full["sample0"] < mk.NO_SAMPLE).sum())
+                 / int((inputs["sample0"] < mk.NO_SAMPLE).sum()))
+        b, by = bound(tri_ops(counts, n_rows) * scale, tri_bytes(full))
+        print(f"{what}: K7 {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {b:.4f} ms ({by}); "
+              f"{sd.num_tris} triangles, {sd.bvh_min.shape[0]} nodes (leaf "
+              f"{sd.bvh_leaf_size}); work {counts}, x{scale:.2f}")
+        return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b, bound_by=by)
+
+    def k7_record(sc, spp, depth, what, sub=None):
+        """K7's record launches (fused and plain) against the plain version,
+        on ``sub`` of the lanes if given, bit for bit."""
+        _, full = mesh_inputs(sc, spp, depth, record=True)
+        acc, rec = mk.run_megakernel_record(**full, max_depth=depth, radiance=True)
+        zero, plain = mk.run_megakernel_record(**full, max_depth=depth)
+        bit_equal(rec, plain, f"{what}: fused vs plain records")
+        if bool(zero.any()):
+            raise AssertionError(f"{what}: the plain record launch summed radiance")
+        ms = cuda_ms(lambda: mk.run_megakernel_record(**full, max_depth=depth, radiance=True), 3)
+        ms_unfused = cuda_ms(lambda: mk.run_megakernel_record(**full, max_depth=depth), 3)
+        full_rec, inputs = rec, full
+        if sub is not None:
+            inputs, acc, rec = lane_subset(full, sub), acc[:, sub], rec[:, sub]
+            what += f" on {sub.numel()} lanes"
+        (ref_acc, ref_rec), plain_ms, counts = plain_tri(
+            lambda: mk.run_megakernel_record_reference(**inputs, max_depth=depth,
+                                                       radiance=True))
+        bit_equal(rec, ref_rec, f"{what}: records vs plain")
+        err = bit_equal(acc, ref_acc, f"{what}: fused radiance vs plain")
+        tri_words = int(((full_rec & mk.F_TRI) > 0).sum())
+        n_rows = int((full["table"][:, 5] > 0).sum())
+        scale = full_rec.shape[1] / rec.shape[1]
+        b, by = bound(tri_ops(counts, n_rows) * scale, tri_bytes(full, full_rec))
+        print(f"{what}: K7 record fused {ms:.3f} ms, plain {ms_unfused:.3f} ms; plain version "
+              f"{plain_ms:.1f} ms; bound {b:.4f} ms ({by}); {tri_words} triangle words of "
+              f"{int(((full_rec & mk.F_HIT) > 0).sum())} hits; work {counts}, x{scale:.2f}")
+        return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b, bound_by=by,
+                    ms_unfused=ms_unfused)
+
+    k7_forward(fan(tscene, 64), 8, 50, "K7 fan 64w 8spp d50")
+    k7_fwd = k7_forward(torus_teapot(tscene, 320), 8, 50, "K7 torus_teapot 320w 8spp d50")
+    n_blocks = (1920 // 32) * math.ceil(1080 / 16)
+    blocks = torch.randperm(n_blocks, generator=torch.Generator().manual_seed(9))[:64]
+    lanes = (blocks.sort().values[:, None] * mk.TILE + torch.arange(mk.TILE)).reshape(-1).to(dev)
+    k7_main = k7_forward(torus_teapot(tscene, 1920), 32, 50,
+                         "K7 torus_teapot 1920x1080 32spp d50", lanes=lanes, reps=1)
+    kernels["megakernel_tri"] = dict(
+        source="crucible_tpu_torch/csrc/megakernel.cu",
+        replaces="crucible_tpu/ops/pallas/megakernel.py:1681",
+        **k7_fwd, main_ms=k7_main["ms"], main_bound_ms=k7_main["bound_ms"],
+    )
+    k7_rec = k7_record(torus_teapot(tscene, 320), 4, 8, "K7 torus_teapot 320w 4spp d8")
+    r = 1920 * 1080 * 4
+    sub = torch.randperm(r, generator=torch.Generator().manual_seed(10))[:N_SUB].sort().values
+    k7_rec_main = k7_record(torus_teapot(tscene, 1920), 4, 8, "K7 torus_teapot 1920x1080 4spp d8",
+                            sub=sub.to(dev))
+    kernels["megakernel_tri_record"] = dict(
+        source="crucible_tpu_torch/csrc/megakernel.cu",
+        replaces="crucible_tpu/ops/pallas/megakernel.py:1828",
+        **k7_rec, main_ms=k7_rec_main["ms"], main_bound_ms=k7_rec_main["bound_ms"],
+        main_ms_unfused=k7_rec_main["ms_unfused"],
+    )
+
+    # K7's walk (Woop) against the brute Möller–Trumbore over all 6,320 rows,
+    # on 2^16 random rays toward torus_teapot's mesh (the JAX package's
+    # tests/test_integrator.py holds its Pallas stage to its walk so).
+    t_sd = torus_teapot(tscene, 320).build(device=dev)
+    nodes, tris, _, meta = integrator.make_tri_tables(t_sd)
+    verts = torch.cat([t_sd.tri_v0, t_sd.tri_v1, t_sd.tri_v2])
+    lo, hi = verts.amin(0), verts.amax(0)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    n_rays = 1 << 16
+    o = (0.5 * (lo + hi) + (hi - lo) * (3 * torch.rand((n_rays, 3), device=dev, generator=gen)
+                                        - 1.5)).contiguous()
+    d = (0.5 * (lo + hi) + (hi - lo) * (torch.rand((n_rays, 3), device=dev, generator=gen)
+                                        - 0.5) - o).contiguous()
+    wt, wi = mk.tri_closest_reference(o, d, torch.full((n_rays,), mk.BIG, device=dev), nodes,
+                                      meta, tris)
+    bt, bi, bh = [], [], []
+    for lo_r in range(0, n_rays, 4096):
+        x = intersect.hit_triangles(o[lo_r:lo_r + 4096], d[lo_r:lo_r + 4096], t_sd.tri_v0,
+                                    t_sd.tri_v1, t_sd.tri_v2, t_sd.tri_active, mk.T_MIN)
+        bt.append(x[0])
+        bi.append(x[1].long())
+        bh.append(x[2])
+    bt, bi, bh = torch.cat(bt), torch.cat(bi), torch.cat(bh)
+    wh = wt < mk.BIG
+    differ = (wh != bh) | (wh & (wi != bi))
+    walk_missed = bh & (~wh | (wt > bt * (1 + 1e-4)))
+    print(f"K7 walk vs brute Möller–Trumbore, {n_rays} random rays at torus_teapot: "
+          f"{int(bh.sum())} hit; winners differ on {int(differ.sum())} "
+          f"({float(differ.float().mean()):.2e}); the walk missed a nearer brute hit on "
+          f"{int(walk_missed.sum())}, hit where the brute test did not on "
+          f"{int((wh & ~bh).sum())}")
+    if not float(differ.float().mean()) < 1e-3:
+        raise AssertionError("K7's walk and the brute triangle test disagree")
+    del o, d, wt, wi, bt, bi, bh, verts
+
+    # The leaf-size sweep: K7 forward at torus_teapot 320w 8 spp d50 for
+    # each leaf size; the fastest is scene.BVH_LEAF_CUDA, the card's default.
+    # Beside it, the main path's launch (1920x1080 32 spp d50) at each leaf.
+    sweep, sweep_main = {}, {}
+    sweep_sc, sweep_main_sc = torus_teapot(tscene, 320), torus_teapot(tscene, 1920)
+    for leaf in (4, 8, 16, 32, 64):
+        sd, inputs = mesh_inputs(sweep_sc, 8, 50, leaf_size=leaf)
+        mk.run_megakernel(**inputs, animated=False)
+        sweep[leaf] = cuda_ms(lambda: mk.run_megakernel(**inputs, animated=False), 3)
+        _, inputs = mesh_inputs(sweep_main_sc, 32, 50, leaf_size=leaf)
+        sweep_main[leaf] = cuda_ms(lambda: mk.run_megakernel(**inputs, animated=False), 1)
+        print(f"  K7 leaf-size sweep, torus_teapot, leaf {leaf}: {sd.bvh_min.shape[0]} nodes; "
+              f"320w 8spp d50 {sweep[leaf]:.3f} ms; 1920x1080 32spp d50 "
+              f"{sweep_main[leaf]:.3f} ms")
+    fastest = min(sweep, key=sweep.get)
+    print(f"K7 leaf-size sweep: fastest leaf at 320w {fastest}, at 1080p "
+          f"{min(sweep_main, key=sweep_main.get)}; scene.BVH_LEAF_CUDA = {tscene.BVH_LEAF_CUDA}")
+    kernels["megakernel_tri"].update(
+        leaf_sweep_ms={str(k): v for k, v in sweep.items()},
+        leaf_sweep_main_ms={str(k): v for k, v in sweep_main.items()})
+    del inputs, sweep_sc, sweep_main_sc, t_sd
+
     # --- the moving-scene gradient step on the card vs on the CPU, small -----
     # An animated camera rebuilds its basis per ray, so the card's and the
     # CPU's primary rays differ in the last ulps of their square roots and
@@ -1140,21 +1391,22 @@ def main() -> None:
 
     cpu = torch.device("cpu")
 
-    def same_rays_step(sc, where, rec, keep=None):
+    def same_rays_step(sc, where, rec, keep=None, leaf_size=None):
         """(loss, gradients, each row's checker parity (D, R)) of the step
         whose replay runs on ``where`` from the CPU's primary rays and
         ``rec``; the loss reads the lanes of ``keep`` (R,) bool, or all.
         The camera leaves reach the loss through the CPU's ray generation
         on both devices, so the two differ only in the replay's own
         arithmetic."""
-        sd_c, cp_c = sc.build(device=cpu), sc.scene_cam.params(device=cpu)
+        sd_c, cp_c = sc.build(leaf_size=leaf_size, device=cpu), sc.scene_cam.params(device=cpu)
         params = grad.extract_params(sd_c, cp_c)
         leaves = {k: params[k].detach().clone().requires_grad_(True)
                   for k in grad.leaf_keys(params)}
         _, cp_l = grad.apply_params(sd_c, cp_c, {**params, **leaves})
         pl, sl = grad._lanes(torch.arange(64 * 36), 2, 0)
         o, d, _ = generate_rays(cp_l, 64, 36, pl, sl, 0)
-        sd_w, _ = grad.apply_params(sc.build(device=where), sc.scene_cam.params(device=where),
+        sd_w, _ = grad.apply_params(sc.build(leaf_size=leaf_size, device=where),
+                                    sc.scene_cam.params(device=where),
                                     {**params, **{k: v.to(where) for k, v in leaves.items()}})
         args = (sd_w, o.to(where), d.to(where), pl.to(where), sl.to(where), 0, 8,
                 rec.to(where))
@@ -1216,11 +1468,30 @@ def main() -> None:
                 kept_bounds, 1e-4)
     del inputs, frozen, own, steps
 
+    # The mesh's gradient step on the card against the CPU: the fan, 64 wide,
+    # 2 spp, depth 8, both sides built with leaf 32 (a card builds its own
+    # default tree, whose leaf-order triangle ids differ), replayed from the
+    # CPU's rays and records: the loss within rel 1e-4, the radiometric
+    # leaves within normalized 1e-3.
+    sc = fan(tscene, 64)
+    recs = []
+    for where in (dev, cpu):
+        sd, cp = sc.build(leaf_size=32, device=where), sc.scene_cam.params(device=where)
+        recs.append(grad.record_decisions(sd, cp, torch.arange(64 * 36, device=where), 0, **kw))
+    same = (recs[0].cpu() == recs[1]).all(dim=0).float().mean().item()
+    print(f"loss_and_grad fan 64w 2spp d8, card vs CPU: records equal on {same:.5f} of the lanes")
+    if not same > 0.999:
+        raise AssertionError("fan: the card's and the CPU's records disagree")
+    held_to("fan: the CPU's rays and records replayed on both",
+            [same_rays_step(sc, where, recs[1], leaf_size=32) for where in (dev, cpu)],
+            dict.fromkeys(radiometric, 1e-3), 1e-4)
+    del recs
+
     # --- main path 1: the forward render ---------------------------------------
     scene = demo.book1_end_scene(width=1920)
-    mk.LAUNCHES = 0
+    mk.zero_counts()
     img, ms = host_ms(lambda: render.render_image(scene, samples=32, max_depth=50))
-    launches_k1 = mk.LAUNCHES
+    launches_k1 = mk.FORWARD_LAUNCHES["brute"]
     if tuple(img.shape) != (1080, 1920, 3):
         raise AssertionError(f"image shape {tuple(img.shape)}")
     if not bool(torch.isfinite(img).all()):
@@ -1252,7 +1523,7 @@ def main() -> None:
     counts = dict.fromkeys(counters, 0)
 
     def zero_counts():
-        mk.RECORD_LAUNCHES.update(dict.fromkeys(mk.RECORD_LAUNCHES, 0))
+        mk.zero_counts()
         rk.LAUNCHES_FORWARD = rk.LAUNCHES_BACKWARD = 0
 
     def read_counts(what, need, never=()):
@@ -1384,9 +1655,10 @@ def main() -> None:
     gsd, gcp = scene.build(), scene.scene_cam.params()
     if integrator.megakernel_supported(gsd, gcp) or not integrator.fused_supported(gsd):
         raise AssertionError("auto would not take the pixel schedule for garden")
-    mk.LAUNCHES = ss.LAUNCHES = 0
+    mk.zero_counts()
+    ss.LAUNCHES = 0
     img, ms = host_ms(lambda: render.render_image(scene, samples=32, max_depth=50))
-    launches_k9, launches_k1 = ss.LAUNCHES, mk.LAUNCHES
+    launches_k9, launches_k1 = ss.LAUNCHES, mk.FORWARD_LAUNCHES["brute"]
     if tuple(img.shape) != (1080, 1920, 3) or not bool(torch.isfinite(img).all()):
         raise AssertionError(f"garden image: shape {tuple(img.shape)} or non-finite values")
     if launches_k9 < 1 or launches_k1 != 0:
@@ -1433,9 +1705,9 @@ def main() -> None:
     # --- main path 5: the big-scene forward render (n7744, the walk) ------------
     scene = demo.sphere_stress(width=1920, copies=16)
     _, ms = host_ms(lambda: scene.build())  # the host-side SAH build, cached
-    mk.LAUNCHES = mk.LAUNCHES_WALK = 0
+    mk.zero_counts()
     img, ms_render = host_ms(lambda: render.render_image(scene, samples=32, max_depth=50))
-    launches_k5, launches_k1 = mk.LAUNCHES_WALK, mk.LAUNCHES
+    launches_k5, launches_k1 = mk.FORWARD_LAUNCHES["walk"], mk.FORWARD_LAUNCHES["brute"]
     if tuple(img.shape) != (1080, 1920, 3) or not bool(torch.isfinite(img).all()):
         raise AssertionError(f"stress image: shape {tuple(img.shape)} or non-finite values")
     if launches_k5 != 1 or launches_k1 != 0:
@@ -1473,11 +1745,12 @@ def main() -> None:
 
     # --- main path 7: the forward render in motion (K8) -------------------------
     def motion_launches():
-        return dict(k1=mk.LAUNCHES, k5=mk.LAUNCHES_WALK, k8=mk.LAUNCHES_MOTION,
-                    k8_walk=mk.LAUNCHES_MOTION_WALK, k9=ss.LAUNCHES)
+        f = mk.FORWARD_LAUNCHES
+        return dict(k1=f["brute"], k5=f["walk"], k8=f["motion"], k8_walk=f["motion_walk"],
+                    k7=f["tri"], k9=ss.LAUNCHES)
 
     def zero_motion_launches():
-        mk.LAUNCHES = mk.LAUNCHES_WALK = mk.LAUNCHES_MOTION = mk.LAUNCHES_MOTION_WALK = 0
+        mk.zero_counts()
         ss.LAUNCHES = 0
 
     scene = bouncing_book1(demo, 1920)
@@ -1556,7 +1829,7 @@ def main() -> None:
     def grad_launches():
         r = mk.RECORD_LAUNCHES
         return dict(k2=r["brute"], k5=r["walk"], k8=r["motion"], k8_walk=r["motion_walk"],
-                    k4=rk.LAUNCHES_FORWARD, k3=rk.LAUNCHES_BACKWARD)
+                    k7=r["tri"], k4=rk.LAUNCHES_FORWARD, k3=rk.LAUNCHES_BACKWARD)
 
     def check_leaves(loss, grads, params, what):
         if not math.isfinite(loss.item()):
@@ -1749,6 +2022,61 @@ def main() -> None:
             if not nd <= 5e-3:
                 raise AssertionError(f"{what} {key}: direct-AD and replay gradients disagree")
     del params, ga, gr
+
+    # --- main path 10: the mesh forward render (K7), torus_teapot 1080p ---------
+    scene = torus_teapot(tscene, 1920)
+    _, build_ms = host_ms(lambda: scene.build())  # the host-side lowering and SAH, cached
+    sd, cp = scene.build(), scene.scene_cam.params()
+    if not (sd.use_bvh and sd.num_tris == 6320 and integrator.megakernel_supported(sd, cp)):
+        raise AssertionError("torus_teapot should be a BVH mesh that auto sends to mega")
+    launches_k7 = 0
+    for i in range(2):
+        zero_motion_launches()
+        img, ms = host_ms(lambda: render.render_image(scene, samples=32, max_depth=50))
+        got = motion_launches()
+        if tuple(img.shape) != (1080, 1920, 3) or not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"torus image: shape {tuple(img.shape)} or non-finite values")
+        if got["k7"] != 1 or any(got[k] for k in ("k1", "k5", "k8", "k8_walk", "k9")):
+            raise AssertionError(f"torus_teapot: launches {got}")
+        launches_k7 += got["k7"]
+        print(f"render_image torus_teapot 1920x1080 32spp d50 (auto -> mega, K7), run {i}: "
+              f"{ms / 1e3:.3f} s, {1920 * 1080 * 32 / ms / 1e3:.2f} Mrays/s, mean "
+              f"{img.mean().item():.5f}; launches {got}; nvidia-smi: {smi()}")
+    print(f"  torus_teapot scene build (6,320 triangles, leaf {sd.bvh_leaf_size}, "
+          f"{sd.bvh_min.shape[0]} nodes): {build_ms / 1e3:.3f} s")
+    png = REPO / "build" / "chip_smoke_torus.png"
+    write_png(png, render.to_u8(img))
+    print(f"wrote {png.relative_to(REPO)}")
+    kernels["megakernel_tri"]["launches"] = launches_k7
+    del img
+
+    # --- main path 11: the mesh's gradient, 1920x1080, 4 spp, depth 8 -----------
+    # loss_and_grad(method="auto") -> the replay: K7 record, then the eager
+    # replay's triangle branch (the replay kernels take no triangles).
+    if replay._use_replay_kernel(sd) or not integrator.megakernel_record_supported(sd, cp):
+        raise AssertionError("torus_teapot should record through K7 and replay eagerly")
+    params, loss0, _, step_ms, peak = eager_steps(sd, cp, "torus_teapot", "k7")
+    launches_k7r = mk.RECORD_LAUNCHES["tri"]
+    zero_counts()
+    rec, ms = host_ms(lambda: grad.record_decisions(sd, cp, pix, 0, **kw))
+    print(f"record_decisions torus_teapot 1920x1080 4spp d8: {ms / 1e3:.4f} s")
+    (loss, g), ms = host_ms(
+        lambda: grad.loss_and_grad(params, sd, cp, target, pix, 0, rec=rec, **kw))
+    check_leaves(loss, g, params, "torus_teapot frozen")
+    print(f"  frozen step: {ms / 1e3:.4f} s, {mrays / (ms / 1e3):.2f} Mrays/s, "
+          f"loss {loss.item():.6f}")
+    if not torch.equal(loss, loss0):
+        raise AssertionError("torus_teapot: the frozen step's loss is not the recorded step's")
+    got = grad_launches()
+    if got["k7"] != 1 or got["k3"] or got["k4"]:
+        raise AssertionError(f"torus_teapot frozen step: launches {got}")
+    launches_k7r += got["k7"]
+    del rec, g
+    phases = split_step(sd, cp, params, "torus_teapot")
+    grad_cells["torus_teapot"] = dict(step_ms=step_ms, frozen_ms=[ms], peak_gib=peak,
+                                      phases=phases)
+    kernels["megakernel_tri_record"]["launches"] = launches_k7r
+    del params
     print("gradient cells: " + json.dumps(grad_cells))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check")
 

@@ -7,12 +7,15 @@ path is a CUDA C++ kernel written for Hopper (``csrc/``), with a plain
 PyTorch version of the same function beside it for CPU tensors and for the
 comparisons.
 
-Ported so far, for static sphere scenes (solid and checker-of-solid
-textures, the default or a spherical HDR sky, static camera with defocus):
-the forward render through ``models.render.render_image`` (the megakernel
-schedule, and the staged pixel schedule for the spherical sky) and the
-gradient through ``grad.loss_and_grad`` (record/replay, and direct AD).
-Triangles, image textures, animation and the rest raise
+Ported so far, for sphere scenes, static or moving on the linear shutter,
+big ones included, and static triangle meshes (``Triangle``, OBJ assets),
+with solid and checker-of-solid textures, the default or a spherical HDR
+sky and a static or keyframed camera with defocus: the forward render
+through ``models.render.render_image`` (the megakernel schedule, and the
+staged pixel schedule for the spherical sky and small meshes), movies
+through ``models.render.render_movie``, and the gradient through
+``grad.loss_and_grad`` (record/replay, and direct AD). Moving meshes, image
+textures, nested checkers, exact-time motion and the rest raise
 ``NotImplementedError``.
 
 Every entry point runs on ``device="cuda"`` unless the caller names

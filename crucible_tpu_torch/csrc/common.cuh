@@ -1,5 +1,6 @@
 // Pieces shared by the port's CUDA kernels: the PCG4D counter hash of
-// utils/rng.py, its stream ids, the record-word layout of models/replay.py,
+// utils/rng.py, its stream ids, the record-word layout of models/replay.py
+// (F_TRI marks a triangle winner, K7),
 // the closest-sphere search of the static kernels (K1, K2, K10, and K5 on
 // each leaf it visits) and its linear-shutter form (K8).
 #pragma once
@@ -26,6 +27,7 @@ constexpr float TEX_CHECKER = 1.0f;
 // Decision bits of a record word: winner id * REC_ID_SCALE + flag byte.
 constexpr int F_ALIVE = 1;
 constexpr int F_HIT = 2;
+constexpr int F_TRI = 4;
 constexpr int F_SCAT = 8;
 constexpr int F_FRONT = 16;
 constexpr int F_REFL = 32;

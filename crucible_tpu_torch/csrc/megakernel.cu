@@ -82,6 +82,32 @@
 // expanded quadratic's error on the hit point (up to ~1.7e-3 (|c| + |o|),
 // fault C6), so no leaf holding a winning root is skipped.
 //
+// K7, the triangle-BVH stage for static meshes (TRI; megakernel.py from
+// l.962: the Woop leaf test l.1079-1140, the winner's normal and material
+// l.1286-1299, 1318-1321, the record flags l.1472-1490), in forward mode
+// and in record mode, fused or not, on the brute static-camera sphere
+// search. After the sphere search gives (best, win) the thread walks the
+// triangle BVH's DFS skip links alone, as K5 walks the sphere BVH: at node
+// i the slab test of its box against [t_min, tb] in the Pallas kernel's
+// arithmetic (no margin: the JAX package grows no triangle box); on a hit
+// at an inner node go on to i + 1, at a leaf run the Woop unit-triangle
+// test on its `count` rows (integrator.make_tri_tables: t = -o'_z / d'_z,
+// u = o'_x + t d'_x, v = o'_y + t d'_y after the row's affine map, d'_z
+// guarded at 1e-12) and go to miss[i]; on a miss go to miss[i]; stop at
+// K. A row replaces tb only when strictly nearer, so within a leaf the
+// lowest row wins a tie and across leaves the first in DFS order; tb starts
+// at the sphere stage's t, so a triangle wins only when strictly nearer
+// than every sphere. The winner's shading attributes are an indexed load
+// of its material's row of `mats` (sphere-table columns 6-23), its normal
+// the table's unit normal, flipped to face the ray; its record word holds
+// the leaf-order triangle id and F_TRI, and no F_ROOT1. The node boxes and
+// [first, count, miss] sit in shared memory beside the sphere columns (the
+// wrapper refuses a tree that does not fit); the Woop rows (64 bytes each)
+// are read from global memory, where a mesh of a few thousand triangles
+// stays in L2. The TPU kernel's 16-node window, multi-leaf chase, packed
+// hit mask and one-hot material fetch answer the TPU's vector layout and
+// have no counterpart here.
+//
 // Numerics: every literal is float32 and the arithmetic follows the Pallas
 // kernel's association operation for operation. Build with -fmad=false and
 // without --use_fast_math (ops/kernels/build.py), so that no multiply-add is
@@ -109,8 +135,10 @@ constexpr int SMEM_COLS = 5;       // staged columns: cx, cy, cz, csr, active
 constexpr int MOTION_COLS = 5;     // and with ANIMATED: cd x/y/z, s1, s2
 constexpr int NODE_COLS = 6;       // staged per node: box lo x/y/z, hi x/y/z
 constexpr int META_COLS = 3;       // staged per node: first, count, miss
+constexpr int TRI_COLS = 16;       // Woop row: a0, a1, a2, b, unit normal, mat id
+constexpr int MAT_COLS = 24;       // material row: sphere-table columns 6-23, ...
 constexpr int BLOCK = 128;         // threads per block, brute search (4 warps)
-constexpr int WALK_BLOCK = 256;    // threads per block, walk (8 warps)
+constexpr int WALK_BLOCK = 256;    // threads per block, walks (8 warps)
 constexpr int NO_SAMPLE = 1 << 30;  // sample0 of a padding lane
 constexpr float SLAB_EPS = 4e-3f;  // the walk's slab margin (see above)
 
@@ -118,13 +146,66 @@ constexpr float SLAB_EPS = 4e-3f;  // the walk's slab margin (see above)
 struct Staged {
   const float *cx, *cy, *cz, *csr, *act;  // (n,) search columns
   const float *cdx, *cdy, *cdz, *s1, *s2;  // (n,) motion columns (ANIMATED)
-  const float* node;                      // (k, NODE_COLS) grown boxes
+  const float* node;                      // (k, NODE_COLS) grown boxes (WALK)
   const int* meta;                        // (k, META_COLS)
-  int n, k;
+  const float* tnode;                     // (kt, NODE_COLS) triangle boxes (TRI)
+  const int* tmeta;                       // (kt, META_COLS)
+  int n, k, kt;
 };
 
 __device__ __forceinline__ float safe_inv(float v) {
   return 1.0f / (fabsf(v) < 1e-30f ? (v >= 0.0f ? 1e-30f : -1e-30f) : v);
+}
+
+// K7's closest triangle (see the note above): walks the triangle BVH from
+// the sphere stage's t in `tb`, lowering it and setting `tid` (a row of
+// `tris`, leaf order) wherever a triangle is strictly nearer.
+__device__ __forceinline__ void tri_closest(
+    const Staged& s, const float* __restrict__ tris, float ox, float oy,
+    float oz, float dx, float dy, float dz, float t_min, float& tb, int& tid) {
+  const float ivx = safe_inv(dx), ivy = safe_inv(dy), ivz = safe_inv(dz);
+  int i = 0;
+  while (i < s.kt) {
+    const float* b = s.tnode + i * NODE_COLS;
+    const int* m = s.tmeta + i * META_COLS;
+    const float t0x = (b[0] - ox) * ivx;
+    const float t1x = (b[3] - ox) * ivx;
+    const float t0y = (b[1] - oy) * ivy;
+    const float t1y = (b[4] - oy) * ivy;
+    const float t0z = (b[2] - oz) * ivz;
+    const float t1z = (b[5] - oz) * ivz;
+    const float enter = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                              fmaxf(fminf(t0z, t1z), t_min));
+    const float exitv = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                              fminf(fmaxf(t0z, t1z), tb));
+    if (enter <= exitv) {
+      const int count = m[1];
+      if (count == 0) {  // inner node: its left child is next
+        ++i;
+        continue;
+      }
+      const int first = m[0];
+      for (int q = first; q < first + count; ++q) {
+        const float* w = tris + (size_t)q * TRI_COLS;
+        const float dpz = w[6] * dx + w[7] * dy + w[8] * dz;
+        if (!(fabsf(dpz) > 1e-12f)) continue;  // parallel to the plane
+        const float opz = w[6] * ox + w[7] * oy + w[8] * oz + w[11];
+        const float th = -opz * (1.0f / dpz);
+        if (!(th > t_min && th < tb)) continue;
+        const float opx = w[0] * ox + w[1] * oy + w[2] * oz + w[9];
+        const float dpx = w[0] * dx + w[1] * dy + w[2] * dz;
+        const float uu = opx + th * dpx;
+        const float opy = w[3] * ox + w[4] * oy + w[5] * oz + w[10];
+        const float dpy = w[3] * dx + w[4] * dy + w[5] * dz;
+        const float vv = opy + th * dpy;
+        if (uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f) {
+          tb = th;
+          tid = q;
+        }
+      }
+    }
+    i = m[2];
+  }
 }
 
 // K5's closest hit: the stackless skip-link walk (see the note above) ->
@@ -169,14 +250,19 @@ __device__ __forceinline__ void walk_closest(
 // (D, R). RADIANCE: accumulate radiance into `out` (3, R); in record mode
 // only from bounce smem[4] on. Forward mode is <false, true>. WALK: the
 // closest hit walks the sphere BVH over the permuted table. ANIMATED,
-// CAM_ANIMATED: K8's moving spheres and keyframed camera.
-template <bool RECORD, bool RADIANCE, bool WALK, bool ANIMATED, bool CAM_ANIMATED>
+// CAM_ANIMATED: K8's moving spheres and keyframed camera. TRI: K7's
+// triangle stage after the brute sphere search (`tris`, `mats`).
+template <bool RECORD, bool RADIANCE, bool WALK, bool ANIMATED, bool CAM_ANIMATED,
+          bool TRI>
 __device__ __forceinline__ void trace_lane(
     int lane, const Staged& s, const int32_t* __restrict__ smem,
     const int32_t* __restrict__ pix_in, const int32_t* __restrict__ sample0,
-    const float* __restrict__ cam, const float* __restrict__ table, int r,
+    const float* __restrict__ cam, const float* __restrict__ table,
+    const float* __restrict__ tris, const float* __restrict__ mats, int r,
     float t_min, float* __restrict__ out, int32_t* __restrict__ rec) {
   static_assert(!(WALK && ANIMATED), "animated big scenes need K6");
+  static_assert(!(TRI && (WALK || ANIMATED || CAM_ANIMATED)),
+                "K7 runs beside the brute static sphere search only");
   const int spp = smem[0];
   const uint32_t seed = (uint32_t)smem[1];
   const int width = smem[2];
@@ -286,9 +372,17 @@ __device__ __forceinline__ void trace_lane(
                        dy, dz, a_q, d_dot_o, o_sq, inv_a, t_min, best, win);
       }
 
+      // --- K7: a static mesh's closest triangle, strictly nearer ----------
+      bool is_tri = false;
+      int tid = -1;
+      if (TRI) {
+        tri_closest(s, tris, ox, oy, oz, dx, dy, dz, t_min, best, tid);
+        is_tri = tid >= 0;
+      }
+
       const float dlen = fmaxf(sqrtf(a_q), 1e-20f);
       const bool acc_row = !RECORD || bounce >= accum_from;
-      if (win < 0) {
+      if (win < 0 && !is_tri) {
         // Miss: default sky gradient on the unit direction; the path ends.
         if (RADIANCE && acc_row) {
           const float sky_a = 0.5f * (dy / dlen + 1.0f);
@@ -300,7 +394,13 @@ __device__ __forceinline__ void trace_lane(
         if (RECORD) rec[(size_t)(rows++) * r + lane] = F_ALIVE;
         break;
       }
-      const float* row = table + (size_t)win * C_IN;
+      // The winner's attributes: a sphere's table row, or a triangle's
+      // material row, whose column c - 6 holds table column c (c >= 6).
+      const float* row = table + (size_t)(is_tri ? 0 : win) * C_IN;
+      const float* mat_row =
+          TRI && is_tri ? mats + (size_t)(int)tris[(size_t)tid * TRI_COLS + 15] * MAT_COLS
+                        : nullptr;
+      auto attr = [&](int c) { return TRI && is_tri ? mat_row[c - 6] : row[c]; };
 
       // --- shading point + outward normal -----------------------------------
       const float hx = ox + best * dx;
@@ -313,10 +413,18 @@ __device__ __forceinline__ void trace_lane(
         wcz = wcz + w * row[26];
         wrad = wrad + w * row[27];
       }
-      const float inv_r = 1.0f / fmaxf(wrad, 1e-20f);
-      float nx = (hx - wcx) * inv_r;
-      float ny = (hy - wcy) * inv_r;
-      float nz = (hz - wcz) * inv_r;
+      float nx, ny, nz;
+      if (TRI && is_tri) {  // the table's unit normal
+        const float* tw = tris + (size_t)tid * TRI_COLS;
+        nx = tw[12];
+        ny = tw[13];
+        nz = tw[14];
+      } else {
+        const float inv_r = 1.0f / fmaxf(wrad, 1e-20f);
+        nx = (hx - wcx) * inv_r;
+        ny = (hy - wcy) * inv_r;
+        nz = (hz - wcz) * inv_r;
+      }
       const bool front = dx * nx + dy * ny + dz * nz < 0.0f;
       const float sgn = front ? 1.0f : -1.0f;
       nx = nx * sgn;
@@ -327,29 +435,29 @@ __device__ __forceinline__ void trace_lane(
       float alr = 0.0f, alg = 0.0f, alb = 0.0f;
       if (RADIANCE) {
         if (acc_row) {
-          ax = ax + tx * row[10];
-          ay = ay + ty * row[11];
-          az = az + tz * row[12];
+          ax = ax + tx * attr(10);
+          ay = ay + ty * attr(11);
+          az = az + tz * attr(12);
         }
-        const float inv_scale = row[17];
+        const float inv_scale = attr(17);
         const int xf = (int)floorf(inv_scale * hx);
         const int yf = (int)floorf(inv_scale * hy);
         const int zf = (int)floorf(inv_scale * hz);
         // C's '%' truncates, but "== 0" gives the same even/odd answer.
         const bool is_even = (xf + yf + zf) % 2 == 0;
-        if (row[13] == TEX_CHECKER) {
-          alr = is_even ? row[18] : row[21];
-          alg = is_even ? row[19] : row[22];
-          alb = is_even ? row[20] : row[23];
+        if (attr(13) == TEX_CHECKER) {
+          alr = is_even ? attr(18) : attr(21);
+          alg = is_even ? attr(19) : attr(22);
+          alb = is_even ? attr(20) : attr(23);
         } else {
-          alr = row[14];
-          alg = row[15];
-          alb = row[16];
+          alr = attr(14);
+          alg = attr(15);
+          alb = attr(16);
         }
       }
 
       // --- scatter (models/materials.py) ------------------------------------
-      const float mat_type = row[6];
+      const float mat_type = attr(6);
       const U4 ub = uniform4(upix, (uint32_t)smp,
                              STREAM_BOUNCE_BASE + (uint32_t)bounce, seed);
       const float rz = 1.0f - 2.0f * ub.x;
@@ -363,7 +471,7 @@ __device__ __forceinline__ void trace_lane(
       bool scattered;
       if (mat_type == DIELECTRIC) {
         // Snell + Schlick on the unit incoming direction.
-        const float ior = row[8];
+        const float ior = attr(8);
         const float udx = dx / dlen, udy = dy / dlen, udz = dz / dlen;
         const float ri = front ? 1.0f / fmaxf(ior, 1e-8f) : ior;
         const float cos_t = fminf(-(udx * nx + udy * ny + udz * nz), 1.0f);
@@ -392,7 +500,7 @@ __device__ __forceinline__ void trace_lane(
         scattered = true;
       } else if (mat_type == METAL) {
         // reflect(d, n) normalized + fuzz * unit vector; dies below the surface.
-        const float fuzz = row[7];
+        const float fuzz = attr(7);
         const float d_dot_n = dx * nx + dy * ny + dz * nz;
         const float refx = dx - 2.0f * d_dot_n * nx;
         const float refy = dy - 2.0f * d_dot_n * ny;
@@ -408,7 +516,7 @@ __device__ __forceinline__ void trace_lane(
         scattered = ndx * nx + ndy * ny + ndz * nz > 0.0f;
       } else {
         // Lambertian (and emissive, which never scatters).
-        const float prob = row[9];
+        const float prob = attr(9);
         ndx = nx + rx;
         ndy = ny + ry;
         ndz = nz + rz;
@@ -432,7 +540,7 @@ __device__ __forceinline__ void trace_lane(
         // winner used, from the per-winner (non-expanded) quadratic that the
         // replay re-solves.
         const float udx = dx / dlen, udy = dy / dlen, udz = dz / dlen;
-        const float ior = row[8];
+        const float ior = attr(8);
         const float ri = front ? 1.0f / fmaxf(ior, 1e-8f) : ior;
         const float cos_t = fminf(-(udx * nx + udy * ny + udz * nz), 1.0f);
         const float sin_t = sqrtf(fmaxf(1.0e-12f, 1.0f - cos_t * cos_t));
@@ -444,22 +552,26 @@ __device__ __forceinline__ void trace_lane(
         const bool refl = (ri * sin_t > 1.0f) || (schlick > u_dec);
         const bool degen = fabsf(nx + rx) < 1e-8f && fabsf(ny + ry) < 1e-8f &&
                            fabsf(nz + rz) < 1e-8f;
-        // The winner at the path's shutter fraction (row[0..3] when static).
-        const float r_ocx = wcx - ox;
-        const float r_ocy = wcy - oy;
-        const float r_ocz = wcz - oz;
-        const float r_h = dx * r_ocx + dy * r_ocy + dz * r_ocz;
-        const float r_c =
-            r_ocx * r_ocx + r_ocy * r_ocy + r_ocz * r_ocz - wrad * wrad;
-        const float r_disc = fmaxf(r_h * r_h - a_q * r_c, 0.0f);
-        const float r_root0 = (r_h - sqrtf(r_disc)) * inv_a;
-        const bool root1 = !(r_root0 > t_min);
-        const int flags = F_ALIVE | F_HIT | (scattered ? F_SCAT : 0) |
-                          (front ? F_FRONT : 0) | (refl ? F_REFL : 0) |
-                          (degen ? F_DEGEN : 0) | (root1 ? F_ROOT1 : 0);
+        bool root1 = false;  // a triangle has no second root
+        if (!(TRI && is_tri)) {
+          // The winner at the path's shutter fraction (row[0..3] when static).
+          const float r_ocx = wcx - ox;
+          const float r_ocy = wcy - oy;
+          const float r_ocz = wcz - oz;
+          const float r_h = dx * r_ocx + dy * r_ocy + dz * r_ocz;
+          const float r_c =
+              r_ocx * r_ocx + r_ocy * r_ocy + r_ocz * r_ocz - wrad * wrad;
+          const float r_disc = fmaxf(r_h * r_h - a_q * r_c, 0.0f);
+          const float r_root0 = (r_h - sqrtf(r_disc)) * inv_a;
+          root1 = !(r_root0 > t_min);
+        }
+        const int flags = F_ALIVE | F_HIT | (is_tri ? F_TRI : 0) |
+                          (scattered ? F_SCAT : 0) | (front ? F_FRONT : 0) |
+                          (refl ? F_REFL : 0) | (degen ? F_DEGEN : 0) |
+                          (root1 ? F_ROOT1 : 0);
         // The walk's winner is a permuted row: record its original id
-        // (exact in float32 below 2^24).
-        const int win_id = WALK ? (int)row[COL_ID] : win;
+        // (exact in float32 below 2^24). A triangle's id is its leaf-order row.
+        const int win_id = is_tri ? tid : WALK ? (int)row[COL_ID] : win;
         rec[(size_t)(rows++) * r + lane] = win_id * REC_ID_SCALE + flags;
       }
 
@@ -487,17 +599,28 @@ __device__ __forceinline__ void trace_lane(
   out[2 * (size_t)r + lane] = az;
 }
 
+// The acceleration structures a launch walks: the sphere BVH (WALK) over
+// the permuted table, and a static mesh's triangle BVH with its Woop rows
+// and material rows (TRI). Unused pointers are null and counts 0.
+struct Trees {
+  const float* nodes;     // (k, 6) grown sphere-node boxes
+  const int32_t* meta;    // (k, 3) first, count, miss
+  const float* tnodes;    // (kt, 6) triangle-node boxes
+  const int32_t* tmeta;   // (kt, 3) first, count, miss
+  const float* tris;      // (M, 16) Woop rows, leaf order
+  const float* mats;      // (NM, 24) material rows
+  int k, kt;
+};
+
 template <bool RECORD, bool RADIANCE, bool WALK, bool ANIMATED, bool CAM_ANIMATED,
-          int NT>
+          bool TRI, int NT>
 __global__ void __launch_bounds__(NT) megakernel(
     const int32_t* __restrict__ smem,     // (8,) [spp, seed, width, max_depth, accum_from, ...]
     const int32_t* __restrict__ pix_in,   // (R,) pixel ids
     const int32_t* __restrict__ sample0,  // (R,) first sample (2^30 = padding)
     const float* __restrict__ cam,        // (48,) camera constants
     const float* __restrict__ table,      // (N, 32) sphere attribute table
-    const float* __restrict__ nodes,      // (K, 6) grown node boxes (WALK only)
-    const int32_t* __restrict__ meta,     // (K, 3) first, count, miss (WALK only)
-    int n, int k, int r, float t_min,
+    const Trees trees, int n, int r, float t_min,
     float* __restrict__ out,              // (3, R) radiance sums
     int32_t* __restrict__ rec) {          // (max_depth, R) records (RECORD only)
   extern __shared__ float sh[];
@@ -526,38 +649,46 @@ __global__ void __launch_bounds__(NT) megakernel(
       s_s2[q] = row[29];
     }
   }
+  const int k = WALK ? trees.k : 0;
+  const int kt = TRI ? trees.kt : 0;
   float* s_node = sh + (ANIMATED ? SMEM_COLS + MOTION_COLS : SMEM_COLS) * n;
   int* s_meta = (int*)(s_node + NODE_COLS * k);
+  float* s_tnode = (float*)(s_meta + META_COLS * k);
+  int* s_tmeta = (int*)(s_tnode + NODE_COLS * kt);
   if (WALK) {
-    for (int q = threadIdx.x; q < k * NODE_COLS; q += blockDim.x) s_node[q] = nodes[q];
-    for (int q = threadIdx.x; q < k * META_COLS; q += blockDim.x) s_meta[q] = meta[q];
+    for (int q = threadIdx.x; q < k * NODE_COLS; q += blockDim.x) s_node[q] = trees.nodes[q];
+    for (int q = threadIdx.x; q < k * META_COLS; q += blockDim.x) s_meta[q] = trees.meta[q];
+  }
+  if (TRI) {
+    for (int q = threadIdx.x; q < kt * NODE_COLS; q += blockDim.x) s_tnode[q] = trees.tnodes[q];
+    for (int q = threadIdx.x; q < kt * META_COLS; q += blockDim.x) s_tmeta[q] = trees.tmeta[q];
   }
   __syncthreads();
-  const Staged s{s_cx, s_cy, s_cz, s_csr, s_act, s_cdx, s_cdy, s_cdz,
-                 s_s1, s_s2, s_node, s_meta, n, k};
+  const Staged s{s_cx, s_cy, s_cz, s_csr, s_act, s_cdx, s_cdy, s_cdz, s_s1, s_s2,
+                 s_node, s_meta, s_tnode, s_tmeta, n, k, kt};
 
   const int lane = blockIdx.x * NT + threadIdx.x;
   if (lane < r) {
-    trace_lane<RECORD, RADIANCE, WALK, ANIMATED, CAM_ANIMATED>(
-        lane, s, smem, pix_in, sample0, cam, table, r, t_min, out, rec);
+    trace_lane<RECORD, RADIANCE, WALK, ANIMATED, CAM_ANIMATED, TRI>(
+        lane, s, smem, pix_in, sample0, cam, table, trees.tris, trees.mats, r, t_min,
+        out, rec);
   }
 }
 
-int smem_bytes(int n, int k, bool animated) {
+int smem_bytes(int n, int k, bool animated, int kt) {
   const int cols = animated ? SMEM_COLS + MOTION_COLS : SMEM_COLS;
   return n * cols * (int)sizeof(float) +
-         k * (NODE_COLS * (int)sizeof(float) + META_COLS * (int)sizeof(int));
+         (k + kt) * (NODE_COLS * (int)sizeof(float) + META_COLS * (int)sizeof(int));
 }
 
 template <bool RECORD, bool RADIANCE, bool WALK, bool ANIMATED = false,
-          bool CAM_ANIMATED = false>
+          bool CAM_ANIMATED = false, bool TRI = false>
 int launch(const int32_t* smem, const int32_t* pix, const int32_t* sample0,
-           const float* cam, const float* table, const float* nodes,
-           const int32_t* meta, int n, int k, int r, float t_min, float* out,
-           int32_t* rec, void* stream) {
-  constexpr int NT = WALK ? WALK_BLOCK : BLOCK;
-  auto kernel = megakernel<RECORD, RADIANCE, WALK, ANIMATED, CAM_ANIMATED, NT>;
-  const int bytes = smem_bytes(n, WALK ? k : 0, ANIMATED);
+           const float* cam, const float* table, const Trees& trees, int n, int r,
+           float t_min, float* out, int32_t* rec, void* stream) {
+  constexpr int NT = WALK || TRI ? WALK_BLOCK : BLOCK;
+  auto kernel = megakernel<RECORD, RADIANCE, WALK, ANIMATED, CAM_ANIMATED, TRI, NT>;
+  const int bytes = smem_bytes(n, WALK ? trees.k : 0, ANIMATED, TRI ? trees.kt : 0);
   if (bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -565,122 +696,103 @@ int launch(const int32_t* smem, const int32_t* pix, const int32_t* sample0,
   }
   const int grid = (r + NT - 1) / NT;
   if (grid > 0) {
-    kernel<<<grid, NT, bytes, (cudaStream_t)stream>>>(
-        smem, pix, sample0, cam, table, nodes, meta, n, k, r, t_min, out, rec);
+    kernel<<<grid, NT, bytes, (cudaStream_t)stream>>>(smem, pix, sample0, cam, table,
+                                                      trees, n, r, t_min, out, rec);
   }
   return (int)cudaGetLastError();
 }
 
-// The record instantiations for one value of RADIANCE.
-template <bool RADIANCE>
-int record_variant(const int32_t* smem, const int32_t* pix,
-                   const int32_t* sample0, const float* cam, const float* table,
-                   const float* nodes, const int32_t* meta, int n, int k, int r,
-                   float t_min, int animated, int cam_animated, float* out,
-                   int32_t* rec, void* stream) {
-  if (k > 0) {
+// The instantiations of one mode (RECORD) and one value of RADIANCE: K7
+// where the launch has a triangle BVH (the brute static search only), K5
+// where it has a sphere BVH (static, or with CAM_ANIMATED), else the brute
+// search with K8's flags.
+template <bool RECORD, bool RADIANCE>
+int variant(const int32_t* smem, const int32_t* pix, const int32_t* sample0,
+            const float* cam, const float* table, const Trees& t, int n, int r,
+            float t_min, int animated, int cam_animated, float* out, int32_t* rec,
+            void* stream) {
+  if (t.kt > 0) {
+    if (t.k > 0 || animated || cam_animated) return (int)cudaErrorInvalidValue;
+    return launch<RECORD, RADIANCE, false, false, false, true>(
+        smem, pix, sample0, cam, table, t, n, r, t_min, out, rec, stream);
+  }
+  if (t.k > 0) {
     if (animated) return (int)cudaErrorInvalidValue;
     if (cam_animated) {
-      return launch<true, RADIANCE, true, false, true>(
-          smem, pix, sample0, cam, table, nodes, meta, n, k, r, t_min, out,
-          rec, stream);
+      return launch<RECORD, RADIANCE, true, false, true>(
+          smem, pix, sample0, cam, table, t, n, r, t_min, out, rec, stream);
     }
-    return launch<true, RADIANCE, true>(smem, pix, sample0, cam, table, nodes,
-                                        meta, n, k, r, t_min, out, rec, stream);
+    return launch<RECORD, RADIANCE, true>(smem, pix, sample0, cam, table, t, n, r,
+                                          t_min, out, rec, stream);
   }
   if (animated && cam_animated) {
-    return launch<true, RADIANCE, false, true, true>(
-        smem, pix, sample0, cam, table, nullptr, nullptr, n, 0, r, t_min, out,
-        rec, stream);
+    return launch<RECORD, RADIANCE, false, true, true>(
+        smem, pix, sample0, cam, table, t, n, r, t_min, out, rec, stream);
   }
   if (animated) {
-    return launch<true, RADIANCE, false, true, false>(
-        smem, pix, sample0, cam, table, nullptr, nullptr, n, 0, r, t_min, out,
-        rec, stream);
+    return launch<RECORD, RADIANCE, false, true, false>(
+        smem, pix, sample0, cam, table, t, n, r, t_min, out, rec, stream);
   }
   if (cam_animated) {
-    return launch<true, RADIANCE, false, false, true>(
-        smem, pix, sample0, cam, table, nullptr, nullptr, n, 0, r, t_min, out,
-        rec, stream);
+    return launch<RECORD, RADIANCE, false, false, true>(
+        smem, pix, sample0, cam, table, t, n, r, t_min, out, rec, stream);
   }
-  return launch<true, RADIANCE, false>(smem, pix, sample0, cam, table, nullptr,
-                                       nullptr, n, 0, r, t_min, out, rec,
-                                       stream);
+  return launch<RECORD, RADIANCE, false>(smem, pix, sample0, cam, table, t, n, r,
+                                         t_min, out, rec, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory the kernel needs for an N-row table and
-// K sphere-BVH nodes (K = 0: the brute search), with the motion columns
-// when `animated` is nonzero.
-int crucible_megakernel_smem_bytes(int n, int k, int animated) {
-  return smem_bytes(n, k, animated != 0);
+// Bytes of dynamic shared memory the kernel needs for an N-row table, K
+// sphere-BVH nodes (K = 0: the brute search) and KT triangle-BVH nodes (KT
+// = 0: no mesh), with the motion columns when `animated` is nonzero.
+int crucible_megakernel_smem_bytes(int n, int k, int animated, int kt) {
+  return smem_bytes(n, k, animated != 0, kt);
 }
 
 // Launch the forward megakernel on `stream`: the brute search (K1) when
-// k == 0, else the walk over the K nodes (K5); with `animated` (brute
-// only) or `cam_animated` nonzero, their motion variants (K8). Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for an animated walk.
+// k == 0, else the walk over the K sphere nodes (K5); with `animated`
+// (brute only) or `cam_animated` nonzero, their motion variants (K8); with
+// kt > 0 the triangle stage over the KT triangle nodes after the brute
+// static search (K7). Returns cudaGetLastError(), or cudaErrorInvalidValue
+// for a combination not instantiated (an animated walk; K7 with a walk or
+// motion).
 int crucible_megakernel_forward(const int32_t* smem, const int32_t* pix,
                                 const int32_t* sample0, const float* cam,
                                 const float* table, const float* nodes,
-                                const int32_t* meta, int n, int k, int r,
+                                const int32_t* meta, const float* tnodes,
+                                const int32_t* tmeta, const float* tris,
+                                const float* mats, int n, int k, int kt, int r,
                                 float t_min, int animated, int cam_animated,
                                 float* out, void* stream) {
-  if (k > 0) {
-    if (animated) return (int)cudaErrorInvalidValue;
-    if (cam_animated) {
-      return launch<false, true, true, false, true>(
-          smem, pix, sample0, cam, table, nodes, meta, n, k, r, t_min, out,
-          nullptr, stream);
-    }
-    return launch<false, true, true>(smem, pix, sample0, cam, table, nodes,
-                                     meta, n, k, r, t_min, out, nullptr,
-                                     stream);
-  }
-  if (animated && cam_animated) {
-    return launch<false, true, false, true, true>(
-        smem, pix, sample0, cam, table, nullptr, nullptr, n, 0, r, t_min,
-        out, nullptr, stream);
-  }
-  if (animated) {
-    return launch<false, true, false, true, false>(
-        smem, pix, sample0, cam, table, nullptr, nullptr, n, 0, r, t_min,
-        out, nullptr, stream);
-  }
-  if (cam_animated) {
-    return launch<false, true, false, false, true>(
-        smem, pix, sample0, cam, table, nullptr, nullptr, n, 0, r, t_min,
-        out, nullptr, stream);
-  }
-  return launch<false, true, false>(smem, pix, sample0, cam, table, nullptr,
-                                    nullptr, n, 0, r, t_min, out, nullptr,
-                                    stream);
+  const Trees t{nodes, meta, tnodes, tmeta, tris, mats, k, kt};
+  return variant<false, true>(smem, pix, sample0, cam, table, t, n, r, t_min,
+                              animated, cam_animated, out, nullptr, stream);
 }
 
 // Launch the record-mode megakernel: `rec` (smem[3], R) int32 packed
 // decision words; `out` (3, R) the fused radiance when `radiance` is nonzero,
-// else zeros. The brute search (K2) when k == 0, else the walk (K5); with
-// `animated` (brute only) or `cam_animated` nonzero, their motion variants
-// (K8). Returns cudaGetLastError(), or cudaErrorInvalidValue for an animated
-// walk.
+// else zeros. The variants are the forward's: K2, K5, K8 and K7. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a combination not
+// instantiated.
 int crucible_megakernel_record(const int32_t* smem, const int32_t* pix,
                                const int32_t* sample0, const float* cam,
                                const float* table, const float* nodes,
-                               const int32_t* meta, int n, int k, int r,
+                               const int32_t* meta, const float* tnodes,
+                               const int32_t* tmeta, const float* tris,
+                               const float* mats, int n, int k, int kt, int r,
                                float t_min, int radiance, int animated,
                                int cam_animated, float* out, int32_t* rec,
                                void* stream) {
+  const Trees t{nodes, meta, tnodes, tmeta, tris, mats, k, kt};
   if (radiance) {
-    return record_variant<true>(smem, pix, sample0, cam, table, nodes, meta, n,
-                                k, r, t_min, animated, cam_animated, out, rec,
-                                stream);
+    return variant<true, true>(smem, pix, sample0, cam, table, t, n, r, t_min,
+                               animated, cam_animated, out, rec, stream);
   }
-  return record_variant<false>(smem, pix, sample0, cam, table, nodes, meta, n,
-                               k, r, t_min, animated, cam_animated, out, rec,
-                               stream);
+  return variant<true, false>(smem, pix, sample0, cam, table, t, n, r, t_min,
+                              animated, cam_animated, out, rec, stream);
 }
 
 const char* crucible_cuda_error_string(int err) {

@@ -7,16 +7,20 @@ loss against target pixel radiances and its gradient with the same keys.
 Two estimators compute it:
 
 - ``method='replay'``: the record/replay path of ``models/replay.py``
-  (record K2, K5 or K8; replay K4 forward and K3 backward where the replay
-  kernels take the scene, else the eager per-bounce replay: moving spheres
-  and animated cameras, tables above 2048 rows, the spherical sky, whose
-  image is then a leaf, ``sky_image``). Frozen-decision training records
+  (record K2, K5, K8 or K7; replay K4 forward and K3 backward where the
+  replay kernels take the scene, else the eager per-bounce replay: moving
+  spheres and animated cameras, tables above 2048 rows, static triangle
+  meshes, the spherical sky, whose image is then a leaf, ``sky_image``).
+  Frozen-decision training records
   the decisions once (:func:`record_decisions`) and replays them in every
   later step (``rec=``).
 - ``method='ad'``: direct reverse mode through the checkpointed bounce loop
   (``integrator.render_rays(differentiable=True)``, closest hits by K10, or
-  for moving spheres ``intersect.hit_spheres_moving``), the semantic
-  reference.
+  for moving spheres ``intersect.hit_spheres_moving``; a mesh of at most
+  ``scene.BVH_MIN_TRIS`` triangles through ``intersect.hit_triangles``),
+  the semantic reference. A BVH mesh raises ``NotImplementedError``: the
+  JAX package's reverse mode cannot pass its BVH walk's ``lax.while_loop``
+  either, and the port invents no gradient there.
 
 ``method='auto'`` takes the replay, as in the JAX package.
 :func:`make_train_step` wraps a ``torch.optim`` optimizer.
@@ -135,6 +139,12 @@ def render_pixels_mean(
         raise ValueError(
             "precomputed decision records (rec=...) need the replay gradient "
             f"path, but method resolved to {method!r}"
+        )
+    if method == "ad" and sd.num_tris > 0 and sd.use_bvh:
+        raise NotImplementedError(
+            "direct AD (method='ad') through a BVH mesh: the BVH walk has no "
+            "reverse mode, in the JAX package (its lax.while_loop) as here; use "
+            "method='replay'"
         )
     pix, smp = _lanes(pixel_ids, spp, sample0)
     if method == "replay":

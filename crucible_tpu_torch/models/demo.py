@@ -1,8 +1,11 @@
-"""Demo scenes (port of the sphere scenes of ``crucible_tpu/models/demo.py``
-— book1, its tiled stress scene, the checkered and smoke scenes — the
-garden under its procedural HDR sky, and the movies: ``first_movie``, a
-keyframed camera walk around the garden's ball; ``moving_teapot`` needs
-the OBJ assets, which are not ported).
+"""Demo scenes (port of ``crucible_tpu/models/demo.py``: book1, its tiled
+stress scene, the checkered and smoke scenes, the teapot on its checker
+ground, the garden under its procedural HDR sky, and the movies:
+``first_movie``, a keyframed camera walk around the garden's ball;
+``moving_teapot`` needs moving meshes and ``teapot.obj``, which are not
+here). ``WORLDS`` and ``MOVIE_WORLDS`` number them as the JAX package does
+(the earth and nested-checker worlds, 4 and 7, need image textures and
+nested checkers, not ported).
 
 Scene generation takes an explicit seed and draws from numpy in the same
 order as the JAX package, so both packages build identical tables.
@@ -134,6 +137,29 @@ def sphere_stress(width: int = 400, copies: int = 4, seed: int = 7) -> Scene:
     return sc
 
 
+def load_teapot(width: int = 400) -> Scene:
+    """teapot.obj at 0.5 scale under a metal material, on the checker
+    ground: 16:9, 200 spp, depth 50, vfov 20, defocus 0.6deg/10.0. The
+    mesh is an asset (``assets/teapot.obj``, resolved as ``io/assets``
+    says); without it this raises ``FileNotFoundError``."""
+    sc = Scene.new_image(16.0 / 9.0, width, 24, 180.0)
+    cam = sc.scene_cam
+    cam.set_samples(200)
+    cam.set_max_depth(50)
+    cam.look_from((13.0, 10.0, 3.0))
+    cam.look_at((0.0, 0.0, 0.0))
+    cam.set_vfov(20.0)
+    cam.set_defocus_angle(0.6)
+    cam.set_focus_dist(10.0)
+
+    sc.load_asset("teapot.obj", "teapot", 0.5, (0.0, 0.0, 0.0), Metal((0.8, 0.3, 0.5), 0.05))
+    sc.add_element(
+        Sphere((0.0, -1000.0, 0.0), 1000.0, Lambertian.from_texture(_CHECKER_GROUND)),
+        "ground",
+    )
+    return sc
+
+
 def smoke_scene(width: int = 400) -> Scene:
     """Single Lambertian sphere + ground, 16 spp, depth 8."""
     sc = Scene.new_image(16.0 / 9.0, width, 24, 180.0)
@@ -196,13 +222,25 @@ def first_movie(frame_rate: float = 24.0, duration: float = 15.0) -> Scene:
 
 
 def moving_teapot(frame_rate: float = 24.0, duration: float = 5.0) -> Scene:
-    """The teapot movie needs the OBJ mesh assets and triangle meshes,
-    which are not ported: raises ``NotImplementedError``."""
+    """The teapot movie: its mesh moves, and moving meshes (per-vertex
+    timelines, the megakernel's moving-triangle stage) are not ported
+    (ROADMAP A4); its mesh is also the ``teapot.obj`` asset, which this
+    repository does not ship. Raises ``NotImplementedError``."""
     raise NotImplementedError(
-        "moving_teapot needs OBJ mesh assets (teapot.obj) and triangle "
-        "meshes, which are not ported to crucible_tpu_torch yet"
+        "moving_teapot needs moving meshes (K7 moving, ROADMAP A4), which are not "
+        "ported to crucible_tpu_torch yet, and the OBJ asset teapot.obj, which "
+        "this repository lacks (fault C1)"
     )
 
+
+WORLDS = {
+    1: book1_end_scene,
+    2: checkered_spheres,
+    3: load_teapot,
+    5: garden_skybox,
+    6: smoke_scene,
+    8: sphere_stress,
+}
 
 MOVIE_WORLDS = {
     1: first_movie,

@@ -2,25 +2,28 @@
 persistent megakernel schedule.
 
 Port of ``crucible_tpu/models/integrator.py`` for sphere scenes, static
-or moving on the linear shutter:
+or moving on the linear shutter, and static triangle meshes:
 
 - the staged wavefront: :func:`intersect_scene` (closest hits through
   ``ops/intersect.hit_spheres``, kernel K10, or for moving spheres the
-  plain ``hit_spheres_moving``), :func:`bounce_step`,
+  plain ``hit_spheres_moving``; a mesh's through ``hit_triangles`` up to
+  ``scene.BVH_MIN_TRIS`` triangles, else the BVH walk
+  ``ops/traverse.bvh_hit_triangles``), :func:`bounce_step`,
   :func:`trace` (with ``differentiable=True`` the checkpointed bounce loop
   that the direct-AD gradient runs) and :func:`render_rays`;
 - the ``pixel`` schedule :func:`trace_persistent`, whose fused bounce
   :func:`bounce_step_fused` takes the winner's attributes from K9;
 - the ``mega`` schedule :func:`trace_persistent_mega` (K1, or K5 walking
   the sphere BVH of a big scene; K8, their motion variants, for moving
-  spheres or an animated camera) with its inputs (the (N, 32) sphere
-  attribute table, permuted into BVH leaf order for the walk; the camera
-  vector) and the megakernel predicates.
+  spheres or an animated camera; K7, the triangle-BVH stage, for a static
+  BVH mesh) with its inputs (the (N, 32) sphere attribute table, permuted
+  into BVH leaf order for the walk; the camera vector; a mesh's tables,
+  :func:`make_tri_tables`) and the megakernel predicates.
 
 Moving spheres and animated cameras draw each path's shutter fraction w
 from the STREAM_TIME hash of its (pixel, sample), which the camera's ray
 generation draws too, so a path's rays share one shutter instant.
-Triangles and exact-time motion raise ``NotImplementedError``. The radiance recursion of the original renderer
+Exact-time motion raises ``NotImplementedError``. The radiance recursion of the original renderer
 unrolls into an iterative product over a flat batch of rays: on a miss
 L += throughput * sky, on a hit L += throughput * emission, and on a
 scatter throughput *= attenuation. Discrete decisions (hits, winners,
@@ -39,6 +42,7 @@ from crucible_tpu_torch.models import textures as tex_mod
 from crucible_tpu_torch.models.camera import CameraParams, generate_rays
 from crucible_tpu_torch.models.scene import SceneData
 from crucible_tpu_torch.ops import intersect
+from crucible_tpu_torch.ops.traverse import bvh_hit_triangles
 from crucible_tpu_torch.ops.kernels import megakernel as mk
 from crucible_tpu_torch.ops.kernels import sphere_shade
 from crucible_tpu_torch.utils import rng as crng
@@ -54,15 +58,13 @@ EXACT_MOTION = (
 )
 
 
-def _check_spheres(sd: SceneData) -> None:
+def _check_staged(sd: SceneData) -> None:
     """Raise, naming what is missing, for what the staged path lacks."""
-    if sd.num_tris > 0:
-        raise NotImplementedError(
-            "triangle meshes are not ported to crucible_tpu_torch's staged "
-            "integrator yet"
-        )
     if sd.motion_exact:
         raise NotImplementedError(EXACT_MOTION)
+    if sd.num_tris > 0 and sd.tri_v0 is None:
+        raise ValueError(f"the scene counts {sd.num_tris} triangles but carries no "
+                         "triangle arrays (tri_v0, ...)")
 
 
 def _motion_deltas(sd: SceneData):
@@ -80,13 +82,15 @@ def shutter_fraction(pixel_ids, sample_ids, seed):
 
 
 def intersect_scene(sd: SceneData, o, d, w=None):
-    """Closest hit against the scene's spheres; an animated scene's at the
-    rays' shutter fractions ``w`` (R,).
+    """Closest hit against the scene's spheres and triangles; an animated
+    scene's spheres at the rays' shutter fractions ``w`` (R,). A triangle
+    wins only where it is strictly nearer than the nearest sphere; its
+    normal is the geometric one, its uv (0, 0).
 
     Returns a dict of per-ray tensors: hit (bool), t, point (R, 3), normal
     (R, 3) the unit normal flipped against d, front (bool), u, v, mat
-    (int64), i_sph (the winning row)."""
-    _check_spheres(sd)
+    (int64), i_sph and i_tri (the winning rows) and is_tri."""
+    _check_staged(sd)
     if sd.animated:
         if w is None:
             raise ValueError("an animated scene needs per-ray shutter fractions w")
@@ -99,6 +103,20 @@ def intersect_scene(sd: SceneData, o, d, w=None):
             o, d, sd.sph_center, sd.sph_radius, sd.sph_active, T_MIN
         )
     i_s = i_s.to(torch.int64)
+    if sd.num_tris > 0:
+        if sd.use_bvh:
+            t_t, i_t, hit_t = bvh_hit_triangles(
+                o, d, sd.tri_v0, sd.tri_v1, sd.tri_v2, sd.bvh_min, sd.bvh_max,
+                sd.bvh_first, sd.bvh_count, sd.bvh_miss, T_MIN, BIG, sd.bvh_leaf_size,
+            )
+        else:
+            t_t, i_t, hit_t = intersect.hit_triangles(
+                o, d, sd.tri_v0, sd.tri_v1, sd.tri_v2, sd.tri_active, T_MIN
+            )
+        i_t = i_t.to(torch.int64)
+        is_tri = hit_t & (t_t < t)  # strict: a sphere wins an exact tie
+        hit = hit | is_tri
+        t = torch.where(is_tri, t_t, t)
     # Miss lanes carry t = BIG; the shading point uses t = 1 there so that
     # masked-out lanes stay finite (0 * inf would NaN their gradients).
     t_shade = torch.where(hit, t, 1.0)
@@ -110,11 +128,20 @@ def intersect_scene(sd: SceneData, o, d, w=None):
         r_w = r_w + w * torch.index_select(rd, 0, i_s)
     n_out = (point - c_w) / torch.clamp_min(r_w, 1e-20)[:, None]
     u, v = intersect.sphere_uv(n_out)
+    mat = torch.index_select(sd.sph_mat, 0, i_s).to(torch.int64)
+    out = dict(i_sph=i_s)
+    if sd.num_tris > 0:
+        n_tri = intersect.triangle_normal(*(torch.index_select(x, 0, i_t)
+                                            for x in (sd.tri_v0, sd.tri_v1, sd.tri_v2)))
+        n_out = torch.where(is_tri[:, None], n_tri, n_out)
+        mat = torch.where(is_tri, torch.index_select(sd.tri_mat, 0, i_t).to(torch.int64), mat)
+        u = torch.where(is_tri, 0.0, u)  # triangle uv is (0, 0), as in the original
+        v = torch.where(is_tri, 0.0, v)
+        out.update(i_tri=i_t, is_tri=is_tri)
     front = vec.dot(d, n_out) < 0.0
     normal = torch.where(front[:, None], n_out, -n_out)
-    mat = torch.index_select(sd.sph_mat, 0, i_s).to(torch.int64)
     return dict(hit=hit, t=t, point=point, normal=normal, front=front, u=u, v=v,
-                mat=mat, i_sph=i_s)
+                mat=mat, **out)
 
 
 def _bounce_uniforms(pixel_ids, sample_ids, bounce, seed):
@@ -257,10 +284,97 @@ def make_sphere_table(sd: SceneData) -> torch.Tensor:
     return torch.stack(cols, dim=1)
 
 
+def make_tri_tables(sd: SceneData):
+    """The megakernel's triangle inputs (K7) from a static BVH mesh ->
+    (tri_nodes (K, 6) float32, tris (M, 16) float32, mats (NM, 24) float32,
+    tri_meta (K, 3) int32).
+
+    - ``tri_nodes``: node box min (0-2) and max (3-5);
+    - ``tri_meta``: [first, count, miss] per node (first indexes ``tris``);
+    - ``tris``, one row per triangle in leaf order, the JAX package's Woop
+      layout: columns 0-11 the affine map of world space onto the unit
+      triangle (rows a0, a1, a2 of [e1 e2 nu]^-1 with nu = e1 x e2
+      unnormalized, and b = -(a_i . v0)), 12-14 the unit normal, 15 the
+      material id; a degenerate triangle (|nu|^2 <= 1e-30) gets a zero
+      map, which the kernel's d'_z guard rejects;
+    - ``mats``: one row per material, sphere-table columns 6-23 (type,
+      fuzz, ior, prob, emission, texture kind, color, 1/scale, even and odd
+      colors), the texture id in 18, zeros after it. It is differentiable
+      in the texture colors, emission and fuzz (the eager replay reads it).
+
+    The TPU kernel's zero-row padding, node windows' guard rows and the
+    float copies of the node metadata are not carried: the CUDA kernel
+    loops to each leaf's count. Every product and sum is its own torch
+    operation in the JAX package's association, so the card and the CPU
+    build the same bits."""
+    v0, v1, v2 = sd.tri_v0, sd.tri_v1, sd.tri_v2
+    e1, e2 = v1 - v0, v2 - v0
+
+    def cross(a, b):  # a x b, component by component
+        return (a[1] * b[2] - a[2] * b[1], a[2] * b[0] - a[0] * b[2],
+                a[0] * b[1] - a[1] * b[0])
+
+    def dot(a, b):
+        return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+    c1, c2 = e1.unbind(1), e2.unbind(1)
+    nu = cross(c1, c2)
+    det = dot(nu, nu)
+    good = torch.abs(det) > 1e-30
+    inv = 1.0 / torch.where(good, det, 1.0)
+    ok = good.to(torch.float32)
+    a0 = tuple(x * inv * ok for x in cross(c2, nu))
+    a1 = tuple(x * inv * ok for x in cross(nu, c1))
+    a2 = tuple(x * inv * ok for x in nu)
+    p = v0.unbind(1)
+    b = (-dot(a0, p), -dot(a1, p), -dot(a2, p))
+    n = intersect.triangle_normal(v0, v1, v2)
+    tris = torch.stack([*a0, *a1, *a2, *b, *n.unbind(1), sd.tri_mat.to(torch.float32)], dim=1)
+    tri_nodes = torch.cat([sd.bvh_min, sd.bvh_max], dim=1)
+    tri_meta = torch.stack([sd.bvh_first, sd.bvh_count, sd.bvh_miss], dim=1).to(torch.int32)
+
+    tid = sd.mat_tex.long()
+    even_id, odd_id = sd.tex.even[tid].long(), sd.tex.odd[tid].long()
+    f32 = torch.float32
+    mats = torch.cat([
+        sd.mat_type.to(f32)[:, None], sd.mat_fuzz[:, None], sd.mat_ior[:, None],
+        sd.mat_prob[:, None], sd.mat_emission, sd.tex.kind[tid].to(f32)[:, None],
+        torch.index_select(sd.tex.color, 0, tid), sd.tex.inv_scale[tid][:, None],
+        torch.index_select(sd.tex.color, 0, even_id), torch.index_select(sd.tex.color, 0, odd_id),
+        tid.to(f32)[:, None], torch.zeros((tid.shape[0], 5), dtype=f32, device=tid.device),
+    ], dim=1)
+    return (tri_nodes.contiguous(), tris.contiguous(), mats.contiguous(),
+            tri_meta.contiguous())
+
+
+def _mesh_unsupported_reason(sd: SceneData, cp: CameraParams):
+    """None where the megakernel's triangle stage (K7) takes the scene's
+    mesh (or there is none), else what it lacks."""
+    if sd.num_tris == 0:
+        return None
+    checks = (
+        (sd.use_bvh,
+         "a triangle mesh without a BVH (at most 64 triangles: the megakernel's "
+         "triangle stage, K7, walks a BVH; such meshes take the pixel schedule, "
+         "the record schedule is ROADMAP A5)"),
+        (not sd.animated,
+         "a triangle mesh beside moving spheres (K7 with K8's moving search, a "
+         "template combination not instantiated: ROADMAP A4)"),
+        (not cp.animated,
+         "a triangle mesh seen by an animated camera (K7 with K8's camera, a "
+         "template combination not instantiated: ROADMAP A4)"),
+        (sd.sph_perm is None,
+         "a triangle mesh beside a big sphere table (K7 with K5's sphere-BVH "
+         "walk, a template combination not instantiated: ROADMAP A4)"),
+    )
+    return next((what for ok, what in checks if not ok), None)
+
+
 def megakernel_supported(sd: SceneData, cp: CameraParams) -> bool:
-    """The port's megakernel renders sphere-only scenes, static or moving
-    on the linear shutter, with solid / checker-of-solid textures under the
-    default sky, seen by a static or linearly animated camera.
+    """The port's megakernel renders sphere scenes, static or moving on the
+    linear shutter, and static BVH meshes beside static spheres, with
+    solid / checker-of-solid textures under the default sky, seen by a
+    static or linearly animated camera (a mesh: a static one).
     :func:`megakernel_unsupported_reason` names what is missing."""
     return megakernel_unsupported_reason(sd, cp) is None
 
@@ -268,25 +382,24 @@ def megakernel_supported(sd: SceneData, cp: CameraParams) -> bool:
 def megakernel_unsupported_reason(sd: SceneData, cp: CameraParams):
     """None if the megakernel renders this scene, else the missing feature."""
     checks = (
-        (sd.num_tris == 0, "triangle meshes"),
         (len(sd.tex.images) == 0, "image textures"),
         (sd.tex.max_nest <= 1, "nested checker textures"),
         (sd.sky_kind == sky_mod.DEFAULT, "the spherical sky"),
         (not sd.motion_exact and not cp.motion_exact, "exact-time motion"),
     )
-    return next((what for ok, what in checks if not ok), None)
+    return next((what for ok, what in checks if not ok), _mesh_unsupported_reason(sd, cp))
 
 
 def megakernel_record_supported(sd: SceneData, cp: CameraParams) -> bool:
     """The port's subset of the JAX record-mode predicate
-    (``crucible_tpu/models/integrator.py:705-735``): sphere-only scenes,
-    static or moving on the linear shutter, seen by a static or linearly
-    animated camera (K8's record mode for motion), with at most
-    ``mk.MAX_ROWS`` table rows or with the sphere-BVH tables
-    (``sd.sph_perm``) that the walk takes instead; a moving table takes the
-    brute search only, up to ``mk.MAX_ROWS_ANIMATED`` rows. The record's
-    decisions read no albedo or sky, so textures and the sky do not limit
-    it."""
+    (``crucible_tpu/models/integrator.py:705-735``): sphere scenes, static
+    or moving on the linear shutter, seen by a static or linearly animated
+    camera (K8's record mode for motion), with at most ``mk.MAX_ROWS``
+    table rows or with the sphere-BVH tables (``sd.sph_perm``) that the
+    walk takes instead; a moving table takes the brute search only, up to
+    ``mk.MAX_ROWS_ANIMATED`` rows; and static BVH meshes beside a static
+    brute sphere table and camera (K7). The record's decisions read no
+    albedo or sky, so textures and the sky do not limit it."""
     return megakernel_record_unsupported_reason(sd, cp) is None
 
 
@@ -304,12 +417,11 @@ def megakernel_record_unsupported_reason(sd: SceneData, cp: CameraParams):
         rows_ok = n <= mk.MAX_ROWS or sd.sph_perm is not None
         rows_what = f"more than {mk.MAX_ROWS} sphere rows without the sphere-BVH tables"
     checks = (
-        (sd.num_tris == 0, "triangle meshes (K7, ROADMAP A4)"),
         (not sd.motion_exact and not cp.motion_exact,
          "exact-time motion, a keyframe inside the shutter (ROADMAP A7)"),
         (rows_ok, rows_what),
     )
-    return next((what for ok, what in checks if not ok), None)
+    return next((what for ok, what in checks if not ok), _mesh_unsupported_reason(sd, cp))
 
 
 def permute_table(table: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
@@ -425,7 +537,8 @@ def trace_persistent_mega(
     ``sphere_meta`` (3 * (K + 16),) int32 are ``mk.sphere_bvh_tables``'
     outputs: the table is then padded and permuted into BVH leaf order and
     the kernel walks the BVH (K5); without them it tests every row (K1).
-    The sums are the same, bit for bit. Every random number is
+    The sums are the same, bit for bit. A static BVH mesh's tables
+    (:func:`make_tri_tables`) go to the kernel's triangle stage (K7). Every random number is
     pcg4d(pixel, sample, stream, seed), so the per-pixel sums do not depend
     on the lane order (see :func:`mega_inputs`).
     """
@@ -437,6 +550,8 @@ def trace_persistent_mega(
     inputs, lane_of = mega_inputs(sd, cp, width, height, spp, max_depth, seed)
     if cluster_perm is not None:
         inputs["table"] = permute_table(inputs["table"], cluster_perm)
+    if sd.num_tris > 0:
+        inputs.update(zip(("tri_nodes", "tris", "mats", "tri_meta"), make_tri_tables(sd)))
     acc = mk.run_megakernel(
         **inputs, sph_nodes=sphere_nodes, sph_meta=sphere_meta,
         animated=bool(sd.animated), cam_animated=bool(cp.animated),
@@ -465,7 +580,7 @@ def bounce_step_fused(sd: SceneData, table, o, d, pixel_ids, sample_ids, bounce,
     textures, absent here). An animated scene's spheres move to each path's
     shutter fraction; a static scene passes w = 0. Returns
     :func:`bounce_step`'s dict."""
-    _check_spheres(sd)
+    _check_staged(sd)
     if sd.animated:
         w = shutter_fraction(pixel_ids, sample_ids, seed)
     else:

@@ -7,9 +7,12 @@ which runs one of two schedules:
 - ``mega``: ``integrator.trace_persistent_mega``, the megakernel: the
   brute search (K1), or above ``CULL_MIN_ROWS`` rows the sphere-BVH walk
   (K5); for moving spheres or an animated camera their motion variants
-  (K8);
+  (K8); for a static BVH mesh the triangle stage after the brute search
+  (K7);
 - ``pixel``: ``integrator.trace_persistent``, the staged persistent
-  wavefront, with the fused hit + fetch kernel (K9) per bounce.
+  wavefront, with the fused hit + fetch kernel (K9) per bounce, or for a
+  mesh the staged bounce (K10 for the spheres, ``hit_triangles`` or the
+  BVH walk for the triangles).
 
 :func:`render_movie` renders ``ceil(duration * fps)`` frames of a movie
 scene to ``<fname>/artifacts/imageNNN.ppm`` and assembles them with ffmpeg
@@ -83,8 +86,11 @@ def render_image_persistent(
     wavefront: the fused bounce, K9, where ``integrator.fused_supported``
     holds, else the staged bounce, K10) or 'auto' ('mega' where
     ``integrator.megakernel_supported`` holds, else 'pixel' where
-    ``integrator.fused_supported`` does). The 'record' and 'queue'
-    schedules are not ported and raise ``NotImplementedError``. The pixel
+    ``integrator.fused_supported`` does or for a mesh without a BVH, at
+    most ``scene.BVH_MIN_TRIS`` triangles: the JAX package takes 'record'
+    there on an accelerator, 'pixel' elsewhere). The 'record' and 'queue'
+    schedules are not ported and raise ``NotImplementedError``, as does
+    'auto' on a BVH mesh the megakernel does not take. The pixel
     schedule's target lane count is ``LANES_CUDA`` on a card, ``LANES_CPU``
     elsewhere.
 
@@ -109,14 +115,17 @@ def render_image_persistent(
             f"or schedule='pixel'"
         )
     if schedule == "auto":
-        if integrator.megakernel_supported(sd, cp):
+        missing = integrator.megakernel_unsupported_reason(sd, cp)
+        if missing is None:
             schedule = "mega"
-        elif integrator.fused_supported(sd):
+        elif integrator.fused_supported(sd) or (
+                sd.num_tris > 0 and not sd.use_bvh and sd.tex.max_nest <= 1):
             schedule = "pixel"
         else:
             raise NotImplementedError(
-                "this scene needs the 'record' schedule (record megakernel + "
-                "replay shading), which is not ported to crucible_tpu_torch yet"
+                f"this scene needs {missing}: the megakernel does not take it, and "
+                "the 'record' schedule (record megakernel + replay shading, ROADMAP "
+                "A5) is not ported to crucible_tpu_torch yet"
             )
     if schedule == "pixel":
         lanes = LANES_CUDA if torch.device(device).type == "cuda" else LANES_CPU

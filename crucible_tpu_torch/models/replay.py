@@ -5,26 +5,27 @@ Port of the unsplit part of ``crucible_tpu/models/replay.py``:
 1. :func:`trace_record_mega` — the fast, non-differentiable forward: the
    record-mode megakernel (K2; K5, the sphere-BVH walk, on scenes with
    ``sd.sph_perm``; K8, their motion variants, for moving spheres and
-   animated cameras) traces one (pixel, sample) path per lane and stores,
-   per bounce, one packed int32 word: the winner's id and the discrete
-   outcomes (alive / hit / scattered / front / reflect / degenerate / far
-   root). With ``radiance=True`` the same loop also sums each path's
-   radiance (the fused mode).
+   animated cameras; K7, the triangle stage, for a static BVH mesh) traces
+   one (pixel, sample) path per lane and stores, per bounce, one packed
+   int32 word: the winner's id and the discrete outcomes (alive / hit /
+   triangle / scattered / front / reflect / degenerate / far root). With
+   ``radiance=True`` the same loop also sums each path's radiance (the
+   fused mode).
 2. :func:`trace_replay` — the differentiable replay of those words, which
    re-derives every continuous quantity with the decisions frozen: through
    the replay kernels (``ops/kernels/replay_kernel.py``: forward K4,
    backward K3) where they take the scene (:func:`_use_replay_kernel`),
    else eagerly, one checkpointed bounce per record row (the JAX package's
    jnp replay: moving spheres, tables above the kernels' rows, the
-   spherical sky).
+   spherical sky, static triangle meshes).
 
 :func:`render_rays_replay` chains camera rays, record and replay. Integers
 carry no gradient, so the gradient is the replay's detached-sampling
 estimator. Not ported yet (each raises ``NotImplementedError``): the staged
 record (``trace_record`` over ``integrator.bounce_step``), the eager
-replay's triangles, image textures, nested checkers and exact-time motion,
-and the lane-narrowed replays of deep budgets (``record_two_level`` /
-``replay_bucketed_2l``).
+replay's moving meshes, image textures, nested checkers and exact-time
+motion, and the lane-narrowed replays of deep budgets
+(``record_two_level`` / ``replay_bucketed_2l``).
 """
 
 from __future__ import annotations
@@ -40,12 +41,14 @@ from crucible_tpu_torch.models import skybox as sky_mod
 from crucible_tpu_torch.models import textures as tex_mod
 from crucible_tpu_torch.models.camera import CameraParams, generate_rays
 from crucible_tpu_torch.models.scene import SceneData
+from crucible_tpu_torch.ops import intersect
 from crucible_tpu_torch.ops.kernels import megakernel as mk
 from crucible_tpu_torch.ops.kernels import replay_kernel as rk
 from crucible_tpu_torch.ops.kernels.megakernel import (  # the record layout
     F_ALIVE, F_DEGEN, F_FRONT, F_HIT, F_REFL, F_ROOT1, F_SCAT, F_TRI, REC_ID_SCALE,
 )
 from crucible_tpu_torch.utils import rng as crng
+from crucible_tpu_torch.utils import vec
 
 # Packed word: bits 0..7 the flag byte (F_* bits, defined beside the
 # kernel that writes them), bits 8..30 the winner id when F_HIT (0
@@ -93,9 +96,10 @@ def _use_replay_kernel(sd: SceneData) -> bool:
 
 def _check_eager(sd: SceneData) -> None:
     """Raise for what the eager replay does not take yet."""
-    if sd.num_tris > 0:
+    if sd.num_tris > 0 and sd.animated:
         raise NotImplementedError(
-            "the replay of triangle hits comes with meshes (K7, ROADMAP A4)")
+            "the replay of a mesh in an animated scene comes with moving meshes "
+            "(K7 moving, ROADMAP A4)")
     if len(sd.tex.images) or sd.tex.max_nest > 1:
         raise NotImplementedError(
             "the replay of image textures and nested checkers is not ported to "
@@ -120,7 +124,8 @@ def trace_record_mega(
 ):
     """Record pass through the megakernel in record mode (K2; K5 where the
     scene has the sphere-BVH tables, ``sd.sph_perm``; K8 for moving spheres
-    or an animated camera, each path at its shutter fraction).
+    or an animated camera, each path at its shutter fraction; K7 for a
+    static BVH mesh, whose winners' words hold their leaf-order ids).
 
     One lane per (pixel, sample) path; the kernel regenerates the primary
     rays from the pcg4d streams. Sample id ``2**30`` marks a padding lane,
@@ -151,12 +156,17 @@ def trace_record_mega(
         table = integrator.make_sphere_table(sd).contiguous()
         if sd.sph_perm is not None:
             table = integrator.permute_table(table, sd.sph_perm)
+        tri = {}
+        if sd.num_tris > 0:
+            tri = dict(zip(("tri_nodes", "tris", "mats", "tri_meta"),
+                           integrator.make_tri_tables(sd)))
         acc, rec = mk.run_megakernel_record(
             smem,
             lanes(pixel_ids),
             lanes(sample_ids),
             integrator.mega_cam_vector(cp, width, height),
             table,
+            **tri,
             sph_nodes=sd.sph_nodes,
             sph_meta=sd.sph_meta,
             max_depth=int(max_depth),
@@ -236,19 +246,22 @@ EAGER_COLS = rk.USED
 MOTION_COLS = (24, 25, 26, 27)
 
 
-def _replay_row(sub, sky_image, o_c, d_c, thr, word, w, pixel_ids, sample_ids, *,
+def _replay_row(sub, sky_image, o_c, d_c, thr, word, w, pixel_ids, sample_ids, mesh, *,
                 pos, sky_kind, seed, bounce, accumulate):
     """One replayed bounce (the step of the JAX package's jnp replay,
     ``crucible_tpu/models/replay.py:426-586``) -> (o, d, thr, the radiance
     it adds). ``sub`` (N, K) holds the table columns ``pos`` maps to their
     place; ``w`` (R,) the paths' shutter fractions, or None for a static
-    scene."""
+    scene; ``mesh`` None, or a static mesh's (tri_v0, tri_v1, tri_v2,
+    tri_mat, mats) (leaf order; ``integrator.make_tri_tables``' mats)."""
     dec = rk._decode(word)
     hit, cont, front = dec["hit"], dec["cont"], dec["front"]
+    idx = dec["idx"].long()
+    is_tri = (word & F_TRI) > 0
 
     # The winner's row: an indexed load, whose backward is an index_add
     # (fault C8), not the TPU's one-hot product.
-    srow = torch.index_select(sub, 0, dec["idx"].long())
+    srow = torch.index_select(sub, 0, torch.where(is_tri, 0, idx) if mesh else idx)
 
     def attr(c):
         return srow[:, pos[c]]
@@ -271,9 +284,32 @@ def _replay_row(sub, sky_image, o_c, d_c, thr, word, w, pixel_ids, sample_ids, *
     sqrtd = torch.where(ok, torch.sqrt(torch.where(ok, disc, 1.0)), 0.0)
     t_hit = (h_q + torch.where(dec["root1"], sqrtd, -sqrtd)) / a_q
 
+    if mesh:
+        # A triangle winner: its t by Möller–Trumbore from the leaf-order
+        # vertices, its geometric normal, and its material's row of mats
+        # (column c - 6 holds table column c), an indexed load.
+        tv0, tv1, tv2, tri_mat, mats = mesh
+        ti = torch.where(is_tri, idx, 0)
+        v0, v1, v2 = (torch.index_select(v, 0, ti) for v in (tv0, tv1, tv2))
+        e1, e2 = v1 - v0, v2 - v0
+        det = (e1 * vec.cross(d_c, e2)).sum(-1)
+        inv_det = 1.0 / torch.where(torch.abs(det) > 1e-20, det, 1.0)
+        t_tri = (e2 * vec.cross(o_c - v0, e1)).sum(-1) * inv_det
+        mrow = torch.index_select(mats, 0, torch.index_select(tri_mat, 0, ti).long())
+        t_hit = torch.where(is_tri, t_tri, t_hit)
+        sattr, sattr3 = attr, attr3
+
+        def attr(c):
+            return torch.where(is_tri, mrow[:, c - 6], sattr(c))
+
+        def attr3(c):
+            return torch.where(is_tri[:, None], mrow[:, c - 6:c - 3], sattr3(c))
+
     t_shade = torch.where(hit, t_hit, 1.0)
     point = o_c + t_shade[:, None] * d_c
     n_out = (point - c_w) / torch.clamp_min(r_w, 1e-20)[:, None]
+    if mesh:
+        n_out = torch.where(is_tri[:, None], intersect.triangle_normal(v0, v1, v2), n_out)
     normal = torch.where(front[:, None], n_out, -n_out)
 
     # Radiance: the sky on a miss, emission on a hit.
@@ -310,6 +346,9 @@ def _replay_eager(sd, table, o, d, pixel_ids, sample_ids, seed, rec, *, early_ex
     sub = torch.index_select(table, 1, torch.tensor(cols, device=table.device))
     pos = {c: i for i, c in enumerate(cols)}
     w = integrator.shutter_fraction(pixel_ids, sample_ids, seed) if sd.animated else None
+    mesh = None
+    if sd.num_tris > 0:
+        mesh = (sd.tri_v0, sd.tri_v1, sd.tri_v2, sd.tri_mat, integrator.make_tri_tables(sd)[2])
     rows = rec.shape[0]
     if early_exit:  # alive rows form a prefix: stop after the last live one
         rows = int(((rec & F_ALIVE) > 0).any(dim=1).sum())
@@ -319,7 +358,7 @@ def _replay_eager(sd, table, o, d, pixel_ids, sample_ids, seed, rec, *, early_ex
         bounce = bounce0 + b
         row = functools.partial(_replay_row, pos=pos, sky_kind=sd.sky_kind, seed=seed,
                                 bounce=bounce, accumulate=bounce >= accum_from)
-        args = (sub, sd.sky_image, o_c, d_c, thr, rec[b], w, pixel_ids, sample_ids)
+        args = (sub, sd.sky_image, o_c, d_c, thr, rec[b], w, pixel_ids, sample_ids, mesh)
         if torch.is_grad_enabled():
             o_c, d_c, thr, add = checkpoint(row, *args, use_reentrant=False,
                                             preserve_rng_state=False)

@@ -1,17 +1,21 @@
 """Scene: user-facing builder API + the SoA ``SceneData`` of tensors.
 
-Port of ``crucible_tpu/models/scene.py`` for sphere scenes. The host side
-keeps the original surface (aliased elements via an id vendor, show/hide)
+Port of ``crucible_tpu/models/scene.py``. The host side keeps the original
+surface (aliased elements via an id vendor, OBJ mesh assets, show/hide)
 and ``Scene.build`` lowers the element list into flat arrays with numpy,
 exactly as the JAX package does, converting to tensors on the requested
 device only at the end. The spherical (equirect) sky loads from a ``.hdr``
 asset. Static scenes above ``render.CULL_MIN_ROWS`` sphere rows also get
-the sphere-BVH tables of the megakernel's walk. Spheres and the camera are
-animated with keyframe timelines (``models/timeline.py``) through the
-animator surface (``translate_*``, ``scale_*``, ``cam_translate_*``);
-``Scene.build`` lowers them for one shutter window, linearly (centre and
-radius at shutter open plus their deltas to shutter close). Triangles, OBJ
-assets and image textures raise ``NotImplementedError``.
+the sphere-BVH tables of the megakernel's walk. Triangles (``Triangle``,
+``load_asset``) are lowered as the JAX package lowers static meshes: up to
+``BVH_MIN_TRIS`` as brute arrays padded to a multiple of 8, above it in
+the leaf order of a BVH whose children are ordered near-first along the
+camera's view. Spheres and the camera are animated with keyframe timelines
+(``models/timeline.py``) through the animator surface (``translate_*``,
+``scale_*``, ``cam_translate_*``); ``Scene.build`` lowers them for one
+shutter window, linearly (centre and radius at shutter open plus their
+deltas to shutter close). Moving meshes and image textures raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,11 +28,22 @@ import numpy as np
 import torch
 
 from crucible_tpu_torch.io.image import load_image
+from crucible_tpu_torch.io.obj import load_obj
 from crucible_tpu_torch.models import materials as mat_mod
 from crucible_tpu_torch.models import skybox as sky_mod
 from crucible_tpu_torch.models import textures as tex_mod
 from crucible_tpu_torch.models.camera import Camera
 from crucible_tpu_torch.models.timeline import TransformTimeline
+from crucible_tpu_torch.ops.bvh import FlatBVH, build_bvh, reorder_front_to_back
+
+# Brute-force triangle intersection up to this count; a BVH above it.
+BVH_MIN_TRIS = 64
+# Triangles a BVH leaf holds when Scene.build is not told: 32 on the CPU
+# (the JAX package's CPU default, so that both packages build one tree),
+# and on a CUDA card the size at which the megakernel's triangle stage (K7)
+# renders torus_teapot fastest (chip_smoke.py's leaf-size sweep, PERF.md).
+BVH_LEAF_CPU = 32
+BVH_LEAF_CUDA = 4
 
 # Sphere-table row padding (the JAX package's default, env override and all,
 # so both packages build identical tables).
@@ -136,7 +151,8 @@ class Sphere:
 
 @dataclass
 class Triangle:
-    """Triangle element (not ported: adding one raises)."""
+    """Triangle element; ``timelines`` holds one timeline per vertex once
+    it is animated (moving meshes are not ported: building one raises)."""
 
     v0: Tuple[float, float, float]
     v1: Tuple[float, float, float]
@@ -183,14 +199,16 @@ class IdVendor:
 
 @dataclass
 class SceneData:
-    """Flat SoA sphere scene: tensors on one device + static metadata.
+    """Flat SoA scene: tensors on one device + static metadata.
 
     Field names and layouts are those of the JAX package's ``SceneData``;
-    the triangle, triangle-BVH, exact-time track and cluster-cull fields
-    are absent because the port does not render them yet (``num_tris`` and
-    ``motion_exact`` still say whether a bridged scene needs them).
-    ``sky_image`` is None under the default sky (where the JAX package keeps
-    a (1, 1, 3) placeholder).
+    the moving-mesh, exact-time track and cluster-cull fields are absent
+    because the port does not render them yet (``motion_exact`` still says
+    whether a bridged scene needs them). ``sky_image`` is None under the
+    default sky (where the JAX package keeps a (1, 1, 3) placeholder).
+    ``Scene.build`` always fills the triangle and triangle-BVH fields, with
+    the JAX package's one-row placeholders where there is no mesh; a
+    scene bridged without them has None there.
     """
 
     # Spheres (padded to SPHERE_PAD multiples; `sph_active` masks padding+hidden)
@@ -232,6 +250,22 @@ class SceneData:
     sph_perm: Optional[torch.Tensor] = None  # (N_pad,) int32 permutation
     sph_nodes: Optional[torch.Tensor] = None  # (K, 16) float32 node boxes
     sph_meta: Optional[torch.Tensor] = None  # (3 * (K + 16),) int32 metadata
+
+    # Triangles (leaf order when use_bvh; brute meshes padded to a multiple
+    # of 8, `tri_active` masking the padding)
+    tri_v0: Optional[torch.Tensor] = None  # (M, 3) float32
+    tri_v1: Optional[torch.Tensor] = None
+    tri_v2: Optional[torch.Tensor] = None
+    tri_mat: Optional[torch.Tensor] = None  # (M,) int32
+    tri_active: Optional[torch.Tensor] = None  # (M,) bool
+    # Flat BVH over the triangles (one-node placeholders when unused)
+    bvh_min: Optional[torch.Tensor] = None  # (K, 3) float32
+    bvh_max: Optional[torch.Tensor] = None
+    bvh_first: Optional[torch.Tensor] = None  # (K,) int32
+    bvh_count: Optional[torch.Tensor] = None
+    bvh_miss: Optional[torch.Tensor] = None
+    use_bvh: bool = False
+    bvh_leaf_size: int = 4
 
 
 def _pad_to(n: int, mult: int) -> int:
@@ -362,7 +396,7 @@ class Scene:
             frame_rate=frame_rate,
             shutter_angle=shutter_angle,
         )
-        self.elements: List[Sphere] = []
+        self.elements: List[Union[Sphere, Triangle]] = []
         self.sky_kind: int = sky_mod.DEFAULT
         self.sky_image: Optional[np.ndarray] = None
         self.id_vendor = IdVendor()
@@ -387,9 +421,8 @@ class Scene:
     def add_element(self, element: Union[Sphere, Triangle], alias: str) -> int:
         """Vend a unique id for ``alias`` and add the element. Raises on
         alias collision."""
-        if isinstance(element, Triangle):
-            raise _unported("triangle geometry")
-        oid = self.id_vendor.vend_id(alias, SPHERE_TYPE)
+        o_type = SPHERE_TYPE if isinstance(element, Sphere) else TRIANGLE_TYPE
+        oid = self.id_vendor.vend_id(alias, o_type)
         if oid is None:
             raise ValueError(f"alias {alias!r} already exists in scene")
         element.id = oid
@@ -397,8 +430,20 @@ class Scene:
         self._cache = None
         return oid
 
-    def load_asset(self, *args, **kwargs) -> int:
-        raise _unported("OBJ mesh assets")
+    def load_asset(self, filename: str, alias: str, scale: float, shift,
+                   material: MaterialSpec) -> int:
+        """Load an OBJ mesh (``io/obj.load_obj``: scaled, then shifted)
+        under one alias and one id, its triangles flattened into the
+        element list."""
+        oid = self.id_vendor.vend_id(alias, MESH_TYPE)
+        if oid is None:
+            raise ValueError(f"alias {alias!r} already exists in scene")
+        verts, faces = load_obj(filename, scale=scale, shift=tuple(shift))
+        for f in faces:
+            self.elements.append(Triangle(tuple(verts[f[0]]), tuple(verts[f[1]]),
+                                          tuple(verts[f[2]]), material, id=oid))
+        self._cache = None
+        return oid
 
     def load_spherical_skybox(self, filename: str) -> None:
         """Spherical equirect sky from an image asset (full float HDR; only
@@ -436,10 +481,17 @@ class Scene:
 
     def _element_timelines(self, oid: int):
         """The timelines of every element with id ``oid``, created on
-        demand (a sphere's starts at its center and radius)."""
+        demand: a sphere's starts at its center and radius, a triangle has
+        one per vertex."""
         out = []
         for el in self.elements:
             if el.id != oid:
+                continue
+            if isinstance(el, Triangle):
+                if el.timelines is None:
+                    el.timelines = tuple(TransformTimeline(init_pos=tuple(v), init_scale=1.0)
+                                         for v in (el.v0, el.v1, el.v2))
+                out.extend(el.timelines)
                 continue
             if el.timeline is None:
                 el.timeline = TransformTimeline(
@@ -522,17 +574,30 @@ class Scene:
     def cam_translate_point(self, p, keyframe, interp, space, which):
         self._cam_timeline(which).translate_point(p, keyframe, interp, space)
 
+    def _cam_point(self, which: str, attr: str):
+        """The camera's look-from ("from") or look-at ("at") point at the
+        current frame's shutter open: its timeline's where it has one."""
+        cam = self.scene_cam
+        tl = cam.from_timeline if which == "from" else cam.at_timeline
+        return tl.position_at(cam.shutter_window()[0]) if tl is not None else getattr(cam, attr)
+
     @property
     def is_animated(self) -> bool:
         """Whether any element has keyframes (the camera's do not count)."""
-        return any(e.timeline is not None and e.timeline.animated for e in self.elements)
+        return any(
+            any(t.animated for t in e.timelines) if isinstance(e, Triangle) and e.timelines
+            else isinstance(e, Sphere) and e.timeline is not None and e.timeline.animated
+            for e in self.elements
+        )
 
     # --- lowering -----------------------------------------------------------
     def build(self, t_open: float | None = None, t_close: float | None = None, *,
+              leaf_size: int | None = None, bvh_method: str = "sah",
               device="cuda") -> SceneData:
         """Lower the element list to a SceneData on ``device``, cached per
-        device and (for an animated scene) shutter window until the scene is
-        mutated. Without CUDA, name ``device="cpu"``.
+        device, shutter window (for an animated scene), leaf size and BVH
+        method until the scene is mutated. Without CUDA, name
+        ``device="cpu"``.
 
         An animated scene is lowered for the shutter window [t_open,
         t_close] (default: the camera's current frame): each sphere's
@@ -541,13 +606,22 @@ class Scene:
         ray. A timeline boundary strictly inside the window sets
         ``motion_exact`` (and ``motion_t0`` / ``motion_t1``): the linear
         lowering departs from the timeline there, and the exact-time tracks
-        that the renderers would need are not ported.
+        that the renderers would need are not ported. A triangle with
+        keyframes (a moving mesh) raises ``NotImplementedError``.
+
+        Visible triangles above ``BVH_MIN_TRIS`` get a BVH (``bvh_method``
+        "sah" or "median", ``leaf_size`` triangles a leaf: None means
+        ``BVH_LEAF_CPU`` on the CPU, ``BVH_LEAF_CUDA`` on a card) whose
+        children are ordered near-first along the camera's view at shutter
+        open; the triangles are stored in its leaf order.
         """
         device = torch.device(device)
+        if leaf_size is None:
+            leaf_size = BVH_LEAF_CUDA if device.type == "cuda" else BVH_LEAF_CPU
         animated = self.is_animated
         if animated and t_open is None:
             t_open, t_close = self.scene_cam.shutter_window()
-        key = (device, (t_open, t_close) if animated else None)
+        key = (device, (t_open, t_close) if animated else None, leaf_size, bvh_method)
         if self._cache is not None and self._cache_key == key:
             return self._cache
 
@@ -555,12 +629,20 @@ class Scene:
             b = tl.boundary_times()
             return bool(np.any((b > t_open + 1e-9) & (b < t_close - 1e-9)))
 
+        spheres = [e for e in self.elements if isinstance(e, Sphere)]
+        tris = [e for e in self.elements if isinstance(e, Triangle)]
+        if animated and any(t.timelines is not None and any(tl.animated for tl in t.timelines)
+                            for t in tris):
+            raise NotImplementedError(
+                "moving meshes (triangles with keyframes: per-vertex timelines and "
+                "the megakernel's moving-triangle stage, K7 moving) are not ported "
+                "to crucible_tpu_torch yet (ROADMAP A4)"
+            )
         motion_exact = animated and any(
-            s.timeline is not None and mid_shutter(s.timeline) for s in self.elements
+            s.timeline is not None and mid_shutter(s.timeline) for s in spheres
         )
 
         tables = _TableBuilder()
-        spheres = self.elements
         n = len(spheres)
         n_pad = _pad_to(n, SPHERE_PAD)
         sph_center = np.zeros((n_pad, 3), np.float32)
@@ -580,6 +662,43 @@ class Scene:
                 sph_radius[k] = sph_radius_b[k] = s.radius
             sph_mat[k] = tables.material(s.material)
             sph_active[k] = not s.hide
+
+        # Triangles: hidden ones are filtered before the BVH build.
+        vis_tris = [t for t in tris if not t.hide]
+        m = len(vis_tris)
+        use_bvh = m > BVH_MIN_TRIS
+        bvh = None
+        if m:
+            va = np.asarray([[t.v0, t.v1, t.v2] for t in vis_tris], np.float32)  # (m, 3, 3)
+            v0, v1, v2 = va[:, 0], va[:, 1], va[:, 2]
+            t_mat = np.asarray([tables.material(t.material) for t in vis_tris], np.int32)
+            if use_bvh:
+                bvh = build_bvh(va.min(axis=1), va.max(axis=1), leaf_size=leaf_size,
+                                method=bvh_method)
+                view = np.asarray(self._cam_point("at", "look_at_pt"), np.float64) - np.asarray(
+                    self._cam_point("from", "look_from_pt"), np.float64)
+                if np.linalg.norm(view) > 1e-12:
+                    bvh = reorder_front_to_back(bvh, view)
+                perm = bvh.perm
+                v0, v1, v2, t_mat = v0[perm], v1[perm], v2[perm], t_mat[perm]
+                t_active = np.ones((m,), bool)
+            else:
+                pad = _pad_to(m, 8) - m
+                v0, v1, v2 = (np.pad(a, ((0, pad), (0, 0))) for a in (v0, v1, v2))
+                t_mat = np.pad(t_mat, (0, pad))
+                t_active = np.zeros((m + pad,), bool)
+                t_active[:m] = True
+        else:
+            v0 = v1 = v2 = np.zeros((1, 3), np.float32)
+            t_mat = np.zeros((1,), np.int32)
+            t_active = np.zeros((1,), bool)
+        if bvh is None:  # the JAX package's one-node placeholder
+            bvh = FlatBVH(
+                node_min=np.zeros((1, 3), np.float32), node_max=np.zeros((1, 3), np.float32),
+                node_first=np.zeros((1,), np.int32), node_count=np.zeros((1,), np.int32),
+                node_miss=np.ones((1,), np.int32), node_parent=np.full((1,), -1, np.int32),
+                perm=np.zeros((0,), np.int32),
+            )
 
         def t(a, dtype):
             return torch.as_tensor(np.asarray(a, dtype), device=device)
@@ -602,6 +721,15 @@ class Scene:
             perm_s, snodes, smeta = mk.sphere_bvh_tables(sph_center, sph_radius, sph_active)
             sph_struct = dict(sph_perm=t(perm_s, np.int32), sph_nodes=t(snodes, np.float32),
                               sph_meta=t(smeta, np.int32))
+
+        mesh = dict(
+            tri_v0=t(v0, np.float32), tri_v1=t(v1, np.float32), tri_v2=t(v2, np.float32),
+            tri_mat=t(t_mat, np.int32), tri_active=t(t_active, bool),
+            bvh_min=t(bvh.node_min, np.float32), bvh_max=t(bvh.node_max, np.float32),
+            bvh_first=t(bvh.node_first, np.int32), bvh_count=t(bvh.node_count, np.int32),
+            bvh_miss=t(bvh.node_miss, np.int32),
+            num_tris=m, use_bvh=use_bvh, bvh_leaf_size=int(leaf_size),
+        )
 
         if not tables.mat_rows:  # empty scene still needs one material row
             tables.material(Lambertian.from_color((0.5, 0.5, 0.5)))
@@ -626,6 +754,7 @@ class Scene:
             motion_exact=motion_exact,
             **motion,
             **sph_struct,
+            **mesh,
         )
         self._cache = sd
         self._cache_key = key

@@ -98,8 +98,9 @@ def _sah_split(span, centers, bb_min, bb_max, leaf_size=0):
 
 
 def _snap_count(k, n, leaf_size):
-    """Round split count k to the nearest multiple of leaf_size in (0, n)."""
-    k = int(round(k / leaf_size)) * leaf_size
+    """Round split count k to the nearest multiple of leaf_size in (0, n),
+    halves up (as the JAX package's C++ builder, which its scenes use)."""
+    k = int(k / leaf_size + 0.5) * leaf_size
     return max(leaf_size, min(k, ((n - 1) // leaf_size) * leaf_size))
 
 
@@ -182,4 +183,62 @@ def build_bvh(
         node_miss=subtree_end.astype(np.int32),
         node_parent=parents,
         perm=np.asarray(perm, np.int32),
+    )
+
+
+def reorder_front_to_back(b: FlatBVH, order_dir) -> FlatBVH:
+    """Re-emit the flat BVH with each inner node's children ordered
+    near-first along ``order_dir`` (by the projection of the child box
+    centers). The skip-link walk then meets leaves roughly front to back
+    for rays along that direction (the camera's view axis), so the best t
+    tightens earlier and later subtrees are culled. It fixes the leaf
+    order, hence the leaf-order triangle ids that records carry."""
+    d = np.asarray(order_dir, np.float64)
+    k = b.num_nodes
+    proj = (0.5 * (b.node_min + b.node_max) @ d).astype(np.float64)
+    out_min, out_max, out_first, out_count, out_parent = [], [], [], [], []
+    perm_runs = []
+    perm_len = 0
+
+    # Explicit-stack pre-order re-emission (no recursion on deep trees).
+    stack: list[tuple[int, int]] = [(0, -1)]
+    while stack:
+        i, parent = stack.pop()
+        idx = len(out_min)
+        out_min.append(b.node_min[i])
+        out_max.append(b.node_max[i])
+        out_parent.append(parent)
+        c = int(b.node_count[i])
+        if c > 0:
+            out_first.append(perm_len)
+            out_count.append(c)
+            f = int(b.node_first[i])
+            perm_runs.append(b.perm[f : f + c])
+            perm_len += c
+            continue
+        out_first.append(0)
+        out_count.append(0)
+        left = i + 1
+        right = int(b.node_miss[left])
+        first, second = (left, right) if proj[left] <= proj[right] else (right, left)
+        stack.append((second, idx))
+        stack.append((first, idx))
+
+    counts = np.asarray(out_count, np.int32)
+    parents = np.asarray(out_parent, np.int32)
+    children: list[list[int]] = [[] for _ in range(k)]
+    for i in range(1, k):
+        children[parents[i]].append(i)
+    subtree_end = np.zeros(k, np.int32)
+    for i in range(k - 1, -1, -1):
+        subtree_end[i] = i + 1 if counts[i] > 0 else subtree_end[children[i][-1]]
+
+    return FlatBVH(
+        node_min=np.stack(out_min).astype(np.float32),
+        node_max=np.stack(out_max).astype(np.float32),
+        node_first=np.asarray(out_first, np.int32),
+        node_count=counts,
+        node_miss=subtree_end,
+        node_parent=parents,
+        perm=np.concatenate(perm_runs).astype(np.int32),
     )

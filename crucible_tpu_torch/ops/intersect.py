@@ -12,6 +12,11 @@ and hit flags are discrete and carry no gradient.
 spheres, in plain torch with the same winner-only backward: the semantic
 reference of the motion branches of K8 and K9, and the staged bounce's
 search for animated scenes (direct AD on a moving scene runs it).
+
+Triangles: :func:`hit_triangles`, the brute (R, M) Möller–Trumbore search
+of small meshes, differentiable through the winner's own t;
+:func:`triangle_normal`; and :func:`hit_aabbs`, the batched slab test. The
+BVH walk over big meshes is ``ops/traverse.py``.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from crucible_tpu_torch.ops.kernels import sphere_hit
 from crucible_tpu_torch.utils.vec import dot, safe_arccos, safe_arctan2
 
 BIG = sphere_hit.BIG
+MT_EPS = 1e-8  # Möller–Trumbore determinant guard (parallel ray and plane)
 
 
 class _ClosestHit(torch.autograd.Function):
@@ -187,3 +193,98 @@ def sphere_uv(n):
     theta = safe_arccos(-n[..., 1])
     phi = safe_arctan2(-n[..., 2], n[..., 0]) + math.pi
     return phi / (2.0 * math.pi), theta / math.pi
+
+
+def _cross(a, b):
+    """Component-wise a x b over the last axis, each term rounded on its
+    own (the same bits on every device)."""
+    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], dim=-1)
+
+
+def _dot(a, b):
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def mt_hit(o, d, a, b, c, t_min, t_max):
+    """Möller–Trumbore of rays (o, d) against triangles (a, b, c), all
+    broadcast over leading axes (last axis 3) -> (t, valid). A hit needs
+    |det| > MT_EPS, barycentrics u, v >= 0 with u + v <= 1, and t in
+    (t_min, t_max)."""
+    e1 = b - a
+    e2 = c - a
+    pvec = _cross(d, e2)
+    det = _dot(e1, pvec)
+    det_ok = torch.abs(det) > MT_EPS
+    inv_det = torch.where(det_ok, 1.0 / torch.where(det == 0, 1.0, det), 0.0)
+    tvec = o - a
+    u = _dot(tvec, pvec) * inv_det
+    qvec = _cross(tvec, e1)
+    v = _dot(d, qvec) * inv_det
+    t = _dot(e2, qvec) * inv_det
+    valid = det_ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > t_min) & (t < t_max)
+    return t, valid
+
+
+def hit_triangles(o, d, v0, v1, v2, active, t_min, t_max=math.inf, v0d=None, v1d=None,
+                  v2d=None, w=None):
+    """Closest triangle hit per ray, by Möller–Trumbore against every row.
+
+    Args:
+      o, d: (R, 3); v0, v1, v2: (M, 3); active: (M,) bool, False for
+        padding rows; t_min, t_max: the open interval of accepted t.
+      v0d, v1d, v2d, w: optional linear shutter motion: vertex + w * delta
+        with per-ray w (R,), which forms (R, M, 3) tensors, so keep M small
+        (the BVH walk, ``ops/traverse.py``, lerps per leaf instead).
+
+    Returns (t (R,), BIG on a miss; idx (R,) int32, the lowest row among
+    equal nearest t, 0 on a miss; hit (R,)). The (R, M) search runs outside
+    autograd; t is then the winner's own Möller–Trumbore t, on the tape, so
+    the gradient reaches o, d and the winners' vertices without saving an
+    (R, M) tensor (the JAX package differentiates the same value).
+    """
+    if v0.dim() != 2:
+        raise NotImplementedError(
+            "per-ray triangle vertices (exact-time motion) are not ported to "
+            "crucible_tpu_torch yet (ROADMAP A7)"
+        )
+    moving = v0d is not None
+
+    def at(v, vd, rows=None):  # the vertices, lerped to each ray's w
+        if rows is None:
+            return v[None] if not moving else v[None] + w[:, None, None] * vd[None]
+        v = torch.index_select(v, 0, rows)
+        return v if not moving else v + w[:, None] * torch.index_select(vd, 0, rows)
+
+    act = torch.as_tensor(active, device=v0.device).to(torch.bool)
+    with torch.no_grad():
+        t_all, valid = mt_hit(o.detach()[:, None, :], d.detach()[:, None, :],
+                              at(v0, v0d), at(v1, v1d), at(v2, v2d), t_min, t_max)
+        t_all = torch.where(valid & act[None, :], t_all, BIG)
+        t_best, idx = t_all.min(dim=1)
+    hit = t_best < BIG
+    t_win, _ = mt_hit(o, d, at(v0, v0d, idx), at(v1, v1d, idx), at(v2, v2d, idx),
+                      -math.inf, math.inf)
+    return torch.where(hit, t_win, BIG), idx.to(torch.int32), hit
+
+
+def triangle_normal(v0, v1, v2):
+    """Unit geometric normal (v1 - v0) x (v2 - v0), its length floored at
+    1e-20."""
+    n = _cross(v1 - v0, v2 - v0)
+    return n / torch.clamp_min(torch.sqrt(_dot(n, n)), 1e-20)[..., None]
+
+
+def hit_aabbs(o, d, box_min, box_max, t_min, t_max):
+    """Batched slab test of R rays against K boxes -> (R, K) bool: the
+    entry max(t_min, the slabs' nearest exits' max) strictly before the
+    exit min(t_max, ...). Zero direction components become +-1e-30, so an
+    axis-aligned ray starting on a slab plane gives no 0 * inf."""
+    d_safe = torch.where(torch.abs(d) < 1e-30, torch.where(d >= 0, 1e-30, -1e-30), d)
+    inv_d = 1.0 / d_safe
+    t0 = (box_min[None, :, :] - o[:, None, :]) * inv_d[:, None, :]
+    t1 = (box_max[None, :, :] - o[:, None, :]) * inv_d[:, None, :]
+    enter = torch.clamp_min(torch.minimum(t0, t1).amax(dim=-1), t_min)
+    exit_ = torch.clamp_max(torch.maximum(t0, t1).amin(dim=-1), t_max)
+    return enter < exit_

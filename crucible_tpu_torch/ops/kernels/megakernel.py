@@ -1,10 +1,12 @@
-"""Persistent path-tracing megakernel for sphere scenes: forward and record.
+"""Persistent path-tracing megakernel: forward and record.
 
 Port of ``crucible_tpu/ops/pallas/megakernel.py`` for its sphere branches
 — the brute search over every table row (K1, K2) and the per-lane
 sphere-BVH walk of big scenes (K5) in both modes, and their motion
 variants (K8: ``animated`` spheres on the linear shutter, brute search
-only, and the ``cam_animated`` keyframed camera), also in both modes:
+only, and the ``cam_animated`` keyframed camera), also in both modes —
+and for its triangle-BVH stage over a static mesh (K7, beside the brute
+static sphere search, in both modes):
 
 - :func:`run_megakernel` (forward): given the lanes' pixel ids and first
   samples, the camera vector and the (N, 32) sphere table, it traces every
@@ -19,20 +21,23 @@ With ``sph_nodes`` / ``sph_meta`` (:func:`sphere_bvh_tables`) the table is
 the BVH-permuted one and the closest hit walks the BVH instead of testing
 every row; the result is the brute search's, bit for bit (see
 :func:`walk_closest_reference`), and records carry the original row ids
-(column 31 of the permuted row).
+(column 31 of the permuted row). With ``tri_nodes``, ``tris``, ``mats`` and
+``tri_meta`` (``integrator.make_tri_tables``) each bounce then walks the
+mesh's BVH for a triangle strictly nearer than the sphere
+(:func:`tri_closest_reference`); records carry its leaf-order id and
+``F_TRI``.
 
 For CUDA tensors each wrapper launches the hand-written kernel of
 ``csrc/megakernel.cu`` (one thread per lane; see the note there) or raises;
 for CPU tensors it runs its eager twin (:func:`run_megakernel_reference`,
 :func:`run_megakernel_record_reference`): all lanes in lockstep with
 per-lane sample regeneration, as the TPU kernel runs them, the brute
-(lanes x N) quadratic in lane chunks or the lockstep walk, and shading from
-the ported materials / textures / skybox / sampling code. ``LAUNCHES``
-(brute) and ``LAUNCHES_WALK`` count the static forward kernels' launches,
-``LAUNCHES_MOTION`` (brute) and ``LAUNCHES_MOTION_WALK`` K8's forward ones,
-and ``RECORD_LAUNCHES`` the record kernel's, keyed by variant (not twin
-calls); ``WALK_COUNTS`` counts the plain walk's work and ``SEARCH_COUNTS``
-the plain loop's (both modes).
+(lanes x N) quadratic in lane chunks or the lockstep walks, and shading
+from the ported materials / textures / skybox / sampling code.
+``FORWARD_LAUNCHES`` and ``RECORD_LAUNCHES`` count the kernel's launches
+(not twin calls) by variant, and :func:`zero_counts` clears both;
+``WALK_COUNTS``, ``TRI_COUNTS`` and ``SEARCH_COUNTS`` count the plain
+versions' work (both modes).
 
 Layouts: ``smem`` (8,) int32 ``[spp, seed, width, max_depth, accum_from,
 0...]`` (spp and seed are uint32 bit patterns; accum_from is read in record
@@ -54,6 +59,7 @@ from crucible_tpu_torch.models import skybox as sky_mod
 from crucible_tpu_torch.models import textures as tex_mod
 from crucible_tpu_torch.ops import bvh as bvh_mod
 from crucible_tpu_torch.ops import sampling
+from crucible_tpu_torch.ops.traverse import lockstep_walk
 from crucible_tpu_torch.ops.kernels import build, sphere_hit, sphere_shade
 from crucible_tpu_torch.ops.kernels.sphere_hit import BIG, T_MIN  # noqa: F401
 from crucible_tpu_torch.utils import rng as crng
@@ -114,25 +120,41 @@ SLAB_EPS = float(np.float32(4e-3))
 # (3 int32) beside the five search columns.
 NODE_BYTES = 9 * 4
 
-# Launches of the CUDA kernels since the last reset (twin calls excluded):
-# K1 over every row and K5 walking the sphere BVH (forward).
-LAUNCHES = 0
-LAUNCHES_WALK = 0
-# K8: the forward kernel's motion variants, brute (animated and / or
-# cam_animated) and walk (cam_animated).
-LAUNCHES_MOTION = 0
-LAUNCHES_MOTION_WALK = 0
-# The record kernel's launches by variant: K2 ("brute"), K5 ("walk"), K8
-# brute with animated and / or cam_animated ("motion") and the walk with
-# cam_animated ("motion_walk").
-RECORD_LAUNCHES = {"brute": 0, "walk": 0, "motion": 0, "motion_walk": 0}
-# The plain walk's work since the last reset: slab tests of a node, rows
-# of a leaf tested, and rows whose discriminant was not negative.
+# K7 stages each triangle-BVH node's box (6 float32) and [first, count,
+# miss] (3 int32) in shared memory beside the sphere rows' columns, so a
+# tree fits up to (SHARED_MEM_BYTES - N * 20) / 36 nodes: 6452 beside
+# torus_teapot's 8 sphere rows. Its Woop rows (16 float32) and material rows
+# (24 float32) are read from global memory.
+TRI_COLS = 16
+MAT_COLS = 24
+
+
+def max_tri_nodes(n: int) -> int:
+    """The most triangle-BVH nodes K7 stages beside an n-row sphere table."""
+    return (SHARED_MEM_BYTES - n * SMEM_COLS * 4) // NODE_BYTES
+
+
+# Launches of the CUDA kernel since the last zero_counts() (twin calls
+# excluded), by variant: "brute" K1 / K2 (over every row), "walk" K5 (the
+# sphere BVH), "motion" K8 brute with animated and / or cam_animated,
+# "motion_walk" K8's walk with cam_animated, "tri" K7 (the triangle BVH).
+FORWARD_LAUNCHES = {"brute": 0, "walk": 0, "motion": 0, "motion_walk": 0, "tri": 0}
+RECORD_LAUNCHES = dict(FORWARD_LAUNCHES)
+# The plain walks' work since the last reset: K5's slab tests of a node,
+# rows of a leaf tested, and rows whose discriminant was not negative; K7's
+# slab tests and leaf rows tested.
 WALK_COUNTS = {"nodes": 0, "rows": 0, "roots": 0}
+TRI_COUNTS = {"nodes": 0, "rows": 0}
 # The plain loop's work since the last reset (forward and record mode):
 # closest-hit searches (one per lane and bounce traced) and primary rays
 # issued.
 SEARCH_COUNTS = {"searches": 0, "issued": 0}
+
+
+def zero_counts() -> None:
+    """Set every launch count (FORWARD_LAUNCHES, RECORD_LAUNCHES) to 0."""
+    for counts in (FORWARD_LAUNCHES, RECORD_LAUNCHES):
+        counts.update(dict.fromkeys(counts, 0))
 
 
 def as_i32(v: int) -> int:
@@ -229,28 +251,41 @@ def run_megakernel(
     ``animated`` moves the spheres on the linear shutter (table columns
     24-29) and ``cam_animated`` re-derives the camera per path at its
     shutter fraction (cam slots 19-37): K8, the kernel's motion variants.
-    CUDA tensors launch the CUDA kernel; CPU tensors run the eager
-    reference. The chunk-cull and triangle branches of the TPU kernel, and
-    an animated walk (which needs the chunk-cull branch), raise
-    ``NotImplementedError``.
+    A static mesh's ``tri_nodes`` (K, 6), ``tris`` (M, 16), ``mats``
+    (NM, 24) and ``tri_meta`` (K, 3) (``integrator.make_tri_tables``) add
+    the triangle stage (K7) after the brute static search. CUDA tensors
+    launch the CUDA kernel; CPU tensors run the eager reference. The
+    chunk-cull branch, an animated walk (which needs it) and the triangle
+    stage beside a walk or motion raise ``NotImplementedError``.
     """
-    _check_unported(cbounds, (tri_nodes, tris, mats, tri_meta))
+    _check_unported(cbounds)
     _check_inputs(smem, pix, sample0, cam, table)
     walk = _walk(sph_nodes, sph_meta, table)
-    if walk is not None and animated:
-        raise _unported("chunk-cull (K6: moving spheres in a big scene)")
+    tri = _tri(tri_nodes, tris, mats, tri_meta, table)
     motion = dict(animated=bool(animated), cam_animated=bool(cam_animated))
+    _check_combination(walk, tri, **motion)
     if table.device.type == "cpu":
-        return run_megakernel_reference(smem, pix, sample0, cam, table, sph_nodes, sph_meta,
-                                        **motion)
-    return _launch(smem, pix, sample0, cam, table, walk, **motion)
+        return _reference_loop(smem, pix, sample0, cam, table, rec_depth=0, radiance=True,
+                               walk=walk, tri=tri, **motion)[0]
+    return _launch(smem, pix, sample0, cam, table, walk, tri, **motion)
 
 
-def _check_unported(cbounds, tri_inputs):
+def _check_unported(cbounds):
     if cbounds is not None:
         raise _unported("chunk-cull")
-    if any(x is not None for x in tri_inputs):
-        raise _unported("triangle-BVH")
+
+
+def _check_combination(walk, tri, animated, cam_animated):
+    """Raise for the variants the kernel does not instantiate."""
+    if walk is not None and animated:
+        raise _unported("chunk-cull (K6: moving spheres in a big scene)")
+    if tri is not None and (walk is not None or animated or cam_animated):
+        raise NotImplementedError(
+            "the megakernel's triangle stage (K7) runs beside the brute static "
+            "sphere search only: a mesh with the sphere-BVH walk, moving spheres "
+            "or an animated camera is a template combination not instantiated "
+            "yet (ROADMAP A4)"
+        )
 
 
 def _walk(sph_nodes, sph_meta, table):
@@ -261,13 +296,44 @@ def _walk(sph_nodes, sph_meta, table):
     nodes, meta = walk_inputs(sph_nodes, sph_meta)
     if nodes.device != table.device:
         raise ValueError(f"sph_nodes is on {nodes.device}, not {table.device}")
+    _check_links(meta, table.shape[0], "sph_meta", "table")
+    return nodes, meta
+
+
+def _check_links(meta, rows: int, name: str, what: str) -> None:
+    """Raise where [first, count, miss] address rows outside ``what`` or a
+    skip link does not point past its node."""
     first, count, miss = meta[:, 0], meta[:, 1], meta[:, 2]
     ahead = torch.arange(1, meta.shape[0] + 1, device=meta.device)
-    if not bool(((first >= 0) & (count >= 0) & (first + count <= table.shape[0])).all()):
-        raise ValueError("sph_meta addresses rows outside the table")
+    if not bool(((first >= 0) & (count >= 0) & (first + count <= rows)).all()):
+        raise ValueError(f"{name} addresses rows outside the {what}")
     if not bool((miss >= ahead).all()):  # the walk only moves forward
-        raise ValueError("sph_meta has a skip link that does not point past its node")
-    return nodes, meta
+        raise ValueError(f"{name} has a skip link that does not point past its node")
+
+
+def _tri(tri_nodes, tris, mats, tri_meta, table):
+    """The triangle stage's tables, checked, or None without a mesh ->
+    (tri_nodes (K, 6), tri_meta (K, 3) int32, tris (M, 16), mats (NM, 24))."""
+    given = (tri_nodes, tris, mats, tri_meta)
+    if all(x is None for x in given):
+        return None
+    if any(x is None for x in given):
+        raise ValueError("the triangle stage needs tri_nodes, tris, mats and tri_meta")
+    k = tri_nodes.shape[0] if tri_nodes.dim() == 2 else -1
+    build.check_tensors(table.device, (
+        ("tri_nodes", tri_nodes, torch.float32, (k, 6)),
+        ("tri_meta", tri_meta, torch.int32, (k, 3)),
+        ("tris", tris, torch.float32, None),
+        ("mats", mats, torch.float32, None),
+    ))
+    if tris.dim() != 2 or tris.shape[1] != TRI_COLS or mats.dim() != 2 or mats.shape[1] != MAT_COLS:
+        raise ValueError(f"tris must be (M, {TRI_COLS}) and mats (NM, {MAT_COLS}), got "
+                         f"{tuple(tris.shape)} and {tuple(mats.shape)}")
+    _check_links(tri_meta, tris.shape[0], "tri_meta", "tris")
+    mid = tris[:, 15]
+    if not bool(((mid >= 0) & (mid < mats.shape[0]) & (mid == mid.floor())).all()):
+        raise ValueError("tris holds a material id outside mats")
+    return tri_nodes, tri_meta, tris, mats
 
 
 def _check_inputs(smem, pix, sample0, cam, table):
@@ -287,8 +353,18 @@ def _check_inputs(smem, pix, sample0, cam, table):
         raise ValueError(f"table must be (N, {C_IN}), got {tuple(table.shape)}")
 
 
-def _check_rows(n: int, walk, animated: bool = False) -> None:
-    """Raise where the kernel's shared memory cannot hold what it stages."""
+def check_rows(n: int, walk=None, animated: bool = False, tri=None) -> None:
+    """Raise where the kernel's shared memory cannot hold what it stages:
+    ``n`` sphere rows' columns, with ``walk`` the sphere-BVH nodes and with
+    ``tri`` the triangle-BVH nodes (at most :func:`max_tri_nodes`)."""
+    if tri is not None:
+        k, cap = tri[0].shape[0], max_tri_nodes(n)
+        if k > cap:
+            raise ValueError(
+                f"the triangle BVH has {k} nodes, more than the {cap} that fit in "
+                f"a block's {SHARED_MEM_BYTES} bytes of shared memory beside {n} "
+                f"sphere rows; build the scene with a larger leaf_size"
+            )
     if walk is None:
         cap = MAX_ROWS_ANIMATED if animated else MAX_ROWS
         if n > cap:
@@ -308,40 +384,40 @@ def _check_rows(n: int, walk, animated: bool = False) -> None:
         )
 
 
-def _walk_args(walk):
-    """(nodes pointer, meta pointer, node count) for the C entry points."""
-    if walk is None:
-        return None, None, 0
-    return walk[0].data_ptr(), walk[1].data_ptr(), walk[0].shape[0]
+def _tree_args(walk, tri):
+    """The C entry points' (nodes, meta, tnodes, tmeta, tris, mats)
+    pointers and (k, kt) node counts; None and 0 where absent."""
+    k, kt = (0 if x is None else x[0].shape[0] for x in (walk, tri))
+    ptrs = [None if x is None else t.data_ptr()
+            for x, n in ((walk, 2), (tri, 4)) for t in (x or (None,) * n)]
+    return ptrs, k, kt
 
 
-def _launch(smem, pix, sample0, cam, table, walk, animated, cam_animated):
-    global LAUNCHES, LAUNCHES_WALK, LAUNCHES_MOTION, LAUNCHES_MOTION_WALK
+def _variant(walk, tri, animated, cam_animated) -> str:
+    """The launch-count key of a launch."""
+    if tri is not None:
+        return "tri"
+    motion = "motion" if animated or cam_animated else ""
+    return "_".join(x for x in (motion, "walk" if walk is not None else "") if x) or "brute"
+
+
+def _launch(smem, pix, sample0, cam, table, walk, tri, animated, cam_animated):
     n = table.shape[0]
-    _check_rows(n, walk, animated)
+    check_rows(n, walk, animated, tri)
     lib = build.load("megakernel")
     r = pix.shape[1]
     out = torch.empty((3, r), dtype=torch.float32, device=table.device)
-    nodes, meta, k = _walk_args(walk)
+    ptrs, k, kt = _tree_args(walk, tri)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.crucible_megakernel_forward(
             smem.data_ptr(), pix.data_ptr(), sample0.data_ptr(),
-            cam.data_ptr(), table.data_ptr(), nodes, meta, n, k, r,
+            cam.data_ptr(), table.data_ptr(), *ptrs, n, k, kt, r,
             ctypes.c_float(T_MIN), int(animated), int(cam_animated),
             out.data_ptr(), stream,
         )
     build.check(lib, err, "megakernel")
-    motion = animated or cam_animated
-    if walk is None:
-        if motion:
-            LAUNCHES_MOTION += 1
-        else:
-            LAUNCHES += 1
-    elif motion:
-        LAUNCHES_MOTION_WALK += 1
-    else:
-        LAUNCHES_WALK += 1
+    FORWARD_LAUNCHES[_variant(walk, tri, animated, cam_animated)] += 1
     return out
 
 
@@ -376,69 +452,70 @@ def run_megakernel_record(
     winners' original ids; else it tests every row (K2). ``animated`` and
     ``cam_animated`` are K8's, as in :func:`run_megakernel`: each path's
     words are those of the moving spheres and the camera at its shutter
-    fraction. CUDA tensors launch the kernel; CPU tensors run the twin.
-    The triangle and chunk-cull inputs, and an animated walk, raise
-    ``NotImplementedError``.
+    fraction. The triangle tables add K7's stage, as in
+    :func:`run_megakernel`; a triangle winner's word holds its leaf-order
+    id and ``F_TRI``. CUDA tensors launch the kernel; CPU tensors run the
+    twin. The chunk-cull inputs, an animated walk and the triangle stage
+    beside a walk or motion raise ``NotImplementedError``.
     """
-    _check_unported(cbounds, (tri_nodes, tris, mats, tri_meta))
+    _check_unported(cbounds)
     _check_inputs(smem, pix, sample0, cam, table)
     if max_depth < 1:
         raise ValueError(f"max_depth must be positive, got {max_depth}")
     motion = dict(animated=bool(animated), cam_animated=bool(cam_animated))
+    tables = dict(sph_nodes=sph_nodes, sph_meta=sph_meta, tri_nodes=tri_nodes, tris=tris,
+                  mats=mats, tri_meta=tri_meta)
     if table.device.type == "cpu":
         return run_megakernel_record_reference(
-            smem, pix, sample0, cam, table, sph_nodes, sph_meta,
-            max_depth=max_depth, radiance=radiance, **motion,
+            smem, pix, sample0, cam, table, **tables, max_depth=max_depth,
+            radiance=radiance, **motion,
         )
     walk = _walk(sph_nodes, sph_meta, table)
-    if walk is not None and animated:
-        raise _unported("chunk-cull (K6: moving spheres in a big scene)")
+    tri = _tri(tri_nodes, tris, mats, tri_meta, table)
+    _check_combination(walk, tri, **motion)
     smem = smem.clone()
     smem[3] = int(max_depth)
-    return _launch_record(smem, pix, sample0, cam, table, max_depth, radiance, walk,
+    return _launch_record(smem, pix, sample0, cam, table, max_depth, radiance, walk, tri,
                           **motion)
 
 
-def _launch_record(smem, pix, sample0, cam, table, max_depth, radiance, walk,
+def _launch_record(smem, pix, sample0, cam, table, max_depth, radiance, walk, tri,
                    animated, cam_animated):
     n = table.shape[0]
-    _check_rows(n, walk, animated)
+    check_rows(n, walk, animated, tri)
     lib = build.load("megakernel")
     r = pix.shape[1]
     acc = torch.empty((3, r), dtype=torch.float32, device=table.device)
     rec = torch.empty((max_depth, r), dtype=torch.int32, device=table.device)
-    nodes, meta, k = _walk_args(walk)
+    ptrs, k, kt = _tree_args(walk, tri)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.crucible_megakernel_record(
             smem.data_ptr(), pix.data_ptr(), sample0.data_ptr(),
-            cam.data_ptr(), table.data_ptr(), nodes, meta, n, k, r,
+            cam.data_ptr(), table.data_ptr(), *ptrs, n, k, kt, r,
             ctypes.c_float(T_MIN), int(bool(radiance)), int(animated),
             int(cam_animated), acc.data_ptr(), rec.data_ptr(), stream,
         )
     build.check(lib, err, "record megakernel")
-    variant = "motion" if animated or cam_animated else "brute"
-    if walk is not None:
-        variant = "walk" if variant == "brute" else "motion_walk"
-    RECORD_LAUNCHES[variant] += 1
+    RECORD_LAUNCHES[_variant(walk, tri, animated, cam_animated)] += 1
     return acc, rec
 
 
 def run_megakernel_record_reference(
-    smem, pix, sample0, cam, table, sph_nodes=None, sph_meta=None, *,
-    max_depth: int, radiance: bool = False, animated: bool = False,
-    cam_animated: bool = False,
+    smem, pix, sample0, cam, table, sph_nodes=None, sph_meta=None, tri_nodes=None,
+    tris=None, mats=None, tri_meta=None, *, max_depth: int, radiance: bool = False,
+    animated: bool = False, cam_animated: bool = False,
 ):
     """Eager-torch version of the record kernel: same inputs and outputs
     as :func:`run_megakernel_record`."""
     walk = _walk(sph_nodes, sph_meta, table)
-    if walk is not None and animated:
-        raise _unported("chunk-cull (K6: moving spheres in a big scene)")
+    tri = _tri(tri_nodes, tris, mats, tri_meta, table)
+    _check_combination(walk, tri, animated, cam_animated)
     smem = smem.clone()
     smem[3] = int(max_depth)
     return _reference_loop(
         smem, pix, sample0, cam, table, rec_depth=int(max_depth), radiance=radiance,
-        walk=walk, animated=animated, cam_animated=cam_animated,
+        walk=walk, tri=tri, animated=animated, cam_animated=cam_animated,
     )
 
 
@@ -448,6 +525,7 @@ def run_megakernel_record_reference(
 
 
 def run_megakernel_reference(smem, pix, sample0, cam, table, sph_nodes=None, sph_meta=None,
+                             tri_nodes=None, tris=None, mats=None, tri_meta=None,
                              *, animated: bool = False, cam_animated: bool = False):
     """Eager-torch version of the kernel: same inputs, same (3, R) output.
 
@@ -457,10 +535,10 @@ def run_megakernel_reference(smem, pix, sample0, cam, table, sph_nodes=None, sph
     order of operations, so each lane's sum is the kernel's.
     """
     walk = _walk(sph_nodes, sph_meta, table)
-    if walk is not None and animated:
-        raise _unported("chunk-cull (K6: moving spheres in a big scene)")
+    tri = _tri(tri_nodes, tris, mats, tri_meta, table)
+    _check_combination(walk, tri, animated, cam_animated)
     acc, _ = _reference_loop(smem, pix, sample0, cam, table, rec_depth=0, radiance=True,
-                             walk=walk, animated=animated, cam_animated=cam_animated)
+                             walk=walk, tri=tri, animated=animated, cam_animated=cam_animated)
     return acc
 
 
@@ -564,6 +642,42 @@ def walk_closest_reference(o, d, table, nodes, meta, t_min: float = T_MIN):
     return best, torch.where(hit, win, 0), hit
 
 
+def tri_closest_reference(o, d, t_init, tri_nodes, tri_meta, tris, t_min: float = T_MIN):
+    """Plain version of K7's walk: each ray walks the triangle BVH's skip
+    links on its own, all rays in lockstep (``ops/traverse.lockstep_walk``)
+    -> (t (R,), idx (R,) int64: the winner's row of ``tris``, leaf order).
+
+    The slab test is the kernel's, without a margin; a leaf's rows get the
+    Woop unit-triangle test in the kernel's association: with the row's
+    affine map (columns 0-11), d'_z = a2 . d, t = -(a2 . o + b_z) / d'_z
+    (d'_z guarded at |d'_z| > 1e-12), u = (a0 . o + b_x) + t (a0 . d) and v
+    likewise from a1; a hit needs u, v >= 0, u + v <= 1 and t in (t_min,
+    the bound so far). A triangle replaces the bound ``t_init`` (the
+    sphere stage's t) only where strictly nearer; ``idx`` is 0 where none
+    did. Adds the work done to ``TRI_COUNTS``.
+    """
+    def leaf_test(lanes, rows):
+        w = tris[rows]  # (L, W, 16)
+        a = w[..., 0:9].reshape(*rows.shape, 3, 3)  # rows a0, a1, a2 of the map
+
+        def affine(v):  # (a_i . v) for i = 0, 1, 2, summed left to right
+            p = a * v[lanes][:, None, None, :]
+            return (p[..., 0] + p[..., 1]) + p[..., 2]
+
+        dp = affine(d)
+        op = affine(o) + w[..., 9:12]
+        dpz = dp[..., 2]
+        dz_ok = torch.abs(dpz) > 1e-12
+        invdz = torch.where(dz_ok, 1.0 / torch.where(dpz == 0.0, 1.0, dpz), 0.0)
+        th = -op[..., 2] * invdz
+        uv = op[..., 0:2] + th[..., None] * dp[..., 0:2]
+        uu, vv = uv[..., 0], uv[..., 1]
+        return th, dz_ok & (uv >= 0.0).all(dim=-1) & (uu + vv <= 1.0) & (th > t_min)
+
+    return lockstep_walk(o, d, t_init, tri_nodes[:, 0:3], tri_nodes[:, 3:6], tri_meta[:, 0],
+                         tri_meta[:, 1], tri_meta[:, 2], t_min, leaf_test, TRI_COUNTS)
+
+
 def camera_at(c, w):
     """K8's camera at the paths' shutter fractions w (L,), from the camera
     vector ``c`` (48,), in the kernel's order of operations -> (pixel00,
@@ -593,7 +707,7 @@ def camera_at(c, w):
 
 
 def _reference_loop(smem, pix, sample0, cam, table, *, rec_depth: int, radiance: bool,
-                    walk=None, animated: bool = False, cam_animated: bool = False):
+                    walk=None, tri=None, animated: bool = False, cam_animated: bool = False):
     """The lockstep loop of both eager versions -> (acc (3, R), rec).
 
     ``rec_depth`` 0 is forward mode (``rec`` is None). Otherwise record
@@ -602,9 +716,13 @@ def _reference_loop(smem, pix, sample0, cam, table, *, rec_depth: int, radiance:
     ``radiance`` then says whether to accumulate it, from bounce smem[4] on.
     ``walk`` (``walk_inputs``' nodes and meta) takes the closest hit from
     the sphere-BVH walk over the permuted table, the records' winner ids
-    from its column 31. ``animated`` and ``cam_animated`` (both modes)
-    are K8's: the moving-sphere search and winner lerp (which the record's
-    root choice reads too), and the camera at each path's shutter fraction
+    from its column 31. ``tri`` (``_tri``'s tables) adds K7's stage: a
+    triangle strictly nearer than the sphere (:func:`tri_closest_reference`)
+    takes the hit, with its table normal and its material's row of ``mats``
+    in the table's columns 6-23, and records its leaf-order id with
+    ``F_TRI``. ``animated`` and ``cam_animated`` (both modes) are K8's: the
+    moving-sphere search and winner lerp (which the record's root choice
+    reads too), and the camera at each path's shutter fraction
     (:func:`camera_at`).
     """
     spp, seed, width, max_depth = (int(v) for v in smem[:4].tolist())
@@ -682,6 +800,16 @@ def _reference_loop(smem, pix, sample0, cam, table, *, rec_depth: int, radiance:
         row = torch.zeros((live.numel(), C_IN), dtype=torch.float32, device=dev)
         on = torch.nonzero(hit).squeeze(1)
         row[on] = table[idx[on]]
+        if tri is not None:  # K7: a triangle strictly nearer than the sphere
+            t_nodes, t_meta, tris, mats = tri
+            tb, tid = tri_closest_reference(o_l, d_l, torch.where(hit, t, BIG), t_nodes,
+                                            t_meta, tris)
+            is_tri = tb < torch.where(hit, t, BIG)
+            t = torch.where(is_tri, tb, t)
+            hit = hit | is_tri
+            twin = tris[tid]
+            row[:, 6:24] = torch.where(is_tri[:, None], mats[twin[:, 15].long(), 0:18],
+                                       row[:, 6:24])
 
         t_sh = torch.where(hit, t, 1.0)
         hp = o_l + t_sh[:, None] * d_l
@@ -691,6 +819,8 @@ def _reference_loop(smem, pix, sample0, cam, table, *, rec_depth: int, radiance:
             w_r = w_r + w * row[:, 27]
         inv_r = 1.0 / torch.clamp_min(w_r, 1e-20)
         nrm = (hp - w_c) * inv_r[:, None]
+        if tri is not None:
+            nrm = torch.where(is_tri[:, None], twin[:, 12:15], nrm)
         front = d_l[:, 0] * nrm[:, 0] + d_l[:, 1] * nrm[:, 1] + d_l[:, 2] * nrm[:, 2] < 0.0
         nrm = nrm * torch.where(front, 1.0, -1.0)[:, None]
 
@@ -727,6 +857,8 @@ def _reference_loop(smem, pix, sample0, cam, table, *, rec_depth: int, radiance:
             r_c = oc[:, 0] * oc[:, 0] + oc[:, 1] * oc[:, 1] + oc[:, 2] * oc[:, 2] - w_r * w_r
             r_disc = torch.clamp_min(r_h * r_h - a_q * r_c, 0.0)
             root1 = ~((r_h - torch.sqrt(r_disc)) * (1.0 / a_q) > T_MIN)
+            if tri is not None:  # a triangle has no second root
+                root1 = root1 & ~is_tri
             flags = (
                 F_ALIVE | F_HIT
                 | torch.where(scattered, F_SCAT, 0) | torch.where(front, F_FRONT, 0)
@@ -734,8 +866,12 @@ def _reference_loop(smem, pix, sample0, cam, table, *, rec_depth: int, radiance:
                 | torch.where(root1, F_ROOT1, 0)
             )
             # A miss keeps the alive bit alone (megakernel.py l.1498). The
-            # walk's winner is a permuted row: record its original id.
+            # walk's winner is a permuted row: record its original id; a
+            # triangle its leaf-order id.
             win_id = idx if walk is None else row[:, 31].long()
+            if tri is not None:
+                flags = flags | torch.where(is_tri, F_TRI, 0)
+                win_id = torch.where(is_tri, tid, win_id)
             rec[it, live] = torch.where(hit, win_id * REC_ID_SCALE + flags, F_ALIVE).to(torch.int32)
         cont3 = cont[:, None]
         if radiance:

@@ -98,13 +98,13 @@ def test_cpu_tensors_take_the_reference(monkeypatch):
 
     monkeypatch.setattr(tmk, "_launch", no_launch)
     arrays, _, _ = _inputs("smoke_scene", 32, 2, 3)
-    before = tmk.LAUNCHES
+    before = tmk.FORWARD_LAUNCHES["brute"]
     got = _port(arrays)
     ref = tmk.run_megakernel_reference(
         **{k: torch.from_numpy(arrays[k]) for k in INPUTS}
     ).numpy()
     np.testing.assert_array_equal(got, ref)
-    assert tmk.LAUNCHES == before
+    assert tmk.FORWARD_LAUNCHES["brute"] == before
 
 
 def test_reference_lanes_are_independent():
@@ -146,8 +146,9 @@ def test_refuses_unported_branches(kwargs):
         with pytest.raises(NotImplementedError, match="chunk-cull"):
             tmk.run_megakernel(**walk, **motion)
         return
-    # The sphere-BVH walk is ported (K5): half of its tables is an error.
-    error = ValueError if "sph_nodes" in kwargs else NotImplementedError
+    # The sphere-BVH walk (K5) and the triangle stage (K7) are ported: part
+    # of their tables is an error.
+    error = ValueError if "sph_nodes" in kwargs or "tri_nodes" in kwargs else NotImplementedError
     with pytest.raises(error):
         tmk.run_megakernel(**t, animated=False, **kwargs)
 
@@ -245,10 +246,10 @@ def test_kernel_matches_reference_on_card(cuda, name, width, spp, depth):
     sd, cp = sc.build(device=cuda), sc.scene_cam.params(device=cuda)
     w, h = sc.scene_cam.image_width, sc.scene_cam.image_height
     inputs, lane_of = tint.mega_inputs(sd, cp, w, h, spp, depth, 0)
-    before = tmk.LAUNCHES
+    before = tmk.FORWARD_LAUNCHES["brute"]
     out = tmk.run_megakernel(**inputs, animated=False)
     torch.cuda.synchronize()
-    assert tmk.LAUNCHES == before + 1
+    assert tmk.FORWARD_LAUNCHES["brute"] == before + 1
     ref = tmk.run_megakernel_reference(**inputs)
     if name == "smoke_scene":
         assert (out - ref).abs().max().item() <= 1e-4

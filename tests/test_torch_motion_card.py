@@ -42,10 +42,11 @@ def _inputs(sc, cuda, spp, depth):
 def test_k8_brute_matches_plain_on_card(cuda, animated, cam_animated):
     _, _, inputs = _inputs(bouncing_book1(tdemo, 96), cuda, 2, 50)
     flags = dict(animated=animated, cam_animated=cam_animated)
-    before = (tmk.LAUNCHES, tmk.LAUNCHES_MOTION)
+    before = (tmk.FORWARD_LAUNCHES["brute"], tmk.FORWARD_LAUNCHES["motion"])
     out = tmk.run_megakernel(**inputs, **flags)
     torch.cuda.synchronize()
-    assert (tmk.LAUNCHES, tmk.LAUNCHES_MOTION) == (before[0], before[1] + 1)
+    assert (tmk.FORWARD_LAUNCHES["brute"], tmk.FORWARD_LAUNCHES["motion"]) == (
+        before[0], before[1] + 1)
     assert torch.isfinite(out).all()
     assert torch.equal(out, tmk.run_megakernel_reference(**inputs, **flags))
 
@@ -58,10 +59,10 @@ def test_k8_walk_with_a_moving_camera_matches_plain_and_brute(cuda):
     assert cp.animated and not sd.animated and sd.sph_perm is not None
     walk = dict(inputs, table=tint.permute_table(inputs["table"], sd.sph_perm),
                 sph_nodes=sd.sph_nodes, sph_meta=sd.sph_meta)
-    before = tmk.LAUNCHES_MOTION_WALK
+    before = tmk.FORWARD_LAUNCHES["motion_walk"]
     out = tmk.run_megakernel(**walk, animated=False, cam_animated=True)
     torch.cuda.synchronize()
-    assert tmk.LAUNCHES_MOTION_WALK == before + 1
+    assert tmk.FORWARD_LAUNCHES["motion_walk"] == before + 1
     assert torch.equal(out, tmk.run_megakernel_reference(**walk, cam_animated=True))
     assert torch.equal(out, tmk.run_megakernel(**inputs, animated=False, cam_animated=True))
 
@@ -92,12 +93,13 @@ def test_render_movie_on_card(cuda, tmp_path):
     sc.duration = 2 / 24
     sc.scene_cam.set_samples(2)
     sc.scene_cam.set_max_depth(8)
-    before = (tmk.LAUNCHES, tmk.LAUNCHES_MOTION)
+    before = (tmk.FORWARD_LAUNCHES["brute"], tmk.FORWARD_LAUNCHES["motion"])
     frames = []
     out = trender.render_movie(sc, str(tmp_path / "bounce"), verbose=False,
                                on_frame=lambda fi, dt: frames.append(fi))
     assert frames == [0, 1]
-    assert (tmk.LAUNCHES, tmk.LAUNCHES_MOTION) == (before[0], before[1] + 2)
+    assert (tmk.FORWARD_LAUNCHES["brute"], tmk.FORWARD_LAUNCHES["motion"]) == (
+        before[0], before[1] + 2)
     assert sorted(p.name for p in (tmp_path / "bounce" / "artifacts").iterdir()) == [
         "image000.ppm", "image001.ppm"]
     assert out.exists()

@@ -81,8 +81,33 @@ def _render(sc):
 
 
 def _triangle(sc):
+    """Static triangles render (K7, tests/test_torch_mesh.py); a triangle
+    with keyframes is a moving mesh, not ported."""
     sc.add_element(tscene.Triangle((0, 0, 0), (1, 0, 0), (0, 1, 0),
                                    tscene.Metal((0.5, 0.5, 0.5))), "tri")
+    _render(sc)
+    sc.translate_y(0.5, 1.0, "lerp", "local", "tri")
+    _render(sc)
+
+
+def _obj_asset(sc):
+    """An OBJ asset loads (here from a temporary asset directory); moving
+    its mesh is not ported."""
+    import tempfile
+
+    from crucible_tpu_torch.io import assets
+
+    old = assets.ASSETS_DIR
+    with tempfile.TemporaryDirectory() as tmp:
+        (Path(tmp) / "tri.obj").write_text("v 0 0 0\nv 1 0 0\nv 0 1 0\nf 1 2 3\n")
+        assets.ASSETS_DIR = Path(tmp)
+        try:
+            sc.load_asset("tri.obj", "mesh", 0.5, (0, 0, 0), tscene.Metal((0.5, 0.5, 0.5)))
+        finally:
+            assets.ASSETS_DIR = old
+    assert sc.build(device="cpu").num_tris == 1
+    sc.translate_x(1.0, 1.0, "lerp", "world", "mesh")
+    _render(sc)
 
 
 def _image_texture(sc):
@@ -128,11 +153,13 @@ def _too_many_spheres(sc):
 
 
 def _bridged_triangles(sc):
+    """A mesh without a BVH (at most 64 triangles) takes the pixel schedule;
+    the megakernel's triangle stage (K7) walks BVH meshes only."""
     arrays, static = bridge.scene_data_to_arrays(sc.build(device="cpu"))
     sd = bridge.scene_data_from_arrays(arrays, device="cpu", **dict(static, num_tris=6))
     cp = sc.scene_cam.params(device="cpu")
     assert not integrator.megakernel_supported(sd, cp)
-    trender.render_image_data(sd, cp, 32, 18, 1, 2, 0, device="cpu")
+    trender.render_image_persistent(sd, cp, 32, 18, 1, 2, 0, device="cpu", schedule="mega")
 
 
 @pytest.mark.parametrize(
@@ -142,10 +169,9 @@ def _bridged_triangles(sc):
         _image_texture,
         _timeline,
         _animator,
-        lambda sc: sc.load_asset("teapot.obj", "teapot", 0.5, (0, 0, 0),
-                                 tscene.Metal((0.5, 0.5, 0.5))),
+        _obj_asset,
         lambda sc: sc.load_spherical_skybox("garden.jpg"),
-        lambda sc: tdemo.MOVIE_WORLDS[2](),  # moving_teapot needs OBJ assets
+        lambda sc: tdemo.MOVIE_WORLDS[2](),  # moving_teapot needs moving meshes
         _too_many_spheres,
         _bridged_triangles,
         lambda sc: trender.render_image_persistent(

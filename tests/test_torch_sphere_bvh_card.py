@@ -43,11 +43,12 @@ def test_walk_forward_equals_plain_walk_and_brute(cuda, copies):
     inputs, _ = tint.mega_inputs(sd, cp, w, h, 4, 16, 0)
     permuted = dict(inputs, table=tint.permute_table(inputs["table"], sd.sph_perm))
     bvh = dict(sph_nodes=sd.sph_nodes, sph_meta=sd.sph_meta)
-    before = (tmk.LAUNCHES, tmk.LAUNCHES_WALK)
+    before = (tmk.FORWARD_LAUNCHES["brute"], tmk.FORWARD_LAUNCHES["walk"])
     walk = tmk.run_megakernel(**permuted, **bvh, animated=False)
     brute = tmk.run_megakernel(**inputs, animated=False)
     torch.cuda.synchronize()
-    assert (tmk.LAUNCHES, tmk.LAUNCHES_WALK) == (before[0] + 1, before[1] + 1)
+    assert (tmk.FORWARD_LAUNCHES["brute"], tmk.FORWARD_LAUNCHES["walk"]) == (
+        before[0] + 1, before[1] + 1)
     assert torch.isfinite(walk).all()
     assert torch.equal(walk, brute)
     assert torch.equal(walk, tmk.run_megakernel_reference(**permuted, **bvh))

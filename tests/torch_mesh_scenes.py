@@ -1,0 +1,129 @@
+"""Triangle-mesh scenes for the mesh tests, built through the public API of
+either package (pass its ``models.scene`` module; both take the same
+calls): imports neither.
+
+- ``fan``: the 80-triangle fan over a ground sphere of
+  ``tests/test_integrator.py:320-361`` (a BVH mesh);
+- ``floor_ball``: the 72-triangle grid floor under a metal ball of
+  ``tests/test_oracle.py:207-234`` (a BVH mesh), with the oracle's objects;
+- ``box``: a 12-triangle cube over a ground sphere (a brute mesh);
+- ``torus_teapot``: the teapot scene of ``demo.load_teapot`` (camera,
+  metal, checker ground) with a procedural torus of the teapot's 6,320
+  triangles in place of ``teapot.obj``. ``chip_smoke.py`` builds the same
+  scene.
+"""
+
+from __future__ import annotations
+
+import math
+
+
+def fan(scene, width: int = 48):
+    sc = scene.Scene.new_image(1.0, width)
+    cam = sc.scene_cam
+    cam.look_from((0.0, 1.5, 4.0))
+    cam.look_at((0.0, 0.3, 0.0))
+    cam.set_vfov(45.0)
+    sc.add_element(
+        scene.Sphere((0.0, -100.0, 0.0), 100.0, scene.Lambertian.from_color((0.6, 0.6, 0.2))),
+        "ground",
+    )
+    for i in range(80):
+        a0 = 2 * math.pi * i / 80
+        a1 = 2 * math.pi * (i + 1) / 80
+        z0 = 0.3 + 0.1 * math.sin(5 * a0)
+        sc.add_element(
+            scene.Triangle(
+                (0.8 * math.cos(a0), z0, 0.8 * math.sin(a0)),
+                (1.2 * math.cos(a1), 0.35, 1.2 * math.sin(a1)),
+                (0.0, 0.5, 0.0),
+                scene.Metal((0.8, 0.7, 0.6), 0.2),
+            ),
+            f"tri{i}",
+        )
+    return sc
+
+
+FLOOR_CAM = dict(look_from=(0.0, 3.0, 6.0), look_at=(0.0, 0.0, 0.0), vfov_deg=35.0)
+
+
+def floor_ball(scene, width: int = 12):
+    """-> (scene, the floor's triangles [(v0, v1, v2)], the ball (center,
+    radius)), the floor Lambertian (0.6, 0.5, 0.2), the ball Metal((0.8,
+    0.8, 0.9), 0)."""
+    sc = scene.Scene.new_image(1.5, width)
+    cam = sc.scene_cam
+    cam.look_from(FLOOR_CAM["look_from"])
+    cam.look_at(FLOOR_CAM["look_at"])
+    cam.set_vfov(FLOOR_CAM["vfov_deg"])
+    cam.set_focus_dist(10.0)
+    floor_mat = scene.Lambertian.from_color((0.6, 0.5, 0.2))
+    tris = []
+    for gx in range(6):
+        for gz in range(6):
+            x0, z0 = -3.0 + gx, -3.0 + gz
+            for tri in (((x0, 0.0, z0), (x0 + 1, 0.0, z0), (x0 + 1, 0.0, z0 + 1)),
+                        ((x0, 0.0, z0), (x0 + 1, 0.0, z0 + 1), (x0, 0.0, z0 + 1))):
+                sc.add_element(scene.Triangle(*tri, floor_mat), f"t{len(tris)}")
+                tris.append(tri)
+    sc.add_element(scene.Sphere((0.0, 1.0, 0.0), 1.0, scene.Metal((0.8, 0.8, 0.9), 0.0)),
+                   "ball")
+    return sc, tris, ((0.0, 1.0, 0.0), 1.0)
+
+
+def box(scene, width: int = 32):
+    """A unit cube of 12 triangles (a brute mesh) on a ground sphere."""
+    sc = scene.Scene.new_image(16.0 / 9.0, width)
+    cam = sc.scene_cam
+    cam.look_from((2.5, 2.0, 3.5))
+    cam.look_at((0.0, 0.4, 0.0))
+    cam.set_vfov(40.0)
+    sc.add_element(
+        scene.Sphere((0.0, -100.0, 0.0), 100.0, scene.Lambertian.from_color((0.5, 0.6, 0.5))),
+        "ground",
+    )
+    p = [(x, y, z) for x in (-0.5, 0.5) for y in (0.0, 1.0) for z in (-0.5, 0.5)]
+    faces = ((0, 1, 3), (0, 3, 2), (4, 6, 7), (4, 7, 5), (0, 4, 5), (0, 5, 1),
+             (2, 3, 7), (2, 7, 6), (0, 2, 6), (0, 6, 4), (1, 5, 7), (1, 7, 3))
+    mat = scene.Lambertian.from_color((0.7, 0.3, 0.2))
+    for k, (a, b, c) in enumerate(faces):
+        sc.add_element(scene.Triangle(p[a], p[b], p[c], mat), f"box{k}")
+    return sc
+
+
+# The torus: axis vertical, centred at (0, 0.61, 0), major radius 1.5,
+# minor radius 0.6, 79 x 40 quads of two triangles: 6,320 triangles.
+TORUS_U, TORUS_V = 79, 40
+
+
+def torus_teapot(scene, width: int = 400):
+    sc = scene.Scene.new_image(16.0 / 9.0, width, 24, 180.0)
+    cam = sc.scene_cam
+    cam.set_samples(200)
+    cam.set_max_depth(50)
+    cam.look_from((13.0, 10.0, 3.0))
+    cam.look_at((0.0, 0.0, 0.0))
+    cam.set_vfov(20.0)
+    cam.set_defocus_angle(0.6)
+    cam.set_focus_dist(10.0)
+
+    def point(i, j):
+        th, ph = 2 * math.pi * i / TORUS_U, 2 * math.pi * j / TORUS_V
+        rr = 1.5 + 0.6 * math.cos(ph)
+        return (rr * math.cos(th), 0.61 + 0.6 * math.sin(ph), rr * math.sin(th))
+
+    metal = scene.Metal((0.8, 0.3, 0.5), 0.05)
+    k = 0
+    for i in range(TORUS_U):
+        for j in range(TORUS_V):
+            a, b = point(i, j), point(i + 1, j)
+            c, d = point(i + 1, j + 1), point(i, j + 1)
+            for tri in ((a, b, c), (a, c, d)):
+                sc.add_element(scene.Triangle(*tri, metal), f"tri{k}")
+                k += 1
+    checker = scene.CheckerTexture.from_colors(0.32, (0.2, 0.3, 0.1), (0.9, 0.9, 0.9))
+    sc.add_element(
+        scene.Sphere((0.0, -1000.0, 0.0), 1000.0, scene.Lambertian.from_texture(checker)),
+        "ground",
+    )
+    return sc
