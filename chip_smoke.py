@@ -77,6 +77,21 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
      tests that give K7's bound. Then the plain walk against the brute
      Möller–Trumbore over all rows on 2^16 random rays (winners differ on
      < 0.1%), and K7's time at leaf sizes 4, 8, 16, 32 and 64.
+   - K7 moving, the triangle stage over a moving mesh (with K8's moving
+     sphere search), on "moving torus_teapot" (torus_teapot as
+     demo.moving_teapot's movie, every triangle translated and scaled as
+     its teapot is, at frame 30): forward on the moving fan 64 wide and on
+     moving torus_teapot 320 wide, 8 spp, depth 50, in full, and on 64
+     pixel blocks of its 1920x1080 32 spp d50 launch; record (fused and
+     plain) at 320 wide, 4 spp, depth 8, in full and on 32768 lanes of its
+     1920x1080 launch; with K8's rising camera (forward 160 wide, record
+     320 wide); and K7 (Woop rows) with the camera on the static
+     torus_teapot (forward 160 wide, record 320 wide). Each bit for bit against the plain version. K7
+     and K7 moving timed in turns on one geometry (torus_teapot, and the
+     same with a zero keyframe on every triangle) at 320 wide and on the
+     1920x1080 32 spp d50 launch. Then the plain walk against the brute
+     Möller–Trumbore with motion over all rows on 2^16 random rays with
+     random shutter fractions (winners differ on < 0.1%).
    - The moving-scene gradient step on the card against the same call on
      the CPU, 64 wide, 2 spp, depth 8, on bouncing book1 (its radiometric
      leaves, fault C4) and on smoke with its ball and camera moving (every
@@ -84,7 +99,8 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
      loss within rel 1e-4 and gradients within normalized 1e-3; each on its
      own records, loss within rel 2e-3 and gradients within 5e-3. The fan's
      step likewise (both sides built at leaf 32), from the CPU's rays and
-     records: loss within rel 1e-4, radiometric leaves within 1e-3.
+     records: loss within rel 1e-4, radiometric leaves within 1e-3; and
+     the moving fan's so.
 4. The forward render: ``render.render_image`` of book1 at 1920x1080, 32
    spp, depth 50; checks the image, counts K1's launches, writes
    ``build/chip_smoke_book1.png``.
@@ -138,7 +154,21 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
    1920x1080, 4 spp, depth 8 (K7 record, then the eager replay's triangle
    branch; K3 and K4 never launch): a warm and 2 timed steps, the step by
    phase, peak memory, ``record_decisions`` and a frozen-decision step.
-14. Prints a JSON line describing each kernel (times at the comparison
+14. The moving mesh (K7 moving), moving torus_teapot at frame 30:
+   ``render.render_image`` at 1920x1080, 32 spp, depth 50, twice (one K7
+   moving launch each and no other; writes
+   ``build/chip_smoke_moving_torus.png``), beside the scene build's time.
+15. Its movie: ``render.render_movie`` at 400x225, 50 spp, depth 5, cut
+   from 120 frames to 6, twice (six K7 moving launches each), beside the
+   scene build's time for each frame (the lowering of its 18,960 vertex
+   timelines and the SAH tree, redone every frame).
+16. Its gradient, ``grad.loss_and_grad`` at 1920x1080, 4 spp, depth 8 (K7
+   moving record, then the eager replay's moving-triangle branch; K3 and K4
+   never launch): a warm and 2 timed steps, the step by phase, peak
+   memory, ``record_decisions`` and a frozen-decision step.
+17. It under a rising camera (K7 moving with K8's camera): ``render_image``
+   at 1920x1080, 32 spp, depth 50, twice.
+18. Prints a JSON line describing each kernel (times at the comparison
    shape, where kernel and twin run the same inputs in full; K5's also at
    its main shape), the card's line again, and, as the last line,
    ``{"ok": true, "device": {...}}``.
@@ -191,6 +221,11 @@ CAM_OPS = 81
 # plain walk tested (TRI_COUNTS), beside the sphere search's SEARCH_OPS.
 TRI_SLAB_OPS = 12
 WOOP_OPS = 40
+# K7 moving's leaf row (csrc/megakernel.cu tri_closest<true>): the edge
+# lerps 12, p = d x e2 9, det 5, its reciprocal 1, t = o - (v0 + w v0d) 9,
+# u 6, q = t x e1 9, v 6, t 6, u + v 1: 64; beside the moving sphere
+# search's MOTION_SEARCH_OPS a row and, with the camera, CAM_OPS a sample.
+MT_MOVING_OPS = 64
 N_SUB = 32768  # lanes of a 1920x1080 launch held against the twin
 
 
@@ -235,16 +270,20 @@ def fan(scene, width: int):
     return sc
 
 
-def torus_teapot(scene, width: int):
+def torus_teapot(scene, width: int, movie: bool = False):
     """demo.load_teapot's scene (camera, the metal, the checker ground) with
     a procedural torus of the teapot's 6,320 triangles in place of
     teapot.obj, which the repository lacks: axis vertical, centred at (0,
     0.61, 0), major radius 1.5, minor radius 0.6, 79 x 40 quads of two
-    triangles. tests/torch_mesh_scenes.py builds the same scene."""
-    sc = scene.Scene.new_image(16.0 / 9.0, width, 24, 180.0)
+    triangles; ``movie``: a 5 s movie at demo.moving_teapot's 50 spp, depth
+    5. tests/torch_mesh_scenes.py builds the same scene."""
+    if movie:
+        sc = scene.Scene.new_movie(16.0 / 9.0, width, 24.0, 180.0, 5.0)
+    else:
+        sc = scene.Scene.new_image(16.0 / 9.0, width, 24, 180.0)
     cam = sc.scene_cam
-    cam.set_samples(200)
-    cam.set_max_depth(50)
+    cam.set_samples(50 if movie else 200)
+    cam.set_max_depth(5 if movie else 50)
     cam.look_from((13.0, 10.0, 3.0))
     cam.look_at((0.0, 0.0, 0.0))
     cam.set_vfov(20.0)
@@ -269,6 +308,38 @@ def torus_teapot(scene, width: int):
         scene.Sphere((0.0, -1000.0, 0.0), 1000.0, scene.Lambertian.from_texture(checker)),
         "ground",
     )
+    return sc
+
+
+def moving_fan(scene, width: int):
+    """The fan with each triangle translated by 0.5 along x over the first
+    second, at frame 6 (the JAX package's tests/test_replay.py:210-220
+    animation). tests/torch_mesh_scenes.py builds the same scene."""
+    sc = fan(scene, width)
+    for i in range(80):
+        sc.translate_x(0.5, 1.0, "lerp", "world", f"tri{i}")
+    sc.scene_cam.frame = 6
+    return sc
+
+
+def moving_torus_teapot(scene, width: int):
+    """torus_teapot as demo.moving_teapot's movie (5 s at 24 fps, shutter
+    180 degrees, 50 spp, depth 5) with its animation on every triangle:
+    translated by (0, 5, 0) over 2.5 s, scaled to 0.5 by 3 s; at frame 30
+    (shutter [1.25, 1.2708] s: both keyframes in motion, none inside).
+    tests/torch_mesh_scenes.py builds the same scene."""
+    sc = torus_teapot(scene, width, movie=True)
+    for k in range(6320):
+        sc.translate_point((0.0, 5.0, 0.0), 2.5, "lerp", "local", f"tri{k}")
+        sc.scale_all_uniform(0.5, 3.0, "lerp", f"tri{k}")
+    sc.scene_cam.frame = 30
+    return sc
+
+
+def rising_camera(sc):
+    """Keyframe the camera's position up by 2 over the first 2.5 s (linear
+    in frame 30's shutter); returns ``sc``."""
+    sc.cam_translate_y(2.0, 2.5, "lerp", "local", "from")
     return sc
 
 
@@ -1182,12 +1253,13 @@ def main() -> None:
 
     # --- K7: the triangle-BVH stage vs its plain version -----------------------
     def mesh_inputs(sc, spp, depth, record=False, leaf_size=None):
-        """(scene data, the kernel's inputs with the mesh's tables) for every
-        pixel of ``sc``; record mode lays the lanes out sample-major."""
+        """(scene data, the kernel's inputs with the mesh's tables, the
+        scene's motion flags) for every pixel of ``sc``; record mode lays
+        the lanes out sample-major."""
         sd = sc.build(leaf_size=leaf_size, device=dev)
         cp = sc.scene_cam.params(device=dev)
         w, h = sc.scene_cam.image_width, sc.scene_cam.image_height
-        inputs, _ = integrator.mega_inputs(sd, cp, w, h, spp, depth, 0)
+        inputs, _ = integrator.mega_inputs(sd, cp, w, h, spp, depth, sc.seed)
         inputs.update(zip(("tri_nodes", "tris", "mats", "tri_meta"),
                           integrator.make_tri_tables(sd)))
         if record:
@@ -1195,7 +1267,7 @@ def main() -> None:
             inputs["pix"] = torch.arange(p, device=dev, dtype=torch.int32).repeat(spp)[None]
             inputs["sample0"] = torch.arange(
                 spp, device=dev, dtype=torch.int32).repeat_interleave(p)[None]
-        return sd, inputs
+        return sd, inputs, dict(animated=bool(sd.animated), cam_animated=bool(cp.animated))
 
     def plain_tri(fn):
         """(result, ms, the plain loop's counted work) of one plain K7 call."""
@@ -1204,9 +1276,14 @@ def main() -> None:
         out, ms = host_ms(fn)
         return out, ms, dict(mk.SEARCH_COUNTS, **mk.TRI_COUNTS)
 
-    def tri_ops(counts, n_rows):
-        return (counts["searches"] * n_rows * SEARCH_OPS + counts["nodes"] * TRI_SLAB_OPS
-                + counts["rows"] * WOOP_OPS)
+    def tri_ops(counts, n_rows, flags):
+        """K7's work under K8's flags: the (moving) search's rows, a Woop or
+        a moving row's leaf test, the camera per issued sample."""
+        row_ops = MOTION_SEARCH_OPS if flags["animated"] else SEARCH_OPS
+        leaf_ops = MT_MOVING_OPS if flags["animated"] else WOOP_OPS
+        return (counts["searches"] * n_rows * row_ops + counts["nodes"] * TRI_SLAB_OPS
+                + counts["rows"] * leaf_ops
+                + (counts["issued"] * CAM_OPS if flags["cam_animated"] else 0))
 
     def tri_bytes(inputs, *extra):
         """Bytes read and written once: the tables, each lane's ids and sums."""
@@ -1214,53 +1291,62 @@ def main() -> None:
         return nbytes(*tables, *extra) + 5 * 4 * inputs["pix"].shape[1]
 
     def k7_forward(sc, spp, depth, what, lanes=None, reps=2):
-        """K7's forward launch against the plain version, on ``lanes`` of it
-        if given, bit for bit; the counted work scaled to the whole launch."""
-        sd, full = mesh_inputs(sc, spp, depth)
-        out = mk.run_megakernel(**full, animated=False)
-        ms = cuda_ms(lambda: mk.run_megakernel(**full, animated=False), reps)
+        """K7's forward launch (Woop or moving rows, with or without K8's
+        camera, as the scene gives them) against the plain version, on
+        ``lanes`` of it if given, bit for bit; the counted work scaled to the
+        whole launch."""
+        sd, full, flags = mesh_inputs(sc, spp, depth)
+        out = mk.run_megakernel(**full, **flags)
+        ms = cuda_ms(lambda: mk.run_megakernel(**full, **flags), reps)
         inputs = full
         if lanes is not None:
             inputs, out = lane_subset(full, lanes), out[:, lanes]
             what += f" on {lanes.numel()} lanes"
-        ref, plain_ms, counts = plain_tri(lambda: mk.run_megakernel_reference(**inputs))
+        ref, plain_ms, counts = plain_tri(
+            lambda: mk.run_megakernel_reference(**inputs, **flags))
         err = bit_equal(out, ref, f"{what} vs plain")
         n_rows = int((full["table"][:, 5] > 0).sum())
         scale = (int((full["sample0"] < mk.NO_SAMPLE).sum())
                  / int((inputs["sample0"] < mk.NO_SAMPLE).sum()))
-        b, by = bound(tri_ops(counts, n_rows) * scale, tri_bytes(full))
-        print(f"{what}: K7 {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {b:.4f} ms ({by}); "
-              f"{sd.num_tris} triangles, {sd.bvh_min.shape[0]} nodes (leaf "
+        b, by = bound(tri_ops(counts, n_rows, flags) * scale, tri_bytes(full))
+        print(f"{what} {flags}: {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {b:.4f} ms "
+              f"({by}); {sd.num_tris} triangles, {sd.bvh_min.shape[0]} nodes (leaf "
               f"{sd.bvh_leaf_size}); work {counts}, x{scale:.2f}")
         return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b, bound_by=by)
 
     def k7_record(sc, spp, depth, what, sub=None):
-        """K7's record launches (fused and plain) against the plain version,
-        on ``sub`` of the lanes if given, bit for bit."""
-        _, full = mesh_inputs(sc, spp, depth, record=True)
-        acc, rec = mk.run_megakernel_record(**full, max_depth=depth, radiance=True)
-        zero, plain = mk.run_megakernel_record(**full, max_depth=depth)
+        """K7's record launches (fused and plain, with the scene's motion
+        flags) against the plain version, on ``sub`` of the lanes if given,
+        bit for bit."""
+        _, full, flags = mesh_inputs(sc, spp, depth, record=True)
+        acc, rec = mk.run_megakernel_record(**full, max_depth=depth, radiance=True, **flags)
+        zero, plain = mk.run_megakernel_record(**full, max_depth=depth, **flags)
         bit_equal(rec, plain, f"{what}: fused vs plain records")
         if bool(zero.any()):
             raise AssertionError(f"{what}: the plain record launch summed radiance")
-        ms = cuda_ms(lambda: mk.run_megakernel_record(**full, max_depth=depth, radiance=True), 3)
-        ms_unfused = cuda_ms(lambda: mk.run_megakernel_record(**full, max_depth=depth), 3)
+        ms = cuda_ms(lambda: mk.run_megakernel_record(
+            **full, max_depth=depth, radiance=True, **flags), 3)
+        ms_unfused = cuda_ms(lambda: mk.run_megakernel_record(
+            **full, max_depth=depth, **flags), 3)
         full_rec, inputs = rec, full
         if sub is not None:
             inputs, acc, rec = lane_subset(full, sub), acc[:, sub], rec[:, sub]
             what += f" on {sub.numel()} lanes"
         (ref_acc, ref_rec), plain_ms, counts = plain_tri(
             lambda: mk.run_megakernel_record_reference(**inputs, max_depth=depth,
-                                                       radiance=True))
+                                                       radiance=True, **flags))
         bit_equal(rec, ref_rec, f"{what}: records vs plain")
         err = bit_equal(acc, ref_acc, f"{what}: fused radiance vs plain")
         tri_words = int(((full_rec & mk.F_TRI) > 0).sum())
+        if not tri_words:
+            raise AssertionError(f"{what}: no triangle won")
         n_rows = int((full["table"][:, 5] > 0).sum())
         scale = full_rec.shape[1] / rec.shape[1]
-        b, by = bound(tri_ops(counts, n_rows) * scale, tri_bytes(full, full_rec))
-        print(f"{what}: K7 record fused {ms:.3f} ms, plain {ms_unfused:.3f} ms; plain version "
-              f"{plain_ms:.1f} ms; bound {b:.4f} ms ({by}); {tri_words} triangle words of "
-              f"{int(((full_rec & mk.F_HIT) > 0).sum())} hits; work {counts}, x{scale:.2f}")
+        b, by = bound(tri_ops(counts, n_rows, flags) * scale, tri_bytes(full, full_rec))
+        print(f"{what} {flags}: record fused {ms:.3f} ms, plain {ms_unfused:.3f} ms; plain "
+              f"version {plain_ms:.1f} ms; bound {b:.4f} ms ({by}); {tri_words} triangle "
+              f"words of {int(((full_rec & mk.F_HIT) > 0).sum())} hits; work {counts}, "
+              f"x{scale:.2f}")
         return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b, bound_by=by,
                     ms_unfused=ms_unfused)
 
@@ -1329,10 +1415,10 @@ def main() -> None:
     sweep, sweep_main = {}, {}
     sweep_sc, sweep_main_sc = torus_teapot(tscene, 320), torus_teapot(tscene, 1920)
     for leaf in (4, 8, 16, 32, 64):
-        sd, inputs = mesh_inputs(sweep_sc, 8, 50, leaf_size=leaf)
+        sd, inputs, _ = mesh_inputs(sweep_sc, 8, 50, leaf_size=leaf)
         mk.run_megakernel(**inputs, animated=False)
         sweep[leaf] = cuda_ms(lambda: mk.run_megakernel(**inputs, animated=False), 3)
-        _, inputs = mesh_inputs(sweep_main_sc, 32, 50, leaf_size=leaf)
+        _, inputs, _ = mesh_inputs(sweep_main_sc, 32, 50, leaf_size=leaf)
         sweep_main[leaf] = cuda_ms(lambda: mk.run_megakernel(**inputs, animated=False), 1)
         print(f"  K7 leaf-size sweep, torus_teapot, leaf {leaf}: {sd.bvh_min.shape[0]} nodes; "
               f"320w 8spp d50 {sweep[leaf]:.3f} ms; 1920x1080 32spp d50 "
@@ -1344,6 +1430,138 @@ def main() -> None:
         leaf_sweep_ms={str(k): v for k, v in sweep.items()},
         leaf_sweep_main_ms={str(k): v for k, v in sweep_main.items()})
     del inputs, sweep_sc, sweep_main_sc, t_sd
+
+    # --- K7 moving (and K7 with K8's camera) vs the plain version -------------
+    t0 = time.perf_counter()
+    mt_sc = moving_torus_teapot(tscene, 320)  # the animation of 6,320 aliases
+    print(f"moving torus_teapot: the scene's 12,640 keyframes added in "
+          f"{time.perf_counter() - t0:.2f} s")
+    k7_forward(moving_fan(tscene, 64), 8, 50, "K7 moving fan 64w 8spp d50")
+    k7m_fwd = k7_forward(mt_sc, 8, 50, "K7 moving torus_teapot 320w 8spp d50")
+    mt_sc.scene_cam.image_width = 1920
+    k7m_main = k7_forward(mt_sc, 32, 50, "K7 moving torus_teapot 1920x1080 32spp d50",
+                          lanes=lanes, reps=1)
+    mt_sc.scene_cam.image_width = 320
+    k7m_rec = k7_record(mt_sc, 4, 8, "K7 moving torus_teapot 320w 4spp d8")
+    mt_sc.scene_cam.image_width = 1920
+    k7m_rec_main = k7_record(mt_sc, 4, 8, "K7 moving torus_teapot 1920x1080 4spp d8",
+                             sub=sub.to(dev))
+    # One frame of main path 13's movie, in full at its own shape.
+    mt_sc.scene_cam.image_width, mt_sc.scene_cam.frame = 400, 5
+    k7m_movie = k7_forward(mt_sc, mt_sc.scene_cam.samples, mt_sc.scene_cam.max_depth,
+                           "K7 moving torus_teapot movie frame 5 400x225 50spp d5")
+    mt_sc.scene_cam.frame = 30
+    # With K8's camera: moving torus_teapot, and K7 (Woop rows) on the
+    # static torus_teapot, each seen by a rising camera at frame 30. The
+    # forward comparisons run at 160w: their plain walks took 19-33 s at
+    # 320w, and the script stays under half its time limit. Main path 15's
+    # launch (1920x1080 32 spp d50) is held on the same 64 pixel blocks as
+    # main path 12's.
+    cam_sc = rising_camera(moving_torus_teapot(tscene, 160))
+    k7m_cam = k7_forward(cam_sc, 8, 50, "K7 moving + camera torus_teapot 160w 8spp d50")
+    cam_sc.scene_cam.image_width = 1920
+    k7m_cam_main = k7_forward(cam_sc, 32, 50,
+                              "K7 moving + camera torus_teapot 1920x1080 32spp d50",
+                              lanes=lanes, reps=1)
+    cam_sc.scene_cam.image_width = 320
+    k7m_cam_rec = k7_record(cam_sc, 4, 8, "K7 moving + camera torus_teapot 320w 4spp d8")
+    st_cam = rising_camera(torus_teapot(tscene, 160))
+    st_cam.scene_cam.frame = 30
+    k7_cam = k7_forward(st_cam, 8, 50, "K7 + camera torus_teapot 160w 8spp d50")
+    st_cam.scene_cam.image_width = 320
+    k7_cam_rec = k7_record(st_cam, 4, 8, "K7 + camera torus_teapot 320w 4spp d8")
+    kernels["megakernel_tri"].update(ms_cam=k7_cam["ms"], plain_ms_cam=k7_cam["plain_ms"],
+                                     bound_ms_cam=k7_cam["bound_ms"], shape_cam="160w 8spp d50")
+    kernels["megakernel_tri_record"].update(
+        ms_cam=k7_cam_rec["ms"], plain_ms_cam=k7_cam_rec["plain_ms"],
+        bound_ms_cam=k7_cam_rec["bound_ms"], shape_cam="320w 4spp d8")
+    kernels["megakernel_tri_moving"] = dict(
+        source="crucible_tpu_torch/csrc/megakernel.cu",
+        replaces="crucible_tpu/ops/pallas/megakernel.py:1681",
+        **k7m_fwd, main_ms=k7m_main["ms"], main_bound_ms=k7m_main["bound_ms"],
+        ms_cam=k7m_cam["ms"], plain_ms_cam=k7m_cam["plain_ms"],
+        bound_ms_cam=k7m_cam["bound_ms"], shape_cam="160w 8spp d50",
+        main_ms_cam=k7m_cam_main["ms"], main_plain_ms_cam=k7m_cam_main["plain_ms"],
+        main_bound_ms_cam=k7m_cam_main["bound_ms"], movie_ms=k7m_movie["ms"],
+        movie_plain_ms=k7m_movie["plain_ms"], movie_bound_ms=k7m_movie["bound_ms"],
+        shape_movie="400x225 50spp d5",
+    )
+    kernels["megakernel_tri_moving_record"] = dict(
+        source="crucible_tpu_torch/csrc/megakernel.cu",
+        replaces="crucible_tpu/ops/pallas/megakernel.py:1828",
+        **k7m_rec, main_ms=k7m_rec_main["ms"], main_bound_ms=k7m_rec_main["bound_ms"],
+        main_ms_unfused=k7m_rec_main["ms_unfused"], ms_cam=k7m_cam_rec["ms"],
+        plain_ms_cam=k7m_cam_rec["plain_ms"], bound_ms_cam=k7m_cam_rec["bound_ms"],
+        shape_cam="320w 4spp d8",
+    )
+    del cam_sc, st_cam
+
+    # K7 moving against K7 on one geometry: torus_teapot given a zero
+    # keyframe on every triangle (all deltas zero, the same tree) takes K7
+    # moving's (M, 32) rows and the moving search; the static scene takes
+    # K7's Woop rows. Timed in turns (K7, K7 moving, K7 moving, K7) at 320w
+    # 8 spp d50 and on the full 1920x1080 32 spp d50 launch.
+    zero_sc, still_sc = torus_teapot(tscene, 320), torus_teapot(tscene, 320)
+    for k in range(6320):
+        zero_sc.translate_point((0.0, 0.0, 0.0), 5.0, "lerp", "local", f"tri{k}")
+    same_geometry = {}
+    for width, spp, reps in ((320, 8, 3), (1920, 32, 1)):
+        runs = {}
+        for sc in (zero_sc, still_sc):
+            sc.scene_cam.image_width = width
+            _, inputs, flags = mesh_inputs(sc, spp, 50)
+            runs[flags["animated"]] = (inputs, flags)
+            mk.run_megakernel(**inputs, **flags)
+        times = {False: [], True: []}
+        for moving in (False, True, True, False):
+            inputs, flags = runs[moving]
+            times[moving].append(cuda_ms(lambda: mk.run_megakernel(**inputs, **flags), reps))
+        same_geometry[f"{width}w"] = dict(k7_ms=times[False], k7_moving_ms=times[True])
+        print(f"K7 vs K7 moving on torus_teapot's still geometry, {width}w {spp}spp d50: "
+              f"K7 {times[False]} ms, K7 moving (zero deltas) {times[True]} ms")
+    kernels["megakernel_tri_moving"]["same_geometry_ms"] = same_geometry
+    del zero_sc, still_sc, runs, inputs
+
+    # K7 moving's walk against the brute Möller–Trumbore with motion over all
+    # 6,320 rows, on 2^16 random rays with random shutter fractions toward
+    # moving torus_teapot at frame 30. The walk lerps the edges and the
+    # brute test the vertices, so grazing rays may pick another winner.
+    m_sd = mt_sc.build(device=dev)
+    nodes, tris, _, meta = integrator.make_tri_tables(m_sd)
+    verts = torch.cat([m_sd.tri_v0, m_sd.tri_v1, m_sd.tri_v2])
+    lo, hi = verts.amin(0), verts.amax(0)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    o = (0.5 * (lo + hi) + (hi - lo) * (3 * torch.rand((n_rays, 3), device=dev, generator=gen)
+                                        - 1.5)).contiguous()
+    d = (0.5 * (lo + hi) + (hi - lo) * (torch.rand((n_rays, 3), device=dev, generator=gen)
+                                        - 0.5) - o).contiguous()
+    wr = torch.rand((n_rays,), device=dev, generator=gen)
+    wt, wi = mk.tri_closest_reference(o, d, torch.full((n_rays,), mk.BIG, device=dev), nodes,
+                                      meta, tris, w=wr)
+    bt, bi, bh = [], [], []
+    motion = (m_sd.tri_v0_d, m_sd.tri_v1_d, m_sd.tri_v2_d)
+    for lo_r in range(0, n_rays, 4096):
+        sl = slice(lo_r, lo_r + 4096)
+        x = intersect.hit_triangles(o[sl], d[sl], m_sd.tri_v0, m_sd.tri_v1, m_sd.tri_v2,
+                                    m_sd.tri_active, mk.T_MIN, v0d=motion[0], v1d=motion[1],
+                                    v2d=motion[2], w=wr[sl])
+        bt.append(x[0])
+        bi.append(x[1].long())
+        bh.append(x[2])
+    bt, bi, bh = torch.cat(bt), torch.cat(bi), torch.cat(bh)
+    wh = wt < mk.BIG
+    differ = (wh != bh) | (wh & (wi != bi))
+    walk_missed = bh & (~wh | (wt > bt * (1 + 1e-4)))
+    mt_differ = int(differ.sum())
+    print(f"K7 moving walk vs brute Möller–Trumbore with motion, {n_rays} random rays at "
+          f"moving torus_teapot: {int(bh.sum())} hit; winners differ on {mt_differ} "
+          f"({float(differ.float().mean()):.2e}); the walk missed a nearer brute hit on "
+          f"{int(walk_missed.sum())}, hit where the brute test did not on "
+          f"{int((wh & ~bh).sum())}")
+    if not float(differ.float().mean()) < 1e-3:
+        raise AssertionError("K7 moving's walk and the brute triangle test disagree")
+    kernels["megakernel_tri_moving"]["walk_vs_brute_differ"] = mt_differ
+    del o, d, wr, wt, wi, bt, bi, bh, verts, m_sd
 
     # --- the moving-scene gradient step on the card vs on the CPU, small -----
     # An animated camera rebuilds its basis per ray, so the card's and the
@@ -1483,6 +1701,22 @@ def main() -> None:
     if not same > 0.999:
         raise AssertionError("fan: the card's and the CPU's records disagree")
     held_to("fan: the CPU's rays and records replayed on both",
+            [same_rays_step(sc, where, recs[1], leaf_size=32) for where in (dev, cpu)],
+            dict.fromkeys(radiometric, 1e-3), 1e-4)
+    del recs
+    # The moving fan likewise (K7 moving's record, the eager replay's
+    # moving-triangle branch).
+    sc = moving_fan(tscene, 64)
+    recs = []
+    for where in (dev, cpu):
+        sd, cp = sc.build(leaf_size=32, device=where), sc.scene_cam.params(device=where)
+        recs.append(grad.record_decisions(sd, cp, torch.arange(64 * 36, device=where), 0, **kw))
+    same = (recs[0].cpu() == recs[1]).all(dim=0).float().mean().item()
+    print(f"loss_and_grad moving fan 64w 2spp d8, card vs CPU: records equal on {same:.5f} "
+          f"of the lanes")
+    if not same > 0.999:
+        raise AssertionError("moving fan: the card's and the CPU's records disagree")
+    held_to("moving fan: the CPU's rays and records replayed on both",
             [same_rays_step(sc, where, recs[1], leaf_size=32) for where in (dev, cpu)],
             dict.fromkeys(radiometric, 1e-3), 1e-4)
     del recs
@@ -1747,7 +1981,7 @@ def main() -> None:
     def motion_launches():
         f = mk.FORWARD_LAUNCHES
         return dict(k1=f["brute"], k5=f["walk"], k8=f["motion"], k8_walk=f["motion_walk"],
-                    k7=f["tri"], k9=ss.LAUNCHES)
+                    k7=f["tri"], k7m=f["tri_motion"], k9=ss.LAUNCHES)
 
     def zero_motion_launches():
         mk.zero_counts()
@@ -1829,7 +2063,8 @@ def main() -> None:
     def grad_launches():
         r = mk.RECORD_LAUNCHES
         return dict(k2=r["brute"], k5=r["walk"], k8=r["motion"], k8_walk=r["motion_walk"],
-                    k7=r["tri"], k4=rk.LAUNCHES_FORWARD, k3=rk.LAUNCHES_BACKWARD)
+                    k7=r["tri"], k7m=r["tri_motion"], k4=rk.LAUNCHES_FORWARD,
+                    k3=rk.LAUNCHES_BACKWARD)
 
     def check_leaves(loss, grads, params, what):
         if not math.isfinite(loss.item()):
@@ -2036,7 +2271,7 @@ def main() -> None:
         got = motion_launches()
         if tuple(img.shape) != (1080, 1920, 3) or not bool(torch.isfinite(img).all()):
             raise AssertionError(f"torus image: shape {tuple(img.shape)} or non-finite values")
-        if got["k7"] != 1 or any(got[k] for k in ("k1", "k5", "k8", "k8_walk", "k9")):
+        if got["k7"] != 1 or any(got[k] for k in ("k1", "k5", "k8", "k8_walk", "k7m", "k9")):
             raise AssertionError(f"torus_teapot: launches {got}")
         launches_k7 += got["k7"]
         print(f"render_image torus_teapot 1920x1080 32spp d50 (auto -> mega, K7), run {i}: "
@@ -2077,6 +2312,124 @@ def main() -> None:
                                       phases=phases)
     kernels["megakernel_tri_record"]["launches"] = launches_k7r
     del params
+    # --- main path 12: the moving mesh forward (K7 moving), frame 30, 1080p ----
+    def forward_runs(scene, sd, what):
+        """Two timed render_image runs of a moving mesh at 1920x1080 32 spp
+        d50, each one K7 moving launch ("tri_motion" on the scene's moving
+        (M, 32) rows, ``sd`` the scene's build) and no other -> (last image,
+        ms, launches counted)."""
+        runs, launched = [], 0
+        for i in range(2):
+            zero_motion_launches()
+            img, ms = host_ms(lambda: render.render_image(scene, samples=32, max_depth=50))
+            got = motion_launches()
+            if tuple(img.shape) != (1080, 1920, 3) or not bool(torch.isfinite(img).all()):
+                raise AssertionError(f"{what}: shape {tuple(img.shape)} or non-finite values")
+            if (got["k7m"] != 1 or any(n for k, n in got.items() if k != "k7m")
+                    or not integrator.mesh_moves(sd)):
+                raise AssertionError(f"{what}: launches {got}, the mesh moves: "
+                                     f"{integrator.mesh_moves(sd)}")
+            launched += got["k7m"]
+            runs.append(ms)
+            print(f"render_image {what} 1920x1080 32spp d50 (auto -> mega), run {i}: "
+                  f"{ms / 1e3:.3f} s, {1920 * 1080 * 32 / ms / 1e3:.2f} Mrays/s, mean "
+                  f"{img.mean().item():.5f}; launches {got}; nvidia-smi: {smi()}")
+        return img, runs, launched
+
+    scene = mt_sc
+    scene.scene_cam.image_width = 1920
+    scene.scene_cam.frame = 30
+    _, build_ms = host_ms(lambda: scene.build())
+    sd, cp = scene.build(), scene.scene_cam.params()
+    if not (integrator.mesh_moves(sd) and sd.use_bvh and not cp.animated
+            and integrator.megakernel_supported(sd, cp)):
+        raise AssertionError("moving torus_teapot should be a moving BVH mesh sent to mega")
+    img, fwd_runs, launches_k7m = forward_runs(scene, sd, "moving torus_teapot frame 30")
+    print(f"  moving torus_teapot scene build at frame 30 (18,960 vertex timelines, leaf "
+          f"{sd.bvh_leaf_size}, {sd.bvh_min.shape[0]} nodes): {build_ms / 1e3:.3f} s")
+    png = REPO / "build" / "chip_smoke_moving_torus.png"
+    write_png(png, render.to_u8(img))
+    print(f"wrote {png.relative_to(REPO)}")
+    del img
+    mesh_cells = dict(forward_ms=fwd_runs, build_ms=build_ms)
+
+    # --- main path 13: the moving mesh movie, 400x225 50 spp d5, 6 frames ------
+    movie = moving_torus_teapot(tscene, 400)
+    movie.duration = 0.25  # 5 s cut to 6 frames
+    frame_build = []
+    for fi in range(6):
+        movie.scene_cam.frame = fi
+        frame_build.append(host_ms(lambda: movie.build())[1])
+    print(f"moving torus_teapot scene build per movie frame: "
+          f"{', '.join(f'{b / 1e3:.3f}' for b in frame_build)} s")
+    movie_runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for run in range(2):
+            frames = {}
+            zero_motion_launches()
+            _, ms = host_ms(lambda: render.render_movie(
+                movie, str(Path(tmp) / f"moving_torus{run}"), verbose=False,
+                on_frame=lambda fi, dt: frames.__setitem__(fi, dt)))
+            got = motion_launches()
+            written = sorted(p.name for p in
+                             (Path(tmp) / f"moving_torus{run}" / "artifacts").iterdir())
+            if sorted(frames) != list(range(6)) or len(written) != 6:
+                raise AssertionError(f"moving torus movie: frames {sorted(frames)}, {written}")
+            if got["k7m"] != 6 or any(n for k, n in got.items() if k != "k7m"):
+                raise AssertionError(f"moving torus movie: launches {got}")
+            launches_k7m += got["k7m"]
+            movie_runs.append(ms)
+            print(f"render_movie moving torus_teapot(duration=0.25) 400x225 50spp d5, 6 "
+                  f"frames, run {run}: {ms / 1e3:.3f} s, {ms / 6e3:.3f} s per frame (dispatch "
+                  f"to written: {', '.join(f'{frames[i]:.3f}' for i in range(6))} s); "
+                  f"launches {got}")
+    mesh_cells.update(movie_ms=movie_runs, movie_build_ms=frame_build)
+    del movie
+
+    # --- main path 14: the moving mesh's gradient, 1080p 4 spp d8, frame 30 -----
+    # loss_and_grad(method="auto") -> the replay: K7 moving record, then the
+    # eager replay's moving-triangle branch (the replay kernels take no
+    # triangles).
+    if (replay._use_replay_kernel(sd) or not integrator.megakernel_record_supported(sd, cp)
+            or not integrator.mesh_moves(sd)):
+        raise AssertionError("moving torus_teapot should record through K7 moving, replay eagerly")
+    params, loss0, _, step_ms, peak = eager_steps(sd, cp, "moving torus_teapot", "k7m")
+    launches_k7mr = mk.RECORD_LAUNCHES["tri_motion"]
+    zero_counts()
+    rec, ms = host_ms(lambda: grad.record_decisions(sd, cp, pix, 0, **kw))
+    print(f"record_decisions moving torus_teapot 1920x1080 4spp d8: {ms / 1e3:.4f} s")
+    (loss, g), ms = host_ms(
+        lambda: grad.loss_and_grad(params, sd, cp, target, pix, 0, rec=rec, **kw))
+    check_leaves(loss, g, params, "moving torus_teapot frozen")
+    print(f"  frozen step: {ms / 1e3:.4f} s, {mrays / (ms / 1e3):.2f} Mrays/s, "
+          f"loss {loss.item():.6f}")
+    if not torch.equal(loss, loss0):
+        raise AssertionError("moving torus_teapot: the frozen step's loss is not the step's")
+    got = grad_launches()
+    if got["k7m"] != 1 or any(n for k, n in got.items() if k != "k7m"):
+        raise AssertionError(f"moving torus_teapot frozen step: launches {got}")
+    launches_k7mr += got["k7m"]
+    del rec, g
+    phases = split_step(sd, cp, params, "moving torus_teapot")
+    grad_cells["moving_torus_teapot"] = dict(step_ms=step_ms, frozen_ms=[ms], peak_gib=peak,
+                                             phases=phases)
+    del params
+
+    # --- main path 15: the moving mesh seen by a rising camera (K7 moving +
+    # K8's camera), frame 30, 1080p 32 spp d50 -----------------------------------
+    rising_camera(scene)
+    sd, cp = scene.build(), scene.scene_cam.params()
+    if not (cp.animated and integrator.megakernel_supported(sd, cp)):
+        raise AssertionError("moving torus_teapot with a rising camera should go to mega")
+    img, cam_runs, launched = forward_runs(
+        scene, sd, "moving torus_teapot + rising camera frame 30")
+    launches_k7m += launched
+    mesh_cells.update(camera_forward_ms=cam_runs)
+    del img
+    kernels["megakernel_tri_moving"]["launches"] = launches_k7m
+    kernels["megakernel_tri_moving_record"]["launches"] = launches_k7mr
+    print("moving mesh cells: " + json.dumps(mesh_cells))
+
     print("gradient cells: " + json.dumps(grad_cells))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check")
 

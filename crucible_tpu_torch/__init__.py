@@ -8,14 +8,14 @@ PyTorch version of the same function beside it for CPU tensors and for the
 comparisons.
 
 Ported so far, for sphere scenes, static or moving on the linear shutter,
-big ones included, and static triangle meshes (``Triangle``, OBJ assets),
-with solid and checker-of-solid textures, the default or a spherical HDR
-sky and a static or keyframed camera with defocus: the forward render
-through ``models.render.render_image`` (the megakernel schedule, and the
-staged pixel schedule for the spherical sky and small meshes), movies
-through ``models.render.render_movie``, and the gradient through
-``grad.loss_and_grad`` (record/replay, and direct AD). Moving meshes, image
-textures, nested checkers, exact-time motion and the rest raise
+big ones included, and triangle meshes (``Triangle``, OBJ assets), static
+or moving on the linear shutter, with solid and checker-of-solid textures,
+the default or a spherical HDR sky and a static or keyframed camera with
+defocus: the forward render through ``models.render.render_image`` (the
+megakernel schedule, and the staged pixel schedule for the spherical sky
+and small meshes), movies through ``models.render.render_movie``, and the
+gradient through ``grad.loss_and_grad`` (record/replay, and direct AD).
+Image textures, nested checkers, exact-time motion and the rest raise
 ``NotImplementedError``.
 
 Every entry point runs on ``device="cuda"`` unless the caller names

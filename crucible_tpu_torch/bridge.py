@@ -10,10 +10,11 @@ own scenes.
 Array keys are the ``SceneData`` field names, with the texture table's
 fields prefixed ``tex_``; static keys are ``sky_kind``, ``num_spheres``,
 ``num_tris``, ``animated``, ``motion_exact``, ``use_bvh``,
-``bvh_leaf_size`` and ``max_nest``. As in the JAX package, ``sky_image`` is
+``bvh_leaf_size``, ``tri_exact`` and ``max_nest``. As in the JAX package, ``sky_image`` is
 a (1, 1, 3) zero placeholder under the default sky (the port's
 ``SceneData.sky_image`` is then None). The sphere-BVH tables
-(``STRUCT_ARRAYS``), the motion fields (``MOTION_ARRAYS``) and the triangle
+(``STRUCT_ARRAYS``), the motion fields (``MOTION_ARRAYS``: the spheres' and
+a moving mesh's shutter deltas) and the triangle
 and triangle-BVH arrays (``MESH_ARRAYS``) are optional keys
 (``OPTIONAL_ARRAYS``): absent, or None, where the scene has none.
 :func:`params_from_arrays` / :func:`params_to_arrays` carry the gradient
@@ -40,13 +41,14 @@ SCENE_ARRAYS = (
     "sky_image",
 )
 STRUCT_ARRAYS = ("sph_perm", "sph_nodes", "sph_meta")
-MOTION_ARRAYS = ("sph_center_d", "sph_radius_d", "motion_t0", "motion_t1")
+MOTION_ARRAYS = ("sph_center_d", "sph_radius_d", "motion_t0", "motion_t1",
+                 "tri_v0_d", "tri_v1_d", "tri_v2_d")
 MESH_ARRAYS = ("tri_v0", "tri_v1", "tri_v2", "tri_mat", "tri_active",
                "bvh_min", "bvh_max", "bvh_first", "bvh_count", "bvh_miss")
 OPTIONAL_ARRAYS = STRUCT_ARRAYS + MOTION_ARRAYS + MESH_ARRAYS
 TEX_ARRAYS = ("kind", "color", "inv_scale", "even", "odd", "image_id")
 SCENE_STATIC = ("sky_kind", "num_spheres", "num_tris", "animated", "motion_exact",
-                "use_bvh", "bvh_leaf_size")
+                "use_bvh", "bvh_leaf_size", "tri_exact")
 CAMERA_ARRAYS = tuple(
     f.name for f in fields(CameraParams) if f.name not in ("animated", "motion_exact")
 )

@@ -1,6 +1,7 @@
 // Persistent path-tracing megakernel for sphere scenes on Hopper: forward
 // mode (K1), record mode (K2), for big scenes both modes walking a
-// per-lane sphere BVH (K5), and the forward mode's motion variants (K8).
+// per-lane sphere BVH (K5), their motion variants (K8), and the
+// triangle-BVH stage of static and moving meshes (K7, K7 moving).
 //
 // Replaces crucible_tpu/ops/pallas/megakernel.py::_kernel for its sphere
 // branches: static ones in both of its modes, and in forward mode the
@@ -85,8 +86,8 @@
 // K7, the triangle-BVH stage for static meshes (TRI; megakernel.py from
 // l.962: the Woop leaf test l.1079-1140, the winner's normal and material
 // l.1286-1299, 1318-1321, the record flags l.1472-1490), in forward mode
-// and in record mode, fused or not, on the brute static-camera sphere
-// search. After the sphere search gives (best, win) the thread walks the
+// and in record mode, fused or not, after the brute static sphere search,
+// seen by a static or (CAM_ANIMATED) a keyframed camera. After the sphere search gives (best, win) the thread walks the
 // triangle BVH's DFS skip links alone, as K5 walks the sphere BVH: at node
 // i the slab test of its box against [t_min, tb] in the Pallas kernel's
 // arithmetic (no margin: the JAX package grows no triangle box); on a hit
@@ -107,6 +108,23 @@
 // stays in L2. The TPU kernel's 16-node window, multi-leaf chase, packed
 // hit mask and one-hot material fetch answer the TPU's vector layout and
 // have no counterpart here.
+//
+// K7 moving, the same stage over a mesh on the linear shutter (TRI with
+// ANIMATED: every mesh of an animated scene moves, its rows in the (M, 32)
+// Möller–Trumbore layout of integrator.make_tri_tables; megakernel.py
+// l.1141-1240, the normalization l.1280-1284, set at l.1675 / l.1822). The
+// walk is K7's over boxes that hold each triangle at shutter open and
+// close; at a leaf row the thread lerps the edges and v0 to the path's
+// shutter fraction w (the one K8's moving spheres use: e1 + w e1d, e2 + w
+// e2d, o - (v0 + w v0d)) and runs Möller–Trumbore on them, |det| > 1e-8,
+// in the Pallas kernel's association term by term. A row replaces tb only
+// when strictly nearer, as in K7. The winner carries the unnormalized
+// cross of its lerped edges (the table's normal is stale under motion),
+// normalized once after the walk with 1 / max(|n|, 1e-20); its material id
+// is column 12. The rows are read from global memory (128 bytes each, of
+// which the test reads 19 floats); the node boxes and [first, count, miss]
+// sit in shared memory beside the moving sphere rows' ten columns. K7 (both
+// layouts) also takes CAM_ANIMATED, K8's camera.
 //
 // Numerics: every literal is float32 and the arithmetic follows the Pallas
 // kernel's association operation for operation. Build with -fmad=false and
@@ -136,6 +154,7 @@ constexpr int MOTION_COLS = 5;     // and with ANIMATED: cd x/y/z, s1, s2
 constexpr int NODE_COLS = 6;       // staged per node: box lo x/y/z, hi x/y/z
 constexpr int META_COLS = 3;       // staged per node: first, count, miss
 constexpr int TRI_COLS = 16;       // Woop row: a0, a1, a2, b, unit normal, mat id
+constexpr int TRI_MOVING_COLS = 32;  // moving row: v0, e1, e2, n, mat id, 0, v0d, e1d, e2d
 constexpr int MAT_COLS = 24;       // material row: sphere-table columns 6-23, ...
 constexpr int BLOCK = 128;         // threads per block, brute search (4 warps)
 constexpr int WALK_BLOCK = 256;    // threads per block, walks (8 warps)
@@ -159,10 +178,15 @@ __device__ __forceinline__ float safe_inv(float v) {
 
 // K7's closest triangle (see the note above): walks the triangle BVH from
 // the sphere stage's t in `tb`, lowering it and setting `tid` (a row of
-// `tris`, leaf order) wherever a triangle is strictly nearer.
+// `tris`, leaf order) wherever a triangle is strictly nearer. MOVING (K7
+// moving): the rows are the (M, 32) layout, each lerped to the path's
+// shutter fraction `w`, and (nx, ny, nz) receives the winner's unnormalized
+// lerped-edge cross.
+template <bool MOVING>
 __device__ __forceinline__ void tri_closest(
     const Staged& s, const float* __restrict__ tris, float ox, float oy,
-    float oz, float dx, float dy, float dz, float t_min, float& tb, int& tid) {
+    float oz, float dx, float dy, float dz, float w, float t_min, float& tb,
+    int& tid, float& nx, float& ny, float& nz) {
   const float ivx = safe_inv(dx), ivy = safe_inv(dy), ivz = safe_inv(dz);
   int i = 0;
   while (i < s.kt) {
@@ -186,17 +210,49 @@ __device__ __forceinline__ void tri_closest(
       }
       const int first = m[0];
       for (int q = first; q < first + count; ++q) {
-        const float* w = tris + (size_t)q * TRI_COLS;
-        const float dpz = w[6] * dx + w[7] * dy + w[8] * dz;
+        if (MOVING) {
+          const float* r = tris + (size_t)q * TRI_MOVING_COLS;
+          const float e1x = r[3] + w * r[19];
+          const float e1y = r[4] + w * r[20];
+          const float e1z = r[5] + w * r[21];
+          const float e2x = r[6] + w * r[22];
+          const float e2y = r[7] + w * r[23];
+          const float e2z = r[8] + w * r[24];
+          const float pvx = dy * e2z - dz * e2y;
+          const float pvy = dz * e2x - dx * e2z;
+          const float pvz = dx * e2y - dy * e2x;
+          const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+          if (!(fabsf(det) > 1e-8f)) continue;  // parallel to the plane
+          const float invd = 1.0f / det;
+          const float tvx = ox - (r[0] + w * r[16]);
+          const float tvy = oy - (r[1] + w * r[17]);
+          const float tvz = oz - (r[2] + w * r[18]);
+          const float uu = (tvx * pvx + tvy * pvy + tvz * pvz) * invd;
+          const float qvx = tvy * e1z - tvz * e1y;
+          const float qvy = tvz * e1x - tvx * e1z;
+          const float qvz = tvx * e1y - tvy * e1x;
+          const float vv = (dx * qvx + dy * qvy + dz * qvz) * invd;
+          const float th = (e2x * qvx + e2y * qvy + e2z * qvz) * invd;
+          if (uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f && th > t_min && th < tb) {
+            tb = th;
+            tid = q;
+            nx = e1y * e2z - e1z * e2y;
+            ny = e1z * e2x - e1x * e2z;
+            nz = e1x * e2y - e1y * e2x;
+          }
+          continue;
+        }
+        const float* wr = tris + (size_t)q * TRI_COLS;
+        const float dpz = wr[6] * dx + wr[7] * dy + wr[8] * dz;
         if (!(fabsf(dpz) > 1e-12f)) continue;  // parallel to the plane
-        const float opz = w[6] * ox + w[7] * oy + w[8] * oz + w[11];
+        const float opz = wr[6] * ox + wr[7] * oy + wr[8] * oz + wr[11];
         const float th = -opz * (1.0f / dpz);
         if (!(th > t_min && th < tb)) continue;
-        const float opx = w[0] * ox + w[1] * oy + w[2] * oz + w[9];
-        const float dpx = w[0] * dx + w[1] * dy + w[2] * dz;
+        const float opx = wr[0] * ox + wr[1] * oy + wr[2] * oz + wr[9];
+        const float dpx = wr[0] * dx + wr[1] * dy + wr[2] * dz;
         const float uu = opx + th * dpx;
-        const float opy = w[3] * ox + w[4] * oy + w[5] * oz + w[10];
-        const float dpy = w[3] * dx + w[4] * dy + w[5] * dz;
+        const float opy = wr[3] * ox + wr[4] * oy + wr[5] * oz + wr[10];
+        const float dpy = wr[3] * dx + wr[4] * dy + wr[5] * dz;
         const float vv = opy + th * dpy;
         if (uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f) {
           tb = th;
@@ -251,7 +307,8 @@ __device__ __forceinline__ void walk_closest(
 // only from bounce smem[4] on. Forward mode is <false, true>. WALK: the
 // closest hit walks the sphere BVH over the permuted table. ANIMATED,
 // CAM_ANIMATED: K8's moving spheres and keyframed camera. TRI: K7's
-// triangle stage after the brute sphere search (`tris`, `mats`).
+// triangle stage after the brute sphere search (`tris`, `mats`); with
+// ANIMATED the mesh moves too (K7 moving, the (M, 32) rows).
 template <bool RECORD, bool RADIANCE, bool WALK, bool ANIMATED, bool CAM_ANIMATED,
           bool TRI>
 __device__ __forceinline__ void trace_lane(
@@ -261,8 +318,9 @@ __device__ __forceinline__ void trace_lane(
     const float* __restrict__ tris, const float* __restrict__ mats, int r,
     float t_min, float* __restrict__ out, int32_t* __restrict__ rec) {
   static_assert(!(WALK && ANIMATED), "animated big scenes need K6");
-  static_assert(!(TRI && (WALK || ANIMATED || CAM_ANIMATED)),
-                "K7 runs beside the brute static sphere search only");
+  static_assert(!(TRI && WALK), "K7 runs beside the brute sphere search only");
+  constexpr int TRI_STRIDE = ANIMATED ? TRI_MOVING_COLS : TRI_COLS;
+  constexpr int TRI_MAT = ANIMATED ? 12 : 15;  // a row's material id column
   const int spp = smem[0];
   const uint32_t seed = (uint32_t)smem[1];
   const int width = smem[2];
@@ -372,11 +430,13 @@ __device__ __forceinline__ void trace_lane(
                        dy, dz, a_q, d_dot_o, o_sq, inv_a, t_min, best, win);
       }
 
-      // --- K7: a static mesh's closest triangle, strictly nearer ----------
+      // --- K7: the mesh's closest triangle, strictly nearer -----------------
       bool is_tri = false;
       int tid = -1;
+      float tnx = 0.0f, tny = 0.0f, tnz = 0.0f;  // K7 moving: the winner's cross
       if (TRI) {
-        tri_closest(s, tris, ox, oy, oz, dx, dy, dz, t_min, best, tid);
+        tri_closest<ANIMATED>(s, tris, ox, oy, oz, dx, dy, dz, w, t_min, best, tid,
+                              tnx, tny, tnz);
         is_tri = tid >= 0;
       }
 
@@ -398,7 +458,7 @@ __device__ __forceinline__ void trace_lane(
       // material row, whose column c - 6 holds table column c (c >= 6).
       const float* row = table + (size_t)(is_tri ? 0 : win) * C_IN;
       const float* mat_row =
-          TRI && is_tri ? mats + (size_t)(int)tris[(size_t)tid * TRI_COLS + 15] * MAT_COLS
+          TRI && is_tri ? mats + (size_t)(int)tris[(size_t)tid * TRI_STRIDE + TRI_MAT] * MAT_COLS
                         : nullptr;
       auto attr = [&](int c) { return TRI && is_tri ? mat_row[c - 6] : row[c]; };
 
@@ -414,7 +474,13 @@ __device__ __forceinline__ void trace_lane(
         wrad = wrad + w * row[27];
       }
       float nx, ny, nz;
-      if (TRI && is_tri) {  // the table's unit normal
+      if (TRI && is_tri && ANIMATED) {  // the lerped triangle's cross, made unit
+        const float nlen = sqrtf(tnx * tnx + tny * tny + tnz * tnz);
+        const float invn = 1.0f / fmaxf(nlen, 1e-20f);
+        nx = tnx * invn;
+        ny = tny * invn;
+        nz = tnz * invn;
+      } else if (TRI && is_tri) {  // the table's unit normal
         const float* tw = tris + (size_t)tid * TRI_COLS;
         nx = tw[12];
         ny = tw[13];
@@ -600,14 +666,15 @@ __device__ __forceinline__ void trace_lane(
 }
 
 // The acceleration structures a launch walks: the sphere BVH (WALK) over
-// the permuted table, and a static mesh's triangle BVH with its Woop rows
-// and material rows (TRI). Unused pointers are null and counts 0.
+// the permuted table, and a mesh's triangle BVH with its rows (Woop, or
+// the moving layout with ANIMATED) and material rows (TRI). Unused
+// pointers are null and counts 0.
 struct Trees {
   const float* nodes;     // (k, 6) grown sphere-node boxes
   const int32_t* meta;    // (k, 3) first, count, miss
   const float* tnodes;    // (kt, 6) triangle-node boxes
   const int32_t* tmeta;   // (kt, 3) first, count, miss
-  const float* tris;      // (M, 16) Woop rows, leaf order
+  const float* tris;      // (M, 16) Woop or (M, 32) moving rows, leaf order
   const float* mats;      // (NM, 24) material rows
   int k, kt;
 };
@@ -703,16 +770,28 @@ int launch(const int32_t* smem, const int32_t* pix, const int32_t* sample0,
 }
 
 // The instantiations of one mode (RECORD) and one value of RADIANCE: K7
-// where the launch has a triangle BVH (the brute static search only), K5
-// where it has a sphere BVH (static, or with CAM_ANIMATED), else the brute
-// search with K8's flags.
+// where the launch has a triangle BVH (the brute search, with K8's flags:
+// ANIMATED makes it K7 moving), K5 where it has a sphere BVH (static, or
+// with CAM_ANIMATED), else the brute search with K8's flags.
 template <bool RECORD, bool RADIANCE>
 int variant(const int32_t* smem, const int32_t* pix, const int32_t* sample0,
             const float* cam, const float* table, const Trees& t, int n, int r,
             float t_min, int animated, int cam_animated, float* out, int32_t* rec,
             void* stream) {
   if (t.kt > 0) {
-    if (t.k > 0 || animated || cam_animated) return (int)cudaErrorInvalidValue;
+    if (t.k > 0) return (int)cudaErrorInvalidValue;
+    if (animated && cam_animated) {
+      return launch<RECORD, RADIANCE, false, true, true, true>(
+          smem, pix, sample0, cam, table, t, n, r, t_min, out, rec, stream);
+    }
+    if (animated) {
+      return launch<RECORD, RADIANCE, false, true, false, true>(
+          smem, pix, sample0, cam, table, t, n, r, t_min, out, rec, stream);
+    }
+    if (cam_animated) {
+      return launch<RECORD, RADIANCE, false, false, true, true>(
+          smem, pix, sample0, cam, table, t, n, r, t_min, out, rec, stream);
+    }
     return launch<RECORD, RADIANCE, false, false, false, true>(
         smem, pix, sample0, cam, table, t, n, r, t_min, out, rec, stream);
   }
@@ -756,9 +835,9 @@ int crucible_megakernel_smem_bytes(int n, int k, int animated, int kt) {
 // k == 0, else the walk over the K sphere nodes (K5); with `animated`
 // (brute only) or `cam_animated` nonzero, their motion variants (K8); with
 // kt > 0 the triangle stage over the KT triangle nodes after the brute
-// static search (K7). Returns cudaGetLastError(), or cudaErrorInvalidValue
-// for a combination not instantiated (an animated walk; K7 with a walk or
-// motion).
+// search (K7; with `animated` K7 moving, whose `tris` are (M, 32) rows).
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for a combination
+// not instantiated (an animated walk; K7 with a walk).
 int crucible_megakernel_forward(const int32_t* smem, const int32_t* pix,
                                 const int32_t* sample0, const float* cam,
                                 const float* table, const float* nodes,

@@ -9,15 +9,17 @@ Two estimators compute it:
 - ``method='replay'``: the record/replay path of ``models/replay.py``
   (record K2, K5, K8 or K7; replay K4 forward and K3 backward where the
   replay kernels take the scene, else the eager per-bounce replay: moving
-  spheres and animated cameras, tables above 2048 rows, static triangle
-  meshes, the spherical sky, whose image is then a leaf, ``sky_image``).
+  spheres and animated cameras, tables above 2048 rows, triangle meshes,
+  static or moving, the spherical sky, whose image is then a leaf,
+  ``sky_image``).
   Frozen-decision training records
   the decisions once (:func:`record_decisions`) and replays them in every
   later step (``rec=``).
 - ``method='ad'``: direct reverse mode through the checkpointed bounce loop
   (``integrator.render_rays(differentiable=True)``, closest hits by K10, or
   for moving spheres ``intersect.hit_spheres_moving``; a mesh of at most
-  ``scene.BVH_MIN_TRIS`` triangles through ``intersect.hit_triangles``),
+  ``scene.BVH_MIN_TRIS`` triangles through ``intersect.hit_triangles``, a
+  moving one at each path's shutter fraction),
   the semantic reference. A BVH mesh raises ``NotImplementedError``: the
   JAX package's reverse mode cannot pass its BVH walk's ``lax.while_loop``
   either, and the port invents no gradient there.

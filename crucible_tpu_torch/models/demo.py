@@ -1,11 +1,12 @@
 """Demo scenes (port of ``crucible_tpu/models/demo.py``: book1, its tiled
 stress scene, the checkered and smoke scenes, the teapot on its checker
 ground, the garden under its procedural HDR sky, and the movies:
-``first_movie``, a keyframed camera walk around the garden's ball;
-``moving_teapot`` needs moving meshes and ``teapot.obj``, which are not
-here). ``WORLDS`` and ``MOVIE_WORLDS`` number them as the JAX package does
-(the earth and nested-checker worlds, 4 and 7, need image textures and
-nested checkers, not ported).
+``first_movie``, a keyframed camera walk around the garden's ball, and
+``moving_teapot``, the teapot rising and shrinking, which needs
+``teapot.obj``, an asset this repository lacks). ``WORLDS`` and
+``MOVIE_WORLDS`` number them as the JAX package does (the earth and
+nested-checker worlds, 4 and 7, need image textures and nested checkers,
+not ported).
 
 Scene generation takes an explicit seed and draws from numpy in the same
 order as the JAX package, so both packages build identical tables.
@@ -24,7 +25,7 @@ from crucible_tpu_torch.models.scene import (
     Scene,
     Sphere,
 )
-from crucible_tpu_torch.models.timeline import LERP, WORLD
+from crucible_tpu_torch.models.timeline import LERP, LOCAL, WORLD
 
 _CHECKER_GROUND = CheckerTexture.from_colors(0.32, (0.2, 0.3, 0.1), (0.9, 0.9, 0.9))
 
@@ -222,15 +223,29 @@ def first_movie(frame_rate: float = 24.0, duration: float = 15.0) -> Scene:
 
 
 def moving_teapot(frame_rate: float = 24.0, duration: float = 5.0) -> Scene:
-    """The teapot movie: its mesh moves, and moving meshes (per-vertex
-    timelines, the megakernel's moving-triangle stage) are not ported
-    (ROADMAP A4); its mesh is also the ``teapot.obj`` asset, which this
-    repository does not ship. Raises ``NotImplementedError``."""
-    raise NotImplementedError(
-        "moving_teapot needs moving meshes (K7 moving, ROADMAP A4), which are not "
-        "ported to crucible_tpu_torch yet, and the OBJ asset teapot.obj, which "
-        "this repository lacks (fault C1)"
+    """The teapot movie: ``load_teapot``'s scene at 400 wide, 50 spp, depth
+    5, its mesh translated by (0, 5, 0) over 2.5 s and scaled to 0.5 by 3
+    s (the JAX package's substitute for the original demo's ``scale_r`` on
+    a mesh, which its animator rejects). The mesh is the ``teapot.obj``
+    asset; without it this raises ``FileNotFoundError``."""
+    sc = Scene.new_movie(16.0 / 9.0, 400, frame_rate, 180.0, duration)
+    cam = sc.scene_cam
+    cam.set_samples(50)
+    cam.set_max_depth(5)
+    cam.look_from((13.0, 10.0, 3.0))
+    cam.look_at((0.0, 0.0, 0.0))
+    cam.set_vfov(20.0)
+    cam.set_defocus_angle(0.6)
+    cam.set_focus_dist(10.0)
+
+    sc.load_asset("teapot.obj", "teapot", 0.5, (0.0, 0.0, 0.0), Metal((0.8, 0.3, 0.5), 0.05))
+    sc.add_element(
+        Sphere((0.0, -1000.0, 0.0), 1000.0, Lambertian.from_texture(_CHECKER_GROUND)),
+        "ground",
     )
+    sc.translate_point((0.0, 5.0, 0.0), 2.5, LERP, LOCAL, "teapot")
+    sc.scale_all_uniform(0.5, 3.0, LERP, "teapot")
+    return sc
 
 
 WORLDS = {

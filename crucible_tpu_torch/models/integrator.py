@@ -2,7 +2,7 @@
 persistent megakernel schedule.
 
 Port of ``crucible_tpu/models/integrator.py`` for sphere scenes, static
-or moving on the linear shutter, and static triangle meshes:
+or moving on the linear shutter, and triangle meshes, static or moving:
 
 - the staged wavefront: :func:`intersect_scene` (closest hits through
   ``ops/intersect.hit_spheres``, kernel K10, or for moving spheres the
@@ -15,10 +15,11 @@ or moving on the linear shutter, and static triangle meshes:
   :func:`bounce_step_fused` takes the winner's attributes from K9;
 - the ``mega`` schedule :func:`trace_persistent_mega` (K1, or K5 walking
   the sphere BVH of a big scene; K8, their motion variants, for moving
-  spheres or an animated camera; K7, the triangle-BVH stage, for a static
-  BVH mesh) with its inputs (the (N, 32) sphere attribute table, permuted
-  into BVH leaf order for the walk; the camera vector; a mesh's tables,
-  :func:`make_tri_tables`) and the megakernel predicates.
+  spheres or an animated camera; K7, the triangle-BVH stage, for a BVH
+  mesh, K7 moving for a moving one) with its inputs (the (N, 32) sphere
+  attribute table, permuted into BVH leaf order for the walk; the camera
+  vector; a mesh's tables, :func:`make_tri_tables`) and the megakernel
+  predicates.
 
 Moving spheres and animated cameras draw each path's shutter fraction w
 from the STREAM_TIME hash of its (pixel, sample), which the camera's ray
@@ -75,6 +76,14 @@ def _motion_deltas(sd: SceneData):
     return torch.zeros_like(sd.sph_center), torch.zeros_like(sd.sph_radius)
 
 
+def mesh_moves(sd: SceneData) -> bool:
+    """Whether the scene's mesh moves: every mesh of an animated scene
+    (the lowering gives it shutter deltas, zeros where a triangle has no
+    keyframes). Such a mesh is tested at each ray's shutter fraction and
+    its triangle tables take the moving (M, 32) layout."""
+    return bool(sd.animated) and sd.tri_v0_d is not None
+
+
 def shutter_fraction(pixel_ids, sample_ids, seed):
     """Each path's shutter fraction w in [0, 1): the first uniform of its
     STREAM_TIME hash, as the camera draws it."""
@@ -83,7 +92,9 @@ def shutter_fraction(pixel_ids, sample_ids, seed):
 
 def intersect_scene(sd: SceneData, o, d, w=None):
     """Closest hit against the scene's spheres and triangles; an animated
-    scene's spheres at the rays' shutter fractions ``w`` (R,). A triangle
+    scene's spheres and meshes at the rays' shutter fractions ``w`` (R,)
+    (a moving mesh's vertices lerped per candidate, the winner's lerped
+    again for its normal, as the JAX package does). A triangle
     wins only where it is strictly nearer than the nearest sphere; its
     normal is the geometric one, its uv (0, 0).
 
@@ -103,15 +114,19 @@ def intersect_scene(sd: SceneData, o, d, w=None):
             o, d, sd.sph_center, sd.sph_radius, sd.sph_active, T_MIN
         )
     i_s = i_s.to(torch.int64)
+    # A moving mesh: every vertex at the ray's shutter fraction.
+    moving = mesh_moves(sd)
+    motion = dict(v0d=sd.tri_v0_d, v1d=sd.tri_v1_d, v2d=sd.tri_v2_d, w=w) if moving else {}
     if sd.num_tris > 0:
         if sd.use_bvh:
             t_t, i_t, hit_t = bvh_hit_triangles(
                 o, d, sd.tri_v0, sd.tri_v1, sd.tri_v2, sd.bvh_min, sd.bvh_max,
                 sd.bvh_first, sd.bvh_count, sd.bvh_miss, T_MIN, BIG, sd.bvh_leaf_size,
+                **motion,
             )
         else:
             t_t, i_t, hit_t = intersect.hit_triangles(
-                o, d, sd.tri_v0, sd.tri_v1, sd.tri_v2, sd.tri_active, T_MIN
+                o, d, sd.tri_v0, sd.tri_v1, sd.tri_v2, sd.tri_active, T_MIN, **motion
             )
         i_t = i_t.to(torch.int64)
         is_tri = hit_t & (t_t < t)  # strict: a sphere wins an exact tie
@@ -131,8 +146,11 @@ def intersect_scene(sd: SceneData, o, d, w=None):
     mat = torch.index_select(sd.sph_mat, 0, i_s).to(torch.int64)
     out = dict(i_sph=i_s)
     if sd.num_tris > 0:
-        n_tri = intersect.triangle_normal(*(torch.index_select(x, 0, i_t)
-                                            for x in (sd.tri_v0, sd.tri_v1, sd.tri_v2)))
+        verts = [torch.index_select(x, 0, i_t) for x in (sd.tri_v0, sd.tri_v1, sd.tri_v2)]
+        if moving:  # the winner's vertices at the ray's shutter fraction
+            verts = [v + w[:, None] * torch.index_select(vd, 0, i_t)
+                     for v, vd in zip(verts, (sd.tri_v0_d, sd.tri_v1_d, sd.tri_v2_d))]
+        n_tri = intersect.triangle_normal(*verts)
         n_out = torch.where(is_tri[:, None], n_tri, n_out)
         mat = torch.where(is_tri, torch.index_select(sd.tri_mat, 0, i_t).to(torch.int64), mat)
         u = torch.where(is_tri, 0.0, u)  # triangle uv is (0, 0), as in the original
@@ -285,18 +303,24 @@ def make_sphere_table(sd: SceneData) -> torch.Tensor:
 
 
 def make_tri_tables(sd: SceneData):
-    """The megakernel's triangle inputs (K7) from a static BVH mesh ->
-    (tri_nodes (K, 6) float32, tris (M, 16) float32, mats (NM, 24) float32,
-    tri_meta (K, 3) int32).
+    """The megakernel's triangle inputs (K7) from a BVH mesh -> (tri_nodes
+    (K, 6) float32, tris (M, 16) or, for a moving mesh, (M, 32) float32,
+    mats (NM, 24) float32, tri_meta (K, 3) int32).
 
     - ``tri_nodes``: node box min (0-2) and max (3-5);
     - ``tri_meta``: [first, count, miss] per node (first indexes ``tris``);
-    - ``tris``, one row per triangle in leaf order, the JAX package's Woop
-      layout: columns 0-11 the affine map of world space onto the unit
-      triangle (rows a0, a1, a2 of [e1 e2 nu]^-1 with nu = e1 x e2
-      unnormalized, and b = -(a_i . v0)), 12-14 the unit normal, 15 the
-      material id; a degenerate triangle (|nu|^2 <= 1e-30) gets a zero
-      map, which the kernel's d'_z guard rejects;
+    - ``tris``, one row per triangle in leaf order. A static mesh's rows
+      are the JAX package's Woop layout: columns 0-11 the affine map of
+      world space onto the unit triangle (rows a0, a1, a2 of
+      [e1 e2 nu]^-1 with nu = e1 x e2 unnormalized, and b = -(a_i . v0)),
+      12-14 the unit normal, 15 the material id; a degenerate triangle
+      (|nu|^2 <= 1e-30) gets a zero map, which the kernel's d'_z guard
+      rejects. A moving mesh's (:func:`mesh_moves`: every mesh of an
+      animated scene) are its Möller–Trumbore layout: v0 (0-2), e1 = v1 -
+      v0 (3-5), e2 = v2 - v0 (6-8), the unit normal at shutter open
+      (9-11), the material id (12), zeros (13-15), then the shutter deltas
+      v0d (16-18), e1d = v1d - v0d (19-21), e2d = v2d - v0d (22-24) and
+      zeros (25-31);
     - ``mats``: one row per material, sphere-table columns 6-23 (type,
       fuzz, ior, prob, emission, texture kind, color, 1/scale, even and odd
       colors), the texture id in 18, zeros after it. It is differentiable
@@ -309,6 +333,13 @@ def make_tri_tables(sd: SceneData):
     build the same bits."""
     v0, v1, v2 = sd.tri_v0, sd.tri_v1, sd.tri_v2
     e1, e2 = v1 - v0, v2 - v0
+    if mesh_moves(sd):
+        zeros = torch.zeros((v0.shape[0], 3), dtype=torch.float32, device=v0.device)
+        tris = torch.cat([v0, e1, e2, intersect.triangle_normal(v0, v1, v2),
+                          sd.tri_mat.to(torch.float32)[:, None], zeros, sd.tri_v0_d,
+                          sd.tri_v1_d - sd.tri_v0_d, sd.tri_v2_d - sd.tri_v0_d, zeros,
+                          zeros, zeros[:, :1]], dim=1)
+        return _tri_tables(sd, tris)
 
     def cross(a, b):  # a x b, component by component
         return (a[1] * b[2] - a[2] * b[1], a[2] * b[0] - a[0] * b[2],
@@ -330,6 +361,11 @@ def make_tri_tables(sd: SceneData):
     b = (-dot(a0, p), -dot(a1, p), -dot(a2, p))
     n = intersect.triangle_normal(v0, v1, v2)
     tris = torch.stack([*a0, *a1, *a2, *b, *n.unbind(1), sd.tri_mat.to(torch.float32)], dim=1)
+    return _tri_tables(sd, tris)
+
+
+def _tri_tables(sd: SceneData, tris):
+    """:func:`make_tri_tables`' result around its ``tris``."""
     tri_nodes = torch.cat([sd.bvh_min, sd.bvh_max], dim=1)
     tri_meta = torch.stack([sd.bvh_first, sd.bvh_count, sd.bvh_miss], dim=1).to(torch.int32)
 
@@ -348,8 +384,11 @@ def make_tri_tables(sd: SceneData):
 
 
 def _mesh_unsupported_reason(sd: SceneData, cp: CameraParams):
-    """None where the megakernel's triangle stage (K7) takes the scene's
-    mesh (or there is none), else what it lacks."""
+    """None where the megakernel's triangle stage takes the scene's mesh (or
+    there is none), else what it lacks. K7 walks a BVH mesh: a static one
+    beside the brute static sphere search, seen by a static or an animated
+    camera; a moving mesh (every mesh of an animated scene, K7 moving)
+    beside the moving sphere search, seen by either."""
     if sd.num_tris == 0:
         return None
     checks = (
@@ -357,25 +396,22 @@ def _mesh_unsupported_reason(sd: SceneData, cp: CameraParams):
          "a triangle mesh without a BVH (at most 64 triangles: the megakernel's "
          "triangle stage, K7, walks a BVH; such meshes take the pixel schedule, "
          "the record schedule is ROADMAP A5)"),
-        (not sd.animated,
-         "a triangle mesh beside moving spheres (K7 with K8's moving search, a "
-         "template combination not instantiated: ROADMAP A4)"),
-        (not cp.animated,
-         "a triangle mesh seen by an animated camera (K7 with K8's camera, a "
-         "template combination not instantiated: ROADMAP A4)"),
+        (not sd.tri_exact, "exact-time motion of a mesh, a keyframe inside the shutter "
+                           "(ROADMAP A7)"),
         (sd.sph_perm is None,
          "a triangle mesh beside a big sphere table (K7 with K5's sphere-BVH "
-         "walk, a template combination not instantiated: ROADMAP A4)"),
+         "walk, a template combination not instantiated: ROADMAP A11)"),
     )
     return next((what for ok, what in checks if not ok), None)
 
 
 def megakernel_supported(sd: SceneData, cp: CameraParams) -> bool:
     """The port's megakernel renders sphere scenes, static or moving on the
-    linear shutter, and static BVH meshes beside static spheres, with
-    solid / checker-of-solid textures under the default sky, seen by a
-    static or linearly animated camera (a mesh: a static one).
-    :func:`megakernel_unsupported_reason` names what is missing."""
+    linear shutter, and BVH meshes, static or moving on the linear shutter
+    (K7 and K7 moving), beside the brute sphere search, with solid /
+    checker-of-solid textures under the default sky, seen by a static or
+    linearly animated camera. :func:`megakernel_unsupported_reason` names
+    what is missing."""
     return megakernel_unsupported_reason(sd, cp) is None
 
 
@@ -397,9 +433,9 @@ def megakernel_record_supported(sd: SceneData, cp: CameraParams) -> bool:
     camera (K8's record mode for motion), with at most ``mk.MAX_ROWS``
     table rows or with the sphere-BVH tables (``sd.sph_perm``) that the
     walk takes instead; a moving table takes the brute search only, up to
-    ``mk.MAX_ROWS_ANIMATED`` rows; and static BVH meshes beside a static
-    brute sphere table and camera (K7). The record's decisions read no
-    albedo or sky, so textures and the sky do not limit it."""
+    ``mk.MAX_ROWS_ANIMATED`` rows; and BVH meshes, static or moving,
+    beside the brute sphere table (K7, K7 moving). The record's decisions
+    read no albedo or sky, so textures and the sky do not limit it."""
     return megakernel_record_unsupported_reason(sd, cp) is None
 
 
@@ -537,8 +573,9 @@ def trace_persistent_mega(
     ``sphere_meta`` (3 * (K + 16),) int32 are ``mk.sphere_bvh_tables``'
     outputs: the table is then padded and permuted into BVH leaf order and
     the kernel walks the BVH (K5); without them it tests every row (K1).
-    The sums are the same, bit for bit. A static BVH mesh's tables
-    (:func:`make_tri_tables`) go to the kernel's triangle stage (K7). Every random number is
+    The sums are the same, bit for bit. A BVH mesh's tables
+    (:func:`make_tri_tables`) go to the kernel's triangle stage (K7, or K7
+    moving for a moving mesh's (M, 32) rows). Every random number is
     pcg4d(pixel, sample, stream, seed), so the per-pixel sums do not depend
     on the lane order (see :func:`mega_inputs`).
     """

@@ -7,8 +7,9 @@ which runs one of two schedules:
 - ``mega``: ``integrator.trace_persistent_mega``, the megakernel: the
   brute search (K1), or above ``CULL_MIN_ROWS`` rows the sphere-BVH walk
   (K5); for moving spheres or an animated camera their motion variants
-  (K8); for a static BVH mesh the triangle stage after the brute search
-  (K7);
+  (K8); for a BVH mesh the triangle stage after the brute search (K7, K7
+  moving for a moving mesh, either seen by a static or an animated
+  camera);
 - ``pixel``: ``integrator.trace_persistent``, the staged persistent
   wavefront, with the fused hit + fetch kernel (K9) per bounce, or for a
   mesh the staged bounce (K10 for the spheres, ``hit_triangles`` or the

@@ -5,7 +5,8 @@ Port of the unsplit part of ``crucible_tpu/models/replay.py``:
 1. :func:`trace_record_mega` — the fast, non-differentiable forward: the
    record-mode megakernel (K2; K5, the sphere-BVH walk, on scenes with
    ``sd.sph_perm``; K8, their motion variants, for moving spheres and
-   animated cameras; K7, the triangle stage, for a static BVH mesh) traces
+   animated cameras; K7, the triangle stage, for a BVH mesh, K7 moving for
+   a moving one) traces
    one (pixel, sample) path per lane and stores, per bounce, one packed
    int32 word: the winner's id and the discrete outcomes (alive / hit /
    triangle / scattered / front / reflect / degenerate / far root). With
@@ -17,14 +18,14 @@ Port of the unsplit part of ``crucible_tpu/models/replay.py``:
    backward K3) where they take the scene (:func:`_use_replay_kernel`),
    else eagerly, one checkpointed bounce per record row (the JAX package's
    jnp replay: moving spheres, tables above the kernels' rows, the
-   spherical sky, static triangle meshes).
+   spherical sky, triangle meshes, static or moving).
 
 :func:`render_rays_replay` chains camera rays, record and replay. Integers
 carry no gradient, so the gradient is the replay's detached-sampling
 estimator. Not ported yet (each raises ``NotImplementedError``): the staged
 record (``trace_record`` over ``integrator.bounce_step``), the eager
-replay's moving meshes, image textures, nested checkers and exact-time
-motion, and the lane-narrowed replays of deep budgets
+replay's image textures, nested checkers and exact-time motion, and the
+lane-narrowed replays of deep budgets
 (``record_two_level`` / ``replay_bucketed_2l``).
 """
 
@@ -96,15 +97,11 @@ def _use_replay_kernel(sd: SceneData) -> bool:
 
 def _check_eager(sd: SceneData) -> None:
     """Raise for what the eager replay does not take yet."""
-    if sd.num_tris > 0 and sd.animated:
-        raise NotImplementedError(
-            "the replay of a mesh in an animated scene comes with moving meshes "
-            "(K7 moving, ROADMAP A4)")
     if len(sd.tex.images) or sd.tex.max_nest > 1:
         raise NotImplementedError(
             "the replay of image textures and nested checkers is not ported to "
             "crucible_tpu_torch yet (ROADMAP A5)")
-    if sd.motion_exact:
+    if sd.motion_exact or sd.tri_exact:
         raise NotImplementedError(
             "the replay of exact-time motion (a keyframe inside the shutter) is "
             "not ported to crucible_tpu_torch yet (ROADMAP A7)")
@@ -124,8 +121,9 @@ def trace_record_mega(
 ):
     """Record pass through the megakernel in record mode (K2; K5 where the
     scene has the sphere-BVH tables, ``sd.sph_perm``; K8 for moving spheres
-    or an animated camera, each path at its shutter fraction; K7 for a
-    static BVH mesh, whose winners' words hold their leaf-order ids).
+    or an animated camera, each path at its shutter fraction; K7 for a BVH
+    mesh, K7 moving for a moving one, whose winners' words hold their
+    leaf-order ids).
 
     One lane per (pixel, sample) path; the kernel regenerates the primary
     rays from the pcg4d streams. Sample id ``2**30`` marks a padding lane,
@@ -252,8 +250,9 @@ def _replay_row(sub, sky_image, o_c, d_c, thr, word, w, pixel_ids, sample_ids, m
     ``crucible_tpu/models/replay.py:426-586``) -> (o, d, thr, the radiance
     it adds). ``sub`` (N, K) holds the table columns ``pos`` maps to their
     place; ``w`` (R,) the paths' shutter fractions, or None for a static
-    scene; ``mesh`` None, or a static mesh's (tri_v0, tri_v1, tri_v2,
-    tri_mat, mats) (leaf order; ``integrator.make_tri_tables``' mats)."""
+    scene; ``mesh`` None, or a mesh's (tri_v0, tri_v1, tri_v2, tri_mat,
+    mats, its shutter deltas (tri_v0_d, tri_v1_d, tri_v2_d) or None)
+    (leaf order; ``integrator.make_tri_tables``' mats)."""
     dec = rk._decode(word)
     hit, cont, front = dec["hit"], dec["cont"], dec["front"]
     idx = dec["idx"].long()
@@ -286,11 +285,15 @@ def _replay_row(sub, sky_image, o_c, d_c, thr, word, w, pixel_ids, sample_ids, m
 
     if mesh:
         # A triangle winner: its t by Möller–Trumbore from the leaf-order
-        # vertices, its geometric normal, and its material's row of mats
-        # (column c - 6 holds table column c), an indexed load.
-        tv0, tv1, tv2, tri_mat, mats = mesh
+        # vertices (a moving mesh's lerped to the path's shutter fraction),
+        # its geometric normal, and its material's row of mats (column c - 6
+        # holds table column c), each an indexed load.
+        tv0, tv1, tv2, tri_mat, mats, deltas = mesh
         ti = torch.where(is_tri, idx, 0)
         v0, v1, v2 = (torch.index_select(v, 0, ti) for v in (tv0, tv1, tv2))
+        if deltas is not None:
+            v0, v1, v2 = (v + w[:, None] * torch.index_select(vd, 0, ti)
+                          for v, vd in zip((v0, v1, v2), deltas))
         e1, e2 = v1 - v0, v2 - v0
         det = (e1 * vec.cross(d_c, e2)).sum(-1)
         inv_det = 1.0 / torch.where(torch.abs(det) > 1e-20, det, 1.0)
@@ -348,7 +351,10 @@ def _replay_eager(sd, table, o, d, pixel_ids, sample_ids, seed, rec, *, early_ex
     w = integrator.shutter_fraction(pixel_ids, sample_ids, seed) if sd.animated else None
     mesh = None
     if sd.num_tris > 0:
-        mesh = (sd.tri_v0, sd.tri_v1, sd.tri_v2, sd.tri_mat, integrator.make_tri_tables(sd)[2])
+        deltas = ((sd.tri_v0_d, sd.tri_v1_d, sd.tri_v2_d) if integrator.mesh_moves(sd)
+                  else None)
+        mesh = (sd.tri_v0, sd.tri_v1, sd.tri_v2, sd.tri_mat, integrator.make_tri_tables(sd)[2],
+                deltas)
     rows = rec.shape[0]
     if early_exit:  # alive rows form a prefix: stop after the last live one
         rows = int(((rec & F_ALIVE) > 0).any(dim=1).sum())

@@ -7,15 +7,15 @@ exactly as the JAX package does, converting to tensors on the requested
 device only at the end. The spherical (equirect) sky loads from a ``.hdr``
 asset. Static scenes above ``render.CULL_MIN_ROWS`` sphere rows also get
 the sphere-BVH tables of the megakernel's walk. Triangles (``Triangle``,
-``load_asset``) are lowered as the JAX package lowers static meshes: up to
+``load_asset``) are lowered as the JAX package lowers meshes: up to
 ``BVH_MIN_TRIS`` as brute arrays padded to a multiple of 8, above it in
 the leaf order of a BVH whose children are ordered near-first along the
-camera's view. Spheres and the camera are animated with keyframe timelines
-(``models/timeline.py``) through the animator surface (``translate_*``,
-``scale_*``, ``cam_translate_*``); ``Scene.build`` lowers them for one
-shutter window, linearly (centre and radius at shutter open plus their
-deltas to shutter close). Moving meshes and image textures raise
-``NotImplementedError``.
+camera's view. Spheres, triangles (one timeline per vertex) and the camera
+are animated with keyframe timelines (``models/timeline.py``) through the
+animator surface (``translate_*``, ``scale_*``, ``cam_translate_*``);
+``Scene.build`` lowers them for one shutter window, linearly (centre and
+radius, or the vertices, at shutter open plus their deltas to shutter
+close). Image textures raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from crucible_tpu_torch.models import materials as mat_mod
 from crucible_tpu_torch.models import skybox as sky_mod
 from crucible_tpu_torch.models import textures as tex_mod
 from crucible_tpu_torch.models.camera import Camera
+from crucible_tpu_torch.models import timeline as tl_mod
 from crucible_tpu_torch.models.timeline import TransformTimeline
 from crucible_tpu_torch.ops.bvh import FlatBVH, build_bvh, reorder_front_to_back
 
@@ -152,7 +153,7 @@ class Sphere:
 @dataclass
 class Triangle:
     """Triangle element; ``timelines`` holds one timeline per vertex once
-    it is animated (moving meshes are not ported: building one raises)."""
+    it is animated."""
 
     v0: Tuple[float, float, float]
     v1: Tuple[float, float, float]
@@ -202,9 +203,9 @@ class SceneData:
     """Flat SoA scene: tensors on one device + static metadata.
 
     Field names and layouts are those of the JAX package's ``SceneData``;
-    the moving-mesh, exact-time track and cluster-cull fields are absent
-    because the port does not render them yet (``motion_exact`` still says
-    whether a bridged scene needs them). ``sky_image`` is None under the
+    the exact-time track and cluster-cull fields are absent because the
+    port does not render them yet (``motion_exact`` and ``tri_exact`` still
+    say whether a bridged scene needs them). ``sky_image`` is None under the
     default sky (where the JAX package keeps a (1, 1, 3) placeholder).
     ``Scene.build`` always fills the triangle and triangle-BVH fields, with
     the JAX package's one-row placeholders where there is no mesh; a
@@ -266,10 +267,56 @@ class SceneData:
     bvh_miss: Optional[torch.Tensor] = None
     use_bvh: bool = False
     bvh_leaf_size: int = 4
+    # Linear shutter-motion deltas of every mesh in an animated scene (else
+    # None), in the vertex arrays' order: vertex k of a triangle at the
+    # per-ray shutter fraction w is tri_vk + w * tri_vk_d (zeros where the
+    # triangle has no keyframes).
+    tri_v0_d: Optional[torch.Tensor] = None  # (M, 3) float32
+    tri_v1_d: Optional[torch.Tensor] = None
+    tri_v2_d: Optional[torch.Tensor] = None
+    # A triangle's keyframe inside the shutter window (exact-time motion).
+    tri_exact: bool = False
 
 
 def _pad_to(n: int, mult: int) -> int:
     return max(mult, ((n + mult - 1) // mult) * mult)
+
+
+def _shutter_vertices(tris, va, t_open: float, t_close: float):
+    """(vertices at shutter open, at shutter close), each (m, 3, 3) float32,
+    of ``tris`` whose static vertices are ``va``: the vertex timelines of
+    every triangle that has them are evaluated in one numpy batch (scale
+    times translate, as the JAX package evaluates them), not one by one."""
+    anim = [i for i, t in enumerate(tris) if t.timelines is not None]
+    if not anim:
+        return va, va
+    tls = [tl for i in anim for tl in tris[i].timelines]
+    p0, p1, pd = tl_mod.pad_tracks([tl.lower_translate() for tl in tls])
+    s0, s1, sf, sg = tl_mod.pad_scale_tracks([tl.lower_scale() for tl in tls])
+    init = np.asarray([tl.init_pos for tl in tls], np.float64)
+    va, vb = va.copy(), va.copy()
+    for out, t in ((va, t_open), (vb, t_close)):
+        pos = (tl_mod.eval_scale_np(s0, s1, sf, sg, t)
+               * tl_mod.eval_translate_np(p0, p1, pd, init, t))
+        out[anim] = pos.reshape(-1, 3, 3).astype(np.float32)
+    return va, vb
+
+
+def _union_kinks(tris, lo, hi, t_open: float, t_close: float):
+    """The boxes (lo, hi) (m, 3) grown to hold every triangle at each
+    timeline boundary strictly inside the shutter window, where a
+    piecewise-linear trajectory has its extrema."""
+    kinks = set()
+    for t in tris:
+        for tl in t.timelines or ():
+            b = tl.boundary_times()
+            kinks.update(float(x) for x in b[(b > t_open) & (b < t_close)])
+    for kt in sorted(kinks):
+        vt = np.asarray([[tl.scale_at(kt) * tl.position_at(kt) for tl in t.timelines]
+                         if t.timelines is not None else [t.v0, t.v1, t.v2]
+                         for t in tris], np.float32)
+        lo, hi = np.minimum(lo, vt.min(axis=1)), np.maximum(hi, vt.max(axis=1))
+    return lo, hi
 
 
 class _TableBuilder:
@@ -602,18 +649,22 @@ class Scene:
         An animated scene is lowered for the shutter window [t_open,
         t_close] (default: the camera's current frame): each sphere's
         center and radius at shutter open, and their deltas to shutter close
-        (``sph_center_d`` / ``sph_radius_d``); the renderers lerp them per
-        ray. A timeline boundary strictly inside the window sets
-        ``motion_exact`` (and ``motion_t0`` / ``motion_t1``): the linear
-        lowering departs from the timeline there, and the exact-time tracks
-        that the renderers would need are not ported. A triangle with
-        keyframes (a moving mesh) raises ``NotImplementedError``.
+        (``sph_center_d`` / ``sph_radius_d``); each triangle's vertices at
+        shutter open (its vertex timelines evaluated in one batch) and their
+        deltas (``tri_v0_d`` ... for every mesh, zeros for a triangle
+        without keyframes); the renderers lerp them per ray. A timeline
+        boundary strictly inside the window sets ``motion_exact`` (and
+        ``motion_t0`` / ``motion_t1``; ``tri_exact`` for a triangle's): the
+        linear lowering departs from the timeline there, and the exact-time
+        tracks that the renderers would need are not ported.
 
         Visible triangles above ``BVH_MIN_TRIS`` get a BVH (``bvh_method``
         "sah" or "median", ``leaf_size`` triangles a leaf: None means
-        ``BVH_LEAF_CPU`` on the CPU, ``BVH_LEAF_CUDA`` on a card) whose
-        children are ordered near-first along the camera's view at shutter
-        open; the triangles are stored in its leaf order.
+        ``BVH_LEAF_CPU`` on the CPU, ``BVH_LEAF_CUDA`` on a card) over boxes
+        that hold each triangle at shutter open and close (and at every
+        timeline kink inside the window), whose children are ordered
+        near-first along the camera's view at shutter open; the triangles
+        are stored in its leaf order.
         """
         device = torch.device(device)
         if leaf_size is None:
@@ -631,14 +682,11 @@ class Scene:
 
         spheres = [e for e in self.elements if isinstance(e, Sphere)]
         tris = [e for e in self.elements if isinstance(e, Triangle)]
-        if animated and any(t.timelines is not None and any(tl.animated for tl in t.timelines)
-                            for t in tris):
-            raise NotImplementedError(
-                "moving meshes (triangles with keyframes: per-vertex timelines and "
-                "the megakernel's moving-triangle stage, K7 moving) are not ported "
-                "to crucible_tpu_torch yet (ROADMAP A4)"
-            )
-        motion_exact = animated and any(
+        tri_mid = animated and any(
+            t.timelines is not None and any(mid_shutter(tl) for tl in t.timelines)
+            for t in tris
+        )
+        motion_exact = tri_mid or animated and any(
             s.timeline is not None and mid_shutter(s.timeline) for s in spheres
         )
 
@@ -668,26 +716,37 @@ class Scene:
         m = len(vis_tris)
         use_bvh = m > BVH_MIN_TRIS
         bvh = None
+        v_close = None
         if m:
             va = np.asarray([[t.v0, t.v1, t.v2] for t in vis_tris], np.float32)  # (m, 3, 3)
+            va, vb = _shutter_vertices(vis_tris, va, t_open, t_close) if animated else (va, va)
             v0, v1, v2 = va[:, 0], va[:, 1], va[:, 2]
+            v0b, v1b, v2b = vb[:, 0], vb[:, 1], vb[:, 2]
             t_mat = np.asarray([tables.material(t.material) for t in vis_tris], np.int32)
             if use_bvh:
-                bvh = build_bvh(va.min(axis=1), va.max(axis=1), leaf_size=leaf_size,
-                                method=bvh_method)
+                # Boxes hold each triangle at shutter open and close, and at
+                # every kink of a trajectory inside the window.
+                lo = np.minimum(va.min(axis=1), vb.min(axis=1))
+                hi = np.maximum(va.max(axis=1), vb.max(axis=1))
+                if tri_mid:
+                    lo, hi = _union_kinks(vis_tris, lo, hi, t_open, t_close)
+                bvh = build_bvh(lo, hi, leaf_size=leaf_size, method=bvh_method)
                 view = np.asarray(self._cam_point("at", "look_at_pt"), np.float64) - np.asarray(
                     self._cam_point("from", "look_from_pt"), np.float64)
                 if np.linalg.norm(view) > 1e-12:
                     bvh = reorder_front_to_back(bvh, view)
                 perm = bvh.perm
                 v0, v1, v2, t_mat = v0[perm], v1[perm], v2[perm], t_mat[perm]
+                v0b, v1b, v2b = v0b[perm], v1b[perm], v2b[perm]
                 t_active = np.ones((m,), bool)
             else:
                 pad = _pad_to(m, 8) - m
-                v0, v1, v2 = (np.pad(a, ((0, pad), (0, 0))) for a in (v0, v1, v2))
+                v0, v1, v2, v0b, v1b, v2b = (np.pad(a, ((0, pad), (0, 0)))
+                                             for a in (v0, v1, v2, v0b, v1b, v2b))
                 t_mat = np.pad(t_mat, (0, pad))
                 t_active = np.zeros((m + pad,), bool)
                 t_active[:m] = True
+            v_close = (v0b, v1b, v2b)
         else:
             v0 = v1 = v2 = np.zeros((1, 3), np.float32)
             t_mat = np.zeros((1,), np.int32)
@@ -707,6 +766,10 @@ class Scene:
         if animated:
             motion = dict(sph_center_d=t(sph_center_b - sph_center, np.float32),
                           sph_radius_d=t(sph_radius_b - sph_radius, np.float32))
+            if v_close is not None:
+                motion.update(tri_v0_d=t(v_close[0] - v0, np.float32),
+                              tri_v1_d=t(v_close[1] - v1, np.float32),
+                              tri_v2_d=t(v_close[2] - v2, np.float32))
         if motion_exact:
             motion.update(motion_t0=t(t_open, np.float32), motion_t1=t(t_close, np.float32))
 
@@ -729,6 +792,7 @@ class Scene:
             bvh_first=t(bvh.node_first, np.int32), bvh_count=t(bvh.node_count, np.int32),
             bvh_miss=t(bvh.node_miss, np.int32),
             num_tris=m, use_bvh=use_bvh, bvh_leaf_size=int(leaf_size),
+            tri_exact=bool(tri_mid and m > 0),
         )
 
         if not tables.mat_rows:  # empty scene still needs one material row

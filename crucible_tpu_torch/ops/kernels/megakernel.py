@@ -5,8 +5,9 @@ Port of ``crucible_tpu/ops/pallas/megakernel.py`` for its sphere branches
 sphere-BVH walk of big scenes (K5) in both modes, and their motion
 variants (K8: ``animated`` spheres on the linear shutter, brute search
 only, and the ``cam_animated`` keyframed camera), also in both modes —
-and for its triangle-BVH stage over a static mesh (K7, beside the brute
-static sphere search, in both modes):
+and for its triangle-BVH stage (K7, beside the brute sphere search, in
+both modes, with K8's flags: a static mesh's Woop rows, or with
+``animated`` a moving mesh's (M, 32) rows, K7 moving):
 
 - :func:`run_megakernel` (forward): given the lanes' pixel ids and first
   samples, the camera vector and the (N, 32) sphere table, it traces every
@@ -24,8 +25,8 @@ every row; the result is the brute search's, bit for bit (see
 (column 31 of the permuted row). With ``tri_nodes``, ``tris``, ``mats`` and
 ``tri_meta`` (``integrator.make_tri_tables``) each bounce then walks the
 mesh's BVH for a triangle strictly nearer than the sphere
-(:func:`tri_closest_reference`); records carry its leaf-order id and
-``F_TRI``.
+(:func:`tri_closest_reference`; a moving mesh's triangles at the path's
+shutter fraction); records carry its leaf-order id and ``F_TRI``.
 
 For CUDA tensors each wrapper launches the hand-written kernel of
 ``csrc/megakernel.cu`` (one thread per lane; see the note there) or raises;
@@ -121,24 +122,37 @@ SLAB_EPS = float(np.float32(4e-3))
 NODE_BYTES = 9 * 4
 
 # K7 stages each triangle-BVH node's box (6 float32) and [first, count,
-# miss] (3 int32) in shared memory beside the sphere rows' columns, so a
-# tree fits up to (SHARED_MEM_BYTES - N * 20) / 36 nodes: 6452 beside
-# torus_teapot's 8 sphere rows. Its Woop rows (16 float32) and material rows
-# (24 float32) are read from global memory.
+# miss] (3 int32) in shared memory beside the sphere rows' columns (20
+# bytes a row, 40 with the motion columns of an animated table), so a tree
+# fits up to (SHARED_MEM_BYTES - N * 20) / 36 nodes: 6452 beside
+# torus_teapot's 8 sphere rows, 6448 beside them moving. Its rows (16
+# float32 Woop, or 32 for a moving mesh, K7 moving) and material rows (24
+# float32) are read from global memory.
 TRI_COLS = 16
+TRI_MOVING_COLS = 32
 MAT_COLS = 24
+# The material id's column: Woop rows, moving rows.
+TRI_MAT_COL = {TRI_COLS: 15, TRI_MOVING_COLS: 12}
 
 
-def max_tri_nodes(n: int) -> int:
-    """The most triangle-BVH nodes K7 stages beside an n-row sphere table."""
-    return (SHARED_MEM_BYTES - n * SMEM_COLS * 4) // NODE_BYTES
+def row_bytes(animated: bool = False) -> int:
+    """Shared-memory bytes the kernel stages for each sphere row."""
+    return (SMEM_COLS + (MOTION_COLS if animated else 0)) * 4
+
+
+def max_tri_nodes(n: int, animated: bool = False) -> int:
+    """The most triangle-BVH nodes K7 stages beside an n-row sphere table
+    (``animated``: with its motion columns)."""
+    return (SHARED_MEM_BYTES - n * row_bytes(animated)) // NODE_BYTES
 
 
 # Launches of the CUDA kernel since the last zero_counts() (twin calls
 # excluded), by variant: "brute" K1 / K2 (over every row), "walk" K5 (the
 # sphere BVH), "motion" K8 brute with animated and / or cam_animated,
-# "motion_walk" K8's walk with cam_animated, "tri" K7 (the triangle BVH).
-FORWARD_LAUNCHES = {"brute": 0, "walk": 0, "motion": 0, "motion_walk": 0, "tri": 0}
+# "motion_walk" K8's walk with cam_animated, "tri" K7 (the triangle BVH),
+# "tri_motion" K7 with either motion flag (K7 moving with animated).
+FORWARD_LAUNCHES = {"brute": 0, "walk": 0, "motion": 0, "motion_walk": 0, "tri": 0,
+                    "tri_motion": 0}
 RECORD_LAUNCHES = dict(FORWARD_LAUNCHES)
 # The plain walks' work since the last reset: K5's slab tests of a node,
 # rows of a leaf tested, and rows whose discriminant was not negative; K7's
@@ -251,12 +265,14 @@ def run_megakernel(
     ``animated`` moves the spheres on the linear shutter (table columns
     24-29) and ``cam_animated`` re-derives the camera per path at its
     shutter fraction (cam slots 19-37): K8, the kernel's motion variants.
-    A static mesh's ``tri_nodes`` (K, 6), ``tris`` (M, 16), ``mats``
-    (NM, 24) and ``tri_meta`` (K, 3) (``integrator.make_tri_tables``) add
-    the triangle stage (K7) after the brute static search. CUDA tensors
-    launch the CUDA kernel; CPU tensors run the eager reference. The
-    chunk-cull branch, an animated walk (which needs it) and the triangle
-    stage beside a walk or motion raise ``NotImplementedError``.
+    A mesh's ``tri_nodes`` (K, 6), ``tris``, ``mats`` (NM, 24) and
+    ``tri_meta`` (K, 3) (``integrator.make_tri_tables``) add the triangle
+    stage (K7) after the brute search: ``tris`` (M, 16) Woop rows of a
+    static mesh, or with ``animated`` (M, 32) rows of a moving one (K7
+    moving, at each path's shutter fraction). CUDA tensors launch the CUDA
+    kernel; CPU tensors run the eager reference. The chunk-cull branch, an
+    animated walk (which needs it) and the triangle stage beside a walk
+    raise ``NotImplementedError``.
     """
     _check_unported(cbounds)
     _check_inputs(smem, pix, sample0, cam, table)
@@ -276,15 +292,24 @@ def _check_unported(cbounds):
 
 
 def _check_combination(walk, tri, animated, cam_animated):
-    """Raise for the variants the kernel does not instantiate."""
+    """Raise for the variants the kernel does not instantiate, and for a
+    triangle table whose layout is not the one ``animated`` reads."""
     if walk is not None and animated:
         raise _unported("chunk-cull (K6: moving spheres in a big scene)")
-    if tri is not None and (walk is not None or animated or cam_animated):
+    if tri is None:
+        return
+    if walk is not None:
         raise NotImplementedError(
-            "the megakernel's triangle stage (K7) runs beside the brute static "
-            "sphere search only: a mesh with the sphere-BVH walk, moving spheres "
-            "or an animated camera is a template combination not instantiated "
-            "yet (ROADMAP A4)"
+            "the megakernel's triangle stage (K7) runs beside the brute sphere "
+            "search only: a mesh with the sphere-BVH walk is a template "
+            "combination not instantiated yet (ROADMAP A11)"
+        )
+    if (tri[2].shape[1] == TRI_MOVING_COLS) != animated:
+        raise ValueError(
+            f"an animated launch takes a moving mesh's (M, {TRI_MOVING_COLS}) rows and a "
+            f"static one a static mesh's (M, {TRI_COLS}) Woop rows "
+            f"(integrator.make_tri_tables gives every mesh of an animated scene the "
+            f"moving layout), got {tuple(tri[2].shape)} with animated={animated}"
         )
 
 
@@ -313,7 +338,8 @@ def _check_links(meta, rows: int, name: str, what: str) -> None:
 
 def _tri(tri_nodes, tris, mats, tri_meta, table):
     """The triangle stage's tables, checked, or None without a mesh ->
-    (tri_nodes (K, 6), tri_meta (K, 3) int32, tris (M, 16), mats (NM, 24))."""
+    (tri_nodes (K, 6), tri_meta (K, 3) int32, tris (M, 16) or (M, 32),
+    mats (NM, 24))."""
     given = (tri_nodes, tris, mats, tri_meta)
     if all(x is None for x in given):
         return None
@@ -326,11 +352,12 @@ def _tri(tri_nodes, tris, mats, tri_meta, table):
         ("tris", tris, torch.float32, None),
         ("mats", mats, torch.float32, None),
     ))
-    if tris.dim() != 2 or tris.shape[1] != TRI_COLS or mats.dim() != 2 or mats.shape[1] != MAT_COLS:
-        raise ValueError(f"tris must be (M, {TRI_COLS}) and mats (NM, {MAT_COLS}), got "
-                         f"{tuple(tris.shape)} and {tuple(mats.shape)}")
+    if (tris.dim() != 2 or tris.shape[1] not in TRI_MAT_COL or mats.dim() != 2
+            or mats.shape[1] != MAT_COLS):
+        raise ValueError(f"tris must be (M, {TRI_COLS}) or (M, {TRI_MOVING_COLS}) and mats "
+                         f"(NM, {MAT_COLS}), got {tuple(tris.shape)} and {tuple(mats.shape)}")
     _check_links(tri_meta, tris.shape[0], "tri_meta", "tris")
-    mid = tris[:, 15]
+    mid = tris[:, TRI_MAT_COL[tris.shape[1]]]
     if not bool(((mid >= 0) & (mid < mats.shape[0]) & (mid == mid.floor())).all()):
         raise ValueError("tris holds a material id outside mats")
     return tri_nodes, tri_meta, tris, mats
@@ -355,15 +382,17 @@ def _check_inputs(smem, pix, sample0, cam, table):
 
 def check_rows(n: int, walk=None, animated: bool = False, tri=None) -> None:
     """Raise where the kernel's shared memory cannot hold what it stages:
-    ``n`` sphere rows' columns, with ``walk`` the sphere-BVH nodes and with
-    ``tri`` the triangle-BVH nodes (at most :func:`max_tri_nodes`)."""
+    ``n`` sphere rows' columns (with the motion columns when ``animated``),
+    with ``walk`` the sphere-BVH nodes and with ``tri`` the triangle-BVH
+    nodes (at most :func:`max_tri_nodes`)."""
     if tri is not None:
-        k, cap = tri[0].shape[0], max_tri_nodes(n)
+        k, cap = tri[0].shape[0], max_tri_nodes(n, animated)
         if k > cap:
             raise ValueError(
-                f"the triangle BVH has {k} nodes, more than the {cap} that fit in "
-                f"a block's {SHARED_MEM_BYTES} bytes of shared memory beside {n} "
-                f"sphere rows; build the scene with a larger leaf_size"
+                f"the triangle BVH has {k} nodes ({NODE_BYTES} bytes each), more than "
+                f"the {cap} that fit in a block's {SHARED_MEM_BYTES} bytes of shared "
+                f"memory beside {n} sphere rows staged at {row_bytes(animated)} bytes "
+                f"each; build the scene with a larger leaf_size"
             )
     if walk is None:
         cap = MAX_ROWS_ANIMATED if animated else MAX_ROWS
@@ -396,7 +425,7 @@ def _tree_args(walk, tri):
 def _variant(walk, tri, animated, cam_animated) -> str:
     """The launch-count key of a launch."""
     if tri is not None:
-        return "tri"
+        return "tri_motion" if animated or cam_animated else "tri"
     motion = "motion" if animated or cam_animated else ""
     return "_".join(x for x in (motion, "walk" if walk is not None else "") if x) or "brute"
 
@@ -452,11 +481,11 @@ def run_megakernel_record(
     winners' original ids; else it tests every row (K2). ``animated`` and
     ``cam_animated`` are K8's, as in :func:`run_megakernel`: each path's
     words are those of the moving spheres and the camera at its shutter
-    fraction. The triangle tables add K7's stage, as in
-    :func:`run_megakernel`; a triangle winner's word holds its leaf-order
-    id and ``F_TRI``. CUDA tensors launch the kernel; CPU tensors run the
-    twin. The chunk-cull inputs, an animated walk and the triangle stage
-    beside a walk or motion raise ``NotImplementedError``.
+    fraction. The triangle tables add K7's stage (K7 moving with
+    ``animated``), as in :func:`run_megakernel`; a triangle winner's word
+    holds its leaf-order id and ``F_TRI``. CUDA tensors launch the kernel;
+    CPU tensors run the twin. The chunk-cull inputs, an animated walk and
+    the triangle stage beside a walk raise ``NotImplementedError``.
     """
     _check_unported(cbounds)
     _check_inputs(smem, pix, sample0, cam, table)
@@ -642,30 +671,39 @@ def walk_closest_reference(o, d, table, nodes, meta, t_min: float = T_MIN):
     return best, torch.where(hit, win, 0), hit
 
 
-def tri_closest_reference(o, d, t_init, tri_nodes, tri_meta, tris, t_min: float = T_MIN):
+def tri_closest_reference(o, d, t_init, tri_nodes, tri_meta, tris, t_min: float = T_MIN,
+                          w=None):
     """Plain version of K7's walk: each ray walks the triangle BVH's skip
     links on its own, all rays in lockstep (``ops/traverse.lockstep_walk``)
     -> (t (R,), idx (R,) int64: the winner's row of ``tris``, leaf order).
 
-    The slab test is the kernel's, without a margin; a leaf's rows get the
-    Woop unit-triangle test in the kernel's association: with the row's
-    affine map (columns 0-11), d'_z = a2 . d, t = -(a2 . o + b_z) / d'_z
-    (d'_z guarded at |d'_z| > 1e-12), u = (a0 . o + b_x) + t (a0 . d) and v
-    likewise from a1; a hit needs u, v >= 0, u + v <= 1 and t in (t_min,
-    the bound so far). A triangle replaces the bound ``t_init`` (the
-    sphere stage's t) only where strictly nearer; ``idx`` is 0 where none
-    did. Adds the work done to ``TRI_COUNTS``.
+    The slab test is the kernel's, without a margin. On Woop rows (M, 16)
+    a leaf's rows get the unit-triangle test in the kernel's association:
+    with the row's affine map (columns 0-11), d'_z = a2 . d, t = -(a2 . o +
+    b_z) / d'_z (d'_z guarded at |d'_z| > 1e-12), u = (a0 . o + b_x) + t
+    (a0 . d) and v likewise from a1. On moving rows (M, 32) (K7 moving) the
+    rows are first lerped to each ray's shutter fraction ``w`` (R,): e1 +
+    w e1d, e2 + w e2d and o - (v0 + w v0d), then Möller–Trumbore in the
+    kernel's association (:func:`_moving_mt`, |det| > 1e-8). A hit needs u,
+    v >= 0, u + v <= 1 and t in (t_min, the bound so far). A triangle
+    replaces the bound ``t_init`` (the sphere stage's t) only where strictly
+    nearer; ``idx`` is 0 where none did. Adds the work done to
+    ``TRI_COUNTS``.
     """
-    def leaf_test(lanes, rows):
-        w = tris[rows]  # (L, W, 16)
-        a = w[..., 0:9].reshape(*rows.shape, 3, 3)  # rows a0, a1, a2 of the map
+    moving = tris.shape[1] == TRI_MOVING_COLS
+    if moving and w is None:
+        raise ValueError("a moving mesh's rows need the rays' shutter fractions w")
+
+    def woop_test(lanes, rows):
+        wr = tris[rows]  # (L, W, 16)
+        a = wr[..., 0:9].reshape(*rows.shape, 3, 3)  # rows a0, a1, a2 of the map
 
         def affine(v):  # (a_i . v) for i = 0, 1, 2, summed left to right
             p = a * v[lanes][:, None, None, :]
             return (p[..., 0] + p[..., 1]) + p[..., 2]
 
         dp = affine(d)
-        op = affine(o) + w[..., 9:12]
+        op = affine(o) + wr[..., 9:12]
         dpz = dp[..., 2]
         dz_ok = torch.abs(dpz) > 1e-12
         invdz = torch.where(dz_ok, 1.0 / torch.where(dpz == 0.0, 1.0, dpz), 0.0)
@@ -674,8 +712,52 @@ def tri_closest_reference(o, d, t_init, tri_nodes, tri_meta, tris, t_min: float 
         uu, vv = uv[..., 0], uv[..., 1]
         return th, dz_ok & (uv >= 0.0).all(dim=-1) & (uu + vv <= 1.0) & (th > t_min)
 
+    def moving_test(lanes, rows):
+        th, ok = _moving_mt(tris[rows], o[lanes][:, None], d[lanes][:, None],
+                            w[lanes][:, None])
+        return th, ok & (th > t_min)
+
     return lockstep_walk(o, d, t_init, tri_nodes[:, 0:3], tri_nodes[:, 3:6], tri_meta[:, 0],
-                         tri_meta[:, 1], tri_meta[:, 2], t_min, leaf_test, TRI_COUNTS)
+                         tri_meta[:, 1], tri_meta[:, 2], t_min,
+                         moving_test if moving else woop_test, TRI_COUNTS)
+
+
+def _moving_edges(r, w):
+    """The edges e1 + w e1d and e2 + w e2d of moving rows ``r`` (..., 32) at
+    shutter fractions ``w`` (...), each a list of three components."""
+    return ([r[..., 3 + k] + w * r[..., 19 + k] for k in range(3)],
+            [r[..., 6 + k] + w * r[..., 22 + k] for k in range(3)])
+
+
+def _moving_mt(r, o, d, w):
+    """K7 moving's leaf test of moving rows ``r`` (..., 32) against rays
+    (o, d) (..., 3) at shutter fractions ``w`` (...) broadcast against them,
+    term by term in the kernel's association -> (t, ok before the t
+    bounds)."""
+    e1, e2 = _moving_edges(r, w)
+    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+    pv = (dy * e2[2] - dz * e2[1], dz * e2[0] - dx * e2[2], dx * e2[1] - dy * e2[0])
+    det = (e1[0] * pv[0] + e1[1] * pv[1]) + e1[2] * pv[2]
+    det_ok = torch.abs(det) > 1e-8
+    invd = torch.where(det_ok, 1.0 / torch.where(det == 0.0, 1.0, det), 0.0)
+    tv = [o[..., k] - (r[..., k] + w * r[..., 16 + k]) for k in range(3)]
+    uu = ((tv[0] * pv[0] + tv[1] * pv[1]) + tv[2] * pv[2]) * invd
+    qv = (tv[1] * e1[2] - tv[2] * e1[1], tv[2] * e1[0] - tv[0] * e1[2],
+          tv[0] * e1[1] - tv[1] * e1[0])
+    vv = ((dx * qv[0] + dy * qv[1]) + dz * qv[2]) * invd
+    th = ((e2[0] * qv[0] + e2[1] * qv[1]) + e2[2] * qv[2]) * invd
+    return th, det_ok & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
+
+
+def moving_tri_normal(rows, w):
+    """The unit normal of moving rows ``rows`` (R, 32) at shutter fractions
+    ``w`` (R,), as K7 moving makes its winner's: the cross of the lerped
+    edges over max(|n|, 1e-20), the squares summed left to right."""
+    e1, e2 = _moving_edges(rows, w)
+    n = torch.stack([e1[1] * e2[2] - e1[2] * e2[1], e1[2] * e2[0] - e1[0] * e2[2],
+                     e1[0] * e2[1] - e1[1] * e2[0]], dim=1)
+    nlen = torch.sqrt((n[:, 0] * n[:, 0] + n[:, 1] * n[:, 1]) + n[:, 2] * n[:, 2])
+    return n * (1.0 / torch.clamp_min(nlen, 1e-20))[:, None]
 
 
 def camera_at(c, w):
@@ -718,9 +800,10 @@ def _reference_loop(smem, pix, sample0, cam, table, *, rec_depth: int, radiance:
     the sphere-BVH walk over the permuted table, the records' winner ids
     from its column 31. ``tri`` (``_tri``'s tables) adds K7's stage: a
     triangle strictly nearer than the sphere (:func:`tri_closest_reference`)
-    takes the hit, with its table normal and its material's row of ``mats``
-    in the table's columns 6-23, and records its leaf-order id with
-    ``F_TRI``. ``animated`` and ``cam_animated`` (both modes) are K8's: the
+    takes the hit, with its table normal (a moving mesh's: its lerped
+    normal at the path's shutter fraction, :func:`moving_tri_normal`) and
+    its material's row of ``mats`` in the table's columns 6-23, and records
+    its leaf-order id with ``F_TRI``. ``animated`` and ``cam_animated`` (both modes) are K8's: the
     moving-sphere search and winner lerp (which the record's root choice
     reads too), and the camera at each path's shutter fraction
     (:func:`camera_at`).
@@ -802,14 +885,16 @@ def _reference_loop(smem, pix, sample0, cam, table, *, rec_depth: int, radiance:
         row[on] = table[idx[on]]
         if tri is not None:  # K7: a triangle strictly nearer than the sphere
             t_nodes, t_meta, tris, mats = tri
+            moving = tris.shape[1] == TRI_MOVING_COLS  # K7 moving, at w
             tb, tid = tri_closest_reference(o_l, d_l, torch.where(hit, t, BIG), t_nodes,
-                                            t_meta, tris)
+                                            t_meta, tris, w=w if moving else None)
             is_tri = tb < torch.where(hit, t, BIG)
             t = torch.where(is_tri, tb, t)
             hit = hit | is_tri
             twin = tris[tid]
-            row[:, 6:24] = torch.where(is_tri[:, None], mats[twin[:, 15].long(), 0:18],
-                                       row[:, 6:24])
+            mid = twin[:, TRI_MAT_COL[tris.shape[1]]].long()
+            row[:, 6:24] = torch.where(is_tri[:, None], mats[mid, 0:18], row[:, 6:24])
+            t_nrm = moving_tri_normal(twin, w) if moving else twin[:, 12:15]
 
         t_sh = torch.where(hit, t, 1.0)
         hp = o_l + t_sh[:, None] * d_l
@@ -820,7 +905,7 @@ def _reference_loop(smem, pix, sample0, cam, table, *, rec_depth: int, radiance:
         inv_r = 1.0 / torch.clamp_min(w_r, 1e-20)
         nrm = (hp - w_c) * inv_r[:, None]
         if tri is not None:
-            nrm = torch.where(is_tri[:, None], twin[:, 12:15], nrm)
+            nrm = torch.where(is_tri[:, None], t_nrm, nrm)
         front = d_l[:, 0] * nrm[:, 0] + d_l[:, 1] * nrm[:, 1] + d_l[:, 2] * nrm[:, 2] < 0.0
         nrm = nrm * torch.where(front, 1.0, -1.0)[:, None]
 

@@ -515,37 +515,41 @@ def test_what_still_raises():
                                     sd.tri_v2, sd.bvh_min, sd.bvh_max, sd.bvh_first,
                                     sd.bvh_count, sd.bvh_miss, tmk.T_MIN, tmk.BIG, 32,
                                     vertex_fn=lambda pid: None)
-    # A moving mesh.
+    # A moving mesh whose keyframe falls inside the shutter: exact time (A7).
     sc = meshes.fan(tscene, 16)
-    sc.translate_y(0.5, 1.0 / 48.0, "lerp", "local", "tri0")
-    with pytest.raises(NotImplementedError, match="A4"):
-        sc.build(device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
+    sc.translate_y(0.5, 1.0 / 96.0, "lerp", "local", "tri0")
+    assert sc.build(device="cpu").tri_exact
+    with pytest.raises(NotImplementedError, match="exact-time"):
+        trender.render_image(sc, 1, 2, device="cpu")
+    with pytest.raises(FileNotFoundError, match="teapot.obj"):
         tdemo.moving_teapot()
-    # A mesh beside the sphere walk, moving spheres or an animated camera:
-    # template combinations not instantiated.
+    # A mesh beside the sphere walk: a template combination not
+    # instantiated (ROADMAP A11). Moving spheres and an animated camera
+    # beside a mesh are K7's motion variants now.
     from dataclasses import replace
 
     reason = tint.megakernel_unsupported_reason
-    for change in (dict(sph_perm=torch.zeros(8, dtype=torch.int32)), dict(animated=True)):
-        assert "A4" in reason(replace(sd, **change), cp)
-        assert "A4" in tint.megakernel_record_unsupported_reason(replace(sd, **change), cp)
-    assert "A4" in reason(sd, replace(cp, animated=True))
+    walk = replace(sd, sph_perm=torch.zeros(8, dtype=torch.int32))
+    assert "A11" in reason(walk, cp)
+    assert "A11" in tint.megakernel_record_unsupported_reason(walk, cp)
+    assert reason(sd, replace(cp, animated=True)) is None
     inputs, _ = tint.mega_inputs(sd, cp, w, h, 1, 2, 0)
     tri = dict(zip(("tri_nodes", "tris", "mats", "tri_meta"), tint.make_tri_tables(sd)))
-    with pytest.raises(NotImplementedError, match="A4"):
-        tmk.run_megakernel(**inputs, **tri, animated=False, cam_animated=True)
-    with pytest.raises(NotImplementedError, match="A4"):
-        tmk.run_megakernel_record(**inputs, **tri, max_depth=2, animated=True)
-    # The eager replay of a mesh in an animated scene.
-    with pytest.raises(NotImplementedError, match="A4"):
-        trep.trace_replay(replace(sd, animated=True), torch.zeros(4, 3), torch.ones(4, 3),
-                          torch.arange(4), torch.zeros(4), 0, 2,
+    nodes, meta = torch.zeros((1, 16)), torch.zeros((3 * 17,), dtype=torch.int32)
+    meta[2] = 1
+    with pytest.raises(NotImplementedError, match="A11"):
+        tmk.run_megakernel(**inputs, **tri, sph_nodes=nodes, sph_meta=meta, animated=False)
+    with pytest.raises(NotImplementedError, match="A11"):
+        tmk.run_megakernel_record(**inputs, **tri, sph_nodes=nodes, sph_meta=meta,
+                                  max_depth=2)
+    # The eager replay of a mesh whose keyframe falls inside the shutter.
+    with pytest.raises(NotImplementedError, match="A7"):
+        trep.trace_replay(replace(sd, animated=True, tri_exact=True), torch.zeros(4, 3),
+                          torch.ones(4, 3), torch.arange(4), torch.zeros(4), 0, 2,
                           torch.zeros((2, 4), dtype=torch.int32))
     # A BVH mesh the megakernel does not take: auto raises, naming it.
-    with pytest.raises(NotImplementedError, match="animated camera"):
-        trender.render_image_persistent(sd, replace(cp, animated=True), w, h, 1, 2, 0,
-                                        device="cpu")
+    with pytest.raises(NotImplementedError, match="big sphere table"):
+        trender.render_image_persistent(walk, cp, w, h, 1, 2, 0, device="cpu", cull=False)
 
 
 def test_k7_node_cap():

@@ -304,7 +304,7 @@ def test_what_still_raises():
     sd = sc.build(device="cpu")
     with pytest.raises(NotImplementedError, match="exact-time"):
         tint.intersect_scene(sd, torch.zeros(1, 3), torch.ones(1, 3), torch.zeros(1))
-    with pytest.raises(NotImplementedError, match="OBJ"):
+    with pytest.raises(FileNotFoundError, match="teapot.obj"):  # fault C1
         tdemo.MOVIE_WORLDS[2]()
     moving = bouncing_book1(tdemo, 16)
     msd, mcp = moving.build(device="cpu"), moving.scene_cam.params(device="cpu")

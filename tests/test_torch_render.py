@@ -81,18 +81,22 @@ def _render(sc):
 
 
 def _triangle(sc):
-    """Static triangles render (K7, tests/test_torch_mesh.py); a triangle
-    with keyframes is a moving mesh, not ported."""
+    """Static triangles render (K7, tests/test_torch_mesh.py), and so do
+    moving ones (tests/test_torch_mesh_motion.py); a triangle whose keyframe
+    falls inside the shutter needs exact-time motion, not ported."""
     sc.add_element(tscene.Triangle((0, 0, 0), (1, 0, 0), (0, 1, 0),
                                    tscene.Metal((0.5, 0.5, 0.5))), "tri")
     _render(sc)
     sc.translate_y(0.5, 1.0, "lerp", "local", "tri")
     _render(sc)
+    sc.translate_y(0.5, 1.0 / 96.0, "lerp", "local", "tri")
+    _render(sc)
 
 
 def _obj_asset(sc):
-    """An OBJ asset loads (here from a temporary asset directory); moving
-    its mesh is not ported."""
+    """An OBJ asset loads (here from a temporary asset directory) and its
+    mesh moves; a keyframe inside the shutter needs exact-time motion, not
+    ported."""
     import tempfile
 
     from crucible_tpu_torch.io import assets
@@ -108,6 +112,21 @@ def _obj_asset(sc):
     assert sc.build(device="cpu").num_tris == 1
     sc.translate_x(1.0, 1.0, "lerp", "world", "mesh")
     _render(sc)
+    sc.translate_x(1.0, 1.0 / 96.0, "lerp", "world", "mesh")
+    _render(sc)
+
+
+def _movie(sc):
+    """A movie renders frame by frame (``first_movie``, and moving meshes in
+    tests/test_torch_mesh_motion.py); a frame whose shutter holds a
+    keyframe needs exact-time motion, not ported. (``moving_teapot`` needs
+    ``teapot.obj``: fault C1.)"""
+    import tempfile
+
+    sc.duration = 2.0 / 24.0
+    sc.translate_y(0.5, 1.0 / 96.0, "lerp", "local", "ball")
+    with tempfile.TemporaryDirectory() as tmp:
+        trender.render_movie(sc, str(Path(tmp) / "movie"), verbose=False, device="cpu")
 
 
 def _image_texture(sc):
@@ -171,7 +190,7 @@ def _bridged_triangles(sc):
         _animator,
         _obj_asset,
         lambda sc: sc.load_spherical_skybox("garden.jpg"),
-        lambda sc: tdemo.MOVIE_WORLDS[2](),  # moving_teapot needs moving meshes
+        lambda sc: _movie(sc),
         _too_many_spheres,
         _bridged_triangles,
         lambda sc: trender.render_image_persistent(

@@ -306,7 +306,7 @@ def test_eager_replay_names_what_it_lacks():
     sd = bridged(_case("moving_smoke")[0])[0]
     args = (torch.zeros((4, 3)), torch.ones((4, 3)), torch.arange(4), torch.zeros(4),
             0, 2, torch.zeros((2, 4), dtype=torch.int32))
-    for change, item in ((dict(num_tris=3), "A4"), (dict(motion_exact=True), "A7"),
+    for change, item in ((dict(tri_exact=True), "A7"), (dict(motion_exact=True), "A7"),
                          (dict(tex=replace(sd.tex, max_nest=2)), "A5")):
         with pytest.raises(NotImplementedError, match=item):
             trep.trace_replay(replace(sd, **change), *args)

@@ -11,6 +11,23 @@ calls): imports neither.
   metal, checker ground) with a procedural torus of the teapot's 6,320
   triangles in place of ``teapot.obj``. ``chip_smoke.py`` builds the same
   scene.
+
+Moving meshes (linear in their shutter windows unless said otherwise):
+
+- ``moving_fan``: the fan, each triangle translated by 0.5 along x over
+  the first second, at frame 6 (``tests/test_replay.py:210-220``'s
+  animation); ``camera=True`` adds a camera rising by 0.5 over that second,
+  ``mid_shutter=True`` puts the keyframe inside frame 6's shutter instead
+  (exact-time motion);
+- ``fan_beside_moving_sphere``: the static fan beside a rising ball (a
+  static mesh in an animated scene);
+- ``fan_rising_camera``: the static fan seen by the rising camera (a
+  static scene, an animated camera);
+- ``moving_box``: the box translated as the fan (a brute moving mesh);
+- ``moving_torus_teapot``: torus_teapot as a movie (16:9, 24 fps, 180
+  degrees, 5 s) with ``demo.moving_teapot``'s animation on every triangle:
+  translated by (0, 5, 0) over 2.5 s, scaled to 0.5 by 3 s, at frame 30
+  (shutter [1.25, 1.2708] s). ``chip_smoke.py`` builds the same scene.
 """
 
 from __future__ import annotations
@@ -96,11 +113,15 @@ def box(scene, width: int = 32):
 TORUS_U, TORUS_V = 79, 40
 
 
-def torus_teapot(scene, width: int = 400):
-    sc = scene.Scene.new_image(16.0 / 9.0, width, 24, 180.0)
+def torus_teapot(scene, width: int = 400, movie: bool = False):
+    """``movie``: a 5 s movie at ``demo.moving_teapot``'s 50 spp, depth 5."""
+    if movie:
+        sc = scene.Scene.new_movie(16.0 / 9.0, width, 24.0, 180.0, 5.0)
+    else:
+        sc = scene.Scene.new_image(16.0 / 9.0, width, 24, 180.0)
     cam = sc.scene_cam
-    cam.set_samples(200)
-    cam.set_max_depth(50)
+    cam.set_samples(50 if movie else 200)
+    cam.set_max_depth(5 if movie else 50)
     cam.look_from((13.0, 10.0, 3.0))
     cam.look_at((0.0, 0.0, 0.0))
     cam.set_vfov(20.0)
@@ -126,4 +147,51 @@ def torus_teapot(scene, width: int = 400):
         scene.Sphere((0.0, -1000.0, 0.0), 1000.0, scene.Lambertian.from_texture(checker)),
         "ground",
     )
+    return sc
+
+
+LERP, LOCAL, WORLD = "lerp", "local", "world"  # the timeline constants of both packages
+
+
+def moving_fan(scene, width: int = 48, camera: bool = False, mid_shutter: bool = False):
+    sc = fan(scene, width)
+    keyframe = 0.26 if mid_shutter else 1.0  # frame 6's shutter is [0.25, 0.2708]
+    for i in range(80):
+        sc.translate_x(0.5, keyframe, LERP, WORLD, f"tri{i}")
+    if camera:
+        sc.cam_translate_y(0.5, 1.0, LERP, LOCAL, "from")
+    sc.scene_cam.frame = 6
+    return sc
+
+
+def fan_beside_moving_sphere(scene, width: int = 48):
+    sc = fan(scene, width)
+    sc.add_element(scene.Sphere((0.0, 0.9, 0.0), 0.25, scene.Lambertian.from_color(
+        (0.2, 0.4, 0.8))), "ball")
+    sc.translate_y(0.3, 1.0, LERP, LOCAL, "ball")
+    sc.scene_cam.frame = 6
+    return sc
+
+
+def fan_rising_camera(scene, width: int = 48):
+    sc = fan(scene, width)
+    sc.cam_translate_y(0.5, 1.0, LERP, LOCAL, "from")
+    sc.scene_cam.frame = 6
+    return sc
+
+
+def moving_box(scene, width: int = 32):
+    sc = box(scene, width)
+    for k in range(12):
+        sc.translate_x(0.5, 1.0, LERP, WORLD, f"box{k}")
+    sc.scene_cam.frame = 6
+    return sc
+
+
+def moving_torus_teapot(scene, width: int = 400, frame: int = 30):
+    sc = torus_teapot(scene, width, movie=True)
+    for k in range(TORUS_U * TORUS_V * 2):
+        sc.translate_point((0.0, 5.0, 0.0), 2.5, LERP, LOCAL, f"tri{k}")
+        sc.scale_all_uniform(0.5, 3.0, LERP, f"tri{k}")
+    sc.scene_cam.frame = frame
     return sc
