@@ -66,6 +66,21 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
      variant on the original table); 32768 lanes of bouncing book1's
      1920x1080 4 spp d8 launch; and static book1's table given the animated
      flag (zero motion columns) against K2. Each bit for bit.
+   - K6, the chunk-cull branch (the walk over 256-row clusters whose boxes
+     hold the spheres over the shutter), on "bouncing stress"
+     (sphere_stress with every Lambertian sphere rising as in bouncing
+     book1, and the camera too; built here through the public API):
+     forward (moving spheres and camera) on n1936 320 wide, 8 spp, depth
+     50, in full and against the K8 brute search on the original table, on
+     64 of the 120 pixel blocks of n7744 at 320 wide, and on 64 pixel
+     blocks of the n7744 1920x1080 32 spp d50 launch; the same walk over book1's static table in clusters
+     against K1; record (fused and plain) on n1936 and n7744 320 wide, 4
+     spp, depth 8, in full (n1936 also against the K8 brute record), and
+     on 32768 lanes of the n7744 1920x1080 4 spp d8 launch. Each bit for
+     bit against the plain version, which counts the node, row and root
+     tests that give K6's bound. Then K6 and the K8 brute search timed in
+     turns on the same lanes of n1936 at 320 wide and 1920x1080 (the
+     animated CULL_MIN_ROWS crossover).
    - K7, the triangle-BVH stage for static meshes, on "torus_teapot"
      (demo.load_teapot's scene with a procedural torus of the teapot's
      6,320 triangles in place of teapot.obj; built here through the public
@@ -81,12 +96,14 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
      sphere search), on "moving torus_teapot" (torus_teapot as
      demo.moving_teapot's movie, every triangle translated and scaled as
      its teapot is, at frame 30): forward on the moving fan 64 wide and on
-     moving torus_teapot 320 wide, 8 spp, depth 50, in full, and on 64
-     pixel blocks of its 1920x1080 32 spp d50 launch; record (fused and
+     moving torus_teapot 320 wide, 8 spp, depth 50, in full, on 64 pixel
+     blocks of its 1920x1080 32 spp d50 launch and in full on movie frame
+     5 (400x225, 50 spp, depth 5); record (fused and
      plain) at 320 wide, 4 spp, depth 8, in full and on 32768 lanes of its
-     1920x1080 launch; with K8's rising camera (forward 160 wide, record
-     320 wide); and K7 (Woop rows) with the camera on the static
-     torus_teapot (forward 160 wide, record 320 wide). Each bit for bit against the plain version. K7
+     1920x1080 launch; with K8's rising camera (forward 160 wide and the
+     1920x1080 launch's 64 pixel blocks, record 320 wide); and K7 (Woop
+     rows) with the camera on the static torus_teapot (forward 160 wide,
+     record 320 wide). Each bit for bit against the plain version. K7
      and K7 moving timed in turns on one geometry (torus_teapot, and the
      same with a zero keyframe on every triangle) at 320 wide and on the
      1920x1080 32 spp d50 launch. Then the plain walk against the brute
@@ -168,10 +185,27 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
    memory, ``record_decisions`` and a frozen-decision step.
 17. It under a rising camera (K7 moving with K8's camera): ``render_image``
    at 1920x1080, 32 spp, depth 50, twice.
-18. Prints a JSON line describing each kernel (times at the comparison
-   shape, where kernel and twin run the same inputs in full; K5's also at
-   its main shape), the card's line again, and, as the last line,
-   ``{"ok": true, "device": {...}}``.
+18. The animated big scene (K6): ``render.render_image`` of bouncing
+   stress n7744 at 1920x1080, 32 spp, depth 50, twice (one K6 launch each
+   and no other; writes ``build/chip_smoke_bounce_stress.png``), beside the
+   scene build's time.
+19. Its movie: ``render.render_movie`` at 400x225, 50 spp, depth 5, cut to
+   2 frames, the launches of each frame read (frame 0 K6; frame 1, past
+   the keyframe, K6 with zero deltas or K5), beside each frame's build.
+20. Its gradient, ``grad.loss_and_grad`` at 1920x1080, 4 spp, depth 8 (K6
+   record, then the eager replay; K3 and K4 never launch): a warm and 2
+   timed steps, the step by phase, peak memory, ``record_decisions`` and a
+   frozen-decision step.
+21. Cross-checks on n1936: the replay against direct AD at 320x180, 2 spp,
+   depth 8 (loss rel 2e-3, radiometric gradients normalized 5e-3), and the
+   card against the CPU at 64 wide, 2 spp, depth 8 (records equal on
+   every lane with the CPU's plain version taking the card's sin and cos,
+   and on > 0.998 of the lanes with each device's own; from the card's records,
+   loss within rel 1e-4 and radiometric gradients within normalized 1e-3).
+22. Prints a JSON line describing each kernel (times at the comparison
+   shape, where kernel and twin run the same inputs in full; K5's, K6's
+   and others' also at their main shape), the card's line again, and, as
+   the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero. Without CUDA, or
 without the package beside this file, it exits non-zero before printing a
@@ -215,6 +249,11 @@ SLAB_OPS = 18
 # and pixel00).
 MOTION_SEARCH_OPS = SEARCH_OPS + 18
 CAM_OPS = 81
+# K6's walk over clusters: K5's slab test a node, and a moving leaf row
+# costs K10's HIT_DISC_OPS plus the motion terms (csrc/megakernel.cu
+# walk_closest<true>, common.cuh closest_sphere_moving), ROOT_OPS more
+# where the discriminant is not negative (counted by CULL_COUNTS).
+MOVING_DISC_OPS = HIT_DISC_OPS + MOTION_SEARCH_OPS - SEARCH_OPS
 # K7's walk: a node's slab test (6 subtractions and 6 multiplies), and a
 # leaf row's Woop test (d'_z 5, o'_z 6, the division, t, o'_x and d'_x 11,
 # u 2, o'_y and d'_y 11, v 2, u + v 1: 40 with t's multiply), the rows the
@@ -236,14 +275,31 @@ def bouncing_book1(demo, width: int):
     position, by 0.5. Frame 0's shutter holds no keyframe strictly inside
     it, so its motion is linear. tests/torch_motion_scenes.py builds the
     same scene."""
-    sc = demo.book1_end_scene(width=width)
+    return bounce(demo.book1_end_scene(width=width), ("small",))
+
+
+def bouncing_stress(demo, width: int, copies: int):
+    """``demo.sphere_stress(width, copies)`` in motion as bouncing_book1
+    moves book1 (book1's small spheres, then the copies' ``stress{k}``):
+    copies=4 has 1,936 table rows, copies=16 7,744, whose moving table the
+    megakernel walks in 256-row clusters (K6). tests/torch_motion_scenes.py
+    builds the same scene."""
+    return bounce(demo.sphere_stress(width=width, copies=copies), ("small", "stress"))
+
+
+def bounce(sc, prefixes):
+    """Raise every Lambertian sphere named ``<prefix><k>`` by U(0, 0.5)
+    (numpy seed 11, in order) over the first 1/48 s, and the camera's
+    position by 0.5; returns ``sc``."""
     rng = __import__("numpy").random.default_rng(11)
-    k = 0
-    while sc.id_vendor.alias_lookup(f"small{k}") is not None:
-        el = next(e for e in sc.elements if e.id == sc.id_vendor.alias_lookup(f"small{k}")[0])
-        if type(el.material).__name__ == "Lambertian":
-            sc.translate_y(float(rng.uniform(0.0, 0.5)), 1.0 / 48.0, "lerp", "local", f"small{k}")
-        k += 1
+    for prefix in prefixes:
+        k = 0
+        while sc.id_vendor.alias_lookup(f"{prefix}{k}") is not None:
+            alias = f"{prefix}{k}"
+            el = next(e for e in sc.elements if e.id == sc.id_vendor.alias_lookup(alias)[0])
+            if type(el.material).__name__ == "Lambertian":
+                sc.translate_y(float(rng.uniform(0.0, 0.5)), 1.0 / 48.0, "lerp", "local", alias)
+            k += 1
     sc.cam_translate_y(0.5, 1.0 / 48.0, "lerp", "local", "from")
     return sc
 
@@ -495,6 +551,10 @@ def main() -> None:
           f"{torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
 
+    def mark(section):
+        """Print the seconds since the card check before a section."""
+        print(f"[{time.perf_counter() - t_start:.1f} s] {section}", flush=True)
+
     # --- build ----------------------------------------------------------------
     libs, build_s, log = build.build()
     print(f"build: {build_s:.2f} s -> "
@@ -507,6 +567,7 @@ def main() -> None:
     kernels = {}
 
     # --- K1: forward megakernel vs eager twin -----------------------------------
+    mark('K1: forward megakernel vs eager twin')
     def compare_k1(scene, spp, depth, lanes=None):
         sd = scene.build(device=dev)
         cp = scene.scene_cam.params(device=dev)
@@ -589,6 +650,7 @@ def main() -> None:
     print(f"  K1 1080p work: {searches} searches x {n_active} rows; bound {b:.3f} ms ({by})")
 
     # --- K2, K4, K3 at the comparison shape: book1 320w, 4 spp, depth 8 -------
+    mark('K2, K4, K3 at the comparison shape: book1 320w, 4 spp, depth 8')
     def grad_inputs(make, width, spp, depth):
         """Inputs of K2 and of the replay kernels for every pixel of
         ``make(width=width)`` at ``spp`` samples, lanes sample-major as
@@ -686,6 +748,7 @@ def main() -> None:
     del k2, rin, rargs, rec320, got, again, want, g_rad
 
     # --- K2, K4, K3 at the gradient step's shape: 1920x1080, 4 spp, depth 8 ---
+    mark("K2, K4, K3 at the gradient step's shape: 1920x1080, 4 spp, depth 8")
     k2, rin = grad_inputs(demo.book1_end_scene, 1920, 4, 8)
     r = rin[1].shape[0]
     sub = torch.randperm(r, generator=torch.Generator().manual_seed(1))[:N_SUB]
@@ -725,6 +788,7 @@ def main() -> None:
     del k2, rin, rargs, rec, rad, got, g_rad, got_sub, want_sub
 
     # --- the gradient step on the card vs on the CPU (twins), small -----------
+    mark('the gradient step on the card vs on the CPU (twins), small')
     sc = demo.book1_end_scene(width=64)
     kw = dict(width=64, height=36, spp=2, max_depth=8)
     results = []
@@ -748,6 +812,7 @@ def main() -> None:
             raise AssertionError(f"{key}: card and CPU gradients disagree")
 
     # --- K10: closest sphere hit vs its plain version ---------------------------
+    mark('K10: closest sphere hit vs its plain version')
     def k10_args(sd, o, d):
         c = sd.sph_center
         r = sd.sph_radius
@@ -820,6 +885,7 @@ def main() -> None:
     del o, d, args, pix, smp
 
     # --- K9: fused hit + fetch vs its plain version -----------------------------
+    mark('K9: fused hit + fetch vs its plain version')
     def k9_check(o, d, w, table, what):
         args = (o.contiguous(), d.contiguous(), w.contiguous(), table.contiguous())
         out = ss.hit_spheres_fetch(*args)
@@ -860,6 +926,7 @@ def main() -> None:
     del o, d, w, moving, k9_in, pix
 
     # --- the pixel schedule: card vs CPU, and vs the mega schedule ------------
+    mark('the pixel schedule: card vs CPU, and vs the mega schedule')
     sc = demo.garden_skybox(width=64)
     card_img = render.render_image(sc, samples=4, max_depth=8)
     cpu_img = render.render_image(sc, samples=4, max_depth=8, device="cpu")
@@ -878,6 +945,7 @@ def main() -> None:
     del imgs, a, b, card_img, cpu_img
 
     # --- K5: the sphere-BVH walk vs its plain version and vs K1 / K2 ----------
+    mark('K5: the sphere-BVH walk vs its plain version and vs K1 / K2')
     def stress_inputs(copies, width):
         """sphere_stress at ``width``: (scene, camera, w, h, its BVH tables as
         the wrappers take them)."""
@@ -1009,6 +1077,7 @@ def main() -> None:
     )
 
     # --- K4 and K3 at n1936's 1936 rows -----------------------------------------
+    mark("K4 and K3 at n1936's 1936 rows")
     rargs = (*rin, rec320, 0)
     rad = rk.replay_forward(*rargs)
     bit_equal(rad, rk.replay_forward_reference(*rargs), "K4 n1936 320w 4spp d8 radiance")
@@ -1030,6 +1099,7 @@ def main() -> None:
     del rin, rargs, rec320, rad, got, want, g_rad
 
     # --- K8: the motion variants vs their plain versions ------------------------
+    mark('K8: the motion variants vs their plain versions')
     def k8_inputs(sc, spp, depth):
         sd, cp = sc.build(device=dev), sc.scene_cam.params(device=dev)
         w, h = sc.scene_cam.image_width, sc.scene_cam.image_height
@@ -1147,6 +1217,7 @@ def main() -> None:
     del imgs, a, b, b_in, s_in, w_in, walk
 
     # --- K8 record: the motion variants in record mode vs their plain version -
+    mark('K8 record: the motion variants in record mode vs their plain version')
     def k8_record_check(k2, depth, flags, what, sub=None, bvh=None):
         """K8's record launches (fused and plain) against the plain loop (on
         ``sub`` of the lanes if given) -> (max|diff|, plain ms, the plain
@@ -1251,7 +1322,168 @@ def main() -> None:
         main_ms=rec_main_ms, main_bound_ms=rec_main_b, main_k2_ms=rec_main_k2_ms,
     )
 
+    # --- K6: the chunk-cull branch vs its plain version and vs K8 / K1 ---------
+    mark('K6: the chunk-cull branch vs its plain version and vs K8 / K1')
+    def plain_cull(fn):
+        """(result, ms, the plain loop's counted work: searches, samples
+        issued, and the cluster walk's nodes, rows and roots) of one call."""
+        mk.SEARCH_COUNTS.update(searches=0, issued=0)
+        mk.CULL_COUNTS.update(nodes=0, rows=0, roots=0)
+        out, ms = host_ms(fn)
+        return out, ms, dict(mk.SEARCH_COUNTS, **mk.CULL_COUNTS)
+
+    def cull_ops(counts, animated, cam_animated):
+        row = MOVING_DISC_OPS if animated else HIT_DISC_OPS
+        return (counts["nodes"] * SLAB_OPS + counts["rows"] * row + counts["roots"] * ROOT_OPS
+                + cam_animated * counts["issued"] * CAM_OPS)
+
+    def cull_inputs(copies, width, spp, depth, record=False):
+        """Bouncing stress (copies) at ``width``: (its scene data, the
+        brute inputs on the original table, K6's: the table in cluster
+        order and the cluster bounds); record mode lays the lanes out
+        sample-major."""
+        sc = bouncing_stress(demo, width, copies)
+        sd, cp = sc.build(device=dev), sc.scene_cam.params(device=dev)
+        if not (sd.animated and cp.animated and sd.sph_cbounds is not None):
+            raise AssertionError("bouncing stress should move and carry its cluster tables")
+        w, h = sc.scene_cam.image_width, sc.scene_cam.image_height
+        brute, _ = integrator.mega_inputs(sd, cp, w, h, spp, depth, 0)
+        if record:
+            p = w * h
+            brute["pix"] = torch.arange(p, device=dev, dtype=torch.int32).repeat(spp)[None]
+            brute["sample0"] = torch.arange(spp, device=dev,
+                                            dtype=torch.int32).repeat_interleave(p)[None]
+        cull = dict(brute, table=integrator.permute_table(brute["table"], sd.sph_perm),
+                    cbounds=sd.sph_cbounds)
+        return sd, brute, cull
+
+    both = flag_sets["both"]
+
+    def k6_forward(copies, width, spp, depth, lanes=None):
+        """K6's forward launch (moving spheres and camera) on bouncing
+        stress against the plain version (on ``lanes`` if given) and, where
+        K8's brute search holds the table, against it on the original
+        table."""
+        sd, brute, cull = cull_inputs(copies, width, spp, depth)
+        n = sd.sph_center.shape[0]
+        what = f"K6 n{n} {width}w {spp}spp d{depth}"
+        out = mk.run_megakernel(**cull, **both)
+        ms = cuda_ms(lambda: mk.run_megakernel(**cull, **both), 1 if width == 1920 else 2)
+        if n <= mk.MAX_ROWS_ANIMATED and lanes is None:
+            bit_equal(out, mk.run_megakernel(**brute, **both), f"{what} vs K8 brute")
+        r_all = cull["pix"].shape[1]
+        valid_all = int((cull["sample0"] < mk.NO_SAMPLE).sum())
+        sub = cull
+        if lanes is not None:
+            sub, out = lane_subset(cull, lanes), out[:, lanes]
+            what += f" on {lanes.numel()} lanes"
+        ref, plain_ms, counts = plain_cull(lambda: mk.run_megakernel_reference(**sub, **both))
+        err = bit_equal(out, ref, f"{what} vs plain")
+        scale = valid_all / int((sub["sample0"] < mk.NO_SAMPLE).sum())
+        b, by = bound(cull_ops(counts, **both) * scale, nbytes(*cull.values()) + 3 * 4 * r_all)
+        print(f"{what}: K6 {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {b:.4f} ms ({by}); "
+              f"work {counts}, x{scale:.2f}")
+        return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b, bound_by=by)
+
+    def block_lanes(n_blocks, seed):
+        """The lanes of 64 random pixel blocks of a launch's ``n_blocks``."""
+        blocks = torch.randperm(n_blocks, generator=torch.Generator().manual_seed(seed))[:64]
+        return (blocks.sort().values[:, None] * mk.TILE
+                + torch.arange(mk.TILE)).reshape(-1).to(dev)
+
+    # n1936 in full (and against K8's brute search); n7744 at 320w on 64 of
+    # its 120 pixel blocks, and its 1920x1080 launch on 64 of 4080.
+    k6 = {4: k6_forward(4, 320, 8, 50),
+          16: k6_forward(16, 320, 8, 50, lanes=block_lanes(10 * math.ceil(180 / 16), 12))}
+    k6_main = k6_forward(16, 1920, 32, 50, lanes=block_lanes(n_blocks, 9))
+    print(f"  K6 n7744 1920x1080 32spp d50: {k6_main['ms']:.1f} ms "
+          f"({1920 * 1080 * 32 / k6_main['ms'] / 1e3:.2f} Mrays/s)")
+
+    # The same walk over a static table's clusters (book1, no deltas) is a
+    # pure skip over K1's search.
+    s_sd, s_cp, s_in = k8_inputs(demo.book1_end_scene(width=320), 8, 50)
+    perm, bounds = mk.cluster_spheres(s_sd.sph_center.cpu().numpy(),
+                                      s_sd.sph_radius.cpu().numpy(),
+                                      s_sd.sph_active.cpu().numpy())
+    s_cull = dict(s_in, table=integrator.permute_table(s_in["table"],
+                                                       torch.from_numpy(perm).to(dev)),
+                  cbounds=torch.from_numpy(bounds).to(dev))
+    out = mk.run_megakernel(**s_cull, animated=False)
+    bit_equal(out, mk.run_megakernel(**s_in, animated=False), "K6 static book1 320w 8spp d50 vs K1")
+    ref, plain_ms, counts = plain_cull(lambda: mk.run_megakernel_reference(**s_cull))
+    k6_static_err = bit_equal(out, ref, "K6 static book1 320w 8spp d50 vs plain")
+    k6_static_ms = cuda_ms(lambda: mk.run_megakernel(**s_cull, animated=False), 3)
+    k6_static_k1_ms = cuda_ms(lambda: mk.run_megakernel(**s_in, animated=False), 3)
+    print(f"K6 static book1 320w 8spp d50: K6 {k6_static_ms:.3f} ms, K1 {k6_static_k1_ms:.3f} "
+          f"ms, plain {plain_ms:.1f} ms; work {counts}")
+    del s_in, s_cull, out, ref
+
+    # The animated CULL_MIN_ROWS crossover: K6 and the K8 brute search on
+    # the same lanes of n1936, in turns (K8, K6, K6, K8).
+    crossover = {}
+    for width, spp in ((320, 8), (1920, 32)):
+        _, brute, cull = cull_inputs(4, width, spp, 50)
+        reps = 3 if width == 320 else 1
+        t = [cuda_ms(lambda: mk.run_megakernel(**brute, **both), reps),
+             cuda_ms(lambda: mk.run_megakernel(**cull, **both), reps),
+             cuda_ms(lambda: mk.run_megakernel(**cull, **both), reps),
+             cuda_ms(lambda: mk.run_megakernel(**brute, **both), reps)]
+        crossover[f"{width}w"] = dict(k8_ms=[t[0], t[3]], k6_ms=[t[1], t[2]])
+        print(f"K6 vs K8 brute, bouncing stress n1936 {width}w {spp}spp d50 (same lanes, in "
+              f"turns): K8 {t[0]:.2f} / {t[3]:.2f} ms, K6 {t[1]:.2f} / {t[2]:.2f} ms "
+              f"(K8 / K6 {(t[0] + t[3]) / (t[1] + t[2]):.3f})")
+    del brute, cull
+    kernels["megakernel_cull"] = dict(
+        source="crucible_tpu_torch/csrc/megakernel.cu",
+        replaces="crucible_tpu/ops/pallas/megakernel.py:1681",
+        **k6[16], ms_n1936=k6[4]["ms"], plain_ms_n1936=k6[4]["plain_ms"],
+        bound_ms_n1936=k6[4]["bound_ms"], main_ms=k6_main["ms"],
+        main_bound_ms=k6_main["bound_ms"], main_plain_ms_checked_lanes=k6_main["plain_ms"],
+        ms_static_book1=k6_static_ms, k1_ms_static_book1=k6_static_k1_ms,
+        crossover_n1936=crossover,
+    )
+
+    # K6 in record mode (fused and plain), against the plain version and, at
+    # n1936, K8's brute record on the original table.
+    def k6_record(copies, width, sub=None):
+        sd, brute, cull = cull_inputs(copies, width, 4, 8, record=True)
+        n = sd.sph_center.shape[0]
+        what = f"K6 record n{n} {width}w 4spp d8"
+        cb = dict(cbounds=cull.pop("cbounds"))
+        if sub is not None:
+            what += f" on {sub.numel()} lanes"
+        mk.CULL_COUNTS.update(nodes=0, rows=0, roots=0)
+        err, plain_ms, counts, rec = k8_record_check(cull, 8, both, what, sub=sub, bvh=cb)
+        counts = dict(counts, **mk.CULL_COUNTS)  # the plain loop's, run once there
+        ms = cuda_ms(lambda: mk.run_megakernel_record(**cull, **cb, max_depth=8, radiance=True,
+                                                      **both), 3)
+        if n <= mk.MAX_ROWS_ANIMATED and sub is None:
+            acc, _ = mk.run_megakernel_record(**cull, **cb, max_depth=8, radiance=True, **both)
+            b_acc, b_rec = mk.run_megakernel_record(**brute, max_depth=8, radiance=True, **both)
+            bit_equal(rec, b_rec, f"{what}: records vs K8 brute record")
+            bit_equal(acc, b_acc, f"{what}: fused radiance vs K8 brute record")
+        r = cull["pix"].shape[1]
+        scale = r / (r if sub is None else sub.numel())
+        b, by = bound(cull_ops(counts, **both) * scale,
+                      nbytes(*cull.values(), *cb.values(), rec) + 3 * 4 * r)
+        print(f"{what}: K6 {ms:.3f} ms (fused), plain {plain_ms:.1f} ms, bound {b:.4f} ms "
+              f"({by}); work {counts}, x{scale:.2f}")
+        return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b, bound_by=by)
+
+    k6r = {copies: k6_record(copies, 320) for copies in (4, 16)}
+    r = 1920 * 1080 * 4
+    sub = torch.randperm(r, generator=torch.Generator().manual_seed(10))[:N_SUB].sort().values
+    k6r_main = k6_record(16, 1920, sub=sub.to(dev))
+    kernels["megakernel_cull_record"] = dict(
+        source="crucible_tpu_torch/csrc/megakernel.cu",
+        replaces="crucible_tpu/ops/pallas/megakernel.py:1828",
+        **k6r[16], ms_n1936=k6r[4]["ms"], plain_ms_n1936=k6r[4]["plain_ms"],
+        bound_ms_n1936=k6r[4]["bound_ms"], main_ms=k6r_main["ms"],
+        main_bound_ms=k6r_main["bound_ms"], main_plain_ms_checked_lanes=k6r_main["plain_ms"],
+    )
+
     # --- K7: the triangle-BVH stage vs its plain version -----------------------
+    mark('K7: the triangle-BVH stage vs its plain version')
     def mesh_inputs(sc, spp, depth, record=False, leaf_size=None):
         """(scene data, the kernel's inputs with the mesh's tables, the
         scene's motion flags) for every pixel of ``sc``; record mode lays
@@ -1432,6 +1664,7 @@ def main() -> None:
     del inputs, sweep_sc, sweep_main_sc, t_sd
 
     # --- K7 moving (and K7 with K8's camera) vs the plain version -------------
+    mark("K7 moving (and K7 with K8's camera) vs the plain version")
     t0 = time.perf_counter()
     mt_sc = moving_torus_teapot(tscene, 320)  # the animation of 6,320 aliases
     print(f"moving torus_teapot: the scene's 12,640 keyframes added in "
@@ -1564,6 +1797,7 @@ def main() -> None:
     del o, d, wr, wt, wi, bt, bi, bh, verts, m_sd
 
     # --- the moving-scene gradient step on the card vs on the CPU, small -----
+    mark('the moving-scene gradient step on the card vs on the CPU, small')
     # An animated camera rebuilds its basis per ray, so the card's and the
     # CPU's primary rays differ in the last ulps of their square roots and
     # divisions (torch on the card rounds them unlike torch on the CPU),
@@ -1722,6 +1956,7 @@ def main() -> None:
     del recs
 
     # --- main path 1: the forward render ---------------------------------------
+    mark('main path 1: the forward render')
     scene = demo.book1_end_scene(width=1920)
     mk.zero_counts()
     img, ms = host_ms(lambda: render.render_image(scene, samples=32, max_depth=50))
@@ -1743,6 +1978,7 @@ def main() -> None:
     kernels["megakernel_forward"]["launches"] = launches_k1
 
     # --- main path 2: the gradient step, 1920x1080, 4 spp, depth 8 --------------
+    mark('main path 2: the gradient step, 1920x1080, 4 spp, depth 8')
     w, h, spp = 1920, 1080, 4
     pix = torch.arange(w * h, device=dev)
     target = torch.zeros((w * h, 3), device=dev)
@@ -1885,6 +2121,7 @@ def main() -> None:
     del tparams, step
 
     # --- main path 3: the staged forward render (garden, pixel schedule) ------
+    mark('main path 3: the staged forward render (garden, pixel schedule)')
     scene = demo.garden_skybox(width=1920)
     gsd, gcp = scene.build(), scene.scene_cam.params()
     if integrator.megakernel_supported(gsd, gcp) or not integrator.fused_supported(gsd):
@@ -1907,6 +2144,7 @@ def main() -> None:
     del img
 
     # --- main path 4: the direct-AD gradient step, 1920x1080, 4 spp, depth 8 ----
+    mark('main path 4: the direct-AD gradient step, 1920x1080, 4 spp, depth 8')
     akw = dict(kw, method="ad")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1937,6 +2175,7 @@ def main() -> None:
     del params
 
     # --- main path 5: the big-scene forward render (n7744, the walk) ------------
+    mark('main path 5: the big-scene forward render (n7744, the walk)')
     scene = demo.sphere_stress(width=1920, copies=16)
     _, ms = host_ms(lambda: scene.build())  # the host-side SAH build, cached
     mk.zero_counts()
@@ -1957,6 +2196,7 @@ def main() -> None:
     del img
 
     # --- main path 6: the big-scene gradient step (n1936), 1080p 4 spp d8 -------
+    mark('main path 6: the big-scene gradient step (n1936), 1080p 4 spp d8')
     scene = demo.sphere_stress(width=1920, copies=4)
     sd, cp = scene.build(), scene.scene_cam.params()
     if sd.sph_perm is None or not replay._use_replay_kernel(sd):
@@ -1978,10 +2218,11 @@ def main() -> None:
         kernels[name]["launches"] = n
 
     # --- main path 7: the forward render in motion (K8) -------------------------
+    mark('main path 7: the forward render in motion (K8)')
     def motion_launches():
         f = mk.FORWARD_LAUNCHES
         return dict(k1=f["brute"], k5=f["walk"], k8=f["motion"], k8_walk=f["motion_walk"],
-                    k7=f["tri"], k7m=f["tri_motion"], k9=ss.LAUNCHES)
+                    k6=f["cull"], k7=f["tri"], k7m=f["tri_motion"], k9=ss.LAUNCHES)
 
     def zero_motion_launches():
         mk.zero_counts()
@@ -2020,6 +2261,7 @@ def main() -> None:
     launches_k8 += got["k8_walk"]
 
     # --- main path 8: movies through render_movie --------------------------------
+    mark('main path 8: movies through render_movie')
     with tempfile.TemporaryDirectory() as tmp:
         movie = demo.first_movie(duration=0.25)  # 15 s cut to 6 frames
         frames = {}
@@ -2056,6 +2298,7 @@ def main() -> None:
     kernels["megakernel_motion"]["launches"] = launches_k8
 
     # --- main path 9: gradients of moving scenes, big tables and the HDR sky --
+    mark('main path 9: gradients of moving scenes, big tables and the HDR sky')
     # Each through grad.loss_and_grad(method="auto") at 1920x1080, 4 spp, d8:
     # bouncing book1 (K8 record, the eager replay), sphere_stress n7744 (the
     # record walk K5, the eager replay above the kernels' 2048 rows) and
@@ -2063,7 +2306,7 @@ def main() -> None:
     def grad_launches():
         r = mk.RECORD_LAUNCHES
         return dict(k2=r["brute"], k5=r["walk"], k8=r["motion"], k8_walk=r["motion_walk"],
-                    k7=r["tri"], k7m=r["tri_motion"], k4=rk.LAUNCHES_FORWARD,
+                    k6=r["cull"], k7=r["tri"], k7m=r["tri_motion"], k4=rk.LAUNCHES_FORWARD,
                     k3=rk.LAUNCHES_BACKWARD)
 
     def check_leaves(loss, grads, params, what):
@@ -2259,6 +2502,7 @@ def main() -> None:
     del params, ga, gr
 
     # --- main path 10: the mesh forward render (K7), torus_teapot 1080p ---------
+    mark('main path 10: the mesh forward render (K7), torus_teapot 1080p')
     scene = torus_teapot(tscene, 1920)
     _, build_ms = host_ms(lambda: scene.build())  # the host-side lowering and SAH, cached
     sd, cp = scene.build(), scene.scene_cam.params()
@@ -2286,6 +2530,7 @@ def main() -> None:
     del img
 
     # --- main path 11: the mesh's gradient, 1920x1080, 4 spp, depth 8 -----------
+    mark("main path 11: the mesh's gradient, 1920x1080, 4 spp, depth 8")
     # loss_and_grad(method="auto") -> the replay: K7 record, then the eager
     # replay's triangle branch (the replay kernels take no triangles).
     if replay._use_replay_kernel(sd) or not integrator.megakernel_record_supported(sd, cp):
@@ -2313,6 +2558,7 @@ def main() -> None:
     kernels["megakernel_tri_record"]["launches"] = launches_k7r
     del params
     # --- main path 12: the moving mesh forward (K7 moving), frame 30, 1080p ----
+    mark('main path 12: the moving mesh forward (K7 moving), frame 30, 1080p')
     def forward_runs(scene, sd, what):
         """Two timed render_image runs of a moving mesh at 1920x1080 32 spp
         d50, each one K7 moving launch ("tri_motion" on the scene's moving
@@ -2354,6 +2600,7 @@ def main() -> None:
     mesh_cells = dict(forward_ms=fwd_runs, build_ms=build_ms)
 
     # --- main path 13: the moving mesh movie, 400x225 50 spp d5, 6 frames ------
+    mark('main path 13: the moving mesh movie, 400x225 50 spp d5, 6 frames')
     movie = moving_torus_teapot(tscene, 400)
     movie.duration = 0.25  # 5 s cut to 6 frames
     frame_build = []
@@ -2387,6 +2634,7 @@ def main() -> None:
     del movie
 
     # --- main path 14: the moving mesh's gradient, 1080p 4 spp d8, frame 30 -----
+    mark("main path 14: the moving mesh's gradient, 1080p 4 spp d8, frame 30")
     # loss_and_grad(method="auto") -> the replay: K7 moving record, then the
     # eager replay's moving-triangle branch (the replay kernels take no
     # triangles).
@@ -2417,6 +2665,7 @@ def main() -> None:
 
     # --- main path 15: the moving mesh seen by a rising camera (K7 moving +
     # K8's camera), frame 30, 1080p 32 spp d50 -----------------------------------
+    mark("main path 15: the moving mesh seen by a rising camera")
     rising_camera(scene)
     sd, cp = scene.build(), scene.scene_cam.params()
     if not (cp.animated and integrator.megakernel_supported(sd, cp)):
@@ -2429,6 +2678,186 @@ def main() -> None:
     kernels["megakernel_tri_moving"]["launches"] = launches_k7m
     kernels["megakernel_tri_moving_record"]["launches"] = launches_k7mr
     print("moving mesh cells: " + json.dumps(mesh_cells))
+
+    # --- main path 16: the animated big scene (K6), bouncing stress n7744 --------
+    mark('main path 16: the animated big scene (K6), bouncing stress n7744')
+    scene = bouncing_stress(demo, 1920, 16)
+    _, build_ms = host_ms(lambda: scene.build())  # timelines, cluster_spheres; cached
+    sd, cp = scene.build(), scene.scene_cam.params()
+    if not (sd.animated and cp.animated and sd.sph_cbounds is not None
+            and sd.sph_center.shape[0] == 7744 and integrator.megakernel_supported(sd, cp)):
+        raise AssertionError("bouncing stress n7744 should move, with its cluster tables, "
+                             "and go to mega")
+    cull_cells = dict(build_ms=build_ms, forward_ms=[])
+    launches_k6 = 0
+    for i in range(2):
+        zero_motion_launches()
+        img, ms = host_ms(lambda: render.render_image(scene, samples=32, max_depth=50))
+        got = motion_launches()
+        if tuple(img.shape) != (1080, 1920, 3) or not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"bouncing stress: shape {tuple(img.shape)} or non-finite")
+        if got["k6"] != 1 or any(n for k, n in got.items() if k != "k6"):
+            raise AssertionError(f"bouncing stress: launches {got}")
+        launches_k6 += got["k6"]
+        cull_cells["forward_ms"].append(ms)
+        print(f"render_image bouncing stress n7744 1920x1080 32spp d50 (auto -> mega, K6), "
+              f"run {i}: {ms / 1e3:.3f} s, {1920 * 1080 * 32 / ms / 1e3:.2f} Mrays/s, mean "
+              f"{img.mean().item():.5f}; launches {got}; nvidia-smi: {smi()}")
+    print(f"  bouncing stress n7744 scene build (7,744 rows, {sd.sph_cbounds.shape[0]} "
+          f"clusters): {build_ms / 1e3:.3f} s")
+    png = REPO / "build" / "chip_smoke_bounce_stress.png"
+    write_png(png, render.to_u8(img))
+    print(f"wrote {png.relative_to(REPO)}")
+    del img
+
+    # --- main path 17: its movie, 400x225 50 spp d5, 2 frames ----------------------
+    mark('main path 17: its movie, 400x225 50 spp d5, 2 frames')
+    movie = bouncing_stress(demo, 400, 16)
+    movie.duration = 2 / 24
+    movie.scene_cam.set_samples(50)
+    movie.scene_cam.set_max_depth(5)
+    frame_build = []
+    for fi in range(2):
+        movie.scene_cam.frame = fi
+        frame_build.append(host_ms(lambda: movie.build())[1])
+    per_frame = []
+    real_render = render.render_image_data
+
+    def counted(*args, **kwargs):
+        """render_image_data, its launches read per frame."""
+        before = motion_launches()
+        out = real_render(*args, **kwargs)
+        per_frame.append({k: n - before[k] for k, n in motion_launches().items() if n - before[k]})
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        frames = {}
+        zero_motion_launches()
+        render.render_image_data = counted
+        try:
+            _, ms = host_ms(lambda: render.render_movie(
+                movie, str(Path(tmp) / "bounce_stress"), verbose=False,
+                on_frame=lambda fi, dt: frames.__setitem__(fi, dt)))
+        finally:
+            render.render_image_data = real_render
+    if sorted(frames) != [0, 1] or len(per_frame) != 2 or per_frame[0] != {"k6": 1} or not all(
+            f in ({"k6": 1}, {"k5": 1}) for f in per_frame):
+        raise AssertionError(f"bouncing stress movie: frames {sorted(frames)}, launches "
+                             f"by frame {per_frame}")
+    launches_k6 += sum(f.get("k6", 0) for f in per_frame)
+    cull_cells.update(movie_ms=ms, movie_build_ms=frame_build, movie_launches=per_frame)
+    print(f"render_movie bouncing stress n7744 400x225 50spp d5, 2 frames: {ms / 1e3:.3f} s, "
+          f"{ms / 2e3:.3f} s per frame (dispatch to written: "
+          f"{', '.join(f'{frames[i]:.3f}' for i in range(2))} s); scene build per frame "
+          f"{', '.join(f'{b / 1e3:.3f}' for b in frame_build)} s; launches by frame {per_frame}")
+    kernels["megakernel_cull"]["launches"] = launches_k6
+    del movie
+
+    # --- main path 18: its gradient, 1920x1080, 4 spp, depth 8, every pixel -------
+    mark('main path 18: its gradient, 1920x1080, 4 spp, depth 8, every pixel')
+    # loss_and_grad(method="auto") -> the replay: K6 record, then the eager
+    # replay (records hold original ids; the replay kernels take no motion).
+    if replay._use_replay_kernel(sd) or not integrator.megakernel_record_supported(sd, cp):
+        raise AssertionError("bouncing stress n7744 should record through K6, replay eagerly")
+    params, loss0, _, step_ms, peak = eager_steps(sd, cp, "bouncing stress n7744", "k6")
+    launches_k6r = mk.RECORD_LAUNCHES["cull"]
+    if any(n for k, n in grad_launches().items() if k != "k6"):
+        raise AssertionError(f"bouncing stress step: launches {grad_launches()}")
+    zero_counts()
+    rec, ms = host_ms(lambda: grad.record_decisions(sd, cp, pix, 0, **kw))
+    print(f"record_decisions bouncing stress n7744 1920x1080 4spp d8: {ms / 1e3:.4f} s")
+    (loss, g), ms = host_ms(
+        lambda: grad.loss_and_grad(params, sd, cp, target, pix, 0, rec=rec, **kw))
+    check_leaves(loss, g, params, "bouncing stress frozen")
+    print(f"  frozen step: {ms / 1e3:.4f} s, {mrays / (ms / 1e3):.2f} Mrays/s, "
+          f"loss {loss.item():.6f}")
+    if not torch.equal(loss, loss0):
+        raise AssertionError("bouncing stress: the frozen step's loss is not the step's")
+    got = grad_launches()
+    if got["k6"] != 1 or any(n for k, n in got.items() if k != "k6"):
+        raise AssertionError(f"bouncing stress frozen step: launches {got}")
+    launches_k6r += got["k6"]
+    del rec, g
+    phases = split_step(sd, cp, params, "bouncing stress n7744")
+    grad_cells["bouncing_stress"] = dict(step_ms=step_ms, frozen_ms=[ms], peak_gib=peak,
+                                         phases=phases)
+    kernels["megakernel_cull_record"]["launches"] = launches_k6r
+    del params
+
+    # --- main path 19: cross-checks on n1936 -------------------------------------
+    mark('main path 19: cross-checks on n1936')
+    # The replay against direct AD on the card, 320x180, 2 spp, d8.
+    sc = bouncing_stress(demo, 320, 4)
+    sd, cp = sc.build(), sc.scene_cam.params()
+    params = grad.extract_params(sd, cp)
+    (lr, gr), ms_r = host_ms(lambda: grad.loss_and_grad(
+        params, sd, cp, target_small, pix_small, 0, **kw_small))
+    (la, ga), ms_a = host_ms(lambda: grad.loss_and_grad(
+        params, sd, cp, target_small, pix_small, 0, method="ad", **kw_small))
+    rel = abs(la.item() - lr.item()) / lr.item()
+    print(f"replay vs direct AD, bouncing stress n1936 320x180 2spp d8: loss {lr.item():.6f} "
+          f"vs {la.item():.6f} (rel {rel:.3g}); {ms_r:.1f} vs {ms_a:.1f} ms")
+    if not rel <= 2e-3:
+        raise AssertionError("bouncing stress: the replay and direct-AD losses disagree")
+    for key in radiometric:
+        nd = ((ga[key] - gr[key]).abs().max() / max(gr[key].abs().max().item(), 1e-6)).item()
+        print(f"  {key}: max normalized diff ad vs replay {nd:.3g}")
+        if not nd <= 5e-3:
+            raise AssertionError(f"bouncing stress {key}: direct-AD and replay gradients disagree")
+    del params, ga, gr
+    # The card against the CPU at 64 wide, 2 spp, d8: the records lane by
+    # lane, and from the card's records the step on both devices. The card's
+    # sinf / cosf round unlike the CPU's (PERF.md section 6), which
+    # flips the odd grazing lane of this dense field (5 of 4608 lanes on an
+    # H100, 0.99891 against bouncing book1's 0.99935). So the records are held
+    # exactly, on every lane, with the CPU's plain version taking the card's
+    # sin and cos, the one arithmetic the two devices round differently; with
+    # each device's own they must agree on > 0.998 of the lanes, below both
+    # readings, so that a drop in agreement still fails.
+    def card_trig(fn):
+        """fn() with torch.sin and torch.cos of CPU tensors computed on the
+        card."""
+        real = {name: getattr(torch, name) for name in ("sin", "cos")}
+
+        def on_card(f):
+            return lambda x, *a, **k: (f(x.to(dev), *a, **k).cpu()
+                                       if isinstance(x, torch.Tensor) and x.device == cpu
+                                       else f(x, *a, **k))
+
+        for name, f in real.items():
+            setattr(torch, name, on_card(f))
+        try:
+            return fn()
+        finally:
+            for name, f in real.items():
+                setattr(torch, name, f)
+
+    sc = bouncing_stress(demo, 64, 4)
+    kw64 = dict(width=64, height=36, spp=2, max_depth=8)
+    inputs = []
+    for where in (dev, cpu):
+        sd, cp = sc.build(device=where), sc.scene_cam.params(device=where)
+        pix64 = torch.arange(64 * 36, device=where)
+        inputs.append((sd, cp, pix64, grad.record_decisions(sd, cp, pix64, 0, **kw64)))
+    rec_card, rec_cpu = inputs[0][3], inputs[1][3]
+    same = (rec_card.cpu() == rec_cpu).all(dim=0).float().mean().item()
+    sd, cp, pix64, _ = inputs[1]
+    rec_trig = card_trig(lambda: grad.record_decisions(sd, cp, pix64, 0, **kw64))
+    exact = (rec_card.cpu() == rec_trig).all(dim=0).float().mean().item()
+    print(f"loss_and_grad bouncing stress n1936 64w 2spp d8, card vs CPU: records equal on "
+          f"{same:.5f} of the lanes; with the CPU taking the card's sin and cos, on {exact:.5f}")
+    if exact != 1.0 or not same > 0.998:
+        raise AssertionError("bouncing stress: the card's and the CPU's records disagree")
+    frozen = []
+    for sd, cp, pix64, _ in inputs:
+        frozen.append(grad.loss_and_grad(
+            grad.extract_params(sd, cp), sd, cp, torch.zeros((64 * 36, 3), device=pix64.device),
+            pix64, 0, rec=rec_card.to(pix64.device), **kw64))
+    held_to("bouncing stress on the card's records", frozen,
+            dict.fromkeys(radiometric, 1e-3), 1e-4)
+    cull_cells.update(records_equal=same, records_equal_card_trig=exact)
+    del inputs, frozen
+    print("bouncing stress cells: " + json.dumps(cull_cells))
 
     print("gradient cells: " + json.dumps(grad_cells))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check")

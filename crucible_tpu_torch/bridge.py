@@ -12,8 +12,9 @@ fields prefixed ``tex_``; static keys are ``sky_kind``, ``num_spheres``,
 ``num_tris``, ``animated``, ``motion_exact``, ``use_bvh``,
 ``bvh_leaf_size``, ``tri_exact`` and ``max_nest``. As in the JAX package, ``sky_image`` is
 a (1, 1, 3) zero placeholder under the default sky (the port's
-``SceneData.sky_image`` is then None). The sphere-BVH tables
-(``STRUCT_ARRAYS``), the motion fields (``MOTION_ARRAYS``: the spheres' and
+``SceneData.sky_image`` is then None). The structure tables of the
+sphere walks (``STRUCT_ARRAYS``: the sphere BVH's, or an animated scene's
+cluster boxes ``sph_cbounds``), the motion fields (``MOTION_ARRAYS``: the spheres' and
 a moving mesh's shutter deltas) and the triangle
 and triangle-BVH arrays (``MESH_ARRAYS``) are optional keys
 (``OPTIONAL_ARRAYS``): absent, or None, where the scene has none.
@@ -40,7 +41,7 @@ SCENE_ARRAYS = (
     "mat_type", "mat_tex", "mat_fuzz", "mat_ior", "mat_prob", "mat_emission",
     "sky_image",
 )
-STRUCT_ARRAYS = ("sph_perm", "sph_nodes", "sph_meta")
+STRUCT_ARRAYS = ("sph_perm", "sph_nodes", "sph_meta", "sph_cbounds")
 MOTION_ARRAYS = ("sph_center_d", "sph_radius_d", "motion_t0", "motion_t1",
                  "tri_v0_d", "tri_v1_d", "tri_v2_d")
 MESH_ARRAYS = ("tri_v0", "tri_v1", "tri_v2", "tri_mat", "tri_active",

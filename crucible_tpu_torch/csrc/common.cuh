@@ -2,7 +2,8 @@
 // utils/rng.py, its stream ids, the record-word layout of models/replay.py
 // (F_TRI marks a triangle winner, K7),
 // the closest-sphere search of the static kernels (K1, K2, K10, and K5 on
-// each leaf it visits) and its linear-shutter form (K8).
+// each leaf it visits) and its linear-shutter form (K8, and K6 on each
+// cluster it visits).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -115,14 +116,18 @@ __device__ __forceinline__ void closest_sphere(
 //   c.d = (c.d) + w (cd.d),  c.o = (c.o) + w (cd.o),
 //   |c|^2 - r^2 = csr + two_w s1 + w_sq s2,
 // then closest_sphere's quadratic. A row replaces (best, win) only when
-// strictly nearer, so the lowest row wins ties.
+// strictly nearer, so the lowest row wins ties; rows are numbered from
+// `base`. With TIE_BY_ID (K6's clusters of a permuted table) an exact tie
+// goes instead to the row whose original id, column 31 of `table`, is
+// lower. The column pointers may address shared or global memory.
+template <bool TIE_BY_ID = false>
 __device__ __forceinline__ void closest_sphere_moving(
     const float* cx, const float* cy, const float* cz, const float* csr,
     const float* act, const float* cdx, const float* cdy, const float* cdz,
     const float* s1, const float* s2, int count, float ox, float oy,
     float oz, float dx, float dy, float dz, float a_q, float d_dot_o,
     float o_sq, float inv_a, float w, float two_w, float w_sq, float t_min,
-    float& best, int& win) {
+    float& best, int& win, int base = 0, const float* table = nullptr) {
   for (int k = 0; k < count; ++k) {
     if (!(act[k] > 0.0f)) continue;
     const float c0 = cx[k], c1 = cy[k], c2 = cz[k];
@@ -143,7 +148,10 @@ __device__ __forceinline__ void closest_sphere_moving(
     const float root = ok0 ? root0 : root1;
     if (root < best) {
       best = root;
-      win = k;
+      win = base + k;
+    } else if (TIE_BY_ID && root == best &&
+               table[(size_t)(base + k) * 32 + 31] < table[(size_t)win * 32 + 31]) {
+      win = base + k;  // best < BIG here, so win is a row
     }
   }
 }

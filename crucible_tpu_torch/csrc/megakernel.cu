@@ -1,11 +1,12 @@
 // Persistent path-tracing megakernel for sphere scenes on Hopper: forward
 // mode (K1), record mode (K2), for big scenes both modes walking a
-// per-lane sphere BVH (K5), their motion variants (K8), and the
-// triangle-BVH stage of static and moving meshes (K7, K7 moving).
+// per-lane sphere BVH (K5) or, for big moving scenes, 256-row sphere
+// clusters (K6, the chunk-cull branch), their motion variants (K8), and
+// the triangle-BVH stage of static and moving meshes (K7, K7 moving).
 //
 // Replaces crucible_tpu/ops/pallas/megakernel.py::_kernel for its sphere
-// branches: static ones in both of its modes, and in forward mode the
-// animated (moving spheres) and cam_animated (keyframed camera) ones:
+// branches in both of its modes, static ones and the animated (moving
+// spheres) and cam_animated (keyframed camera) ones:
 // - forward (run_megakernel, pallas_call at megakernel.py:1681): camera ray
 //   generation with jitter and defocus, the PCG4D counter hash, the
 //   closest-root sphere quadratic, the winner's attribute fetch, solid /
@@ -16,10 +17,12 @@
 //   per bounce (winner id * 256 + flag byte, models/replay.py layout); the
 //   fused variant also accumulates that path's radiance from bounce
 //   smem[4] on.
-// The closest hit is either the brute search over every table row (the
-// branch at megakernel.py:804-830; K1, K2) or the walk of the sphere BVH
-// (the n_sph_nodes branch, megakernel.py:618-803; K5) over the BVH-permuted
-// table, whose record words de-permute the winner through table column 31.
+// The closest hit is the brute search over every table row (the branch at
+// megakernel.py:804-830; K1, K2), the walk of the sphere BVH (the
+// n_sph_nodes branch, megakernel.py:618-803; K5) over the BVH-permuted
+// table, or the walk of the sphere clusters (the chunk-cull branch,
+// megakernel.py:831-960; K6) over the cluster-permuted table; a walk's
+// record words de-permute the winner through table column 31.
 // All variants are one templated kernel: the record flags only add the
 // decision words and the walk flag only replaces the search, so the brute
 // forward instantiation's arithmetic is unchanged.
@@ -39,12 +42,13 @@
 //   (cam slots 9-11 / 19-21 plus w times the deltas in 22-27) and rebuilds
 //   the basis, pixel00, du and dv with true divisions and the 1e-12 floor,
 //   operation for operation as camera.generate_rays does.
-// The walk takes CAM_ANIMATED only: animated big scenes need the chunk-cull
-// branch (K6), not ported. Record mode (run_megakernel_record, pallas_call at
-// megakernel.py:1828) instantiates what a gradient reaches: the brute search
-// with either flag or both, and the walk with CAM_ANIMATED, each fused or
-// not; its words are K2's layout, with w drawn once per path for the camera
-// and the search alike.
+// K5's sphere-BVH walk takes CAM_ANIMATED only: its boxes hold the spheres
+// at one time. Moving big tables walk K6's clusters (below), whose boxes
+// hold them over the whole shutter. Record mode (run_megakernel_record,
+// pallas_call at megakernel.py:1828) instantiates the same variants as
+// forward mode, each fused or not, except K6 over a static table (forward
+// only, which no route selects); its words are K2's layout, with w drawn
+// once per path for the camera and the search alike.
 //
 // What bounds it on this card: per-thread FP32 work on the quadratic (about
 // 20 flops and a square root per row tested per bounce; the walk adds a
@@ -82,6 +86,35 @@
 // SLAB_EPS * the origin's largest |coordinate| here, which covers the
 // expanded quadratic's error on the hit point (up to ~1.7e-3 (|c| + |o|),
 // fault C6), so no leaf holding a winning root is skipped.
+//
+// K6, the chunk-cull branch (CULL with WALK; megakernel.py l.831-960, over
+// the tables of cluster_spheres, l.213-278): the table is permuted into
+// 256-row clusters of nearby spheres, and each cluster's box holds its
+// spheres at shutter open and close, so the whole linear path. The TPU
+// kernel slab-tests each box against the whole 512-lane tile and runs a
+// cluster's quadratic under a lax.cond where any lane enters it, then
+// fetches the winner with one one-hot contraction per cluster; both answer
+// the TPU's vector layout. Here the clusters are a flat skip-link list
+// (node k: cluster k's box, its leaf rows [256 k, 256 k + count), miss
+// k + 1; ops/kernels/megakernel.py cull_inputs) that K5's stackless walk
+// runs per thread as it is: a thread tests only the clusters its own ray
+// enters before its best t. A leaf row's root is K8's moving search
+// (common.cuh closest_sphere_moving, ties to the lower original id), or
+// without ANIMATED K1's static one, so K6 returns K8's (or K1's) brute
+// search over the original table, bit for bit, and its records carry the
+// original ids of table column 31. The boxes are grown as K5's are (by
+// SLAB_EPS on the host, by SLAB_EPS |o| here): the moving quadratic's
+// error on the hit point is that of the static one at the center c + w cd,
+// which lies in the box. A cluster with no active row has count 0, so its
+// far box (1e30) never leads to a row test. Rows are not staged: at 40
+// bytes a moving row, 7,744 rows would need 309,760 bytes of shared memory,
+// more than a block has. The wrapper passes a compact copy of the search
+// columns in global memory instead (5 floats a row, 10 with ANIMATED, one
+// contiguous column each: 310 KB at 7,744 rows, which stays in L2), and
+// only the nodes and [first, count, miss] sit in shared memory (36 bytes a
+// cluster). What bounds it: the quadratic per row of each cluster a ray
+// enters (~40 flops moving) and the L2 reads of those rows; threads of a
+// warp that enter the same cluster read the same row together.
 //
 // K7, the triangle-BVH stage for static meshes (TRI; megakernel.py from
 // l.962: the Woop leaf test l.1079-1140, the winner's normal and material
@@ -265,11 +298,14 @@ __device__ __forceinline__ void tri_closest(
 }
 
 // K5's closest hit: the stackless skip-link walk (see the note above) ->
-// (best, win), win a row of the permuted table, -1 on a miss.
+// (best, win), win a row of the permuted table, -1 on a miss. ANIMATED
+// (K6's clusters of moving rows): the leaf rows at the path's shutter
+// fraction w.
+template <bool ANIMATED>
 __device__ __forceinline__ void walk_closest(
     const Staged& s, const float* __restrict__ table, float ox, float oy,
     float oz, float dx, float dy, float dz, float a_q, float d_dot_o,
-    float o_sq, float inv_a, float t_min, float& best, int& win) {
+    float o_sq, float inv_a, float w, float t_min, float& best, int& win) {
   const float ivx = safe_inv(dx), ivy = safe_inv(dy), ivz = safe_inv(dz);
   const float pr = SLAB_EPS * fmaxf(fmaxf(fabsf(ox), fabsf(oy)), fabsf(oz));
   int i = 0;
@@ -293,10 +329,19 @@ __device__ __forceinline__ void walk_closest(
         continue;
       }
       const int first = m[0];
-      closest_sphere<true>(s.cx + first, s.cy + first, s.cz + first,
-                           s.csr + first, s.act + first, count, first, ox, oy,
-                           oz, dx, dy, dz, a_q, d_dot_o, o_sq, inv_a, t_min,
-                           best, win, table);
+      if (ANIMATED) {
+        closest_sphere_moving<true>(
+            s.cx + first, s.cy + first, s.cz + first, s.csr + first,
+            s.act + first, s.cdx + first, s.cdy + first, s.cdz + first,
+            s.s1 + first, s.s2 + first, count, ox, oy, oz, dx, dy, dz, a_q,
+            d_dot_o, o_sq, inv_a, w, 2.0f * w, w * w, t_min, best, win, first,
+            table);
+      } else {
+        closest_sphere<true>(s.cx + first, s.cy + first, s.cz + first,
+                             s.csr + first, s.act + first, count, first, ox,
+                             oy, oz, dx, dy, dz, a_q, d_dot_o, o_sq, inv_a,
+                             t_min, best, win, table);
+      }
     }
     i = m[2];
   }
@@ -305,7 +350,8 @@ __device__ __forceinline__ void walk_closest(
 // One lane's paths. RECORD: one path per lane, decision words to `rec`
 // (D, R). RADIANCE: accumulate radiance into `out` (3, R); in record mode
 // only from bounce smem[4] on. Forward mode is <false, true>. WALK: the
-// closest hit walks the sphere BVH over the permuted table. ANIMATED,
+// closest hit walks the sphere BVH (K5) or the clusters (K6) over the
+// permuted table, with ANIMATED only the clusters. ANIMATED,
 // CAM_ANIMATED: K8's moving spheres and keyframed camera. TRI: K7's
 // triangle stage after the brute sphere search (`tris`, `mats`); with
 // ANIMATED the mesh moves too (K7 moving, the (M, 32) rows).
@@ -317,7 +363,6 @@ __device__ __forceinline__ void trace_lane(
     const float* __restrict__ cam, const float* __restrict__ table,
     const float* __restrict__ tris, const float* __restrict__ mats, int r,
     float t_min, float* __restrict__ out, int32_t* __restrict__ rec) {
-  static_assert(!(WALK && ANIMATED), "animated big scenes need K6");
   static_assert(!(TRI && WALK), "K7 runs beside the brute sphere search only");
   constexpr int TRI_STRIDE = ANIMATED ? TRI_MOVING_COLS : TRI_COLS;
   constexpr int TRI_MAT = ANIMATED ? 12 : 15;  // a row's material id column
@@ -418,8 +463,8 @@ __device__ __forceinline__ void trace_lane(
       float best = BIG;
       int win = -1;
       if (WALK) {
-        walk_closest(s, table, ox, oy, oz, dx, dy, dz, a_q, d_dot_o, o_sq,
-                     inv_a, t_min, best, win);
+        walk_closest<ANIMATED>(s, table, ox, oy, oz, dx, dy, dz, a_q, d_dot_o,
+                               o_sq, inv_a, w, t_min, best, win);
       } else if (ANIMATED) {
         closest_sphere_moving(s.cx, s.cy, s.cz, s.csr, s.act, s.cdx, s.cdy,
                               s.cdz, s.s1, s.s2, s.n, ox, oy, oz, dx, dy, dz,
@@ -665,13 +710,15 @@ __device__ __forceinline__ void trace_lane(
   out[2 * (size_t)r + lane] = az;
 }
 
-// The acceleration structures a launch walks: the sphere BVH (WALK) over
-// the permuted table, and a mesh's triangle BVH with its rows (Woop, or
-// the moving layout with ANIMATED) and material rows (TRI). Unused
-// pointers are null and counts 0.
+// The acceleration structures a launch walks: the sphere BVH (WALK) or
+// the clusters (WALK with CULL, K6, whose search columns `rows` are read
+// from global memory) over the permuted table, and a mesh's triangle BVH
+// with its rows (Woop, or the moving layout with ANIMATED) and material
+// rows (TRI). Unused pointers are null and counts 0.
 struct Trees {
-  const float* nodes;     // (k, 6) grown sphere-node boxes
+  const float* nodes;     // (k, 6) grown sphere-node or cluster boxes
   const int32_t* meta;    // (k, 3) first, count, miss
+  const float* rows;      // (5 or 10, n) K6's search columns, one after another
   const float* tnodes;    // (kt, 6) triangle-node boxes
   const int32_t* tmeta;   // (kt, 3) first, count, miss
   const float* tris;      // (M, 16) Woop or (M, 32) moving rows, leaf order
@@ -680,7 +727,7 @@ struct Trees {
 };
 
 template <bool RECORD, bool RADIANCE, bool WALK, bool ANIMATED, bool CAM_ANIMATED,
-          bool TRI, int NT>
+          bool TRI, bool CULL, int NT>
 __global__ void __launch_bounds__(NT) megakernel(
     const int32_t* __restrict__ smem,     // (8,) [spp, seed, width, max_depth, accum_from, ...]
     const int32_t* __restrict__ pix_in,   // (R,) pixel ids
@@ -690,35 +737,36 @@ __global__ void __launch_bounds__(NT) megakernel(
     const Trees trees, int n, int r, float t_min,
     float* __restrict__ out,              // (3, R) radiance sums
     int32_t* __restrict__ rec) {          // (max_depth, R) records (RECORD only)
+  static_assert(!CULL || WALK, "K6 is the walk over clusters");
+  static_assert(!(WALK && ANIMATED) || CULL,
+                "a moving table walks the clusters (K6), whose boxes hold it "
+                "over the shutter");
+  constexpr int COLS = ANIMATED ? SMEM_COLS + MOTION_COLS : SMEM_COLS;
   extern __shared__ float sh[];
-  float* s_cx = sh;
-  float* s_cy = sh + n;
-  float* s_cz = sh + 2 * n;
-  float* s_csr = sh + 3 * n;
-  float* s_act = sh + 4 * n;
-  float* s_cdx = sh + 5 * n;  // the motion columns: ANIMATED only
-  float* s_cdy = sh + 6 * n;
-  float* s_cdz = sh + 7 * n;
-  float* s_s1 = sh + 8 * n;
-  float* s_s2 = sh + 9 * n;
-  for (int q = threadIdx.x; q < n; q += blockDim.x) {
-    const float* row = table + (size_t)q * C_IN;
-    s_cx[q] = row[0];
-    s_cy[q] = row[1];
-    s_cz[q] = row[2];
-    s_csr[q] = row[4];
-    s_act[q] = row[5];
-    if (ANIMATED) {
-      s_cdx[q] = row[24];
-      s_cdy[q] = row[25];
-      s_cdz[q] = row[26];
-      s_s1[q] = row[28];
-      s_s2[q] = row[29];
+  // The search columns, one after another: cx, cy, cz, csr, active, and
+  // with ANIMATED cd x/y/z, s1, s2. Staged in shared memory, or (K6) read
+  // from the compact copy in global memory.
+  const float* cols = CULL ? trees.rows : sh;
+  if (!CULL) {
+    for (int q = threadIdx.x; q < n; q += blockDim.x) {
+      const float* row = table + (size_t)q * C_IN;
+      sh[q] = row[0];
+      sh[n + q] = row[1];
+      sh[2 * n + q] = row[2];
+      sh[3 * n + q] = row[4];
+      sh[4 * n + q] = row[5];
+      if (ANIMATED) {
+        sh[5 * n + q] = row[24];
+        sh[6 * n + q] = row[25];
+        sh[7 * n + q] = row[26];
+        sh[8 * n + q] = row[28];
+        sh[9 * n + q] = row[29];
+      }
     }
   }
   const int k = WALK ? trees.k : 0;
   const int kt = TRI ? trees.kt : 0;
-  float* s_node = sh + (ANIMATED ? SMEM_COLS + MOTION_COLS : SMEM_COLS) * n;
+  float* s_node = sh + (CULL ? 0 : COLS * n);
   int* s_meta = (int*)(s_node + NODE_COLS * k);
   float* s_tnode = (float*)(s_meta + META_COLS * k);
   int* s_tmeta = (int*)(s_tnode + NODE_COLS * kt);
@@ -731,7 +779,8 @@ __global__ void __launch_bounds__(NT) megakernel(
     for (int q = threadIdx.x; q < kt * META_COLS; q += blockDim.x) s_tmeta[q] = trees.tmeta[q];
   }
   __syncthreads();
-  const Staged s{s_cx, s_cy, s_cz, s_csr, s_act, s_cdx, s_cdy, s_cdz, s_s1, s_s2,
+  const Staged s{cols, cols + n, cols + 2 * n, cols + 3 * n, cols + 4 * n,
+                 cols + 5 * n, cols + 6 * n, cols + 7 * n, cols + 8 * n, cols + 9 * n,
                  s_node, s_meta, s_tnode, s_tmeta, n, k, kt};
 
   const int lane = blockIdx.x * NT + threadIdx.x;
@@ -742,20 +791,23 @@ __global__ void __launch_bounds__(NT) megakernel(
   }
 }
 
-int smem_bytes(int n, int k, bool animated, int kt) {
-  const int cols = animated ? SMEM_COLS + MOTION_COLS : SMEM_COLS;
+// K6 (cull) stages its nodes alone; the other variants the search columns
+// of every row too.
+int smem_bytes(int n, int k, bool animated, int kt, bool cull) {
+  const int cols = cull ? 0 : animated ? SMEM_COLS + MOTION_COLS : SMEM_COLS;
   return n * cols * (int)sizeof(float) +
          (k + kt) * (NODE_COLS * (int)sizeof(float) + META_COLS * (int)sizeof(int));
 }
 
 template <bool RECORD, bool RADIANCE, bool WALK, bool ANIMATED = false,
-          bool CAM_ANIMATED = false, bool TRI = false>
+          bool CAM_ANIMATED = false, bool TRI = false, bool CULL = false>
 int launch(const int32_t* smem, const int32_t* pix, const int32_t* sample0,
            const float* cam, const float* table, const Trees& trees, int n, int r,
            float t_min, float* out, int32_t* rec, void* stream) {
   constexpr int NT = WALK || TRI ? WALK_BLOCK : BLOCK;
-  auto kernel = megakernel<RECORD, RADIANCE, WALK, ANIMATED, CAM_ANIMATED, TRI, NT>;
-  const int bytes = smem_bytes(n, WALK ? trees.k : 0, ANIMATED, TRI ? trees.kt : 0);
+  auto kernel = megakernel<RECORD, RADIANCE, WALK, ANIMATED, CAM_ANIMATED, TRI, CULL, NT>;
+  const int bytes =
+      smem_bytes(n, WALK ? trees.k : 0, ANIMATED, TRI ? trees.kt : 0, CULL);
   if (bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -771,8 +823,10 @@ int launch(const int32_t* smem, const int32_t* pix, const int32_t* sample0,
 
 // The instantiations of one mode (RECORD) and one value of RADIANCE: K7
 // where the launch has a triangle BVH (the brute search, with K8's flags:
-// ANIMATED makes it K7 moving), K5 where it has a sphere BVH (static, or
-// with CAM_ANIMATED), else the brute search with K8's flags.
+// ANIMATED makes it K7 moving), K6 where it has clusters (ANIMATED, with
+// or without CAM_ANIMATED; in forward mode also a static table with a
+// static camera, held against K1), K5 where it has a sphere BVH (static,
+// or with CAM_ANIMATED), else the brute search with K8's flags.
 template <bool RECORD, bool RADIANCE>
 int variant(const int32_t* smem, const int32_t* pix, const int32_t* sample0,
             const float* cam, const float* table, const Trees& t, int n, int r,
@@ -794,6 +848,24 @@ int variant(const int32_t* smem, const int32_t* pix, const int32_t* sample0,
     }
     return launch<RECORD, RADIANCE, false, false, false, true>(
         smem, pix, sample0, cam, table, t, n, r, t_min, out, rec, stream);
+  }
+  if (t.k > 0 && t.rows != nullptr) {
+    if (animated && cam_animated) {
+      return launch<RECORD, RADIANCE, true, true, true, false, true>(
+          smem, pix, sample0, cam, table, t, n, r, t_min, out, rec, stream);
+    }
+    if (animated) {
+      return launch<RECORD, RADIANCE, true, true, false, false, true>(
+          smem, pix, sample0, cam, table, t, n, r, t_min, out, rec, stream);
+    }
+    // A static table's clusters: forward mode with a static camera only.
+    if constexpr (RECORD) {
+      return (int)cudaErrorInvalidValue;
+    } else {
+      if (cam_animated) return (int)cudaErrorInvalidValue;
+      return launch<RECORD, RADIANCE, true, false, false, false, true>(
+          smem, pix, sample0, cam, table, t, n, r, t_min, out, rec, stream);
+    }
   }
   if (t.k > 0) {
     if (animated) return (int)cudaErrorInvalidValue;
@@ -825,47 +897,51 @@ int variant(const int32_t* smem, const int32_t* pix, const int32_t* sample0,
 extern "C" {
 
 // Bytes of dynamic shared memory the kernel needs for an N-row table, K
-// sphere-BVH nodes (K = 0: the brute search) and KT triangle-BVH nodes (KT
-// = 0: no mesh), with the motion columns when `animated` is nonzero.
-int crucible_megakernel_smem_bytes(int n, int k, int animated, int kt) {
-  return smem_bytes(n, k, animated != 0, kt);
+// sphere-BVH nodes or clusters (K = 0: the brute search) and KT
+// triangle-BVH nodes (KT = 0: no mesh), with the motion columns when
+// `animated` is nonzero; with `cull` nonzero (K6) the rows are not staged.
+int crucible_megakernel_smem_bytes(int n, int k, int animated, int kt, int cull) {
+  return smem_bytes(n, k, animated != 0, kt, cull != 0);
 }
 
 // Launch the forward megakernel on `stream`: the brute search (K1) when
-// k == 0, else the walk over the K sphere nodes (K5); with `animated`
-// (brute only) or `cam_animated` nonzero, their motion variants (K8); with
-// kt > 0 the triangle stage over the KT triangle nodes after the brute
-// search (K7; with `animated` K7 moving, whose `tris` are (M, 32) rows).
-// Returns cudaGetLastError(), or cudaErrorInvalidValue for a combination
-// not instantiated (an animated walk; K7 with a walk).
+// k == 0, else the walk over the K sphere nodes (K5), or over K clusters
+// when `rows` (K6's search columns) is not null; with `animated` (brute
+// or K6) or `cam_animated` nonzero, their motion variants (K8); with kt > 0
+// the triangle stage over the KT triangle nodes after the brute search (K7;
+// with `animated` K7 moving, whose `tris` are (M, 32) rows). Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a combination not
+// instantiated (an animated BVH walk; K7 with a walk; K6 over a static
+// table seen by an animated camera).
 int crucible_megakernel_forward(const int32_t* smem, const int32_t* pix,
                                 const int32_t* sample0, const float* cam,
                                 const float* table, const float* nodes,
-                                const int32_t* meta, const float* tnodes,
-                                const int32_t* tmeta, const float* tris,
-                                const float* mats, int n, int k, int kt, int r,
-                                float t_min, int animated, int cam_animated,
-                                float* out, void* stream) {
-  const Trees t{nodes, meta, tnodes, tmeta, tris, mats, k, kt};
+                                const int32_t* meta, const float* rows,
+                                const float* tnodes, const int32_t* tmeta,
+                                const float* tris, const float* mats, int n,
+                                int k, int kt, int r, float t_min, int animated,
+                                int cam_animated, float* out, void* stream) {
+  const Trees t{nodes, meta, rows, tnodes, tmeta, tris, mats, k, kt};
   return variant<false, true>(smem, pix, sample0, cam, table, t, n, r, t_min,
                               animated, cam_animated, out, nullptr, stream);
 }
 
 // Launch the record-mode megakernel: `rec` (smem[3], R) int32 packed
 // decision words; `out` (3, R) the fused radiance when `radiance` is nonzero,
-// else zeros. The variants are the forward's: K2, K5, K8 and K7. Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for a combination not
-// instantiated.
+// else zeros. The variants are the forward's: K2, K5, K6, K8 and K7, but
+// K6 only with `animated`.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for a combination
+// not instantiated.
 int crucible_megakernel_record(const int32_t* smem, const int32_t* pix,
                                const int32_t* sample0, const float* cam,
                                const float* table, const float* nodes,
-                               const int32_t* meta, const float* tnodes,
-                               const int32_t* tmeta, const float* tris,
-                               const float* mats, int n, int k, int kt, int r,
-                               float t_min, int radiance, int animated,
-                               int cam_animated, float* out, int32_t* rec,
-                               void* stream) {
-  const Trees t{nodes, meta, tnodes, tmeta, tris, mats, k, kt};
+                               const int32_t* meta, const float* rows,
+                               const float* tnodes, const int32_t* tmeta,
+                               const float* tris, const float* mats, int n,
+                               int k, int kt, int r, float t_min, int radiance,
+                               int animated, int cam_animated, float* out,
+                               int32_t* rec, void* stream) {
+  const Trees t{nodes, meta, rows, tnodes, tmeta, tris, mats, k, kt};
   if (radiance) {
     return variant<true, true>(smem, pix, sample0, cam, table, t, n, r, t_min,
                                animated, cam_animated, out, rec, stream);

@@ -383,12 +383,23 @@ def _tri_tables(sd: SceneData, tris):
             tri_meta.contiguous())
 
 
+def brute_beside_mesh(sd: SceneData) -> bool:
+    """Whether a mesh sits beside a moving sphere table that K8's brute
+    search holds (at most ``mk.MAX_ROWS_ANIMATED`` rows). The megakernel
+    then searches the table by brute force, whether the scene carries its
+    cluster tables (``sph_cbounds``) or not: K7 beside K6's cluster walk is
+    a template combination not instantiated (ROADMAP A11)."""
+    return (sd.num_tris > 0 and sd.animated and sd.sph_nodes is None
+            and int(sd.sph_center.shape[0]) <= mk.MAX_ROWS_ANIMATED)
+
+
 def _mesh_unsupported_reason(sd: SceneData, cp: CameraParams):
     """None where the megakernel's triangle stage takes the scene's mesh (or
     there is none), else what it lacks. K7 walks a BVH mesh: a static one
     beside the brute static sphere search, seen by a static or an animated
     camera; a moving mesh (every mesh of an animated scene, K7 moving)
-    beside the moving sphere search, seen by either."""
+    beside the moving sphere search, seen by either, also where the table
+    has cluster tables but fits the brute search (:func:`brute_beside_mesh`)."""
     if sd.num_tris == 0:
         return None
     checks = (
@@ -398,9 +409,10 @@ def _mesh_unsupported_reason(sd: SceneData, cp: CameraParams):
          "the record schedule is ROADMAP A5)"),
         (not sd.tri_exact, "exact-time motion of a mesh, a keyframe inside the shutter "
                            "(ROADMAP A7)"),
-        (sd.sph_perm is None,
-         "a triangle mesh beside a big sphere table (K7 with K5's sphere-BVH "
-         "walk, a template combination not instantiated: ROADMAP A11)"),
+        (sd.sph_perm is None or brute_beside_mesh(sd),
+         "a triangle mesh beside a big sphere table (K7 beside K5's sphere-BVH "
+         f"walk, or beside K6's cluster walk above {mk.MAX_ROWS_ANIMATED} moving "
+         "rows: template combinations not instantiated, ROADMAP A11)"),
     )
     return next((what for ok, what in checks if not ok), None)
 
@@ -432,10 +444,12 @@ def megakernel_record_supported(sd: SceneData, cp: CameraParams) -> bool:
     or moving on the linear shutter, seen by a static or linearly animated
     camera (K8's record mode for motion), with at most ``mk.MAX_ROWS``
     table rows or with the sphere-BVH tables (``sd.sph_perm``) that the
-    walk takes instead; a moving table takes the brute search only, up to
-    ``mk.MAX_ROWS_ANIMATED`` rows; and BVH meshes, static or moving,
-    beside the brute sphere table (K7, K7 moving). The record's decisions
-    read no albedo or sky, so textures and the sky do not limit it."""
+    walk takes instead (K5); a moving table with the cluster tables
+    (``sd.sph_cbounds``, K6), or without them at most
+    ``mk.MAX_ROWS_ANIMATED`` rows for the brute search; and BVH meshes,
+    static or moving, beside the brute sphere table (K7, K7 moving). The
+    record's decisions read no albedo or sky, so textures and the sky do
+    not limit it."""
     return megakernel_record_unsupported_reason(sd, cp) is None
 
 
@@ -443,11 +457,12 @@ def megakernel_record_unsupported_reason(sd: SceneData, cp: CameraParams):
     """None if the record megakernel takes this scene, else what it lacks."""
     n = int(sd.sph_center.shape[0])
     if sd.animated:
-        rows_ok = n <= mk.MAX_ROWS_ANIMATED and sd.sph_perm is None
+        rows_ok = sd.sph_cbounds is not None or (
+            n <= mk.MAX_ROWS_ANIMATED and sd.sph_perm is None)
         rows_what = (
-            f"more than {mk.MAX_ROWS_ANIMATED} moving sphere rows, or moving "
-            "spheres with structure tables (animated big scenes need the "
-            "chunk-cull branch, K6, ROADMAP A6)"
+            f"more than {mk.MAX_ROWS_ANIMATED} moving sphere rows without the "
+            "cluster tables (sph_cbounds) of the chunk-cull walk (K6), or moving "
+            "spheres with the sphere-BVH tables, whose boxes do not follow them"
         )
     else:
         rows_ok = n <= mk.MAX_ROWS or sd.sph_perm is not None
@@ -563,26 +578,31 @@ def trace_persistent_mega(
     max_depth: int,
     seed: int,
     cluster_perm=None,
+    cluster_bounds=None,
     sphere_nodes=None,
     sphere_meta=None,
 ) -> torch.Tensor:
     """Whole render in one megakernel call -> per-pixel radiance SUM
     (width*height, 3) over samples 0..spp-1.
 
-    ``cluster_perm`` (N_pad,) int32, ``sphere_nodes`` (K, 16) float32 and
-    ``sphere_meta`` (3 * (K + 16),) int32 are ``mk.sphere_bvh_tables``'
+    ``cluster_perm`` (N_pad,) int32 with ``sphere_nodes`` (K, 16) float32
+    and ``sphere_meta`` (3 * (K + 16),) int32 are ``mk.sphere_bvh_tables``'
     outputs: the table is then padded and permuted into BVH leaf order and
-    the kernel walks the BVH (K5); without them it tests every row (K1).
-    The sums are the same, bit for bit. A BVH mesh's tables
+    the kernel walks the BVH (K5). ``cluster_perm`` with ``cluster_bounds``
+    (N_pad / 256, 8) float32 are ``mk.cluster_spheres``' outputs (for a
+    moving table, over its shutter deltas): the table is permuted into
+    cluster order and the kernel walks the clusters (K6). Without them it
+    tests every row (K1, K8). The sums are the same, bit for bit. A BVH
+    mesh's tables
     (:func:`make_tri_tables`) go to the kernel's triangle stage (K7, or K7
     moving for a moving mesh's (M, 32) rows). Every random number is
     pcg4d(pixel, sample, stream, seed), so the per-pixel sums do not depend
     on the lane order (see :func:`mega_inputs`).
     """
-    if (cluster_perm is None) != (sphere_nodes is None):
+    if (cluster_perm is None) != (sphere_nodes is None and cluster_bounds is None):
         raise ValueError(
-            "cluster_perm and sphere_nodes go together (the chunk-cull branch, "
-            "which permutes without a BVH, is not ported)"
+            "cluster_perm goes with sphere_nodes (the sphere-BVH walk) or with "
+            "cluster_bounds (the cluster walk), and they with it"
         )
     inputs, lane_of = mega_inputs(sd, cp, width, height, spp, max_depth, seed)
     if cluster_perm is not None:
@@ -590,7 +610,7 @@ def trace_persistent_mega(
     if sd.num_tris > 0:
         inputs.update(zip(("tri_nodes", "tris", "mats", "tri_meta"), make_tri_tables(sd)))
     acc = mk.run_megakernel(
-        **inputs, sph_nodes=sphere_nodes, sph_meta=sphere_meta,
+        **inputs, cbounds=cluster_bounds, sph_nodes=sphere_nodes, sph_meta=sphere_meta,
         animated=bool(sd.animated), cam_animated=bool(cp.animated),
     )
     return acc.t()[lane_of]

@@ -6,10 +6,10 @@ which runs one of two schedules:
 
 - ``mega``: ``integrator.trace_persistent_mega``, the megakernel: the
   brute search (K1), or above ``CULL_MIN_ROWS`` rows the sphere-BVH walk
-  (K5); for moving spheres or an animated camera their motion variants
-  (K8); for a BVH mesh the triangle stage after the brute search (K7, K7
-  moving for a moving mesh, either seen by a static or an animated
-  camera);
+  (K5), or for moving spheres the cluster walk (K6); for moving spheres
+  or an animated camera their motion variants (K8); for a BVH mesh the
+  triangle stage after the brute search (K7, K7 moving for a moving mesh,
+  either seen by a static or an animated camera);
 - ``pixel``: ``integrator.trace_persistent``, the staged persistent
   wavefront, with the fused hit + fetch kernel (K9) per bounce, or for a
   mesh the staged bounce (K10 for the spheres, ``hit_triangles`` or the
@@ -47,9 +47,10 @@ from crucible_tpu_torch.ops.kernels import megakernel as mk
 from crucible_tpu_torch.utils import color as color_mod
 
 # Above this sphere-table row count the mega schedule walks a per-lane
-# sphere BVH (K5) instead of testing every row (K1), as the JAX package
-# does. The crossover is the JAX package's, measured on a TPU; this card's
-# is not measured yet.
+# sphere BVH (K5), or for a moving table its clusters (K6), instead of
+# testing every row (K1, K8), as the JAX package does. The crossover is the
+# JAX package's, measured on a TPU; chip_smoke.py times K6 beside K8 on a
+# moving n1936 table (PERF.md section 7).
 CULL_MIN_ROWS = 1024
 
 # Target lane counts of the pixel schedule (sample groups replicate small
@@ -95,25 +96,34 @@ def render_image_persistent(
     schedule's target lane count is ``LANES_CUDA`` on a card, ``LANES_CPU``
     elsewhere.
 
-    ``cull``: whether the mega schedule walks the sphere BVH (K5) instead
-    of testing every row (K1); None takes the walk for 'auto' / 'mega'
-    above ``CULL_MIN_ROWS`` rows. The image is the same bit for bit. The
-    walk uses the scene's ``sph_perm`` / ``sph_nodes`` / ``sph_meta`` and
-    raises ``ValueError`` on a scene without them; so does ``cull=False``
-    above the brute kernel's ``mk.MAX_ROWS``. The walk over an animated
-    scene needs the chunk-cull branch and raises ``NotImplementedError``,
-    as does exact-time motion (a keyframe inside the shutter window)."""
+    ``cull``: whether the mega schedule walks a structure instead of
+    testing every row (K1, K8): the sphere BVH of a static scene (K5, the
+    scene's ``sph_perm`` / ``sph_nodes`` / ``sph_meta``) or the clusters of
+    an animated one (K6, the chunk-cull branch: ``sph_perm`` /
+    ``sph_cbounds``, boxes that hold the spheres over the shutter). None
+    takes the walk for 'auto' / 'mega' above ``CULL_MIN_ROWS`` rows, except
+    for a moving table beside a mesh that the brute search holds
+    (``integrator.brute_beside_mesh``: K7 beside K6 is not instantiated,
+    and ``cull=True`` there raises). The image is
+    the same bit for bit. A walk raises ``ValueError`` on a scene
+    without its tables, and so does ``cull=False`` above the brute kernel's
+    ``mk.MAX_ROWS`` rows (``mk.MAX_ROWS_ANIMATED`` for a moving table).
+    Exact-time motion (a keyframe inside the shutter window) raises
+    ``NotImplementedError``."""
     _check_device(sd, cp, device)
     if sd.motion_exact or cp.motion_exact:
         raise NotImplementedError(integrator.EXACT_MOTION)
     rows = int(sd.sph_center.shape[0])
     if cull is None:
-        cull = schedule in ("auto", "mega") and rows > CULL_MIN_ROWS
-    if not cull and rows > mk.MAX_ROWS and schedule in ("auto", "mega"):
+        cull = (schedule in ("auto", "mega") and rows > CULL_MIN_ROWS
+                and not integrator.brute_beside_mesh(sd))
+    cap = mk.MAX_ROWS_ANIMATED if sd.animated else mk.MAX_ROWS
+    if not cull and rows > cap and schedule in ("auto", "mega"):
         raise ValueError(
-            f"the brute megakernel cannot take {rows} sphere rows (its shared "
-            f"memory holds {mk.MAX_ROWS}); pass cull=True (the sphere-BVH walk) "
-            f"or schedule='pixel'"
+            f"the brute megakernel cannot take {rows} "
+            f"{'moving ' if sd.animated else ''}sphere rows (its shared memory "
+            f"holds {cap}); pass cull=True (the "
+            f"{'cluster' if sd.animated else 'sphere-BVH'} walk) or schedule='pixel'"
         )
     if schedule == "auto":
         missing = integrator.megakernel_unsupported_reason(sd, cp)
@@ -138,12 +148,6 @@ def render_image_persistent(
         raise NotImplementedError(
             f"the {schedule!r} schedule is not ported to crucible_tpu_torch yet"
         )
-    if cull and sd.animated:
-        raise NotImplementedError(
-            "big animated sphere scenes need the megakernel's chunk-cull branch "
-            "(cluster_spheres over motion-swept boxes), which is not ported to "
-            "crucible_tpu_torch yet"
-        )
     missing = integrator.megakernel_unsupported_reason(sd, cp)
     if missing is not None:
         raise NotImplementedError(
@@ -151,8 +155,17 @@ def render_image_persistent(
             f"megakernel does not render yet"
         )
     struct = {}
-    if cull:
-        if sd.sph_perm is None:
+    if cull and sd.animated:
+        if sd.sph_cbounds is None:
+            raise ValueError(
+                "cull=True on an animated scene needs its chunk-cull tables "
+                "(sph_perm, sph_cbounds: clusters whose boxes hold the spheres over "
+                "the shutter), which Scene.build makes for an animated scene above "
+                f"{CULL_MIN_ROWS} rows with an active sphere"
+            )
+        struct = dict(cluster_perm=sd.sph_perm, cluster_bounds=sd.sph_cbounds)
+    elif cull:
+        if sd.sph_nodes is None:
             raise ValueError(
                 "cull=True needs the scene's sphere-BVH tables (sph_perm, "
                 "sph_nodes, sph_meta), which Scene.build makes for a static "

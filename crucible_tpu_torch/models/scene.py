@@ -203,9 +203,9 @@ class SceneData:
     """Flat SoA scene: tensors on one device + static metadata.
 
     Field names and layouts are those of the JAX package's ``SceneData``;
-    the exact-time track and cluster-cull fields are absent because the
-    port does not render them yet (``motion_exact`` and ``tri_exact`` still
-    say whether a bridged scene needs them). ``sky_image`` is None under the
+    the exact-time track fields are absent because the port does not
+    render them yet (``motion_exact`` and ``tri_exact`` still say whether a
+    bridged scene needs them). ``sky_image`` is None under the
     default sky (where the JAX package keeps a (1, 1, 3) placeholder).
     ``Scene.build`` always fills the triangle and triangle-BVH fields, with
     the JAX package's one-row placeholders where there is no mesh; a
@@ -245,12 +245,16 @@ class SceneData:
     animated: bool = False
     motion_exact: bool = False
 
-    # Sphere-BVH tables of the megakernel's walk (megakernel.sphere_bvh_tables),
-    # built for static scenes above render.CULL_MIN_ROWS rows with an active
-    # sphere, else None. The permuted table's column 31 keeps original ids.
+    # The structure tables of the megakernel's walks above render.CULL_MIN_ROWS
+    # rows with an active sphere, else None: a static scene's sphere BVH
+    # (megakernel.sphere_bvh_tables: sph_perm, sph_nodes, sph_meta; K5), an
+    # animated scene's clusters (megakernel.cluster_spheres over the shutter
+    # window: sph_perm, sph_cbounds; K6). The permuted table's column 31
+    # keeps original ids.
     sph_perm: Optional[torch.Tensor] = None  # (N_pad,) int32 permutation
     sph_nodes: Optional[torch.Tensor] = None  # (K, 16) float32 node boxes
     sph_meta: Optional[torch.Tensor] = None  # (3 * (K + 16),) int32 metadata
+    sph_cbounds: Optional[torch.Tensor] = None  # (N_pad / 256, 8) float32 cluster boxes
 
     # Triangles (leaf order when use_bvh; brute meshes padded to a multiple
     # of 8, `tri_active` masking the padding)
@@ -773,9 +777,10 @@ class Scene:
         if motion_exact:
             motion.update(motion_t0=t(t_open, np.float32), motion_t1=t(t_close, np.float32))
 
-        # Sphere-BVH tables for the megakernel's walk, past the brute
-        # search's crossover. Static scenes only: animated big scenes need
-        # the chunk-cull branch over motion-swept boxes, not ported.
+        # Structure tables for the megakernel's walks, past the brute
+        # search's crossover: a static scene's sphere BVH (K5), an animated
+        # scene's clusters, whose boxes hold each sphere at shutter open and
+        # close (K6: the BVH's boxes would go stale under motion).
         from crucible_tpu_torch.models.render import CULL_MIN_ROWS
         from crucible_tpu_torch.ops.kernels import megakernel as mk
 
@@ -784,6 +789,11 @@ class Scene:
             perm_s, snodes, smeta = mk.sphere_bvh_tables(sph_center, sph_radius, sph_active)
             sph_struct = dict(sph_perm=t(perm_s, np.int32), sph_nodes=t(snodes, np.float32),
                               sph_meta=t(smeta, np.int32))
+        elif n_pad > CULL_MIN_ROWS and bool(sph_active.any()):
+            perm_s, cbounds = mk.cluster_spheres(sph_center, sph_radius, sph_active,
+                                                 center_d=sph_center_b - sph_center,
+                                                 radius_d=sph_radius_b - sph_radius)
+            sph_struct = dict(sph_perm=t(perm_s, np.int32), sph_cbounds=t(cbounds, np.float32))
 
         mesh = dict(
             tri_v0=t(v0, np.float32), tri_v1=t(v1, np.float32), tri_v2=t(v2, np.float32),

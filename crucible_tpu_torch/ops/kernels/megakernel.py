@@ -1,13 +1,15 @@
 """Persistent path-tracing megakernel: forward and record.
 
 Port of ``crucible_tpu/ops/pallas/megakernel.py`` for its sphere branches
-— the brute search over every table row (K1, K2) and the per-lane
-sphere-BVH walk of big scenes (K5) in both modes, and their motion
-variants (K8: ``animated`` spheres on the linear shutter, brute search
-only, and the ``cam_animated`` keyframed camera), also in both modes —
-and for its triangle-BVH stage (K7, beside the brute sphere search, in
-both modes, with K8's flags: a static mesh's Woop rows, or with
-``animated`` a moving mesh's (M, 32) rows, K7 moving):
+— the brute search over every table row (K1, K2), the per-lane sphere-BVH
+walk of big static scenes (K5) and the chunk-cull branch of big scenes
+(K6: a per-lane walk over 256-row clusters whose boxes hold the spheres
+over the shutter, so it takes moving spheres) in both modes, and their
+motion variants (K8: ``animated`` spheres on the linear shutter, brute or
+K6, and the ``cam_animated`` keyframed camera), also in both modes — and
+for its triangle-BVH stage (K7, beside the brute sphere search, in both
+modes, with K8's flags: a static mesh's Woop rows, or with ``animated`` a
+moving mesh's (M, 32) rows, K7 moving):
 
 - :func:`run_megakernel` (forward): given the lanes' pixel ids and first
   samples, the camera vector and the (N, 32) sphere table, it traces every
@@ -20,8 +22,11 @@ both modes, with K8's flags: a static mesh's Woop rows, or with
 
 With ``sph_nodes`` / ``sph_meta`` (:func:`sphere_bvh_tables`) the table is
 the BVH-permuted one and the closest hit walks the BVH instead of testing
-every row; the result is the brute search's, bit for bit (see
-:func:`walk_closest_reference`), and records carry the original row ids
+every row; with ``cbounds`` (:func:`cluster_spheres`) the table is in
+cluster order and the closest hit walks the clusters, skipping each one
+whose box the ray does not enter (:func:`cull_inputs`). Either way the
+result is the brute search's, bit for bit (see :func:`walk_closest_reference`
+and :func:`cull_closest_reference`), and records carry the original row ids
 (column 31 of the permuted row). With ``tri_nodes``, ``tris``, ``mats`` and
 ``tri_meta`` (``integrator.make_tri_tables``) each bounce then walks the
 mesh's BVH for a triangle strictly nearer than the sphere
@@ -37,8 +42,8 @@ per-lane sample regeneration, as the TPU kernel runs them, the brute
 from the ported materials / textures / skybox / sampling code.
 ``FORWARD_LAUNCHES`` and ``RECORD_LAUNCHES`` count the kernel's launches
 (not twin calls) by variant, and :func:`zero_counts` clears both;
-``WALK_COUNTS``, ``TRI_COUNTS`` and ``SEARCH_COUNTS`` count the plain
-versions' work (both modes).
+``WALK_COUNTS``, ``CULL_COUNTS``, ``TRI_COUNTS`` and ``SEARCH_COUNTS`` count
+the plain versions' work (both modes).
 
 Layouts: ``smem`` (8,) int32 ``[spp, seed, width, max_depth, accum_from,
 0...]`` (spp and seed are uint32 bit patterns; accum_from is read in record
@@ -104,11 +109,13 @@ F_REFL = 32  # dielectric chose reflection over refraction
 F_DEGEN = 64  # Lambertian scatter direction was degenerate
 F_ROOT1 = 128  # sphere hit used the far quadratic root
 
-# Sphere-BVH tables (the JAX package's constants): rows per permutation
-# block, spheres per leaf, and the guard rows of ``sph_meta``.
+# Sphere-BVH and cluster tables (the JAX package's constants): rows per
+# permutation block and per cluster, spheres per leaf, the guard rows of
+# ``sph_meta``, and the box of a cluster that holds no active sphere.
 CLUSTER = 256
 SPH_LEAF = 128
 NODE_WIN = 16
+_FAR = np.float32(1.0e30)
 
 # The walk's slab test runs against each node box grown by SLAB_EPS * (1 +
 # the box's largest |coordinate| + the ray origin's largest |coordinate|).
@@ -120,6 +127,14 @@ SLAB_EPS = float(np.float32(4e-3))
 # The walk stages the node boxes (6 float32) and [first, count, miss]
 # (3 int32) beside the five search columns.
 NODE_BYTES = 9 * 4
+# K6 stages only its cluster nodes (NODE_BYTES each) and reads the rows'
+# search columns from a compact copy in global memory: these table columns
+# (center, |c|^2 - r^2, active; with ``animated`` also the center delta,
+# s1 and s2), one contiguous column each.
+CULL_COLS = (0, 1, 2, 4, 5)
+CULL_MOTION_COLS = (24, 25, 26, 28, 29)
+# Row ids travel through float32 column 31, exact below 2^24.
+MAX_ID_ROWS = 1 << 24
 
 # K7 stages each triangle-BVH node's box (6 float32) and [first, count,
 # miss] (3 int32) in shared memory beside the sphere rows' columns (20
@@ -149,15 +164,17 @@ def max_tri_nodes(n: int, animated: bool = False) -> int:
 # Launches of the CUDA kernel since the last zero_counts() (twin calls
 # excluded), by variant: "brute" K1 / K2 (over every row), "walk" K5 (the
 # sphere BVH), "motion" K8 brute with animated and / or cam_animated,
-# "motion_walk" K8's walk with cam_animated, "tri" K7 (the triangle BVH),
-# "tri_motion" K7 with either motion flag (K7 moving with animated).
-FORWARD_LAUNCHES = {"brute": 0, "walk": 0, "motion": 0, "motion_walk": 0, "tri": 0,
-                    "tri_motion": 0}
+# "motion_walk" K8's walk with cam_animated, "cull" K6 (the cluster walk,
+# with any motion flags), "tri" K7 (the triangle BVH), "tri_motion" K7 with
+# either motion flag (K7 moving with animated).
+FORWARD_LAUNCHES = {"brute": 0, "walk": 0, "motion": 0, "motion_walk": 0, "cull": 0,
+                    "tri": 0, "tri_motion": 0}
 RECORD_LAUNCHES = dict(FORWARD_LAUNCHES)
-# The plain walks' work since the last reset: K5's slab tests of a node,
-# rows of a leaf tested, and rows whose discriminant was not negative; K7's
-# slab tests and leaf rows tested.
+# The plain walks' work since the last reset: K5's (WALK_COUNTS) and K6's
+# (CULL_COUNTS) slab tests of a node, rows of a leaf tested, and rows whose
+# discriminant was not negative; K7's slab tests and leaf rows tested.
 WALK_COUNTS = {"nodes": 0, "rows": 0, "roots": 0}
+CULL_COUNTS = dict(WALK_COUNTS)
 TRI_COUNTS = {"nodes": 0, "rows": 0}
 # The plain loop's work since the last reset (forward and record mode):
 # closest-hit searches (one per lane and bounce traced) and primary rays
@@ -175,12 +192,6 @@ def as_i32(v: int) -> int:
     """A uint32 bit pattern (spp, seed) as the int32 that ``smem`` holds."""
     v &= 0xFFFFFFFF
     return v - (1 << 32) if v >= (1 << 31) else v
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"the megakernel's {what} branch is not ported to crucible_tpu_torch yet"
-    )
 
 
 def sphere_bvh_tables(center, radius, active, leaf_size=None):
@@ -222,6 +233,81 @@ def sphere_bvh_tables(center, radius, active, leaf_size=None):
     return perm, snodes, smeta
 
 
+def cluster_spheres(center, radius, active, center_d=None, radius_d=None):
+    """Host-side spatial clustering for the chunk-cull walk (K6), the JAX
+    package's ``megakernel.cluster_spheres``, bit for bit.
+
+    Recursive median split on the longest centroid axis with split points
+    aligned to CLUSTER, so that every 256-row slice of the permuted table
+    is a spatially tight cluster. Returns (perm, bounds):
+
+    - ``perm`` (N_pad,) int32: active spheres in split order, then the
+      inactive ones, then ids >= N that address zero rows the caller
+      appends; N_pad = ceil(N / CLUSTER) * CLUSTER;
+    - ``bounds`` (N_pad / CLUSTER, 8) float32: each cluster's box min (0-2)
+      and max (3-5), padded by 1e-5 (1 + its largest |coordinate|). With
+      ``center_d`` / ``radius_d`` (the shutter deltas) a box holds each
+      sphere at shutter open and close, so the whole linear path. A cluster
+      with no active sphere gets the far point box ``_FAR``.
+    """
+    center = np.asarray(center, np.float64)
+    radius = np.abs(np.asarray(radius, np.float64))
+    active = np.asarray(active).astype(bool)
+    n = center.shape[0]
+
+    order = []
+
+    def split(ids):
+        if len(ids) <= CLUSTER:
+            order.extend(ids.tolist())
+            return
+        c = center[ids]
+        ax = int(np.argmax(c.max(axis=0) - c.min(axis=0)))
+        ids = ids[np.argsort(c[:, ax], kind="stable")]
+        half = max(CLUSTER, (len(ids) // 2 // CLUSTER) * CLUSTER)
+        split(ids[:half])
+        split(ids[half:])
+
+    split(np.nonzero(active)[0])
+    inact = np.nonzero(~active)[0]
+    n_pad = ((n + CLUSTER - 1) // CLUSTER) * CLUSTER
+    perm = np.concatenate(
+        [np.asarray(order, np.int64), inact, np.arange(n, n_pad)]
+    ).astype(np.int32)
+    assert perm.shape[0] == n_pad
+
+    lo_all = center - radius[:, None]
+    hi_all = center + radius[:, None]
+    if center_d is not None:
+        c1 = center + np.asarray(center_d, np.float64)
+        r1 = np.abs(radius + np.asarray(radius_d, np.float64))
+        lo_all = np.minimum(lo_all, c1 - r1[:, None])
+        hi_all = np.maximum(hi_all, c1 + r1[:, None])
+
+    k = n_pad // CLUSTER
+    bounds = np.zeros((k, 8), np.float32)
+    for ci in range(k):
+        rows = perm[ci * CLUSTER: (ci + 1) * CLUSTER]
+        rows = rows[rows < n]
+        rows = rows[active[rows]]
+        if rows.size == 0:
+            bounds[ci, 0:6] = _FAR
+        else:
+            lo = lo_all[rows].min(axis=0)
+            hi = hi_all[rows].max(axis=0)
+            pad = 1e-5 * (1.0 + np.maximum(np.abs(lo), np.abs(hi)))
+            bounds[ci, 0:3] = (lo - pad).astype(np.float32)
+            bounds[ci, 3:6] = (hi + pad).astype(np.float32)
+    return perm, bounds
+
+
+def _grown(lo, hi):
+    """Boxes (K, 6) grown by SLAB_EPS * (1 + each box's largest
+    |coordinate|); the walk adds the per-ray part of the margin."""
+    pad = SLAB_EPS * (1.0 + torch.maximum(lo.abs(), hi.abs()).amax(dim=1, keepdim=True))
+    return torch.cat([lo - pad, hi + pad], dim=1).contiguous()
+
+
 def walk_inputs(sph_nodes, sph_meta):
     """What the walk reads from the sphere-BVH tables -> (nodes (K, 6)
     float32, each box grown by SLAB_EPS * (1 + its largest |coordinate|),
@@ -235,10 +321,48 @@ def walk_inputs(sph_nodes, sph_meta):
         ("sph_nodes", sph_nodes, torch.float32, (k, 16)),
         ("sph_meta", sph_meta, torch.int32, (3 * (k + NODE_WIN),)),
     ))
-    lo, hi = sph_nodes[:, 0:3], sph_nodes[:, 3:6]
-    pad = SLAB_EPS * (1.0 + torch.maximum(lo.abs(), hi.abs()).amax(dim=1, keepdim=True))
-    nodes = torch.cat([lo - pad, hi + pad], dim=1).contiguous()
+    nodes = _grown(sph_nodes[:, 0:3], sph_nodes[:, 3:6])
     return nodes, sph_meta[: 3 * k].reshape(k, 3).contiguous()
+
+
+def cull_inputs(cbounds, table):
+    """What K6's walk reads from the cluster tables -> (nodes (K, 6)
+    float32, meta (K, 3) int32 [first, count, miss]): a flat skip-link list
+    that K5's walk runs as it is. Node k is cluster k's box of ``cbounds``
+    (:func:`cluster_spheres`), grown as :func:`walk_inputs` grows a BVH
+    node's; its leaf is rows [CLUSTER k, CLUSTER k + count) of ``table``
+    (in cluster order), count reaching the cluster's last active row (0
+    for a cluster with none, so that its far box never leads to a row
+    test); its skip link is k + 1.
+
+    Raises where ``table`` is not K clusters long, or where an active
+    row's sphere at shutter open or close (center + delta, |radius +
+    delta|) leaves its cluster's grown box: such bounds belong to other
+    spheres, and the walk would skip rows that the brute search takes."""
+    k = cbounds.shape[0] if cbounds.dim() == 2 else -1
+    build.check_tensors(table.device, (("cbounds", cbounds, torch.float32, (k, 8)),))
+    if table.dim() != 2 or table.shape[0] != k * CLUSTER:
+        raise ValueError(
+            f"{k} clusters of cbounds need a table of {k * CLUSTER} rows in cluster "
+            f"order (integrator.permute_table), got {tuple(table.shape)}"
+        )
+    nodes = _grown(cbounds[:, 0:3], cbounds[:, 3:6])
+    act = table[:, 5] > 0.0
+    slot = torch.arange(1, CLUSTER + 1, device=table.device, dtype=torch.int32)
+    count = (act.reshape(k, CLUSTER).int() * slot).amax(dim=1)
+    first = torch.arange(k, device=table.device, dtype=torch.int32) * CLUSTER
+    meta = torch.stack([first, count, first // CLUSTER + 1], dim=1).contiguous()
+    box = nodes.repeat_interleave(CLUSTER, dim=0)
+    c0, r0 = table[:, 0:3], table[:, 3:4].abs()
+    c1, r1 = c0 + table[:, 24:27], (table[:, 3:4] + table[:, 27:28]).abs()
+    inside = ((c0 - r0 >= box[:, 0:3]) & (c0 + r0 <= box[:, 3:6])
+              & (c1 - r1 >= box[:, 0:3]) & (c1 + r1 <= box[:, 3:6])).all(dim=1)
+    if not bool((inside | ~act).all()):
+        raise ValueError(
+            "an active sphere leaves its cluster's box: cbounds are not "
+            "cluster_spheres' bounds of this table's spheres and shutter deltas"
+        )
+    return nodes, meta
 
 
 def run_megakernel(
@@ -261,48 +385,62 @@ def run_megakernel(
     """Dispatch the persistent megakernel -> per-lane radiance sums (3, R).
 
     With ``sph_nodes`` / ``sph_meta`` the closest hit walks the sphere BVH
-    over the permuted ``table`` (K5), else it tests every row (K1).
-    ``animated`` moves the spheres on the linear shutter (table columns
-    24-29) and ``cam_animated`` re-derives the camera per path at its
-    shutter fraction (cam slots 19-37): K8, the kernel's motion variants.
-    A mesh's ``tri_nodes`` (K, 6), ``tris``, ``mats`` (NM, 24) and
-    ``tri_meta`` (K, 3) (``integrator.make_tri_tables``) add the triangle
-    stage (K7) after the brute search: ``tris`` (M, 16) Woop rows of a
-    static mesh, or with ``animated`` (M, 32) rows of a moving one (K7
-    moving, at each path's shutter fraction). CUDA tensors launch the CUDA
-    kernel; CPU tensors run the eager reference. The chunk-cull branch, an
-    animated walk (which needs it) and the triangle stage beside a walk
-    raise ``NotImplementedError``.
+    over the permuted ``table`` (K5); with ``cbounds`` (K, 8) it walks the
+    clusters of the table in cluster order (K6, the chunk-cull branch); else
+    it tests every row (K1). ``animated`` moves the spheres on the linear
+    shutter (table columns 24-29) and ``cam_animated`` re-derives the camera
+    per path at its shutter fraction (cam slots 19-37): K8, the kernel's
+    motion variants, over every row or (K6) the clusters, whose boxes hold
+    the spheres over the whole shutter; the sphere BVH's boxes do not, and
+    a moving table on it raises ``ValueError``. K6 without ``animated``
+    (a static table's clusters) is instantiated here, with a static camera,
+    and not in record mode: the other such launches raise ``ValueError``. A mesh's ``tri_nodes`` (K,
+    6), ``tris``, ``mats`` (NM, 24) and ``tri_meta`` (K, 3)
+    (``integrator.make_tri_tables``) add the triangle stage (K7) after the
+    brute search: ``tris`` (M, 16) Woop rows of a static mesh, or with
+    ``animated`` (M, 32) rows of a moving one (K7 moving, at each path's
+    shutter fraction). CUDA tensors launch the CUDA kernel; CPU tensors run
+    the eager reference. The triangle stage beside a walk (K5 or K6) raises
+    ``NotImplementedError``.
     """
-    _check_unported(cbounds)
     _check_inputs(smem, pix, sample0, cam, table)
     walk = _walk(sph_nodes, sph_meta, table)
+    cull = _cull(cbounds, table)
     tri = _tri(tri_nodes, tris, mats, tri_meta, table)
     motion = dict(animated=bool(animated), cam_animated=bool(cam_animated))
-    _check_combination(walk, tri, **motion)
+    _check_combination(walk, cull, tri, **motion)
     if table.device.type == "cpu":
         return _reference_loop(smem, pix, sample0, cam, table, rec_depth=0, radiance=True,
-                               walk=walk, tri=tri, **motion)[0]
-    return _launch(smem, pix, sample0, cam, table, walk, tri, **motion)
+                               walk=walk, cull=cull, tri=tri, **motion)[0]
+    return _launch(smem, pix, sample0, cam, table, walk, cull, tri, **motion)
 
 
-def _check_unported(cbounds):
-    if cbounds is not None:
-        raise _unported("chunk-cull")
-
-
-def _check_combination(walk, tri, animated, cam_animated):
-    """Raise for the variants the kernel does not instantiate, and for a
-    triangle table whose layout is not the one ``animated`` reads."""
+def _check_combination(walk, cull, tri, animated, cam_animated=False, record=False):
+    """Raise for the variants the kernel does not instantiate, for a moving
+    table on the sphere BVH, and for a triangle table whose layout is not
+    the one ``animated`` reads."""
+    if walk is not None and cull is not None:
+        raise ValueError("pass the sphere-BVH tables (sph_nodes, sph_meta) or the "
+                         "cluster tables (cbounds), not both")
+    if cull is not None and not animated and (cam_animated or record):
+        raise ValueError(
+            "the cluster walk (K6) over a static table is instantiated in forward mode "
+            "with a static camera only (no route selects it: a static big table walks "
+            "the sphere BVH, K5); pass animated=True for a moving table"
+        )
     if walk is not None and animated:
-        raise _unported("chunk-cull (K6: moving spheres in a big scene)")
+        raise ValueError(
+            "the sphere BVH's boxes hold the spheres at one time: a moving table "
+            "walks the clusters of cluster_spheres (cbounds, K6), whose boxes hold "
+            "them over the whole shutter"
+        )
     if tri is None:
         return
-    if walk is not None:
+    if walk is not None or cull is not None:
         raise NotImplementedError(
             "the megakernel's triangle stage (K7) runs beside the brute sphere "
-            "search only: a mesh with the sphere-BVH walk is a template "
-            "combination not instantiated yet (ROADMAP A11)"
+            "search only: a mesh with a sphere walk (K5's BVH or K6's clusters) is "
+            "a template combination not instantiated yet (ROADMAP A11)"
         )
     if (tri[2].shape[1] == TRI_MOVING_COLS) != animated:
         raise ValueError(
@@ -323,6 +461,11 @@ def _walk(sph_nodes, sph_meta, table):
         raise ValueError(f"sph_nodes is on {nodes.device}, not {table.device}")
     _check_links(meta, table.shape[0], "sph_meta", "table")
     return nodes, meta
+
+
+def _cull(cbounds, table):
+    """:func:`cull_inputs`, or None without cluster tables."""
+    return None if cbounds is None else cull_inputs(cbounds, table)
 
 
 def _check_links(meta, rows: int, name: str, what: str) -> None:
@@ -380,11 +523,21 @@ def _check_inputs(smem, pix, sample0, cam, table):
         raise ValueError(f"table must be (N, {C_IN}), got {tuple(table.shape)}")
 
 
-def check_rows(n: int, walk=None, animated: bool = False, tri=None) -> None:
+def check_rows(n: int, walk=None, animated: bool = False, tri=None, cull=None) -> None:
     """Raise where the kernel's shared memory cannot hold what it stages:
     ``n`` sphere rows' columns (with the motion columns when ``animated``),
     with ``walk`` the sphere-BVH nodes and with ``tri`` the triangle-BVH
-    nodes (at most :func:`max_tri_nodes`)."""
+    nodes (at most :func:`max_tri_nodes`); with ``cull`` (K6) only the
+    cluster nodes, the rows being read from global memory."""
+    if cull is not None:
+        k = cull[0].shape[0]
+        if k * NODE_BYTES > SHARED_MEM_BYTES or n > MAX_ID_ROWS:
+            raise ValueError(
+                f"the cluster walk stages {k} nodes of {NODE_BYTES} bytes in a block's "
+                f"{SHARED_MEM_BYTES} bytes of shared memory and carries row ids in "
+                f"float32, below {MAX_ID_ROWS} rows; got {k} clusters of {n} rows"
+            )
+        return
     if tri is not None:
         k, cap = tri[0].shape[0], max_tri_nodes(n, animated)
         if k > cap:
@@ -400,7 +553,8 @@ def check_rows(n: int, walk=None, animated: bool = False, tri=None) -> None:
             raise ValueError(
                 f"{n} sphere rows exceed the {cap} rows whose intersection "
                 f"columns fit in a block's {SHARED_MEM_BYTES} bytes of shared "
-                f"memory; bigger scenes need the sphere-BVH walk"
+                f"memory; bigger scenes need a walk: the sphere BVH (K5) for a "
+                f"static table, the clusters (K6) for any"
             )
         return
     need = n * SMEM_COLS * 4 + walk[0].shape[0] * NODE_BYTES
@@ -408,35 +562,46 @@ def check_rows(n: int, walk=None, animated: bool = False, tri=None) -> None:
         raise ValueError(
             f"the sphere-BVH walk stages {n} permuted rows and "
             f"{walk[0].shape[0]} nodes, {need} bytes, more than a block's "
-            f"{SHARED_MEM_BYTES} bytes of shared memory; leaves read from "
-            f"global memory are not ported yet"
+            f"{SHARED_MEM_BYTES} bytes of shared memory; the cluster walk (K6) "
+            f"reads its rows from global memory"
         )
 
 
-def _tree_args(walk, tri):
-    """The C entry points' (nodes, meta, tnodes, tmeta, tris, mats)
-    pointers and (k, kt) node counts; None and 0 where absent."""
+def _tree_args(walk, cull, tri, table, animated):
+    """The C entry points' (nodes, meta, rows, tnodes, tmeta, tris, mats)
+    pointers, (k, kt) node counts and the tensors they point into; None and
+    0 where absent. K6's nodes and meta take the walk's place, and ``rows``
+    points to the compact copy of the search columns it reads from global
+    memory (CULL_COLS, and with ``animated`` CULL_MOTION_COLS, one
+    contiguous column each)."""
+    rows = None
+    if cull is not None:
+        cols = CULL_COLS + (CULL_MOTION_COLS if animated else ())
+        rows = table[:, list(cols)].t().contiguous()
+        walk = cull
+    held = [*(walk or (None, None)), rows, *(tri or (None,) * 4)]
+    ptrs = [None if t is None else t.data_ptr() for t in held]
     k, kt = (0 if x is None else x[0].shape[0] for x in (walk, tri))
-    ptrs = [None if x is None else t.data_ptr()
-            for x, n in ((walk, 2), (tri, 4)) for t in (x or (None,) * n)]
-    return ptrs, k, kt
+    return ptrs, k, kt, held
 
 
-def _variant(walk, tri, animated, cam_animated) -> str:
+def _variant(walk, cull, tri, animated, cam_animated) -> str:
     """The launch-count key of a launch."""
+    if cull is not None:
+        return "cull"
     if tri is not None:
         return "tri_motion" if animated or cam_animated else "tri"
     motion = "motion" if animated or cam_animated else ""
     return "_".join(x for x in (motion, "walk" if walk is not None else "") if x) or "brute"
 
 
-def _launch(smem, pix, sample0, cam, table, walk, tri, animated, cam_animated):
+def _launch(smem, pix, sample0, cam, table, walk, cull, tri, animated, cam_animated):
     n = table.shape[0]
-    check_rows(n, walk, animated, tri)
+    check_rows(n, walk, animated, tri, cull)
     lib = build.load("megakernel")
     r = pix.shape[1]
     out = torch.empty((3, r), dtype=torch.float32, device=table.device)
-    ptrs, k, kt = _tree_args(walk, tri)
+    ptrs, k, kt, _held = _tree_args(walk, cull, tri, table, animated)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.crucible_megakernel_forward(
@@ -446,7 +611,7 @@ def _launch(smem, pix, sample0, cam, table, walk, tri, animated, cam_animated):
             out.data_ptr(), stream,
         )
     build.check(lib, err, "megakernel")
-    FORWARD_LAUNCHES[_variant(walk, tri, animated, cam_animated)] += 1
+    FORWARD_LAUNCHES[_variant(walk, cull, tri, animated, cam_animated)] += 1
     return out
 
 
@@ -477,46 +642,48 @@ def run_megakernel_record(
     ``radiance`` (the fused mode), else zeros; the records are the same in
     both modes. ``smem[3]`` is overridden by ``max_depth``, which sizes the
     records. With ``sph_nodes`` / ``sph_meta`` the closest hit walks the
-    sphere BVH over the permuted ``table`` (K5) and the records hold the
+    sphere BVH over the permuted ``table`` (K5), with ``cbounds`` the
+    clusters of the table in cluster order (K6), and the records hold the
     winners' original ids; else it tests every row (K2). ``animated`` and
     ``cam_animated`` are K8's, as in :func:`run_megakernel`: each path's
     words are those of the moving spheres and the camera at its shutter
     fraction. The triangle tables add K7's stage (K7 moving with
     ``animated``), as in :func:`run_megakernel`; a triangle winner's word
     holds its leaf-order id and ``F_TRI``. CUDA tensors launch the kernel;
-    CPU tensors run the twin. The chunk-cull inputs, an animated walk and
-    the triangle stage beside a walk raise ``NotImplementedError``.
+    CPU tensors run the twin. A moving table on the sphere BVH raises
+    ``ValueError``, the triangle stage beside a walk
+    ``NotImplementedError``.
     """
-    _check_unported(cbounds)
     _check_inputs(smem, pix, sample0, cam, table)
     if max_depth < 1:
         raise ValueError(f"max_depth must be positive, got {max_depth}")
     motion = dict(animated=bool(animated), cam_animated=bool(cam_animated))
-    tables = dict(sph_nodes=sph_nodes, sph_meta=sph_meta, tri_nodes=tri_nodes, tris=tris,
-                  mats=mats, tri_meta=tri_meta)
+    tables = dict(cbounds=cbounds, sph_nodes=sph_nodes, sph_meta=sph_meta,
+                  tri_nodes=tri_nodes, tris=tris, mats=mats, tri_meta=tri_meta)
     if table.device.type == "cpu":
         return run_megakernel_record_reference(
             smem, pix, sample0, cam, table, **tables, max_depth=max_depth,
             radiance=radiance, **motion,
         )
     walk = _walk(sph_nodes, sph_meta, table)
+    cull = _cull(cbounds, table)
     tri = _tri(tri_nodes, tris, mats, tri_meta, table)
-    _check_combination(walk, tri, **motion)
+    _check_combination(walk, cull, tri, **motion, record=True)
     smem = smem.clone()
     smem[3] = int(max_depth)
-    return _launch_record(smem, pix, sample0, cam, table, max_depth, radiance, walk, tri,
-                          **motion)
+    return _launch_record(smem, pix, sample0, cam, table, max_depth, radiance, walk, cull,
+                          tri, **motion)
 
 
-def _launch_record(smem, pix, sample0, cam, table, max_depth, radiance, walk, tri,
+def _launch_record(smem, pix, sample0, cam, table, max_depth, radiance, walk, cull, tri,
                    animated, cam_animated):
     n = table.shape[0]
-    check_rows(n, walk, animated, tri)
+    check_rows(n, walk, animated, tri, cull)
     lib = build.load("megakernel")
     r = pix.shape[1]
     acc = torch.empty((3, r), dtype=torch.float32, device=table.device)
     rec = torch.empty((max_depth, r), dtype=torch.int32, device=table.device)
-    ptrs, k, kt = _tree_args(walk, tri)
+    ptrs, k, kt, _held = _tree_args(walk, cull, tri, table, animated)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.crucible_megakernel_record(
@@ -526,25 +693,26 @@ def _launch_record(smem, pix, sample0, cam, table, max_depth, radiance, walk, tr
             int(cam_animated), acc.data_ptr(), rec.data_ptr(), stream,
         )
     build.check(lib, err, "record megakernel")
-    RECORD_LAUNCHES[_variant(walk, tri, animated, cam_animated)] += 1
+    RECORD_LAUNCHES[_variant(walk, cull, tri, animated, cam_animated)] += 1
     return acc, rec
 
 
 def run_megakernel_record_reference(
     smem, pix, sample0, cam, table, sph_nodes=None, sph_meta=None, tri_nodes=None,
-    tris=None, mats=None, tri_meta=None, *, max_depth: int, radiance: bool = False,
-    animated: bool = False, cam_animated: bool = False,
+    tris=None, mats=None, tri_meta=None, cbounds=None, *, max_depth: int,
+    radiance: bool = False, animated: bool = False, cam_animated: bool = False,
 ):
     """Eager-torch version of the record kernel: same inputs and outputs
     as :func:`run_megakernel_record`."""
     walk = _walk(sph_nodes, sph_meta, table)
+    cull = _cull(cbounds, table)
     tri = _tri(tri_nodes, tris, mats, tri_meta, table)
-    _check_combination(walk, tri, animated, cam_animated)
+    _check_combination(walk, cull, tri, animated, cam_animated, record=True)
     smem = smem.clone()
     smem[3] = int(max_depth)
     return _reference_loop(
         smem, pix, sample0, cam, table, rec_depth=int(max_depth), radiance=radiance,
-        walk=walk, tri=tri, animated=animated, cam_animated=cam_animated,
+        walk=walk, cull=cull, tri=tri, animated=animated, cam_animated=cam_animated,
     )
 
 
@@ -555,7 +723,8 @@ def run_megakernel_record_reference(
 
 def run_megakernel_reference(smem, pix, sample0, cam, table, sph_nodes=None, sph_meta=None,
                              tri_nodes=None, tris=None, mats=None, tri_meta=None,
-                             *, animated: bool = False, cam_animated: bool = False):
+                             cbounds=None, *, animated: bool = False,
+                             cam_animated: bool = False):
     """Eager-torch version of the kernel: same inputs, same (3, R) output.
 
     Lanes advance in lockstep, as on the TPU: each step issues a new sample
@@ -564,10 +733,12 @@ def run_megakernel_reference(smem, pix, sample0, cam, table, sph_nodes=None, sph
     order of operations, so each lane's sum is the kernel's.
     """
     walk = _walk(sph_nodes, sph_meta, table)
+    cull = _cull(cbounds, table)
     tri = _tri(tri_nodes, tris, mats, tri_meta, table)
-    _check_combination(walk, tri, animated, cam_animated)
+    _check_combination(walk, cull, tri, animated, cam_animated)
     acc, _ = _reference_loop(smem, pix, sample0, cam, table, rec_depth=0, radiance=True,
-                             walk=walk, tri=tri, animated=animated, cam_animated=cam_animated)
+                             walk=walk, cull=cull, tri=tri, animated=animated,
+                             cam_animated=cam_animated)
     return acc
 
 
@@ -595,6 +766,30 @@ def walk_closest_reference(o, d, table, nodes, meta, t_min: float = T_MIN):
     nearest root, and the lowest row among equal roots. Adds the work done
     to ``WALK_COUNTS``.
     """
+    return _skip_walk(o, d, table, nodes, meta, t_min, None, WALK_COUNTS)
+
+
+def cull_closest_reference(o, d, table, nodes, meta, w=None, t_min: float = T_MIN):
+    """Plain version of K6's closest hit: :func:`walk_closest_reference`'s
+    lockstep walk over the flat cluster list of :func:`cull_inputs` (node
+    k's leaf is cluster k, its skip link k + 1), with each leaf row's root
+    that of the spheres moving on the linear shutter at each ray's fraction
+    ``w`` (R,), in the moving search's operations
+    (``sphere_shade.moving_closest_reference``, K8's brute search); ``w``
+    None takes the static search's (K1's). Ties go to the lower original
+    row id, so the result is the brute search's over the original table,
+    bit for bit, wherever no cluster holding a winning root is skipped: a
+    cluster's box holds its spheres over the whole shutter, and the
+    margin covers the quadratic's error at the moving center c + w cd as
+    it does at c. Adds the work done to ``CULL_COUNTS``.
+    """
+    return _skip_walk(o, d, table, nodes, meta, t_min, w, CULL_COUNTS)
+
+
+def _skip_walk(o, d, table, nodes, meta, t_min, w, counts):
+    """The lockstep skip-link walk of both plain sphere walks (K5, K6):
+    leaf rows in the static search's operations, or moving at the rays'
+    fractions ``w``; the work done is added to ``counts``."""
     dev = o.device
     m, k = o.shape[0], nodes.shape[0]
     ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
@@ -607,6 +802,7 @@ def walk_closest_reference(o, d, table, nodes, meta, t_min: float = T_MIN):
     pr = SLAB_EPS * torch.maximum(torch.maximum(ox.abs(), oy.abs()), oz.abs())
     first, count, miss = (meta[:, j].long() for j in range(3))
     cx, cy, cz, csr, act, orig = (table[:, c] for c in (0, 1, 2, 4, 5, 31))
+    cdx, cdy, cdz, s1, s2 = (table[:, c] for c in CULL_MOTION_COLS)
     width = torch.arange(max(int(count.max()), 1), device=dev)
 
     best = torch.full((m,), BIG, dtype=torch.float32, device=dev)
@@ -635,7 +831,7 @@ def walk_closest_reference(o, d, table, nodes, meta, t_min: float = T_MIN):
         )
         hit_node = enter <= exitv
         cnt = count[c]
-        WALK_COUNTS["nodes"] += int(lanes.numel())
+        counts["nodes"] += int(lanes.numel())
 
         sel = torch.nonzero(hit_node & (cnt > 0)).squeeze(1)
         if sel.numel():
@@ -649,12 +845,19 @@ def walk_closest_reference(o, d, table, nodes, meta, t_min: float = T_MIN):
 
             dc = rx * ex(dx) + ry * ex(dy) + rz * ex(dz)
             oc = rx * ex(ox) + ry * ex(oy) + rz * ex(oz)
+            c_sr = csr[rows]
+            if w is not None:  # the rows at the rays' shutter fractions
+                wr = ex(w)
+                ux, uy, uz = cdx[rows], cdy[rows], cdz[rows]
+                dc = dc + wr * (ux * ex(dx) + uy * ex(dy) + uz * ex(dz))
+                oc = oc + wr * (ux * ex(ox) + uy * ex(oy) + uz * ex(oz))
+                c_sr = c_sr + (2.0 * wr) * s1[rows] + (wr * wr) * s2[rows]
             t_all, disc = sphere_hit.accepted_roots(
-                dc - ex(d_dot_o), csr[rows] - 2.0 * oc + ex(o_sq), ex(a_q), ex(inv_a),
+                dc - ex(d_dot_o), c_sr - 2.0 * oc + ex(o_sq), ex(a_q), ex(inv_a),
                 inside & (act[rows] > 0.0), t_min,
             )
-            WALK_COUNTS["rows"] += int(inside.sum())
-            WALK_COUNTS["roots"] += int((inside & (disc >= 0.0)).sum())
+            counts["rows"] += int(inside.sum())
+            counts["roots"] += int((inside & (disc >= 0.0)).sum())
             t_leaf = t_all.min(dim=1).values
             ids = orig[rows]
             at_min = t_all == t_leaf[:, None]
@@ -789,7 +992,8 @@ def camera_at(c, w):
 
 
 def _reference_loop(smem, pix, sample0, cam, table, *, rec_depth: int, radiance: bool,
-                    walk=None, tri=None, animated: bool = False, cam_animated: bool = False):
+                    walk=None, cull=None, tri=None, animated: bool = False,
+                    cam_animated: bool = False):
     """The lockstep loop of both eager versions -> (acc (3, R), rec).
 
     ``rec_depth`` 0 is forward mode (``rec`` is None). Otherwise record
@@ -798,7 +1002,9 @@ def _reference_loop(smem, pix, sample0, cam, table, *, rec_depth: int, radiance:
     ``radiance`` then says whether to accumulate it, from bounce smem[4] on.
     ``walk`` (``walk_inputs``' nodes and meta) takes the closest hit from
     the sphere-BVH walk over the permuted table, the records' winner ids
-    from its column 31. ``tri`` (``_tri``'s tables) adds K7's stage: a
+    from its column 31; ``cull`` (``cull_inputs``' nodes and meta) likewise
+    from the cluster walk (:func:`cull_closest_reference`, its rows moving
+    at each path's shutter fraction when ``animated``). ``tri`` (``_tri``'s tables) adds K7's stage: a
     triangle strictly nearer than the sphere (:func:`tri_closest_reference`)
     takes the hit, with its table normal (a moving mesh's: its lerped
     normal at the path's shutter fraction, :func:`moving_tri_normal`) and
@@ -872,6 +1078,9 @@ def _reference_loop(smem, pix, sample0, cam, table, *, rec_depth: int, radiance:
         SEARCH_COUNTS["issued"] += int(iss.sum())
         if walk is not None:
             t, idx, hit = walk_closest_reference(o_l, d_l, table, *walk)
+        elif cull is not None:
+            t, idx, hit = cull_closest_reference(o_l, d_l, table, *cull,
+                                                 w=w if animated else None)
         elif animated:
             t, idx = sphere_shade.moving_closest_reference(o_l, d_l, w, table, T_MIN)
             hit = t < BIG
@@ -950,10 +1159,10 @@ def _reference_loop(smem, pix, sample0, cam, table, *, rec_depth: int, radiance:
                 | torch.where(refl, F_REFL, 0) | torch.where(degen, F_DEGEN, 0)
                 | torch.where(root1, F_ROOT1, 0)
             )
-            # A miss keeps the alive bit alone (megakernel.py l.1498). The
+            # A miss keeps the alive bit alone (megakernel.py l.1498). A
             # walk's winner is a permuted row: record its original id; a
             # triangle its leaf-order id.
-            win_id = idx if walk is None else row[:, 31].long()
+            win_id = idx if walk is None and cull is None else row[:, 31].long()
             if tri is not None:
                 flags = flags | torch.where(is_tri, F_TRI, 0)
                 win_id = torch.where(is_tri, tid, win_id)

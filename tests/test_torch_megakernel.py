@@ -12,6 +12,7 @@ from crucible_tpu_torch.models import integrator as tint
 from crucible_tpu_torch.models import scene as tscene
 from crucible_tpu_torch.ops.kernels import build as tbuild
 from crucible_tpu_torch.ops.kernels import megakernel as tmk
+from tests.torch_motion_scenes import bouncing_stress
 
 # The JAX side is imported inside the helpers that use it, so that the
 # card-only tests at the end also run where JAX is not installed:
@@ -133,23 +134,33 @@ def test_refuses_unported_branches(kwargs):
     t = {k: torch.from_numpy(arrays[k]) for k in INPUTS}
     if "animated" in kwargs or "cam_animated" in kwargs:
         # K8 is ported in both modes (tests/test_torch_motion.py,
-        # tests/test_torch_motion_grad.py); a moving table on the
-        # sphere-BVH walk needs the chunk-cull branch (K6), in either mode.
-        sc = tdemo.sphere_stress(width=16, copies=4)
+        # tests/test_torch_motion_grad.py), and so is K6, the walk over a
+        # moving table's clusters (tests/test_torch_cull.py): it runs its
+        # plain version and gives K8's brute sums and words. The sphere
+        # BVH's boxes do not follow moving spheres, so a moving table on it
+        # is refused, in either mode.
+        sc = bouncing_stress(tdemo, 16, 4)
         sd = sc.build(device="cpu")
-        inputs, _ = tint.mega_inputs(sd, sc.scene_cam.params(device="cpu"), 16, 9, 1, 1, 0)
-        walk = dict(inputs, table=tint.permute_table(inputs["table"], sd.sph_perm),
-                    sph_nodes=sd.sph_nodes, sph_meta=sd.sph_meta)
+        inputs, _ = tint.mega_inputs(sd, sc.scene_cam.params(device="cpu"), 16, 9, 1, 2, 0)
+        cull = dict(inputs, table=tint.permute_table(inputs["table"], sd.sph_perm),
+                    cbounds=sd.sph_cbounds)
         motion = dict(animated=True, cam_animated="cam_animated" in kwargs)
-        with pytest.raises(NotImplementedError, match="chunk-cull"):
+        assert torch.equal(tmk.run_megakernel(**cull, **motion),
+                           tmk.run_megakernel(**inputs, **motion))
+        assert torch.equal(tmk.run_megakernel_record(**cull, max_depth=2, **motion)[1],
+                           tmk.run_megakernel_record(**inputs, max_depth=2, **motion)[1])
+        static = tdemo.sphere_stress(width=16, copies=4).build(device="cpu")
+        walk = dict(inputs, table=tint.permute_table(inputs["table"], static.sph_perm),
+                    sph_nodes=static.sph_nodes, sph_meta=static.sph_meta)
+        with pytest.raises(ValueError, match="cluster"):
             tmk.run_megakernel_record(**walk, max_depth=1, **motion)
-        with pytest.raises(NotImplementedError, match="chunk-cull"):
+        with pytest.raises(ValueError, match="cluster"):
             tmk.run_megakernel(**walk, **motion)
         return
-    # The sphere-BVH walk (K5) and the triangle stage (K7) are ported: part
-    # of their tables is an error.
-    error = ValueError if "sph_nodes" in kwargs or "tri_nodes" in kwargs else NotImplementedError
-    with pytest.raises(error):
+    # The sphere-BVH walk (K5), the cluster walk (K6) and the triangle stage
+    # (K7) are ported: part of their tables, or tables of another table's
+    # size, is an error.
+    with pytest.raises(ValueError):
         tmk.run_megakernel(**t, animated=False, **kwargs)
 
 

@@ -464,7 +464,8 @@ def test_what_moving_meshes_still_refuse():
         trep.trace_replay(sd, torch.zeros(4, 3), torch.ones(4, 3), torch.arange(4),
                           torch.zeros(4), 0, 2, torch.zeros((2, 4), dtype=torch.int32))
     # A mesh beside the sphere walk (ROADMAP A11), in both modes. (Moving
-    # spheres with structure tables are K6's, ROADMAP A6.)
+    # spheres with structure tables but without the cluster tables are
+    # refused, naming K6's cluster walk.)
     from dataclasses import replace
 
     sd, cp, w, h = _bridged("fan_rising_camera")
@@ -478,8 +479,9 @@ def test_what_moving_meshes_still_refuse():
     with pytest.raises(NotImplementedError, match="A11"):
         tmk.run_megakernel_record(**inputs, **tri, sph_nodes=nodes, sph_meta=meta,
                                   max_depth=2, cam_animated=True)
-    assert "A6" in tint.megakernel_record_unsupported_reason(
+    reason = tint.megakernel_record_unsupported_reason(
         replace(_bridged("moving_fan")[0], sph_perm=walk.sph_perm), cp)
+    assert "K6" in reason and "sph_cbounds" in reason
     # A table whose layout is not the one the launch's motion flag reads.
     sd, cp, w, h = _bridged("moving_fan")
     inputs, _ = tint.mega_inputs(sd, cp, w, h, 1, 2, 0)

@@ -25,7 +25,7 @@ from crucible_tpu_torch.models import replay as trep
 from crucible_tpu_torch.ops import intersect as tintersect
 from crucible_tpu_torch.ops.kernels import megakernel as tmk
 from tests.test_torch_scene import bridged
-from tests.torch_motion_scenes import LERP, LOCAL, bouncing_book1
+from tests.torch_motion_scenes import LERP, LOCAL, bouncing_book1, bouncing_stress
 
 
 def _moving_smoke(demo):
@@ -104,8 +104,16 @@ def test_record_predicate_takes_linear_motion():
     assert "A7" in reason(replace(sd, motion_exact=True), cp)
     assert "A7" in reason(sd, replace(cp, motion_exact=True))
     assert "K7" in reason(replace(sd, num_tris=4), cp)
+    # A moving table with the cluster tables walks them (K6); above the
+    # brute search's MAX_ROWS_ANIMATED without them, or with the sphere
+    # BVH's tables (whose boxes do not follow moving spheres), it is
+    # refused, naming the cluster walk.
+    bouncing = bouncing_stress(tdemo, 16, 4).build(device="cpu")
+    assert bouncing.sph_cbounds is not None and reason(bouncing, cp) is None
     big = replace(sd, sph_center=torch.zeros((tmk.MAX_ROWS_ANIMATED + 1, 3)))
-    assert "K6" in reason(big, cp)
+    assert "K6" in reason(big, cp) and "sph_cbounds" in reason(big, cp)
+    assert reason(replace(big, sph_perm=bouncing.sph_perm,
+                          sph_cbounds=bouncing.sph_cbounds), cp) is None
     stress = tdemo.sphere_stress(width=16, copies=4).build(device="cpu")
     assert "K6" in reason(replace(stress, animated=True), cp)
     with pytest.raises(NotImplementedError, match="K6"):

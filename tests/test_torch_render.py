@@ -160,15 +160,48 @@ def _animator(sc):
     replay.trace_record_mega(big, cp, 32, 18, torch.arange(4), torch.zeros(4), 0, 2)
 
 
-def _too_many_spheres(sc):
-    """A big scene that moves needs the chunk-cull branch (K6), not the
-    sphere-BVH walk of static scenes."""
+def _big_moving(sc):
+    """``sc`` with CULL_MIN_ROWS + 1 coincident spheres added, the first of
+    them rising over frame 0's shutter: a big moving table, which
+    Scene.build gives the cluster tables of the chunk-cull walk (K6)."""
     for k in range(trender.CULL_MIN_ROWS + 1):
         sc.add_element(_sphere(), f"s{k}")
-    arrays, static = bridge.scene_data_to_arrays(sc.build(device="cpu"))
-    sd = bridge.scene_data_from_arrays(arrays, device="cpu", **dict(static, animated=True))
-    trender.render_image_persistent(sd, sc.scene_cam.params(device="cpu"), 32, 18, 1, 2, 0,
-                                    device="cpu", schedule="mega")
+    sc.translate_y(0.3, 1.0 / 48.0, "lerp", "local", "s0")
+    return sc.build(device="cpu"), sc.scene_cam.params(device="cpu")
+
+
+def _too_many_spheres(sc):
+    """A big moving table renders through the cluster walk (K6,
+    test_big_moving_table_renders_through_the_cluster_walk); beside a BVH
+    mesh it takes K8's brute search while that holds it
+    (tests/test_torch_cull.py), and above MAX_ROWS_ANIMATED rows it is a
+    template combination not instantiated (K7 beside K6, ROADMAP A11)."""
+    from dataclasses import replace
+
+    from crucible_tpu_torch.ops.kernels import megakernel as mk
+
+    sd, cp = _big_moving(sc)
+    arrays, static = bridge.scene_data_to_arrays(sd)
+    sd = bridge.scene_data_from_arrays(arrays, device="cpu",
+                                       **dict(static, num_tris=70, use_bvh=True))
+    sd = replace(sd, sph_center=torch.zeros((mk.MAX_ROWS_ANIMATED + 1, 3)))
+    assert sd.animated and sd.sph_cbounds is not None
+    trender.render_image_persistent(sd, cp, 32, 18, 1, 2, 0, device="cpu", schedule="mega")
+
+
+def test_big_moving_table_renders_through_the_cluster_walk():
+    """CULL_MIN_ROWS + 1 coincident spheres, one moving: auto walks the
+    clusters, and every exact tie goes to the lowest original row, as the
+    brute search gives it."""
+    from crucible_tpu_torch.ops.kernels import megakernel as mk
+
+    sd, cp = _big_moving(tdemo.smoke_scene(width=32))
+    assert sd.animated and sd.sph_cbounds is not None and sd.sph_nodes is None
+    mk.CULL_COUNTS.update(nodes=0, rows=0, roots=0)
+    img = trender.render_image_persistent(sd, cp, 32, 18, 1, 2, 0, device="cpu")
+    assert mk.CULL_COUNTS["nodes"] > 0 and torch.isfinite(img).all()
+    assert torch.equal(img, trender.render_image_persistent(sd, cp, 32, 18, 1, 2, 0,
+                                                            device="cpu", cull=False))
 
 
 def _bridged_triangles(sc):

@@ -30,6 +30,7 @@ from crucible_tpu_torch.ops import bvh as tbvh
 from crucible_tpu_torch.ops.kernels import megakernel as tmk
 from crucible_tpu_torch.ops.kernels import replay_kernel as trk
 from tests.test_torch_scene import bridged
+from tests.torch_motion_scenes import bouncing_stress
 
 STRUCT = ("sph_perm", "sph_nodes", "sph_meta")
 
@@ -417,10 +418,23 @@ def test_brute_above_max_rows_raises():
 
 
 def test_big_animated_scene_names_the_chunk_cull_branch():
+    """A moving big table walks its clusters (K6, the chunk-cull branch),
+    whose boxes hold the spheres over the shutter: built in motion, the
+    field renders through them, equal to the brute search; marked moving
+    with only a static build's sphere-BVH tables, it is refused, naming the
+    chunk-cull tables it lacks."""
     sd = replace(tdemo.sphere_stress(width=16, copies=4).build(device="cpu"), animated=True)
     cp = tdemo.sphere_stress(width=16, copies=4).scene_cam.params(device="cpu")
-    with pytest.raises(NotImplementedError, match="chunk-cull"):
+    with pytest.raises(ValueError, match="chunk-cull"):
         trender.render_image_persistent(sd, cp, 16, 9, 1, 1, 0, device="cpu", schedule="mega")
+    sc = bouncing_stress(tdemo, 16, 4)
+    sd, cp = sc.build(device="cpu"), sc.scene_cam.params(device="cpu")
+    assert sd.animated and sd.sph_cbounds is not None and sd.sph_nodes is None
+    tmk.CULL_COUNTS.update(nodes=0, rows=0, roots=0)
+    cull = trender.render_image_persistent(sd, cp, 16, 9, 1, 2, 0, device="cpu", schedule="mega")
+    assert tmk.CULL_COUNTS["nodes"] > 0
+    assert torch.equal(cull, trender.render_image_persistent(sd, cp, 16, 9, 1, 2, 0,
+                                                             device="cpu", cull=False))
 
 
 def test_record_takes_big_scenes_with_tables_only():

@@ -3,7 +3,8 @@ either package (pass its ``models.scene`` module; both take the same
 calls): imports neither.
 
 - ``fan``: the 80-triangle fan over a ground sphere of
-  ``tests/test_integrator.py:320-361`` (a BVH mesh);
+  ``tests/test_integrator.py:320-361`` (a BVH mesh); ``add_fan`` adds its
+  triangles to another scene;
 - ``floor_ball``: the 72-triangle grid floor under a metal ball of
   ``tests/test_oracle.py:207-234`` (a BVH mesh), with the oracle's objects;
 - ``box``: a 12-triangle cube over a ground sphere (a brute mesh);
@@ -45,6 +46,12 @@ def fan(scene, width: int = 48):
         scene.Sphere((0.0, -100.0, 0.0), 100.0, scene.Lambertian.from_color((0.6, 0.6, 0.2))),
         "ground",
     )
+    return add_fan(scene, sc)
+
+
+def add_fan(scene, sc):
+    """Add the fan's 80 metal triangles ``tri0``..``tri79`` around the
+    origin to ``sc``."""
     for i in range(80):
         a0 = 2 * math.pi * i / 80
         a1 = 2 * math.pi * (i + 1) / 80
