@@ -49,6 +49,12 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
      row tests that give K5's bound.
    - K4 and K3 at n1936's 1936 rows (320 wide, 4 spp, depth 8): K4 bit for
      bit, K3 within its scheme and the same bits twice.
+   - K4-legacy, the channel-major replay pair, on K2's records of book1
+     at 320 wide and 1920x1080, 4 spp, depth 8: forward bit for bit with
+     its plain version (32768 lanes at 1080p) and with K4; backward lane
+     cotangents and table cotangent bit for bit with K3's, within K3's
+     scheme against the plain version, the same bits twice; timed beside
+     K4 and K3.
    - K8, the megakernel's motion variants, on "bouncing book1" (book1 in
      motion: its Lambertian small spheres rise over the first 1/48 s, and
      so does the camera; built here through the public API): each brute
@@ -72,7 +78,7 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
      book1, and the camera too; built here through the public API):
      forward (moving spheres and camera) on n1936 320 wide, 8 spp, depth
      50, in full and against the K8 brute search on the original table, on
-     64 of the 120 pixel blocks of n7744 at 320 wide, and on 64 pixel
+     64 of the 120 pixel blocks of n7744 at 320 wide, and on 32 pixel
      blocks of the n7744 1920x1080 32 spp d50 launch; the same walk over book1's static table in clusters
      against K1; record (fused and plain) on n1936 and n7744 320 wide, 4
      spp, depth 8, in full (n1936 also against the K8 brute record), and
@@ -85,7 +91,7 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
      (demo.load_teapot's scene with a procedural torus of the teapot's
      6,320 triangles in place of teapot.obj; built here through the public
      API): forward on the 80-triangle fan 64 wide and on torus_teapot 320
-     wide, 8 spp, depth 50, in full, and on 64 pixel blocks of its 1920x1080
+     wide, 8 spp, depth 50, in full, and on 32 pixel blocks of its 1920x1080
      32 spp d50 launch; record (fused and plain) on torus_teapot 320 wide, 4
      spp, depth 8, in full and on 32768 lanes of its 1920x1080 launch. Each
      bit for bit against the plain version, which counts the node and row
@@ -96,12 +102,12 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
      sphere search), on "moving torus_teapot" (torus_teapot as
      demo.moving_teapot's movie, every triangle translated and scaled as
      its teapot is, at frame 30): forward on the moving fan 64 wide and on
-     moving torus_teapot 320 wide, 8 spp, depth 50, in full, on 64 pixel
+     moving torus_teapot 320 wide, 8 spp, depth 50, in full, on 32 pixel
      blocks of its 1920x1080 32 spp d50 launch and in full on movie frame
      5 (400x225, 50 spp, depth 5); record (fused and
      plain) at 320 wide, 4 spp, depth 8, in full and on 32768 lanes of its
      1920x1080 launch; with K8's rising camera (forward 160 wide and the
-     1920x1080 launch's 64 pixel blocks, record 320 wide); and K7 (Woop
+     1920x1080 launch's 32 pixel blocks, record 320 wide); and K7 (Woop
      rows) with the camera on the static torus_teapot (forward 160 wide,
      record 320 wide). Each bit for bit against the plain version. K7
      and K7 moving timed in turns on one geometry (torus_teapot, and the
@@ -202,7 +208,25 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
    every lane with the CPU's plain version taking the card's sin and cos,
    and on > 0.998 of the lanes with each device's own; from the card's records,
    loss within rel 1e-4 and radiometric gradients within normalized 1e-3).
-22. Prints a JSON line describing each kernel (times at the comparison
+22. The depth-50 gradient, book1 at 1920x1080, 4 spp, depth 50 unless
+   named: (A) the deep chunk, ``grad.loss_and_grad`` (two-level record,
+   depth buckets; K2 twice, K3 three times), a warm and 2 timed steps, the
+   step by phase, the capacities' fill, against ``grad_split=False`` on
+   the same lanes (loss rel 1e-5, radiometric gradients normalized 1e-4);
+   (B) the 500 spp budget, ``loss_and_grad_accum(chunk_spp=4,
+   recover=True)``, 125 chunks timed to the loss on the host, and the host
+   syncs of one chunk; (D) ``record_decisions`` at depth 50 and two
+   frozen-decision steps through ``replay_bucketed`` (K4 and K3), against
+   the frozen unsplit replay and the inline chunk (rel 1e-5);
+   (C) (A) and (D) under ``CRUCIBLE_REPLAY_BLOCKED=0``: K4-legacy launches
+   and K4 / K3 do not, the same losses, the table's leaves bit for bit and
+   the camera's within normalized 1e-3; (E) the mirror shell (32x32, 2
+   spp, depth 16): the default chunk poisons, the recovery ladder equals
+   ``grad_split=False`` bit for bit, ``loss_and_grad_accum(chunk_spp=1)``
+   recovers, and three recovering Adam steps equal one, a checkpoint, a
+   load and two, bit for bit; (F) bouncing book1 320x180, 4 spp, depth 50
+   (K8 record, the eager replay's buckets) against ``grad_split=False``.
+23. Prints a JSON line describing each kernel (times at the comparison
    shape, where kernel and twin run the same inputs in full; K5's, K6's
    and others' also at their main shape), the card's line again, and, as
    the last line, ``{"ok": true, "device": {...}}``.
@@ -216,10 +240,12 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -786,6 +812,91 @@ def main() -> None:
     print(f"K3 1920x1080 4spp d8: {ms:.3f} ms, bound {b:.3f} ms ({by}); "
           f"{alive} alive rows, {cont} continuing")
     del k2, rin, rargs, rec, rad, got, g_rad, got_sub, want_sub
+
+    # --- K4-legacy against its plain version and K4 / K3: 320w and 1080p ------
+    mark('K4-legacy against its plain version and K4 / K3: 320w and 1080p, 4 spp, d8')
+
+    def legacy_layout(args):
+        """K4's arguments (rays (R, 3), ids (R,)) in K4-legacy's layouts:
+        rays (3, R), ids (1, R)."""
+        table, o, d, valid, pix_l, smp_l, rec_l, seed = args
+        r_l = o.shape[0]
+        return (table, o.t().contiguous(), d.t().contiguous(), valid.reshape(1, r_l),
+                pix_l.reshape(1, r_l), smp_l.reshape(1, r_l), rec_l, seed)
+
+    legacy = {}
+    for width, shape in ((320, "320w"), (1920, "1080p")):
+        k2, rin = grad_inputs(demo.book1_end_scene, width, 4, 8)
+        rec = mk.run_megakernel_record(**k2, max_depth=8)[1]
+        rargs = (*rin, rec, 0)
+        largs = legacy_layout(rargs)
+        r = rin[1].shape[0]
+        sub = None
+        if width > 320:  # plain versions on N_SUB lanes, as for K4 / K3
+            sub = torch.randperm(r, generator=torch.Generator().manual_seed(1))[:N_SUB]
+            sub = sub.sort().values.to(dev)
+        rk.zero_counts()
+        rad3 = rk.replay_legacy_forward(*largs)
+        if rk.LAUNCHES_LEGACY_FORWARD != 1:
+            raise AssertionError("K4-legacy forward did not launch")
+        bit_equal(rad3, rk.replay_forward(*rargs).t(), f"K4-legacy vs K4 {shape}")
+        if sub is None:
+            plain, plain_ms = host_ms(lambda: rk.replay_legacy_forward_reference(*largs))
+            err_f = bit_equal(rad3, plain, f"K4-legacy {shape} radiance vs plain")
+        else:
+            sub_l = legacy_layout((rin[0], *(x[sub] for x in rin[1:]), rec[:, sub], 0))
+            plain, plain_ms = host_ms(lambda: rk.replay_legacy_forward_reference(*sub_l))
+            err_f = bit_equal(rad3[:, sub], plain, f"K4-legacy {shape} on {N_SUB} lanes vs plain")
+        ms_l = cuda_ms(lambda: rk.replay_legacy_forward(*largs), 3)
+        ms_k4 = cuda_ms(lambda: rk.replay_forward(*rargs), 3)
+        alive, cont = replay_work(rec)
+        k4_in = nbytes(*rin, rec)
+        fb, fby = bound(alive * ROW_OPS + cont * SCATTER_OPS, k4_in + nbytes(rad3))
+        g_rad = torch.randn((r, 3), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(0))
+        g3 = g_rad.t().contiguous()
+        got = rk.replay_legacy_backward(*largs, g3)
+        bit_equal(got[0], rk.replay_legacy_backward(*largs, g3)[0],
+                  f"K4-legacy backward {shape} g_table, launch vs launch")
+        k3 = rk.replay_backward(*rargs, g_rad)
+        bit_equal(got[0], k3[0], f"K4-legacy backward {shape} g_table vs K3")
+        bit_equal(got[1], k3[1].t(), f"K4-legacy backward {shape} g_o vs K3")
+        bit_equal(got[2], k3[2].t(), f"K4-legacy backward {shape} g_d vs K3")
+        if sub is None:
+            want, bplain_ms = host_ms(lambda: rk.replay_legacy_backward_reference(*largs, g3))
+            err_b = k3_scheme((got[0], got[1].t(), got[2].t()),
+                              (want[0], want[1].t(), want[2].t()), f"K4-legacy backward {shape}")
+        else:
+            g3_sub = g_rad[sub].t().contiguous()
+            want, bplain_ms = host_ms(
+                lambda: rk.replay_legacy_backward_reference(*sub_l, g3_sub))
+            got_sub = rk.replay_legacy_backward(*sub_l, g3_sub)
+            err_b = k3_scheme((got_sub[0], got_sub[1].t(), got_sub[2].t()),
+                              (want[0], want[1].t(), want[2].t()),
+                              f"K4-legacy backward on {N_SUB} lanes of {shape}")
+        bms_l = cuda_ms(lambda: rk.replay_legacy_backward(*largs, g3), 3)
+        bms_k3 = cuda_ms(lambda: rk.replay_backward(*rargs, g_rad), 3)
+        bb, bby = bound(2 * (alive * ROW_OPS + cont * SCATTER_OPS)
+                        + alive * ADJOINT_ROW_OPS + cont * ADJOINT_SCATTER_OPS,
+                        k4_in + nbytes(g_rad, *got))
+        print(f"K4-legacy {shape} 4spp d8: forward {ms_l:.3f} ms (K4 {ms_k4:.3f}), plain "
+              f"{plain_ms:.1f} ms, bound {fb:.4f} ms ({fby}); backward {bms_l:.3f} ms "
+              f"(K3 {bms_k3:.3f}), plain {bplain_ms:.1f} ms, bound {bb:.4f} ms ({bby}); "
+              f"{alive} alive rows, {cont} continuing")
+        legacy[shape] = dict(fwd=(err_f, ms_l, ms_k4, plain_ms, fb, fby),
+                             bwd=(err_b, bms_l, bms_k3, bplain_ms, bb, bby))
+        del k2, rin, rargs, largs, rec, rad3, plain, got, k3, want, g_rad, g3
+    for kind, name, line in (("fwd", "replay_legacy_forward", 516),
+                             ("bwd", "replay_legacy_backward", 535)):
+        err, ms, ms_blk, plain_ms, b, by = legacy["320w"][kind]
+        _, ms_main, ms_blk_main, _, b_main, by_main = legacy["1080p"][kind]
+        kernels[name] = dict(
+            source="crucible_tpu_torch/csrc/replay_kernel.cu",
+            replaces=f"crucible_tpu/ops/pallas/replay_kernel.py:{line}",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+            blocked_ms=ms_blk, ms_1080p=ms_main, blocked_ms_1080p=ms_blk_main,
+            bound_ms_1080p=b_main, launches=0,
+        )
 
     # --- the gradient step on the card vs on the CPU (twins), small -----------
     mark('the gradient step on the card vs on the CPU (twins), small')
@@ -1385,17 +1496,18 @@ def main() -> None:
               f"work {counts}, x{scale:.2f}")
         return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b, bound_by=by)
 
-    def block_lanes(n_blocks, seed):
-        """The lanes of 64 random pixel blocks of a launch's ``n_blocks``."""
-        blocks = torch.randperm(n_blocks, generator=torch.Generator().manual_seed(seed))[:64]
+    def block_lanes(n_blocks, seed, count=64):
+        """The lanes of ``count`` random pixel blocks of a launch's ``n_blocks``."""
+        blocks = torch.randperm(n_blocks, generator=torch.Generator().manual_seed(seed))[:count]
         return (blocks.sort().values[:, None] * mk.TILE
                 + torch.arange(mk.TILE)).reshape(-1).to(dev)
 
     # n1936 in full (and against K8's brute search); n7744 at 320w on 64 of
-    # its 120 pixel blocks, and its 1920x1080 launch on 64 of 4080.
+    # its 120 pixel blocks, and its 1920x1080 launch on 32 of 4080 (so that
+    # the script stays under half its time limit).
     k6 = {4: k6_forward(4, 320, 8, 50),
           16: k6_forward(16, 320, 8, 50, lanes=block_lanes(10 * math.ceil(180 / 16), 12))}
-    k6_main = k6_forward(16, 1920, 32, 50, lanes=block_lanes(n_blocks, 9))
+    k6_main = k6_forward(16, 1920, 32, 50, lanes=block_lanes(n_blocks, 9, count=32))
     print(f"  K6 n7744 1920x1080 32spp d50: {k6_main['ms']:.1f} ms "
           f"({1920 * 1080 * 32 / k6_main['ms'] / 1e3:.2f} Mrays/s)")
 
@@ -1584,8 +1696,11 @@ def main() -> None:
 
     k7_forward(fan(tscene, 64), 8, 50, "K7 fan 64w 8spp d50")
     k7_fwd = k7_forward(torus_teapot(tscene, 320), 8, 50, "K7 torus_teapot 320w 8spp d50")
+    # The 1920x1080 launches of K7, K7 moving and K7 moving with the camera
+    # on 32 pixel blocks (so that the script stays under half its time
+    # limit).
     n_blocks = (1920 // 32) * math.ceil(1080 / 16)
-    blocks = torch.randperm(n_blocks, generator=torch.Generator().manual_seed(9))[:64]
+    blocks = torch.randperm(n_blocks, generator=torch.Generator().manual_seed(9))[:32]
     lanes = (blocks.sort().values[:, None] * mk.TILE + torch.arange(mk.TILE)).reshape(-1).to(dev)
     k7_main = k7_forward(torus_teapot(tscene, 1920), 32, 50,
                          "K7 torus_teapot 1920x1080 32spp d50", lanes=lanes, reps=1)
@@ -1688,7 +1803,7 @@ def main() -> None:
     # static torus_teapot, each seen by a rising camera at frame 30. The
     # forward comparisons run at 160w: their plain walks took 19-33 s at
     # 320w, and the script stays under half its time limit. Main path 15's
-    # launch (1920x1080 32 spp d50) is held on the same 64 pixel blocks as
+    # launch (1920x1080 32 spp d50) is held on the same 32 pixel blocks as
     # main path 12's.
     cam_sc = rising_camera(moving_torus_teapot(tscene, 160))
     k7m_cam = k7_forward(cam_sc, 8, 50, "K7 moving + camera torus_teapot 160w 8spp d50")
@@ -1994,7 +2109,7 @@ def main() -> None:
 
     def zero_counts():
         mk.zero_counts()
-        rk.LAUNCHES_FORWARD = rk.LAUNCHES_BACKWARD = 0
+        rk.zero_counts()
 
     def read_counts(what, need, never=()):
         got = {name: count() for name, count in counters.items()}
@@ -2858,6 +2973,339 @@ def main() -> None:
     cull_cells.update(records_equal=same, records_equal_card_trig=exact)
     del inputs, frozen
     print("bouncing stress cells: " + json.dumps(cull_cells))
+
+    # --- main path 20: the depth-50 gradient (paths A-F) -------------------------
+    def deep_launches():
+        r = mk.RECORD_LAUNCHES
+        return dict(k2=r["brute"], k8=r["motion"], k4=rk.LAUNCHES_FORWARD,
+                    k3=rk.LAUNCHES_BACKWARD, k4_legacy=rk.LAUNCHES_LEGACY_FORWARD,
+                    k3_legacy=rk.LAUNCHES_LEGACY_BACKWARD)
+
+    def expect_launches(what, need, never):
+        got = deep_launches()
+        print(f"  {what} launches: {got}")
+        for name in need:
+            if got[name] < 1:
+                raise AssertionError(f"{what} did not launch {name}")
+        for name in never:
+            if got[name]:
+                raise AssertionError(f"{what} launched {name}")
+        deep_counts.update({k: deep_counts.get(k, 0) + v for k, v in got.items()})
+        return got
+
+    def norm_diff(a, b):
+        return ((a - b).abs().max() / max(b.abs().max().item(), 1e-6)).item()
+
+    def hold_grads(what, got, want, bound_nd):
+        for key in radiometric:
+            nd = norm_diff(got[key], want[key])
+            print(f"    {key}: max normalized diff {nd:.3g} (held at {bound_nd:g})")
+            if not nd <= bound_nd:
+                raise AssertionError(f"{what} {key}: gradients disagree")
+
+    def hold_loss(what, got, want, rel_max):
+        rel = abs(got.item() - want.item()) / want.item()
+        print(f"  {what}: loss {got.item():.8f} vs {want.item():.8f} (rel {rel:.3g}, held at "
+              f"{rel_max:g})")
+        if not rel <= rel_max:
+            raise AssertionError(f"{what}: losses disagree")
+
+    def phased(fn, full):
+        """fn() with each ray generation, record pass and replay backward
+        synchronized and timed: -> (result, wall ms, {phase: ms}); the rest
+        is the compaction, the gathers, the index_adds and the loss."""
+        ms = dict.fromkeys(("rays", "head record", "narrow re-record", "bucket rays",
+                            "replay backward", "compaction, gathers, index_add, loss"), 0.0)
+        real = (replay.generate_rays, replay.trace_record_mega, rk.replay_backward,
+                rk.replay_legacy_backward)
+
+        def timed(fn, key):
+            def wrapper(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                ms[key(a)] += 1e3 * (time.perf_counter() - t0)
+                return out
+            return wrapper
+
+        replay.generate_rays = timed(
+            real[0], lambda a: "rays" if a[3].shape[0] == full else "bucket rays")
+        replay.trace_record_mega = timed(
+            real[1], lambda a: "head record" if a[4].shape[0] == full else "narrow re-record")
+        rk.replay_backward = timed(real[2], lambda a: "replay backward")
+        rk.replay_legacy_backward = timed(real[3], lambda a: "replay backward")
+        try:
+            out, total = host_ms(fn)
+        finally:
+            (replay.generate_rays, replay.trace_record_mega, rk.replay_backward,
+             rk.replay_legacy_backward) = real
+        ms["compaction, gathers, index_add, loss"] = total - sum(ms.values())
+        return out, total, ms
+
+    deep_counts = {}
+    deep_cells = {}
+    w, h, spp = 1920, 1080, 4
+    pix = torch.arange(w * h, device=dev)
+    target = torch.zeros((w * h, 3), device=dev)
+    kw50 = dict(width=w, height=h, spp=spp, max_depth=50)
+    mrays = w * h * spp / 1e6
+    scene = demo.book1_end_scene(width=1920)
+    sd, cp = scene.build(), scene.scene_cam.params()
+    params = grad.extract_params(sd, cp)
+
+    mark('main path 20A: the deep chunk, book1 1920x1080, 4 spp, d50, default split')
+    torch.cuda.empty_cache()
+    mk.zero_counts()
+    rk.zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    (loss_a, grads_a), ms = host_ms(
+        lambda: grad.loss_and_grad(params, sd, cp, target, pix, 0, **kw50))
+    check_leaves(loss_a, grads_a, params, "deep chunk")
+    print(f"loss_and_grad book1 1920x1080 4spp d50 (two-level record, buckets), warm: "
+          f"{ms / 1e3:.3f} s, loss {loss_a.item():.8f}")
+    step_ms = []
+    for i in range(2):
+        (loss, g), ms = host_ms(
+            lambda: grad.loss_and_grad(params, sd, cp, target, pix, 0, **kw50))
+        if not torch.equal(loss, loss_a):
+            raise AssertionError("deep chunk: the loss changed between calls")
+        step_ms.append(ms)
+        print(f"  step {i}: {ms / 1e3:.4f} s, {mrays / (ms / 1e3):.2f} Mrays/s")
+    peak_a = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  nvidia-smi: {smi()}; peak memory {peak_a:.2f} GiB")
+    expect_launches("deep chunks (3)", ("k2", "k3"), ("k4", "k4_legacy", "k3_legacy", "k8"))
+    _, ms_ph, phases = phased(
+        lambda: grad.loss_and_grad(params, sd, cp, target, pix, 0, **kw50), w * h * spp)
+    print(f"  deep chunk by phase ({ms_ph:.1f} ms, synchronized): "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in phases.items()))
+    pl, sl = grad._lanes(pix, spp, 0)
+    lims, divs = replay._bucket_spec(50)
+    rec_h, rec_n, idx_n, valid_n, n_deep = replay.record_two_level(
+        sd, cp, w, h, pl, sl, 0, 50, head=lims[0])
+    depth_n = ((rec_n & 1) > 0).sum(0)
+    fills = []
+    for j in range(1, len(lims)):
+        in_b = valid_n & (depth_n > lims[j - 1]) & (depth_n <= lims[j])
+        fills.append(dict(rows=lims[j], lanes=int(in_b.sum()),
+                          capacity=replay._capacity(pl.shape[0], divs[j], rec_n.shape[1])))
+    print(f"  capacities: n_deep {int(n_deep)} of r_n {rec_n.shape[1]} narrow slots "
+          f"({int(n_deep) / pl.shape[0]:.4%} of {pl.shape[0]} lanes); buckets "
+          + ", ".join(f"rows {f['rows']}: {f['lanes']} / {f['capacity']}" for f in fills))
+    r_n = rec_n.shape[1]
+    del rec_h, rec_n, idx_n, valid_n, depth_n, in_b
+    torch.cuda.reset_peak_memory_stats()
+    rk.zero_counts()
+    (loss_u, grads_u), ms_u = host_ms(
+        lambda: grad.loss_and_grad(params, sd, cp, target, pix, 0, grad_split=False, **kw50))
+    peak_u = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  split=False on the same lanes: {ms_u / 1e3:.4f} s, "
+          f"{mrays / (ms_u / 1e3):.2f} Mrays/s, peak {peak_u:.2f} GiB")
+    hold_loss("split vs unsplit", loss_a, loss_u, 1e-5)
+    hold_grads("split vs unsplit", grads_a, grads_u, 1e-4)
+    deep_cells["A"] = dict(step_ms=step_ms, peak_gib=peak_a, phases=phases,
+                           n_deep=int(n_deep), r_n=r_n, buckets=fills, unsplit_ms=ms_u,
+                           unsplit_peak_gib=peak_u)
+    del grads_u
+
+    mark('main path 20B: loss_and_grad_accum 1920x1080, 500 spp, d50, 125 chunks of 4')
+    ladder = []
+    real_recovering = grad.loss_and_grad_recovering
+
+    def counting(*a, **k):
+        ladder.append(k.get("sample0"))
+        return real_recovering(*a, **k)
+
+    grad.loss_and_grad_recovering = counting
+    torch.cuda.empty_cache()
+    mk.zero_counts()
+    rk.zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss_b, grads_b = grad.loss_and_grad_accum(
+            params, sd, cp, target, pix, 0, width=w, height=h, spp=500, max_depth=50,
+            chunk_spp=4, recover=True)
+        loss_b_host = loss_b.item()
+        s_b = time.perf_counter() - t0
+    finally:
+        grad.loss_and_grad_recovering = real_recovering
+    peak_b = torch.cuda.max_memory_allocated() / 2**30
+    finite = {k: bool(grads_b[k].isfinite().all()) for k in grad.TENSOR_KEYS}
+    print(f"loss_and_grad_accum book1 1920x1080 500spp d50 (chunk_spp 4, recover): "
+          f"{s_b:.3f} s to the loss on the host, {w * h * 500 / s_b / 1e6:.2f} Mrays/s, "
+          f"{s_b / 125 * 1e3:.1f} ms a chunk, peak {peak_b:.2f} GiB, loss {loss_b_host:.8f}; "
+          f"chunks up the ladder: {len(ladder)} {ladder}; gradients finite: {finite}")
+    print(f"  nvidia-smi: {smi()}")
+    if not math.isfinite(loss_b_host) or not all(finite.values()):
+        raise AssertionError("the 500 spp budget gave a non-finite loss or gradient")
+    expect_launches("500 spp budget", ("k2", "k3"), ("k4", "k4_legacy", "k3_legacy", "k8"))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            grad.loss_and_grad(params, sd, cp, target, pix, 0, sample0=4, **kw50)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [f"{Path(c.filename).name}:{c.lineno}" for c in caught
+             if "synchroniz" in str(c.message)]
+    sites = {site: syncs.count(site) for site in dict.fromkeys(syncs)}
+    print(f"  host syncs of one chunk (torch.cuda.set_sync_debug_mode): {len(syncs)} {sites}")
+    deep_cells["B"] = dict(s=s_b, mrays_s=w * h * 500 / s_b / 1e6, peak_gib=peak_b,
+                           ladder=len(ladder), syncs_per_chunk=len(syncs), sync_sites=sites)
+    del grads_b
+
+    mark('main path 20D: frozen deep decisions, record_decisions d50 + replay_bucketed')
+    mk.zero_counts()
+    rk.zero_counts()
+    rec50, ms_rec = host_ms(lambda: grad.record_decisions(sd, cp, pix, 0, **kw50))
+    print(f"record_decisions book1 1920x1080 4spp d50: {ms_rec / 1e3:.4f} s, records "
+          f"{tuple(rec50.shape)} ({nbytes(rec50) / 1e6:.0f} MB)")
+    frozen_ms = []
+    for i in range(2):
+        (loss_d, grads_d), ms = host_ms(
+            lambda: grad.loss_and_grad(params, sd, cp, target, pix, 0, rec=rec50, **kw50))
+        check_leaves(loss_d, grads_d, params, "frozen deep chunk")
+        frozen_ms.append(ms)
+        print(f"  frozen deep step {i}: {ms / 1e3:.4f} s, {mrays / (ms / 1e3):.2f} Mrays/s, "
+              f"loss {loss_d.item():.8f}")
+    expect_launches("frozen deep steps", ("k2", "k4", "k3"), ("k4_legacy", "k3_legacy", "k8"))
+    (loss_du, grads_du), ms_du = host_ms(lambda: grad.loss_and_grad(
+        params, sd, cp, target, pix, 0, rec=rec50, grad_split=False, **kw50))
+    print(f"  frozen unsplit on the same records: {ms_du / 1e3:.4f} s")
+    # Like for like (the replay's primal on both sides): the issue's bound.
+    hold_loss("frozen bucketed vs frozen unsplit", loss_d, loss_du, 1e-5)
+    hold_grads("frozen bucketed vs frozen unsplit", grads_d, grads_du, 1e-4)
+    # Against the inline chunk, whose primal is the record kernel's fused
+    # radiance: on the card K2 and K4 round alike (on the CPU their plain
+    # versions differ by rel 2.3e-4 at 64w, glass chains amplifying).
+    hold_loss("frozen vs inline chunk", loss_d, loss_a, 1e-5)
+    deep_cells["D"] = dict(record_ms=ms_rec, frozen_ms=frozen_ms, unsplit_ms=ms_du,
+                           rel_inline=abs(loss_d.item() - loss_a.item()) / loss_a.item())
+    del grads_du
+
+    mark('main path 20C: the legacy layout on the deep path, CRUCIBLE_REPLAY_BLOCKED=0')
+    os.environ["CRUCIBLE_REPLAY_BLOCKED"] = "0"
+    try:
+        mk.zero_counts()
+        rk.zero_counts()
+        (loss_c, grads_c), ms_c = host_ms(
+            lambda: grad.loss_and_grad(params, sd, cp, target, pix, 0, **kw50))
+        print(f"loss_and_grad deep chunk, legacy layout: {ms_c / 1e3:.4f} s, "
+              f"{mrays / (ms_c / 1e3):.2f} Mrays/s")
+        expect_launches("legacy deep chunk", ("k2", "k3_legacy"), ("k3", "k4", "k4_legacy"))
+        mk.zero_counts()
+        rk.zero_counts()
+        (loss_cf, grads_cf), ms_cf = host_ms(
+            lambda: grad.loss_and_grad(params, sd, cp, target, pix, 0, rec=rec50, **kw50))
+        print(f"  frozen deep step, legacy layout: {ms_cf / 1e3:.4f} s")
+        expect_launches("legacy frozen deep step", ("k4_legacy", "k3_legacy"), ("k3", "k4"))
+    finally:
+        del os.environ["CRUCIBLE_REPLAY_BLOCKED"]
+    if not (torch.equal(loss_c, loss_a) and torch.equal(loss_cf, loss_d)):
+        raise AssertionError("the legacy layout changed the deep chunk's loss")
+    for what, got_c, want_c in (("chunk", grads_c, grads_a), ("frozen", grads_cf, grads_d)):
+        same = {k: torch.equal(got_c[k], want_c[k]) for k in grad.TENSOR_KEYS}
+        print(f"  legacy vs blocked {what}: loss equal; gradients bit for bit: {same}")
+        # The legacy pair's lane cotangents are K3's bit for bit, handed on
+        # (R, 3) and contiguous: every leaf, the camera's too, is the same.
+        if not all(same.values()):
+            raise AssertionError(f"legacy {what}: gradients differ from the blocked pair's")
+    deep_cells["C"] = dict(chunk_ms=ms_c, frozen_ms=ms_cf)
+    del rec50, grads_a, grads_c, grads_d, grads_cf
+
+    mark('main path 20E: recovery and resume, the mirror shell (32x32, 2 spp, d16)')
+
+    def mirror_shell(light=False):
+        sc = tscene.Scene.new_image(1.0, 32)
+        sc.scene_cam.look_from((0, 0, 0))
+        sc.scene_cam.look_at((0, 0, -1))
+        sc.scene_cam.set_vfov(60.0)
+        sc.add_element(tscene.Sphere((0, 0, 0), 10.0, tscene.Metal((0.9, 0.9, 0.9), 0.0)),
+                       "shell")
+        if light:
+            sc.add_element(tscene.Sphere((0, 0, -3), 0.6, tscene.Emissive((2.0, 1.5, 1.0))),
+                           "light")
+        return sc
+
+    msc = mirror_shell()
+    msd, mcp = msc.build(), msc.scene_cam.params()
+    mkw = dict(width=32, height=32, spp=2, max_depth=16)
+    mpix, mtarget = torch.arange(32 * 32, device=dev), torch.zeros((32 * 32, 3), device=dev)
+    mparams = grad.extract_params(msd, mcp)
+    l0, _ = grad.loss_and_grad(mparams, msd, mcp, mtarget, mpix, 0, **mkw)
+    if math.isfinite(l0.item()):
+        raise AssertionError("the mirror shell's default chunk did not poison")
+    l1, g1 = grad.loss_and_grad_recovering(mparams, msd, mcp, mtarget, mpix, 0, **mkw)
+    l2, g2 = grad.loss_and_grad(mparams, msd, mcp, mtarget, mpix, 0, grad_split=False, **mkw)
+    same = torch.equal(l1, l2) and all(torch.equal(g1[k], g2[k]) for k in grad.TENSOR_KEYS)
+    print(f"mirror shell: default chunk loss {l0.item()}; recovered {l1.item():.8f}, "
+          f"split=False {l2.item():.8f}, bit for bit: {same}")
+    if not same:
+        raise AssertionError("the ladder's value is not split=False's")
+    la, ga = grad.loss_and_grad_accum(mparams, msd, mcp, mtarget, mpix, 0, width=32,
+                                      height=32, spp=2, max_depth=16, chunk_spp=1)
+    if not (math.isfinite(la.item()) and all(bool(ga[k].isfinite().all())
+                                             for k in grad.TENSOR_KEYS)):
+        raise AssertionError("loss_and_grad_accum(chunk_spp=1) did not recover")
+    print(f"  loss_and_grad_accum chunk_spp=1 recovered: loss {la.item():.8f}")
+    lsc = mirror_shell(light=True)
+    lsd, lcp = lsc.build(), lsc.scene_cam.params()
+    opt_keys = ("tex_color", "mat_emission")
+
+    def adam_run(p0, steps, first, state=None):
+        p = dict(p0, **{k: p0[k].detach().clone().requires_grad_(True) for k in opt_keys})
+        opt = torch.optim.Adam([p[k] for k in opt_keys], lr=2e-2)
+        if state is not None:
+            opt.load_state_dict(state)
+        step = grad.make_train_step(opt, 32, 32, 2, 16, recover=True)
+        losses = [step(p, lsd, lcp, mtarget, mpix, first + i).item() for i in range(steps)]
+        return p, opt, losses
+
+    p_full, _, l_full = adam_run(grad.extract_params(lsd, lcp), 3, 0)
+    p_part, opt, l_part = adam_run(grad.extract_params(lsd, lcp), 1, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Path(tmp) / "ckpt.npz"
+        grad.save_checkpoint(ckpt, p_part, opt, step=1)
+        loaded, state, step0 = grad.load_checkpoint(ckpt, device=dev)
+    p_res, _, l_res = adam_run(loaded, 2, step0, state)
+    resumed = l_part + l_res == l_full and all(
+        torch.equal(p_res[k].detach(), p_full[k].detach()) for k in grad.TENSOR_KEYS)
+    print(f"  3 recovering Adam steps {l_full}; 1 + checkpoint + 2 {l_part + l_res}; "
+          f"bit for bit: {resumed}")
+    if not resumed or not l_full[-1] < l_full[0]:
+        raise AssertionError("the resumed run differs from the uninterrupted one, or the "
+                             "loss did not go down")
+    deep_cells["E"] = dict(losses=l_full)
+
+    mark('main path 20F: the eager deep replay, bouncing book1 320w, 4 spp, d50')
+    scene = bouncing_book1(demo, 320)
+    bsd, bcp = scene.build(), scene.scene_cam.params()
+    if replay._use_replay_kernel(bsd):
+        raise AssertionError("bouncing book1 should take the eager replay")
+    bparams = grad.extract_params(bsd, bcp)
+    bkw = dict(width=320, height=180, spp=4, max_depth=50)
+    bpix, btarget = torch.arange(320 * 180, device=dev), torch.zeros((320 * 180, 3), device=dev)
+    mk.zero_counts()
+    rk.zero_counts()
+    (lf, gf), ms_f = host_ms(lambda: grad.loss_and_grad(bparams, bsd, bcp, btarget, bpix, 0, **bkw))
+    expect_launches("eager deep chunk", ("k8",), ("k2", "k3", "k4", "k3_legacy", "k4_legacy"))
+    (lfu, gfu), ms_fu = host_ms(lambda: grad.loss_and_grad(
+        bparams, bsd, bcp, btarget, bpix, 0, grad_split=False, **bkw))
+    print(f"loss_and_grad bouncing book1 320w 4spp d50 (K8 two-level record, eager buckets): "
+          f"{ms_f / 1e3:.4f} s; split=False {ms_fu / 1e3:.4f} s")
+    hold_loss("eager split vs unsplit", lf, lfu, 1e-5)
+    hold_grads("eager split vs unsplit", gf, gfu, 1e-4)
+    deep_cells["F"] = dict(split_ms=ms_f, unsplit_ms=ms_fu)
+    kernels["megakernel_record"]["launches"] += deep_counts["k2"]
+    kernels["megakernel_motion_record"]["launches"] += deep_counts["k8"]
+    kernels["replay_forward"]["launches"] += deep_counts["k4"]
+    kernels["replay_backward"]["launches"] += deep_counts["k3"]
+    kernels["replay_legacy_forward"]["launches"] = deep_counts["k4_legacy"]
+    kernels["replay_legacy_backward"]["launches"] = deep_counts["k3_legacy"]
+    print("deep cells: " + json.dumps(deep_cells))
+    print("deep path launches: " + json.dumps(deep_counts))
 
     print("gradient cells: " + json.dumps(grad_cells))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check")

@@ -19,8 +19,9 @@ a moving mesh's shutter deltas) and the triangle
 and triangle-BVH arrays (``MESH_ARRAYS``) are optional keys
 (``OPTIONAL_ARRAYS``): absent, or None, where the scene has none.
 :func:`params_from_arrays` / :func:`params_to_arrays` carry the gradient
-path's parameter dict (``grad.extract_params``) the same way. Packed
-decision records cross as int32 arrays.
+path's parameter dict (``grad.extract_params``) the same way, and
+:func:`params_from_jax_checkpoint` reads it from a checkpoint file of the
+JAX package. Packed decision records cross as int32 arrays.
 """
 
 from __future__ import annotations
@@ -135,3 +136,39 @@ def params_to_arrays(params: dict) -> dict:
     sky = params["sky_image"]
     return {**out, "tex_images": (),
             "sky_image": None if sky is None else sky.detach().cpu().numpy()}
+
+
+# The JAX parameter dict's keys in its flatten order (sorted keys); the
+# texture images, an empty tuple, have no leaf.
+JAX_LEAF_ORDER = tuple(sorted(TENSOR_KEYS + ("sky_image", "tex_images")))
+
+
+def params_from_jax_checkpoint(path, *, device="cuda"):
+    """-> (params, None, step) from a ``.npz`` written by the JAX package's
+    ``grad.save_checkpoint``: its leaves ``p{i}`` in the flatten order of
+    the parameter dict (``JAX_LEAF_ORDER``), and ``__step__``.
+
+    The pickled tree structure (``__treedef__``) is not read (the file is
+    opened with ``allow_pickle=False``), and neither is the optax state
+    (``o{i}``): a ``torch.optim`` optimizer cannot take it, so its place in
+    the result is None and a resumed run starts its optimizer afresh.
+    ``sky_image`` is None where the file holds the JAX package's (1, 1, 3)
+    zero placeholder of the default sky. A file with texture images
+    (leaves past ``tex_color``) raises ``NotImplementedError``: image
+    textures are not ported.
+    """
+    with np.load(path, allow_pickle=False) as z:
+        n = sum(1 for name in z.files if name[0] == "p" and name[1:].isdigit())
+        leaves = [z[f"p{i}"] for i in range(n)]
+        step = int(z["__step__"])
+    keys = [k for k in JAX_LEAF_ORDER if k != "tex_images"]
+    if n != len(keys):
+        raise NotImplementedError(
+            f"{path}: {n} parameter leaves, {len(keys)} without texture images — "
+            "image textures are not ported to crucible_tpu_torch yet"
+        )
+    arrays = dict(zip(keys, leaves))
+    sky = arrays["sky_image"]
+    if sky.shape == (1, 1, 3) and not sky.any():
+        arrays["sky_image"] = None
+    return params_from_arrays(arrays, device=device), None, step

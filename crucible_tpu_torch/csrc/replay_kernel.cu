@@ -1,7 +1,8 @@
 // Differentiable replay of recorded path decisions on Hopper: forward (K4),
-// backward (K3) and the fixed-order reduce of K3's table cotangent.
+// backward (K3), their channel-major pair (K4-legacy) and the fixed-order
+// reduce of the backward's table cotangent.
 //
-// Replaces crucible_tpu/ops/pallas/replay_kernel.py, lane-blocked layout:
+// Replaces crucible_tpu/ops/pallas/replay_kernel.py, both layouts:
 // - forward, _build_blk.fwd_call (pallas_call at replay_kernel.py:851,
 //   _fwd_kernel_blk l.648): every lane walks its packed record rows
 //   (models/replay.py F_* layout), fetches the winner's table row by index
@@ -11,7 +12,21 @@
 //   l.702): re-runs the forward while storing the carry (o, d, throughput)
 //   each row enters with, then walks the rows in reverse through a
 //   hand-written adjoint of _bounce, giving the per-lane cotangents of o
-//   and d and the (N, 32) table cotangent summed over all lanes.
+//   and d and the (N, 32) table cotangent summed over all lanes;
+// - the unblocked pair of the same file (K4-legacy), _build.fwd_call
+//   (pallas_call at l.516, _fwd_kernel l.321) and _build.bwd_call
+//   (pallas_call at l.535, _bwd_kernel l.376): the same replay and adjoint
+//   on channel-major rays, radiance and cotangents, (3, R), as the legacy
+//   call passes them (opad.T / dpad.T). The TPU kernels differ only in
+//   how their (1, TILE) rows fill vector registers, which has no meaning
+//   here; the layout and the table-cotangent reduction do. The CM template
+//   parameter selects the layout: each of the three channels is then read
+//   (and written) as its own coalesced row, and the per-lane arithmetic,
+//   so the radiance and the lane cotangents, is K4's and K3's bit for bit.
+//   The legacy kernel's revisited output block (gtab_ref, l.490-497, summed
+//   over the sequential TPU grid) becomes K3's fixed-order reduction of
+//   per-block partials, so its table cotangent is K3's too, the same bits
+//   launch after launch.
 //
 // What bounds them on this card: the per-lane bounce arithmetic (a few
 // hundred FP32 operations, three square roots, a sine and a cosine per
@@ -108,14 +123,31 @@ __device__ __forceinline__ void stage_table(const float* __restrict__ table,
   }
 }
 
+// Offset of channel c of lane `lane` in an R-lane float triple: lane-major
+// (R, 3), or channel-major (3, R) when CM (the legacy layout).
+template <bool CM>
+__device__ __forceinline__ size_t at3(int lane, int c, int r) {
+  return CM ? (size_t)c * r + lane : (size_t)lane * 3 + c;
+}
+
+template <bool CM>
 __device__ __forceinline__ Carry load_carry(const float* __restrict__ o,
                                             const float* __restrict__ d,
                                             const int32_t* __restrict__ valid,
-                                            int lane) {
+                                            int lane, int r) {
   const float thr = valid[lane] > 0 ? 1.0f : 0.0f;
-  const size_t b = (size_t)lane * 3;
-  return Carry{o[b], o[b + 1], o[b + 2], d[b], d[b + 1], d[b + 2], thr, thr,
-               thr};
+  return Carry{o[at3<CM>(lane, 0, r)], o[at3<CM>(lane, 1, r)],
+               o[at3<CM>(lane, 2, r)], d[at3<CM>(lane, 0, r)],
+               d[at3<CM>(lane, 1, r)], d[at3<CM>(lane, 2, r)],
+               thr, thr, thr};
+}
+
+template <bool CM>
+__device__ __forceinline__ void store3(float* __restrict__ out, int lane, int r,
+                                       float x, float y, float z) {
+  out[at3<CM>(lane, 0, r)] = x;
+  out[at3<CM>(lane, 1, r)] = y;
+  out[at3<CM>(lane, 2, r)] = z;
 }
 
 // Albedo at the hit: solid, or 3-D checker of solids (no gradient through
@@ -572,23 +604,25 @@ __device__ __forceinline__ void bounce_bwd(const Carry& c, const float* ch,
   g.tz = g_tz;
 }
 
+// CM: rays and radiance channel-major, (3, R) (K4-legacy); else (R, 3) (K4).
+template <bool CM>
 __global__ void __launch_bounds__(BLOCK) replay_forward(
     const float* __restrict__ table,    // (N, 32)
-    const float* __restrict__ o,        // (R, 3)
-    const float* __restrict__ d,        // (R, 3)
+    const float* __restrict__ o,        // (R, 3) or (3, R)
+    const float* __restrict__ d,        // (R, 3) or (3, R)
     const int32_t* __restrict__ valid,  // (R,) initial-throughput mask
     const int32_t* __restrict__ pix,    // (R,) pixel ids
     const int32_t* __restrict__ smp,    // (R,) sample ids
     const int32_t* __restrict__ rec,    // (depth, R) packed records
     int n, int r, int depth, int accum_from, uint32_t seed,
-    float* __restrict__ rad) {          // (R, 3) out
+    float* __restrict__ rad) {          // (R, 3) or (3, R) out
   extern __shared__ float s_tab[];
   stage_table(table, n, s_tab);
   __syncthreads();
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= r) return;
 
-  Carry c = load_carry(o, d, valid, lane);
+  Carry c = load_carry<CM>(o, d, valid, lane, r);
   const uint32_t up = (uint32_t)pix[lane], us = (uint32_t)smp[lane];
   float ar = 0.0f, ag = 0.0f, ab = 0.0f;
   for (int it = 0; it < depth; ++it) {
@@ -604,12 +638,12 @@ __global__ void __launch_bounds__(BLOCK) replay_forward(
       ab = ab + db;
     }
   }
-  const size_t b = (size_t)lane * 3;
-  rad[b] = ar;
-  rad[b + 1] = ag;
-  rad[b + 2] = ab;
+  store3<CM>(rad, lane, r, ar, ag, ab);
 }
 
+// CM: rays, their cotangents and the radiance cotangent channel-major,
+// (3, R) (K4-legacy's backward); else (R, 3) (K3).
+template <bool CM>
 __global__ void __launch_bounds__(BLOCK) replay_backward(
     const float* __restrict__ table,
     const float* __restrict__ o,
@@ -618,12 +652,12 @@ __global__ void __launch_bounds__(BLOCK) replay_backward(
     const int32_t* __restrict__ pix,
     const int32_t* __restrict__ smp,
     const int32_t* __restrict__ rec,
-    const float* __restrict__ g_rad,   // (R, 3) radiance cotangent
+    const float* __restrict__ g_rad,   // (R, 3) or (3, R) radiance cotangent
     int n, int r, int depth, int accum_from, uint32_t seed,
     float* __restrict__ ck,            // (depth, 9, gridDim.x * BLOCK) scratch
     float* __restrict__ part,          // (gridDim.x, n * NU) block partials
-    float* __restrict__ g_o,           // (R, 3) out
-    float* __restrict__ g_d) {         // (R, 3) out
+    float* __restrict__ g_o,           // (R, 3) or (3, R) out
+    float* __restrict__ g_d) {         // (R, 3) or (3, R) out
   extern __shared__ float s_tab[];     // (n, TS) winner channels
   stage_table(table, n, s_tab);
   // This block's table cotangent (n, NU), read and written by it alone.
@@ -644,7 +678,7 @@ __global__ void __launch_bounds__(BLOCK) replay_backward(
       up = (uint32_t)pix[lane];
       us = (uint32_t)smp[lane];
       // Phase 1: forward, storing the carry each alive row enters with.
-      Carry c = load_carry(o, d, valid, lane);
+      Carry c = load_carry<CM>(o, d, valid, lane, r);
       for (int it = 0; it < depth; ++it) {
         const Dec dec = decode(rec[(size_t)it * r + lane]);
         if (!dec.alive) continue;
@@ -670,10 +704,9 @@ __global__ void __launch_bounds__(BLOCK) replay_backward(
     // itself (the radiance is a sum of row increments).
     float grr = 0.0f, grg = 0.0f, grb = 0.0f;
     if (active) {
-      const size_t b = (size_t)lane * 3;
-      grr = g_rad[b];
-      grg = g_rad[b + 1];
-      grb = g_rad[b + 2];
+      grr = g_rad[at3<CM>(lane, 0, r)];
+      grg = g_rad[at3<CM>(lane, 1, r)];
+      grb = g_rad[at3<CM>(lane, 2, r)];
     }
     Carry g = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
     for (int it = depth - 1; it >= 0; --it) {
@@ -727,13 +760,8 @@ __global__ void __launch_bounds__(BLOCK) replay_backward(
       }
     }
     if (active) {
-      const size_t b = (size_t)lane * 3;
-      g_o[b] = g.ox;
-      g_o[b + 1] = g.oy;
-      g_o[b + 2] = g.oz;
-      g_d[b] = g.dx;
-      g_d[b + 1] = g.dy;
-      g_d[b + 2] = g.dz;
+      store3<CM>(g_o, lane, r, g.ox, g.oy, g.oz);
+      store3<CM>(g_d, lane, r, g.dx, g.dy, g.dz);
     }
   }
 }
@@ -756,53 +784,45 @@ __global__ void reduce_partials(const float* __restrict__ part, int nblocks,
   g_table[k] = s;
 }
 
+// Bytes of dynamic shared memory for an N-row table (forward and backward
+// stage the same channels).
+int table_smem(int n) { return n * TS * (int)sizeof(float); }
+
 int set_smem(const void* kernel, int bytes) {
   if (bytes <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-}  // namespace
-
-extern "C" {
-
-// Bytes of dynamic shared memory for an N-row table (forward and backward
-// stage the same channels).
-int crucible_replay_smem_bytes(int n) { return n * TS * (int)sizeof(float); }
-
-// Launch the replay forward (K4) on `stream`; returns cudaGetLastError().
-int crucible_replay_forward(const float* table, const float* o, const float* d,
-                            const int32_t* valid, const int32_t* pix,
-                            const int32_t* smp, const int32_t* rec, int n,
-                            int r, int depth, int accum_from, int seed,
-                            float* rad, void* stream) {
-  const int smem = crucible_replay_smem_bytes(n);
-  int e = set_smem((const void*)replay_forward, smem);
+template <bool CM>
+int launch_forward(const float* table, const float* o, const float* d,
+                   const int32_t* valid, const int32_t* pix, const int32_t* smp,
+                   const int32_t* rec, int n, int r, int depth, int accum_from,
+                   int seed, float* rad, void* stream) {
+  const int smem = table_smem(n);
+  int e = set_smem((const void*)replay_forward<CM>, smem);
   if (e != 0) return e;
   const int grid = (r + BLOCK - 1) / BLOCK;
   if (grid > 0) {
-    replay_forward<<<grid, BLOCK, smem, (cudaStream_t)stream>>>(
+    replay_forward<CM><<<grid, BLOCK, smem, (cudaStream_t)stream>>>(
         table, o, d, valid, pix, smp, rec, n, r, depth, accum_from,
         (uint32_t)seed, rad);
   }
   return (int)cudaGetLastError();
 }
 
-// Launch the replay backward (K3) with `grid` blocks, then the reduce of its
-// block partials into g_table (N, 32). `ck` holds depth * 9 * grid * 128
-// floats, `part` grid * N * 22. Returns cudaGetLastError().
-int crucible_replay_backward(const float* table, const float* o,
-                             const float* d, const int32_t* valid,
-                             const int32_t* pix, const int32_t* smp,
-                             const int32_t* rec, const float* g_rad, int n,
-                             int r, int depth, int accum_from, int seed,
-                             int grid, float* ck, float* part, float* g_table,
-                             float* g_o, float* g_d, void* stream) {
-  const int smem = crucible_replay_smem_bytes(n);
-  int e = set_smem((const void*)replay_backward, smem);
+template <bool CM>
+int launch_backward(const float* table, const float* o, const float* d,
+                    const int32_t* valid, const int32_t* pix,
+                    const int32_t* smp, const int32_t* rec, const float* g_rad,
+                    int n, int r, int depth, int accum_from, int seed, int grid,
+                    float* ck, float* part, float* g_table, float* g_o,
+                    float* g_d, void* stream) {
+  const int smem = table_smem(n);
+  int e = set_smem((const void*)replay_backward<CM>, smem);
   if (e != 0) return e;
   if (grid > 0) {
-    replay_backward<<<grid, BLOCK, smem, (cudaStream_t)stream>>>(
+    replay_backward<CM><<<grid, BLOCK, smem, (cudaStream_t)stream>>>(
         table, o, d, valid, pix, smp, rec, g_rad, n, r, depth, accum_from,
         (uint32_t)seed, ck, part, g_o, g_d);
     e = (int)cudaGetLastError();
@@ -814,6 +834,68 @@ int crucible_replay_backward(const float* table, const float* o,
         part, grid, n, g_table);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Bytes of dynamic shared memory for an N-row table.
+int crucible_replay_smem_bytes(int n) { return table_smem(n); }
+
+// Launch the replay forward (K4) on `stream`: rays and radiance (R, 3).
+// Returns cudaGetLastError().
+int crucible_replay_forward(const float* table, const float* o, const float* d,
+                            const int32_t* valid, const int32_t* pix,
+                            const int32_t* smp, const int32_t* rec, int n,
+                            int r, int depth, int accum_from, int seed,
+                            float* rad, void* stream) {
+  return launch_forward<false>(table, o, d, valid, pix, smp, rec, n, r, depth,
+                               accum_from, seed, rad, stream);
+}
+
+// Launch the replay backward (K3) with `grid` blocks, then the reduce of its
+// block partials into g_table (N, 32). `ck` holds depth * 9 * grid * 128
+// floats, `part` grid * N * 22. Rays and cotangents (R, 3). Returns
+// cudaGetLastError().
+int crucible_replay_backward(const float* table, const float* o,
+                             const float* d, const int32_t* valid,
+                             const int32_t* pix, const int32_t* smp,
+                             const int32_t* rec, const float* g_rad, int n,
+                             int r, int depth, int accum_from, int seed,
+                             int grid, float* ck, float* part, float* g_table,
+                             float* g_o, float* g_d, void* stream) {
+  return launch_backward<false>(table, o, d, valid, pix, smp, rec, g_rad, n, r,
+                                depth, accum_from, seed, grid, ck, part,
+                                g_table, g_o, g_d, stream);
+}
+
+// K4-legacy's forward: crucible_replay_forward on channel-major rays and
+// radiance, (3, R).
+int crucible_replay_legacy_forward(const float* table, const float* o,
+                                   const float* d, const int32_t* valid,
+                                   const int32_t* pix, const int32_t* smp,
+                                   const int32_t* rec, int n, int r, int depth,
+                                   int accum_from, int seed, float* rad,
+                                   void* stream) {
+  return launch_forward<true>(table, o, d, valid, pix, smp, rec, n, r, depth,
+                              accum_from, seed, rad, stream);
+}
+
+// K4-legacy's backward: crucible_replay_backward on channel-major rays,
+// radiance cotangent and ray cotangents, (3, R); the same scratch and the
+// same (N, 32) table cotangent.
+int crucible_replay_legacy_backward(const float* table, const float* o,
+                                    const float* d, const int32_t* valid,
+                                    const int32_t* pix, const int32_t* smp,
+                                    const int32_t* rec, const float* g_rad,
+                                    int n, int r, int depth, int accum_from,
+                                    int seed, int grid, float* ck, float* part,
+                                    float* g_table, float* g_o, float* g_d,
+                                    void* stream) {
+  return launch_backward<true>(table, o, d, valid, pix, smp, rec, g_rad, n, r,
+                               depth, accum_from, seed, grid, ck, part, g_table,
+                               g_o, g_d, stream);
 }
 
 const char* crucible_cuda_error_string(int err) {

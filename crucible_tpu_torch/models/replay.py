@@ -1,6 +1,6 @@
 """Record/replay differentiable path tracing — the gradient path.
 
-Port of the unsplit part of ``crucible_tpu/models/replay.py``:
+Port of ``crucible_tpu/models/replay.py``'s gradient path:
 
 1. :func:`trace_record_mega` — the fast, non-differentiable forward: the
    record-mode megakernel (K2; K5, the sphere-BVH walk, on static scenes
@@ -16,23 +16,37 @@ Port of the unsplit part of ``crucible_tpu/models/replay.py``:
 2. :func:`trace_replay` — the differentiable replay of those words, which
    re-derives every continuous quantity with the decisions frozen: through
    the replay kernels (``ops/kernels/replay_kernel.py``: forward K4,
-   backward K3) where they take the scene (:func:`_use_replay_kernel`),
-   else eagerly, one checkpointed bounce per record row (the JAX package's
-   jnp replay: moving spheres, tables above the kernels' rows, the
-   spherical sky, triangle meshes, static or moving).
+   backward K3, or K4-legacy under ``CRUCIBLE_REPLAY_BLOCKED=0``) where
+   they take the scene (:func:`_use_replay_kernel`), else eagerly, one
+   checkpointed bounce per record row (the JAX package's jnp replay:
+   moving spheres, tables above the kernels' rows, the spherical sky,
+   triangle meshes, static or moving).
+3. Deep budgets (``max_depth > GRAD_SPLIT_MIN_DEPTH``): lanes are
+   partitioned by their recorded path depth into buckets
+   (``GRAD_BUCKET_SPEC``), each replayed only as deep and as wide as its
+   lanes need. :func:`record_two_level` records the head rows at full
+   width and re-records only the survivors, narrow, to ``max_depth``;
+   :func:`replay_bucketed_2l` replays over that record and
+   :func:`replay_bucketed` over a precomputed full record (frozen
+   decisions). A bucket re-walks its lanes' head rows from regenerated
+   primary rays with radiance off below ``accum_from``, so only integer
+   ids cross the compaction. Every static capacity that overflows poisons
+   the radiance with NaN (``grad.loss_and_grad_recovering`` widens it).
 
 :func:`render_rays_replay` chains camera rays, record and replay. Integers
 carry no gradient, so the gradient is the replay's detached-sampling
 estimator. Not ported yet (each raises ``NotImplementedError``): the staged
-record (``trace_record`` over ``integrator.bounce_step``), the eager
-replay's image textures, nested checkers and exact-time motion, and the
-lane-narrowed replays of deep budgets
-(``record_two_level`` / ``replay_bucketed_2l``).
+record (``trace_record`` over ``integrator.bounce_step``), and the eager
+replay's image textures, nested checkers and exact-time motion. Not
+ported by design (ROADMAP "Do not port"): the head/tail carry-handoff
+``replay_split`` and its switch ``CRUCIBLE_GRAD_DEEP_IMPL=split``, which
+raises.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -57,8 +71,16 @@ from crucible_tpu_torch.utils import vec
 # otherwise). Ids stay below 2^23, so words are non-negative.
 REC_MAX_IDS = 1 << 23
 
-# Budgets above this replay lane-narrowed in the JAX package (not ported).
+# Budgets above this replay depth-bucketed (split); at or below, unsplit.
 GRAD_SPLIT_MIN_DEPTH = 12
+# Depth buckets of the deep replay, (depth limit, width divisor): bucket 0
+# is the full-width head, a limit of 0 stretches to max_depth. The JAX
+# package's shipped spec (its sweep on book1 1080p 4 spp d50).
+GRAD_BUCKET_SPEC = ((6, 1), (16, 16), (0, 32))
+# Narrow re-record capacity of the two-level record: r // 12 lanes.
+RECORD_DEEP_DIV = 12
+# The narrow capacity's floor, in lanes.
+MIN_NARROW = 512
 
 
 def _check_record_capacity(sd: SceneData) -> None:
@@ -385,6 +407,238 @@ def _replay_eager(sd, table, o, d, pixel_ids, sample_ids, seed, rec, *, early_ex
     return rad
 
 
+def _bucket_spec(max_depth: int, spec=None):
+    """(limits, divisors) of the depth buckets against ``max_depth``:
+    limits clipped, buckets left empty dropped, the last stretched to
+    ``max_depth``. ``spec`` None reads ``CRUCIBLE_GRAD_BUCKETS``
+    ("8:1,16:8,0:32"), else ``GRAD_BUCKET_SPEC``."""
+    if spec is None:
+        env = os.environ.get("CRUCIBLE_GRAD_BUCKETS")
+        if env:
+            spec = tuple(
+                (int(a), int(b)) for a, b in (part.split(":") for part in env.split(","))
+            )
+        else:
+            spec = GRAD_BUCKET_SPEC
+    lims, divs = [], []
+    for lim, dv in spec:
+        lim = max_depth if lim <= 0 else min(lim, max_depth)
+        if lims and lim <= lims[-1]:
+            continue
+        lims.append(lim)
+        divs.append(dv)
+    lims[-1] = max_depth
+    return lims, divs
+
+
+def _capacity(r: int, div: int, cap: int | None = None) -> int:
+    """Lanes of a narrowed pass: r // div, at least ``MIN_NARROW``, at most
+    ``cap`` (default r)."""
+    return int(min(r if cap is None else cap, max(MIN_NARROW, r // div)))
+
+
+def _compact(flag: torch.Tensor, cap: int):
+    """Stream compaction without a host sync: the first ``cap`` set entries
+    of ``flag`` (R,) bool, in order -> (idx (cap,) int64 their positions,
+    valid (cap,) bool the slots filled). Unfilled slots hold 0. The scatter
+    writes the dropped entries into a slot ``cap`` past the end, which is
+    then cut off (the JAX ``mode="drop"``)."""
+    rank = torch.cumsum(flag.to(torch.int32), 0) - 1
+    keep = flag & (rank < cap)
+    slot = torch.where(keep, rank, cap).long()
+    src = torch.arange(flag.shape[0], device=flag.device)
+    idx = torch.zeros(cap + 1, dtype=torch.int64, device=flag.device).scatter_(0, slot, src)
+    valid = torch.arange(cap, device=flag.device) < flag.sum()
+    return idx[:cap], valid
+
+
+def _poison(rad: torch.Tensor, overflow: torch.Tensor) -> torch.Tensor:
+    """NaN everywhere where the device scalar ``overflow`` holds: a static
+    capacity was exceeded (loud, never a silently biased radiance)."""
+    return torch.where(overflow, torch.full_like(rad, float("nan")), rad)
+
+
+def record_two_level(
+    sd: SceneData,
+    cp: CameraParams,
+    width: int,
+    height: int,
+    pixel_ids: torch.Tensor,
+    sample_ids: torch.Tensor,
+    seed,
+    max_depth: int,
+    head: int,
+    div: int | None = None,
+    record_mode: str = "auto",
+    head_radiance: bool = False,
+):
+    """Two-level decision record: ``head`` rows at full width, then a narrow
+    re-record of only the lanes that continue past them, to ``max_depth``.
+
+    Decisions are a pure function of (pixel, sample, seed), so the re-record
+    retraces the survivors' paths from bounce 0 bit for bit, and the deep
+    rows cost 1/div of full width. The survivors are compacted into
+    ``r_n = min(r, max(512, r // div))`` slots; unfilled slots get the
+    padding sample id 2**30, which the record kernel never issues.
+
+    Returns (rec_h (head, R), rec_n (max_depth, r_n), idx_n (r_n,) lane
+    ids, valid_n (r_n,) filled slots, n_deep the survivors' count, a device
+    scalar); with ``head_radiance`` also rad_h (R, 3), the head rows'
+    radiance fused into the head record, and rad_n (r_n, 3), the
+    survivors' radiance from row ``head`` on, fused into the re-record.
+    Overflow (n_deep > r_n) is the caller's to poison. ``div``: the
+    argument, else ``CRUCIBLE_RECORD_DEEP_DIV``, else ``RECORD_DEEP_DIV``.
+    ``record_mode``: 'auto' and 'mega' take the record megakernel; 'staged'
+    is not ported.
+    """
+    if record_mode not in ("auto", "mega"):
+        raise NotImplementedError(
+            f"record_mode {record_mode!r}: the staged record is not ported to "
+            "crucible_tpu_torch yet"
+        )
+    r = pixel_ids.shape[0]
+    if div is None:
+        env_div = os.environ.get("CRUCIBLE_RECORD_DEEP_DIV")
+        div = int(env_div) if env_div is not None else RECORD_DEEP_DIV
+    rec_pass = functools.partial(trace_record_mega, sd, cp, width, height)
+    if head_radiance:
+        rec_h, rad_h = rec_pass(pixel_ids, sample_ids, seed, head, radiance=True)
+    else:
+        rec_h = rec_pass(pixel_ids, sample_ids, seed, head)
+    cont = (rec_h[head - 1] & F_SCAT) > 0  # continued past the head rows
+    n_deep = cont.sum()
+    r_n = _capacity(r, div)
+    idx_n, valid_n = _compact(cont, r_n)
+    pix_n = torch.where(valid_n, pixel_ids[idx_n], 0).to(pixel_ids.dtype)
+    smp_n = torch.where(valid_n, sample_ids[idx_n], mk.NO_SAMPLE).to(sample_ids.dtype)
+    if head_radiance:
+        rec_n, rad_n = rec_pass(pix_n, smp_n, seed, max_depth, radiance=True,
+                                accum_from=head)
+        return rec_h, rec_n, idx_n, valid_n, n_deep, rad_h, rad_n
+    rec_n = rec_pass(pix_n, smp_n, seed, max_depth)
+    return rec_h, rec_n, idx_n, valid_n, n_deep
+
+
+def _replay_bucket(sd, cp, width, height, pixel_ids, sample_ids, seed, depth, rec,
+                   lanes, slots, valid, accum_from, rad, rad_given=None):
+    """One narrowed bucket pass: regenerate the primary rays of ``lanes``
+    (their pixel and sample ids gathered), replay the record columns
+    ``slots`` of ``rec`` to ``depth`` with radiance from ``accum_from`` on
+    and the throughput starting at ``valid``, and add the result into
+    ``rad`` at ``lanes`` -> the new ``rad``."""
+    pix_b = pixel_ids[lanes]
+    smp_b = sample_ids[lanes]
+    # Regenerated rays are the head's bit for bit (pure pcg4d streams), and
+    # camera gradients flow through them as through the head's.
+    o_b, d_b, _ = generate_rays(cp, width, height, pix_b, smp_b, seed)
+    thr0 = torch.where(valid[:, None], torch.ones_like(o_b), 0.0)
+    rad_b = trace_replay(
+        sd, o_b, d_b, pix_b, smp_b, seed, depth, rec[:depth].index_select(1, slots),
+        thr_in=thr0, accum_from=accum_from, thr_mask=valid, rad_given=rad_given,
+    )
+    return rad.index_add(0, lanes, torch.where(valid[:, None], rad_b, 0.0))
+
+
+def replay_bucketed(
+    sd: SceneData,
+    cp: CameraParams,
+    width: int,
+    height: int,
+    o: torch.Tensor,
+    d: torch.Tensor,
+    pixel_ids: torch.Tensor,
+    sample_ids: torch.Tensor,
+    seed,
+    max_depth: int,
+    rec: torch.Tensor,
+    *,
+    spec=None,
+) -> torch.Tensor:
+    """Depth-bucketed differentiable replay of a full record (max_depth, R)
+    -> radiance (R, 3): the path of precomputed records (frozen decisions).
+
+    Bucket 0 replays rows [0, d0) of every lane at full width; bucket j
+    compacts the lanes whose depth lies in (d(j-1), dj] into r // div_j
+    slots, which re-walk rows [0, dj) from their regenerated primary rays with radiance from d0 on. Per lane the partial
+    sums concatenate in row order, so values equal the unsplit replay's up
+    to f32 association and gradients equal them (the same frozen decisions
+    and continuous operations). Lanes beyond a bucket's capacity poison
+    the radiance with NaN.
+    """
+    lims, divs = _bucket_spec(max_depth, spec)
+    r = o.shape[0]
+    d0 = lims[0]
+    rad = trace_replay(sd, o, d, pixel_ids, sample_ids, seed, d0, rec[:d0])
+    if len(lims) == 1:
+        return rad
+    depth_lane = ((rec & F_ALIVE) > 0).sum(0)
+    for j in range(1, len(lims)):
+        in_b = (depth_lane > lims[j - 1]) & (depth_lane <= lims[j])
+        r_b = _capacity(r, divs[j])
+        idx, valid = _compact(in_b, r_b)
+        rad = _replay_bucket(sd, cp, width, height, pixel_ids, sample_ids, seed,
+                             lims[j], rec, idx, idx, valid, d0, rad)
+        rad = _poison(rad, in_b.sum() > r_b)
+    return rad
+
+
+def replay_bucketed_2l(
+    sd: SceneData,
+    cp: CameraParams,
+    width: int,
+    height: int,
+    o: torch.Tensor,
+    d: torch.Tensor,
+    pixel_ids: torch.Tensor,
+    sample_ids: torch.Tensor,
+    seed,
+    max_depth: int,
+    rec_h: torch.Tensor,
+    rec_n: torch.Tensor,
+    idx_n: torch.Tensor,
+    valid_n: torch.Tensor,
+    n_deep: torch.Tensor,
+    *,
+    spec=None,
+    rad_head: torch.Tensor | None = None,
+    rad_narrow: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Depth-bucketed replay over a two-level record (:func:`record_two_level`)
+    -> radiance (R, 3): :func:`replay_bucketed`'s estimator, with bucket 0
+    on the full-width head record and every deeper bucket compacted from
+    the narrow record's slots. ``rad_head`` / ``rad_narrow``: the fused
+    radiances of the two record passes; then bucket 0's primal is
+    ``rad_head`` and each bucket's a gather of ``rad_narrow``, so only the
+    backward kernel runs. Overflow of a bucket, or of the narrow record
+    (``n_deep > r_n``), poisons the radiance with NaN.
+    """
+    lims, divs = _bucket_spec(max_depth, spec)
+    head = rec_h.shape[0]
+    if lims[0] != head:
+        raise ValueError(f"the head record has {head} rows, the spec's head bucket {lims[0]}")
+    r = o.shape[0]
+    rad = trace_replay(sd, o, d, pixel_ids, sample_ids, seed, head, rec_h, rad_given=rad_head)
+    if len(lims) == 1:
+        return rad
+    r_n = rec_n.shape[1]
+    depth_n = ((rec_n & F_ALIVE) > 0).sum(0)
+    for j in range(1, len(lims)):
+        in_b = valid_n & (depth_n > lims[j - 1]) & (depth_n <= lims[j])
+        r_b = _capacity(r, divs[j], r_n)
+        slots, valid = _compact(in_b, r_b)
+        given = None
+        if rad_narrow is not None:
+            # The re-record summed rows >= head per survivor (rows past a
+            # lane's depth are dead): the bucket's primal is a gather.
+            given = torch.where(valid[:, None], rad_narrow.index_select(0, slots), 0.0)
+        rad = _replay_bucket(sd, cp, width, height, pixel_ids, sample_ids, seed,
+                             lims[j], rec_n, idx_n[slots], slots, valid, head, rad,
+                             rad_given=given)
+        rad = _poison(rad, in_b.sum() > r_b)
+    # Narrow-record overflow: deep lanes beyond r_n were never re-recorded.
+    return _poison(rad, n_deep > r_n)
+
+
 def render_rays_replay(
     sd: SceneData,
     cp: CameraParams,
@@ -397,6 +651,8 @@ def render_rays_replay(
     record_mode: str = "auto",
     rec: torch.Tensor | None = None,
     split: bool | None = None,
+    spec=None,
+    record_div: int | None = None,
 ) -> torch.Tensor:
     """Primary rays + record + differentiable replay -> radiance (R, 3).
 
@@ -408,9 +664,16 @@ def render_rays_replay(
     replay kernels take the scene, the fused record pass gives the primal
     and only the backward kernel runs in the replay; elsewhere the record
     pass writes the words alone and the eager replay gives the primal.
-    ``split``: None replays unsplit up to ``GRAD_SPLIT_MIN_DEPTH`` and
-    raises above it; False replays unsplit at any depth; True raises (the
-    lane-narrowed replays are not ported).
+
+    ``split``: None reads ``CRUCIBLE_GRAD_SPLIT`` (0 / off / false, else
+    on), else splits above ``GRAD_SPLIT_MIN_DEPTH``; False replays unsplit
+    at any depth (the escape hatch for scenes whose survivors exceed the
+    capacities). A split call records two-level and replays
+    :func:`replay_bucketed_2l`, or with ``rec`` given (or
+    ``CRUCIBLE_GRAD_2L=0``) replays :func:`replay_bucketed` over a full
+    record. ``spec`` / ``record_div``: the bucket spec and the narrow
+    record's divisor, which win over their environment knobs (the rungs
+    of ``grad.loss_and_grad_recovering``).
     """
     if record_mode == "staged":
         raise NotImplementedError(
@@ -420,23 +683,40 @@ def render_rays_replay(
     if record_mode not in ("auto", "mega"):
         raise ValueError(f"unknown record_mode {record_mode!r}")
     if split is None:
-        split = max_depth > GRAD_SPLIT_MIN_DEPTH
-    if split:
+        env = os.environ.get("CRUCIBLE_GRAD_SPLIT")
+        if env is not None:
+            split = env.lower() not in ("0", "off", "false")
+        else:
+            split = max_depth > GRAD_SPLIT_MIN_DEPTH
+    if split and os.environ.get("CRUCIBLE_GRAD_DEEP_IMPL") == "split":
         raise NotImplementedError(
-            f"depth {max_depth} > {GRAD_SPLIT_MIN_DEPTH} needs the lane-narrowed "
-            "replay (record_two_level / replay_bucketed_2l), which is not "
-            "ported to crucible_tpu_torch yet (ROADMAP A3); pass split=False "
-            "to replay unsplit"
+            "CRUCIBLE_GRAD_DEEP_IMPL=split: the head/tail replay_split is not "
+            "ported to crucible_tpu_torch (ROADMAP, Do not port); the depth "
+            "buckets compute the same radiance"
         )
     fused = rec is None and _use_replay_kernel(sd)
     o, d, _ = generate_rays(cp, width, height, pixel_ids, sample_ids, seed)
+    args = (sd, cp, width, height, pixel_ids, sample_ids, seed, max_depth)
+    two_level = os.environ.get("CRUCIBLE_GRAD_2L", "1") not in ("0", "off", "false")
+    if split and rec is None and two_level:
+        lims, _ = _bucket_spec(max_depth, spec)
+        out = record_two_level(*args, head=lims[0], div=record_div,
+                               record_mode=record_mode, head_radiance=fused)
+        rad_h = rad_n = None
+        if fused:
+            *out, rad_h, rad_n = out
+        return replay_bucketed_2l(sd, cp, width, height, o, d, pixel_ids, sample_ids,
+                                  seed, max_depth, *out, spec=spec, rad_head=rad_h,
+                                  rad_narrow=rad_n)
     rad_mega = None
     if rec is None:
-        args = (sd, cp, width, height, pixel_ids, sample_ids, seed, max_depth)
-        if fused:
+        if fused and not split:
             rec, rad_mega = trace_record_mega(*args, radiance=True)
         else:
             rec = trace_record_mega(*args)
+    if split:
+        return replay_bucketed(sd, cp, width, height, o, d, pixel_ids, sample_ids, seed,
+                               max_depth, rec, spec=spec)
     return trace_replay(
         sd, o, d, pixel_ids, sample_ids, seed, max_depth, rec, rad_given=rad_mega
     )

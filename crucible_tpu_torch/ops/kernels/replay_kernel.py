@@ -1,7 +1,9 @@
-"""Differentiable replay of recorded path decisions: forward K4, backward K3.
+"""Differentiable replay of recorded path decisions: forward K4, backward K3,
+and their channel-major pair K4-legacy.
 
-Port of ``crucible_tpu/ops/pallas/replay_kernel.py`` (the lane-blocked
-kernels ``_fwd_kernel_blk`` / ``_bwd_kernel_blk`` and their custom VJPs).
+Port of ``crucible_tpu/ops/pallas/replay_kernel.py``: the lane-blocked
+kernels ``_fwd_kernel_blk`` / ``_bwd_kernel_blk`` and the unblocked
+``_fwd_kernel`` / ``_bwd_kernel``, and their custom VJPs.
 Given the sphere table, the primary rays, the lanes' pixel and sample ids
 and the packed decision records of ``models/replay.py``, the replay
 re-derives every continuous quantity of each path (hit distance as the
@@ -16,12 +18,21 @@ with every discrete decision frozen, and sums its radiance.
   :func:`replay_forward_reference` (an eager walk over the rows, exact row
   gathers) and :func:`replay_backward_reference` (torch autograd through
   that walk).
+- :func:`replay_legacy_forward` / :func:`replay_legacy_backward`
+  (K4-legacy, the unblocked pair's layouts): the same functions on
+  channel-major rays, radiance and cotangents (3, R) and (1, R) id rows,
+  with the twins :func:`replay_legacy_forward_reference` /
+  :func:`replay_legacy_backward_reference`. The per-lane arithmetic and
+  the table-cotangent reduction are K4's and K3's, so the results are
+  theirs bit for bit.
 - :class:`Replay` (forward K4, backward K3) and :class:`ReplayGiven`
   (forward returns a given radiance, backward K3) mirror the JAX
-  ``replay`` / ``replay_given`` custom VJPs; :func:`trace_replay_mega` is
-  the entry point, with the JAX signature.
-- ``LAUNCHES_FORWARD`` and ``LAUNCHES_BACKWARD`` count kernel launches (not
-  twin calls).
+  ``replay`` / ``replay_given`` custom VJPs, in either layout;
+  :func:`trace_replay_mega` is the entry point, with the JAX signature:
+  ``blocked=False`` (default: ``CRUCIBLE_REPLAY_BLOCKED``, on) takes
+  K4-legacy.
+- ``LAUNCHES_FORWARD``, ``LAUNCHES_BACKWARD``, ``LAUNCHES_LEGACY_FORWARD``
+  and ``LAUNCHES_LEGACY_BACKWARD`` count kernel launches (not twin calls).
 
 Layouts: ``table`` (N, 32) float32 (``integrator.make_sphere_table``),
 ``o``/``d`` (R, 3) float32, ``valid``/``pix``/``smp`` (R,) int32 (the
@@ -30,6 +41,8 @@ throughput starts at the 0/1 ``valid`` mask), ``rec`` (depth, R) int32,
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -66,6 +79,24 @@ BACKWARD_BLOCKS = 264
 # Launches of the CUDA kernels since the last reset (twin calls excluded).
 LAUNCHES_FORWARD = 0
 LAUNCHES_BACKWARD = 0
+LAUNCHES_LEGACY_FORWARD = 0
+LAUNCHES_LEGACY_BACKWARD = 0
+
+
+def zero_counts() -> None:
+    """Set every launch count to 0."""
+    global LAUNCHES_FORWARD, LAUNCHES_BACKWARD
+    global LAUNCHES_LEGACY_FORWARD, LAUNCHES_LEGACY_BACKWARD
+    LAUNCHES_FORWARD = LAUNCHES_BACKWARD = 0
+    LAUNCHES_LEGACY_FORWARD = LAUNCHES_LEGACY_BACKWARD = 0
+
+
+def _blocked_default() -> bool:
+    """The layout ``trace_replay_mega`` takes when not told: the blocked
+    pair (K4, K3) unless ``CRUCIBLE_REPLAY_BLOCKED`` is 0 / false / off,
+    as in the JAX package."""
+    v = os.environ.get("CRUCIBLE_REPLAY_BLOCKED", "1").lower()
+    return v not in ("0", "false", "off")
 
 
 def supported(sd, n_rows: int) -> bool:
@@ -249,10 +280,33 @@ def replay_backward_reference(
     with torch.enable_grad():
         leaves = [x.detach().requires_grad_(True) for x in (table, o, d)]
         rad = _walk(*leaves, valid, pix, smp, rec, seed, accum_from)
+        if not rad.requires_grad:  # no row adds radiance (an empty bucket)
+            return tuple(torch.zeros_like(x) for x in leaves)
         grads = torch.autograd.grad(rad, leaves, g_rad, allow_unused=True)
     return tuple(
         torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)
     )
+
+
+def replay_legacy_forward_reference(table, o3, d3, valid, pix, smp, rec, seed, *,
+                                    accum_from=0):
+    """Eager-torch version of K4-legacy: :func:`replay_forward_reference`
+    on the transposed inputs -> radiance (3, R)."""
+    return replay_forward_reference(
+        table, o3.t(), d3.t(), valid[0], pix[0], smp[0], rec, seed, accum_from=accum_from
+    ).t().contiguous()
+
+
+def replay_legacy_backward_reference(table, o3, d3, valid, pix, smp, rec, seed, g_rad3, *,
+                                     accum_from=0):
+    """Eager-torch version of K4-legacy's backward:
+    :func:`replay_backward_reference` on the transposed inputs ->
+    (g_table (N, 32), g_o (3, R), g_d (3, R))."""
+    g_table, g_o, g_d = replay_backward_reference(
+        table, o3.t(), d3.t(), valid[0], pix[0], smp[0], rec, seed, g_rad3.t(),
+        accum_from=accum_from,
+    )
+    return g_table, g_o.t().contiguous(), g_d.t().contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -260,19 +314,26 @@ def replay_backward_reference(
 # ---------------------------------------------------------------------------
 
 
-def _check_inputs(table, o, d, valid, pix, smp, rec, g_rad=None):
-    r = o.shape[0] if o.dim() == 2 else -1
+def _check_inputs(table, o, d, valid, pix, smp, rec, g_rad=None, legacy=False):
+    """Raise on what the kernels do not take. ``legacy``: K4-legacy's
+    layouts, rays (3, R) and ids (1, R); else rays (R, 3) and ids (R,)."""
+    if legacy:
+        r = o.shape[1] if o.dim() == 2 else -1
+        ray, ids = (3, r), (1, r)
+    else:
+        r = o.shape[0] if o.dim() == 2 else -1
+        ray, ids = (r, 3), (r,)
     expect = [
         ("table", table, torch.float32, None),
-        ("o", o, torch.float32, (r, 3)),
-        ("d", d, torch.float32, (r, 3)),
-        ("valid", valid, torch.int32, (r,)),
-        ("pix", pix, torch.int32, (r,)),
-        ("smp", smp, torch.int32, (r,)),
+        ("o", o, torch.float32, ray),
+        ("d", d, torch.float32, ray),
+        ("valid", valid, torch.int32, ids),
+        ("pix", pix, torch.int32, ids),
+        ("smp", smp, torch.int32, ids),
         ("rec", rec, torch.int32, None),
     ]
     if g_rad is not None:
-        expect.append(("g_rad", g_rad, torch.float32, (r, 3)))
+        expect.append(("g_rad", g_rad, torch.float32, ray))
     build.check_tensors(table.device, expect)
     if table.dim() != 2 or table.shape[1] != C_IN:
         raise ValueError(f"table must be (N, {C_IN}), got {tuple(table.shape)}")
@@ -289,6 +350,50 @@ def _lib():
     return build.load("replay_kernel")
 
 
+def _launch_forward(legacy, table, o, d, valid, pix, smp, rec, seed, accum_from):
+    """Launch K4, or with ``legacy`` K4-legacy on its layouts -> radiance in
+    the rays' layout."""
+    lib = _lib()
+    n, r, depth = table.shape[0], rec.shape[1], rec.shape[0]
+    rad = torch.empty(o.shape, dtype=torch.float32, device=table.device)
+    launch = lib.crucible_replay_legacy_forward if legacy else lib.crucible_replay_forward
+    with torch.cuda.device(table.device):
+        err = launch(
+            table.data_ptr(), o.data_ptr(), d.data_ptr(), valid.data_ptr(),
+            pix.data_ptr(), smp.data_ptr(), rec.data_ptr(),
+            n, r, depth, int(accum_from), mk.as_i32(int(seed)),
+            rad.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    build.check(lib, err, "replay legacy forward" if legacy else "replay forward")
+    return rad
+
+
+def _launch_backward(legacy, table, o, d, valid, pix, smp, rec, seed, g_rad, accum_from):
+    """Launch K3, or with ``legacy`` K4-legacy's backward on its layouts ->
+    (g_table (N, 32), g_o and g_d in the rays' layout)."""
+    lib = _lib()
+    n, r, depth = table.shape[0], rec.shape[1], rec.shape[0]
+    grid = min(BACKWARD_BLOCKS, (r + BLOCK - 1) // BLOCK)
+    dev = dict(dtype=torch.float32, device=table.device)
+    ck = torch.empty((depth * 9 * grid * BLOCK,), **dev)
+    part = torch.empty((grid * n * NUSE,), **dev)
+    g_table = torch.empty((n, C_IN), **dev)
+    g_o = torch.empty(o.shape, **dev)
+    g_d = torch.empty(o.shape, **dev)
+    launch = lib.crucible_replay_legacy_backward if legacy else lib.crucible_replay_backward
+    with torch.cuda.device(table.device):
+        err = launch(
+            table.data_ptr(), o.data_ptr(), d.data_ptr(), valid.data_ptr(),
+            pix.data_ptr(), smp.data_ptr(), rec.data_ptr(), g_rad.data_ptr(),
+            n, r, depth, int(accum_from), mk.as_i32(int(seed)), grid,
+            ck.data_ptr(), part.data_ptr(), g_table.data_ptr(),
+            g_o.data_ptr(), g_d.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    build.check(lib, err, "replay legacy backward" if legacy else "replay backward")
+    return g_table, g_o, g_d
+
+
 def replay_forward(table, o, d, valid, pix, smp, rec, seed, *, accum_from=0):
     """Replay forward (K4) -> radiance (R, 3): rows below ``accum_from``
     update the carry only. CUDA tensors launch the kernel; CPU tensors run
@@ -299,17 +404,7 @@ def replay_forward(table, o, d, valid, pix, smp, rec, seed, *, accum_from=0):
         return replay_forward_reference(
             table, o, d, valid, pix, smp, rec, seed, accum_from=accum_from
         )
-    lib = _lib()
-    n, r, depth = table.shape[0], o.shape[0], rec.shape[0]
-    rad = torch.empty((r, 3), dtype=torch.float32, device=table.device)
-    with torch.cuda.device(table.device):
-        err = lib.crucible_replay_forward(
-            table.data_ptr(), o.data_ptr(), d.data_ptr(), valid.data_ptr(),
-            pix.data_ptr(), smp.data_ptr(), rec.data_ptr(),
-            n, r, depth, int(accum_from), mk.as_i32(int(seed)),
-            rad.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        )
-    build.check(lib, err, "replay forward")
+    rad = _launch_forward(False, table, o, d, valid, pix, smp, rec, seed, accum_from)
     LAUNCHES_FORWARD += 1
     return rad
 
@@ -326,27 +421,42 @@ def replay_backward(table, o, d, valid, pix, smp, rec, seed, g_rad, *, accum_fro
         return replay_backward_reference(
             table, o, d, valid, pix, smp, rec, seed, g_rad, accum_from=accum_from
         )
-    lib = _lib()
-    n, r, depth = table.shape[0], o.shape[0], rec.shape[0]
-    grid = min(BACKWARD_BLOCKS, (r + BLOCK - 1) // BLOCK)
-    dev = dict(dtype=torch.float32, device=table.device)
-    ck = torch.empty((depth * 9 * grid * BLOCK,), **dev)
-    part = torch.empty((grid * n * NUSE,), **dev)
-    g_table = torch.empty((n, C_IN), **dev)
-    g_o = torch.empty((r, 3), **dev)
-    g_d = torch.empty((r, 3), **dev)
-    with torch.cuda.device(table.device):
-        err = lib.crucible_replay_backward(
-            table.data_ptr(), o.data_ptr(), d.data_ptr(), valid.data_ptr(),
-            pix.data_ptr(), smp.data_ptr(), rec.data_ptr(), g_rad.data_ptr(),
-            n, r, depth, int(accum_from), mk.as_i32(int(seed)), grid,
-            ck.data_ptr(), part.data_ptr(), g_table.data_ptr(),
-            g_o.data_ptr(), g_d.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    build.check(lib, err, "replay backward")
+    out = _launch_backward(False, table, o, d, valid, pix, smp, rec, seed, g_rad, accum_from)
     LAUNCHES_BACKWARD += 1
-    return g_table, g_o, g_d
+    return out
+
+
+def replay_legacy_forward(table, o3, d3, valid, pix, smp, rec, seed, *, accum_from=0):
+    """K4-legacy's forward -> radiance (3, R): :func:`replay_forward` on
+    channel-major rays ``o3`` / ``d3`` (3, R) and id rows ``valid`` /
+    ``pix`` / ``smp`` (1, R), the layouts of the JAX unblocked pair. CUDA
+    tensors launch the kernel; CPU tensors run the twin."""
+    global LAUNCHES_LEGACY_FORWARD
+    _check_inputs(table, o3, d3, valid, pix, smp, rec, legacy=True)
+    if table.device.type == "cpu":
+        return replay_legacy_forward_reference(
+            table, o3, d3, valid, pix, smp, rec, seed, accum_from=accum_from
+        )
+    rad = _launch_forward(True, table, o3, d3, valid, pix, smp, rec, seed, accum_from)
+    LAUNCHES_LEGACY_FORWARD += 1
+    return rad
+
+
+def replay_legacy_backward(table, o3, d3, valid, pix, smp, rec, seed, g_rad3, *,
+                           accum_from=0):
+    """K4-legacy's backward -> (g_table (N, 32), g_o (3, R), g_d (3, R)):
+    :func:`replay_backward` in :func:`replay_legacy_forward`'s layouts, with
+    K3's fixed-order table cotangent. CUDA tensors launch the kernel; CPU
+    tensors run the twin."""
+    global LAUNCHES_LEGACY_BACKWARD
+    _check_inputs(table, o3, d3, valid, pix, smp, rec, g_rad3, legacy=True)
+    if table.device.type == "cpu":
+        return replay_legacy_backward_reference(
+            table, o3, d3, valid, pix, smp, rec, seed, g_rad3, accum_from=accum_from
+        )
+    out = _launch_backward(True, table, o3, d3, valid, pix, smp, rec, seed, g_rad3, accum_from)
+    LAUNCHES_LEGACY_BACKWARD += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -354,39 +464,62 @@ def replay_backward(table, o, d, valid, pix, smp, rec, seed, g_rad, *, accum_fro
 # ---------------------------------------------------------------------------
 
 
+def _layout(legacy, o, d, valid, pix, smp):
+    """The kernel pair's input layouts: the blocked pair's (R, 3) rays and
+    (R,) ids as given, or K4-legacy's channel-major (3, R) rays and (1, R)
+    id rows."""
+    if not legacy:
+        return o, d, valid, pix, smp
+    r = o.shape[0]
+    return (o.t().contiguous(), d.t().contiguous(), valid.reshape(1, r),
+            pix.reshape(1, r), smp.reshape(1, r))
+
+
+def _vjp(ctx, g_rad):
+    """(g_table, g_o (R, 3), g_d (R, 3)) of the replay saved in ``ctx``; the
+    legacy pair's channel-major cotangents come back (R, 3) and contiguous,
+    so what autograd passes on is laid out as the blocked pair's."""
+    saved = ctx.saved_tensors
+    kw = dict(accum_from=ctx.accum_from)
+    if not ctx.legacy:
+        return replay_backward(*saved, ctx.seed, g_rad.contiguous(), **kw)
+    g_table, g_o3, g_d3 = replay_legacy_backward(*saved, ctx.seed, g_rad.t().contiguous(), **kw)
+    return g_table, g_o3.t().contiguous(), g_d3.t().contiguous()
+
+
 class Replay(torch.autograd.Function):
-    """Radiance replayed by K4; its VJP by K3 (the JAX ``replay``)."""
+    """Radiance replayed by K4; its VJP by K3 (the JAX ``replay``). With
+    ``legacy``, K4-legacy's pair on its layouts, transposed here so that
+    autograd sees (R, 3) tensors either way."""
 
     @staticmethod
-    def forward(ctx, table, o, d, valid, pix, smp, rec, seed, accum_from):
-        ctx.save_for_backward(table, o, d, valid, pix, smp, rec)
-        ctx.seed, ctx.accum_from = seed, accum_from
-        return replay_forward(table, o, d, valid, pix, smp, rec, seed, accum_from=accum_from)
+    def forward(ctx, table, o, d, valid, pix, smp, rec, seed, accum_from, legacy):
+        args = (table, *_layout(legacy, o, d, valid, pix, smp), rec)
+        ctx.save_for_backward(*args)
+        ctx.seed, ctx.accum_from, ctx.legacy = seed, accum_from, legacy
+        if legacy:
+            return replay_legacy_forward(*args, seed, accum_from=accum_from).t().contiguous()
+        return replay_forward(*args, seed, accum_from=accum_from)
 
     @staticmethod
     def backward(ctx, g_rad):
-        g = replay_backward(
-            *ctx.saved_tensors, ctx.seed, g_rad.contiguous(), accum_from=ctx.accum_from
-        )
-        return (*g, None, None, None, None, None, None)
+        return (*_vjp(ctx, g_rad), None, None, None, None, None, None, None)
 
 
 class ReplayGiven(torch.autograd.Function):
     """A radiance computed elsewhere (the fused record pass) as the primal;
-    its VJP by K3 (the JAX ``replay_given``)."""
+    its VJP by K3 (the JAX ``replay_given``), or with ``legacy`` by
+    K4-legacy's backward."""
 
     @staticmethod
-    def forward(ctx, table, o, d, valid, pix, smp, rec, seed, accum_from, rad):
-        ctx.save_for_backward(table, o, d, valid, pix, smp, rec)
-        ctx.seed, ctx.accum_from = seed, accum_from
+    def forward(ctx, table, o, d, valid, pix, smp, rec, seed, accum_from, legacy, rad):
+        ctx.save_for_backward(table, *_layout(legacy, o, d, valid, pix, smp), rec)
+        ctx.seed, ctx.accum_from, ctx.legacy = seed, accum_from, legacy
         return rad.clone()
 
     @staticmethod
     def backward(ctx, g_rad):
-        g = replay_backward(
-            *ctx.saved_tensors, ctx.seed, g_rad.contiguous(), accum_from=ctx.accum_from
-        )
-        return (*g, None, None, None, None, None, None, None)
+        return (*_vjp(ctx, g_rad), None, None, None, None, None, None, None, None)
 
 
 def trace_replay_mega(
@@ -401,6 +534,7 @@ def trace_replay_mega(
     accum_from: int = 0,
     valid=None,
     rad_given=None,
+    blocked=None,
 ):
     """Differentiable replay -> radiance (R, 3), differentiable w.r.t.
     ``table``, ``o`` and ``d``.
@@ -408,27 +542,24 @@ def trace_replay_mega(
     ``valid`` (R,) bool: the throughput starts at this 0/1 mask (None = all
     lanes live). ``rad_given`` (R, 3): a forward radiance already computed
     for these records (the fused record pass); it becomes the primal and
-    only the backward kernel runs.
+    only the backward kernel runs. ``blocked``: True takes K4 / K3, False
+    K4-legacy on channel-major copies of the rays (the JAX unblocked
+    pair's layouts; the same values and (R, 3) results, transposed inside
+    the autograd functions); None reads ``CRUCIBLE_REPLAY_BLOCKED``
+    (:func:`_blocked_default`).
     """
-    r = o.shape[0]
-    dev = table.device
+    if blocked is None:
+        blocked = _blocked_default()
     valid_i = (
-        torch.ones((r,), dtype=torch.int32, device=dev)
+        torch.ones((o.shape[0],), dtype=torch.int32, device=table.device)
         if valid is None
         else valid.to(torch.int32).contiguous()
     )
     args = (
-        table.contiguous(),
-        o.contiguous(),
-        d.contiguous(),
-        valid_i,
-        pixel_ids.to(torch.int32).contiguous(),
-        sample_ids.to(torch.int32).contiguous(),
-        rec.to(torch.int32).contiguous(),
-        int(seed) & 0xFFFFFFFF,
-        int(accum_from),
+        table.contiguous(), o.contiguous(), d.contiguous(), valid_i,
+        pixel_ids.to(torch.int32).contiguous(), sample_ids.to(torch.int32).contiguous(),
+        rec.to(torch.int32).contiguous(), int(seed) & 0xFFFFFFFF, int(accum_from), not blocked,
     )
     if rad_given is not None:
         return ReplayGiven.apply(*args, rad_given.detach())
     return Replay.apply(*args)
-

@@ -29,6 +29,7 @@ from crucible_tpu_torch.models import replay as trep
 from crucible_tpu_torch.ops.kernels import megakernel as tmk
 from tests.test_torch_scene import bridged
 from tests.torch_motion_scenes import bouncing_stress
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CULL = ("sph_perm", "sph_cbounds")
 BVH = ("sph_perm", "sph_nodes", "sph_meta")

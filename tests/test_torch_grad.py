@@ -19,6 +19,7 @@ from crucible_tpu_torch.models import render as trender
 from crucible_tpu_torch.models import replay as trep
 from crucible_tpu_torch.models.scene import Emissive, Scene, Sphere
 from tests.test_torch_scene import bridged
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _setup(sc, spp, depth, n=None):
@@ -190,11 +191,31 @@ def test_apply_params_leaves_the_inputs_alone():
 
 
 def test_split_false_replays_deep_budgets_unsplit():
+    """Above GRAD_SPLIT_MIN_DEPTH the default replays depth-bucketed over the
+    two-level record; split=False replays the same lanes unsplit, to the
+    same loss (f32 association) and gradients."""
     sd, cp, pix, target, params, kw = _setup(tdemo.smoke_scene(width=16), 1, 14)
-    with pytest.raises(NotImplementedError, match="record_two_level"):
-        G.loss_and_grad(params, sd, cp, target, pix, 0, **kw)
-    loss, grads = G.loss_and_grad(params, sd, cp, target, pix, 0, grad_split=False, **kw)
+    calls = []
+    real = trep.record_two_level
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(trep, "record_two_level", lambda *a, **k: calls.append(1) or real(*a, **k))
+        split_loss, split_grads = G.loss_and_grad(params, sd, cp, target, pix, 0, **kw)
+        assert calls
+        calls.clear()
+        loss, grads = G.loss_and_grad(params, sd, cp, target, pix, 0, grad_split=False, **kw)
+        assert not calls
     assert np.isfinite(float(loss)) and torch.isfinite(grads["tex_color"]).all()
+    assert float(split_loss) == pytest.approx(float(loss), rel=1e-6)
+    for key in G.TENSOR_KEYS:
+        np.testing.assert_allclose(split_grads[key].numpy(), grads[key].numpy(), rtol=1e-5,
+                                   atol=1e-7, err_msg=key)
+
+
+def _with_env(env, fn):
+    with pytest.MonkeyPatch.context() as mp:
+        for name, value in env.items():
+            mp.setenv(name, value)
+        return fn()
 
 
 @pytest.mark.parametrize(
@@ -203,7 +224,11 @@ def test_split_false_replays_deep_budgets_unsplit():
         # Direct AD takes moving spheres; exact-time motion raises (A7).
         lambda a: G.loss_and_grad(a[0], replace(a[1], animated=True, motion_exact=True),
                                   *a[2:6], method="ad", **a[6]),
-        lambda a: G.loss_and_grad(*a[:6], grad_split=True, **a[6]),
+        # The head/tail replay_split is under ROADMAP's "Do not port".
+        lambda a: _with_env(
+            {"CRUCIBLE_GRAD_DEEP_IMPL": "split"},
+            lambda: G.loss_and_grad(*a[:6], grad_split=True, **a[6]),
+        ),
         lambda a: trep.render_rays_replay(
             a[1], a[2], 16, 9, a[4], torch.zeros_like(a[4]), 0, 2, record_mode="staged"
         ),

@@ -42,6 +42,7 @@ from tests import oracle
 from tests import torch_mesh_scenes as meshes
 from tests.test_torch_replay import _assert_k3_scheme
 from tests.test_torch_scene import jax_scene_arrays
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SEED = 3
 MESH_ARRAYS = bridge.MESH_ARRAYS

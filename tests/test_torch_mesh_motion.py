@@ -37,6 +37,7 @@ from crucible_tpu_torch.ops.kernels import megakernel as tmk
 from tests import torch_mesh_scenes as meshes
 from tests.test_torch_mesh import tobj_text_grid
 from tests.test_torch_scene import jax_camera_arrays, jax_scene_arrays
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SEED = 3
 SCENES = {

@@ -29,6 +29,7 @@ from crucible_tpu_torch.models.camera import generate_rays
 from crucible_tpu_torch.ops import intersect as tintersect
 from tests.test_torch_scene import bridged, jax_camera_arrays, jax_scene_arrays
 from tests.torch_motion_scenes import LERP, LOCAL, bouncing_book1
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 WORLD = "world"
 

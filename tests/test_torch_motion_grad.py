@@ -26,6 +26,7 @@ from crucible_tpu_torch.ops import intersect as tintersect
 from crucible_tpu_torch.ops.kernels import megakernel as tmk
 from tests.test_torch_scene import bridged
 from tests.torch_motion_scenes import LERP, LOCAL, bouncing_book1, bouncing_stress
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _moving_smoke(demo):

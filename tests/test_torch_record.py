@@ -13,6 +13,7 @@ from crucible_tpu_torch.models import demo as tdemo
 from crucible_tpu_torch.models import integrator as tint
 from crucible_tpu_torch.models import replay as trep
 from crucible_tpu_torch.ops.kernels import megakernel as tmk
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # The JAX side is imported inside the helpers that use it, so that the
 # card-only tests at the end also run where JAX is not installed:

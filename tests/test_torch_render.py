@@ -20,6 +20,7 @@ from crucible_tpu_torch.models import integrator
 from crucible_tpu_torch.models import render as trender
 from crucible_tpu_torch.models import scene as tscene
 from tests.test_torch_scene import bridged
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -12,6 +12,7 @@ import torch
 from crucible_tpu_torch.models import demo as tdemo
 from crucible_tpu_torch.models import replay as trep
 from crucible_tpu_torch.ops.kernels import replay_kernel as trk
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # The JAX side is imported inside the helpers that use it, so that the
 # card-only tests at the end also run where JAX is not installed:

@@ -24,6 +24,7 @@ from crucible_tpu_torch.ops.kernels import replay_kernel as trk
 from tests.test_torch_replay import _assert_k3_scheme
 from tests.test_torch_scene import bridged
 from tests.torch_motion_scenes import LERP, LOCAL, bouncing_book1
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SEED = 5
 WORLD = "world"

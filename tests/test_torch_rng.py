@@ -9,6 +9,7 @@ import torch
 
 from crucible_tpu.utils import rng as jrng
 from crucible_tpu_torch.utils import rng as trng
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 U32_MAX = 2**32 - 1
 

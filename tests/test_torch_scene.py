@@ -31,6 +31,7 @@ from crucible_tpu_torch.utils import angles as tangles
 from crucible_tpu_torch.utils import color as tcolor
 from crucible_tpu_torch.utils import interval as tinterval
 from crucible_tpu_torch.utils import vec as tvec
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SCENES = ["book1_end_scene", "smoke_scene", "checkered_spheres"]
 

@@ -31,6 +31,7 @@ from crucible_tpu_torch.ops.kernels import megakernel as tmk
 from crucible_tpu_torch.ops.kernels import replay_kernel as trk
 from tests.test_torch_scene import bridged
 from tests.torch_motion_scenes import bouncing_stress
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 STRUCT = ("sph_perm", "sph_nodes", "sph_meta")
 

@@ -16,6 +16,7 @@ from crucible_tpu_torch.models.camera import generate_rays
 from crucible_tpu_torch.ops import intersect as tinter
 from crucible_tpu_torch.ops.kernels import build as tbuild
 from crucible_tpu_torch.ops.kernels import sphere_hit as tsh
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # The JAX side is imported inside the helpers that use it, so that the
 # card-only tests at the end also run where JAX is not installed:

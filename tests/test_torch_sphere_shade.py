@@ -15,6 +15,7 @@ from crucible_tpu_torch.models import integrator as tint
 from crucible_tpu_torch.models import render as trender
 from crucible_tpu_torch.models.camera import generate_rays
 from crucible_tpu_torch.ops.kernels import sphere_shade as tss
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # The JAX side is imported inside the helpers that use it, so that the
 # card-only tests at the end also run where JAX is not installed:

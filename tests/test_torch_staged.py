@@ -32,6 +32,7 @@ from crucible_tpu_torch.models import skybox as tsky
 from crucible_tpu_torch.models import textures as ttex
 from crucible_tpu_torch.models.camera import generate_rays
 from tests.test_torch_scene import bridged
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # --- assets -------------------------------------------------------------------------
 

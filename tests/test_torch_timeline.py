@@ -13,6 +13,7 @@ from crucible_tpu_torch.models import camera as tcam
 from crucible_tpu_torch.models import demo as tdemo
 from crucible_tpu_torch.models import scene as tscene
 from crucible_tpu_torch.models import timeline as ttl
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SEEDS = range(8)
 
