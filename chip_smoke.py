@@ -9,14 +9,17 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
 2. Builds the CUDA kernels from ``crucible_tpu_torch/csrc`` with nvcc, one
    process per source, all at once.
 3. Holds every kernel against its eager-torch twin on the card:
-   - K1, the forward megakernel: ``smoke_scene`` 64 wide, 8 spp, depth 8
-     (every lane within 1e-4); ``book1_end_scene`` 320 wide, 8 spp, depth
-     50 (isclose(rtol=1e-3, atol=1e-3) on more than 99% of pixel values,
-     means within 2e-3); and the 1920x1080, 32 spp, depth 50 launch of the
-     forward render, on 64 pixel blocks (lanes are independent).
+   - K1, the forward megakernel (persistent lanes in one flat bounce
+     loop): ``smoke_scene`` 64 wide, 8 spp, depth 8 (every lane within
+     1e-4); ``book1_end_scene`` 320 wide, 8 spp, depth 50, bit for bit; and
+     the 1920x1080, 32 spp, depth 50 launch of the forward render, bit for
+     bit on 64 pixel blocks (lanes are independent) and launch against
+     launch. Its grid, resident blocks an SM and registers a thread, and
+     its time beside its bound at the main shape.
    - K2, the record megakernel (fused and plain): smoke 64 wide and book1
      320 wide, 4 spp, depth 8, bit for bit; the 1920x1080 launch of the
-     gradient step on 32768 lanes.
+     gradient step on 32768 lanes, and launch against launch; its launch
+     shape and its time beside its bound.
    - K4, the replay forward: book1 320 wide and the 1920x1080 launch (on
      32768 lanes), bit for bit.
    - K3, the replay backward: book1 320 wide and 32768 lanes of the
@@ -616,11 +619,22 @@ def main() -> None:
     if not err <= 1e-4:
         raise AssertionError(f"smoke: kernel and eager version differ by {err}")
 
+    def brute_shape(record, radiance, inputs, what):
+        """K1's / K2's launch shape (grid, resident blocks, registers),
+        printed."""
+        shape = mk.brute_launch_shape(record, radiance, inputs["table"].shape[0],
+                                      inputs["pix"].shape[1])
+        print(f"  {what} launch: grid {shape['grid']} x {shape['threads']} threads, "
+              f"{shape['blocks_per_sm']} resident blocks an SM x {shape['sms']} SMs, "
+              f"{shape['registers']} registers a thread")
+        return shape
+
     out, ref, lane_of, ms320, plain320, k1_in = compare_k1(
         demo.book1_end_scene(width=320), 8, 50
     )
     print(f"K1 book1 320w 8spp d50: kernel {ms320:.3f} ms, eager {plain320:.1f} ms")
-    err320 = statistical_match(out.t()[lane_of] / 8, ref.t()[lane_of] / 8, "book1 320w")
+    brute_shape(False, True, k1_in, "K1 book1 320w")
+    err320 = bit_equal(out, ref, "K1 book1 320w 8spp d50 vs plain")
     # The work K1 did: each (pixel, sample) path's closest-hit searches, as
     # the record kernel counts them for the same paths (alive rows).
     sc = demo.book1_end_scene(width=320)
@@ -651,13 +665,17 @@ def main() -> None:
     n_blocks = (1920 // 32) * math.ceil(1080 / 16)
     blocks = torch.randperm(n_blocks, generator=g)[:64].sort().values
     lanes = (blocks[:, None] * mk.TILE + torch.arange(mk.TILE)).reshape(-1).to(dev)
-    out, ref, _, ms_full, plain_sub, _ = compare_k1(
+    out, ref, _, ms_full, plain_sub, k1_full = compare_k1(
         demo.book1_end_scene(width=1920), 32, 50, lanes=lanes
     )
     print(f"K1 book1 1920x1080 32spp d50: kernel {ms_full:.1f} ms "
           f"({1920 * 1080 * 32 / ms_full / 1e3:.2f} Mrays/s); eager on "
           f"{lanes.numel()} lanes {plain_sub:.1f} ms")
-    statistical_match(out / 32, ref / 32, "book1 1080p lane subset")
+    bit_equal(out, ref, f"K1 book1 1080p on {lanes.numel()} lanes vs plain")
+    bit_equal(mk.run_megakernel(**k1_full, animated=False)[:, lanes], out,
+              "K1 book1 1080p, launch vs launch")
+    k1_shape = brute_shape(False, True, k1_full, "K1 book1 1080p")
+    del k1_full
     # Its work, counted by the record kernel 4 samples at a time.
     sc = demo.book1_end_scene(width=1920)
     sd, cp = sc.build(device=dev), sc.scene_cam.params(device=dev)
@@ -673,7 +691,11 @@ def main() -> None:
     # Bytes: each pixel's id, first sample and sums, and the table.
     b, by = bound(searches * n_active * SEARCH_OPS,
                   (2 + 3) * p_full * 4 + nbytes(k1_in["table"]))
-    print(f"  K1 1080p work: {searches} searches x {n_active} rows; bound {b:.3f} ms ({by})")
+    print(f"  K1 1080p work: {searches} searches x {n_active} rows; bound {b:.3f} ms ({by}); "
+          f"K1 at {100 * b / ms_full:.1f}% of it on {card}")
+    kernels["megakernel_forward"].update(
+        main_ms=ms_full, main_bound_ms=b, grid=k1_shape["grid"],
+        blocks_per_sm=k1_shape["blocks_per_sm"], registers=k1_shape["registers"])
 
     # --- K2, K4, K3 at the comparison shape: book1 320w, 4 spp, depth 8 -------
     mark('K2, K4, K3 at the comparison shape: book1 320w, 4 spp, depth 8')
@@ -781,11 +803,22 @@ def main() -> None:
     sub = sub.sort().values.to(dev)
     k2_check(k2, 8, f"K2 1920x1080 4spp d8 on {N_SUB} lanes", sub=sub)
     rec = mk.run_megakernel_record(**k2, max_depth=8)[1]
+    acc2, rec2 = mk.run_megakernel_record(**k2, max_depth=8, radiance=True)
+    acc3, rec3 = mk.run_megakernel_record(**k2, max_depth=8, radiance=True)
+    bit_equal(rec3, rec2, "K2 1080p records, launch vs launch")
+    bit_equal(acc3, acc2, "K2 1080p fused radiance, launch vs launch")
+    del acc2, rec2, acc3, rec3
+    k2_shape = brute_shape(True, True, k2, "K2 1080p (fused)")
+    brute_shape(True, False, k2, "K2 1080p (plain)")
     ms = cuda_ms(lambda: mk.run_megakernel_record(**k2, max_depth=8, radiance=True), 3)
     searches = int((rec & 1).sum())
     b, by = bound(searches * n_active * SEARCH_OPS,
                   nbytes(*k2.values()) + nbytes(rec) + 3 * r * 4)
-    print(f"K2 1920x1080 4spp d8 (fused): {ms:.3f} ms, bound {b:.3f} ms ({by})")
+    print(f"K2 1920x1080 4spp d8 (fused): {ms:.3f} ms, bound {b:.3f} ms ({by}); "
+          f"K2 at {100 * b / ms:.1f}% of it on {card}")
+    kernels["megakernel_record"].update(
+        main_ms=ms, main_bound_ms=b, grid=k2_shape["grid"],
+        blocks_per_sm=k2_shape["blocks_per_sm"], registers=k2_shape["registers"])
     rargs = (*rin, rec, 0)
     rad = rk.replay_forward(*rargs)
     sub_args = tuple(x[sub] for x in rin[1:]) + (rec[:, sub], 0)

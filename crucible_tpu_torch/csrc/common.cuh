@@ -1,9 +1,10 @@
 // Pieces shared by the port's CUDA kernels: the PCG4D counter hash of
 // utils/rng.py, its stream ids, the record-word layout of models/replay.py
 // (F_TRI marks a triangle winner, K7),
-// the closest-sphere search of the static kernels (K1, K2, K10, and K5 on
-// each leaf it visits) and its linear-shutter form (K8, and K6 on each
-// cluster it visits).
+// the closest-sphere search of the static kernels (K7's sphere stage, K10,
+// and K5 on each leaf it visits; K1 and K2 run its arithmetic on their
+// staged 16-byte rows, megakernel.cu brute_row) and its linear-shutter form
+// (K8, and K6 on each cluster it visits).
 #pragma once
 
 #include <cuda_runtime.h>

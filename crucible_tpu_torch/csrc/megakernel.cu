@@ -23,9 +23,10 @@
 // table, or the walk of the sphere clusters (the chunk-cull branch,
 // megakernel.py:831-960; K6) over the cluster-permuted table; a walk's
 // record words de-permute the winner through table column 31.
-// All variants are one templated kernel: the record flags only add the
-// decision words and the walk flag only replaces the search, so the brute
-// forward instantiation's arithmetic is unchanged.
+// K1 and K2 are brute_kernel, one flat loop over persistent lanes (below);
+// the other variants are one templated kernel, megakernel: the record flags
+// only add the decision words and the walk flag only replaces the search.
+// Both share the camera (primary_ray) and the shading (shade_bounce).
 //
 // K8, the motion variants (both modes; megakernel.py l.509-555, 588-616
 // and the shading lerp l.1309-1314). Each path draws its shutter fraction
@@ -53,19 +54,39 @@
 // What bounds it on this card: per-thread FP32 work on the quadratic (about
 // 20 flops and a square root per row tested per bounce; the walk adds a
 // slab test per node visited), with divergence at the material branches
-// and at path termination. Record mode adds 4 bytes per bounce per lane of
-// stores (coalesced: row-major (D, R)).
+// and (K5-K8) at path termination. Record mode adds 4 bytes per bounce per
+// lane of stores (row-major (D, R)).
 //
-// Design: one thread per lane. The thread walks its pixel's samples
+// K1 and K2 (brute_kernel): persistent lanes in one flat bounce loop.
+// Launched on as many blocks as stay resident, each block stages the live
+// rows once, as 16-byte (cx, cy, cz, |c|^2 - r^2) entries in shared memory
+// (the wrapper orders the active rows first, in table order, with their
+// table row ids; inactive rows are not staged). Each iteration of the one
+// loop, a lane with no path in flight starts its next sample (forward) or
+// takes its next path (record), then every lane runs one closest-hit search
+// and one bounce's shading, so a warp stays converged at one search per
+// iteration whatever bounce each lane is on: a lane whose path ends no
+// longer waits for the warp's longest path, as it did in a nested
+// sample / bounce loop. Lanes take work items from a global counter, one
+// atomicAdd per warp for its idle lanes, shared out in lane order so that
+// neighbouring lanes start on neighbouring pixels. A forward item is one
+// pixel's lane with all its samples in order on one thread, so each sum is
+// added in the order of the plain version, whichever lane takes it. The
+// search reads one row per broadcast LDS.128 and tests four rows a step,
+// strict '<' in row order, so ties still go to the lowest table row; the
+// winner's row is read from global memory by index (an indexed load is
+// exact, so the TPU's one-hot MXU fetch and its bf16 split have no
+// counterpart here). On a miss no row is read.
+//
+// K5-K8: one thread per lane. The thread walks its pixel's samples
 // sample0..spp-1 (record mode: sample0 only) and, within each sample,
-// bounces until the path ends; lanes are independent, so the TPU kernel's
-// lockstep regeneration bookkeeping becomes this plain nested loop. The
-// intersection columns of the table (center x/y/z, |c|^2 - r^2, active) are
-// staged once per block in shared memory as SoA. The brute search has
-// every thread of a warp read the same row at the same time, which shared
-// memory serves as a broadcast. The winner's row is read from global memory
-// by index: an indexed load is exact, so the TPU's one-hot MXU fetch and its
-// bf16 split have no counterpart here. On a miss no row is read.
+// bounces until the path ends; the TPU kernel's lockstep regeneration
+// bookkeeping becomes this plain nested loop. The brute sphere searches of
+// K7 and K8 stage the intersection columns (center x/y/z, |c|^2 - r^2,
+// active, with ANIMATED the motion columns) once per block in shared
+// memory as SoA, every thread of a warp
+// reading the same row at the same time, which shared memory serves as a
+// broadcast.
 //
 // The walk (K5) replaces the TPU's 16-node slab window, its scalar cursor
 // chase and its three-leaf batches with a stackless walk per thread over
@@ -189,8 +210,10 @@ constexpr int META_COLS = 3;       // staged per node: first, count, miss
 constexpr int TRI_COLS = 16;       // Woop row: a0, a1, a2, b, unit normal, mat id
 constexpr int TRI_MOVING_COLS = 32;  // moving row: v0, e1, e2, n, mat id, 0, v0d, e1d, e2d
 constexpr int MAT_COLS = 24;       // material row: sphere-table columns 6-23, ...
-constexpr int BLOCK = 128;         // threads per block, brute search (4 warps)
+constexpr int BLOCK = 128;         // threads per block, K8's brute search (4 warps)
 constexpr int WALK_BLOCK = 256;    // threads per block, walks (8 warps)
+constexpr int BRUTE_BLOCK = 128;   // threads per block, K1 / K2 (4 warps, persistent)
+constexpr unsigned FULL_WARP = 0xffffffffu;
 constexpr int NO_SAMPLE = 1 << 30;  // sample0 of a padding lane
 constexpr float SLAB_EPS = 4e-3f;  // the walk's slab margin (see above)
 
@@ -347,14 +370,311 @@ __device__ __forceinline__ void walk_closest(
   }
 }
 
-// One lane's paths. RECORD: one path per lane, decision words to `rec`
-// (D, R). RADIANCE: accumulate radiance into `out` (3, R); in record mode
-// only from bounce smem[4] on. Forward mode is <false, true>. WALK: the
-// closest hit walks the sphere BVH (K5) or the clusters (K6) over the
-// permuted table, with ANIMATED only the clusters. ANIMATED,
-// CAM_ANIMATED: K8's moving spheres and keyframed camera. TRI: K7's
-// triangle stage after the brute sphere search (`tris`, `mats`); with
-// ANIMATED the mesh moves too (K7 moving, the (M, 32) rows).
+// The primary ray of sample `smp` of pixel (fi, fj): jitter and defocus
+// from one hash (megakernel.py l.402-455 of the Pallas kernel's camera).
+// CAM_ANIMATED (K8): the camera at the path's shutter fraction w.
+template <bool CAM_ANIMATED>
+__device__ __forceinline__ void primary_ray(const float* __restrict__ cam, uint32_t upix,
+                                            float fi, float fj, uint32_t smp,
+                                            uint32_t seed, float w, float& ox, float& oy,
+                                            float& oz, float& dx, float& dy, float& dz) {
+  // Static camera slots (megakernel.py CAM_SIZE layout).
+  float p00x = cam[0], p00y = cam[1], p00z = cam[2];
+  float dux = cam[3], duy = cam[4], duz = cam[5];
+  float dvx = cam[6], dvy = cam[7], dvz = cam[8];
+  float lfx = cam[9], lfy = cam[10], lfz = cam[11];
+  float ubx = cam[12], uby = cam[13], ubz = cam[14];
+  float vbx = cam[15], vby = cam[16], vbz = cam[17];
+  const float defr = cam[18];
+  if (CAM_ANIMATED) {
+    // The camera at w: look_from / look_at lerped, then the basis as
+    // camera.generate_rays builds it (vec.unit with the 1e-12 floor).
+    lfx = cam[9] + w * cam[22];
+    lfy = cam[10] + w * cam[23];
+    lfz = cam[11] + w * cam[24];
+    const float lax = cam[19] + w * cam[25];
+    const float lay = cam[20] + w * cam[26];
+    const float laz = cam[21] + w * cam[27];
+    const float wx0 = lfx - lax, wy0 = lfy - lay, wz0 = lfz - laz;
+    const float wden = fmaxf(sqrtf(wx0 * wx0 + wy0 * wy0 + wz0 * wz0), 1e-12f);
+    const float wbx = wx0 / wden, wby = wy0 / wden, wbz = wz0 / wden;
+    const float ux0 = cam[29] * wbz - cam[30] * wby;  // cross(vup, w)
+    const float uy0 = cam[30] * wbx - cam[28] * wbz;
+    const float uz0 = cam[28] * wby - cam[29] * wbx;
+    const float uden = fmaxf(sqrtf(ux0 * ux0 + uy0 * uy0 + uz0 * uz0), 1e-12f);
+    ubx = ux0 / uden;
+    uby = uy0 / uden;
+    ubz = uz0 / uden;
+    vbx = wby * ubz - wbz * uby;  // cross(w, u)
+    vby = wbz * ubx - wbx * ubz;
+    vbz = wbx * uby - wby * ubx;
+    dux = cam[32] * ubx / cam[34];  // viewport_w * u / width
+    duy = cam[32] * uby / cam[34];
+    duz = cam[32] * ubz / cam[34];
+    dvx = -cam[31] * vbx / cam[35];  // viewport_h * (-v) / height
+    dvy = -cam[31] * vby / cam[35];
+    dvz = -cam[31] * vbz / cam[35];
+    p00x = lfx - cam[33] * wbx - cam[36] * dux - cam[37] * dvx;
+    p00y = lfy - cam[33] * wby - cam[36] * duy - cam[37] * dvy;
+    p00z = lfz - cam[33] * wbz - cam[36] * duz - cam[37] * dvz;
+  }
+  const U4 uc = uniform4(upix, smp, STREAM_PIXEL_JITTER, seed);
+  const float oxj = fi + (uc.x - 0.5f);
+  const float oyj = fj + (uc.y - 0.5f);
+  const float px = p00x + oxj * dux + oyj * dvx;
+  const float py = p00y + oxj * duy + oyj * dvy;
+  const float pz = p00z + oxj * duz + oyj * dvz;
+  const float dphi = TWO_PI * uc.w;
+  const float dru = sqrtf(uc.z);
+  const float da = dru * cosf(dphi) * defr;
+  const float db = dru * sinf(dphi) * defr;
+  ox = lfx + da * ubx + db * vbx;
+  oy = lfy + da * uby + db * vby;
+  oz = lfz + da * ubz + db * vbz;
+  dx = px - ox;
+  dy = py - oy;
+  dz = pz - oz;
+}
+
+// One bounce after the closest hit (best, win; with TRI K7's triangle
+// winner tid and, moving, its cross tn): on a miss the default sky, else
+// the winner's emission and albedo and its scatter (models/materials.py);
+// RADIANCE adds to (ax, ay, az) where `acc_row`. RECORD: `word` receives
+// the bounce's decision word. Returns whether the path goes on, with (o, d)
+// the next ray and (tx, ty, tz) its throughput.
+template <bool RECORD, bool RADIANCE, bool WALK, bool ANIMATED, bool TRI>
+__device__ __forceinline__ bool shade_bounce(
+    const float* __restrict__ table, const float* __restrict__ tris,
+    const float* __restrict__ mats, uint32_t upix, uint32_t smp, uint32_t seed,
+    int bounce, bool acc_row, int max_depth, float t_min, float w, float a_q,
+    float inv_a, float best, int win, int tid, float tnx, float tny, float tnz,
+    float& ox, float& oy, float& oz, float& dx, float& dy, float& dz, float& tx,
+    float& ty, float& tz, float& ax, float& ay, float& az, int32_t& word) {
+  constexpr int TRI_STRIDE = ANIMATED ? TRI_MOVING_COLS : TRI_COLS;
+  constexpr int TRI_MAT = ANIMATED ? 12 : 15;  // a row's material id column
+  const bool is_tri = TRI && tid >= 0;
+  const float dlen = fmaxf(sqrtf(a_q), 1e-20f);
+  if (win < 0 && !is_tri) {
+    // Miss: default sky gradient on the unit direction; the path ends.
+    if (RADIANCE && acc_row) {
+      const float sky_a = 0.5f * (dy / dlen + 1.0f);
+      const float one_m_a = 1.0f - sky_a;
+      ax = ax + tx * (one_m_a + sky_a * 0.5f);
+      ay = ay + ty * (one_m_a + sky_a * 0.7f);
+      az = az + tz * (one_m_a + sky_a);
+    }
+    word = F_ALIVE;
+    return false;
+  }
+  // The winner's attributes: a sphere's table row, or a triangle's
+  // material row, whose column c - 6 holds table column c (c >= 6).
+  const float* row = table + (size_t)(is_tri ? 0 : win) * C_IN;
+  const float* mat_row =
+      TRI && is_tri ? mats + (size_t)(int)tris[(size_t)tid * TRI_STRIDE + TRI_MAT] * MAT_COLS
+                    : nullptr;
+  auto attr = [&](int c) { return TRI && is_tri ? mat_row[c - 6] : row[c]; };
+
+  // --- shading point + outward normal -------------------------------------
+  const float hx = ox + best * dx;
+  const float hy = oy + best * dy;
+  const float hz = oz + best * dz;
+  float wcx = row[0], wcy = row[1], wcz = row[2], wrad = row[3];
+  if (ANIMATED) {  // the winner at the path's shutter fraction
+    wcx = wcx + w * row[24];
+    wcy = wcy + w * row[25];
+    wcz = wcz + w * row[26];
+    wrad = wrad + w * row[27];
+  }
+  float nx, ny, nz;
+  if (TRI && is_tri && ANIMATED) {  // the lerped triangle's cross, made unit
+    const float nlen = sqrtf(tnx * tnx + tny * tny + tnz * tnz);
+    const float invn = 1.0f / fmaxf(nlen, 1e-20f);
+    nx = tnx * invn;
+    ny = tny * invn;
+    nz = tnz * invn;
+  } else if (TRI && is_tri) {  // the table's unit normal
+    const float* tw = tris + (size_t)tid * TRI_COLS;
+    nx = tw[12];
+    ny = tw[13];
+    nz = tw[14];
+  } else {
+    const float inv_r = 1.0f / fmaxf(wrad, 1e-20f);
+    nx = (hx - wcx) * inv_r;
+    ny = (hy - wcy) * inv_r;
+    nz = (hz - wcz) * inv_r;
+  }
+  const bool front = dx * nx + dy * ny + dz * nz < 0.0f;
+  const float sgn = front ? 1.0f : -1.0f;
+  nx = nx * sgn;
+  ny = ny * sgn;
+  nz = nz * sgn;
+
+  // --- emission + albedo: solid or 3-D checker of solids ------------------
+  float alr = 0.0f, alg = 0.0f, alb = 0.0f;
+  if (RADIANCE) {
+    if (acc_row) {
+      ax = ax + tx * attr(10);
+      ay = ay + ty * attr(11);
+      az = az + tz * attr(12);
+    }
+    const float inv_scale = attr(17);
+    const int xf = (int)floorf(inv_scale * hx);
+    const int yf = (int)floorf(inv_scale * hy);
+    const int zf = (int)floorf(inv_scale * hz);
+    // C's '%' truncates, but "== 0" gives the same even/odd answer.
+    const bool is_even = (xf + yf + zf) % 2 == 0;
+    if (attr(13) == TEX_CHECKER) {
+      alr = is_even ? attr(18) : attr(21);
+      alg = is_even ? attr(19) : attr(22);
+      alb = is_even ? attr(20) : attr(23);
+    } else {
+      alr = attr(14);
+      alg = attr(15);
+      alb = attr(16);
+    }
+  }
+
+  // --- scatter (models/materials.py) --------------------------------------
+  const float mat_type = attr(6);
+  const U4 ub = uniform4(upix, smp, STREAM_BOUNCE_BASE + (uint32_t)bounce, seed);
+  const float rz = 1.0f - 2.0f * ub.x;
+  const float rr = sqrtf(fmaxf(0.0f, 1.0f - rz * rz));
+  const float rphi = TWO_PI * ub.y;
+  const float rx = rr * cosf(rphi);
+  const float ry = rr * sinf(rphi);
+  const float u_dec = ub.z;
+
+  float ndx, ndy, ndz, atr, atg, atb;
+  bool scattered;
+  if (mat_type == DIELECTRIC) {
+    // Snell + Schlick on the unit incoming direction.
+    const float ior = attr(8);
+    const float udx = dx / dlen, udy = dy / dlen, udz = dz / dlen;
+    const float ri = front ? 1.0f / fmaxf(ior, 1e-8f) : ior;
+    const float cos_t = fminf(-(udx * nx + udy * ny + udz * nz), 1.0f);
+    const float sin_t = sqrtf(fmaxf(1.0e-12f, 1.0f - cos_t * cos_t));
+    float r0 = (1.0f - ri) / (1.0f + ri);
+    r0 = r0 * r0;
+    const float one_m = 1.0f - cos_t;
+    const float om2 = one_m * one_m;
+    const float schlick = r0 + (1.0f - r0) * om2 * om2 * one_m;
+    if ((ri * sin_t > 1.0f) || (schlick > u_dec)) {
+      const float ud_dot_n = udx * nx + udy * ny + udz * nz;
+      ndx = udx - 2.0f * ud_dot_n * nx;
+      ndy = udy - 2.0f * ud_dot_n * ny;
+      ndz = udz - 2.0f * ud_dot_n * nz;
+    } else {
+      const float ppx = ri * (udx + cos_t * nx);
+      const float ppy = ri * (udy + cos_t * ny);
+      const float ppz = ri * (udz + cos_t * nz);
+      const float pp_sq = ppx * ppx + ppy * ppy + ppz * ppz;
+      const float par = -sqrtf(fabsf(1.0f - pp_sq));
+      ndx = ppx + par * nx;
+      ndy = ppy + par * ny;
+      ndz = ppz + par * nz;
+    }
+    atr = atg = atb = 1.0f;
+    scattered = true;
+  } else if (mat_type == METAL) {
+    // reflect(d, n) normalized + fuzz * unit vector; dies below the surface.
+    const float fuzz = attr(7);
+    const float d_dot_n = dx * nx + dy * ny + dz * nz;
+    const float refx = dx - 2.0f * d_dot_n * nx;
+    const float refy = dy - 2.0f * d_dot_n * ny;
+    const float refz = dz - 2.0f * d_dot_n * nz;
+    const float rlen =
+        fmaxf(sqrtf(refx * refx + refy * refy + refz * refz), 1e-20f);
+    ndx = refx / rlen + fuzz * rx;
+    ndy = refy / rlen + fuzz * ry;
+    ndz = refz / rlen + fuzz * rz;
+    atr = alr;
+    atg = alg;
+    atb = alb;
+    scattered = ndx * nx + ndy * ny + ndz * nz > 0.0f;
+  } else {
+    // Lambertian (and emissive, which never scatters).
+    const float prob = attr(9);
+    ndx = nx + rx;
+    ndy = ny + ry;
+    ndz = nz + rz;
+    if (fabsf(ndx) < 1e-8f && fabsf(ndy) < 1e-8f && fabsf(ndz) < 1e-8f) {
+      ndx = nx;
+      ndy = ny;
+      ndz = nz;
+    }
+    const float inv_prob = 1.0f / fmaxf(prob, 1e-8f);
+    atr = alr * inv_prob;
+    atg = alg * inv_prob;
+    atb = alb * inv_prob;
+    scattered = (u_dec <= prob) && (mat_type != EMISSIVE);
+  }
+
+  if (RECORD) {
+    // The record keeps every decision the replay re-reads, computed for
+    // every material as the Pallas kernel computes them (megakernel.py
+    // l.1450-1505): the dielectric reflect choice and the Lambertian
+    // degeneracy on the row's own scalars, and which quadratic root the
+    // winner used, from the per-winner (non-expanded) quadratic that the
+    // replay re-solves.
+    const float udx = dx / dlen, udy = dy / dlen, udz = dz / dlen;
+    const float ior = attr(8);
+    const float ri = front ? 1.0f / fmaxf(ior, 1e-8f) : ior;
+    const float cos_t = fminf(-(udx * nx + udy * ny + udz * nz), 1.0f);
+    const float sin_t = sqrtf(fmaxf(1.0e-12f, 1.0f - cos_t * cos_t));
+    float r0 = (1.0f - ri) / (1.0f + ri);
+    r0 = r0 * r0;
+    const float one_m = 1.0f - cos_t;
+    const float om2 = one_m * one_m;
+    const float schlick = r0 + (1.0f - r0) * om2 * om2 * one_m;
+    const bool refl = (ri * sin_t > 1.0f) || (schlick > u_dec);
+    const bool degen = fabsf(nx + rx) < 1e-8f && fabsf(ny + ry) < 1e-8f &&
+                       fabsf(nz + rz) < 1e-8f;
+    bool root1 = false;  // a triangle has no second root
+    if (!(TRI && is_tri)) {
+      // The winner at the path's shutter fraction (row[0..3] when static).
+      const float r_ocx = wcx - ox;
+      const float r_ocy = wcy - oy;
+      const float r_ocz = wcz - oz;
+      const float r_h = dx * r_ocx + dy * r_ocy + dz * r_ocz;
+      const float r_c =
+          r_ocx * r_ocx + r_ocy * r_ocy + r_ocz * r_ocz - wrad * wrad;
+      const float r_disc = fmaxf(r_h * r_h - a_q * r_c, 0.0f);
+      const float r_root0 = (r_h - sqrtf(r_disc)) * inv_a;
+      root1 = !(r_root0 > t_min);
+    }
+    const int flags = F_ALIVE | F_HIT | (is_tri ? F_TRI : 0) |
+                      (scattered ? F_SCAT : 0) | (front ? F_FRONT : 0) |
+                      (refl ? F_REFL : 0) | (degen ? F_DEGEN : 0) |
+                      (root1 ? F_ROOT1 : 0);
+    // The walk's winner is a permuted row: record its original id
+    // (exact in float32 below 2^24). A triangle's id is its leaf-order row.
+    const int win_id = is_tri ? tid : WALK ? (int)row[COL_ID] : win;
+    word = win_id * REC_ID_SCALE + flags;
+  }
+
+  if (!(scattered && bounce + 1 < max_depth)) return false;
+  if (RADIANCE) {
+    tx = tx * atr;
+    ty = ty * atg;
+    tz = tz * atb;
+  }
+  ox = hx;
+  oy = hy;
+  oz = hz;
+  dx = ndx;
+  dy = ndy;
+  dz = ndz;
+  return true;
+}
+
+// One lane's paths for K5-K8 (K1 and K2 run brute_kernel below). RECORD:
+// one path per lane, decision words to `rec` (D, R). RADIANCE: accumulate
+// radiance into `out` (3, R); in record mode only from bounce smem[4] on.
+// Forward mode is <false, true>. WALK: the closest hit walks the sphere BVH
+// (K5) or the clusters (K6) over the permuted table, with ANIMATED only the
+// clusters. ANIMATED, CAM_ANIMATED: K8's moving spheres and keyframed
+// camera. TRI: K7's triangle stage after the brute sphere search (`tris`,
+// `mats`); with ANIMATED the mesh moves too (K7 moving, the (M, 32) rows).
 template <bool RECORD, bool RADIANCE, bool WALK, bool ANIMATED, bool CAM_ANIMATED,
           bool TRI>
 __device__ __forceinline__ void trace_lane(
@@ -364,8 +684,8 @@ __device__ __forceinline__ void trace_lane(
     const float* __restrict__ tris, const float* __restrict__ mats, int r,
     float t_min, float* __restrict__ out, int32_t* __restrict__ rec) {
   static_assert(!(TRI && WALK), "K7 runs beside the brute sphere search only");
-  constexpr int TRI_STRIDE = ANIMATED ? TRI_MOVING_COLS : TRI_COLS;
-  constexpr int TRI_MAT = ANIMATED ? 12 : 15;  // a row's material id column
+  static_assert(WALK || ANIMATED || CAM_ANIMATED || TRI,
+                "the brute static search (K1, K2) runs brute_kernel's flat loop");
   const int spp = smem[0];
   const uint32_t seed = (uint32_t)smem[1];
   const int width = smem[2];
@@ -376,15 +696,6 @@ __device__ __forceinline__ void trace_lane(
   const uint32_t upix = (uint32_t)pix;
   const float fi = (float)(pix % width);
   const float fj = (float)(pix / width);
-
-  // Static camera slots (megakernel.py CAM_SIZE layout).
-  const float c_p00x = cam[0], c_p00y = cam[1], c_p00z = cam[2];
-  const float c_dux = cam[3], c_duy = cam[4], c_duz = cam[5];
-  const float c_dvx = cam[6], c_dvy = cam[7], c_dvz = cam[8];
-  const float c_lfx = cam[9], c_lfy = cam[10], c_lfz = cam[11];
-  const float c_ubx = cam[12], c_uby = cam[13], c_ubz = cam[14];
-  const float c_vbx = cam[15], c_vby = cam[16], c_vbz = cam[17];
-  const float defr = cam[18];
 
   float ax = 0.0f, ay = 0.0f, az = 0.0f;
   // Record rows written so far; the rest are zeroed after the path ends.
@@ -399,59 +710,9 @@ __device__ __forceinline__ void trace_lane(
     if (ANIMATED || CAM_ANIMATED) {
       w = uniform4(upix, (uint32_t)smp, STREAM_TIME, seed).x;
     }
-    float p00x = c_p00x, p00y = c_p00y, p00z = c_p00z;
-    float dux = c_dux, duy = c_duy, duz = c_duz;
-    float dvx = c_dvx, dvy = c_dvy, dvz = c_dvz;
-    float lfx = c_lfx, lfy = c_lfy, lfz = c_lfz;
-    float ubx = c_ubx, uby = c_uby, ubz = c_ubz;
-    float vbx = c_vbx, vby = c_vby, vbz = c_vbz;
-    if (CAM_ANIMATED) {
-      // The camera at w: look_from / look_at lerped, then the basis as
-      // camera.generate_rays builds it (vec.unit with the 1e-12 floor).
-      lfx = cam[9] + w * cam[22];
-      lfy = cam[10] + w * cam[23];
-      lfz = cam[11] + w * cam[24];
-      const float lax = cam[19] + w * cam[25];
-      const float lay = cam[20] + w * cam[26];
-      const float laz = cam[21] + w * cam[27];
-      const float wx0 = lfx - lax, wy0 = lfy - lay, wz0 = lfz - laz;
-      const float wden = fmaxf(sqrtf(wx0 * wx0 + wy0 * wy0 + wz0 * wz0), 1e-12f);
-      const float wbx = wx0 / wden, wby = wy0 / wden, wbz = wz0 / wden;
-      const float ux0 = cam[29] * wbz - cam[30] * wby;  // cross(vup, w)
-      const float uy0 = cam[30] * wbx - cam[28] * wbz;
-      const float uz0 = cam[28] * wby - cam[29] * wbx;
-      const float uden = fmaxf(sqrtf(ux0 * ux0 + uy0 * uy0 + uz0 * uz0), 1e-12f);
-      ubx = ux0 / uden;
-      uby = uy0 / uden;
-      ubz = uz0 / uden;
-      vbx = wby * ubz - wbz * uby;  // cross(w, u)
-      vby = wbz * ubx - wbx * ubz;
-      vbz = wbx * uby - wby * ubx;
-      dux = cam[32] * ubx / cam[34];  // viewport_w * u / width
-      duy = cam[32] * uby / cam[34];
-      duz = cam[32] * ubz / cam[34];
-      dvx = -cam[31] * vbx / cam[35];  // viewport_h * (-v) / height
-      dvy = -cam[31] * vby / cam[35];
-      dvz = -cam[31] * vbz / cam[35];
-      p00x = lfx - cam[33] * wbx - cam[36] * dux - cam[37] * dvx;
-      p00y = lfy - cam[33] * wby - cam[36] * duy - cam[37] * dvy;
-      p00z = lfz - cam[33] * wbz - cam[36] * duz - cam[37] * dvz;
-    }
-    // --- primary ray: jitter + defocus from one hash -----------------------
-    const U4 uc = uniform4(upix, (uint32_t)smp, STREAM_PIXEL_JITTER, seed);
-    const float oxj = fi + (uc.x - 0.5f);
-    const float oyj = fj + (uc.y - 0.5f);
-    const float px = p00x + oxj * dux + oyj * dvx;
-    const float py = p00y + oxj * duy + oyj * dvy;
-    const float pz = p00z + oxj * duz + oyj * dvz;
-    const float dphi = TWO_PI * uc.w;
-    const float dru = sqrtf(uc.z);
-    const float da = dru * cosf(dphi) * defr;
-    const float db = dru * sinf(dphi) * defr;
-    float ox = lfx + da * ubx + db * vbx;
-    float oy = lfy + da * uby + db * vby;
-    float oz = lfz + da * ubz + db * vbz;
-    float dx = px - ox, dy = py - oy, dz = pz - oz;
+    float ox, oy, oz, dx, dy, dz;
+    primary_ray<CAM_ANIMATED>(cam, upix, fi, fj, (uint32_t)smp, seed, w, ox, oy, oz,
+                              dx, dy, dz);
     float tx = 1.0f, ty = 1.0f, tz = 1.0f;
 
     for (int bounce = 0;; ++bounce) {
@@ -476,228 +737,20 @@ __device__ __forceinline__ void trace_lane(
       }
 
       // --- K7: the mesh's closest triangle, strictly nearer -----------------
-      bool is_tri = false;
       int tid = -1;
       float tnx = 0.0f, tny = 0.0f, tnz = 0.0f;  // K7 moving: the winner's cross
       if (TRI) {
         tri_closest<ANIMATED>(s, tris, ox, oy, oz, dx, dy, dz, w, t_min, best, tid,
                               tnx, tny, tnz);
-        is_tri = tid >= 0;
       }
 
-      const float dlen = fmaxf(sqrtf(a_q), 1e-20f);
-      const bool acc_row = !RECORD || bounce >= accum_from;
-      if (win < 0 && !is_tri) {
-        // Miss: default sky gradient on the unit direction; the path ends.
-        if (RADIANCE && acc_row) {
-          const float sky_a = 0.5f * (dy / dlen + 1.0f);
-          const float one_m_a = 1.0f - sky_a;
-          ax = ax + tx * (one_m_a + sky_a * 0.5f);
-          ay = ay + ty * (one_m_a + sky_a * 0.7f);
-          az = az + tz * (one_m_a + sky_a);
-        }
-        if (RECORD) rec[(size_t)(rows++) * r + lane] = F_ALIVE;
-        break;
-      }
-      // The winner's attributes: a sphere's table row, or a triangle's
-      // material row, whose column c - 6 holds table column c (c >= 6).
-      const float* row = table + (size_t)(is_tri ? 0 : win) * C_IN;
-      const float* mat_row =
-          TRI && is_tri ? mats + (size_t)(int)tris[(size_t)tid * TRI_STRIDE + TRI_MAT] * MAT_COLS
-                        : nullptr;
-      auto attr = [&](int c) { return TRI && is_tri ? mat_row[c - 6] : row[c]; };
-
-      // --- shading point + outward normal -----------------------------------
-      const float hx = ox + best * dx;
-      const float hy = oy + best * dy;
-      const float hz = oz + best * dz;
-      float wcx = row[0], wcy = row[1], wcz = row[2], wrad = row[3];
-      if (ANIMATED) {  // the winner at the path's shutter fraction
-        wcx = wcx + w * row[24];
-        wcy = wcy + w * row[25];
-        wcz = wcz + w * row[26];
-        wrad = wrad + w * row[27];
-      }
-      float nx, ny, nz;
-      if (TRI && is_tri && ANIMATED) {  // the lerped triangle's cross, made unit
-        const float nlen = sqrtf(tnx * tnx + tny * tny + tnz * tnz);
-        const float invn = 1.0f / fmaxf(nlen, 1e-20f);
-        nx = tnx * invn;
-        ny = tny * invn;
-        nz = tnz * invn;
-      } else if (TRI && is_tri) {  // the table's unit normal
-        const float* tw = tris + (size_t)tid * TRI_COLS;
-        nx = tw[12];
-        ny = tw[13];
-        nz = tw[14];
-      } else {
-        const float inv_r = 1.0f / fmaxf(wrad, 1e-20f);
-        nx = (hx - wcx) * inv_r;
-        ny = (hy - wcy) * inv_r;
-        nz = (hz - wcz) * inv_r;
-      }
-      const bool front = dx * nx + dy * ny + dz * nz < 0.0f;
-      const float sgn = front ? 1.0f : -1.0f;
-      nx = nx * sgn;
-      ny = ny * sgn;
-      nz = nz * sgn;
-
-      // --- emission + albedo: solid or 3-D checker of solids ----------------
-      float alr = 0.0f, alg = 0.0f, alb = 0.0f;
-      if (RADIANCE) {
-        if (acc_row) {
-          ax = ax + tx * attr(10);
-          ay = ay + ty * attr(11);
-          az = az + tz * attr(12);
-        }
-        const float inv_scale = attr(17);
-        const int xf = (int)floorf(inv_scale * hx);
-        const int yf = (int)floorf(inv_scale * hy);
-        const int zf = (int)floorf(inv_scale * hz);
-        // C's '%' truncates, but "== 0" gives the same even/odd answer.
-        const bool is_even = (xf + yf + zf) % 2 == 0;
-        if (attr(13) == TEX_CHECKER) {
-          alr = is_even ? attr(18) : attr(21);
-          alg = is_even ? attr(19) : attr(22);
-          alb = is_even ? attr(20) : attr(23);
-        } else {
-          alr = attr(14);
-          alg = attr(15);
-          alb = attr(16);
-        }
-      }
-
-      // --- scatter (models/materials.py) ------------------------------------
-      const float mat_type = attr(6);
-      const U4 ub = uniform4(upix, (uint32_t)smp,
-                             STREAM_BOUNCE_BASE + (uint32_t)bounce, seed);
-      const float rz = 1.0f - 2.0f * ub.x;
-      const float rr = sqrtf(fmaxf(0.0f, 1.0f - rz * rz));
-      const float rphi = TWO_PI * ub.y;
-      const float rx = rr * cosf(rphi);
-      const float ry = rr * sinf(rphi);
-      const float u_dec = ub.z;
-
-      float ndx, ndy, ndz, atr, atg, atb;
-      bool scattered;
-      if (mat_type == DIELECTRIC) {
-        // Snell + Schlick on the unit incoming direction.
-        const float ior = attr(8);
-        const float udx = dx / dlen, udy = dy / dlen, udz = dz / dlen;
-        const float ri = front ? 1.0f / fmaxf(ior, 1e-8f) : ior;
-        const float cos_t = fminf(-(udx * nx + udy * ny + udz * nz), 1.0f);
-        const float sin_t = sqrtf(fmaxf(1.0e-12f, 1.0f - cos_t * cos_t));
-        float r0 = (1.0f - ri) / (1.0f + ri);
-        r0 = r0 * r0;
-        const float one_m = 1.0f - cos_t;
-        const float om2 = one_m * one_m;
-        const float schlick = r0 + (1.0f - r0) * om2 * om2 * one_m;
-        if ((ri * sin_t > 1.0f) || (schlick > u_dec)) {
-          const float ud_dot_n = udx * nx + udy * ny + udz * nz;
-          ndx = udx - 2.0f * ud_dot_n * nx;
-          ndy = udy - 2.0f * ud_dot_n * ny;
-          ndz = udz - 2.0f * ud_dot_n * nz;
-        } else {
-          const float ppx = ri * (udx + cos_t * nx);
-          const float ppy = ri * (udy + cos_t * ny);
-          const float ppz = ri * (udz + cos_t * nz);
-          const float pp_sq = ppx * ppx + ppy * ppy + ppz * ppz;
-          const float par = -sqrtf(fabsf(1.0f - pp_sq));
-          ndx = ppx + par * nx;
-          ndy = ppy + par * ny;
-          ndz = ppz + par * nz;
-        }
-        atr = atg = atb = 1.0f;
-        scattered = true;
-      } else if (mat_type == METAL) {
-        // reflect(d, n) normalized + fuzz * unit vector; dies below the surface.
-        const float fuzz = attr(7);
-        const float d_dot_n = dx * nx + dy * ny + dz * nz;
-        const float refx = dx - 2.0f * d_dot_n * nx;
-        const float refy = dy - 2.0f * d_dot_n * ny;
-        const float refz = dz - 2.0f * d_dot_n * nz;
-        const float rlen =
-            fmaxf(sqrtf(refx * refx + refy * refy + refz * refz), 1e-20f);
-        ndx = refx / rlen + fuzz * rx;
-        ndy = refy / rlen + fuzz * ry;
-        ndz = refz / rlen + fuzz * rz;
-        atr = alr;
-        atg = alg;
-        atb = alb;
-        scattered = ndx * nx + ndy * ny + ndz * nz > 0.0f;
-      } else {
-        // Lambertian (and emissive, which never scatters).
-        const float prob = attr(9);
-        ndx = nx + rx;
-        ndy = ny + ry;
-        ndz = nz + rz;
-        if (fabsf(ndx) < 1e-8f && fabsf(ndy) < 1e-8f && fabsf(ndz) < 1e-8f) {
-          ndx = nx;
-          ndy = ny;
-          ndz = nz;
-        }
-        const float inv_prob = 1.0f / fmaxf(prob, 1e-8f);
-        atr = alr * inv_prob;
-        atg = alg * inv_prob;
-        atb = alb * inv_prob;
-        scattered = (u_dec <= prob) && (mat_type != EMISSIVE);
-      }
-
-      if (RECORD) {
-        // The record keeps every decision the replay re-reads, computed for
-        // every material as the Pallas kernel computes them (megakernel.py
-        // l.1450-1505): the dielectric reflect choice and the Lambertian
-        // degeneracy on the row's own scalars, and which quadratic root the
-        // winner used, from the per-winner (non-expanded) quadratic that the
-        // replay re-solves.
-        const float udx = dx / dlen, udy = dy / dlen, udz = dz / dlen;
-        const float ior = attr(8);
-        const float ri = front ? 1.0f / fmaxf(ior, 1e-8f) : ior;
-        const float cos_t = fminf(-(udx * nx + udy * ny + udz * nz), 1.0f);
-        const float sin_t = sqrtf(fmaxf(1.0e-12f, 1.0f - cos_t * cos_t));
-        float r0 = (1.0f - ri) / (1.0f + ri);
-        r0 = r0 * r0;
-        const float one_m = 1.0f - cos_t;
-        const float om2 = one_m * one_m;
-        const float schlick = r0 + (1.0f - r0) * om2 * om2 * one_m;
-        const bool refl = (ri * sin_t > 1.0f) || (schlick > u_dec);
-        const bool degen = fabsf(nx + rx) < 1e-8f && fabsf(ny + ry) < 1e-8f &&
-                           fabsf(nz + rz) < 1e-8f;
-        bool root1 = false;  // a triangle has no second root
-        if (!(TRI && is_tri)) {
-          // The winner at the path's shutter fraction (row[0..3] when static).
-          const float r_ocx = wcx - ox;
-          const float r_ocy = wcy - oy;
-          const float r_ocz = wcz - oz;
-          const float r_h = dx * r_ocx + dy * r_ocy + dz * r_ocz;
-          const float r_c =
-              r_ocx * r_ocx + r_ocy * r_ocy + r_ocz * r_ocz - wrad * wrad;
-          const float r_disc = fmaxf(r_h * r_h - a_q * r_c, 0.0f);
-          const float r_root0 = (r_h - sqrtf(r_disc)) * inv_a;
-          root1 = !(r_root0 > t_min);
-        }
-        const int flags = F_ALIVE | F_HIT | (is_tri ? F_TRI : 0) |
-                          (scattered ? F_SCAT : 0) | (front ? F_FRONT : 0) |
-                          (refl ? F_REFL : 0) | (degen ? F_DEGEN : 0) |
-                          (root1 ? F_ROOT1 : 0);
-        // The walk's winner is a permuted row: record its original id
-        // (exact in float32 below 2^24). A triangle's id is its leaf-order row.
-        const int win_id = is_tri ? tid : WALK ? (int)row[COL_ID] : win;
-        rec[(size_t)(rows++) * r + lane] = win_id * REC_ID_SCALE + flags;
-      }
-
-      if (!(scattered && bounce + 1 < max_depth)) break;
-      if (RADIANCE) {
-        tx = tx * atr;
-        ty = ty * atg;
-        tz = tz * atb;
-      }
-      ox = hx;
-      oy = hy;
-      oz = hz;
-      dx = ndx;
-      dy = ndy;
-      dz = ndz;
+      int32_t word = 0;
+      const bool more = shade_bounce<RECORD, RADIANCE, WALK, ANIMATED, TRI>(
+          table, tris, mats, upix, (uint32_t)smp, seed, bounce,
+          !RECORD || bounce >= accum_from, max_depth, t_min, w, a_q, inv_a, best, win,
+          tid, tnx, tny, tnz, ox, oy, oz, dx, dy, dz, tx, ty, tz, ax, ay, az, word);
+      if (RECORD) rec[(size_t)(rows++) * r + lane] = word;
+      if (!more) break;
     }
   }
 
@@ -821,17 +874,239 @@ int launch(const int32_t* smem, const int32_t* pix, const int32_t* sample0,
   return (int)cudaGetLastError();
 }
 
+// --- K1 and K2: the brute static search in one flat bounce loop -----------
+
+// What K1 / K2 read beside the table (ops/kernels/megakernel.py
+// brute_rows): the rows' search entries, the active rows first in table
+// order, their table row ids, the count of active rows, and the work
+// counter the launch zeroes.
+struct Brute {
+  const float4* rows;   // (N,) (cx, cy, cz, |c|^2 - r^2)
+  const int32_t* ids;   // (N,) each entry's table row
+  const int32_t* live;  // (1,) the active rows: entries [0, live)
+  int32_t* next;        // (1,) the next work item to hand out
+};
+
+// One staged row against the ray, in closest_sphere's arithmetic; the
+// entry replaces (best, k_win) only when strictly nearer.
+__device__ __forceinline__ void brute_row(const float4 c, int k, float ox, float oy,
+                                          float oz, float dx, float dy, float dz,
+                                          float a_q, float d_dot_o, float o_sq,
+                                          float inv_a, float t_min, float& best,
+                                          int& k_win) {
+  const float dck = c.x * dx + c.y * dy + c.z * dz;
+  const float ock = c.x * ox + c.y * oy + c.z * oz;
+  const float h = dck - d_dot_o;
+  const float c_q = c.w - 2.0f * ock + o_sq;
+  const float disc = h * h - a_q * c_q;
+  if (disc >= 0.0f) {
+    const float sq = sqrtf(disc);
+    const float root0 = (h - sq) * inv_a;
+    const float root1 = (h + sq) * inv_a;
+    const bool ok0 = (root0 > t_min) && (root0 < BIG);
+    const bool ok1 = (root1 > t_min) && (root1 < BIG);
+    const float root = ok0 ? root0 : root1;
+    if ((ok0 || ok1) && root < best) {
+      best = root;
+      k_win = k;
+    }
+  }
+}
+
+// K1 (forward: RECORD false, RADIANCE true) and K2 (record, fused or not).
+// Persistent lanes in one flat loop (see the note at the top): each
+// iteration, a lane with no path in flight starts its item's next sample,
+// then every lane with a path runs one search and one bounce's shading.
+// Items are handed out by the work counter `b.next`, one atomicAdd per warp
+// for its idle lanes, in lane order. Forward mode: an item is a lane of
+// `pix` / `sample0` with its samples sample0..spp-1 in order; record mode:
+// that lane's one path. The launch zeroes `out` and `rec` first, so items
+// with no path (padding lanes) and record rows after a path's end are
+// never written.
+template <bool RECORD, bool RADIANCE>
+__global__ void __launch_bounds__(BRUTE_BLOCK) brute_kernel(
+    const int32_t* __restrict__ smem, const int32_t* __restrict__ pix_in,
+    const int32_t* __restrict__ sample0, const float* __restrict__ cam,
+    const float* __restrict__ table, const Brute b, int r, float t_min,
+    float* __restrict__ out, int32_t* __restrict__ rec) {
+  // The live rows, padded to a multiple of 4 with NaN entries, whose
+  // discriminant is never >= 0.
+  extern __shared__ float4 srow[];
+  const int n_live = *b.live;
+  const int n4 = (n_live + 3) & ~3;
+  const float qnan = __int_as_float(0x7fffffff);
+  for (int q = threadIdx.x; q < n4; q += BRUTE_BLOCK) {
+    srow[q] = q < n_live ? b.rows[q] : make_float4(qnan, qnan, qnan, qnan);
+  }
+  __syncthreads();
+
+  const int spp = smem[0];
+  const uint32_t seed = (uint32_t)smem[1];
+  const int width = smem[2];
+  const int max_depth = smem[3];
+  const int accum_from = RECORD ? smem[4] : 0;
+  const int warp_lane = (int)(threadIdx.x & 31);
+  const unsigned below = (1u << warp_lane) - 1u;  // the warp's lanes before this one
+
+  // The lane's item, its next sample and its end; the path in flight.
+  int item = 0, smp = 0, s_end = 0, bounce = 0;
+  bool spent = false, live = false;
+  uint32_t upix = 0;
+  float fi = 0.0f, fj = 0.0f;
+  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
+  float tx = 0.0f, ty = 0.0f, tz = 0.0f, ax = 0.0f, ay = 0.0f, az = 0.0f;
+  for (;;) {
+    // --- lanes whose item is done take the next ones ----------------------
+    // One atomicAdd per warp, shared out in lane order; an item with no
+    // sample to trace is passed over.
+    for (;;) {
+      const bool need = !spent && !live && smp >= s_end;
+      const unsigned m = __ballot_sync(FULL_WARP, need);
+      if (m == 0) break;
+      const int leader = __ffs(m) - 1;
+      int base = 0;
+      if (warp_lane == leader) base = atomicAdd(b.next, __popc(m));
+      base = __shfl_sync(FULL_WARP, base, leader);
+      if (need) {
+        item = base + __popc(m & below);
+        spent = item >= r;
+        if (!spent) {
+          const int pix = pix_in[item];
+          upix = (uint32_t)pix;
+          fi = (float)(pix % width);
+          fj = (float)(pix / width);
+          const int s0 = sample0[item];
+          smp = s0;
+          // Record mode traces sample0 itself; padding lanes nothing.
+          s_end = RECORD ? (s0 < NO_SAMPLE ? s0 + 1 : s0) : spp;
+          ax = ay = az = 0.0f;
+        }
+      }
+    }
+    if (__all_sync(FULL_WARP, spent)) break;
+
+    if (!spent) {
+      if (!live) {  // the item's next sample
+        primary_ray<false>(cam, upix, fi, fj, (uint32_t)smp, seed, 0.0f, ox, oy, oz,
+                           dx, dy, dz);
+        tx = ty = tz = 1.0f;
+        bounce = 0;
+        live = true;
+      }
+      // --- closest sphere: one broadcast LDS.128 a row, four rows a step --
+      const float a_q = dx * dx + dy * dy + dz * dz;
+      const float d_dot_o = dx * ox + dy * oy + dz * oz;
+      const float o_sq = ox * ox + oy * oy + oz * oz;
+      const float inv_a = 1.0f / a_q;
+      float best = BIG;
+      int k_win = -1;
+      for (int k = 0; k < n4; k += 4) {
+        const float4 c0 = srow[k], c1 = srow[k + 1], c2 = srow[k + 2], c3 = srow[k + 3];
+        brute_row(c0, k, ox, oy, oz, dx, dy, dz, a_q, d_dot_o, o_sq, inv_a, t_min,
+                  best, k_win);
+        brute_row(c1, k + 1, ox, oy, oz, dx, dy, dz, a_q, d_dot_o, o_sq, inv_a, t_min,
+                  best, k_win);
+        brute_row(c2, k + 2, ox, oy, oz, dx, dy, dz, a_q, d_dot_o, o_sq, inv_a, t_min,
+                  best, k_win);
+        brute_row(c3, k + 3, ox, oy, oz, dx, dy, dz, a_q, d_dot_o, o_sq, inv_a, t_min,
+                  best, k_win);
+      }
+      const int win = k_win < 0 ? -1 : b.ids[k_win];
+
+      int32_t word = 0;
+      live = shade_bounce<RECORD, RADIANCE, false, false, false>(
+          table, nullptr, nullptr, upix, (uint32_t)smp, seed, bounce,
+          !RECORD || bounce >= accum_from, max_depth, t_min, 0.0f, a_q, inv_a, best,
+          win, -1, 0.0f, 0.0f, 0.0f, ox, oy, oz, dx, dy, dz, tx, ty, tz, ax, ay, az,
+          word);
+      if (RECORD) rec[(size_t)bounce * r + item] = word;
+      ++bounce;
+      if (!live && ++smp >= s_end && RADIANCE) {  // the item's last path ended
+        out[item] = ax;
+        out[(size_t)r + item] = ay;
+        out[2 * (size_t)r + item] = az;
+      }
+    }
+  }
+}
+
+// K1 / K2's dynamic shared memory for an N-row table: the staged rows,
+// padded to a multiple of 4.
+int brute_smem_bytes(int n) { return ((n + 3) & ~3) * (int)sizeof(float4); }
+
+// K1 / K2's launch shape: resident blocks per SM (per_sm) and SMs (sms);
+// an error if no block fits.
+template <bool RECORD, bool RADIANCE>
+cudaError_t brute_shape(int n, int& per_sm, int& sms) {
+  auto kernel = brute_kernel<RECORD, RADIANCE>;
+  const int bytes = brute_smem_bytes(n);
+  cudaError_t e = cudaSuccess;
+  if (bytes > 48 * 1024) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+  }
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BRUTE_BLOCK, bytes);
+  if (e != cudaSuccess) return e;
+  int dev = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  return per_sm < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
+}
+
+// Launch K1 / K2 on as many blocks as stay resident (none more than the
+// R lanes need): the work counter, `out` and (RECORD) the `depth` rows of
+// `rec` are zeroed on the stream first.
+template <bool RECORD, bool RADIANCE>
+int launch_brute(const int32_t* smem, const int32_t* pix, const int32_t* sample0,
+                 const float* cam, const float* table, const Brute& b, int n, int r,
+                 int depth, float t_min, float* out, int32_t* rec, void* stream) {
+  int per_sm = 0, sms = 0;
+  cudaError_t e = brute_shape<RECORD, RADIANCE>(n, per_sm, sms);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (e == cudaSuccess) e = cudaMemsetAsync(b.next, 0, sizeof(int32_t), st);
+  if (e == cudaSuccess) e = cudaMemsetAsync(out, 0, 3 * (size_t)r * sizeof(float), st);
+  if (e == cudaSuccess && RECORD) {
+    e = cudaMemsetAsync(rec, 0, (size_t)depth * r * sizeof(int32_t), st);
+  }
+  if (e != cudaSuccess) return (int)e;
+  const int resident = per_sm * sms, needed = (r + BRUTE_BLOCK - 1) / BRUTE_BLOCK;
+  const int grid = resident < needed ? resident : needed;
+  if (grid > 0) {
+    brute_kernel<RECORD, RADIANCE><<<grid, BRUTE_BLOCK, brute_smem_bytes(n), st>>>(
+        smem, pix, sample0, cam, table, b, r, t_min, out, rec);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K1 / K2's launch shape into shape[0..3]: resident blocks per SM, SMs,
+// threads per block, registers per thread.
+template <bool RECORD, bool RADIANCE>
+int brute_shape_of(int n, int32_t* shape) {
+  int per_sm = 0, sms = 0;
+  cudaError_t e = brute_shape<RECORD, RADIANCE>(n, per_sm, sms);
+  cudaFuncAttributes attr{};
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, brute_kernel<RECORD, RADIANCE>);
+  shape[0] = per_sm;
+  shape[1] = sms;
+  shape[2] = BRUTE_BLOCK;
+  shape[3] = attr.numRegs;
+  return (int)e;
+}
+
 // The instantiations of one mode (RECORD) and one value of RADIANCE: K7
 // where the launch has a triangle BVH (the brute search, with K8's flags:
 // ANIMATED makes it K7 moving), K6 where it has clusters (ANIMATED, with
 // or without CAM_ANIMATED; in forward mode also a static table with a
 // static camera, held against K1), K5 where it has a sphere BVH (static,
-// or with CAM_ANIMATED), else the brute search with K8's flags.
+// or with CAM_ANIMATED), else the brute search with K8's flags, or without
+// them K1 / K2's flat loop over `b`.
 template <bool RECORD, bool RADIANCE>
 int variant(const int32_t* smem, const int32_t* pix, const int32_t* sample0,
-            const float* cam, const float* table, const Trees& t, int n, int r,
-            float t_min, int animated, int cam_animated, float* out, int32_t* rec,
-            void* stream) {
+            const float* cam, const float* table, const Trees& t, const Brute& b,
+            int n, int r, int depth, float t_min, int animated, int cam_animated,
+            float* out, int32_t* rec, void* stream) {
   if (t.kt > 0) {
     if (t.k > 0) return (int)cudaErrorInvalidValue;
     if (animated && cam_animated) {
@@ -888,28 +1163,22 @@ int variant(const int32_t* smem, const int32_t* pix, const int32_t* sample0,
     return launch<RECORD, RADIANCE, false, false, true>(
         smem, pix, sample0, cam, table, t, n, r, t_min, out, rec, stream);
   }
-  return launch<RECORD, RADIANCE, false>(smem, pix, sample0, cam, table, t, n, r,
-                                         t_min, out, rec, stream);
+  return launch_brute<RECORD, RADIANCE>(smem, pix, sample0, cam, table, b, n, r, depth,
+                                        t_min, out, rec, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory the kernel needs for an N-row table, K
-// sphere-BVH nodes or clusters (K = 0: the brute search) and KT
-// triangle-BVH nodes (KT = 0: no mesh), with the motion columns when
-// `animated` is nonzero; with `cull` nonzero (K6) the rows are not staged.
-int crucible_megakernel_smem_bytes(int n, int k, int animated, int kt, int cull) {
-  return smem_bytes(n, k, animated != 0, kt, cull != 0);
-}
-
 // Launch the forward megakernel on `stream`: the brute search (K1) when
 // k == 0, else the walk over the K sphere nodes (K5), or over K clusters
 // when `rows` (K6's search columns) is not null; with `animated` (brute
 // or K6) or `cam_animated` nonzero, their motion variants (K8); with kt > 0
 // the triangle stage over the KT triangle nodes after the brute search (K7;
-// with `animated` K7 moving, whose `tris` are (M, 32) rows). Returns
+// with `animated` K7 moving, whose `tris` are (M, 32) rows). K1 reads the
+// staged rows `brows`, `bids`, `blive` and the work counter `next`
+// (struct Brute); the other variants ignore them. Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a combination not
 // instantiated (an animated BVH walk; K7 with a walk; K6 over a static
 // table seen by an animated camera).
@@ -918,36 +1187,50 @@ int crucible_megakernel_forward(const int32_t* smem, const int32_t* pix,
                                 const float* table, const float* nodes,
                                 const int32_t* meta, const float* rows,
                                 const float* tnodes, const int32_t* tmeta,
-                                const float* tris, const float* mats, int n,
-                                int k, int kt, int r, float t_min, int animated,
+                                const float* tris, const float* mats,
+                                const float* brows, const int32_t* bids,
+                                const int32_t* blive, int32_t* next, int n, int k,
+                                int kt, int r, float t_min, int animated,
                                 int cam_animated, float* out, void* stream) {
   const Trees t{nodes, meta, rows, tnodes, tmeta, tris, mats, k, kt};
-  return variant<false, true>(smem, pix, sample0, cam, table, t, n, r, t_min,
+  const Brute b{(const float4*)brows, bids, blive, next};
+  return variant<false, true>(smem, pix, sample0, cam, table, t, b, n, r, 0, t_min,
                               animated, cam_animated, out, nullptr, stream);
 }
 
-// Launch the record-mode megakernel: `rec` (smem[3], R) int32 packed
-// decision words; `out` (3, R) the fused radiance when `radiance` is nonzero,
-// else zeros. The variants are the forward's: K2, K5, K6, K8 and K7, but
-// K6 only with `animated`.
-// Returns cudaGetLastError(), or cudaErrorInvalidValue for a combination
-// not instantiated.
+// Launch the record-mode megakernel: `rec` (depth, R) int32 packed decision
+// words, `depth` = smem[3]; `out` (3, R) the fused radiance when `radiance`
+// is nonzero, else zeros. The variants are the forward's: K2, K5, K6, K8
+// and K7, but K6 only with `animated`. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a combination not instantiated.
 int crucible_megakernel_record(const int32_t* smem, const int32_t* pix,
                                const int32_t* sample0, const float* cam,
                                const float* table, const float* nodes,
                                const int32_t* meta, const float* rows,
                                const float* tnodes, const int32_t* tmeta,
-                               const float* tris, const float* mats, int n,
-                               int k, int kt, int r, float t_min, int radiance,
+                               const float* tris, const float* mats,
+                               const float* brows, const int32_t* bids,
+                               const int32_t* blive, int32_t* next, int n, int k,
+                               int kt, int r, int depth, float t_min, int radiance,
                                int animated, int cam_animated, float* out,
                                int32_t* rec, void* stream) {
   const Trees t{nodes, meta, rows, tnodes, tmeta, tris, mats, k, kt};
+  const Brute b{(const float4*)brows, bids, blive, next};
   if (radiance) {
-    return variant<true, true>(smem, pix, sample0, cam, table, t, n, r, t_min,
+    return variant<true, true>(smem, pix, sample0, cam, table, t, b, n, r, depth, t_min,
                                animated, cam_animated, out, rec, stream);
   }
-  return variant<true, false>(smem, pix, sample0, cam, table, t, n, r, t_min,
+  return variant<true, false>(smem, pix, sample0, cam, table, t, b, n, r, depth, t_min,
                               animated, cam_animated, out, rec, stream);
+}
+
+// K1 / K2's launch shape for an N-row table in one mode (record, radiance:
+// K1 is 0, 1) into shape[0..3]: resident blocks per SM, SMs, threads per
+// block, registers per thread. Returns a CUDA error.
+int crucible_megakernel_brute_shape(int record, int radiance, int n, int32_t* shape) {
+  if (!record) return brute_shape_of<false, true>(n, shape);
+  if (radiance) return brute_shape_of<true, true>(n, shape);
+  return brute_shape_of<true, false>(n, shape);
 }
 
 const char* crucible_cuda_error_string(int err) {

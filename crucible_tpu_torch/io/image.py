@@ -1,9 +1,11 @@
 """Image decode (HDR only) and film output: ASCII P3 PPM and PNG (port of
 ``crucible_tpu/io/image.py``).
 
-PNG is encoded with the standard library's ``zlib`` (8-bit RGB, no
-filtering), so writing an image needs nothing beyond numpy. Decoding LDR
-formats (the JAX package's PIL route, for image textures) is not ported.
+:func:`write_image` picks the format by the suffix, as the JAX package's
+does: ``.ppm`` as P3 text, anything else through PIL where PIL imports.
+Without PIL it writes ``.png`` itself (the standard library's ``zlib``,
+8-bit RGB, no filtering) and refuses other suffixes. Decoding LDR formats
+(the JAX package's PIL route, for image textures) is not ported.
 """
 
 from __future__ import annotations
@@ -41,11 +43,24 @@ def write_ppm(path, img_u8: np.ndarray) -> None:
 
 
 def write_image(path, img_u8: np.ndarray) -> None:
-    """Write by extension: ``.ppm`` as P3 text, anything else as PNG."""
-    if Path(path).suffix.lower() == ".ppm":
+    """Write by extension: ``.ppm`` as P3 text, anything else through PIL,
+    which picks the format by the suffix (``.png``, ``.jpg``, ...). Without
+    PIL, ``.png`` is written by :func:`write_png` and any other suffix
+    raises ``ValueError``."""
+    suffix = Path(path).suffix.lower()
+    if suffix == ".ppm":
         write_ppm(path, img_u8)
-    else:
+        return
+    try:
+        from PIL import Image
+    except ImportError:
+        if suffix != ".png":
+            raise ValueError(
+                f"cannot write {str(path)!r}: without PIL only .ppm and .png are written"
+            ) from None
         write_png(path, img_u8)
+        return
+    Image.fromarray(np.ascontiguousarray(img_u8, dtype=np.uint8), mode="RGB").save(path)
 
 
 def _png_chunk(tag: bytes, data: bytes) -> bytes:

@@ -5,7 +5,8 @@ Port of ``crucible_tpu/io/obj.py``: only ``v`` and ``f`` records are read
 with 1-based vertex indices (negative ones count from the end; ``v/vt/vn``
 forms keep the vertex index), and a uniform ``scale`` then ``shift`` is
 applied to every vertex at load time. Files resolve through
-``io/assets.build_asset_path``, i.e. in the repository's ``assets/`` only.
+``io/assets.build_asset_path`` (``ASSET_DIR``, ``./assets`` up to 6
+parents, then the repository's ``assets/``).
 """
 
 from __future__ import annotations

@@ -34,7 +34,9 @@ mesh's BVH for a triangle strictly nearer than the sphere
 shutter fraction); records carry its leaf-order id and ``F_TRI``.
 
 For CUDA tensors each wrapper launches the hand-written kernel of
-``csrc/megakernel.cu`` (one thread per lane; see the note there) or raises;
+``csrc/megakernel.cu`` (K1 / K2: persistent lanes in one flat bounce loop
+over :func:`brute_rows`' staged rows, fed by a work counter; the others one
+thread per lane; see the note there) or raises;
 for CPU tensors it runs its eager twin (:func:`run_megakernel_reference`,
 :func:`run_megakernel_record_reference`): all lanes in lockstep with
 per-lane sample regeneration, as the TPU kernel runs them, the brute
@@ -85,7 +87,9 @@ C_IN = 32  # sphere attribute table columns (make_sphere_table layout)
 CAM_SIZE = 48
 
 # The kernel stages five float32 columns per row in shared memory, of which
-# a Hopper block can use 227 KB (232,448 bytes).
+# a Hopper block can use 227 KB (232,448 bytes). K1 and K2 stage 16 bytes
+# of each active row (center, |c|^2 - r^2: brute_rows), which MAX_ROWS
+# rows, padded to a multiple of 4, fit too.
 SHARED_MEM_BYTES = 232448
 SMEM_COLS = 5
 MAX_ROWS = SHARED_MEM_BYTES // (SMEM_COLS * 4)
@@ -595,6 +599,44 @@ def _variant(walk, cull, tri, animated, cam_animated) -> str:
     return "_".join(x for x in (motion, "walk" if walk is not None else "") if x) or "brute"
 
 
+def brute_rows(table):
+    """K1 / K2's staged row list, built on the table's device with no host
+    sync -> (rows (N, 4) float32: each row's center and |c|^2 - r^2, table
+    columns 0-2 and 4, the active rows first in table order, then the
+    inactive ones; ids (N,) int32: each entry's table row; live (1,) int32:
+    the number of active rows). The kernel stages entries [0, live) only,
+    as 16-byte shared-memory rows, and a tie still goes to the lowest
+    table row."""
+    act = table[:, 5] > 0.0
+    ids = torch.sort((~act).to(torch.int32), stable=True).indices
+    # Slices, not a list of columns, which would copy the list to the device.
+    rows = torch.cat((table[:, 0:3], table[:, 4:5]), dim=1).index_select(0, ids)
+    return rows, ids.to(torch.int32), act.sum(dtype=torch.int32).reshape(1)
+
+
+def _brute_args(walk, cull, tri, table, animated, cam_animated):
+    """The C entry points' (brows, bids, blive, next) pointers and the
+    tensors they point into: K1 / K2's staged rows and a work counter for
+    the brute static search, else nulls."""
+    if _variant(walk, cull, tri, animated, cam_animated) != "brute":
+        return [None] * 4, ()
+    held = (*brute_rows(table), torch.empty(1, dtype=torch.int32, device=table.device))
+    return [t.data_ptr() for t in held], held
+
+
+def brute_launch_shape(record: bool, radiance: bool, n: int, r: int) -> dict:
+    """K1's (``record`` False) or K2's launch on the current card for an
+    n-row table and R lanes: grid, resident blocks per SM, SMs, threads
+    per block and registers per thread (cudaFuncGetAttributes)."""
+    lib = build.load("megakernel")
+    shape = (ctypes.c_int * 4)()
+    build.check(lib, lib.crucible_megakernel_brute_shape(int(record), int(radiance), n, shape),
+                "brute shape")
+    per_sm, sms, threads, regs = shape
+    return dict(grid=min(per_sm * sms, -(-r // threads)), blocks_per_sm=per_sm, sms=sms,
+                threads=threads, registers=regs)
+
+
 def _launch(smem, pix, sample0, cam, table, walk, cull, tri, animated, cam_animated):
     n = table.shape[0]
     check_rows(n, walk, animated, tri, cull)
@@ -602,11 +644,12 @@ def _launch(smem, pix, sample0, cam, table, walk, cull, tri, animated, cam_anima
     r = pix.shape[1]
     out = torch.empty((3, r), dtype=torch.float32, device=table.device)
     ptrs, k, kt, _held = _tree_args(walk, cull, tri, table, animated)
+    bptrs, _bheld = _brute_args(walk, cull, tri, table, animated, cam_animated)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.crucible_megakernel_forward(
             smem.data_ptr(), pix.data_ptr(), sample0.data_ptr(),
-            cam.data_ptr(), table.data_ptr(), *ptrs, n, k, kt, r,
+            cam.data_ptr(), table.data_ptr(), *ptrs, *bptrs, n, k, kt, r,
             ctypes.c_float(T_MIN), int(animated), int(cam_animated),
             out.data_ptr(), stream,
         )
@@ -684,11 +727,12 @@ def _launch_record(smem, pix, sample0, cam, table, max_depth, radiance, walk, cu
     acc = torch.empty((3, r), dtype=torch.float32, device=table.device)
     rec = torch.empty((max_depth, r), dtype=torch.int32, device=table.device)
     ptrs, k, kt, _held = _tree_args(walk, cull, tri, table, animated)
+    bptrs, _bheld = _brute_args(walk, cull, tri, table, animated, cam_animated)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.crucible_megakernel_record(
             smem.data_ptr(), pix.data_ptr(), sample0.data_ptr(),
-            cam.data_ptr(), table.data_ptr(), *ptrs, n, k, kt, r,
+            cam.data_ptr(), table.data_ptr(), *ptrs, *bptrs, n, k, kt, r, max_depth,
             ctypes.c_float(T_MIN), int(bool(radiance)), int(animated),
             int(cam_animated), acc.data_ptr(), rec.data_ptr(), stream,
         )
@@ -729,8 +773,9 @@ def run_megakernel_reference(smem, pix, sample0, cam, table, sph_nodes=None, sph
 
     Lanes advance in lockstep, as on the TPU: each step issues a new sample
     to every idle lane that has samples left, then traces one bounce of
-    every live lane. Per lane this is the kernel's nested loop, in its
-    order of operations, so each lane's sum is the kernel's.
+    every live lane. Per lane this is the kernel's loop (K1's flat loop,
+    the other variants' nested one), in its order of operations, so each
+    lane's sum is the kernel's.
     """
     walk = _walk(sph_nodes, sph_meta, table)
     cull = _cull(cbounds, table)

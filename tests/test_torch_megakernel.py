@@ -216,6 +216,47 @@ def test_max_rows_fill_a_blocks_shared_memory():
     assert tmk.MAX_ROWS == 232448 // (5 * 4)
 
 
+def test_brute_rows_keep_the_active_rows_in_order():
+    """K1 / K2's staged list: the active rows first, in table order, with
+    their table row ids and centers and |c|^2 - r^2; then the inactive
+    ones (a NaN flag is inactive, as the kernels read it)."""
+    rng = np.random.default_rng(4)
+    table = torch.from_numpy(rng.normal(size=(37, tmk.C_IN)).astype(np.float32))
+    table[:, 5] = torch.from_numpy((rng.random(37) < 0.6).astype(np.float32))
+    table[[0, 9], 5] = torch.tensor([float("nan"), 0.0])
+    rows, ids, live = tmk.brute_rows(table)
+    act = table[:, 5] > 0.0
+    n = int(act.sum())
+    assert rows.shape == (37, 4) and rows.dtype == torch.float32 and rows.is_contiguous()
+    assert ids.dtype == torch.int32 and live.dtype == torch.int32 and live.tolist() == [n]
+    assert torch.equal(ids[:n].long(), torch.nonzero(act).squeeze(1))
+    assert torch.equal(ids[n:].long(), torch.nonzero(~act).squeeze(1))
+    assert torch.equal(rows, table[ids.long()][:, [0, 1, 2, 4]])
+    empty = tmk.brute_rows(table[:0])
+    assert empty[0].shape == (0, 4) and empty[2].tolist() == [0]
+
+
+def test_max_rows_and_routes_are_unchanged():
+    """The flat K1 / K2 stage 16 bytes a live row: MAX_ROWS rows, padded
+    to a multiple of 4, fit a block's shared memory, and the row caps and
+    the routes built on them are the brute search's as before."""
+    from crucible_tpu_torch.models import render as trender
+
+    assert (tmk.MAX_ROWS, tmk.MAX_ROWS_ANIMATED, trender.CULL_MIN_ROWS) == (11622, 5811, 1024)
+    assert -(-tmk.MAX_ROWS // 4) * 4 * 16 <= tmk.SHARED_MEM_BYTES
+    tmk.check_rows(tmk.MAX_ROWS)
+    tmk.check_rows(tmk.MAX_ROWS_ANIMATED, animated=True)
+    for n, animated in ((tmk.MAX_ROWS + 1, False), (tmk.MAX_ROWS_ANIMATED + 1, True)):
+        with pytest.raises(ValueError, match="exceed"):
+            tmk.check_rows(n, animated=animated)
+    # Only the brute static search (K1 / K2) takes the staged rows.
+    table = torch.zeros((8, tmk.C_IN))
+    ptrs, held = tmk._brute_args(None, None, None, table, False, False)
+    assert len(held) == 4 and all(p is not None for p in ptrs)
+    for motion in ((True, False), (False, True)):
+        assert tmk._brute_args(None, None, None, table, *motion) == ([None] * 4, ())
+
+
 def test_build_compiles_for_hopper_without_fast_math():
     flags = " ".join(tbuild.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-fmad=false" in flags
@@ -224,8 +265,18 @@ def test_build_compiles_for_hopper_without_fast_math():
         "common.cuh", "megakernel.cu", "replay_kernel.cu", "sphere_hit.cu",
         "sphere_shade.cu",
     ]
-    # One library per .cu, each with its declared C entry points.
+    # One library per .cu, each with its declared C entry points; the
+    # megakernel's take K1 / K2's staged rows and work counter, and report
+    # their launch shape.
     assert set(tbuild.SIGNATURES) == {s.stem for s in tbuild.sources() if s.suffix == ".cu"}
+    mega = tbuild.SIGNATURES["megakernel"]
+    assert len(mega["crucible_megakernel_forward"][0]) == 25
+    assert len(mega["crucible_megakernel_record"][0]) == 28
+    assert "crucible_megakernel_brute_shape" in mega
+    source = (tbuild.CSRC / "megakernel.cu").read_text()
+    for needle in ("__ballot_sync", "atomicAdd(b.next", "float4", "cudaMemsetAsync",
+                   "cudaOccupancyMaxActiveBlocksPerMultiprocessor"):
+        assert needle in source, needle
 
 
 def test_build_without_nvcc_is_an_error(monkeypatch):
@@ -263,12 +314,68 @@ def test_kernel_matches_reference_on_card(cuda, name, width, spp, depth):
     torch.cuda.synchronize()
     assert tmk.FORWARD_LAUNCHES["brute"] == before + 1
     ref = tmk.run_megakernel_reference(**inputs)
-    if name == "smoke_scene":
-        assert (out - ref).abs().max().item() <= 1e-4
-    else:
-        a, b = out.t()[lane_of] / spp, ref.t()[lane_of] / spp
-        assert torch.isclose(a, b, rtol=1e-3, atol=1e-3).float().mean().item() > 0.99
-        assert abs(a.mean().item() - b.mean().item()) <= 2e-3
+    # Both round every operation alike (-fmad=false), and each lane's sum
+    # is added in the same order: bit for bit.
+    assert torch.equal(out, ref)
+    assert torch.isfinite(out.t()[lane_of]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,spp", [(320, 8), (1920, 1)])
+def test_flat_forward_is_the_plain_version_bit_for_bit(cuda, width, spp):
+    """K1's persistent lanes at book1 d50, with padding lanes (sample0 =
+    2**30): at 1920 wide far more work items than resident lanes, held on
+    4096 lanes spread over the launch (lanes are independent). Two
+    launches hand the items out in other orders and give the same bits."""
+    sc = tdemo.book1_end_scene(width=width)
+    sd, cp = sc.build(device=cuda), sc.scene_cam.params(device=cuda)
+    w, h = sc.scene_cam.image_width, sc.scene_cam.image_height
+    inputs, _ = tint.mega_inputs(sd, cp, w, h, spp, 50, 0)
+    r = inputs["pix"].shape[1]
+    assert (inputs["sample0"] == tmk.NO_SAMPLE).any()
+    shape = tmk.brute_launch_shape(False, True, inputs["table"].shape[0], r)
+    if width == 1920:
+        assert shape["grid"] * shape["threads"] < r
+    out = tmk.run_megakernel(**inputs, animated=False)
+    again = tmk.run_megakernel(**inputs, animated=False)
+    lanes = torch.arange(r, device=cuda)
+    if width == 1920:
+        g = torch.Generator().manual_seed(5)
+        lanes = torch.randperm(r, generator=g)[:4096].sort().values.to(cuda)
+    sub = dict(inputs, pix=inputs["pix"][:, lanes], sample0=inputs["sample0"][:, lanes])
+    ref = tmk.run_megakernel_reference(**sub)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert torch.equal(out[:, lanes], ref)
+
+
+def _tie_scene():
+    """A hidden sphere (an inactive table row 0), then two coincident
+    emitters: every hit is an exact tie, which row 1 (red) must win."""
+    sc = tscene.Scene.new_image(1.0, 16)
+    sc.scene_cam.look_from((0.0, 0.0, 2.0))
+    sc.scene_cam.look_at((0.0, 0.0, 0.0))
+    sc.scene_cam.set_vfov(20.0)
+    sc.add_element(tscene.Sphere((0.0, 0.0, 1.0), 0.2, tscene.Emissive((0.0, 0.0, 1.0))),
+                   "hidden")
+    for alias, color in (("red", (1.0, 0.0, 0.0)), ("green", (0.0, 1.0, 0.0))):
+        sc.add_element(tscene.Sphere((0.0, 0.0, 0.0), 1.0, tscene.Emissive(color)), alias)
+    sc.hide_element("hidden")
+    return sc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_depth", [1, 4])
+def test_flat_forward_ties_and_inactive_rows_on_card(cuda, max_depth):
+    sc = _tie_scene()
+    sd, cp = sc.build(device=cuda), sc.scene_cam.params(device=cuda)
+    inputs, lane_of = tint.mega_inputs(sd, cp, 16, 16, 2, max_depth, 0)
+    assert inputs["table"][0, 5].item() == 0.0
+    out = tmk.run_megakernel(**inputs, animated=False)
+    ref = tmk.run_megakernel_reference(**inputs)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert torch.equal(out.t()[lane_of], torch.tensor([2.0, 0.0, 0.0], device=cuda).expand(256, 3))
 
 
 @pytest.mark.cuda

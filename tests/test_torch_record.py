@@ -226,6 +226,51 @@ def test_record_kernel_matches_twin_on_card(cuda, name, width, spp, depth):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("accum_from", [0, 2, 6])
+def test_flat_record_is_the_twin_bit_for_bit(cuda, accum_from):
+    """K2's persistent lanes at book1 320w 8 spp d50: more paths than
+    resident lanes, every seventh lane padding (sample0 = 2**30), the fused
+    radiance from bounce ``accum_from`` on. Two launches hand the paths out
+    in other orders and give the same bits."""
+    inputs = _card_inputs(cuda, "book1_end_scene", 320, 8, 50)
+    r = inputs["pix"].shape[1]
+    inputs["sample0"][:, ::7] = tmk.NO_SAMPLE
+    inputs["smem"][4] = accum_from
+    shape = tmk.brute_launch_shape(True, True, inputs["table"].shape[0], r)
+    assert shape["grid"] * shape["threads"] < r
+    acc, rec = tmk.run_megakernel_record(**inputs, max_depth=50, radiance=True)
+    acc2, rec2 = tmk.run_megakernel_record(**inputs, max_depth=50, radiance=True)
+    zero, plain = tmk.run_megakernel_record(**inputs, max_depth=50)
+    ref_acc, ref_rec = tmk.run_megakernel_record_reference(
+        **inputs, max_depth=50, radiance=True
+    )
+    torch.cuda.synchronize()
+    assert torch.equal(rec, ref_rec) and torch.equal(acc, ref_acc)
+    assert torch.equal(rec2, rec) and torch.equal(acc2, acc) and torch.equal(plain, rec)
+    assert not zero.any() and not rec[:, ::7].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_depth", [1, 3])
+def test_flat_record_ties_and_inactive_rows_on_card(cuda, max_depth):
+    """An inactive table row 0 and an exact tie, which row 1 wins."""
+    from tests.test_torch_megakernel import _tie_scene
+
+    sc = _tie_scene()
+    sd, cp = sc.build(device=cuda), sc.scene_cam.params(device=cuda)
+    inputs, _ = tint.mega_inputs(sd, cp, 16, 16, 2, max_depth, 0)
+    inputs["pix"] = torch.arange(256, device=cuda, dtype=torch.int32).repeat(2)[None]
+    inputs["sample0"] = torch.arange(2, device=cuda, dtype=torch.int32).repeat_interleave(256)[None]
+    acc, rec = tmk.run_megakernel_record(**inputs, max_depth=max_depth, radiance=True)
+    ref_acc, ref_rec = tmk.run_megakernel_record_reference(
+        **inputs, max_depth=max_depth, radiance=True
+    )
+    torch.cuda.synchronize()
+    assert torch.equal(rec, ref_rec) and torch.equal(acc, ref_acc)
+    assert (rec[0] // tmk.REC_ID_SCALE == 1).all() and not rec[1:].any()
+
+
+@pytest.mark.cuda
 def test_cuda_record_never_takes_the_twin(cuda, monkeypatch):
     def no_twin(*args, **kwargs):
         raise AssertionError("CUDA tensors must not reach the eager twin")

@@ -263,6 +263,62 @@ def test_to_u8_and_film_writers(tmp_path):
     np.testing.assert_array_equal(np.array(tokens[4:], np.uint8).reshape(u8.shape), u8)
 
 
+def test_write_image_follows_the_suffix(tmp_path, monkeypatch):
+    """Fault C10: ``.jpg`` is a JPEG, ``.png`` a PNG, ``.ppm`` the JAX
+    package's P3 text byte for byte; without PIL only ``.ppm`` and ``.png``
+    are written."""
+    from PIL import Image
+
+    from crucible_tpu.io import image as jimage
+
+    u8 = np.random.default_rng(0).integers(0, 256, (9, 16, 3), dtype=np.uint8)
+    for suffix, fmt in ((".jpg", "JPEG"), (".png", "PNG")):
+        timage.write_image(tmp_path / f"a{suffix}", u8)
+        with Image.open(tmp_path / f"a{suffix}") as im:
+            assert im.format == fmt and im.size == (16, 9)
+    with Image.open(tmp_path / "a.png") as im:
+        np.testing.assert_array_equal(np.asarray(im.convert("RGB")), u8)
+    timage.write_image(tmp_path / "a.ppm", u8)
+    jimage.write_ppm(tmp_path / "b.ppm", u8)
+    assert (tmp_path / "a.ppm").read_bytes() == (tmp_path / "b.ppm").read_bytes()
+    with pytest.raises(ValueError):
+        timage.write_image(tmp_path / "a.nosuchformat", u8)
+
+    monkeypatch.setitem(sys.modules, "PIL", None)  # PIL does not import
+    timage.write_image(tmp_path / "c.png", u8)
+    assert (tmp_path / "c.png").read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    with pytest.raises(ValueError, match="without PIL"):
+        timage.write_image(tmp_path / "c.jpg", u8)
+
+
+def test_assets_resolve_in_the_jax_order(tmp_path, monkeypatch):
+    """Fault C9: ``ASSET_DIR`` first, then ``assets/`` in the current
+    directory and its parents, then the repository's ``assets/``, as the
+    JAX resolver searches."""
+    from crucible_tpu.io import assets as jassets
+    from crucible_tpu_torch.io import assets as tassets
+
+    env, up, repo = tmp_path / "env", tmp_path / "up" / "assets", tmp_path / "repo"
+    for folder, names in ((env, "a"), (up, "ab"), (repo, "abc")):
+        folder.mkdir(parents=True)
+        for name in names:
+            (folder / f"{name}.obj").write_text(str(folder))
+    cwd = tmp_path / "up" / "x" / "y"
+    cwd.mkdir(parents=True)
+    monkeypatch.chdir(cwd)
+    monkeypatch.setattr(tassets, "ASSETS_DIR", repo)
+    monkeypatch.setenv("ASSET_DIR", str(env))
+    for name, where in (("a", env), ("b", up), ("c", repo)):
+        assert tassets.build_asset_path(f"{name}.obj") == where / f"{name}.obj"
+    for name in ("a", "b"):  # the JAX package's own assets/ is not patched
+        assert jassets.build_asset_path(f"{name}.obj") == tassets.build_asset_path(f"{name}.obj")
+    monkeypatch.delenv("ASSET_DIR")
+    assert tassets.build_asset_path("a.obj") == up / "a.obj"
+    assert jassets.build_asset_path("a.obj") == up / "a.obj"
+    with pytest.raises(FileNotFoundError):
+        tassets.build_asset_path("d.obj")
+
+
 def test_importing_and_rendering_leaves_jax_out():
     code = (
         "import sys, crucible_tpu_torch\n"

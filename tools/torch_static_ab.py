@@ -1,22 +1,32 @@
 #!/usr/bin/env python3
-"""Time the megakernel's static instantiations (K1, K5) of one checkout of
-crucible_tpu_torch on the card, for an A/B comparison of two trees.
+"""Time the megakernel's instantiations of one checkout of crucible_tpu_torch
+on the card, for an A/B comparison of two trees.
 
     python3 tools/torch_static_ab.py [--repo PATH] [--label NAME]
 
 ``--repo`` is the root of the checkout whose package is imported (default:
 this one); its kernels are built there. Run two trees in turns in one
 process list on one card (parent, change, change, parent) and compare
-within the call. Times are CUDA-event means over repeated launches of
-``megakernel.run_megakernel`` at the shapes ``chip_smoke.py`` times:
+within the call. Times are CUDA-event means over repeated launches at the
+shapes ``chip_smoke.py`` and the main paths use:
 
-- K1: book1 320 wide 8 spp depth 50, and 1920x1080 32 spp depth 50;
+- K1 (``run_megakernel``, the brute static search): book1 320 wide 8 spp
+  depth 50, and 1920x1080 32 spp depth 50;
+- K2 (``run_megakernel_record``): book1 1920x1080 4 spp depth 8, fused
+  and plain (the gradient step's record), and the deep chunk's two records
+  at 1920x1080 4 spp: the head record (depth 6, fused) and the narrow
+  re-record of the paths that continue past it (depth 50, fused from
+  bounce 6, its survivors compacted into r // 12 slots as
+  ``replay.record_two_level`` compacts them);
 - K5: sphere_stress 7744 and 1936 rows, 320 wide 8 spp depth 50, and
-  7744 rows at 1920x1080 32 spp depth 50.
+  7744 rows at 1920x1080 32 spp depth 50;
+- K8 and K7, which share K1's camera and shading code: book1's table given
+  the animated flag, and chip_smoke.py's torus_teapot, 320 wide 8 spp
+  depth 50.
 
 Prints the card's name and power limit, then one JSON line
-``{"label": ..., "ms": {shape: ms}}``. Needs a CUDA card; exits non-zero
-without one.
+``{"label": ..., "card": ..., "ms": {shape: ms}}``. Needs a CUDA card; exits
+non-zero without one.
 """
 
 from __future__ import annotations
@@ -41,7 +51,9 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("torch.cuda.is_available() is False")
-    from crucible_tpu_torch.models import demo, integrator
+    import chip_smoke
+    from crucible_tpu_torch.models import demo, integrator, replay
+    from crucible_tpu_torch.models import scene as tscene
     from crucible_tpu_torch.ops.kernels import build, megakernel as mk
 
     card = subprocess.run(
@@ -63,28 +75,81 @@ def main() -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(stop) / reps
 
-    def inputs(sc, spp, walk):
+    def inputs(sc, spp, walk=False, tri=False):
         sd, cp = sc.build(device=dev), sc.scene_cam.params(device=dev)
         w, h = sc.scene_cam.image_width, sc.scene_cam.image_height
         x, _ = integrator.mega_inputs(sd, cp, w, h, spp, 50, 0)
         if walk:
             x = dict(x, table=integrator.permute_table(x["table"], sd.sph_perm),
                      sph_nodes=sd.sph_nodes, sph_meta=sd.sph_meta)
+        if tri:
+            x = dict(x, **dict(zip(("tri_nodes", "tris", "mats", "tri_meta"),
+                                   integrator.make_tri_tables(sd))))
         return x
 
-    shapes = {
-        "k1_book1_320w_8spp": (demo.book1_end_scene(width=320), 8, False, 5),
-        "k1_book1_1080p_32spp": (demo.book1_end_scene(width=1920), 32, False, 3),
-        "k5_n7744_320w_8spp": (demo.sphere_stress(width=320, copies=16), 8, True, 3),
-        "k5_n1936_320w_8spp": (demo.sphere_stress(width=320, copies=4), 8, True, 3),
-        "k5_n7744_1080p_32spp": (demo.sphere_stress(width=1920, copies=16), 32, True, 2),
-    }
+    def record_inputs(width, spp):
+        """K2's inputs for every pixel of book1 at ``spp`` samples, lanes
+        sample-major as ``grad`` lays them out."""
+        sc = demo.book1_end_scene(width=width)
+        sd, cp = sc.build(device=dev), sc.scene_cam.params(device=dev)
+        w, h = sc.scene_cam.image_width, sc.scene_cam.image_height
+        p = w * h
+        return dict(
+            smem=torch.tensor([0, 0, w, 8, 0, 0, 0, 0], dtype=torch.int32, device=dev),
+            pix=torch.arange(p, device=dev, dtype=torch.int32).repeat(spp)[None],
+            sample0=torch.arange(spp, device=dev, dtype=torch.int32).repeat_interleave(p)[None],
+            cam=integrator.mega_cam_vector(cp, w, h),
+            table=integrator.make_sphere_table(sd).contiguous(),
+        )
+
     ms = {}
-    for name, (sc, spp, walk, reps) in shapes.items():
-        x = inputs(sc, spp, walk)
-        ms[name] = cuda_ms(lambda: mk.run_megakernel(**x, animated=False), reps)
+
+    def timed(name, fn, reps):
+        ms[name] = cuda_ms(fn, reps)
         print(f"  {name}: {ms[name]:.3f} ms", flush=True)
+
+    forward = {
+        "k1_book1_320w_8spp": (demo.book1_end_scene(width=320), 8, {}, 5),
+        "k1_book1_1080p_32spp": (demo.book1_end_scene(width=1920), 32, {}, 3),
+        "k5_n7744_320w_8spp": (demo.sphere_stress(width=320, copies=16), 8,
+                               dict(walk=True), 3),
+        "k5_n1936_320w_8spp": (demo.sphere_stress(width=320, copies=4), 8,
+                               dict(walk=True), 3),
+        "k5_n7744_1080p_32spp": (demo.sphere_stress(width=1920, copies=16), 32,
+                                 dict(walk=True), 2),
+        "k7_torus_teapot_320w_8spp": (chip_smoke.torus_teapot(tscene, 320), 8,
+                                      dict(tri=True), 3),
+    }
+    for name, (sc, spp, kw, reps) in forward.items():
+        x = inputs(sc, spp, **kw)
+        timed(name, lambda: mk.run_megakernel(**x, animated=False), reps)
+        if name == "k1_book1_320w_8spp":  # K8's moving search on book1's table
+            timed("k8_book1_320w_8spp_animated",
+                  lambda: mk.run_megakernel(**x, animated=True), reps)
         del x
+
+    x = record_inputs(1920, 4)
+    for radiance in (True, False):
+        timed(f"k2_1080p_4spp_d8_{'fused' if radiance else 'plain'}",
+              lambda: mk.run_megakernel_record(**x, max_depth=8, radiance=radiance), 5)
+    # The deep chunk's records (GRAD_BUCKET_SPEC's head 6, RECORD_DEEP_DIV 12).
+    head = 6
+    timed("k2_deep_head_d6", lambda: mk.run_megakernel_record(
+        **x, max_depth=head, radiance=True), 5)
+    rec_h = mk.run_megakernel_record(**x, max_depth=head)[1]
+    cont = (rec_h[head - 1] & mk.F_SCAT) > 0
+    r = cont.shape[0]
+    idx, valid = replay._compact(cont, replay._capacity(r, 12))
+    smem_n = x["smem"].clone()
+    smem_n[4] = head
+    narrow = dict(x, smem=smem_n,
+                  pix=torch.where(valid, x["pix"][0, idx], 0).to(torch.int32)[None].contiguous(),
+                  sample0=torch.where(valid, x["sample0"][0, idx], mk.NO_SAMPLE)
+                  .to(torch.int32)[None].contiguous())
+    print(f"  deep chunk: {int(cont.sum())} of {r} paths continue past row {head}, "
+          f"{idx.shape[0]} slots")
+    timed("k2_deep_narrow_d50", lambda: mk.run_megakernel_record(
+        **narrow, max_depth=50, radiance=True), 5)
     print(json.dumps({"label": args.label, "card": card, "ms": ms}))
 
 
