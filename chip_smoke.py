@@ -26,7 +26,21 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
      1920x1080 shape, within the JAX package's scheme for its replay
      backward (normalized differences above 2e-4 on < 0.5% of table
      entries and < 2% of ray entries, none above 0.1); and two launches
-     give the same table cotangent, bit for bit.
+     give the same table cotangent, bit for bit. K4's and K3's launch
+     shapes (grid, resident blocks an SM, registers, spill bytes, shared
+     memory, where K3's partial lives) and their times beside their
+     bounds at the main shape.
+   - K4 and K3 at the depth-50 chunk's three buckets (1920x1080, 4 spp,
+     as ``replay.replay_bucketed_2l`` lays them out: every lane's 6 head
+     rows; the compacted slots of the paths that end in (6, 16] and in
+     (16, 50], their throughput masked, radiance from row 6 on;
+     ``tools/torch_replay_ab.deep_buckets``): K4 bit for bit (its denormal
+     results flushed to zero where the card's ``index_add``, the plain
+     version's radiance sum, flushes a probe's denormal sum; the probe's
+     result is printed) and K3 within its scheme
+     on 32768 lanes of each, K3's table
+     cotangent the same bits twice; each launch timed beside its bound
+     from its own alive and continuing rows.
    - The gradient step at book1 64 wide, 2 spp, depth 8 on the card
      against the same call on the CPU (the twins): loss within rel 1e-4,
      gradients within normalized 1e-3.
@@ -268,6 +282,22 @@ ROW_OPS = 52  # a replayed row: quadratic, hit point, normal, unit d, radiance
 SCATTER_OPS = 45  # a continuing row: albedo, the sampled direction, scatter
 ADJOINT_ROW_OPS = 60  # the adjoint of a row's radiance and pass-through
 ADJOINT_SCATTER_OPS = 150  # the adjoint of a continuing row's scatter
+
+
+def replay_ops(alive: int, cont: int) -> int:
+    """FP32 operations of the replay forward (K4) over ``alive`` replayed
+    rows, ``cont`` of them continuing."""
+    return alive * ROW_OPS + cont * SCATTER_OPS
+
+
+def replay_vjp_ops(alive: int, cont: int) -> int:
+    """FP32 operations of the replay's VJP (K3): the forward once, then the
+    adjoint of every row. K3 runs each row's forward twice (phase 1 stores
+    the carries, the reverse sweep recomputes the row from its carry); that
+    is how it is built, not work the function needs."""
+    return replay_ops(alive, cont) + alive * ADJOINT_ROW_OPS + cont * ADJOINT_SCATTER_OPS
+
+
 # K5's walk: a node's slab test (the margin's 6 adds, 6 subtractions and 6
 # multiplies); a leaf row costs K10's HIT_DISC_OPS, plus ROOT_OPS where the
 # discriminant is not negative.
@@ -504,6 +534,31 @@ def bit_equal(a, b, what: str) -> float:
     return err
 
 
+def index_add_flush(dev) -> tuple[float, float]:
+    """(0 + 1e-40 by torch's CUDA ``index_add``, 1e-40 * 1 by an elementwise
+    product). The plain replay sums each lane's radiance with ``index_add``
+    (``replay_kernel._walk``), built on the float atomic add, which flushes
+    denormal results to zero (PTX ``red.add.f32``); its products keep them."""
+    import torch
+
+    tiny = torch.full((1,), 1e-40, device=dev)
+    at = torch.zeros(1, dtype=torch.long, device=dev)
+    summed = torch.zeros(1, device=dev).index_add(0, at, tiny)
+    return summed.item(), (tiny * torch.ones(1, device=dev)).item()
+
+
+def bit_equal_ftz(a, b, what: str) -> float:
+    """Assert a == b bit for bit once a's denormal entries are flushed to
+    zero: the plain replay on the card sums radiance with ``index_add``,
+    which flushes a denormal sum to 0.0 where the kernel keeps it (see
+    :func:`index_add_flush`). Return max |a - b|."""
+    import torch
+
+    tiny = (a != 0) & (a.abs() < torch.finfo(a.dtype).tiny)
+    print(f"  {what}: {int(tiny.sum())} denormal entries in the kernel's output")
+    return bit_equal(torch.where(tiny, torch.zeros_like(a), a), b, what)
+
+
 def k3_scheme(got, want, what: str) -> float:
     """Hold K3's cotangents to the JAX replay backward's scheme; return the
     largest absolute difference."""
@@ -571,6 +626,7 @@ def main() -> None:
     from crucible_tpu_torch.ops.kernels import replay_kernel as rk
     from crucible_tpu_torch.ops.kernels import sphere_hit as sh
     from crucible_tpu_torch.ops.kernels import sphere_shade as ss
+    from tools.torch_replay_ab import deep_buckets
 
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
@@ -628,6 +684,20 @@ def main() -> None:
               f"{shape['blocks_per_sm']} resident blocks an SM x {shape['sms']} SMs, "
               f"{shape['registers']} registers a thread")
         return shape
+
+    def replay_shape(kind, n, r, what):
+        """K4's / K3's (or the legacy pair's) launch shape, printed: grid,
+        resident blocks, registers, spill bytes, shared memory and, for
+        the backward, where its table-cotangent partial lives."""
+        shape = rk.launch_shape(kind, n, r)
+        print(f"  {what} launch: grid {shape['grid']} x {shape['threads']} threads, "
+              f"{shape['blocks_per_sm']} resident blocks an SM x {shape['sms']} SMs, "
+              f"{shape['registers']} registers a thread, {shape['spill_bytes']} spill bytes, "
+              f"{shape['smem_bytes']} B shared memory"
+              + (f", partial in {'shared' if shape['shared_partial'] else 'global'} memory"
+                 if "backward" in kind else ""))
+        return {k: shape[k] for k in ("grid", "blocks_per_sm", "registers", "spill_bytes",
+                                      "smem_bytes")}
 
     out, ref, lane_of, ms320, plain320, k1_in = compare_k1(
         demo.book1_end_scene(width=320), 8, 50
@@ -762,7 +832,7 @@ def main() -> None:
     k4_ms = cuda_ms(lambda: rk.replay_forward(*rargs), 3)
     alive, cont = replay_work(rec320)
     k4_in = nbytes(*rin, rec320)
-    k4_bound, k4_by = bound(alive * ROW_OPS + cont * SCATTER_OPS, k4_in + nbytes(rad))
+    k4_bound, k4_by = bound(replay_ops(alive, cont), k4_in + nbytes(rad))
     print(f"K4 book1 320w 4spp d8: kernel {k4_ms:.3f} ms, twin {k4_plain:.1f} ms, "
           f"bound {k4_bound:.4f} ms ({k4_by}; {alive} alive rows, {cont} continuing)")
     kernels["replay_forward"] = dict(
@@ -781,8 +851,7 @@ def main() -> None:
     k3_err = k3_scheme(got, want, "K3 book1 320w 4spp d8")
     k3_ms = cuda_ms(lambda: rk.replay_backward(*rargs, g_rad), 3)
     k3_bound, k3_by = bound(
-        2 * (alive * ROW_OPS + cont * SCATTER_OPS)
-        + alive * ADJOINT_ROW_OPS + cont * ADJOINT_SCATTER_OPS,
+        replay_vjp_ops(alive, cont),
         k4_in + nbytes(g_rad, *got),
     )
     print(f"K3 book1 320w 4spp d8: kernel {k3_ms:.3f} ms, twin {k3_plain:.1f} ms, "
@@ -827,8 +896,11 @@ def main() -> None:
     ms = cuda_ms(lambda: rk.replay_forward(*rargs), 3)
     alive, cont = replay_work(rec)
     k4_in = nbytes(*rin, rec)
-    b, by = bound(alive * ROW_OPS + cont * SCATTER_OPS, k4_in + nbytes(rad))
-    print(f"K4 1920x1080 4spp d8: {ms:.3f} ms, bound {b:.3f} ms ({by})")
+    b, by = bound(replay_ops(alive, cont), k4_in + nbytes(rad))
+    print(f"K4 1920x1080 4spp d8: {ms:.3f} ms, bound {b:.3f} ms ({by}); "
+          f"K4 at {100 * b / ms:.1f}% of it on {card}")
+    kernels["replay_forward"].update(
+        main_ms=ms, main_bound_ms=b, **replay_shape("forward", rin[0].shape[0], r, "K4 1080p"))
     g_rad = torch.randn(rad.shape, device=dev,
                         generator=torch.Generator(device=dev).manual_seed(0))
     got = rk.replay_backward(*rargs, g_rad)
@@ -839,12 +911,66 @@ def main() -> None:
     k3_scheme((got_sub[0], got[1][sub], got[2][sub]), want_sub,
               "K3 1080p launch, lane cotangents")
     ms = cuda_ms(lambda: rk.replay_backward(*rargs, g_rad), 3)
-    b, by = bound(2 * (alive * ROW_OPS + cont * SCATTER_OPS)
-                  + alive * ADJOINT_ROW_OPS + cont * ADJOINT_SCATTER_OPS,
+    b, by = bound(replay_vjp_ops(alive, cont),
                   k4_in + nbytes(g_rad, *got))
     print(f"K3 1920x1080 4spp d8: {ms:.3f} ms, bound {b:.3f} ms ({by}); "
-          f"{alive} alive rows, {cont} continuing")
+          f"{alive} alive rows, {cont} continuing; K3 at {100 * b / ms:.1f}% of it on {card}")
+    kernels["replay_backward"].update(
+        main_ms=ms, main_bound_ms=b, **replay_shape("backward", rin[0].shape[0], r, "K3 1080p"))
     del k2, rin, rargs, rec, rad, got, g_rad, got_sub, want_sub
+
+    # --- K4, K3 at the depth-50 chunk's three buckets: 1920x1080, 4 spp -------
+    mark("K4, K3 at the depth-50 chunk's three buckets: 1920x1080, 4 spp")
+
+    # K4 is held bit for bit with its plain version, whose index_add
+    # flushes a denormal radiance sum to 0.0: where this card's index_add
+    # does, the kernel's denormal outputs are flushed before the comparison.
+    summed, product = index_add_flush(dev)
+    flushes = summed == 0.0 and product != 0.0
+    print(f"  index_add(0, 1e-40) = {summed:.6g}, 1e-40 * 1 = {product:.6g}: index_add "
+          f"{'flushes' if flushes else 'keeps'} denormals")
+    k4_plain_equal = bit_equal_ftz if flushes else bit_equal
+    sc = demo.book1_end_scene(width=1920)
+    pl, sl = grad._lanes(torch.arange(1920 * 1080, device=dev), 4, 0)
+    buckets = deep_buckets(sc.build(device=dev), sc.scene_cam.params(device=dev),
+                           1920, 1080, pl, sl)
+    del pl, sl
+    deep_k4, deep_k3 = {}, {}
+    for name, args, acc in buckets:
+        r = args[1].shape[0]
+        kw = dict(accum_from=acc)
+        sub = torch.randperm(r, generator=torch.Generator().manual_seed(2))[:N_SUB]
+        sub = sub.sort().values.to(dev)
+        sub_args = (args[0], *(x[sub] for x in args[1:6]), args[6][:, sub].contiguous())
+        rad = rk.replay_forward(*args, 0, **kw)
+        k4_plain_equal(rad[sub], rk.replay_forward_reference(*sub_args, 0, **kw),
+                       f"K4 deep {name} ({r} lanes) on {sub.numel()} lanes")
+        g_rad = torch.randn(rad.shape, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(0))
+        got = rk.replay_backward(*args, 0, g_rad, **kw)
+        bit_equal(got[0], rk.replay_backward(*args, 0, g_rad, **kw)[0],
+                  f"K3 deep {name} g_table, launch vs launch")
+        want_sub = rk.replay_backward_reference(*sub_args, 0, g_rad[sub], **kw)
+        got_sub = rk.replay_backward(*sub_args, 0, g_rad[sub], **kw)
+        k3_scheme(got_sub, want_sub, f"K3 deep {name} on {sub.numel()} lanes")
+        k3_scheme((got_sub[0], got[1][sub], got[2][sub]), want_sub,
+                  f"K3 deep {name} launch, lane cotangents")
+        ms4 = cuda_ms(lambda: rk.replay_forward(*args, 0, **kw), 5)
+        ms3 = cuda_ms(lambda: rk.replay_backward(*args, 0, g_rad, **kw), 5)
+        alive, cont = replay_work(args[6])
+        b4, by4 = bound(replay_ops(alive, cont), nbytes(*args) + nbytes(rad))
+        b3, by3 = bound(replay_vjp_ops(alive, cont),
+                        nbytes(*args) + nbytes(g_rad, *got))
+        print(f"deep bucket {name} ({r} lanes, accum_from {acc}, {alive} alive rows, {cont} "
+              f"continuing): K4 {ms4:.3f} ms, bound {b4:.4f} ms ({by4}); K3 {ms3:.3f} ms, bound "
+              f"{b3:.4f} ms ({by3}) on {card}")
+        deep_k4[name] = dict(lanes=r, ms=ms4, bound_ms=b4, bound_by=by4)
+        deep_k3[name] = dict(lanes=r, ms=ms3, bound_ms=b3, bound_by=by3,
+                             **replay_shape("backward", args[0].shape[0], r, f"K3 deep {name}"))
+        del rad, g_rad, got, want_sub, got_sub, args
+    del buckets
+    kernels["replay_forward"]["deep_buckets"] = deep_k4
+    kernels["replay_backward"]["deep_buckets"] = deep_k3
 
     # --- K4-legacy against its plain version and K4 / K3: 320w and 1080p ------
     mark('K4-legacy against its plain version and K4 / K3: 320w and 1080p, 4 spp, d8')
@@ -884,7 +1010,7 @@ def main() -> None:
         ms_k4 = cuda_ms(lambda: rk.replay_forward(*rargs), 3)
         alive, cont = replay_work(rec)
         k4_in = nbytes(*rin, rec)
-        fb, fby = bound(alive * ROW_OPS + cont * SCATTER_OPS, k4_in + nbytes(rad3))
+        fb, fby = bound(replay_ops(alive, cont), k4_in + nbytes(rad3))
         g_rad = torch.randn((r, 3), device=dev,
                             generator=torch.Generator(device=dev).manual_seed(0))
         g3 = g_rad.t().contiguous()
@@ -909,15 +1035,15 @@ def main() -> None:
                               f"K4-legacy backward on {N_SUB} lanes of {shape}")
         bms_l = cuda_ms(lambda: rk.replay_legacy_backward(*largs, g3), 3)
         bms_k3 = cuda_ms(lambda: rk.replay_backward(*rargs, g_rad), 3)
-        bb, bby = bound(2 * (alive * ROW_OPS + cont * SCATTER_OPS)
-                        + alive * ADJOINT_ROW_OPS + cont * ADJOINT_SCATTER_OPS,
+        bb, bby = bound(replay_vjp_ops(alive, cont),
                         k4_in + nbytes(g_rad, *got))
         print(f"K4-legacy {shape} 4spp d8: forward {ms_l:.3f} ms (K4 {ms_k4:.3f}), plain "
               f"{plain_ms:.1f} ms, bound {fb:.4f} ms ({fby}); backward {bms_l:.3f} ms "
               f"(K3 {bms_k3:.3f}), plain {bplain_ms:.1f} ms, bound {bb:.4f} ms ({bby}); "
               f"{alive} alive rows, {cont} continuing")
         legacy[shape] = dict(fwd=(err_f, ms_l, ms_k4, plain_ms, fb, fby),
-                             bwd=(err_b, bms_l, bms_k3, bplain_ms, bb, bby))
+                             bwd=(err_b, bms_l, bms_k3, bplain_ms, bb, bby),
+                             rows=rin[0].shape[0], lanes=r)
         del k2, rin, rargs, largs, rec, rad3, plain, got, k3, want, g_rad, g3
     for kind, name, line in (("fwd", "replay_legacy_forward", 516),
                              ("bwd", "replay_legacy_backward", 535)):
@@ -929,6 +1055,8 @@ def main() -> None:
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
             blocked_ms=ms_blk, ms_1080p=ms_main, blocked_ms_1080p=ms_blk_main,
             bound_ms_1080p=b_main, launches=0,
+            **replay_shape(f"legacy_{name.split('_')[-1]}", legacy["1080p"]["rows"],
+                           legacy["1080p"]["lanes"], f"K4-legacy {name.split('_')[-1]} 1080p"),
         )
 
     # --- the gradient step on the card vs on the CPU (twins), small -----------
@@ -1233,13 +1361,14 @@ def main() -> None:
     err = k3_scheme(got, want, "K3 n1936 320w 4spp d8")
     ms = cuda_ms(lambda: rk.replay_backward(*rargs, g_rad), 3)
     alive, cont = replay_work(rec320)
-    b, by = bound(2 * (alive * ROW_OPS + cont * SCATTER_OPS)
-                  + alive * ADJOINT_ROW_OPS + cont * ADJOINT_SCATTER_OPS,
+    b, by = bound(replay_vjp_ops(alive, cont),
                   nbytes(*rin, rec320, g_rad, *got))
     print(f"K3 n1936 ({rin[0].shape[0]} rows) 320w 4spp d8: kernel {ms:.3f} ms, twin "
           f"{plain_ms:.1f} ms, bound {b:.4f} ms ({by})")
-    kernels["replay_backward"].update(ms_1936_rows=ms, plain_ms_1936_rows=plain_ms,
-                                      bound_ms_1936_rows=b, max_abs_err_1936_rows=err)
+    kernels["replay_backward"].update(
+        ms_1936_rows=ms, plain_ms_1936_rows=plain_ms, bound_ms_1936_rows=b,
+        max_abs_err_1936_rows=err,
+        shape_1936_rows=replay_shape("backward", rin[0].shape[0], rin[1].shape[0], "K3 n1936"))
     del rin, rargs, rec320, rad, got, want, g_rad
 
     # --- K8: the motion variants vs their plain versions ------------------------

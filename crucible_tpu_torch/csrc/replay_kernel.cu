@@ -28,35 +28,67 @@
 //   per-block partials, so its table cotangent is K3's too, the same bits
 //   launch after launch.
 //
-// What bounds them on this card: the per-lane bounce arithmetic (a few
-// hundred FP32 operations, three square roots, a sine and a cosine per
-// alive row) and, for the backward, the table-cotangent reduction; the
-// bytes (records, rays, ids: ~80 B per lane plus 4 B per row) take a
-// fraction of a millisecond at 3.35 TB/s for 8.3M lanes.
+// What bounds them on this card. The bytes (records, rays, ids: ~80 B a
+// lane plus 4 B a row) take a fraction of a millisecond at 3.35 TB/s for
+// 8.3M lanes, and the FP32 operations (~100 a replayed row, ~300 an
+// adjoint row) less. What the kernels wait on is latency: every row is a
+// long dependent chain (IEEE divides, square roots, a sine and a cosine,
+// no multiply-add under -fmad=false), so the card needs many warps in
+// flight and every lane of each warp busy on a row.
 //
-// Design: one thread per lane. The 22 table channels the bounce reads
-// (replay_kernel.py USED, l.62) are staged once per block in shared memory,
-// rows padded to an odd stride so that lanes with different winners spread
-// over banks; the winner's channels are then an indexed shared-memory read,
-// exact, where the TPU needed a one-hot MXU contraction split in three bf16
-// passes. A row whose F_ALIVE bit is clear is the identity on the carry and
-// adds nothing, so it is skipped; a row that does not continue (no F_SCAT)
-// only adds its radiance, so its scatter is not evaluated.
+// What the first design lost: K4 launched one block of 128 lanes per 128
+// lanes, and each of its 64,800 blocks at 1080p staged the whole
+// table (488 x 22 scattered loads, each with an integer divide and modulo)
+// before any lane ran; then each lane walked its rows in a nested loop
+// that waits at the warp's longest path. K3 ran a fixed grid of 264 blocks
+// of 128 threads (8 warps an SM); merged the lanes of a warp that share a
+// winner one lane after another (22 shuffles a lane); and added the warps'
+// sums into a partial in global memory one warp after another, behind five
+// block barriers a row.
 //
-// The backward stores the 9-float carry of every alive row in a scratch
-// buffer (depth x 9 floats per thread, coalesced) and re-reads the winner
-// channels from shared memory in the reverse sweep. Its table cotangent is
-// deterministic, with no float atomics: within a warp, lanes with the same
-// winner are summed by their lowest lane in ascending lane order
-// (__match_any_sync + shuffles); the four warps then add their sums into
-// the block's own partial, one warp after another; each block walks a fixed
-// set of lane tiles (grid-stride over a fixed block count); reduce_partials
-// sums the partials in block order. Two launches on the same inputs
-// therefore give the same bits. The partial is the block's slice of the
-// `part` buffer in global memory (the block alone reads and writes it, and
-// its L1/L2 serve the read-modify-writes), so that shared memory holds only
-// the staged channels: 2048 rows (the JAX kernel's MAX_TABLE_ROWS) take
-// 188 KB of it.
+// K4 now: persistent warps fed by a work counter, on the pattern of K1 /
+// K2's brute_kernel. As many blocks as stay resident each stage the table
+// once, one 128-byte table row per warp-wide coalesced load, a column's
+// channel found by a compare, not a divide. A warp takes the next 32
+// consecutive ray lanes with one atomicAdd; each lane finds its last alive
+// row with eight independent loads at a time from the top, then replays its
+// rows up to it; then the warp takes the next 32. A lane's radiance depends
+// only on its own rows, taken in order, so whichever warp takes it, it gets
+// the plain version's bits. The items are whole paths, not rows:
+// brute_kernel's flat loop (a lane with no path in flight takes its next ray
+// lane, one row an iteration) measured 28-32% slower here (0.94 against
+// 0.68 ms at 1080p 4 spp d8, in turns on one NVIDIA H100 80GB HBM3 at
+// 700 W): once lanes drift apart every record and ray read is its own
+// sector, while a warp on 32 consecutive lanes reads them coalesced, and a
+// replayed row is short beside the fetch's bookkeeping.
+//
+// K3 now: eight warps a block (256 threads), as many blocks as stay
+// resident (two an SM at book1's 488 rows: 16 warps, against 8). The lanes
+// are assigned statically, not by a work counter: block b walks the tiles
+// b, b + grid, ... of 256 lanes, so every partial sum below is taken in an
+// order fixed by the inputs and the launch shape alone, and two launches
+// give the same bits without float atomics. Each tile's lanes are first
+// sorted by their last alive row (a stable counting sort), so that each
+// warp walks paths of about one length in both sweeps: the reverse sweep
+// runs in step across the block (it merges row by row), and a warp whose
+// paths end below the current row sits it out. Within a warp, the lanes that
+// share a winner (__match_any_sync) sum their 22 channels in a tree over
+// their ranks in the group, in log steps (pointer doubling: a lane adds the
+// sum held by the member s ranks ahead, then jumps to that member's
+// successor), stopping at the warp's largest group. Each group's sum is
+// written by its lowest lane into the warp's list in shared memory; after
+// one block barrier, warp w adds the listed entries whose row is w modulo
+// 8, in warp order and, within a warp, in lane order, so every entry of the
+// block's partial has one owner thread; a second barrier frees the lists.
+// Two barriers a row, against five, and no serial merge. The partial lives
+// in shared memory beside the staged table where both fit and that keeps as
+// many blocks resident as a partial in global memory (book1's 488 rows: 43 KB
+// beside the table's 45 KB, two blocks an SM either way); else it is the
+// block's slice of `part` in global memory, as before.
+// The carry each alive row enters with goes to a scratch buffer in global
+// memory (depth x 9 floats per resident thread, coalesced; 19.5 MB at d8 for
+// 264 blocks, within the 50 MB L2), as before. reduce_partials sums the
+// partials in block order.
 //
 // Numerics: the forward follows _bounce operation for operation, with the
 // eager twin in ops/kernels/replay_kernel.py rounding alike (build with
@@ -68,7 +100,7 @@
 //
 // Interface: plain C entry points, bound from Python with ctypes. They
 // launch on the caller's stream, allocate nothing (the wrapper passes the
-// scratch buffers) and return cudaGetLastError().
+// work counter and the scratch buffers) and return cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -82,16 +114,37 @@ using namespace crucible;
 constexpr int C_IN = 32;    // table columns (make_sphere_table layout)
 constexpr int NU = 22;      // channels the bounce reads (USED)
 constexpr int TS = 23;      // shared-memory row stride (odd: bank spread)
-constexpr int BLOCK = 128;  // threads per block (4 warps)
-constexpr int NWARPS = BLOCK / 32;
 constexpr int NCARRY = 9;   // o, d, throughput
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int FWD_BLOCK = 512;              // K4: threads per block
+constexpr int BWD_BLOCK = 256;              // K3: threads per block
+constexpr int BWD_WARPS = BWD_BLOCK / 32;   // 8
+constexpr int LS = 23;      // a list entry's stride (odd: leaders spread over banks)
+constexpr int MAX_SMEM = 232448;  // dynamic shared memory a block can use (227 KB)
+constexpr int SORT_KEYS = 64;     // K3's tile sort: keys (rows from the bottom)
+static_assert(SORT_KEYS * BWD_WARPS + 2 * BWD_BLOCK <= BWD_WARPS * 32 * LS,
+              "the tile sort fits in the lists' space");
 
-// Channel j of a staged row holds table column USED[j].
-__constant__ int USED[NU] = {0,  1,  2,  3,  6,  7,  8,  9,  10, 11, 12,
-                             13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23};
+// Channel j of a staged row holds table column USED[j] (replay_kernel.py
+// USED: 0-3, 6-23); channel_of inverts it.
 constexpr int J_CX = 0, J_CY = 1, J_CZ = 2, J_R = 3, J_MAT = 4, J_FUZZ = 5,
               J_IOR = 6, J_PROB = 7, J_EM = 8, J_KIND = 11, J_COLOR = 12,
               J_INVS = 15, J_EVEN = 16, J_ODD = 19;
+
+// The staged channel of table column `col` (USED inverted), -1 if unread.
+__device__ __forceinline__ int channel_of(int col) {
+  return col < 4 ? col : (col >= 6 && col < 24 ? col - 2 : -1);
+}
+
+// Stage the N rows' USED channels at stride TS: a warp reads one 128-byte
+// table row per step, coalesced.
+__device__ __forceinline__ void stage_table(const float* __restrict__ table,
+                                            int n, float* s_tab) {
+  for (int k = threadIdx.x; k < n * C_IN; k += blockDim.x) {
+    const int j = channel_of(k & (C_IN - 1));
+    if (j >= 0) s_tab[(k >> 5) * TS + j] = table[k];
+  }
+}
 
 struct Carry {
   float ox, oy, oz, dx, dy, dz, tx, ty, tz;
@@ -113,14 +166,6 @@ __device__ __forceinline__ Dec decode(int32_t w) {
   d.degen = (w & F_DEGEN) != 0;
   d.root1 = (w & F_ROOT1) != 0;
   return d;
-}
-
-__device__ __forceinline__ void stage_table(const float* __restrict__ table,
-                                            int n, float* s_tab) {
-  for (int k = threadIdx.x; k < n * NU; k += blockDim.x) {
-    const int row = k / NU, j = k % NU;
-    s_tab[row * TS + j] = table[(size_t)row * C_IN + USED[j]];
-  }
 }
 
 // Offset of channel c of lane `lane` in an R-lane float triple: lane-major
@@ -604,9 +649,31 @@ __device__ __forceinline__ void bounce_bwd(const Carry& c, const float* ch,
   g.tz = g_tz;
 }
 
-// CM: rays and radiance channel-major, (3, R) (K4-legacy); else (R, 3) (K4).
+// The last row of `lane` whose F_ALIVE bit is set, -1 if none: eight
+// independent loads at a time, from the top row down.
+__device__ __forceinline__ int last_alive(const int32_t* __restrict__ rec,
+                                          int lane, int r, int depth) {
+  for (int top = depth - 1; top >= 0; top -= 8) {
+    int32_t w[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      w[q] = top - q >= 0 ? rec[(size_t)(top - q) * r + lane] : 0;
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      if (w[q] & F_ALIVE) return top - q;
+    }
+  }
+  return -1;
+}
+
+// K4 (CM false: rays and radiance (R, 3)) and K4-legacy's forward (CM true:
+// (3, R)). Persistent warps (see the note at the top): a warp takes the next
+// 32 consecutive ray lanes from the work counter `next` (one atomicAdd), and
+// each of its lanes replays its own rows up to its last alive row; then the
+// warp takes the next 32. The launch zeroes the counter.
 template <bool CM>
-__global__ void __launch_bounds__(BLOCK) replay_forward(
+__global__ void __launch_bounds__(FWD_BLOCK) replay_forward(
     const float* __restrict__ table,    // (N, 32)
     const float* __restrict__ o,        // (R, 3) or (3, R)
     const float* __restrict__ d,        // (R, 3) or (3, R)
@@ -615,36 +682,53 @@ __global__ void __launch_bounds__(BLOCK) replay_forward(
     const int32_t* __restrict__ smp,    // (R,) sample ids
     const int32_t* __restrict__ rec,    // (depth, R) packed records
     int n, int r, int depth, int accum_from, uint32_t seed,
+    int32_t* __restrict__ next,         // work counter
     float* __restrict__ rad) {          // (R, 3) or (3, R) out
   extern __shared__ float s_tab[];
   stage_table(table, n, s_tab);
   __syncthreads();
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= r) return;
-
-  Carry c = load_carry<CM>(o, d, valid, lane, r);
-  const uint32_t up = (uint32_t)pix[lane], us = (uint32_t)smp[lane];
-  float ar = 0.0f, ag = 0.0f, ab = 0.0f;
-  for (int it = 0; it < depth; ++it) {
-    const Dec dec = decode(rec[(size_t)it * r + lane]);
-    if (!dec.alive) continue;
-    const U4 u = uniform4(up, us, STREAM_BOUNCE_BASE + (uint32_t)it, seed);
-    const bool acc = it >= accum_from;
-    float dr, dg, db;
-    bounce_fwd(c, s_tab + dec.idx * TS, dec, u.x, u.y, u.z, acc, dr, dg, db);
-    if (acc) {
-      ar = ar + dr;
-      ag = ag + dg;
-      ab = ab + db;
+  const int wl = (int)(threadIdx.x & 31);
+  for (;;) {
+    int base = 0;
+    if (wl == 0) base = atomicAdd(next, 32);
+    base = __shfl_sync(FULL, base, 0);
+    if (base >= r) break;  // warp-uniform
+    const int lane = base + wl;
+    if (lane < r) {
+      const int last = last_alive(rec, lane, r, depth);
+      Carry c = load_carry<CM>(o, d, valid, lane, r);
+      const uint32_t up = (uint32_t)pix[lane], us = (uint32_t)smp[lane];
+      float ar = 0.0f, ag = 0.0f, ab = 0.0f;
+      for (int it = 0; it <= last; ++it) {
+        const Dec dec = decode(rec[(size_t)it * r + lane]);
+        if (!dec.alive) continue;
+        const U4 u = uniform4(up, us, STREAM_BOUNCE_BASE + (uint32_t)it, seed);
+        const bool acc = it >= accum_from;
+        float dr, dg, db;
+        bounce_fwd(c, s_tab + dec.idx * TS, dec, u.x, u.y, u.z, acc, dr, dg, db);
+        if (acc) {
+          ar = ar + dr;
+          ag = ag + dg;
+          ab = ab + db;
+        }
+      }
+      store3<CM>(rad, lane, r, ar, ag, ab);
     }
   }
-  store3<CM>(rad, lane, r, ar, ag, ab);
 }
 
-// CM: rays, their cotangents and the radiance cotangent channel-major,
-// (3, R) (K4-legacy's backward); else (R, 3) (K3).
-template <bool CM>
-__global__ void __launch_bounds__(BLOCK) replay_backward(
+// K3 (CM false: rays, their cotangents and the radiance cotangent (R, 3))
+// and K4-legacy's backward (CM true: (3, R)). SHARED_PART: the block's
+// table-cotangent partial lives in shared memory (copied to its slice of
+// `part` at the end), else in that slice of `part` itself.
+//
+// Lanes are assigned statically (block b takes the tiles b, b + grid, ...
+// of BWD_BLOCK lanes; thread t of a tile its lane t), not fetched from a
+// work counter: the order in which the table cotangent's terms are added
+// then depends on the inputs and the grid alone, so two launches on the
+// same inputs give the same bits.
+template <bool CM, bool SHARED_PART>
+__global__ void __launch_bounds__(BWD_BLOCK, 2) replay_backward(
     const float* __restrict__ table,
     const float* __restrict__ o,
     const float* __restrict__ d,
@@ -654,32 +738,84 @@ __global__ void __launch_bounds__(BLOCK) replay_backward(
     const int32_t* __restrict__ rec,
     const float* __restrict__ g_rad,   // (R, 3) or (3, R) radiance cotangent
     int n, int r, int depth, int accum_from, uint32_t seed,
-    float* __restrict__ ck,            // (depth, 9, gridDim.x * BLOCK) scratch
+    float* __restrict__ ck,            // (depth, 9, gridDim.x * BWD_BLOCK) scratch
     float* __restrict__ part,          // (gridDim.x, n * NU) block partials
     float* __restrict__ g_o,           // (R, 3) or (3, R) out
     float* __restrict__ g_d) {         // (R, 3) or (3, R) out
-  extern __shared__ float s_tab[];     // (n, TS) winner channels
-  stage_table(table, n, s_tab);
+  extern __shared__ float smem[];
+  float* s_tab = smem;                                   // (n, TS) winner channels
+  float* s_list = s_tab + n * TS;                        // (warps, 32, LS) group sums
+  int* s_key = (int*)(s_list + BWD_WARPS * 32 * LS);     // (warps, 32) their rows
+  int* s_cnt = s_key + BWD_WARPS * 32;                   // (warps,) entries listed
+  // The tile sort's counts, order and last rows share the lists' space.
+  int* s_hist = (int*)s_list;                            // (SORT_KEYS, warps)
+  int* s_perm = s_hist + SORT_KEYS * BWD_WARPS;          // (BWD_BLOCK,) lanes
+  int* s_plast = s_perm + BWD_BLOCK;                     // (BWD_BLOCK,) their last rows
   // This block's table cotangent (n, NU), read and written by it alone.
-  float* b_part = part + (size_t)blockIdx.x * n * NU;
-  for (int k = threadIdx.x; k < n * NU; k += blockDim.x) b_part[k] = 0.0f;
+  float* b_part = SHARED_PART ? (float*)(s_cnt + BWD_WARPS)
+                              : part + (size_t)blockIdx.x * n * NU;
+  stage_table(table, n, s_tab);
+  for (int k = threadIdx.x; k < n * NU; k += BWD_BLOCK) b_part[k] = 0.0f;
   __syncthreads();
 
-  const int nthreads = gridDim.x * BLOCK;
-  const int tid = blockIdx.x * BLOCK + threadIdx.x;
-  const int wl = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_tiles = (r + BLOCK - 1) / BLOCK;
+  const int nthreads = gridDim.x * BWD_BLOCK;
+  const int tid = blockIdx.x * BWD_BLOCK + threadIdx.x;
+  const int wl = (int)(threadIdx.x & 31), warp = (int)(threadIdx.x >> 5);
+  const unsigned below = (1u << wl) - 1u;
+  const unsigned after = ~((2u << wl) - 1u);  // the warp's lanes after this one
+  const int n_tiles = (r + BWD_BLOCK - 1) / BWD_BLOCK;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int lane = tile * BLOCK + threadIdx.x;
+    // Phase 0: the tile's lanes in order of their last alive row, longest
+    // first (a stable counting sort over SORT_KEYS keys, ties in lane
+    // order; lanes deeper than SORT_KEYS rows from the bottom share the last
+    // key), so that each warp walks paths of about one length and the warps
+    // whose paths have ended sit out the rows above them.
+    int blast = -1;  // the tile's last alive row: the reverse sweep starts there
+    {
+      const int mine = tile * BWD_BLOCK + threadIdx.x;
+      const int mlast = mine < r ? last_alive(rec, mine, r, depth) : -1;
+      const int key = min(depth - 1 - mlast, SORT_KEYS - 1);
+      for (int k = threadIdx.x; k < SORT_KEYS * BWD_WARPS; k += BWD_BLOCK) s_hist[k] = 0;
+      const int wmax = __reduce_max_sync(FULL, mlast);
+      if (wl == 0) s_cnt[warp] = wmax;
+      __syncthreads();
+#pragma unroll
+      for (int w = 0; w < BWD_WARPS; ++w) blast = max(blast, s_cnt[w]);
+      const unsigned same = __match_any_sync(FULL, key);
+      const int wrank = __popc(same & below);
+      if (wrank == 0) s_hist[key * BWD_WARPS + warp] = __popc(same);
+      __syncthreads();
+      if (warp == 0) {  // exclusive scan in (key, warp) order
+        int base = 0;
+        for (int k0 = 0; k0 < SORT_KEYS * BWD_WARPS; k0 += 32) {
+          const int v = s_hist[k0 + wl];
+          int incl = v;
+#pragma unroll
+          for (int s = 1; s < 32; s <<= 1) {
+            const int t = __shfl_up_sync(FULL, incl, s);
+            if (wl >= s) incl += t;
+          }
+          s_hist[k0 + wl] = base + incl - v;
+          base += __shfl_sync(FULL, incl, 31);
+        }
+      }
+      __syncthreads();
+      const int at = s_hist[key * BWD_WARPS + warp] + wrank;
+      s_perm[at] = mine;
+      s_plast[at] = mlast;
+      __syncthreads();
+    }
+    const int lane = s_perm[threadIdx.x];
+    const int last = s_plast[threadIdx.x];  // last alive row of this lane
+    __syncthreads();  // the lists reuse the order's space
     const bool active = lane < r;
     uint32_t up = 0, us = 0;
-    int last = -1;  // last alive row of this lane
     if (active) {
       up = (uint32_t)pix[lane];
       us = (uint32_t)smp[lane];
       // Phase 1: forward, storing the carry each alive row enters with.
       Carry c = load_carry<CM>(o, d, valid, lane, r);
-      for (int it = 0; it < depth; ++it) {
+      for (int it = 0; it <= last; ++it) {
         const Dec dec = decode(rec[(size_t)it * r + lane]);
         if (!dec.alive) continue;
         float* slot = ck + (size_t)it * NCARRY * nthreads + tid;
@@ -692,7 +828,6 @@ __global__ void __launch_bounds__(BLOCK) replay_backward(
         slot[6 * (size_t)nthreads] = c.tx;
         slot[7 * (size_t)nthreads] = c.ty;
         slot[8 * (size_t)nthreads] = c.tz;
-        last = it;
         const U4 u = uniform4(up, us, STREAM_BOUNCE_BASE + (uint32_t)it, seed);
         float dr, dg, db;
         bounce_fwd(c, s_tab + dec.idx * TS, dec, u.x, u.y, u.z, false, dr, dg,
@@ -709,11 +844,11 @@ __global__ void __launch_bounds__(BLOCK) replay_backward(
       grb = g_rad[at3<CM>(lane, 2, r)];
     }
     Carry g = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    for (int it = depth - 1; it >= 0; --it) {
+    for (int it = blast; it >= 0; --it) {  // block-uniform
       Dec dec;
       dec.alive = false;
+      dec.idx = 0;
       if (it <= last) dec = decode(rec[(size_t)it * r + lane]);
-      if (!__syncthreads_or(dec.alive)) continue;  // block-uniform
       float gch[NU];
       bool contrib = false;
       if (dec.alive) {
@@ -732,51 +867,82 @@ __global__ void __launch_bounds__(BLOCK) replay_backward(
         for (int j = 0; j < NU; ++j) gch[j] = 0.0f;
       }
 
-      // Table cotangent, fixed order. Lanes of a warp with the same winner:
-      // the lowest one sums the others' values in ascending lane order.
-      const int key = contrib ? dec.idx : -1 - wl;  // non-contributors alone
-      const unsigned grp = __match_any_sync(0xffffffffu, key);
-      const int leader = __ffs(grp) - 1;
-      unsigned movers = __ballot_sync(0xffffffffu, wl != leader);
-      while (movers) {  // warp-uniform
-        const int src = __ffs(movers) - 1;
-        movers &= movers - 1;
-        const int dst = __shfl_sync(0xffffffffu, leader, src);
+      // Lanes of the warp with the same winner: a tree over their ranks in
+      // the group. At step s, the member of rank q (q a multiple of 2s) adds
+      // the sum held by the member of rank q + s (`nxt`), then `nxt` jumps
+      // to that member's own `nxt`, 2s ranks on.
+      if (__any_sync(FULL, contrib)) {
+        const int key = contrib ? dec.idx : -1 - wl;  // non-contributors alone
+        const unsigned grp = __match_any_sync(FULL, key);
+        const int rank = __popc(grp & below);
+        const unsigned later = grp & after;
+        int nxt = later ? __ffs(later) - 1 : -1;
+        const int gmax = __reduce_max_sync(FULL, __popc(grp));
+        for (int s = 1; s < gmax; s <<= 1) {  // warp-uniform
+          const bool take = nxt >= 0 && (rank & (2 * s - 1)) == 0;
+          const int src = nxt >= 0 ? nxt : wl;
 #pragma unroll
-        for (int j = 0; j < NU; ++j) {
-          const float v = __shfl_sync(0xffffffffu, gch[j], src);
-          if (wl == dst) gch[j] += v;
+          for (int j = 0; j < NU; ++j) {
+            const float v = __shfl_sync(FULL, gch[j], src);
+            if (take) gch[j] = gch[j] + v;
+          }
+          const int ahead = __shfl_sync(FULL, nxt, src);
+          nxt = nxt >= 0 ? ahead : -1;
+        }
+        // Each group's lowest lane lists its sum, in lane order.
+        const bool lead = contrib && rank == 0;
+        const unsigned leads = __ballot_sync(FULL, lead);
+        if (lead) {
+          const int e = warp * 32 + __popc(leads & below);
+          float* ent = s_list + e * LS;
+#pragma unroll
+          for (int j = 0; j < NU; ++j) ent[j] = gch[j];
+          s_key[e] = dec.idx;
+        }
+        if (wl == 0) s_cnt[warp] = __popc(leads);
+      } else if (wl == 0) {
+        s_cnt[warp] = 0;
+      }
+      __syncthreads();
+      // Warp `warp` adds the entries of the rows it owns (row % 8 == warp)
+      // into the block's partial, lane j channel j: warps in order, each
+      // warp's entries in lane order.
+      for (int w = 0; w < BWD_WARPS; ++w) {
+        const int cnt = s_cnt[w];
+        const int k = wl < cnt ? s_key[w * 32 + wl] : -1;
+        unsigned mine = __ballot_sync(FULL, k >= 0 && (k & (BWD_WARPS - 1)) == warp);
+        while (mine) {  // warp-uniform
+          const int e = __ffs(mine) - 1;
+          mine &= mine - 1;
+          const int row = __shfl_sync(FULL, k, e);
+          if (wl < NU) {
+            float* p = b_part + row * NU + wl;
+            *p = *p + s_list[(w * 32 + e) * LS + wl];
+          }
         }
       }
-      // Then the warps, one after another, into the block's partial (the
-      // barrier orders the global writes within the block).
-      for (int w = 0; w < NWARPS; ++w) {
-        if (warp == w && contrib && wl == leader) {
-          float* p = b_part + (size_t)dec.idx * NU;
-#pragma unroll
-          for (int j = 0; j < NU; ++j) p[j] += gch[j];
-        }
-        __syncthreads();
-      }
+      __syncthreads();  // the lists are free again
     }
     if (active) {
       store3<CM>(g_o, lane, r, g.ox, g.oy, g.oz);
       store3<CM>(g_d, lane, r, g.dx, g.dy, g.dz);
     }
   }
+  if (SHARED_PART) {
+    __syncthreads();
+    float* out = part + (size_t)blockIdx.x * n * NU;
+    for (int k = threadIdx.x; k < n * NU; k += BWD_BLOCK) out[k] = b_part[k];
+  }
 }
 
-// g_table (N, 32): column USED[j] is the sum over blocks, in block order,
+// g_table (N, 32): the column of channel j is the sum over blocks, in block order,
 // of the partials' channel j; the other columns are zero.
 __global__ void reduce_partials(const float* __restrict__ part, int nblocks,
                                 int n, float* __restrict__ g_table) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= n * C_IN) return;
-  const int row = k / C_IN, col = k % C_IN;
-  int j = -1;
-  for (int q = 0; q < NU; ++q) {
-    if (USED[q] == col) j = q;
-  }
+  const int row = k / C_IN;
+  const int j = channel_of(k % C_IN);
   float s = 0.0f;
   if (j >= 0) {
     for (int b = 0; b < nblocks; ++b) s += part[((size_t)b * n + row) * NU + j];
@@ -784,54 +950,141 @@ __global__ void reduce_partials(const float* __restrict__ part, int nblocks,
   g_table[k] = s;
 }
 
-// Bytes of dynamic shared memory for an N-row table (forward and backward
-// stage the same channels).
-int table_smem(int n) { return n * TS * (int)sizeof(float); }
+// K3's partial can live in shared memory up to this many table rows.
+constexpr int LIST_FLOATS = BWD_WARPS * 32 * LS + BWD_WARPS * 32 + BWD_WARPS;
+constexpr int SHARED_PART_ROWS = (MAX_SMEM / 4 - LIST_FLOATS) / (TS + NU);
 
-int set_smem(const void* kernel, int bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+// Bytes of dynamic shared memory: K4 stages the table; K3 also holds the
+// warps' lists and, with `shared`, its partial.
+int forward_smem(int n) { return n * TS * (int)sizeof(float); }
+int backward_smem(int n, bool shared) {
+  return (n * TS + LIST_FLOATS + (shared ? n * NU : 0)) * (int)sizeof(float);
 }
 
+template <bool CM>
+const void* backward_kernel(bool shared) {
+  return shared ? (const void*)replay_backward<CM, true>
+                : (const void*)replay_backward<CM, false>;
+}
+
+// Let every kernel of the file take the block's whole dynamic shared memory.
+// Each shape query sets it (the wrapper queries, and caches, the shape it
+// launches on), so no launch sets or queries anything.
+cudaError_t allow_smem() {
+  const void* kernels[] = {
+      (const void*)replay_forward<false>, (const void*)replay_forward<true>,
+      backward_kernel<false>(false),      backward_kernel<false>(true),
+      backward_kernel<true>(false),       backward_kernel<true>(true)};
+  for (const void* k : kernels) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
+// Resident blocks per SM of `kernel` with `smem` bytes of dynamic shared memory.
+cudaError_t resident(const void* kernel, int threads, int smem, int* per_sm) {
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, threads, smem);
+}
+
+// A kernel's launch shape: resident blocks per SM (shape[0]), SMs, threads
+// per block, registers per thread, local (spill) bytes per thread, dynamic
+// shared memory per block, whether K3's partial is in shared memory.
+cudaError_t shape_of(const void* kernel, int threads, int smem, int sp,
+                     int32_t* shape) {
+  int per_sm = 0, sms = 0, dev = 0;
+  cudaError_t e = resident(kernel, threads, smem, &per_sm);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaFuncAttributes attr{};
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return e;
+  shape[0] = per_sm;
+  shape[1] = sms;
+  shape[2] = threads;
+  shape[3] = attr.numRegs;
+  shape[4] = (int32_t)attr.localSizeBytes;
+  shape[5] = smem;
+  shape[6] = sp;
+  return per_sm < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
+}
+
+template <bool CM>
+cudaError_t forward_shape(int n, int32_t* shape) {
+  return shape_of((const void*)replay_forward<CM>, FWD_BLOCK, forward_smem(n), 0, shape);
+}
+
+// K3's partial goes to shared memory where it fits beside the table and
+// keeps as many K3 blocks resident as the global partial would; else to
+// `part`. K4-legacy's backward takes K3's placement (and K3's grid, from the
+// wrapper). Where the partial goes does not change the sums' order, only the
+// grid does.
+template <bool CM>
+cudaError_t backward_shape(int n, int32_t* shape) {
+  bool shared = n <= SHARED_PART_ROWS;
+  if (shared) {
+    int with = 0, without = 0;
+    cudaError_t e =
+        resident(backward_kernel<false>(true), BWD_BLOCK, backward_smem(n, true), &with);
+    if (e == cudaSuccess) {
+      e = resident(backward_kernel<false>(false), BWD_BLOCK, backward_smem(n, false), &without);
+    }
+    if (e != cudaSuccess) return e;
+    shared = with >= without;
+  }
+  return shape_of(backward_kernel<CM>(shared), BWD_BLOCK, backward_smem(n, shared),
+                  shared ? 1 : 0, shape);
+}
+
+// Launch K4 (or K4-legacy's forward) on `grid` blocks, after zeroing the
+// work counter. The wrapper sizes `grid` from the launch shape: as many
+// blocks as stay resident, none more than the R lanes need.
 template <bool CM>
 int launch_forward(const float* table, const float* o, const float* d,
                    const int32_t* valid, const int32_t* pix, const int32_t* smp,
                    const int32_t* rec, int n, int r, int depth, int accum_from,
-                   int seed, float* rad, void* stream) {
-  const int smem = table_smem(n);
-  int e = set_smem((const void*)replay_forward<CM>, smem);
-  if (e != 0) return e;
-  const int grid = (r + BLOCK - 1) / BLOCK;
+                   int seed, int grid, int32_t* next, float* rad, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const cudaError_t e = cudaMemsetAsync(next, 0, sizeof(int32_t), st);
+  if (e != cudaSuccess) return (int)e;
   if (grid > 0) {
-    replay_forward<CM><<<grid, BLOCK, smem, (cudaStream_t)stream>>>(
-        table, o, d, valid, pix, smp, rec, n, r, depth, accum_from,
-        (uint32_t)seed, rad);
+    replay_forward<CM><<<grid, FWD_BLOCK, forward_smem(n), st>>>(
+        table, o, d, valid, pix, smp, rec, n, r, depth, accum_from, (uint32_t)seed,
+        next, rad);
   }
   return (int)cudaGetLastError();
 }
 
+// Launch K3 (or K4-legacy's backward) on `grid` blocks with the partial in
+// shared memory or not (`shared`), then the reduce of their partials into
+// g_table. The wrapper takes `grid` and `shared` from K3's launch shape and
+// sizes `ck` / `part` from `grid`.
 template <bool CM>
 int launch_backward(const float* table, const float* o, const float* d,
                     const int32_t* valid, const int32_t* pix,
                     const int32_t* smp, const int32_t* rec, const float* g_rad,
                     int n, int r, int depth, int accum_from, int seed, int grid,
-                    float* ck, float* part, float* g_table, float* g_o,
+                    int shared, float* ck, float* part, float* g_table, float* g_o,
                     float* g_d, void* stream) {
-  const int smem = table_smem(n);
-  int e = set_smem((const void*)replay_backward<CM>, smem);
-  if (e != 0) return e;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int smem = backward_smem(n, shared != 0);
   if (grid > 0) {
-    replay_backward<CM><<<grid, BLOCK, smem, (cudaStream_t)stream>>>(
-        table, o, d, valid, pix, smp, rec, g_rad, n, r, depth, accum_from,
-        (uint32_t)seed, ck, part, g_o, g_d);
-    e = (int)cudaGetLastError();
-    if (e != 0) return e;
+    if (shared) {
+      replay_backward<CM, true><<<grid, BWD_BLOCK, smem, st>>>(
+          table, o, d, valid, pix, smp, rec, g_rad, n, r, depth, accum_from,
+          (uint32_t)seed, ck, part, g_o, g_d);
+    } else {
+      replay_backward<CM, false><<<grid, BWD_BLOCK, smem, st>>>(
+          table, o, d, valid, pix, smp, rec, g_rad, n, r, depth, accum_from,
+          (uint32_t)seed, ck, part, g_o, g_d);
+    }
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
   }
   const int entries = n * C_IN;
   if (entries > 0) {
-    reduce_partials<<<(entries + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-        part, grid, n, g_table);
+    reduce_partials<<<(entries + 255) / 256, 256, 0, st>>>(part, grid, n, g_table);
   }
   return (int)cudaGetLastError();
 }
@@ -840,33 +1093,49 @@ int launch_backward(const float* table, const float* o, const float* d,
 
 extern "C" {
 
-// Bytes of dynamic shared memory for an N-row table.
-int crucible_replay_smem_bytes(int n) { return table_smem(n); }
+// The launch shape of one kernel for an N-row table into shape[0..6]:
+// resident blocks per SM, SMs, threads per block, registers per thread,
+// local (spill) bytes per thread, dynamic shared memory bytes per block,
+// 1 if K3's partial is in shared memory. `kernel`: 0 K4, 1 K3, 2 K4-legacy's
+// forward, 3 its backward. Also lets every kernel of the file take a block's
+// whole shared memory, so it precedes the first launch. Returns a CUDA error.
+int crucible_replay_shape(int kernel, int n, int32_t* shape) {
+  const cudaError_t e = allow_smem();
+  if (e != cudaSuccess) return (int)e;
+  switch (kernel) {
+    case 0: return (int)forward_shape<false>(n, shape);
+    case 1: return (int)backward_shape<false>(n, shape);
+    case 2: return (int)forward_shape<true>(n, shape);
+    case 3: return (int)backward_shape<true>(n, shape);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
-// Launch the replay forward (K4) on `stream`: rays and radiance (R, 3).
-// Returns cudaGetLastError().
+// Launch the replay forward (K4) with `grid` blocks on `stream`: rays and
+// radiance (R, 3); `next` one int32 of scratch, the work counter. Returns
+// cudaGetLastError().
 int crucible_replay_forward(const float* table, const float* o, const float* d,
                             const int32_t* valid, const int32_t* pix,
                             const int32_t* smp, const int32_t* rec, int n,
-                            int r, int depth, int accum_from, int seed,
-                            float* rad, void* stream) {
+                            int r, int depth, int accum_from, int seed, int grid,
+                            int32_t* next, float* rad, void* stream) {
   return launch_forward<false>(table, o, d, valid, pix, smp, rec, n, r, depth,
-                               accum_from, seed, rad, stream);
+                               accum_from, seed, grid, next, rad, stream);
 }
 
-// Launch the replay backward (K3) with `grid` blocks, then the reduce of its
-// block partials into g_table (N, 32). `ck` holds depth * 9 * grid * 128
-// floats, `part` grid * N * 22. Rays and cotangents (R, 3). Returns
-// cudaGetLastError().
+// Launch the replay backward (K3) with `grid` blocks, its partial in shared
+// memory if `shared`, then the reduce of its block partials into g_table
+// (N, 32). `ck` holds depth * 9 * grid * 256 floats, `part` grid * N * 22.
+// Rays and cotangents (R, 3). Returns cudaGetLastError().
 int crucible_replay_backward(const float* table, const float* o,
                              const float* d, const int32_t* valid,
                              const int32_t* pix, const int32_t* smp,
                              const int32_t* rec, const float* g_rad, int n,
                              int r, int depth, int accum_from, int seed,
-                             int grid, float* ck, float* part, float* g_table,
-                             float* g_o, float* g_d, void* stream) {
+                             int grid, int shared, float* ck, float* part,
+                             float* g_table, float* g_o, float* g_d, void* stream) {
   return launch_backward<false>(table, o, d, valid, pix, smp, rec, g_rad, n, r,
-                                depth, accum_from, seed, grid, ck, part,
+                                depth, accum_from, seed, grid, shared, ck, part,
                                 g_table, g_o, g_d, stream);
 }
 
@@ -876,10 +1145,10 @@ int crucible_replay_legacy_forward(const float* table, const float* o,
                                    const float* d, const int32_t* valid,
                                    const int32_t* pix, const int32_t* smp,
                                    const int32_t* rec, int n, int r, int depth,
-                                   int accum_from, int seed, float* rad,
-                                   void* stream) {
+                                   int accum_from, int seed, int grid,
+                                   int32_t* next, float* rad, void* stream) {
   return launch_forward<true>(table, o, d, valid, pix, smp, rec, n, r, depth,
-                              accum_from, seed, rad, stream);
+                              accum_from, seed, grid, next, rad, stream);
 }
 
 // K4-legacy's backward: crucible_replay_backward on channel-major rays,
@@ -890,12 +1159,12 @@ int crucible_replay_legacy_backward(const float* table, const float* o,
                                     const int32_t* pix, const int32_t* smp,
                                     const int32_t* rec, const float* g_rad,
                                     int n, int r, int depth, int accum_from,
-                                    int seed, int grid, float* ck, float* part,
-                                    float* g_table, float* g_o, float* g_d,
-                                    void* stream) {
+                                    int seed, int grid, int shared, float* ck,
+                                    float* part, float* g_table, float* g_o,
+                                    float* g_d, void* stream) {
   return launch_backward<true>(table, o, d, valid, pix, smp, rec, g_rad, n, r,
-                               depth, accum_from, seed, grid, ck, part, g_table,
-                               g_o, g_d, stream);
+                               depth, accum_from, seed, grid, shared, ck, part,
+                               g_table, g_o, g_d, stream);
 }
 
 const char* crucible_cuda_error_string(int err) {

@@ -50,11 +50,11 @@ SIGNATURES = {
         "crucible_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "replay_kernel": {
-        "crucible_replay_forward": ([_P] * 7 + [_I] * 5 + [_P] * 2, _I),
-        "crucible_replay_backward": ([_P] * 8 + [_I] * 6 + [_P] * 6, _I),
-        "crucible_replay_legacy_forward": ([_P] * 7 + [_I] * 5 + [_P] * 2, _I),
-        "crucible_replay_legacy_backward": ([_P] * 8 + [_I] * 6 + [_P] * 6, _I),
-        "crucible_replay_smem_bytes": ([_I], _I),
+        "crucible_replay_forward": ([_P] * 7 + [_I] * 6 + [_P] * 3, _I),
+        "crucible_replay_backward": ([_P] * 8 + [_I] * 7 + [_P] * 6, _I),
+        "crucible_replay_legacy_forward": ([_P] * 7 + [_I] * 6 + [_P] * 3, _I),
+        "crucible_replay_legacy_backward": ([_P] * 8 + [_I] * 7 + [_P] * 6, _I),
+        "crucible_replay_shape": ([_I, _I, ctypes.POINTER(_I)], _I),
         "crucible_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "sphere_hit": {

@@ -42,6 +42,8 @@ throughput starts at the 0/1 ``valid`` mask), ``rec`` (depth, R) int32,
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
 
 import torch
@@ -63,18 +65,19 @@ USED = (
 NUSE = len(USED)
 
 # Both kernels stage the USED channels in a block's shared memory, rows at a
-# stride of 23 floats (the backward keeps its table-cotangent partial in
-# global memory), which holds up to 2526 rows; the routing limit is the JAX
-# kernel's MAX_TABLE_ROWS.
+# stride of 23 floats, which holds up to 2526 rows; the routing limit is the
+# JAX kernel's MAX_TABLE_ROWS.
 ROW_STRIDE = 23
 MAX_TABLE_ROWS = 2048
 assert MAX_TABLE_ROWS * ROW_STRIDE * 4 <= mk.SHARED_MEM_BYTES
 
-# Threads per block, and the fixed number of blocks of the backward's
-# grid-stride loop: its block partials are summed in block order, so a
-# fixed count keeps the table cotangent's bits the same launch to launch.
-BLOCK = 128
-BACKWARD_BLOCKS = 264
+# Threads per block: K4's persistent warps, K3's eight warps (its shared
+# memory layout, and where its table-cotangent partial lives, are the C
+# library's: see ``launch_shape``).
+FORWARD_BLOCK = 512
+BACKWARD_BLOCK = 256
+# Launch-shape queries of the C library, by kernel.
+_SHAPE_KINDS = {"forward": 0, "backward": 1, "legacy_forward": 2, "legacy_backward": 3}
 
 # Launches of the CUDA kernels since the last reset (twin calls excluded).
 LAUNCHES_FORWARD = 0
@@ -350,19 +353,63 @@ def _lib():
     return build.load("replay_kernel")
 
 
+def grid_size(blocks_per_sm: int, sms: int, threads: int, r: int) -> int:
+    """Blocks of a persistent launch: as many as stay resident, none more
+    than ``r`` lanes need."""
+    return min(blocks_per_sm * sms, -(-r // threads))
+
+
+def backward_scratch(n: int, depth: int, grid: int) -> tuple[int, int]:
+    """Floats of K3's scratch for ``grid`` blocks: the carries (depth x 9 a
+    resident thread) and the block partials (n x 22 a block)."""
+    return depth * 9 * grid * BACKWARD_BLOCK, grid * n * NUSE
+
+
+@functools.cache
+def _shape(kind: int, n: int, device: int) -> tuple:
+    """The C library's launch shape, queried once per (kernel, n, card); the
+    query also lets the kernels take a block's whole shared memory, so each
+    launch is sized from here and itself queries nothing."""
+    lib = _lib()
+    shape = (ctypes.c_int * 7)()
+    with torch.cuda.device(device):
+        build.check(lib, lib.crucible_replay_shape(kind, n, shape), "replay shape")
+    return tuple(shape)
+
+
+def launch_shape(kernel: str, n: int, r: int, device=None) -> dict:
+    """The launch on the current card (or ``device``) of ``kernel``
+    ("forward" K4, "backward" K3, "legacy_forward", "legacy_backward") for
+    an n-row table and R lanes: grid, resident blocks per SM, SMs, threads
+    per block, registers and local (spill) bytes per thread, dynamic shared
+    memory per block, and whether K3's partial is in shared memory.
+    K4-legacy's backward launches on K3's grid and partial placement."""
+    index = None if device is None else torch.device(device).index
+    dev = torch.cuda.current_device() if index is None else index
+    per_sm, sms, threads, regs, local, smem, sp = _shape(_SHAPE_KINDS[kernel], n, dev)
+    grid = grid_size(per_sm, sms, threads, r)
+    if kernel == "legacy_backward":
+        grid = launch_shape("backward", n, r, dev)["grid"]
+    return dict(grid=grid, blocks_per_sm=per_sm, sms=sms,
+                threads=threads, registers=regs, spill_bytes=local, smem_bytes=smem,
+                shared_partial=bool(sp))
+
+
 def _launch_forward(legacy, table, o, d, valid, pix, smp, rec, seed, accum_from):
     """Launch K4, or with ``legacy`` K4-legacy on its layouts -> radiance in
     the rays' layout."""
     lib = _lib()
     n, r, depth = table.shape[0], rec.shape[1], rec.shape[0]
+    grid = launch_shape("legacy_forward" if legacy else "forward", n, r, table.device)["grid"]
     rad = torch.empty(o.shape, dtype=torch.float32, device=table.device)
+    nxt = torch.empty((1,), dtype=torch.int32, device=table.device)  # work counter
     launch = lib.crucible_replay_legacy_forward if legacy else lib.crucible_replay_forward
     with torch.cuda.device(table.device):
         err = launch(
             table.data_ptr(), o.data_ptr(), d.data_ptr(), valid.data_ptr(),
             pix.data_ptr(), smp.data_ptr(), rec.data_ptr(),
-            n, r, depth, int(accum_from), mk.as_i32(int(seed)),
-            rad.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            n, r, depth, int(accum_from), mk.as_i32(int(seed)), grid,
+            nxt.data_ptr(), rad.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     build.check(lib, err, "replay legacy forward" if legacy else "replay forward")
     return rad
@@ -373,10 +420,17 @@ def _launch_backward(legacy, table, o, d, valid, pix, smp, rec, seed, g_rad, acc
     (g_table (N, 32), g_o and g_d in the rays' layout)."""
     lib = _lib()
     n, r, depth = table.shape[0], rec.shape[1], rec.shape[0]
-    grid = min(BACKWARD_BLOCKS, (r + BLOCK - 1) // BLOCK)
+    # Persistent and static: the block count fixes the order in which the
+    # table cotangent is summed, so it depends on the card, n and r alone.
+    # K4-legacy's backward takes K3's count, so that its table cotangent has
+    # K3's bits whatever registers each instantiation was given; and K3's
+    # partial placement, which moves no sum.
+    shape = launch_shape("backward", n, r, table.device)
+    grid = shape["grid"]
     dev = dict(dtype=torch.float32, device=table.device)
-    ck = torch.empty((depth * 9 * grid * BLOCK,), **dev)
-    part = torch.empty((grid * n * NUSE,), **dev)
+    n_ck, n_part = backward_scratch(n, depth, grid)
+    ck = torch.empty((n_ck,), **dev)
+    part = torch.empty((n_part,), **dev)
     g_table = torch.empty((n, C_IN), **dev)
     g_o = torch.empty(o.shape, **dev)
     g_d = torch.empty(o.shape, **dev)
@@ -386,7 +440,7 @@ def _launch_backward(legacy, table, o, d, valid, pix, smp, rec, seed, g_rad, acc
             table.data_ptr(), o.data_ptr(), d.data_ptr(), valid.data_ptr(),
             pix.data_ptr(), smp.data_ptr(), rec.data_ptr(), g_rad.data_ptr(),
             n, r, depth, int(accum_from), mk.as_i32(int(seed)), grid,
-            ck.data_ptr(), part.data_ptr(), g_table.data_ptr(),
+            int(shape["shared_partial"]), ck.data_ptr(), part.data_ptr(), g_table.data_ptr(),
             g_o.data_ptr(), g_d.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )

@@ -147,3 +147,47 @@ def test_deep_chunk_takes_the_legacy_layout(cuda, monkeypatch):
     # (R, 3) and contiguous, so every leaf, the camera's too, is the same.
     for key in G.TENSOR_KEYS:
         assert torch.equal(grads_l[key], grads[key]), key
+
+
+def _deep_bucket(cuda, width=64, spp=4):
+    """K4's inputs for the depth-50 chunk's last bucket at ``width``: the
+    compacted slots of the lanes whose paths end past row 16, rays
+    regenerated, throughput masked by the filled slots (``valid``), as
+    ``replay.replay_bucketed_2l`` lays them out
+    (``tools/torch_replay_ab.deep_buckets``); radiance from row 6 on."""
+    from tools.torch_replay_ab import deep_buckets
+
+    sc = tdemo.book1_end_scene(width=width)
+    sd, cp = sc.build(device=cuda), sc.scene_cam.params(device=cuda)
+    w, h = sc.scene_cam.image_width, sc.scene_cam.image_height
+    pix, smp = G._lanes(torch.arange(w * h, device=cuda), spp, 0)
+    _, args, head = deep_buckets(sd, cp, w, h, pix, smp)[-1]
+    return args, head
+
+
+@pytest.mark.cuda
+def test_kernels_on_the_deep_bucket(cuda):
+    """d50 with accum_from > 0 and a valid mask: K4 bit for bit with its
+    plain version, K3 within the scheme and the same bits twice, and
+    K4-legacy's pair equal to K4's and K3's."""
+    args, head = _deep_bucket(cuda)
+    valid = args[3]
+    assert head > 0 and 0 < int(valid.sum()) < valid.shape[0]
+    kw = dict(accum_from=head)
+    rad = trk.replay_forward(*args, 0, **kw)
+    assert torch.equal(rad, trk.replay_forward_reference(*args, 0, **kw))
+    assert (rad[valid == 0] == 0).all()
+    r = valid.shape[0]
+    g_rad = torch.randn((r, 3), device=cuda, generator=torch.Generator(device=cuda).manual_seed(0))
+    got = trk.replay_backward(*args, 0, g_rad, **kw)
+    again = trk.replay_backward(*args, 0, g_rad, **kw)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    _k3_scheme(got, trk.replay_backward_reference(*args, 0, g_rad, **kw))
+    table, o, d, _, pix, smp, rec = args
+    legacy = (table, o.t().contiguous(), d.t().contiguous(), valid.reshape(1, r),
+              pix.reshape(1, r), smp.reshape(1, r), rec, 0)
+    assert torch.equal(trk.replay_legacy_forward(*legacy, **kw), rad.t())
+    lg = trk.replay_legacy_backward(*legacy, g_rad.t().contiguous(), **kw)
+    assert torch.equal(lg[0], got[0])
+    assert torch.equal(lg[1], got[1].t()) and torch.equal(lg[2], got[2].t())

@@ -279,6 +279,85 @@ def test_validates_inputs(name, change, error):
         trk.replay_forward(t["table"], t["o"], t["d"], valid, t["pix"], t["smp"], t["rec"], SEED)
 
 
+def test_backward_launch_is_sized_from_the_card():
+    """K3's host-side sizing: a persistent grid of as many blocks as stay
+    resident, none more than the lanes need; the carry scratch (depth x 9
+    floats a resident thread) and one partial of n x 22 floats a block."""
+    assert trk.grid_size(2, 132, trk.BACKWARD_BLOCK, 1920 * 1080 * 4) == 264
+    assert trk.grid_size(2, 132, trk.BACKWARD_BLOCK, 1000) == 4  # 1000 lanes: 4 tiles
+    assert trk.grid_size(1, 132, trk.FORWARD_BLOCK, 17) == 1
+    assert trk.grid_size(3, 132, trk.BACKWARD_BLOCK, 0) == 0
+    ck, part = trk.backward_scratch(488, 8, 264)
+    assert ck == 8 * 9 * 264 * trk.BACKWARD_BLOCK and part == 264 * 488 * trk.NUSE
+    # 19.5 MB of carries at d8 for 264 blocks, within the card's 50 MB L2.
+    assert 4 * ck < 20e6
+    assert trk.backward_scratch(2048, 50, 132) == (50 * 9 * 132 * 256, 132 * 2048 * 22)
+
+
+def test_kernel_source_keeps_the_static_deterministic_design():
+    """The C source: K4 fetches lanes from a warp-aggregated work counter;
+    K3 assigns lanes statically and reduces without float atomics."""
+    from crucible_tpu_torch.ops.kernels import build
+
+    src = (build.CSRC / "replay_kernel.cu").read_text()
+    assert "atomicAdd(next" in src and "cudaOccupancyMaxActiveBlocksPerMultiprocessor" in src
+    assert src.count("atomicAdd(") == 1  # the work counter's, an integer
+    assert "__match_any_sync" in src and "__reduce_max_sync" in src
+    assert "atomicAdd(b_part" not in src and "atomicAdd(p" not in src
+
+
+def test_launches_query_nothing():
+    """The C launches take their grid (and K3 its partial placement) from the
+    wrapper's cached launch shape: no occupancy query, device attribute or
+    function attribute is read or set per launch."""
+    import re
+
+    from crucible_tpu_torch.ops.kernels import build
+
+    src = (build.CSRC / "replay_kernel.cu").read_text()
+    for launch in ("launch_forward", "launch_backward"):
+        body = re.search(r"int " + launch + r"\(.*?\n}\n", src, re.S).group(0)
+        for call in ("cudaOccupancy", "cudaFuncSetAttribute", "cudaGetDevice",
+                     "cudaDeviceGetAttribute", "cudaFuncGetAttributes"):
+            assert call not in body, (launch, call)
+        assert "int grid" in body, launch
+    assert "int shared" in re.search(r"int launch_backward\(.*?\)", src, re.S).group(0)
+
+
+def test_deep_buckets_lay_out_the_chunk_as_the_replay_does():
+    """``tools/torch_replay_ab.deep_buckets`` (the buckets chip_smoke.py and
+    the A/B tool time and hold, and the card tests use): replaying each
+    bucket and adding it at its lanes gives ``replay_bucketed_2l``'s
+    radiance on the same two-level record, bit for bit (CPU twins)."""
+    from crucible_tpu_torch import grad as G
+    from crucible_tpu_torch.models.camera import generate_rays
+    from tools.torch_replay_ab import deep_buckets
+
+    cpu = torch.device("cpu")
+    sc = tdemo.book1_end_scene(width=16)
+    sd, cp = sc.build(device=cpu), sc.scene_cam.params(device=cpu)
+    w, h = sc.scene_cam.image_width, sc.scene_cam.image_height
+    pix, smp = G._lanes(torch.arange(w * h), 2, 0)
+    buckets = deep_buckets(sd, cp, w, h, pix, smp, max_depth=50)
+    lims, _ = trep._bucket_spec(50)
+    assert [name for name, _, _ in buckets] == [f"d{lim}" for lim in lims]
+    rad = torch.zeros((pix.shape[0], 3))
+    for j, (_, args, accum_from) in enumerate(buckets):
+        assert accum_from == (0 if j == 0 else lims[0]) and args[6].shape[0] == lims[j]
+        out = trk.replay_forward(*args, 0, accum_from=accum_from)
+        if j == 0:
+            rad = out
+            continue
+        filled = args[3] > 0
+        lanes = args[5].long() * (w * h) + args[4].long()  # sample-major
+        rad = rad.index_add(0, lanes[filled], out[filled])
+    o, d, _ = generate_rays(cp, w, h, pix, smp, 0)
+    rec = trep.record_two_level(sd, cp, w, h, pix, smp, 0, 50, head=lims[0])
+    want = trep.replay_bucketed_2l(sd, cp, w, h, o, d, pix, smp, 0, 50, *rec)
+    assert bool(want.isfinite().all())
+    assert torch.equal(rad, want)
+
+
 # --- on the card -------------------------------------------------------------------
 
 
@@ -352,3 +431,91 @@ def test_cuda_replay_never_takes_the_twins(cuda, monkeypatch):
     (g,) = torch.autograd.grad(rad.sum(), (table,))
     torch.cuda.synchronize()
     assert rad.is_cuda and torch.isfinite(rad).all() and torch.isfinite(g).all()
+
+
+def _table_rows(table, n):
+    """``table`` cut or padded (with copies of its last row) to n rows."""
+    if n <= table.shape[0]:
+        return table[:n].contiguous()
+    pad = table[-1:].expand(n - table.shape[0], -1)
+    return torch.cat([table, pad]).contiguous()
+
+
+def _one_winner(rec, row=0):
+    """The records with every hit's winner replaced by table row ``row``."""
+    hit = (rec & trep.F_HIT) > 0
+    return torch.where(hit, (rec & 0xFF) | (row << 8), rec).contiguous()
+
+
+def _check_pair(args, accum_from=0, what=""):
+    """K4 bit for bit with its plain version; K3 within the scheme and the
+    same bits twice; their launch counts."""
+    before = (trk.LAUNCHES_FORWARD, trk.LAUNCHES_BACKWARD)
+    rad = trk.replay_forward(*args, 0, accum_from=accum_from)
+    assert torch.equal(rad, trk.replay_forward_reference(*args, 0, accum_from=accum_from)), what
+    g_rad = torch.randn(rad.shape, device=rad.device,
+                        generator=torch.Generator(device=rad.device).manual_seed(0))
+    got = trk.replay_backward(*args, 0, g_rad, accum_from=accum_from)
+    again = trk.replay_backward(*args, 0, g_rad, accum_from=accum_from)
+    torch.cuda.synchronize()
+    assert (trk.LAUNCHES_FORWARD, trk.LAUNCHES_BACKWARD) == (before[0] + 1, before[1] + 2)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b), what
+    want = trk.replay_backward_reference(*args, 0, g_rad, accum_from=accum_from)
+    _assert_k3_scheme([g.cpu().numpy() for g in got], [g.cpu().numpy() for g in want])
+    return rad, got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [17, 1000, 8191])
+def test_kernels_at_ragged_lane_counts(cuda, r):
+    """Below a warp, and lane counts that are no multiple of 32, of K4's
+    512-thread block or of K3's 256-lane tile."""
+    table, o, d, valid, pix, smp, rec = _card_inputs(cuda, width=128, spp=1, depth=8)
+    sub = slice(5, 5 + r)
+    args = (table, o[sub].contiguous(), d[sub].contiguous(), valid[sub].contiguous(),
+            pix[sub].contiguous(), smp[sub].contiguous(), rec[:, sub].contiguous())
+    _check_pair(args, what=f"{r} lanes")
+
+
+@pytest.mark.cuda
+def test_kernels_with_every_lane_on_one_winner(cuda):
+    """Every hit on table row 0 (the ground): each warp's lanes form one
+    group, the merge's worst case."""
+    table, o, d, valid, pix, smp, rec = _card_inputs(cuda, width=192, spp=2, depth=8)
+    _check_pair((table, o, d, valid, pix, smp, _one_winner(rec)), what="one winner")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, trk.MAX_TABLE_ROWS])
+def test_kernels_at_one_row_and_at_the_row_limit(cuda, n):
+    """n = 1 (the partial in shared memory) and n = 2048 (in global
+    memory): the records' winners moved into the table's range. Two
+    256-thread blocks an SM hold book1's 488 rows with the partial beside
+    them; 2048 rows leave no room for it."""
+    table, o, d, valid, pix, smp, rec = _card_inputs(cuda, width=128, spp=2, depth=8)
+    if n == 1:
+        rec = _one_winner(rec)
+    assert trk.launch_shape("backward", n, rec.shape[1])["shared_partial"] == (n == 1)
+    _check_pair((_table_rows(table, n), o, d, valid, pix, smp, rec), what=f"{n} rows")
+
+
+@pytest.mark.cuda
+def test_launch_shapes_fill_the_card(cuda):
+    """Resident grids from the occupancy query: K3 at least 16 warps an SM
+    at book1's 488 rows with no spill; K4 at least 16."""
+    for kind in ("backward", "legacy_backward"):
+        s = trk.launch_shape(kind, 488, 8_294_400)
+        assert s["blocks_per_sm"] * s["threads"] // 32 >= 16, s
+        assert s["spill_bytes"] == 0 and s["shared_partial"]
+        assert s["grid"] == s["blocks_per_sm"] * s["sms"]
+    s = trk.launch_shape("forward", 488, 8_294_400)
+    assert s["blocks_per_sm"] * s["threads"] // 32 >= 16 and s["threads"] == trk.FORWARD_BLOCK
+    assert not trk.launch_shape("backward", 2048, 100)["shared_partial"]
+    assert trk.launch_shape("backward", 488, 100)["grid"] == 1
+    # 800 rows fit beside the table with the partial, but one such block an
+    # SM where two hold the partial in global memory: placed by residency.
+    s = trk.launch_shape("backward", 800, 8_294_400)
+    assert not s["shared_partial"] and s["blocks_per_sm"] >= 2, s
+    for kind in ("backward", "legacy_backward"):  # K4-legacy: K3's grid
+        assert trk.launch_shape(kind, 800, 8_294_400)["grid"] == s["grid"]
