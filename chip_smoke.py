@@ -75,9 +75,10 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
    - K8, the megakernel's motion variants, on "bouncing book1" (book1 in
      motion: its Lambertian small spheres rise over the first 1/48 s, and
      so does the camera; built here through the public API): each brute
-     instantiation (moving spheres, moving camera, both) at 320 wide, 8
-     spp, depth 50, and both on 64 pixel blocks of the 1920x1080 32 spp d50
-     launch; the walk with a moving camera on sphere_stress n1936 320 wide,
+     instantiation of the flat loop (moving spheres, moving camera, both)
+     at 320 wide, 8 spp, depth 50, and both on 64 pixel blocks of the
+     1920x1080 32 spp d50 launch, with each launch shape (grid, resident
+     blocks an SM, registers, spill bytes, shared memory); the walk with a moving camera on sphere_stress n1936 320 wide,
      8 spp, depth 50 (also against the brute camera variant on the
      original table). Each bit for bit against its plain version; K8 timed
      beside K1 on the same lanes of static and bouncing book1; and bouncing
@@ -87,23 +88,28 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
      bouncing book1 320 wide, 4 spp, depth 8; the walk with a moving camera
      on sphere_stress n1936 320 wide (also against the brute camera
      variant on the original table); 32768 lanes of bouncing book1's
-     1920x1080 4 spp d8 launch; and static book1's table given the animated
-     flag (zero motion columns) against K2. Each bit for bit.
-   - K6, the chunk-cull branch (the walk over 256-row clusters whose boxes
-     hold the spheres over the shutter), on "bouncing stress"
+     1920x1080 4 spp d8 launch (with its launch shape); and static book1's
+     table given the animated flag (zero motion columns) against K2. Each
+     bit for bit.
+   - K6, the walk over the swept tree (an SAH tree whose boxes hold each
+     sphere at shutter open and close, in place of the chunk-cull branch's
+     256-row clusters) in the flat loop, on "bouncing stress"
      (sphere_stress with every Lambertian sphere rising as in bouncing
      book1, and the camera too; built here through the public API):
-     forward (moving spheres and camera) on n1936 320 wide, 8 spp, depth
-     50, in full and against the K8 brute search on the original table, on
-     64 of the 120 pixel blocks of n7744 at 320 wide, and on 32 pixel
-     blocks of the n7744 1920x1080 32 spp d50 launch; the same walk over book1's static table in clusters
-     against K1; record (fused and plain) on n1936 and n7744 320 wide, 4
-     spp, depth 8, in full (n1936 also against the K8 brute record), and
-     on 32768 lanes of the n7744 1920x1080 4 spp d8 launch. Each bit for
-     bit against the plain version, which counts the node, row and root
-     tests that give K6's bound. Then K6 and the K8 brute search timed in
-     turns on the same lanes of n1936 at 320 wide and 1920x1080 (the
-     animated CULL_MIN_ROWS crossover).
+     forward (moving spheres and camera) on n7744 and n1936 at 320 wide,
+     8 spp, depth 50, in full (n1936 also against the K8 brute search on
+     the original table), and on K6_MAIN_BLOCKS (64) pixel blocks of the
+     n7744 1920x1080 32 spp d50 launch; the same walk over book1's static
+     table in a tree against K1 and the plain version, in full; record
+     (fused and plain) on n1936 and n7744 320 wide, 4 spp, depth 8, in full
+     (n1936 also against the K8 brute record), and on K6_RECORD_LANES
+     (131,072) lanes of the n7744 1920x1080 4 spp d8 launch.
+     Each bit for bit against the plain version, which counts the node,
+     row and root tests that give K6's bound (printed a search), with each
+     launch shape. Then K6 at leaf sizes 8, 4, 16, 8 on n7744 (320 wide and
+     1920x1080), and K6 and the K8 brute search timed in turns on the same
+     lanes of n1936 and of its first 1,024 rows at 320 wide and 1920x1080
+     (the animated CULL_MIN_ROWS crossover), bit for bit.
    - K7, the triangle-BVH stage for static meshes, on "torus_teapot"
      (demo.load_teapot's scene with a procedural torus of the teapot's
      6,320 triangles in place of teapot.obj; built here through the public
@@ -214,7 +220,8 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
    scene build's time.
 19. Its movie: ``render.render_movie`` at 400x225, 50 spp, depth 5, cut to
    2 frames, the launches of each frame read (frame 0 K6; frame 1, past
-   the keyframe, K6 with zero deltas or K5), beside each frame's build.
+   the keyframe, K6 with zero deltas or K5), beside each frame's build and
+   the swept tree's part of it.
 20. Its gradient, ``grad.loss_and_grad`` at 1920x1080, 4 spp, depth 8 (K6
    record, then the eager replay; K3 and K4 never launch): a warm and 2
    timed steps, the step by phase, peak memory, ``record_decisions`` and a
@@ -263,6 +270,7 @@ import sys
 import tempfile
 import time
 import warnings
+from dataclasses import replace
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -308,10 +316,10 @@ SLAB_OPS = 18
 # and pixel00).
 MOTION_SEARCH_OPS = SEARCH_OPS + 18
 CAM_OPS = 81
-# K6's walk over clusters: K5's slab test a node, and a moving leaf row
-# costs K10's HIT_DISC_OPS plus the motion terms (csrc/megakernel.cu
-# walk_closest<true>, common.cuh closest_sphere_moving), ROOT_OPS more
-# where the discriminant is not negative (counted by CULL_COUNTS).
+# K6's walk over the swept tree: K5's slab test a node, and a moving leaf
+# row costs K10's HIT_DISC_OPS plus the motion terms (csrc/megakernel.cu
+# tree_closest, moving_terms), ROOT_OPS more where the discriminant is not
+# negative (counted by CULL_COUNTS).
 MOVING_DISC_OPS = HIT_DISC_OPS + MOTION_SEARCH_OPS - SEARCH_OPS
 # K7's walk: a node's slab test (6 subtractions and 6 multiplies), and a
 # leaf row's Woop test (d'_z 5, o'_z 6, the division, t, o'_x and d'_x 11,
@@ -325,6 +333,11 @@ WOOP_OPS = 40
 # search's MOTION_SEARCH_OPS a row and, with the camera, CAM_OPS a sample.
 MT_MOVING_OPS = 64
 N_SUB = 32768  # lanes of a 1920x1080 launch held against the twin
+# K6's launches at 1920x1080 held against the plain walk: pixel blocks of
+# the forward's 4080 and lanes of the record's 8,294,400. Every 320-wide
+# launch is held in full. The plain walk's lockstep loop (one step a node,
+# up to ~150 steps a search, each a few dozen small launches) bounds them.
+K6_MAIN_BLOCKS, K6_RECORD_LANES = 64, 4 * N_SUB
 
 
 def bouncing_book1(demo, width: int):
@@ -341,7 +354,7 @@ def bouncing_stress(demo, width: int, copies: int):
     """``demo.sphere_stress(width, copies)`` in motion as bouncing_book1
     moves book1 (book1's small spheres, then the copies' ``stress{k}``):
     copies=4 has 1,936 table rows, copies=16 7,744, whose moving table the
-    megakernel walks in 256-row clusters (K6). tests/torch_motion_scenes.py
+    megakernel walks in its swept tree (K6). tests/torch_motion_scenes.py
     builds the same scene."""
     return bounce(demo.sphere_stress(width=width, copies=copies), ("small", "stress"))
 
@@ -675,15 +688,21 @@ def main() -> None:
     if not err <= 1e-4:
         raise AssertionError(f"smoke: kernel and eager version differ by {err}")
 
-    def brute_shape(record, radiance, inputs, what):
-        """K1's / K2's launch shape (grid, resident blocks, registers),
-        printed."""
-        shape = mk.brute_launch_shape(record, radiance, inputs["table"].shape[0],
-                                      inputs["pix"].shape[1])
+    def brute_shape(record, radiance, inputs, what, **flags):
+        """The flat loop's launch shape (K1, K2; K8's brute search and K6
+        with their flags: grid, resident blocks, registers, spill bytes,
+        shared memory), printed; from the wrapper's cached shape, which the
+        launches use."""
+        nodes = inputs.get("swept_nodes")
+        shape = mk.flat_launch_shape(record, radiance, inputs["table"].shape[0],
+                                     inputs["pix"].shape[1],
+                                     nodes=0 if nodes is None else nodes.shape[0], **flags)
         print(f"  {what} launch: grid {shape['grid']} x {shape['threads']} threads, "
               f"{shape['blocks_per_sm']} resident blocks an SM x {shape['sms']} SMs, "
-              f"{shape['registers']} registers a thread")
-        return shape
+              f"{shape['registers']} registers a thread, {shape['spill_bytes']} B local "
+              f"memory a thread (stack and spill), {shape['smem_bytes']} B shared memory")
+        return {k: shape[k] for k in ("grid", "blocks_per_sm", "registers", "spill_bytes",
+                                      "smem_bytes")}
 
     def replay_shape(kind, n, r, what):
         """K4's / K3's (or the legacy pair's) launch shape, printed: grid,
@@ -1408,7 +1427,8 @@ def main() -> None:
         print(f"K8 {tag} bouncing book1 320w 8spp d50: kernel {ms:.3f} ms, plain "
               f"{plain_ms:.1f} ms, bound {b:.4f} ms ({by}; {counts['searches']} searches "
               f"x {n_active} rows, {counts['issued']} samples)")
-        k8[tag] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b, bound_by=by)
+        k8[tag] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b, bound_by=by,
+                       launch_shape=brute_shape(False, True, b_in, f"K8 {tag} 320w", **flags))
 
     # What motion costs: K8 (both variants) beside K1 on the same lanes.
     _, _, s_in = k8_inputs(demo.book1_end_scene(width=320), 8, 50)
@@ -1446,6 +1466,7 @@ def main() -> None:
     # 64 pixel blocks (lanes are independent); K1 on the same launch.
     _, _, m_in = k8_inputs(bouncing_book1(demo, 1920), 32, 50)
     out = mk.run_megakernel(**m_in, **both)
+    main_shape = brute_shape(False, True, m_in, "K8 both 1080p", **both)
     main_ms = cuda_ms(lambda: mk.run_megakernel(**m_in, **both), 2)
     main_k1_ms = cuda_ms(lambda: mk.run_megakernel(**m_in, animated=False), 2)
     blocks = torch.randperm(n_blocks, generator=torch.Generator().manual_seed(7))[:64]
@@ -1472,6 +1493,7 @@ def main() -> None:
         ms_walk_camera=k8["walk"]["ms"], plain_ms_walk_camera=k8["walk"]["plain_ms"],
         bound_ms_walk_camera=k8["walk"]["bound_ms"],
         main_ms=main_ms, main_bound_ms=main_b, main_k1_ms=main_k1_ms,
+        main_launch_shape=main_shape,
         **{key: v for key, v in k8.items() if key.startswith(("k1_ms", "k8_ms"))},
     )
 
@@ -1525,7 +1547,8 @@ def main() -> None:
                       nbytes(*bk2.values()) + nbytes(rec) + 3 * 4 * rec.shape[1])
         print(f"{what}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {b:.4f} ms ({by}; "
               f"{counts['searches']} searches x {n_active} rows, {counts['issued']} samples)")
-        k8r[tag] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b, bound_by=by)
+        k8r[tag] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b, bound_by=by,
+                        launch_shape=brute_shape(True, True, bk2, what, **flags))
     k2_ms = cuda_ms(lambda: mk.run_megakernel_record(**bk2, max_depth=8, radiance=True), 3)
     print(f"  K2 on the same lanes (static kernel, bouncing table): {k2_ms:.3f} ms; K8 both / K2 "
           f"{k8r['both']['ms'] / k2_ms:.3f}")
@@ -1570,6 +1593,8 @@ def main() -> None:
     sub = torch.randperm(r, generator=torch.Generator().manual_seed(8))[:N_SUB].sort().values
     _, _, counts, rec = k8_record_check(mk2, 8, both, f"K8 record both 1920x1080 4spp d8 on "
                                                       f"{N_SUB} lanes", sub=sub.to(dev))
+    rec_main_shape = brute_shape(True, True, mk2, "K8 record both 1080p (fused)", **both)
+    brute_shape(True, False, mk2, "K8 record both 1080p (plain)", **both)
     rec_main_ms = cuda_ms(lambda: mk.run_megakernel_record(**mk2, max_depth=8, radiance=True,
                                                            **both), 3)
     rec_main_k2_ms = cuda_ms(lambda: mk.run_megakernel_record(**mk2, max_depth=8,
@@ -1593,13 +1618,14 @@ def main() -> None:
         ms_walk_camera=k8r["walk"]["ms"], plain_ms_walk_camera=k8r["walk"]["plain_ms"],
         bound_ms_walk_camera=k8r["walk"]["bound_ms"], k2_ms_same_lanes=k2_ms,
         main_ms=rec_main_ms, main_bound_ms=rec_main_b, main_k2_ms=rec_main_k2_ms,
+        main_launch_shape=rec_main_shape,
     )
 
-    # --- K6: the chunk-cull branch vs its plain version and vs K8 / K1 ---------
-    mark('K6: the chunk-cull branch vs its plain version and vs K8 / K1')
+    # --- K6: the swept-tree walk vs its plain version and vs K8 / K1 ----------
+    mark('K6: the swept-tree walk vs its plain version and vs K8 / K1')
     def plain_cull(fn):
         """(result, ms, the plain loop's counted work: searches, samples
-        issued, and the cluster walk's nodes, rows and roots) of one call."""
+        issued, and the swept-tree walk's nodes, rows and roots) of one call."""
         mk.SEARCH_COUNTS.update(searches=0, issued=0)
         mk.CULL_COUNTS.update(nodes=0, rows=0, roots=0)
         out, ms = host_ms(fn)
@@ -1610,24 +1636,49 @@ def main() -> None:
         return (counts["nodes"] * SLAB_OPS + counts["rows"] * row + counts["roots"] * ROOT_OPS
                 + cam_animated * counts["issued"] * CAM_OPS)
 
-    def cull_inputs(copies, width, spp, depth, record=False):
+    def per_search(counts):
+        """Nodes and rows the plain walk tested a search."""
+        s = max(counts["searches"], 1)
+        return dict(nodes_per_search=counts["nodes"] / s, rows_per_search=counts["rows"] / s)
+
+    def swept_for(sd, leaf=None, rows=None):
+        """K6's tree of ``sd`` (perm, nodes, meta): the scene's own, or
+        built at ``leaf`` spheres a leaf over its first ``rows`` rows."""
+        if leaf is None and rows is None:
+            return sd.sph_swept_perm, sd.sph_swept_nodes, sd.sph_swept_meta
+        keep = slice(0, rows)
+        arrays = [x[keep].cpu().numpy() for x in (sd.sph_center, sd.sph_radius,
+                                                  sd.sph_active, sd.sph_center_d,
+                                                  sd.sph_radius_d)]
+        tables = mk.sphere_bvh_tables(*arrays[:3], leaf or mk.SWEPT_LEAF, *arrays[3:])
+        return tuple(torch.from_numpy(x).to(dev) for x in tables)
+
+    built = {}
+
+    def cull_inputs(copies, width, spp, depth, record=False, leaf=None, rows=None):
         """Bouncing stress (copies) at ``width``: (its scene data, the
-        brute inputs on the original table, K6's: the table in cluster
-        order and the cluster bounds); record mode lays the lanes out
-        sample-major."""
-        sc = bouncing_stress(demo, width, copies)
-        sd, cp = sc.build(device=dev), sc.scene_cam.params(device=dev)
-        if not (sd.animated and cp.animated and sd.sph_cbounds is not None):
-            raise AssertionError("bouncing stress should move and carry its cluster tables")
+        brute inputs on the original table, K6's: the table in the swept
+        tree's order and the tree, the scene's or at ``leaf``); record mode
+        lays the lanes out sample-major. ``rows`` keeps the table's first
+        rows only (the crossover). Each scene is built once."""
+        if (copies, width) not in built:
+            sc = bouncing_stress(demo, width, copies)
+            built[copies, width] = (sc, sc.build(device=dev), sc.scene_cam.params(device=dev))
+        sc, sd, cp = built[copies, width]
+        if not (sd.animated and cp.animated and sd.sph_swept_nodes is not None):
+            raise AssertionError("bouncing stress should move and carry its swept tree")
         w, h = sc.scene_cam.image_width, sc.scene_cam.image_height
         brute, _ = integrator.mega_inputs(sd, cp, w, h, spp, depth, 0)
+        if rows is not None:
+            brute["table"] = brute["table"][:rows].contiguous()
         if record:
             p = w * h
             brute["pix"] = torch.arange(p, device=dev, dtype=torch.int32).repeat(spp)[None]
             brute["sample0"] = torch.arange(spp, device=dev,
                                             dtype=torch.int32).repeat_interleave(p)[None]
-        cull = dict(brute, table=integrator.permute_table(brute["table"], sd.sph_perm),
-                    cbounds=sd.sph_cbounds)
+        perm, nodes, meta = swept_for(sd, leaf, rows)
+        cull = dict(brute, table=integrator.permute_table(brute["table"], perm),
+                    swept_nodes=nodes, swept_meta=meta)
         return sd, brute, cull
 
     both = flag_sets["both"]
@@ -1642,10 +1693,11 @@ def main() -> None:
         what = f"K6 n{n} {width}w {spp}spp d{depth}"
         out = mk.run_megakernel(**cull, **both)
         ms = cuda_ms(lambda: mk.run_megakernel(**cull, **both), 1 if width == 1920 else 2)
-        if n <= mk.MAX_ROWS_ANIMATED and lanes is None:
+        if n <= mk.MAX_ROWS_ANIMATED:  # every lane against the brute search
             bit_equal(out, mk.run_megakernel(**brute, **both), f"{what} vs K8 brute")
         r_all = cull["pix"].shape[1]
         valid_all = int((cull["sample0"] < mk.NO_SAMPLE).sum())
+        shape = brute_shape(False, True, cull, what, **both)
         sub = cull
         if lanes is not None:
             sub, out = lane_subset(cull, lanes), out[:, lanes]
@@ -1655,8 +1707,9 @@ def main() -> None:
         scale = valid_all / int((sub["sample0"] < mk.NO_SAMPLE).sum())
         b, by = bound(cull_ops(counts, **both) * scale, nbytes(*cull.values()) + 3 * 4 * r_all)
         print(f"{what}: K6 {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {b:.4f} ms ({by}); "
-              f"work {counts}, x{scale:.2f}")
-        return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b, bound_by=by)
+              f"work {counts}, x{scale:.2f}; {per_search(counts)}")
+        return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b, bound_by=by,
+                    launch_shape=shape, **per_search(counts))
 
     def block_lanes(n_blocks, seed, count=64):
         """The lanes of ``count`` random pixel blocks of a launch's ``n_blocks``."""
@@ -1664,48 +1717,64 @@ def main() -> None:
         return (blocks.sort().values[:, None] * mk.TILE
                 + torch.arange(mk.TILE)).reshape(-1).to(dev)
 
-    # n1936 in full (and against K8's brute search); n7744 at 320w on 64 of
-    # its 120 pixel blocks, and its 1920x1080 launch on 32 of 4080 (so that
-    # the script stays under half its time limit).
-    k6 = {4: k6_forward(4, 320, 8, 50),
-          16: k6_forward(16, 320, 8, 50, lanes=block_lanes(10 * math.ceil(180 / 16), 12))}
-    k6_main = k6_forward(16, 1920, 32, 50, lanes=block_lanes(n_blocks, 9, count=32))
+    # n1936 and n7744 at 320w in full (n1936 also against K8's brute
+    # search); the n7744 1920x1080 launch on K6_MAIN_BLOCKS of its 4080
+    # pixel blocks (the plain walk's time bounds them).
+    k6 = {copies: k6_forward(copies, 320, 8, 50) for copies in (4, 16)}
+    k6_main = k6_forward(16, 1920, 32, 50,
+                         lanes=block_lanes(n_blocks, 9, count=K6_MAIN_BLOCKS))
     print(f"  K6 n7744 1920x1080 32spp d50: {k6_main['ms']:.1f} ms "
           f"({1920 * 1080 * 32 / k6_main['ms'] / 1e3:.2f} Mrays/s)")
 
-    # The same walk over a static table's clusters (book1, no deltas) is a
+    # The leaf size: K6 over trees of 4, 8 and 16 spheres a leaf, at n7744
+    # 320w and on the 1920x1080 launch, in turns (8 first and last).
+    leaf_ms = {}
+    for leaf in (8, 4, 16, 8):
+        for width, spp in ((320, 8), (1920, 32)):
+            _, _, x = cull_inputs(16, width, spp, 50, leaf=leaf)
+            ms = cuda_ms(lambda: mk.run_megakernel(**x, **both), 1 if width == 1920 else 3)
+            leaf_ms.setdefault(f"leaf{leaf}_{width}w", []).append(ms)
+            print(f"  K6 n7744 {width}w {spp}spp d50 at leaf {leaf} "
+                  f"({x['swept_nodes'].shape[0]} nodes): {ms:.3f} ms")
+            del x
+
+    # The same walk over a static table's tree (book1, zero deltas) is a
     # pure skip over K1's search.
     s_sd, s_cp, s_in = k8_inputs(demo.book1_end_scene(width=320), 8, 50)
-    perm, bounds = mk.cluster_spheres(s_sd.sph_center.cpu().numpy(),
-                                      s_sd.sph_radius.cpu().numpy(),
-                                      s_sd.sph_active.cpu().numpy())
-    s_cull = dict(s_in, table=integrator.permute_table(s_in["table"],
-                                                       torch.from_numpy(perm).to(dev)),
-                  cbounds=torch.from_numpy(bounds).to(dev))
+    zero = torch.zeros_like(s_sd.sph_center)
+    tree = swept_for(replace(s_sd, sph_center_d=zero, sph_radius_d=zero[:, 0]),
+                     leaf=mk.SWEPT_LEAF)
+    s_cull = dict(s_in, table=integrator.permute_table(s_in["table"], tree[0]),
+                  swept_nodes=tree[1], swept_meta=tree[2])
     out = mk.run_megakernel(**s_cull, animated=False)
     bit_equal(out, mk.run_megakernel(**s_in, animated=False), "K6 static book1 320w 8spp d50 vs K1")
     ref, plain_ms, counts = plain_cull(lambda: mk.run_megakernel_reference(**s_cull))
-    k6_static_err = bit_equal(out, ref, "K6 static book1 320w 8spp d50 vs plain")
+    bit_equal(out, ref, "K6 static book1 320w 8spp d50 vs plain")
     k6_static_ms = cuda_ms(lambda: mk.run_megakernel(**s_cull, animated=False), 3)
     k6_static_k1_ms = cuda_ms(lambda: mk.run_megakernel(**s_in, animated=False), 3)
     print(f"K6 static book1 320w 8spp d50: K6 {k6_static_ms:.3f} ms, K1 {k6_static_k1_ms:.3f} "
-          f"ms, plain {plain_ms:.1f} ms; work {counts}")
+          f"ms, plain {plain_ms:.1f} ms; work {counts}; {per_search(counts)}")
     del s_in, s_cull, out, ref
 
     # The animated CULL_MIN_ROWS crossover: K6 and the K8 brute search on
-    # the same lanes of n1936, in turns (K8, K6, K6, K8).
+    # the same lanes of bouncing stress n1936 and of its first 1,024 rows,
+    # in turns (K8, K6, K6, K8).
     crossover = {}
-    for width, spp in ((320, 8), (1920, 32)):
-        _, brute, cull = cull_inputs(4, width, spp, 50)
-        reps = 3 if width == 320 else 1
-        t = [cuda_ms(lambda: mk.run_megakernel(**brute, **both), reps),
-             cuda_ms(lambda: mk.run_megakernel(**cull, **both), reps),
-             cuda_ms(lambda: mk.run_megakernel(**cull, **both), reps),
-             cuda_ms(lambda: mk.run_megakernel(**brute, **both), reps)]
-        crossover[f"{width}w"] = dict(k8_ms=[t[0], t[3]], k6_ms=[t[1], t[2]])
-        print(f"K6 vs K8 brute, bouncing stress n1936 {width}w {spp}spp d50 (same lanes, in "
-              f"turns): K8 {t[0]:.2f} / {t[3]:.2f} ms, K6 {t[1]:.2f} / {t[2]:.2f} ms "
-              f"(K8 / K6 {(t[0] + t[3]) / (t[1] + t[2]):.3f})")
+    for rows in (None, 1024):
+        for width, spp in ((320, 8), (1920, 32)):
+            _, brute, cull = cull_inputs(4, width, spp, 50, rows=rows)
+            reps = 3 if width == 320 else 1
+            t = [cuda_ms(lambda: mk.run_megakernel(**brute, **both), reps),
+                 cuda_ms(lambda: mk.run_megakernel(**cull, **both), reps),
+                 cuda_ms(lambda: mk.run_megakernel(**cull, **both), reps),
+                 cuda_ms(lambda: mk.run_megakernel(**brute, **both), reps)]
+            n = brute["table"].shape[0]
+            bit_equal(mk.run_megakernel(**cull, **both), mk.run_megakernel(**brute, **both),
+                      f"K6 vs K8 brute, bouncing stress n{n} {width}w")
+            crossover[f"n{n}_{width}w"] = dict(k8_ms=[t[0], t[3]], k6_ms=[t[1], t[2]])
+            print(f"K6 vs K8 brute, bouncing stress n{n} {width}w {spp}spp d50 (same lanes, "
+                  f"in turns): K8 {t[0]:.2f} / {t[3]:.2f} ms, K6 {t[1]:.2f} / {t[2]:.2f} ms "
+                  f"(K8 / K6 {(t[0] + t[3]) / (t[1] + t[2]):.3f})")
     del brute, cull
     kernels["megakernel_cull"] = dict(
         source="crucible_tpu_torch/csrc/megakernel.cu",
@@ -1713,8 +1782,11 @@ def main() -> None:
         **k6[16], ms_n1936=k6[4]["ms"], plain_ms_n1936=k6[4]["plain_ms"],
         bound_ms_n1936=k6[4]["bound_ms"], main_ms=k6_main["ms"],
         main_bound_ms=k6_main["bound_ms"], main_plain_ms_checked_lanes=k6_main["plain_ms"],
+        main_launch_shape=k6_main["launch_shape"],
+        main_nodes_per_search=k6_main["nodes_per_search"],
+        main_rows_per_search=k6_main["rows_per_search"],
         ms_static_book1=k6_static_ms, k1_ms_static_book1=k6_static_k1_ms,
-        crossover_n1936=crossover,
+        leaf_ms=leaf_ms, crossover=crossover,
     )
 
     # K6 in record mode (fused and plain), against the plain version and, at
@@ -1723,37 +1795,42 @@ def main() -> None:
         sd, brute, cull = cull_inputs(copies, width, 4, 8, record=True)
         n = sd.sph_center.shape[0]
         what = f"K6 record n{n} {width}w 4spp d8"
-        cb = dict(cbounds=cull.pop("cbounds"))
+        tree = dict(swept_nodes=cull.pop("swept_nodes"), swept_meta=cull.pop("swept_meta"))
         if sub is not None:
             what += f" on {sub.numel()} lanes"
         mk.CULL_COUNTS.update(nodes=0, rows=0, roots=0)
-        err, plain_ms, counts, rec = k8_record_check(cull, 8, both, what, sub=sub, bvh=cb)
+        err, plain_ms, counts, rec = k8_record_check(cull, 8, both, what, sub=sub, bvh=tree)
         counts = dict(counts, **mk.CULL_COUNTS)  # the plain loop's, run once there
-        ms = cuda_ms(lambda: mk.run_megakernel_record(**cull, **cb, max_depth=8, radiance=True,
-                                                      **both), 3)
+        ms = cuda_ms(lambda: mk.run_megakernel_record(**cull, **tree, max_depth=8,
+                                                      radiance=True, **both), 3)
         if n <= mk.MAX_ROWS_ANIMATED and sub is None:
-            acc, _ = mk.run_megakernel_record(**cull, **cb, max_depth=8, radiance=True, **both)
+            acc, _ = mk.run_megakernel_record(**cull, **tree, max_depth=8, radiance=True, **both)
             b_acc, b_rec = mk.run_megakernel_record(**brute, max_depth=8, radiance=True, **both)
             bit_equal(rec, b_rec, f"{what}: records vs K8 brute record")
             bit_equal(acc, b_acc, f"{what}: fused radiance vs K8 brute record")
+        shape = brute_shape(True, True, dict(cull, **tree), what, **both)
         r = cull["pix"].shape[1]
         scale = r / (r if sub is None else sub.numel())
         b, by = bound(cull_ops(counts, **both) * scale,
-                      nbytes(*cull.values(), *cb.values(), rec) + 3 * 4 * r)
+                      nbytes(*cull.values(), *tree.values(), rec) + 3 * 4 * r)
         print(f"{what}: K6 {ms:.3f} ms (fused), plain {plain_ms:.1f} ms, bound {b:.4f} ms "
-              f"({by}); work {counts}, x{scale:.2f}")
-        return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b, bound_by=by)
+              f"({by}); work {counts}, x{scale:.2f}; {per_search(counts)}")
+        return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b, bound_by=by,
+                    launch_shape=shape, **per_search(counts))
 
     k6r = {copies: k6_record(copies, 320) for copies in (4, 16)}
     r = 1920 * 1080 * 4
-    sub = torch.randperm(r, generator=torch.Generator().manual_seed(10))[:N_SUB].sort().values
-    k6r_main = k6_record(16, 1920, sub=sub.to(dev))
+    sub = torch.randperm(r, generator=torch.Generator().manual_seed(10))[:K6_RECORD_LANES]
+    k6r_main = k6_record(16, 1920, sub=sub.sort().values.to(dev))
     kernels["megakernel_cull_record"] = dict(
         source="crucible_tpu_torch/csrc/megakernel.cu",
         replaces="crucible_tpu/ops/pallas/megakernel.py:1828",
         **k6r[16], ms_n1936=k6r[4]["ms"], plain_ms_n1936=k6r[4]["plain_ms"],
         bound_ms_n1936=k6r[4]["bound_ms"], main_ms=k6r_main["ms"],
         main_bound_ms=k6r_main["bound_ms"], main_plain_ms_checked_lanes=k6r_main["plain_ms"],
+        main_launch_shape=k6r_main["launch_shape"],
+        main_nodes_per_search=k6r_main["nodes_per_search"],
+        main_rows_per_search=k6r_main["rows_per_search"],
     )
 
     # --- K7: the triangle-BVH stage vs its plain version -----------------------
@@ -2959,11 +3036,12 @@ def main() -> None:
     # --- main path 16: the animated big scene (K6), bouncing stress n7744 --------
     mark('main path 16: the animated big scene (K6), bouncing stress n7744')
     scene = bouncing_stress(demo, 1920, 16)
-    _, build_ms = host_ms(lambda: scene.build())  # timelines, cluster_spheres; cached
+    # Timelines, the JAX lowering's clusters and K6's swept tree; cached.
+    _, build_ms = host_ms(lambda: scene.build())
     sd, cp = scene.build(), scene.scene_cam.params()
-    if not (sd.animated and cp.animated and sd.sph_cbounds is not None
+    if not (sd.animated and cp.animated and sd.sph_swept_nodes is not None
             and sd.sph_center.shape[0] == 7744 and integrator.megakernel_supported(sd, cp)):
-        raise AssertionError("bouncing stress n7744 should move, with its cluster tables, "
+        raise AssertionError("bouncing stress n7744 should move, with its swept tree, "
                              "and go to mega")
     cull_cells = dict(build_ms=build_ms, forward_ms=[])
     launches_k6 = 0
@@ -2981,7 +3059,8 @@ def main() -> None:
               f"run {i}: {ms / 1e3:.3f} s, {1920 * 1080 * 32 / ms / 1e3:.2f} Mrays/s, mean "
               f"{img.mean().item():.5f}; launches {got}; nvidia-smi: {smi()}")
     print(f"  bouncing stress n7744 scene build (7,744 rows, {sd.sph_cbounds.shape[0]} "
-          f"clusters): {build_ms / 1e3:.3f} s")
+          f"clusters, a swept tree of {sd.sph_swept_nodes.shape[0]} nodes): "
+          f"{build_ms / 1e3:.3f} s")
     png = REPO / "build" / "chip_smoke_bounce_stress.png"
     write_png(png, render.to_u8(img))
     print(f"wrote {png.relative_to(REPO)}")
@@ -2993,10 +3072,29 @@ def main() -> None:
     movie.duration = 2 / 24
     movie.scene_cam.set_samples(50)
     movie.scene_cam.set_max_depth(5)
-    frame_build = []
-    for fi in range(2):
-        movie.scene_cam.frame = fi
-        frame_build.append(host_ms(lambda: movie.build())[1])
+    # Each frame's scene build, and the parts of it that the swept tree
+    # (K6's) and the JAX lowering's clusters (kept for parity) take.
+    frame_build, tree_ms, clusters_ms = [], [], []
+    real_swept, real_clusters = mk.swept_tables, mk.cluster_spheres
+
+    def timed(fn, into):
+        def call(*args, **kwargs):
+            out, ms = host_ms(lambda: fn(*args, **kwargs))
+            into.append(ms)
+            return out
+        return call
+
+    mk.swept_tables = timed(real_swept, tree_ms)
+    mk.cluster_spheres = timed(real_clusters, clusters_ms)
+    try:
+        for fi in range(2):
+            movie.scene_cam.frame = fi
+            frame_build.append(host_ms(lambda: movie.build())[1])
+    finally:
+        mk.swept_tables, mk.cluster_spheres = real_swept, real_clusters
+    if len(tree_ms) != 2 or len(clusters_ms) != 2:
+        raise AssertionError(f"bouncing stress movie: {len(tree_ms)} swept trees and "
+                             f"{len(clusters_ms)} clusterings for 2 frames")
     per_frame = []
     real_render = render.render_image_data
 
@@ -3022,11 +3120,15 @@ def main() -> None:
         raise AssertionError(f"bouncing stress movie: frames {sorted(frames)}, launches "
                              f"by frame {per_frame}")
     launches_k6 += sum(f.get("k6", 0) for f in per_frame)
-    cull_cells.update(movie_ms=ms, movie_build_ms=frame_build, movie_launches=per_frame)
+    cull_cells.update(movie_ms=ms, movie_build_ms=frame_build, movie_tree_ms=tree_ms,
+                      movie_clusters_ms=clusters_ms, movie_launches=per_frame)
     print(f"render_movie bouncing stress n7744 400x225 50spp d5, 2 frames: {ms / 1e3:.3f} s, "
           f"{ms / 2e3:.3f} s per frame (dispatch to written: "
           f"{', '.join(f'{frames[i]:.3f}' for i in range(2))} s); scene build per frame "
-          f"{', '.join(f'{b / 1e3:.3f}' for b in frame_build)} s; launches by frame {per_frame}")
+          f"{', '.join(f'{b / 1e3:.3f}' for b in frame_build)} s, of which the swept tree "
+          f"{', '.join(f'{b / 1e3:.3f}' for b in tree_ms)} s and the clusters "
+          f"{', '.join(f'{b / 1e3:.3f}' for b in clusters_ms)} s; launches by frame "
+          f"{per_frame}")
     kernels["megakernel_cull"]["launches"] = launches_k6
     del movie
 

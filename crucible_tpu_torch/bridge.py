@@ -14,10 +14,13 @@ fields prefixed ``tex_``; static keys are ``sky_kind``, ``num_spheres``,
 a (1, 1, 3) zero placeholder under the default sky (the port's
 ``SceneData.sky_image`` is then None). The structure tables of the
 sphere walks (``STRUCT_ARRAYS``: the sphere BVH's, or an animated scene's
-cluster boxes ``sph_cbounds``), the motion fields (``MOTION_ARRAYS``: the spheres' and
-a moving mesh's shutter deltas) and the triangle
-and triangle-BVH arrays (``MESH_ARRAYS``) are optional keys
-(``OPTIONAL_ARRAYS``): absent, or None, where the scene has none.
+cluster boxes ``sph_cbounds``), the motion fields (``MOTION_ARRAYS``: the
+spheres' and a moving mesh's shutter deltas) and the triangle and
+triangle-BVH arrays (``MESH_ARRAYS``) are optional keys (``OPTIONAL_ARRAYS``,
+those a JAX ``SceneData`` has): absent, or None, where the scene has none.
+The port's own swept tree (``SWEPT_ARRAYS``, which K6 walks) is optional
+too; :func:`scene_data_from_arrays` builds it where the arrays carry
+cluster boxes and no tree, as a JAX-lowered animated scene's do.
 :func:`params_from_arrays` / :func:`params_to_arrays` carry the gradient
 path's parameter dict (``grad.extract_params``) the same way, and
 :func:`params_from_jax_checkpoint` reads it from a checkpoint file of the
@@ -34,7 +37,7 @@ import torch
 from crucible_tpu_torch.grad import TENSOR_KEYS
 from crucible_tpu_torch.models import skybox as sky_mod
 from crucible_tpu_torch.models.camera import CameraParams
-from crucible_tpu_torch.models.scene import SceneData
+from crucible_tpu_torch.models.scene import SceneData, swept_struct
 from crucible_tpu_torch.models.textures import TextureTable
 
 SCENE_ARRAYS = (
@@ -43,6 +46,7 @@ SCENE_ARRAYS = (
     "sky_image",
 )
 STRUCT_ARRAYS = ("sph_perm", "sph_nodes", "sph_meta", "sph_cbounds")
+SWEPT_ARRAYS = ("sph_swept_perm", "sph_swept_nodes", "sph_swept_meta")
 MOTION_ARRAYS = ("sph_center_d", "sph_radius_d", "motion_t0", "motion_t1",
                  "tri_v0_d", "tri_v1_d", "tri_v2_d")
 MESH_ARRAYS = ("tri_v0", "tri_v1", "tri_v2", "tri_mat", "tri_active",
@@ -64,7 +68,10 @@ def scene_data_from_arrays(
     arrays: dict[str, np.ndarray], *, device="cuda", max_nest: int = 1, **static
 ) -> SceneData:
     """SceneData on ``device`` from numpy arrays (keys: module docstring).
-    Unknown static keys raise ``TypeError``."""
+    Where they carry an animated scene's cluster boxes (``sph_cbounds``) but
+    no swept tree, the tree K6 walks is built from the spheres and their
+    shutter deltas, as ``Scene.build`` builds it. Unknown static keys raise
+    ``TypeError``."""
     unknown = set(static) - set(SCENE_STATIC)
     if unknown:
         raise TypeError(f"unknown static scene fields {sorted(unknown)}")
@@ -73,8 +80,12 @@ def scene_data_from_arrays(
         max_nest=int(max_nest),
     )
     sky = static.get("sky_kind", sky_mod.DEFAULT) == sky_mod.SPHERICAL
-    optional = {k: _tensor(arrays[k], device) for k in OPTIONAL_ARRAYS
+    optional = {k: _tensor(arrays[k], device) for k in OPTIONAL_ARRAYS + SWEPT_ARRAYS
                 if arrays.get(k) is not None}
+    if "sph_cbounds" in optional and "sph_swept_nodes" not in optional:
+        optional.update(swept_struct(*(arrays[k] for k in (
+            "sph_center", "sph_radius", "sph_active", "sph_center_d", "sph_radius_d")),
+            device=device))
     return SceneData(
         **{k: _tensor(arrays[k], device) for k in SCENE_ARRAYS if k != "sky_image"},
         tex=tex,
@@ -88,7 +99,7 @@ def scene_data_to_arrays(sd: SceneData) -> tuple[dict[str, np.ndarray], dict]:
     """(arrays, static) such that ``scene_data_from_arrays(arrays,
     device=..., **static)`` rebuilds ``sd``."""
     arrays = {k: getattr(sd, k).cpu().numpy() for k in SCENE_ARRAYS if k != "sky_image"}
-    arrays.update({k: getattr(sd, k).cpu().numpy() for k in OPTIONAL_ARRAYS
+    arrays.update({k: getattr(sd, k).cpu().numpy() for k in OPTIONAL_ARRAYS + SWEPT_ARRAYS
                    if getattr(sd, k) is not None})
     arrays["sky_image"] = (
         np.zeros((1, 1, 3), np.float32) if sd.sky_image is None

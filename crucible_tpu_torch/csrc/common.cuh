@@ -2,9 +2,10 @@
 // utils/rng.py, its stream ids, the record-word layout of models/replay.py
 // (F_TRI marks a triangle winner, K7),
 // the closest-sphere search of the static kernels (K7's sphere stage, K10,
-// and K5 on each leaf it visits; K1 and K2 run its arithmetic on their
-// staged 16-byte rows, megakernel.cu brute_row) and its linear-shutter form
-// (K8, and K6 on each cluster it visits).
+// and K5 on each leaf it visits) and its linear-shutter form (K7 moving's
+// sphere stage); the flat loop (K1, K2, K8, K6) runs the same arithmetic on
+// its 16-byte row entries (megakernel.cu brute_row, moving_row, and
+// static_terms / moving_terms in K6's tree_closest).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -117,18 +118,14 @@ __device__ __forceinline__ void closest_sphere(
 //   c.d = (c.d) + w (cd.d),  c.o = (c.o) + w (cd.o),
 //   |c|^2 - r^2 = csr + two_w s1 + w_sq s2,
 // then closest_sphere's quadratic. A row replaces (best, win) only when
-// strictly nearer, so the lowest row wins ties; rows are numbered from
-// `base`. With TIE_BY_ID (K6's clusters of a permuted table) an exact tie
-// goes instead to the row whose original id, column 31 of `table`, is
-// lower. The column pointers may address shared or global memory.
-template <bool TIE_BY_ID = false>
+// strictly nearer, so the lowest row wins ties.
 __device__ __forceinline__ void closest_sphere_moving(
     const float* cx, const float* cy, const float* cz, const float* csr,
     const float* act, const float* cdx, const float* cdy, const float* cdz,
     const float* s1, const float* s2, int count, float ox, float oy,
     float oz, float dx, float dy, float dz, float a_q, float d_dot_o,
     float o_sq, float inv_a, float w, float two_w, float w_sq, float t_min,
-    float& best, int& win, int base = 0, const float* table = nullptr) {
+    float& best, int& win) {
   for (int k = 0; k < count; ++k) {
     if (!(act[k] > 0.0f)) continue;
     const float c0 = cx[k], c1 = cy[k], c2 = cz[k];
@@ -149,10 +146,7 @@ __device__ __forceinline__ void closest_sphere_moving(
     const float root = ok0 ? root0 : root1;
     if (root < best) {
       best = root;
-      win = base + k;
-    } else if (TIE_BY_ID && root == best &&
-               table[(size_t)(base + k) * 32 + 31] < table[(size_t)win * 32 + 31]) {
-      win = base + k;  // best < BIG here, so win is a row
+      win = k;
     }
   }
 }

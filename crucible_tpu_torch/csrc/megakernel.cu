@@ -1,8 +1,9 @@
 // Persistent path-tracing megakernel for sphere scenes on Hopper: forward
 // mode (K1), record mode (K2), for big scenes both modes walking a
-// per-lane sphere BVH (K5) or, for big moving scenes, 256-row sphere
-// clusters (K6, the chunk-cull branch), their motion variants (K8), and
-// the triangle-BVH stage of static and moving meshes (K7, K7 moving).
+// per-lane sphere BVH (K5) or, for big moving scenes, a BVH over boxes
+// swept over the shutter (K6, in place of the chunk-cull branch's
+// clusters), their motion variants (K8), and the triangle-BVH stage of
+// static and moving meshes (K7, K7 moving).
 //
 // Replaces crucible_tpu/ops/pallas/megakernel.py::_kernel for its sphere
 // branches in both of its modes, static ones and the animated (moving
@@ -18,75 +19,101 @@
 //   fused variant also accumulates that path's radiance from bounce
 //   smem[4] on.
 // The closest hit is the brute search over every table row (the branch at
-// megakernel.py:804-830; K1, K2), the walk of the sphere BVH (the
+// megakernel.py:804-830; K1, K2, K8), the walk of the sphere BVH (the
 // n_sph_nodes branch, megakernel.py:618-803; K5) over the BVH-permuted
-// table, or the walk of the sphere clusters (the chunk-cull branch,
-// megakernel.py:831-960; K6) over the cluster-permuted table; a walk's
+// table, or the walk of the swept tree (K6, what the chunk-cull branch,
+// megakernel.py:831-960, computes) over the tree-permuted table; a walk's
 // record words de-permute the winner through table column 31.
-// K1 and K2 are brute_kernel, one flat loop over persistent lanes (below);
-// the other variants are one templated kernel, megakernel: the record flags
-// only add the decision words and the walk flag only replaces the search.
-// Both share the camera (primary_ray) and the shading (shade_bounce).
+// K1, K2, K8 and K6 are flat_kernel, one flat loop over persistent lanes
+// (below); K5, K7, K7 moving, K8's camera on K5's walk and K8's brute
+// search beside K7 moving are one templated kernel, megakernel, a nested
+// sample / bounce loop (they go to the flat loop with K5 and K7 later): the
+// record flags only add the decision words and the walk flag only replaces
+// the search. Both share the camera (primary_ray) and the shading
+// (shade_bounce).
 //
 // K8, the motion variants (both modes; megakernel.py l.509-555, 588-616
 // and the shading lerp l.1309-1314). Each path draws its shutter fraction
 // w = the first uniform of pcg4d(pix, sample, STREAM_TIME, seed), the
-// number the staged path's camera draws:
+// number the staged path's camera draws, once when it starts:
 // - ANIMATED: spheres move on the linear shutter. The search adds
 //   w (cd.d) and w (cd.o) to its dot products and 2w s1 + w^2 s2 to
-//   |c|^2 - r^2 (common.cuh closest_sphere_moving, table columns 24-29,
-//   staged in shared memory beside the five static columns: 10 floats a
-//   row), and the winner's center and radius are lerped for its normal and,
-//   in record mode, for the per-winner quadratic that picks F_ROOT1, so that
-//   every flag is the moving sphere's (megakernel.py l.1309-1313, 1459-1466);
+//   |c|^2 - r^2 (moving_row, in common.cuh closest_sphere_moving's
+//   association; table columns 24-29), and the winner's center and radius
+//   are lerped for its normal and, in record mode, for the per-winner
+//   quadratic that picks F_ROOT1, so that every flag is the moving
+//   sphere's (megakernel.py l.1309-1313, 1459-1466);
 // - CAM_ANIMATED: at each new sample the lane lerps look_from and look_at
 //   (cam slots 9-11 / 19-21 plus w times the deltas in 22-27) and rebuilds
 //   the basis, pixel00, du and dv with true divisions and the 1e-12 floor,
 //   operation for operation as camera.generate_rays does.
 // K5's sphere-BVH walk takes CAM_ANIMATED only: its boxes hold the spheres
-// at one time. Moving big tables walk K6's clusters (below), whose boxes
-// hold them over the whole shutter. Record mode (run_megakernel_record,
-// pallas_call at megakernel.py:1828) instantiates the same variants as
-// forward mode, each fused or not, except K6 over a static table (forward
-// only, which no route selects); its words are K2's layout, with w drawn
-// once per path for the camera and the search alike.
+// at one time. Moving big tables walk K6's swept tree (below), whose boxes
+// hold them over the whole shutter. Record mode instantiates the same
+// variants as forward mode, each fused or not, except K6 over a static
+// table (forward only, which no route selects); its words are K2's layout,
+// with w drawn once per path for the camera and the search alike.
 //
 // What bounds it on this card: per-thread FP32 work on the quadratic (about
-// 20 flops and a square root per row tested per bounce; the walk adds a
-// slab test per node visited), with divergence at the material branches
-// and (K5-K8) at path termination. Record mode adds 4 bytes per bounce per
-// lane of stores (row-major (D, R)).
+// 20 flops and a square root per row tested per bounce, ~40 moving; a walk
+// adds a slab test per node visited), with divergence at the material
+// branches and, in the nested loop, at path termination. Record mode adds
+// 4 bytes per bounce per lane of stores (row-major (D, R)).
 //
-// K1 and K2 (brute_kernel): persistent lanes in one flat bounce loop.
-// Launched on as many blocks as stay resident, each block stages the live
-// rows once, as 16-byte (cx, cy, cz, |c|^2 - r^2) entries in shared memory
-// (the wrapper orders the active rows first, in table order, with their
-// table row ids; inactive rows are not staged). Each iteration of the one
+// The flat loop (flat_kernel: K1, K2, K8's brute search, K6): persistent
+// lanes. Launched on as many blocks as stay resident (the wrapper sizes the
+// grid from the launch shape it queried once), each iteration of the one
 // loop, a lane with no path in flight starts its next sample (forward) or
-// takes its next path (record), then every lane runs one closest-hit search
-// and one bounce's shading, so a warp stays converged at one search per
-// iteration whatever bounce each lane is on: a lane whose path ends no
-// longer waits for the warp's longest path, as it did in a nested
-// sample / bounce loop. Lanes take work items from a global counter, one
-// atomicAdd per warp for its idle lanes, shared out in lane order so that
-// neighbouring lanes start on neighbouring pixels. A forward item is one
-// pixel's lane with all its samples in order on one thread, so each sum is
-// added in the order of the plain version, whichever lane takes it. The
-// search reads one row per broadcast LDS.128 and tests four rows a step,
-// strict '<' in row order, so ties still go to the lowest table row; the
-// winner's row is read from global memory by index (an indexed load is
-// exact, so the TPU's one-hot MXU fetch and its bf16 split have no
-// counterpart here). On a miss no row is read.
+// takes its next path (record), drawing the path's w, then every lane runs
+// one closest-hit search and one bounce's shading, so a warp stays
+// converged at one search per iteration whatever bounce each lane is on: a
+// lane whose path ends no longer waits for the warp's longest path, as it
+// does in the nested sample / bounce loop. Lanes take work items from a
+// global counter, one atomicAdd per warp for its idle lanes, shared out in
+// lane order so that neighbouring lanes start on neighbouring pixels. A
+// forward item is one pixel's lane with all its samples in order on one
+// thread, so each sum is added in the order of the plain version, whichever
+// lane takes it. The winner's row is read from global memory by index (an
+// indexed load is exact, so the TPU's one-hot MXU fetch and its bf16 split
+// have no counterpart here). On a miss no row is read.
+// - The brute search (K1, K2, K8) stages each block's live rows once in
+//   shared memory (the wrapper orders the active rows first, in table
+//   order, with their table row ids; inactive rows are not staged): 16-byte
+//   (cx, cy, cz, |c|^2 - r^2) entries, and with ANIMATED a second 16-byte
+//   (cdx, cdy, cdz, s1) entry and s2, 36 bytes a row. It reads a row per
+//   broadcast LDS.128 (two and an LDS.32 moving) and tests four rows a
+//   step, strict '<' in row order, so ties still go to the lowest table row.
+// - K6 walks a per-lane BVH whose leaf boxes hold each active sphere at
+//   shutter open and close (ops/kernels/megakernel.py swept_tables: SAH,
+//   SWEPT_LEAF spheres a leaf, K5's layout), in place of the chunk-cull
+//   branch's 256-row clusters, nearer child first (tree_closest: the far
+//   child deferred with its entry distance on a TREE_STACK-entry stack;
+//   swept_tables builds no deeper tree and swept_inputs refuses one). The TPU
+//   kernel slab-tests each cluster box against a whole 512-lane tile, runs
+//   a cluster's quadratic under a lax.cond where any lane enters it and
+//   fetches the winner by one-hot contraction, all answers to the TPU's
+//   vector layout; a thread here tests only the nodes and leaves its own
+//   ray enters before its best t: on bouncing stress n7744 about 30 nodes
+//   and 30 rows a search, where the cluster walk tests about 1,500 rows
+//   (counted by the plain walks). The nodes sit in shared memory
+//   where they fit (36 bytes each: two 16-byte entries, lo x/y/z hi x and hi
+//   y/z first count, then the skip link), else they are read from global
+//   memory; the rows are read from global memory (L2), three LDG.128 a row:
+//   (cx, cy, cz, |c|^2 - r^2), (cdx, cdy, cdz, s1), (s2, original id, 0,
+//   0). A leaf row's root is K8's moving search (or, without ANIMATED, K1's
+//   static one), and an exact tie goes to the lower original id, so K6
+//   returns K8's (or K1's) brute search over the original table, bit for
+//   bit: the lexicographic least (t, id) does not depend on the order in
+//   which leaves are visited. Its records carry the original ids.
 //
-// K5-K8: one thread per lane. The thread walks its pixel's samples
-// sample0..spp-1 (record mode: sample0 only) and, within each sample,
-// bounces until the path ends; the TPU kernel's lockstep regeneration
-// bookkeeping becomes this plain nested loop. The brute sphere searches of
-// K7 and K8 stage the intersection columns (center x/y/z, |c|^2 - r^2,
-// active, with ANIMATED the motion columns) once per block in shared
-// memory as SoA, every thread of a warp
-// reading the same row at the same time, which shared memory serves as a
-// broadcast.
+// K5-K8 in the nested loop: one thread per lane. The thread walks its
+// pixel's samples sample0..spp-1 (record mode: sample0 only) and, within
+// each sample, bounces until the path ends; the TPU kernel's lockstep
+// regeneration bookkeeping becomes this plain nested loop. The brute sphere
+// searches of K7 and K7 moving stage the intersection columns (center
+// x/y/z, |c|^2 - r^2, active, with ANIMATED the motion columns) once per
+// block in shared memory as SoA, every thread of a warp reading the same
+// row at the same time, which shared memory serves as a broadcast.
 //
 // The walk (K5) replaces the TPU's 16-node slab window, its scalar cursor
 // chase and its three-leaf batches with a stackless walk per thread over
@@ -98,7 +125,7 @@
 // so these reads scatter over banks and leaves serialize: divergence is
 // the price of skipping rows.
 //
-// The walk returns what the brute search returns, bit for bit. A row's
+// A walk returns what the brute search returns, bit for bit. A row's
 // root is the brute search's (common.cuh closest_sphere on the leaf's
 // rows), and an exact tie goes to the lower original row id (column 31),
 // as the brute search's strict '<' in row order gives it. The slab test is
@@ -106,36 +133,12 @@
 // |coordinate|) on the host (ops/kernels/megakernel.py walk_inputs) and by
 // SLAB_EPS * the origin's largest |coordinate| here, which covers the
 // expanded quadratic's error on the hit point (up to ~1.7e-3 (|c| + |o|),
-// fault C6), so no leaf holding a winning root is skipped.
-//
-// K6, the chunk-cull branch (CULL with WALK; megakernel.py l.831-960, over
-// the tables of cluster_spheres, l.213-278): the table is permuted into
-// 256-row clusters of nearby spheres, and each cluster's box holds its
-// spheres at shutter open and close, so the whole linear path. The TPU
-// kernel slab-tests each box against the whole 512-lane tile and runs a
-// cluster's quadratic under a lax.cond where any lane enters it, then
-// fetches the winner with one one-hot contraction per cluster; both answer
-// the TPU's vector layout. Here the clusters are a flat skip-link list
-// (node k: cluster k's box, its leaf rows [256 k, 256 k + count), miss
-// k + 1; ops/kernels/megakernel.py cull_inputs) that K5's stackless walk
-// runs per thread as it is: a thread tests only the clusters its own ray
-// enters before its best t. A leaf row's root is K8's moving search
-// (common.cuh closest_sphere_moving, ties to the lower original id), or
-// without ANIMATED K1's static one, so K6 returns K8's (or K1's) brute
-// search over the original table, bit for bit, and its records carry the
-// original ids of table column 31. The boxes are grown as K5's are (by
-// SLAB_EPS on the host, by SLAB_EPS |o| here): the moving quadratic's
-// error on the hit point is that of the static one at the center c + w cd,
-// which lies in the box. A cluster with no active row has count 0, so its
-// far box (1e30) never leads to a row test. Rows are not staged: at 40
-// bytes a moving row, 7,744 rows would need 309,760 bytes of shared memory,
-// more than a block has. The wrapper passes a compact copy of the search
-// columns in global memory instead (5 floats a row, 10 with ANIMATED, one
-// contiguous column each: 310 KB at 7,744 rows, which stays in L2), and
-// only the nodes and [first, count, miss] sit in shared memory (36 bytes a
-// cluster). What bounds it: the quadratic per row of each cluster a ray
-// enters (~40 flops moving) and the L2 reads of those rows; threads of a
-// warp that enter the same cluster read the same row together.
+// fault C6), so no leaf holding a winning root is skipped. K6's boxes are
+// grown alike: the moving quadratic's error on the hit point is that of the
+// static one at the center c + w cd, which lies in the leaf's box, a box
+// that holds the sphere at open and close holding it at every w between
+// (the wrapper checks that each leaf box holds its rows at open and close
+// and each parent box its children).
 //
 // K7, the triangle-BVH stage for static meshes (TRI; megakernel.py from
 // l.962: the Woop leaf test l.1079-1140, the winner's normal and material
@@ -210,9 +213,11 @@ constexpr int META_COLS = 3;       // staged per node: first, count, miss
 constexpr int TRI_COLS = 16;       // Woop row: a0, a1, a2, b, unit normal, mat id
 constexpr int TRI_MOVING_COLS = 32;  // moving row: v0, e1, e2, n, mat id, 0, v0d, e1d, e2d
 constexpr int MAT_COLS = 24;       // material row: sphere-table columns 6-23, ...
-constexpr int BLOCK = 128;         // threads per block, K8's brute search (4 warps)
-constexpr int WALK_BLOCK = 256;    // threads per block, walks (8 warps)
-constexpr int BRUTE_BLOCK = 128;   // threads per block, K1 / K2 (4 warps, persistent)
+constexpr int WALK_BLOCK = 256;    // threads per block, the nested loop (8 warps)
+constexpr int BRUTE_BLOCK = 128;   // threads per block, flat brute search (4 warps)
+constexpr int TREE_BLOCK = 256;    // threads per block, flat tree walk (K6, 8 warps)
+constexpr int TREE_STACK = 64;     // K6's deferred far children: its tree at most this deep
+constexpr int MAX_SMEM = 232448;   // dynamic shared memory a block can take
 constexpr unsigned FULL_WARP = 0xffffffffu;
 constexpr int NO_SAMPLE = 1 << 30;  // sample0 of a padding lane
 constexpr float SLAB_EPS = 4e-3f;  // the walk's slab margin (see above)
@@ -321,14 +326,11 @@ __device__ __forceinline__ void tri_closest(
 }
 
 // K5's closest hit: the stackless skip-link walk (see the note above) ->
-// (best, win), win a row of the permuted table, -1 on a miss. ANIMATED
-// (K6's clusters of moving rows): the leaf rows at the path's shutter
-// fraction w.
-template <bool ANIMATED>
+// (best, win), win a row of the permuted table, -1 on a miss.
 __device__ __forceinline__ void walk_closest(
     const Staged& s, const float* __restrict__ table, float ox, float oy,
     float oz, float dx, float dy, float dz, float a_q, float d_dot_o,
-    float o_sq, float inv_a, float w, float t_min, float& best, int& win) {
+    float o_sq, float inv_a, float t_min, float& best, int& win) {
   const float ivx = safe_inv(dx), ivy = safe_inv(dy), ivz = safe_inv(dz);
   const float pr = SLAB_EPS * fmaxf(fmaxf(fabsf(ox), fabsf(oy)), fabsf(oz));
   int i = 0;
@@ -352,19 +354,10 @@ __device__ __forceinline__ void walk_closest(
         continue;
       }
       const int first = m[0];
-      if (ANIMATED) {
-        closest_sphere_moving<true>(
-            s.cx + first, s.cy + first, s.cz + first, s.csr + first,
-            s.act + first, s.cdx + first, s.cdy + first, s.cdz + first,
-            s.s1 + first, s.s2 + first, count, ox, oy, oz, dx, dy, dz, a_q,
-            d_dot_o, o_sq, inv_a, w, 2.0f * w, w * w, t_min, best, win, first,
-            table);
-      } else {
-        closest_sphere<true>(s.cx + first, s.cy + first, s.cz + first,
-                             s.csr + first, s.act + first, count, first, ox,
-                             oy, oz, dx, dy, dz, a_q, d_dot_o, o_sq, inv_a,
-                             t_min, best, win, table);
-      }
+      closest_sphere<true>(s.cx + first, s.cy + first, s.cz + first,
+                           s.csr + first, s.act + first, count, first, ox,
+                           oy, oz, dx, dy, dz, a_q, d_dot_o, o_sq, inv_a,
+                           t_min, best, win, table);
     }
     i = m[2];
   }
@@ -667,14 +660,15 @@ __device__ __forceinline__ bool shade_bounce(
   return true;
 }
 
-// One lane's paths for K5-K8 (K1 and K2 run brute_kernel below). RECORD:
-// one path per lane, decision words to `rec` (D, R). RADIANCE: accumulate
-// radiance into `out` (3, R); in record mode only from bounce smem[4] on.
-// Forward mode is <false, true>. WALK: the closest hit walks the sphere BVH
-// (K5) or the clusters (K6) over the permuted table, with ANIMATED only the
-// clusters. ANIMATED, CAM_ANIMATED: K8's moving spheres and keyframed
-// camera. TRI: K7's triangle stage after the brute sphere search (`tris`,
-// `mats`); with ANIMATED the mesh moves too (K7 moving, the (M, 32) rows).
+// One lane's paths in the nested loop: K5, K7, K7 moving (K1, K2, K8's
+// brute search and K6 run flat_kernel below). RECORD: one path per lane,
+// decision words to `rec` (D, R). RADIANCE: accumulate radiance into `out`
+// (3, R); in record mode only from bounce smem[4] on. Forward mode is
+// <false, true>. WALK: the closest hit walks the sphere BVH (K5) over the
+// permuted table, static or with CAM_ANIMATED. ANIMATED, CAM_ANIMATED: K8's
+// moving spheres and keyframed camera. TRI: K7's triangle stage after the
+// brute sphere search (`tris`, `mats`); with ANIMATED the mesh moves too (K7
+// moving, the (M, 32) rows).
 template <bool RECORD, bool RADIANCE, bool WALK, bool ANIMATED, bool CAM_ANIMATED,
           bool TRI>
 __device__ __forceinline__ void trace_lane(
@@ -684,8 +678,11 @@ __device__ __forceinline__ void trace_lane(
     const float* __restrict__ tris, const float* __restrict__ mats, int r,
     float t_min, float* __restrict__ out, int32_t* __restrict__ rec) {
   static_assert(!(TRI && WALK), "K7 runs beside the brute sphere search only");
-  static_assert(WALK || ANIMATED || CAM_ANIMATED || TRI,
-                "the brute static search (K1, K2) runs brute_kernel's flat loop");
+  static_assert(WALK || TRI,
+                "the brute search alone (K1, K2, K8) runs flat_kernel's flat loop");
+  static_assert(!(WALK && ANIMATED),
+                "a moving table walks K6's swept tree in flat_kernel: K5's boxes hold "
+                "the spheres at one time");
   const int spp = smem[0];
   const uint32_t seed = (uint32_t)smem[1];
   const int width = smem[2];
@@ -724,8 +721,8 @@ __device__ __forceinline__ void trace_lane(
       float best = BIG;
       int win = -1;
       if (WALK) {
-        walk_closest<ANIMATED>(s, table, ox, oy, oz, dx, dy, dz, a_q, d_dot_o,
-                               o_sq, inv_a, w, t_min, best, win);
+        walk_closest(s, table, ox, oy, oz, dx, dy, dz, a_q, d_dot_o, o_sq, inv_a,
+                     t_min, best, win);
       } else if (ANIMATED) {
         closest_sphere_moving(s.cx, s.cy, s.cz, s.csr, s.act, s.cdx, s.cdy,
                               s.cdz, s.s1, s.s2, s.n, ox, oy, oz, dx, dy, dz,
@@ -763,15 +760,13 @@ __device__ __forceinline__ void trace_lane(
   out[2 * (size_t)r + lane] = az;
 }
 
-// The acceleration structures a launch walks: the sphere BVH (WALK) or
-// the clusters (WALK with CULL, K6, whose search columns `rows` are read
-// from global memory) over the permuted table, and a mesh's triangle BVH
-// with its rows (Woop, or the moving layout with ANIMATED) and material
-// rows (TRI). Unused pointers are null and counts 0.
+// The acceleration structures the nested loop walks: the sphere BVH
+// (WALK, K5) over the permuted table, and a mesh's triangle BVH with its
+// rows (Woop, or the moving layout with ANIMATED) and material rows (TRI).
+// Unused pointers are null and counts 0.
 struct Trees {
-  const float* nodes;     // (k, 6) grown sphere-node or cluster boxes
+  const float* nodes;     // (k, 6) grown sphere-node boxes
   const int32_t* meta;    // (k, 3) first, count, miss
-  const float* rows;      // (5 or 10, n) K6's search columns, one after another
   const float* tnodes;    // (kt, 6) triangle-node boxes
   const int32_t* tmeta;   // (kt, 3) first, count, miss
   const float* tris;      // (M, 16) Woop or (M, 32) moving rows, leaf order
@@ -780,7 +775,7 @@ struct Trees {
 };
 
 template <bool RECORD, bool RADIANCE, bool WALK, bool ANIMATED, bool CAM_ANIMATED,
-          bool TRI, bool CULL, int NT>
+          bool TRI, int NT>
 __global__ void __launch_bounds__(NT) megakernel(
     const int32_t* __restrict__ smem,     // (8,) [spp, seed, width, max_depth, accum_from, ...]
     const int32_t* __restrict__ pix_in,   // (R,) pixel ids
@@ -790,36 +785,28 @@ __global__ void __launch_bounds__(NT) megakernel(
     const Trees trees, int n, int r, float t_min,
     float* __restrict__ out,              // (3, R) radiance sums
     int32_t* __restrict__ rec) {          // (max_depth, R) records (RECORD only)
-  static_assert(!CULL || WALK, "K6 is the walk over clusters");
-  static_assert(!(WALK && ANIMATED) || CULL,
-                "a moving table walks the clusters (K6), whose boxes hold it "
-                "over the shutter");
   constexpr int COLS = ANIMATED ? SMEM_COLS + MOTION_COLS : SMEM_COLS;
   extern __shared__ float sh[];
-  // The search columns, one after another: cx, cy, cz, csr, active, and
-  // with ANIMATED cd x/y/z, s1, s2. Staged in shared memory, or (K6) read
-  // from the compact copy in global memory.
-  const float* cols = CULL ? trees.rows : sh;
-  if (!CULL) {
-    for (int q = threadIdx.x; q < n; q += blockDim.x) {
-      const float* row = table + (size_t)q * C_IN;
-      sh[q] = row[0];
-      sh[n + q] = row[1];
-      sh[2 * n + q] = row[2];
-      sh[3 * n + q] = row[4];
-      sh[4 * n + q] = row[5];
-      if (ANIMATED) {
-        sh[5 * n + q] = row[24];
-        sh[6 * n + q] = row[25];
-        sh[7 * n + q] = row[26];
-        sh[8 * n + q] = row[28];
-        sh[9 * n + q] = row[29];
-      }
+  // The search columns in shared memory, one after another: cx, cy, cz,
+  // csr, active, and with ANIMATED cd x/y/z, s1, s2.
+  for (int q = threadIdx.x; q < n; q += blockDim.x) {
+    const float* row = table + (size_t)q * C_IN;
+    sh[q] = row[0];
+    sh[n + q] = row[1];
+    sh[2 * n + q] = row[2];
+    sh[3 * n + q] = row[4];
+    sh[4 * n + q] = row[5];
+    if (ANIMATED) {
+      sh[5 * n + q] = row[24];
+      sh[6 * n + q] = row[25];
+      sh[7 * n + q] = row[26];
+      sh[8 * n + q] = row[28];
+      sh[9 * n + q] = row[29];
     }
   }
   const int k = WALK ? trees.k : 0;
   const int kt = TRI ? trees.kt : 0;
-  float* s_node = sh + (CULL ? 0 : COLS * n);
+  float* s_node = sh + COLS * n;
   int* s_meta = (int*)(s_node + NODE_COLS * k);
   float* s_tnode = (float*)(s_meta + META_COLS * k);
   int* s_tmeta = (int*)(s_tnode + NODE_COLS * kt);
@@ -832,9 +819,10 @@ __global__ void __launch_bounds__(NT) megakernel(
     for (int q = threadIdx.x; q < kt * META_COLS; q += blockDim.x) s_tmeta[q] = trees.tmeta[q];
   }
   __syncthreads();
-  const Staged s{cols, cols + n, cols + 2 * n, cols + 3 * n, cols + 4 * n,
-                 cols + 5 * n, cols + 6 * n, cols + 7 * n, cols + 8 * n, cols + 9 * n,
-                 s_node, s_meta, s_tnode, s_tmeta, n, k, kt};
+  const Staged s{sh,          sh + n,      sh + 2 * n,  sh + 3 * n, sh + 4 * n,
+                 sh + 5 * n,  sh + 6 * n,  sh + 7 * n,  sh + 8 * n, sh + 9 * n,
+                 s_node,      s_meta,      s_tnode,     s_tmeta,    n,
+                 k,           kt};
 
   const int lane = blockIdx.x * NT + threadIdx.x;
   if (lane < r) {
@@ -844,23 +832,21 @@ __global__ void __launch_bounds__(NT) megakernel(
   }
 }
 
-// K6 (cull) stages its nodes alone; the other variants the search columns
-// of every row too.
-int smem_bytes(int n, int k, bool animated, int kt, bool cull) {
-  const int cols = cull ? 0 : animated ? SMEM_COLS + MOTION_COLS : SMEM_COLS;
+// The nested loop stages the search columns of every row and its nodes.
+int smem_bytes(int n, int k, bool animated, int kt) {
+  const int cols = animated ? SMEM_COLS + MOTION_COLS : SMEM_COLS;
   return n * cols * (int)sizeof(float) +
          (k + kt) * (NODE_COLS * (int)sizeof(float) + META_COLS * (int)sizeof(int));
 }
 
 template <bool RECORD, bool RADIANCE, bool WALK, bool ANIMATED = false,
-          bool CAM_ANIMATED = false, bool TRI = false, bool CULL = false>
+          bool CAM_ANIMATED = false, bool TRI = false>
 int launch(const int32_t* smem, const int32_t* pix, const int32_t* sample0,
            const float* cam, const float* table, const Trees& trees, int n, int r,
            float t_min, float* out, int32_t* rec, void* stream) {
-  constexpr int NT = WALK || TRI ? WALK_BLOCK : BLOCK;
-  auto kernel = megakernel<RECORD, RADIANCE, WALK, ANIMATED, CAM_ANIMATED, TRI, CULL, NT>;
-  const int bytes =
-      smem_bytes(n, WALK ? trees.k : 0, ANIMATED, TRI ? trees.kt : 0, CULL);
+  constexpr int NT = WALK_BLOCK;
+  auto kernel = megakernel<RECORD, RADIANCE, WALK, ANIMATED, CAM_ANIMATED, TRI, NT>;
+  const int bytes = smem_bytes(n, WALK ? trees.k : 0, ANIMATED, TRI ? trees.kt : 0);
   if (bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -874,17 +860,23 @@ int launch(const int32_t* smem, const int32_t* pix, const int32_t* sample0,
   return (int)cudaGetLastError();
 }
 
-// --- K1 and K2: the brute static search in one flat bounce loop -----------
+// --- The flat loop: K1, K2, K8's brute search and K6 ---------------------
 
-// What K1 / K2 read beside the table (ops/kernels/megakernel.py
-// brute_rows): the rows' search entries, the active rows first in table
-// order, their table row ids, the count of active rows, and the work
-// counter the launch zeroes.
-struct Brute {
-  const float4* rows;   // (N,) (cx, cy, cz, |c|^2 - r^2)
-  const int32_t* ids;   // (N,) each entry's table row
-  const int32_t* live;  // (1,) the active rows: entries [0, live)
-  int32_t* next;        // (1,) the next work item to hand out
+// What flat_kernel reads beside the table (ops/kernels/megakernel.py
+// _flat_args). The brute search: its rows' entries, the active rows first
+// in table order (16 bytes a row, 48 with ANIMATED), their table row ids and
+// the count of active rows. K6: the tree's rows in the permuted table's
+// order (48 bytes a row), its K nodes (two 16-byte entries a node: grown
+// box lo x/y/z and hi x; hi y/z, first and count as int bits) and skip
+// links. Both: the work counter the launch zeroes.
+struct Flat {
+  const float4* rows;    // (N,) or (N, 3) row entries (see above)
+  const int32_t* ids;    // brute: (N,) each entry's table row
+  const int32_t* live;   // brute: (1,) the active rows, entries [0, live)
+  const float4* nodes;   // K6: (K, 2) node entries
+  const int32_t* miss;   // K6: (K,) skip links
+  int32_t* next;         // (1,) the next work item to hand out
+  int k;                 // K6's node count, 0 for the brute search
 };
 
 // One staged row against the ray, in closest_sphere's arithmetic; the
@@ -913,30 +905,225 @@ __device__ __forceinline__ void brute_row(const float4 c, int k, float ox, float
   }
 }
 
-// K1 (forward: RECORD false, RADIANCE true) and K2 (record, fused or not).
-// Persistent lanes in one flat loop (see the note at the top): each
-// iteration, a lane with no path in flight starts its item's next sample,
-// then every lane with a path runs one search and one bounce's shading.
-// Items are handed out by the work counter `b.next`, one atomicAdd per warp
-// for its idle lanes, in lane order. Forward mode: an item is a lane of
-// `pix` / `sample0` with its samples sample0..spp-1 in order; record mode:
-// that lane's one path. The launch zeroes `out` and `rec` first, so items
-// with no path (padding lanes) and record rows after a path's end are
-// never written.
-template <bool RECORD, bool RADIANCE>
-__global__ void __launch_bounds__(BRUTE_BLOCK) brute_kernel(
+// A moving row (entries c, m = (cdx, cdy, cdz, s1) and s2) at the path's
+// shutter fraction in closest_sphere_moving's association (common.cuh),
+// operation for operation, in brute_row's form: the entry replaces (best,
+// k_win) only when strictly nearer.
+__device__ __forceinline__ void moving_row(const float4 c, const float4 m, float s2, int k,
+                                           float ox, float oy, float oz, float dx, float dy,
+                                           float dz, float a_q, float d_dot_o, float o_sq,
+                                           float inv_a, float w, float two_w, float w_sq,
+                                           float t_min, float& best, int& k_win) {
+  const float dck = (c.x * dx + c.y * dy + c.z * dz) + w * (m.x * dx + m.y * dy + m.z * dz);
+  const float ock = (c.x * ox + c.y * oy + c.z * oz) + w * (m.x * ox + m.y * oy + m.z * oz);
+  const float csrk = c.w + two_w * m.w + w_sq * s2;
+  const float h = dck - d_dot_o;
+  const float c_q = csrk - 2.0f * ock + o_sq;
+  const float disc = h * h - a_q * c_q;
+  if (disc >= 0.0f) {
+    const float sq = sqrtf(disc);
+    const float root0 = (h - sq) * inv_a;
+    const float root1 = (h + sq) * inv_a;
+    const bool ok0 = (root0 > t_min) && (root0 < BIG);
+    const bool ok1 = (root1 > t_min) && (root1 < BIG);
+    const float root = ok0 ? root0 : root1;
+    if ((ok0 || ok1) && root < best) {
+      best = root;
+      k_win = k;
+    }
+  }
+}
+
+// A static row entry c = (cx, cy, cz, |c|^2 - r^2) against the ray ->
+// (h, c_q), in closest_sphere's association.
+__device__ __forceinline__ void static_terms(const float4 c, float ox, float oy, float oz,
+                                             float dx, float dy, float dz, float d_dot_o,
+                                             float o_sq, float& h, float& c_q) {
+  const float dck = c.x * dx + c.y * dy + c.z * dz;
+  const float ock = c.x * ox + c.y * oy + c.z * oz;
+  h = dck - d_dot_o;
+  c_q = c.w - 2.0f * ock + o_sq;
+}
+
+// A moving row (entries c, m = (cdx, cdy, cdz, s1) and s2) at the path's
+// shutter fraction w -> (h, c_q), in closest_sphere_moving's association
+// (common.cuh), operation for operation.
+__device__ __forceinline__ void moving_terms(const float4 c, const float4 m, float s2,
+                                             float ox, float oy, float oz, float dx,
+                                             float dy, float dz, float d_dot_o, float o_sq,
+                                             float w, float two_w, float w_sq, float& h,
+                                             float& c_q) {
+  const float dck = (c.x * dx + c.y * dy + c.z * dz) + w * (m.x * dx + m.y * dy + m.z * dz);
+  const float ock = (c.x * ox + c.y * oy + c.z * oz) + w * (m.x * ox + m.y * oy + m.z * oz);
+  const float csrk = c.w + two_w * m.w + w_sq * s2;
+  h = dck - d_dot_o;
+  c_q = csrk - 2.0f * ock + o_sq;
+}
+
+// K6's closest hit over the swept tree (see the note at the top) -> (best,
+// win), win a row of the permuted table, -1 on a miss. At an inner node
+// the walk slab-tests both children and goes on to the one it enters
+// first, deferring the other with its entry distance on a stack of
+// TREE_STACK entries, one at most a level of a tree at most that deep
+// (swept_inputs checks it); after a leaf (or where it enters neither) it
+// resumes at the most recently deferred child whose entry is not past the
+// best hit so far (the box test's exit is min(box exit, best), so "entry
+// <= best" is the test repeated). A leaf row's root is the moving search's
+// at w (ANIMATED) or the static one's; it replaces the best where strictly
+// nearer or, at an exact tie, where its original id is lower, so any visit
+// order gives the least (t, original id).
+template <bool ANIMATED>
+__device__ __forceinline__ void tree_closest(
+    const float4* nodes, const int32_t* miss, int k, const float4* __restrict__ rows, float ox, float oy, float oz, float dx, float dy,
+    float dz, float a_q, float d_dot_o, float o_sq, float inv_a, float w, float t_min,
+    float& best, int& win) {
+  const float ivx = safe_inv(dx), ivy = safe_inv(dy), ivz = safe_inv(dz);
+  const float pr = SLAB_EPS * fmaxf(fmaxf(fabsf(ox), fabsf(oy)), fabsf(oz));
+  const float two_w = 2.0f * w, w_sq = w * w;
+  float win_id = 0.0f;  // the winner's original id (exact in float32)
+  // Node i's grown box against [t_min, best]: whether the ray enters it,
+  // and where.
+  auto entered = [&](int i, float& enter) {
+    const float4 a = nodes[2 * i], b = nodes[2 * i + 1];
+    const float t0x = ((a.x - pr) - ox) * ivx;
+    const float t1x = ((a.w + pr) - ox) * ivx;
+    const float t0y = ((a.y - pr) - oy) * ivy;
+    const float t1y = ((b.x + pr) - oy) * ivy;
+    const float t0z = ((a.z - pr) - oz) * ivz;
+    const float t1z = ((b.y + pr) - oz) * ivz;
+    enter = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fmaxf(fminf(t0z, t1z), t_min));
+    const float exitv = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                              fminf(fmaxf(t0z, t1z), best));
+    return enter <= exitv;
+  };
+  auto leaf = [&](int first, int count) {
+    for (int q = first; q < first + count; ++q) {
+      const float4 c = __ldg(rows + 3 * q);
+      const float4 e = __ldg(rows + 3 * q + 2);
+      float h, c_q;
+      if (ANIMATED) {
+        moving_terms(c, __ldg(rows + 3 * q + 1), e.x, ox, oy, oz, dx, dy, dz, d_dot_o, o_sq,
+                     w, two_w, w_sq, h, c_q);
+      } else {
+        static_terms(c, ox, oy, oz, dx, dy, dz, d_dot_o, o_sq, h, c_q);
+      }
+      const float disc = h * h - a_q * c_q;
+      if (disc >= 0.0f) {
+        const float sq = sqrtf(disc);
+        const float root0 = (h - sq) * inv_a;
+        const float root1 = (h + sq) * inv_a;
+        const bool ok0 = (root0 > t_min) && (root0 < BIG);
+        const bool ok1 = (root1 > t_min) && (root1 < BIG);
+        const float root = ok0 ? root0 : root1;
+        if ((ok0 || ok1) && (root < best || (root == best && e.y < win_id))) {
+          best = root;
+          win = q;
+          win_id = e.y;
+        }
+      }
+    }
+  };
+  float enter;
+  int2 stack[TREE_STACK];  // (node, entry distance as bits)
+  int sp = 0;
+  if (k == 0 || !entered(0, enter)) return;
+  int i = 0;
+  for (;;) {
+    const float4 b = nodes[2 * i + 1];
+    const int count = __float_as_int(b.w);
+    if (count > 0) {
+      leaf(__float_as_int(b.z), count);
+    } else {
+      const int l = i + 1, r = miss[l];
+      float el, er;
+      const bool hl = entered(l, el), hr = entered(r, er);
+      if (hl && hr) {
+        const bool near_l = el <= er;
+        i = near_l ? l : r;
+        stack[sp++] = make_int2(near_l ? r : l, __float_as_int(near_l ? er : el));
+        continue;
+      }
+      if (hl || hr) {
+        i = hl ? l : r;
+        continue;
+      }
+    }
+    for (;;) {  // resume at the last deferred child still entered before best
+      if (sp == 0) return;
+      const int2 top = stack[--sp];
+      if (__int_as_float(top.y) <= best) {
+        i = top.x;
+        break;
+      }
+    }
+  }
+}
+
+// The flat loop's dynamic shared memory: the brute search's staged rows (a
+// 16-byte entry each, with ANIMATED 36 bytes), padded to a multiple of 4 of
+// the table's N rows; K6's K nodes (36 bytes each) where they fit, else
+// none (read from global memory).
+__host__ __device__ int flat_smem_bytes(bool animated, bool tree, int n, int k) {
+  if (tree) {
+    const long bytes = (long)k * (2 * sizeof(float4) + sizeof(int32_t));
+    return bytes <= MAX_SMEM ? (int)bytes : 0;
+  }
+  const int n4 = (n + 3) & ~3;
+  return n4 * (int)(animated ? 2 * sizeof(float4) + sizeof(float) : sizeof(float4));
+}
+
+// K1 (forward: RECORD false, RADIANCE true), K2 (record, fused or not), K8's
+// brute search (ANIMATED, CAM_ANIMATED) and K6 (TREE) in one flat loop over
+// persistent lanes (see the note at the top): each iteration, a lane with
+// no path in flight starts its item's next sample, then every lane with a
+// path runs one search and one bounce's shading. Items are handed out by
+// the work counter `f.next`, one atomicAdd per warp for its idle lanes, in
+// lane order. Forward mode: an item is a lane of `pix` / `sample0` with its
+// samples sample0..spp-1 in order; record mode: that lane's one path. The
+// launch zeroes `out` and `rec` first, so items with no path (padding
+// lanes) and record rows after a path's end are never written. `n` is the
+// table's row count (the brute search's staging room).
+template <bool RECORD, bool RADIANCE, bool ANIMATED, bool CAM_ANIMATED, bool TREE>
+__global__ void __launch_bounds__(TREE ? TREE_BLOCK : BRUTE_BLOCK) flat_kernel(
     const int32_t* __restrict__ smem, const int32_t* __restrict__ pix_in,
     const int32_t* __restrict__ sample0, const float* __restrict__ cam,
-    const float* __restrict__ table, const Brute b, int r, float t_min,
+    const float* __restrict__ table, const Flat f, int n, int r, float t_min,
     float* __restrict__ out, int32_t* __restrict__ rec) {
-  // The live rows, padded to a multiple of 4 with NaN entries, whose
-  // discriminant is never >= 0.
-  extern __shared__ float4 srow[];
-  const int n_live = *b.live;
-  const int n4 = (n_live + 3) & ~3;
-  const float qnan = __int_as_float(0x7fffffff);
-  for (int q = threadIdx.x; q < n4; q += BRUTE_BLOCK) {
-    srow[q] = q < n_live ? b.rows[q] : make_float4(qnan, qnan, qnan, qnan);
+  constexpr int NT = TREE ? TREE_BLOCK : BRUTE_BLOCK;
+  extern __shared__ float4 sh4[];
+  // The brute search's live rows, padded to a multiple of 4 with NaN
+  // entries, whose discriminant is never >= 0: srow[q] (and with ANIMATED
+  // smot[q] and ss2[q]). K6's nodes and skip links where they fit.
+  const int cap = (n + 3) & ~3;
+  float4* srow = sh4;
+  float4* smot = sh4 + cap;
+  float* ss2 = (float*)(sh4 + 2 * cap);
+  const float4* nodes = f.nodes;
+  const int32_t* miss = f.miss;
+  int n4 = 0;
+  if (TREE) {
+    if (flat_smem_bytes(ANIMATED, true, n, f.k) > 0) {
+      float4* s_nodes = sh4;
+      int32_t* s_miss = (int32_t*)(sh4 + 2 * f.k);
+      for (int q = threadIdx.x; q < 2 * f.k; q += NT) s_nodes[q] = f.nodes[q];
+      for (int q = threadIdx.x; q < f.k; q += NT) s_miss[q] = f.miss[q];
+      nodes = s_nodes;
+      miss = s_miss;
+    }
+  } else {
+    const int n_live = *f.live;
+    n4 = (n_live + 3) & ~3;
+    const float qnan = __int_as_float(0x7fffffff);
+    const float4 pad = make_float4(qnan, qnan, qnan, qnan);
+    for (int q = threadIdx.x; q < n4; q += NT) {
+      if (ANIMATED) {
+        srow[q] = q < n_live ? f.rows[3 * q] : pad;
+        smot[q] = q < n_live ? f.rows[3 * q + 1] : pad;
+        ss2[q] = q < n_live ? f.rows[3 * q + 2].x : qnan;
+      } else {
+        srow[q] = q < n_live ? f.rows[q] : pad;
+      }
+    }
   }
   __syncthreads();
 
@@ -952,7 +1139,7 @@ __global__ void __launch_bounds__(BRUTE_BLOCK) brute_kernel(
   int item = 0, smp = 0, s_end = 0, bounce = 0;
   bool spent = false, live = false;
   uint32_t upix = 0;
-  float fi = 0.0f, fj = 0.0f;
+  float fi = 0.0f, fj = 0.0f, w = 0.0f;
   float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
   float tx = 0.0f, ty = 0.0f, tz = 0.0f, ax = 0.0f, ay = 0.0f, az = 0.0f;
   for (;;) {
@@ -965,7 +1152,7 @@ __global__ void __launch_bounds__(BRUTE_BLOCK) brute_kernel(
       if (m == 0) break;
       const int leader = __ffs(m) - 1;
       int base = 0;
-      if (warp_lane == leader) base = atomicAdd(b.next, __popc(m));
+      if (warp_lane == leader) base = atomicAdd(f.next, __popc(m));
       base = __shfl_sync(FULL_WARP, base, leader);
       if (need) {
         item = base + __popc(m & below);
@@ -986,39 +1173,65 @@ __global__ void __launch_bounds__(BRUTE_BLOCK) brute_kernel(
     if (__all_sync(FULL_WARP, spent)) break;
 
     if (!spent) {
-      if (!live) {  // the item's next sample
-        primary_ray<false>(cam, upix, fi, fj, (uint32_t)smp, seed, 0.0f, ox, oy, oz,
-                           dx, dy, dz);
+      if (!live) {  // the item's next sample, at its shutter fraction (K8)
+        if (ANIMATED || CAM_ANIMATED) w = uniform4(upix, (uint32_t)smp, STREAM_TIME, seed).x;
+        primary_ray<CAM_ANIMATED>(cam, upix, fi, fj, (uint32_t)smp, seed, w, ox, oy, oz,
+                                  dx, dy, dz);
         tx = ty = tz = 1.0f;
         bounce = 0;
         live = true;
       }
-      // --- closest sphere: one broadcast LDS.128 a row, four rows a step --
+      // --- closest sphere ----------------------------------------------------
       const float a_q = dx * dx + dy * dy + dz * dz;
       const float d_dot_o = dx * ox + dy * oy + dz * oz;
       const float o_sq = ox * ox + oy * oy + oz * oz;
       const float inv_a = 1.0f / a_q;
       float best = BIG;
-      int k_win = -1;
-      for (int k = 0; k < n4; k += 4) {
-        const float4 c0 = srow[k], c1 = srow[k + 1], c2 = srow[k + 2], c3 = srow[k + 3];
-        brute_row(c0, k, ox, oy, oz, dx, dy, dz, a_q, d_dot_o, o_sq, inv_a, t_min,
-                  best, k_win);
-        brute_row(c1, k + 1, ox, oy, oz, dx, dy, dz, a_q, d_dot_o, o_sq, inv_a, t_min,
-                  best, k_win);
-        brute_row(c2, k + 2, ox, oy, oz, dx, dy, dz, a_q, d_dot_o, o_sq, inv_a, t_min,
-                  best, k_win);
-        brute_row(c3, k + 3, ox, oy, oz, dx, dy, dz, a_q, d_dot_o, o_sq, inv_a, t_min,
-                  best, k_win);
+      int win = -1;
+      if (TREE) {
+        tree_closest<ANIMATED>(nodes, miss, f.k, f.rows, ox, oy, oz, dx, dy, dz, a_q,
+                               d_dot_o, o_sq, inv_a, w, t_min, best, win);
+      } else {
+        // One broadcast LDS.128 a row (two and an LDS.32 moving), four rows
+        // a step, all four loaded before the first is tested; strict '<' in
+        // row order. Each row's test keeps its update inside its root's
+        // branch (brute_row, moving_row): a form that returned the root to
+        // the caller compiled ~25% slower for K1 / K2 on an H100.
+        const float two_w = 2.0f * w, w_sq = w * w;
+        int k_win = -1;
+        for (int k = 0; k < n4; k += 4) {
+          if (!ANIMATED) {
+            const float4 c0 = srow[k], c1 = srow[k + 1], c2 = srow[k + 2], c3 = srow[k + 3];
+            brute_row(c0, k, ox, oy, oz, dx, dy, dz, a_q, d_dot_o, o_sq, inv_a, t_min, best,
+                      k_win);
+            brute_row(c1, k + 1, ox, oy, oz, dx, dy, dz, a_q, d_dot_o, o_sq, inv_a, t_min, best,
+                      k_win);
+            brute_row(c2, k + 2, ox, oy, oz, dx, dy, dz, a_q, d_dot_o, o_sq, inv_a, t_min, best,
+                      k_win);
+            brute_row(c3, k + 3, ox, oy, oz, dx, dy, dz, a_q, d_dot_o, o_sq, inv_a, t_min, best,
+                      k_win);
+            continue;
+          }
+          const float4 c0 = srow[k], c1 = srow[k + 1], c2 = srow[k + 2], c3 = srow[k + 3];
+          const float4 m0 = smot[k], m1 = smot[k + 1], m2 = smot[k + 2], m3 = smot[k + 3];
+          const float s20 = ss2[k], s21 = ss2[k + 1], s22 = ss2[k + 2], s23 = ss2[k + 3];
+          moving_row(c0, m0, s20, k, ox, oy, oz, dx, dy, dz, a_q, d_dot_o, o_sq, inv_a,
+                     w, two_w, w_sq, t_min, best, k_win);
+          moving_row(c1, m1, s21, k + 1, ox, oy, oz, dx, dy, dz, a_q, d_dot_o, o_sq, inv_a,
+                     w, two_w, w_sq, t_min, best, k_win);
+          moving_row(c2, m2, s22, k + 2, ox, oy, oz, dx, dy, dz, a_q, d_dot_o, o_sq, inv_a,
+                     w, two_w, w_sq, t_min, best, k_win);
+          moving_row(c3, m3, s23, k + 3, ox, oy, oz, dx, dy, dz, a_q, d_dot_o, o_sq, inv_a,
+                     w, two_w, w_sq, t_min, best, k_win);
+        }
+        win = k_win < 0 ? -1 : f.ids[k_win];
       }
-      const int win = k_win < 0 ? -1 : b.ids[k_win];
 
       int32_t word = 0;
-      live = shade_bounce<RECORD, RADIANCE, false, false, false>(
+      live = shade_bounce<RECORD, RADIANCE, TREE, ANIMATED, false>(
           table, nullptr, nullptr, upix, (uint32_t)smp, seed, bounce,
-          !RECORD || bounce >= accum_from, max_depth, t_min, 0.0f, a_q, inv_a, best,
-          win, -1, 0.0f, 0.0f, 0.0f, ox, oy, oz, dx, dy, dz, tx, ty, tz, ax, ay, az,
-          word);
+          !RECORD || bounce >= accum_from, max_depth, t_min, w, a_q, inv_a, best, win,
+          -1, 0.0f, 0.0f, 0.0f, ox, oy, oz, dx, dy, dz, tx, ty, tz, ax, ay, az, word);
       if (RECORD) rec[(size_t)bounce * r + item] = word;
       ++bounce;
       if (!live && ++smp >= s_end && RADIANCE) {  // the item's last path ended
@@ -1030,85 +1243,108 @@ __global__ void __launch_bounds__(BRUTE_BLOCK) brute_kernel(
   }
 }
 
-// K1 / K2's dynamic shared memory for an N-row table: the staged rows,
-// padded to a multiple of 4.
-int brute_smem_bytes(int n) { return ((n + 3) & ~3) * (int)sizeof(float4); }
+template <bool A, bool C, bool T>
+struct FlatFlags {
+  static constexpr bool animated = A, cam_animated = C, tree = T;
+};
 
-// K1 / K2's launch shape: resident blocks per SM (per_sm) and SMs (sms);
-// an error if no block fits.
-template <bool RECORD, bool RADIANCE>
-cudaError_t brute_shape(int n, int& per_sm, int& sms) {
-  auto kernel = brute_kernel<RECORD, RADIANCE>;
-  const int bytes = brute_smem_bytes(n);
-  cudaError_t e = cudaSuccess;
-  if (bytes > 48 * 1024) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return e;
+// Call fn(FlatFlags<...>{}) with the flat loop's instantiation for one mode
+// (RECORD) and the flags: the brute search with any of K8's flags; K6 with
+// ANIMATED, with or without CAM_ANIMATED, and in forward mode over a static
+// table with a static camera (held against K1; no route selects it).
+// cudaErrorInvalidValue for a combination not instantiated.
+template <bool RECORD, class F>
+int flat_dispatch(int animated, int cam_animated, bool tree, F&& fn) {
+  if (tree) {
+    if (animated && cam_animated) return fn(FlatFlags<true, true, true>{});
+    if (animated) return fn(FlatFlags<true, false, true>{});
+    if constexpr (!RECORD) {
+      if (!cam_animated) return fn(FlatFlags<false, false, true>{});
+    }
+    return (int)cudaErrorInvalidValue;
   }
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BRUTE_BLOCK, bytes);
-  if (e != cudaSuccess) return e;
-  int dev = 0;
-  e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  return per_sm < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
+  if (animated && cam_animated) return fn(FlatFlags<true, true, false>{});
+  if (animated) return fn(FlatFlags<true, false, false>{});
+  if (cam_animated) return fn(FlatFlags<false, true, false>{});
+  return fn(FlatFlags<false, false, false>{});
 }
 
-// Launch K1 / K2 on as many blocks as stay resident (none more than the
-// R lanes need): the work counter, `out` and (RECORD) the `depth` rows of
-// `rec` are zeroed on the stream first.
-template <bool RECORD, bool RADIANCE>
-int launch_brute(const int32_t* smem, const int32_t* pix, const int32_t* sample0,
-                 const float* cam, const float* table, const Brute& b, int n, int r,
-                 int depth, float t_min, float* out, int32_t* rec, void* stream) {
-  int per_sm = 0, sms = 0;
-  cudaError_t e = brute_shape<RECORD, RADIANCE>(n, per_sm, sms);
+// Launch the flat loop on `grid` blocks (the wrapper's, from the launch
+// shape: as many as stay resident, none more than the R lanes need): the
+// work counter, `out` and (RECORD) the `depth` rows of `rec` are zeroed on
+// the stream first.
+template <bool RECORD, bool RADIANCE, bool ANIMATED, bool CAM_ANIMATED, bool TREE>
+int launch_flat(const int32_t* smem, const int32_t* pix, const int32_t* sample0,
+                const float* cam, const float* table, const Flat& f, int n, int r,
+                int depth, int grid, float t_min, float* out, int32_t* rec, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  if (e == cudaSuccess) e = cudaMemsetAsync(b.next, 0, sizeof(int32_t), st);
+  cudaError_t e = cudaMemsetAsync(f.next, 0, sizeof(int32_t), st);
   if (e == cudaSuccess) e = cudaMemsetAsync(out, 0, 3 * (size_t)r * sizeof(float), st);
   if (e == cudaSuccess && RECORD) {
     e = cudaMemsetAsync(rec, 0, (size_t)depth * r * sizeof(int32_t), st);
   }
   if (e != cudaSuccess) return (int)e;
-  const int resident = per_sm * sms, needed = (r + BRUTE_BLOCK - 1) / BRUTE_BLOCK;
-  const int grid = resident < needed ? resident : needed;
   if (grid > 0) {
-    brute_kernel<RECORD, RADIANCE><<<grid, BRUTE_BLOCK, brute_smem_bytes(n), st>>>(
-        smem, pix, sample0, cam, table, b, r, t_min, out, rec);
+    constexpr int NT = TREE ? TREE_BLOCK : BRUTE_BLOCK;
+    flat_kernel<RECORD, RADIANCE, ANIMATED, CAM_ANIMATED, TREE>
+        <<<grid, NT, flat_smem_bytes(ANIMATED, TREE, n, f.k), st>>>(
+            smem, pix, sample0, cam, table, f, n, r, t_min, out, rec);
   }
   return (int)cudaGetLastError();
 }
 
-// K1 / K2's launch shape into shape[0..3]: resident blocks per SM, SMs,
-// threads per block, registers per thread.
-template <bool RECORD, bool RADIANCE>
-int brute_shape_of(int n, int32_t* shape) {
-  int per_sm = 0, sms = 0;
-  cudaError_t e = brute_shape<RECORD, RADIANCE>(n, per_sm, sms);
+// One flat instantiation's launch shape into shape[0..5]: resident blocks
+// per SM, SMs, threads per block, registers per thread, local (stack and
+// spill) bytes per thread, dynamic shared memory per block. It also raises
+// the kernel's dynamic shared memory limit to what this shape needs (never
+// lowering it: the wrapper caches the shapes it launches on), so no launch
+// sets or queries anything.
+template <bool RECORD, bool RADIANCE, bool ANIMATED, bool CAM_ANIMATED, bool TREE>
+cudaError_t flat_shape(int n, int k, int32_t* shape) {
+  const void* kernel = (const void*)flat_kernel<RECORD, RADIANCE, ANIMATED, CAM_ANIMATED, TREE>;
+  constexpr int NT = TREE ? TREE_BLOCK : BRUTE_BLOCK;
+  const int bytes = flat_smem_bytes(ANIMATED, TREE, n, k);
   cudaFuncAttributes attr{};
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, brute_kernel<RECORD, RADIANCE>);
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e == cudaSuccess && attr.maxDynamicSharedSizeBytes < bytes) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  }
+  int per_sm = 0, sms = 0, dev = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, bytes);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
   shape[0] = per_sm;
   shape[1] = sms;
-  shape[2] = BRUTE_BLOCK;
+  shape[2] = NT;
   shape[3] = attr.numRegs;
-  return (int)e;
+  shape[4] = (int32_t)attr.localSizeBytes;
+  shape[5] = bytes;
+  return per_sm < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
+}
+
+// flat_shape for the instantiation of one mode that flat_dispatch picks.
+template <bool RECORD, bool RADIANCE>
+int flat_shape_of(int animated, int cam_animated, int n, int fk, int32_t* shape) {
+  return flat_dispatch<RECORD>(animated, cam_animated, fk > 0, [&](auto fl) {
+    using Fl = decltype(fl);
+    return (int)flat_shape<RECORD, RADIANCE, Fl::animated, Fl::cam_animated, Fl::tree>(
+        n, fk, shape);
+  });
 }
 
 // The instantiations of one mode (RECORD) and one value of RADIANCE: K7
-// where the launch has a triangle BVH (the brute search, with K8's flags:
-// ANIMATED makes it K7 moving), K6 where it has clusters (ANIMATED, with
-// or without CAM_ANIMATED; in forward mode also a static table with a
-// static camera, held against K1), K5 where it has a sphere BVH (static,
-// or with CAM_ANIMATED), else the brute search with K8's flags, or without
-// them K1 / K2's flat loop over `b`.
+// where the launch has a triangle BVH (the nested brute search, with K8's
+// flags: ANIMATED makes it K7 moving), K5 where it has a sphere BVH (nested;
+// static, or with CAM_ANIMATED), else the flat loop: K6 where it has a
+// swept tree (f.k > 0), else the brute search (K1 / K2, K8 with its flags).
 template <bool RECORD, bool RADIANCE>
 int variant(const int32_t* smem, const int32_t* pix, const int32_t* sample0,
-            const float* cam, const float* table, const Trees& t, const Brute& b,
-            int n, int r, int depth, float t_min, int animated, int cam_animated,
-            float* out, int32_t* rec, void* stream) {
+            const float* cam, const float* table, const Trees& t, const Flat& f,
+            int n, int r, int depth, int grid, float t_min, int animated,
+            int cam_animated, float* out, int32_t* rec, void* stream) {
   if (t.kt > 0) {
-    if (t.k > 0) return (int)cudaErrorInvalidValue;
+    if (t.k > 0 || f.k > 0) return (int)cudaErrorInvalidValue;
     if (animated && cam_animated) {
       return launch<RECORD, RADIANCE, false, true, true, true>(
           smem, pix, sample0, cam, table, t, n, r, t_min, out, rec, stream);
@@ -1124,26 +1360,8 @@ int variant(const int32_t* smem, const int32_t* pix, const int32_t* sample0,
     return launch<RECORD, RADIANCE, false, false, false, true>(
         smem, pix, sample0, cam, table, t, n, r, t_min, out, rec, stream);
   }
-  if (t.k > 0 && t.rows != nullptr) {
-    if (animated && cam_animated) {
-      return launch<RECORD, RADIANCE, true, true, true, false, true>(
-          smem, pix, sample0, cam, table, t, n, r, t_min, out, rec, stream);
-    }
-    if (animated) {
-      return launch<RECORD, RADIANCE, true, true, false, false, true>(
-          smem, pix, sample0, cam, table, t, n, r, t_min, out, rec, stream);
-    }
-    // A static table's clusters: forward mode with a static camera only.
-    if constexpr (RECORD) {
-      return (int)cudaErrorInvalidValue;
-    } else {
-      if (cam_animated) return (int)cudaErrorInvalidValue;
-      return launch<RECORD, RADIANCE, true, false, false, false, true>(
-          smem, pix, sample0, cam, table, t, n, r, t_min, out, rec, stream);
-    }
-  }
   if (t.k > 0) {
-    if (animated) return (int)cudaErrorInvalidValue;
+    if (animated || f.k > 0) return (int)cudaErrorInvalidValue;
     if (cam_animated) {
       return launch<RECORD, RADIANCE, true, false, true>(
           smem, pix, sample0, cam, table, t, n, r, t_min, out, rec, stream);
@@ -1151,50 +1369,41 @@ int variant(const int32_t* smem, const int32_t* pix, const int32_t* sample0,
     return launch<RECORD, RADIANCE, true>(smem, pix, sample0, cam, table, t, n, r,
                                           t_min, out, rec, stream);
   }
-  if (animated && cam_animated) {
-    return launch<RECORD, RADIANCE, false, true, true>(
-        smem, pix, sample0, cam, table, t, n, r, t_min, out, rec, stream);
-  }
-  if (animated) {
-    return launch<RECORD, RADIANCE, false, true, false>(
-        smem, pix, sample0, cam, table, t, n, r, t_min, out, rec, stream);
-  }
-  if (cam_animated) {
-    return launch<RECORD, RADIANCE, false, false, true>(
-        smem, pix, sample0, cam, table, t, n, r, t_min, out, rec, stream);
-  }
-  return launch_brute<RECORD, RADIANCE>(smem, pix, sample0, cam, table, b, n, r, depth,
-                                        t_min, out, rec, stream);
+  return flat_dispatch<RECORD>(animated, cam_animated, f.k > 0, [&](auto fl) {
+    using Fl = decltype(fl);
+    return launch_flat<RECORD, RADIANCE, Fl::animated, Fl::cam_animated, Fl::tree>(
+        smem, pix, sample0, cam, table, f, n, r, depth, grid, t_min, out, rec, stream);
+  });
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch the forward megakernel on `stream`: the brute search (K1) when
-// k == 0, else the walk over the K sphere nodes (K5), or over K clusters
-// when `rows` (K6's search columns) is not null; with `animated` (brute
-// or K6) or `cam_animated` nonzero, their motion variants (K8); with kt > 0
-// the triangle stage over the KT triangle nodes after the brute search (K7;
-// with `animated` K7 moving, whose `tris` are (M, 32) rows). K1 reads the
-// staged rows `brows`, `bids`, `blive` and the work counter `next`
-// (struct Brute); the other variants ignore them. Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for a combination not
-// instantiated (an animated BVH walk; K7 with a walk; K6 over a static
-// table seen by an animated camera).
+// Launch the forward megakernel on `stream`: with kt > 0 the triangle
+// stage over the KT triangle nodes after the nested brute search (K7; with
+// `animated` K7 moving, whose `tris` are (M, 32) rows); with k > 0 the
+// nested walk over the K sphere nodes (K5); else the flat loop on `grid`
+// blocks (struct Flat: `frows`, `fids`, `flive`, `fnodes`, `fmiss`, the
+// work counter `next`): the walk over the FK nodes of K6's swept tree when
+// fk > 0, else the brute search (K1); with `animated` or `cam_animated`
+// nonzero, their motion variants (K8). Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a combination not instantiated (a moving table
+// on K5's walk; K7 with a walk; K6 over a static table seen by an animated
+// camera).
 int crucible_megakernel_forward(const int32_t* smem, const int32_t* pix,
                                 const int32_t* sample0, const float* cam,
                                 const float* table, const float* nodes,
-                                const int32_t* meta, const float* rows,
-                                const float* tnodes, const int32_t* tmeta,
-                                const float* tris, const float* mats,
-                                const float* brows, const int32_t* bids,
-                                const int32_t* blive, int32_t* next, int n, int k,
-                                int kt, int r, float t_min, int animated,
+                                const int32_t* meta, const float* tnodes,
+                                const int32_t* tmeta, const float* tris, const float* mats,
+                                const float* frows, const int32_t* fids,
+                                const int32_t* flive, const float* fnodes,
+                                const int32_t* fmiss, int32_t* next, int n, int k, int kt,
+                                int fk, int grid, int r, float t_min, int animated,
                                 int cam_animated, float* out, void* stream) {
-  const Trees t{nodes, meta, rows, tnodes, tmeta, tris, mats, k, kt};
-  const Brute b{(const float4*)brows, bids, blive, next};
-  return variant<false, true>(smem, pix, sample0, cam, table, t, b, n, r, 0, t_min,
+  const Trees t{nodes, meta, tnodes, tmeta, tris, mats, k, kt};
+  const Flat f{(const float4*)frows, fids, flive, (const float4*)fnodes, fmiss, next, fk};
+  return variant<false, true>(smem, pix, sample0, cam, table, t, f, n, r, 0, grid, t_min,
                               animated, cam_animated, out, nullptr, stream);
 }
 
@@ -1206,31 +1415,36 @@ int crucible_megakernel_forward(const int32_t* smem, const int32_t* pix,
 int crucible_megakernel_record(const int32_t* smem, const int32_t* pix,
                                const int32_t* sample0, const float* cam,
                                const float* table, const float* nodes,
-                               const int32_t* meta, const float* rows,
-                               const float* tnodes, const int32_t* tmeta,
-                               const float* tris, const float* mats,
-                               const float* brows, const int32_t* bids,
-                               const int32_t* blive, int32_t* next, int n, int k,
-                               int kt, int r, int depth, float t_min, int radiance,
-                               int animated, int cam_animated, float* out,
+                               const int32_t* meta, const float* tnodes,
+                               const int32_t* tmeta, const float* tris, const float* mats,
+                               const float* frows, const int32_t* fids,
+                               const int32_t* flive, const float* fnodes,
+                               const int32_t* fmiss, int32_t* next, int n, int k, int kt,
+                               int fk, int grid, int r, int depth, float t_min,
+                               int radiance, int animated, int cam_animated, float* out,
                                int32_t* rec, void* stream) {
-  const Trees t{nodes, meta, rows, tnodes, tmeta, tris, mats, k, kt};
-  const Brute b{(const float4*)brows, bids, blive, next};
+  const Trees t{nodes, meta, tnodes, tmeta, tris, mats, k, kt};
+  const Flat f{(const float4*)frows, fids, flive, (const float4*)fnodes, fmiss, next, fk};
   if (radiance) {
-    return variant<true, true>(smem, pix, sample0, cam, table, t, b, n, r, depth, t_min,
-                               animated, cam_animated, out, rec, stream);
+    return variant<true, true>(smem, pix, sample0, cam, table, t, f, n, r, depth, grid,
+                               t_min, animated, cam_animated, out, rec, stream);
   }
-  return variant<true, false>(smem, pix, sample0, cam, table, t, b, n, r, depth, t_min,
-                              animated, cam_animated, out, rec, stream);
+  return variant<true, false>(smem, pix, sample0, cam, table, t, f, n, r, depth, grid,
+                              t_min, animated, cam_animated, out, rec, stream);
 }
 
-// K1 / K2's launch shape for an N-row table in one mode (record, radiance:
-// K1 is 0, 1) into shape[0..3]: resident blocks per SM, SMs, threads per
-// block, registers per thread. Returns a CUDA error.
-int crucible_megakernel_brute_shape(int record, int radiance, int n, int32_t* shape) {
-  if (!record) return brute_shape_of<false, true>(n, shape);
-  if (radiance) return brute_shape_of<true, true>(n, shape);
-  return brute_shape_of<true, false>(n, shape);
+// The flat loop's launch shape for an N-row table (the brute search) or a
+// swept tree of FK nodes (fk > 0, K6), in one mode (record, radiance: the
+// forward is 0, 1) with K8's flags, into shape[0..5]: resident blocks per
+// SM, SMs, threads per block, registers per thread, local (spill) bytes per
+// thread, dynamic shared memory per block. Lets that instantiation take its
+// dynamic shared memory. Returns a CUDA error (cudaErrorInvalidValue for a
+// combination not instantiated).
+int crucible_megakernel_flat_shape(int record, int radiance, int animated, int cam_animated,
+                                   int n, int fk, int32_t* shape) {
+  if (!record) return flat_shape_of<false, true>(animated, cam_animated, n, fk, shape);
+  if (radiance) return flat_shape_of<true, true>(animated, cam_animated, n, fk, shape);
+  return flat_shape_of<true, false>(animated, cam_animated, n, fk, shape);
 }
 
 const char* crucible_cuda_error_string(int err) {

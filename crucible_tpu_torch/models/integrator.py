@@ -387,8 +387,9 @@ def brute_beside_mesh(sd: SceneData) -> bool:
     """Whether a mesh sits beside a moving sphere table that K8's brute
     search holds (at most ``mk.MAX_ROWS_ANIMATED`` rows). The megakernel
     then searches the table by brute force, whether the scene carries its
-    cluster tables (``sph_cbounds``) or not: K7 beside K6's cluster walk is
-    a template combination not instantiated (ROADMAP A11)."""
+    chunk-cull tables (``sph_cbounds``, the swept tree) or not: K7 beside
+    K6's swept-tree walk is a template combination not instantiated (ROADMAP
+    A11)."""
     return (sd.num_tris > 0 and sd.animated and sd.sph_nodes is None
             and int(sd.sph_center.shape[0]) <= mk.MAX_ROWS_ANIMATED)
 
@@ -399,7 +400,7 @@ def _mesh_unsupported_reason(sd: SceneData, cp: CameraParams):
     beside the brute static sphere search, seen by a static or an animated
     camera; a moving mesh (every mesh of an animated scene, K7 moving)
     beside the moving sphere search, seen by either, also where the table
-    has cluster tables but fits the brute search (:func:`brute_beside_mesh`)."""
+    has chunk-cull tables but fits the brute search (:func:`brute_beside_mesh`)."""
     if sd.num_tris == 0:
         return None
     checks = (
@@ -411,7 +412,7 @@ def _mesh_unsupported_reason(sd: SceneData, cp: CameraParams):
                            "(ROADMAP A7)"),
         (sd.sph_perm is None or brute_beside_mesh(sd),
          "a triangle mesh beside a big sphere table (K7 beside K5's sphere-BVH "
-         f"walk, or beside K6's cluster walk above {mk.MAX_ROWS_ANIMATED} moving "
+         f"walk, or beside K6's swept-tree walk above {mk.MAX_ROWS_ANIMATED} moving "
          "rows: template combinations not instantiated, ROADMAP A11)"),
     )
     return next((what for ok, what in checks if not ok), None)
@@ -444,8 +445,8 @@ def megakernel_record_supported(sd: SceneData, cp: CameraParams) -> bool:
     or moving on the linear shutter, seen by a static or linearly animated
     camera (K8's record mode for motion), with at most ``mk.MAX_ROWS``
     table rows or with the sphere-BVH tables (``sd.sph_perm``) that the
-    walk takes instead (K5); a moving table with the cluster tables
-    (``sd.sph_cbounds``, K6), or without them at most
+    walk takes instead (K5); a moving table with the chunk-cull tables
+    (``sd.sph_cbounds`` and the swept tree, K6), or without them at most
     ``mk.MAX_ROWS_ANIMATED`` rows for the brute search; and BVH meshes,
     static or moving, beside the brute sphere table (K7, K7 moving). The
     record's decisions read no albedo or sky, so textures and the sky do
@@ -461,8 +462,8 @@ def megakernel_record_unsupported_reason(sd: SceneData, cp: CameraParams):
             n <= mk.MAX_ROWS_ANIMATED and sd.sph_perm is None)
         rows_what = (
             f"more than {mk.MAX_ROWS_ANIMATED} moving sphere rows without the "
-            "cluster tables (sph_cbounds) of the chunk-cull walk (K6), or moving "
-            "spheres with the sphere-BVH tables, whose boxes do not follow them"
+            "chunk-cull tables (sph_cbounds, and the swept tree that K6 walks), or "
+            "moving spheres with the sphere-BVH tables, whose boxes do not follow them"
         )
     else:
         rows_ok = n <= mk.MAX_ROWS or sd.sph_perm is not None
@@ -473,6 +474,26 @@ def megakernel_record_unsupported_reason(sd: SceneData, cp: CameraParams):
         (rows_ok, rows_what),
     )
     return next((what for ok, what in checks if not ok), _mesh_unsupported_reason(sd, cp))
+
+
+def swept_tree(sd: SceneData):
+    """The swept tree K6 walks for an animated scene that carries the
+    chunk-cull tables (``sd.sph_cbounds``) -> (perm, nodes, meta), else
+    None. ``Scene.build`` and the bridge make the tree (``sph_swept_*``)
+    wherever they make the clusters; clusters without it raise
+    ``ValueError``. The route reads the clusters, as the JAX package's
+    does, so a scene takes K6 where the JAX package takes its chunk-cull
+    branch, and a scene stripped of its clusters takes the brute search
+    (as the JAX parity tests of tests/test_torch_cull.py strip it)."""
+    if not sd.animated or sd.sph_cbounds is None:
+        return None
+    if sd.sph_swept_nodes is None:
+        raise ValueError(
+            "this animated scene carries the chunk-cull clusters (sph_cbounds) but not "
+            "the swept tree that K6 walks (sph_swept_perm, sph_swept_nodes, "
+            "sph_swept_meta): lower it with Scene.build or bridge.scene_data_from_arrays"
+        )
+    return sd.sph_swept_perm, sd.sph_swept_nodes, sd.sph_swept_meta
 
 
 def permute_table(table: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
@@ -577,21 +598,20 @@ def trace_persistent_mega(
     spp: int,
     max_depth: int,
     seed: int,
-    cluster_perm=None,
-    cluster_bounds=None,
+    perm=None,
     sphere_nodes=None,
     sphere_meta=None,
+    swept=False,
 ) -> torch.Tensor:
     """Whole render in one megakernel call -> per-pixel radiance SUM
     (width*height, 3) over samples 0..spp-1.
 
-    ``cluster_perm`` (N_pad,) int32 with ``sphere_nodes`` (K, 16) float32
-    and ``sphere_meta`` (3 * (K + 16),) int32 are ``mk.sphere_bvh_tables``'
+    ``perm`` (N_pad,) int32 with ``sphere_nodes`` (K, 16) float32 and
+    ``sphere_meta`` (3 * (K + 16),) int32 are ``mk.sphere_bvh_tables``'
     outputs: the table is then padded and permuted into BVH leaf order and
-    the kernel walks the BVH (K5). ``cluster_perm`` with ``cluster_bounds``
-    (N_pad / 256, 8) float32 are ``mk.cluster_spheres``' outputs (for a
-    moving table, over its shutter deltas): the table is permuted into
-    cluster order and the kernel walks the clusters (K6). Without them it
+    the kernel walks the BVH (K5); with ``swept`` they are
+    ``mk.swept_tables``' (a moving table's tree over its shutter deltas,
+    :func:`swept_tree`) and the kernel walks them as K6. Without them it
     tests every row (K1, K8). The sums are the same, bit for bit. A BVH
     mesh's tables
     (:func:`make_tri_tables`) go to the kernel's triangle stage (K7, or K7
@@ -599,20 +619,18 @@ def trace_persistent_mega(
     pcg4d(pixel, sample, stream, seed), so the per-pixel sums do not depend
     on the lane order (see :func:`mega_inputs`).
     """
-    if (cluster_perm is None) != (sphere_nodes is None and cluster_bounds is None):
-        raise ValueError(
-            "cluster_perm goes with sphere_nodes (the sphere-BVH walk) or with "
-            "cluster_bounds (the cluster walk), and they with it"
-        )
+    if (perm is None) != (sphere_nodes is None) or (sphere_nodes is None) != (
+            sphere_meta is None):
+        raise ValueError("perm, sphere_nodes and sphere_meta go together")
     inputs, lane_of = mega_inputs(sd, cp, width, height, spp, max_depth, seed)
-    if cluster_perm is not None:
-        inputs["table"] = permute_table(inputs["table"], cluster_perm)
+    if perm is not None:
+        inputs["table"] = permute_table(inputs["table"], perm)
+        tree = "swept" if swept else "sph"
+        inputs.update({f"{tree}_nodes": sphere_nodes, f"{tree}_meta": sphere_meta})
     if sd.num_tris > 0:
         inputs.update(zip(("tri_nodes", "tris", "mats", "tri_meta"), make_tri_tables(sd)))
-    acc = mk.run_megakernel(
-        **inputs, cbounds=cluster_bounds, sph_nodes=sphere_nodes, sph_meta=sphere_meta,
-        animated=bool(sd.animated), cam_animated=bool(cp.animated),
-    )
+    acc = mk.run_megakernel(**inputs, animated=bool(sd.animated),
+                            cam_animated=bool(cp.animated))
     return acc.t()[lane_of]
 
 

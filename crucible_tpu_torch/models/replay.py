@@ -4,8 +4,9 @@ Port of ``crucible_tpu/models/replay.py``'s gradient path:
 
 1. :func:`trace_record_mega` — the fast, non-differentiable forward: the
    record-mode megakernel (K2; K5, the sphere-BVH walk, on static scenes
-   with ``sd.sph_perm``; K6, the cluster walk, on animated ones with
-   ``sd.sph_cbounds``; K8, their motion variants, for moving spheres and
+   with ``sd.sph_perm``; K6, the swept-tree walk, on animated ones with
+   the chunk-cull tables, ``sd.sph_cbounds``; K8, their motion variants,
+   for moving spheres and
    animated cameras; K7, the triangle stage, for a BVH mesh, K7 moving for
    a moving one) traces
    one (pixel, sample) path per lane and stores, per bounce, one packed
@@ -144,7 +145,8 @@ def trace_record_mega(
 ):
     """Record pass through the megakernel in record mode (K2; K5 where the
     scene has the sphere-BVH tables, ``sd.sph_nodes``; K6 where it has the
-    cluster tables, ``sd.sph_cbounds``; K8 for moving spheres or an
+    chunk-cull tables, ``sd.sph_cbounds``, walking their swept tree; K8 for
+    moving spheres or an
     animated camera, each path at its shutter fraction; K7 for a BVH mesh,
     K7 moving for a moving one, whose winners' words hold their leaf-order
     ids).
@@ -154,11 +156,12 @@ def trace_record_mega(
     which never issues. Returns packed records (max_depth, R) int32; with
     ``radiance=True`` returns (rec, rad (R, 3)), the paths' radiance from
     bounce ``accum_from`` on, summed by the same loop. A walk runs over
-    the table permuted by ``sd.sph_perm`` and records the winners'
-    original ids, so the records are the brute kernel's, bit for bit, and
-    the eager replay reads them as it reads the brute kernel's. Beside a
-    mesh a moving table the brute search holds takes it, cluster tables
-    or not (``integrator.brute_beside_mesh``).
+    the table permuted by ``sd.sph_perm`` (K5) or the swept tree's
+    permutation (K6) and records the winners' original ids, so the records
+    are the brute kernel's, bit for bit, and the eager replay reads them as
+    it reads the brute kernel's. Beside a mesh a moving table the brute
+    search holds takes it, chunk-cull tables or not
+    (``integrator.brute_beside_mesh``).
     """
     _check_record_capacity(sd)
     missing = integrator.megakernel_record_unsupported_reason(sd, cp)
@@ -179,11 +182,15 @@ def trace_record_mega(
             device=dev,
         )
         table = integrator.make_sphere_table(sd).contiguous()
-        cbounds = sd.sph_cbounds
+        walk = {}
         if integrator.brute_beside_mesh(sd):  # K8 brute beside K7 moving
-            cbounds = None
+            pass
+        elif (tree := integrator.swept_tree(sd)) is not None:
+            table = integrator.permute_table(table, tree[0])
+            walk = dict(swept_nodes=tree[1], swept_meta=tree[2])
         elif sd.sph_perm is not None:
             table = integrator.permute_table(table, sd.sph_perm)
+            walk = dict(sph_nodes=sd.sph_nodes, sph_meta=sd.sph_meta)
         tri = {}
         if sd.num_tris > 0:
             tri = dict(zip(("tri_nodes", "tris", "mats", "tri_meta"),
@@ -195,9 +202,7 @@ def trace_record_mega(
             integrator.mega_cam_vector(cp, width, height),
             table,
             **tri,
-            cbounds=cbounds,
-            sph_nodes=sd.sph_nodes,
-            sph_meta=sd.sph_meta,
+            **walk,
             max_depth=int(max_depth),
             radiance=radiance,
             animated=bool(sd.animated),

@@ -247,14 +247,21 @@ class SceneData:
 
     # The structure tables of the megakernel's walks above render.CULL_MIN_ROWS
     # rows with an active sphere, else None: a static scene's sphere BVH
-    # (megakernel.sphere_bvh_tables: sph_perm, sph_nodes, sph_meta; K5), an
-    # animated scene's clusters (megakernel.cluster_spheres over the shutter
-    # window: sph_perm, sph_cbounds; K6). The permuted table's column 31
+    # (megakernel.sphere_bvh_tables: sph_perm, sph_nodes, sph_meta; K5); an
+    # animated scene's chunk-cull tables: the JAX package's clusters
+    # (megakernel.cluster_spheres over the shutter window: sph_perm,
+    # sph_cbounds), kept for parity with its lowering, and the swept tree
+    # that K6 walks (megakernel.swept_tables over the same window:
+    # sph_swept_perm, sph_swept_nodes, sph_swept_meta, in sph_perm's,
+    # sph_nodes' and sph_meta's layouts). A permuted table's column 31
     # keeps original ids.
     sph_perm: Optional[torch.Tensor] = None  # (N_pad,) int32 permutation
     sph_nodes: Optional[torch.Tensor] = None  # (K, 16) float32 node boxes
     sph_meta: Optional[torch.Tensor] = None  # (3 * (K + 16),) int32 metadata
     sph_cbounds: Optional[torch.Tensor] = None  # (N_pad / 256, 8) float32 cluster boxes
+    sph_swept_perm: Optional[torch.Tensor] = None  # (N_pad,) int32 permutation
+    sph_swept_nodes: Optional[torch.Tensor] = None  # (K, 16) float32 node boxes
+    sph_swept_meta: Optional[torch.Tensor] = None  # (3 * (K + 16),) int32 metadata
 
     # Triangles (leaf order when use_bvh; brute meshes padded to a multiple
     # of 8, `tri_active` masking the padding)
@@ -280,6 +287,20 @@ class SceneData:
     tri_v2_d: Optional[torch.Tensor] = None
     # A triangle's keyframe inside the shutter window (exact-time motion).
     tri_exact: bool = False
+
+
+def swept_struct(center, radius, active, center_d, radius_d, *, device) -> dict:
+    """K6's swept tree (``megakernel.swept_tables``) of a moving table as
+    SceneData fields on ``device``: ``sph_swept_perm``, ``sph_swept_nodes``,
+    ``sph_swept_meta``. ``Scene.build`` and the bridge (a JAX-lowered
+    animated scene) both build it so, from the lowered float32 arrays."""
+    from crucible_tpu_torch.ops.kernels import megakernel as mk
+
+    perm, nodes, meta = mk.swept_tables(*(np.asarray(a) for a in (
+        center, radius, active, center_d, radius_d)))
+    return dict(sph_swept_perm=torch.as_tensor(perm, device=device),
+                sph_swept_nodes=torch.as_tensor(nodes, device=device),
+                sph_swept_meta=torch.as_tensor(meta, device=device))
 
 
 def _pad_to(n: int, mult: int) -> int:
@@ -779,8 +800,9 @@ class Scene:
 
         # Structure tables for the megakernel's walks, past the brute
         # search's crossover: a static scene's sphere BVH (K5), an animated
-        # scene's clusters, whose boxes hold each sphere at shutter open and
-        # close (K6: the BVH's boxes would go stale under motion).
+        # scene's clusters (the JAX lowering's) and swept tree (K6), whose
+        # boxes hold each sphere at shutter open and close (the BVH's boxes
+        # would go stale under motion).
         from crucible_tpu_torch.models.render import CULL_MIN_ROWS
         from crucible_tpu_torch.ops.kernels import megakernel as mk
 
@@ -790,10 +812,11 @@ class Scene:
             sph_struct = dict(sph_perm=t(perm_s, np.int32), sph_nodes=t(snodes, np.float32),
                               sph_meta=t(smeta, np.int32))
         elif n_pad > CULL_MIN_ROWS and bool(sph_active.any()):
-            perm_s, cbounds = mk.cluster_spheres(sph_center, sph_radius, sph_active,
-                                                 center_d=sph_center_b - sph_center,
-                                                 radius_d=sph_radius_b - sph_radius)
-            sph_struct = dict(sph_perm=t(perm_s, np.int32), sph_cbounds=t(cbounds, np.float32))
+            deltas = dict(center_d=sph_center_b - sph_center, radius_d=sph_radius_b - sph_radius)
+            perm_s, cbounds = mk.cluster_spheres(sph_center, sph_radius, sph_active, **deltas)
+            sph_struct = dict(sph_perm=t(perm_s, np.int32), sph_cbounds=t(cbounds, np.float32),
+                              **swept_struct(sph_center, sph_radius, sph_active, device=device,
+                                             **deltas))
 
         mesh = dict(
             tri_v0=t(v0, np.float32), tri_v1=t(v1, np.float32), tri_v2=t(v2, np.float32),

@@ -2,11 +2,12 @@
 
 Port of ``crucible_tpu/ops/pallas/megakernel.py`` for its sphere branches
 — the brute search over every table row (K1, K2), the per-lane sphere-BVH
-walk of big static scenes (K5) and the chunk-cull branch of big scenes
-(K6: a per-lane walk over 256-row clusters whose boxes hold the spheres
-over the shutter, so it takes moving spheres) in both modes, and their
-motion variants (K8: ``animated`` spheres on the linear shutter, brute or
-K6, and the ``cam_animated`` keyframed camera), also in both modes — and
+walk of big static scenes (K5) and what the chunk-cull branch of big
+scenes computes (K6: a per-lane walk over a BVH whose boxes hold the
+spheres over the shutter, :func:`swept_tables`, so it takes moving
+spheres) in both modes, and their motion variants (K8: ``animated``
+spheres on the linear shutter, brute or K6, and the ``cam_animated``
+keyframed camera), also in both modes — and
 for its triangle-BVH stage (K7, beside the brute sphere search, in both
 modes, with K8's flags: a static mesh's Woop rows, or with ``animated`` a
 moving mesh's (M, 32) rows, K7 moving):
@@ -22,11 +23,11 @@ moving mesh's (M, 32) rows, K7 moving):
 
 With ``sph_nodes`` / ``sph_meta`` (:func:`sphere_bvh_tables`) the table is
 the BVH-permuted one and the closest hit walks the BVH instead of testing
-every row; with ``cbounds`` (:func:`cluster_spheres`) the table is in
-cluster order and the closest hit walks the clusters, skipping each one
-whose box the ray does not enter (:func:`cull_inputs`). Either way the
-result is the brute search's, bit for bit (see :func:`walk_closest_reference`
-and :func:`cull_closest_reference`), and records carry the original row ids
+every row; with ``swept_nodes`` / ``swept_meta`` (:func:`swept_tables`,
+the same layout over boxes swept over the shutter) likewise over the
+tree-permuted table (:func:`swept_inputs`). Either way the result is the
+brute search's, bit for bit (see :func:`walk_closest_reference` and
+:func:`cull_closest_reference`), and records carry the original row ids
 (column 31 of the permuted row). With ``tri_nodes``, ``tris``, ``mats`` and
 ``tri_meta`` (``integrator.make_tri_tables``) each bounce then walks the
 mesh's BVH for a triangle strictly nearer than the sphere
@@ -34,9 +35,10 @@ mesh's BVH for a triangle strictly nearer than the sphere
 shutter fraction); records carry its leaf-order id and ``F_TRI``.
 
 For CUDA tensors each wrapper launches the hand-written kernel of
-``csrc/megakernel.cu`` (K1 / K2: persistent lanes in one flat bounce loop
-over :func:`brute_rows`' staged rows, fed by a work counter; the others one
-thread per lane; see the note there) or raises;
+``csrc/megakernel.cu`` (K1, K2, K8's brute search and K6: persistent lanes
+in one flat bounce loop fed by a work counter, over :func:`brute_rows`'
+staged rows or K6's tree; K5 and K7 one thread per lane in a nested loop;
+see the note there) or raises;
 for CPU tensors it runs its eager twin (:func:`run_megakernel_reference`,
 :func:`run_megakernel_record_reference`): all lanes in lockstep with
 per-lane sample regeneration, as the TPU kernel runs them, the brute
@@ -58,6 +60,7 @@ layout (the motion columns 24-29 read by the ``animated`` variant).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -120,6 +123,10 @@ CLUSTER = 256
 SPH_LEAF = 128
 NODE_WIN = 16
 _FAR = np.float32(1.0e30)
+# Spheres a leaf of K6's swept tree (:func:`swept_tables`): a leaf costs a
+# slab test and its rows their moving quadratics; chosen by measurement on
+# the card against 4 and 16 (PERF.md).
+SWEPT_LEAF = 8
 
 # The walk's slab test runs against each node box grown by SLAB_EPS * (1 +
 # the box's largest |coordinate| + the ray origin's largest |coordinate|).
@@ -131,14 +138,16 @@ SLAB_EPS = float(np.float32(4e-3))
 # The walk stages the node boxes (6 float32) and [first, count, miss]
 # (3 int32) beside the five search columns.
 NODE_BYTES = 9 * 4
-# K6 stages only its cluster nodes (NODE_BYTES each) and reads the rows'
-# search columns from a compact copy in global memory: these table columns
-# (center, |c|^2 - r^2, active; with ``animated`` also the center delta,
-# s1 and s2), one contiguous column each.
-CULL_COLS = (0, 1, 2, 4, 5)
-CULL_MOTION_COLS = (24, 25, 26, 28, 29)
+# A moving row's search columns beside the static ones (0-2, 4): the
+# center delta, s1 and s2. K6 stages its tree's nodes (NODE_BYTES each) in
+# shared memory where they fit and reads its rows from global memory.
+MOVING_COLS = (24, 25, 26, 28, 29)
 # Row ids travel through float32 column 31, exact below 2^24.
 MAX_ID_ROWS = 1 << 24
+# K6 walks the nearer child first, deferring the far ones on a stack of
+# this many entries, one at most a level: :func:`swept_tables` builds no
+# deeper tree, and :func:`swept_inputs` refuses one.
+TREE_STACK = 64
 
 # K7 stages each triangle-BVH node's box (6 float32) and [first, count,
 # miss] (3 int32) in shared memory beside the sphere rows' columns (20
@@ -168,15 +177,16 @@ def max_tri_nodes(n: int, animated: bool = False) -> int:
 # Launches of the CUDA kernel since the last zero_counts() (twin calls
 # excluded), by variant: "brute" K1 / K2 (over every row), "walk" K5 (the
 # sphere BVH), "motion" K8 brute with animated and / or cam_animated,
-# "motion_walk" K8's walk with cam_animated, "cull" K6 (the cluster walk,
-# with any motion flags), "tri" K7 (the triangle BVH), "tri_motion" K7 with
+# "motion_walk" K8's camera on K5's walk, "cull" K6 (the swept tree, with
+# any motion flags), "tri" K7 (the triangle BVH), "tri_motion" K7 with
 # either motion flag (K7 moving with animated).
 FORWARD_LAUNCHES = {"brute": 0, "walk": 0, "motion": 0, "motion_walk": 0, "cull": 0,
                     "tri": 0, "tri_motion": 0}
 RECORD_LAUNCHES = dict(FORWARD_LAUNCHES)
 # The plain walks' work since the last reset: K5's (WALK_COUNTS) and K6's
-# (CULL_COUNTS) slab tests of a node, rows of a leaf tested, and rows whose
-# discriminant was not negative; K7's slab tests and leaf rows tested.
+# (CULL_COUNTS, the swept tree) slab tests of a node, rows of a leaf tested,
+# and rows whose discriminant was not negative; K7's slab tests and leaf
+# rows tested.
 WALK_COUNTS = {"nodes": 0, "rows": 0, "roots": 0}
 CULL_COUNTS = dict(WALK_COUNTS)
 TRI_COUNTS = {"nodes": 0, "rows": 0}
@@ -198,10 +208,14 @@ def as_i32(v: int) -> int:
     return v - (1 << 32) if v >= (1 << 31) else v
 
 
-def sphere_bvh_tables(center, radius, active, leaf_size=None):
+def sphere_bvh_tables(center, radius, active, leaf_size=None, center_d=None,
+                      radius_d=None, method="sah"):
     """Host-side per-lane sphere BVH over the active spheres' boxes (SAH,
-    ``leaf_size`` spheres a leaf, default ``SPH_LEAF``) -> (perm, snodes,
-    smeta), in the JAX package's layout:
+    or median splits with ``method="median"``; ``leaf_size`` spheres a leaf,
+    default ``SPH_LEAF``) -> (perm, snodes, smeta), in the JAX package's
+    layout. With ``center_d`` / ``radius_d``
+    (the shutter deltas) a sphere's box holds it at shutter open and close,
+    so on the whole linear path (:func:`swept_tables`).
 
     - ``perm`` (N_pad,) int32: active spheres in leaf order, then the
       inactive ones, then ids >= N that address zero rows the caller
@@ -219,9 +233,13 @@ def sphere_bvh_tables(center, radius, active, leaf_size=None):
     ids = np.nonzero(active)[0]
     if ids.size == 0:
         raise ValueError("a sphere BVH needs at least one active sphere")
-    bbmin = (center[ids] - radius[ids, None]).astype(np.float32)
-    bbmax = (center[ids] + radius[ids, None]).astype(np.float32)
-    fb = bvh_mod.build_bvh(bbmin, bbmax, leaf_size=leaf_size, method="sah")
+    lo, hi = center - radius[:, None], center + radius[:, None]
+    if center_d is not None:
+        c1 = center + np.asarray(center_d, np.float64)
+        r1 = np.abs(radius + np.asarray(radius_d, np.float64))
+        lo, hi = np.minimum(lo, c1 - r1[:, None]), np.maximum(hi, c1 + r1[:, None])
+    bbmin, bbmax = lo[ids].astype(np.float32), hi[ids].astype(np.float32)
+    fb = bvh_mod.build_bvh(bbmin, bbmax, leaf_size=leaf_size, method=method)
     inact = np.nonzero(~active)[0]
     assert leaf_size <= CLUSTER
     n_pad = ((n + CLUSTER - 1) // CLUSTER) * CLUSTER + CLUSTER
@@ -237,9 +255,30 @@ def sphere_bvh_tables(center, radius, active, leaf_size=None):
     return perm, snodes, smeta
 
 
+def swept_tables(center, radius, active, center_d, radius_d):
+    """K6's swept tree of a moving table -> (perm, snodes, smeta) in
+    :func:`sphere_bvh_tables`' layout: an SAH tree of ``SWEPT_LEAF`` spheres
+    a leaf over boxes that hold each active sphere at shutter open (center,
+    |radius|) and close (center + center_d, |radius + radius_d|), so at
+    every shutter fraction between. Where the chunk-cull branch's 256-row
+    clusters (:func:`cluster_spheres`) give a ray about 1,300-1,700 rows to
+    test on bouncing stress n7744, this tree gives it about 30 nodes and 25
+    rows (PERF.md). Where the SAH tree is deeper than K6's stack
+    (``TREE_STACK``), it is built with median splits instead, about
+    log2(active rows / SWEPT_LEAF) deep: 21 at ``MAX_ID_ROWS``."""
+    tables = sphere_bvh_tables(center, radius, active, SWEPT_LEAF, center_d, radius_d)
+    k = tables[1].shape[0]
+    if int(tree_depth(torch.from_numpy(tables[2][: 3 * k].reshape(k, 3)))) > TREE_STACK:
+        tables = sphere_bvh_tables(center, radius, active, SWEPT_LEAF, center_d, radius_d,
+                                   method="median")
+    return tables
+
+
 def cluster_spheres(center, radius, active, center_d=None, radius_d=None):
-    """Host-side spatial clustering for the chunk-cull walk (K6), the JAX
-    package's ``megakernel.cluster_spheres``, bit for bit.
+    """Host-side spatial clustering of the chunk-cull branch, the JAX
+    package's ``megakernel.cluster_spheres``, bit for bit. The port keeps
+    these tables for parity with the JAX lowering (``sph_perm``,
+    ``sph_cbounds``); K6 walks :func:`swept_tables`' tree instead.
 
     Recursive median split on the longest centroid axis with split points
     aligned to CLUSTER, so that every 256-row slice of the permuted table
@@ -329,43 +368,81 @@ def walk_inputs(sph_nodes, sph_meta):
     return nodes, sph_meta[: 3 * k].reshape(k, 3).contiguous()
 
 
-def cull_inputs(cbounds, table):
-    """What K6's walk reads from the cluster tables -> (nodes (K, 6)
-    float32, meta (K, 3) int32 [first, count, miss]): a flat skip-link list
-    that K5's walk runs as it is. Node k is cluster k's box of ``cbounds``
-    (:func:`cluster_spheres`), grown as :func:`walk_inputs` grows a BVH
-    node's; its leaf is rows [CLUSTER k, CLUSTER k + count) of ``table``
-    (in cluster order), count reaching the cluster's last active row (0
-    for a cluster with none, so that its far box never leads to a row
-    test); its skip link is k + 1.
+def swept_inputs(swept_nodes, swept_meta, table):
+    """What K6's walk reads from the swept tree (:func:`swept_tables`) ->
+    (nodes (K, 6) float32, meta (K, 3) int32), as :func:`walk_inputs` gives
+    them, over ``table`` in the tree's order (``integrator.permute_table``).
 
-    Raises where ``table`` is not K clusters long, or where an active
-    row's sphere at shutter open or close (center + delta, |radius +
-    delta|) leaves its cluster's grown box: such bounds belong to other
-    spheres, and the walk would skip rows that the brute search takes."""
-    k = cbounds.shape[0] if cbounds.dim() == 2 else -1
-    build.check_tensors(table.device, (("cbounds", cbounds, torch.float32, (k, 8)),))
-    if table.dim() != 2 or table.shape[0] != k * CLUSTER:
-        raise ValueError(
-            f"{k} clusters of cbounds need a table of {k * CLUSTER} rows in cluster "
-            f"order (integrator.permute_table), got {tuple(table.shape)}"
-        )
-    nodes = _grown(cbounds[:, 0:3], cbounds[:, 3:6])
+    Raises where the tree does not hold the table's spheres as the walk
+    needs: where [first, count, miss] address rows outside the table or a
+    skip link does not point past its node, where the leaves do not cover
+    every active row exactly once and no inactive one, where an active
+    row's sphere at shutter open (columns 0-2, |3|) or close (+ columns
+    24-26, |3 + 27|) leaves its leaf's grown box, where an inner node's
+    grown box does not hold its two children's (the left child i + 1, the
+    right one its skip link, which ends where its parent's does), or where
+    the tree is deeper than K6's stack (``TREE_STACK``). Else the walk would
+    skip rows that the brute search takes, or overrun its stack. The checks
+    run on the table's device and are read back in one host sync."""
+    if swept_nodes is None or swept_meta is None:
+        raise ValueError("K6's walk needs both swept_nodes and swept_meta")
+    nodes, meta = walk_inputs(swept_nodes, swept_meta)
+    dev, n, k = table.device, table.shape[0], nodes.shape[0]
+    if nodes.device != dev:
+        raise ValueError(f"swept_nodes is on {nodes.device}, not {dev}")
+    if k == 0:
+        raise ValueError("the swept tree has no nodes")
+    first, count, miss = meta[:, 0].long(), meta[:, 1].long(), meta[:, 2].long()
+    node = torch.arange(k, device=dev)
+    links = ((first >= 0) & (count >= 0) & (first + count <= n) & (miss > node)).all()
+    # Coverage: +1 at each leaf's first row and -1 past its last.
+    leaf = count > 0
+    at_first = torch.where(leaf, first, n).clamp(0, n)
+    cover = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    cover.index_add_(0, at_first, leaf.long())
+    cover.index_add_(0, torch.where(leaf, first + count, n).clamp(0, n), -leaf.long())
     act = table[:, 5] > 0.0
-    slot = torch.arange(1, CLUSTER + 1, device=table.device, dtype=torch.int32)
-    count = (act.reshape(k, CLUSTER).int() * slot).amax(dim=1)
-    first = torch.arange(k, device=table.device, dtype=torch.int32) * CLUSTER
-    meta = torch.stack([first, count, first // CLUSTER + 1], dim=1).contiguous()
-    box = nodes.repeat_interleave(CLUSTER, dim=0)
+    covered = cover.cumsum(0)[:n]
+    once = (covered == act.long()).all()
+    # Each covered row's leaf: the last leaf that starts at or before it.
+    starts = torch.full((n + 1,), -1, dtype=torch.int64, device=dev)
+    starts[at_first] = torch.where(leaf, node, -1)
+    row = torch.arange(n, device=dev)
+    of_row = starts[torch.where(starts[:n] >= 0, row, 0).cummax(0).values]
+    box = nodes[of_row.clamp_min(0)]
     c0, r0 = table[:, 0:3], table[:, 3:4].abs()
     c1, r1 = c0 + table[:, 24:27], (table[:, 3:4] + table[:, 27:28]).abs()
     inside = ((c0 - r0 >= box[:, 0:3]) & (c0 + r0 <= box[:, 3:6])
               & (c1 - r1 >= box[:, 0:3]) & (c1 + r1 <= box[:, 3:6])).all(dim=1)
-    if not bool((inside | ~act).all()):
+    held = (inside | ~act).all()
+    # An inner node's children: i + 1 and its skip link.
+    left = node + 1
+    right = miss[left.clamp_max(k - 1)]
+    pair = (left < k) & (right < k)
+    right_c = right.clamp(0, k - 1)
+    pair = pair & (miss[right_c] == miss)
+    for child in (left.clamp_max(k - 1), right_c):
+        pair = pair & ((nodes[:, 0:3] <= nodes[child, 0:3]).all(dim=1)
+                       & (nodes[:, 3:6] >= nodes[child, 3:6]).all(dim=1))
+    parents = (pair | leaf).all()
+    shallow = (_ancestors(meta) <= TREE_STACK).all()
+    links, once, held, parents, shallow = torch.stack(
+        [links, once, held, parents, shallow]).tolist()
+    if not links:
+        raise ValueError("swept_meta addresses rows outside the table, or has a skip "
+                         "link that does not point past its node")
+    if not once:
+        raise ValueError("the swept tree's leaves do not hold every active row of the "
+                         "table exactly once (and no inactive one)")
+    if not (held and parents):
         raise ValueError(
-            "an active sphere leaves its cluster's box: cbounds are not "
-            "cluster_spheres' bounds of this table's spheres and shutter deltas"
+            "the swept tree does not hold this table's spheres over the shutter: a "
+            "sphere at shutter open or close leaves its leaf's box, or a node's box its "
+            "children's; build it with swept_tables from the table's spheres and deltas"
         )
+    if not shallow:
+        raise ValueError(f"the swept tree is deeper than K6's stack of {TREE_STACK} "
+                         "entries; build it with swept_tables")
     return nodes, meta
 
 
@@ -375,7 +452,8 @@ def run_megakernel(
     sample0,
     cam,
     table,
-    cbounds=None,
+    swept_nodes=None,
+    swept_meta=None,
     sph_nodes=None,
     sph_meta=None,
     tri_nodes=None,
@@ -389,16 +467,17 @@ def run_megakernel(
     """Dispatch the persistent megakernel -> per-lane radiance sums (3, R).
 
     With ``sph_nodes`` / ``sph_meta`` the closest hit walks the sphere BVH
-    over the permuted ``table`` (K5); with ``cbounds`` (K, 8) it walks the
-    clusters of the table in cluster order (K6, the chunk-cull branch); else
-    it tests every row (K1). ``animated`` moves the spheres on the linear
-    shutter (table columns 24-29) and ``cam_animated`` re-derives the camera
-    per path at its shutter fraction (cam slots 19-37): K8, the kernel's
-    motion variants, over every row or (K6) the clusters, whose boxes hold
-    the spheres over the whole shutter; the sphere BVH's boxes do not, and
-    a moving table on it raises ``ValueError``. K6 without ``animated``
-    (a static table's clusters) is instantiated here, with a static camera,
-    and not in record mode: the other such launches raise ``ValueError``. A mesh's ``tri_nodes`` (K,
+    over the permuted ``table`` (K5); with ``swept_nodes`` / ``swept_meta``
+    (:func:`swept_tables`) it walks the swept tree over the table in the
+    tree's order (K6); else it tests every row (K1). ``animated`` moves the
+    spheres on the linear shutter (table columns 24-29) and ``cam_animated``
+    re-derives the camera per path at its shutter fraction (cam slots
+    19-37): K8, the kernel's motion variants, over every row or (K6) the
+    swept tree, whose boxes hold the spheres over the whole shutter; the
+    sphere BVH's boxes do not, and a moving table on it raises
+    ``ValueError``. K6 without ``animated`` (a static table's tree) is
+    instantiated here, with a static camera, and not in record mode: the
+    other such launches raise ``ValueError``. A mesh's ``tri_nodes`` (K,
     6), ``tris``, ``mats`` (NM, 24) and ``tri_meta`` (K, 3)
     (``integrator.make_tri_tables``) add the triangle stage (K7) after the
     brute search: ``tris`` (M, 16) Woop rows of a static mesh, or with
@@ -409,7 +488,7 @@ def run_megakernel(
     """
     _check_inputs(smem, pix, sample0, cam, table)
     walk = _walk(sph_nodes, sph_meta, table)
-    cull = _cull(cbounds, table)
+    cull = _cull(swept_nodes, swept_meta, table)
     tri = _tri(tri_nodes, tris, mats, tri_meta, table)
     motion = dict(animated=bool(animated), cam_animated=bool(cam_animated))
     _check_combination(walk, cull, tri, **motion)
@@ -425,25 +504,26 @@ def _check_combination(walk, cull, tri, animated, cam_animated=False, record=Fal
     the one ``animated`` reads."""
     if walk is not None and cull is not None:
         raise ValueError("pass the sphere-BVH tables (sph_nodes, sph_meta) or the "
-                         "cluster tables (cbounds), not both")
+                         "swept tree (swept_nodes, swept_meta), not both")
     if cull is not None and not animated and (cam_animated or record):
         raise ValueError(
-            "the cluster walk (K6) over a static table is instantiated in forward mode "
-            "with a static camera only (no route selects it: a static big table walks "
-            "the sphere BVH, K5); pass animated=True for a moving table"
+            "the swept-tree walk (K6) over a static table is instantiated in forward "
+            "mode with a static camera only (no route selects it: a static big table "
+            "walks the sphere BVH, K5); pass animated=True for a moving table"
         )
     if walk is not None and animated:
         raise ValueError(
             "the sphere BVH's boxes hold the spheres at one time: a moving table "
-            "walks the clusters of cluster_spheres (cbounds, K6), whose boxes hold "
-            "them over the whole shutter"
+            "walks the swept tree of swept_tables (swept_nodes, K6; the chunk-cull "
+            "branch's clusters in the JAX package), whose boxes hold them over the "
+            "whole shutter"
         )
     if tri is None:
         return
     if walk is not None or cull is not None:
         raise NotImplementedError(
             "the megakernel's triangle stage (K7) runs beside the brute sphere "
-            "search only: a mesh with a sphere walk (K5's BVH or K6's clusters) is "
+            "search only: a mesh with a sphere walk (K5's BVH or K6's swept tree) is "
             "a template combination not instantiated yet (ROADMAP A11)"
         )
     if (tri[2].shape[1] == TRI_MOVING_COLS) != animated:
@@ -467,9 +547,11 @@ def _walk(sph_nodes, sph_meta, table):
     return nodes, meta
 
 
-def _cull(cbounds, table):
-    """:func:`cull_inputs`, or None without cluster tables."""
-    return None if cbounds is None else cull_inputs(cbounds, table)
+def _cull(swept_nodes, swept_meta, table):
+    """:func:`swept_inputs`, or None without a swept tree."""
+    if swept_nodes is None and swept_meta is None:
+        return None
+    return swept_inputs(swept_nodes, swept_meta, table)
 
 
 def _check_links(meta, rows: int, name: str, what: str) -> None:
@@ -531,15 +613,14 @@ def check_rows(n: int, walk=None, animated: bool = False, tri=None, cull=None) -
     """Raise where the kernel's shared memory cannot hold what it stages:
     ``n`` sphere rows' columns (with the motion columns when ``animated``),
     with ``walk`` the sphere-BVH nodes and with ``tri`` the triangle-BVH
-    nodes (at most :func:`max_tri_nodes`); with ``cull`` (K6) only the
-    cluster nodes, the rows being read from global memory."""
+    nodes (at most :func:`max_tri_nodes`). K6 (``cull``) reads its rows from
+    global memory, and its nodes too where they do not fit in shared
+    memory; its records carry row ids in float32, below ``MAX_ID_ROWS``."""
     if cull is not None:
-        k = cull[0].shape[0]
-        if k * NODE_BYTES > SHARED_MEM_BYTES or n > MAX_ID_ROWS:
+        if n > MAX_ID_ROWS:
             raise ValueError(
-                f"the cluster walk stages {k} nodes of {NODE_BYTES} bytes in a block's "
-                f"{SHARED_MEM_BYTES} bytes of shared memory and carries row ids in "
-                f"float32, below {MAX_ID_ROWS} rows; got {k} clusters of {n} rows"
+                f"the swept-tree walk carries row ids in float32, exact below "
+                f"{MAX_ID_ROWS} rows; got {n}"
             )
         return
     if tri is not None:
@@ -558,7 +639,7 @@ def check_rows(n: int, walk=None, animated: bool = False, tri=None, cull=None) -
                 f"{n} sphere rows exceed the {cap} rows whose intersection "
                 f"columns fit in a block's {SHARED_MEM_BYTES} bytes of shared "
                 f"memory; bigger scenes need a walk: the sphere BVH (K5) for a "
-                f"static table, the clusters (K6) for any"
+                f"static table, the swept tree (K6) for any"
             )
         return
     need = n * SMEM_COLS * 4 + walk[0].shape[0] * NODE_BYTES
@@ -566,27 +647,19 @@ def check_rows(n: int, walk=None, animated: bool = False, tri=None, cull=None) -
         raise ValueError(
             f"the sphere-BVH walk stages {n} permuted rows and "
             f"{walk[0].shape[0]} nodes, {need} bytes, more than a block's "
-            f"{SHARED_MEM_BYTES} bytes of shared memory; the cluster walk (K6) "
+            f"{SHARED_MEM_BYTES} bytes of shared memory; the swept-tree walk (K6) "
             f"reads its rows from global memory"
         )
 
 
-def _tree_args(walk, cull, tri, table, animated):
-    """The C entry points' (nodes, meta, rows, tnodes, tmeta, tris, mats)
-    pointers, (k, kt) node counts and the tensors they point into; None and
-    0 where absent. K6's nodes and meta take the walk's place, and ``rows``
-    points to the compact copy of the search columns it reads from global
-    memory (CULL_COLS, and with ``animated`` CULL_MOTION_COLS, one
-    contiguous column each)."""
-    rows = None
-    if cull is not None:
-        cols = CULL_COLS + (CULL_MOTION_COLS if animated else ())
-        rows = table[:, list(cols)].t().contiguous()
-        walk = cull
-    held = [*(walk or (None, None)), rows, *(tri or (None,) * 4)]
+def _tree_args(walk, tri):
+    """The C entry points' (nodes, meta, tnodes, tmeta, tris, mats)
+    pointers of the nested loop's structures (K5's sphere BVH, K7's
+    triangle BVH) and their (k, kt) node counts; None and 0 where absent."""
+    held = [*(walk or (None, None)), *(tri or (None,) * 4)]
     ptrs = [None if t is None else t.data_ptr() for t in held]
     k, kt = (0 if x is None else x[0].shape[0] for x in (walk, tri))
-    return ptrs, k, kt, held
+    return ptrs, k, kt
 
 
 def _variant(walk, cull, tri, animated, cam_animated) -> str:
@@ -599,42 +672,86 @@ def _variant(walk, cull, tri, animated, cam_animated) -> str:
     return "_".join(x for x in (motion, "walk" if walk is not None else "") if x) or "brute"
 
 
-def brute_rows(table):
-    """K1 / K2's staged row list, built on the table's device with no host
-    sync -> (rows (N, 4) float32: each row's center and |c|^2 - r^2, table
-    columns 0-2 and 4, the active rows first in table order, then the
-    inactive ones; ids (N,) int32: each entry's table row; live (1,) int32:
-    the number of active rows). The kernel stages entries [0, live) only,
-    as 16-byte shared-memory rows, and a tie still goes to the lowest
+def _row_entries(table, animated: bool):
+    """The flat loop's row entries of ``table``'s rows, in its order:
+    (N, 4) float32 (center, |c|^2 - r^2: columns 0-2, 4), or with
+    ``animated`` (N, 12): that, then (center delta, s1: columns 24-26, 28)
+    and (s2, original id: columns 29, 31, then two zeros), three 16-byte
+    entries a row. Slices, not a list of columns, which would copy the list
+    to the device."""
+    parts = [table[:, 0:3], table[:, 4:5]]
+    if animated:
+        parts += [table[:, 24:27], table[:, 28:30], table[:, 31:32],
+                  torch.zeros((table.shape[0], 2), dtype=table.dtype, device=table.device)]
+    return torch.cat(parts, dim=1)
+
+
+def brute_rows(table, animated: bool = False):
+    """The brute search's staged row list (K1, K2, K8), built on the
+    table's device with no host sync -> (rows: :func:`_row_entries`, the
+    active rows first in table order, then the inactive ones; ids (N,)
+    int32: each entry's table row; live (1,) int32: the number of active
+    rows). The kernel stages entries [0, live) only, as 16-byte (36 with
+    ``animated``) shared-memory rows, and a tie still goes to the lowest
     table row."""
     act = table[:, 5] > 0.0
     ids = torch.sort((~act).to(torch.int32), stable=True).indices
-    # Slices, not a list of columns, which would copy the list to the device.
-    rows = torch.cat((table[:, 0:3], table[:, 4:5]), dim=1).index_select(0, ids)
+    rows = _row_entries(table, animated).index_select(0, ids)
     return rows, ids.to(torch.int32), act.sum(dtype=torch.int32).reshape(1)
 
 
-def _brute_args(walk, cull, tri, table, animated, cam_animated):
-    """The C entry points' (brows, bids, blive, next) pointers and the
-    tensors they point into: K1 / K2's staged rows and a work counter for
-    the brute static search, else nulls."""
-    if _variant(walk, cull, tri, animated, cam_animated) != "brute":
-        return [None] * 4, ()
-    held = (*brute_rows(table), torch.empty(1, dtype=torch.int32, device=table.device))
-    return [t.data_ptr() for t in held], held
-
-
-def brute_launch_shape(record: bool, radiance: bool, n: int, r: int) -> dict:
-    """K1's (``record`` False) or K2's launch on the current card for an
-    n-row table and R lanes: grid, resident blocks per SM, SMs, threads
-    per block and registers per thread (cudaFuncGetAttributes)."""
+@functools.cache
+def _flat_shape(record: bool, radiance: bool, animated: bool, cam_animated: bool, n: int,
+                k: int, device: int) -> tuple:
+    """The C library's flat-loop launch shape, queried once per
+    (instantiation, n, k, card); the query also lets the kernel take its
+    dynamic shared memory, so each launch is sized from here and itself
+    queries nothing."""
     lib = build.load("megakernel")
-    shape = (ctypes.c_int * 4)()
-    build.check(lib, lib.crucible_megakernel_brute_shape(int(record), int(radiance), n, shape),
-                "brute shape")
-    per_sm, sms, threads, regs = shape
+    shape = (ctypes.c_int * 6)()
+    with torch.cuda.device(device):
+        build.check(lib, lib.crucible_megakernel_flat_shape(
+            int(record), int(radiance), int(animated), int(cam_animated), n, k, shape),
+            "flat shape")
+    return tuple(shape)
+
+
+def flat_launch_shape(record: bool, radiance: bool, n: int, r: int, *,
+                      animated: bool = False, cam_animated: bool = False, nodes: int = 0,
+                      device=None) -> dict:
+    """The flat loop's launch on the current card (or ``device``) for an
+    n-row table and R lanes, in forward (``record`` False, ``radiance``
+    True) or record mode, with K8's flags, over the brute search or
+    (``nodes`` > 0) K6's swept tree of that many nodes: grid (as many blocks
+    as stay resident, none more than the lanes need), resident blocks per
+    SM, SMs, threads per block, registers and local (spill) bytes per
+    thread, and dynamic shared memory per block."""
+    index = None if device is None else torch.device(device).index
+    dev = torch.cuda.current_device() if index is None else index
+    per_sm, sms, threads, regs, local, smem = _flat_shape(
+        bool(record), bool(radiance), bool(animated), bool(cam_animated), n, nodes, dev)
     return dict(grid=min(per_sm * sms, -(-r // threads)), blocks_per_sm=per_sm, sms=sms,
-                threads=threads, registers=regs)
+                threads=threads, registers=regs, spill_bytes=local, smem_bytes=smem)
+
+
+def _flat_args(walk, cull, tri, table, animated):
+    """The C entry points' (frows, fids, flive, fnodes, fmiss, next)
+    pointers, K6's node count, and the tensors they point into: the brute
+    search's staged rows (:func:`brute_rows`) or K6's tree (its rows'
+    entries in table order, its nodes as (K, 8): grown box, then first and
+    count as int bits, and its skip links), and a work counter; nulls for
+    the nested loop (K5, K7)."""
+    if walk is not None or tri is not None:
+        return [None] * 6, 0, ()
+    if cull is None:
+        held = (*brute_rows(table, animated), None, None)
+    else:
+        nodes, meta = cull
+        fnodes = torch.cat([nodes, meta[:, 0:2].contiguous().view(torch.float32)], dim=1)
+        held = (_row_entries(table, True), None, None, fnodes, meta[:, 2].contiguous())
+    held = (*held, torch.empty(1, dtype=torch.int32, device=table.device))
+    fk = 0 if cull is None else cull[0].shape[0]
+    return [None if t is None else t.data_ptr() for t in held], fk, held
 
 
 def _launch(smem, pix, sample0, cam, table, walk, cull, tri, animated, cam_animated):
@@ -643,13 +760,18 @@ def _launch(smem, pix, sample0, cam, table, walk, cull, tri, animated, cam_anima
     lib = build.load("megakernel")
     r = pix.shape[1]
     out = torch.empty((3, r), dtype=torch.float32, device=table.device)
-    ptrs, k, kt, _held = _tree_args(walk, cull, tri, table, animated)
-    bptrs, _bheld = _brute_args(walk, cull, tri, table, animated, cam_animated)
+    ptrs, k, kt = _tree_args(walk, tri)
+    fptrs, fk, _held = _flat_args(walk, cull, tri, table, animated)
+    grid = 0
+    if walk is None and tri is None:
+        grid = flat_launch_shape(False, True, n, r, animated=animated,
+                                 cam_animated=cam_animated, nodes=fk,
+                                 device=table.device)["grid"]
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.crucible_megakernel_forward(
             smem.data_ptr(), pix.data_ptr(), sample0.data_ptr(),
-            cam.data_ptr(), table.data_ptr(), *ptrs, *bptrs, n, k, kt, r,
+            cam.data_ptr(), table.data_ptr(), *ptrs, *fptrs, n, k, kt, fk, grid, r,
             ctypes.c_float(T_MIN), int(animated), int(cam_animated),
             out.data_ptr(), stream,
         )
@@ -668,7 +790,8 @@ def run_megakernel_record(
     tris=None,
     mats=None,
     tri_meta=None,
-    cbounds=None,
+    swept_nodes=None,
+    swept_meta=None,
     sph_nodes=None,
     sph_meta=None,
     *,
@@ -685,9 +808,9 @@ def run_megakernel_record(
     ``radiance`` (the fused mode), else zeros; the records are the same in
     both modes. ``smem[3]`` is overridden by ``max_depth``, which sizes the
     records. With ``sph_nodes`` / ``sph_meta`` the closest hit walks the
-    sphere BVH over the permuted ``table`` (K5), with ``cbounds`` the
-    clusters of the table in cluster order (K6), and the records hold the
-    winners' original ids; else it tests every row (K2). ``animated`` and
+    sphere BVH over the permuted ``table`` (K5), with ``swept_nodes`` /
+    ``swept_meta`` the swept tree over the table in its order (K6), and the
+    records hold the winners' original ids; else it tests every row (K2). ``animated`` and
     ``cam_animated`` are K8's, as in :func:`run_megakernel`: each path's
     words are those of the moving spheres and the camera at its shutter
     fraction. The triangle tables add K7's stage (K7 moving with
@@ -701,15 +824,16 @@ def run_megakernel_record(
     if max_depth < 1:
         raise ValueError(f"max_depth must be positive, got {max_depth}")
     motion = dict(animated=bool(animated), cam_animated=bool(cam_animated))
-    tables = dict(cbounds=cbounds, sph_nodes=sph_nodes, sph_meta=sph_meta,
-                  tri_nodes=tri_nodes, tris=tris, mats=mats, tri_meta=tri_meta)
+    tables = dict(swept_nodes=swept_nodes, swept_meta=swept_meta, sph_nodes=sph_nodes,
+                  sph_meta=sph_meta, tri_nodes=tri_nodes, tris=tris, mats=mats,
+                  tri_meta=tri_meta)
     if table.device.type == "cpu":
         return run_megakernel_record_reference(
             smem, pix, sample0, cam, table, **tables, max_depth=max_depth,
             radiance=radiance, **motion,
         )
     walk = _walk(sph_nodes, sph_meta, table)
-    cull = _cull(cbounds, table)
+    cull = _cull(swept_nodes, swept_meta, table)
     tri = _tri(tri_nodes, tris, mats, tri_meta, table)
     _check_combination(walk, cull, tri, **motion, record=True)
     smem = smem.clone()
@@ -726,13 +850,19 @@ def _launch_record(smem, pix, sample0, cam, table, max_depth, radiance, walk, cu
     r = pix.shape[1]
     acc = torch.empty((3, r), dtype=torch.float32, device=table.device)
     rec = torch.empty((max_depth, r), dtype=torch.int32, device=table.device)
-    ptrs, k, kt, _held = _tree_args(walk, cull, tri, table, animated)
-    bptrs, _bheld = _brute_args(walk, cull, tri, table, animated, cam_animated)
+    ptrs, k, kt = _tree_args(walk, tri)
+    fptrs, fk, _held = _flat_args(walk, cull, tri, table, animated)
+    grid = 0
+    if walk is None and tri is None:
+        grid = flat_launch_shape(True, radiance, n, r, animated=animated,
+                                 cam_animated=cam_animated, nodes=fk,
+                                 device=table.device)["grid"]
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.crucible_megakernel_record(
             smem.data_ptr(), pix.data_ptr(), sample0.data_ptr(),
-            cam.data_ptr(), table.data_ptr(), *ptrs, *bptrs, n, k, kt, r, max_depth,
+            cam.data_ptr(), table.data_ptr(), *ptrs, *fptrs, n, k, kt, fk, grid, r,
+            max_depth,
             ctypes.c_float(T_MIN), int(bool(radiance)), int(animated),
             int(cam_animated), acc.data_ptr(), rec.data_ptr(), stream,
         )
@@ -743,13 +873,14 @@ def _launch_record(smem, pix, sample0, cam, table, max_depth, radiance, walk, cu
 
 def run_megakernel_record_reference(
     smem, pix, sample0, cam, table, sph_nodes=None, sph_meta=None, tri_nodes=None,
-    tris=None, mats=None, tri_meta=None, cbounds=None, *, max_depth: int,
-    radiance: bool = False, animated: bool = False, cam_animated: bool = False,
+    tris=None, mats=None, tri_meta=None, swept_nodes=None, swept_meta=None, *,
+    max_depth: int, radiance: bool = False, animated: bool = False,
+    cam_animated: bool = False,
 ):
     """Eager-torch version of the record kernel: same inputs and outputs
     as :func:`run_megakernel_record`."""
     walk = _walk(sph_nodes, sph_meta, table)
-    cull = _cull(cbounds, table)
+    cull = _cull(swept_nodes, swept_meta, table)
     tri = _tri(tri_nodes, tris, mats, tri_meta, table)
     _check_combination(walk, cull, tri, animated, cam_animated, record=True)
     smem = smem.clone()
@@ -767,18 +898,18 @@ def run_megakernel_record_reference(
 
 def run_megakernel_reference(smem, pix, sample0, cam, table, sph_nodes=None, sph_meta=None,
                              tri_nodes=None, tris=None, mats=None, tri_meta=None,
-                             cbounds=None, *, animated: bool = False,
+                             swept_nodes=None, swept_meta=None, *, animated: bool = False,
                              cam_animated: bool = False):
     """Eager-torch version of the kernel: same inputs, same (3, R) output.
 
     Lanes advance in lockstep, as on the TPU: each step issues a new sample
     to every idle lane that has samples left, then traces one bounce of
-    every live lane. Per lane this is the kernel's loop (K1's flat loop,
-    the other variants' nested one), in its order of operations, so each
-    lane's sum is the kernel's.
+    every live lane. Per lane this is the kernel's loop (the flat loop of
+    K1, K8 and K6, the other variants' nested one), in its order of
+    operations, so each lane's sum is the kernel's.
     """
     walk = _walk(sph_nodes, sph_meta, table)
-    cull = _cull(cbounds, table)
+    cull = _cull(swept_nodes, swept_meta, table)
     tri = _tri(tri_nodes, tris, mats, tri_meta, table)
     _check_combination(walk, cull, tri, animated, cam_animated)
     acc, _ = _reference_loop(smem, pix, sample0, cam, table, rec_depth=0, radiance=True,
@@ -815,26 +946,50 @@ def walk_closest_reference(o, d, table, nodes, meta, t_min: float = T_MIN):
 
 
 def cull_closest_reference(o, d, table, nodes, meta, w=None, t_min: float = T_MIN):
-    """Plain version of K6's closest hit: :func:`walk_closest_reference`'s
-    lockstep walk over the flat cluster list of :func:`cull_inputs` (node
-    k's leaf is cluster k, its skip link k + 1), with each leaf row's root
-    that of the spheres moving on the linear shutter at each ray's fraction
-    ``w`` (R,), in the moving search's operations
+    """Plain version of K6's closest hit: the lockstep walk of the swept
+    tree of :func:`swept_inputs`, in the kernel's order, nearer child first.
+    Each leaf row's root is that of the spheres moving on the linear shutter
+    at each ray's
+    fraction ``w`` (R,), in the moving search's operations
     (``sphere_shade.moving_closest_reference``, K8's brute search); ``w``
     None takes the static search's (K1's). Ties go to the lower original
     row id, so the result is the brute search's over the original table,
-    bit for bit, wherever no cluster holding a winning root is skipped: a
-    cluster's box holds its spheres over the whole shutter, and the
-    margin covers the quadratic's error at the moving center c + w cd as
-    it does at c. Adds the work done to ``CULL_COUNTS``.
+    bit for bit, in any order, wherever no leaf holding a winning root
+    is skipped: a leaf's box holds its spheres over the whole shutter, each
+    parent's its children's, and the margin covers the quadratic's error at
+    the moving center c + w cd as it does at c. Adds the work done to
+    ``CULL_COUNTS``: the slab tests (the root's, then both children's at
+    each inner node the near-first walk enters), rows and roots.
     """
-    return _skip_walk(o, d, table, nodes, meta, t_min, w, CULL_COUNTS)
+    return _skip_walk(o, d, table, nodes, meta, t_min, w, CULL_COUNTS, near=True)
 
 
-def _skip_walk(o, d, table, nodes, meta, t_min, w, counts):
-    """The lockstep skip-link walk of both plain sphere walks (K5, K6):
-    leaf rows in the static search's operations, or moving at the rays'
-    fractions ``w``; the work done is added to ``counts``."""
+def tree_depth(meta) -> int:
+    """The most inner-node ancestors of a node of a skip-link tree (``meta``
+    (K, 3) [first, count, miss]), the most far children a near-first walk
+    defers (:func:`_ancestors`)."""
+    return int(_ancestors(meta).max()) if meta.shape[0] else 0
+
+
+def _ancestors(meta):
+    """Each node's inner-node ancestors (K,) int64, without a host sync:
+    node j's descendants are j + 1 .. miss[j] - 1, so a prefix sum over the
+    inner nodes counts them."""
+    k = meta.shape[0]
+    inner = meta[:, 1] == 0
+    diff = torch.zeros(k + 1, dtype=torch.int64, device=meta.device)
+    diff.index_add_(0, torch.where(inner, torch.arange(1, k + 1, device=meta.device), k),
+                    inner.long())
+    diff.index_add_(0, torch.where(inner, meta[:, 2].long(), k).clamp(0, k), -inner.long())
+    return diff.cumsum(0)[:k]
+
+
+def _skip_walk(o, d, table, nodes, meta, t_min, w, counts, near=False):
+    """The lockstep walks of both plain sphere walks (K5, K6): the stackless
+    walk of the DFS skip links or (``near``, K6) the near-first walk with a
+    stack of deferred far children and their entry distances; leaf rows in
+    the static search's operations, or moving at the rays' fractions ``w``;
+    the work done is added to ``counts``."""
     dev = o.device
     m, k = o.shape[0], nodes.shape[0]
     ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
@@ -847,17 +1002,17 @@ def _skip_walk(o, d, table, nodes, meta, t_min, w, counts):
     pr = SLAB_EPS * torch.maximum(torch.maximum(ox.abs(), oy.abs()), oz.abs())
     first, count, miss = (meta[:, j].long() for j in range(3))
     cx, cy, cz, csr, act, orig = (table[:, c] for c in (0, 1, 2, 4, 5, 31))
-    cdx, cdy, cdz, s1, s2 = (table[:, c] for c in CULL_MOTION_COLS)
+    cdx, cdy, cdz, s1, s2 = (table[:, c] for c in MOVING_COLS)
     width = torch.arange(max(int(count.max()), 1), device=dev)
+    rows_done = torch.zeros((), dtype=torch.int64, device=dev)
+    roots_done = torch.zeros((), dtype=torch.int64, device=dev)
 
     best = torch.full((m,), BIG, dtype=torch.float32, device=dev)
     win = torch.zeros((m,), dtype=torch.int64, device=dev)
-    cur = torch.zeros((m,), dtype=torch.int64, device=dev)
-    while True:
-        lanes = torch.nonzero(cur < k).squeeze(1)
-        if lanes.numel() == 0:
-            break
-        c = cur[lanes]
+
+    def entered(lanes, c):
+        """Slab tests of nodes ``c`` by rays ``lanes`` against [t_min, best]
+        -> (entered, entry distance)."""
         b, p = nodes[c], pr[lanes]
         lox, loy, loz = ox[lanes], oy[lanes], oz[lanes]
         t0x = ((b[:, 0] - p) - lox) * ivx[lanes]
@@ -874,47 +1029,110 @@ def _skip_walk(o, d, table, nodes, meta, t_min, w, counts):
             torch.minimum(torch.maximum(t0x, t1x), torch.maximum(t0y, t1y)),
             torch.minimum(torch.maximum(t0z, t1z), best[lanes]),
         )
-        hit_node = enter <= exitv
+        return enter <= exitv, enter
+
+    def leaf(ln, c):
+        """Rays ``ln`` test the rows of nodes ``c`` (none at an inner node):
+        the best root, ties to the lower original id."""
+        nonlocal rows_done, roots_done
         cnt = count[c]
-        counts["nodes"] += int(lanes.numel())
+        inside = width < cnt[:, None]
+        rows = torch.where(inside, first[c][:, None] + width, 0)
+        rx, ry, rz = cx[rows], cy[rows], cz[rows]
 
-        sel = torch.nonzero(hit_node & (cnt > 0)).squeeze(1)
-        if sel.numel():
-            ln = lanes[sel]
-            inside = width < cnt[sel][:, None]
-            rows = torch.where(inside, first[c[sel]][:, None] + width, 0)
-            rx, ry, rz = cx[rows], cy[rows], cz[rows]
+        def ex(v):  # a per-ray value against the leaf's rows
+            return v[ln][:, None]
 
-            def ex(v):  # a per-ray value against the leaf's rows
-                return v[ln][:, None]
+        dc = rx * ex(dx) + ry * ex(dy) + rz * ex(dz)
+        oc = rx * ex(ox) + ry * ex(oy) + rz * ex(oz)
+        c_sr = csr[rows]
+        if w is not None:  # the rows at the rays' shutter fractions
+            wr = ex(w)
+            ux, uy, uz = cdx[rows], cdy[rows], cdz[rows]
+            dc = dc + wr * (ux * ex(dx) + uy * ex(dy) + uz * ex(dz))
+            oc = oc + wr * (ux * ex(ox) + uy * ex(oy) + uz * ex(oz))
+            c_sr = c_sr + (2.0 * wr) * s1[rows] + (wr * wr) * s2[rows]
+        t_all, disc = sphere_hit.accepted_roots(
+            dc - ex(d_dot_o), c_sr - 2.0 * oc + ex(o_sq), ex(a_q), ex(inv_a),
+            inside & (act[rows] > 0.0), t_min,
+        )
+        rows_done = rows_done + inside.sum()
+        roots_done = roots_done + (inside & (disc >= 0.0)).sum()
+        t_leaf = t_all.min(dim=1).values
+        ids = orig[rows]
+        at_min = t_all == t_leaf[:, None]
+        id_leaf = torch.where(at_min, ids, float("inf")).min(dim=1).values
+        row_leaf = rows.gather(1, (at_min & (ids == id_leaf[:, None])).int().argmax(1, keepdim=True))[:, 0]
+        b_best = best[ln]
+        better = (t_leaf < b_best) | (
+            (t_leaf == b_best) & (t_leaf < BIG) & (id_leaf < orig[win[ln]])
+        )
+        best[ln] = torch.where(better, t_leaf, b_best)
+        win[ln] = torch.where(better, row_leaf, win[ln])
 
-            dc = rx * ex(dx) + ry * ex(dy) + rz * ex(dz)
-            oc = rx * ex(ox) + ry * ex(oy) + rz * ex(oz)
-            c_sr = csr[rows]
-            if w is not None:  # the rows at the rays' shutter fractions
-                wr = ex(w)
-                ux, uy, uz = cdx[rows], cdy[rows], cdz[rows]
-                dc = dc + wr * (ux * ex(dx) + uy * ex(dy) + uz * ex(dz))
-                oc = oc + wr * (ux * ex(ox) + uy * ex(oy) + uz * ex(oz))
-                c_sr = c_sr + (2.0 * wr) * s1[rows] + (wr * wr) * s2[rows]
-            t_all, disc = sphere_hit.accepted_roots(
-                dc - ex(d_dot_o), c_sr - 2.0 * oc + ex(o_sq), ex(a_q), ex(inv_a),
-                inside & (act[rows] > 0.0), t_min,
-            )
-            counts["rows"] += int(inside.sum())
-            counts["roots"] += int((inside & (disc >= 0.0)).sum())
-            t_leaf = t_all.min(dim=1).values
-            ids = orig[rows]
-            at_min = t_all == t_leaf[:, None]
-            id_leaf = torch.where(at_min, ids, float("inf")).min(dim=1).values
-            row_leaf = rows.gather(1, (at_min & (ids == id_leaf[:, None])).int().argmax(1, keepdim=True))[:, 0]
-            b_best = best[ln]
-            better = (t_leaf < b_best) | (
-                (t_leaf == b_best) & (t_leaf < BIG) & (id_leaf < orig[win[ln]])
-            )
-            best[ln] = torch.where(better, t_leaf, b_best)
-            win[ln] = torch.where(better, row_leaf, win[ln])
-        cur[lanes] = torch.where(hit_node & (cnt == 0), c + 1, miss[c])
+    if not near:  # the stackless walk of the DFS skip links
+        cur = torch.zeros((m,), dtype=torch.int64, device=dev)
+        while True:
+            lanes = torch.nonzero(cur < k).squeeze(1)
+            if lanes.numel() == 0:
+                break
+            c = cur[lanes]
+            hit_node, _ = entered(lanes, c)
+            counts["nodes"] += int(lanes.numel())
+            cnt = count[c]
+            sel = torch.nonzero(hit_node & (cnt > 0)).squeeze(1)
+            if sel.numel():
+                leaf(lanes[sel], c[sel])
+            cur[lanes] = torch.where(hit_node & (cnt == 0), c + 1, miss[c])
+    else:  # nearer child first, the far one deferred with its entry distance
+        # Every live ray takes one step an iteration, masked rather than
+        # compacted: a leaf's rows (an inner node has none), else both
+        # children's slab tests; a ray that enters neither child, or has
+        # left a leaf, resumes at its last deferred child still entered
+        # before its best hit, or is done.
+        depth = tree_depth(meta) + 1
+        stack_n = torch.zeros((m, depth), dtype=torch.int64, device=dev)
+        stack_t = torch.zeros((m, depth), dtype=torch.float32, device=dev)
+        sp = torch.zeros((m,), dtype=torch.int64, device=dev)
+        slot = torch.arange(depth, device=dev)
+        cur = torch.zeros((m,), dtype=torch.int64, device=dev)
+        nodes_done = torch.zeros((), dtype=torch.int64, device=dev)
+        active = torch.zeros((m,), dtype=torch.bool, device=dev)
+        if k:
+            active, _ = entered(torch.arange(m, device=dev), cur)
+            counts["nodes"] += m
+        while True:
+            lanes = torch.nonzero(active).squeeze(1)
+            if lanes.numel() == 0:
+                break
+            c = cur[lanes]
+            leaf(lanes, c)
+            inner = count[c] == 0
+            left = torch.where(inner, c + 1, 0)
+            right = torch.where(inner, miss[left], 0)
+            hl, el = entered(lanes, left)
+            hr, er = entered(lanes, right)
+            hl, hr = hl & inner, hr & inner
+            nodes_done = nodes_done + 2 * inner.sum()
+            both, near_l = hl & hr, el <= er
+            s = sp[lanes]
+            pos = s.clamp_max(depth - 1)
+            stack_n[lanes, pos] = torch.where(both, torch.where(near_l, right, left),
+                                              stack_n[lanes, pos])
+            stack_t[lanes, pos] = torch.where(both, torch.where(near_l, er, el),
+                                              stack_t[lanes, pos])
+            s = s + both.long()
+            go = hl | hr
+            nxt = torch.where(both, torch.where(near_l, left, right), torch.where(hl, left, right))
+            ok = (slot < s[:, None]) & (stack_t[lanes] <= best[lanes][:, None])
+            top = torch.where(ok, slot, -1).max(dim=1).values
+            found = top >= 0
+            cur[lanes] = torch.where(go, nxt, stack_n[lanes, top.clamp_min(0)])
+            sp[lanes] = torch.where(go, s, top.clamp_min(0))
+            active[lanes] = go | found
+        counts["nodes"] += int(nodes_done)
+    counts["rows"] += int(rows_done)
+    counts["roots"] += int(roots_done)
     hit = best < BIG
     return best, torch.where(hit, win, 0), hit
 
@@ -1047,9 +1265,9 @@ def _reference_loop(smem, pix, sample0, cam, table, *, rec_depth: int, radiance:
     ``radiance`` then says whether to accumulate it, from bounce smem[4] on.
     ``walk`` (``walk_inputs``' nodes and meta) takes the closest hit from
     the sphere-BVH walk over the permuted table, the records' winner ids
-    from its column 31; ``cull`` (``cull_inputs``' nodes and meta) likewise
-    from the cluster walk (:func:`cull_closest_reference`, its rows moving
-    at each path's shutter fraction when ``animated``). ``tri`` (``_tri``'s tables) adds K7's stage: a
+    from its column 31; ``cull`` (``swept_inputs``' nodes and meta) likewise
+    from the swept-tree walk (:func:`cull_closest_reference`, its rows
+    moving at each path's shutter fraction when ``animated``). ``tri`` (``_tri``'s tables) adds K7's stage: a
     triangle strictly nearer than the sphere (:func:`tri_closest_reference`)
     takes the hit, with its table normal (a moving mesh's: its lerped
     normal at the path's shutter fraction, :func:`moving_tri_normal`) and

@@ -74,7 +74,7 @@ def _case(seed):
                                  max_depth=DEPTH).numpy()
     finally:
         tmk.cull_closest_reference = real
-    assert len(calls) == DEPTH  # one search a row, by the cluster walk
+    assert len(calls) == DEPTH  # one search a row, by K6's plain walk
     o0, d0, w0, table = calls[0]  # row 0: every lane, in lane order
     return own, jrec, o0, d0, w0, table, np.tile(np.arange(p), SPP), np.repeat(np.arange(SPP), p)
 

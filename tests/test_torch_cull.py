@@ -1,11 +1,12 @@
-"""Animated big scenes (K6, the megakernel's chunk-cull branch): the port's
-cluster tables against the JAX package's, bit for bit; the plain cluster
-walk against the plain brute searches (K8's moving one, K1's static one),
-bit for bit, in the forward and record modes; the port against the JAX
-package's chunk-cull kernel (Pallas in interpret mode) on bouncing stress
-(``tests/torch_motion_scenes.py``), its image, records and gradient; and
-the routing of animated big scenes. The card's own tests are in
-``tests/test_torch_cull_card.py``."""
+"""Animated big scenes (K6, what the megakernel's chunk-cull branch
+computes): the port's cluster tables against the JAX package's, bit for
+bit; the plain walk of K6's swept tree against the plain brute searches
+(K8's moving one, K1's static one), bit for bit, in the forward and record
+modes; the port against the JAX package's chunk-cull kernel (Pallas in
+interpret mode) on bouncing stress (``tests/torch_motion_scenes.py``), its
+image, records and gradient; and the routing of animated big scenes. The
+swept tree's own tests are in ``tests/test_torch_swept_tree.py``, the
+card's in ``tests/test_torch_cull_card.py``."""
 
 import functools
 from dataclasses import replace
@@ -137,61 +138,22 @@ def test_bridge_carries_the_cluster_tables_both_ways():
     assert back.sph_nodes is None
 
 
-# --- cull_inputs -------------------------------------------------------------------
+# --- K6's inputs ------------------------------------------------------------------
 
 
 def _cull_args(sd, cp, spp=1, depth=2):
     """(brute inputs on the original table for bouncing stress at 24 x 13,
-    the same with the table in cluster order and the cluster bounds)."""
+    the same with the table in the swept tree's order and the tree)."""
     inputs, _ = tint.mega_inputs(sd, cp, 24, 13, spp, depth, 0)
-    cull = dict(inputs, table=tint.permute_table(inputs["table"], sd.sph_perm),
-                cbounds=sd.sph_cbounds)
+    cull = dict(inputs, table=tint.permute_table(inputs["table"], sd.sph_swept_perm),
+                swept_nodes=sd.sph_swept_nodes, swept_meta=sd.sph_swept_meta)
     return inputs, cull
 
 
-def test_cull_inputs_make_a_flat_skip_list():
-    _, sd, cp = _port_scene()
-    table = tint.permute_table(tint.make_sphere_table(sd), sd.sph_perm)
-    nodes, meta = tmk.cull_inputs(sd.sph_cbounds, table)
-    k = sd.sph_cbounds.shape[0]
-    assert nodes.shape == (k, 6) and meta.shape == (k, 3) and meta.dtype == torch.int32
-    assert bool((nodes[:, :3] < sd.sph_cbounds[:, :3]).all())
-    assert bool((nodes[:, 3:] > sd.sph_cbounds[:, 3:6]).all())
-    assert meta[:, 0].tolist() == [tmk.CLUSTER * i for i in range(k)]
-    assert meta[:, 2].tolist() == list(range(1, k + 1))
-    # 1936 active rows: seven full clusters and one of 144.
-    assert meta[:, 1].tolist() == [tmk.CLUSTER] * 7 + [1936 - 7 * tmk.CLUSTER]
-
-
-def test_cull_inputs_give_an_empty_cluster_no_rows():
-    (c, r, active), deltas = _hidden_arrays()
-    perm, bounds = tmk.cluster_spheres(c, r, active, **deltas)
-    _, sd, _ = _port_scene()
-    sd = replace(sd, sph_active=torch.from_numpy(active))
-    table = tint.permute_table(tint.make_sphere_table(sd), torch.from_numpy(perm))
-    _, meta = tmk.cull_inputs(torch.from_numpy(bounds), table)
-    assert meta[:, 1].tolist() == [256, 256, 700 - 512, 0, 0, 0, 0, 0]
-
-
-@pytest.mark.parametrize(
-    "change",
-    [lambda b, t: (b[:-1], t),  # the table is not K clusters long
-     lambda b, t: (b.roll(1, dims=0), t),  # another cluster's box
-     lambda b, t: (b.double(), t)],
-    ids=["short_bounds", "wrong_boxes", "bounds_dtype"],
-)
-def test_cull_inputs_refuse_bounds_of_other_spheres(change):
-    _, sd, _ = _port_scene()
-    table = tint.permute_table(tint.make_sphere_table(sd), sd.sph_perm)
-    bounds, table = change(sd.sph_cbounds, table)
-    with pytest.raises((ValueError, TypeError)):
-        tmk.cull_inputs(bounds, table)
-
-
 def test_cull_ties_go_to_the_lowest_original_row():
-    """Two coincident emitters in one cluster, the higher id first: every
-    hit takes the lower original id, as the brute search does, at w = 0
-    and at w = 1 (where the spheres have moved together)."""
+    """Two coincident emitters in one leaf, the higher id first: every hit
+    takes the lower original id, as the brute search does, at w = 0 and at
+    w = 1 (where the spheres have moved together)."""
     table = torch.zeros((tmk.CLUSTER, tmk.C_IN))
     table[:2, 3] = 1.0  # radius
     table[:2, 4] = -1.0  # |c|^2 - r^2
@@ -201,8 +163,10 @@ def test_cull_ties_go_to_the_lowest_original_row():
     table[:2, 29] = 0.25  # s2 = |cd|^2 - rd^2
     table[:, 31] = torch.arange(tmk.CLUSTER, dtype=torch.float32)
     table[0, 31], table[1, 31] = 1.0, 0.0  # row 0 holds original id 1
-    bounds = torch.tensor([[-1.0, -1.0, -1.0, 1.0, 1.5, 1.0, 0.0, 0.0]])
-    nodes, meta = tmk.cull_inputs(bounds, table)
+    snodes = torch.zeros((1, 16))
+    snodes[0, :6] = torch.tensor([-1.0, -1.0, -1.0, 1.0, 1.5, 1.0])
+    smeta = torch.tensor([0, 2, 1] + [0, 0, 1] * tmk.NODE_WIN, dtype=torch.int32)
+    nodes, meta = tmk.swept_inputs(snodes, smeta, table)
     o = torch.tensor([[0.0, 0.0, 3.0], [0.2, 0.1, -3.0], [5.0, 5.0, 5.0]])
     d = torch.tensor([[0.0, 0.0, -1.0], [0.0, 0.0, 1.0], [1.0, 0.0, 0.0]])
     for wv in (0.0, 1.0):
@@ -244,15 +208,16 @@ def test_plain_cull_records_equal_the_moving_brute_search(flags):
 
 
 def test_static_cluster_walk_equals_plain_k1():
-    """The same walk over a static table's clusters (no deltas) is a pure
-    skip over K1's search: book1's cluster tables give K1's sums."""
+    """The same walk over a static table's tree (no deltas) is a pure skip
+    over K1's search: book1's swept tree gives K1's sums."""
     sc = tdemo.book1_end_scene(width=24)
     sd, cp = sc.build(device="cpu"), sc.scene_cam.params(device="cpu")
-    perm, bounds = tmk.cluster_spheres(sd.sph_center.numpy(), sd.sph_radius.numpy(),
-                                       sd.sph_active.numpy())
+    zero = np.zeros_like(sd.sph_center.numpy())
+    perm, snodes, smeta = tmk.swept_tables(sd.sph_center.numpy(), sd.sph_radius.numpy(),
+                                           sd.sph_active.numpy(), zero, zero[:, 0])
     inputs, _ = tint.mega_inputs(sd, cp, 24, 13, 2, 6, 0)
     cull = dict(inputs, table=tint.permute_table(inputs["table"], torch.from_numpy(perm)),
-                cbounds=torch.from_numpy(bounds))
+                swept_nodes=torch.from_numpy(snodes), swept_meta=torch.from_numpy(smeta))
     assert torch.equal(tmk.run_megakernel(**cull, animated=False),
                        tmk.run_megakernel(**inputs, animated=False))
 
@@ -278,7 +243,7 @@ def test_cull_refuses_what_is_not_instantiated():
     ("record", dict(animated=False, cam_animated=True)),
 ], ids=["forward-camera", "record-static", "record-camera"])
 def test_cull_refuses_a_static_table_but_in_forward_with_a_static_camera(mode, flags):
-    """The cluster walk over a static table is instantiated in forward mode
+    """The swept-tree walk over a static table is instantiated in forward mode
     with a static camera only (held against K1); no route selects the
     others, and the wrapper and its plain version refuse them alike."""
     _, sd, cp = _port_scene()
@@ -308,7 +273,7 @@ def _forward(seed=0):
     _, sd, cp = _port_scene()
     _clear(tmk.CULL_COUNTS)
     got = trender.render_image_persistent(sd, cp, w, h, 2, 4, seed, device="cpu")
-    assert tmk.CULL_COUNTS["nodes"] > 0  # auto took the cluster walk
+    assert tmk.CULL_COUNTS["nodes"] > 0  # auto took the swept-tree walk
     brute = trender.render_image_persistent(sd, cp, w, h, 2, 4, seed, device="cpu",
                                             cull=False)
     return got, brute, want
@@ -408,11 +373,12 @@ def test_loss_and_grad_matches_jax_on_bouncing_stress(seed):
 
 
 def test_auto_routes_bouncing_stress_to_the_cluster_walk(monkeypatch):
+    """K6 walks the swept tree that Scene.build makes beside the clusters."""
     seen = []
     real = tmk.run_megakernel
 
     def spy(*args, **kwargs):
-        seen.append((kwargs.get("cbounds"), kwargs.get("sph_nodes")))
+        seen.append((kwargs.get("swept_nodes"), kwargs.get("sph_nodes")))
         return real(*args, **kwargs)
 
     monkeypatch.setattr(tmk, "run_megakernel", spy)
@@ -421,7 +387,7 @@ def test_auto_routes_bouncing_stress_to_the_cluster_walk(monkeypatch):
     assert tint.megakernel_record_supported(sd, cp)
     img = trender.render_image(sc, samples=1, max_depth=2, device="cpu")
     assert img.shape == (9, 16, 3) and torch.isfinite(img).all()
-    assert len(seen) == 1 and seen[0][0] is sc.build(device="cpu").sph_cbounds
+    assert len(seen) == 1 and seen[0][0] is sc.build(device="cpu").sph_swept_nodes
     assert seen[0][1] is None
 
 
@@ -488,7 +454,7 @@ def test_mesh_beside_a_moving_table_records_and_differentiates():
 def test_brute_above_max_rows_animated_raises():
     _, sd, cp = _port_scene()
     big = replace(sd, sph_center=torch.zeros((tmk.MAX_ROWS_ANIMATED + 1, 3)))
-    with pytest.raises(ValueError, match="cluster"):
+    with pytest.raises(ValueError, match="swept-tree"):
         trender.render_image_persistent(big, cp, 16, 9, 1, 1, 0, device="cpu", cull=False)
 
 

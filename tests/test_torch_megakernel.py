@@ -122,7 +122,7 @@ def test_reference_lanes_are_independent():
 @pytest.mark.parametrize(
     "kwargs",
     [
-        dict(cbounds=torch.zeros(2, 8)),
+        dict(swept_nodes=torch.zeros(2, 16)),
         dict(sph_nodes=torch.zeros(2, 16)),
         dict(tri_nodes=torch.zeros(2, 16)),
         dict(animated=True),
@@ -136,15 +136,15 @@ def test_refuses_unported_branches(kwargs):
     if "animated" in kwargs or "cam_animated" in kwargs:
         # K8 is ported in both modes (tests/test_torch_motion.py,
         # tests/test_torch_motion_grad.py), and so is K6, the walk over a
-        # moving table's clusters (tests/test_torch_cull.py): it runs its
+        # moving table's swept tree (tests/test_torch_cull.py): it runs its
         # plain version and gives K8's brute sums and words. The sphere
         # BVH's boxes do not follow moving spheres, so a moving table on it
         # is refused, in either mode.
         sc = bouncing_stress(tdemo, 16, 4)
         sd = sc.build(device="cpu")
         inputs, _ = tint.mega_inputs(sd, sc.scene_cam.params(device="cpu"), 16, 9, 1, 2, 0)
-        cull = dict(inputs, table=tint.permute_table(inputs["table"], sd.sph_perm),
-                    cbounds=sd.sph_cbounds)
+        cull = dict(inputs, table=tint.permute_table(inputs["table"], sd.sph_swept_perm),
+                    swept_nodes=sd.sph_swept_nodes, swept_meta=sd.sph_swept_meta)
         motion = dict(animated=True, cam_animated="cam_animated" in kwargs)
         assert torch.equal(tmk.run_megakernel(**cull, **motion),
                            tmk.run_megakernel(**inputs, **motion))
@@ -153,14 +153,14 @@ def test_refuses_unported_branches(kwargs):
         static = tdemo.sphere_stress(width=16, copies=4).build(device="cpu")
         walk = dict(inputs, table=tint.permute_table(inputs["table"], static.sph_perm),
                     sph_nodes=static.sph_nodes, sph_meta=static.sph_meta)
-        with pytest.raises(ValueError, match="cluster"):
+        with pytest.raises(ValueError, match="swept tree"):
             tmk.run_megakernel_record(**walk, max_depth=1, **motion)
-        with pytest.raises(ValueError, match="cluster"):
+        with pytest.raises(ValueError, match="swept tree"):
             tmk.run_megakernel(**walk, **motion)
         return
-    # The sphere-BVH walk (K5), the cluster walk (K6) and the triangle stage
-    # (K7) are ported: part of their tables, or tables of another table's
-    # size, is an error.
+    # The sphere-BVH walk (K5), the swept-tree walk (K6) and the triangle
+    # stage (K7) are ported: part of their tables, or tables of another
+    # table's size, is an error.
     with pytest.raises(ValueError):
         tmk.run_megakernel(**t, animated=False, **kwargs)
 
@@ -237,24 +237,30 @@ def test_brute_rows_keep_the_active_rows_in_order():
 
 
 def test_max_rows_and_routes_are_unchanged():
-    """The flat K1 / K2 stage 16 bytes a live row: MAX_ROWS rows, padded
-    to a multiple of 4, fit a block's shared memory, and the row caps and
-    the routes built on them are the brute search's as before."""
+    """The flat brute search stages 16 bytes a live row (K1 / K2), 36 a
+    moving one (K8): MAX_ROWS and MAX_ROWS_ANIMATED rows, padded to a
+    multiple of 4, fit a block's shared memory, and the row caps and the
+    routes built on them are the brute search's as before."""
     from crucible_tpu_torch.models import render as trender
 
     assert (tmk.MAX_ROWS, tmk.MAX_ROWS_ANIMATED, trender.CULL_MIN_ROWS) == (11622, 5811, 1024)
     assert -(-tmk.MAX_ROWS // 4) * 4 * 16 <= tmk.SHARED_MEM_BYTES
+    assert -(-tmk.MAX_ROWS_ANIMATED // 4) * 4 * 36 <= tmk.SHARED_MEM_BYTES
     tmk.check_rows(tmk.MAX_ROWS)
     tmk.check_rows(tmk.MAX_ROWS_ANIMATED, animated=True)
     for n, animated in ((tmk.MAX_ROWS + 1, False), (tmk.MAX_ROWS_ANIMATED + 1, True)):
         with pytest.raises(ValueError, match="exceed"):
             tmk.check_rows(n, animated=animated)
-    # Only the brute static search (K1 / K2) takes the staged rows.
+    # The brute search of the flat loop (K1 / K2, K8 with any flags) takes
+    # the staged rows and a work counter; the nested loop's walk takes none.
     table = torch.zeros((8, tmk.C_IN))
-    ptrs, held = tmk._brute_args(None, None, None, table, False, False)
-    assert len(held) == 4 and all(p is not None for p in ptrs)
-    for motion in ((True, False), (False, True)):
-        assert tmk._brute_args(None, None, None, table, *motion) == ([None] * 4, ())
+    for animated in (False, True):
+        ptrs, k, held = tmk._flat_args(None, None, None, table, animated)
+        assert k == 0 and len(held) == 6
+        assert [p is None for p in ptrs] == [False, False, False, True, True, False]
+        assert held[0].shape == (8, 12 if animated else 4)
+    walk = (torch.zeros((1, 6)), torch.zeros((1, 3), dtype=torch.int32))
+    assert tmk._flat_args(walk, None, None, table, False) == ([None] * 6, 0, ())
 
 
 def test_build_compiles_for_hopper_without_fast_math():
@@ -266,15 +272,15 @@ def test_build_compiles_for_hopper_without_fast_math():
         "sphere_shade.cu",
     ]
     # One library per .cu, each with its declared C entry points; the
-    # megakernel's take K1 / K2's staged rows and work counter, and report
-    # their launch shape.
+    # megakernel's take the flat loop's rows, K6's tree, the work counter
+    # and the grid of the flat loop's launch shape, which they report.
     assert set(tbuild.SIGNATURES) == {s.stem for s in tbuild.sources() if s.suffix == ".cu"}
     mega = tbuild.SIGNATURES["megakernel"]
-    assert len(mega["crucible_megakernel_forward"][0]) == 25
-    assert len(mega["crucible_megakernel_record"][0]) == 28
-    assert "crucible_megakernel_brute_shape" in mega
+    assert len(mega["crucible_megakernel_forward"][0]) == 28
+    assert len(mega["crucible_megakernel_record"][0]) == 31
+    assert "crucible_megakernel_flat_shape" in mega
     source = (tbuild.CSRC / "megakernel.cu").read_text()
-    for needle in ("__ballot_sync", "atomicAdd(b.next", "float4", "cudaMemsetAsync",
+    for needle in ("__ballot_sync", "atomicAdd(f.next", "float4", "cudaMemsetAsync",
                    "cudaOccupancyMaxActiveBlocksPerMultiprocessor"):
         assert needle in source, needle
 
@@ -333,7 +339,7 @@ def test_flat_forward_is_the_plain_version_bit_for_bit(cuda, width, spp):
     inputs, _ = tint.mega_inputs(sd, cp, w, h, spp, 50, 0)
     r = inputs["pix"].shape[1]
     assert (inputs["sample0"] == tmk.NO_SAMPLE).any()
-    shape = tmk.brute_launch_shape(False, True, inputs["table"].shape[0], r)
+    shape = tmk.flat_launch_shape(False, True, inputs["table"].shape[0], r)
     if width == 1920:
         assert shape["grid"] * shape["threads"] < r
     out = tmk.run_megakernel(**inputs, animated=False)

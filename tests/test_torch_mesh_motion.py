@@ -466,7 +466,7 @@ def test_what_moving_meshes_still_refuse():
                           torch.zeros(4), 0, 2, torch.zeros((2, 4), dtype=torch.int32))
     # A mesh beside the sphere walk (ROADMAP A11), in both modes. (Moving
     # spheres with structure tables but without the cluster tables are
-    # refused, naming K6's cluster walk.)
+    # refused, naming K6's chunk-cull tables.)
     from dataclasses import replace
 
     sd, cp, w, h = _bridged("fan_rising_camera")

@@ -51,6 +51,48 @@ def test_k8_brute_matches_plain_on_card(cuda, animated, cam_animated):
     assert torch.equal(out, tmk.run_megakernel_reference(**inputs, **flags))
 
 
+FLAG_SETS = {"animated": dict(animated=True, cam_animated=False),
+             "camera": dict(animated=False, cam_animated=True),
+             "both": dict(animated=True, cam_animated=True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", FLAG_SETS.values(), ids=FLAG_SETS.keys())
+def test_k8_flat_loop_lanes_of_mixed_length_and_padding(cuda, flags):
+    """K8's brute search in the flat loop: bouncing book1 640 wide, 2 spp,
+    depth 50, every fifth lane padding (sample0 = 2**30), more items than
+    resident lanes, so lanes take items whose paths end at other bounces;
+    two launches give the same bits, the plain version's on 4096 lanes."""
+    _, _, inputs = _inputs(bouncing_book1(tdemo, 640), cuda, 2, 50)
+    inputs["sample0"][:, ::5] = tmk.NO_SAMPLE
+    r = inputs["pix"].shape[1]
+    shape = tmk.flat_launch_shape(False, True, inputs["table"].shape[0], r, **flags)
+    assert shape["grid"] * shape["threads"] < r
+    out = tmk.run_megakernel(**inputs, **flags)
+    again = tmk.run_megakernel(**inputs, **flags)
+    lanes = torch.randperm(r, generator=torch.Generator().manual_seed(4))[:4096].sort().values
+    lanes = lanes.to(cuda)
+    sub = dict(inputs, pix=inputs["pix"][:, lanes], sample0=inputs["sample0"][:, lanes])
+    ref = tmk.run_megakernel_reference(**sub, **flags)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(out[:, lanes], ref)
+    assert not out[:, ::5].any()
+
+
+@pytest.mark.cuda
+def test_k8_launch_shape_is_the_flat_loops(cuda):
+    """K8's brute search stages 36 bytes a moving row (16 with the camera
+    alone) and runs 128-thread blocks; a launch of many lanes takes every
+    resident block."""
+    _, _, inputs = _inputs(bouncing_book1(tdemo, 32), cuda, 1, 2)
+    n = inputs["table"].shape[0]
+    for flags, row in ((FLAG_SETS["both"], 36), (FLAG_SETS["camera"], 16)):
+        shape = tmk.flat_launch_shape(False, True, n, 1 << 22, **flags)
+        assert shape["threads"] == 128 and shape["smem_bytes"] == -(-n // 4) * 4 * row
+        assert shape["blocks_per_sm"] >= 1
+        assert shape["grid"] == shape["blocks_per_sm"] * shape["sms"]
+
+
 @pytest.mark.cuda
 def test_k8_walk_with_a_moving_camera_matches_plain_and_brute(cuda):
     sc = tdemo.sphere_stress(width=96, copies=4)

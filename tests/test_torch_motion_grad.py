@@ -108,7 +108,7 @@ def test_record_predicate_takes_linear_motion():
     # A moving table with the cluster tables walks them (K6); above the
     # brute search's MAX_ROWS_ANIMATED without them, or with the sphere
     # BVH's tables (whose boxes do not follow moving spheres), it is
-    # refused, naming the cluster walk.
+    # refused, naming the chunk-cull tables.
     bouncing = bouncing_stress(tdemo, 16, 4).build(device="cpu")
     assert bouncing.sph_cbounds is not None and reason(bouncing, cp) is None
     big = replace(sd, sph_center=torch.zeros((tmk.MAX_ROWS_ANIMATED + 1, 3)))

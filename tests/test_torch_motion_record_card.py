@@ -64,6 +64,30 @@ def test_k8_record_matches_plain_on_card(cuda, animated, cam_animated):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("accum_from", [0, 3])
+def test_k8_record_flat_loop_hands_out_paths_in_any_order(cuda, accum_from):
+    """K8's record in the flat loop at bouncing book1 320 wide, 8 spp,
+    depth 50 (both flags): more paths than resident lanes, every seventh
+    lane padding, the fused radiance from bounce ``accum_from`` on. Two
+    launches hand the paths out in other orders and give the same bits,
+    the plain version's."""
+    flags = dict(animated=True, cam_animated=True)
+    _, _, inputs = _record_inputs(bouncing_book1(tdemo, 320), cuda, 8, 50)
+    r = inputs["pix"].shape[1]
+    inputs["sample0"][:, ::7] = tmk.NO_SAMPLE
+    inputs["smem"][4] = accum_from
+    shape = tmk.flat_launch_shape(True, True, inputs["table"].shape[0], r, **flags)
+    assert shape["grid"] * shape["threads"] < r
+    acc, rec = tmk.run_megakernel_record(**inputs, max_depth=50, radiance=True, **flags)
+    acc2, rec2 = tmk.run_megakernel_record(**inputs, max_depth=50, radiance=True, **flags)
+    ref_acc, ref_rec = tmk.run_megakernel_record_reference(**inputs, max_depth=50,
+                                                           radiance=True, **flags)
+    torch.cuda.synchronize()
+    assert torch.equal(rec, ref_rec) and torch.equal(acc, ref_acc)
+    assert torch.equal(rec2, rec) and torch.equal(acc2, acc) and not rec[:, ::7].any()
+
+
+@pytest.mark.cuda
 def test_k8_record_walk_with_a_moving_camera_matches_plain_and_brute(cuda):
     sc = tdemo.sphere_stress(width=96, copies=4)
     sc.cam_translate_y(0.5, 1.0 / 48.0, "lerp", "local", "from")

@@ -236,7 +236,7 @@ def test_flat_record_is_the_twin_bit_for_bit(cuda, accum_from):
     r = inputs["pix"].shape[1]
     inputs["sample0"][:, ::7] = tmk.NO_SAMPLE
     inputs["smem"][4] = accum_from
-    shape = tmk.brute_launch_shape(True, True, inputs["table"].shape[0], r)
+    shape = tmk.flat_launch_shape(True, True, inputs["table"].shape[0], r)
     assert shape["grid"] * shape["threads"] < r
     acc, rec = tmk.run_megakernel_record(**inputs, max_depth=50, radiance=True)
     acc2, rec2 = tmk.run_megakernel_record(**inputs, max_depth=50, radiance=True)

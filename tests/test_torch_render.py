@@ -164,7 +164,7 @@ def _animator(sc):
 def _big_moving(sc):
     """``sc`` with CULL_MIN_ROWS + 1 coincident spheres added, the first of
     them rising over frame 0's shutter: a big moving table, which
-    Scene.build gives the cluster tables of the chunk-cull walk (K6)."""
+    Scene.build gives the chunk-cull tables (K6 walks their swept tree)."""
     for k in range(trender.CULL_MIN_ROWS + 1):
         sc.add_element(_sphere(), f"s{k}")
     sc.translate_y(0.3, 1.0 / 48.0, "lerp", "local", "s0")
@@ -172,7 +172,7 @@ def _big_moving(sc):
 
 
 def _too_many_spheres(sc):
-    """A big moving table renders through the cluster walk (K6,
+    """A big moving table renders through the swept-tree walk (K6,
     test_big_moving_table_renders_through_the_cluster_walk); beside a BVH
     mesh it takes K8's brute search while that holds it
     (tests/test_torch_cull.py), and above MAX_ROWS_ANIMATED rows it is a

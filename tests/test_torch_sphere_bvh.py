@@ -419,7 +419,7 @@ def test_brute_above_max_rows_raises():
 
 
 def test_big_animated_scene_names_the_chunk_cull_branch():
-    """A moving big table walks its clusters (K6, the chunk-cull branch),
+    """A moving big table walks its swept tree (K6, the chunk-cull branch),
     whose boxes hold the spheres over the shutter: built in motion, the
     field renders through them, equal to the brute search; marked moving
     with only a static build's sphere-BVH tables, it is refused, naming the

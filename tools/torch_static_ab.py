@@ -3,6 +3,7 @@
 on the card, for an A/B comparison of two trees.
 
     python3 tools/torch_static_ab.py [--repo PATH] [--label NAME]
+                                     [--save DIR] [--against DIR]
 
 ``--repo`` is the root of the checkout whose package is imported (default:
 this one); its kernels are built there. Run two trees in turns in one
@@ -22,16 +23,31 @@ shapes ``chip_smoke.py`` and the main paths use:
   7744 rows at 1920x1080 32 spp depth 50;
 - K8 and K7, which share K1's camera and shading code: book1's table given
   the animated flag, and chip_smoke.py's torus_teapot, 320 wide 8 spp
-  depth 50.
+  depth 50;
+- K8's brute search on bouncing book1 (``chip_smoke.bouncing_book1``): each
+  flag set (moving spheres, moving camera, both) 320 wide 8 spp depth 50,
+  both flags at 1920x1080 32 spp depth 50, and its record (both flags,
+  fused) at 1920x1080 4 spp depth 8;
+- K6 on bouncing stress (``chip_smoke.bouncing_stress``, moving spheres and
+  camera): n7744 and n1936 320 wide 8 spp depth 50, n7744 at 1920x1080 32
+  spp depth 50, and its record (fused) at 1920x1080 4 spp depth 8. A tree
+  whose scenes carry no swept tree (before K6 walked one) walks the
+  clusters (``cbounds``) instead.
+
+``--save DIR`` writes a digest of every timed launch's outputs (the lanes'
+radiance sums; records and fused radiance) to DIR; ``--against DIR``
+compares this run's digests with a saved run's and exits non-zero where
+one differs: both trees must give the same bits.
 
 Prints the card's name and power limit, then one JSON line
-``{"label": ..., "card": ..., "ms": {shape: ms}}``. Needs a CUDA card; exits
-non-zero without one.
+``{"label": ..., "card": ..., "ms": {shape: ms}, "against": {shape: equal}}``.
+Needs a CUDA card; exits non-zero without one.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -42,6 +58,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--repo", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--label", default="")
+    ap.add_argument("--save", default=None)
+    ap.add_argument("--against", default=None)
     args = ap.parse_args()
     root = Path(args.repo).resolve()
     if not (root / "crucible_tpu_torch" / "__init__.py").is_file():
@@ -87,10 +105,19 @@ def main() -> None:
                                    integrator.make_tri_tables(sd))))
         return x
 
-    def record_inputs(width, spp):
-        """K2's inputs for every pixel of book1 at ``spp`` samples, lanes
-        sample-major as ``grad`` lays them out."""
-        sc = demo.book1_end_scene(width=width)
+    def cull(x, sd):
+        """K6's inputs: ``x`` with the table in the walk's order and its
+        tables, the swept tree or, in a tree before it, the clusters."""
+        if getattr(sd, "sph_swept_nodes", None) is not None:
+            return dict(x, table=integrator.permute_table(x["table"], sd.sph_swept_perm),
+                        swept_nodes=sd.sph_swept_nodes, swept_meta=sd.sph_swept_meta)
+        return dict(x, table=integrator.permute_table(x["table"], sd.sph_perm),
+                    cbounds=sd.sph_cbounds)
+
+    def record_inputs(width, spp, sc=None):
+        """K2's inputs for every pixel of book1 (or ``sc``) at ``spp``
+        samples, lanes sample-major as ``grad`` lays them out."""
+        sc = sc or demo.book1_end_scene(width=width)
         sd, cp = sc.build(device=dev), sc.scene_cam.params(device=dev)
         w, h = sc.scene_cam.image_width, sc.scene_cam.image_height
         p = w * h
@@ -102,11 +129,25 @@ def main() -> None:
             table=integrator.make_sphere_table(sd).contiguous(),
         )
 
-    ms = {}
+    ms, against, bad = {}, {}, []
+
+    def digest(out):
+        outs = out if isinstance(out, tuple) else (out,)
+        return [hashlib.sha256(t.cpu().contiguous().numpy().tobytes()).hexdigest()
+                for t in outs]
 
     def timed(name, fn, reps):
         ms[name] = cuda_ms(fn, reps)
         print(f"  {name}: {ms[name]:.3f} ms", flush=True)
+        got = digest(fn())
+        if args.save:
+            Path(args.save).mkdir(parents=True, exist_ok=True)
+            (Path(args.save) / f"{name}.json").write_text(json.dumps(got))
+        if args.against:
+            against[name] = got == json.loads((Path(args.against) / f"{name}.json").read_text())
+            if not against[name]:
+                bad.append(name)
+                print(f"  {name}: outputs differ from {args.against}", flush=True)
 
     forward = {
         "k1_book1_320w_8spp": (demo.book1_end_scene(width=320), 8, {}, 5),
@@ -150,7 +191,34 @@ def main() -> None:
           f"{idx.shape[0]} slots")
     timed("k2_deep_narrow_d50", lambda: mk.run_megakernel_record(
         **narrow, max_depth=50, radiance=True), 5)
-    print(json.dumps({"label": args.label, "card": card, "ms": ms}))
+    del x, narrow, rec_h
+
+    flag_sets = {"animated": dict(animated=True, cam_animated=False),
+                 "camera": dict(animated=False, cam_animated=True),
+                 "both": dict(animated=True, cam_animated=True)}
+    both = flag_sets["both"]
+    x = inputs(chip_smoke.bouncing_book1(demo, 320), 8)
+    for tag, flags in flag_sets.items():
+        timed(f"k8_bouncing_320w_8spp_{tag}", lambda: mk.run_megakernel(**x, **flags), 5)
+    x = inputs(chip_smoke.bouncing_book1(demo, 1920), 32)
+    timed("k8_bouncing_1080p_32spp_both", lambda: mk.run_megakernel(**x, **both), 3)
+    x = record_inputs(1920, 4, chip_smoke.bouncing_book1(demo, 1920))
+    timed("k8_record_bouncing_1080p_4spp_d8_both", lambda: mk.run_megakernel_record(
+        **x, max_depth=8, radiance=True, **both), 3)
+
+    for name, copies, width, spp, reps in (("k6_n7744_320w_8spp", 16, 320, 8, 3),
+                                           ("k6_n1936_320w_8spp", 4, 320, 8, 3),
+                                           ("k6_n7744_1080p_32spp", 16, 1920, 32, 2)):
+        sc = chip_smoke.bouncing_stress(demo, width, copies)
+        x = cull(inputs(sc, spp), sc.build(device=dev))
+        timed(name, lambda: mk.run_megakernel(**x, **both), reps)
+    sc = chip_smoke.bouncing_stress(demo, 1920, 16)
+    x = cull(record_inputs(1920, 4, sc), sc.build(device=dev))
+    timed("k6_record_n7744_1080p_4spp_d8", lambda: mk.run_megakernel_record(
+        **x, max_depth=8, radiance=True, **both), 3)
+    print(json.dumps({"label": args.label, "card": card, "ms": ms, "against": against}))
+    if bad:
+        raise SystemExit(f"outputs differ from {args.against}: {bad}")
 
 
 if __name__ == "__main__":
