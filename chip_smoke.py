@@ -57,13 +57,16 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
      spp, depth 8), and book1 320 wide, 8 spp, depth 50 through the pixel
      and the mega schedules: isclose(rtol=1e-3, atol=1e-3) on more than
      97% of pixel values, means within 2e-3.
-   - K5, the sphere-BVH walk: forward on ``sphere_stress`` with 7744 and
-     1936 rows, 320 wide, 8 spp, depth 50, and on 64 pixel blocks of the
-     n7744 1920x1080 32 spp d50 launch; record (fused and plain) on n1936,
-     320 wide, 4 spp, depth 8, and on 32768 lanes of its 1920x1080 launch.
-     Each bit for bit against the plain walk and against the brute kernel
-     (K1, K2) on the original table; the plain walk counts the node and
-     row tests that give K5's bound.
+   - K5, the walk of a static table's tree (SWEPT_LEAF spheres a leaf,
+     nearer child first) in the flat loop: forward on ``sphere_stress``
+     with 7744 and 1936 rows, 320 wide, 8 spp, depth 50, in full, and on 64
+     pixel blocks of the n7744 1920x1080 32 spp d50 launch; record (fused
+     and plain) on n1936 and n7744, 320 wide, 4 spp, depth 8, in full, and
+     on 32768 lanes of each 1920x1080 launch. Each bit for bit against the
+     plain walk and against the brute kernel (K1, K2) on the original
+     table; the plain walk counts the node, row and root tests that give
+     K5's bound (printed a search), with each launch shape. Then K5 at leaf
+     sizes 8, 4, 16, 8 on n7744 (320 wide and 1920x1080).
    - K4 and K3 at n1936's 1936 rows (320 wide, 4 spp, depth 8): K4 bit for
      bit, K3 within its scheme and the same bits twice.
    - K4-legacy, the channel-major replay pair, on K2's records of book1
@@ -78,9 +81,9 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
      instantiation of the flat loop (moving spheres, moving camera, both)
      at 320 wide, 8 spp, depth 50, and both on 64 pixel blocks of the
      1920x1080 32 spp d50 launch, with each launch shape (grid, resident
-     blocks an SM, registers, spill bytes, shared memory); the walk with a moving camera on sphere_stress n1936 320 wide,
-     8 spp, depth 50 (also against the brute camera variant on the
-     original table). Each bit for bit against its plain version; K8 timed
+     blocks an SM, registers, spill bytes, shared memory); K5's walk with a
+     moving camera on sphere_stress n1936 320 wide, 8 spp, depth 50 (also
+     against the brute camera variant on the original table). Each bit for bit against its plain version; K8 timed
      beside K1 on the same lanes of static and bouncing book1; and bouncing
      book1 through the pixel and mega schedules (isclose > 0.97, means
      within 2e-3).
@@ -100,7 +103,7 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
      8 spp, depth 50, in full (n1936 also against the K8 brute search on
      the original table), and on K6_MAIN_BLOCKS (64) pixel blocks of the
      n7744 1920x1080 32 spp d50 launch; the same walk over book1's static
-     table in a tree against K1 and the plain version, in full; record
+     table in a tree (K5) against K1 and the plain version, in full; record
      (fused and plain) on n1936 and n7744 320 wide, 4 spp, depth 8, in full
      (n1936 also against the K8 brute record), and on K6_RECORD_LANES
      (131,072) lanes of the n7744 1920x1080 4 spp d8 launch.
@@ -110,7 +113,8 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
      1920x1080), and K6 and the K8 brute search timed in turns on the same
      lanes of n1936 and of its first 1,024 rows at 320 wide and 1920x1080
      (the animated CULL_MIN_ROWS crossover), bit for bit.
-   - K7, the triangle-BVH stage for static meshes, on "torus_teapot"
+   - K7, the triangle-BVH stage for static meshes (in the flat loop, over
+     the tree's DFS skip links), on "torus_teapot"
      (demo.load_teapot's scene with a procedural torus of the teapot's
      6,320 triangles in place of teapot.obj; built here through the public
      API): forward on the 80-triangle fan 64 wide and on torus_teapot 320
@@ -118,9 +122,10 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
      32 spp d50 launch; record (fused and plain) on torus_teapot 320 wide, 4
      spp, depth 8, in full and on 32768 lanes of its 1920x1080 launch. Each
      bit for bit against the plain version, which counts the node and row
-     tests that give K7's bound. Then the plain walk against the brute
-     Möller–Trumbore over all rows on 2^16 random rays (winners differ on
-     < 0.1%), and K7's time at leaf sizes 4, 8, 16, 32 and 64.
+     tests that give K7's bound, with each launch shape. Then the plain walk
+     against the brute Möller–Trumbore over all rows on 2^16 random rays
+     (winners differ on < 0.1%), and K7's time at leaf sizes 4, 8, 16, 32
+     and 64.
    - K7 moving, the triangle stage over a moving mesh (with K8's moving
      sphere search), on "moving torus_teapot" (torus_teapot as
      demo.moving_teapot's movie, every triangle translated and scaled as
@@ -1235,15 +1240,15 @@ def main() -> None:
         raise AssertionError("the pixel and mega schedules disagree on book1")
     del imgs, a, b, card_img, cpu_img
 
-    # --- K5: the sphere-BVH walk vs its plain version and vs K1 / K2 ----------
-    mark('K5: the sphere-BVH walk vs its plain version and vs K1 / K2')
+    # --- K5: the static tree walk vs its plain version and vs K1 / K2 ---------
+    mark('K5: the static tree walk vs its plain version and vs K1 / K2')
     def stress_inputs(copies, width):
-        """sphere_stress at ``width``: (scene, camera, w, h, its BVH tables as
-        the wrappers take them)."""
+        """sphere_stress at ``width``: (scene, camera, w, h, K5's tree as the
+        wrappers take it, with its permutation)."""
         sc = demo.sphere_stress(width=width, copies=copies)
         sd, cp = sc.build(device=dev), sc.scene_cam.params(device=dev)
-        bvh = dict(sph_nodes=sd.sph_nodes, sph_meta=sd.sph_meta)
-        return sd, cp, sc.scene_cam.image_width, sc.scene_cam.image_height, bvh
+        tree = dict(swept_nodes=sd.sph_swept_nodes, swept_meta=sd.sph_swept_meta)
+        return sd, cp, sc.scene_cam.image_width, sc.scene_cam.image_height, tree
 
     def lane_subset(inputs, lanes):
         return dict(inputs, pix=inputs["pix"][:, lanes], sample0=inputs["sample0"][:, lanes])
@@ -1254,40 +1259,57 @@ def main() -> None:
 
     def plain_walk(fn):
         """(result, ms, the walk's counted work) of one plain-walk call."""
+        mk.SEARCH_COUNTS.update(searches=0, issued=0)
         mk.WALK_COUNTS.update(nodes=0, rows=0, roots=0)
         out, ms = host_ms(fn)
-        return out, ms, dict(mk.WALK_COUNTS)
+        return out, ms, dict(mk.SEARCH_COUNTS, **mk.WALK_COUNTS)
+
+    def per_search(counts):
+        """Nodes and rows the plain walk tested a search."""
+        s = max(counts["searches"], 1)
+        return dict(nodes_per_search=counts["nodes"] / s, rows_per_search=counts["rows"] / s)
+
+    def tree_shape(record, inputs, what, **flags):
+        """A tree walk's launch shape (K5, K6) for ``inputs``, printed."""
+        shape = mk.flat_launch_shape(record, True, inputs["table"].shape[0],
+                                     inputs["pix"].shape[1],
+                                     nodes=int(inputs["swept_nodes"].shape[0]), **flags)
+        print(f"  {what} launch shape: {shape}")
+        return shape
 
     def k5_forward(copies, width, spp, depth, lanes=None):
         """K5's forward launch on sphere_stress against the plain walk and
         against K1 on the original table (on ``lanes`` of it if given)."""
-        sd, cp, w, h, bvh = stress_inputs(copies, width)
+        sd, cp, w, h, tree = stress_inputs(copies, width)
         brute, _ = integrator.mega_inputs(sd, cp, w, h, spp, depth, 0)
-        walk = dict(brute, table=integrator.permute_table(brute["table"], sd.sph_perm))
-        out = mk.run_megakernel(**walk, **bvh, animated=False)
-        ms = cuda_ms(lambda: mk.run_megakernel(**walk, **bvh, animated=False), 2)
+        walk = dict(brute, table=integrator.permute_table(brute["table"], sd.sph_swept_perm),
+                    **tree)
+        out = mk.run_megakernel(**walk, animated=False)
+        ms = cuda_ms(lambda: mk.run_megakernel(**walk, animated=False), 2)
         what = f"K5 n{sd.sph_center.shape[0]} {width}w {spp}spp d{depth}"
+        shape = tree_shape(False, walk, what)
         valid_all = int((walk["sample0"] < mk.NO_SAMPLE).sum())
         r_all = walk["pix"].shape[1]
         if lanes is not None:
             brute, walk = lane_subset(brute, lanes), lane_subset(walk, lanes)
             out = out[:, lanes]
             what += f" on {lanes.numel()} lanes"
-        ref, plain_ms, counts = plain_walk(lambda: mk.run_megakernel_reference(**walk, **bvh))
+        ref, plain_ms, counts = plain_walk(lambda: mk.run_megakernel_reference(**walk))
         err = bit_equal(out, ref, f"{what} vs plain walk")
         bit_equal(out, mk.run_megakernel(**brute, animated=False), f"{what} vs K1")
         k1_ms = cuda_ms(lambda: mk.run_megakernel(**brute, animated=False), 1)
-        k5_ms = cuda_ms(lambda: mk.run_megakernel(**walk, **bvh, animated=False), 1)
+        k5_ms = cuda_ms(lambda: mk.run_megakernel(**walk, animated=False), 1)
         # Scale the checked lanes' work to the whole launch; bytes: the
-        # permuted table, the BVH, each lane's ids and sums.
+        # permuted table, the tree, each lane's ids and sums.
         scale = valid_all / int((walk["sample0"] < mk.NO_SAMPLE).sum())
         b, by = bound(walk_ops(counts) * scale,
-                      nbytes(walk["table"], *bvh.values()) + 5 * 4 * r_all)
+                      nbytes(walk["table"], *tree.values()) + 5 * 4 * r_all)
         print(f"{what}: K5 {ms:.3f} ms, plain walk {plain_ms:.1f} ms, bound {b:.4f} ms ({by}); "
               f"on the checked lanes K5 {k5_ms:.3f} ms vs K1 {k1_ms:.3f} ms "
-              f"({k1_ms / k5_ms:.2f}x); work {counts}, x{scale:.2f}")
+              f"({k1_ms / k5_ms:.2f}x); work {counts}, x{scale:.2f}; {per_search(counts)}")
         return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b, bound_by=by,
-                    k1_ms=k1_ms, k5_ms=k5_ms, speedup=k1_ms / k5_ms)
+                    k1_ms=k1_ms, k5_ms=k5_ms, speedup=k1_ms / k5_ms, launch_shape=shape,
+                    **per_search(counts))
 
     k5_fwd = {}
     for copies in (16, 4):
@@ -1298,21 +1320,44 @@ def main() -> None:
     k5_main = k5_forward(16, 1920, 32, 50, lanes=lanes)
     print(f"  K5 n7744 1920x1080 32spp d50: {k5_main['ms']:.1f} ms "
           f"({1920 * 1080 * 32 / k5_main['ms'] / 1e3:.2f} Mrays/s)")
+
+    # The leaf size: K5 over trees of 8, 4, 16 and 8 spheres a leaf, at
+    # n7744 320w and on the 1920x1080 launch, in turns.
+    k5_leaf_ms, scenes = {}, {width: stress_inputs(16, width) for width in (320, 1920)}
+    for leaf in (8, 4, 16, 8):
+        for width, spp in ((320, 8), (1920, 32)):
+            sd, cp, w, h, _ = scenes[width]
+            arrays = (t.cpu().numpy() for t in (sd.sph_center, sd.sph_radius, sd.sph_active))
+            perm, nodes, meta = (torch.from_numpy(t).to(dev)
+                                 for t in mk.swept_tables(*arrays, leaf_size=leaf))
+            x, _ = integrator.mega_inputs(sd, cp, w, h, spp, 50, 0)
+            x = dict(x, table=integrator.permute_table(x["table"], perm), swept_nodes=nodes,
+                     swept_meta=meta)
+            ms = cuda_ms(lambda: mk.run_megakernel(**x, animated=False), 1 if width == 1920 else 3)
+            k5_leaf_ms.setdefault(f"leaf{leaf}_{width}w", []).append(ms)
+            print(f"  K5 n7744 {width}w {spp}spp d50 at leaf {leaf} ({nodes.shape[0]} nodes): "
+                  f"{ms:.3f} ms")
+            del x
+    del scenes
     kernels["megakernel_walk"] = dict(
         source="crucible_tpu_torch/csrc/megakernel.cu",
         replaces="crucible_tpu/ops/pallas/megakernel.py:1681",
         **{k: k5_fwd[16][k] for k in ("ms", "plain_ms", "max_abs_err", "bound_ms", "bound_by")},
         ms_n1936=k5_fwd[4]["ms"], bound_ms_n1936=k5_fwd[4]["bound_ms"],
+        plain_ms_n1936=k5_fwd[4]["plain_ms"], launch_shape=k5_fwd[16]["launch_shape"],
         main_ms=k5_main["ms"], main_bound_ms=k5_main["bound_ms"],
+        main_plain_ms_checked_lanes=k5_main["plain_ms"],
         main_checked_lanes_ms=k5_main["k5_ms"], main_checked_lanes_k1_ms=k5_main["k1_ms"],
-        main_checked_lanes_speedup=k5_main["speedup"],
+        main_checked_lanes_speedup=k5_main["speedup"], main_launch_shape=k5_main["launch_shape"],
+        main_nodes_per_search=k5_main["nodes_per_search"],
+        main_rows_per_search=k5_main["rows_per_search"], leaf_ms=k5_leaf_ms,
     )
 
     def k5_record(copies, width, spp, depth, sub=None):
         """K5's record launches (fused and plain) on sphere_stress(copies)
         against the plain walk and K2 on the original table (on ``sub`` of
         the lanes if given) -> (entry, replay-kernel inputs, records)."""
-        sd, cp, w, h, bvh = stress_inputs(copies, width)
+        sd, cp, w, h, tree = stress_inputs(copies, width)
         p = w * h
         pix = torch.arange(p, device=dev, dtype=torch.int32).repeat(spp)
         smp = torch.arange(spp, device=dev, dtype=torch.int32).repeat_interleave(p)
@@ -1320,13 +1365,15 @@ def main() -> None:
         brute = dict(smem=smem, pix=pix[None], sample0=smp[None],
                      cam=integrator.mega_cam_vector(cp, w, h),
                      table=integrator.make_sphere_table(sd).contiguous())
-        walk = dict(brute, table=integrator.permute_table(brute["table"], sd.sph_perm))
+        walk = dict(brute, table=integrator.permute_table(brute["table"], sd.sph_swept_perm),
+                    **tree)
         what = f"K5 record n{sd.sph_center.shape[0]} {width}w {spp}spp d{depth}"
-        acc, rec = mk.run_megakernel_record(**walk, **bvh, max_depth=depth, radiance=True)
-        plain = mk.run_megakernel_record(**walk, **bvh, max_depth=depth)[1]
+        acc, rec = mk.run_megakernel_record(**walk, max_depth=depth, radiance=True)
+        plain = mk.run_megakernel_record(**walk, max_depth=depth)[1]
         bit_equal(rec, plain, f"{what}: fused vs plain records")
-        ms = cuda_ms(lambda: mk.run_megakernel_record(**walk, **bvh, max_depth=depth,
+        ms = cuda_ms(lambda: mk.run_megakernel_record(**walk, max_depth=depth,
                                                       radiance=True), 3)
+        shape = tree_shape(True, walk, what)
         o, d, _ = generate_rays(cp, w, h, pix, smp, 0)
         rin = (brute["table"], o.contiguous(), d.contiguous(), torch.ones_like(pix), pix, smp)
         full_rec, r = rec, pix.numel()
@@ -1335,7 +1382,7 @@ def main() -> None:
             acc, rec = acc[:, sub], rec[:, sub]
             what += f" on {sub.numel()} lanes"
         (ref_acc, ref_rec), plain_ms, counts = plain_walk(
-            lambda: mk.run_megakernel_record_reference(**walk, **bvh, max_depth=depth,
+            lambda: mk.run_megakernel_record_reference(**walk, max_depth=depth,
                                                        radiance=True))
         bit_equal(rec, ref_rec, f"{what}: records vs plain walk")
         err = bit_equal(acc, ref_acc, f"{what}: fused radiance vs plain walk")
@@ -1344,11 +1391,11 @@ def main() -> None:
         bit_equal(acc, b_acc, f"{what}: fused radiance vs K2")
         scale = r / rec.shape[1]
         b, by = bound(walk_ops(counts) * scale,
-                      nbytes(walk["table"], *bvh.values(), full_rec) + 5 * 4 * r)
+                      nbytes(walk["table"], *tree.values(), full_rec) + 5 * 4 * r)
         print(f"{what}: K5 {ms:.3f} ms, plain walk {plain_ms:.1f} ms, bound {b:.4f} ms "
-              f"({by}); work {counts}, x{scale:.2f}")
-        return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b, bound_by=by), \
-            rin, full_rec
+              f"({by}); work {counts}, x{scale:.2f}; {per_search(counts)}")
+        return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b, bound_by=by,
+                    launch_shape=shape), rin, full_rec
 
     k5_rec, rin, rec320 = k5_record(4, 320, 4, 8)
     r = 1920 * 1080 * 4
@@ -1365,6 +1412,7 @@ def main() -> None:
         ms_n7744=k5_rec16["ms"], plain_ms_n7744=k5_rec16["plain_ms"],
         bound_ms_n7744=k5_rec16["bound_ms"], main_ms_n7744=k5_rec16_main["ms"],
         main_bound_ms_n7744=k5_rec16_main["bound_ms"],
+        main_launch_shape_n7744=k5_rec16_main["launch_shape"],
     )
 
     # --- K4 and K3 at n1936's 1936 rows -----------------------------------------
@@ -1446,8 +1494,8 @@ def main() -> None:
     sc = demo.sphere_stress(width=320, copies=4)
     sc.cam_translate_y(0.5, 1.0 / 48.0, "lerp", "local", "from")
     w_sd, _, w_in = k8_inputs(sc, 8, 50)
-    bvh = dict(sph_nodes=w_sd.sph_nodes, sph_meta=w_sd.sph_meta)
-    walk = dict(w_in, table=integrator.permute_table(w_in["table"], w_sd.sph_perm), **bvh)
+    bvh = dict(swept_nodes=w_sd.sph_swept_nodes, swept_meta=w_sd.sph_swept_meta)
+    walk = dict(w_in, table=integrator.permute_table(w_in["table"], w_sd.sph_swept_perm), **bvh)
     cam_only = flag_sets["camera"]
     out = mk.run_megakernel(**walk, **cam_only)
     ms = cuda_ms(lambda: mk.run_megakernel(**walk, **cam_only), 3)
@@ -1460,7 +1508,8 @@ def main() -> None:
                   nbytes(walk["table"], *bvh.values()) + 5 * 4 * w_in["pix"].numel())
     print(f"{what}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {b:.4f} ms ({by}); "
           f"work {counts}")
-    k8["walk"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b, bound_by=by)
+    k8["walk"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b, bound_by=by,
+                      launch_shape=tree_shape(False, walk, what, **cam_only))
 
     # The main path's launch: bouncing book1 1920x1080 32 spp d50, plain on
     # 64 pixel blocks (lanes are independent); K1 on the same launch.
@@ -1492,6 +1541,7 @@ def main() -> None:
         ms_camera=k8["camera"]["ms"], bound_ms_camera=k8["camera"]["bound_ms"],
         ms_walk_camera=k8["walk"]["ms"], plain_ms_walk_camera=k8["walk"]["plain_ms"],
         bound_ms_walk_camera=k8["walk"]["bound_ms"],
+        launch_shape_walk_camera=k8["walk"]["launch_shape"],
         main_ms=main_ms, main_bound_ms=main_b, main_k1_ms=main_k1_ms,
         main_launch_shape=main_shape,
         **{key: v for key, v in k8.items() if key.startswith(("k1_ms", "k8_ms"))},
@@ -1558,8 +1608,8 @@ def main() -> None:
     sc.cam_translate_y(0.5, 1.0 / 48.0, "lerp", "local", "from")
     w_sd = sc.build(device=dev)
     wk2, _ = grad_inputs(lambda width: sc, 320, 4, 8)
-    walk = dict(wk2, table=integrator.permute_table(wk2["table"], w_sd.sph_perm))
-    bvh = dict(sph_nodes=w_sd.sph_nodes, sph_meta=w_sd.sph_meta)
+    walk = dict(wk2, table=integrator.permute_table(wk2["table"], w_sd.sph_swept_perm))
+    bvh = dict(swept_nodes=w_sd.sph_swept_nodes, swept_meta=w_sd.sph_swept_meta)
     cam_only = flag_sets["camera"]
     what = f"K8 record walk camera n{w_sd.sph_center.shape[0]} 320w 4spp d8"
     err, plain_ms, counts, rec = k8_record_check(walk, 8, cam_only, what, bvh=bvh)
@@ -1573,7 +1623,8 @@ def main() -> None:
                   nbytes(walk["table"], *bvh.values(), rec) + 5 * 4 * rec.shape[1])
     print(f"{what}: kernel {ms:.3f} ms, plain walk {plain_ms:.1f} ms, bound {b:.4f} ms ({by}); "
           f"work {counts}")
-    k8r["walk"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b, bound_by=by)
+    k8r["walk"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b, bound_by=by,
+                       launch_shape=tree_shape(True, dict(walk, **bvh), what, **cam_only))
     del wk2, walk, b_acc, b_rec, acc
 
     # A static table given the animated flag (all-zero motion columns): K2's words.
@@ -1616,7 +1667,8 @@ def main() -> None:
         ms_camera=k8r["camera"]["ms"], bound_ms_camera=k8r["camera"]["bound_ms"],
         plain_ms_camera=k8r["camera"]["plain_ms"],
         ms_walk_camera=k8r["walk"]["ms"], plain_ms_walk_camera=k8r["walk"]["plain_ms"],
-        bound_ms_walk_camera=k8r["walk"]["bound_ms"], k2_ms_same_lanes=k2_ms,
+        bound_ms_walk_camera=k8r["walk"]["bound_ms"],
+        launch_shape_walk_camera=k8r["walk"]["launch_shape"], k2_ms_same_lanes=k2_ms,
         main_ms=rec_main_ms, main_bound_ms=rec_main_b, main_k2_ms=rec_main_k2_ms,
         main_launch_shape=rec_main_shape,
     )
@@ -1635,11 +1687,6 @@ def main() -> None:
         row = MOVING_DISC_OPS if animated else HIT_DISC_OPS
         return (counts["nodes"] * SLAB_OPS + counts["rows"] * row + counts["roots"] * ROOT_OPS
                 + cam_animated * counts["issued"] * CAM_OPS)
-
-    def per_search(counts):
-        """Nodes and rows the plain walk tested a search."""
-        s = max(counts["searches"], 1)
-        return dict(nodes_per_search=counts["nodes"] / s, rows_per_search=counts["rows"] / s)
 
     def swept_for(sd, leaf=None, rows=None):
         """K6's tree of ``sd`` (perm, nodes, meta): the scene's own, or
@@ -1738,8 +1785,8 @@ def main() -> None:
                   f"({x['swept_nodes'].shape[0]} nodes): {ms:.3f} ms")
             del x
 
-    # The same walk over a static table's tree (book1, zero deltas) is a
-    # pure skip over K1's search.
+    # The same walk over a static table's tree (book1, zero deltas) is K5,
+    # a pure skip over K1's search.
     s_sd, s_cp, s_in = k8_inputs(demo.book1_end_scene(width=320), 8, 50)
     zero = torch.zeros_like(s_sd.sph_center)
     tree = swept_for(replace(s_sd, sph_center_d=zero, sph_radius_d=zero[:, 0]),
@@ -1747,13 +1794,17 @@ def main() -> None:
     s_cull = dict(s_in, table=integrator.permute_table(s_in["table"], tree[0]),
                   swept_nodes=tree[1], swept_meta=tree[2])
     out = mk.run_megakernel(**s_cull, animated=False)
-    bit_equal(out, mk.run_megakernel(**s_in, animated=False), "K6 static book1 320w 8spp d50 vs K1")
-    ref, plain_ms, counts = plain_cull(lambda: mk.run_megakernel_reference(**s_cull))
-    bit_equal(out, ref, "K6 static book1 320w 8spp d50 vs plain")
-    k6_static_ms = cuda_ms(lambda: mk.run_megakernel(**s_cull, animated=False), 3)
-    k6_static_k1_ms = cuda_ms(lambda: mk.run_megakernel(**s_in, animated=False), 3)
-    print(f"K6 static book1 320w 8spp d50: K6 {k6_static_ms:.3f} ms, K1 {k6_static_k1_ms:.3f} "
+    bit_equal(out, mk.run_megakernel(**s_in, animated=False),
+              "K5 static book1 320w 8spp d50 vs K1")
+    ref, plain_ms, counts = plain_walk(lambda: mk.run_megakernel_reference(**s_cull))
+    bit_equal(out, ref, "K5 static book1 320w 8spp d50 vs plain")
+    k5_static_ms = cuda_ms(lambda: mk.run_megakernel(**s_cull, animated=False), 3)
+    k5_static_k1_ms = cuda_ms(lambda: mk.run_megakernel(**s_in, animated=False), 3)
+    print(f"K5 static book1 320w 8spp d50: K5 {k5_static_ms:.3f} ms, K1 {k5_static_k1_ms:.3f} "
           f"ms, plain {plain_ms:.1f} ms; work {counts}; {per_search(counts)}")
+    kernels["megakernel_walk"].update(ms_static_book1=k5_static_ms,
+                                      k1_ms_static_book1=k5_static_k1_ms,
+                                      plain_ms_static_book1=plain_ms)
     del s_in, s_cull, out, ref
 
     # The animated CULL_MIN_ROWS crossover: K6 and the K8 brute search on
@@ -1785,7 +1836,6 @@ def main() -> None:
         main_launch_shape=k6_main["launch_shape"],
         main_nodes_per_search=k6_main["nodes_per_search"],
         main_rows_per_search=k6_main["rows_per_search"],
-        ms_static_book1=k6_static_ms, k1_ms_static_book1=k6_static_k1_ms,
         leaf_ms=leaf_ms, crossover=crossover,
     )
 
@@ -1868,6 +1918,14 @@ def main() -> None:
                 + counts["rows"] * leaf_ops
                 + (counts["issued"] * CAM_OPS if flags["cam_animated"] else 0))
 
+    def tri_shape(record, inputs, what, flags):
+        """K7's launch shape for ``inputs``, printed."""
+        shape = mk.flat_launch_shape(record, True, inputs["table"].shape[0],
+                                     inputs["pix"].shape[1],
+                                     tri_nodes=int(inputs["tri_nodes"].shape[0]), **flags)
+        print(f"  {what} launch shape: {shape}")
+        return shape
+
     def tri_bytes(inputs, *extra):
         """Bytes read and written once: the tables, each lane's ids and sums."""
         tables = (inputs[k] for k in ("table", "tri_nodes", "tris", "mats", "tri_meta"))
@@ -1881,6 +1939,7 @@ def main() -> None:
         sd, full, flags = mesh_inputs(sc, spp, depth)
         out = mk.run_megakernel(**full, **flags)
         ms = cuda_ms(lambda: mk.run_megakernel(**full, **flags), reps)
+        shape = tri_shape(False, full, what, flags)
         inputs = full
         if lanes is not None:
             inputs, out = lane_subset(full, lanes), out[:, lanes]
@@ -1895,7 +1954,8 @@ def main() -> None:
         print(f"{what} {flags}: {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {b:.4f} ms "
               f"({by}); {sd.num_tris} triangles, {sd.bvh_min.shape[0]} nodes (leaf "
               f"{sd.bvh_leaf_size}); work {counts}, x{scale:.2f}")
-        return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b, bound_by=by)
+        return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b, bound_by=by,
+                    launch_shape=shape)
 
     def k7_record(sc, spp, depth, what, sub=None):
         """K7's record launches (fused and plain, with the scene's motion
@@ -1911,6 +1971,7 @@ def main() -> None:
             **full, max_depth=depth, radiance=True, **flags), 3)
         ms_unfused = cuda_ms(lambda: mk.run_megakernel_record(
             **full, max_depth=depth, **flags), 3)
+        shape = tri_shape(True, full, what, flags)
         full_rec, inputs = rec, full
         if sub is not None:
             inputs, acc, rec = lane_subset(full, sub), acc[:, sub], rec[:, sub]
@@ -1931,7 +1992,7 @@ def main() -> None:
               f"words of {int(((full_rec & mk.F_HIT) > 0).sum())} hits; work {counts}, "
               f"x{scale:.2f}")
         return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b, bound_by=by,
-                    ms_unfused=ms_unfused)
+                    ms_unfused=ms_unfused, launch_shape=shape)
 
     k7_forward(fan(tscene, 64), 8, 50, "K7 fan 64w 8spp d50")
     k7_fwd = k7_forward(torus_teapot(tscene, 320), 8, 50, "K7 torus_teapot 320w 8spp d50")
@@ -1947,6 +2008,8 @@ def main() -> None:
         source="crucible_tpu_torch/csrc/megakernel.cu",
         replaces="crucible_tpu/ops/pallas/megakernel.py:1681",
         **k7_fwd, main_ms=k7_main["ms"], main_bound_ms=k7_main["bound_ms"],
+        main_plain_ms_checked_lanes=k7_main["plain_ms"],
+        main_launch_shape=k7_main["launch_shape"],
     )
     k7_rec = k7_record(torus_teapot(tscene, 320), 4, 8, "K7 torus_teapot 320w 4spp d8")
     r = 1920 * 1080 * 4
@@ -1957,7 +2020,7 @@ def main() -> None:
         source="crucible_tpu_torch/csrc/megakernel.cu",
         replaces="crucible_tpu/ops/pallas/megakernel.py:1828",
         **k7_rec, main_ms=k7_rec_main["ms"], main_bound_ms=k7_rec_main["bound_ms"],
-        main_ms_unfused=k7_rec_main["ms_unfused"],
+        main_ms_unfused=k7_rec_main["ms_unfused"], main_launch_shape=k7_rec_main["launch_shape"],
     )
 
     # K7's walk (Woop) against the brute Möller–Trumbore over all 6,320 rows,
@@ -2066,6 +2129,8 @@ def main() -> None:
         source="crucible_tpu_torch/csrc/megakernel.cu",
         replaces="crucible_tpu/ops/pallas/megakernel.py:1681",
         **k7m_fwd, main_ms=k7m_main["ms"], main_bound_ms=k7m_main["bound_ms"],
+        main_plain_ms_checked_lanes=k7m_main["plain_ms"],
+        main_launch_shape=k7m_main["launch_shape"],
         ms_cam=k7m_cam["ms"], plain_ms_cam=k7m_cam["plain_ms"],
         bound_ms_cam=k7m_cam["bound_ms"], shape_cam="160w 8spp d50",
         main_ms_cam=k7m_cam_main["ms"], main_plain_ms_cam=k7m_cam_main["plain_ms"],
@@ -2077,7 +2142,8 @@ def main() -> None:
         source="crucible_tpu_torch/csrc/megakernel.cu",
         replaces="crucible_tpu/ops/pallas/megakernel.py:1828",
         **k7m_rec, main_ms=k7m_rec_main["ms"], main_bound_ms=k7m_rec_main["bound_ms"],
-        main_ms_unfused=k7m_rec_main["ms_unfused"], ms_cam=k7m_cam_rec["ms"],
+        main_ms_unfused=k7m_rec_main["ms_unfused"],
+        main_launch_shape=k7m_rec_main["launch_shape"], ms_cam=k7m_cam_rec["ms"],
         plain_ms_cam=k7m_cam_rec["plain_ms"], bound_ms_cam=k7m_cam_rec["bound_ms"],
         shape_cam="320w 4spp d8",
     )

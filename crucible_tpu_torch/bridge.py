@@ -18,9 +18,9 @@ cluster boxes ``sph_cbounds``), the motion fields (``MOTION_ARRAYS``: the
 spheres' and a moving mesh's shutter deltas) and the triangle and
 triangle-BVH arrays (``MESH_ARRAYS``) are optional keys (``OPTIONAL_ARRAYS``,
 those a JAX ``SceneData`` has): absent, or None, where the scene has none.
-The port's own swept tree (``SWEPT_ARRAYS``, which K6 walks) is optional
-too; :func:`scene_data_from_arrays` builds it where the arrays carry
-cluster boxes and no tree, as a JAX-lowered animated scene's do.
+The port's own tree (``SWEPT_ARRAYS``, which K5 and K6 walk) is optional
+too; :func:`scene_data_from_arrays` builds it where the arrays carry a
+sphere BVH or cluster boxes and no tree, as a JAX-lowered scene's do.
 :func:`params_from_arrays` / :func:`params_to_arrays` carry the gradient
 path's parameter dict (``grad.extract_params``) the same way, and
 :func:`params_from_jax_checkpoint` reads it from a checkpoint file of the
@@ -68,10 +68,11 @@ def scene_data_from_arrays(
     arrays: dict[str, np.ndarray], *, device="cuda", max_nest: int = 1, **static
 ) -> SceneData:
     """SceneData on ``device`` from numpy arrays (keys: module docstring).
-    Where they carry an animated scene's cluster boxes (``sph_cbounds``) but
-    no swept tree, the tree K6 walks is built from the spheres and their
-    shutter deltas, as ``Scene.build`` builds it. Unknown static keys raise
-    ``TypeError``."""
+    Where they carry a static scene's sphere BVH (``sph_nodes``) or an
+    animated scene's cluster boxes (``sph_cbounds``) but no swept tree, the
+    tree the megakernel walks (K5's, or K6's over the shutter deltas) is
+    built from the spheres, as ``Scene.build`` builds it. Unknown static
+    keys raise ``TypeError``."""
     unknown = set(static) - set(SCENE_STATIC)
     if unknown:
         raise TypeError(f"unknown static scene fields {sorted(unknown)}")
@@ -82,10 +83,11 @@ def scene_data_from_arrays(
     sky = static.get("sky_kind", sky_mod.DEFAULT) == sky_mod.SPHERICAL
     optional = {k: _tensor(arrays[k], device) for k in OPTIONAL_ARRAYS + SWEPT_ARRAYS
                 if arrays.get(k) is not None}
-    if "sph_cbounds" in optional and "sph_swept_nodes" not in optional:
+    walked = "sph_cbounds" in optional or "sph_nodes" in optional
+    if walked and "sph_swept_nodes" not in optional:
+        deltas = ("sph_center_d", "sph_radius_d") if "sph_cbounds" in optional else ()
         optional.update(swept_struct(*(arrays[k] for k in (
-            "sph_center", "sph_radius", "sph_active", "sph_center_d", "sph_radius_d")),
-            device=device))
+            "sph_center", "sph_radius", "sph_active", *deltas)), device=device))
     return SceneData(
         **{k: _tensor(arrays[k], device) for k in SCENE_ARRAYS if k != "sky_image"},
         tex=tex,

@@ -1,11 +1,9 @@
 // Pieces shared by the port's CUDA kernels: the PCG4D counter hash of
 // utils/rng.py, its stream ids, the record-word layout of models/replay.py
-// (F_TRI marks a triangle winner, K7),
-// the closest-sphere search of the static kernels (K7's sphere stage, K10,
-// and K5 on each leaf it visits) and its linear-shutter form (K7 moving's
-// sphere stage); the flat loop (K1, K2, K8, K6) runs the same arithmetic on
-// its 16-byte row entries (megakernel.cu brute_row, moving_row, and
-// static_terms / moving_terms in K6's tree_closest).
+// (F_TRI marks a triangle winner, K7), and the closest-sphere search of
+// K10; the megakernel's flat loop runs the same arithmetic on its 16-byte
+// row entries (megakernel.cu brute_row, moving_row, and static_terms /
+// moving_terms in tree_closest).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -74,17 +72,13 @@ __device__ __forceinline__ U4 uniform4(uint32_t x, uint32_t y, uint32_t z,
 // disc = h^2 - a c_q, roots (h -/+ sqrt(disc)) * (1/a), a root accepted in
 // (t_min, BIG). The caller passes a = |d|^2, d.o, |o|^2 and 1/a. A row
 // replaces (best, win) only when its root is strictly nearer, so the lowest
-// row wins ties; rows are numbered from `base`. With TIE_BY_ID (K5's leaves
-// of a permuted table) an exact tie goes instead to the row whose original
-// id, column 31 of `table`, is lower. Every product and sum is rounded on
-// its own (build with -fmad=false), as the eager versions round.
-template <bool TIE_BY_ID = false>
+// row wins ties; rows are numbered from `base`. Every product and sum is
+// rounded on its own (build with -fmad=false), as the eager versions round.
 __device__ __forceinline__ void closest_sphere(
     const float* cx, const float* cy, const float* cz, const float* csr,
     const float* act, int count, int base, float ox, float oy, float oz,
     float dx, float dy, float dz, float a_q, float d_dot_o, float o_sq,
-    float inv_a, float t_min, float& best, int& win,
-    const float* table = nullptr) {
+    float inv_a, float t_min, float& best, int& win) {
   for (int k = 0; k < count; ++k) {
     if (!(act[k] > 0.0f)) continue;
     const float c0 = cx[k], c1 = cy[k], c2 = cz[k];
@@ -104,49 +98,6 @@ __device__ __forceinline__ void closest_sphere(
     if (root < best) {
       best = root;
       win = base + k;
-    } else if (TIE_BY_ID && root == best &&
-               table[(size_t)(base + k) * 32 + 31] < table[(size_t)win * 32 + 31]) {
-      win = base + k;  // best < BIG here, so win is a row
-    }
-  }
-}
-
-// closest_sphere against spheres moving on the linear shutter (K8), in the
-// Pallas megakernel's association (megakernel.py quad_t, l.595-616): at the
-// ray's shutter fraction w, with per-ray two_w = 2 w and w_sq = w w and the
-// rows' center deltas cd and s1 = c.cd - r rd, s2 = |cd|^2 - rd^2,
-//   c.d = (c.d) + w (cd.d),  c.o = (c.o) + w (cd.o),
-//   |c|^2 - r^2 = csr + two_w s1 + w_sq s2,
-// then closest_sphere's quadratic. A row replaces (best, win) only when
-// strictly nearer, so the lowest row wins ties.
-__device__ __forceinline__ void closest_sphere_moving(
-    const float* cx, const float* cy, const float* cz, const float* csr,
-    const float* act, const float* cdx, const float* cdy, const float* cdz,
-    const float* s1, const float* s2, int count, float ox, float oy,
-    float oz, float dx, float dy, float dz, float a_q, float d_dot_o,
-    float o_sq, float inv_a, float w, float two_w, float w_sq, float t_min,
-    float& best, int& win) {
-  for (int k = 0; k < count; ++k) {
-    if (!(act[k] > 0.0f)) continue;
-    const float c0 = cx[k], c1 = cy[k], c2 = cz[k];
-    const float e0 = cdx[k], e1 = cdy[k], e2 = cdz[k];
-    const float dck = (c0 * dx + c1 * dy + c2 * dz) + w * (e0 * dx + e1 * dy + e2 * dz);
-    const float ock = (c0 * ox + c1 * oy + c2 * oz) + w * (e0 * ox + e1 * oy + e2 * oz);
-    const float csrk = csr[k] + two_w * s1[k] + w_sq * s2[k];
-    const float h = dck - d_dot_o;
-    const float c_q = csrk - 2.0f * ock + o_sq;
-    const float disc = h * h - a_q * c_q;
-    if (!(disc >= 0.0f)) continue;
-    const float sq = sqrtf(disc);
-    const float root0 = (h - sq) * inv_a;
-    const float root1 = (h + sq) * inv_a;
-    const bool ok0 = (root0 > t_min) && (root0 < BIG);
-    const bool ok1 = (root1 > t_min) && (root1 < BIG);
-    if (!(ok0 || ok1)) continue;
-    const float root = ok0 ? root0 : root1;
-    if (root < best) {
-      best = root;
-      win = k;
     }
   }
 }

@@ -1,36 +1,32 @@
-// Persistent path-tracing megakernel for sphere scenes on Hopper: forward
-// mode (K1), record mode (K2), for big scenes both modes walking a
-// per-lane sphere BVH (K5) or, for big moving scenes, a BVH over boxes
-// swept over the shutter (K6, in place of the chunk-cull branch's
-// clusters), their motion variants (K8), and the triangle-BVH stage of
-// static and moving meshes (K7, K7 moving).
+// Persistent path-tracing megakernel on Hopper: one kernel, flat_kernel,
+// for every sphere and mesh scene the megakernel renders. Forward mode (K1)
+// and record mode (K2) over the brute sphere search, the walk of a static
+// big table's sphere tree (K5) or of a moving one's swept tree (K6, in place
+// of the chunk-cull branch's clusters), their motion variants (K8), and the
+// triangle-BVH stage of static and moving meshes (K7, K7 moving).
 //
-// Replaces crucible_tpu/ops/pallas/megakernel.py::_kernel for its sphere
-// branches in both of its modes, static ones and the animated (moving
-// spheres) and cam_animated (keyframed camera) ones:
+// Replaces crucible_tpu/ops/pallas/megakernel.py::_kernel in both of its
+// modes, with its static, animated (moving spheres and meshes) and
+// cam_animated (keyframed camera) variants:
 // - forward (run_megakernel, pallas_call at megakernel.py:1681): camera ray
 //   generation with jitter and defocus, the PCG4D counter hash, the
-//   closest-root sphere quadratic, the winner's attribute fetch, solid /
-//   checker-of-solid albedo, default sky, emission, and Lambertian / metal /
-//   dielectric / emissive scatter, accumulated into per-lane radiance sums;
+//   closest hit, the winner's attribute fetch, solid / checker-of-solid
+//   albedo, default sky, emission, and Lambertian / metal / dielectric /
+//   emissive scatter, accumulated into per-lane radiance sums;
 // - record (run_megakernel_record, pallas_call at megakernel.py:1828): each
 //   lane traces one (pixel, sample) path and writes one packed decision word
 //   per bounce (winner id * 256 + flag byte, models/replay.py layout); the
 //   fused variant also accumulates that path's radiance from bounce
 //   smem[4] on.
-// The closest hit is the brute search over every table row (the branch at
-// megakernel.py:804-830; K1, K2, K8), the walk of the sphere BVH (the
-// n_sph_nodes branch, megakernel.py:618-803; K5) over the BVH-permuted
-// table, or the walk of the swept tree (K6, what the chunk-cull branch,
-// megakernel.py:831-960, computes) over the tree-permuted table; a walk's
-// record words de-permute the winner through table column 31.
-// K1, K2, K8 and K6 are flat_kernel, one flat loop over persistent lanes
-// (below); K5, K7, K7 moving, K8's camera on K5's walk and K8's brute
-// search beside K7 moving are one templated kernel, megakernel, a nested
-// sample / bounce loop (they go to the flat loop with K5 and K7 later): the
-// record flags only add the decision words and the walk flag only replaces
-// the search. Both share the camera (primary_ray) and the shading
-// (shade_bounce).
+// The closest sphere is the brute search over every active row (the branch
+// at megakernel.py:804-830; K1, K2, K8), or a walk over the tree-permuted
+// table: a static table's tree (K5, what the n_sph_nodes branch,
+// megakernel.py:618-803, computes) or a moving table's swept tree (K6, what
+// the chunk-cull branch, megakernel.py:831-960, computes); a walk's record
+// words de-permute the winner through table column 31. A mesh adds the
+// triangle stage after the brute sphere search (K7, megakernel.py from
+// l.962). The record flags only add the decision words; the camera
+// (primary_ray) and the shading (shade_bounce) are shared by all.
 //
 // K8, the motion variants (both modes; megakernel.py l.509-555, 588-616
 // and the shading lerp l.1309-1314). Each path draws its shutter fraction
@@ -38,150 +34,114 @@
 // number the staged path's camera draws, once when it starts:
 // - ANIMATED: spheres move on the linear shutter. The search adds
 //   w (cd.d) and w (cd.o) to its dot products and 2w s1 + w^2 s2 to
-//   |c|^2 - r^2 (moving_row, in common.cuh closest_sphere_moving's
-//   association; table columns 24-29), and the winner's center and radius
-//   are lerped for its normal and, in record mode, for the per-winner
-//   quadratic that picks F_ROOT1, so that every flag is the moving
-//   sphere's (megakernel.py l.1309-1313, 1459-1466);
+//   |c|^2 - r^2 (moving_row and moving_terms; table columns 24-29), and
+//   the winner's center and radius are lerped for its normal and, in record
+//   mode, for the per-winner quadratic that picks F_ROOT1, so that every
+//   flag is the moving sphere's (megakernel.py l.1309-1313, 1459-1466). A
+//   mesh of an animated scene moves too (K7 moving, below);
 // - CAM_ANIMATED: at each new sample the lane lerps look_from and look_at
 //   (cam slots 9-11 / 19-21 plus w times the deltas in 22-27) and rebuilds
 //   the basis, pixel00, du and dv with true divisions and the 1e-12 floor,
 //   operation for operation as camera.generate_rays does.
-// K5's sphere-BVH walk takes CAM_ANIMATED only: its boxes hold the spheres
-// at one time. Moving big tables walk K6's swept tree (below), whose boxes
-// hold them over the whole shutter. Record mode instantiates the same
-// variants as forward mode, each fused or not, except K6 over a static
-// table (forward only, which no route selects); its words are K2's layout,
-// with w drawn once per path for the camera and the search alike.
+// Every search (brute, K5's tree, K6's tree, the brute search beside a mesh)
+// takes either flag and both, in both modes, fused or not. K5's tree holds
+// the spheres at one time: a moving table walks K6's swept tree, whose
+// boxes hold them over the whole shutter.
 //
 // What bounds it on this card: per-thread FP32 work on the quadratic (about
 // 20 flops and a square root per row tested per bounce, ~40 moving; a walk
 // adds a slab test per node visited), with divergence at the material
-// branches and, in the nested loop, at path termination. Record mode adds
-// 4 bytes per bounce per lane of stores (row-major (D, R)).
+// branches and at the walks. Record mode adds 4 bytes per bounce per lane of
+// stores (row-major (D, R)).
 //
-// The flat loop (flat_kernel: K1, K2, K8's brute search, K6): persistent
-// lanes. Launched on as many blocks as stay resident (the wrapper sizes the
-// grid from the launch shape it queried once), each iteration of the one
-// loop, a lane with no path in flight starts its next sample (forward) or
-// takes its next path (record), drawing the path's w, then every lane runs
-// one closest-hit search and one bounce's shading, so a warp stays
-// converged at one search per iteration whatever bounce each lane is on: a
-// lane whose path ends no longer waits for the warp's longest path, as it
-// does in the nested sample / bounce loop. Lanes take work items from a
-// global counter, one atomicAdd per warp for its idle lanes, shared out in
-// lane order so that neighbouring lanes start on neighbouring pixels. A
-// forward item is one pixel's lane with all its samples in order on one
-// thread, so each sum is added in the order of the plain version, whichever
-// lane takes it. The winner's row is read from global memory by index (an
-// indexed load is exact, so the TPU's one-hot MXU fetch and its bf16 split
-// have no counterpart here). On a miss no row is read.
-// - The brute search (K1, K2, K8) stages each block's live rows once in
-//   shared memory (the wrapper orders the active rows first, in table
-//   order, with their table row ids; inactive rows are not staged): 16-byte
-//   (cx, cy, cz, |c|^2 - r^2) entries, and with ANIMATED a second 16-byte
-//   (cdx, cdy, cdz, s1) entry and s2, 36 bytes a row. It reads a row per
-//   broadcast LDS.128 (two and an LDS.32 moving) and tests four rows a
-//   step, strict '<' in row order, so ties still go to the lowest table row.
-// - K6 walks a per-lane BVH whose leaf boxes hold each active sphere at
-//   shutter open and close (ops/kernels/megakernel.py swept_tables: SAH,
-//   SWEPT_LEAF spheres a leaf, K5's layout), in place of the chunk-cull
-//   branch's 256-row clusters, nearer child first (tree_closest: the far
-//   child deferred with its entry distance on a TREE_STACK-entry stack;
-//   swept_tables builds no deeper tree and swept_inputs refuses one). The TPU
-//   kernel slab-tests each cluster box against a whole 512-lane tile, runs
-//   a cluster's quadratic under a lax.cond where any lane enters it and
-//   fetches the winner by one-hot contraction, all answers to the TPU's
-//   vector layout; a thread here tests only the nodes and leaves its own
-//   ray enters before its best t: on bouncing stress n7744 about 30 nodes
-//   and 30 rows a search, where the cluster walk tests about 1,500 rows
-//   (counted by the plain walks). The nodes sit in shared memory
-//   where they fit (36 bytes each: two 16-byte entries, lo x/y/z hi x and hi
-//   y/z first count, then the skip link), else they are read from global
-//   memory; the rows are read from global memory (L2), three LDG.128 a row:
-//   (cx, cy, cz, |c|^2 - r^2), (cdx, cdy, cdz, s1), (s2, original id, 0,
-//   0). A leaf row's root is K8's moving search (or, without ANIMATED, K1's
-//   static one), and an exact tie goes to the lower original id, so K6
-//   returns K8's (or K1's) brute search over the original table, bit for
-//   bit: the lexicographic least (t, id) does not depend on the order in
-//   which leaves are visited. Its records carry the original ids.
-//
-// K5-K8 in the nested loop: one thread per lane. The thread walks its
-// pixel's samples sample0..spp-1 (record mode: sample0 only) and, within
-// each sample, bounces until the path ends; the TPU kernel's lockstep
-// regeneration bookkeeping becomes this plain nested loop. The brute sphere
-// searches of K7 and K7 moving stage the intersection columns (center
-// x/y/z, |c|^2 - r^2, active, with ANIMATED the motion columns) once per
-// block in shared memory as SoA, every thread of a warp reading the same
-// row at the same time, which shared memory serves as a broadcast.
-//
-// The walk (K5) replaces the TPU's 16-node slab window, its scalar cursor
-// chase and its three-leaf batches with a stackless walk per thread over
-// the DFS skip links (ops/bvh.py): at node i a slab test of its box against
-// [t_min, best]; on a hit go on to i + 1 at an inner node, or test the
-// leaf's rows and go to miss[i]; on a miss go to miss[i]; stop at K. The
-// node boxes and [first, count, miss] sit in shared memory beside the
-// search columns. Threads of a warp stand at different nodes and leaves,
-// so these reads scatter over banks and leaves serialize: divergence is
-// the price of skipping rows.
-//
-// A walk returns what the brute search returns, bit for bit. A row's
-// root is the brute search's (common.cuh closest_sphere on the leaf's
-// rows), and an exact tie goes to the lower original row id (column 31),
-// as the brute search's strict '<' in row order gives it. The slab test is
-// conservative: each box is grown by SLAB_EPS * (1 + its largest
-// |coordinate|) on the host (ops/kernels/megakernel.py walk_inputs) and by
-// SLAB_EPS * the origin's largest |coordinate| here, which covers the
-// expanded quadratic's error on the hit point (up to ~1.7e-3 (|c| + |o|),
-// fault C6), so no leaf holding a winning root is skipped. K6's boxes are
-// grown alike: the moving quadratic's error on the hit point is that of the
-// static one at the center c + w cd, which lies in the leaf's box, a box
-// that holds the sphere at open and close holding it at every w between
-// (the wrapper checks that each leaf box holds its rows at open and close
-// and each parent box its children).
-//
-// K7, the triangle-BVH stage for static meshes (TRI; megakernel.py from
-// l.962: the Woop leaf test l.1079-1140, the winner's normal and material
-// l.1286-1299, 1318-1321, the record flags l.1472-1490), in forward mode
-// and in record mode, fused or not, after the brute static sphere search,
-// seen by a static or (CAM_ANIMATED) a keyframed camera. After the sphere search gives (best, win) the thread walks the
-// triangle BVH's DFS skip links alone, as K5 walks the sphere BVH: at node
-// i the slab test of its box against [t_min, tb] in the Pallas kernel's
-// arithmetic (no margin: the JAX package grows no triangle box); on a hit
-// at an inner node go on to i + 1, at a leaf run the Woop unit-triangle
-// test on its `count` rows (integrator.make_tri_tables: t = -o'_z / d'_z,
-// u = o'_x + t d'_x, v = o'_y + t d'_y after the row's affine map, d'_z
-// guarded at 1e-12) and go to miss[i]; on a miss go to miss[i]; stop at
-// K. A row replaces tb only when strictly nearer, so within a leaf the
-// lowest row wins a tie and across leaves the first in DFS order; tb starts
-// at the sphere stage's t, so a triangle wins only when strictly nearer
-// than every sphere. The winner's shading attributes are an indexed load
-// of its material's row of `mats` (sphere-table columns 6-23), its normal
-// the table's unit normal, flipped to face the ray; its record word holds
-// the leaf-order triangle id and F_TRI, and no F_ROOT1. The node boxes and
-// [first, count, miss] sit in shared memory beside the sphere columns (the
-// wrapper refuses a tree that does not fit); the Woop rows (64 bytes each)
-// are read from global memory, where a mesh of a few thousand triangles
-// stays in L2. The TPU kernel's 16-node window, multi-leaf chase, packed
-// hit mask and one-hot material fetch answer the TPU's vector layout and
-// have no counterpart here.
-//
-// K7 moving, the same stage over a mesh on the linear shutter (TRI with
-// ANIMATED: every mesh of an animated scene moves, its rows in the (M, 32)
-// Möller–Trumbore layout of integrator.make_tri_tables; megakernel.py
-// l.1141-1240, the normalization l.1280-1284, set at l.1675 / l.1822). The
-// walk is K7's over boxes that hold each triangle at shutter open and
-// close; at a leaf row the thread lerps the edges and v0 to the path's
-// shutter fraction w (the one K8's moving spheres use: e1 + w e1d, e2 + w
-// e2d, o - (v0 + w v0d)) and runs Möller–Trumbore on them, |det| > 1e-8,
-// in the Pallas kernel's association term by term. A row replaces tb only
-// when strictly nearer, as in K7. The winner carries the unnormalized
-// cross of its lerped edges (the table's normal is stale under motion),
-// normalized once after the walk with 1 / max(|n|, 1e-20); its material id
-// is column 12. The rows are read from global memory (128 bytes each, of
-// which the test reads 19 floats); the node boxes and [first, count, miss]
-// sit in shared memory beside the moving sphere rows' ten columns. K7 (both
-// layouts) also takes CAM_ANIMATED, K8's camera.
+// The flat loop: persistent lanes. Launched on as many blocks as stay
+// resident (the wrapper sizes the grid from the launch shape it queried
+// once), each iteration of the one loop, a lane with no path in flight
+// starts its next sample (forward) or takes its next path (record), drawing
+// the path's w, then every lane runs one closest-hit search and one
+// bounce's shading, so a warp stays converged at one search per iteration
+// whatever bounce each lane is on: a lane whose path ends does not wait for
+// the warp's longest path. Lanes take work items from a global counter, one
+// atomicAdd per warp for its idle lanes, shared out in lane order so that
+// neighbouring lanes start on neighbouring pixels. A forward item is one
+// pixel's lane with all its samples in order on one thread, so each sum is
+// added in the order of the plain version, whichever lane takes it. The
+// winner's row is read from global memory by index (an indexed load is
+// exact, so the TPU's one-hot MXU fetch and its bf16 split have no
+// counterpart here). On a miss no row is read.
+// - The brute search (K1, K2, K8, and beside a mesh) stages each block's
+//   live rows once in shared memory (the wrapper orders the active rows
+//   first, in table order, with their table row ids; inactive rows are not
+//   staged): 16-byte (cx, cy, cz, |c|^2 - r^2) entries, and with ANIMATED a
+//   second 16-byte (cdx, cdy, cdz, s1) entry and s2, 36 bytes a row. It
+//   reads a row per broadcast LDS.128 (two and an LDS.32 moving) and tests
+//   four rows a step, strict '<' in row order, so ties still go to the
+//   lowest table row.
+// - K5 and K6 (TREE) walk a per-lane BVH of the active spheres
+//   (ops/kernels/megakernel.py swept_tables: SAH, SWEPT_LEAF spheres a
+//   leaf; K6's leaf boxes hold each sphere at shutter open and close, K5's
+//   at its one position), nearer child first (tree_closest: the far child
+//   deferred with its entry distance on a TREE_STACK-entry stack;
+//   swept_tables builds no deeper tree and swept_inputs refuses one). The
+//   TPU kernel walks its sphere BVH at leaves of 128 rows (one vector tile)
+//   in a 16-node slab window with a scalar cursor chase, and tests the
+//   chunk-cull branch's 256-row clusters against whole 512-lane tiles,
+//   fetching the winner by one-hot contraction, all answers to the TPU's
+//   vector layout; a thread here tests only the nodes and leaves its own ray
+//   enters before its best t: on bouncing stress n7744 about 30 nodes and
+//   25 rows a search, where the cluster walk tests about 1,500 rows
+//   (counted by the plain walks). The nodes sit in shared memory where
+//   they fit (36 bytes each: two 16-byte entries, lo x/y/z hi x and hi y/z
+//   first count, then the skip link), else they are read from global
+//   memory; the rows are read from global memory (L2): K5's one LDG.128 a
+//   row, (cx, cy, cz, |c|^2 - r^2); K6's three, that, (cdx, cdy, cdz, s1)
+//   and (s2, original id, 0, 0). A leaf row's root is K1's static search
+//   (K5) or K8's moving one (K6), and an exact tie goes to the lower
+//   original id, so the walk returns K1's (or K8's) brute search over the
+//   original table, bit for bit: the lexicographic least (t, id) does not
+//   depend on the order in which leaves are visited. Its records carry the
+//   original ids.
+// - K7 (TRI; megakernel.py from l.962: the Woop leaf test l.1079-1140, the
+//   winner's normal and material l.1286-1299, 1318-1321, the record flags
+//   l.1472-1490) walks the mesh's triangle BVH after the brute sphere
+//   search, over its DFS skip links as the TPU kernel's walk and the plain
+//   version do (tri_closest), from the sphere stage's t: the slab test in
+//   the Pallas kernel's arithmetic (no margin: the JAX package grows no
+//   triangle box), at a leaf the Woop unit-triangle test on its rows
+//   (integrator.make_tri_tables: t = -o'_z / d'_z, u = o'_x + t d'_x, v =
+//   o'_y + t d'_y after the row's affine map, d'_z guarded at 1e-12), three
+//   LDG.128 of the row's 16 floats, the ones the test reads. A triangle
+//   replaces the bound only when strictly nearer, so within a leaf the
+//   lowest row wins a tie and across leaves the first in DFS order; the
+//   bound starts at the sphere stage's t, so a triangle wins only when
+//   strictly nearer than every sphere. The order is kept: with boxes that
+//   are not grown, a hit on an edge shared by triangles of two leaves can
+//   lie an ulp before its leaf box's computed entry, and a walk that meets
+//   the leaves in another order (nearer child first, measured) prunes such
+//   a leaf where the DFS walk visits it, and returns another triangle on
+//   such a ray (torus_teapot's 1080p 32 spp d50 launch, in an A/B of the
+//   two orders, tools/torch_static_ab.py). The winner's shading
+//   attributes are an indexed load of its material's row of `mats`
+//   (sphere-table columns 6-23), its normal the table's unit normal,
+//   flipped to face the ray; its record word holds the leaf-order triangle
+//   id and F_TRI, and no F_ROOT1. The nodes (K6's layout, boxes not grown)
+//   are read from global memory (L2): staged in shared memory after the
+//   brute search's rows, torus_teapot's 3,159 (113.7 KB) left room for 2
+//   blocks an SM against 4, and the launch took 29% longer (measured).
+// - K7 moving (TRI with ANIMATED: every mesh of an animated scene moves,
+//   megakernel.py l.1141-1240, the normalization l.1280-1284, set at l.1675
+//   / l.1822): the same walk over boxes that hold each triangle at shutter
+//   open and close; at a leaf row the thread lerps the edges and v0 to the
+//   path's shutter fraction w (e1 + w e1d, e2 + w e2d, o - (v0 + w v0d)) and
+//   runs Möller–Trumbore on them, |det| > 1e-8, in the Pallas kernel's
+//   association term by term. The wrapper packs the 18 floats the test reads
+//   into five 16-byte entries a row (moving_tri_rows). The winner carries the
+//   unnormalized cross of its lerped edges (the table's normal is stale
+//   under motion), normalized once after the walk with 1 / max(|n|, 1e-20);
+//   its material id is column 12 of its (M, 32) row.
+// The TPU kernel's 16-node window, multi-leaf chase, packed hit mask and
+// one-hot material fetch answer the TPU's vector layout and have no
+// counterpart here.
 //
 // Numerics: every literal is float32 and the arithmetic follows the Pallas
 // kernel's association operation for operation. Build with -fmad=false and
@@ -206,161 +166,32 @@ using namespace crucible;
 
 constexpr int C_IN = 32;           // table columns (sphere_shade.py layout)
 constexpr int COL_ID = 31;         // the table's original row id
-constexpr int SMEM_COLS = 5;       // staged columns: cx, cy, cz, csr, active
-constexpr int MOTION_COLS = 5;     // and with ANIMATED: cd x/y/z, s1, s2
-constexpr int NODE_COLS = 6;       // staged per node: box lo x/y/z, hi x/y/z
-constexpr int META_COLS = 3;       // staged per node: first, count, miss
 constexpr int TRI_COLS = 16;       // Woop row: a0, a1, a2, b, unit normal, mat id
 constexpr int TRI_MOVING_COLS = 32;  // moving row: v0, e1, e2, n, mat id, 0, v0d, e1d, e2d
+constexpr int MOVING_TRI_ENTRIES = 5;  // 16-byte entries of a packed moving row
 constexpr int MAT_COLS = 24;       // material row: sphere-table columns 6-23, ...
-constexpr int WALK_BLOCK = 256;    // threads per block, the nested loop (8 warps)
-constexpr int BRUTE_BLOCK = 128;   // threads per block, flat brute search (4 warps)
-constexpr int TREE_BLOCK = 256;    // threads per block, flat tree walk (K6, 8 warps)
-constexpr int TREE_STACK = 64;     // K6's deferred far children: its tree at most this deep
+constexpr int BRUTE_BLOCK = 128;   // threads per block, the brute search (4 warps)
+constexpr int TREE_BLOCK = 256;    // threads per block, a walk (K5, K6, K7; 8 warps)
+constexpr int TREE_STACK = 64;     // a walk's deferred far children: its tree at most this deep
+constexpr int NODE_BYTES = 36;     // a walk's node: two 16-byte entries and the skip link
 constexpr int MAX_SMEM = 232448;   // dynamic shared memory a block can take
 constexpr unsigned FULL_WARP = 0xffffffffu;
 constexpr int NO_SAMPLE = 1 << 30;  // sample0 of a padding lane
-constexpr float SLAB_EPS = 4e-3f;  // the walk's slab margin (see above)
+constexpr float SLAB_EPS = 4e-3f;  // the sphere walks' slab margin (see below)
 
-// Shared-memory views of what a block stages.
-struct Staged {
-  const float *cx, *cy, *cz, *csr, *act;  // (n,) search columns
-  const float *cdx, *cdy, *cdz, *s1, *s2;  // (n,) motion columns (ANIMATED)
-  const float* node;                      // (k, NODE_COLS) grown boxes (WALK)
-  const int* meta;                        // (k, META_COLS)
-  const float* tnode;                     // (kt, NODE_COLS) triangle boxes (TRI)
-  const int* tmeta;                       // (kt, META_COLS)
-  int n, k, kt;
-};
+// A sphere walk's slab test is conservative: each box is grown by SLAB_EPS
+// * (1 + its largest |coordinate|) on the host (ops/kernels/megakernel.py
+// swept_inputs) and by SLAB_EPS * the origin's largest |coordinate| here,
+// which covers the expanded quadratic's error on the hit point (up to
+// ~1.7e-3 (|c| + |o|), fault C6), so no leaf holding a winning root is
+// skipped. The moving quadratic's error on the hit point is that of the
+// static one at the center c + w cd, which lies in the leaf's box, a box
+// that holds the sphere at open and close holding it at every w between
+// (the wrapper checks that each leaf box holds its rows at open and close
+// and each parent box its children).
 
 __device__ __forceinline__ float safe_inv(float v) {
   return 1.0f / (fabsf(v) < 1e-30f ? (v >= 0.0f ? 1e-30f : -1e-30f) : v);
-}
-
-// K7's closest triangle (see the note above): walks the triangle BVH from
-// the sphere stage's t in `tb`, lowering it and setting `tid` (a row of
-// `tris`, leaf order) wherever a triangle is strictly nearer. MOVING (K7
-// moving): the rows are the (M, 32) layout, each lerped to the path's
-// shutter fraction `w`, and (nx, ny, nz) receives the winner's unnormalized
-// lerped-edge cross.
-template <bool MOVING>
-__device__ __forceinline__ void tri_closest(
-    const Staged& s, const float* __restrict__ tris, float ox, float oy,
-    float oz, float dx, float dy, float dz, float w, float t_min, float& tb,
-    int& tid, float& nx, float& ny, float& nz) {
-  const float ivx = safe_inv(dx), ivy = safe_inv(dy), ivz = safe_inv(dz);
-  int i = 0;
-  while (i < s.kt) {
-    const float* b = s.tnode + i * NODE_COLS;
-    const int* m = s.tmeta + i * META_COLS;
-    const float t0x = (b[0] - ox) * ivx;
-    const float t1x = (b[3] - ox) * ivx;
-    const float t0y = (b[1] - oy) * ivy;
-    const float t1y = (b[4] - oy) * ivy;
-    const float t0z = (b[2] - oz) * ivz;
-    const float t1z = (b[5] - oz) * ivz;
-    const float enter = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                              fmaxf(fminf(t0z, t1z), t_min));
-    const float exitv = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                              fminf(fmaxf(t0z, t1z), tb));
-    if (enter <= exitv) {
-      const int count = m[1];
-      if (count == 0) {  // inner node: its left child is next
-        ++i;
-        continue;
-      }
-      const int first = m[0];
-      for (int q = first; q < first + count; ++q) {
-        if (MOVING) {
-          const float* r = tris + (size_t)q * TRI_MOVING_COLS;
-          const float e1x = r[3] + w * r[19];
-          const float e1y = r[4] + w * r[20];
-          const float e1z = r[5] + w * r[21];
-          const float e2x = r[6] + w * r[22];
-          const float e2y = r[7] + w * r[23];
-          const float e2z = r[8] + w * r[24];
-          const float pvx = dy * e2z - dz * e2y;
-          const float pvy = dz * e2x - dx * e2z;
-          const float pvz = dx * e2y - dy * e2x;
-          const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-          if (!(fabsf(det) > 1e-8f)) continue;  // parallel to the plane
-          const float invd = 1.0f / det;
-          const float tvx = ox - (r[0] + w * r[16]);
-          const float tvy = oy - (r[1] + w * r[17]);
-          const float tvz = oz - (r[2] + w * r[18]);
-          const float uu = (tvx * pvx + tvy * pvy + tvz * pvz) * invd;
-          const float qvx = tvy * e1z - tvz * e1y;
-          const float qvy = tvz * e1x - tvx * e1z;
-          const float qvz = tvx * e1y - tvy * e1x;
-          const float vv = (dx * qvx + dy * qvy + dz * qvz) * invd;
-          const float th = (e2x * qvx + e2y * qvy + e2z * qvz) * invd;
-          if (uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f && th > t_min && th < tb) {
-            tb = th;
-            tid = q;
-            nx = e1y * e2z - e1z * e2y;
-            ny = e1z * e2x - e1x * e2z;
-            nz = e1x * e2y - e1y * e2x;
-          }
-          continue;
-        }
-        const float* wr = tris + (size_t)q * TRI_COLS;
-        const float dpz = wr[6] * dx + wr[7] * dy + wr[8] * dz;
-        if (!(fabsf(dpz) > 1e-12f)) continue;  // parallel to the plane
-        const float opz = wr[6] * ox + wr[7] * oy + wr[8] * oz + wr[11];
-        const float th = -opz * (1.0f / dpz);
-        if (!(th > t_min && th < tb)) continue;
-        const float opx = wr[0] * ox + wr[1] * oy + wr[2] * oz + wr[9];
-        const float dpx = wr[0] * dx + wr[1] * dy + wr[2] * dz;
-        const float uu = opx + th * dpx;
-        const float opy = wr[3] * ox + wr[4] * oy + wr[5] * oz + wr[10];
-        const float dpy = wr[3] * dx + wr[4] * dy + wr[5] * dz;
-        const float vv = opy + th * dpy;
-        if (uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f) {
-          tb = th;
-          tid = q;
-        }
-      }
-    }
-    i = m[2];
-  }
-}
-
-// K5's closest hit: the stackless skip-link walk (see the note above) ->
-// (best, win), win a row of the permuted table, -1 on a miss.
-__device__ __forceinline__ void walk_closest(
-    const Staged& s, const float* __restrict__ table, float ox, float oy,
-    float oz, float dx, float dy, float dz, float a_q, float d_dot_o,
-    float o_sq, float inv_a, float t_min, float& best, int& win) {
-  const float ivx = safe_inv(dx), ivy = safe_inv(dy), ivz = safe_inv(dz);
-  const float pr = SLAB_EPS * fmaxf(fmaxf(fabsf(ox), fabsf(oy)), fabsf(oz));
-  int i = 0;
-  while (i < s.k) {
-    const float* b = s.node + i * NODE_COLS;
-    const int* m = s.meta + i * META_COLS;
-    const float t0x = ((b[0] - pr) - ox) * ivx;
-    const float t1x = ((b[3] + pr) - ox) * ivx;
-    const float t0y = ((b[1] - pr) - oy) * ivy;
-    const float t1y = ((b[4] + pr) - oy) * ivy;
-    const float t0z = ((b[2] - pr) - oz) * ivz;
-    const float t1z = ((b[5] + pr) - oz) * ivz;
-    const float enter = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                              fmaxf(fminf(t0z, t1z), t_min));
-    const float exitv = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                              fminf(fmaxf(t0z, t1z), best));
-    if (enter <= exitv) {
-      const int count = m[1];
-      if (count == 0) {  // inner node: its left child is next
-        ++i;
-        continue;
-      }
-      const int first = m[0];
-      closest_sphere<true>(s.cx + first, s.cy + first, s.cz + first,
-                           s.csr + first, s.act + first, count, first, ox,
-                           oy, oz, dx, dy, dz, a_q, d_dot_o, o_sq, inv_a,
-                           t_min, best, win, table);
-    }
-    i = m[2];
-  }
 }
 
 // The primary ray of sample `smp` of pixel (fi, fj): jitter and defocus
@@ -660,225 +491,6 @@ __device__ __forceinline__ bool shade_bounce(
   return true;
 }
 
-// One lane's paths in the nested loop: K5, K7, K7 moving (K1, K2, K8's
-// brute search and K6 run flat_kernel below). RECORD: one path per lane,
-// decision words to `rec` (D, R). RADIANCE: accumulate radiance into `out`
-// (3, R); in record mode only from bounce smem[4] on. Forward mode is
-// <false, true>. WALK: the closest hit walks the sphere BVH (K5) over the
-// permuted table, static or with CAM_ANIMATED. ANIMATED, CAM_ANIMATED: K8's
-// moving spheres and keyframed camera. TRI: K7's triangle stage after the
-// brute sphere search (`tris`, `mats`); with ANIMATED the mesh moves too (K7
-// moving, the (M, 32) rows).
-template <bool RECORD, bool RADIANCE, bool WALK, bool ANIMATED, bool CAM_ANIMATED,
-          bool TRI>
-__device__ __forceinline__ void trace_lane(
-    int lane, const Staged& s, const int32_t* __restrict__ smem,
-    const int32_t* __restrict__ pix_in, const int32_t* __restrict__ sample0,
-    const float* __restrict__ cam, const float* __restrict__ table,
-    const float* __restrict__ tris, const float* __restrict__ mats, int r,
-    float t_min, float* __restrict__ out, int32_t* __restrict__ rec) {
-  static_assert(!(TRI && WALK), "K7 runs beside the brute sphere search only");
-  static_assert(WALK || TRI,
-                "the brute search alone (K1, K2, K8) runs flat_kernel's flat loop");
-  static_assert(!(WALK && ANIMATED),
-                "a moving table walks K6's swept tree in flat_kernel: K5's boxes hold "
-                "the spheres at one time");
-  const int spp = smem[0];
-  const uint32_t seed = (uint32_t)smem[1];
-  const int width = smem[2];
-  const int max_depth = smem[3];
-  const int accum_from = RECORD ? smem[4] : 0;
-
-  const int pix = pix_in[lane];
-  const uint32_t upix = (uint32_t)pix;
-  const float fi = (float)(pix % width);
-  const float fj = (float)(pix / width);
-
-  float ax = 0.0f, ay = 0.0f, az = 0.0f;
-  // Record rows written so far; the rest are zeroed after the path ends.
-  int rows = 0;
-
-  // Record mode issues one path (sample0 itself); padding lanes none.
-  const int s0 = sample0[lane];
-  const int s_end = RECORD ? (s0 < NO_SAMPLE ? s0 + 1 : s0) : spp;
-  for (int smp = s0; smp < s_end; ++smp) {
-    // --- the path's shutter fraction (K8) ----------------------------------
-    float w = 0.0f;
-    if (ANIMATED || CAM_ANIMATED) {
-      w = uniform4(upix, (uint32_t)smp, STREAM_TIME, seed).x;
-    }
-    float ox, oy, oz, dx, dy, dz;
-    primary_ray<CAM_ANIMATED>(cam, upix, fi, fj, (uint32_t)smp, seed, w, ox, oy, oz,
-                              dx, dy, dz);
-    float tx = 1.0f, ty = 1.0f, tz = 1.0f;
-
-    for (int bounce = 0;; ++bounce) {
-      // --- closest sphere: expanded quadratic, lowest row wins ties ---------
-      const float a_q = dx * dx + dy * dy + dz * dz;
-      const float d_dot_o = dx * ox + dy * oy + dz * oz;
-      const float o_sq = ox * ox + oy * oy + oz * oz;
-      const float inv_a = 1.0f / a_q;
-      float best = BIG;
-      int win = -1;
-      if (WALK) {
-        walk_closest(s, table, ox, oy, oz, dx, dy, dz, a_q, d_dot_o, o_sq, inv_a,
-                     t_min, best, win);
-      } else if (ANIMATED) {
-        closest_sphere_moving(s.cx, s.cy, s.cz, s.csr, s.act, s.cdx, s.cdy,
-                              s.cdz, s.s1, s.s2, s.n, ox, oy, oz, dx, dy, dz,
-                              a_q, d_dot_o, o_sq, inv_a, w, 2.0f * w, w * w,
-                              t_min, best, win);
-      } else {
-        closest_sphere(s.cx, s.cy, s.cz, s.csr, s.act, s.n, 0, ox, oy, oz, dx,
-                       dy, dz, a_q, d_dot_o, o_sq, inv_a, t_min, best, win);
-      }
-
-      // --- K7: the mesh's closest triangle, strictly nearer -----------------
-      int tid = -1;
-      float tnx = 0.0f, tny = 0.0f, tnz = 0.0f;  // K7 moving: the winner's cross
-      if (TRI) {
-        tri_closest<ANIMATED>(s, tris, ox, oy, oz, dx, dy, dz, w, t_min, best, tid,
-                              tnx, tny, tnz);
-      }
-
-      int32_t word = 0;
-      const bool more = shade_bounce<RECORD, RADIANCE, WALK, ANIMATED, TRI>(
-          table, tris, mats, upix, (uint32_t)smp, seed, bounce,
-          !RECORD || bounce >= accum_from, max_depth, t_min, w, a_q, inv_a, best, win,
-          tid, tnx, tny, tnz, ox, oy, oz, dx, dy, dz, tx, ty, tz, ax, ay, az, word);
-      if (RECORD) rec[(size_t)(rows++) * r + lane] = word;
-      if (!more) break;
-    }
-  }
-
-  if (RECORD) {
-    // Rows after the path's end stay zero (F_ALIVE clear).
-    for (; rows < max_depth; ++rows) rec[(size_t)rows * r + lane] = 0;
-  }
-  out[lane] = ax;
-  out[(size_t)r + lane] = ay;
-  out[2 * (size_t)r + lane] = az;
-}
-
-// The acceleration structures the nested loop walks: the sphere BVH
-// (WALK, K5) over the permuted table, and a mesh's triangle BVH with its
-// rows (Woop, or the moving layout with ANIMATED) and material rows (TRI).
-// Unused pointers are null and counts 0.
-struct Trees {
-  const float* nodes;     // (k, 6) grown sphere-node boxes
-  const int32_t* meta;    // (k, 3) first, count, miss
-  const float* tnodes;    // (kt, 6) triangle-node boxes
-  const int32_t* tmeta;   // (kt, 3) first, count, miss
-  const float* tris;      // (M, 16) Woop or (M, 32) moving rows, leaf order
-  const float* mats;      // (NM, 24) material rows
-  int k, kt;
-};
-
-template <bool RECORD, bool RADIANCE, bool WALK, bool ANIMATED, bool CAM_ANIMATED,
-          bool TRI, int NT>
-__global__ void __launch_bounds__(NT) megakernel(
-    const int32_t* __restrict__ smem,     // (8,) [spp, seed, width, max_depth, accum_from, ...]
-    const int32_t* __restrict__ pix_in,   // (R,) pixel ids
-    const int32_t* __restrict__ sample0,  // (R,) first sample (2^30 = padding)
-    const float* __restrict__ cam,        // (48,) camera constants
-    const float* __restrict__ table,      // (N, 32) sphere attribute table
-    const Trees trees, int n, int r, float t_min,
-    float* __restrict__ out,              // (3, R) radiance sums
-    int32_t* __restrict__ rec) {          // (max_depth, R) records (RECORD only)
-  constexpr int COLS = ANIMATED ? SMEM_COLS + MOTION_COLS : SMEM_COLS;
-  extern __shared__ float sh[];
-  // The search columns in shared memory, one after another: cx, cy, cz,
-  // csr, active, and with ANIMATED cd x/y/z, s1, s2.
-  for (int q = threadIdx.x; q < n; q += blockDim.x) {
-    const float* row = table + (size_t)q * C_IN;
-    sh[q] = row[0];
-    sh[n + q] = row[1];
-    sh[2 * n + q] = row[2];
-    sh[3 * n + q] = row[4];
-    sh[4 * n + q] = row[5];
-    if (ANIMATED) {
-      sh[5 * n + q] = row[24];
-      sh[6 * n + q] = row[25];
-      sh[7 * n + q] = row[26];
-      sh[8 * n + q] = row[28];
-      sh[9 * n + q] = row[29];
-    }
-  }
-  const int k = WALK ? trees.k : 0;
-  const int kt = TRI ? trees.kt : 0;
-  float* s_node = sh + COLS * n;
-  int* s_meta = (int*)(s_node + NODE_COLS * k);
-  float* s_tnode = (float*)(s_meta + META_COLS * k);
-  int* s_tmeta = (int*)(s_tnode + NODE_COLS * kt);
-  if (WALK) {
-    for (int q = threadIdx.x; q < k * NODE_COLS; q += blockDim.x) s_node[q] = trees.nodes[q];
-    for (int q = threadIdx.x; q < k * META_COLS; q += blockDim.x) s_meta[q] = trees.meta[q];
-  }
-  if (TRI) {
-    for (int q = threadIdx.x; q < kt * NODE_COLS; q += blockDim.x) s_tnode[q] = trees.tnodes[q];
-    for (int q = threadIdx.x; q < kt * META_COLS; q += blockDim.x) s_tmeta[q] = trees.tmeta[q];
-  }
-  __syncthreads();
-  const Staged s{sh,          sh + n,      sh + 2 * n,  sh + 3 * n, sh + 4 * n,
-                 sh + 5 * n,  sh + 6 * n,  sh + 7 * n,  sh + 8 * n, sh + 9 * n,
-                 s_node,      s_meta,      s_tnode,     s_tmeta,    n,
-                 k,           kt};
-
-  const int lane = blockIdx.x * NT + threadIdx.x;
-  if (lane < r) {
-    trace_lane<RECORD, RADIANCE, WALK, ANIMATED, CAM_ANIMATED, TRI>(
-        lane, s, smem, pix_in, sample0, cam, table, trees.tris, trees.mats, r, t_min,
-        out, rec);
-  }
-}
-
-// The nested loop stages the search columns of every row and its nodes.
-int smem_bytes(int n, int k, bool animated, int kt) {
-  const int cols = animated ? SMEM_COLS + MOTION_COLS : SMEM_COLS;
-  return n * cols * (int)sizeof(float) +
-         (k + kt) * (NODE_COLS * (int)sizeof(float) + META_COLS * (int)sizeof(int));
-}
-
-template <bool RECORD, bool RADIANCE, bool WALK, bool ANIMATED = false,
-          bool CAM_ANIMATED = false, bool TRI = false>
-int launch(const int32_t* smem, const int32_t* pix, const int32_t* sample0,
-           const float* cam, const float* table, const Trees& trees, int n, int r,
-           float t_min, float* out, int32_t* rec, void* stream) {
-  constexpr int NT = WALK_BLOCK;
-  auto kernel = megakernel<RECORD, RADIANCE, WALK, ANIMATED, CAM_ANIMATED, TRI, NT>;
-  const int bytes = smem_bytes(n, WALK ? trees.k : 0, ANIMATED, TRI ? trees.kt : 0);
-  if (bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int grid = (r + NT - 1) / NT;
-  if (grid > 0) {
-    kernel<<<grid, NT, bytes, (cudaStream_t)stream>>>(smem, pix, sample0, cam, table,
-                                                      trees, n, r, t_min, out, rec);
-  }
-  return (int)cudaGetLastError();
-}
-
-// --- The flat loop: K1, K2, K8's brute search and K6 ---------------------
-
-// What flat_kernel reads beside the table (ops/kernels/megakernel.py
-// _flat_args). The brute search: its rows' entries, the active rows first
-// in table order (16 bytes a row, 48 with ANIMATED), their table row ids and
-// the count of active rows. K6: the tree's rows in the permuted table's
-// order (48 bytes a row), its K nodes (two 16-byte entries a node: grown
-// box lo x/y/z and hi x; hi y/z, first and count as int bits) and skip
-// links. Both: the work counter the launch zeroes.
-struct Flat {
-  const float4* rows;    // (N,) or (N, 3) row entries (see above)
-  const int32_t* ids;    // brute: (N,) each entry's table row
-  const int32_t* live;   // brute: (1,) the active rows, entries [0, live)
-  const float4* nodes;   // K6: (K, 2) node entries
-  const int32_t* miss;   // K6: (K,) skip links
-  int32_t* next;         // (1,) the next work item to hand out
-  int k;                 // K6's node count, 0 for the brute search
-};
-
 // One staged row against the ray, in closest_sphere's arithmetic; the
 // entry replaces (best, k_win) only when strictly nearer.
 __device__ __forceinline__ void brute_row(const float4 c, int k, float ox, float oy,
@@ -960,21 +572,23 @@ __device__ __forceinline__ void moving_terms(const float4 c, const float4 m, flo
   c_q = csrk - 2.0f * ock + o_sq;
 }
 
-// K6's closest hit over the swept tree (see the note at the top) -> (best,
-// win), win a row of the permuted table, -1 on a miss. At an inner node
-// the walk slab-tests both children and goes on to the one it enters
+// K5's and K6's closest hit over a tree of spheres (see the note at the
+// top) -> (best, win), win a row of the permuted table, -1 on a miss. At an
+// inner node the walk slab-tests both children and goes on to the one it enters
 // first, deferring the other with its entry distance on a stack of
 // TREE_STACK entries, one at most a level of a tree at most that deep
 // (swept_inputs checks it); after a leaf (or where it enters neither) it
 // resumes at the most recently deferred child whose entry is not past the
 // best hit so far (the box test's exit is min(box exit, best), so "entry
 // <= best" is the test repeated). A leaf row's root is the moving search's
-// at w (ANIMATED) or the static one's; it replaces the best where strictly
-// nearer or, at an exact tie, where its original id is lower, so any visit
-// order gives the least (t, original id).
+// at w (ANIMATED: K6, three 16-byte entries a row) or the static one's (K5,
+// one entry a row); it replaces the best where strictly nearer or, at an
+// exact tie, where its original id is lower, so any visit order gives the
+// least (t, original id).
 template <bool ANIMATED>
 __device__ __forceinline__ void tree_closest(
-    const float4* nodes, const int32_t* miss, int k, const float4* __restrict__ rows, float ox, float oy, float oz, float dx, float dy,
+    const float4* nodes, const int32_t* miss, int k, const float4* __restrict__ rows,
+    const float* __restrict__ table, float ox, float oy, float oz, float dx, float dy,
     float dz, float a_q, float d_dot_o, float o_sq, float inv_a, float w, float t_min,
     float& best, int& win) {
   const float ivx = safe_inv(dx), ivy = safe_inv(dy), ivz = safe_inv(dz);
@@ -996,14 +610,22 @@ __device__ __forceinline__ void tree_closest(
                               fminf(fmaxf(t0z, t1z), best));
     return enter <= exitv;
   };
+  // Whether row q (original id row_id in a moving row's third entry) has a
+  // lower original id than the winner so far; a static row's id is read
+  // from the table, at an exact tie only.
+  auto lower = [&](int q, float row_id) {
+    if (ANIMATED) return row_id < win_id;
+    return __ldg(table + (size_t)q * C_IN + COL_ID) < __ldg(table + (size_t)win * C_IN + COL_ID);
+  };
   auto leaf = [&](int first, int count) {
     for (int q = first; q < first + count; ++q) {
-      const float4 c = __ldg(rows + 3 * q);
-      const float4 e = __ldg(rows + 3 * q + 2);
-      float h, c_q;
+      const float4 c = __ldg(rows + (ANIMATED ? 3 : 1) * q);
+      float h, c_q, row_id = 0.0f;
       if (ANIMATED) {
+        const float4 e = __ldg(rows + 3 * q + 2);
         moving_terms(c, __ldg(rows + 3 * q + 1), e.x, ox, oy, oz, dx, dy, dz, d_dot_o, o_sq,
                      w, two_w, w_sq, h, c_q);
+        row_id = e.y;
       } else {
         static_terms(c, ox, oy, oz, dx, dy, dz, d_dot_o, o_sq, h, c_q);
       }
@@ -1015,10 +637,10 @@ __device__ __forceinline__ void tree_closest(
         const bool ok0 = (root0 > t_min) && (root0 < BIG);
         const bool ok1 = (root1 > t_min) && (root1 < BIG);
         const float root = ok0 ? root0 : root1;
-        if ((ok0 || ok1) && (root < best || (root == best && e.y < win_id))) {
+        if ((ok0 || ok1) && (root < best || (root == best && lower(q, row_id)))) {
           best = root;
           win = q;
-          win_id = e.y;
+          win_id = row_id;
         }
       }
     }
@@ -1059,41 +681,165 @@ __device__ __forceinline__ void tree_closest(
   }
 }
 
+// K7's closest triangle over the mesh's BVH (see the note at the top): the
+// stackless walk of the DFS skip links, from the sphere stage's t in `tb`,
+// lowering it and setting `tid` (a row of `tris`, leaf order) wherever a
+// triangle is strictly nearer: at node i the slab test of its box against
+// [t_min, tb]; on a hit at an inner node go on to i + 1, at a leaf test its
+// rows and go to miss[i]; on a miss go to miss[i]; stop at K. `rows`: the
+// Woop rows themselves, (M, 16) float32 read as four 16-byte entries a row
+// of which the test reads three; MOVING (K7 moving): the packed moving rows,
+// five entries a row (v0 x/y/z, e1 x), (e1 y/z, e2 x/y), (e2 z, v0d x/y/z),
+// (e1d x/y/z, e2d x), (e2d y/z, material id, 0), each lerped to the path's
+// shutter fraction `w`; (nx, ny, nz) then receives the winner's unnormalized
+// lerped-edge cross.
+template <bool MOVING>
+__device__ __forceinline__ void tri_closest(
+    const float4* nodes, const int32_t* miss, int k, const float4* __restrict__ rows,
+    float ox, float oy, float oz, float dx, float dy, float dz, float w, float t_min,
+    float& tb, int& tid, float& nx, float& ny, float& nz) {
+  const float ivx = safe_inv(dx), ivy = safe_inv(dy), ivz = safe_inv(dz);
+  int i = 0;
+  while (i < k) {
+    const float4 a = nodes[2 * i], b = nodes[2 * i + 1];
+    const float t0x = (a.x - ox) * ivx;
+    const float t1x = (a.w - ox) * ivx;
+    const float t0y = (a.y - oy) * ivy;
+    const float t1y = (b.x - oy) * ivy;
+    const float t0z = (a.z - oz) * ivz;
+    const float t1z = (b.y - oz) * ivz;
+    const float enter = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                              fmaxf(fminf(t0z, t1z), t_min));
+    const float exitv = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                              fminf(fmaxf(t0z, t1z), tb));
+    if (enter <= exitv) {
+      const int count = __float_as_int(b.w);
+      if (count == 0) {  // inner node: its left child is next
+        ++i;
+        continue;
+      }
+      const int first = __float_as_int(b.z);
+      for (int q = first; q < first + count; ++q) {
+        if (MOVING) {
+          const float4* r = rows + MOVING_TRI_ENTRIES * (size_t)q;
+          const float4 p0 = __ldg(r), p1 = __ldg(r + 1), p2 = __ldg(r + 2);
+          const float4 p3 = __ldg(r + 3), p4 = __ldg(r + 4);
+          const float e1x = p0.w + w * p3.x;
+          const float e1y = p1.x + w * p3.y;
+          const float e1z = p1.y + w * p3.z;
+          const float e2x = p1.z + w * p3.w;
+          const float e2y = p1.w + w * p4.x;
+          const float e2z = p2.x + w * p4.y;
+          const float pvx = dy * e2z - dz * e2y;
+          const float pvy = dz * e2x - dx * e2z;
+          const float pvz = dx * e2y - dy * e2x;
+          const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+          if (!(fabsf(det) > 1e-8f)) continue;  // parallel to the plane
+          const float invd = 1.0f / det;
+          const float tvx = ox - (p0.x + w * p2.y);
+          const float tvy = oy - (p0.y + w * p2.z);
+          const float tvz = oz - (p0.z + w * p2.w);
+          const float uu = (tvx * pvx + tvy * pvy + tvz * pvz) * invd;
+          const float qvx = tvy * e1z - tvz * e1y;
+          const float qvy = tvz * e1x - tvx * e1z;
+          const float qvz = tvx * e1y - tvy * e1x;
+          const float vv = (dx * qvx + dy * qvy + dz * qvz) * invd;
+          const float th = (e2x * qvx + e2y * qvy + e2z * qvz) * invd;
+          if (uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f && th > t_min && th < tb) {
+            tb = th;
+            tid = q;
+            nx = e1y * e2z - e1z * e2y;
+            ny = e1z * e2x - e1x * e2z;
+            nz = e1x * e2y - e1y * e2x;
+          }
+          continue;
+        }
+        const float4* r = rows + 4 * (size_t)q;  // a0 | a1, a2 x/y | a2 z, b
+        const float4 ra = __ldg(r), rb = __ldg(r + 1), rc = __ldg(r + 2);
+        const float dpz = rb.z * dx + rb.w * dy + rc.x * dz;
+        if (!(fabsf(dpz) > 1e-12f)) continue;  // parallel to the plane
+        const float opz = rb.z * ox + rb.w * oy + rc.x * oz + rc.w;
+        const float th = -opz * (1.0f / dpz);
+        if (!(th > t_min && th < tb)) continue;
+        const float opx = ra.x * ox + ra.y * oy + ra.z * oz + rc.y;
+        const float dpx = ra.x * dx + ra.y * dy + ra.z * dz;
+        const float uu = opx + th * dpx;
+        const float opy = ra.w * ox + rb.x * oy + rb.y * oz + rc.z;
+        const float dpy = ra.w * dx + rb.x * dy + rb.y * dz;
+        const float vv = opy + th * dpy;
+        if (uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f) {
+          tb = th;
+          tid = q;
+        }
+      }
+    }
+    i = miss[i];
+  }
+}
+
 // The flat loop's dynamic shared memory: the brute search's staged rows (a
 // 16-byte entry each, with ANIMATED 36 bytes), padded to a multiple of 4 of
-// the table's N rows; K6's K nodes (36 bytes each) where they fit, else
-// none (read from global memory).
+// the table's N rows; a sphere walk's K nodes where they fit, else none
+// (read from global memory).
 __host__ __device__ int flat_smem_bytes(bool animated, bool tree, int n, int k) {
   if (tree) {
-    const long bytes = (long)k * (2 * sizeof(float4) + sizeof(int32_t));
+    const long bytes = (long)k * NODE_BYTES;
     return bytes <= MAX_SMEM ? (int)bytes : 0;
   }
   const int n4 = (n + 3) & ~3;
   return n4 * (int)(animated ? 2 * sizeof(float4) + sizeof(float) : sizeof(float4));
 }
 
-// K1 (forward: RECORD false, RADIANCE true), K2 (record, fused or not), K8's
-// brute search (ANIMATED, CAM_ANIMATED) and K6 (TREE) in one flat loop over
-// persistent lanes (see the note at the top): each iteration, a lane with
-// no path in flight starts its item's next sample, then every lane with a
-// path runs one search and one bounce's shading. Items are handed out by
-// the work counter `f.next`, one atomicAdd per warp for its idle lanes, in
-// lane order. Forward mode: an item is a lane of `pix` / `sample0` with its
-// samples sample0..spp-1 in order; record mode: that lane's one path. The
-// launch zeroes `out` and `rec` first, so items with no path (padding
-// lanes) and record rows after a path's end are never written. `n` is the
-// table's row count (the brute search's staging room).
-template <bool RECORD, bool RADIANCE, bool ANIMATED, bool CAM_ANIMATED, bool TREE>
-__global__ void __launch_bounds__(TREE ? TREE_BLOCK : BRUTE_BLOCK) flat_kernel(
+// What flat_kernel reads beside the table (ops/kernels/megakernel.py
+// _flat_args). The brute search: its rows' entries, the active rows first
+// in table order (16 bytes a row, 48 with ANIMATED), their table row ids and
+// the count of active rows. K5 / K6: the tree's rows in the permuted
+// table's order (16 bytes a row, 48 with ANIMATED), its K nodes (two
+// 16-byte entries a node: grown box lo x/y/z and hi x; hi y/z, first and
+// count as int bits) and skip links. K7: the mesh's rows as the walk reads
+// them, its table rows and material rows (the winner's), its KT nodes in
+// K6's layout (boxes not grown) and skip links. All: the work counter the
+// launch zeroes.
+struct Flat {
+  const float4* rows;    // (N,), (N, 3) row entries (see above)
+  const int32_t* ids;    // brute: (N,) each entry's table row
+  const int32_t* live;   // brute: (1,) the active rows, entries [0, live)
+  const float4* nodes;   // K5 / K6: (K, 2) node entries
+  const int32_t* miss;   // K5 / K6: (K,) skip links
+  const float4* trows;   // K7: (M, 4) Woop or (M, 5) packed moving entries
+  const float* tris;     // K7: (M, 16) Woop or (M, 32) moving rows, leaf order
+  const float* mats;     // K7: (NM, 24) material rows
+  const float4* tnodes;  // K7: (KT, 2) node entries
+  const int32_t* tmiss;  // K7: (KT,) skip links
+  int32_t* next;         // (1,) the next work item to hand out
+  int k;                 // the sphere tree's node count, 0 for the brute search
+  int kt;                // the triangle tree's node count, 0 without a mesh
+};
+
+// K1 (forward: RECORD false, RADIANCE true), K2 (record, fused or not), K8
+// (ANIMATED, CAM_ANIMATED), K5 and K6 (TREE, without and with ANIMATED) and
+// K7 (TRI; K7 moving with ANIMATED) in one flat loop over persistent lanes
+// (see the note at the top): each iteration, a lane with no path in flight
+// starts its item's next sample, then every lane with a path runs one
+// search and one bounce's shading. Items are handed out by the work counter
+// `f.next`, one atomicAdd per warp for its idle lanes, in lane order.
+// Forward mode: an item is a lane of `pix` / `sample0` with its samples
+// sample0..spp-1 in order; record mode: that lane's one path. The launch
+// zeroes `out` and `rec` first, so items with no path (padding lanes) and
+// record rows after a path's end are never written. `n` is the table's row
+// count (the brute search's staging room).
+template <bool RECORD, bool RADIANCE, bool ANIMATED, bool CAM_ANIMATED, bool TREE, bool TRI>
+__global__ void __launch_bounds__(TREE || TRI ? TREE_BLOCK : BRUTE_BLOCK) flat_kernel(
     const int32_t* __restrict__ smem, const int32_t* __restrict__ pix_in,
     const int32_t* __restrict__ sample0, const float* __restrict__ cam,
     const float* __restrict__ table, const Flat f, int n, int r, float t_min,
     float* __restrict__ out, int32_t* __restrict__ rec) {
-  constexpr int NT = TREE ? TREE_BLOCK : BRUTE_BLOCK;
+  static_assert(!(TREE && TRI), "the triangle stage runs beside the brute sphere search");
+  constexpr int NT = TREE || TRI ? TREE_BLOCK : BRUTE_BLOCK;
   extern __shared__ float4 sh4[];
   // The brute search's live rows, padded to a multiple of 4 with NaN
   // entries, whose discriminant is never >= 0: srow[q] (and with ANIMATED
-  // smot[q] and ss2[q]). K6's nodes and skip links where they fit.
+  // smot[q] and ss2[q]). K5's and K6's nodes and skip links where they fit.
   const int cap = (n + 3) & ~3;
   float4* srow = sh4;
   float4* smot = sh4 + cap;
@@ -1189,7 +935,7 @@ __global__ void __launch_bounds__(TREE ? TREE_BLOCK : BRUTE_BLOCK) flat_kernel(
       float best = BIG;
       int win = -1;
       if (TREE) {
-        tree_closest<ANIMATED>(nodes, miss, f.k, f.rows, ox, oy, oz, dx, dy, dz, a_q,
+        tree_closest<ANIMATED>(nodes, miss, f.k, f.rows, table, ox, oy, oz, dx, dy, dz, a_q,
                                d_dot_o, o_sq, inv_a, w, t_min, best, win);
       } else {
         // One broadcast LDS.128 a row (two and an LDS.32 moving), four rows
@@ -1227,11 +973,19 @@ __global__ void __launch_bounds__(TREE ? TREE_BLOCK : BRUTE_BLOCK) flat_kernel(
         win = k_win < 0 ? -1 : f.ids[k_win];
       }
 
+      // --- K7: the mesh's closest triangle, strictly nearer -----------------
+      int tid = -1;
+      float tnx = 0.0f, tny = 0.0f, tnz = 0.0f;  // K7 moving: the winner's cross
+      if (TRI) {
+        tri_closest<ANIMATED>(f.tnodes, f.tmiss, f.kt, f.trows, ox, oy, oz, dx, dy, dz, w,
+                              t_min, best, tid, tnx, tny, tnz);
+      }
+
       int32_t word = 0;
-      live = shade_bounce<RECORD, RADIANCE, TREE, ANIMATED, false>(
-          table, nullptr, nullptr, upix, (uint32_t)smp, seed, bounce,
+      live = shade_bounce<RECORD, RADIANCE, TREE, ANIMATED, TRI>(
+          table, f.tris, f.mats, upix, (uint32_t)smp, seed, bounce,
           !RECORD || bounce >= accum_from, max_depth, t_min, w, a_q, inv_a, best, win,
-          -1, 0.0f, 0.0f, 0.0f, ox, oy, oz, dx, dy, dz, tx, ty, tz, ax, ay, az, word);
+          tid, tnx, tny, tnz, ox, oy, oz, dx, dy, dz, tx, ty, tz, ax, ay, az, word);
       if (RECORD) rec[(size_t)bounce * r + item] = word;
       ++bounce;
       if (!live && ++smp >= s_end && RADIANCE) {  // the item's last path ended
@@ -1243,37 +997,39 @@ __global__ void __launch_bounds__(TREE ? TREE_BLOCK : BRUTE_BLOCK) flat_kernel(
   }
 }
 
-template <bool A, bool C, bool T>
+template <bool A, bool C, bool T, bool TR>
 struct FlatFlags {
-  static constexpr bool animated = A, cam_animated = C, tree = T;
+  static constexpr bool animated = A, cam_animated = C, tree = T, tri = TR;
 };
 
-// Call fn(FlatFlags<...>{}) with the flat loop's instantiation for one mode
-// (RECORD) and the flags: the brute search with any of K8's flags; K6 with
-// ANIMATED, with or without CAM_ANIMATED, and in forward mode over a static
-// table with a static camera (held against K1; no route selects it).
-// cudaErrorInvalidValue for a combination not instantiated.
-template <bool RECORD, class F>
-int flat_dispatch(int animated, int cam_animated, bool tree, F&& fn) {
-  if (tree) {
-    if (animated && cam_animated) return fn(FlatFlags<true, true, true>{});
-    if (animated) return fn(FlatFlags<true, false, true>{});
-    if constexpr (!RECORD) {
-      if (!cam_animated) return fn(FlatFlags<false, false, true>{});
-    }
-    return (int)cudaErrorInvalidValue;
-  }
-  if (animated && cam_animated) return fn(FlatFlags<true, true, false>{});
-  if (animated) return fn(FlatFlags<true, false, false>{});
-  if (cam_animated) return fn(FlatFlags<false, true, false>{});
-  return fn(FlatFlags<false, false, false>{});
+// Call fn(FlatFlags<...>{}) with the instantiation for one search (TREE:
+// K5 / K6; TRI: the brute search with K7's stage; neither: the brute
+// search) and K8's flags, each of the four combinations.
+template <bool TREE, bool TRI, class F>
+int flags_dispatch(int animated, int cam_animated, F&& fn) {
+  if (animated && cam_animated) return fn(FlatFlags<true, true, TREE, TRI>{});
+  if (animated) return fn(FlatFlags<true, false, TREE, TRI>{});
+  if (cam_animated) return fn(FlatFlags<false, true, TREE, TRI>{});
+  return fn(FlatFlags<false, false, TREE, TRI>{});
+}
+
+// fn with the flat loop's instantiation for a sphere tree (tree: K5, or K6
+// with `animated`), a mesh (tri: K7, K7 moving with `animated`) or neither
+// (K1 / K2, K8 with its flags). cudaErrorInvalidValue for a mesh beside a
+// sphere tree, a combination not instantiated.
+template <class F>
+int flat_dispatch(int animated, int cam_animated, bool tree, bool tri, F&& fn) {
+  if (tree && tri) return (int)cudaErrorInvalidValue;
+  if (tree) return flags_dispatch<true, false>(animated, cam_animated, fn);
+  if (tri) return flags_dispatch<false, true>(animated, cam_animated, fn);
+  return flags_dispatch<false, false>(animated, cam_animated, fn);
 }
 
 // Launch the flat loop on `grid` blocks (the wrapper's, from the launch
 // shape: as many as stay resident, none more than the R lanes need): the
 // work counter, `out` and (RECORD) the `depth` rows of `rec` are zeroed on
 // the stream first.
-template <bool RECORD, bool RADIANCE, bool ANIMATED, bool CAM_ANIMATED, bool TREE>
+template <bool RECORD, bool RADIANCE, bool ANIMATED, bool CAM_ANIMATED, bool TREE, bool TRI>
 int launch_flat(const int32_t* smem, const int32_t* pix, const int32_t* sample0,
                 const float* cam, const float* table, const Flat& f, int n, int r,
                 int depth, int grid, float t_min, float* out, int32_t* rec, void* stream) {
@@ -1285,8 +1041,8 @@ int launch_flat(const int32_t* smem, const int32_t* pix, const int32_t* sample0,
   }
   if (e != cudaSuccess) return (int)e;
   if (grid > 0) {
-    constexpr int NT = TREE ? TREE_BLOCK : BRUTE_BLOCK;
-    flat_kernel<RECORD, RADIANCE, ANIMATED, CAM_ANIMATED, TREE>
+    constexpr int NT = TREE || TRI ? TREE_BLOCK : BRUTE_BLOCK;
+    flat_kernel<RECORD, RADIANCE, ANIMATED, CAM_ANIMATED, TREE, TRI>
         <<<grid, NT, flat_smem_bytes(ANIMATED, TREE, n, f.k), st>>>(
             smem, pix, sample0, cam, table, f, n, r, t_min, out, rec);
   }
@@ -1299,11 +1055,12 @@ int launch_flat(const int32_t* smem, const int32_t* pix, const int32_t* sample0,
 // the kernel's dynamic shared memory limit to what this shape needs (never
 // lowering it: the wrapper caches the shapes it launches on), so no launch
 // sets or queries anything.
-template <bool RECORD, bool RADIANCE, bool ANIMATED, bool CAM_ANIMATED, bool TREE>
-cudaError_t flat_shape(int n, int k, int32_t* shape) {
-  const void* kernel = (const void*)flat_kernel<RECORD, RADIANCE, ANIMATED, CAM_ANIMATED, TREE>;
-  constexpr int NT = TREE ? TREE_BLOCK : BRUTE_BLOCK;
-  const int bytes = flat_smem_bytes(ANIMATED, TREE, n, k);
+template <bool RECORD, bool RADIANCE, bool ANIMATED, bool CAM_ANIMATED, bool TREE, bool TRI>
+cudaError_t flat_shape(int n, const Flat& f, int32_t* shape) {
+  const void* kernel =
+      (const void*)flat_kernel<RECORD, RADIANCE, ANIMATED, CAM_ANIMATED, TREE, TRI>;
+  constexpr int NT = TREE || TRI ? TREE_BLOCK : BRUTE_BLOCK;
+  const int bytes = flat_smem_bytes(ANIMATED, TREE, n, f.k);
   cudaFuncAttributes attr{};
   cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
   if (e == cudaSuccess && attr.maxDynamicSharedSizeBytes < bytes) {
@@ -1323,128 +1080,108 @@ cudaError_t flat_shape(int n, int k, int32_t* shape) {
   return per_sm < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
 }
 
-// flat_shape for the instantiation of one mode that flat_dispatch picks.
+// flat_shape or launch_flat for the instantiation of one mode (RECORD,
+// RADIANCE) that flat_dispatch picks: K5 / K6 where the launch has a sphere
+// tree (f.k > 0), K7 where it has a triangle tree (f.kt > 0), else the
+// brute search; K8's flags as given.
 template <bool RECORD, bool RADIANCE>
-int flat_shape_of(int animated, int cam_animated, int n, int fk, int32_t* shape) {
-  return flat_dispatch<RECORD>(animated, cam_animated, fk > 0, [&](auto fl) {
+int shape_of(int animated, int cam_animated, int n, const Flat& f, int32_t* shape) {
+  return flat_dispatch(animated, cam_animated, f.k > 0, f.kt > 0, [&](auto fl) {
     using Fl = decltype(fl);
-    return (int)flat_shape<RECORD, RADIANCE, Fl::animated, Fl::cam_animated, Fl::tree>(
-        n, fk, shape);
+    return (int)flat_shape<RECORD, RADIANCE, Fl::animated, Fl::cam_animated, Fl::tree,
+                           Fl::tri>(n, f, shape);
   });
 }
 
-// The instantiations of one mode (RECORD) and one value of RADIANCE: K7
-// where the launch has a triangle BVH (the nested brute search, with K8's
-// flags: ANIMATED makes it K7 moving), K5 where it has a sphere BVH (nested;
-// static, or with CAM_ANIMATED), else the flat loop: K6 where it has a
-// swept tree (f.k > 0), else the brute search (K1 / K2, K8 with its flags).
 template <bool RECORD, bool RADIANCE>
 int variant(const int32_t* smem, const int32_t* pix, const int32_t* sample0,
-            const float* cam, const float* table, const Trees& t, const Flat& f,
-            int n, int r, int depth, int grid, float t_min, int animated,
-            int cam_animated, float* out, int32_t* rec, void* stream) {
-  if (t.kt > 0) {
-    if (t.k > 0 || f.k > 0) return (int)cudaErrorInvalidValue;
-    if (animated && cam_animated) {
-      return launch<RECORD, RADIANCE, false, true, true, true>(
-          smem, pix, sample0, cam, table, t, n, r, t_min, out, rec, stream);
-    }
-    if (animated) {
-      return launch<RECORD, RADIANCE, false, true, false, true>(
-          smem, pix, sample0, cam, table, t, n, r, t_min, out, rec, stream);
-    }
-    if (cam_animated) {
-      return launch<RECORD, RADIANCE, false, false, true, true>(
-          smem, pix, sample0, cam, table, t, n, r, t_min, out, rec, stream);
-    }
-    return launch<RECORD, RADIANCE, false, false, false, true>(
-        smem, pix, sample0, cam, table, t, n, r, t_min, out, rec, stream);
-  }
-  if (t.k > 0) {
-    if (animated || f.k > 0) return (int)cudaErrorInvalidValue;
-    if (cam_animated) {
-      return launch<RECORD, RADIANCE, true, false, true>(
-          smem, pix, sample0, cam, table, t, n, r, t_min, out, rec, stream);
-    }
-    return launch<RECORD, RADIANCE, true>(smem, pix, sample0, cam, table, t, n, r,
-                                          t_min, out, rec, stream);
-  }
-  return flat_dispatch<RECORD>(animated, cam_animated, f.k > 0, [&](auto fl) {
+            const float* cam, const float* table, const Flat& f, int n, int r, int depth,
+            int grid, float t_min, int animated, int cam_animated, float* out, int32_t* rec,
+            void* stream) {
+  return flat_dispatch(animated, cam_animated, f.k > 0, f.kt > 0, [&](auto fl) {
     using Fl = decltype(fl);
-    return launch_flat<RECORD, RADIANCE, Fl::animated, Fl::cam_animated, Fl::tree>(
+    return launch_flat<RECORD, RADIANCE, Fl::animated, Fl::cam_animated, Fl::tree, Fl::tri>(
         smem, pix, sample0, cam, table, f, n, r, depth, grid, t_min, out, rec, stream);
   });
+}
+
+Flat make_flat(const float* frows, const int32_t* fids, const int32_t* flive,
+               const float* fnodes, const int32_t* fmiss, const float* trows,
+               const float* tris, const float* mats, const float* tnodes,
+               const int32_t* tmiss, int32_t* next, int fk, int kt) {
+  return Flat{(const float4*)frows, fids, flive, (const float4*)fnodes, fmiss,
+              (const float4*)trows, tris, mats, (const float4*)tnodes, tmiss,
+              next, fk, kt};
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch the forward megakernel on `stream`: with kt > 0 the triangle
-// stage over the KT triangle nodes after the nested brute search (K7; with
-// `animated` K7 moving, whose `tris` are (M, 32) rows); with k > 0 the
-// nested walk over the K sphere nodes (K5); else the flat loop on `grid`
-// blocks (struct Flat: `frows`, `fids`, `flive`, `fnodes`, `fmiss`, the
-// work counter `next`): the walk over the FK nodes of K6's swept tree when
-// fk > 0, else the brute search (K1); with `animated` or `cam_animated`
-// nonzero, their motion variants (K8). Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a combination not instantiated (a moving table
-// on K5's walk; K7 with a walk; K6 over a static table seen by an animated
-// camera).
+// Launch the forward megakernel on `stream` (struct Flat: the search's
+// `frows`, `fids`, `flive`, `fnodes`, `fmiss`; the mesh's `trows`, `tris`,
+// `mats`, `tnodes`, `tmiss`; the work counter `next`) on `grid` blocks: the
+// walk over the FK
+// nodes of a sphere tree when fk > 0 (K5; K6 with `animated`), else the
+// brute search (K1), with the triangle stage over the KT nodes of a mesh's
+// tree when kt > 0 (K7; K7 moving, whose `tris` are (M, 32) rows, with
+// `animated`); with `animated` or `cam_animated` nonzero, their motion
+// variants (K8). Returns cudaGetLastError(), or cudaErrorInvalidValue for a
+// mesh beside a sphere tree, a combination not instantiated.
 int crucible_megakernel_forward(const int32_t* smem, const int32_t* pix,
                                 const int32_t* sample0, const float* cam,
-                                const float* table, const float* nodes,
-                                const int32_t* meta, const float* tnodes,
-                                const int32_t* tmeta, const float* tris, const float* mats,
-                                const float* frows, const int32_t* fids,
+                                const float* table, const float* frows, const int32_t* fids,
                                 const int32_t* flive, const float* fnodes,
-                                const int32_t* fmiss, int32_t* next, int n, int k, int kt,
-                                int fk, int grid, int r, float t_min, int animated,
-                                int cam_animated, float* out, void* stream) {
-  const Trees t{nodes, meta, tnodes, tmeta, tris, mats, k, kt};
-  const Flat f{(const float4*)frows, fids, flive, (const float4*)fnodes, fmiss, next, fk};
-  return variant<false, true>(smem, pix, sample0, cam, table, t, f, n, r, 0, grid, t_min,
+                                const int32_t* fmiss, const float* trows, const float* tris,
+                                const float* mats, const float* tnodes, const int32_t* tmiss,
+                                int32_t* next, int n, int fk, int kt, int grid, int r,
+                                float t_min, int animated, int cam_animated, float* out,
+                                void* stream) {
+  const Flat f = make_flat(frows, fids, flive, fnodes, fmiss, trows, tris, mats, tnodes,
+                           tmiss, next, fk, kt);
+  return variant<false, true>(smem, pix, sample0, cam, table, f, n, r, 0, grid, t_min,
                               animated, cam_animated, out, nullptr, stream);
 }
 
 // Launch the record-mode megakernel: `rec` (depth, R) int32 packed decision
 // words, `depth` = smem[3]; `out` (3, R) the fused radiance when `radiance`
 // is nonzero, else zeros. The variants are the forward's: K2, K5, K6, K8
-// and K7, but K6 only with `animated`. Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a combination not instantiated.
+// and K7. Returns cudaGetLastError(), or cudaErrorInvalidValue for a mesh
+// beside a sphere tree.
 int crucible_megakernel_record(const int32_t* smem, const int32_t* pix,
                                const int32_t* sample0, const float* cam,
-                               const float* table, const float* nodes,
-                               const int32_t* meta, const float* tnodes,
-                               const int32_t* tmeta, const float* tris, const float* mats,
-                               const float* frows, const int32_t* fids,
+                               const float* table, const float* frows, const int32_t* fids,
                                const int32_t* flive, const float* fnodes,
-                               const int32_t* fmiss, int32_t* next, int n, int k, int kt,
-                               int fk, int grid, int r, int depth, float t_min,
-                               int radiance, int animated, int cam_animated, float* out,
-                               int32_t* rec, void* stream) {
-  const Trees t{nodes, meta, tnodes, tmeta, tris, mats, k, kt};
-  const Flat f{(const float4*)frows, fids, flive, (const float4*)fnodes, fmiss, next, fk};
+                               const int32_t* fmiss, const float* trows, const float* tris,
+                               const float* mats, const float* tnodes, const int32_t* tmiss,
+                               int32_t* next, int n, int fk, int kt, int grid, int r,
+                               int depth, float t_min, int radiance, int animated,
+                               int cam_animated, float* out, int32_t* rec, void* stream) {
+  const Flat f = make_flat(frows, fids, flive, fnodes, fmiss, trows, tris, mats, tnodes,
+                           tmiss, next, fk, kt);
   if (radiance) {
-    return variant<true, true>(smem, pix, sample0, cam, table, t, f, n, r, depth, grid,
-                               t_min, animated, cam_animated, out, rec, stream);
+    return variant<true, true>(smem, pix, sample0, cam, table, f, n, r, depth, grid, t_min,
+                               animated, cam_animated, out, rec, stream);
   }
-  return variant<true, false>(smem, pix, sample0, cam, table, t, f, n, r, depth, grid,
-                              t_min, animated, cam_animated, out, rec, stream);
+  return variant<true, false>(smem, pix, sample0, cam, table, f, n, r, depth, grid, t_min,
+                              animated, cam_animated, out, rec, stream);
 }
 
-// The flat loop's launch shape for an N-row table (the brute search) or a
-// swept tree of FK nodes (fk > 0, K6), in one mode (record, radiance: the
+// The flat loop's launch shape for an N-row table (the brute search), a
+// sphere tree of FK nodes (fk > 0: K5, K6) or a mesh's tree of KT nodes
+// beside the brute search (kt > 0: K7), in one mode (record, radiance: the
 // forward is 0, 1) with K8's flags, into shape[0..5]: resident blocks per
-// SM, SMs, threads per block, registers per thread, local (spill) bytes per
-// thread, dynamic shared memory per block. Lets that instantiation take its
-// dynamic shared memory. Returns a CUDA error (cudaErrorInvalidValue for a
-// combination not instantiated).
+// SM, SMs, threads per block, registers per thread, local (stack and spill)
+// bytes per thread, dynamic shared memory per block. Lets that
+// instantiation take its dynamic shared memory. Returns a CUDA error
+// (cudaErrorInvalidValue for a combination not instantiated).
 int crucible_megakernel_flat_shape(int record, int radiance, int animated, int cam_animated,
-                                   int n, int fk, int32_t* shape) {
-  if (!record) return flat_shape_of<false, true>(animated, cam_animated, n, fk, shape);
-  if (radiance) return flat_shape_of<true, true>(animated, cam_animated, n, fk, shape);
-  return flat_shape_of<true, false>(animated, cam_animated, n, fk, shape);
+                                   int n, int fk, int kt, int32_t* shape) {
+  const Flat f = make_flat(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                           nullptr, nullptr, nullptr, nullptr, fk, kt);
+  if (!record) return shape_of<false, true>(animated, cam_animated, n, f, shape);
+  if (radiance) return shape_of<true, true>(animated, cam_animated, n, f, shape);
+  return shape_of<true, false>(animated, cam_animated, n, f, shape);
 }
 
 const char* crucible_cuda_error_string(int err) {

@@ -17,7 +17,7 @@
 // no row cap is needed (the TPU kernel's VMEM limit has no counterpart), and
 // the chunk loop keeps every thread of the block in the barriers even past
 // the last ray. The search itself is common.cuh's closest_sphere, the
-// routine of the forward megakernel (K1): the Pallas kernel's expanded
+// arithmetic of the megakernel's brute search (K1): the Pallas kernel's expanded
 // quadratic, term by term, with the lowest row winning ties as the TPU's
 // min-then-first-index reduction does. A miss returns t = BIG, idx = 0,
 // as the TPU kernel does.

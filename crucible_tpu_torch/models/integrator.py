@@ -14,10 +14,11 @@ or moving on the linear shutter, and triangle meshes, static or moving:
 - the ``pixel`` schedule :func:`trace_persistent`, whose fused bounce
   :func:`bounce_step_fused` takes the winner's attributes from K9;
 - the ``mega`` schedule :func:`trace_persistent_mega` (K1, or K5 walking
-  the sphere BVH of a big scene; K8, their motion variants, for moving
-  spheres or an animated camera; K7, the triangle-BVH stage, for a BVH
-  mesh, K7 moving for a moving one) with its inputs (the (N, 32) sphere
-  attribute table, permuted into BVH leaf order for the walk; the camera
+  the tree of a big static scene, K6 that of a big moving one; K8, their
+  motion variants, for moving spheres or an animated camera; K7, the
+  triangle-BVH stage, for a BVH mesh, K7 moving for a moving one) with its
+  inputs (the (N, 32) sphere attribute table, permuted into the tree's leaf
+  order for a walk; the camera
   vector; a mesh's tables, :func:`make_tri_tables`) and the megakernel
   predicates.
 
@@ -411,7 +412,7 @@ def _mesh_unsupported_reason(sd: SceneData, cp: CameraParams):
         (not sd.tri_exact, "exact-time motion of a mesh, a keyframe inside the shutter "
                            "(ROADMAP A7)"),
         (sd.sph_perm is None or brute_beside_mesh(sd),
-         "a triangle mesh beside a big sphere table (K7 beside K5's sphere-BVH "
+         "a triangle mesh beside a big sphere table (K7 beside K5's tree "
          f"walk, or beside K6's swept-tree walk above {mk.MAX_ROWS_ANIMATED} moving "
          "rows: template combinations not instantiated, ROADMAP A11)"),
     )
@@ -477,21 +478,24 @@ def megakernel_record_unsupported_reason(sd: SceneData, cp: CameraParams):
 
 
 def swept_tree(sd: SceneData):
-    """The swept tree K6 walks for an animated scene that carries the
-    chunk-cull tables (``sd.sph_cbounds``) -> (perm, nodes, meta), else
-    None. ``Scene.build`` and the bridge make the tree (``sph_swept_*``)
-    wherever they make the clusters; clusters without it raise
-    ``ValueError``. The route reads the clusters, as the JAX package's
-    does, so a scene takes K6 where the JAX package takes its chunk-cull
-    branch, and a scene stripped of its clusters takes the brute search
-    (as the JAX parity tests of tests/test_torch_cull.py strip it)."""
-    if not sd.animated or sd.sph_cbounds is None:
+    """The tree the megakernel walks -> (perm, nodes, meta), else None: a
+    static scene's that carries the sphere-BVH tables (``sd.sph_perm``, K5)
+    or an animated scene's that carries the chunk-cull tables
+    (``sd.sph_cbounds``, K6). ``Scene.build`` and the bridge make the tree
+    (``sph_swept_*``) wherever they make those tables; those tables without
+    it raise ``ValueError``. The route reads the JAX lowering's tables, as
+    the JAX package's does, so a scene takes K5 or K6 where the JAX package
+    takes its sphere-BVH or chunk-cull branch, and a scene stripped of them
+    takes the brute search (as the JAX parity tests strip it)."""
+    if (sd.sph_cbounds if sd.animated else sd.sph_perm) is None:
         return None
     if sd.sph_swept_nodes is None:
         raise ValueError(
-            "this animated scene carries the chunk-cull clusters (sph_cbounds) but not "
-            "the swept tree that K6 walks (sph_swept_perm, sph_swept_nodes, "
-            "sph_swept_meta): lower it with Scene.build or bridge.scene_data_from_arrays"
+            f"this {'animated' if sd.animated else 'static'} scene carries the "
+            f"{'chunk-cull clusters (sph_cbounds)' if sd.animated else 'sphere BVH (sph_perm)'}"
+            " but not the swept tree that the megakernel walks (sph_swept_perm, "
+            "sph_swept_nodes, sph_swept_meta): lower it with Scene.build or "
+            "bridge.scene_data_from_arrays"
         )
     return sd.sph_swept_perm, sd.sph_swept_nodes, sd.sph_swept_meta
 
@@ -601,19 +605,16 @@ def trace_persistent_mega(
     perm=None,
     sphere_nodes=None,
     sphere_meta=None,
-    swept=False,
 ) -> torch.Tensor:
     """Whole render in one megakernel call -> per-pixel radiance SUM
     (width*height, 3) over samples 0..spp-1.
 
     ``perm`` (N_pad,) int32 with ``sphere_nodes`` (K, 16) float32 and
-    ``sphere_meta`` (3 * (K + 16),) int32 are ``mk.sphere_bvh_tables``'
-    outputs: the table is then padded and permuted into BVH leaf order and
-    the kernel walks the BVH (K5); with ``swept`` they are
-    ``mk.swept_tables``' (a moving table's tree over its shutter deltas,
-    :func:`swept_tree`) and the kernel walks them as K6. Without them it
-    tests every row (K1, K8). The sums are the same, bit for bit. A BVH
-    mesh's tables
+    ``sphere_meta`` (3 * (K + 16),) int32 are ``mk.swept_tables``' outputs
+    (:func:`swept_tree`): the table is then padded and permuted into the
+    tree's leaf order and the kernel walks the tree (K5 for a static table,
+    K6 for a moving one). Without them it tests every row (K1, K8). The
+    sums are the same, bit for bit. A BVH mesh's tables
     (:func:`make_tri_tables`) go to the kernel's triangle stage (K7, or K7
     moving for a moving mesh's (M, 32) rows). Every random number is
     pcg4d(pixel, sample, stream, seed), so the per-pixel sums do not depend
@@ -625,8 +626,7 @@ def trace_persistent_mega(
     inputs, lane_of = mega_inputs(sd, cp, width, height, spp, max_depth, seed)
     if perm is not None:
         inputs["table"] = permute_table(inputs["table"], perm)
-        tree = "swept" if swept else "sph"
-        inputs.update({f"{tree}_nodes": sphere_nodes, f"{tree}_meta": sphere_meta})
+        inputs.update(swept_nodes=sphere_nodes, swept_meta=sphere_meta)
     if sd.num_tris > 0:
         inputs.update(zip(("tri_nodes", "tris", "mats", "tri_meta"), make_tri_tables(sd)))
     acc = mk.run_megakernel(**inputs, animated=bool(sd.animated),

@@ -5,8 +5,8 @@ Port of ``crucible_tpu/models/render.py``'s persistent path:
 which runs one of two schedules:
 
 - ``mega``: ``integrator.trace_persistent_mega``, the megakernel: the
-  brute search (K1), or above ``CULL_MIN_ROWS`` rows the sphere-BVH walk
-  (K5), or for moving spheres the swept-tree walk (K6); for moving spheres
+  brute search (K1), or above ``CULL_MIN_ROWS`` rows a tree walk (K5),
+  or for moving spheres the swept-tree walk (K6); for moving spheres
   or an animated camera their motion variants (K8); for a BVH mesh the
   triangle stage after the brute search (K7, K7 moving for a moving mesh,
   either seen by a static or an animated camera);
@@ -47,7 +47,7 @@ from crucible_tpu_torch.ops.kernels import megakernel as mk
 from crucible_tpu_torch.utils import color as color_mod
 
 # Above this sphere-table row count the mega schedule walks a per-lane
-# sphere BVH (K5), or for a moving table its swept tree (K6), instead of
+# tree of the spheres (K5), or for a moving table its swept tree (K6), instead of
 # testing every row (K1, K8), as the JAX package does. The crossover is the
 # JAX package's, measured on a TPU; chip_smoke.py times K6 beside K8 on a
 # moving n1936 table (PERF.md section 7).
@@ -96,10 +96,10 @@ def render_image_persistent(
     schedule's target lane count is ``LANES_CUDA`` on a card, ``LANES_CPU``
     elsewhere.
 
-    ``cull``: whether the mega schedule walks a structure instead of
-    testing every row (K1, K8): the sphere BVH of a static scene (K5, the
-    scene's ``sph_perm`` / ``sph_nodes`` / ``sph_meta``) or the swept tree
-    of an animated one that carries the chunk-cull tables (K6: ``sph_cbounds``
+    ``cull``: whether the mega schedule walks a tree instead of testing
+    every row (K1, K8): that of a static scene that carries the sphere-BVH
+    tables (K5: ``sph_perm`` and ``sph_swept_*``) or the swept tree of an
+    animated one that carries the chunk-cull tables (K6: ``sph_cbounds``
     and ``sph_swept_*``, boxes that hold the spheres over the shutter). None
     takes the walk for 'auto' / 'mega' above ``CULL_MIN_ROWS`` rows, except
     for a moving table beside a mesh that the brute search holds
@@ -123,7 +123,7 @@ def render_image_persistent(
             f"the brute megakernel cannot take {rows} "
             f"{'moving ' if sd.animated else ''}sphere rows (its shared memory "
             f"holds {cap}); pass cull=True (the "
-            f"{'swept-tree' if sd.animated else 'sphere-BVH'} walk) or schedule='pixel'"
+            f"{'swept-tree' if sd.animated else 'static tree'} walk) or schedule='pixel'"
         )
     if schedule == "auto":
         missing = integrator.megakernel_unsupported_reason(sd, cp)
@@ -155,24 +155,22 @@ def render_image_persistent(
             f"megakernel does not render yet"
         )
     struct = {}
-    if cull and sd.animated:
+    if cull:
         tree = integrator.swept_tree(sd)
-        if tree is None:
+        if tree is None and sd.animated:
             raise ValueError(
                 "cull=True on an animated scene needs its chunk-cull tables "
                 "(sph_cbounds, and the swept tree whose boxes hold the spheres over "
                 "the shutter), which Scene.build makes for an animated scene above "
                 f"{CULL_MIN_ROWS} rows with an active sphere"
             )
-        struct = dict(zip(("perm", "sphere_nodes", "sphere_meta"), tree), swept=True)
-    elif cull:
-        if sd.sph_nodes is None:
+        if tree is None:
             raise ValueError(
                 "cull=True needs the scene's sphere-BVH tables (sph_perm, "
-                "sph_nodes, sph_meta), which Scene.build makes for a static "
-                f"scene above {CULL_MIN_ROWS} rows with an active sphere"
+                "sph_nodes, sph_meta) and its tree (sph_swept_*), which Scene.build "
+                f"makes for a static scene above {CULL_MIN_ROWS} rows with an active sphere"
             )
-        struct = dict(perm=sd.sph_perm, sphere_nodes=sd.sph_nodes, sphere_meta=sd.sph_meta)
+        struct = dict(zip(("perm", "sphere_nodes", "sphere_meta"), tree))
     fb = integrator.trace_persistent_mega(
         sd, cp, width, height, samples, max_depth, seed, **struct
     )

@@ -3,8 +3,8 @@
 Port of ``crucible_tpu/models/replay.py``'s gradient path:
 
 1. :func:`trace_record_mega` — the fast, non-differentiable forward: the
-   record-mode megakernel (K2; K5, the sphere-BVH walk, on static scenes
-   with ``sd.sph_perm``; K6, the swept-tree walk, on animated ones with
+   record-mode megakernel (K2; K5, the tree walk, on static scenes with
+   ``sd.sph_perm``; K6, the swept-tree walk, on animated ones with
    the chunk-cull tables, ``sd.sph_cbounds``; K8, their motion variants,
    for moving spheres and
    animated cameras; K7, the triangle stage, for a BVH mesh, K7 moving for
@@ -143,21 +143,21 @@ def trace_record_mega(
     radiance: bool = False,
     accum_from: int = 0,
 ):
-    """Record pass through the megakernel in record mode (K2; K5 where the
-    scene has the sphere-BVH tables, ``sd.sph_nodes``; K6 where it has the
-    chunk-cull tables, ``sd.sph_cbounds``, walking their swept tree; K8 for
-    moving spheres or an
-    animated camera, each path at its shutter fraction; K7 for a BVH mesh,
-    K7 moving for a moving one, whose winners' words hold their leaf-order
-    ids).
+    """Record pass through the megakernel in record mode (K2; K5 where a
+    static scene has the sphere-BVH tables, ``sd.sph_perm``, and K6 where an
+    animated one has the chunk-cull tables, ``sd.sph_cbounds``, each
+    walking the scene's tree, ``integrator.swept_tree``; K8 for moving
+    spheres or an animated camera, each path at its shutter fraction; K7
+    for a BVH mesh, K7 moving for a moving one, whose winners' words hold
+    their leaf-order ids).
 
     One lane per (pixel, sample) path; the kernel regenerates the primary
     rays from the pcg4d streams. Sample id ``2**30`` marks a padding lane,
     which never issues. Returns packed records (max_depth, R) int32; with
     ``radiance=True`` returns (rec, rad (R, 3)), the paths' radiance from
     bounce ``accum_from`` on, summed by the same loop. A walk runs over
-    the table permuted by ``sd.sph_perm`` (K5) or the swept tree's
-    permutation (K6) and records the winners' original ids, so the records
+    the table permuted by the tree's permutation and records the winners'
+    original ids, so the records
     are the brute kernel's, bit for bit, and the eager replay reads them as
     it reads the brute kernel's. Beside a mesh a moving table the brute
     search holds takes it, chunk-cull tables or not
@@ -188,9 +188,6 @@ def trace_record_mega(
         elif (tree := integrator.swept_tree(sd)) is not None:
             table = integrator.permute_table(table, tree[0])
             walk = dict(swept_nodes=tree[1], swept_meta=tree[2])
-        elif sd.sph_perm is not None:
-            table = integrator.permute_table(table, sd.sph_perm)
-            walk = dict(sph_nodes=sd.sph_nodes, sph_meta=sd.sph_meta)
         tri = {}
         if sd.num_tris > 0:
             tri = dict(zip(("tri_nodes", "tris", "mats", "tri_meta"),

@@ -5,8 +5,9 @@ surface (aliased elements via an id vendor, OBJ mesh assets, show/hide)
 and ``Scene.build`` lowers the element list into flat arrays with numpy,
 exactly as the JAX package does, converting to tensors on the requested
 device only at the end. The spherical (equirect) sky loads from a ``.hdr``
-asset. Static scenes above ``render.CULL_MIN_ROWS`` sphere rows also get
-the sphere-BVH tables of the megakernel's walk. Triangles (``Triangle``,
+asset. Scenes above ``render.CULL_MIN_ROWS`` sphere rows also get the JAX
+lowering's sphere-BVH (static) or cluster (animated) tables and the tree
+the megakernel walks (K5, K6). Triangles (``Triangle``,
 ``load_asset``) are lowered as the JAX package lowers meshes: up to
 ``BVH_MIN_TRIS`` as brute arrays padded to a multiple of 8, above it in
 the leaf order of a BVH whose children are ordered near-first along the
@@ -246,15 +247,17 @@ class SceneData:
     motion_exact: bool = False
 
     # The structure tables of the megakernel's walks above render.CULL_MIN_ROWS
-    # rows with an active sphere, else None: a static scene's sphere BVH
-    # (megakernel.sphere_bvh_tables: sph_perm, sph_nodes, sph_meta; K5); an
-    # animated scene's chunk-cull tables: the JAX package's clusters
-    # (megakernel.cluster_spheres over the shutter window: sph_perm,
-    # sph_cbounds), kept for parity with its lowering, and the swept tree
-    # that K6 walks (megakernel.swept_tables over the same window:
+    # rows with an active sphere, else None: a static scene's sphere BVH at
+    # the JAX package's leaf of 128 rows (megakernel.sphere_bvh_tables:
+    # sph_perm, sph_nodes, sph_meta), kept for parity with its lowering and
+    # as the route's key; an animated scene's chunk-cull tables: the JAX
+    # package's clusters (megakernel.cluster_spheres over the shutter window:
+    # sph_perm, sph_cbounds), kept likewise. Beside either, the tree the
+    # kernel walks (megakernel.swept_tables, SWEPT_LEAF spheres a leaf:
     # sph_swept_perm, sph_swept_nodes, sph_swept_meta, in sph_perm's,
-    # sph_nodes' and sph_meta's layouts). A permuted table's column 31
-    # keeps original ids.
+    # sph_nodes' and sph_meta's layouts): a static table's (K5), or a moving
+    # one's over the shutter window (K6). A permuted table's column 31 keeps
+    # original ids.
     sph_perm: Optional[torch.Tensor] = None  # (N_pad,) int32 permutation
     sph_nodes: Optional[torch.Tensor] = None  # (K, 16) float32 node boxes
     sph_meta: Optional[torch.Tensor] = None  # (3 * (K + 16),) int32 metadata
@@ -289,14 +292,15 @@ class SceneData:
     tri_exact: bool = False
 
 
-def swept_struct(center, radius, active, center_d, radius_d, *, device) -> dict:
-    """K6's swept tree (``megakernel.swept_tables``) of a moving table as
+def swept_struct(center, radius, active, center_d=None, radius_d=None, *, device) -> dict:
+    """The tree the megakernel walks (``megakernel.swept_tables``): a static
+    table's (K5), or with the shutter deltas a moving one's (K6), as
     SceneData fields on ``device``: ``sph_swept_perm``, ``sph_swept_nodes``,
     ``sph_swept_meta``. ``Scene.build`` and the bridge (a JAX-lowered
-    animated scene) both build it so, from the lowered float32 arrays."""
+    scene) both build it so, from the lowered float32 arrays."""
     from crucible_tpu_torch.ops.kernels import megakernel as mk
 
-    perm, nodes, meta = mk.swept_tables(*(np.asarray(a) for a in (
+    perm, nodes, meta = mk.swept_tables(*(None if a is None else np.asarray(a) for a in (
         center, radius, active, center_d, radius_d)))
     return dict(sph_swept_perm=torch.as_tensor(perm, device=device),
                 sph_swept_nodes=torch.as_tensor(nodes, device=device),
@@ -799,10 +803,11 @@ class Scene:
             motion.update(motion_t0=t(t_open, np.float32), motion_t1=t(t_close, np.float32))
 
         # Structure tables for the megakernel's walks, past the brute
-        # search's crossover: a static scene's sphere BVH (K5), an animated
-        # scene's clusters (the JAX lowering's) and swept tree (K6), whose
-        # boxes hold each sphere at shutter open and close (the BVH's boxes
-        # would go stale under motion).
+        # search's crossover: a static scene's sphere BVH (the JAX
+        # lowering's) and tree (K5), an animated scene's clusters (the JAX
+        # lowering's) and swept tree (K6), whose boxes hold each sphere at
+        # shutter open and close (a static tree's would go stale under
+        # motion).
         from crucible_tpu_torch.models.render import CULL_MIN_ROWS
         from crucible_tpu_torch.ops.kernels import megakernel as mk
 
@@ -810,7 +815,8 @@ class Scene:
         if n_pad > CULL_MIN_ROWS and bool(sph_active.any()) and not animated:
             perm_s, snodes, smeta = mk.sphere_bvh_tables(sph_center, sph_radius, sph_active)
             sph_struct = dict(sph_perm=t(perm_s, np.int32), sph_nodes=t(snodes, np.float32),
-                              sph_meta=t(smeta, np.int32))
+                              sph_meta=t(smeta, np.int32),
+                              **swept_struct(sph_center, sph_radius, sph_active, device=device))
         elif n_pad > CULL_MIN_ROWS and bool(sph_active.any()):
             deltas = dict(center_d=sph_center_b - sph_center, radius_d=sph_radius_b - sph_radius)
             perm_s, cbounds = mk.cluster_spheres(sph_center, sph_radius, sph_active, **deltas)

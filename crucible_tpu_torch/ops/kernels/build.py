@@ -44,9 +44,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of each library's entry points: name -> (argtypes, restype).
 SIGNATURES = {
     "megakernel": {
-        "crucible_megakernel_forward": ([_P] * 17 + [_I] * 6 + [_F, _I, _I, _P, _P], _I),
-        "crucible_megakernel_record": ([_P] * 17 + [_I] * 7 + [_F, _I, _I, _I] + [_P] * 3, _I),
-        "crucible_megakernel_flat_shape": ([_I] * 6 + [ctypes.POINTER(_I)], _I),
+        "crucible_megakernel_forward": ([_P] * 16 + [_I] * 5 + [_F, _I, _I, _P, _P], _I),
+        "crucible_megakernel_record": ([_P] * 16 + [_I] * 6 + [_F, _I, _I, _I] + [_P] * 3, _I),
+        "crucible_megakernel_flat_shape": ([_I] * 7 + [ctypes.POINTER(_I)], _I),
         "crucible_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "replay_kernel": {

@@ -1,16 +1,17 @@
 """Persistent path-tracing megakernel: forward and record.
 
 Port of ``crucible_tpu/ops/pallas/megakernel.py`` for its sphere branches
-— the brute search over every table row (K1, K2), the per-lane sphere-BVH
-walk of big static scenes (K5) and what the chunk-cull branch of big
-scenes computes (K6: a per-lane walk over a BVH whose boxes hold the
-spheres over the shutter, :func:`swept_tables`, so it takes moving
-spheres) in both modes, and their motion variants (K8: ``animated``
-spheres on the linear shutter, brute or K6, and the ``cam_animated``
-keyframed camera), also in both modes — and
-for its triangle-BVH stage (K7, beside the brute sphere search, in both
-modes, with K8's flags: a static mesh's Woop rows, or with ``animated`` a
-moving mesh's (M, 32) rows, K7 moving):
+— the brute search over every table row (K1, K2), what the sphere-BVH
+walk of big static scenes computes (K5: a per-lane walk over a small-leaf
+tree of the spheres, :func:`swept_tables` with no deltas) and what the
+chunk-cull branch of big moving scenes computes (K6: the same walk over a
+tree whose boxes hold the spheres over the shutter, :func:`swept_tables`)
+in both modes, and their motion variants (K8: ``animated`` spheres on the
+linear shutter, brute or K6, and the ``cam_animated`` keyframed camera, on
+any search), also in both modes — and for its triangle-BVH stage (K7,
+beside the brute sphere search, in both modes, with K8's flags: a static
+mesh's Woop rows, or with ``animated`` a moving mesh's (M, 32) rows, K7
+moving):
 
 - :func:`run_megakernel` (forward): given the lanes' pixel ids and first
   samples, the camera vector and the (N, 32) sphere table, it traces every
@@ -21,12 +22,11 @@ moving mesh's (M, 32) rows, K7 moving):
   (``models/replay.py`` layout) and, in the fused mode, that path's
   radiance (3, R).
 
-With ``sph_nodes`` / ``sph_meta`` (:func:`sphere_bvh_tables`) the table is
-the BVH-permuted one and the closest hit walks the BVH instead of testing
-every row; with ``swept_nodes`` / ``swept_meta`` (:func:`swept_tables`,
-the same layout over boxes swept over the shutter) likewise over the
-tree-permuted table (:func:`swept_inputs`). Either way the result is the
-brute search's, bit for bit (see :func:`walk_closest_reference` and
+With ``swept_nodes`` / ``swept_meta`` (:func:`swept_tables`: a static
+table's tree, K5, or a moving one's over boxes swept over the shutter, K6)
+the table is the tree-permuted one (``integrator.permute_table``) and the
+closest hit walks the tree instead of testing every row
+(:func:`swept_inputs`). The result is the brute search's, bit for bit (see
 :func:`cull_closest_reference`), and records carry the original row ids
 (column 31 of the permuted row). With ``tri_nodes``, ``tris``, ``mats`` and
 ``tri_meta`` (``integrator.make_tri_tables``) each bounce then walks the
@@ -35,19 +35,19 @@ mesh's BVH for a triangle strictly nearer than the sphere
 shutter fraction); records carry its leaf-order id and ``F_TRI``.
 
 For CUDA tensors each wrapper launches the hand-written kernel of
-``csrc/megakernel.cu`` (K1, K2, K8's brute search and K6: persistent lanes
-in one flat bounce loop fed by a work counter, over :func:`brute_rows`'
-staged rows or K6's tree; K5 and K7 one thread per lane in a nested loop;
-see the note there) or raises;
-for CPU tensors it runs its eager twin (:func:`run_megakernel_reference`,
-:func:`run_megakernel_record_reference`): all lanes in lockstep with
-per-lane sample regeneration, as the TPU kernel runs them, the brute
-(lanes x N) quadratic in lane chunks or the lockstep walks, and shading
-from the ported materials / textures / skybox / sampling code.
-``FORWARD_LAUNCHES`` and ``RECORD_LAUNCHES`` count the kernel's launches
-(not twin calls) by variant, and :func:`zero_counts` clears both;
-``WALK_COUNTS``, ``CULL_COUNTS``, ``TRI_COUNTS`` and ``SEARCH_COUNTS`` count
-the plain versions' work (both modes).
+``csrc/megakernel.cu`` (``flat_kernel``: persistent lanes in one flat
+bounce loop fed by a work counter, over :func:`brute_rows`' staged rows or
+a sphere tree, with K7's triangle walk after the brute search; see the
+note there) or raises; for CPU tensors it runs its eager twin
+(:func:`run_megakernel_reference`, :func:`run_megakernel_record_reference`):
+all lanes in lockstep with per-lane sample regeneration, as the TPU kernel
+runs them, the brute (lanes x N) quadratic in lane chunks or the lockstep
+walks (near-first for a sphere tree, DFS for a mesh's), and shading from
+the ported materials / textures /
+skybox / sampling code. ``FORWARD_LAUNCHES`` and ``RECORD_LAUNCHES`` count
+the kernel's launches (not twin calls) by variant, and :func:`zero_counts`
+clears both; ``WALK_COUNTS``, ``CULL_COUNTS``, ``TRI_COUNTS`` and
+``SEARCH_COUNTS`` count the plain versions' work (both modes).
 
 Layouts: ``smem`` (8,) int32 ``[spp, seed, width, max_depth, accum_from,
 0...]`` (spp and seed are uint32 bit patterns; accum_from is read in record
@@ -61,6 +61,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -89,17 +90,15 @@ C_IN = 32  # sphere attribute table columns (make_sphere_table layout)
 #  1). Slots 38-47 are padding.
 CAM_SIZE = 48
 
-# The kernel stages five float32 columns per row in shared memory, of which
-# a Hopper block can use 227 KB (232,448 bytes). K1 and K2 stage 16 bytes
-# of each active row (center, |c|^2 - r^2: brute_rows), which MAX_ROWS
-# rows, padded to a multiple of 4, fit too.
+# A Hopper block can use 227 KB (232,448 bytes) of shared memory. The brute
+# search stages 16 bytes of each active row there (center, |c|^2 - r^2:
+# brute_rows), 36 with the motion columns (K8). Its row caps, on which the
+# routes build, allow 20 bytes a row (40 moving), so that MAX_ROWS rows
+# (MAX_ROWS_ANIMATED moving), padded to a multiple of 4, fit with room to
+# spare.
 SHARED_MEM_BYTES = 232448
-SMEM_COLS = 5
-MAX_ROWS = SHARED_MEM_BYTES // (SMEM_COLS * 4)
-# The animated variant stages five motion columns more (center delta, s1,
-# s2): 10 floats a row.
-MOTION_COLS = 5
-MAX_ROWS_ANIMATED = SHARED_MEM_BYTES // ((SMEM_COLS + MOTION_COLS) * 4)
+MAX_ROWS = SHARED_MEM_BYTES // 20
+MAX_ROWS_ANIMATED = SHARED_MEM_BYTES // 40
 
 # sample0 of a padding lane: it never issues.
 NO_SAMPLE = 2**30
@@ -123,9 +122,9 @@ CLUSTER = 256
 SPH_LEAF = 128
 NODE_WIN = 16
 _FAR = np.float32(1.0e30)
-# Spheres a leaf of K6's swept tree (:func:`swept_tables`): a leaf costs a
-# slab test and its rows their moving quadratics; chosen by measurement on
-# the card against 4 and 16 (PERF.md).
+# Spheres a leaf of K5's and K6's trees (:func:`swept_tables`): a leaf costs
+# a slab test and its rows their quadratics; chosen by measurement on the
+# card against 4 and 16 (PERF.md).
 SWEPT_LEAF = 8
 
 # The walk's slab test runs against each node box grown by SLAB_EPS * (1 +
@@ -135,58 +134,50 @@ SWEPT_LEAF = 8
 # C6), and a box that missed such a point would skip a row that the brute
 # search takes; 4e-3 covers that bound more than twice.
 SLAB_EPS = float(np.float32(4e-3))
-# The walk stages the node boxes (6 float32) and [first, count, miss]
-# (3 int32) beside the five search columns.
+# A walk's node in the kernel: two 16-byte entries (box, first and count)
+# and its skip link. K5 and K6 stage their tree's nodes in shared memory
+# where they fit and read their rows from global memory.
 NODE_BYTES = 9 * 4
 # A moving row's search columns beside the static ones (0-2, 4): the
-# center delta, s1 and s2. K6 stages its tree's nodes (NODE_BYTES each) in
-# shared memory where they fit and reads its rows from global memory.
+# center delta, s1 and s2.
 MOVING_COLS = (24, 25, 26, 28, 29)
 # Row ids travel through float32 column 31, exact below 2^24.
 MAX_ID_ROWS = 1 << 24
-# K6 walks the nearer child first, deferring the far ones on a stack of
-# this many entries, one at most a level: :func:`swept_tables` builds no
-# deeper tree, and :func:`swept_inputs` refuses one.
+# K5's and K6's walks take the nearer child first, deferring the far ones
+# on a stack of this many entries, one at most a level: :func:`swept_tables`
+# builds no deeper tree, and :func:`swept_inputs` refuses one.
 TREE_STACK = 64
 
-# K7 stages each triangle-BVH node's box (6 float32) and [first, count,
-# miss] (3 int32) in shared memory beside the sphere rows' columns (20
-# bytes a row, 40 with the motion columns of an animated table), so a tree
-# fits up to (SHARED_MEM_BYTES - N * 20) / 36 nodes: 6452 beside
-# torus_teapot's 8 sphere rows, 6448 beside them moving. Its rows (16
-# float32 Woop, or 32 for a moving mesh, K7 moving) and material rows (24
-# float32) are read from global memory.
+# K7 reads a mesh's rows (16 float32 Woop, or 32 for a moving mesh, K7
+# moving, of which it reads the 18 its test needs from a packed copy,
+# :func:`moving_tri_rows`), its material rows (24 float32) and its tree's
+# nodes from global memory: staged in shared memory, torus_teapot's nodes
+# halved the resident blocks and slowed the launch (PERF.md), so a mesh's
+# tree has no node cap.
 TRI_COLS = 16
 TRI_MOVING_COLS = 32
 MAT_COLS = 24
 # The material id's column: Woop rows, moving rows.
 TRI_MAT_COL = {TRI_COLS: 15, TRI_MOVING_COLS: 12}
-
-
-def row_bytes(animated: bool = False) -> int:
-    """Shared-memory bytes the kernel stages for each sphere row."""
-    return (SMEM_COLS + (MOTION_COLS if animated else 0)) * 4
-
-
-def max_tri_nodes(n: int, animated: bool = False) -> int:
-    """The most triangle-BVH nodes K7 stages beside an n-row sphere table
-    (``animated``: with its motion columns)."""
-    return (SHARED_MEM_BYTES - n * row_bytes(animated)) // NODE_BYTES
+# The moving-row columns K7 moving's test reads, in the packed order of
+# five 16-byte entries (v0, e1 x | e1 y/z, e2 x/y | e2 z, v0d | e1d, e2d x |
+# e2d y/z, the material id, 0).
+MOVING_TRI_PACK = (0, 1, 2, 3, 4, 5, 6, 7, 8, 16, 17, 18, 19, 20, 21, 22, 23, 24, 12, 13)
 
 
 # Launches of the CUDA kernel since the last zero_counts() (twin calls
-# excluded), by variant: "brute" K1 / K2 (over every row), "walk" K5 (the
-# sphere BVH), "motion" K8 brute with animated and / or cam_animated,
-# "motion_walk" K8's camera on K5's walk, "cull" K6 (the swept tree, with
-# any motion flags), "tri" K7 (the triangle BVH), "tri_motion" K7 with
-# either motion flag (K7 moving with animated).
+# excluded), by variant: "brute" K1 / K2 (over every row), "walk" K5 (a
+# static table's tree), "motion" K8 brute with animated and / or
+# cam_animated, "motion_walk" K8's camera on K5's walk, "cull" K6 (a moving
+# table's swept tree, with either camera), "tri" K7 (the triangle BVH),
+# "tri_motion" K7 with either motion flag (K7 moving with animated).
 FORWARD_LAUNCHES = {"brute": 0, "walk": 0, "motion": 0, "motion_walk": 0, "cull": 0,
                     "tri": 0, "tri_motion": 0}
 RECORD_LAUNCHES = dict(FORWARD_LAUNCHES)
 # The plain walks' work since the last reset: K5's (WALK_COUNTS) and K6's
-# (CULL_COUNTS, the swept tree) slab tests of a node, rows of a leaf tested,
-# and rows whose discriminant was not negative; K7's slab tests and leaf
-# rows tested.
+# (CULL_COUNTS) slab tests of a node, rows of a leaf tested, and rows whose
+# discriminant was not negative; K7's slab tests and leaf rows tested
+# (TRI_COUNTS).
 WALK_COUNTS = {"nodes": 0, "rows": 0, "roots": 0}
 CULL_COUNTS = dict(WALK_COUNTS)
 TRI_COUNTS = {"nodes": 0, "rows": 0}
@@ -255,21 +246,24 @@ def sphere_bvh_tables(center, radius, active, leaf_size=None, center_d=None,
     return perm, snodes, smeta
 
 
-def swept_tables(center, radius, active, center_d, radius_d):
-    """K6's swept tree of a moving table -> (perm, snodes, smeta) in
-    :func:`sphere_bvh_tables`' layout: an SAH tree of ``SWEPT_LEAF`` spheres
-    a leaf over boxes that hold each active sphere at shutter open (center,
-    |radius|) and close (center + center_d, |radius + radius_d|), so at
-    every shutter fraction between. Where the chunk-cull branch's 256-row
-    clusters (:func:`cluster_spheres`) give a ray about 1,300-1,700 rows to
-    test on bouncing stress n7744, this tree gives it about 30 nodes and 25
-    rows (PERF.md). Where the SAH tree is deeper than K6's stack
-    (``TREE_STACK``), it is built with median splits instead, about
-    log2(active rows / SWEPT_LEAF) deep: 21 at ``MAX_ID_ROWS``."""
-    tables = sphere_bvh_tables(center, radius, active, SWEPT_LEAF, center_d, radius_d)
+def swept_tables(center, radius, active, center_d=None, radius_d=None, leaf_size=None):
+    """The tree a walk takes over a sphere table -> (perm, snodes, smeta) in
+    :func:`sphere_bvh_tables`' layout: an SAH tree of ``leaf_size`` spheres
+    a leaf (default ``SWEPT_LEAF``) over each active sphere's box: K5's of a
+    static table (no deltas), K6's of a moving one, whose boxes hold each
+    sphere at shutter open (center, |radius|) and close (center + center_d,
+    |radius + radius_d|), so at every shutter fraction between. Where the
+    chunk-cull branch's 256-row clusters (:func:`cluster_spheres`) give a
+    ray about 1,300-1,700 rows to test on bouncing stress n7744, this tree
+    gives it about 30 nodes and 25 rows (PERF.md). Where the SAH tree is
+    deeper than the walk's stack (``TREE_STACK``), it is built with median
+    splits instead, about log2(active rows / leaf_size) deep: 21 at
+    ``MAX_ID_ROWS``."""
+    leaf_size = leaf_size or SWEPT_LEAF
+    tables = sphere_bvh_tables(center, radius, active, leaf_size, center_d, radius_d)
     k = tables[1].shape[0]
     if int(tree_depth(torch.from_numpy(tables[2][: 3 * k].reshape(k, 3)))) > TREE_STACK:
-        tables = sphere_bvh_tables(center, radius, active, SWEPT_LEAF, center_d, radius_d,
+        tables = sphere_bvh_tables(center, radius, active, leaf_size, center_d, radius_d,
                                    method="median")
     return tables
 
@@ -351,27 +345,13 @@ def _grown(lo, hi):
     return torch.cat([lo - pad, hi + pad], dim=1).contiguous()
 
 
-def walk_inputs(sph_nodes, sph_meta):
-    """What the walk reads from the sphere-BVH tables -> (nodes (K, 6)
-    float32, each box grown by SLAB_EPS * (1 + its largest |coordinate|),
-    the per-ray part of the margin being added in the walk; meta (K, 3)
-    int32 [first, count, miss]). The guard rows of ``sph_meta`` are not
-    read."""
-    if sph_nodes is None or sph_meta is None:
-        raise ValueError("the sphere-BVH walk needs both sph_nodes and sph_meta")
-    k = sph_nodes.shape[0] if sph_nodes.dim() == 2 else -1
-    build.check_tensors(sph_nodes.device, (
-        ("sph_nodes", sph_nodes, torch.float32, (k, 16)),
-        ("sph_meta", sph_meta, torch.int32, (3 * (k + NODE_WIN),)),
-    ))
-    nodes = _grown(sph_nodes[:, 0:3], sph_nodes[:, 3:6])
-    return nodes, sph_meta[: 3 * k].reshape(k, 3).contiguous()
-
-
 def swept_inputs(swept_nodes, swept_meta, table):
-    """What K6's walk reads from the swept tree (:func:`swept_tables`) ->
-    (nodes (K, 6) float32, meta (K, 3) int32), as :func:`walk_inputs` gives
-    them, over ``table`` in the tree's order (``integrator.permute_table``).
+    """What K5's and K6's walk reads from a tree of :func:`swept_tables` ->
+    (nodes (K, 6) float32, each box grown by SLAB_EPS * (1 + its largest
+    |coordinate|), the per-ray part of the margin being added in the walk;
+    meta (K, 3) int32 [first, count, miss]), over ``table`` in the tree's
+    order (``integrator.permute_table``). The guard rows of ``swept_meta``
+    are not read.
 
     Raises where the tree does not hold the table's spheres as the walk
     needs: where [first, count, miss] address rows outside the table or a
@@ -381,15 +361,21 @@ def swept_inputs(swept_nodes, swept_meta, table):
     24-26, |3 + 27|) leaves its leaf's grown box, where an inner node's
     grown box does not hold its two children's (the left child i + 1, the
     right one its skip link, which ends where its parent's does), or where
-    the tree is deeper than K6's stack (``TREE_STACK``). Else the walk would
-    skip rows that the brute search takes, or overrun its stack. The checks
-    run on the table's device and are read back in one host sync."""
+    the tree is deeper than the walk's stack (``TREE_STACK``). Else the walk
+    would skip rows that the brute search takes, or overrun its stack. A
+    static table's motion columns are zero: its spheres at open and close
+    are one. The checks run on the table's device and are read back in one
+    host sync."""
     if swept_nodes is None or swept_meta is None:
-        raise ValueError("K6's walk needs both swept_nodes and swept_meta")
-    nodes, meta = walk_inputs(swept_nodes, swept_meta)
-    dev, n, k = table.device, table.shape[0], nodes.shape[0]
-    if nodes.device != dev:
-        raise ValueError(f"swept_nodes is on {nodes.device}, not {dev}")
+        raise ValueError("the tree walk needs both swept_nodes and swept_meta")
+    k = swept_nodes.shape[0] if swept_nodes.dim() == 2 else -1
+    build.check_tensors(table.device, (
+        ("swept_nodes", swept_nodes, torch.float32, (k, 16)),
+        ("swept_meta", swept_meta, torch.int32, (3 * (k + NODE_WIN),)),
+    ))
+    nodes = _grown(swept_nodes[:, 0:3], swept_nodes[:, 3:6])
+    meta = swept_meta[: 3 * k].reshape(k, 3).contiguous()
+    dev, n = table.device, table.shape[0]
     if k == 0:
         raise ValueError("the swept tree has no nodes")
     first, count, miss = meta[:, 0].long(), meta[:, 1].long(), meta[:, 2].long()
@@ -442,7 +428,7 @@ def swept_inputs(swept_nodes, swept_meta, table):
         )
     if not shallow:
         raise ValueError(f"the swept tree is deeper than K6's stack of {TREE_STACK} "
-                         "entries; build it with swept_tables")
+                         "entries, which K5's walk shares; build it with swept_tables")
     return nodes, meta
 
 
@@ -454,8 +440,6 @@ def run_megakernel(
     table,
     swept_nodes=None,
     swept_meta=None,
-    sph_nodes=None,
-    sph_meta=None,
     tri_nodes=None,
     tris=None,
     mats=None,
@@ -466,109 +450,69 @@ def run_megakernel(
 ):
     """Dispatch the persistent megakernel -> per-lane radiance sums (3, R).
 
-    With ``sph_nodes`` / ``sph_meta`` the closest hit walks the sphere BVH
-    over the permuted ``table`` (K5); with ``swept_nodes`` / ``swept_meta``
-    (:func:`swept_tables`) it walks the swept tree over the table in the
-    tree's order (K6); else it tests every row (K1). ``animated`` moves the
-    spheres on the linear shutter (table columns 24-29) and ``cam_animated``
-    re-derives the camera per path at its shutter fraction (cam slots
-    19-37): K8, the kernel's motion variants, over every row or (K6) the
-    swept tree, whose boxes hold the spheres over the whole shutter; the
-    sphere BVH's boxes do not, and a moving table on it raises
-    ``ValueError``. K6 without ``animated`` (a static table's tree) is
-    instantiated here, with a static camera, and not in record mode: the
-    other such launches raise ``ValueError``. A mesh's ``tri_nodes`` (K,
-    6), ``tris``, ``mats`` (NM, 24) and ``tri_meta`` (K, 3)
-    (``integrator.make_tri_tables``) add the triangle stage (K7) after the
-    brute search: ``tris`` (M, 16) Woop rows of a static mesh, or with
-    ``animated`` (M, 32) rows of a moving one (K7 moving, at each path's
-    shutter fraction). CUDA tensors launch the CUDA kernel; CPU tensors run
-    the eager reference. The triangle stage beside a walk (K5 or K6) raises
-    ``NotImplementedError``.
+    With ``swept_nodes`` / ``swept_meta`` (:func:`swept_tables`) the
+    closest hit walks that tree over ``table`` in the tree's order: a
+    static table's (K5) or, with ``animated``, a moving one's whose boxes
+    hold the spheres over the whole shutter (K6); else it tests every row
+    (K1). ``animated`` moves the spheres on the linear shutter (table
+    columns 24-29) and ``cam_animated`` re-derives the camera per path at
+    its shutter fraction (cam slots 19-37): K8, the kernel's motion
+    variants, on any search. A mesh's ``tri_nodes`` (K, 6), ``tris``,
+    ``mats`` (NM, 24) and ``tri_meta`` (K, 3) (``integrator.make_tri_tables``)
+    add the triangle stage (K7) after the brute search: ``tris`` (M, 16)
+    Woop rows of a static mesh, or with ``animated`` (M, 32) rows of a
+    moving one (K7 moving, at each path's shutter fraction). CUDA tensors
+    launch the CUDA kernel; CPU tensors run the eager reference. The
+    triangle stage beside a tree walk raises ``NotImplementedError``.
     """
     _check_inputs(smem, pix, sample0, cam, table)
-    walk = _walk(sph_nodes, sph_meta, table)
+    motion = dict(animated=bool(animated), cam_animated=bool(cam_animated))
+    _check_combination(swept_nodes, swept_meta, tris, **motion)
     cull = _cull(swept_nodes, swept_meta, table)
     tri = _tri(tri_nodes, tris, mats, tri_meta, table)
-    motion = dict(animated=bool(animated), cam_animated=bool(cam_animated))
-    _check_combination(walk, cull, tri, **motion)
     if table.device.type == "cpu":
         return _reference_loop(smem, pix, sample0, cam, table, rec_depth=0, radiance=True,
-                               walk=walk, cull=cull, tri=tri, **motion)[0]
-    return _launch(smem, pix, sample0, cam, table, walk, cull, tri, **motion)
+                               cull=cull, tri=tri, **motion)[0]
+    return _launch(smem, pix, sample0, cam, table, None, True, cull, tri, **motion)[0]
 
 
-def _check_combination(walk, cull, tri, animated, cam_animated=False, record=False):
-    """Raise for the variants the kernel does not instantiate, for a moving
-    table on the sphere BVH, and for a triangle table whose layout is not
-    the one ``animated`` reads."""
-    if walk is not None and cull is not None:
-        raise ValueError("pass the sphere-BVH tables (sph_nodes, sph_meta) or the "
-                         "swept tree (swept_nodes, swept_meta), not both")
-    if cull is not None and not animated and (cam_animated or record):
-        raise ValueError(
-            "the swept-tree walk (K6) over a static table is instantiated in forward "
-            "mode with a static camera only (no route selects it: a static big table "
-            "walks the sphere BVH, K5); pass animated=True for a moving table"
-        )
-    if walk is not None and animated:
-        raise ValueError(
-            "the sphere BVH's boxes hold the spheres at one time: a moving table "
-            "walks the swept tree of swept_tables (swept_nodes, K6; the chunk-cull "
-            "branch's clusters in the JAX package), whose boxes hold them over the "
-            "whole shutter"
-        )
-    if tri is None:
+def _check_combination(swept_nodes, swept_meta, tris, animated, cam_animated=False):
+    """Raise for the triangle stage beside a tree walk, which the kernel
+    does not instantiate, and for a triangle table whose layout is not the
+    one ``animated`` reads."""
+    if tris is None:
         return
-    if walk is not None or cull is not None:
+    if swept_nodes is not None or swept_meta is not None:
         raise NotImplementedError(
             "the megakernel's triangle stage (K7) runs beside the brute sphere "
-            "search only: a mesh with a sphere walk (K5's BVH or K6's swept tree) is "
-            "a template combination not instantiated yet (ROADMAP A11)"
+            "search only: a mesh beside a tree walk (K5's or K6's) is a template "
+            "combination not instantiated yet (ROADMAP A11)"
         )
-    if (tri[2].shape[1] == TRI_MOVING_COLS) != animated:
+    if tris.dim() == 2 and (tris.shape[1] == TRI_MOVING_COLS) != animated:
         raise ValueError(
             f"an animated launch takes a moving mesh's (M, {TRI_MOVING_COLS}) rows and a "
             f"static one a static mesh's (M, {TRI_COLS}) Woop rows "
             f"(integrator.make_tri_tables gives every mesh of an animated scene the "
-            f"moving layout), got {tuple(tri[2].shape)} with animated={animated}"
+            f"moving layout), got {tuple(tris.shape)} with animated={animated}"
         )
 
 
-def _walk(sph_nodes, sph_meta, table):
-    """:func:`walk_inputs`, checked against the table, or None without a
-    sphere BVH."""
-    if sph_nodes is None and sph_meta is None:
-        return None
-    nodes, meta = walk_inputs(sph_nodes, sph_meta)
-    if nodes.device != table.device:
-        raise ValueError(f"sph_nodes is on {nodes.device}, not {table.device}")
-    _check_links(meta, table.shape[0], "sph_meta", "table")
-    return nodes, meta
-
-
 def _cull(swept_nodes, swept_meta, table):
-    """:func:`swept_inputs`, or None without a swept tree."""
+    """:func:`swept_inputs`, or None without a tree."""
     if swept_nodes is None and swept_meta is None:
         return None
     return swept_inputs(swept_nodes, swept_meta, table)
 
 
-def _check_links(meta, rows: int, name: str, what: str) -> None:
-    """Raise where [first, count, miss] address rows outside ``what`` or a
-    skip link does not point past its node."""
-    first, count, miss = meta[:, 0], meta[:, 1], meta[:, 2]
-    ahead = torch.arange(1, meta.shape[0] + 1, device=meta.device)
-    if not bool(((first >= 0) & (count >= 0) & (first + count <= rows)).all()):
-        raise ValueError(f"{name} addresses rows outside the {what}")
-    if not bool((miss >= ahead).all()):  # the walk only moves forward
-        raise ValueError(f"{name} has a skip link that does not point past its node")
-
-
 def _tri(tri_nodes, tris, mats, tri_meta, table):
     """The triangle stage's tables, checked, or None without a mesh ->
     (tri_nodes (K, 6), tri_meta (K, 3) int32, tris (M, 16) or (M, 32),
-    mats (NM, 24))."""
+    mats (NM, 24)).
+
+    Raises where [first, count, miss] address rows outside ``tris`` or a
+    skip link does not point past its node, or where a row's material id is
+    outside ``mats``. The checks run on the table's device and are read back
+    in one host sync."""
     given = (tri_nodes, tris, mats, tri_meta)
     if all(x is None for x in given):
         return None
@@ -585,9 +529,17 @@ def _tri(tri_nodes, tris, mats, tri_meta, table):
             or mats.shape[1] != MAT_COLS):
         raise ValueError(f"tris must be (M, {TRI_COLS}) or (M, {TRI_MOVING_COLS}) and mats "
                          f"(NM, {MAT_COLS}), got {tuple(tris.shape)} and {tuple(mats.shape)}")
-    _check_links(tri_meta, tris.shape[0], "tri_meta", "tris")
+    first, count, miss = (tri_meta[:, j].long() for j in range(3))
+    node = torch.arange(k, device=tri_meta.device)
+    links = ((first >= 0) & (count >= 0) & (first + count <= tris.shape[0])
+             & (miss > node)).all()
     mid = tris[:, TRI_MAT_COL[tris.shape[1]]]
-    if not bool(((mid >= 0) & (mid < mats.shape[0]) & (mid == mid.floor())).all()):
+    ids = ((mid >= 0) & (mid < mats.shape[0]) & (mid == mid.floor())).all()
+    links, ids = torch.stack([links, ids]).tolist()
+    if not links:
+        raise ValueError("tri_meta addresses rows outside the tris, or has a skip link that "
+                         "does not point past its node")
+    if not ids:
         raise ValueError("tris holds a material id outside mats")
     return tri_nodes, tri_meta, tris, mats
 
@@ -609,67 +561,37 @@ def _check_inputs(smem, pix, sample0, cam, table):
         raise ValueError(f"table must be (N, {C_IN}), got {tuple(table.shape)}")
 
 
-def check_rows(n: int, walk=None, animated: bool = False, tri=None, cull=None) -> None:
-    """Raise where the kernel's shared memory cannot hold what it stages:
-    ``n`` sphere rows' columns (with the motion columns when ``animated``),
-    with ``walk`` the sphere-BVH nodes and with ``tri`` the triangle-BVH
-    nodes (at most :func:`max_tri_nodes`). K6 (``cull``) reads its rows from
-    global memory, and its nodes too where they do not fit in shared
-    memory; its records carry row ids in float32, below ``MAX_ID_ROWS``."""
+def check_rows(n: int, animated: bool = False, cull=None) -> None:
+    """Raise where the kernel's search cannot take an ``n``-row table: the
+    brute search above its row cap (``MAX_ROWS``, with the motion columns
+    when ``animated`` ``MAX_ROWS_ANIMATED``), a tree walk (``cull``, K5 or
+    K6, whose records carry row ids in float32) at ``MAX_ID_ROWS`` rows or
+    more. A walk reads its rows from global memory, and its nodes too where
+    they do not fit in shared memory, as K7 reads its mesh."""
     if cull is not None:
         if n > MAX_ID_ROWS:
             raise ValueError(
-                f"the swept-tree walk carries row ids in float32, exact below "
+                f"the tree walk carries row ids in float32, exact below "
                 f"{MAX_ID_ROWS} rows; got {n}"
             )
         return
-    if tri is not None:
-        k, cap = tri[0].shape[0], max_tri_nodes(n, animated)
-        if k > cap:
-            raise ValueError(
-                f"the triangle BVH has {k} nodes ({NODE_BYTES} bytes each), more than "
-                f"the {cap} that fit in a block's {SHARED_MEM_BYTES} bytes of shared "
-                f"memory beside {n} sphere rows staged at {row_bytes(animated)} bytes "
-                f"each; build the scene with a larger leaf_size"
-            )
-    if walk is None:
-        cap = MAX_ROWS_ANIMATED if animated else MAX_ROWS
-        if n > cap:
-            raise ValueError(
-                f"{n} sphere rows exceed the {cap} rows whose intersection "
-                f"columns fit in a block's {SHARED_MEM_BYTES} bytes of shared "
-                f"memory; bigger scenes need a walk: the sphere BVH (K5) for a "
-                f"static table, the swept tree (K6) for any"
-            )
-        return
-    need = n * SMEM_COLS * 4 + walk[0].shape[0] * NODE_BYTES
-    if need > SHARED_MEM_BYTES:
+    cap = MAX_ROWS_ANIMATED if animated else MAX_ROWS
+    if n > cap:
         raise ValueError(
-            f"the sphere-BVH walk stages {n} permuted rows and "
-            f"{walk[0].shape[0]} nodes, {need} bytes, more than a block's "
-            f"{SHARED_MEM_BYTES} bytes of shared memory; the swept-tree walk (K6) "
-            f"reads its rows from global memory"
+            f"{n} sphere rows exceed the {cap} rows whose intersection "
+            f"columns fit in a block's {SHARED_MEM_BYTES} bytes of shared "
+            f"memory; bigger scenes need a tree walk (K5 for a static table, K6 for "
+            f"a moving one)"
         )
 
 
-def _tree_args(walk, tri):
-    """The C entry points' (nodes, meta, tnodes, tmeta, tris, mats)
-    pointers of the nested loop's structures (K5's sphere BVH, K7's
-    triangle BVH) and their (k, kt) node counts; None and 0 where absent."""
-    held = [*(walk or (None, None)), *(tri or (None,) * 4)]
-    ptrs = [None if t is None else t.data_ptr() for t in held]
-    k, kt = (0 if x is None else x[0].shape[0] for x in (walk, tri))
-    return ptrs, k, kt
-
-
-def _variant(walk, cull, tri, animated, cam_animated) -> str:
+def _variant(cull, tri, animated, cam_animated) -> str:
     """The launch-count key of a launch."""
     if cull is not None:
-        return "cull"
+        return "cull" if animated else "motion_walk" if cam_animated else "walk"
     if tri is not None:
         return "tri_motion" if animated or cam_animated else "tri"
-    motion = "motion" if animated or cam_animated else ""
-    return "_".join(x for x in (motion, "walk" if walk is not None else "") if x) or "brute"
+    return "motion" if animated or cam_animated else "brute"
 
 
 def _row_entries(table, animated: bool):
@@ -700,84 +622,112 @@ def brute_rows(table, animated: bool = False):
     return rows, ids.to(torch.int32), act.sum(dtype=torch.int32).reshape(1)
 
 
+def moving_tri_rows(tris):
+    """K7 moving's packed copy of a moving mesh's (M, 32) rows -> (M, 20)
+    float32, five 16-byte entries a row: the 18 columns its test reads
+    (v0, e1, e2, v0d, e1d, e2d) in ``MOVING_TRI_PACK``'s order, then the
+    material id and a zero."""
+    return tris[:, list(MOVING_TRI_PACK)].contiguous()
+
+
 @functools.cache
 def _flat_shape(record: bool, radiance: bool, animated: bool, cam_animated: bool, n: int,
-                k: int, device: int) -> tuple:
+                k: int, kt: int, device: int) -> tuple:
     """The C library's flat-loop launch shape, queried once per
-    (instantiation, n, k, card); the query also lets the kernel take its
-    dynamic shared memory, so each launch is sized from here and itself
+    (instantiation, n, k, kt, card); the query also lets the kernel take
+    its dynamic shared memory, so each launch is sized from here and itself
     queries nothing."""
     lib = build.load("megakernel")
     shape = (ctypes.c_int * 6)()
     with torch.cuda.device(device):
         build.check(lib, lib.crucible_megakernel_flat_shape(
-            int(record), int(radiance), int(animated), int(cam_animated), n, k, shape),
+            int(record), int(radiance), int(animated), int(cam_animated), n, k, kt, shape),
             "flat shape")
     return tuple(shape)
 
 
 def flat_launch_shape(record: bool, radiance: bool, n: int, r: int, *,
                       animated: bool = False, cam_animated: bool = False, nodes: int = 0,
-                      device=None) -> dict:
+                      tri_nodes: int = 0, device=None) -> dict:
     """The flat loop's launch on the current card (or ``device``) for an
     n-row table and R lanes, in forward (``record`` False, ``radiance``
-    True) or record mode, with K8's flags, over the brute search or
-    (``nodes`` > 0) K6's swept tree of that many nodes: grid (as many blocks
-    as stay resident, none more than the lanes need), resident blocks per
-    SM, SMs, threads per block, registers and local (spill) bytes per
-    thread, and dynamic shared memory per block."""
+    True) or record mode, with K8's flags, over the brute search, a sphere
+    tree of ``nodes`` nodes (K5, K6) or the brute search with a mesh's tree
+    of ``tri_nodes`` nodes (K7): grid (as many blocks as stay resident,
+    none more than the lanes need), resident blocks per SM, SMs, threads
+    per block, registers and local (stack and spill) bytes per thread, and
+    dynamic shared memory per block."""
     index = None if device is None else torch.device(device).index
     dev = torch.cuda.current_device() if index is None else index
     per_sm, sms, threads, regs, local, smem = _flat_shape(
-        bool(record), bool(radiance), bool(animated), bool(cam_animated), n, nodes, dev)
+        bool(record), bool(radiance), bool(animated), bool(cam_animated), n, nodes, tri_nodes,
+        dev)
     return dict(grid=min(per_sm * sms, -(-r // threads)), blocks_per_sm=per_sm, sms=sms,
                 threads=threads, registers=regs, spill_bytes=local, smem_bytes=smem)
 
 
-def _flat_args(walk, cull, tri, table, animated):
-    """The C entry points' (frows, fids, flive, fnodes, fmiss, next)
-    pointers, K6's node count, and the tensors they point into: the brute
-    search's staged rows (:func:`brute_rows`) or K6's tree (its rows'
+def _flat_args(cull, tri, table, animated):
+    """The C entry points' (frows, fids, flive, fnodes, fmiss, trows, tris,
+    mats, tnodes, tmiss, next) pointers, the sphere tree's and the mesh
+    tree's node counts, and the tensors they point into: the brute
+    search's staged rows (:func:`brute_rows`) or a tree's (its rows'
     entries in table order, its nodes as (K, 8): grown box, then first and
-    count as int bits, and its skip links), and a work counter; nulls for
-    the nested loop (K5, K7)."""
-    if walk is not None or tri is not None:
-        return [None] * 6, 0, ()
+    count as int bits, and its skip links); a mesh's rows as the walk reads
+    them (the Woop rows, or :func:`moving_tri_rows`), its rows and material
+    rows, its nodes in the same (K, 8) layout and skip links; and a work
+    counter."""
+    def node_entries(nodes, meta):
+        return (torch.cat([nodes, meta[:, 0:2].contiguous().view(torch.float32)], dim=1),
+                meta[:, 2].contiguous())
+
     if cull is None:
         held = (*brute_rows(table, animated), None, None)
     else:
-        nodes, meta = cull
-        fnodes = torch.cat([nodes, meta[:, 0:2].contiguous().view(torch.float32)], dim=1)
-        held = (_row_entries(table, True), None, None, fnodes, meta[:, 2].contiguous())
-    held = (*held, torch.empty(1, dtype=torch.int32, device=table.device))
+        held = (_row_entries(table, animated), None, None, *node_entries(*cull))
+    if tri is None:
+        held += (None,) * 5
+    else:
+        t_nodes, t_meta, tris, mats = tri
+        trows = moving_tri_rows(tris) if animated else tris
+        if trows.data_ptr() % 16:  # read as 16-byte entries
+            trows = trows.clone()
+        held += (trows, tris, mats, *node_entries(t_nodes, t_meta))
+    held += (torch.empty(1, dtype=torch.int32, device=table.device),)
     fk = 0 if cull is None else cull[0].shape[0]
-    return [None if t is None else t.data_ptr() for t in held], fk, held
+    kt = 0 if tri is None else tri[0].shape[0]
+    return [None if t is None else t.data_ptr() for t in held], fk, kt, held
 
 
-def _launch(smem, pix, sample0, cam, table, walk, cull, tri, animated, cam_animated):
-    n = table.shape[0]
-    check_rows(n, walk, animated, tri, cull)
+def _launch(smem, pix, sample0, cam, table, max_depth, radiance, cull, tri, animated,
+            cam_animated):
+    """One launch of the kernel -> (acc (3, R), rec (max_depth, R) or None):
+    forward mode when ``max_depth`` is None, else record mode."""
+    record = max_depth is not None
+    n, r = table.shape[0], pix.shape[1]
+    check_rows(n, animated, cull)
     lib = build.load("megakernel")
-    r = pix.shape[1]
-    out = torch.empty((3, r), dtype=torch.float32, device=table.device)
-    ptrs, k, kt = _tree_args(walk, tri)
-    fptrs, fk, _held = _flat_args(walk, cull, tri, table, animated)
-    grid = 0
-    if walk is None and tri is None:
-        grid = flat_launch_shape(False, True, n, r, animated=animated,
-                                 cam_animated=cam_animated, nodes=fk,
-                                 device=table.device)["grid"]
+    acc = torch.empty((3, r), dtype=torch.float32, device=table.device)
+    rec = (torch.empty((max_depth, r), dtype=torch.int32, device=table.device)
+           if record else None)
+    ptrs, fk, kt, _held = _flat_args(cull, tri, table, animated)
+    shape = flat_launch_shape(record, radiance, n, r, animated=animated,
+                              cam_animated=cam_animated, nodes=fk, tri_nodes=kt,
+                              device=table.device)
+    flags = (ctypes.c_float(T_MIN), int(animated), int(cam_animated))
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.crucible_megakernel_forward(
-            smem.data_ptr(), pix.data_ptr(), sample0.data_ptr(),
-            cam.data_ptr(), table.data_ptr(), *ptrs, *fptrs, n, k, kt, fk, grid, r,
-            ctypes.c_float(T_MIN), int(animated), int(cam_animated),
-            out.data_ptr(), stream,
-        )
-    build.check(lib, err, "megakernel")
-    FORWARD_LAUNCHES[_variant(walk, cull, tri, animated, cam_animated)] += 1
-    return out
+        head = (smem.data_ptr(), pix.data_ptr(), sample0.data_ptr(), cam.data_ptr(),
+                table.data_ptr(), *ptrs, n, fk, kt, shape["grid"], r)
+        if record:
+            err = lib.crucible_megakernel_record(*head, max_depth, flags[0], int(bool(radiance)),
+                                                 *flags[1:], acc.data_ptr(), rec.data_ptr(),
+                                                 stream)
+        else:
+            err = lib.crucible_megakernel_forward(*head, *flags, acc.data_ptr(), stream)
+    build.check(lib, err, "record megakernel" if record else "megakernel")
+    (RECORD_LAUNCHES if record else FORWARD_LAUNCHES)[
+        _variant(cull, tri, animated, cam_animated)] += 1
+    return acc, rec
 
 
 def run_megakernel_record(
@@ -786,14 +736,12 @@ def run_megakernel_record(
     sample0,
     cam,
     table,
+    swept_nodes=None,
+    swept_meta=None,
     tri_nodes=None,
     tris=None,
     mats=None,
     tri_meta=None,
-    swept_nodes=None,
-    swept_meta=None,
-    sph_nodes=None,
-    sph_meta=None,
     *,
     max_depth: int,
     radiance: bool = False,
@@ -807,87 +755,52 @@ def run_megakernel_record(
     ``acc`` is that path's radiance from bounce ``smem[4]`` on when
     ``radiance`` (the fused mode), else zeros; the records are the same in
     both modes. ``smem[3]`` is overridden by ``max_depth``, which sizes the
-    records. With ``sph_nodes`` / ``sph_meta`` the closest hit walks the
-    sphere BVH over the permuted ``table`` (K5), with ``swept_nodes`` /
-    ``swept_meta`` the swept tree over the table in its order (K6), and the
-    records hold the winners' original ids; else it tests every row (K2). ``animated`` and
-    ``cam_animated`` are K8's, as in :func:`run_megakernel`: each path's
-    words are those of the moving spheres and the camera at its shutter
-    fraction. The triangle tables add K7's stage (K7 moving with
-    ``animated``), as in :func:`run_megakernel`; a triangle winner's word
-    holds its leaf-order id and ``F_TRI``. CUDA tensors launch the kernel;
-    CPU tensors run the twin. A moving table on the sphere BVH raises
-    ``ValueError``, the triangle stage beside a walk
-    ``NotImplementedError``.
+    records. With ``swept_nodes`` / ``swept_meta`` the closest hit walks
+    that tree over the table in its order (K5, or K6 with ``animated``), and
+    the records hold the winners' original ids; else it tests every row
+    (K2). ``animated`` and ``cam_animated`` are K8's, as in
+    :func:`run_megakernel`: each path's words are those of the moving
+    spheres and the camera at its shutter fraction. The triangle tables add
+    K7's stage (K7 moving with ``animated``), as in :func:`run_megakernel`;
+    a triangle winner's word holds its leaf-order id and ``F_TRI``. CUDA
+    tensors launch the kernel; CPU tensors run the twin. The triangle stage
+    beside a tree walk raises ``NotImplementedError``.
     """
     _check_inputs(smem, pix, sample0, cam, table)
     if max_depth < 1:
         raise ValueError(f"max_depth must be positive, got {max_depth}")
     motion = dict(animated=bool(animated), cam_animated=bool(cam_animated))
-    tables = dict(swept_nodes=swept_nodes, swept_meta=swept_meta, sph_nodes=sph_nodes,
-                  sph_meta=sph_meta, tri_nodes=tri_nodes, tris=tris, mats=mats,
-                  tri_meta=tri_meta)
+    tables = dict(swept_nodes=swept_nodes, swept_meta=swept_meta, tri_nodes=tri_nodes,
+                  tris=tris, mats=mats, tri_meta=tri_meta)
     if table.device.type == "cpu":
         return run_megakernel_record_reference(
             smem, pix, sample0, cam, table, **tables, max_depth=max_depth,
             radiance=radiance, **motion,
         )
-    walk = _walk(sph_nodes, sph_meta, table)
+    _check_combination(swept_nodes, swept_meta, tris, **motion)
     cull = _cull(swept_nodes, swept_meta, table)
     tri = _tri(tri_nodes, tris, mats, tri_meta, table)
-    _check_combination(walk, cull, tri, **motion, record=True)
     smem = smem.clone()
     smem[3] = int(max_depth)
-    return _launch_record(smem, pix, sample0, cam, table, max_depth, radiance, walk, cull,
-                          tri, **motion)
-
-
-def _launch_record(smem, pix, sample0, cam, table, max_depth, radiance, walk, cull, tri,
-                   animated, cam_animated):
-    n = table.shape[0]
-    check_rows(n, walk, animated, tri, cull)
-    lib = build.load("megakernel")
-    r = pix.shape[1]
-    acc = torch.empty((3, r), dtype=torch.float32, device=table.device)
-    rec = torch.empty((max_depth, r), dtype=torch.int32, device=table.device)
-    ptrs, k, kt = _tree_args(walk, tri)
-    fptrs, fk, _held = _flat_args(walk, cull, tri, table, animated)
-    grid = 0
-    if walk is None and tri is None:
-        grid = flat_launch_shape(True, radiance, n, r, animated=animated,
-                                 cam_animated=cam_animated, nodes=fk,
-                                 device=table.device)["grid"]
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.crucible_megakernel_record(
-            smem.data_ptr(), pix.data_ptr(), sample0.data_ptr(),
-            cam.data_ptr(), table.data_ptr(), *ptrs, *fptrs, n, k, kt, fk, grid, r,
-            max_depth,
-            ctypes.c_float(T_MIN), int(bool(radiance)), int(animated),
-            int(cam_animated), acc.data_ptr(), rec.data_ptr(), stream,
-        )
-    build.check(lib, err, "record megakernel")
-    RECORD_LAUNCHES[_variant(walk, cull, tri, animated, cam_animated)] += 1
-    return acc, rec
+    return _launch(smem, pix, sample0, cam, table, int(max_depth), radiance, cull, tri,
+                   **motion)
 
 
 def run_megakernel_record_reference(
-    smem, pix, sample0, cam, table, sph_nodes=None, sph_meta=None, tri_nodes=None,
-    tris=None, mats=None, tri_meta=None, swept_nodes=None, swept_meta=None, *,
-    max_depth: int, radiance: bool = False, animated: bool = False,
-    cam_animated: bool = False,
+    smem, pix, sample0, cam, table, swept_nodes=None, swept_meta=None, tri_nodes=None,
+    tris=None, mats=None, tri_meta=None, *, max_depth: int, radiance: bool = False,
+    animated: bool = False, cam_animated: bool = False,
 ):
     """Eager-torch version of the record kernel: same inputs and outputs
     as :func:`run_megakernel_record`."""
-    walk = _walk(sph_nodes, sph_meta, table)
+    _check_combination(swept_nodes, swept_meta, tris, animated, cam_animated)
     cull = _cull(swept_nodes, swept_meta, table)
     tri = _tri(tri_nodes, tris, mats, tri_meta, table)
-    _check_combination(walk, cull, tri, animated, cam_animated, record=True)
     smem = smem.clone()
     smem[3] = int(max_depth)
     return _reference_loop(
         smem, pix, sample0, cam, table, rec_depth=int(max_depth), radiance=radiance,
-        walk=walk, cull=cull, tri=tri, animated=animated, cam_animated=cam_animated,
+        cull=cull, tri=tri, animated=animated, cam_animated=cam_animated,
     )
 
 
@@ -896,24 +809,22 @@ def run_megakernel_record_reference(
 # ---------------------------------------------------------------------------
 
 
-def run_megakernel_reference(smem, pix, sample0, cam, table, sph_nodes=None, sph_meta=None,
-                             tri_nodes=None, tris=None, mats=None, tri_meta=None,
-                             swept_nodes=None, swept_meta=None, *, animated: bool = False,
+def run_megakernel_reference(smem, pix, sample0, cam, table, swept_nodes=None,
+                             swept_meta=None, tri_nodes=None, tris=None, mats=None,
+                             tri_meta=None, *, animated: bool = False,
                              cam_animated: bool = False):
     """Eager-torch version of the kernel: same inputs, same (3, R) output.
 
     Lanes advance in lockstep, as on the TPU: each step issues a new sample
     to every idle lane that has samples left, then traces one bounce of
-    every live lane. Per lane this is the kernel's loop (the flat loop of
-    K1, K8 and K6, the other variants' nested one), in its order of
-    operations, so each lane's sum is the kernel's.
+    every live lane. Per lane this is the kernel's flat loop, in its order
+    of operations, so each lane's sum is the kernel's.
     """
-    walk = _walk(sph_nodes, sph_meta, table)
+    _check_combination(swept_nodes, swept_meta, tris, animated, cam_animated)
     cull = _cull(swept_nodes, swept_meta, table)
     tri = _tri(tri_nodes, tris, mats, tri_meta, table)
-    _check_combination(walk, cull, tri, animated, cam_animated)
     acc, _ = _reference_loop(smem, pix, sample0, cam, table, rec_depth=0, radiance=True,
-                             walk=walk, cull=cull, tri=tri, animated=animated,
+                             cull=cull, tri=tri, animated=animated,
                              cam_animated=cam_animated)
     return acc
 
@@ -924,74 +835,32 @@ def _safe_inv(v):
     return 1.0 / torch.where(v.abs() < tiny, torch.where(v >= 0.0, tiny, -tiny), v)
 
 
-def walk_closest_reference(o, d, table, nodes, meta, t_min: float = T_MIN):
-    """Plain version of K5's closest hit: each ray walks the sphere BVH's
-    skip links on its own, all rays in lockstep -> (t (R,), BIG on a miss;
-    idx (R,) int64, the winner's row of the permuted ``table``, 0 on a
-    miss; hit (R,) bool).
+def cull_closest_reference(o, d, table, nodes, meta, w=None, t_min: float = T_MIN,
+                           counts=None):
+    """Plain version of K5's and K6's closest hit: the lockstep walk of a
+    tree of :func:`swept_inputs`, in the kernel's order, nearer child first
+    (:func:`_near_first`) -> (t (R,), BIG on a miss; idx (R,) int64, the
+    winner's row of the permuted ``table``, 0 on a miss; hit (R,) bool).
 
-    At node i a ray slab-tests the box (``walk_inputs``' grown box, grown
+    At a node a ray slab-tests the box (``swept_inputs``' grown box, grown
     again by SLAB_EPS * the origin's largest |coordinate|) against
-    [t_min, best]; on a hit it goes on to i + 1 at an inner node, or tests
-    the leaf's rows and goes to miss[i]; on a miss it goes to miss[i]. A
-    row's root is the brute search's (``sphere_hit.accepted_roots``, same
-    operations), and a root replaces the best where it is nearer or, at an
-    exact tie, where its original row id (column 31) is lower. With every
-    leaf visited that holds a root the brute search would take, the result
-    is the brute search's over the original table, bit for bit: its
-    nearest root, and the lowest row among equal roots. Adds the work done
-    to ``WALK_COUNTS``.
+    [t_min, best]. Each leaf row's root is that of the spheres moving on the
+    linear shutter at each ray's fraction ``w`` (R,), in the moving search's
+    operations (``sphere_shade.moving_closest_reference``, K8's brute
+    search, K6); ``w`` None takes the static search's (K1's, K5). A root
+    replaces the best where it is nearer or, at an exact tie, where its
+    original row id (column 31) is lower, so the result is the brute
+    search's over the original table, bit for bit, in any order, wherever
+    no leaf holding a winning root is skipped: a leaf's box holds its
+    spheres over the whole shutter, each parent's its children's, and the
+    margin covers the quadratic's error at the moving center c + w cd as it
+    does at c. Adds the work done to ``counts`` (default ``CULL_COUNTS``):
+    the slab tests (the root's, then both children's at each inner node the
+    walk enters), rows and roots.
     """
-    return _skip_walk(o, d, table, nodes, meta, t_min, None, WALK_COUNTS)
-
-
-def cull_closest_reference(o, d, table, nodes, meta, w=None, t_min: float = T_MIN):
-    """Plain version of K6's closest hit: the lockstep walk of the swept
-    tree of :func:`swept_inputs`, in the kernel's order, nearer child first.
-    Each leaf row's root is that of the spheres moving on the linear shutter
-    at each ray's
-    fraction ``w`` (R,), in the moving search's operations
-    (``sphere_shade.moving_closest_reference``, K8's brute search); ``w``
-    None takes the static search's (K1's). Ties go to the lower original
-    row id, so the result is the brute search's over the original table,
-    bit for bit, in any order, wherever no leaf holding a winning root
-    is skipped: a leaf's box holds its spheres over the whole shutter, each
-    parent's its children's, and the margin covers the quadratic's error at
-    the moving center c + w cd as it does at c. Adds the work done to
-    ``CULL_COUNTS``: the slab tests (the root's, then both children's at
-    each inner node the near-first walk enters), rows and roots.
-    """
-    return _skip_walk(o, d, table, nodes, meta, t_min, w, CULL_COUNTS, near=True)
-
-
-def tree_depth(meta) -> int:
-    """The most inner-node ancestors of a node of a skip-link tree (``meta``
-    (K, 3) [first, count, miss]), the most far children a near-first walk
-    defers (:func:`_ancestors`)."""
-    return int(_ancestors(meta).max()) if meta.shape[0] else 0
-
-
-def _ancestors(meta):
-    """Each node's inner-node ancestors (K,) int64, without a host sync:
-    node j's descendants are j + 1 .. miss[j] - 1, so a prefix sum over the
-    inner nodes counts them."""
-    k = meta.shape[0]
-    inner = meta[:, 1] == 0
-    diff = torch.zeros(k + 1, dtype=torch.int64, device=meta.device)
-    diff.index_add_(0, torch.where(inner, torch.arange(1, k + 1, device=meta.device), k),
-                    inner.long())
-    diff.index_add_(0, torch.where(inner, meta[:, 2].long(), k).clamp(0, k), -inner.long())
-    return diff.cumsum(0)[:k]
-
-
-def _skip_walk(o, d, table, nodes, meta, t_min, w, counts, near=False):
-    """The lockstep walks of both plain sphere walks (K5, K6): the stackless
-    walk of the DFS skip links or (``near``, K6) the near-first walk with a
-    stack of deferred far children and their entry distances; leaf rows in
-    the static search's operations, or moving at the rays' fractions ``w``;
-    the work done is added to ``counts``."""
+    counts = CULL_COUNTS if counts is None else counts
     dev = o.device
-    m, k = o.shape[0], nodes.shape[0]
+    m = o.shape[0]
     ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
     dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
     a_q = dx * dx + dy * dy + dz * dz
@@ -1000,7 +869,7 @@ def _skip_walk(o, d, table, nodes, meta, t_min, w, counts, near=False):
     inv_a = 1.0 / a_q
     ivx, ivy, ivz = _safe_inv(dx), _safe_inv(dy), _safe_inv(dz)
     pr = SLAB_EPS * torch.maximum(torch.maximum(ox.abs(), oy.abs()), oz.abs())
-    first, count, miss = (meta[:, j].long() for j in range(3))
+    first, count = meta[:, 0].long(), meta[:, 1].long()
     cx, cy, cz, csr, act, orig = (table[:, c] for c in (0, 1, 2, 4, 5, 31))
     cdx, cdy, cdz, s1, s2 = (table[:, c] for c in MOVING_COLS)
     width = torch.arange(max(int(count.max()), 1), device=dev)
@@ -1021,15 +890,7 @@ def _skip_walk(o, d, table, nodes, meta, t_min, w, counts, near=False):
         t1y = ((b[:, 4] + p) - loy) * ivy[lanes]
         t0z = ((b[:, 2] - p) - loz) * ivz[lanes]
         t1z = ((b[:, 5] + p) - loz) * ivz[lanes]
-        enter = torch.maximum(
-            torch.maximum(torch.minimum(t0x, t1x), torch.minimum(t0y, t1y)),
-            torch.clamp_min(torch.minimum(t0z, t1z), t_min),
-        )
-        exitv = torch.minimum(
-            torch.minimum(torch.maximum(t0x, t1x), torch.maximum(t0y, t1y)),
-            torch.minimum(torch.maximum(t0z, t1z), best[lanes]),
-        )
-        return enter <= exitv, enter
+        return _slab(t0x, t1x, t0y, t1y, t0z, t1z, t_min, best[lanes])
 
     def leaf(ln, c):
         """Rays ``ln`` test the rows of nodes ``c`` (none at an inner node):
@@ -1070,71 +931,103 @@ def _skip_walk(o, d, table, nodes, meta, t_min, w, counts, near=False):
         best[ln] = torch.where(better, t_leaf, b_best)
         win[ln] = torch.where(better, row_leaf, win[ln])
 
-    if not near:  # the stackless walk of the DFS skip links
-        cur = torch.zeros((m,), dtype=torch.int64, device=dev)
-        while True:
-            lanes = torch.nonzero(cur < k).squeeze(1)
-            if lanes.numel() == 0:
-                break
-            c = cur[lanes]
-            hit_node, _ = entered(lanes, c)
-            counts["nodes"] += int(lanes.numel())
-            cnt = count[c]
-            sel = torch.nonzero(hit_node & (cnt > 0)).squeeze(1)
-            if sel.numel():
-                leaf(lanes[sel], c[sel])
-            cur[lanes] = torch.where(hit_node & (cnt == 0), c + 1, miss[c])
-    else:  # nearer child first, the far one deferred with its entry distance
-        # Every live ray takes one step an iteration, masked rather than
-        # compacted: a leaf's rows (an inner node has none), else both
-        # children's slab tests; a ray that enters neither child, or has
-        # left a leaf, resumes at its last deferred child still entered
-        # before its best hit, or is done.
-        depth = tree_depth(meta) + 1
-        stack_n = torch.zeros((m, depth), dtype=torch.int64, device=dev)
-        stack_t = torch.zeros((m, depth), dtype=torch.float32, device=dev)
-        sp = torch.zeros((m,), dtype=torch.int64, device=dev)
-        slot = torch.arange(depth, device=dev)
-        cur = torch.zeros((m,), dtype=torch.int64, device=dev)
-        nodes_done = torch.zeros((), dtype=torch.int64, device=dev)
-        active = torch.zeros((m,), dtype=torch.bool, device=dev)
-        if k:
-            active, _ = entered(torch.arange(m, device=dev), cur)
-            counts["nodes"] += m
-        while True:
-            lanes = torch.nonzero(active).squeeze(1)
-            if lanes.numel() == 0:
-                break
-            c = cur[lanes]
-            leaf(lanes, c)
-            inner = count[c] == 0
-            left = torch.where(inner, c + 1, 0)
-            right = torch.where(inner, miss[left], 0)
-            hl, el = entered(lanes, left)
-            hr, er = entered(lanes, right)
-            hl, hr = hl & inner, hr & inner
-            nodes_done = nodes_done + 2 * inner.sum()
-            both, near_l = hl & hr, el <= er
-            s = sp[lanes]
-            pos = s.clamp_max(depth - 1)
-            stack_n[lanes, pos] = torch.where(both, torch.where(near_l, right, left),
-                                              stack_n[lanes, pos])
-            stack_t[lanes, pos] = torch.where(both, torch.where(near_l, er, el),
-                                              stack_t[lanes, pos])
-            s = s + both.long()
-            go = hl | hr
-            nxt = torch.where(both, torch.where(near_l, left, right), torch.where(hl, left, right))
-            ok = (slot < s[:, None]) & (stack_t[lanes] <= best[lanes][:, None])
-            top = torch.where(ok, slot, -1).max(dim=1).values
-            found = top >= 0
-            cur[lanes] = torch.where(go, nxt, stack_n[lanes, top.clamp_min(0)])
-            sp[lanes] = torch.where(go, s, top.clamp_min(0))
-            active[lanes] = go | found
-        counts["nodes"] += int(nodes_done)
+    counts["nodes"] += _near_first(m, meta, entered, leaf, best)
     counts["rows"] += int(rows_done)
     counts["roots"] += int(roots_done)
     hit = best < BIG
     return best, torch.where(hit, win, 0), hit
+
+
+def _slab(t0x, t1x, t0y, t1y, t0z, t1z, t_min, bound):
+    """A slab test's (entered, entry distance) from its six plane distances,
+    against [t_min, bound], in the kernels' order of min / max."""
+    enter = torch.maximum(
+        torch.maximum(torch.minimum(t0x, t1x), torch.minimum(t0y, t1y)),
+        torch.clamp_min(torch.minimum(t0z, t1z), t_min),
+    )
+    exitv = torch.minimum(
+        torch.minimum(torch.maximum(t0x, t1x), torch.maximum(t0y, t1y)),
+        torch.minimum(torch.maximum(t0z, t1z), bound),
+    )
+    return enter <= exitv, enter
+
+
+def tree_depth(meta) -> int:
+    """The most inner-node ancestors of a node of a skip-link tree (``meta``
+    (K, 3) [first, count, miss]), the most far children a near-first walk
+    defers (:func:`_ancestors`)."""
+    return int(_ancestors(meta).max()) if meta.shape[0] else 0
+
+
+def _ancestors(meta):
+    """Each node's inner-node ancestors (K,) int64, without a host sync:
+    node j's descendants are j + 1 .. miss[j] - 1, so a prefix sum over the
+    inner nodes counts them."""
+    k = meta.shape[0]
+    inner = meta[:, 1] == 0
+    diff = torch.zeros(k + 1, dtype=torch.int64, device=meta.device)
+    diff.index_add_(0, torch.where(inner, torch.arange(1, k + 1, device=meta.device), k),
+                    inner.long())
+    diff.index_add_(0, torch.where(inner, meta[:, 2].long(), k).clamp(0, k), -inner.long())
+    return diff.cumsum(0)[:k]
+
+
+def _near_first(m, meta, entered, leaf, bound) -> int:
+    """The lockstep near-first walk of the plain sphere walks (K5, K6) over a
+    skip-link tree ``meta`` (K, 3) for ``m`` rays, in the kernels' order:
+    each live ray takes one step an iteration, masked rather than
+    compacted: a leaf's rows (``leaf(lanes, nodes)``, which has none to test
+    at an inner node and lowers the rays' ``bound`` in place), else both
+    children's slab tests (``entered(lanes, nodes)`` -> (entered, entry)
+    against [t_min, bound]), going on to the nearer child it enters and
+    deferring the other with its entry distance; a ray that enters neither
+    child, or has left a leaf, resumes at its last deferred child still
+    entered before its bound, or is done. Returns the slab tests made."""
+    k, dev = meta.shape[0], bound.device
+    count, miss = meta[:, 1].long(), meta[:, 2].long()
+    depth = tree_depth(meta) + 1
+    stack_n = torch.zeros((m, depth), dtype=torch.int64, device=dev)
+    stack_t = torch.zeros((m, depth), dtype=torch.float32, device=dev)
+    sp = torch.zeros((m,), dtype=torch.int64, device=dev)
+    slot = torch.arange(depth, device=dev)
+    cur = torch.zeros((m,), dtype=torch.int64, device=dev)
+    nodes_done = torch.zeros((), dtype=torch.int64, device=dev)
+    active = torch.zeros((m,), dtype=torch.bool, device=dev)
+    if k:
+        active, _ = entered(torch.arange(m, device=dev), cur)
+        nodes_done = nodes_done + m
+    while True:
+        lanes = torch.nonzero(active).squeeze(1)
+        if lanes.numel() == 0:
+            break
+        c = cur[lanes]
+        leaf(lanes, c)
+        inner = count[c] == 0
+        left = torch.where(inner, c + 1, 0)
+        right = torch.where(inner, miss[left], 0)
+        # Both children's slab tests in one batch (a lane's bound is the same
+        # for both).
+        hit2, enter2 = entered(lanes.repeat(2), torch.cat([left, right]))
+        (hl, hr), (el, er) = hit2.view(2, -1), enter2.view(2, -1)
+        hl, hr = hl & inner, hr & inner
+        nodes_done = nodes_done + 2 * inner.sum()
+        both, near_l = hl & hr, el <= er
+        s = sp[lanes]
+        pos = s.clamp_max(depth - 1)
+        stack_n[lanes, pos] = torch.where(both, torch.where(near_l, right, left),
+                                          stack_n[lanes, pos])
+        stack_t[lanes, pos] = torch.where(both, torch.where(near_l, er, el),
+                                          stack_t[lanes, pos])
+        s = s + both.long()
+        go = hl | hr
+        nxt = torch.where(both, torch.where(near_l, left, right), torch.where(hl, left, right))
+        ok = (slot < s[:, None]) & (stack_t[lanes] <= bound[lanes][:, None])
+        top = torch.where(ok, slot, -1).max(dim=1).values
+        found = top >= 0
+        cur[lanes] = torch.where(go, nxt, stack_n[lanes, top.clamp_min(0)])
+        sp[lanes] = torch.where(go, s, top.clamp_min(0))
+        active[lanes] = go | found
+    return int(nodes_done)
 
 
 def tri_closest_reference(o, d, t_init, tri_nodes, tri_meta, tris, t_min: float = T_MIN,
@@ -1255,21 +1148,20 @@ def camera_at(c, w):
 
 
 def _reference_loop(smem, pix, sample0, cam, table, *, rec_depth: int, radiance: bool,
-                    walk=None, cull=None, tri=None, animated: bool = False,
-                    cam_animated: bool = False):
+                    cull=None, tri=None, animated: bool = False, cam_animated: bool = False):
     """The lockstep loop of both eager versions -> (acc (3, R), rec).
 
     ``rec_depth`` 0 is forward mode (``rec`` is None). Otherwise record
     mode: each lane issues its ``sample0`` only, and row ``it`` of ``rec``
     (rec_depth, R) holds the lane's decision word at bounce ``it``;
     ``radiance`` then says whether to accumulate it, from bounce smem[4] on.
-    ``walk`` (``walk_inputs``' nodes and meta) takes the closest hit from
-    the sphere-BVH walk over the permuted table, the records' winner ids
-    from its column 31; ``cull`` (``swept_inputs``' nodes and meta) likewise
-    from the swept-tree walk (:func:`cull_closest_reference`, its rows
-    moving at each path's shutter fraction when ``animated``). ``tri`` (``_tri``'s tables) adds K7's stage: a
-    triangle strictly nearer than the sphere (:func:`tri_closest_reference`)
-    takes the hit, with its table normal (a moving mesh's: its lerped
+    ``cull`` (``swept_inputs``' nodes and meta) takes the closest hit from
+    the tree walk over the permuted table (:func:`cull_closest_reference`:
+    K5's, counted in ``WALK_COUNTS``, or with ``animated`` K6's, its rows
+    moving at each path's shutter fraction, counted in ``CULL_COUNTS``), the
+    records' winner ids from its column 31. ``tri`` (``_tri``'s tables) adds
+    K7's stage: a triangle strictly nearer than the sphere
+    (:func:`tri_closest_reference`) takes the hit, with its table normal (a moving mesh's: its lerped
     normal at the path's shutter fraction, :func:`moving_tri_normal`) and
     its material's row of ``mats`` in the table's columns 6-23, and records
     its leaf-order id with ``F_TRI``. ``animated`` and ``cam_animated`` (both modes) are K8's: the
@@ -1339,11 +1231,10 @@ def _reference_loop(smem, pix, sample0, cam, table, *, rec_depth: int, radiance:
         # or for moving spheres K9's.
         SEARCH_COUNTS["searches"] += int(live.numel())
         SEARCH_COUNTS["issued"] += int(iss.sum())
-        if walk is not None:
-            t, idx, hit = walk_closest_reference(o_l, d_l, table, *walk)
-        elif cull is not None:
-            t, idx, hit = cull_closest_reference(o_l, d_l, table, *cull,
-                                                 w=w if animated else None)
+        if cull is not None:
+            t, idx, hit = cull_closest_reference(
+                o_l, d_l, table, *cull, w=w if animated else None,
+                counts=CULL_COUNTS if animated else WALK_COUNTS)
         elif animated:
             t, idx = sphere_shade.moving_closest_reference(o_l, d_l, w, table, T_MIN)
             hit = t < BIG
@@ -1425,7 +1316,7 @@ def _reference_loop(smem, pix, sample0, cam, table, *, rec_depth: int, radiance:
             # A miss keeps the alive bit alone (megakernel.py l.1498). A
             # walk's winner is a permuted row: record its original id; a
             # triangle its leaf-order id.
-            win_id = idx if walk is None and cull is None else row[:, 31].long()
+            win_id = idx if cull is None else row[:, 31].long()
             if tri is not None:
                 flags = flags | torch.where(is_tri, F_TRI, 0)
                 win_id = torch.where(is_tri, tid, win_id)

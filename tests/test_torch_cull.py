@@ -223,12 +223,16 @@ def test_static_cluster_walk_equals_plain_k1():
 
 
 def test_cull_refuses_what_is_not_instantiated():
+    """A moving table on a static table's tree (K5's, whose boxes hold the
+    spheres at one time) is refused, and so is a mesh beside a tree walk."""
     _, sd, cp = _port_scene()
     _, cull = _cull_args(sd, cp)
-    bvh = dict(sph_nodes=torch.zeros((1, 16)),
-               sph_meta=torch.tensor([0, 1, 1] + [0, 0, 1] * tmk.NODE_WIN, dtype=torch.int32))
-    with pytest.raises(ValueError, match="not both"):
-        tmk.run_megakernel(**cull, **bvh, animated=True)
+    static = tdemo.sphere_stress(width=24, copies=4).build(device="cpu")
+    k5_tree = dict(cull, table=tint.permute_table(tint.make_sphere_table(sd),
+                                                  static.sph_swept_perm),
+                   swept_nodes=static.sph_swept_nodes, swept_meta=static.sph_swept_meta)
+    with pytest.raises(ValueError, match="over the shutter"):
+        tmk.run_megakernel(**k5_tree, animated=True)
     tri = dict(tri_nodes=torch.zeros((1, 6)), tri_meta=torch.tensor([[0, 1, 1]], dtype=torch.int32),
                tris=torch.zeros((1, 32)), mats=torch.zeros((1, 24)))
     with pytest.raises(NotImplementedError, match="A11"):
@@ -243,20 +247,22 @@ def test_cull_refuses_what_is_not_instantiated():
     ("record", dict(animated=False, cam_animated=True)),
 ], ids=["forward-camera", "record-static", "record-camera"])
 def test_cull_refuses_a_static_table_but_in_forward_with_a_static_camera(mode, flags):
-    """The swept-tree walk over a static table is instantiated in forward mode
-    with a static camera only (held against K1); no route selects the
-    others, and the wrapper and its plain version refuse them alike."""
+    """The tree walk without ``animated`` is K5, instantiated in both modes
+    with either camera: these launches, once refused, run, and the wrapper
+    and its plain version give the static brute search's sums and words
+    over the original table (a moving table's tree holds its spheres at
+    shutter open too)."""
     _, sd, cp = _port_scene()
-    _, cull = _cull_args(sd, cp)
+    brute, cull = _cull_args(sd, cp)
     if mode == "forward":
-        calls = (lambda: tmk.run_megakernel(**cull, **flags),
-                 lambda: tmk.run_megakernel_reference(**cull, **flags))
+        want = tmk.run_megakernel(**brute, **flags)
+        got = (tmk.run_megakernel(**cull, **flags), tmk.run_megakernel_reference(**cull, **flags))
     else:
-        calls = (lambda: tmk.run_megakernel_record(**cull, max_depth=2, **flags),
-                 lambda: tmk.run_megakernel_record_reference(**cull, max_depth=2, **flags))
-    for call in calls:
-        with pytest.raises(ValueError, match="static table"):
-            call()
+        want = tmk.run_megakernel_record(**brute, max_depth=2, **flags)[1]
+        got = (tmk.run_megakernel_record(**cull, max_depth=2, **flags)[1],
+               tmk.run_megakernel_record_reference(**cull, max_depth=2, **flags)[1])
+    for x in got:
+        assert torch.equal(x, want)
 
 
 # --- against the JAX package's chunk-cull kernel -------------------------------------

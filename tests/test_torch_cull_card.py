@@ -17,12 +17,18 @@ from crucible_tpu_torch.models import integrator as tint
 from crucible_tpu_torch.ops.kernels import megakernel as tmk
 from tests.torch_motion_scenes import bouncing_stress
 
-# The instantiated flag sets: K6 moves its spheres (with or without the
-# camera) in both modes; over a static table it runs forward only, with a
-# static camera (the moving table's tree at w = 0 of the static search).
+# The flag sets: K6 moves its spheres (with or without the camera); without
+# ``animated`` the same tree is walked by K5's static search (the moving
+# table at w = 0), with either camera. Each runs in both modes.
 RECORD_FLAGS = {"spheres": dict(animated=True, cam_animated=False),
                 "both": dict(animated=True, cam_animated=True)}
-FLAGS = {"static": dict(animated=False, cam_animated=False), **RECORD_FLAGS}
+FLAGS = {"static": dict(animated=False, cam_animated=False),
+         "camera": dict(animated=False, cam_animated=True), **RECORD_FLAGS}
+
+
+def _key(flags):
+    """The launch count a tree walk with these flags adds to."""
+    return tmk._variant(object(), None, flags["animated"], flags["cam_animated"])
 
 
 @pytest.fixture
@@ -60,27 +66,27 @@ def _lanes(x, lanes):
 @pytest.mark.cuda
 @pytest.mark.parametrize("flags", FLAGS.values(), ids=FLAGS.keys())
 def test_cull_forward_equals_plain_and_brute(cuda, flags):
-    """Without ``animated`` the moving table's clusters are walked at w = 0
-    of the static search, as K1 / K8's camera variant test every row."""
+    """Without ``animated`` the moving table's tree is walked by K5's
+    static search (w = 0), as K1 / K8's camera variant test every row."""
     brute, cull = _inputs(cuda, 4, 16)
-    before = tmk.FORWARD_LAUNCHES["cull"]
+    before = tmk.FORWARD_LAUNCHES[_key(flags)]
     got = tmk.run_megakernel(**cull, **flags)
     torch.cuda.synchronize()
-    assert tmk.FORWARD_LAUNCHES["cull"] == before + 1
+    assert tmk.FORWARD_LAUNCHES[_key(flags)] == before + 1
     assert torch.isfinite(got).all() and got.abs().sum() > 0
     assert torch.equal(got, tmk.run_megakernel_reference(**cull, **flags))
     assert torch.equal(got, tmk.run_megakernel(**brute, **flags))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("flags", RECORD_FLAGS.values(), ids=RECORD_FLAGS.keys())
+@pytest.mark.parametrize("flags", FLAGS.values(), ids=FLAGS.keys())
 def test_cull_record_equals_plain_and_brute(cuda, flags):
     brute, cull = _inputs(cuda, 2, 8, record=True)
-    before = tmk.RECORD_LAUNCHES["cull"]
+    before = tmk.RECORD_LAUNCHES[_key(flags)]
     acc, rec = tmk.run_megakernel_record(**cull, max_depth=8, radiance=True, **flags)
     plain = tmk.run_megakernel_record(**cull, max_depth=8, **flags)[1]
     torch.cuda.synchronize()
-    assert tmk.RECORD_LAUNCHES["cull"] == before + 2
+    assert tmk.RECORD_LAUNCHES[_key(flags)] == before + 2
     assert torch.equal(rec, plain)
     ref_acc, ref_rec = tmk.run_megakernel_record_reference(**cull, max_depth=8, radiance=True,
                                                            **flags)
@@ -91,8 +97,8 @@ def test_cull_record_equals_plain_and_brute(cuda, flags):
 
 @pytest.mark.cuda
 def test_cull_walks_a_static_tables_clusters_as_k1(cuda):
-    """book1's static table in a swept tree (zero deltas): K6 without
-    motion gives K1's sums and its plain version's."""
+    """book1's static table in a tree (zero deltas): the walk without
+    motion (K5) gives K1's sums and its plain version's."""
     sc = tdemo.book1_end_scene(width=96)
     sd, cp = sc.build(device=cuda), sc.scene_cam.params(device=cuda)
     c = sd.sph_center.cpu().numpy()

@@ -123,7 +123,7 @@ def test_reference_lanes_are_independent():
     "kwargs",
     [
         dict(swept_nodes=torch.zeros(2, 16)),
-        dict(sph_nodes=torch.zeros(2, 16)),
+        dict(swept_meta=torch.zeros(3 * (2 + tmk.NODE_WIN), dtype=torch.int32)),
         dict(tri_nodes=torch.zeros(2, 16)),
         dict(animated=True),
         dict(cam_animated=True),
@@ -137,9 +137,9 @@ def test_refuses_unported_branches(kwargs):
         # K8 is ported in both modes (tests/test_torch_motion.py,
         # tests/test_torch_motion_grad.py), and so is K6, the walk over a
         # moving table's swept tree (tests/test_torch_cull.py): it runs its
-        # plain version and gives K8's brute sums and words. The sphere
-        # BVH's boxes do not follow moving spheres, so a moving table on it
-        # is refused, in either mode.
+        # plain version and gives K8's brute sums and words. A static
+        # table's tree (K5's) does not follow moving spheres, so a moving
+        # table on it is refused, in either mode.
         sc = bouncing_stress(tdemo, 16, 4)
         sd = sc.build(device="cpu")
         inputs, _ = tint.mega_inputs(sd, sc.scene_cam.params(device="cpu"), 16, 9, 1, 2, 0)
@@ -151,16 +151,15 @@ def test_refuses_unported_branches(kwargs):
         assert torch.equal(tmk.run_megakernel_record(**cull, max_depth=2, **motion)[1],
                            tmk.run_megakernel_record(**inputs, max_depth=2, **motion)[1])
         static = tdemo.sphere_stress(width=16, copies=4).build(device="cpu")
-        walk = dict(inputs, table=tint.permute_table(inputs["table"], static.sph_perm),
-                    sph_nodes=static.sph_nodes, sph_meta=static.sph_meta)
+        walk = dict(inputs, table=tint.permute_table(inputs["table"], static.sph_swept_perm),
+                    swept_nodes=static.sph_swept_nodes, swept_meta=static.sph_swept_meta)
         with pytest.raises(ValueError, match="swept tree"):
             tmk.run_megakernel_record(**walk, max_depth=1, **motion)
         with pytest.raises(ValueError, match="swept tree"):
             tmk.run_megakernel(**walk, **motion)
         return
-    # The sphere-BVH walk (K5), the swept-tree walk (K6) and the triangle
-    # stage (K7) are ported: part of their tables, or tables of another
-    # table's size, is an error.
+    # The tree walks (K5, K6) and the triangle stage (K7) are ported: part
+    # of their tables, or tables of another table's size, is an error.
     with pytest.raises(ValueError):
         tmk.run_megakernel(**t, animated=False, **kwargs)
 
@@ -252,15 +251,24 @@ def test_max_rows_and_routes_are_unchanged():
         with pytest.raises(ValueError, match="exceed"):
             tmk.check_rows(n, animated=animated)
     # The brute search of the flat loop (K1 / K2, K8 with any flags) takes
-    # the staged rows and a work counter; the nested loop's walk takes none.
+    # the staged rows and a work counter; with a mesh (K7) also the mesh's
+    # rows as the walk reads them (Woop rows as they are, moving rows
+    # packed), its rows, materials, nodes and skip links.
     table = torch.zeros((8, tmk.C_IN))
     for animated in (False, True):
-        ptrs, k, held = tmk._flat_args(None, None, None, table, animated)
-        assert k == 0 and len(held) == 6
-        assert [p is None for p in ptrs] == [False, False, False, True, True, False]
+        ptrs, k, kt, held = tmk._flat_args(None, None, table, animated)
+        assert k == 0 and kt == 0 and len(held) == 11
+        assert [p is None for p in ptrs] == [False] * 3 + [True] * 7 + [False]
         assert held[0].shape == (8, 12 if animated else 4)
-    walk = (torch.zeros((1, 6)), torch.zeros((1, 3), dtype=torch.int32))
-    assert tmk._flat_args(walk, None, None, table, False) == ([None] * 6, 0, ())
+        cols = tmk.TRI_MOVING_COLS if animated else tmk.TRI_COLS
+        tri = (torch.zeros((3, 6)), torch.tensor([[0, 0, 3], [0, 1, 2], [1, 1, 3]],
+                                                 dtype=torch.int32),
+               torch.zeros((2, cols)), torch.zeros((1, tmk.MAT_COLS)))
+        ptrs, k, kt, held = tmk._flat_args(None, tri, table, animated)
+        assert k == 0 and kt == 3
+        assert [p is None for p in ptrs] == [False] * 3 + [True] * 2 + [False] * 6
+        assert held[5].shape == (2, 20 if animated else 16) and held[6] is tri[2]
+        assert held[8].shape == (3, 8) and torch.equal(held[9], tri[1][:, 2])
 
 
 def test_build_compiles_for_hopper_without_fast_math():
@@ -276,8 +284,8 @@ def test_build_compiles_for_hopper_without_fast_math():
     # and the grid of the flat loop's launch shape, which they report.
     assert set(tbuild.SIGNATURES) == {s.stem for s in tbuild.sources() if s.suffix == ".cu"}
     mega = tbuild.SIGNATURES["megakernel"]
-    assert len(mega["crucible_megakernel_forward"][0]) == 28
-    assert len(mega["crucible_megakernel_record"][0]) == 31
+    assert len(mega["crucible_megakernel_forward"][0]) == 26
+    assert len(mega["crucible_megakernel_record"][0]) == 29
     assert "crucible_megakernel_flat_shape" in mega
     source = (tbuild.CSRC / "megakernel.cu").read_text()
     for needle in ("__ballot_sync", "atomicAdd(f.next", "float4", "cudaMemsetAsync",

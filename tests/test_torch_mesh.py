@@ -539,9 +539,9 @@ def test_what_still_raises():
     nodes, meta = torch.zeros((1, 16)), torch.zeros((3 * 17,), dtype=torch.int32)
     meta[2] = 1
     with pytest.raises(NotImplementedError, match="A11"):
-        tmk.run_megakernel(**inputs, **tri, sph_nodes=nodes, sph_meta=meta, animated=False)
+        tmk.run_megakernel(**inputs, **tri, swept_nodes=nodes, swept_meta=meta, animated=False)
     with pytest.raises(NotImplementedError, match="A11"):
-        tmk.run_megakernel_record(**inputs, **tri, sph_nodes=nodes, sph_meta=meta,
+        tmk.run_megakernel_record(**inputs, **tri, swept_nodes=nodes, swept_meta=meta,
                                   max_depth=2)
     # The eager replay of a mesh whose keyframe falls inside the shutter.
     with pytest.raises(NotImplementedError, match="A7"):
@@ -554,15 +554,22 @@ def test_what_still_raises():
 
 
 def test_k7_node_cap():
+    """K7 reads its tree's nodes from global memory, so a mesh's tree has no
+    cap (the shared-memory staging held at most 6,452 nodes beside 8 rows):
+    a tree of any size goes to the kernel as (K, 8) node entries and (K,)
+    skip links beside the brute search's 16-byte staged rows; torus_teapot
+    at leaf 4 has 3,159 nodes."""
     n = 8
-    cap = tmk.max_tri_nodes(n)
-    assert cap == (tmk.SHARED_MEM_BYTES - n * 20) // 36 == 6452
-    tmk.check_rows(n, tri=(torch.zeros(cap, 6),))
-    with pytest.raises(ValueError, match=f"more than the {cap}"):
-        tmk.check_rows(n, tri=(torch.zeros(cap + 1, 6),))
-    # torus_teapot at leaf 4 fits.
+    table = torch.zeros((n, tmk.C_IN))
+    tmk.check_rows(n)
+    for k in (6452, 6453, 20000):
+        tri = (torch.zeros((k, 6)), torch.zeros((k, 3), dtype=torch.int32),
+               torch.zeros((1, tmk.TRI_COLS)), torch.zeros((1, tmk.MAT_COLS)))
+        _, fk, kt, held = tmk._flat_args(None, tri, table, False)
+        assert (fk, kt) == (0, k) and held[0].shape == (n, 4)
+        assert held[8].shape == (k, 8) and held[9].shape == (k,)
     sd = meshes.torus_teapot(tscene, 16).build(leaf_size=4, device="cpu")
-    assert sd.bvh_min.shape[0] <= cap
+    assert sd.bvh_min.shape[0] == 3159
 
 
 def test_tri_tables_are_checked():

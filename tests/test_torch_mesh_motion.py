@@ -438,19 +438,23 @@ def test_moving_mesh_albedo_finite_difference():
 
 
 def test_k7_node_cap_counts_the_motion_columns():
-    n = 8
-    static, moving = tmk.max_tri_nodes(n), tmk.max_tri_nodes(n, animated=True)
-    # The nodes' room shrinks by exactly the motion columns' bytes.
-    assert tmk.row_bytes(True) - tmk.row_bytes(False) == tmk.MOTION_COLS * 4 == 20
-    assert static == (tmk.SHARED_MEM_BYTES - n * 20) // tmk.NODE_BYTES == 6452
-    assert moving == (tmk.SHARED_MEM_BYTES - n * 20 - n * 20) // tmk.NODE_BYTES == 6448
-    tmk.check_rows(n, animated=True, tri=(torch.zeros(moving, 6),))
-    with pytest.raises(ValueError, match="staged at 40 bytes each"):
-        tmk.check_rows(n, animated=True, tri=(torch.zeros(moving + 1, 6),))
-    tmk.check_rows(n, tri=(torch.zeros(moving + 1, 6),))  # static rows: 20 bytes
-    # moving torus_teapot at leaf 4, the card's default, fits.
+    """Beside moving sphere rows (three 16-byte entries staged each, against
+    one) K7 moving reads its tree's nodes from global memory as K7 does,
+    with no cap, and its (M, 32) rows as the 20 columns its test reads
+    (moving_tri_rows); moving torus_teapot at leaf 4, the card's default,
+    goes so."""
+    n, k = 8, 6449
+    table = torch.zeros((n, tmk.C_IN))
+    tmk.check_rows(n, animated=True)
+    rows = torch.arange(2 * tmk.TRI_MOVING_COLS, dtype=torch.float32).reshape(2, -1)
+    tri = (torch.zeros((k, 6)), torch.zeros((k, 3), dtype=torch.int32), rows,
+           torch.zeros((1, tmk.MAT_COLS)))
+    _, fk, kt, held = tmk._flat_args(None, tri, table, True)
+    assert (fk, kt) == (0, k) and held[0].shape == (n, 12) and held[8].shape == (k, 8)
+    assert torch.equal(held[5], rows[:, list(tmk.MOVING_TRI_PACK)])
+    assert held[5].shape == (2, 20) and held[6] is rows
     sd = _scene("torch", "moving_torus_teapot").build(leaf_size=4, device="cpu")
-    assert sd.bvh_min.shape[0] <= moving
+    assert sd.bvh_min.shape[0] == 3159
 
 
 def test_what_moving_meshes_still_refuse():
@@ -478,7 +482,7 @@ def test_what_moving_meshes_still_refuse():
     nodes, meta = torch.zeros((1, 16)), torch.zeros((3 * 17,), dtype=torch.int32)
     meta[2] = 1
     with pytest.raises(NotImplementedError, match="A11"):
-        tmk.run_megakernel_record(**inputs, **tri, sph_nodes=nodes, sph_meta=meta,
+        tmk.run_megakernel_record(**inputs, **tri, swept_nodes=nodes, swept_meta=meta,
                                   max_depth=2, cam_animated=True)
     reason = tint.megakernel_record_unsupported_reason(
         replace(_bridged("moving_fan")[0], sph_perm=walk.sph_perm), cp)

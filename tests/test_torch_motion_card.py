@@ -99,8 +99,8 @@ def test_k8_walk_with_a_moving_camera_matches_plain_and_brute(cuda):
     sc.cam_translate_y(0.5, 1.0 / 48.0, "lerp", "local", "from")
     sd, cp, inputs = _inputs(sc, cuda, 2, 16)
     assert cp.animated and not sd.animated and sd.sph_perm is not None
-    walk = dict(inputs, table=tint.permute_table(inputs["table"], sd.sph_perm),
-                sph_nodes=sd.sph_nodes, sph_meta=sd.sph_meta)
+    walk = dict(inputs, table=tint.permute_table(inputs["table"], sd.sph_swept_perm),
+                swept_nodes=sd.sph_swept_nodes, swept_meta=sd.sph_swept_meta)
     before = tmk.FORWARD_LAUNCHES["motion_walk"]
     out = tmk.run_megakernel(**walk, animated=False, cam_animated=True)
     torch.cuda.synchronize()

@@ -160,7 +160,7 @@ def test_cpu_tensors_take_the_twin(monkeypatch):
     def no_launch(*args):
         raise AssertionError("CPU tensors must not reach the kernel launch")
 
-    monkeypatch.setattr(tmk, "_launch_record", no_launch)
+    monkeypatch.setattr(tmk, "_launch", no_launch)
     sc = tdemo.smoke_scene(width=16)
     inputs, _ = tint.mega_inputs(
         sc.build(device="cpu"), sc.scene_cam.params(device="cpu"), 16, 9, 1, 4, 0

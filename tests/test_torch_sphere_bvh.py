@@ -1,9 +1,12 @@
-"""Big sphere scenes (K5, the megakernel's sphere-BVH walk): the port's BVH
-builder and tables against the JAX package's, bit for bit; the port's walk
-against its own brute search, bit for bit, in the forward and record
-modes; both against the JAX package's walk (Pallas in interpret mode) on
-the same bridged scene; the gradient step; and the routing of big scenes.
-The card's own tests are in ``tests/test_torch_sphere_bvh_card.py``."""
+"""Big static sphere scenes (K5, the megakernel's walk of a static table's
+tree): the port's BVH builder and the JAX lowering's leaf-128 tables
+against the JAX package's, bit for bit; the small-leaf tree K5 walks
+(``megakernel.swept_tables`` without deltas), its plain near-first walk
+against the brute search on every lane; the port's walk against its own
+brute search, bit for bit, in the forward and record modes; both against
+the JAX package's walk (Pallas in interpret mode) on the same bridged
+scene; the gradient step; and the routing of big scenes. The card's own
+tests are in ``tests/test_torch_sphere_bvh_card.py``."""
 
 import functools
 from dataclasses import replace
@@ -34,6 +37,7 @@ from tests.torch_motion_scenes import bouncing_stress
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 STRUCT = ("sph_perm", "sph_nodes", "sph_meta")
+SWEPT = ("sph_swept_perm", "sph_swept_nodes", "sph_swept_meta")
 
 
 @functools.cache
@@ -162,7 +166,8 @@ def test_apply_params_keeps_the_tables():
 
 def test_walk_ties_go_to_the_lowest_original_row():
     """Two coincident emitters, the higher id first in leaf order: every hit
-    must take the lower original id, as the brute search does."""
+    of K5's plain walk (the static search) must take the lower original id,
+    as the brute search does."""
     table = torch.zeros((4, tmk.C_IN))
     table[:2, 3] = 1.0  # radius
     table[:2, 4] = -1.0  # |c|^2 - r^2
@@ -171,10 +176,10 @@ def test_walk_ties_go_to_the_lowest_original_row():
     nodes = torch.zeros((1, 16))
     nodes[0, 0:3], nodes[0, 3:6] = -1.0, 1.0
     meta = torch.tensor([0, 2, 1] + [0, 0, 1] * tmk.NODE_WIN, dtype=torch.int32)
-    walk = tmk.walk_inputs(nodes, meta)
+    walk = tmk.swept_inputs(nodes, meta, table)
     o = torch.tensor([[0.0, 0.0, 3.0], [0.2, 0.1, -3.0], [5.0, 5.0, 5.0]])
     d = torch.tensor([[0.0, 0.0, -1.0], [0.0, 0.0, 1.0], [1.0, 0.0, 0.0]])
-    t, idx, hit = tmk.walk_closest_reference(o, d, table, *walk)
+    t, idx, hit = tmk.cull_closest_reference(o, d, table, *walk, counts=dict(tmk.WALK_COUNTS))
     assert hit.tolist() == [True, True, False]
     assert idx.tolist() == [1, 1, 0] and t[2].item() == tmk.BIG
     assert t[0].item() == pytest.approx(2.0)
@@ -186,24 +191,101 @@ def test_walk_counts_its_work():
     tmk.WALK_COUNTS.update(nodes=0, rows=0, roots=0)
     trender.render_image_persistent(sd, cp, 16, 9, 1, 2, 0, device="cpu", schedule="mega")
     c = tmk.WALK_COUNTS
-    # Every ray tests the root at least; leaves hold at most SPH_LEAF rows.
+    # Every ray tests the root at least; leaves hold at most SWEPT_LEAF rows.
     assert c["nodes"] >= 16 * 9 and 0 < c["roots"] <= c["rows"]
-    assert c["rows"] < c["nodes"] * tmk.SPH_LEAF
+    assert c["rows"] < c["nodes"] * tmk.SWEPT_LEAF
 
 
 def test_walk_inputs_grow_the_boxes():
+    """K5's tree as the walk reads it (swept_inputs): each box grown, the
+    metadata without its guard rows."""
     sd = tdemo.sphere_stress(width=16, copies=4).build(device="cpu")
-    nodes, meta = tmk.walk_inputs(sd.sph_nodes, sd.sph_meta)
-    k = sd.sph_nodes.shape[0]
+    table = tint.permute_table(tint.make_sphere_table(sd), sd.sph_swept_perm)
+    nodes, meta = tmk.swept_inputs(sd.sph_swept_nodes, sd.sph_swept_meta, table)
+    k = sd.sph_swept_nodes.shape[0]
     assert nodes.shape == (k, 6) and meta.shape == (k, 3) and meta.dtype == torch.int32
-    assert bool((nodes[:, :3] < sd.sph_nodes[:, :3]).all())
-    assert bool((nodes[:, 3:] > sd.sph_nodes[:, 3:6]).all())
-    assert torch.equal(meta.reshape(-1), sd.sph_meta[: 3 * k])
+    assert bool((nodes[:, :3] < sd.sph_swept_nodes[:, :3]).all())
+    assert bool((nodes[:, 3:] > sd.sph_swept_nodes[:, 3:6]).all())
+    assert torch.equal(meta.reshape(-1), sd.sph_swept_meta[: 3 * k])
+
+
+@functools.cache
+def _stress_rays(copies=4, width=48, spp=2, n_random=2048):
+    """sphere_stress(copies) and rays at it: every primary ray of a
+    ``width``-wide image at ``spp`` samples, and ``n_random`` rays from
+    random points around the tiles toward random points among them."""
+    from crucible_tpu_torch.models.camera import generate_rays
+
+    sc = tdemo.sphere_stress(width=width, copies=copies)
+    sd, cp = sc.build(device="cpu"), sc.scene_cam.params(device="cpu")
+    w, h = sc.scene_cam.image_width, sc.scene_cam.image_height
+    pix = torch.arange(w * h).repeat(spp)
+    smp = torch.arange(spp).repeat_interleave(w * h)
+    o, d, _ = generate_rays(cp, w, h, pix, smp, 0)
+    rng = np.random.default_rng(11)
+    small = sd.sph_center[sd.sph_radius < 100.0].numpy()
+    lo, hi = small.min(0), small.max(0)
+    start = lo + (hi - lo) * rng.uniform(-0.2, 1.2, (n_random, 3))
+    end = lo + (hi - lo) * rng.uniform(0.0, 1.0, (n_random, 3))
+    o = torch.cat([o, torch.from_numpy(start.astype(np.float32))])
+    d = torch.cat([d, torch.from_numpy((end - start).astype(np.float32))])
+    return sd, o.contiguous(), d.contiguous()
+
+
+@pytest.mark.parametrize("leaf", [4, 8, 16])
+def test_static_tree_walks_as_the_brute_search(leaf):
+    """K5's tree of n1936 (swept_tables without deltas, at each leaf size
+    the card's sweep times) is at most TREE_STACK deep, swept_inputs takes
+    it, and its near-first plain walk gives the brute search's (t, id) bit
+    for bit on every lane: primary rays and random rays through the
+    tiles."""
+    sd, o, d = _stress_rays()
+    spheres = (sd.sph_center.numpy(), sd.sph_radius.numpy(), sd.sph_active.numpy())
+    perm, snodes, smeta = (torch.from_numpy(x) for x in
+                           tmk.swept_tables(*spheres, leaf_size=leaf))
+    if leaf == tmk.SWEPT_LEAF:  # Scene.build's tree
+        assert all(torch.equal(a, getattr(sd, k)) for a, k in zip((perm, snodes, smeta), SWEPT))
+    k = snodes.shape[0]
+    assert tmk.tree_depth(smeta[: 3 * k].reshape(k, 3)) <= tmk.TREE_STACK
+    table = tint.make_sphere_table(sd)
+    permuted = tint.permute_table(table, perm)
+    nodes, meta = tmk.swept_inputs(snodes, smeta, permuted)
+    counts = dict(nodes=0, rows=0, roots=0)
+    t, idx, hit = tmk.cull_closest_reference(o, d, permuted, nodes, meta, counts=counts)
+    want_t, want_idx, want_hit = sphere_hit_reference(o, d, table)
+    assert torch.equal(hit, want_hit) and torch.equal(t, want_t)
+    assert torch.equal(permuted[idx, 31].long()[hit], want_idx.long()[hit])
+    assert 0.3 < float(hit.float().mean()) < 1.0
+    # The walk tests a few dozen rows a ray, not the table's 1,936.
+    assert counts["rows"] < 100 * o.shape[0]
+
+
+def sphere_hit_reference(o, d, table):
+    """The brute search over the original table (K1's plain version)."""
+    from crucible_tpu_torch.ops.kernels import sphere_hit
+
+    return sphere_hit.hit_spheres_reference(o, d, table[:, 0:3], table[:, 4], table[:, 5],
+                                            tmk.T_MIN)
+
+
+def test_bridge_builds_the_static_tree():
+    """A JAX-lowered static scene carries the leaf-128 tables and no tree;
+    the bridge builds K5's tree from its spheres, Scene.build's bit for
+    bit."""
+    sd, _ = bridged(_jax_scene(4))
+    own = tdemo.sphere_stress(width=24, copies=4).build(device="cpu")
+    for k in SWEPT:
+        assert torch.equal(getattr(sd, k), getattr(own, k)), k
+    assert tint.swept_tree(sd)[1] is sd.sph_swept_nodes
+    assert tint.swept_tree(replace(sd, sph_perm=None)) is None
+    with pytest.raises(ValueError, match="swept tree"):
+        tint.swept_tree(replace(sd, sph_swept_nodes=None))
 
 
 def _relink(meta, column, value):
-    """sph_meta with the root's entry in ``column`` set to ``value``: a skip
-    link that loops back (column 2) or a leaf past the table (column 1)."""
+    """A tree's meta with the root's entry in ``column`` set to ``value``: a
+    skip link that loops back (column 2) or a leaf past the table (column
+    1)."""
     meta = meta.clone()
     meta[column] = value
     return meta
@@ -212,13 +294,15 @@ def _relink(meta, column, value):
 @pytest.mark.parametrize(
     "kwargs,error",
     [
-        (lambda sd: dict(sph_nodes=sd.sph_nodes), ValueError),
-        (lambda sd: dict(sph_nodes=sd.sph_nodes, sph_meta=sd.sph_meta[:-3]), ValueError),
-        (lambda sd: dict(sph_nodes=sd.sph_nodes.double(), sph_meta=sd.sph_meta), TypeError),
-        (lambda sd: dict(sph_nodes=sd.sph_nodes, sph_meta=_relink(sd.sph_meta, 2, 0)),
+        (lambda sd: dict(swept_nodes=sd.sph_swept_nodes), ValueError),
+        (lambda sd: dict(swept_nodes=sd.sph_swept_nodes, swept_meta=sd.sph_swept_meta[:-3]),
          ValueError),
-        (lambda sd: dict(sph_nodes=sd.sph_nodes, sph_meta=_relink(sd.sph_meta, 1, 10**6)),
-         ValueError),
+        (lambda sd: dict(swept_nodes=sd.sph_swept_nodes.double(),
+                         swept_meta=sd.sph_swept_meta), TypeError),
+        (lambda sd: dict(swept_nodes=sd.sph_swept_nodes,
+                         swept_meta=_relink(sd.sph_swept_meta, 2, 0)), ValueError),
+        (lambda sd: dict(swept_nodes=sd.sph_swept_nodes,
+                         swept_meta=_relink(sd.sph_swept_meta, 1, 10**6)), ValueError),
     ],
     ids=["nodes_alone", "short_meta", "nodes_dtype", "backward_link", "rows_past_the_end"],
 )
@@ -226,7 +310,7 @@ def test_walk_validates_its_tables(kwargs, error):
     sc = tdemo.sphere_stress(width=16, copies=4)
     sd, cp = sc.build(device="cpu"), sc.scene_cam.params(device="cpu")
     inputs, _ = tint.mega_inputs(sd, cp, 16, 9, 1, 1, 0)
-    inputs["table"] = tint.permute_table(inputs["table"], sd.sph_perm)
+    inputs["table"] = tint.permute_table(inputs["table"], sd.sph_swept_perm)
     with pytest.raises(error):
         tmk.run_megakernel(**inputs, **kwargs(sd), animated=False)
 
@@ -287,12 +371,14 @@ def test_walk_render_matches_jax_at_24_wide():
 
 
 def _book1_with_tables(width=16):
-    """book1 (488 rows: no tables at build) with its sphere-BVH tables."""
+    """book1 (488 rows: no tables at build) with its sphere-BVH tables and
+    K5's tree."""
     sc = tdemo.book1_end_scene(width=width)
     sd, cp = sc.build(device="cpu"), sc.scene_cam.params(device="cpu")
-    tables = tmk.sphere_bvh_tables(sd.sph_center.numpy(), sd.sph_radius.numpy(),
-                                   sd.sph_active.numpy())
-    return sd, replace(sd, **{k: torch.from_numpy(v) for k, v in zip(STRUCT, tables)}), cp
+    spheres = (sd.sph_center.numpy(), sd.sph_radius.numpy(), sd.sph_active.numpy())
+    tables = [*tmk.sphere_bvh_tables(*spheres), *tmk.swept_tables(*spheres)]
+    return sd, replace(sd, **{k: torch.from_numpy(v)
+                              for k, v in zip(STRUCT + SWEPT, tables)}), cp
 
 
 def test_cull_on_a_small_scene_equals_brute():
@@ -397,7 +483,7 @@ def test_auto_takes_the_walk_above_cull_min_rows(monkeypatch):
     real = tmk.run_megakernel
 
     def spy(*args, **kwargs):
-        seen.append(kwargs.get("sph_nodes"))
+        seen.append(kwargs.get("swept_nodes"))
         return real(*args, **kwargs)
 
     monkeypatch.setattr(tmk, "run_megakernel", spy)
@@ -405,7 +491,7 @@ def test_auto_takes_the_walk_above_cull_min_rows(monkeypatch):
     img = trender.render_image(sc, samples=1, max_depth=2, device="cpu")
     assert img.shape == (9, 16, 3) and torch.isfinite(img).all()
     sd = sc.build(device="cpu")
-    assert len(seen) == 1 and seen[0] is sd.sph_nodes
+    assert len(seen) == 1 and seen[0] is sd.sph_swept_nodes
     trender.render_image(tdemo.book1_end_scene(width=16), samples=1, max_depth=2, device="cpu")
     assert len(seen) == 2 and seen[1] is None
 

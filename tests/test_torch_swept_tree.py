@@ -165,9 +165,9 @@ def chain_tree(sd, leaf=8):
 def test_tree_depth_picks_the_walk_order():
     """The swept trees of n1936 and n7744 are at most TREE_STACK deep, so K6
     walks them nearer child first; a deeper tree (a chain) is refused. The
-    plain walks in both orders (near-first, K6's, and the DFS skip links,
-    K5's) give the brute search's bits, and the near-first one tests fewer
-    rows."""
+    near-first plain walk gives the brute search's bits, and tests fewer
+    rows than a walk that did not prune by its best hit would: every row of
+    every leaf its ray enters."""
     _, sd, cp = _scene()
     for copies in (4, 16):
         meta = _scene(copies)[1].sph_swept_meta
@@ -184,15 +184,18 @@ def test_tree_depth_picks_the_walk_order():
     o, d, w = _rays(sd, cp, 16, 9, True)
     want_t, want_id = sphere_shade.moving_closest_reference(o, d, w, tint.make_sphere_table(sd))
     nodes, meta = tmk.swept_inputs(sd.sph_swept_nodes, sd.sph_swept_meta, table)
-    work = {}
-    for near in (False, True):
-        counts = dict(nodes=0, rows=0, roots=0)
-        t, idx, hit = tmk._skip_walk(o, d, table, nodes, meta, tmk.T_MIN, w, counts,
-                                     near=near)
-        assert torch.equal(t, want_t) and torch.equal(table[idx, 31].long()[hit],
-                                                      want_id[hit])
-        work[near] = counts
-    assert work[True]["rows"] < work[False]["rows"]
+    counts = dict(nodes=0, rows=0, roots=0)
+    t, idx, hit = tmk.cull_closest_reference(o, d, table, nodes, meta, w=w, counts=counts)
+    assert torch.equal(t, want_t) and torch.equal(table[idx, 31].long()[hit], want_id[hit])
+    leaves = meta[:, 1] > 0
+    b = nodes[leaves][None]
+    pr = tmk.SLAB_EPS * o.abs().amax(dim=1)[:, None]
+    inv = [tmk._safe_inv(d[:, j])[:, None] for j in range(3)]
+    planes = [((b[..., j + 3 * hi] + (pr if hi else -pr)) - o[:, j, None]) * inv[j]
+              for j in range(3) for hi in (0, 1)]
+    entered, _ = tmk._slab(*planes, tmk.T_MIN, torch.full_like(pr, tmk.BIG))
+    unpruned = int((entered * meta[leaves, 1][None]).sum())
+    assert counts["rows"] < unpruned
 
 
 def test_swept_tables_cap_the_depth_at_the_stack(monkeypatch):
@@ -313,8 +316,14 @@ def test_bridge_builds_the_tree_that_scene_build_builds():
     got = bridge.scene_data_from_arrays(jax_like, device="cpu", **static)
     for k in SWEPT:
         assert torch.equal(getattr(got, k), getattr(sd, k)), k
+    # A static scene's tree (K5's) crosses as it is, and a scene with
+    # neither walk's tables has none.
     static_sd = tdemo.sphere_stress(width=16, copies=4).build(device="cpu")
     arrays, static = bridge.scene_data_to_arrays(static_sd)
+    back = bridge.scene_data_from_arrays(arrays, device="cpu", **static)
+    assert all(torch.equal(getattr(back, k), getattr(static_sd, k)) for k in SWEPT)
+    small = tdemo.book1_end_scene(width=16).build(device="cpu")
+    arrays, static = bridge.scene_data_to_arrays(small)
     back = bridge.scene_data_from_arrays(arrays, device="cpu", **static)
     assert all(getattr(back, k) is None for k in SWEPT)
 

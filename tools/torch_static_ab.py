@@ -20,10 +20,16 @@ shapes ``chip_smoke.py`` and the main paths use:
   bounce 6, its survivors compacted into r // 12 slots as
   ``replay.record_two_level`` compacts them);
 - K5: sphere_stress 7744 and 1936 rows, 320 wide 8 spp depth 50, and
-  7744 rows at 1920x1080 32 spp depth 50;
-- K8 and K7, which share K1's camera and shading code: book1's table given
-  the animated flag, and chip_smoke.py's torus_teapot, 320 wide 8 spp
-  depth 50;
+  7744 rows at 1920x1080 32 spp depth 50; its record (fused) at 1920x1080
+  4 spp depth 8, 7744 and 1936 rows; and with K8's rising camera, 1936
+  rows, 320 wide 8 spp depth 50 and its record at 320 wide 4 spp depth 8.
+  A tree whose static scenes carry no tree of their own (before K5 walked
+  one) walks their sphere BVH (``sph_nodes``) instead;
+- K8, which shares K1's camera and shading code: book1's table given the
+  animated flag;
+- K7 on chip_smoke.py's torus_teapot, 320 wide 8 spp and 1920x1080 32 spp
+  depth 50, and its record (fused) at 1920x1080 4 spp depth 8; K7 moving
+  on its moving twin (chip_smoke.moving_torus_teapot, frame 30) likewise;
 - K8's brute search on bouncing book1 (``chip_smoke.bouncing_book1``): each
   flag set (moving spheres, moving camera, both) 320 wide 8 spp depth 50,
   both flags at 1920x1080 32 spp depth 50, and its record (both flags,
@@ -93,16 +99,27 @@ def main() -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(stop) / reps
 
-    def inputs(sc, spp, walk=False, tri=False):
+    def walk(x, sd):
+        """K5's inputs: ``x`` with the table in the walk's order and the
+        static scene's tree or, in a tree before it, its sphere BVH."""
+        if getattr(sd, "sph_swept_nodes", None) is not None:
+            return dict(x, table=integrator.permute_table(x["table"], sd.sph_swept_perm),
+                        swept_nodes=sd.sph_swept_nodes, swept_meta=sd.sph_swept_meta)
+        return dict(x, table=integrator.permute_table(x["table"], sd.sph_perm),
+                    sph_nodes=sd.sph_nodes, sph_meta=sd.sph_meta)
+
+    def tri(x, sd):
+        return dict(x, **dict(zip(("tri_nodes", "tris", "mats", "tri_meta"),
+                                  integrator.make_tri_tables(sd))))
+
+    def inputs(sc, spp, walk_tables=False, tri_tables=False):
         sd, cp = sc.build(device=dev), sc.scene_cam.params(device=dev)
         w, h = sc.scene_cam.image_width, sc.scene_cam.image_height
         x, _ = integrator.mega_inputs(sd, cp, w, h, spp, 50, 0)
-        if walk:
-            x = dict(x, table=integrator.permute_table(x["table"], sd.sph_perm),
-                     sph_nodes=sd.sph_nodes, sph_meta=sd.sph_meta)
-        if tri:
-            x = dict(x, **dict(zip(("tri_nodes", "tris", "mats", "tri_meta"),
-                                   integrator.make_tri_tables(sd))))
+        if walk_tables:
+            x = walk(x, sd)
+        if tri_tables:
+            x = tri(x, sd)
         return x
 
     def cull(x, sd):
@@ -153,13 +170,15 @@ def main() -> None:
         "k1_book1_320w_8spp": (demo.book1_end_scene(width=320), 8, {}, 5),
         "k1_book1_1080p_32spp": (demo.book1_end_scene(width=1920), 32, {}, 3),
         "k5_n7744_320w_8spp": (demo.sphere_stress(width=320, copies=16), 8,
-                               dict(walk=True), 3),
+                               dict(walk_tables=True), 3),
         "k5_n1936_320w_8spp": (demo.sphere_stress(width=320, copies=4), 8,
-                               dict(walk=True), 3),
+                               dict(walk_tables=True), 3),
         "k5_n7744_1080p_32spp": (demo.sphere_stress(width=1920, copies=16), 32,
-                                 dict(walk=True), 2),
+                                 dict(walk_tables=True), 2),
         "k7_torus_teapot_320w_8spp": (chip_smoke.torus_teapot(tscene, 320), 8,
-                                      dict(tri=True), 3),
+                                      dict(tri_tables=True), 3),
+        "k7_torus_teapot_1080p_32spp": (chip_smoke.torus_teapot(tscene, 1920), 32,
+                                        dict(tri_tables=True), 2),
     }
     for name, (sc, spp, kw, reps) in forward.items():
         x = inputs(sc, spp, **kw)
@@ -168,6 +187,38 @@ def main() -> None:
             timed("k8_book1_320w_8spp_animated",
                   lambda: mk.run_megakernel(**x, animated=True), reps)
         del x
+
+    # K5's records, and K5 with K8's rising camera.
+    for copies in (16, 4):
+        sc = demo.sphere_stress(width=1920, copies=copies)
+        x = walk(record_inputs(1920, 4, sc), sc.build(device=dev))
+        timed(f"k5_record_n{484 * copies}_1080p_4spp_d8", lambda: mk.run_megakernel_record(
+            **x, max_depth=8, radiance=True), 3)
+    cam_only = dict(animated=False, cam_animated=True)
+    sc = demo.sphere_stress(width=320, copies=4)
+    sc.cam_translate_y(0.5, 1.0 / 48.0, "lerp", "local", "from")
+    x = inputs(sc, 8, walk_tables=True)
+    timed("k5_camera_n1936_320w_8spp", lambda: mk.run_megakernel(**x, **cam_only), 3)
+    x = walk(record_inputs(320, 4, sc), sc.build(device=dev))
+    timed("k5_camera_record_n1936_320w_4spp_d8", lambda: mk.run_megakernel_record(
+        **x, max_depth=8, radiance=True, **cam_only), 5)
+
+    # K7's record, and K7 moving (moving torus_teapot at frame 30).
+    sc = chip_smoke.torus_teapot(tscene, 1920)
+    x = tri(record_inputs(1920, 4, sc), sc.build(device=dev))
+    timed("k7_record_torus_teapot_1080p_4spp_d8", lambda: mk.run_megakernel_record(
+        **x, max_depth=8, radiance=True), 3)
+    moving = dict(animated=True, cam_animated=False)
+    sc = chip_smoke.moving_torus_teapot(tscene, 320)
+    for width, spp, reps in ((320, 8, 3), (1920, 32, 2)):
+        sc.scene_cam.image_width = width
+        x = inputs(sc, spp, tri_tables=True)
+        timed(f"k7_moving_torus_teapot_{width}w_{spp}spp".replace("1920w", "1080p"),
+              lambda: mk.run_megakernel(**x, **moving), reps)
+    x = tri(record_inputs(1920, 4, sc), sc.build(device=dev))
+    timed("k7_moving_record_torus_teapot_1080p_4spp_d8", lambda: mk.run_megakernel_record(
+        **x, max_depth=8, radiance=True, **moving), 3)
+    del x
 
     x = record_inputs(1920, 4)
     for radiance in (True, False):
