@@ -47,8 +47,11 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
    - K10, the closest sphere hit, bit for bit on t, idx and hit against
      book1's table: 2^20 random rays, the primary rays of book1 320 wide at
      4 spp, and the two launches of the direct-AD step's shape: its
-     1920x1080 4 spp primary rays (timed) and the rays of its second
-     bounce, which start on sphere surfaces.
+     1920x1080 4 spp primary rays (timed, with its launch shape: grid,
+     resident blocks an SM, threads, rays a thread, registers, spill and
+     shared bytes) and the rays of its second bounce, which start on
+     sphere surfaces (timed); and 2^20 random rays against sphere_stress
+     n7744's table, past the rows a block stages at a time (timed).
    - K9, the fused hit + fetch: garden's 1920x1080 primary rays against
      garden's table, 2^20 random rays against book1's, and book1's table
      with random motion columns and shutter fractions, bit for bit on all
@@ -287,7 +290,7 @@ PEAK_BYTES = 3.35e12
 # FP32 operations counted from the kernel sources (multiplies, adds,
 # divides, square roots; compares and selects not counted):
 SEARCH_OPS = 22  # one ray against one table row in the closest-hit loop
-# K10's and K9's searches (csrc/sphere_hit.cu via common.cuh, sphere_shade.cu)
+# K10's and K9's searches (csrc/sphere_hit.cu, csrc/sphere_shade.cu)
 # per (ray, active row): up to the discriminant, then the square root and
 # the two roots where it is not negative.
 HIT_DISC_OPS, SHADE_DISC_OPS, ROOT_OPS = 17, 35, 5
@@ -1162,14 +1165,16 @@ def main() -> None:
         search_ops(o, d, torch.zeros(o.shape[0], device=dev), b1_table, HIT_DISC_OPS),
         nbytes(*args) + 9 * o.shape[0],
     )
+    k10_shape = sh.launch_shape(b1_table.shape[0], o.shape[0])
     print(f"K10 1920x1080 4spp primary rays ({o.shape[0]} x {b1_table.shape[0]} rows): "
           f"kernel {k10_ms:.3f} ms, plain {k10_plain:.1f} ms, bound {k10_bound:.4f} ms "
           f"({k10_by})")
+    print(f"K10 launch shape: {json.dumps(k10_shape)}")
     kernels["sphere_hit"] = dict(
         source="crucible_tpu_torch/csrc/sphere_hit.cu",
         replaces="crucible_tpu/ops/pallas/sphere_hit.py:103",
         max_abs_err=k10_err, ms=k10_ms, plain_ms=k10_plain,
-        bound_ms=k10_bound, bound_by=k10_by,
+        bound_ms=k10_bound, bound_by=k10_by, shape=k10_shape,
     )
     r = o.shape[0]
     with torch.no_grad():
@@ -1177,8 +1182,25 @@ def main() -> None:
             b1080_sd, pix, smp, 0, 0, o, d, torch.ones((r, 3), device=dev),
             torch.zeros((r, 3), device=dev), torch.ones((r,), dtype=torch.bool, device=dev),
         )
-    k10_check(k10_args(b1080_sd, o, d), "K10 1920x1080 4spp second-bounce rays")
+    args = k10_args(b1080_sd, o, d)
+    k10_check(args, "K10 1920x1080 4spp second-bounce rays")
+    ms = cuda_ms(lambda: sh.hit_spheres(*args), 3)
+    print(f"K10 1920x1080 4spp second-bounce rays: kernel {ms:.3f} ms")
+    kernels["sphere_hit"]["second_bounce_ms"] = ms
     del o, d, args, pix, smp
+    # A table past the rows a block stages at a time: the kernel's chunks.
+    stress_sd = demo.sphere_stress(width=320, copies=16).build(device=dev)
+    o, d = random_rays(1 << 20, 5)
+    args = k10_args(stress_sd, o, d)
+    n_rows = stress_sd.sph_center.shape[0]
+    if n_rows <= sh.STAGE_ROWS:
+        raise AssertionError(f"n7744's {n_rows} rows do not pass the staged {sh.STAGE_ROWS}")
+    plain_ms, _ = k10_check(args, f"K10 2^20 random rays x sphere_stress n7744 ({n_rows} rows, "
+                            f"{sh.launch_shape(n_rows, o.shape[0])['chunks']} chunks)")
+    ms = cuda_ms(lambda: sh.hit_spheres(*args), 3)
+    print(f"K10 2^20 rays x {n_rows} rows: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms")
+    kernels["sphere_hit"]["past_capacity_ms"] = ms
+    del o, d, args, stress_sd
 
     # --- K9: fused hit + fetch vs its plain version -----------------------------
     mark('K9: fused hit + fetch vs its plain version')

@@ -491,8 +491,9 @@ __device__ __forceinline__ bool shade_bounce(
   return true;
 }
 
-// One staged row against the ray, in closest_sphere's arithmetic; the
-// entry replaces (best, k_win) only when strictly nearer.
+// One staged row against the ray, in K10's arithmetic (sphere_hit.cu
+// row_disc, row_root); the entry replaces (best, k_win) only when strictly
+// nearer.
 __device__ __forceinline__ void brute_row(const float4 c, int k, float ox, float oy,
                                           float oz, float dx, float dy, float dz,
                                           float a_q, float d_dot_o, float o_sq,
@@ -518,7 +519,7 @@ __device__ __forceinline__ void brute_row(const float4 c, int k, float ox, float
 }
 
 // A moving row (entries c, m = (cdx, cdy, cdz, s1) and s2) at the path's
-// shutter fraction in closest_sphere_moving's association (common.cuh),
+// shutter fraction in K9's association (sphere_shade.cu),
 // operation for operation, in brute_row's form: the entry replaces (best,
 // k_win) only when strictly nearer.
 __device__ __forceinline__ void moving_row(const float4 c, const float4 m, float s2, int k,
@@ -547,7 +548,7 @@ __device__ __forceinline__ void moving_row(const float4 c, const float4 m, float
 }
 
 // A static row entry c = (cx, cy, cz, |c|^2 - r^2) against the ray ->
-// (h, c_q), in closest_sphere's association.
+// (h, c_q), in K10's association (sphere_hit.cu row_disc).
 __device__ __forceinline__ void static_terms(const float4 c, float ox, float oy, float oz,
                                              float dx, float dy, float dz, float d_dot_o,
                                              float o_sq, float& h, float& c_q) {
@@ -558,8 +559,8 @@ __device__ __forceinline__ void static_terms(const float4 c, float ox, float oy,
 }
 
 // A moving row (entries c, m = (cdx, cdy, cdz, s1) and s2) at the path's
-// shutter fraction w -> (h, c_q), in closest_sphere_moving's association
-// (common.cuh), operation for operation.
+// shutter fraction w -> (h, c_q), in K9's association (sphere_shade.cu),
+// operation for operation.
 __device__ __forceinline__ void moving_terms(const float4 c, const float4 m, float s2,
                                              float ox, float oy, float oz, float dx,
                                              float dy, float dz, float d_dot_o, float o_sq,

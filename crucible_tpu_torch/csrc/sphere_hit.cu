@@ -6,28 +6,58 @@
 // and the row it belongs to. It is the primal of ops/intersect.hit_spheres,
 // which every staged bounce and the direct-AD gradient call.
 //
-// What bounds it on this card: FP32 work, about 22 operations per ray and
-// row (two 3-term dot products, the quadratic, a square root, two roots);
-// the bytes are 28 per ray in and 9 out, and 20 per row.
+// What bounds it on this card: FP32 work. Up to the discriminant a (ray,
+// row) pair costs 17 operations (two 3-term dot products, h, c_q and the
+// discriminant), then a square root and two roots where the discriminant is
+// not negative (under 1% of the pairs at the main shape, 1920x1080 4 spp
+// primary rays against book1). With -fmad=false each operation is its own
+// instruction, and an SM issues 128 of them a clock, half the 67 TFLOP/s
+// that counts an FMA as two: so the 17 instructions a pair, not the
+// published rate, are the floor (~2.04 ms at the main shape at 1.98 GHz).
+// The bytes are 24 per ray in and 8 out, and 20 per row.
 //
-// Design: one thread per ray. The search columns (center x/y/z,
-// |c|^2 - r^2, active) are staged in shared memory in chunks of CHUNK rows,
-// SoA, between two __syncthreads(); every thread of a warp then reads the
-// same row at the same time, which shared memory serves as a broadcast. So
-// no row cap is needed (the TPU kernel's VMEM limit has no counterpart), and
-// the chunk loop keeps every thread of the block in the barriers even past
-// the last ray. The search itself is common.cuh's closest_sphere, the
-// arithmetic of the megakernel's brute search (K1): the Pallas kernel's expanded
-// quadratic, term by term, with the lowest row winning ties as the TPU's
-// min-then-first-index reduction does. A miss returns t = BIG, idx = 0,
-// as the TPU kernel does.
+// Design (measured in PERF.md §6):
+// - A persistent grid: as many 128-thread blocks as stay resident
+//   (crucible_sphere_hit_shape, queried once per table size and card by the
+//   wrapper). Thread g of the grid takes rays g, g + G, g + 2G, ... (G the
+//   grid's threads), so every thread has the same number of rays, within one.
+// - Each block stages the table once: the active rows only, in table order,
+//   as 16-byte entries (cx, cy, cz, |c|^2 - r^2) in shared memory sized to
+//   the table (dynamic, 20 bytes a row), packed by a warp ballot and a block
+//   prefix sum, with each entry's table row in a parallel array that is read
+//   once per ray, for the winner. The entry list is padded to a multiple of 4
+//   with copies of its last entry, which never win (the strict '<' below).
+// - Four rays a thread (RPT): each broadcast LDS.128 of a row serves all of
+//   them. Rows go four at a time, all four loaded first. A thread's last
+//   rays, fewer than RPT, take the 2- and 1-ray forms, so no lane computes
+//   a dead ray.
+// - Per ray and four rows, one branch: the discriminants' sign bits ANDed.
+//   A discriminant is never -0 (h * h >= +0), so a clear sign bit marks one
+//   that is >= 0, or a NaN (which the row's own test then rejects). The
+//   root test keeps its update inside the root's branch, as the
+//   megakernel's brute_row does (the other form cost K1 / K2 ~25%).
+// - A table past STAGE_ROWS rows goes through chunks of that many rows: the
+//   block restages, and each ray carries its best root through its output
+//   (read back, and written only where the chunk gave a nearer winner). No
+//   row cap: the TPU kernel's VMEM limit has no counterpart here.
+// - The FP32 CUDA cores, not the tensor cores: the dot products have K = 3
+//   and every product must round on its own; TF32 or BF16 would change the
+//   winners, and FP64 MMA rounds differently.
+//
+// Arithmetic: the Pallas kernel's expanded quadratic, term by term:
+// h = c.d - d.o, c_q = (|c|^2 - r^2) - 2 c.o + |o|^2, disc = h^2 - a c_q,
+// roots (h -/+ sqrt(disc)) * (1/a), a root accepted in (t_min, BIG). A row
+// replaces the best only when strictly nearer, so the lowest table row wins
+// ties, as the TPU's min-then-first-index reduction does. A miss returns
+// t = BIG, idx = 0. The megakernel's flat loop runs the same arithmetic on
+// the same 16-byte entries (megakernel.cu brute_row).
 //
 // Numerics: -fmad=false and no fast math (ops/kernels/build.py), so the
 // kernel rounds like its eager version (ops/kernels/sphere_hit.py
 // hit_spheres_reference) and the two agree bit for bit.
 //
-// Interface: a plain C entry point, bound from Python with ctypes. It
-// launches on the caller's stream, allocates nothing and returns
+// Interface: plain C entry points, bound from Python with ctypes. The
+// launch runs on the caller's stream, allocates nothing and returns
 // cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -39,8 +69,157 @@ namespace {
 
 using namespace crucible;
 
-constexpr int BLOCK = 128;   // threads (rays) per block
-constexpr int CHUNK = 2048;  // rows staged at a time: 5 * 4 * 2048 = 40 KB
+constexpr int BLOCK = 128;        // threads per block
+constexpr int RPT = 4;            // rays a thread
+constexpr int STAGE_ROWS = 2048;  // table rows staged at a time: 40 KB at most
+
+// Entries staged for an N-row table: its first chunk, padded to 4.
+__host__ __device__ int staged_entries(int n) {
+  const int rows = n < STAGE_ROWS ? n : STAGE_ROWS;
+  return (rows + 3) & ~3;
+}
+
+__host__ __device__ int smem_bytes(int n) {
+  return staged_entries(n) * (int)(sizeof(float4) + sizeof(int32_t));
+}
+
+// One ray and its running winner; k_win indexes the staged entries.
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, a_q, d_dot_o, o_sq, inv_a, best;
+  int k_win;
+};
+
+__device__ __forceinline__ void load_ray(const float* o, const float* d, size_t i, Ray& y) {
+  y.ox = o[3 * i];
+  y.oy = o[3 * i + 1];
+  y.oz = o[3 * i + 2];
+  y.dx = d[3 * i];
+  y.dy = d[3 * i + 1];
+  y.dz = d[3 * i + 2];
+  y.a_q = y.dx * y.dx + y.dy * y.dy + y.dz * y.dz;
+  y.d_dot_o = y.dx * y.ox + y.dy * y.oy + y.dz * y.oz;
+  y.o_sq = y.ox * y.ox + y.oy * y.oy + y.oz * y.oz;
+  y.inv_a = 1.0f / y.a_q;
+  y.k_win = -1;
+}
+
+// A staged entry c = (cx, cy, cz, |c|^2 - r^2) against the ray -> disc; h
+// beside it.
+__device__ __forceinline__ float row_disc(const float4 c, const Ray& y, float& h) {
+  const float dck = c.x * y.dx + c.y * y.dy + c.z * y.dz;
+  const float ock = c.x * y.ox + c.y * y.oy + c.z * y.oz;
+  h = dck - y.d_dot_o;
+  const float c_q = c.w - 2.0f * ock + y.o_sq;
+  return h * h - y.a_q * c_q;
+}
+
+// Entry k's accepted root, where its discriminant is not negative; it
+// replaces the ray's best only when strictly nearer.
+__device__ __forceinline__ void row_root(float h, float disc, int k, float t_min, Ray& y) {
+  if (disc >= 0.0f) {
+    const float sq = sqrtf(disc);
+    const float root0 = (h - sq) * y.inv_a;
+    const float root1 = (h + sq) * y.inv_a;
+    const bool ok0 = (root0 > t_min) && (root0 < BIG);
+    const bool ok1 = (root1 > t_min) && (root1 < BIG);
+    const float root = ok0 ? root0 : root1;
+    if ((ok0 || ok1) && root < y.best) {
+      y.best = root;
+      y.k_win = k;
+    }
+  }
+}
+
+// K rays against the n4 staged entries (n4 a multiple of 4).
+template <int K>
+__device__ __forceinline__ void search(const float4* rows, int n4, float t_min, Ray (&y)[K]) {
+  for (int k = 0; k < n4; k += 4) {
+    const float4 c0 = rows[k], c1 = rows[k + 1], c2 = rows[k + 2], c3 = rows[k + 3];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      float h0, h1, h2, h3;
+      const float e0 = row_disc(c0, y[j], h0);
+      const float e1 = row_disc(c1, y[j], h1);
+      const float e2 = row_disc(c2, y[j], h2);
+      const float e3 = row_disc(c3, y[j], h3);
+      const uint32_t signs = __float_as_uint(e0) & __float_as_uint(e1) &
+                             __float_as_uint(e2) & __float_as_uint(e3);
+      if ((int32_t)signs >= 0) {
+        row_root(h0, e0, k, t_min, y[j]);
+        row_root(h1, e1, k + 1, t_min, y[j]);
+        row_root(h2, e2, k + 2, t_min, y[j]);
+        row_root(h3, e3, k + 3, t_min, y[j]);
+      }
+    }
+  }
+}
+
+// The rays first, first + stride, ... (K of them) against the staged
+// chunk. In the first chunk every ray's result is written; in a later one
+// the best so far is read from t_out and both outputs are written only
+// where this chunk holds a nearer root.
+template <int K>
+__device__ __forceinline__ void batch(const float* o, const float* d, size_t first,
+                                      size_t stride, const float4* rows, const int32_t* ids,
+                                      int n4, bool resume, float t_min, float* t_out,
+                                      int32_t* idx_out) {
+  Ray y[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const size_t i = first + j * stride;
+    load_ray(o, d, i, y[j]);
+    y[j].best = resume ? t_out[i] : BIG;
+  }
+  search<K>(rows, n4, t_min, y);
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const size_t i = first + j * stride;
+    if (y[j].k_win >= 0) {
+      t_out[i] = y[j].best;
+      idx_out[i] = ids[y[j].k_win];
+    } else if (!resume) {
+      t_out[i] = BIG;
+      idx_out[i] = 0;
+    }
+  }
+}
+
+// Stage the active rows of table rows [base, base + count) as entries in
+// table order, then pad to a multiple of 4 -> the padded entry count. Every
+// thread of the block calls it.
+__device__ int stage(const float* centers, const float* csr, const float* active, int base,
+                     int count, float4* s_rows, int32_t* s_ids, int* s_warp) {
+  __syncthreads();  // the previous chunk is no longer read
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int total = 0;
+  for (int k0 = 0; k0 < count; k0 += BLOCK) {
+    const int k = k0 + threadIdx.x;
+    const bool on = k < count && active[base + k] > 0.0f;
+    const uint32_t mask = __ballot_sync(0xffffffffu, on);
+    if (lane == 0) s_warp[warp] = __popc(mask);
+    __syncthreads();
+    int pos = total, sum = total;
+    for (int w = 0; w < BLOCK / 32; ++w) {
+      if (w < warp) pos += s_warp[w];
+      sum += s_warp[w];
+    }
+    if (on) {
+      pos += __popc(mask & ((1u << lane) - 1u));
+      const float* c = centers + 3 * (size_t)(base + k);
+      s_rows[pos] = make_float4(c[0], c[1], c[2], csr[base + k]);
+      s_ids[pos] = base + k;
+    }
+    total = sum;
+    __syncthreads();  // s_warp is written again; the entries are complete
+  }
+  const int n4 = (total + 3) & ~3;
+  if ((int)threadIdx.x < n4 - total) {
+    s_rows[total + threadIdx.x] = s_rows[total - 1];
+    s_ids[total + threadIdx.x] = s_ids[total - 1];
+  }
+  __syncthreads();
+  return n4;
+}
 
 __global__ void __launch_bounds__(BLOCK) sphere_hit(
     const float* __restrict__ o,        // (R, 3) origins
@@ -51,64 +230,80 @@ __global__ void __launch_bounds__(BLOCK) sphere_hit(
     int n, int r, float t_min,
     float* __restrict__ t_out,          // (R,) hit distance, BIG on a miss
     int32_t* __restrict__ idx_out) {    // (R,) winning row, 0 on a miss
-  __shared__ float s_cx[CHUNK], s_cy[CHUNK], s_cz[CHUNK], s_csr[CHUNK],
-      s_act[CHUNK];
+  extern __shared__ float4 s_rows[];    // staged_entries(n) entries, then their ids
+  int32_t* s_ids = (int32_t*)(s_rows + staged_entries(n));
+  __shared__ int s_warp[BLOCK / 32];
 
-  const int ray = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = ray < r;
-  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 1.0f, dy = 1.0f, dz = 1.0f;
-  if (live) {
-    ox = o[3 * (size_t)ray];
-    oy = o[3 * (size_t)ray + 1];
-    oz = o[3 * (size_t)ray + 2];
-    dx = d[3 * (size_t)ray];
-    dy = d[3 * (size_t)ray + 1];
-    dz = d[3 * (size_t)ray + 2];
-  }
-  const float a_q = dx * dx + dy * dy + dz * dz;
-  const float d_dot_o = dx * ox + dy * oy + dz * oz;
-  const float o_sq = ox * ox + oy * oy + oz * oz;
-  const float inv_a = 1.0f / a_q;
-
-  float best = BIG;
-  int win = -1;
-  for (int base = 0; base < n; base += CHUNK) {
-    const int count = min(CHUNK, n - base);
-    __syncthreads();  // the previous chunk is no longer read
-    for (int k = threadIdx.x; k < count; k += blockDim.x) {
-      const float* c = centers + 3 * (size_t)(base + k);
-      s_cx[k] = c[0];
-      s_cy[k] = c[1];
-      s_cz[k] = c[2];
-      s_csr[k] = csr[base + k];
-      s_act[k] = active[base + k];
+  const size_t stride = (size_t)gridDim.x * BLOCK;
+  const size_t first = (size_t)blockIdx.x * BLOCK + threadIdx.x;
+  const size_t mine = first < (size_t)r ? ((size_t)r - 1 - first) / stride + 1 : 0;
+  for (int base = 0; base < n; base += STAGE_ROWS) {
+    const int n4 = stage(centers, csr, active, base, min(STAGE_ROWS, n - base), s_rows,
+                         s_ids, s_warp);
+    const bool resume = base > 0;
+    size_t i = 0;
+    for (; i + RPT <= mine; i += RPT) {
+      batch<RPT>(o, d, first + i * stride, stride, s_rows, s_ids, n4, resume, t_min, t_out,
+                 idx_out);
     }
-    __syncthreads();
-    if (live) {
-      closest_sphere(s_cx, s_cy, s_cz, s_csr, s_act, count, base, ox, oy, oz,
-                     dx, dy, dz, a_q, d_dot_o, o_sq, inv_a, t_min, best, win);
+    if (i + 2 <= mine) {
+      batch<2>(o, d, first + i * stride, stride, s_rows, s_ids, n4, resume, t_min, t_out,
+               idx_out);
+      i += 2;
+    }
+    if (i < mine) {
+      batch<1>(o, d, first + i * stride, stride, s_rows, s_ids, n4, resume, t_min, t_out,
+               idx_out);
     }
   }
-  if (!live) return;
-  t_out[ray] = best;
-  idx_out[ray] = win < 0 ? 0 : win;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch K10 on `stream`; returns cudaGetLastError().
+// Launch K10 on `grid` blocks, at most as many as stay resident
+// (crucible_sphere_hit_shape), on `stream`; returns cudaGetLastError().
 int crucible_sphere_hit(const float* o, const float* d, const float* centers,
                         const float* csr, const float* active, int n, int r,
-                        float t_min, float* t_out, int32_t* idx_out,
+                        float t_min, int grid, float* t_out, int32_t* idx_out,
                         void* stream) {
-  const int grid = (r + BLOCK - 1) / BLOCK;
-  if (grid > 0) {
-    sphere_hit<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+  if (grid > 0 && r > 0) {
+    sphere_hit<<<grid, BLOCK, smem_bytes(n), (cudaStream_t)stream>>>(
         o, d, centers, csr, active, n, r, t_min, t_out, idx_out);
   }
   return (int)cudaGetLastError();
+}
+
+// K10's launch shape for an N-row table into shape[0..7]: resident blocks
+// per SM, SMs, threads per block, registers per thread, local (spill)
+// bytes per thread, dynamic shared memory per block, rows staged at a
+// time, rays a thread. It also raises the kernel's dynamic shared memory
+// limit to what this shape needs (never lowering it: the wrapper caches
+// the shapes it launches on), so no launch sets or queries anything.
+int crucible_sphere_hit_shape(int n, int32_t* shape) {
+  const int bytes = smem_bytes(n);
+  cudaFuncAttributes attr{};
+  cudaError_t e = cudaFuncGetAttributes(&attr, sphere_hit);
+  if (e == cudaSuccess && attr.maxDynamicSharedSizeBytes < bytes) {
+    e = cudaFuncSetAttribute(sphere_hit, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  }
+  int per_sm = 0, sms = 0, dev = 0;
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sphere_hit, BLOCK, bytes);
+  }
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  shape[0] = per_sm;
+  shape[1] = sms;
+  shape[2] = BLOCK;
+  shape[3] = attr.numRegs;
+  shape[4] = (int32_t)attr.localSizeBytes;
+  shape[5] = bytes;
+  shape[6] = STAGE_ROWS;
+  shape[7] = RPT;
+  return per_sm < 1 ? (int)cudaErrorInvalidConfiguration : (int)cudaSuccess;
 }
 
 const char* crucible_cuda_error_string(int err) {

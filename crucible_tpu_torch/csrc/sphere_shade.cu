@@ -24,9 +24,9 @@
 // CHUNK rows between two __syncthreads(), so no row cap is needed. The
 // search keeps the Pallas association term by term, with the motion terms
 // even at w = 0: dc = dc_a + w dc_d, oc = oc_a + w oc_d,
-// csr = s0 + (2w) s1 + (w w) s2, then the quadratic of common.cuh's
-// closest_sphere; a row replaces the best only when strictly nearer, so the
-// lowest row wins ties, as in the TPU's min-then-first-index reduction. The
+// csr = s0 + (2w) s1 + (w w) s2, then K10's quadratic (sphere_hit.cu
+// row_disc, row_root); a row replaces the best only when strictly nearer, so
+// the lowest row wins ties, as in the TPU's min-then-first-index reduction. The
 // winner's row is one indexed read from global memory after the search (the
 // TPU kernel's one-hot masked sums give the same values). Stores are
 // row-major (28, R): consecutive threads write consecutive words.

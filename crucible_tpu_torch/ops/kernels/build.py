@@ -58,7 +58,8 @@ SIGNATURES = {
         "crucible_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "sphere_hit": {
-        "crucible_sphere_hit": ([_P] * 5 + [_I, _I, _F] + [_P] * 3, _I),
+        "crucible_sphere_hit": ([_P] * 5 + [_I, _I, _F, _I] + [_P] * 3, _I),
+        "crucible_sphere_hit_shape": ([_I, ctypes.POINTER(_I)], _I),
         "crucible_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "sphere_shade": {

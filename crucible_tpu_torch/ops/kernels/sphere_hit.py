@@ -10,7 +10,10 @@ miss gives t = BIG and idx 0.
 
 :func:`hit_spheres` launches ``csrc/sphere_hit.cu`` for CUDA tensors (or
 raises) and runs :func:`hit_spheres_reference` for CPU tensors. The two
-round alike, operation for operation. ``LAUNCHES`` counts kernel launches
+round alike, operation for operation. The kernel runs on a persistent grid
+(:func:`launch_shape`, queried once per staged table size and card), each
+block staging the table's active rows once as 16-byte entries, each thread
+carrying four rays. ``LAUNCHES`` counts kernel launches
 (not plain-version calls). ``ops/intersect.hit_spheres`` wraps this primal
 in its winner-only autograd backward.
 """
@@ -18,6 +21,7 @@ in its winner-only autograd backward.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -35,6 +39,10 @@ REFERENCE_CHUNK_ELEMS = 1 << 22
 
 # Launches of the CUDA kernel since the last reset.
 LAUNCHES = 0
+
+# Table rows the kernel stages at a time (csrc/sphere_hit.cu STAGE_ROWS); a
+# larger table goes through chunks of this many rows.
+STAGE_ROWS = 2048
 
 
 def hit_spheres(o, d, centers, csr, active, t_min: float = T_MIN):
@@ -56,17 +64,55 @@ def hit_spheres(o, d, centers, csr, active, t_min: float = T_MIN):
     return _launch(o, d, centers, csr, active, t_min)
 
 
+def staged_entries(n: int) -> int:
+    """Shared-memory entries of an n-row table: its first chunk of at most
+    ``STAGE_ROWS`` rows, padded to a multiple of 4 (the kernel's
+    ``staged_entries``). The launch shape depends on n only through it."""
+    return (min(n, STAGE_ROWS) + 3) & ~3
+
+
+@functools.cache
+def _shape(entries: int, device: int) -> tuple:
+    """The C library's launch shape, queried once per (staged entries,
+    card); the query also lets the kernel take its dynamic shared memory,
+    so each launch is sized from here and queries nothing."""
+    lib = build.load("sphere_hit")
+    shape = (ctypes.c_int * 8)()
+    with torch.cuda.device(device):
+        build.check(lib, lib.crucible_sphere_hit_shape(entries, shape), "sphere_hit shape")
+    return tuple(shape)
+
+
+def launch_shape(n: int, r: int, device=None) -> dict:
+    """K10's launch on the current card (or ``device``) for an n-row table
+    and R rays: grid (as many blocks as stay resident, none more than the
+    rays need at one ray a thread), resident blocks per SM, SMs, threads
+    per block, rays a thread, registers and local (spill) bytes per thread,
+    dynamic shared memory per block, table rows staged at a time and the
+    chunks the table takes."""
+    index = None if device is None else torch.device(device).index
+    dev = torch.cuda.current_device() if index is None else index
+    per_sm, sms, threads, regs, local, smem, stage, rpt = _shape(staged_entries(n), dev)
+    if stage != STAGE_ROWS:
+        raise RuntimeError(f"csrc/sphere_hit.cu stages {stage} rows, the wrapper {STAGE_ROWS}")
+    return dict(grid=min(per_sm * sms, -(-r // threads)), blocks_per_sm=per_sm, sms=sms,
+                threads=threads, rays_per_thread=rpt, registers=regs, spill_bytes=local,
+                smem_bytes=smem, stage_rows=stage, chunks=-(-n // stage))
+
+
 def _launch(o, d, centers, csr, active, t_min):
     global LAUNCHES
     lib = build.load("sphere_hit")
     n, r = centers.shape[0], o.shape[0]
+    shape = launch_shape(n, r, device=o.device)
     t = torch.empty((r,), dtype=torch.float32, device=o.device)
     idx = torch.empty((r,), dtype=torch.int32, device=o.device)
     with torch.cuda.device(o.device):
         err = lib.crucible_sphere_hit(
             o.data_ptr(), d.data_ptr(), centers.data_ptr(), csr.data_ptr(),
-            active.data_ptr(), n, r, ctypes.c_float(t_min), t.data_ptr(),
-            idx.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            active.data_ptr(), n, r, ctypes.c_float(t_min), shape["grid"],
+            t.data_ptr(), idx.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
         )
     build.check(lib, err, "sphere_hit")
     LAUNCHES += 1

@@ -213,7 +213,9 @@ def test_validates_inputs(name, change, error):
 
 
 def test_build_declares_the_entry_point():
-    assert "crucible_sphere_hit" in tbuild.SIGNATURES["sphere_hit"]
+    # o, d, centers, csr, active; n, r, t_min, grid; t, idx, stream
+    argtypes, _ = tbuild.SIGNATURES["sphere_hit"]["crucible_sphere_hit"]
+    assert len(argtypes) == 12
 
 
 # --- on the card -------------------------------------------------------------------
