@@ -9,14 +9,16 @@ comparisons.
 
 Ported so far, for sphere scenes, static or moving on the linear shutter,
 big ones included, and triangle meshes (``Triangle``, OBJ assets), static
-or moving on the linear shutter, with solid and checker-of-solid textures,
-the default or a spherical HDR sky and a static or keyframed camera with
-defocus: the forward render through ``models.render.render_image`` (the
-megakernel schedule, and the staged pixel schedule for the spherical sky
-and small meshes), movies through ``models.render.render_movie``, and the
-gradient through ``grad.loss_and_grad`` (record/replay, and direct AD).
-Image textures, nested checkers, exact-time motion and the rest raise
-``NotImplementedError``.
+or moving on the linear shutter, with solid colors, checkers nested to any
+depth and image textures, the default or a spherical sky and a static or
+keyframed camera with defocus: the forward render through
+``models.render.render_image`` (the megakernel schedule; the staged pixel
+schedule for the spherical sky and small meshes; on a card the record
+schedule for image textures and nested checkers), movies through
+``models.render.render_movie``, the gradient through
+``grad.loss_and_grad`` (record/replay, and direct AD), texels included,
+and the inverse-rendering demo ``python -m crucible_tpu_torch.train_demo``.
+Exact-time motion and the rest raise ``NotImplementedError``.
 
 Every entry point runs on ``device="cuda"`` unless the caller names
 another device. This package never imports ``jax`` or ``crucible_tpu``.

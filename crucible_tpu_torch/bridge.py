@@ -8,9 +8,11 @@ the same inputs. :func:`scene_data_to_arrays` is the inverse for the port's
 own scenes.
 
 Array keys are the ``SceneData`` field names, with the texture table's
-fields prefixed ``tex_``; static keys are ``sky_kind``, ``num_spheres``,
-``num_tris``, ``animated``, ``motion_exact``, ``use_bvh``,
-``bvh_leaf_size``, ``tri_exact`` and ``max_nest``. As in the JAX package, ``sky_image`` is
+fields prefixed ``tex_`` (its images, ``tex_images``, a tuple of (H, W, 3)
+arrays, present where the scene has image textures); static keys are
+``sky_kind``, ``num_spheres``, ``num_tris``, ``animated``, ``motion_exact``,
+``use_bvh``, ``bvh_leaf_size``, ``tri_exact`` and ``max_nest``. As in the
+JAX package, ``sky_image`` is
 a (1, 1, 3) zero placeholder under the default sky (the port's
 ``SceneData.sky_image`` is then None). The structure tables of the
 sphere walks (``STRUCT_ARRAYS``: the sphere BVH's, or an animated scene's
@@ -78,6 +80,8 @@ def scene_data_from_arrays(
         raise TypeError(f"unknown static scene fields {sorted(unknown)}")
     tex = TextureTable(
         **{k: _tensor(arrays[f"tex_{k}"], device) for k in TEX_ARRAYS},
+        images=tuple(_tensor(np.asarray(im, np.float32), device)
+                     for im in arrays.get("tex_images", ())),
         max_nest=int(max_nest),
     )
     sky = static.get("sky_kind", sky_mod.DEFAULT) == sky_mod.SPHERICAL
@@ -108,6 +112,8 @@ def scene_data_to_arrays(sd: SceneData) -> tuple[dict[str, np.ndarray], dict]:
         else sd.sky_image.cpu().numpy()
     )
     arrays.update({f"tex_{k}": getattr(sd.tex, k).cpu().numpy() for k in TEX_ARRAYS})
+    if sd.tex.images:
+        arrays["tex_images"] = tuple(im.cpu().numpy() for im in sd.tex.images)
     static = {k: getattr(sd, k) for k in SCENE_STATIC}
     static["max_nest"] = sd.tex.max_nest
     return arrays, static
@@ -130,29 +136,29 @@ def params_from_arrays(arrays: dict, *, device="cuda") -> dict:
     """A ``grad.extract_params`` dict on ``device`` from numpy arrays with
     the same keys (``grad.TENSOR_KEYS`` hold the arrays). ``sky_image`` is
     an (H, W, 3) array or missing / None (the default sky); ``tex_images``
-    must be empty (image textures are not ported)."""
-    if len(arrays.get("tex_images", ())):
-        raise NotImplementedError(
-            "image textures are not ported to crucible_tpu_torch yet"
-        )
+    a sequence of (H, W, 3) arrays, missing or empty without image
+    textures."""
     params = {
         k: _tensor(np.asarray(arrays[k], np.float32), device) for k in TENSOR_KEYS
     }
     sky = arrays.get("sky_image")
     sky = None if sky is None else _tensor(np.asarray(sky, np.float32), device)
-    return {**params, "tex_images": (), "sky_image": sky}
+    images = tuple(_tensor(np.asarray(im, np.float32), device)
+                   for im in arrays.get("tex_images", ()))
+    return {**params, "tex_images": images, "sky_image": sky}
 
 
 def params_to_arrays(params: dict) -> dict:
     """The inverse of :func:`params_from_arrays`."""
     out = {k: params[k].detach().cpu().numpy() for k in TENSOR_KEYS}
     sky = params["sky_image"]
-    return {**out, "tex_images": (),
+    return {**out, "tex_images": tuple(im.detach().cpu().numpy()
+                                       for im in params["tex_images"]),
             "sky_image": None if sky is None else sky.detach().cpu().numpy()}
 
 
 # The JAX parameter dict's keys in its flatten order (sorted keys); the
-# texture images, an empty tuple, have no leaf.
+# texture images, a tuple, flatten to one leaf an image, last.
 JAX_LEAF_ORDER = tuple(sorted(TENSOR_KEYS + ("sky_image", "tex_images")))
 
 
@@ -166,21 +172,19 @@ def params_from_jax_checkpoint(path, *, device="cuda"):
     (``o{i}``): a ``torch.optim`` optimizer cannot take it, so its place in
     the result is None and a resumed run starts its optimizer afresh.
     ``sky_image`` is None where the file holds the JAX package's (1, 1, 3)
-    zero placeholder of the default sky. A file with texture images
-    (leaves past ``tex_color``) raises ``NotImplementedError``: image
-    textures are not ported.
+    zero placeholder of the default sky. The leaves past ``tex_color`` are
+    the texture images, in order.
     """
     with np.load(path, allow_pickle=False) as z:
         n = sum(1 for name in z.files if name[0] == "p" and name[1:].isdigit())
         leaves = [z[f"p{i}"] for i in range(n)]
         step = int(z["__step__"])
     keys = [k for k in JAX_LEAF_ORDER if k != "tex_images"]
-    if n != len(keys):
-        raise NotImplementedError(
-            f"{path}: {n} parameter leaves, {len(keys)} without texture images — "
-            "image textures are not ported to crucible_tpu_torch yet"
-        )
+    if n < len(keys):
+        raise ValueError(f"{path}: {n} parameter leaves, fewer than the {len(keys)} "
+                         "of a JAX parameter dict")
     arrays = dict(zip(keys, leaves))
+    arrays["tex_images"] = leaves[len(keys):]
     sky = arrays["sky_image"]
     if sky.shape == (1, 1, 3) and not sky.any():
         arrays["sky_image"] = None

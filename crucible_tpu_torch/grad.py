@@ -11,7 +11,8 @@ Two estimators compute it:
   replay kernels take the scene, else the eager per-bounce replay: moving
   spheres and animated cameras, tables above 2048 rows, triangle meshes,
   static or moving, the spherical sky, whose image is then a leaf,
-  ``sky_image``).
+  ``sky_image``, image textures, whose texels are leaves, ``tex_images``,
+  and nested checkers).
   Frozen-decision training records
   the decisions once (:func:`record_decisions`) and replays them in every
   later step (``rec=``).
@@ -54,8 +55,8 @@ from crucible_tpu_torch.models.camera import CameraParams
 from crucible_tpu_torch.models.scene import SceneData
 
 # Parameter keys whose value is always a tensor. The others: the texture
-# images, a tuple (empty: image textures are not ported), and the sky
-# image, a tensor leaf where the scene has a spherical sky, else None.
+# images, a tuple of (H, W, 3) tensors (empty without image textures), and
+# the sky image, a tensor leaf where the scene has a spherical sky, else None.
 TENSOR_KEYS = (
     "tex_color", "mat_emission", "mat_fuzz", "cam_look_from", "cam_look_at",
     "cam_vfov", "cam_defocus", "cam_focus_dist",
@@ -63,9 +64,27 @@ TENSOR_KEYS = (
 
 
 def leaf_keys(params) -> tuple:
-    """The keys of ``params`` that are differentiable tensor leaves:
-    ``TENSOR_KEYS``, and ``sky_image`` where it is a tensor."""
+    """The keys of ``params`` whose value is a tensor leaf: ``TENSOR_KEYS``,
+    and ``sky_image`` where it is a tensor (``tex_images``, a tuple, is in
+    :func:`leaves`)."""
     return TENSOR_KEYS + (("sky_image",) if params["sky_image"] is not None else ())
+
+
+def leaves(params) -> Dict[str, torch.Tensor]:
+    """Every differentiable tensor of ``params`` by a flat name: the keys of
+    :func:`leaf_keys`, then ``tex_images/<i>`` for each texture image."""
+    out = {k: params[k] for k in leaf_keys(params)}
+    out.update((f"tex_images/{i}", img) for i, img in enumerate(params["tex_images"]))
+    return out
+
+
+def with_leaves(params, flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """``params`` with the tensors of ``flat`` (named as by :func:`leaves`)
+    in place of its own."""
+    out = {**params, **{k: v for k, v in flat.items() if "/" not in k}}
+    imgs = [flat.get(f"tex_images/{i}", img) for i, img in enumerate(params["tex_images"])]
+    out["tex_images"] = tuple(imgs)
+    return out
 
 
 def extract_params(sd: SceneData, cp: CameraParams) -> Dict[str, Any]:
@@ -73,7 +92,7 @@ def extract_params(sd: SceneData, cp: CameraParams) -> Dict[str, Any]:
     as in the JAX package."""
     return {
         "tex_color": sd.tex.color,  # solid/checker albedos
-        "tex_images": sd.tex.images,  # texture texels (none are ported)
+        "tex_images": sd.tex.images,  # texture texels
         "mat_emission": sd.mat_emission,
         "mat_fuzz": sd.mat_fuzz,
         "sky_image": sd.sky_image,  # None under the default sky
@@ -87,13 +106,9 @@ def extract_params(sd: SceneData, cp: CameraParams) -> Dict[str, Any]:
 
 def apply_params(sd: SceneData, cp: CameraParams, p: Dict[str, Any]):
     """Write a parameter dict back into new (scene, camera) dataclasses."""
-    if len(p["tex_images"]):
-        raise NotImplementedError(
-            "image textures are not ported to crucible_tpu_torch yet"
-        )
     sd = replace(
         sd,
-        tex=replace(sd.tex, color=p["tex_color"]),
+        tex=replace(sd.tex, color=p["tex_color"], images=tuple(p["tex_images"])),
         mat_emission=p["mat_emission"],
         mat_fuzz=p["mat_fuzz"],
         sky_image=p["sky_image"],
@@ -220,17 +235,17 @@ def l2_loss(
 
 def loss_and_grad(params, sd, cp, target, pixel_ids, seed, **kw):
     """(loss, grads): the :func:`l2_loss` value and its gradient, a dict
-    with the keys of ``params`` (``tex_images`` (), and ``sky_image`` None
-    where the scene has no spherical sky, as given). Keyword arguments are
-    those of :func:`l2_loss`."""
-    leaves = {k: params[k].detach().requires_grad_(True) for k in leaf_keys(params)}
+    with the keys of ``params`` (``tex_images`` a tuple of one gradient an
+    image, () without image textures; ``sky_image`` None where the scene
+    has no spherical sky, as given). Keyword arguments are those of
+    :func:`l2_loss`."""
+    flat = {k: v.detach().requires_grad_(True) for k, v in leaves(params).items()}
     with torch.enable_grad():
-        loss = l2_loss({**params, **leaves}, sd, cp, target, pixel_ids, seed, **kw)
-        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
-    out = {**params}
-    for (k, leaf), g in zip(leaves.items(), grads):
-        out[k] = torch.zeros_like(leaf) if g is None else g
-    return loss.detach(), out
+        loss = l2_loss(with_leaves(params, flat), sd, cp, target, pixel_ids, seed, **kw)
+        grads = torch.autograd.grad(loss, list(flat.values()), allow_unused=True)
+    return loss.detach(), with_leaves(params, {
+        k: torch.zeros_like(leaf) if g is None else g
+        for (k, leaf), g in zip(flat.items(), grads)})
 
 
 # The capacity-overflow recovery ladder: "default" is the shipped spec;
@@ -321,14 +336,13 @@ def loss_and_grad_accum(
         raise ValueError(f"spp {spp} is not a multiple of chunk_spp {chunk_spp}")
     n = spp // chunk_spp
     kw = dict(width=width, height=height, spp=chunk_spp, max_depth=max_depth, method=method)
-    keys = leaf_keys(params)
-    total = {k: torch.zeros_like(params[k]) for k in keys}
+    total = {k: torch.zeros_like(v) for k, v in leaves(params).items()}
     loss_sum = torch.zeros((), dtype=torch.float32, device=params["tex_color"].device)
 
     def fold(loss_c, grads_c):
         loss_sum.add_(loss_c)
-        for k in keys:
-            total[k].add_(grads_c[k])
+        for k, g in leaves(grads_c).items():
+            total[k].add_(g)
 
     def checked(s0, loss_c, grads_c):
         if not math.isfinite(float(loss_c)):
@@ -355,7 +369,7 @@ def loss_and_grad_accum(
     if pending is not None:
         fold(*checked(*pending))
     inv = 1.0 / n
-    return loss_sum * inv, {**params, **{k: total[k].mul_(inv) for k in keys}}
+    return loss_sum * inv, with_leaves(params, {k: t.mul_(inv) for k, t in total.items()})
 
 
 def make_train_step(
@@ -379,9 +393,10 @@ def make_train_step(
             loss, grads = loss_and_grad_recovering(params, sd, cp, target, pixel_ids, seed,
                                                    rec=rec, **kw)
             owned = {id(t) for group in optimizer.param_groups for t in group["params"]}
-            for k in leaf_keys(params):
-                if id(params[k]) in owned:
-                    params[k].grad = grads[k]
+            flat_grads = leaves(grads)
+            for k, t in leaves(params).items():
+                if id(t) in owned:
+                    t.grad = flat_grads[k]
         else:
             loss = l2_loss(params, sd, cp, target, pixel_ids, seed, rec=rec, **kw)
             loss.backward()
@@ -429,10 +444,11 @@ def _unflatten_state(x, arrays):
 def save_checkpoint(path, params, optimizer: torch.optim.Optimizer | None = None,
                     step: int = 0) -> None:
     """Write a parameter dict (and an optimizer's state) to one ``.npz``:
-    each tensor leaf as ``param/<key>``, ``__step__``, and the optimizer's
-    ``state_dict`` as its tensors ``opt<i>`` beside its structure in JSON
-    (``__opt__``, uint8). Nothing is pickled."""
-    payload = {f"param/{k}": params[k].detach().cpu().numpy() for k in leaf_keys(params)}
+    each tensor leaf as ``param/<name>`` (names as by :func:`leaves`, so
+    texture image i is ``param/tex_images/<i>``), ``__step__``, and the
+    optimizer's ``state_dict`` as its tensors ``opt<i>`` beside its
+    structure in JSON (``__opt__``, uint8). Nothing is pickled."""
+    payload = {f"param/{k}": v.detach().cpu().numpy() for k, v in leaves(params).items()}
     payload["__step__"] = np.asarray(step)
     if optimizer is not None:
         arrays = []
@@ -449,9 +465,13 @@ def load_checkpoint(path, *, device="cuda"):
     leaves in the same order."""
     with np.load(path, allow_pickle=False) as z:
         params = {"tex_images": (), "sky_image": None}
+        images = {}
         for name in z.files:
-            if name.startswith("param/"):
+            if name.startswith("param/tex_images/"):
+                images[int(name.rsplit("/", 1)[1])] = torch.tensor(z[name], device=device)
+            elif name.startswith("param/"):
                 params[name[len("param/"):]] = torch.tensor(z[name], device=device)
+        params["tex_images"] = tuple(images[i] for i in range(len(images)))
         state = None
         if "__opt__" in z.files:
             state = _unflatten_state(json.loads(z["__opt__"].tobytes()), z)

@@ -1,11 +1,13 @@
-"""Image decode (HDR only) and film output: ASCII P3 PPM and PNG (port of
+"""Image decode and film output: ASCII P3 PPM and PNG (port of
 ``crucible_tpu/io/image.py``).
 
-:func:`write_image` picks the format by the suffix, as the JAX package's
-does: ``.ppm`` as P3 text, anything else through PIL where PIL imports.
-Without PIL it writes ``.png`` itself (the standard library's ``zlib``,
-8-bit RGB, no filtering) and refuses other suffixes. Decoding LDR formats
-(the JAX package's PIL route, for image textures) is not ported.
+:func:`load_image` decodes ``.hdr`` with the port's RGBE codec and every
+other format (``.jpg``, ``.png``, ...) through PIL to byte/255 with no
+gamma, as the JAX package does; without PIL an LDR decode raises
+``ImportError``. :func:`write_image` picks the format by the suffix, as the
+JAX package's does: ``.ppm`` as P3 text, anything else through PIL where
+PIL imports. Without PIL it writes ``.png`` itself (the standard library's
+``zlib``, 8-bit RGB, no filtering) and refuses other suffixes.
 """
 
 from __future__ import annotations
@@ -21,14 +23,40 @@ from crucible_tpu_torch.io.assets import build_asset_path
 
 
 def load_image(filename: str) -> np.ndarray:
-    """Load an asset image -> (H, W, 3) float32 linear radiance. ``.hdr``
-    files only; other formats raise ``NotImplementedError``."""
-    if Path(filename).suffix.lower() != ".hdr":
-        raise NotImplementedError(
-            f"decoding {filename!r}: only .hdr images are ported to "
-            "crucible_tpu_torch yet"
-        )
-    return hdr_io.read_hdr(build_asset_path(filename))
+    """Load an asset image (:mod:`crucible_tpu_torch.io.assets` resolves
+    the name) -> (H, W, 3) float32: :func:`load_image_path`."""
+    return load_image_path(build_asset_path(filename))
+
+
+def load_image_path(path) -> np.ndarray:
+    """Decode an image file -> (H, W, 3) float32. ``.hdr`` decodes to full
+    float radiance; any other format through PIL to RGB bytes / 255, with no
+    gamma linearization (the original's image scaling)."""
+    path = Path(path)
+    if path.suffix.lower() == ".hdr":
+        return hdr_io.read_hdr(path)
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            f"decoding {str(path)!r} needs PIL (Pillow), which does not import here; "
+            "only .hdr images decode without it"
+        ) from e
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"), dtype=np.float32) / 255.0
+
+
+def read_ppm(path) -> np.ndarray:
+    """Read an ASCII P3 PPM -> (H, W, 3) uint8."""
+    with open(path) as f:
+        tokens = f.read().split()
+    if tokens[0] != "P3":
+        raise ValueError(f"{str(path)!r}: only ASCII P3 PPM is read")
+    w, h, maxval = int(tokens[1]), int(tokens[2]), int(tokens[3])
+    if maxval != 255:
+        raise ValueError(f"{str(path)!r}: maxval {maxval}, not 255")
+    pix = np.array(tokens[4:4 + 3 * w * h], dtype=np.int64)
+    return pix.reshape(h, w, 3).astype(np.uint8)
 
 
 def write_ppm(path, img_u8: np.ndarray) -> None:

@@ -5,6 +5,12 @@ The garden demo needs ``garden.hdr``, which no asset set ships; a plausible
 garden-like equirect HDR (sky gradient + sun disk + ground bounce) is
 synthesized into the repository's ``assets/`` instead. The numpy code is the
 JAX package's, so both packages write the same bytes to the same path.
+
+:func:`generate_earth_texture` makes a stand-in for ``earthmap.jpg`` (the
+earth demo's texture, which this repository lacks): an equirect map of
+ocean, land and ice, for a caller to write where the asset resolver finds
+it. It is never written into the repository's ``assets/``, where it would
+pass for the real map.
 """
 
 from __future__ import annotations
@@ -62,6 +68,33 @@ def generate_garden_hdr(height: int = 512) -> np.ndarray:
 
     above = (y >= 0.0)[..., None]
     return np.where(above, sky + sun, ground).astype(np.float32)
+
+
+def generate_earth_texture(height: int = 512, seed: int = 0) -> np.ndarray:
+    """Equirect (H, 2H, 3) uint8 map: blue ocean, green-brown land where a
+    sum of random low-frequency waves on the sphere is positive, white ice
+    past 70 degrees of latitude, and texel-scale noise so that neighbouring
+    texels differ."""
+    h, w = height, 2 * height
+    g = np.random.default_rng(seed)
+    lat = (0.5 - (np.arange(h) + 0.5) / h) * np.pi  # +pi/2 at the top row
+    lon = ((np.arange(w) + 0.5) / w) * 2.0 * np.pi
+    lon, lat = np.meshgrid(lon, lat)
+    xyz = np.stack([np.cos(lat) * np.cos(lon), np.sin(lat), np.cos(lat) * np.sin(lon)])
+    field = np.zeros((h, w))
+    for _ in range(12):
+        axis = g.normal(size=3)
+        axis /= np.linalg.norm(axis)
+        freq, phase = g.uniform(1.0, 4.0), g.uniform(0.0, 2.0 * np.pi)
+        field += np.sin(freq * np.tensordot(axis, xyz, axes=1) * np.pi + phase) / freq
+    land = field > 0.15
+    ocean = np.array([20, 60, 140], np.float64)
+    green, brown = np.array([40, 120, 50], np.float64), np.array([150, 120, 70], np.float64)
+    t = np.clip(field - 0.15, 0.0, 1.0)[..., None]
+    rgb = np.where(land[..., None], (1.0 - t) * green + t * brown, ocean)
+    rgb = np.where((np.abs(lat) > np.radians(70.0))[..., None], 235.0, rgb)
+    rgb = rgb + g.normal(scale=12.0, size=rgb.shape)
+    return np.clip(np.rint(rgb), 0, 255).astype(np.uint8)
 
 
 def ensure_garden_hdr() -> Path:

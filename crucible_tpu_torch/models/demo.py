@@ -3,10 +3,10 @@ stress scene, the checkered and smoke scenes, the teapot on its checker
 ground, the garden under its procedural HDR sky, and the movies:
 ``first_movie``, a keyframed camera walk around the garden's ball, and
 ``moving_teapot``, the teapot rising and shrinking, which needs
-``teapot.obj``, an asset this repository lacks). ``WORLDS`` and
-``MOVIE_WORLDS`` number them as the JAX package does (the earth and
-nested-checker worlds, 4 and 7, need image textures and nested checkers,
-not ported).
+``teapot.obj``, an asset this repository lacks), the earth map on a
+sphere (``earthmap.jpg``, which it lacks too) and book1's checkered
+spheres under a checker nested three levels deep. ``WORLDS`` and
+``MOVIE_WORLDS`` number them as the JAX package does.
 
 Scene generation takes an explicit seed and draws from numpy in the same
 order as the JAX package, so both packages build identical tables.
@@ -20,9 +20,11 @@ from crucible_tpu_torch.io.procedural import ensure_garden_hdr
 from crucible_tpu_torch.models.scene import (
     CheckerTexture,
     Dielectric,
+    ImageTexture,
     Lambertian,
     Metal,
     Scene,
+    SolidColor,
     Sphere,
 )
 from crucible_tpu_torch.models.timeline import LERP, LOCAL, WORLD
@@ -97,6 +99,28 @@ def checkered_spheres(width: int = 400) -> Scene:
     mat = Lambertian.from_texture(_CHECKER_GROUND)
     sc.add_element(Sphere((0.0, -10.0, 0.0), 10.0, mat), "bottom_sphere")
     sc.add_element(Sphere((0.0, 10.0, 0.0), 10.0, mat), "top_sphere")
+    return sc
+
+
+def nested_checkers(width: int = 400, nest: int = 3) -> Scene:
+    """Two touching r=10 spheres under a checker nested ``nest`` levels deep
+    (a checker of a checker of ... a solid), each level at 3.7 times the
+    scale of the one inside it: 100 spp, depth 50, vfov 20."""
+    tex = SolidColor((0.9, 0.9, 0.2))
+    other = SolidColor((0.2, 0.3, 0.1))
+    scale = 0.08
+    for _ in range(nest):
+        tex = CheckerTexture(scale, tex, other)
+        scale *= 3.7
+    sc = Scene.new_image(16.0 / 9.0, width, 24, 180.0)
+    cam = sc.scene_cam
+    cam.set_samples(100)
+    cam.set_max_depth(50)
+    cam.look_from((13.0, 2.0, 3.0))
+    cam.look_at((0.0, 0.0, 0.0))
+    cam.set_vfov(20.0)
+    sc.add_element(Sphere((0.0, -10.0, 0.0), 10.0, Lambertian(tex)), "bottom")
+    sc.add_element(Sphere((0.0, 10.0, 0.0), 10.0, Lambertian(tex)), "top")
     return sc
 
 
@@ -181,6 +205,25 @@ def smoke_scene(width: int = 400) -> Scene:
     return sc
 
 
+def earth(width: int = 400) -> Scene:
+    """``earthmap.jpg`` on an r=2 sphere: 16:9, 500 spp, depth 50, vfov 20.
+    The asset resolves as every asset does (``io.assets``); without it this
+    raises ``FileNotFoundError``."""
+    sc = Scene.new_image(16.0 / 9.0, width, 24, 180.0)
+    cam = sc.scene_cam
+    cam.set_samples(500)
+    cam.set_max_depth(50)
+    cam.look_from((0.0, 0.0, 12.0))
+    cam.look_at((0.0, 0.0, 0.0))
+    cam.set_vfov(20.0)
+
+    sc.add_element(
+        Sphere((0.0, 0.0, 0.0), 2.0, Lambertian.from_texture(ImageTexture("earthmap.jpg"))),
+        "earth",
+    )
+    return sc
+
+
 def garden_skybox(width: int = 1920) -> Scene:
     """Metal ball under the ``garden.hdr`` spherical sky. No asset set ships
     that file; a procedural substitute is generated into ``assets/`` on
@@ -252,8 +295,10 @@ WORLDS = {
     1: book1_end_scene,
     2: checkered_spheres,
     3: load_teapot,
+    4: earth,
     5: garden_skybox,
     6: smoke_scene,
+    7: nested_checkers,
     8: sphere_stress,
 }
 

@@ -407,8 +407,8 @@ def _mesh_unsupported_reason(sd: SceneData, cp: CameraParams):
     checks = (
         (sd.use_bvh,
          "a triangle mesh without a BVH (at most 64 triangles: the megakernel's "
-         "triangle stage, K7, walks a BVH; such meshes take the pixel schedule, "
-         "the record schedule is ROADMAP A5)"),
+         "triangle stage, K7, walks a BVH, in record mode too; such meshes take the "
+         "pixel schedule, as in the JAX package)"),
         (not sd.tri_exact, "exact-time motion of a mesh, a keyframe inside the shutter "
                            "(ROADMAP A7)"),
         (sd.sph_perm is None or brute_beside_mesh(sd),

@@ -2,7 +2,7 @@
 
 Port of ``crucible_tpu/models/render.py``'s persistent path:
 ``render_image`` -> ``render_image_data`` -> ``render_image_persistent``,
-which runs one of two schedules:
+which runs one of three schedules:
 
 - ``mega``: ``integrator.trace_persistent_mega``, the megakernel: the
   brute search (K1), or above ``CULL_MIN_ROWS`` rows a tree walk (K5),
@@ -13,14 +13,18 @@ which runs one of two schedules:
 - ``pixel``: ``integrator.trace_persistent``, the staged persistent
   wavefront, with the fused hit + fetch kernel (K9) per bounce, or for a
   mesh the staged bounce (K10 for the spheres, ``hit_triangles`` or the
-  BVH walk for the triangles).
+  BVH walk for the triangles);
+- ``record``: ``replay.render_record_replay``, the record megakernel's
+  decisions (K2, or K5-K8 where the scene routes there) shaded by the
+  eager replay, for image textures and nested checkers, which the
+  megakernel's shading does not take.
 
 :func:`render_movie` renders ``ceil(duration * fps)`` frames of a movie
 scene to ``<fname>/artifacts/imageNNN.ppm`` and assembles them with ffmpeg
 where it is installed (:func:`make_mp4`); the frames persist, so
 ``skip_existing`` resumes a cut render.
 
-A scene neither schedule renders raises ``NotImplementedError`` naming the
+A scene no schedule renders raises ``NotImplementedError`` naming the
 missing feature. Every entry point runs on ``device="cuda"`` unless the
 caller names another device; without CUDA that default raises (torch
 does), it never falls back to the CPU.
@@ -41,6 +45,7 @@ import torch
 
 from crucible_tpu_torch.io.image import write_image
 from crucible_tpu_torch.models import integrator
+from crucible_tpu_torch.models import replay as replay_mod
 from crucible_tpu_torch.models.camera import CameraParams
 from crucible_tpu_torch.models.scene import Scene, SceneData
 from crucible_tpu_torch.ops.kernels import megakernel as mk
@@ -68,6 +73,22 @@ def _check_device(sd: SceneData, cp: CameraParams, device) -> None:
             raise ValueError(f"{name} tensors are on {t.device}, not {want}")
 
 
+def auto_schedule(sd: SceneData, cp: CameraParams, device) -> str:
+    """The schedule 'auto' takes on ``device``, the JAX package's choice
+    (``crucible_tpu/models/render.py:162-181``) with its accelerator test
+    read as "a CUDA device": 'mega' where the megakernel renders the scene,
+    else 'pixel' where the fused bounce (K9) takes it, else 'record' on a
+    CUDA device where the record megakernel takes it, else 'pixel'."""
+    if integrator.megakernel_supported(sd, cp):
+        return "mega"
+    if integrator.fused_supported(sd):
+        return "pixel"
+    if (torch.device(device).type == "cuda" and integrator.megakernel_record_supported(sd, cp)
+            and replay_mod.replay_supported(sd)):
+        return "record"
+    return "pixel"
+
+
 def render_image_persistent(
     sd: SceneData,
     cp: CameraParams,
@@ -86,15 +107,18 @@ def render_image_persistent(
 
     ``schedule``: 'mega' (the megakernel), 'pixel' (the staged persistent
     wavefront: the fused bounce, K9, where ``integrator.fused_supported``
-    holds, else the staged bounce, K10) or 'auto' ('mega' where
-    ``integrator.megakernel_supported`` holds, else 'pixel' where
-    ``integrator.fused_supported`` does or for a mesh without a BVH, at
-    most ``scene.BVH_MIN_TRIS`` triangles: the JAX package takes 'record'
-    there on an accelerator, 'pixel' elsewhere). The 'record' and 'queue'
-    schedules are not ported and raise ``NotImplementedError``, as does
-    'auto' on a BVH mesh the megakernel does not take. The pixel
-    schedule's target lane count is ``LANES_CUDA`` on a card, ``LANES_CPU``
-    elsewhere.
+    holds, else the staged bounce, K10), 'record'
+    (``replay.render_record_replay``: the record megakernel's decisions
+    shaded by the eager replay) or 'auto' (:func:`auto_schedule`: 'mega'
+    where ``integrator.megakernel_supported`` holds, else 'pixel' where
+    ``integrator.fused_supported`` does, else 'record' on a CUDA device
+    where ``integrator.megakernel_record_supported`` holds (image textures,
+    nested checkers), else 'pixel': on the CPU, as the JAX package off an
+    accelerator, and for what the record kernel does not take, such as a
+    mesh of at most ``scene.BVH_MIN_TRIS`` triangles without a BVH). The
+    'queue' schedule is not ported and raises ``NotImplementedError``. The
+    pixel schedule's target lane count is ``LANES_CUDA`` on a card,
+    ``LANES_CPU`` elsewhere.
 
     ``cull``: whether the mega schedule walks a tree instead of testing
     every row (K1, K8): that of a static scene that carries the sphere-BVH
@@ -126,18 +150,10 @@ def render_image_persistent(
             f"{'swept-tree' if sd.animated else 'static tree'} walk) or schedule='pixel'"
         )
     if schedule == "auto":
-        missing = integrator.megakernel_unsupported_reason(sd, cp)
-        if missing is None:
-            schedule = "mega"
-        elif integrator.fused_supported(sd) or (
-                sd.num_tris > 0 and not sd.use_bvh and sd.tex.max_nest <= 1):
-            schedule = "pixel"
-        else:
-            raise NotImplementedError(
-                f"this scene needs {missing}: the megakernel does not take it, and "
-                "the 'record' schedule (record megakernel + replay shading, ROADMAP "
-                "A5) is not ported to crucible_tpu_torch yet"
-            )
+        schedule = auto_schedule(sd, cp, device)
+    if schedule == "record":
+        fb = replay_mod.render_record_replay(sd, cp, width, height, samples, max_depth, seed)
+        return fb.reshape(height, width, 3) / samples
     if schedule == "pixel":
         lanes = LANES_CUDA if torch.device(device).type == "cuda" else LANES_CPU
         fb = integrator.trace_persistent(

@@ -36,9 +36,12 @@ Port of ``crucible_tpu/models/replay.py``'s gradient path:
 
 :func:`render_rays_replay` chains camera rays, record and replay. Integers
 carry no gradient, so the gradient is the replay's detached-sampling
-estimator. Not ported yet (each raises ``NotImplementedError``): the staged
-record (``trace_record`` over ``integrator.bounce_step``), and the eager
-replay's image textures, nested checkers and exact-time motion. Not
+estimator. :func:`render_record_replay` is the forward ``record`` schedule:
+the record kernel's decisions, shaded by the eager replay, which evaluates
+image textures and checkers nested to any depth (``textures.value``) that
+the megakernel's shading does not take. Not ported yet (each raises
+``NotImplementedError``): the staged record (``trace_record`` over
+``integrator.bounce_step``) and the eager replay's exact-time motion. Not
 ported by design (ROADMAP "Do not port"): the head/tail carry-handoff
 ``replay_split`` and its switch ``CRUCIBLE_GRAD_DEEP_IMPL=split``, which
 raises.
@@ -48,6 +51,7 @@ from __future__ import annotations
 
 import functools
 import os
+import time
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -58,7 +62,7 @@ from crucible_tpu_torch.models import skybox as sky_mod
 from crucible_tpu_torch.models import textures as tex_mod
 from crucible_tpu_torch.models.camera import CameraParams, generate_rays
 from crucible_tpu_torch.models.scene import SceneData
-from crucible_tpu_torch.ops import intersect
+from crucible_tpu_torch.ops import gather, intersect
 from crucible_tpu_torch.ops.kernels import megakernel as mk
 from crucible_tpu_torch.ops.kernels import replay_kernel as rk
 from crucible_tpu_torch.ops.kernels.megakernel import (  # the record layout
@@ -121,10 +125,6 @@ def _use_replay_kernel(sd: SceneData) -> bool:
 
 def _check_eager(sd: SceneData) -> None:
     """Raise for what the eager replay does not take yet."""
-    if len(sd.tex.images) or sd.tex.max_nest > 1:
-        raise NotImplementedError(
-            "the replay of image textures and nested checkers is not ported to "
-            "crucible_tpu_torch yet (ROADMAP A5)")
     if sd.motion_exact or sd.tri_exact:
         raise NotImplementedError(
             "the replay of exact-time motion (a keyframe inside the shutter) is "
@@ -275,25 +275,37 @@ def trace_replay(
 # so the backward's index_add stays this narrow.
 EAGER_COLS = rk.USED
 MOTION_COLS = (24, 25, 26, 27)
+TEX_ID_COL = 30
+
+
+def _full_textures(sd: SceneData) -> bool:
+    """Whether the replay evaluates ``textures.value`` at the winner (image
+    textures, or checkers nested deeper than the table's baked level)
+    instead of reading the albedo from the winner's row."""
+    return bool(sd.tex.images) or sd.tex.max_nest > 1
 
 
 def _replay_row(sub, sky_image, o_c, d_c, thr, word, w, pixel_ids, sample_ids, mesh, *,
-                pos, sky_kind, seed, bounce, accumulate):
+                pos, sky_kind, seed, bounce, accumulate, tex=None):
     """One replayed bounce (the step of the JAX package's jnp replay,
     ``crucible_tpu/models/replay.py:426-586``) -> (o, d, thr, the radiance
     it adds). ``sub`` (N, K) holds the table columns ``pos`` maps to their
     place; ``w`` (R,) the paths' shutter fractions, or None for a static
     scene; ``mesh`` None, or a mesh's (tri_v0, tri_v1, tri_v2, tri_mat,
     mats, its shutter deltas (tri_v0_d, tri_v1_d, tri_v2_d) or None)
-    (leaf order; ``integrator.make_tri_tables``' mats)."""
+    (leaf order; ``integrator.make_tri_tables``' mats); ``tex`` None, or
+    the texture table that ``textures.value`` evaluates at the winner (its
+    texture id from table column 30, or ``mats`` column 18 for a triangle;
+    a sphere's uv from its outward normal, a triangle's (0, 0))."""
     dec = rk._decode(word)
     hit, cont, front = dec["hit"], dec["cont"], dec["front"]
     idx = dec["idx"].long()
     is_tri = (word & F_TRI) > 0
 
     # The winner's row: an indexed load, whose backward is an index_add
-    # (fault C8), not the TPU's one-hot product.
-    srow = torch.index_select(sub, 0, torch.where(is_tri, 0, idx) if mesh else idx)
+    # (fault C8), not the TPU's one-hot product; on a GPU one in a fixed
+    # order (ops.gather).
+    srow = gather.rows(sub, torch.where(is_tri, 0, idx) if mesh else idx)
 
     def attr(c):
         return srow[:, pos[c]]
@@ -323,15 +335,15 @@ def _replay_row(sub, sky_image, o_c, d_c, thr, word, w, pixel_ids, sample_ids, m
         # holds table column c), each an indexed load.
         tv0, tv1, tv2, tri_mat, mats, deltas = mesh
         ti = torch.where(is_tri, idx, 0)
-        v0, v1, v2 = (torch.index_select(v, 0, ti) for v in (tv0, tv1, tv2))
+        v0, v1, v2 = (gather.rows(v, ti) for v in (tv0, tv1, tv2))
         if deltas is not None:
-            v0, v1, v2 = (v + w[:, None] * torch.index_select(vd, 0, ti)
+            v0, v1, v2 = (v + w[:, None] * gather.rows(vd, ti)
                           for v, vd in zip((v0, v1, v2), deltas))
         e1, e2 = v1 - v0, v2 - v0
         det = (e1 * vec.cross(d_c, e2)).sum(-1)
         inv_det = 1.0 / torch.where(torch.abs(det) > 1e-20, det, 1.0)
         t_tri = (e2 * vec.cross(o_c - v0, e1)).sum(-1) * inv_det
-        mrow = torch.index_select(mats, 0, torch.index_select(tri_mat, 0, ti).long())
+        mrow = gather.rows(mats, torch.index_select(tri_mat, 0, ti).long())
         t_hit = torch.where(is_tri, t_tri, t_hit)
         sattr, sattr3 = attr, attr3
 
@@ -343,7 +355,8 @@ def _replay_row(sub, sky_image, o_c, d_c, thr, word, w, pixel_ids, sample_ids, m
 
     t_shade = torch.where(hit, t_hit, 1.0)
     point = o_c + t_shade[:, None] * d_c
-    n_out = (point - c_w) / torch.clamp_min(r_w, 1e-20)[:, None]
+    n_sph = (point - c_w) / torch.clamp_min(r_w, 1e-20)[:, None]
+    n_out = n_sph
     if mesh:
         n_out = torch.where(is_tri[:, None], intersect.triangle_normal(v0, v1, v2), n_out)
     normal = torch.where(front[:, None], n_out, -n_out)
@@ -354,10 +367,21 @@ def _replay_row(sub, sky_image, o_c, d_c, thr, word, w, pixel_ids, sample_ids, m
     live = dec["alive"] if accumulate else torch.zeros_like(hit)
     add = torch.where(live[:, None], thr * contrib, 0.0)
 
-    # Albedo: solid or one-level checker, from the fetched row.
-    is_even = tex_mod.checker_is_even(attr(17), point)
-    checker = torch.where(is_even[:, None], attr3(18), attr3(21))
-    albedo = torch.where((attr(13) == tex_mod.CHECKER)[:, None], checker, attr3(14))
+    if tex is not None:
+        # The whole table: nested checkers level by level, then the leaf's
+        # color or texel, gathered with index_select (the texel gradient).
+        tid = srow[:, pos[TEX_ID_COL]]
+        u_s, v_s = intersect.sphere_uv(n_sph)
+        if mesh:
+            tid = torch.where(is_tri, mrow[:, 18], tid)
+            u_s = torch.where(is_tri, 0.0, u_s)
+            v_s = torch.where(is_tri, 0.0, v_s)
+        albedo = tex_mod.value(tex, tid.to(torch.int32), u_s, v_s, point)
+    else:
+        # Solid or one-level checker, from the fetched row.
+        is_even = tex_mod.checker_is_even(attr(17), point)
+        checker = torch.where(is_even[:, None], attr3(18), attr3(21))
+        albedo = torch.where((attr(13) == tex_mod.CHECKER)[:, None], checker, attr3(14))
 
     # Scatter with the recorded decisions.
     u1, u2, u_dec = crng.uniform3(pixel_ids, sample_ids, crng.STREAM_BOUNCE_BASE + bounce, seed)
@@ -378,7 +402,9 @@ def _replay_eager(sd, table, o, d, pixel_ids, sample_ids, seed, rec, *, early_ex
     backward holds one row's intermediates at a time and the carries (o, d,
     thr) of each row (it recomputes the row's forward). The sky comes from
     ``sd``."""
-    cols = EAGER_COLS + (MOTION_COLS if sd.animated else ())
+    tex = sd.tex if _full_textures(sd) else None
+    cols = (EAGER_COLS + (MOTION_COLS if sd.animated else ())
+            + ((TEX_ID_COL,) if tex is not None else ()))
     sub = torch.index_select(table, 1, torch.tensor(cols, device=table.device))
     pos = {c: i for i, c in enumerate(cols)}
     w = integrator.shutter_fraction(pixel_ids, sample_ids, seed) if sd.animated else None
@@ -396,7 +422,7 @@ def _replay_eager(sd, table, o, d, pixel_ids, sample_ids, seed, rec, *, early_ex
     for b in range(rows):
         bounce = bounce0 + b
         row = functools.partial(_replay_row, pos=pos, sky_kind=sd.sky_kind, seed=seed,
-                                bounce=bounce, accumulate=bounce >= accum_from)
+                                bounce=bounce, accumulate=bounce >= accum_from, tex=tex)
         args = (sub, sd.sky_image, o_c, d_c, thr, rec[b], w, pixel_ids, sample_ids, mesh)
         if torch.is_grad_enabled():
             o_c, d_c, thr, add = checkpoint(row, *args, use_reentrant=False,
@@ -722,3 +748,85 @@ def render_rays_replay(
     return trace_replay(
         sd, o, d, pixel_ids, sample_ids, seed, max_depth, rec, rad_given=rad_mega
     )
+
+
+# Bytes the record schedule lets one sample chunk's decision words take.
+REC_BUDGET_BYTES = 1 << 28
+# While a dict, the record schedule adds each phase's seconds to it
+# ("record": the record megakernel, "replay": the eager replay), with a
+# device sync on each side of a phase; None times nothing.
+PHASE_SECONDS = None
+
+
+def _phase(name, dev, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, timed into ``PHASE_SECONDS[name]`` while that
+    is a dict."""
+    if PHASE_SECONDS is None:
+        return fn(*args, **kwargs)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + time.perf_counter() - t0
+    return out
+
+
+def _record_replay_chunk(sd, cp, width, height, sample0, spp, seed, chunk_spp, max_depth):
+    """One sample chunk of the record schedule -> per-pixel radiance sums
+    (P, 3) of samples [sample0, sample0 + chunk_spp). Lanes past ``spp``
+    (the ragged tail) record as padding lanes (sample id ``mk.NO_SAMPLE``,
+    2**30: never issued, flags 0), so the replay adds nothing for them."""
+    p = width * height
+    dev = sd.sph_center.device
+    pix = torch.arange(p, dtype=torch.int64, device=dev).repeat(chunk_spp)
+    smp = torch.arange(sample0, sample0 + chunk_spp, dtype=torch.int64,
+                       device=dev).repeat_interleave(p)
+    o, d, _ = generate_rays(cp, width, height, pix, smp, seed)
+    smp_rec = torch.where(smp < spp, smp, mk.NO_SAMPLE)
+    rec = _phase("record", dev, trace_record_mega, sd, cp, width, height, pix, smp_rec,
+                 seed, max_depth)
+    rad = _phase("replay", dev, trace_replay, sd, o, d, pix, smp, seed, max_depth, rec,
+                 early_exit=True)
+    return rad.reshape(chunk_spp, p, 3).sum(dim=0)
+
+
+def render_record_replay(
+    sd: SceneData,
+    cp: CameraParams,
+    width: int,
+    height: int,
+    spp: int,
+    max_depth: int,
+    seed,
+    rec_budget_bytes: int = REC_BUDGET_BYTES,
+    progress=None,
+) -> torch.Tensor:
+    """The ``record`` schedule's forward render -> per-pixel radiance SUMS
+    (P, 3) over ``spp`` samples (divide by spp): the record megakernel (K2,
+    or K5-K8 where the scene routes there) writes each path's decisions,
+    which read no albedo or sky, and the eager replay shades them unsplit,
+    walking only the rows that hold a live lane. It takes image textures
+    and nested checkers, which the megakernel's shading does not.
+
+    Samples go in chunks of ``chunk_spp = max(1, min(spp, rec_budget_bytes
+    // (4 max_depth P)))``, so one chunk's record words (4 bytes a bounce
+    and a lane) stay within ``rec_budget_bytes``; every chunk has that many
+    samples, the ragged tail's extra lanes masked. ``progress``: None, or a
+    callable ``f(samples_done, samples_total, seconds)`` called after each
+    chunk (one host sync a chunk). Runs under ``torch.no_grad()``."""
+    p = width * height
+    chunk_spp = int(max(1, min(spp, rec_budget_bytes // (4 * max_depth * p))))
+    fb = None
+    t0 = time.time()
+    with torch.no_grad():
+        for s0 in range(0, spp, chunk_spp):
+            out = _record_replay_chunk(sd, cp, width, height, s0, spp, seed, chunk_spp,
+                                       max_depth)
+            fb = out if fb is None else fb + out
+            if progress is not None:
+                if fb.is_cuda:
+                    torch.cuda.synchronize(fb.device)
+                progress(min(s0 + chunk_spp, spp), spp, time.time() - t0)
+    return fb

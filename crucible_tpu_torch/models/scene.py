@@ -4,7 +4,7 @@ Port of ``crucible_tpu/models/scene.py``. The host side keeps the original
 surface (aliased elements via an id vendor, OBJ mesh assets, show/hide)
 and ``Scene.build`` lowers the element list into flat arrays with numpy,
 exactly as the JAX package does, converting to tensors on the requested
-device only at the end. The spherical (equirect) sky loads from a ``.hdr``
+device only at the end. The spherical (equirect) sky loads from an image
 asset. Scenes above ``render.CULL_MIN_ROWS`` sphere rows also get the JAX
 lowering's sphere-BVH (static) or cluster (animated) tables and the tree
 the megakernel walks (K5, K6). Triangles (``Triangle``,
@@ -16,7 +16,8 @@ are animated with keyframe timelines (``models/timeline.py``) through the
 animator surface (``translate_*``, ``scale_*``, ``cam_translate_*``);
 ``Scene.build`` lowers them for one shutter window, linearly (centre and
 radius, or the vertices, at shutter open plus their deltas to shutter
-close). Image textures raise ``NotImplementedError``.
+close). An image texture's file is decoded once per name
+(``io.image.load_image``), and its rows index the table's ``images``.
 """
 
 from __future__ import annotations
@@ -52,10 +53,6 @@ BVH_LEAF_CUDA = 4
 SPHERE_PAD = int(os.environ.get("CRUCIBLE_SPHERE_PAD", "8"))
 
 
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to crucible_tpu_torch yet")
-
-
 # --------------------------------------------------------------------------
 # Host-side texture / material specs (hashable, deduped into tables at build)
 # --------------------------------------------------------------------------
@@ -68,7 +65,7 @@ class SolidColor:
 
 @dataclass(frozen=True)
 class ImageTexture:
-    """Nearest-neighbor image lookup (not ported: building raises)."""
+    """Nearest-neighbor lookup of an image asset (``io.image.load_image``)."""
 
     filename: str
 
@@ -354,6 +351,8 @@ class _TableBuilder:
     def __init__(self):
         self.tex_rows: List[dict] = []
         self.tex_ids: Dict[TextureSpec, int] = {}
+        self.images: List[np.ndarray] = []  # one per file name
+        self.image_ids: Dict[str, int] = {}
         self.mat_rows: List[dict] = []
         self.mat_ids: Dict[MaterialSpec, int] = {}
 
@@ -363,7 +362,17 @@ class _TableBuilder:
         if isinstance(spec, SolidColor):
             row = dict(kind=tex_mod.SOLID, color=spec.color, inv_scale=1.0, even=0, odd=0, image=0)
         elif isinstance(spec, ImageTexture):
-            raise _unported("image textures")
+            if spec.filename not in self.image_ids:
+                self.image_ids[spec.filename] = len(self.images)
+                self.images.append(load_image(spec.filename))
+            row = dict(
+                kind=tex_mod.IMAGE,
+                color=(1.0, 0.0, 1.0),
+                inv_scale=1.0,
+                even=0,
+                odd=0,
+                image=self.image_ids[spec.filename],
+            )
         elif isinstance(spec, CheckerTexture):
             even = self.texture(spec.even)
             odd = self.texture(spec.odd)
@@ -451,6 +460,8 @@ class _TableBuilder:
             even=col("even", np.int32),
             odd=col("odd", np.int32),
             image_id=col("image", np.int32),
+            images=tuple(torch.as_tensor(np.asarray(im, np.float32), device=device)
+                         for im in self.images),
         )
 
 
@@ -522,8 +533,8 @@ class Scene:
         return oid
 
     def load_spherical_skybox(self, filename: str) -> None:
-        """Spherical equirect sky from an image asset (full float HDR; only
-        ``.hdr`` files are ported)."""
+        """Spherical equirect sky from an image asset (``.hdr`` as full float
+        radiance, another format through PIL as bytes / 255)."""
         self.sky_image = load_image(filename)
         self.sky_kind = sky_mod.SPHERICAL
         self._cache = None

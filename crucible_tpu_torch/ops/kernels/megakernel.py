@@ -812,21 +812,41 @@ def run_megakernel_record_reference(
 def run_megakernel_reference(smem, pix, sample0, cam, table, swept_nodes=None,
                              swept_meta=None, tri_nodes=None, tris=None, mats=None,
                              tri_meta=None, *, animated: bool = False,
-                             cam_animated: bool = False):
+                             cam_animated: bool = False, by_sample: bool = False):
     """Eager-torch version of the kernel: same inputs, same (3, R) output.
 
     Lanes advance in lockstep, as on the TPU: each step issues a new sample
     to every idle lane that has samples left, then traces one bounce of
     every live lane. Per lane this is the kernel's flat loop, in its order
     of operations, so each lane's sum is the kernel's.
+
+    ``by_sample`` traces each of a lane's samples as a lane of its own, all
+    in one lockstep loop (a step for each bounce instead of one for each
+    bounce of each sample), keeps every bounce's addend, and then sums each
+    lane's addends in the kernel's order (sample by sample, bounce by
+    bounce; an addend past a path's end is 0.0, which leaves the sum's bits
+    as they are): the same sums, in far fewer steps, holding
+    ``max_depth * spp * R * 3`` floats.
     """
     _check_combination(swept_nodes, swept_meta, tris, animated, cam_animated)
     cull = _cull(swept_nodes, swept_meta, table)
     tri = _tri(tri_nodes, tris, mats, tri_meta, table)
-    acc, _ = _reference_loop(smem, pix, sample0, cam, table, rec_depth=0, radiance=True,
-                             cull=cull, tri=tri, animated=animated,
-                             cam_animated=cam_animated)
-    return acc
+    kw = dict(rec_depth=0, radiance=True, cull=cull, tri=tri, animated=animated,
+              cam_animated=cam_animated)
+    if not by_sample:
+        return _reference_loop(smem, pix, sample0, cam, table, **kw)[0]
+    spp, depth, r = int(smem[0]), int(smem[3]), pix.shape[1]
+    s0 = sample0[0].to(torch.int64)
+    smp = s0[None, :] + torch.arange(spp, device=s0.device)[:, None]  # (spp, R)
+    smp = torch.where((s0 < NO_SAMPLE)[None, :] & (smp < spp), smp, NO_SAMPLE)
+    adds = torch.zeros((depth, spp * r, 3), dtype=torch.float32, device=table.device)
+    _reference_loop(smem, pix.repeat(1, spp), smp.reshape(1, -1).to(sample0.dtype), cam,
+                    table, adds=adds, **kw)
+    acc = torch.zeros((r, 3), dtype=torch.float32, device=table.device)
+    for per_sample in adds.view(depth, spp, r, 3).unbind(1):
+        for add in per_sample:
+            acc = acc + add
+    return acc.t().contiguous()
 
 
 def _safe_inv(v):
@@ -1148,13 +1168,17 @@ def camera_at(c, w):
 
 
 def _reference_loop(smem, pix, sample0, cam, table, *, rec_depth: int, radiance: bool,
-                    cull=None, tri=None, animated: bool = False, cam_animated: bool = False):
+                    cull=None, tri=None, animated: bool = False, cam_animated: bool = False,
+                    adds=None):
     """The lockstep loop of both eager versions -> (acc (3, R), rec).
 
     ``rec_depth`` 0 is forward mode (``rec`` is None). Otherwise record
     mode: each lane issues its ``sample0`` only, and row ``it`` of ``rec``
     (rec_depth, R) holds the lane's decision word at bounce ``it``;
     ``radiance`` then says whether to accumulate it, from bounce smem[4] on.
+    ``adds`` (max_depth, R, 3), forward mode only: each lane issues its
+    ``sample0`` only, and bounce b's addend goes to ``adds[b]`` in place of
+    the sum (``acc`` stays 0).
     ``cull`` (``swept_inputs``' nodes and meta) takes the closest hit from
     the tree walk over the permuted table (:func:`cull_closest_reference`:
     K5's, counted in ``WALK_COUNTS``, or with ``animated`` K6's, its rows
@@ -1183,7 +1207,8 @@ def _reference_loop(smem, pix, sample0, cam, table, *, rec_depth: int, radiance:
     sample_i = sample0[0].to(torch.int64).clone()
     # Forward mode issues samples up to spp; record mode sample0 alone
     # (padding lanes carry 2**30 and never issue).
-    limit = torch.clamp_max(sample_i + 1, NO_SAMPLE) if rec_depth else spp
+    one = rec_depth or adds is not None
+    limit = torch.clamp_max(sample_i + 1, NO_SAMPLE) if one else spp
     alive = torch.zeros(r, dtype=torch.bool, device=dev)
     bounce = torch.zeros(r, dtype=torch.int64, device=dev)
     o = torch.zeros((r, 3), dtype=torch.float32, device=dev)
@@ -1278,7 +1303,10 @@ def _reference_loop(smem, pix, sample0, cam, table, *, rec_depth: int, radiance:
             add = thr_l * torch.where(hit[:, None], row[:, 10:13], sky)
             if accum_from > 0:  # adding 0.0 rounds like the kernel's skip
                 add = torch.where((b_l >= accum_from)[:, None], add, 0.0)
-            acc[live] = acc[live] + add
+            if adds is not None:
+                adds[b_l, live] = add
+            else:
+                acc[live] = acc[live] + add
 
         # --- albedo: solid or checker of solids ----------------------------
         is_even = tex_mod.checker_is_even(row[:, 17], hp)

@@ -492,8 +492,19 @@ def test_params_from_jax_checkpoint(tmp_path):
     params, _, _ = bridge.params_from_jax_checkpoint(tmp_path / "sky.npz", device="cpu")
     np.testing.assert_array_equal(params["sky_image"].numpy(), sky)
     np.testing.assert_array_equal(params["tex_color"].numpy(), np.asarray(jparams["tex_color"]))
-    # Texture images are not ported.
+    # Texture images are the leaves past tex_color, in order; the port's
+    # own checkpoint of them reads back bit for bit.
+    g = np.random.default_rng(1)
+    imgs = tuple(g.random(shape).astype(np.float32) for shape in ((2, 4, 3), (3, 1, 3)))
     JG.save_checkpoint(tmp_path / "tex.npz",
-                       dict(jparams, tex_images=(jnp.zeros((2, 2, 3)),)))
-    with pytest.raises(NotImplementedError, match="image textures"):
-        bridge.params_from_jax_checkpoint(tmp_path / "tex.npz", device="cpu")
+                       dict(jparams, tex_images=tuple(jnp.asarray(i) for i in imgs)), step=2)
+    params, _, step = bridge.params_from_jax_checkpoint(tmp_path / "tex.npz", device="cpu")
+    assert step == 2 and len(params["tex_images"]) == 2
+    for got, want in zip(params["tex_images"], imgs):
+        np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(params["tex_color"].numpy(), np.asarray(jparams["tex_color"]))
+    G.save_checkpoint(tmp_path / "port.npz", params, step=step)
+    back, _, step = G.load_checkpoint(tmp_path / "port.npz", device="cpu")
+    assert step == 2 and len(back["tex_images"]) == 2
+    for key, leaf in G.leaves(params).items():
+        assert torch.equal(G.leaves(back)[key], leaf), key

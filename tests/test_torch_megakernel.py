@@ -119,6 +119,57 @@ def test_reference_lanes_are_independent():
     np.testing.assert_array_equal(_port(sub), full[:, lanes])
 
 
+def _by_sample_inputs(route):
+    """(inputs, flags) of one forward launch of each search, built by the port
+    alone at a few pixels' width: K1 (book1), K5 (book1's static tree), K6
+    and K8's camera (bouncing stress's swept tree, both flags), K7 moving
+    with the camera (the moving fan)."""
+    from tests import torch_mesh_scenes as meshes
+
+    if route == "tri":
+        sc = meshes.moving_fan(tscene, 16, camera=True)
+    elif route == "cull":
+        sc = bouncing_stress(tdemo, 16, 4)
+    else:
+        sc = tdemo.book1_end_scene(width=16)
+    sd, cp = sc.build(device="cpu"), sc.scene_cam.params(device="cpu")
+    w, h = sc.scene_cam.image_width, sc.scene_cam.image_height
+    inputs, _ = tint.mega_inputs(sd, cp, w, h, 3, 6, 0)
+    inputs["sample0"][0, ::5] = 1  # a few lanes start at their second sample
+    flags = dict(animated=bool(sd.animated), cam_animated=bool(cp.animated))
+    if route == "walk":
+        zero = np.zeros_like(sd.sph_center.numpy())
+        perm, nodes, meta = tmk.swept_tables(sd.sph_center.numpy(), sd.sph_radius.numpy(),
+                                             sd.sph_active.numpy(), zero, zero[:, 0])
+        inputs.update(table=tint.permute_table(inputs["table"], torch.from_numpy(perm)),
+                      swept_nodes=torch.from_numpy(nodes), swept_meta=torch.from_numpy(meta))
+    elif route == "cull":
+        inputs.update(table=tint.permute_table(inputs["table"], sd.sph_swept_perm),
+                      swept_nodes=sd.sph_swept_nodes, swept_meta=sd.sph_swept_meta)
+    elif route == "tri":
+        inputs.update(zip(("tri_nodes", "tris", "mats", "tri_meta"),
+                          tint.make_tri_tables(sd)))
+    return inputs, flags
+
+
+@pytest.mark.parametrize("route", ["brute", "walk", "cull", "tri"])
+def test_plain_forward_by_sample_gives_the_same_bits(route):
+    """The plain forward with each sample a lane of its own (chip_smoke.py
+    holds full-size launches against it) sums to the lane-by-lane loop's
+    bits, padding lanes and lanes that start past sample 0 included, and
+    counts the same searches."""
+    inputs, flags = _by_sample_inputs(route)
+    assert flags["animated"] == (route in ("cull", "tri"))
+    tmk.SEARCH_COUNTS.update(searches=0, issued=0)
+    want = tmk.run_megakernel_reference(**inputs, **flags)
+    counts = dict(tmk.SEARCH_COUNTS)
+    tmk.SEARCH_COUNTS.update(searches=0, issued=0)
+    got = tmk.run_megakernel_reference(**inputs, **flags, by_sample=True)
+    assert dict(tmk.SEARCH_COUNTS) == counts and counts["searches"] > counts["issued"]
+    assert got.abs().sum() > 0
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize(
     "kwargs",
     [

@@ -548,9 +548,13 @@ def test_what_still_raises():
         trep.trace_replay(replace(sd, animated=True, tri_exact=True), torch.zeros(4, 3),
                           torch.ones(4, 3), torch.arange(4), torch.zeros(4), 0, 2,
                           torch.zeros((2, 4), dtype=torch.int32))
-    # A BVH mesh the megakernel does not take: auto raises, naming it.
+    # A BVH mesh the megakernel does not take: asked by name, it raises,
+    # naming it; auto takes the pixel schedule, whose staged bounce walks
+    # the mesh's BVH (the record megakernel does not take it either).
     with pytest.raises(NotImplementedError, match="big sphere table"):
-        trender.render_image_persistent(walk, cp, w, h, 1, 2, 0, device="cpu", cull=False)
+        trender.render_image_persistent(walk, cp, w, h, 1, 2, 0, device="cpu", cull=False,
+                                        schedule="mega")
+    assert trender.auto_schedule(walk, cp, "cuda") == "pixel"
 
 
 def test_k7_node_cap():

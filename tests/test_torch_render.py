@@ -130,12 +130,51 @@ def _movie(sc):
         trender.render_movie(sc, str(Path(tmp) / "movie"), verbose=False, device="cpu")
 
 
+def _temp_asset(name, texels):
+    """Write (H, W, 3) uint8 ``texels`` as the image asset ``name`` into a
+    temporary directory -> (the directory, its cleanup)."""
+    import tempfile
+
+    from PIL import Image
+
+    tmp = tempfile.TemporaryDirectory()
+    Image.fromarray(texels).save(Path(tmp.name) / name)
+    return tmp
+
+
+def _with_asset_dir(path, fn):
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("ASSET_DIR", str(path))
+        return fn()
+
+
 def _image_texture(sc):
-    sc.add_element(
-        _sphere(tscene.Lambertian.from_texture(tscene.ImageTexture("earthmap.jpg"))),
-        "earth",
-    )
-    _render(sc)
+    """An image texture renders (here from a temporary PNG asset; a missing
+    asset raises FileNotFoundError, tests/test_torch_textures.py holds the
+    lookups to the JAX package); the megakernel, asked by name, does not
+    shade it (the JAX package's does not either: auto takes 'record' on a
+    card, 'pixel' elsewhere)."""
+    texels = np.random.default_rng(0).integers(0, 256, (4, 8, 3), dtype=np.uint8)
+    with _temp_asset("map.png", texels) as tmp:
+        _with_asset_dir(tmp, lambda: sc.add_element(
+            _sphere(tscene.Lambertian.from_texture(tscene.ImageTexture("map.png"))),
+            "earth"))
+        assert bool(torch.isfinite(_with_asset_dir(tmp, lambda: _render(sc))).all())
+        _with_asset_dir(tmp, lambda: trender.render_image_persistent(
+            sc.build(device="cpu"), sc.scene_cam.params(device="cpu"), 32, 18, 1, 2, 0,
+            device="cpu", schedule="mega"))
+
+
+def _spherical_sky(sc):
+    """A spherical sky loads from an LDR asset too (through PIL) and renders
+    on the pixel schedule; the megakernel, asked by name, does not take it."""
+    texels = np.random.default_rng(1).integers(0, 256, (4, 8, 3), dtype=np.uint8)
+    with _temp_asset("garden.jpg", texels) as tmp:
+        _with_asset_dir(tmp, lambda: sc.load_spherical_skybox("garden.jpg"))
+    assert bool(torch.isfinite(_render(sc)).all())
+    trender.render_image_persistent(
+        sc.build(device="cpu"), sc.scene_cam.params(device="cpu"), 32, 18, 1, 2, 0,
+        device="cpu", schedule="mega")
 
 
 def _timeline(sc):
@@ -223,13 +262,15 @@ def _bridged_triangles(sc):
         _timeline,
         _animator,
         _obj_asset,
-        lambda sc: sc.load_spherical_skybox("garden.jpg"),
+        _spherical_sky,
         lambda sc: _movie(sc),
         _too_many_spheres,
         _bridged_triangles,
+        # 'record' runs on both devices (tests/test_torch_record_schedule.py);
+        # the JAX package's 'queue' schedule is not ported.
         lambda sc: trender.render_image_persistent(
             sc.build(device="cpu"), sc.scene_cam.params(device="cpu"), 32, 18, 1, 1, 0,
-            device="cpu", schedule="record"),
+            device="cpu", schedule="queue"),
     ],
     ids=["triangle", "image_texture", "timeline", "animator", "obj_asset",
          "spherical_sky", "movie", "structure_tables", "bridged_mesh", "schedule"],

@@ -302,12 +302,32 @@ def test_routing_follows_jax():
 
 
 def test_eager_replay_names_what_it_lacks():
+    """Exact-time motion raises, naming its queue item (A7). Nested checkers
+    under the spherical sky, which the replay once refused too, replay: K2's
+    records (its plain version) replayed match the staged bounce loop on
+    the same lanes, at the JAX package's cross-schedule bounds
+    (tests/test_replay.py:368-370)."""
     from dataclasses import replace
+
+    from crucible_tpu_torch.models import demo as tdemo
+    from crucible_tpu_torch.models import skybox as tsky
 
     sd = bridged(_case("moving_smoke")[0])[0]
     args = (torch.zeros((4, 3)), torch.ones((4, 3)), torch.arange(4), torch.zeros(4),
             0, 2, torch.zeros((2, 4), dtype=torch.int32))
-    for change, item in ((dict(tri_exact=True), "A7"), (dict(motion_exact=True), "A7"),
-                         (dict(tex=replace(sd.tex, max_nest=2)), "A5")):
-        with pytest.raises(NotImplementedError, match=item):
+    for change in (dict(tri_exact=True), dict(motion_exact=True)):
+        with pytest.raises(NotImplementedError, match="A7"):
             trep.trace_replay(replace(sd, **change), *args)
+
+    sc = tdemo.nested_checkers(width=32, nest=3)
+    w, h = sc.scene_cam.image_width, sc.scene_cam.image_height
+    sky = torch.rand((8, 16, 3), generator=torch.Generator().manual_seed(2))
+    sd = replace(sc.build(device="cpu"), sky_kind=tsky.SPHERICAL, sky_image=sky)
+    cp = sc.scene_cam.params(device="cpu")
+    assert sd.tex.max_nest == 3 and not trep._use_replay_kernel(sd)
+    pix, smp = G._lanes(torch.arange(w * h), 2, 0)
+    replayed = trep.render_rays_replay(sd, cp, w, h, pix, smp, SEED, 6).numpy()
+    staged = tint.render_rays(sd, cp, w, h, pix, smp, SEED, 6).numpy()
+    close = np.isclose(replayed, staged, rtol=1e-3, atol=1e-3).mean()
+    assert close > 0.99, close
+    assert abs(replayed.mean() - staged.mean()) <= 2e-3

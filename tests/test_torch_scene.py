@@ -184,11 +184,20 @@ def test_texture_value_matches_jax():
 
 
 def test_texture_value_refuses_nested_checkers():
-    table = tdemo.checkered_spheres(width=32).build(device="cpu").tex
-    table.max_nest = 2
-    z = torch.zeros(1)
-    with pytest.raises(NotImplementedError):
-        ttex.value(table, torch.zeros(1, dtype=torch.int64), z, z, torch.zeros(1, 3))
+    """Checkers nested three levels deep (``nested_checkers``), which the
+    port once refused, evaluate as the JAX package's, bit for bit."""
+    jtable = jdemo.nested_checkers(width=32).build().tex
+    ttable = tdemo.nested_checkers(width=32).build(device="cpu").tex
+    assert ttable.max_nest == jtable.max_nest == 3
+    g = np.random.default_rng(8)
+    tid = g.integers(0, int(jtable.kind.shape[0]), 1000).astype(np.int32)
+    p = (g.normal(size=(1000, 3)) * 20).astype(np.float32)
+    uv = g.random((2, 1000)).astype(np.float32)
+    want = jtex.value(jtable, jnp.asarray(tid), jnp.asarray(uv[0]),
+                      jnp.asarray(uv[1]), jnp.asarray(p))
+    got = ttex.value(ttable, torch.from_numpy(tid), torch.from_numpy(uv[0]),
+                     torch.from_numpy(uv[1]), torch.from_numpy(p))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_default_gradient_matches_jax():

@@ -66,11 +66,20 @@ def test_garden_bytes_equal_jax(tmp_path):
     assert tproc.ensure_garden_hdr() == path  # a complete file stays
 
 
-def test_load_image_takes_hdr_only():
+def test_load_image_takes_hdr_only(tmp_path, monkeypatch):
+    """``.hdr`` decodes with the port's own codec; other formats, which the
+    port once refused, decode through PIL (tests/test_torch_textures.py
+    holds them to the JAX package), and a missing asset raises
+    ``FileNotFoundError``, as the JAX package's does."""
     tproc.ensure_garden_hdr()
     assert timage.load_image("garden.hdr").shape == (512, 1024, 3)
-    with pytest.raises(NotImplementedError):
-        timage.load_image("earthmap.jpg")
+    monkeypatch.setenv("ASSET_DIR", str(tmp_path))
+    with pytest.raises(FileNotFoundError):
+        timage.load_image("no_such_map.jpg")
+    Image = pytest.importorskip("PIL.Image")
+    Image.fromarray(np.full((2, 3, 3), 51, np.uint8)).save(tmp_path / "grey.png")
+    np.testing.assert_array_equal(timage.load_image("grey.png"),
+                                  np.full((2, 3, 3), np.float32(51) / 255.0))
 
 
 # --- the spherical sky --------------------------------------------------------------
