@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the CUDA kernels from ``crucible_tpu_torch/csrc`` with nvcc, one
-   process per source, all at once.
+   process per source, all at once, and the native BVH builder
+   (``crucible_tpu_torch/native``) with g++.
 3. Holds every kernel against its eager-torch twin on the card:
    - K1, the forward megakernel (persistent lanes in one flat bounce
      loop): ``smoke_scene`` 64 wide, 8 spp, depth 8 (every lane within
@@ -188,7 +189,10 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
 11. Movies: ``render.render_movie`` of ``first_movie(duration=0.25)``
    (6 frames, 400 wide, 50 spp, depth 5; the pixel schedule, K9) and of a
    2-frame bouncing book1 at 1920x1080, 32 spp, depth 50 (two K8
-   launches), into a temporary directory.
+   launches), into a temporary directory; then bouncing book1's frame 0 by
+   phase (:func:`frame_phases`: build, launch to synchronize, fetch and
+   quantization, PPM write, and the per-pixel writer the port had before
+   on the same frame, which must write the same bytes).
    Each main-path phase zeroes the launch counts before it and reads them
    after; a kernel of the phase that was not launched fails the run.
 12. Gradients through the eager replay, ``grad.loss_and_grad`` at
@@ -215,7 +219,9 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
 15. Its movie: ``render.render_movie`` at 400x225, 50 spp, depth 5, cut
    from 120 frames to 6, twice (six K7 moving launches each), beside the
    scene build's time for each frame (the lowering of its 18,960 vertex
-   timelines and the SAH tree, redone every frame).
+   timelines and the SAH tree, redone every frame); frame 3's build with
+   the native and the Python BVH builder (:func:`builder_ab`, the trees
+   bit for bit), and the frame by phase.
 16. Its gradient, ``grad.loss_and_grad`` at 1920x1080, 4 spp, depth 8 (K7
    moving record, then the eager replay's moving-triangle branch; K3 and K4
    never launch): a warm and 2 timed steps, the step by phase, peak
@@ -229,7 +235,9 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
 19. Its movie: ``render.render_movie`` at 400x225, 50 spp, depth 5, cut to
    2 frames, the launches of each frame read (frame 0 K6; frame 1, past
    the keyframe, K6 with zero deltas or K5), beside each frame's build and
-   the swept tree's part of it.
+   the swept tree's part of it; frame 0's swept tree and scene build with
+   the native and the Python BVH builder (the tables bit for bit), and the
+   frame by phase.
 20. Its gradient, ``grad.loss_and_grad`` at 1920x1080, 4 spp, depth 8 (K6
    record, then the eager replay; K3 and K4 never launch): a warm and 2
    timed steps, the step by phase, peak memory, ``record_decisions`` and a
@@ -269,7 +277,12 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
    the CPU on the same records over a band of rows; ``train_demo`` at its
    default 1920 wide, 3 steps against 2, a checkpoint and a resume, bit
    for bit.
-24. Prints a JSON line describing each kernel (times at the comparison
+24. The command line (:func:`cli_path`, which says more):
+   ``cli.main`` in this process for book1 at 1920 wide, 500 spp, depth 50
+   (8 K1 chunks of its progress; the film against one dispatch) and for
+   the default movie (6 frames, K9); ``python -m crucible_tpu_torch.cli``
+   in a process of its own.
+25. Prints a JSON line describing each kernel (times at the comparison
    shape, where kernel and twin run the same inputs in full; K5's, K6's
    and others' also at their main shape), the card's line again, and, as
    the last line, ``{"ok": true, "device": {...}}``.
@@ -1052,10 +1065,225 @@ def textured_path(dev, kernels: dict, mark) -> dict:
     return cells
 
 
+def loop_ppm(path, img_u8) -> None:
+    """The P3 writer the port had before its numpy one (the JAX package's
+    ``write_ppm``): one formatted line a pixel. Timed beside the new writer
+    on the same frame, and held to the same bytes."""
+    h, w = img_u8.shape[:2]
+    body = "\n".join(f"{r} {g} {b}" for r, g, b in img_u8.reshape(-1, 3))
+    with open(path, "w") as f:
+        f.write(f"P3\n{w} {h}\n255\n{body}\n")
+
+
+def frame_phases(scene, dev, what: str, old_writer: bool = False) -> dict:
+    """A movie frame of ``scene`` (its camera's current frame) by phase,
+    each synchronized, in ms: the scene build and camera lowering (the
+    cache dropped), the render from launch to synchronize, the fetch and
+    quantization to u8 on the host, and the PPM write. ``render_movie``
+    does the last two on its worker thread while the next frame builds and
+    renders. With ``old_writer`` also the per-pixel writer's time
+    (:func:`loop_ppm`), which must write the same bytes."""
+    from crucible_tpu_torch.io.image import write_ppm
+    from crucible_tpu_torch.models import render
+
+    cam = scene.scene_cam
+    scene._cache = None
+    (sd, cp), build_ms = host_ms(lambda: (scene.build(device=dev), cam.params(device=dev)))
+    img, render_ms = host_ms(lambda: render.render_image_data(
+        sd, cp, cam.image_width, cam.image_height, cam.samples, cam.max_depth, scene.seed,
+        device=dev))
+    u8, fetch_ms = host_ms(lambda: render.to_u8(img.cpu()))
+    out = dict(build_ms=build_ms, render_ms=render_ms, fetch_ms=fetch_ms)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["write_ms"] = host_ms(lambda: write_ppm(Path(tmp) / "new.ppm", u8))[1]
+        if old_writer:
+            out["loop_write_ms"] = host_ms(lambda: loop_ppm(Path(tmp) / "old.ppm", u8))[1]
+            if (Path(tmp) / "new.ppm").read_bytes() != (Path(tmp) / "old.ppm").read_bytes():
+                raise AssertionError(f"{what}: the numpy PPM writer's bytes differ")
+    print(f"{what} {cam.image_width}x{cam.image_height} {cam.samples}spp d{cam.max_depth}, "
+          f"frame {cam.frame} by phase: build {build_ms:.1f} ms, launch to synchronize "
+          f"{render_ms:.1f} ms, fetch + quantize {fetch_ms:.1f} ms, PPM write "
+          f"{out['write_ms']:.1f} ms"
+          + (f" (the per-pixel writer {out['loop_write_ms']:.1f} ms, the same bytes)"
+             if old_writer else ""))
+    return out
+
+
+def python_builder(what: str):
+    """Context: ``ops.bvh.build_bvh`` (which ``Scene.build`` and
+    ``megakernel.swept_tables`` call) takes the Python builder. It counts
+    the trees the Python builder built, and raises on leaving if that was
+    none (a caller that reached the builder another way would compare the
+    native tree with itself)."""
+    import contextlib
+
+    from crucible_tpu_torch.models import scene as tscene
+    from crucible_tpu_torch.ops import bvh
+
+    @contextlib.contextmanager
+    def ctx():
+        real = bvh.build_bvh
+        built = [0]
+
+        def plain(*args, use_native=True, **kwargs):
+            built[0] += 1
+            return real(*args, use_native=False, **kwargs)
+
+        bvh.build_bvh = tscene.build_bvh = plain
+        try:
+            yield built
+        finally:
+            bvh.build_bvh = tscene.build_bvh = real
+        if built[0] < 1:
+            raise AssertionError(f"{what}: the Python builder built no tree")
+
+    return ctx()
+
+
+def builder_ab(scene, dev, what: str) -> dict:
+    """``scene.build`` (its current frame, the cache dropped) with the
+    native BVH builder and with the Python one, each timed after a warm
+    build (the timelines' lowering is cached on first use); every tree
+    field of the two builds (the mesh tree and its leaf order, the sphere
+    tables' trees) held equal bit for bit."""
+    import torch
+
+    def build():
+        scene._cache = None
+        return host_ms(lambda: scene.build(device=dev))
+
+    build()
+    native, native_ms = build()
+    with python_builder(what) as built:
+        plain, python_ms = build()
+    fields = [f for f in ("bvh_min", "bvh_max", "bvh_first", "bvh_count", "bvh_miss",
+                          "tri_v0", "tri_v1", "tri_v2", "tri_mat", "sph_perm", "sph_nodes",
+                          "sph_meta", "sph_swept_perm", "sph_swept_nodes", "sph_swept_meta")
+              if getattr(native, f, None) is not None]
+    for f in fields:
+        if not torch.equal(getattr(native, f), getattr(plain, f)):
+            raise AssertionError(f"{what}: the native and Python builders part on {f}")
+    scene._cache = None
+    print(f"{what} scene build, frame {scene.scene_cam.frame}: native BVH builder "
+          f"{native_ms:.1f} ms, Python builder {python_ms:.1f} ms ({built[0]} Python "
+          f"trees); {len(fields)} tree fields equal bit for bit")
+    return dict(native_ms=native_ms, python_ms=python_ms, python_trees=built[0])
+
+
+def cli_path(dev, kernels: dict, mark) -> dict:
+    """Main path 22, the command line on ``dev`` -> its cells. Adds this
+    path's K1 and K9 launches to ``kernels``.
+
+    a. ``cli.main(["--file", ..., "--world", "1", "--width", "1920"])`` in
+       this process: book1 at its own 500 spp, depth 50, on the card, with
+       its progress (verbose) in 8 sample chunks, each one K1 launch and
+       nothing else; the film (``build/chip_smoke_cli_book1.ppm``) against
+       ``to_u8`` of one dispatch of ``render_image`` (one K1 launch and
+       nothing else): u8 values equal on more than 0.999 of them, none
+       apart by more than 1.
+    b. ``--movie --world 1 --seconds 0.25 --rate 24``: first_movie's 6
+       frames at 400x225, 50 spp, depth 5 (the pixel schedule, K9; no K1).
+    c. ``python -m crucible_tpu_torch.cli --file ... --width 160 --spp 4``
+       in a process of its own: exit 0, its film written.
+
+    Any failed check raises."""
+    import numpy as np
+
+    from crucible_tpu_torch import cli
+    from crucible_tpu_torch.io.image import read_ppm
+    from crucible_tpu_torch.models import demo, render
+    from crucible_tpu_torch.ops.kernels import megakernel as mk
+    from crucible_tpu_torch.ops.kernels import sphere_hit as sh
+    from crucible_tpu_torch.ops.kernels import sphere_shade as ss
+
+    def zero():
+        mk.zero_counts()
+        ss.LAUNCHES = sh.LAUNCHES = 0
+
+    def launched():
+        got = {f"forward_{k}": n for k, n in mk.FORWARD_LAUNCHES.items() if n}
+        got.update({f"record_{k}": n for k, n in mk.RECORD_LAUNCHES.items() if n})
+        got.update({k: n for k, n in (("k9", ss.LAUNCHES), ("k10", sh.LAUNCHES)) if n})
+        return got
+
+    cells = {}
+    (REPO / "build").mkdir(exist_ok=True)
+
+    mark("main path 22a: cli.main --world 1 --width 1920 (book1 500 spp d50, verbose)")
+    film = REPO / "build" / "chip_smoke_cli_book1"
+    zero()
+    rc, ms = host_ms(lambda: cli.main(["--file", str(film), "--world", "1", "--width", "1920"]))
+    got = launched()
+    if rc != 0 or got != {"forward_brute": 8}:
+        raise AssertionError(f"cli book1: rc {rc}, launches {got} (8 K1 chunks expected)")
+    k1 = got["forward_brute"]
+    u8 = read_ppm(f"{film}.ppm")
+    sc = demo.book1_end_scene(width=1920)
+    sc.seed = 0
+    zero()
+    one, one_ms = host_ms(lambda: render.render_image(sc, device=dev))
+    one_got = launched()
+    if one_got != {"forward_brute": 1}:
+        raise AssertionError(f"cli book1's one dispatch: launches {one_got} (one K1 expected)")
+    k1 += one_got["forward_brute"]
+    want = render.to_u8(one.cpu())
+    if u8.shape != want.shape:
+        raise AssertionError(f"cli book1: film {u8.shape}, one dispatch {want.shape}")
+    diff = np.abs(u8.astype(np.int64) - want.astype(np.int64))
+    equal = float((diff == 0).mean())
+    if not equal > 0.999 or diff.max() > 1:
+        raise AssertionError(f"cli book1: u8 equal on {equal}, max diff {diff.max()}")
+    print(f"cli book1 1920x1080 500spp d50 (8 chunks): {ms / 1e3:.3f} s with the film "
+          f"written, one-dispatch render_image {one_ms / 1e3:.3f} s; u8 equal on {equal:.6f}, "
+          f"max diff {diff.max()}; launches {got}")
+    cells["book1"] = dict(s=ms / 1e3, one_dispatch_s=one_ms / 1e3, u8_equal=equal)
+
+    mark("main path 22b: cli.main --movie --world 1 --seconds 0.25 --rate 24")
+    with tempfile.TemporaryDirectory() as tmp:
+        zero()
+        rc, ms = host_ms(lambda: cli.main(["--file", str(Path(tmp) / "movie"), "--movie",
+                                           "--world", "1", "--seconds", "0.25", "--rate", "24"]))
+        got = launched()
+        frames = sorted((Path(tmp) / "movie" / "artifacts").glob("image*.ppm"))
+        if rc != 0 or len(frames) != 6 or got.get("k9", 0) < 1 or set(got) != {"k9"}:
+            raise AssertionError(f"cli movie: rc {rc}, {len(frames)} frames, launches {got}")
+        shapes = {read_ppm(f).shape for f in frames}
+        if shapes != {(225, 400, 3)}:
+            raise AssertionError(f"cli movie: frame shapes {shapes}")
+    k9 = got["k9"]
+    print(f"cli --movie --world 1 (first_movie 400x225 50spp d5, 6 frames): {ms / 1e3:.3f} s, "
+          f"{ms / 6e3:.3f} s a frame; launches {got}")
+    cells["movie"] = dict(s=ms / 1e3, frames=6)
+
+    mark("main path 22c: python -m crucible_tpu_torch.cli --width 160 --spp 4")
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, PYTHONPATH=str(REPO))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "crucible_tpu_torch.cli", "--file", str(Path(tmp) / "sub"),
+             "--width", "160", "--spp", "4"],
+            cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+        sub_s = time.perf_counter() - t0
+        if proc.returncode != 0 or read_ppm(Path(tmp) / "sub.ppm").shape != (90, 160, 3):
+            raise AssertionError(f"python -m crucible_tpu_torch.cli: exit {proc.returncode}\n"
+                                 f"{proc.stderr[-4000:]}")
+    print(f"python -m crucible_tpu_torch.cli --width 160 --spp 4: exit 0 in {sub_s:.2f} s "
+          f"(process start, CUDA start, render, write)")
+    cells["subprocess_s"] = sub_s
+
+    counts = {"megakernel_forward": k1, "sphere_shade": k9}
+    for name, n in counts.items():
+        kernels[name]["launches"] += n
+        kernels[name]["cli_path_launches"] = n
+    cells["launches"] = counts
+    return cells
+
+
 def main() -> None:
     if not (REPO / "crucible_tpu_torch" / "__init__.py").is_file():
         raise SystemExit(f"chip_smoke: no crucible_tpu_torch package beside {__file__}")
     sys.path.insert(0, str(REPO))
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -1095,6 +1323,12 @@ def main() -> None:
             print("  ptxas:", line.strip())
     for stem in libs:
         build.load(stem)
+    from crucible_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native.load()
+    print(f"native BVH builder: {native.library_path().relative_to(REPO)} "
+          f"({time.perf_counter() - t0:.2f} s with g++ where it was not built)")
     kernels = {}
 
     # --- K1: forward megakernel vs eager twin -----------------------------------
@@ -3164,9 +3398,18 @@ def main() -> None:
         if sorted(frames) != [0, 1] or got["k8"] != 2 or got["k1"]:
             raise AssertionError(f"bouncing movie: frames {sorted(frames)}, launches {got}")
         print(f"render_movie bouncing book1 1920x1080 32spp d50, 2 frames (frame 1 past "
-              f"the keyframe): {ms / 1e3:.3f} s, {ms / 2e3:.3f} s per frame; launches {got}")
+              f"the keyframe): {ms / 1e3:.3f} s, {ms / 2e3:.3f} s per frame (dispatch to "
+              f"written: {', '.join(f'{frames[i]:.3f}' for i in range(2))} s); launches {got}")
         launches_k8 += got["k8"]
+        movie.scene_cam.frame = 0
+        zero_motion_launches()
+        movie_cells = dict(bouncing_frame=frame_phases(movie, dev, "bouncing book1 movie",
+                                                       old_writer=True))
+        if motion_launches()["k8"] != 1:
+            raise AssertionError(f"bouncing movie frame: launches {motion_launches()}")
+        launches_k8 += 1
     kernels["megakernel_motion"]["launches"] = launches_k8
+    print("movie cells: " + json.dumps(movie_cells))
 
     # --- main path 9: gradients of moving scenes, big tables and the HDR sky --
     mark('main path 9: gradients of moving scenes, big tables and the HDR sky')
@@ -3480,6 +3723,13 @@ def main() -> None:
         frame_build.append(host_ms(lambda: movie.build())[1])
     print(f"moving torus_teapot scene build per movie frame: "
           f"{', '.join(f'{b / 1e3:.3f}' for b in frame_build)} s")
+    movie.scene_cam.frame = 3
+    mesh_cells["movie_builders"] = builder_ab(movie, dev, "moving torus_teapot")
+    zero_motion_launches()
+    mesh_cells["movie_frame"] = frame_phases(movie, dev, "moving torus_teapot movie")
+    if motion_launches()["k7m"] != 1:
+        raise AssertionError(f"moving torus frame: launches {motion_launches()}")
+    launches_k7m += 1
     movie_runs = []
     with tempfile.TemporaryDirectory() as tmp:
         for run in range(2):
@@ -3612,6 +3862,25 @@ def main() -> None:
     if len(tree_ms) != 2 or len(clusters_ms) != 2:
         raise AssertionError(f"bouncing stress movie: {len(tree_ms)} swept trees and "
                              f"{len(clusters_ms)} clusterings for 2 frames")
+    # The swept tree of frame 0 by each builder, on the same arrays.
+    movie.scene_cam.frame = 0
+    fsd = movie.build()
+    tree_args = [fsd.sph_center.cpu().numpy(), fsd.sph_radius.cpu().numpy(),
+                 fsd.sph_active.cpu().numpy(), fsd.sph_center_d.cpu().numpy(),
+                 fsd.sph_radius_d.cpu().numpy()]
+    native_tree, native_tree_ms = host_ms(lambda: mk.swept_tables(*tree_args))
+    with python_builder("bouncing stress swept tree") as built:
+        plain_tree, python_tree_ms = host_ms(lambda: mk.swept_tables(*tree_args))
+    if not all(a.dtype == b.dtype and np.array_equal(a, b)
+               for a, b in zip(native_tree, plain_tree)):
+        raise AssertionError("bouncing stress: the native and Python swept trees differ")
+    print(f"bouncing stress n7744 swept tree, frame 0: native builder {native_tree_ms:.1f} ms, "
+          f"Python builder {python_tree_ms:.1f} ms ({built[0]} Python trees), the same "
+          f"tables bit for bit")
+    cull_cells["movie_tree_builders"] = dict(native_ms=native_tree_ms,
+                                             python_ms=python_tree_ms)
+    cull_cells["movie_builders"] = builder_ab(movie, dev, "bouncing stress n7744")
+    del fsd
     per_frame = []
     real_render = render.render_image_data
 
@@ -3646,6 +3915,12 @@ def main() -> None:
           f"{', '.join(f'{b / 1e3:.3f}' for b in tree_ms)} s and the clusters "
           f"{', '.join(f'{b / 1e3:.3f}' for b in clusters_ms)} s; launches by frame "
           f"{per_frame}")
+    movie.scene_cam.frame = 0
+    zero_motion_launches()
+    cull_cells["movie_frame"] = frame_phases(movie, dev, "bouncing stress movie")
+    if motion_launches()["k6"] != 1:
+        raise AssertionError(f"bouncing stress frame: launches {motion_launches()}")
+    launches_k6 += 1
     kernels["megakernel_cull"]["launches"] = launches_k6
     del movie
 
@@ -4091,6 +4366,9 @@ def main() -> None:
     # --- main path 21: image textures and nested checkers, the record schedule -
     textured = textured_path(dev, kernels, mark)
     print("textured cells: " + json.dumps(textured))
+
+    # --- main path 22: the command line ------------------------------------------
+    print("cli cells: " + json.dumps(cli_path(dev, kernels, mark)))
 
     print("gradient cells: " + json.dumps(grad_cells))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check")

@@ -15,7 +15,9 @@ keyframed camera with defocus: the forward render through
 ``models.render.render_image`` (the megakernel schedule; the staged pixel
 schedule for the spherical sky and small meshes; on a card the record
 schedule for image textures and nested checkers), movies through
-``models.render.render_movie``, the gradient through
+``models.render.render_movie``, stills and movies from the command line
+(``crucible-tpu-torch``, ``python -m crucible_tpu_torch.cli``) through
+``Scene.render_scene``, the gradient through
 ``grad.loss_and_grad`` (record/replay, and direct AD), texels included,
 and the inverse-rendering demo ``python -m crucible_tpu_torch.train_demo``.
 Exact-time motion and the rest raise ``NotImplementedError``.

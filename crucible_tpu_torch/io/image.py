@@ -59,15 +59,33 @@ def read_ppm(path) -> np.ndarray:
     return pix.reshape(h, w, 3).astype(np.uint8)
 
 
-def write_ppm(path, img_u8: np.ndarray) -> None:
-    """Write (H, W, 3) uint8 as ASCII P3 PPM."""
+# Each byte value's decimal digits, then zero bytes up to 4.
+_DIGITS = np.array([list(str(v).encode().ljust(4, b"\0")) for v in range(256)], np.uint8)
+
+
+def ppm_bytes(img_u8: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 -> the bytes of an ASCII P3 PPM: the header
+    ``P3\\n{w} {h}\\n255\\n``, one ``r g b`` line a pixel, and a final
+    newline. Built in numpy, not formatted a pixel at a time: each value
+    takes a 4-byte cell of its digits (a 256-entry table), its separator
+    (a space, a newline after b) in the last byte and zero bytes between,
+    and the zero bytes are dropped."""
     img_u8 = np.asarray(img_u8, dtype=np.uint8)
     h, w = img_u8.shape[:2]
-    flat = img_u8.reshape(-1, 3)
-    # One "r g b" triple per line.
-    body = "\n".join(f"{r} {g} {b}" for r, g, b in flat)
-    with open(path, "w") as f:
-        f.write(f"P3\n{w} {h}\n255\n{body}\n")
+    head = f"P3\n{w} {h}\n255\n".encode()
+    if img_u8.size == 0:
+        return head + b"\n"
+    cells = _DIGITS[img_u8.reshape(-1)]
+    cells[:, 3] = ord(" ")
+    cells[2::3, 3] = ord("\n")
+    return head + cells[cells != 0].tobytes()
+
+
+def write_ppm(path, img_u8: np.ndarray) -> None:
+    """Write (H, W, 3) uint8 as ASCII P3 PPM (:func:`ppm_bytes`)."""
+    data = ppm_bytes(img_u8)
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 def write_image(path, img_u8: np.ndarray) -> None:

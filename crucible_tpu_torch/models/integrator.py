@@ -550,17 +550,22 @@ def mega_inputs(
     spp: int,
     max_depth: int,
     seed: int,
+    sample_start: int = 0,
 ):
-    """The megakernel's inputs for a whole-image render, and the un-swizzle.
+    """The megakernel's inputs for a whole-image render of samples
+    ``sample_start``..``spp - 1``, and the un-swizzle.
 
     Returns (inputs, lane_of): ``inputs`` holds ``smem``, ``pix``,
     ``sample0``, ``cam`` and ``table`` for ``megakernel.run_megakernel``;
     ``lane_of`` (width*height,) maps each pixel to its lane.
 
     Lanes are laid out in 32x16 pixel blocks of ``megakernel.TILE`` lanes,
-    so that neighbouring lanes trace neighbouring pixels; lanes past the
-    image edge carry ``sample0 = 2**30`` and never issue.
+    so that neighbouring lanes trace neighbouring pixels; a lane traces its
+    pixel's samples from ``sample0 = sample_start`` to ``smem[0] = spp``,
+    and lanes past the image edge carry ``sample0 = 2**30`` and never issue.
     """
+    if not 0 <= sample_start < spp:
+        raise ValueError(f"sample_start {sample_start} must lie in [0, spp = {spp})")
     dev = sd.sph_center.device
     bw, bh = 32, mk.TILE // 32
     gx = (width + bw - 1) // bw
@@ -574,7 +579,7 @@ def mega_inputs(
     pix = (
         torch.clamp_max(py, height - 1) * width + torch.clamp_max(px, width - 1)
     ).to(torch.int32).reshape(1, r)
-    sample0 = torch.where(valid, 0, 2**30).to(torch.int32).reshape(1, r)
+    sample0 = torch.where(valid, sample_start, 2**30).to(torch.int32).reshape(1, r)
     p = torch.arange(width * height, dtype=torch.int64, device=dev)
     ppx, ppy = p % width, p // width
     lane_of = ((ppy // bh) * gx + ppx // bw) * mk.TILE + (ppy % bh) * bw + ppx % bw
@@ -605,9 +610,12 @@ def trace_persistent_mega(
     perm=None,
     sphere_nodes=None,
     sphere_meta=None,
+    sample_start: int = 0,
 ) -> torch.Tensor:
     """Whole render in one megakernel call -> per-pixel radiance SUM
-    (width*height, 3) over samples 0..spp-1.
+    (width*height, 3) over samples ``sample_start``..spp-1 (a chunk of a
+    render with progress; its sums add the chunks' in another float32
+    order than one call).
 
     ``perm`` (N_pad,) int32 with ``sphere_nodes`` (K, 16) float32 and
     ``sphere_meta`` (3 * (K + 16),) int32 are ``mk.swept_tables``' outputs
@@ -623,7 +631,7 @@ def trace_persistent_mega(
     if (perm is None) != (sphere_nodes is None) or (sphere_nodes is None) != (
             sphere_meta is None):
         raise ValueError("perm, sphere_nodes and sphere_meta go together")
-    inputs, lane_of = mega_inputs(sd, cp, width, height, spp, max_depth, seed)
+    inputs, lane_of = mega_inputs(sd, cp, width, height, spp, max_depth, seed, sample_start)
     if perm is not None:
         inputs["table"] = permute_table(inputs["table"], perm)
         inputs.update(swept_nodes=sphere_nodes, swept_meta=sphere_meta)
@@ -695,17 +703,19 @@ def trace_persistent(
     max_depth: int,
     seed,
     lanes: int = 0,
+    sample_start: int = 0,
 ) -> torch.Tensor:
     """Persistent-wavefront path tracer with lane-local sample regeneration
     (the ``pixel`` schedule) -> per-pixel radiance SUM (width*height, 3)
-    over samples 0..spp-1.
+    over samples ``sample_start``..spp-1.
 
     Every lane is bound to one pixel and walks that pixel's samples in
     turn: when its path dies (sky, absorption, depth) it starts the pixel's
     next sample, so each lane accumulates privately and the framebuffer is
     the accumulator. ``lanes`` is a TARGET lane count: the pixel grid is
-    replicated into G = ceil(lanes / pixels) sample groups (at most spp);
-    lane (g, p) traces pixel p's samples g, g+G, ... and the groups reduce
+    replicated into G = ceil(lanes / pixels) sample groups (at most the
+    samples to trace); lane (g, p) traces pixel p's samples sample_start +
+    g, sample_start + g + G, ... and the groups reduce
     with one reshape-sum at the end. Pixels are padded to a multiple of 512
     lanes; padding lanes start exhausted. Because every random number is a
     hash of (pixel, sample, bounce), the image is that of :func:`trace` over
@@ -714,8 +724,11 @@ def trace_persistent(
     Each step runs the fused bounce (K9) where :func:`fused_supported`
     holds, else :func:`bounce_step` (K10).
     """
+    if not 0 <= sample_start < spp:
+        raise ValueError(f"sample_start {sample_start} must lie in [0, spp = {spp})")
     num_pixels = width * height
-    groups = min(int(spp), max(1, (max(lanes, 1) + num_pixels - 1) // num_pixels))
+    groups = min(int(spp) - sample_start,
+                 max(1, (max(lanes, 1) + num_pixels - 1) // num_pixels))
     p_pad = ((num_pixels + 511) // 512) * 512
     r = groups * p_pad
     dev = sd.sph_center.device
@@ -723,7 +736,7 @@ def trace_persistent(
     lane = torch.arange(r, dtype=torch.int64, device=dev)
     pix = torch.clamp_max(lane % p_pad, num_pixels - 1)
     pad = (lane % p_pad) >= num_pixels
-    sample_i = torch.where(pad, int(spp), lane // p_pad)
+    sample_i = torch.where(pad, int(spp), sample_start + lane // p_pad)
     alive = torch.zeros((r,), dtype=torch.bool, device=dev)
     bounce = torch.zeros((r,), dtype=torch.int64, device=dev)
     o = torch.zeros((r, 3), dtype=torch.float32, device=dev)

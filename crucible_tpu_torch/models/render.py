@@ -19,6 +19,10 @@ which runs one of three schedules:
   eager replay, for image textures and nested checkers, which the
   megakernel's shading does not take.
 
+The JAX package's other render loop, ``mode="tiled"`` (lockstep tiles of
+``rays_per_pass`` rays), is not ported: :func:`render_image_data` takes the
+two parameters for the JAX signature and raises where they ask for tiles.
+
 :func:`render_movie` renders ``ceil(duration * fps)`` frames of a movie
 scene to ``<fname>/artifacts/imageNNN.ppm`` and assembles them with ffmpeg
 where it is installed (:func:`make_mp4`); the frames persist, so
@@ -63,6 +67,30 @@ CULL_MIN_ROWS = 1024
 LANES_CUDA = 1 << 20
 LANES_CPU = 1 << 13
 
+# Sample chunks of a render with progress.
+PROGRESS_CHUNKS = 8
+
+
+def default_lanes(device) -> int:
+    """``LANES_CUDA`` on a card, ``LANES_CPU`` elsewhere."""
+    return LANES_CUDA if torch.device(device).type == "cuda" else LANES_CPU
+
+
+def _reporter(progress):
+    """``progress`` as a callable f(samples_done, samples_total, seconds),
+    or None: True prints ``render s/spp (t s)`` to stderr."""
+    if not progress:
+        return None
+    if callable(progress):
+        return progress
+
+    def report(done, total, dt):
+        sys.stderr.write(f"\r  render {done}/{total} spp ({dt:6.1f}s)"
+                         + ("\n" if done == total else ""))
+        sys.stderr.flush()
+
+    return report
+
 
 def _check_device(sd: SceneData, cp: CameraParams, device) -> None:
     want = torch.device(device)
@@ -101,6 +129,7 @@ def render_image_persistent(
     device="cuda",
     schedule: str = "auto",
     cull: bool | None = None,
+    progress=None,
 ) -> torch.Tensor:
     """Whole-image render in one schedule -> linear radiance (height,
     width, 3) float32 on ``device``.
@@ -133,7 +162,17 @@ def render_image_persistent(
     without its tables, and so does ``cull=False`` above the brute kernel's
     ``mk.MAX_ROWS`` rows (``mk.MAX_ROWS_ANIMATED`` for a moving table).
     Exact-time motion (a keyframe inside the shutter window) raises
-    ``NotImplementedError``."""
+    ``NotImplementedError``.
+
+    ``progress``: None (one dispatch, no host sync), True (``samples`` in
+    about ``PROGRESS_CHUNKS`` chunks, ``render s/spp (t s)`` printed to
+    stderr after each) or a callable ``f(samples_done, samples_total,
+    seconds)`` called after each chunk. Each chunk of 'mega' and 'pixel'
+    is one dispatch of samples [s0, s1) (on 'mega' one kernel launch) and
+    each report synchronizes; the chunks' sums add the same samples in
+    another float32 order than one dispatch. 'record' reports after each of
+    its own record chunks. A failed dispatch raises: nothing falls back to
+    another schedule."""
     _check_device(sd, cp, device)
     if sd.motion_exact or cp.motion_exact:
         raise NotImplementedError(integrator.EXACT_MOTION)
@@ -151,15 +190,19 @@ def render_image_persistent(
         )
     if schedule == "auto":
         schedule = auto_schedule(sd, cp, device)
+    report = _reporter(progress)
     if schedule == "record":
-        fb = replay_mod.render_record_replay(sd, cp, width, height, samples, max_depth, seed)
+        fb = replay_mod.render_record_replay(sd, cp, width, height, samples, max_depth, seed,
+                                             progress=report)
         return fb.reshape(height, width, 3) / samples
     if schedule == "pixel":
-        lanes = LANES_CUDA if torch.device(device).type == "cuda" else LANES_CPU
-        fb = integrator.trace_persistent(
-            sd, cp, width, height, samples, max_depth, seed, lanes=lanes
-        )
-        return fb.reshape(height, width, 3) / samples
+        lanes = default_lanes(device)
+
+        def dispatch(s0, s1):
+            return integrator.trace_persistent(sd, cp, width, height, s1, max_depth, seed,
+                                               lanes=lanes, sample_start=s0)
+
+        return _chunked(dispatch, samples, report).reshape(height, width, 3) / samples
     if schedule != "mega":
         raise NotImplementedError(
             f"the {schedule!r} schedule is not ported to crucible_tpu_torch yet"
@@ -187,10 +230,31 @@ def render_image_persistent(
                 f"makes for a static scene above {CULL_MIN_ROWS} rows with an active sphere"
             )
         struct = dict(zip(("perm", "sphere_nodes", "sphere_meta"), tree))
-    fb = integrator.trace_persistent_mega(
-        sd, cp, width, height, samples, max_depth, seed, **struct
-    )
-    return fb.reshape(height, width, 3) / samples
+
+    def dispatch(s0, s1):
+        return integrator.trace_persistent_mega(sd, cp, width, height, s1, max_depth, seed,
+                                                sample_start=s0, **struct)
+
+    return _chunked(dispatch, samples, report).reshape(height, width, 3) / samples
+
+
+def _chunked(dispatch, samples: int, report) -> torch.Tensor:
+    """``dispatch(0, samples)`` without ``report``; with it, the sum of
+    ``dispatch(s0, s1)`` over about ``PROGRESS_CHUNKS`` chunks, each
+    synchronized and reported."""
+    if report is None:
+        return dispatch(0, samples)
+    chunk = max(1, math.ceil(samples / PROGRESS_CHUNKS))
+    t0 = time.time()
+    fb = None
+    for s0 in range(0, samples, chunk):
+        s1 = min(samples, s0 + chunk)
+        out = dispatch(s0, s1)
+        fb = out if fb is None else fb + out
+        if fb.is_cuda:
+            torch.cuda.synchronize(fb.device)
+        report(s1, samples, time.time() - t0)
+    return fb
 
 
 def render_image_data(
@@ -201,13 +265,32 @@ def render_image_data(
     samples: int,
     max_depth: int,
     seed: int,
+    rays_per_pass: int | None = None,
+    verbose: bool = False,
+    mode: str = "auto",
     *,
     device="cuda",
 ) -> torch.Tensor:
-    """Render driver -> linear radiance (height, width, 3) on ``device``."""
-    return render_image_persistent(
-        sd, cp, width, height, samples, max_depth, seed, device=device
-    )
+    """Whole-image render -> linear radiance (height, width, 3) on ``device``:
+    :func:`render_image_persistent` in its 'auto' schedule, ``verbose``
+    meaning ``progress=True``.
+
+    ``mode`` and ``rays_per_pass`` are the JAX signature's. ``mode`` is
+    'persistent' or 'auto', which is 'persistent' on every device (the JAX
+    package takes its lockstep tiles off an accelerator; the two loops sum
+    the same samples through other float32 arithmetic, so they agree only
+    statistically, ROADMAP C6). The tiles are not ported: ``mode="tiled"``
+    and a ``rays_per_pass`` (the tiles' size) raise ``NotImplementedError``,
+    any other mode ``ValueError``."""
+    if mode == "tiled" or rays_per_pass is not None:
+        raise NotImplementedError(
+            "crucible_tpu_torch renders the persistent schedules only: the lockstep "
+            "tiles (mode='tiled', rays_per_pass) are not ported"
+        )
+    if mode not in ("auto", "persistent"):
+        raise ValueError(f"unknown render mode {mode!r} (persistent or auto)")
+    return render_image_persistent(sd, cp, width, height, samples, max_depth, seed,
+                                   device=device, progress=True if verbose else None)
 
 
 def render_image(
@@ -215,11 +298,15 @@ def render_image(
     samples: int | None = None,
     max_depth: int | None = None,
     seed: int | None = None,
+    rays_per_pass: int | None = None,
+    verbose: bool = False,
+    mode: str = "auto",
     *,
     device="cuda",
 ) -> torch.Tensor:
     """Render the scene's camera view -> linear radiance (H, W, 3) float32
-    on ``device``."""
+    on ``device`` (:func:`render_image_data`, which takes ``mode`` and
+    ``rays_per_pass`` as the JAX signature does and raises for tiles)."""
     sd = scene.build(device=device)
     cam = scene.scene_cam
     return render_image_data(
@@ -230,6 +317,9 @@ def render_image(
         samples if samples is not None else cam.samples,
         max_depth if max_depth is not None else cam.max_depth,
         seed if seed is not None else scene.seed,
+        rays_per_pass,
+        verbose=verbose,
+        mode=mode,
         device=device,
     )
 
@@ -239,10 +329,13 @@ def to_u8(img_linear: torch.Tensor) -> np.ndarray:
     return color_mod.to_bytes(torch.as_tensor(img_linear)).cpu().numpy()
 
 
-def render_image_to_file(scene: Scene, fname: str, *, device="cuda") -> torch.Tensor:
-    """Render and write ``fname`` (``.ppm`` as P3 text, another extension as
-    PNG; a bare name gets ``.ppm``). Returns the linear image."""
-    img = render_image(scene, device=device)
+def render_image_to_file(scene: Scene, fname: str, verbose: bool = True, *,
+                         device="cuda") -> torch.Tensor:
+    """Render and write ``fname`` (``.ppm`` as P3 text, another extension
+    through PIL by its suffix; a bare name gets ``.ppm``), printing the
+    render's progress to stderr with ``verbose``. Returns the linear
+    image."""
+    img = render_image(scene, verbose=verbose, device=device)
     path = Path(fname)
     if not path.suffix:
         path = path.with_suffix(".ppm")

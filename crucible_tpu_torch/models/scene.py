@@ -716,19 +716,19 @@ class Scene:
         if self._cache is not None and self._cache_key == key:
             return self._cache
 
-        def mid_shutter(tl) -> bool:
-            b = tl.boundary_times()
+        def mid_shutter(timelines) -> bool:
+            """Whether any of ``timelines`` has a boundary strictly inside
+            the window: every boundary time tested at once."""
+            times = [tl.boundary_times() for tl in timelines]
+            b = np.concatenate(times) if times else np.zeros((0,))
             return bool(np.any((b > t_open + 1e-9) & (b < t_close - 1e-9)))
 
         spheres = [e for e in self.elements if isinstance(e, Sphere)]
         tris = [e for e in self.elements if isinstance(e, Triangle)]
-        tri_mid = animated and any(
-            t.timelines is not None and any(mid_shutter(tl) for tl in t.timelines)
-            for t in tris
-        )
-        motion_exact = tri_mid or animated and any(
-            s.timeline is not None and mid_shutter(s.timeline) for s in spheres
-        )
+        tri_mid = animated and mid_shutter(
+            [tl for t in tris if t.timelines is not None for tl in t.timelines])
+        motion_exact = tri_mid or animated and mid_shutter(
+            [s.timeline for s in spheres if s.timeline is not None])
 
         tables = _TableBuilder()
         n = len(spheres)
@@ -873,4 +873,16 @@ class Scene:
         self._cache = sd
         self._cache_key = key
         return sd
+
+    # --- rendering ----------------------------------------------------------
+    def render_scene(self, fname: str, *, device="cuda"):
+        """A movie if a duration is set (``render.render_movie``: frames in
+        ``<fname>/artifacts/``), else one image
+        (``render.render_image_to_file``: ``fname``, ``.ppm`` where it has
+        no suffix), rendered on ``device``."""
+        from crucible_tpu_torch.models import render as render_mod
+
+        if self.duration is not None:
+            return render_mod.render_movie(self, fname, device=device)
+        return render_mod.render_image_to_file(self, fname, device=device)
 

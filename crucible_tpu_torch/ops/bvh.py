@@ -1,7 +1,9 @@
 """Host-side BVH construction into flat, stackless-traversal-ready arrays.
 
-Port of ``crucible_tpu/ops/bvh.py`` (numpy only; the JAX package's C++
-builder gives the same trees). Topology follows the reference builder:
+Port of ``crucible_tpu/ops/bvh.py``. :func:`build_bvh` runs the port's C++
+builder (:mod:`crucible_tpu_torch.native`) by default; its Python builder,
+here, is the plain version, and both give the same trees bit for bit.
+Topology follows the reference builder:
 recursive top-down, median split of the span sorted by bbox-min along the
 longest axis (``method="median"``) or a binned surface-area-heuristic split
 (``method="sah"``). Nodes are emitted in DFS order with *skip links*:
@@ -109,14 +111,24 @@ def build_bvh(
     bb_max: np.ndarray,
     leaf_size: int = 4,
     method: str = "median",
+    use_native: bool = True,
 ) -> FlatBVH:
     """Build a flat BVH over M primitive AABBs (``bb_min``, ``bb_max``
     (M, 3)), at most ``leaf_size`` primitives a leaf, split by ``method``:
-    "median" (the reference's sort + median-count split) or "sah"."""
+    "median" (the reference's sort + median-count split) or "sah".
+
+    ``use_native`` builds it with the C++ builder (compiled with g++ at
+    first use; a missing compiler or a failed build raises), ``False`` with
+    the Python builder below; the trees are the same bit for bit."""
     if method not in ("median", "sah"):
         raise ValueError(f"unknown BVH split method {method!r}")
     m = len(bb_min)
-    assert m > 0, "empty BVH"
+    if m == 0:
+        raise ValueError("a BVH needs at least one primitive")
+    if use_native:
+        from crucible_tpu_torch import native
+
+        return FlatBVH(**native.build_bvh(bb_min, bb_max, leaf_size, method))
     bb_min = np.asarray(bb_min, np.float32)
     bb_max = np.asarray(bb_max, np.float32)
     centers = 0.5 * (bb_min + bb_max)
@@ -242,3 +254,24 @@ def reorder_front_to_back(b: FlatBVH, order_dir) -> FlatBVH:
         node_parent=parents,
         perm=np.concatenate(perm_runs).astype(np.int32),
     )
+
+
+def refit_bounds(bvh: FlatBVH, prim_min: np.ndarray, prim_max: np.ndarray):
+    """Node boxes recomputed bottom-up for moved primitives, the topology
+    kept -> (node_min, node_max) (K, 3) float32. ``prim_min`` / ``prim_max``
+    (M, 3) are in the original primitive order; ``perm`` maps leaf slots to
+    them."""
+    k = bvh.num_nodes
+    node_min = np.full((k, 3), np.inf, np.float32)
+    node_max = np.full((k, 3), -np.inf, np.float32)
+    for i in range(k - 1, -1, -1):
+        c = bvh.node_count[i]
+        if c > 0:
+            prims = bvh.perm[bvh.node_first[i]: bvh.node_first[i] + c]
+            node_min[i] = prim_min[prims].min(axis=0)
+            node_max[i] = prim_max[prims].max(axis=0)
+        p = bvh.node_parent[i]
+        if p >= 0:
+            node_min[p] = np.minimum(node_min[p], node_min[i])
+            node_max[p] = np.maximum(node_max[p], node_max[i])
+    return node_min, node_max

@@ -21,6 +21,14 @@ def unit_vector(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
 
 
+def on_hemisphere(u1: torch.Tensor, u2: torch.Tensor, normal: torch.Tensor) -> torch.Tensor:
+    """Uniform direction on the hemisphere around ``normal`` -> (..., 3):
+    :func:`unit_vector`, negated where it points below the surface."""
+    v = unit_vector(u1, u2)
+    flip = torch.sum(v * normal, dim=-1, keepdim=True) < 0.0
+    return torch.where(flip, -v, v)
+
+
 def in_unit_disk(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
     """Uniform point in the unit disk -> (..., 2)."""
     r = torch.sqrt(u1)
