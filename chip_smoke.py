@@ -282,7 +282,24 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
    (8 K1 chunks of its progress; the film against one dispatch) and for
    the default movie (6 frames, K9); ``python -m crucible_tpu_torch.cli``
    in a process of its own.
-25. Prints a JSON line describing each kernel (times at the comparison
+25. A mesh beside a big sphere table (main path 23, :func:`mesh_walk_path`,
+   which says more): sphere_stress n7744 with torus_teapot's torus at
+   1920x1080 32 spp d50 through auto (K5's walk then K7's, one launch) and
+   its 4 spp d8 record, each against K1 + K7 bit for bit and against the
+   plain pair; the same scene at 320x180 on the ``pixel`` schedule against
+   the pair; bouncing stress n1936 with the torus rising through K6's walk
+   then K7 moving's, against K8 + K7 moving.
+26. The staged record (main path 24, :func:`staged_record_path`): book1
+   1920x1080 4 spp d8 through ``replay.trace_record`` (K10 a bounce)
+   against the record megakernel; K10 on its primary rays against its
+   plain version; the gradient step of a 40-triangle fan without a BVH at
+   1024x1024 4 spp d8 ('auto' -> the staged record), and card against CPU.
+27. Sharded renders and gradients (main path 25, :func:`sharded_path`): a
+   process group of one over tcp://127.0.0.1 with ``nccl``; book1
+   1920x1080 32 spp d50 as 1 band and as 4 bands on cuda:0 against one
+   dispatch, bit for bit, K1's launches counted; ``loss_and_grad_sharded``
+   over 4 shards against one call.
+28. Prints a JSON line describing each kernel (times at the comparison
    shape, where kernel and twin run the same inputs in full; K5's, K6's
    and others' also at their main shape), the card's line again, and, as
    the last line, ``{"ok": true, "device": {...}}``.
@@ -412,10 +429,11 @@ def bounce(sc, prefixes):
     return sc
 
 
-def fan(scene, width: int):
+def fan(scene, width: int, count: int = 80):
     """The 80-triangle fan over a ground sphere of the JAX package's
     tests/test_integrator.py:320-361, through ``scene`` (the port's
-    models.scene). tests/torch_mesh_scenes.py builds the same scene."""
+    models.scene); ``count``: its first triangles only (40: a mesh without
+    a BVH). tests/torch_mesh_scenes.py builds the same scene."""
     sc = scene.Scene.new_image(1.0, width)
     cam = sc.scene_cam
     cam.look_from((0.0, 1.5, 4.0))
@@ -425,7 +443,7 @@ def fan(scene, width: int):
         scene.Sphere((0.0, -100.0, 0.0), 100.0, scene.Lambertian.from_color((0.6, 0.6, 0.2))),
         "ground",
     )
-    for i in range(80):
+    for i in range(count):
         a0, a1 = 2 * math.pi * i / 80, 2 * math.pi * (i + 1) / 80
         sc.add_element(scene.Triangle(
             (0.8 * math.cos(a0), 0.3 + 0.1 * math.sin(5 * a0), 0.8 * math.sin(a0)),
@@ -454,6 +472,19 @@ def torus_teapot(scene, width: int, movie: bool = False):
     cam.set_defocus_angle(0.6)
     cam.set_focus_dist(10.0)
 
+    add_torus(scene, sc)
+    checker = scene.CheckerTexture.from_colors(0.32, (0.2, 0.3, 0.1), (0.9, 0.9, 0.9))
+    sc.add_element(
+        scene.Sphere((0.0, -1000.0, 0.0), 1000.0, scene.Lambertian.from_texture(checker)),
+        "ground",
+    )
+    return sc
+
+
+def add_torus(scene, sc):
+    """Add torus_teapot's torus to ``sc``: 6,320 metal triangles
+    ``tri0``.. (axis vertical, centred at (0, 0.61, 0), major radius 1.5,
+    minor radius 0.6, 79 x 40 quads of two triangles); returns ``sc``."""
     def point(i, j):
         th, ph = 2 * math.pi * i / 79, 2 * math.pi * j / 40
         rr = 1.5 + 0.6 * math.cos(ph)
@@ -467,11 +498,21 @@ def torus_teapot(scene, width: int, movie: bool = False):
             for tri in ((a, b, c), (a, c, d)):
                 sc.add_element(scene.Triangle(*tri, metal), f"tri{k}")
                 k += 1
-    checker = scene.CheckerTexture.from_colors(0.32, (0.2, 0.3, 0.1), (0.9, 0.9, 0.9))
-    sc.add_element(
-        scene.Sphere((0.0, -1000.0, 0.0), 1000.0, scene.Lambertian.from_texture(checker)),
-        "ground",
-    )
+    return sc
+
+
+def torus_beside_stress(demo, scene, width: int, copies: int, moving: bool = False):
+    """A mesh beside a big sphere table: ``demo.sphere_stress(width,
+    copies)`` with torus_teapot's torus around book1's glass sphere;
+    ``moving``: bouncing stress with every triangle rising by 0.5 over the
+    first 1/48 s too (linear in frame 0's shutter), a moving mesh beside a
+    moving table. tests/torch_mesh_scenes.py builds the same scenes."""
+    sc = (bouncing_stress(demo, width, copies) if moving
+          else demo.sphere_stress(width=width, copies=copies))
+    add_torus(scene, sc)
+    if moving:
+        for k in range(6320):
+            sc.translate_y(0.5, 1.0 / 48.0, "lerp", "local", f"tri{k}")
     return sc
 
 
@@ -1276,6 +1317,525 @@ def cli_path(dev, kernels: dict, mark) -> dict:
         kernels[name]["launches"] += n
         kernels[name]["cli_path_launches"] = n
     cells["launches"] = counts
+    return cells
+
+
+def _launch_counter():
+    """(zero, launched): set every launch count to 0; the counts since, by
+    kernel (megakernel variants by mode, K9, K10, K4, K3)."""
+    from crucible_tpu_torch.ops.kernels import megakernel as mk
+    from crucible_tpu_torch.ops.kernels import replay_kernel as rk
+    from crucible_tpu_torch.ops.kernels import sphere_hit as sh
+    from crucible_tpu_torch.ops.kernels import sphere_shade as ss
+
+    def zero():
+        mk.zero_counts()
+        rk.zero_counts()
+        ss.LAUNCHES = sh.LAUNCHES = 0
+
+    def launched():
+        got = {f"forward_{k}": n for k, n in mk.FORWARD_LAUNCHES.items() if n}
+        got.update({f"record_{k}": n for k, n in mk.RECORD_LAUNCHES.items() if n})
+        got.update({k: n for k, n in (("k9", ss.LAUNCHES), ("k10", sh.LAUNCHES),
+                                      ("k4", rk.LAUNCHES_FORWARD),
+                                      ("k3", rk.LAUNCHES_BACKWARD)) if n})
+        return got
+
+    return zero, launched
+
+
+def images_agree(a, b, what: str) -> dict:
+    """Assert two schedules' images at fault C6's cross-path bounds
+    (isclose(1e-3, 1e-3) on > 0.97 of values, means within 2e-3)."""
+    import torch
+
+    close = torch.isclose(a, b, rtol=1e-3, atol=1e-3).float().mean().item()
+    dmean = abs(a.mean().item() - b.mean().item())
+    print(f"  {what}: isclose {close:.5f}, |mean diff| {dmean:.3g}")
+    if not close > 0.97 or not dmean <= 2e-3:
+        raise AssertionError(f"{what}: the two schedules disagree")
+    return dict(isclose=close, mean_diff=dmean)
+
+
+def mesh_walk_path(dev, kernels: dict, mark) -> dict:
+    """Main path 23, a mesh beside a big sphere table (ROADMAP A11) ->
+    its cells. Adds the pairs' entries to ``kernels``.
+
+    a. sphere_stress n7744 with torus_teapot's 6,320-triangle torus,
+       1920x1080: the forward render through auto (32 spp d50: one launch
+       of K5's walk then K7's, ``walk_tri``) and the record the gradient
+       step takes (4 spp d8, fused radiance: one ``walk_tri`` record
+       launch), counted; then each against K1 + K7 (``cull=False``, and the
+       record of the scene without its tree) bit for bit, and the pair's
+       launches against their plain version (the forward on 8 pixel blocks
+       by sample, the record on N_SUB lanes), timed beside their bound
+       (the plain walks' counted work) and launch shape. The same scene at
+       320x180 8 spp d50 on the ``pixel`` schedule (K10 and the lockstep
+       BVH walk), as auto rendered it before the pair, against the pair at
+       C6's bounds.
+    b. bouncing stress n1936 with the torus rising: the same through K6's
+       swept-tree walk then K7 moving's (``cull_tri``), against K8 + K7
+       moving.
+
+    Any failed check raises."""
+    import torch
+
+    from crucible_tpu_torch.io.image import write_png
+    from crucible_tpu_torch.models import demo, integrator, render, replay
+    from crucible_tpu_torch.models import scene as tscene
+    from crucible_tpu_torch.ops.kernels import megakernel as mk
+
+    zero, launched = _launch_counter()
+    spp, depth, seed, rec_spp, rec_depth = 32, 50, 0, 4, 8
+    (REPO / "build").mkdir(exist_ok=True)
+    w, h = 1920, 1080
+    n_blocks = (w // 32) * math.ceil(h / 16)
+    blocks = torch.randperm(n_blocks, generator=torch.Generator().manual_seed(23))[:8]
+    lanes = (blocks.sort().values[:, None] * mk.TILE + torch.arange(mk.TILE)).reshape(-1).to(dev)
+    sub = torch.randperm(w * h * rec_spp, generator=torch.Generator().manual_seed(24))[:N_SUB]
+    sub = sub.sort().values.to(dev)
+    cells = {}
+
+    def lane_subset(inputs, at):
+        return dict(inputs, pix=inputs["pix"][:, at], sample0=inputs["sample0"][:, at])
+
+    def pair_ops(counts, flags):
+        """The pair's FP32 work from the plain version's counts: the sphere
+        walk's (K5's or K6's rows), the triangle walk's (Woop or moving
+        rows), the camera's."""
+        row = MOVING_DISC_OPS if flags["animated"] else HIT_DISC_OPS
+        leaf = MT_MOVING_OPS if flags["animated"] else WOOP_OPS
+        return (counts["nodes"] * SLAB_OPS + counts["rows"] * row + counts["roots"] * ROOT_OPS
+                + counts["tri_nodes"] * TRI_SLAB_OPS + counts["tri_rows"] * leaf
+                + (counts["issued"] * CAM_OPS if flags["cam_animated"] else 0))
+
+    def plain(fn, walk_counts):
+        """(result, ms, the plain pair's counted work) of one plain call."""
+        mk.SEARCH_COUNTS.update(searches=0, issued=0)
+        walk_counts.update(nodes=0, rows=0, roots=0)
+        mk.TRI_COUNTS.update(nodes=0, rows=0)
+        out, ms = host_ms(fn)
+        return out, ms, dict(mk.SEARCH_COUNTS, **walk_counts,
+                             tri_nodes=mk.TRI_COUNTS["nodes"], tri_rows=mk.TRI_COUNTS["rows"])
+
+    for moving in (False, True):
+        key, brute_key = ("cull_tri", "tri_motion") if moving else ("walk_tri", "tri")
+        name = "K6 + K7 moving" if moving else "K5 + K7"
+        scene_name = "bouncing stress n1936 + the rising torus" if moving else (
+            "sphere_stress n7744 + the torus")
+        mark(f"main path 23{'b' if moving else 'a'}: {name}, {scene_name}, 1920x1080")
+        t0 = time.perf_counter()
+        sc = torus_beside_stress(demo, tscene, w, 4 if moving else 16, moving)
+        sd, cp = sc.build(device=dev), sc.scene_cam.params(device=dev)
+        build_s = time.perf_counter() - t0
+        if not (integrator.megakernel_supported(sd, cp) and sd.use_bvh
+                and sd.sph_swept_nodes is not None and sd.animated == moving):
+            raise AssertionError(f"{scene_name}: not a BVH mesh beside a walked table")
+        flags = dict(animated=bool(sd.animated), cam_animated=bool(cp.animated))
+        p = w * h
+        pix = torch.arange(p, device=dev).repeat(rec_spp)
+        smp = torch.arange(rec_spp, device=dev).repeat_interleave(p)
+
+        # --- the main path: the forward render and the gradient's record --
+        zero()
+        img, fwd_ms = host_ms(lambda: render.render_image_persistent(
+            sd, cp, w, h, spp, depth, seed, device=dev))
+        (rec, rad), rec_ms = host_ms(lambda: replay.trace_record_mega(
+            sd, cp, w, h, pix, smp, seed, rec_depth, radiance=True))
+        got = launched()
+        if got != {f"forward_{key}": 1, f"record_{key}": 1}:
+            raise AssertionError(f"{scene_name}: launches {got}, one {key} a mode expected")
+        if not (torch.isfinite(img).all() and ((rec & mk.F_TRI) > 0).any()):
+            raise AssertionError(f"{scene_name}: a non-finite image or no triangle winner")
+        write_png(REPO / "build" / f"chip_smoke_{key}.png", render.to_u8(img))
+        print(f"{name} on {scene_name} ({sd.sph_center.shape[0]} rows, {sd.num_tris} "
+              f"triangles; built in {build_s:.2f} s): render 32spp d50 {fwd_ms / 1e3:.3f} s, "
+              f"record 4spp d8 {rec_ms:.1f} ms; launches {got}")
+
+        # --- the brute search with the same triangle stage -----------------
+        zero()
+        brute_img, brute_fwd_ms = host_ms(lambda: render.render_image_persistent(
+            sd, cp, w, h, spp, depth, seed, device=dev, cull=False))
+        bsd = replace(sd, sph_perm=None, sph_cbounds=None)
+        (b_rec, b_rad), brute_rec_ms = host_ms(lambda: replay.trace_record_mega(
+            bsd, cp, w, h, pix, smp, seed, rec_depth, radiance=True))
+        brute_got = launched()
+        if brute_got != {f"forward_{brute_key}": 1, f"record_{brute_key}": 1}:
+            raise AssertionError(f"{scene_name}: brute launches {brute_got}")
+        bit_equal(img, brute_img, f"{name} render vs the brute search + K7")
+        bit_equal(rec, b_rec, f"{name} records vs the brute search + K7")
+        bit_equal(rad, b_rad, f"{name} fused radiance vs the brute search + K7")
+        brute_name = "megakernel_tri_moving" if moving else "megakernel_tri"
+        kernels[brute_name]["launches"] += 1
+        kernels[f"{brute_name}_record"]["launches"] += 1
+        del brute_img, b_rec, b_rad
+
+        # --- the pair's launches: timed, shaped, against the plain version --
+        brute, _ = integrator.mega_inputs(sd, cp, w, h, spp, depth, seed)
+        brute.update(zip(("tri_nodes", "tris", "mats", "tri_meta"),
+                         integrator.make_tri_tables(sd)))
+        walk = dict(brute, table=integrator.permute_table(brute["table"], sd.sph_swept_perm),
+                    swept_nodes=sd.sph_swept_nodes, swept_meta=sd.sph_swept_meta)
+        tables = (walk["table"], walk["swept_nodes"], walk["swept_meta"], walk["tri_nodes"],
+                  walk["tris"], walk["mats"], walk["tri_meta"])
+        out = mk.run_megakernel(**walk, **flags)
+        ms = cuda_ms(lambda: mk.run_megakernel(**walk, **flags), 2)
+        brute_ms = cuda_ms(lambda: mk.run_megakernel(**brute, **flags), 1)
+        shape = mk.flat_launch_shape(False, True, walk["table"].shape[0], walk["pix"].shape[1],
+                                     nodes=int(walk["swept_nodes"].shape[0]),
+                                     tri_nodes=int(walk["tri_nodes"].shape[0]), **flags)
+        walk_counts = mk.CULL_COUNTS if moving else mk.WALK_COUNTS
+        ref, plain_ms, counts = plain(lambda: mk.run_megakernel_reference(
+            **lane_subset(walk, lanes), **flags, by_sample=True), walk_counts)
+        err = bit_equal(out[:, lanes], ref, f"{name} 1920x1080 32spp d50 on 8 pixel blocks vs "
+                                             "its plain version")
+        scale = (int((walk["sample0"] < mk.NO_SAMPLE).sum())
+                 / int((walk["sample0"][:, lanes] < mk.NO_SAMPLE).sum()))
+        b, by = bound(pair_ops(counts, flags) * scale,
+                      nbytes(*tables) + 5 * 4 * walk["pix"].shape[1])
+        print(f"{name} 1920x1080 32spp d50 {flags}: {ms:.3f} ms (the brute search + K7 "
+              f"{brute_ms:.3f} ms, {brute_ms / ms:.2f}x), plain {plain_ms:.1f} ms on 8 blocks, "
+              f"bound {b:.4f} ms ({by}); shape {shape}; work {counts}, x{scale:.1f}")
+        del out, ref, brute
+
+        rec_in = dict(walk, pix=pix.to(torch.int32)[None], sample0=smp.to(torch.int32)[None])
+        r_acc, r_rec = mk.run_megakernel_record(**rec_in, max_depth=rec_depth, radiance=True,
+                                                **flags)
+        rec_ms_k = cuda_ms(lambda: mk.run_megakernel_record(
+            **rec_in, max_depth=rec_depth, radiance=True, **flags), 3)
+        rec_shape = mk.flat_launch_shape(True, True, rec_in["table"].shape[0], p * rec_spp,
+                                         nodes=int(walk["swept_nodes"].shape[0]),
+                                         tri_nodes=int(walk["tri_nodes"].shape[0]), **flags)
+        bit_equal(r_rec, rec, f"{name} record launch vs the main path's")
+        (ref_acc, ref_rec), rec_plain_ms, rec_counts = plain(
+            lambda: mk.run_megakernel_record_reference(
+                **lane_subset(rec_in, sub), max_depth=rec_depth, radiance=True, **flags),
+            walk_counts)
+        bit_equal(r_rec[:, sub], ref_rec, f"{name} records on {N_SUB} lanes vs plain")
+        rec_err = bit_equal(r_acc[:, sub], ref_acc, f"{name} fused radiance on {N_SUB} lanes "
+                                                    "vs plain")
+        rec_b, rec_by = bound(pair_ops(rec_counts, flags) * (p * rec_spp / N_SUB),
+                              nbytes(*tables, r_rec) + 5 * 4 * p * rec_spp)
+        print(f"{name} record 1920x1080 4spp d8: {rec_ms_k:.3f} ms, plain {rec_plain_ms:.1f} ms "
+              f"on {N_SUB} lanes, bound {rec_b:.4f} ms ({rec_by}); shape {rec_shape}")
+        del rec_in, r_acc, r_rec, rec, rad, walk, tables
+
+        cell = dict(build_s=build_s, render_s=fwd_ms / 1e3, brute_render_s=brute_fwd_ms / 1e3,
+                    record_ms=rec_ms, brute_record_ms=brute_rec_ms, launches=got)
+        if not moving:
+            # The pixel schedule (K10 and the lockstep BVH walk), which auto
+            # took for this scene before the pair, against the pair: 320x180
+            # 8 spp d50 (the pixel schedule's host loop at 1080p 32 spp
+            # would take minutes).
+            small = torus_beside_stress(demo, tscene, 320, 16)
+            ssd, scp = small.build(device=dev), small.scene_cam.params(device=dev)
+            zero()
+            mega, mega_ms = host_ms(lambda: render.render_image_persistent(
+                ssd, scp, 320, 180, 8, depth, seed, device=dev))
+            pix_img, pixel_ms = host_ms(lambda: render.render_image_persistent(
+                ssd, scp, 320, 180, 8, depth, seed, device=dev, schedule="pixel"))
+            small_got = launched()
+            print(f"  320x180 8spp d50: the pair {mega_ms:.1f} ms, pixel {pixel_ms:.1f} ms "
+                  f"({pixel_ms / mega_ms:.1f}x); launches {small_got}")
+            cell["pixel_320"] = dict(images_agree(mega, pix_img, f"{name} vs pixel, 320x180"),
+                                     pair_ms=mega_ms, pixel_ms=pixel_ms)
+            kernels["sphere_hit"]["launches"] += small_got.get("k10", 0)
+            got = dict(got, forward_walk_tri=1 + small_got.get("forward_walk_tri", 0))
+        cells[key] = cell
+        common = dict(source="crucible_tpu_torch/csrc/megakernel.cu", route_of=name)
+        kernels[f"megakernel_{key}"] = dict(
+            common, replaces="crucible_tpu/ops/pallas/megakernel.py:1681",
+            launches=got[f"forward_{key}"], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=b, bound_by=by, shape="1920x1080 32spp d50", brute_ms=brute_ms,
+            plain_checked="8 pixel blocks", launch_shape=shape)
+        kernels[f"megakernel_{key}_record"] = dict(
+            common, replaces="crucible_tpu/ops/pallas/megakernel.py:1828",
+            launches=got[f"record_{key}"], max_abs_err=rec_err, ms=rec_ms_k,
+            plain_ms=rec_plain_ms, bound_ms=rec_b, bound_by=rec_by, shape="1920x1080 4spp d8",
+            plain_checked=f"{N_SUB} lanes", launch_shape=rec_shape)
+    return cells
+
+
+def staged_record_path(dev, kernels: dict, mark) -> dict:
+    """Main path 24, the staged record (ROADMAP A10) -> its cells.
+
+    a. book1 1920x1080 4 spp d8: ``replay.trace_record`` (one K10 launch a
+       bounce, counted) against the record megakernel (one K2 launch) on
+       the same lanes: the essential bits on > 0.99 of entries, ids and
+       flags on > 0.99 of the rows both record as hits (the JAX package's
+       bounds between its two records); each timed. K10 against its plain
+       version on the record's primary rays, bit for bit.
+    b. The gradient step of the fan's first 40 triangles (a mesh without a
+       BVH, which the record megakernel refuses), 1024x1024 4 spp d8:
+       ``grad.loss_and_grad`` records through the staged record ('auto')
+       and replays eagerly; timed, finite; K10 against its plain version
+       on the step's primary rays and one-sphere table, bit for bit; and at 64
+       wide the card's step against the CPU's (loss rel 1e-4, gradients
+       normalized 1e-3).
+
+    Any failed check raises."""
+    import torch
+
+    from crucible_tpu_torch import grad
+    from crucible_tpu_torch.models import demo, integrator, replay
+    from crucible_tpu_torch.models import scene as tscene
+    from crucible_tpu_torch.models.camera import generate_rays
+    from crucible_tpu_torch.ops.kernels import megakernel as mk
+    from crucible_tpu_torch.ops.kernels import sphere_hit as sh
+
+    zero, launched = _launch_counter()
+    seed, spp, depth = 0, 4, 8
+    cells = {}
+
+    def k10_primary(sd, cp, w, h, pix, smp, what):
+        """K10 against its plain version, bit for bit, on the first bounce
+        of a staged record of lanes (pix, smp): their primary rays against
+        the scene's sphere table (its centers, c.c - r*r and active rows)."""
+        o, d, _ = generate_rays(cp, w, h, pix, smp, seed)
+        table = integrator.make_sphere_table(sd)
+        cols = (table[:, 0:3].contiguous(), table[:, 4].contiguous(),
+                table[:, 5].contiguous())
+        got = sh.hit_spheres(o.contiguous(), d.contiguous(), *cols)
+        want = sh.hit_spheres_reference(o.contiguous(), d.contiguous(), *cols)
+        for a, b, name in zip(got, want, ("t", "idx", "hit")):
+            bit_equal(a, b, f"K10 on {what} {o.shape[0]} primary rays against "
+                            f"{table.shape[0]} rows: {name}")
+
+    mark("main path 24a: the staged record against the mega record, book1 1920x1080 4spp d8")
+    sc = demo.book1_end_scene(width=1920)
+    sd, cp = sc.build(device=dev), sc.scene_cam.params(device=dev)
+    p = 1920 * 1080
+    pix = torch.arange(p, device=dev).repeat(spp)
+    smp = torch.arange(spp, device=dev).repeat_interleave(p)
+
+    def staged():
+        o, d, _ = generate_rays(cp, 1920, 1080, pix, smp, seed)
+        return replay.trace_record(sd, o, d, pix, smp, seed, depth)
+
+    zero()
+    rec_s, staged_ms = host_ms(staged)
+    staged_got = launched()
+    zero()
+    rec_m, mega_ms = host_ms(lambda: replay.trace_record_mega(
+        sd, cp, 1920, 1080, pix, smp, seed, depth))
+    mega_got = launched()
+    if set(staged_got) != {"k10"} or not 1 <= staged_got["k10"] <= depth:
+        raise AssertionError(f"staged record launches {staged_got}: K10 a bounce expected")
+    if mega_got != {"record_brute": 1}:
+        raise AssertionError(f"mega record launches {mega_got}")
+    ess = mk.F_ALIVE | mk.F_HIT | mk.F_SCAT
+    ess_same = ((rec_s & ess) == (rec_m & ess)).float().mean().item()
+    hit_both = ((rec_s & rec_m) & mk.F_HIT) > 0
+    ids_same = ((rec_s >> 8)[hit_both] == (rec_m >> 8)[hit_both]).float().mean().item()
+    flags_same = ((rec_s & 255)[hit_both] == (rec_m & 255)[hit_both]).float().mean().item()
+    lanes_same = (rec_s == rec_m).all(dim=0).float().mean().item()
+    print(f"staged record book1 1920x1080 4spp d8: {staged_ms:.1f} ms ({staged_got['k10']} K10 "
+          f"launches), mega record {mega_ms:.1f} ms (K2); essential bits equal on {ess_same:.6f}, "
+          f"ids on {ids_same:.6f} and flags on {flags_same:.6f} of rows both hit, whole lanes "
+          f"on {lanes_same:.6f}")
+    if not (ess_same > 0.99 and ids_same > 0.99 and flags_same > 0.99):
+        raise AssertionError("the staged and the mega records disagree")
+    cells["book1_record"] = dict(staged_ms=staged_ms, mega_ms=mega_ms, ess_equal=ess_same,
+                                 ids_equal=ids_same, flags_equal=flags_same,
+                                 lanes_equal=lanes_same, k10_launches=staged_got["k10"])
+    kernels["sphere_hit"]["launches"] += staged_got["k10"]
+    kernels["megakernel_record"]["launches"] += 1
+    del rec_s, rec_m
+    k10_primary(sd, cp, 1920, 1080, pix, smp, "the staged record's")
+    del pix, smp
+
+    mark("main path 24b: the gradient step of a fan without a BVH, 1024x1024 4spp d8")
+    fan_sc = fan(tscene, 1024, count=40)
+    fsd, fcp = fan_sc.build(device=dev), fan_sc.scene_cam.params(device=dev)
+    if fsd.use_bvh or replay.resolve_record_mode("auto", fsd, fcp) != "staged":
+        raise AssertionError("the 40-triangle fan should have no BVH and record staged")
+    params = grad.extract_params(fsd, fcp)
+    fp = 1024 * 1024
+    args = (torch.zeros((fp, 3), device=dev), torch.arange(fp, device=dev), seed)
+    kw = dict(width=1024, height=1024, spp=spp, max_depth=depth)
+    grad.loss_and_grad(params, fsd, fcp, *args, **kw)  # warm
+    zero()
+    (loss, g), step_ms = host_ms(lambda: grad.loss_and_grad(params, fsd, fcp, *args, **kw))
+    step_got = launched()
+    if set(step_got) != {"k10"} or not torch.isfinite(loss) or not all(
+            torch.isfinite(v).all() for v in grad.leaves(g).values()):
+        raise AssertionError(f"fan step: launches {step_got}, loss {float(loss)}")
+    (loss2, _), step2_ms = host_ms(lambda: grad.loss_and_grad(params, fsd, fcp, *args, **kw))
+    if not torch.equal(loss, loss2):
+        raise AssertionError("fan step: two steps differ")
+    print(f"fan (40 triangles, no BVH) step 1024x1024 4spp d8 (staged record + eager replay): "
+          f"{step_ms:.1f} / {step2_ms:.1f} ms, loss {float(loss):.6f}; launches {step_got}")
+    kernels["sphere_hit"]["launches"] += step_got["k10"]
+    # K10 at the step's first bounce, on the table of the fan's one sphere
+    # (the staging of a table padded past its active rows).
+    fpix = torch.arange(fp, device=dev).repeat(spp)
+    k10_primary(fsd, fcp, 1024, 1024, fpix, torch.arange(spp, device=dev).repeat_interleave(fp),
+                "the fan step's")
+    del fpix
+    # The card against the CPU at 64 wide.
+    small = fan(tscene, 64, count=40)
+    sides = []
+    for where in (dev, torch.device("cpu")):
+        ssd, scp = small.build(device=where), small.scene_cam.params(device=where)
+        sp = 64 * 64
+        sides.append(grad.loss_and_grad(
+            grad.extract_params(ssd, scp), ssd, scp, torch.zeros((sp, 3), device=where),
+            torch.arange(sp, device=where), seed, width=64, height=64, spp=2, max_depth=depth))
+    (cl, cg), (hl, hg) = sides
+    rel = abs(float(cl) - float(hl)) / abs(float(hl))
+    worst = 0.0
+    for key in ("tex_color", "mat_emission", "mat_fuzz"):
+        scale = max(float(hg[key].abs().max()), 1e-6)
+        worst = max(worst, float((cg[key].cpu() - hg[key]).abs().max()) / scale)
+    print(f"fan step 64x64 2spp d8, card vs CPU: loss rel {rel:.3g}, radiometric gradients "
+          f"normalized {worst:.3g}")
+    if not (rel <= 1e-4 and worst <= 1e-3):
+        raise AssertionError("fan step: card and CPU disagree")
+    cells["fan_step"] = dict(ms=step_ms, ms_again=step2_ms, loss=float(loss),
+                             card_vs_cpu_loss_rel=rel, card_vs_cpu_grad=worst,
+                             k10_launches=step_got["k10"])
+    return cells
+
+
+def sharded_path(dev, kernels: dict, mark) -> dict:
+    """Main path 25, sharded renders and gradients (ROADMAP A9) -> its
+    cells, in a process group of one over tcp://127.0.0.1 with ``nccl``.
+
+    book1 1920x1080 32 spp d50 through ``render_image_sharded_mega``: the
+    default mesh (one position: this process's card) and four bands on
+    cuda:0, against one dispatch of ``render_image_persistent``, each bit
+    for bit; every call is made twice (a warm call and a timed one; the
+    first sharded call also builds the scene on the card and sets up
+    nccl), and each call's K1 launches are counted from 0 and held to one
+    a band. Then ``loss_and_grad_sharded`` over four pixel shards of book1
+    320x180 4 spp d8 (one K2 and one K3 launch a shard, counted; the sums
+    ``all_reduce``d) against one ``loss_and_grad``: loss rel 1e-5,
+    radiometric gradients normalized 1e-4 (the shards' sums add in another
+    order); and shard 0's K2 (records and fused radiance, bit for bit) and
+    K3 (``k3_scheme``) against their plain versions on that shard's lanes,
+    records and loss cotangent. Any failed check raises; the group is
+    destroyed."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from crucible_tpu_torch import grad
+    from crucible_tpu_torch.models import demo, integrator, render
+    from crucible_tpu_torch.models.camera import generate_rays
+    from crucible_tpu_torch.ops.kernels import megakernel as mk
+    from crucible_tpu_torch.ops.kernels import replay_kernel as rk
+    from crucible_tpu_torch.parallel import mesh as pmesh
+    from crucible_tpu_torch.parallel import render as prender
+
+    zero, launched = _launch_counter()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0)
+    cells = {}
+    try:
+        mark("main path 25a: book1 1920x1080 32spp d50 in bands (nccl, a world of one)")
+        sc = demo.book1_end_scene(width=1920)
+        sd, cp = sc.build(device=dev), sc.scene_cam.params(device=dev)
+        k1 = 0
+
+        def counted(label, fn, want):
+            """(out, ms) of ``fn``, its K1 launches counted from 0 and held
+            to ``want``; adds them to the path's K1 count."""
+            nonlocal k1
+            zero()
+            out, ms = host_ms(fn)
+            got = launched()
+            if got != {"forward_brute": want}:
+                raise AssertionError(f"{label}: launches {got}, {want} K1 expected")
+            k1 += want
+            return out, ms
+
+        def one_dispatch():
+            return render.render_image_persistent(sd, cp, 1920, 1080, 32, 50, sc.seed,
+                                                  device=dev)
+
+        counted("one dispatch (warm)", one_dispatch, 1)
+        one, one_ms = counted("one dispatch", one_dispatch, 1)
+        mesh1 = pmesh.make_mesh()
+        if not (mesh1.group and mesh1.size == 1 and mesh1.device(0) == dev):
+            raise AssertionError(f"the default mesh of a world of one: {mesh1}")
+        mesh4 = pmesh.make_mesh(devices=[dev] * 4)
+        runs = {}
+        for label, mesh in (("1 band", mesh1), ("4 bands", mesh4)):
+            def bands(mesh=mesh):
+                return prender.render_image_sharded_mega(sc, mesh, samples=32, max_depth=50)
+
+            img, first_ms = counted(label, bands, mesh.size)
+            # Timed again warm: the first call also builds the scene on the
+            # device and, for the first all_gather, sets up nccl.
+            again, ms = counted(f"{label} (warm)", bands, mesh.size)
+            bit_equal(img, one, f"book1 {label} vs one dispatch")
+            bit_equal(again, img, f"book1 {label}, warm call vs first")
+            runs[label] = (ms, first_ms)
+            del img, again
+        print(f"book1 1920x1080 32spp d50: one dispatch {one_ms:.1f} ms, 1 band "
+              f"{runs['1 band'][0]:.1f} ms (first call {runs['1 band'][1]:.1f} ms), 4 bands "
+              f"{runs['4 bands'][0]:.1f} ms (first call {runs['4 bands'][1]:.1f} ms); one K1 "
+              f"launch a band, all_gather over nccl; {k1} K1 launches counted")
+        cells["bands"] = dict(one_dispatch_ms=one_ms, one_band_ms=runs["1 band"][0],
+                              four_bands_ms=runs["4 bands"][0],
+                              one_band_first_ms=runs["1 band"][1],
+                              four_bands_first_ms=runs["4 bands"][1], k1_launches=k1)
+        del runs, one
+
+        mark("main path 25b: loss_and_grad_sharded, book1 320x180 4spp d8, 4 shards")
+        small = demo.book1_end_scene(width=320)
+        ssd, scp = small.build(device=dev), small.scene_cam.params(device=dev)
+        sp = 320 * 180
+        params = grad.extract_params(ssd, scp)
+        args = (torch.zeros((sp, 3), device=dev), torch.arange(sp, device=dev), 0)
+        kw = dict(width=320, height=180, spp=4, max_depth=8)
+        want_l, want_g = grad.loss_and_grad(params, ssd, scp, *args, **kw)
+        zero()
+        (got_l, got_g), shard_ms = host_ms(lambda: prender.loss_and_grad_sharded(
+            params, ssd, scp, *args, mesh=mesh4, **kw))
+        shard_got = launched()
+        if shard_got != {"record_brute": 4, "k3": 4}:
+            raise AssertionError(f"sharded gradient launches {shard_got}")
+        rel = abs(float(got_l) - float(want_l)) / abs(float(want_l))
+        worst = 0.0
+        for key in ("tex_color", "mat_emission", "mat_fuzz"):
+            scale = max(float(want_g[key].abs().max()), 1e-6)
+            worst = max(worst, float((got_g[key] - want_g[key]).abs().max()) / scale)
+        print(f"loss_and_grad_sharded 4 shards vs one call: {shard_ms:.1f} ms, loss rel "
+              f"{rel:.3g}, radiometric gradients normalized {worst:.3g}; launches {shard_got}")
+        if not (rel <= 1e-5 and worst <= 1e-4):
+            raise AssertionError("the sharded gradient and one call disagree")
+        # Shard 0's K2 and K3 against their plain versions on its inputs:
+        # its 57,600 lanes, its records and the cotangent of its loss.
+        lo, hi = pmesh.ray_sharding(mesh4, sp)[0]
+        pl, sl = (x.to(torch.int32) for x in grad._lanes(torch.arange(lo, hi, device=dev), 4, 0))
+        k2 = dict(smem=torch.tensor([0, 0, 320, 8, 0, 0, 0, 0], dtype=torch.int32, device=dev),
+                  pix=pl[None], sample0=sl[None], cam=integrator.mega_cam_vector(scp, 320, 180),
+                  table=integrator.make_sphere_table(ssd).contiguous())
+        acc, rec = mk.run_megakernel_record(**k2, max_depth=8, radiance=True)
+        ref_acc, ref_rec = mk.run_megakernel_record_reference(**k2, max_depth=8, radiance=True)
+        what = f"shard 0 ({pl.shape[0]} lanes) of book1 320x180 4spp d8"
+        bit_equal(rec, ref_rec, f"K2 records on {what} vs plain")
+        k2_err = bit_equal(acc, ref_acc, f"K2 fused radiance on {what} vs plain")
+        o, d, _ = generate_rays(scp, 320, 180, pl, sl, 0)
+        img = acc.t().reshape(4, hi - lo, 3).mean(dim=0)
+        g_rad = (2 * img / img.numel()).repeat(4, 1) / 4  # d loss / d radiance
+        rargs = (k2["table"], o.contiguous(), d.contiguous(), torch.ones_like(pl), pl, sl, rec, 0)
+        k3_err = k3_scheme(rk.replay_backward(*rargs, g_rad),
+                           rk.replay_backward_reference(*rargs, g_rad), f"K3 on {what}")
+        cells["gradient"] = dict(ms=shard_ms, loss_rel=rel, grad_normalized=worst,
+                                 shard_k2_err=k2_err, shard_k3_err=k3_err)
+        del k2, acc, rec, ref_acc, ref_rec, o, d, rargs
+    finally:
+        dist.destroy_process_group()
+    kernels["megakernel_forward"]["launches"] += k1
+    kernels["megakernel_forward"]["sharded_path_launches"] = k1
+    kernels["megakernel_record"]["launches"] += shard_got["record_brute"]
+    kernels["replay_backward"]["launches"] += shard_got["k3"]
     return cells
 
 
@@ -4369,6 +4929,15 @@ def main() -> None:
 
     # --- main path 22: the command line ------------------------------------------
     print("cli cells: " + json.dumps(cli_path(dev, kernels, mark)))
+
+    # --- main path 23: a mesh beside a big sphere table ----------------------------
+    print("mesh walk cells: " + json.dumps(mesh_walk_path(dev, kernels, mark)))
+
+    # --- main path 24: the staged record -------------------------------------------
+    print("staged record cells: " + json.dumps(staged_record_path(dev, kernels, mark)))
+
+    # --- main path 25: sharded renders and gradients ---------------------------------
+    print("sharded cells: " + json.dumps(sharded_path(dev, kernels, mark)))
 
     print("gradient cells: " + json.dumps(grad_cells))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check")

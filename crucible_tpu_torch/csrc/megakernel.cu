@@ -24,8 +24,8 @@
 // megakernel.py:618-803, computes) or a moving table's swept tree (K6, what
 // the chunk-cull branch, megakernel.py:831-960, computes); a walk's record
 // words de-permute the winner through table column 31. A mesh adds the
-// triangle stage after the brute sphere search (K7, megakernel.py from
-// l.962). The record flags only add the decision words; the camera
+// triangle stage after the sphere search, the brute one or a walk (K7,
+// megakernel.py from l.962). The record flags only add the decision words; the camera
 // (primary_ray) and the shading (shade_bounce) are shared by all.
 //
 // K8, the motion variants (both modes; megakernel.py l.509-555, 588-616
@@ -43,8 +43,8 @@
 //   (cam slots 9-11 / 19-21 plus w times the deltas in 22-27) and rebuilds
 //   the basis, pixel00, du and dv with true divisions and the 1e-12 floor,
 //   operation for operation as camera.generate_rays does.
-// Every search (brute, K5's tree, K6's tree, the brute search beside a mesh)
-// takes either flag and both, in both modes, fused or not. K5's tree holds
+// Every search (brute, K5's tree, K6's tree, each with or without a mesh
+// after it) takes either flag and both, in both modes, fused or not. K5's tree holds
 // the spheres at one time: a moving table walks K6's swept tree, whose
 // boxes hold them over the whole shutter.
 //
@@ -103,8 +103,10 @@
 //   original ids.
 // - K7 (TRI; megakernel.py from l.962: the Woop leaf test l.1079-1140, the
 //   winner's normal and material l.1286-1299, 1318-1321, the record flags
-//   l.1472-1490) walks the mesh's triangle BVH after the brute sphere
-//   search, over its DFS skip links as the TPU kernel's walk and the plain
+//   l.1472-1490) walks the mesh's triangle BVH after the sphere search
+//   (the brute one, or K5's / K6's walk: a mesh beside a big table, where
+//   each walk keeps its own state: the sphere walk its stack, the
+//   triangle walk its skip links), over its DFS skip links as the TPU kernel's walk and the plain
 //   version do (tri_closest), from the sphere stage's t: the slab test in
 //   the Pallas kernel's arithmetic (no margin: the JAX package grows no
 //   triangle box), at a leaf the Woop unit-triangle test on its rows
@@ -819,7 +821,8 @@ struct Flat {
 
 // K1 (forward: RECORD false, RADIANCE true), K2 (record, fused or not), K8
 // (ANIMATED, CAM_ANIMATED), K5 and K6 (TREE, without and with ANIMATED) and
-// K7 (TRI; K7 moving with ANIMATED) in one flat loop over persistent lanes
+// K7 (TRI; K7 moving with ANIMATED; after the brute search, or after K5's /
+// K6's walk with TREE) in one flat loop over persistent lanes
 // (see the note at the top): each iteration, a lane with no path in flight
 // starts its item's next sample, then every lane with a path runs one
 // search and one bounce's shading. Items are handed out by the work counter
@@ -835,7 +838,6 @@ __global__ void __launch_bounds__(TREE || TRI ? TREE_BLOCK : BRUTE_BLOCK) flat_k
     const int32_t* __restrict__ sample0, const float* __restrict__ cam,
     const float* __restrict__ table, const Flat f, int n, int r, float t_min,
     float* __restrict__ out, int32_t* __restrict__ rec) {
-  static_assert(!(TREE && TRI), "the triangle stage runs beside the brute sphere search");
   constexpr int NT = TREE || TRI ? TREE_BLOCK : BRUTE_BLOCK;
   extern __shared__ float4 sh4[];
   // The brute search's live rows, padded to a multiple of 4 with NaN
@@ -1004,7 +1006,7 @@ struct FlatFlags {
 };
 
 // Call fn(FlatFlags<...>{}) with the instantiation for one search (TREE:
-// K5 / K6; TRI: the brute search with K7's stage; neither: the brute
+// K5 / K6; TRI: K7's stage after the sphere search; neither: the brute
 // search) and K8's flags, each of the four combinations.
 template <bool TREE, bool TRI, class F>
 int flags_dispatch(int animated, int cam_animated, F&& fn) {
@@ -1015,12 +1017,12 @@ int flags_dispatch(int animated, int cam_animated, F&& fn) {
 }
 
 // fn with the flat loop's instantiation for a sphere tree (tree: K5, or K6
-// with `animated`), a mesh (tri: K7, K7 moving with `animated`) or neither
-// (K1 / K2, K8 with its flags). cudaErrorInvalidValue for a mesh beside a
-// sphere tree, a combination not instantiated.
+// with `animated`), a mesh (tri: K7, K7 moving with `animated`), both (a
+// mesh beside a sphere tree: K5's walk then K7's, or K6's then K7
+// moving's) or neither (K1 / K2, K8 with its flags).
 template <class F>
 int flat_dispatch(int animated, int cam_animated, bool tree, bool tri, F&& fn) {
-  if (tree && tri) return (int)cudaErrorInvalidValue;
+  if (tree && tri) return flags_dispatch<true, true>(animated, cam_animated, fn);
   if (tree) return flags_dispatch<true, false>(animated, cam_animated, fn);
   if (tri) return flags_dispatch<false, true>(animated, cam_animated, fn);
   return flags_dispatch<false, false>(animated, cam_animated, fn);
@@ -1083,8 +1085,8 @@ cudaError_t flat_shape(int n, const Flat& f, int32_t* shape) {
 
 // flat_shape or launch_flat for the instantiation of one mode (RECORD,
 // RADIANCE) that flat_dispatch picks: K5 / K6 where the launch has a sphere
-// tree (f.k > 0), K7 where it has a triangle tree (f.kt > 0), else the
-// brute search; K8's flags as given.
+// tree (f.k > 0), else the brute search; K7's stage after it where it has a
+// triangle tree (f.kt > 0); K8's flags as given.
 template <bool RECORD, bool RADIANCE>
 int shape_of(int animated, int cam_animated, int n, const Flat& f, int32_t* shape) {
   return flat_dispatch(animated, cam_animated, f.k > 0, f.kt > 0, [&](auto fl) {
@@ -1126,9 +1128,8 @@ extern "C" {
 // nodes of a sphere tree when fk > 0 (K5; K6 with `animated`), else the
 // brute search (K1), with the triangle stage over the KT nodes of a mesh's
 // tree when kt > 0 (K7; K7 moving, whose `tris` are (M, 32) rows, with
-// `animated`); with `animated` or `cam_animated` nonzero, their motion
-// variants (K8). Returns cudaGetLastError(), or cudaErrorInvalidValue for a
-// mesh beside a sphere tree, a combination not instantiated.
+// `animated`) after either sphere search; with `animated` or `cam_animated`
+// nonzero, their motion variants (K8). Returns cudaGetLastError().
 int crucible_megakernel_forward(const int32_t* smem, const int32_t* pix,
                                 const int32_t* sample0, const float* cam,
                                 const float* table, const float* frows, const int32_t* fids,
@@ -1147,8 +1148,7 @@ int crucible_megakernel_forward(const int32_t* smem, const int32_t* pix,
 // Launch the record-mode megakernel: `rec` (depth, R) int32 packed decision
 // words, `depth` = smem[3]; `out` (3, R) the fused radiance when `radiance`
 // is nonzero, else zeros. The variants are the forward's: K2, K5, K6, K8
-// and K7. Returns cudaGetLastError(), or cudaErrorInvalidValue for a mesh
-// beside a sphere tree.
+// and K7 (after the brute search or a tree walk). Returns cudaGetLastError().
 int crucible_megakernel_record(const int32_t* smem, const int32_t* pix,
                                const int32_t* sample0, const float* cam,
                                const float* table, const float* frows, const int32_t* fids,
@@ -1168,14 +1168,13 @@ int crucible_megakernel_record(const int32_t* smem, const int32_t* pix,
                               animated, cam_animated, out, rec, stream);
 }
 
-// The flat loop's launch shape for an N-row table (the brute search), a
-// sphere tree of FK nodes (fk > 0: K5, K6) or a mesh's tree of KT nodes
-// beside the brute search (kt > 0: K7), in one mode (record, radiance: the
-// forward is 0, 1) with K8's flags, into shape[0..5]: resident blocks per
-// SM, SMs, threads per block, registers per thread, local (stack and spill)
-// bytes per thread, dynamic shared memory per block. Lets that
-// instantiation take its dynamic shared memory. Returns a CUDA error
-// (cudaErrorInvalidValue for a combination not instantiated).
+// The flat loop's launch shape for an N-row table (the brute search) or a
+// sphere tree of FK nodes (fk > 0: K5, K6), with a mesh's tree of KT nodes
+// after either (kt > 0: K7), in one mode (record, radiance: the forward is
+// 0, 1) with K8's flags, into shape[0..5]: resident blocks per SM, SMs,
+// threads per block, registers per thread, local (stack and spill) bytes
+// per thread, dynamic shared memory per block. Lets that instantiation take
+// its dynamic shared memory. Returns a CUDA error.
 int crucible_megakernel_flat_shape(int record, int radiance, int animated, int cam_animated,
                                    int n, int fk, int kt, int32_t* shape) {
   const Flat f = make_flat(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,

@@ -158,7 +158,9 @@ def render_pixels_mean(
     (direct reverse mode through the checkpointed bounce loop — the
     semantic reference) or 'auto' (the replay, which takes every scene).
     ``grad_split`` / ``grad_spec`` / ``grad_record_div``: the deep replay's
-    ``split`` / ``spec`` / ``record_div`` (``replay.render_rays_replay``).
+    ``split`` / ``spec`` / ``record_div`` (``replay.render_rays_replay``,
+    whose record pass is the record megakernel where it takes the scene,
+    else the staged record).
     """
     if method not in ("auto", "replay", "ad"):
         raise ValueError(f"unknown method {method!r}")
@@ -202,7 +204,9 @@ def record_decisions(
     sample0: int = 0,
 ) -> torch.Tensor:
     """Packed decision records (max_depth, spp * P) int32 for a pixel
-    batch — the reusable half of frozen-decision training.
+    batch — the reusable half of frozen-decision training. They come from
+    the record megakernel where ``integrator.megakernel_record_supported``
+    holds, else from the staged record (``replay.resolve_record_mode``).
 
     Decisions (winner ids, scatter branches, termination) depend on
     geometry, material scalars and the camera, not on albedo or emission,
@@ -211,9 +215,8 @@ def record_decisions(
     camera moves.
     """
     pix, smp = _lanes(pixel_ids, spp, sample0)
-    return replay_mod.trace_record_mega(
-        sd, cp, width, height, pix, smp, seed, max_depth
-    )
+    mode = replay_mod.resolve_record_mode("auto", sd, cp)
+    return replay_mod.record_pass(mode, sd, cp, width, height, pix, smp, seed, max_depth)
 
 
 def l2_loss(

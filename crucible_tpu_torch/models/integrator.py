@@ -16,7 +16,8 @@ or moving on the linear shutter, and triangle meshes, static or moving:
 - the ``mega`` schedule :func:`trace_persistent_mega` (K1, or K5 walking
   the tree of a big static scene, K6 that of a big moving one; K8, their
   motion variants, for moving spheres or an animated camera; K7, the
-  triangle-BVH stage, for a BVH mesh, K7 moving for a moving one) with its
+  triangle-BVH stage after either search, for a BVH mesh, K7 moving for a
+  moving one) with its
   inputs (the (N, 32) sphere attribute table, permuted into the tree's leaf
   order for a walk; the camera
   vector; a mesh's tables, :func:`make_tri_tables`) and the megakernel
@@ -180,7 +181,9 @@ def bounce_step(sd: SceneData, o, d, pixel_ids, sample_ids, bounce, seed,
     throughput weighting (sky on a miss, emission on a hit); hit,
     scattered (R,) bool; new_o, new_d, atten (R, 3). With
     ``return_decisions`` also decisions (dict of the dielectric's reflect
-    choice and the Lambertian degeneracy), front and i_sph.
+    choice and the Lambertian degeneracy), front, i_sph, and i_tri and
+    is_tri (the winning triangle and whether it won; zeros and False
+    without a mesh).
     """
     w = shutter_fraction(pixel_ids, sample_ids, seed) if sd.animated else None
     h = intersect_scene(sd, o, d, w)
@@ -202,7 +205,9 @@ def bounce_step(sd: SceneData, o, d, pixel_ids, sample_ids, bounce, seed,
                new_d=new_d, atten=atten)
     if return_decisions:
         out.update(decisions=dict(reflect=refl, degenerate=degen),
-                   front=h["front"], i_sph=h["i_sph"])
+                   front=h["front"], i_sph=h["i_sph"],
+                   i_tri=h.get("i_tri", torch.zeros_like(h["i_sph"])),
+                   is_tri=h.get("is_tri", torch.zeros_like(hit)))
     return out
 
 
@@ -384,24 +389,12 @@ def _tri_tables(sd: SceneData, tris):
             tri_meta.contiguous())
 
 
-def brute_beside_mesh(sd: SceneData) -> bool:
-    """Whether a mesh sits beside a moving sphere table that K8's brute
-    search holds (at most ``mk.MAX_ROWS_ANIMATED`` rows). The megakernel
-    then searches the table by brute force, whether the scene carries its
-    chunk-cull tables (``sph_cbounds``, the swept tree) or not: K7 beside
-    K6's swept-tree walk is a template combination not instantiated (ROADMAP
-    A11)."""
-    return (sd.num_tris > 0 and sd.animated and sd.sph_nodes is None
-            and int(sd.sph_center.shape[0]) <= mk.MAX_ROWS_ANIMATED)
-
-
 def _mesh_unsupported_reason(sd: SceneData, cp: CameraParams):
     """None where the megakernel's triangle stage takes the scene's mesh (or
-    there is none), else what it lacks. K7 walks a BVH mesh: a static one
-    beside the brute static sphere search, seen by a static or an animated
-    camera; a moving mesh (every mesh of an animated scene, K7 moving)
-    beside the moving sphere search, seen by either, also where the table
-    has chunk-cull tables but fits the brute search (:func:`brute_beside_mesh`)."""
+    there is none), else what it lacks. K7 walks a BVH mesh after the
+    sphere search, whichever it is (the brute search, K5's tree walk or
+    K6's swept-tree walk): a static mesh, or a moving one (every mesh of an
+    animated scene, K7 moving), seen by a static or an animated camera."""
     if sd.num_tris == 0:
         return None
     checks = (
@@ -411,10 +404,6 @@ def _mesh_unsupported_reason(sd: SceneData, cp: CameraParams):
          "pixel schedule, as in the JAX package)"),
         (not sd.tri_exact, "exact-time motion of a mesh, a keyframe inside the shutter "
                            "(ROADMAP A7)"),
-        (sd.sph_perm is None or brute_beside_mesh(sd),
-         "a triangle mesh beside a big sphere table (K7 beside K5's tree "
-         f"walk, or beside K6's swept-tree walk above {mk.MAX_ROWS_ANIMATED} moving "
-         "rows: template combinations not instantiated, ROADMAP A11)"),
     )
     return next((what for ok, what in checks if not ok), None)
 
@@ -422,7 +411,7 @@ def _mesh_unsupported_reason(sd: SceneData, cp: CameraParams):
 def megakernel_supported(sd: SceneData, cp: CameraParams) -> bool:
     """The port's megakernel renders sphere scenes, static or moving on the
     linear shutter, and BVH meshes, static or moving on the linear shutter
-    (K7 and K7 moving), beside the brute sphere search, with solid /
+    (K7 and K7 moving), beside any sphere table, with solid /
     checker-of-solid textures under the default sky, seen by a static or
     linearly animated camera. :func:`megakernel_unsupported_reason` names
     what is missing."""
@@ -449,7 +438,7 @@ def megakernel_record_supported(sd: SceneData, cp: CameraParams) -> bool:
     walk takes instead (K5); a moving table with the chunk-cull tables
     (``sd.sph_cbounds`` and the swept tree, K6), or without them at most
     ``mk.MAX_ROWS_ANIMATED`` rows for the brute search; and BVH meshes,
-    static or moving, beside the brute sphere table (K7, K7 moving). The
+    static or moving, beside any of these (K7, K7 moving). The
     record's decisions read no albedo or sky, so textures and the sky do
     not limit it."""
     return megakernel_record_unsupported_reason(sd, cp) is None
@@ -551,36 +540,49 @@ def mega_inputs(
     max_depth: int,
     seed: int,
     sample_start: int = 0,
+    row0: int = 0,
+    band_height: int | None = None,
 ):
-    """The megakernel's inputs for a whole-image render of samples
-    ``sample_start``..``spp - 1``, and the un-swizzle.
+    """The megakernel's inputs for a render of samples
+    ``sample_start``..``spp - 1`` of the image rows [row0, row0 +
+    band_height) (the whole image by default), and the un-swizzle.
 
     Returns (inputs, lane_of): ``inputs`` holds ``smem``, ``pix``,
     ``sample0``, ``cam`` and ``table`` for ``megakernel.run_megakernel``;
-    ``lane_of`` (width*height,) maps each pixel to its lane.
+    ``lane_of`` (width*band_height,) maps each pixel of the band, in row
+    order from row0, to its lane.
 
     Lanes are laid out in 32x16 pixel blocks of ``megakernel.TILE`` lanes,
     so that neighbouring lanes trace neighbouring pixels; a lane traces its
     pixel's samples from ``sample0 = sample_start`` to ``smem[0] = spp``,
-    and lanes past the image edge carry ``sample0 = 2**30`` and never issue.
+    and lanes past the band's or the image's edge carry ``sample0 =
+    2**30`` and never issue. ``width`` and ``height`` stay the whole
+    image's: the camera and the pixel ids a band's lanes carry (the random
+    streams' keys) are the whole image's, so a band's pixels are summed as
+    the whole image's are (``parallel.render``).
     """
     if not 0 <= sample_start < spp:
         raise ValueError(f"sample_start {sample_start} must lie in [0, spp = {spp})")
+    if band_height is None:
+        band_height = height
+    if row0 < 0 or band_height < 1:
+        raise ValueError(f"a band needs row0 >= 0 and band_height >= 1, got {row0}, "
+                         f"{band_height}")
     dev = sd.sph_center.device
     bw, bh = 32, mk.TILE // 32
     gx = (width + bw - 1) // bw
-    gy = (height + bh - 1) // bh
+    gy = (band_height + bh - 1) // bh
     r = gx * gy * mk.TILE
     lane = torch.arange(r, dtype=torch.int64, device=dev)
     tile, q = lane // mk.TILE, lane % mk.TILE
     px = (tile % gx) * bw + q % bw
-    py = (tile // gx) * bh + q // bw
-    valid = (px < width) & (py < height)
+    py = (tile // gx) * bh + q // bw + row0  # the image's row
+    valid = (px < width) & (py < row0 + band_height) & (py < height)
     pix = (
         torch.clamp_max(py, height - 1) * width + torch.clamp_max(px, width - 1)
     ).to(torch.int32).reshape(1, r)
     sample0 = torch.where(valid, sample_start, 2**30).to(torch.int32).reshape(1, r)
-    p = torch.arange(width * height, dtype=torch.int64, device=dev)
+    p = torch.arange(width * band_height, dtype=torch.int64, device=dev)
     ppx, ppy = p % width, p // width
     lane_of = ((ppy // bh) * gx + ppx // bw) * mk.TILE + (ppy % bh) * bw + ppx % bw
 
@@ -611,11 +613,16 @@ def trace_persistent_mega(
     sphere_nodes=None,
     sphere_meta=None,
     sample_start: int = 0,
+    row0: int = 0,
+    band_height: int | None = None,
 ) -> torch.Tensor:
     """Whole render in one megakernel call -> per-pixel radiance SUM
     (width*height, 3) over samples ``sample_start``..spp-1 (a chunk of a
     render with progress; its sums add the chunks' in another float32
-    order than one call).
+    order than one call). ``row0`` / ``band_height``: only the rows [row0,
+    row0 + band_height) of the width x height image -> (width*band_height,
+    3), rows past the image's last zero (:func:`mega_inputs`); each sum is
+    the whole image's for that pixel, bit for bit (``parallel.render``).
 
     ``perm`` (N_pad,) int32 with ``sphere_nodes`` (K, 16) float32 and
     ``sphere_meta`` (3 * (K + 16),) int32 are ``mk.swept_tables``' outputs
@@ -631,7 +638,8 @@ def trace_persistent_mega(
     if (perm is None) != (sphere_nodes is None) or (sphere_nodes is None) != (
             sphere_meta is None):
         raise ValueError("perm, sphere_nodes and sphere_meta go together")
-    inputs, lane_of = mega_inputs(sd, cp, width, height, spp, max_depth, seed, sample_start)
+    inputs, lane_of = mega_inputs(sd, cp, width, height, spp, max_depth, seed, sample_start,
+                                  row0, band_height)
     if perm is not None:
         inputs["table"] = permute_table(inputs["table"], perm)
         inputs.update(swept_nodes=sphere_nodes, swept_meta=sphere_meta)

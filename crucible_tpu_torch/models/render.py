@@ -8,8 +8,8 @@ which runs one of three schedules:
   brute search (K1), or above ``CULL_MIN_ROWS`` rows a tree walk (K5),
   or for moving spheres the swept-tree walk (K6); for moving spheres
   or an animated camera their motion variants (K8); for a BVH mesh the
-  triangle stage after the brute search (K7, K7 moving for a moving mesh,
-  either seen by a static or an animated camera);
+  triangle stage after the sphere search, brute or a walk (K7, K7 moving
+  for a moving mesh, either seen by a static or an animated camera);
 - ``pixel``: ``integrator.trace_persistent``, the staged persistent
   wavefront, with the fused hit + fetch kernel (K9) per bounce, or for a
   mesh the staged bounce (K10 for the spheres, ``hit_triangles`` or the
@@ -154,11 +154,9 @@ def render_image_persistent(
     tables (K5: ``sph_perm`` and ``sph_swept_*``) or the swept tree of an
     animated one that carries the chunk-cull tables (K6: ``sph_cbounds``
     and ``sph_swept_*``, boxes that hold the spheres over the shutter). None
-    takes the walk for 'auto' / 'mega' above ``CULL_MIN_ROWS`` rows, except
-    for a moving table beside a mesh that the brute search holds
-    (``integrator.brute_beside_mesh``: K7 beside K6 is not instantiated,
-    and ``cull=True`` there raises). The image is
-    the same bit for bit. A walk raises ``ValueError`` on a scene
+    takes the walk for 'auto' / 'mega' above ``CULL_MIN_ROWS`` rows, a mesh
+    beside the table or not (K7's stage follows either search). The image
+    is the same bit for bit. A walk raises ``ValueError`` on a scene
     without its tables, and so does ``cull=False`` above the brute kernel's
     ``mk.MAX_ROWS`` rows (``mk.MAX_ROWS_ANIMATED`` for a moving table).
     Exact-time motion (a keyframe inside the shutter window) raises
@@ -176,18 +174,6 @@ def render_image_persistent(
     _check_device(sd, cp, device)
     if sd.motion_exact or cp.motion_exact:
         raise NotImplementedError(integrator.EXACT_MOTION)
-    rows = int(sd.sph_center.shape[0])
-    if cull is None:
-        cull = (schedule in ("auto", "mega") and rows > CULL_MIN_ROWS
-                and not integrator.brute_beside_mesh(sd))
-    cap = mk.MAX_ROWS_ANIMATED if sd.animated else mk.MAX_ROWS
-    if not cull and rows > cap and schedule in ("auto", "mega"):
-        raise ValueError(
-            f"the brute megakernel cannot take {rows} "
-            f"{'moving ' if sd.animated else ''}sphere rows (its shared memory "
-            f"holds {cap}); pass cull=True (the "
-            f"{'swept-tree' if sd.animated else 'static tree'} walk) or schedule='pixel'"
-        )
     if schedule == "auto":
         schedule = auto_schedule(sd, cp, device)
     report = _reporter(progress)
@@ -207,35 +193,58 @@ def render_image_persistent(
         raise NotImplementedError(
             f"the {schedule!r} schedule is not ported to crucible_tpu_torch yet"
         )
-    missing = integrator.megakernel_unsupported_reason(sd, cp)
-    if missing is not None:
-        raise NotImplementedError(
-            f"this scene needs {missing}, which crucible_tpu_torch's "
-            f"megakernel does not render yet"
-        )
-    struct = {}
-    if cull:
-        tree = integrator.swept_tree(sd)
-        if tree is None and sd.animated:
-            raise ValueError(
-                "cull=True on an animated scene needs its chunk-cull tables "
-                "(sph_cbounds, and the swept tree whose boxes hold the spheres over "
-                "the shutter), which Scene.build makes for an animated scene above "
-                f"{CULL_MIN_ROWS} rows with an active sphere"
-            )
-        if tree is None:
-            raise ValueError(
-                "cull=True needs the scene's sphere-BVH tables (sph_perm, "
-                "sph_nodes, sph_meta) and its tree (sph_swept_*), which Scene.build "
-                f"makes for a static scene above {CULL_MIN_ROWS} rows with an active sphere"
-            )
-        struct = dict(zip(("perm", "sphere_nodes", "sphere_meta"), tree))
+    struct = mega_walk(sd, cp, cull)
 
     def dispatch(s0, s1):
         return integrator.trace_persistent_mega(sd, cp, width, height, s1, max_depth, seed,
                                                 sample_start=s0, **struct)
 
     return _chunked(dispatch, samples, report).reshape(height, width, 3) / samples
+
+
+def mega_walk(sd: SceneData, cp: CameraParams, cull: bool | None = None) -> dict:
+    """The sphere search of the mega schedule for a scene -> the walk
+    arguments of ``integrator.trace_persistent_mega``: {} for the brute
+    search (K1, K8), else the tree's ``perm``, ``sphere_nodes`` and
+    ``sphere_meta`` (K5, K6). ``cull`` None walks above ``CULL_MIN_ROWS``
+    rows. Raises ``NotImplementedError`` for a scene the megakernel does
+    not render, and ``ValueError`` for a walk without its tables or the
+    brute search above ``mk.MAX_ROWS`` rows (``mk.MAX_ROWS_ANIMATED`` for
+    a moving table)."""
+    rows = int(sd.sph_center.shape[0])
+    if cull is None:
+        cull = rows > CULL_MIN_ROWS
+    cap = mk.MAX_ROWS_ANIMATED if sd.animated else mk.MAX_ROWS
+    if not cull and rows > cap:
+        raise ValueError(
+            f"the brute megakernel cannot take {rows} "
+            f"{'moving ' if sd.animated else ''}sphere rows (its shared memory "
+            f"holds {cap}); pass cull=True (the "
+            f"{'swept-tree' if sd.animated else 'static tree'} walk) or schedule='pixel'"
+        )
+    missing = integrator.megakernel_unsupported_reason(sd, cp)
+    if missing is not None:
+        raise NotImplementedError(
+            f"this scene needs {missing}, which crucible_tpu_torch's "
+            f"megakernel does not render yet"
+        )
+    if not cull:
+        return {}
+    tree = integrator.swept_tree(sd)
+    if tree is None and sd.animated:
+        raise ValueError(
+            "cull=True on an animated scene needs its chunk-cull tables "
+            "(sph_cbounds, and the swept tree whose boxes hold the spheres over "
+            "the shutter), which Scene.build makes for an animated scene above "
+            f"{CULL_MIN_ROWS} rows with an active sphere"
+        )
+    if tree is None:
+        raise ValueError(
+            "cull=True needs the scene's sphere-BVH tables (sph_perm, "
+            "sph_nodes, sph_meta) and its tree (sph_swept_*), which Scene.build "
+            f"makes for a static scene above {CULL_MIN_ROWS} rows with an active sphere"
+        )
+    return dict(zip(("perm", "sphere_nodes", "sphere_meta"), tree))
 
 
 def _chunked(dispatch, samples: int, report) -> torch.Tensor:

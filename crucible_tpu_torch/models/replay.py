@@ -39,10 +39,12 @@ carry no gradient, so the gradient is the replay's detached-sampling
 estimator. :func:`render_record_replay` is the forward ``record`` schedule:
 the record kernel's decisions, shaded by the eager replay, which evaluates
 image textures and checkers nested to any depth (``textures.value``) that
-the megakernel's shading does not take. Not ported yet (each raises
-``NotImplementedError``): the staged record (``trace_record`` over
-``integrator.bounce_step``) and the eager replay's exact-time motion. Not
-ported by design (ROADMAP "Do not port"): the head/tail carry-handoff
+the megakernel's shading does not take. :func:`trace_record` is the staged
+record over ``integrator.bounce_step`` for the scenes the record megakernel
+does not take (a mesh without a BVH; ``record_mode='auto'`` routes there).
+Not ported yet: the exact-time motion of the staged record and of the
+eager replay (each raises ``NotImplementedError``, ROADMAP A7). Not ported
+by design (ROADMAP "Do not port"): the head/tail carry-handoff
 ``replay_split`` and its switch ``CRUCIBLE_GRAD_DEEP_IMPL=split``, which
 raises.
 """
@@ -131,6 +133,98 @@ def _check_eager(sd: SceneData) -> None:
             "not ported to crucible_tpu_torch yet (ROADMAP A7)")
 
 
+def _pack(flags: dict) -> torch.Tensor:
+    """The int32 flag word of named (R,) bools (F_* bits)."""
+    bits = dict(alive=F_ALIVE, hit=F_HIT, tri=F_TRI, scat=F_SCAT, front=F_FRONT,
+                refl=F_REFL, degen=F_DEGEN, root1=F_ROOT1)
+    word = torch.zeros_like(flags["alive"], dtype=torch.int32)
+    for name, b in flags.items():
+        word = word | torch.where(b, bits[name], 0).to(torch.int32)
+    return word
+
+
+def _winner_quadratic(o_c, d_c, c_w, r_w, w=None, c_d=None, r_d=None):
+    """The winning sphere's quadratic along rays (o_c, d_c) -> (c_w, r_w,
+    a, h, disc): its center and radius (at the paths' shutter fractions
+    ``w`` along the deltas ``c_d``, ``r_d`` where given), and the roots
+    t = (h -+ sqrt(disc)) / a. The staged record's root bit and the
+    replay's t both come from here, so that they agree."""
+    if w is not None:
+        c_w = c_w + w[:, None] * c_d
+        r_w = r_w + w * r_d
+    a_q = (d_c * d_c).sum(-1)
+    oc = c_w - o_c
+    h_q = (d_c * oc).sum(-1)
+    c_q = (oc * oc).sum(-1) - r_w * r_w
+    return c_w, r_w, a_q, h_q, h_q * h_q - a_q * c_q
+
+
+def trace_record(
+    sd: SceneData,
+    o: torch.Tensor,
+    d: torch.Tensor,
+    pixel_ids: torch.Tensor,
+    sample_ids: torch.Tensor,
+    seed,
+    max_depth: int,
+) -> torch.Tensor:
+    """The staged record: per-bounce decision words of the paths from rays
+    (o, d) -> packed records (max_depth, R) int32, the layout of
+    :func:`trace_record_mega`, over the staged bounce
+    (``integrator.bounce_step``: K10 for the spheres on the card, the
+    moving sphere search for moving ones, ``hit_triangles`` or the BVH walk
+    for a mesh). It takes every scene the staged bounce takes, such as a
+    mesh without a BVH, which the record megakernel does not.
+
+    A lane's word at bounce b holds F_ALIVE while its path is in flight;
+    on a hit also the winner's id (a triangle's leaf-order id with F_TRI)
+    and the hit's flags, on a miss nothing else. Rows after a path ends
+    stay zero. The far-root bit F_ROOT1 is recomputed per sphere winner
+    with the replay's own arithmetic (``_winner_quadratic``, which
+    ``_replay_row`` takes its t from: the winner's quadratic, its center
+    and radius at the path's shutter fraction), so that the replayed t
+    follows the recorded root. The loop stops when no
+    lane is alive: one host sync a bounce, ``alive.any()`` before it.
+    Exact-time motion raises (ROADMAP A7)."""
+    _check_record_capacity(sd)
+    _check_eager(sd)
+    with torch.no_grad():
+        r = o.shape[0]
+        rec = torch.zeros((max_depth, r), dtype=torch.int32, device=o.device)
+        w = integrator.shutter_fraction(pixel_ids, sample_ids, seed) if sd.animated else None
+        cd, rd = integrator._motion_deltas(sd)
+        alive = torch.ones((r,), dtype=torch.bool, device=o.device)
+        o_c, d_c = o, d
+        for bounce in range(max_depth):
+            if not bool(alive.any()):  # the host sync of the bounce
+                break
+            s = integrator.bounce_step(sd, o_c, d_c, pixel_ids, sample_ids, bounce, seed,
+                                       return_decisions=True)
+            hit = alive & s["hit"]
+            is_tri = s["is_tri"] & hit
+            i_s = s["i_sph"]
+            _, _, a_q, h_q, disc = _winner_quadratic(
+                o_c, d_c, torch.index_select(sd.sph_center, 0, i_s),
+                torch.index_select(sd.sph_radius, 0, i_s), w,
+                None if w is None else torch.index_select(cd, 0, i_s),
+                None if w is None else torch.index_select(rd, 0, i_s))
+            near = (h_q - torch.sqrt(torch.clamp_min(disc, 0.0))) / a_q
+            root1 = ~(near > integrator.T_MIN)
+            cont = hit & s["scattered"]
+            flags = _pack(dict(
+                alive=alive, hit=hit, tri=is_tri, scat=cont, front=s["front"],
+                refl=s["decisions"]["reflect"], degen=s["decisions"]["degenerate"],
+                root1=root1 & ~is_tri))
+            win = torch.where(is_tri, s["i_tri"], i_s)
+            word = pack_record(torch.where(hit, win, 0), flags)
+            # A miss keeps the alive bit alone, a finished path nothing.
+            rec[bounce] = torch.where(hit, word, torch.where(alive, F_ALIVE, 0))
+            o_c = torch.where(cont[:, None], s["new_o"], o_c)
+            d_c = torch.where(cont[:, None], s["new_d"], d_c)
+            alive = cont
+    return rec
+
+
 def trace_record_mega(
     sd: SceneData,
     cp: CameraParams,
@@ -159,9 +253,7 @@ def trace_record_mega(
     the table permuted by the tree's permutation and records the winners'
     original ids, so the records
     are the brute kernel's, bit for bit, and the eager replay reads them as
-    it reads the brute kernel's. Beside a mesh a moving table the brute
-    search holds takes it, chunk-cull tables or not
-    (``integrator.brute_beside_mesh``).
+    it reads the brute kernel's. A mesh's stage follows either search.
     """
     _check_record_capacity(sd)
     missing = integrator.megakernel_record_unsupported_reason(sd, cp)
@@ -183,9 +275,7 @@ def trace_record_mega(
         )
         table = integrator.make_sphere_table(sd).contiguous()
         walk = {}
-        if integrator.brute_beside_mesh(sd):  # K8 brute beside K7 moving
-            pass
-        elif (tree := integrator.swept_tree(sd)) is not None:
+        if (tree := integrator.swept_tree(sd)) is not None:
             table = integrator.permute_table(table, tree[0])
             walk = dict(swept_nodes=tree[1], swept_meta=tree[2])
         tri = {}
@@ -313,17 +403,10 @@ def _replay_row(sub, sky_image, o_c, d_c, thr, word, w, pixel_ids, sample_ids, m
     def attr3(c):
         return srow[:, pos[c]:pos[c] + 3]
 
-    c_w, r_w = attr3(0), attr(3)
-    if w is not None:  # the winner at the path's shutter fraction
-        c_w = c_w + w[:, None] * attr3(24)
-        r_w = r_w + w * attr(27)
-
     # Hit t as the recorded root of the winner's quadratic.
-    a_q = (d_c * d_c).sum(-1)
-    oc = c_w - o_c
-    h_q = (d_c * oc).sum(-1)
-    c_q = (oc * oc).sum(-1) - r_w * r_w
-    disc = h_q * h_q - a_q * c_q
+    c_w, r_w, a_q, h_q, disc = _winner_quadratic(
+        o_c, d_c, attr3(0), attr(3), w, None if w is None else attr3(24),
+        None if w is None else attr(27))
     ok = disc > 0.0
     sqrtd = torch.where(ok, torch.sqrt(torch.where(ok, disc, 1.0)), 0.0)
     t_hit = (h_q + torch.where(dec["root1"], sqrtd, -sqrtd)) / a_q
@@ -486,6 +569,35 @@ def _poison(rad: torch.Tensor, overflow: torch.Tensor) -> torch.Tensor:
     return torch.where(overflow, torch.full_like(rad, float("nan")), rad)
 
 
+def resolve_record_mode(record_mode: str, sd: SceneData, cp: CameraParams) -> str:
+    """'mega' or 'staged' for ``record_mode``: 'auto' takes the record
+    megakernel where ``integrator.megakernel_record_supported`` holds, else
+    the staged record, on every device. (The JAX package takes the staged
+    record off an accelerator because its megakernel runs there in Pallas's
+    interpret mode; the port's megakernel has a plain version that its CPU
+    tests already hold, so the device does not choose the route.)"""
+    if record_mode == "auto":
+        return "mega" if integrator.megakernel_record_supported(sd, cp) else "staged"
+    if record_mode not in ("mega", "staged"):
+        raise ValueError(f"unknown record_mode {record_mode!r}")
+    return record_mode
+
+
+def record_pass(record_mode, sd, cp, width, height, pixel_ids, sample_ids, seed, max_depth,
+                 radiance=False, accum_from=0):
+    """One record pass of (pixel, sample) lanes: :func:`trace_record_mega`
+    ('mega', with its fused radiance where asked), or :func:`trace_record`
+    from the lanes' regenerated primary rays ('staged', no radiance)."""
+    if record_mode == "mega":
+        return trace_record_mega(sd, cp, width, height, pixel_ids, sample_ids, seed,
+                                 max_depth, radiance=radiance, accum_from=accum_from)
+    if radiance:
+        raise ValueError("the fused radiance needs the record megakernel (record_mode='mega')")
+    with torch.no_grad():
+        o, d, _ = generate_rays(cp, width, height, pixel_ids, sample_ids, seed)
+    return trace_record(sd, o, d, pixel_ids, sample_ids, seed, max_depth)
+
+
 def record_two_level(
     sd: SceneData,
     cp: CameraParams,
@@ -516,20 +628,20 @@ def record_two_level(
     survivors' radiance from row ``head`` on, fused into the re-record.
     Overflow (n_deep > r_n) is the caller's to poison. ``div``: the
     argument, else ``CRUCIBLE_RECORD_DEEP_DIV``, else ``RECORD_DEEP_DIV``.
-    ``record_mode``: 'auto' and 'mega' take the record megakernel; 'staged'
-    is not ported.
+    ``record_mode``: 'mega' (:func:`trace_record_mega`), 'staged'
+    (:func:`trace_record` from regenerated primary rays) or 'auto'
+    (:func:`resolve_record_mode`). Only 'mega' fuses the radiance: with
+    'staged', ``head_radiance`` gives None for rad_h and rad_n.
     """
-    if record_mode not in ("auto", "mega"):
-        raise NotImplementedError(
-            f"record_mode {record_mode!r}: the staged record is not ported to "
-            "crucible_tpu_torch yet"
-        )
+    record_mode = resolve_record_mode(record_mode, sd, cp)
     r = pixel_ids.shape[0]
     if div is None:
         env_div = os.environ.get("CRUCIBLE_RECORD_DEEP_DIV")
         div = int(env_div) if env_div is not None else RECORD_DEEP_DIV
-    rec_pass = functools.partial(trace_record_mega, sd, cp, width, height)
-    if head_radiance:
+    fused = head_radiance and record_mode == "mega"
+    rec_pass = functools.partial(record_pass, record_mode, sd, cp, width, height)
+    rad_h = rad_n = None
+    if fused:
         rec_h, rad_h = rec_pass(pixel_ids, sample_ids, seed, head, radiance=True)
     else:
         rec_h = rec_pass(pixel_ids, sample_ids, seed, head)
@@ -539,11 +651,13 @@ def record_two_level(
     idx_n, valid_n = _compact(cont, r_n)
     pix_n = torch.where(valid_n, pixel_ids[idx_n], 0).to(pixel_ids.dtype)
     smp_n = torch.where(valid_n, sample_ids[idx_n], mk.NO_SAMPLE).to(sample_ids.dtype)
-    if head_radiance:
+    if fused:
         rec_n, rad_n = rec_pass(pix_n, smp_n, seed, max_depth, radiance=True,
                                 accum_from=head)
+    else:
+        rec_n = rec_pass(pix_n, smp_n, seed, max_depth)
+    if head_radiance:
         return rec_h, rec_n, idx_n, valid_n, n_deep, rad_h, rad_n
-    rec_n = rec_pass(pix_n, smp_n, seed, max_depth)
     return rec_h, rec_n, idx_n, valid_n, n_deep
 
 
@@ -684,8 +798,9 @@ def render_rays_replay(
 ) -> torch.Tensor:
     """Primary rays + record + differentiable replay -> radiance (R, 3).
 
-    ``record_mode``: 'mega' (the record megakernel) or 'auto' (the same,
-    where the scene allows it); 'staged' is not ported. ``rec``: packed
+    ``record_mode``: 'mega' (the record megakernel), 'staged' (the staged
+    record, :func:`trace_record`) or 'auto' (:func:`resolve_record_mode`:
+    the megakernel where it takes the scene, else staged). ``rec``: packed
     records precomputed for these exact (pixel, sample, seed) lanes — the
     frozen-decision pattern (``grad.record_decisions``); the record pass is
     skipped and the replay's forward gives the primal. Otherwise, where the
@@ -703,13 +818,7 @@ def render_rays_replay(
     record's divisor, which win over their environment knobs (the rungs
     of ``grad.loss_and_grad_recovering``).
     """
-    if record_mode == "staged":
-        raise NotImplementedError(
-            "the staged record (trace_record over integrator.bounce_step) "
-            "is not ported to crucible_tpu_torch yet"
-        )
-    if record_mode not in ("auto", "mega"):
-        raise ValueError(f"unknown record_mode {record_mode!r}")
+    record_mode = resolve_record_mode(record_mode, sd, cp)
     if split is None:
         env = os.environ.get("CRUCIBLE_GRAD_SPLIT")
         if env is not None:
@@ -722,7 +831,8 @@ def render_rays_replay(
             "ported to crucible_tpu_torch (ROADMAP, Do not port); the depth "
             "buckets compute the same radiance"
         )
-    fused = rec is None and _use_replay_kernel(sd)
+    # Only the record megakernel fuses the radiance.
+    fused = record_mode == "mega" and rec is None and _use_replay_kernel(sd)
     o, d, _ = generate_rays(cp, width, height, pixel_ids, sample_ids, seed)
     args = (sd, cp, width, height, pixel_ids, sample_ids, seed, max_depth)
     two_level = os.environ.get("CRUCIBLE_GRAD_2L", "1") not in ("0", "off", "false")
@@ -741,7 +851,7 @@ def render_rays_replay(
         if fused and not split:
             rec, rad_mega = trace_record_mega(*args, radiance=True)
         else:
-            rec = trace_record_mega(*args)
+            rec = record_pass(record_mode, *args)
     if split:
         return replay_bucketed(sd, cp, width, height, o, d, pixel_ids, sample_ids, seed,
                                max_depth, rec, spec=spec)

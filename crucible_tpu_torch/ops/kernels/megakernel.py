@@ -9,9 +9,9 @@ tree whose boxes hold the spheres over the shutter, :func:`swept_tables`)
 in both modes, and their motion variants (K8: ``animated`` spheres on the
 linear shutter, brute or K6, and the ``cam_animated`` keyframed camera, on
 any search), also in both modes — and for its triangle-BVH stage (K7,
-beside the brute sphere search, in both modes, with K8's flags: a static
-mesh's Woop rows, or with ``animated`` a moving mesh's (M, 32) rows, K7
-moving):
+after the brute sphere search or a tree walk, in both modes, with K8's
+flags: a static mesh's Woop rows, or with ``animated`` a moving mesh's (M,
+32) rows, K7 moving):
 
 - :func:`run_megakernel` (forward): given the lanes' pixel ids and first
   samples, the camera vector and the (N, 32) sphere table, it traces every
@@ -37,8 +37,8 @@ shutter fraction); records carry its leaf-order id and ``F_TRI``.
 For CUDA tensors each wrapper launches the hand-written kernel of
 ``csrc/megakernel.cu`` (``flat_kernel``: persistent lanes in one flat
 bounce loop fed by a work counter, over :func:`brute_rows`' staged rows or
-a sphere tree, with K7's triangle walk after the brute search; see the
-note there) or raises; for CPU tensors it runs its eager twin
+a sphere tree, with K7's triangle walk after either; see the note there)
+or raises; for CPU tensors it runs its eager twin
 (:func:`run_megakernel_reference`, :func:`run_megakernel_record_reference`):
 all lanes in lockstep with per-lane sample regeneration, as the TPU kernel
 runs them, the brute (lanes x N) quadratic in lane chunks or the lockstep
@@ -170,9 +170,11 @@ MOVING_TRI_PACK = (0, 1, 2, 3, 4, 5, 6, 7, 8, 16, 17, 18, 19, 20, 21, 22, 23, 24
 # static table's tree), "motion" K8 brute with animated and / or
 # cam_animated, "motion_walk" K8's camera on K5's walk, "cull" K6 (a moving
 # table's swept tree, with either camera), "tri" K7 (the triangle BVH),
-# "tri_motion" K7 with either motion flag (K7 moving with animated).
+# "tri_motion" K7 with either motion flag (K7 moving with animated) after
+# the brute search; "walk_tri" K5's walk then K7's (either camera),
+# "cull_tri" K6's walk then K7 moving's (either camera).
 FORWARD_LAUNCHES = {"brute": 0, "walk": 0, "motion": 0, "motion_walk": 0, "cull": 0,
-                    "tri": 0, "tri_motion": 0}
+                    "tri": 0, "tri_motion": 0, "walk_tri": 0, "cull_tri": 0}
 RECORD_LAUNCHES = dict(FORWARD_LAUNCHES)
 # The plain walks' work since the last reset: K5's (WALK_COUNTS) and K6's
 # (CULL_COUNTS) slab tests of a node, rows of a leaf tested, and rows whose
@@ -459,15 +461,15 @@ def run_megakernel(
     its shutter fraction (cam slots 19-37): K8, the kernel's motion
     variants, on any search. A mesh's ``tri_nodes`` (K, 6), ``tris``,
     ``mats`` (NM, 24) and ``tri_meta`` (K, 3) (``integrator.make_tri_tables``)
-    add the triangle stage (K7) after the brute search: ``tris`` (M, 16)
-    Woop rows of a static mesh, or with ``animated`` (M, 32) rows of a
-    moving one (K7 moving, at each path's shutter fraction). CUDA tensors
-    launch the CUDA kernel; CPU tensors run the eager reference. The
-    triangle stage beside a tree walk raises ``NotImplementedError``.
+    add the triangle stage (K7) after the sphere search, brute or a walk:
+    ``tris`` (M, 16) Woop rows of a static mesh, or with ``animated`` (M,
+    32) rows of a moving one (K7 moving, at each path's shutter fraction).
+    CUDA tensors launch the CUDA kernel; CPU tensors run the eager
+    reference.
     """
     _check_inputs(smem, pix, sample0, cam, table)
     motion = dict(animated=bool(animated), cam_animated=bool(cam_animated))
-    _check_combination(swept_nodes, swept_meta, tris, **motion)
+    _check_layout(tris, animated)
     cull = _cull(swept_nodes, swept_meta, table)
     tri = _tri(tri_nodes, tris, mats, tri_meta, table)
     if table.device.type == "cpu":
@@ -476,18 +478,11 @@ def run_megakernel(
     return _launch(smem, pix, sample0, cam, table, None, True, cull, tri, **motion)[0]
 
 
-def _check_combination(swept_nodes, swept_meta, tris, animated, cam_animated=False):
-    """Raise for the triangle stage beside a tree walk, which the kernel
-    does not instantiate, and for a triangle table whose layout is not the
-    one ``animated`` reads."""
+def _check_layout(tris, animated):
+    """Raise for a triangle table whose layout is not the one ``animated``
+    reads."""
     if tris is None:
         return
-    if swept_nodes is not None or swept_meta is not None:
-        raise NotImplementedError(
-            "the megakernel's triangle stage (K7) runs beside the brute sphere "
-            "search only: a mesh beside a tree walk (K5's or K6's) is a template "
-            "combination not instantiated yet (ROADMAP A11)"
-        )
     if tris.dim() == 2 and (tris.shape[1] == TRI_MOVING_COLS) != animated:
         raise ValueError(
             f"an animated launch takes a moving mesh's (M, {TRI_MOVING_COLS}) rows and a "
@@ -587,6 +582,8 @@ def check_rows(n: int, animated: bool = False, cull=None) -> None:
 
 def _variant(cull, tri, animated, cam_animated) -> str:
     """The launch-count key of a launch."""
+    if cull is not None and tri is not None:
+        return "cull_tri" if animated else "walk_tri"
     if cull is not None:
         return "cull" if animated else "motion_walk" if cam_animated else "walk"
     if tri is not None:
@@ -656,7 +653,8 @@ def flat_launch_shape(record: bool, radiance: bool, n: int, r: int, *,
     of ``tri_nodes`` nodes (K7): grid (as many blocks as stay resident,
     none more than the lanes need), resident blocks per SM, SMs, threads
     per block, registers and local (stack and spill) bytes per thread, and
-    dynamic shared memory per block."""
+    dynamic shared memory per block. ``nodes`` and ``tri_nodes`` together:
+    the sphere tree's walk, then the mesh's (a mesh beside a big table)."""
     index = None if device is None else torch.device(device).index
     dev = torch.cuda.current_device() if index is None else index
     per_sm, sms, threads, regs, local, smem = _flat_shape(
@@ -761,10 +759,10 @@ def run_megakernel_record(
     (K2). ``animated`` and ``cam_animated`` are K8's, as in
     :func:`run_megakernel`: each path's words are those of the moving
     spheres and the camera at its shutter fraction. The triangle tables add
-    K7's stage (K7 moving with ``animated``), as in :func:`run_megakernel`;
-    a triangle winner's word holds its leaf-order id and ``F_TRI``. CUDA
-    tensors launch the kernel; CPU tensors run the twin. The triangle stage
-    beside a tree walk raises ``NotImplementedError``.
+    K7's stage (K7 moving with ``animated``) after either search, as in
+    :func:`run_megakernel`; a triangle winner's word holds its leaf-order
+    id and ``F_TRI``. CUDA tensors launch the kernel; CPU tensors run the
+    twin.
     """
     _check_inputs(smem, pix, sample0, cam, table)
     if max_depth < 1:
@@ -777,7 +775,7 @@ def run_megakernel_record(
             smem, pix, sample0, cam, table, **tables, max_depth=max_depth,
             radiance=radiance, **motion,
         )
-    _check_combination(swept_nodes, swept_meta, tris, **motion)
+    _check_layout(tris, animated)
     cull = _cull(swept_nodes, swept_meta, table)
     tri = _tri(tri_nodes, tris, mats, tri_meta, table)
     smem = smem.clone()
@@ -793,7 +791,7 @@ def run_megakernel_record_reference(
 ):
     """Eager-torch version of the record kernel: same inputs and outputs
     as :func:`run_megakernel_record`."""
-    _check_combination(swept_nodes, swept_meta, tris, animated, cam_animated)
+    _check_layout(tris, animated)
     cull = _cull(swept_nodes, swept_meta, table)
     tri = _tri(tri_nodes, tris, mats, tri_meta, table)
     smem = smem.clone()
@@ -828,7 +826,7 @@ def run_megakernel_reference(smem, pix, sample0, cam, table, swept_nodes=None,
     as they are): the same sums, in far fewer steps, holding
     ``max_depth * spp * R * 3`` floats.
     """
-    _check_combination(swept_nodes, swept_meta, tris, animated, cam_animated)
+    _check_layout(tris, animated)
     cull = _cull(swept_nodes, swept_meta, table)
     tri = _tri(tri_nodes, tris, mats, tri_meta, table)
     kw = dict(rec_depth=0, radiance=True, cull=cull, tri=tri, animated=animated,

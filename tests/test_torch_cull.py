@@ -224,9 +224,11 @@ def test_static_cluster_walk_equals_plain_k1():
 
 def test_cull_refuses_what_is_not_instantiated():
     """A moving table on a static table's tree (K5's, whose boxes hold the
-    spheres at one time) is refused, and so is a mesh beside a tree walk."""
+    spheres at one time) is refused. A mesh beside a tree walk, refused
+    until ROADMAP A11, runs: K6's walk then K7 moving's stage, in both
+    modes, gives the brute search's sums and words."""
     _, sd, cp = _port_scene()
-    _, cull = _cull_args(sd, cp)
+    brute, cull = _cull_args(sd, cp)
     static = tdemo.sphere_stress(width=24, copies=4).build(device="cpu")
     k5_tree = dict(cull, table=tint.permute_table(tint.make_sphere_table(sd),
                                                   static.sph_swept_perm),
@@ -235,10 +237,11 @@ def test_cull_refuses_what_is_not_instantiated():
         tmk.run_megakernel(**k5_tree, animated=True)
     tri = dict(tri_nodes=torch.zeros((1, 6)), tri_meta=torch.tensor([[0, 1, 1]], dtype=torch.int32),
                tris=torch.zeros((1, 32)), mats=torch.zeros((1, 24)))
-    with pytest.raises(NotImplementedError, match="A11"):
-        tmk.run_megakernel(**cull, **tri, animated=True)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tmk.run_megakernel_record(**cull, **tri, max_depth=2, animated=True)
+    assert torch.equal(tmk.run_megakernel(**cull, **tri, animated=True),
+                       tmk.run_megakernel(**brute, **tri, animated=True))
+    got = tmk.run_megakernel_record(**cull, **tri, max_depth=2, animated=True)
+    want = tmk.run_megakernel_record(**brute, **tri, max_depth=2, animated=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("mode,flags", [
@@ -414,32 +417,34 @@ def _fan_beside_bouncing_stress(width=16):
 
 
 def test_mesh_beside_a_moving_table_renders_through_the_brute_search():
-    """K7 beside K6 is not instantiated (ROADMAP A11), so a moving mesh
-    beside a moving table of at most MAX_ROWS_ANIMATED rows takes K8's
-    brute search, whose image the cluster tables do not change; cull=True
-    there, and the same table grown past the brute search, are refused."""
+    """A moving mesh beside a moving table above CULL_MIN_ROWS takes K6's
+    swept-tree walk and then K7 moving's stage (ROADMAP A11; until then
+    K8's brute search took such a table beside a mesh), and its image is
+    the brute search's bit for bit (cull=False, or the scene stripped of
+    its cluster tables); a table grown past the brute search's rows is
+    taken as well, by the walk."""
     sc, sd, cp = _fan_beside_bouncing_stress()
     w, h = sc.scene_cam.image_width, sc.scene_cam.image_height
-    assert tint.brute_beside_mesh(sd) and tint.megakernel_supported(sd, cp)
+    assert tint.megakernel_supported(sd, cp)
     _clear(tmk.CULL_COUNTS)
     img = trender.render_image_persistent(sd, cp, w, h, 1, 3, 0, device="cpu")
-    assert tmk.CULL_COUNTS["nodes"] == 0 and torch.isfinite(img).all()
+    assert tmk.CULL_COUNTS["nodes"] > 0 and torch.isfinite(img).all()
     brute = replace(sd, sph_perm=None, sph_cbounds=None)
     assert torch.equal(img, trender.render_image_persistent(brute, cp, w, h, 1, 3, 0,
-                                                            device="cpu"))
+                                                            device="cpu", cull=False))
     assert torch.equal(img, trender.render_image_persistent(sd, cp, w, h, 1, 3, 0,
                                                             device="cpu", cull=False))
-    with pytest.raises(NotImplementedError, match="A11"):
-        trender.render_image_persistent(sd, cp, w, h, 1, 3, 0, device="cpu", cull=True)
+    assert torch.equal(img, trender.render_image_persistent(sd, cp, w, h, 1, 3, 0,
+                                                            device="cpu", cull=True))
     big = replace(sd, sph_center=torch.zeros((tmk.MAX_ROWS_ANIMATED + 1, 3)))
-    assert not tint.brute_beside_mesh(big)
-    assert "A11" in tint.megakernel_unsupported_reason(big, cp)
-    assert "A11" in tint.megakernel_record_unsupported_reason(big, cp)
+    assert tint.megakernel_unsupported_reason(big, cp) is None
+    assert tint.megakernel_record_unsupported_reason(big, cp) is None
 
 
 def test_mesh_beside_a_moving_table_records_and_differentiates():
-    """The record pass of the same scene runs K8's brute search beside K7
-    moving, as without cluster tables, and the gradient step runs on it."""
+    """The record pass of the same scene walks K6's swept tree, then K7
+    moving's stage, and records the brute search's words; the gradient step
+    runs on them and equals the brute search's."""
     sc, sd, cp = _fan_beside_bouncing_stress()
     w, h = sc.scene_cam.image_width, sc.scene_cam.image_height
     assert tint.megakernel_record_supported(sd, cp)
@@ -448,7 +453,7 @@ def test_mesh_beside_a_moving_table_records_and_differentiates():
     pix = torch.arange(w * h)
     _clear(tmk.CULL_COUNTS)
     rec = G.record_decisions(sd, cp, pix, 0, **kw)
-    assert tmk.CULL_COUNTS["nodes"] == 0 and ((rec & tmk.F_TRI) > 0).any()
+    assert tmk.CULL_COUNTS["nodes"] > 0 and ((rec & tmk.F_TRI) > 0).any()
     assert torch.equal(rec, G.record_decisions(brute, cp, pix, 0, **kw))
     args = (torch.zeros((w * h, 3)), pix, 0)
     loss, g = G.loss_and_grad(G.extract_params(sd, cp), sd, cp, *args, **kw)

@@ -240,8 +240,10 @@ def test_moving_big_scene_never_reaches_the_plain_walk(cuda, monkeypatch):
 @pytest.mark.cuda
 def test_mesh_beside_a_moving_table_launches_the_brute_search(cuda):
     """A moving mesh beside bouncing stress n1936: the render and the
-    record launch K8's brute search beside K7 moving, never K6, and give
-    what the same scene without its walk tables gives."""
+    record launch K6's walk, then K7 moving's stage (``cull_tri``; until
+    ROADMAP A11 they launched K8's brute search beside K7 moving), and give
+    what the same scene without its walk tables gives, which launches the
+    brute search beside K7 moving."""
     from dataclasses import replace
 
     from crucible_tpu_torch.models import render as trender
@@ -261,9 +263,12 @@ def test_mesh_beside_a_moving_table_launches_the_brute_search(cuda):
     img = trender.render_image_persistent(sd, cp, w, h, 2, 8, 0)
     rec = trep.trace_record_mega(sd, cp, w, h, pix, torch.zeros_like(pix), 0, 8)
     torch.cuda.synchronize()
-    assert tmk.FORWARD_LAUNCHES["cull"] == 0 and tmk.FORWARD_LAUNCHES["tri_motion"] == 1
-    assert tmk.RECORD_LAUNCHES["cull"] == 0 and tmk.RECORD_LAUNCHES["tri_motion"] == 1
-    assert torch.equal(img, trender.render_image_persistent(brute, cp, w, h, 2, 8, 0))
+    assert tmk.FORWARD_LAUNCHES["cull_tri"] == 1 and tmk.FORWARD_LAUNCHES["tri_motion"] == 0
+    assert tmk.RECORD_LAUNCHES["cull_tri"] == 1 and tmk.RECORD_LAUNCHES["tri_motion"] == 0
+    assert torch.equal(img, trender.render_image_persistent(brute, cp, w, h, 2, 8, 0,
+                                                            cull=False))
     assert torch.equal(rec, trep.trace_record_mega(brute, cp, w, h, pix,
                                                    torch.zeros_like(pix), 0, 8))
+    torch.cuda.synchronize()
+    assert tmk.FORWARD_LAUNCHES["tri_motion"] == 1 and tmk.RECORD_LAUNCHES["tri_motion"] == 1
     assert ((rec & tmk.F_TRI) > 0).any()

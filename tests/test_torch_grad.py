@@ -229,9 +229,9 @@ def _with_env(env, fn):
             {"CRUCIBLE_GRAD_DEEP_IMPL": "split"},
             lambda: G.loss_and_grad(*a[:6], grad_split=True, **a[6]),
         ),
-        lambda a: trep.render_rays_replay(
-            a[1], a[2], 16, 9, a[4], torch.zeros_like(a[4]), 0, 2, record_mode="staged"
-        ),
+        # The staged record, refused until ROADMAP A10, runs:
+        # _staged_record_matches_mega.
+        "staged_record",
         # Nested checkers under the spherical sky, which the replay once
         # refused, run: _nested_sky_replay_matches_direct_ad.
         None,
@@ -243,8 +243,33 @@ def test_unported_paths_raise(call):
     if call is None:
         _nested_sky_replay_matches_direct_ad()
         return
+    if call == "staged_record":
+        _staged_record_matches_mega(sd, cp, pix)
+        return
     with pytest.raises(NotImplementedError):
         call((params, sd, cp, target, pix, 0, kw))
+
+
+def _staged_record_matches_mega(sd, cp, pix):
+    """``render_rays_replay(record_mode="staged")`` records over the staged
+    bounce (``replay.trace_record``) and replays: on the smoke scene its
+    radiance equals the record megakernel's route (whose fused radiance is
+    the replay's primal) within rel 1e-5, and its gradients within 1e-5."""
+    smp = torch.zeros_like(pix)
+
+    def rays(mode):
+        params = G.extract_params(sd, cp)
+        table = {k: v.detach().requires_grad_(True) for k, v in G.leaves(params).items()}
+        s2, c2 = G.apply_params(sd, cp, G.with_leaves(params, table))
+        rad = trep.render_rays_replay(s2, c2, 16, 9, pix, smp, 0, 2, record_mode=mode)
+        grads = torch.autograd.grad(rad.sum(), [table["tex_color"], table["mat_emission"]])
+        return rad.detach(), grads
+
+    staged, mega = rays("staged"), rays("mega")
+    torch.testing.assert_close(staged[0], mega[0], rtol=1e-5, atol=1e-6)
+    for a, b in zip(staged[1], mega[1]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    assert trep.resolve_record_mode("auto", sd, cp) == "mega"
 
 
 def _nested_sky_replay_matches_direct_ad():

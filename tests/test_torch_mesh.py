@@ -524,37 +524,42 @@ def test_what_still_raises():
         trender.render_image(sc, 1, 2, device="cpu")
     with pytest.raises(FileNotFoundError, match="teapot.obj"):
         tdemo.moving_teapot()
-    # A mesh beside the sphere walk: a template combination not
-    # instantiated (ROADMAP A11). Moving spheres and an animated camera
-    # beside a mesh are K7's motion variants now.
+    # A mesh beside the sphere walk, refused until ROADMAP A11, runs: the
+    # megakernel takes it in both modes, and a walk of the fan's sphere
+    # table in a tree, then K7's stage, gives the brute search's sums and
+    # words. Moving spheres and an animated camera beside a mesh are K7's
+    # motion variants.
     from dataclasses import replace
 
     reason = tint.megakernel_unsupported_reason
     walk = replace(sd, sph_perm=torch.zeros(8, dtype=torch.int32))
-    assert "A11" in reason(walk, cp)
-    assert "A11" in tint.megakernel_record_unsupported_reason(walk, cp)
+    assert reason(walk, cp) is None
+    assert tint.megakernel_record_unsupported_reason(walk, cp) is None
     assert reason(sd, replace(cp, animated=True)) is None
     inputs, _ = tint.mega_inputs(sd, cp, w, h, 1, 2, 0)
     tri = dict(zip(("tri_nodes", "tris", "mats", "tri_meta"), tint.make_tri_tables(sd)))
-    nodes, meta = torch.zeros((1, 16)), torch.zeros((3 * 17,), dtype=torch.int32)
-    meta[2] = 1
-    with pytest.raises(NotImplementedError, match="A11"):
-        tmk.run_megakernel(**inputs, **tri, swept_nodes=nodes, swept_meta=meta, animated=False)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tmk.run_megakernel_record(**inputs, **tri, swept_nodes=nodes, swept_meta=meta,
-                                  max_depth=2)
+    perm, nodes, meta = (torch.from_numpy(x) for x in tmk.swept_tables(
+        sd.sph_center.numpy(), sd.sph_radius.numpy(), sd.sph_active.numpy()))
+    tree = dict(inputs, table=tint.permute_table(inputs["table"], perm), swept_nodes=nodes,
+                swept_meta=meta)
+    assert torch.equal(tmk.run_megakernel(**tree, **tri, animated=False),
+                       tmk.run_megakernel(**inputs, **tri, animated=False))
+    got = tmk.run_megakernel_record(**tree, **tri, max_depth=2)
+    want = tmk.run_megakernel_record(**inputs, **tri, max_depth=2)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
     # The eager replay of a mesh whose keyframe falls inside the shutter.
     with pytest.raises(NotImplementedError, match="A7"):
         trep.trace_replay(replace(sd, animated=True, tri_exact=True), torch.zeros(4, 3),
                           torch.ones(4, 3), torch.arange(4), torch.zeros(4), 0, 2,
                           torch.zeros((2, 4), dtype=torch.int32))
-    # A BVH mesh the megakernel does not take: asked by name, it raises,
-    # naming it; auto takes the pixel schedule, whose staged bounce walks
-    # the mesh's BVH (the record megakernel does not take it either).
-    with pytest.raises(NotImplementedError, match="big sphere table"):
-        trender.render_image_persistent(walk, cp, w, h, 1, 2, 0, device="cpu", cull=False,
-                                        schedule="mega")
-    assert trender.auto_schedule(walk, cp, "cuda") == "pixel"
+    # A BVH mesh beside a table with the sphere-BVH tables, which the
+    # megakernel once refused: asked by name (the brute search, cull=False),
+    # it renders the brute image, and auto takes the megakernel.
+    img = trender.render_image_persistent(walk, cp, w, h, 1, 2, 0, device="cpu", cull=False,
+                                          schedule="mega")
+    assert torch.equal(img, trender.render_image_persistent(sd, cp, w, h, 1, 2, 0, device="cpu",
+                                                            schedule="mega"))
+    assert trender.auto_schedule(walk, cp, "cuda") == "mega"
 
 
 def test_k7_node_cap():

@@ -468,22 +468,26 @@ def test_what_moving_meshes_still_refuse():
     with pytest.raises(NotImplementedError, match="A7"):
         trep.trace_replay(sd, torch.zeros(4, 3), torch.ones(4, 3), torch.arange(4),
                           torch.zeros(4), 0, 2, torch.zeros((2, 4), dtype=torch.int32))
-    # A mesh beside the sphere walk (ROADMAP A11), in both modes. (Moving
-    # spheres with structure tables but without the cluster tables are
-    # refused, naming K6's chunk-cull tables.)
+    # A mesh beside the sphere walk, refused until ROADMAP A11, runs in both
+    # modes: the fan seen by the rising camera, its table walked in a tree
+    # (K5 with K8's camera, then K7), records the brute search's words.
+    # (Moving spheres with structure tables but without the cluster tables
+    # are refused, naming K6's chunk-cull tables.)
     from dataclasses import replace
 
     sd, cp, w, h = _bridged("fan_rising_camera")
     walk = replace(sd, sph_perm=torch.zeros(8, dtype=torch.int32))
-    assert "A11" in tint.megakernel_unsupported_reason(walk, cp)
-    assert "A11" in tint.megakernel_record_unsupported_reason(walk, cp)
+    assert tint.megakernel_unsupported_reason(walk, cp) is None
+    assert tint.megakernel_record_unsupported_reason(walk, cp) is None
     inputs, _ = tint.mega_inputs(sd, cp, w, h, 1, 2, 0)
     tri = dict(zip(("tri_nodes", "tris", "mats", "tri_meta"), tint.make_tri_tables(sd)))
-    nodes, meta = torch.zeros((1, 16)), torch.zeros((3 * 17,), dtype=torch.int32)
-    meta[2] = 1
-    with pytest.raises(NotImplementedError, match="A11"):
-        tmk.run_megakernel_record(**inputs, **tri, swept_nodes=nodes, swept_meta=meta,
-                                  max_depth=2, cam_animated=True)
+    perm, nodes, meta = (torch.from_numpy(x) for x in tmk.swept_tables(
+        sd.sph_center.numpy(), sd.sph_radius.numpy(), sd.sph_active.numpy()))
+    tree = dict(inputs, table=tint.permute_table(inputs["table"], perm), swept_nodes=nodes,
+                swept_meta=meta)
+    got = tmk.run_megakernel_record(**tree, **tri, max_depth=2, cam_animated=True)
+    want = tmk.run_megakernel_record(**inputs, **tri, max_depth=2, cam_animated=True)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
     reason = tint.megakernel_record_unsupported_reason(
         replace(_bridged("moving_fan")[0], sph_perm=walk.sph_perm), cp)
     assert "K6" in reason and "sph_cbounds" in reason

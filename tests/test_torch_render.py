@@ -213,9 +213,11 @@ def _big_moving(sc):
 def _too_many_spheres(sc):
     """A big moving table renders through the swept-tree walk (K6,
     test_big_moving_table_renders_through_the_cluster_walk); beside a BVH
-    mesh it takes K8's brute search while that holds it
-    (tests/test_torch_cull.py), and above MAX_ROWS_ANIMATED rows it is a
-    template combination not instantiated (K7 beside K6, ROADMAP A11)."""
+    mesh too, at any size: until ROADMAP A11 a table above
+    MAX_ROWS_ANIMATED rows beside a mesh raised here (K7 beside K6 was not
+    instantiated); now the megakernel and its record mode take it, K6's walk
+    then K7 moving's (tests/test_torch_cull.py, tests/test_torch_mesh_cull.py
+    render such scenes). Returns the reasons, both None."""
     from dataclasses import replace
 
     from crucible_tpu_torch.ops.kernels import megakernel as mk
@@ -226,7 +228,8 @@ def _too_many_spheres(sc):
                                        **dict(static, num_tris=70, use_bvh=True))
     sd = replace(sd, sph_center=torch.zeros((mk.MAX_ROWS_ANIMATED + 1, 3)))
     assert sd.animated and sd.sph_cbounds is not None
-    trender.render_image_persistent(sd, cp, 32, 18, 1, 2, 0, device="cpu", schedule="mega")
+    return (integrator.megakernel_unsupported_reason(sd, cp),
+            integrator.megakernel_record_unsupported_reason(sd, cp))
 
 
 def test_big_moving_table_renders_through_the_cluster_walk():
@@ -276,6 +279,9 @@ def _bridged_triangles(sc):
          "spherical_sky", "movie", "structure_tables", "bridged_mesh", "schedule"],
 )
 def test_unported_features_raise(use):
+    if use is _too_many_spheres:  # taken since ROADMAP A11
+        assert use(tdemo.smoke_scene(width=32)) == (None, None)
+        return
     with pytest.raises(NotImplementedError):
         use(tdemo.smoke_scene(width=32))
 

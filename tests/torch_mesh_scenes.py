@@ -3,8 +3,9 @@ either package (pass its ``models.scene`` module; both take the same
 calls): imports neither.
 
 - ``fan``: the 80-triangle fan over a ground sphere of
-  ``tests/test_integrator.py:320-361`` (a BVH mesh); ``add_fan`` adds its
-  triangles to another scene;
+  ``tests/test_integrator.py:320-361`` (a BVH mesh; ``count=40`` its first
+  40 triangles, a mesh without a BVH); ``add_fan`` adds its triangles to
+  another scene;
 - ``floor_ball``: the 72-triangle grid floor under a metal ball of
   ``tests/test_oracle.py:207-234`` (a BVH mesh), with the oracle's objects;
 - ``box``: a 12-triangle cube over a ground sphere (a brute mesh);
@@ -29,6 +30,16 @@ Moving meshes (linear in their shutter windows unless said otherwise):
   degrees, 5 s) with ``demo.moving_teapot``'s animation on every triangle:
   translated by (0, 5, 0) over 2.5 s, scaled to 0.5 by 3 s, at frame 30
   (shutter [1.25, 1.2708] s). ``chip_smoke.py`` builds the same scene.
+
+A mesh beside a big sphere table:
+
+- ``torus_beside_stress``: ``demo.sphere_stress`` (``copies`` 4: 1,936
+  rows, above ``CULL_MIN_ROWS``, so the megakernel walks its tree) with a
+  torus of ``2 nu nv`` triangles around book1's glass sphere; ``moving``:
+  bouncing stress (``tests/torch_motion_scenes.py``) with every triangle
+  rising by 0.5 over frame 0's shutter as its spheres do, a moving mesh
+  beside a moving table. ``chip_smoke.py`` builds the same scenes (with
+  torus_teapot's 6,320-triangle torus).
 """
 
 from __future__ import annotations
@@ -36,7 +47,7 @@ from __future__ import annotations
 import math
 
 
-def fan(scene, width: int = 48):
+def fan(scene, width: int = 48, count: int = 80):
     sc = scene.Scene.new_image(1.0, width)
     cam = sc.scene_cam
     cam.look_from((0.0, 1.5, 4.0))
@@ -46,13 +57,14 @@ def fan(scene, width: int = 48):
         scene.Sphere((0.0, -100.0, 0.0), 100.0, scene.Lambertian.from_color((0.6, 0.6, 0.2))),
         "ground",
     )
-    return add_fan(scene, sc)
+    return add_fan(scene, sc, count)
 
 
-def add_fan(scene, sc):
-    """Add the fan's 80 metal triangles ``tri0``..``tri79`` around the
-    origin to ``sc``."""
-    for i in range(80):
+def add_fan(scene, sc, count: int = 80):
+    """Add the fan's first ``count`` of 80 metal triangles ``tri0``.. around
+    the origin to ``sc`` (at most ``scene.BVH_MIN_TRIS`` = 64 of them: a
+    mesh without a BVH)."""
+    for i in range(count):
         a0 = 2 * math.pi * i / 80
         a1 = 2 * math.pi * (i + 1) / 80
         z0 = 0.3 + 0.1 * math.sin(5 * a0)
@@ -135,20 +147,7 @@ def torus_teapot(scene, width: int = 400, movie: bool = False):
     cam.set_defocus_angle(0.6)
     cam.set_focus_dist(10.0)
 
-    def point(i, j):
-        th, ph = 2 * math.pi * i / TORUS_U, 2 * math.pi * j / TORUS_V
-        rr = 1.5 + 0.6 * math.cos(ph)
-        return (rr * math.cos(th), 0.61 + 0.6 * math.sin(ph), rr * math.sin(th))
-
-    metal = scene.Metal((0.8, 0.3, 0.5), 0.05)
-    k = 0
-    for i in range(TORUS_U):
-        for j in range(TORUS_V):
-            a, b = point(i, j), point(i + 1, j)
-            c, d = point(i + 1, j + 1), point(i, j + 1)
-            for tri in ((a, b, c), (a, c, d)):
-                sc.add_element(scene.Triangle(*tri, metal), f"tri{k}")
-                k += 1
+    add_torus(scene, sc)
     checker = scene.CheckerTexture.from_colors(0.32, (0.2, 0.3, 0.1), (0.9, 0.9, 0.9))
     sc.add_element(
         scene.Sphere((0.0, -1000.0, 0.0), 1000.0, scene.Lambertian.from_texture(checker)),
@@ -157,13 +156,38 @@ def torus_teapot(scene, width: int = 400, movie: bool = False):
     return sc
 
 
+def add_torus(scene, sc, nu: int = TORUS_U, nv: int = TORUS_V, scale: float = 1.0,
+              center=(0.0, 0.0, 0.0)):
+    """Add the torus's 2 ``nu`` ``nv`` metal triangles ``tri0``.. to ``sc``:
+    axis vertical, centred at ``center`` + (0, 0.61, 0) ``scale``, major
+    radius 1.5 ``scale``, minor radius 0.6 ``scale``, ``nu`` x ``nv`` quads
+    of two triangles (torus_teapot's 79 x 40 by default)."""
+    def point(i, j):
+        th, ph = 2 * math.pi * i / nu, 2 * math.pi * j / nv
+        rr = scale * (1.5 + 0.6 * math.cos(ph))
+        return (center[0] + rr * math.cos(th), center[1] + scale * (0.61 + 0.6 * math.sin(ph)),
+                center[2] + rr * math.sin(th))
+
+    metal = scene.Metal((0.8, 0.3, 0.5), 0.05)
+    k = 0
+    for i in range(nu):
+        for j in range(nv):
+            a, b = point(i, j), point(i + 1, j)
+            c, d = point(i + 1, j + 1), point(i, j + 1)
+            for tri in ((a, b, c), (a, c, d)):
+                sc.add_element(scene.Triangle(*tri, metal), f"tri{k}")
+                k += 1
+    return sc
+
+
 LERP, LOCAL, WORLD = "lerp", "local", "world"  # the timeline constants of both packages
 
 
-def moving_fan(scene, width: int = 48, camera: bool = False, mid_shutter: bool = False):
-    sc = fan(scene, width)
+def moving_fan(scene, width: int = 48, camera: bool = False, mid_shutter: bool = False,
+               count: int = 80):
+    sc = fan(scene, width, count)
     keyframe = 0.26 if mid_shutter else 1.0  # frame 6's shutter is [0.25, 0.2708]
-    for i in range(80):
+    for i in range(count):
         sc.translate_x(0.5, keyframe, LERP, WORLD, f"tri{i}")
     if camera:
         sc.cam_translate_y(0.5, 1.0, LERP, LOCAL, "from")
@@ -201,4 +225,21 @@ def moving_torus_teapot(scene, width: int = 400, frame: int = 30):
         sc.translate_point((0.0, 5.0, 0.0), 2.5, LERP, LOCAL, f"tri{k}")
         sc.scale_all_uniform(0.5, 3.0, LERP, f"tri{k}")
     sc.scene_cam.frame = frame
+    return sc
+
+
+def torus_beside_stress(demo, scene, width: int, copies: int = 4, nu: int = 24, nv: int = 12,
+                        moving: bool = False):
+    """``demo.sphere_stress(width, copies)`` with ``add_torus(nu, nv)`` at
+    the origin; ``moving``: ``bouncing_stress`` with each triangle
+    translated by (0, 0.5, 0) over the first 1/48 s (linear in frame 0's
+    shutter). ``demo`` and ``scene`` are one package's modules."""
+    from tests.torch_motion_scenes import bouncing_stress
+
+    sc = (bouncing_stress(demo, width, copies) if moving
+          else demo.sphere_stress(width=width, copies=copies))
+    add_torus(scene, sc, nu, nv)
+    if moving:
+        for k in range(2 * nu * nv):
+            sc.translate_y(0.5, 1.0 / 48.0, LERP, LOCAL, f"tri{k}")
     return sc
