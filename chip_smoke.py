@@ -299,7 +299,16 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
    1920x1080 32 spp d50 as 1 band and as 4 bands on cuda:0 against one
    dispatch, bit for bit, K1's launches counted; ``loss_and_grad_sharded``
    over 4 shards against one call.
-28. Prints a JSON line describing each kernel (times at the comparison
+28. Exact-time motion, a key strictly inside the shutter (main path 26,
+   :func:`exact_path`, which says more): the JAX package's oracles at
+   1920x1080 4 spp (the flash, the BVH wall teleport, the camera
+   teleport); book1 under a camera keyed at 1/96 s through ``pixel`` (K9)
+   and its gradient step (the staged record with K10, the replay with K4 /
+   K3), each kernel against its plain version; bouncing book1 keyed at
+   1/96 s through the exact branch (its lanes, chunks and peak memory) and
+   its step by phase; the torus rising inside the shutter through the BVH
+   walk's vertex hook at 320x180; card against CPU at 64 wide.
+29. Prints a JSON line describing each kernel (times at the comparison
    shape, where kernel and twin run the same inputs in full; K5's, K6's
    and others' also at their main shape), the card's line again, and, as
    the last line, ``{"ok": true, "device": {...}}``.
@@ -393,14 +402,15 @@ N_SUB = 32768  # lanes of a 1920x1080 launch held against the twin
 K6_MAIN_BLOCKS, K6_RECORD_LANES = 64, 4 * N_SUB
 
 
-def bouncing_book1(demo, width: int):
+def bouncing_book1(demo, width: int, keyframe: float = 1.0 / 48.0, spheres: bool = True):
     """Book1 in motion, the bouncing spheres of "Ray Tracing: The Next
     Week" (section 2): every Lambertian small sphere rises by a random
     height (numpy seed 11) over the first 1/48 s, and so does the camera's
     position, by 0.5. Frame 0's shutter holds no keyframe strictly inside
-    it, so its motion is linear. tests/torch_motion_scenes.py builds the
-    same scene."""
-    return bounce(demo.book1_end_scene(width=width), ("small",))
+    it, so its motion is linear. ``keyframe`` 1/96 s puts the key inside
+    that shutter (exact-time motion); ``spheres`` False keys the camera
+    alone. tests/torch_motion_scenes.py builds the same scene."""
+    return bounce(demo.book1_end_scene(width=width), ("small",) if spheres else (), keyframe)
 
 
 def bouncing_stress(demo, width: int, copies: int):
@@ -412,9 +422,9 @@ def bouncing_stress(demo, width: int, copies: int):
     return bounce(demo.sphere_stress(width=width, copies=copies), ("small", "stress"))
 
 
-def bounce(sc, prefixes):
+def bounce(sc, prefixes, keyframe: float = 1.0 / 48.0):
     """Raise every Lambertian sphere named ``<prefix><k>`` by U(0, 0.5)
-    (numpy seed 11, in order) over the first 1/48 s, and the camera's
+    (numpy seed 11, in order) up to ``keyframe`` (1/48 s), and the camera's
     position by 0.5; returns ``sc``."""
     rng = __import__("numpy").random.default_rng(11)
     for prefix in prefixes:
@@ -423,9 +433,9 @@ def bounce(sc, prefixes):
             alias = f"{prefix}{k}"
             el = next(e for e in sc.elements if e.id == sc.id_vendor.alias_lookup(alias)[0])
             if type(el.material).__name__ == "Lambertian":
-                sc.translate_y(float(rng.uniform(0.0, 0.5)), 1.0 / 48.0, "lerp", "local", alias)
+                sc.translate_y(float(rng.uniform(0.0, 0.5)), keyframe, "lerp", "local", alias)
             k += 1
-    sc.cam_translate_y(0.5, 1.0 / 48.0, "lerp", "local", "from")
+    sc.cam_translate_y(0.5, keyframe, "lerp", "local", "from")
     return sc
 
 
@@ -1836,6 +1846,398 @@ def sharded_path(dev, kernels: dict, mark) -> dict:
     kernels["megakernel_forward"]["sharded_path_launches"] = k1
     kernels["megakernel_record"]["launches"] += shard_got["record_brute"]
     kernels["replay_backward"]["launches"] += shard_got["k3"]
+    return cells
+
+
+# Main path 26 (exact_path): frame 0's shutter at 24 fps and 180 degrees
+# is [0, 1/48) s, and a key at 1/96 s falls strictly inside it.
+EXACT_KEY = 1.0 / 96.0
+# Bouncing book1 keyed inside the shutter renders at 1920x1080 d50 through
+# the staged bounce's exact branch (every sphere's track evaluated at each
+# ray's time, in plain torch: no kernel computes it, in the JAX package
+# either), so its render is cut from the 32 spp of the other 1080p renders
+# to 1: 8 spp took 135.7 s on an H100 (NVIDIA H100 80GB HBM3, 700 W).
+EXACT_RENDER_SPP = 4
+# The exact-time torus (main path 26d) walks its BVH in the eager lockstep
+# loop with the vertex hook: 320x180, 2 spp, depth 8.
+EXACT_TORUS_W, EXACT_TORUS_SPP, EXACT_TORUS_DEPTH = 320, 2, 8
+
+
+def exact_flash(scene, width: int):
+    """An emissive sphere of radius 50 NERP-teleports at t = 0.01 s from
+    (400, 0, 0), outside the 16:9 view, to (0, 0, -3), around the camera:
+    the JAX package's tests/test_timeline.py flash, its start moved out of
+    a 16:9 frustum -> (scene, key, emission)."""
+    emission = (1.0, 0.5, 0.25)
+    sc = scene.Scene(aspect_ratio=16.0 / 9.0, image_width=width)
+    sc.add_element(scene.Sphere((400.0, 0.0, 0.0), 50.0, scene.Emissive(emission)), "flash")
+    sc.translate_point((0.0, 0.0, -3.0), 0.01, "nerp", "world", "flash")
+    return sc, 0.01, emission
+
+
+def exact_bvh_wall(scene, width: int):
+    """200 emissive triangles (a BVH mesh) forming a 600-wide wall behind
+    the camera NERP-shift in front of it at t = 0.008 s (the JAX package's
+    BVH wall teleport) -> (scene, key, emission)."""
+    emission, n, ext = (0.8, 0.1, 0.6), 10, 300.0
+    sc = scene.Scene(aspect_ratio=16.0 / 9.0, image_width=width)
+    for i in range(n):
+        for j in range(n):
+            x0, x1 = -ext + 2 * ext * i / n, -ext + 2 * ext * (i + 1) / n
+            y0, y1 = -ext + 2 * ext * j / n, -ext + 2 * ext * (j + 1) / n
+            for tag, tri in (("a", ((x0, y0, 5.0), (x1, y0, 5.0), (x1, y1, 5.0))),
+                             ("b", ((x0, y0, 5.0), (x1, y1, 5.0), (x0, y1, 5.0)))):
+                sc.add_element(scene.Triangle(*tri, scene.Emissive(emission)), f"t{i}_{j}{tag}")
+                sc.translate_point((0.0, 0.0, -10.0), 0.008, "nerp", "local", f"t{i}_{j}{tag}")
+    return sc, 0.008, emission
+
+
+def exact_camera(scene, width: int):
+    """The camera NERP-teleports from the origin to (0, 5, 0) at t = 0.015 s
+    (the JAX package's camera teleport) -> (scene, key, position after)."""
+    sc = scene.Scene(aspect_ratio=16.0 / 9.0, image_width=width)
+    sc.cam_translate_point((0.0, 5.0, 0.0), 0.015, "nerp", "world", "from")
+    return sc, 0.015, (0.0, 5.0, 0.0)
+
+
+def exact_torus(scene, width: int):
+    """torus_teapot with every triangle rising by 0.5 up to 1/96 s, a key
+    inside frame 0's shutter: a tri_exact BVH mesh beside the ground."""
+    sc = torus_teapot(scene, width)
+    for k in range(6320):
+        sc.translate_y(0.5, EXACT_KEY, "lerp", "local", f"tri{k}")
+    return sc
+
+
+def exact_path(dev, kernels: dict, mark) -> dict:
+    """Main path 26, exact-time motion (ROADMAP A7): a keyframe strictly
+    inside the shutter -> its cells. No kernel computes an exact-time search
+    (the JAX package keeps such scenes off its kernels too): a scene's
+    spheres and vertices are evaluated at each ray's time in plain torch on
+    the staged bounce; a camera's tracks leave the scene's kernels in place.
+
+    a. The JAX package's oracles at 1920x1080 4 spp (``render_rays``,
+       depth 4): the flash and the BVH wall teleport (through the walk's
+       vertex hook), each ray's radiance the emission past the key, else
+       the sky, within 1e-5; the camera teleport's ray origins. No kernel
+       launches. Timed, with the lanes, chunks and peak memory.
+    b. Book1 with its camera alone keyed at 1/96 s (its table static):
+       ``render_image`` 1920x1080 32 spp d50 (auto -> pixel: K9 only,
+       counted), timed, peak memory; K9 on its primary rays bit for bit
+       against its plain version; at 64 wide the replayed step on the card
+       against the CPU's on the card's records and rays (loss rel 1e-4,
+       radiometric gradients normalized 1e-3); the 1080p 4 spp d8 gradient
+       step by phase (rays, the staged record with K10 a bounce, the
+       replay forward with K4, its backward with K3; counted); K10 bit for
+       bit on the step's primary rays, K4 bit for bit and K3 within
+       ``k3_scheme`` on N_SUB lanes of its records.
+    c. Bouncing book1 keyed at 1/96 s, all 488 rows: ``render_image``
+       1920x1080 EXACT_RENDER_SPP spp d50 (auto -> pixel, the exact branch;
+       no kernel), with the lanes, the chunks and the peak memory; the
+       1080p 4 spp d8 step by phase; card against CPU at 64 wide as in b.
+    d. The 6,320-triangle torus rising with a key inside the shutter
+       (:func:`exact_torus`) at EXACT_TORUS_W x 180: its build, its render
+       (the BVH walk's vertex hook) and its gradient step, timed.
+
+    Any failed check raises."""
+    import torch
+
+    from crucible_tpu_torch import grad
+    from crucible_tpu_torch.io.image import write_png
+    from crucible_tpu_torch.models import demo, integrator, render, replay, skybox
+    from crucible_tpu_torch.models import scene as tscene
+    from crucible_tpu_torch.models.camera import generate_rays
+    from crucible_tpu_torch.ops.kernels import replay_kernel as rk
+    from crucible_tpu_torch.ops.kernels import sphere_hit as sh
+    from crucible_tpu_torch.ops.kernels import sphere_shade as ss
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    zero, launched = _launch_counter()
+    seed, cells = 0, {}
+    w, h = 1920, 1080
+    p = w * h
+    cpu = torch.device("cpu")
+
+    def lanes(width, height, spp, where=dev):
+        n = width * height
+        return (torch.arange(n, device=where).repeat(spp),
+                torch.arange(spp, device=where).repeat_interleave(n))
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2**30
+
+    def exact_shape(sd, r):
+        return dict(lanes=r, chunk_lanes=min(r, integrator.exact_lanes(sd)),
+                    chunks=len(integrator.exact_chunks(sd, r)))
+
+    def card_vs_cpu(make, what):
+        """The replayed step at 64 wide, 2 spp, d8 on the card and on the
+        CPU from the same inputs, the card's records and primary rays
+        (``grad.record_decisions``, ``generate_rays``): the loss (L2
+        against zero) and its gradient in the radiometric leaves (albedo,
+        emission: fault C4), held at loss rel 1e-4 and normalized 1e-3;
+        the fuzz gradient's agreement is printed. The rays are the card's
+        because a per-ray camera basis rounds its square roots on each
+        device: one lane of 4,608 parting breaks 1e-4."""
+        small = make(64)
+        sw, sh_ = small.scene_cam.image_width, small.scene_cam.image_height
+        csd, ccp = small.build(device=dev), small.scene_cam.params(device=dev)
+        pixels = torch.arange(sw * sh_, device=dev)
+        rec = grad.record_decisions(csd, ccp, pixels, seed, width=sw, height=sh_, spp=2,
+                                    max_depth=8)
+        pl, sl = lanes(sw, sh_, 2)
+        o, d, _ = generate_rays(ccp, sw, sh_, pl, sl, seed)
+        sides = []
+        for where in (dev, cpu):
+            ssd = small.build(device=where)
+            leaves = {k: getattr(ssd, k).detach().clone().requires_grad_(True)
+                      for k in ("mat_emission", "mat_fuzz")}
+            color = ssd.tex.color.detach().clone().requires_grad_(True)
+            ssd = replace(ssd, tex=replace(ssd.tex, color=color), **leaves)
+            rad = replay.trace_replay(ssd, o.to(where), d.to(where), pl.to(where),
+                                      sl.to(where), seed, 8, rec.to(where))
+            loss = torch.mean(rad.reshape(2, -1, 3).mean(dim=0) ** 2)
+            g = torch.autograd.grad(loss, [color, leaves["mat_emission"], leaves["mat_fuzz"]])
+            sides.append((loss.detach().cpu(), [x.cpu() for x in g]))
+        (cl, cg), (hl, hg) = sides
+        rel = abs(float(cl) - float(hl)) / abs(float(hl))
+        err = {key: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-6)
+               for key, a, b in zip(("tex_color", "mat_emission", "mat_fuzz"), cg, hg)}
+        worst = max(err["tex_color"], err["mat_emission"])
+        print(f"  {what} replayed step {sw}x{sh_} 2spp d8, card vs CPU on the card's records "
+              f"and rays: loss rel {rel:.3g}, radiometric gradients normalized {worst:.3g} "
+              f"(fuzz {err['mat_fuzz']:.3g}, scale {float(hg[2].abs().max()):.3g})")
+        if not (rel <= 1e-4 and worst <= 1e-3):
+            raise AssertionError(f"{what}: card and CPU disagree")
+        return dict(loss_rel=rel, grad_normalized=worst, fuzz_normalized=err["mat_fuzz"])
+
+    def step_by_phase(sd, cp, what, spp=4, width=w, height=h):
+        """The gradient step cut into its phases, each synchronized: ray
+        generation, the staged record, the replay forward (with the loss)
+        and its backward, the launch counts read over the whole step ->
+        (cell, launches)."""
+        params = grad.extract_params(sd, cp)
+        target = torch.zeros((width * height, 3), device=dev)
+        leaves = {k: params[k].detach().requires_grad_(True) for k in grad.leaf_keys(params)}
+        sd2, cp2 = grad.apply_params(sd, cp, {**params, **leaves})
+        pl, sl = lanes(width, height, spp)
+        zero()
+        torch.cuda.reset_peak_memory_stats()
+        (o, d, _), t_rays = host_ms(lambda: generate_rays(cp2, width, height, pl, sl, seed))
+        rec, t_rec = host_ms(lambda: replay.trace_record(sd2, o, d, pl, sl, seed, 8))
+
+        def forward():
+            rad = replay.trace_replay(sd2, o, d, pl, sl, seed, 8, rec)
+            return torch.mean((rad.reshape(spp, -1, 3).mean(dim=0) - target) ** 2)
+
+        loss, t_fwd = host_ms(forward)
+        g, t_bwd = host_ms(lambda: torch.autograd.grad(loss, list(leaves.values()),
+                                                       allow_unused=True))
+        got, peak = launched(), peak_gib()
+        loss = loss.detach()
+        total = t_rays + t_rec + t_fwd + t_bwd
+        if not torch.isfinite(loss) or not all(x is None or bool(torch.isfinite(x).all())
+                                               for x in g):
+            raise AssertionError(f"{what} step: non-finite loss or gradients")
+        print(f"  {what} step {width}x{height} {spp}spp d8 by phase: rays {t_rays:.1f} ms, "
+              f"staged record {t_rec:.1f} ms, replay forward {t_fwd:.1f} ms, backward "
+              f"{t_bwd:.1f} ms (sum {total:.1f} ms), loss {float(loss):.6f}, peak memory "
+              f"{peak:.2f} GiB; launches {got}")
+        return dict(rays_ms=t_rays, record_ms=t_rec, forward_ms=t_fwd, backward_ms=t_bwd,
+                    step_ms=total, peak_gib=peak, loss=float(loss)), got
+
+    # --- a. the JAX package's oracles at 1080p -----------------------------------
+    mark("main path 26a: exact-time oracles at 1920x1080 4spp (flash, BVH wall, camera)")
+    pix, smp = lanes(w, h, 4)
+    for name, make in (("flash", exact_flash), ("bvh_wall", exact_bvh_wall)):
+        sc, key, emission = make(tscene, w)
+        sd, cp = sc.build(device=dev), sc.scene_cam.params(device=dev)
+        if not sd.motion_exact or (sd.use_bvh and sd.tri_exact) != (name == "bvh_wall"):
+            raise AssertionError(f"{name}: not the exact-time scene expected")
+        zero()
+        torch.cuda.reset_peak_memory_stats()
+        rad, ms = host_ms(lambda: integrator.render_rays(sd, cp, w, h, pix, smp, seed, 4))
+        got, peak = launched(), peak_gib()
+        after = integrator.exact_time(sd, integrator.shutter_fraction(pix, smp, seed)) >= \
+            torch.tensor(key, dtype=torch.float32, device=dev)
+        _, d, _ = generate_rays(cp, w, h, pix, smp, seed)
+        expected = torch.where(after[:, None], torch.tensor(emission, device=dev),
+                               skybox.radiance(sd.sky_kind, sd.sky_image, d))
+        err, frac = (rad - expected).abs().max().item(), after.float().mean().item()
+        shape = exact_shape(sd, pix.shape[0])
+        print(f"exact {name} 1920x1080 4spp d4 (render_rays): {ms:.1f} ms, max|diff| to the "
+              f"oracle {err:.3g}, {frac:.4f} of rays past the key, {shape['chunks']} chunks of "
+              f"{shape['chunk_lanes']} lanes, peak memory {peak:.2f} GiB; launches {got}")
+        if got or not (err <= 1e-5 and 0.1 < frac < 0.9):
+            raise AssertionError(f"exact {name}: the oracle does not hold")
+        cells[name] = dict(ms=ms, max_err=err, past_key=frac, peak_gib=peak, **shape)
+        del rad, expected, d, after
+    sc, key, after_pos = exact_camera(tscene, w)
+    cp = sc.scene_cam.params(device=dev)
+    (o, _, times), ms = host_ms(lambda: generate_rays(cp, w, h, pix, smp, seed))
+    after = times >= torch.tensor(key, dtype=torch.float32, device=dev)
+    expected = torch.where(after[:, None], torch.tensor(after_pos, device=dev),
+                           torch.zeros(3, device=dev))
+    err, frac = (o - expected).abs().max().item(), after.float().mean().item()
+    print(f"exact camera teleport 1920x1080 4spp: generate_rays {ms:.1f} ms, max|diff| of the "
+          f"origins to the oracle {err:.3g}, {frac:.4f} past the key")
+    if not (cp.motion_exact and err <= 1e-5 and 0.1 < frac < 0.9):
+        raise AssertionError("exact camera teleport: the oracle does not hold")
+    cells["camera_teleport"] = dict(ms=ms, max_err=err, past_key=frac)
+    del o, times, after, expected, pix, smp
+
+    # --- b. the camera alone keyed inside the shutter: K9, K10, K4, K3 ----------------
+    mark("main path 26b: book1 with its camera keyed at 1/96 s (K9, K10, K4, K3)")
+    sc = bouncing_book1(demo, w, EXACT_KEY, spheres=False)
+    sd, cp = sc.build(device=dev), sc.scene_cam.params(device=dev)
+    if (sd.motion_exact or not cp.motion_exact or not integrator.fused_supported(sd)
+            or render.auto_schedule(sd, cp, dev) != "pixel"):
+        raise AssertionError("book1 under a camera track should take the pixel schedule (K9)")
+    render.render_image(sc, 1, 2, device=dev)  # warm
+    zero()
+    torch.cuda.reset_peak_memory_stats()
+    img, ms = host_ms(lambda: render.render_image(sc, 32, 50, device=dev))
+    got, peak = launched(), peak_gib()
+    if set(got) != {"k9"} or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"book1 under a camera track: launches {got}")
+    write_png(REPO / "build" / "chip_smoke_exact_camera.png", render.to_u8(img))
+    print(f"render_image book1 camera keyed at 1/96 s 1920x1080 32spp d50 (auto -> pixel): "
+          f"{ms / 1e3:.3f} s, {p * 32 / ms / 1e3:.2f} Mpaths/s, peak memory {peak:.2f} GiB, "
+          f"mean {img.mean().item():.5f}; launches {got}")
+    kernels["sphere_shade"]["launches"] += got["k9"]
+    cells["camera_render"] = dict(ms=ms, peak_gib=peak, k9_launches=got["k9"])
+    table = integrator.make_sphere_table(sd).contiguous()
+    o, d, _ = generate_rays(cp, w, h, torch.arange(p, device=dev),
+                            torch.zeros(p, dtype=torch.int64, device=dev), seed)
+    o, d = o.contiguous(), d.contiguous()
+    w0 = torch.zeros((p,), device=dev)
+    bit_equal(ss.hit_spheres_fetch(o, d, w0, table),
+              ss.hit_spheres_fetch_reference(o, d, w0, table),
+              f"K9 on the camera-track primary rays ({p} rays, {table.shape[0]} rows)")
+    del img, o, d, w0
+    cells["camera_card_vs_cpu"] = card_vs_cpu(
+        lambda width: bouncing_book1(demo, width, EXACT_KEY, spheres=False),
+        "book1 under a camera track")  # also the first launches of K10, K4 and K3
+    cell, got = step_by_phase(sd, cp, "book1 under a camera track")
+    if set(got) != {"k10", "k4", "k3"} or not 1 <= got["k10"] <= 8 or got["k4"] != 1 \
+            or got["k3"] != 1:
+        raise AssertionError(f"book1 under a camera track, step: launches {got}")
+    kernels["sphere_hit"]["launches"] += got["k10"]
+    kernels["replay_forward"]["launches"] += got["k4"]
+    kernels["replay_backward"]["launches"] += got["k3"]
+    cells["camera_step"] = dict(cell, launches=got)
+    pl, sl = lanes(w, h, 4)
+    o, d, _ = generate_rays(cp, w, h, pl, sl, seed)
+    o, d = o.contiguous(), d.contiguous()
+    cols = (table[:, 0:3].contiguous(), table[:, 4].contiguous(), table[:, 5].contiguous())
+    for a, b, name in zip(sh.hit_spheres(o, d, *cols), sh.hit_spheres_reference(o, d, *cols),
+                          ("t", "idx", "hit")):
+        bit_equal(a, b, f"K10 on the step's {o.shape[0]} primary rays: {name}")
+    rec = replay.trace_record(sd, o, d, pl, sl, seed, 8)
+    sub = torch.randperm(o.shape[0], generator=torch.Generator().manual_seed(0))[:N_SUB]
+    sub = sub.sort().values.to(dev)
+    args = (table, o[sub].contiguous(), d[sub].contiguous(),
+            torch.ones((N_SUB,), dtype=torch.int32, device=dev), pl[sub].to(torch.int32),
+            sl[sub].to(torch.int32), rec[:, sub].contiguous(), seed)
+    del rec, o, d, pl, sl
+    bit_equal(rk.replay_forward(*args), rk.replay_forward_reference(*args),
+              f"K4 on {N_SUB} lanes of the step's staged records")
+    g_rad = torch.randn((N_SUB, 3), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    k3_scheme(rk.replay_backward(*args, g_rad), rk.replay_backward_reference(*args, g_rad),
+              f"K3 on {N_SUB} lanes of the step's staged records")
+
+    # --- c. bouncing book1 keyed inside the shutter: the exact branch ------------------
+    mark("main path 26c: bouncing book1 keyed at 1/96 s, 1920x1080, the exact branch")
+    sc = bouncing_book1(demo, w, EXACT_KEY)
+    sd, cp = sc.build(device=dev), sc.scene_cam.params(device=dev)
+    if (not sd.motion_exact or integrator.fused_supported(sd)
+            or render.auto_schedule(sd, cp, dev) != "pixel"):
+        raise AssertionError("bouncing book1 keyed inside the shutter should take the pixel "
+                             "schedule's staged bounce")
+    r = (p + 511) // 512 * 512  # the pixel schedule's lanes: one sample group at 1080p
+    shape = exact_shape(sd, r)
+    zero()
+    torch.cuda.reset_peak_memory_stats()
+    img, ms = host_ms(lambda: render.render_image(sc, EXACT_RENDER_SPP, 50, device=dev))
+    got, peak = launched(), peak_gib()
+    if got or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"bouncing book1 exact: launches {got} (no kernel expected)")
+    write_png(REPO / "build" / "chip_smoke_exact_bounce.png", render.to_u8(img))
+    print(f"render_image bouncing book1 keyed at 1/96 s 1920x1080 {EXACT_RENDER_SPP}spp d50 "
+          f"(auto -> pixel, the exact branch): {ms / 1e3:.3f} s, "
+          f"{p * EXACT_RENDER_SPP / ms / 1e3:.3f} Mpaths/s, {shape['lanes']} lanes in "
+          f"{shape['chunks']} chunks of {shape['chunk_lanes']} a bounce "
+          f"({sd.sph_center.shape[0]} rows, {sd.sph_tr_t0.shape[1]} translate and "
+          f"{sd.sph_sc_t0.shape[1]} scale segments), peak memory {peak:.2f} GiB, mean "
+          f"{img.mean().item():.5f}")
+    cells["bounce_render"] = dict(ms=ms, spp=EXACT_RENDER_SPP, peak_gib=peak,
+                                  rows=int(sd.sph_center.shape[0]), **shape)
+    del img
+    # One chunk of the exact branch (the primary rays of its first lanes),
+    # timed and under the profiler: where a bounce's time goes.
+    n1 = shape["chunk_lanes"]
+    pl1 = torch.arange(n1, device=dev)
+    sl1 = torch.zeros_like(pl1)
+    o1, d1, _ = generate_rays(cp, w, h, pl1, sl1, seed)
+    w1 = integrator.shutter_fraction(pl1, sl1, seed)
+    integrator.intersect_scene(sd, o1, d1, w1)  # warm
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, chunk_ms = host_ms(lambda: integrator.intersect_scene(sd, o1, d1, w1))
+    chunk_bytes = torch.cuda.max_memory_allocated() - base
+    per_entry = chunk_bytes / (n1 * sd.sph_center.shape[0])
+    budgeted = integrator.EXACT_BUDGET_BYTES // n1 // sd.sph_center.shape[0]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        integrator.intersect_scene(sd, o1, d1, w1)
+        torch.cuda.synchronize()
+    rows = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)
+    device_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    top = [(e.key[:60], e.self_device_time_total / 1e3, e.count) for e in rows[:6]]
+    print(f"  one chunk of the exact branch ({n1} lanes x {sd.sph_center.shape[0]} rows, "
+          f"intersect_scene): {chunk_ms:.2f} ms, {device_ms:.2f} ms on the device in "
+          f"{sum(e.count for e in rows)} launches, {chunk_bytes / 2**30:.3f} GiB at its peak "
+          f"above its inputs ({per_entry:.1f} B a lane and row; exact_lanes counts "
+          f"{budgeted}); " + "; ".join(f"{k} {t:.2f} ms x{c}" for k, t, c in top))
+    cells["bounce_chunk"] = dict(ms=chunk_ms, device_ms=device_ms, peak_bytes=chunk_bytes,
+                                 bytes_per_lane_row=per_entry, budgeted=budgeted,
+                                 launches=sum(e.count for e in rows), top=top)
+    del o1, d1, w1
+    cells["bounce_card_vs_cpu"] = card_vs_cpu(
+        lambda width: bouncing_book1(demo, width, EXACT_KEY), "bouncing book1 keyed at 1/96 s")
+    cell, got = step_by_phase(sd, cp, "bouncing book1 keyed at 1/96 s")
+    if got:
+        raise AssertionError(f"bouncing book1 exact step: launches {got} (no kernel expected)")
+    cells["bounce_step"] = dict(cell, **exact_shape(sd, 4 * p))
+
+    # --- d. a BVH mesh keyed inside the shutter: the walk's vertex hook -----------------
+    mark("main path 26d: the 6,320-triangle torus rising with a key inside the shutter")
+    sc = exact_torus(tscene, EXACT_TORUS_W)
+    tw, th = sc.scene_cam.image_width, sc.scene_cam.image_height
+    sd, build_ms = host_ms(lambda: sc.build(device=dev))
+    cp = sc.scene_cam.params(device=dev)
+    if not (sd.use_bvh and sd.tri_exact and sd.motion_exact) or integrator.megakernel_supported(
+            sd, cp):
+        raise AssertionError("the exact-time torus should be a tri_exact BVH mesh")
+    zero()
+    torch.cuda.reset_peak_memory_stats()
+    img, ms = host_ms(lambda: render.render_image(sc, EXACT_TORUS_SPP, EXACT_TORUS_DEPTH,
+                                                  device=dev))
+    got, peak = launched(), peak_gib()
+    if got or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"exact torus: launches {got} (no kernel expected)")
+    write_png(REPO / "build" / "chip_smoke_exact_torus.png", render.to_u8(img))
+    print(f"render_image exact-time torus {tw}x{th} {EXACT_TORUS_SPP}spp d{EXACT_TORUS_DEPTH} "
+          f"(auto -> pixel, the BVH walk's vertex hook): {ms / 1e3:.3f} s, build "
+          f"{build_ms / 1e3:.3f} s ({sd.tri_tr_t0.shape[0]} vertex track rows), peak memory "
+          f"{peak:.2f} GiB, mean {img.mean().item():.5f}")
+    cells["torus_render"] = dict(ms=ms, build_ms=build_ms, peak_gib=peak)
+    cell, got = step_by_phase(sd, cp, "exact-time torus", spp=EXACT_TORUS_SPP, width=tw,
+                              height=th)
+    if got:
+        raise AssertionError(f"exact torus step: launches {got} (no kernel expected)")
+    cells["torus_step"] = cell
     return cells
 
 
@@ -4938,6 +5340,9 @@ def main() -> None:
 
     # --- main path 25: sharded renders and gradients ---------------------------------
     print("sharded cells: " + json.dumps(sharded_path(dev, kernels, mark)))
+
+    # --- main path 26: exact-time motion ----------------------------------------------
+    print("exact cells: " + json.dumps(exact_path(dev, kernels, mark)))
 
     print("gradient cells: " + json.dumps(grad_cells))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check")

@@ -17,9 +17,14 @@ a (1, 1, 3) zero placeholder under the default sky (the port's
 ``SceneData.sky_image`` is then None). The structure tables of the
 sphere walks (``STRUCT_ARRAYS``: the sphere BVH's, or an animated scene's
 cluster boxes ``sph_cbounds``), the motion fields (``MOTION_ARRAYS``: the
-spheres' and a moving mesh's shutter deltas) and the triangle and
+spheres' and a moving mesh's shutter deltas), the exact-time tracks
+(``EXACT_ARRAYS``: a motion_exact scene's sphere tracks and a tri_exact
+mesh's vertex tracks) and the triangle and
 triangle-BVH arrays (``MESH_ARRAYS``) are optional keys (``OPTIONAL_ARRAYS``,
 those a JAX ``SceneData`` has): absent, or None, where the scene has none.
+A camera's exact-time tracks (``CAMERA_TRACK_ARRAYS``) are optional keys
+of its arrays likewise; :func:`camera_params_to_arrays` is the inverse of
+:func:`camera_params_from_arrays`.
 The port's own tree (``SWEPT_ARRAYS``, which K5 and K6 walk) is optional
 too; :func:`scene_data_from_arrays` builds it where the arrays carry a
 sphere BVH or cluster boxes and no tree, as a JAX-lowered scene's do.
@@ -53,13 +58,19 @@ MOTION_ARRAYS = ("sph_center_d", "sph_radius_d", "motion_t0", "motion_t1",
                  "tri_v0_d", "tri_v1_d", "tri_v2_d")
 MESH_ARRAYS = ("tri_v0", "tri_v1", "tri_v2", "tri_mat", "tri_active",
                "bvh_min", "bvh_max", "bvh_first", "bvh_count", "bvh_miss")
-OPTIONAL_ARRAYS = STRUCT_ARRAYS + MOTION_ARRAYS + MESH_ARRAYS
+EXACT_ARRAYS = tuple(f"{p}_{track}_{part}" for p in ("sph", "tri")
+                     for track, parts in (("tr", ("t0", "t1", "delta", "init")),
+                                          ("sc", ("t0", "t1", "from", "to")))
+                     for part in parts)
+OPTIONAL_ARRAYS = STRUCT_ARRAYS + MOTION_ARRAYS + EXACT_ARRAYS + MESH_ARRAYS
 TEX_ARRAYS = ("kind", "color", "inv_scale", "even", "odd", "image_id")
 SCENE_STATIC = ("sky_kind", "num_spheres", "num_tris", "animated", "motion_exact",
                 "use_bvh", "bvh_leaf_size", "tri_exact")
 CAMERA_ARRAYS = tuple(
     f.name for f in fields(CameraParams) if f.name not in ("animated", "motion_exact")
 )
+CAMERA_TRACK_ARRAYS = tuple(k for k in CAMERA_ARRAYS if "_tr_" in k)
+CAMERA_STATIC = ("animated", "motion_exact")
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -124,12 +135,22 @@ def camera_params_from_arrays(
     motion_exact: bool = False,
 ) -> CameraParams:
     """CameraParams on ``device`` from numpy arrays keyed by field name.
-    A missing shutter delta (``look_from_d`` / ``look_at_d``) means zero."""
+    A missing shutter delta (``look_from_d`` / ``look_at_d``) means zero; a
+    missing exact-time track (``CAMERA_TRACK_ARRAYS``) None."""
     arrays = {"look_from_d": np.zeros(3), "look_at_d": np.zeros(3), **arrays}
     vals = {
         k: _tensor(np.asarray(arrays[k], np.float32), device) for k in CAMERA_ARRAYS
+        if k not in CAMERA_TRACK_ARRAYS or arrays.get(k) is not None
     }
     return CameraParams(**vals, animated=animated, motion_exact=motion_exact)
+
+
+def camera_params_to_arrays(cp: CameraParams) -> tuple[dict[str, np.ndarray], dict]:
+    """(arrays, static) such that ``camera_params_from_arrays(arrays,
+    device=..., **static)`` rebuilds ``cp``."""
+    arrays = {k: getattr(cp, k).detach().cpu().numpy() for k in CAMERA_ARRAYS
+              if getattr(cp, k) is not None}
+    return arrays, {k: getattr(cp, k) for k in CAMERA_STATIC}
 
 
 def params_from_arrays(arrays: dict, *, device="cuda") -> dict:

@@ -12,7 +12,7 @@ Two estimators compute it:
   spheres and animated cameras, tables above 2048 rows, triangle meshes,
   static or moving, the spherical sky, whose image is then a leaf,
   ``sky_image``, image textures, whose texels are leaves, ``tex_images``,
-  and nested checkers).
+  nested checkers, and exact-time motion, after the staged record).
   Frozen-decision training records
   the decisions once (:func:`record_decisions`) and replays them in every
   later step (``rec=``).
@@ -20,7 +20,8 @@ Two estimators compute it:
   (``integrator.render_rays(differentiable=True)``, closest hits by K10, or
   for moving spheres ``intersect.hit_spheres_moving``; a mesh of at most
   ``scene.BVH_MIN_TRIS`` triangles through ``intersect.hit_triangles``, a
-  moving one at each path's shutter fraction),
+  moving one at each path's shutter fraction; exact-time motion through
+  the staged bounce's exact branch),
   the semantic reference. A BVH mesh raises ``NotImplementedError``: the
   JAX package's reverse mode cannot pass its BVH walk's ``lax.while_loop``
   either, and the port invents no gradient there.

@@ -6,8 +6,8 @@ settings object with the original renderer's setter surface, and
 be keyframed (``from_timeline`` / ``at_timeline``, filled by the scene's
 ``cam_translate_*`` animator): their position and target then move
 linearly over the shutter, and each ray re-derives the basis at its
-shutter fraction. A camera keyframe inside the shutter window needs
-exact-time tracks, which raise ``NotImplementedError``.
+shutter fraction. A camera keyframe inside the shutter window gives the
+camera exact-time tracks instead, evaluated at each ray's absolute time.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from crucible_tpu_torch.models.timeline import TransformTimeline, eval_translate
 from crucible_tpu_torch.ops import sampling
 from crucible_tpu_torch.utils import rng as crng
 from crucible_tpu_torch.utils import vec
@@ -31,7 +32,9 @@ class CameraParams:
     An animated camera's position at a ray's shutter fraction w in [0, 1)
     is ``look_from + w * look_from_d`` (and its target likewise), exact for
     the timeline's tracks unless a keyframe falls inside the shutter; then
-    ``motion_exact`` is set, and the exact tracks are not ported.
+    ``motion_exact`` is set, and the rays read the exact-time tracks
+    ``from_tr_*`` / ``at_tr_*`` (``timeline.lower_translate``'s segments,
+    None otherwise) at their absolute times.
     """
 
     look_from: torch.Tensor  # (3,) at shutter open
@@ -44,6 +47,16 @@ class CameraParams:
     shutter_length: torch.Tensor  # () = (shutter_angle/360) / frame_rate
     look_from_d: torch.Tensor  # (3,) shutter-close minus shutter-open
     look_at_d: torch.Tensor  # (3,)
+    # Exact-time tracks of the position ("from") and the target ("at"),
+    # set where a camera keyframe lies strictly inside the shutter window.
+    from_tr_t0: Optional[torch.Tensor] = None  # (K,)
+    from_tr_t1: Optional[torch.Tensor] = None  # (K,)
+    from_tr_delta: Optional[torch.Tensor] = None  # (K, 3)
+    from_tr_init: Optional[torch.Tensor] = None  # (3,)
+    at_tr_t0: Optional[torch.Tensor] = None
+    at_tr_t1: Optional[torch.Tensor] = None
+    at_tr_delta: Optional[torch.Tensor] = None
+    at_tr_init: Optional[torch.Tensor] = None
     animated: bool = False
     motion_exact: bool = False
 
@@ -61,7 +74,9 @@ def generate_rays(
     [-0.5,0.5)^2 pixel jitter and the defocus disk come from ONE PCG4D hash
     (stream STREAM_PIXEL_JITTER); the shutter time from STREAM_TIME. The
     direction is pixel position minus origin, unnormalized. An animated
-    camera re-derives its basis per ray at the ray's shutter fraction.
+    camera re-derives its basis per ray at the ray's shutter fraction; one
+    with exact-time tracks evaluates them at the ray's absolute time
+    ``frame_time + u_t * shutter_length``.
 
     Args:
       pixel_ids: (R,) integer flat pixel index j*width + i.
@@ -70,11 +85,6 @@ def generate_rays(
 
     Returns: (origins (R,3), directions (R,3), times (R,))
     """
-    if cp.motion_exact:
-        raise NotImplementedError(
-            "exact-time camera motion (a camera keyframe inside the shutter "
-            "window) is not ported to crucible_tpu_torch yet"
-        )
     i = (pixel_ids % width).to(torch.float32)
     j = torch.div(pixel_ids, width, rounding_mode="floor").to(torch.float32)
 
@@ -84,7 +94,14 @@ def generate_rays(
     u_t = crng.uniform1(pixel_ids, sample_ids, crng.STREAM_TIME, seed)
     times = cp.frame_time + u_t * cp.shutter_length
 
-    if cp.animated:
+    if cp.animated and cp.motion_exact:
+        if cp.from_tr_t0 is None or cp.at_tr_t0 is None:
+            raise ValueError("the camera says motion_exact but carries no exact-time "
+                             "tracks (from_tr_*, at_tr_*)")
+        lf = eval_translate(cp.from_tr_t0, cp.from_tr_t1, cp.from_tr_delta,
+                            cp.from_tr_init, times)  # (R, 3)
+        la = eval_translate(cp.at_tr_t0, cp.at_tr_t1, cp.at_tr_delta, cp.at_tr_init, times)
+    elif cp.animated:
         w01 = u_t[:, None]  # (R, 1)
         lf = cp.look_from[None, :] + w01 * cp.look_from_d[None, :]  # (R, 3)
         la = cp.look_at[None, :] + w01 * cp.look_at_d[None, :]
@@ -209,7 +226,9 @@ class Camera:
         target, and for a keyframed camera their shutter-close minus
         shutter-open deltas. A timeline boundary strictly inside the
         shutter window sets ``motion_exact`` (the linear lerp would depart
-        from the timeline there)."""
+        from the timeline there) and the exact-time tracks of both the
+        position and the target: a static one holds one zero-delta
+        segment."""
 
         def f32(x):
             return torch.tensor(np.asarray(x, np.float32), device=device)
@@ -231,6 +250,17 @@ class Camera:
             if tl is not None:
                 b = tl.boundary_times()
                 exact |= bool(np.any((b > t_open + 1e-9) & (b < t_close - 1e-9)))
+        tracks = {}
+        if exact:
+            for name, tl, init in (("from", self.from_timeline, self.look_from_pt),
+                                   ("at", self.at_timeline, self.look_at_pt)):
+                tl = tl or TransformTimeline(init_pos=tuple(init))
+                a0, a1, dl = tl.lower_translate()
+                if len(a0) == 0:  # a static one: one zero-delta segment
+                    a0 = a1 = np.zeros((1,), np.float32)
+                    dl = np.zeros((1, 3), np.float32)
+                tracks.update({f"{name}_tr_t0": f32(a0), f"{name}_tr_t1": f32(a1),
+                               f"{name}_tr_delta": f32(dl), f"{name}_tr_init": f32(tl.init_pos)})
         return CameraParams(
             look_from=f32(from_a),
             look_at=f32(at_a),
@@ -242,6 +272,7 @@ class Camera:
             shutter_length=f32((self.shutter_angle / 360.0) / self.frame_rate),
             look_from_d=f32(np.subtract(from_b, from_a)),
             look_at_d=f32(np.subtract(at_b, at_a)),
+            **tracks,
             animated=animated,
             motion_exact=exact,
         )

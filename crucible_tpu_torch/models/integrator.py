@@ -26,7 +26,12 @@ or moving on the linear shutter, and triangle meshes, static or moving:
 Moving spheres and animated cameras draw each path's shutter fraction w
 from the STREAM_TIME hash of its (pixel, sample), which the camera's ray
 generation draws too, so a path's rays share one shutter instant.
-Exact-time motion raises ``NotImplementedError``. The radiance recursion of the original renderer
+Exact-time motion (a keyframe strictly inside the shutter window) takes
+the staged bounce's exact branch: every sphere, and a ``tri_exact`` mesh's
+vertices, evaluated from their timeline tracks at each ray's absolute time
+(:func:`exact_sphere_winner`, :func:`exact_tri_vertices`), the (R, N, K)
+evaluation in lane chunks of :func:`exact_lanes`; the megakernels and the
+fused bounce refuse it, as the JAX package's do. The radiance recursion of the original renderer
 unrolls into an iterative product over a flat batch of rays: on a miss
 L += throughput * sky, on a hit L += throughput * emission, and on a
 scatter throughput *= attenuation. Discrete decisions (hits, winners,
@@ -42,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 from crucible_tpu_torch.models import materials as mat_mod
 from crucible_tpu_torch.models import skybox as sky_mod
 from crucible_tpu_torch.models import textures as tex_mod
+from crucible_tpu_torch.models import timeline as tl_mod
 from crucible_tpu_torch.models.camera import CameraParams, generate_rays
 from crucible_tpu_torch.models.scene import SceneData
 from crucible_tpu_torch.ops import intersect
@@ -55,19 +61,160 @@ T_MIN = mk.T_MIN  # shadow-acne epsilon
 BIG = mk.BIG
 
 
-EXACT_MOTION = (
-    "exact-time motion (a keyframe inside the shutter window) is not ported "
-    "to crucible_tpu_torch yet"
-)
+# Bytes that one lane chunk of the exact branch's per-ray tables may take:
+# the (R, N, K) track evaluation of every sphere (and of a brute mesh's
+# vertices) at each ray's time. The JAX package caps its wavefront at 2^16
+# lanes for the TPU compiler's memory estimate; the port derives its
+# chunk from this budget, the rows and the segments (exact_lanes).
+EXACT_BUDGET_BYTES = 4 << 30
+# Bytes a (lane, sphere row) pair takes at the peak of one chunk: the
+# centers' components and the search's (L, N) terms (EXACT_ROW_BYTES;
+# chip_smoke.py main path 26c measures bouncing book1's, one translate
+# segment and fixed radii: 60 B on an H100), each translate segment's ramp
+# and terms (EXACT_SEGMENT_BYTES), eval_scale's (L, N, K, 3) gathers where
+# a radius is keyed (EXACT_SCALE_BYTES); and a (lane, vertex row) pair of a
+# brute mesh's (L, 3M) evaluation and Möller–Trumbore (EXACT_VERTEX_BYTES,
+# and EXACT_SEGMENT_BYTES a segment).
+EXACT_ROW_BYTES = 48
+EXACT_SEGMENT_BYTES = 16
+EXACT_SCALE_BYTES = 128
+EXACT_VERTEX_BYTES = 256
 
 
 def _check_staged(sd: SceneData) -> None:
     """Raise, naming what is missing, for what the staged path lacks."""
-    if sd.motion_exact:
-        raise NotImplementedError(EXACT_MOTION)
     if sd.num_tris > 0 and sd.tri_v0 is None:
         raise ValueError(f"the scene counts {sd.num_tris} triangles but carries no "
                          "triangle arrays (tri_v0, ...)")
+    if sd.motion_exact and sd.sph_tr_t0 is None:
+        raise ValueError("the scene says motion_exact but carries no exact-time sphere "
+                         "tracks (sph_tr_*, sph_sc_*): lower it with Scene.build")
+    if sd.motion_exact and sd.motion_t0 is None:
+        raise ValueError("the scene says motion_exact but carries no shutter window "
+                         "(motion_t0, motion_t1)")
+    if sd.tri_exact and sd.tri_tr_t0 is None:
+        raise ValueError("the scene says tri_exact but carries no exact-time vertex "
+                         "tracks (tri_tr_*, tri_sc_*): lower it with Scene.build")
+
+
+def exact_lanes(sd: SceneData) -> int:
+    """Lanes of one chunk of the exact branch (:func:`intersect_scene`) for
+    a motion_exact scene: ``EXACT_BUDGET_BYTES`` over what a lane's per-ray
+    tables take (its sphere rows and a brute mesh's 3M vertex rows: the
+    ``EXACT_*_BYTES`` constants), a multiple of 512, at least 512. Lanes
+    are independent, so the chunking changes no bit of the result. A scene
+    without exact time: no cap (the largest int64)."""
+    if not sd.motion_exact or sd.sph_tr_t0 is None:
+        return 1 << 62
+    per_lane = sd.sph_tr_t0.shape[0] * (
+        EXACT_ROW_BYTES + EXACT_SEGMENT_BYTES * sd.sph_tr_t0.shape[1]
+        + (EXACT_SCALE_BYTES if sd.sph_sc_t0.shape[1] > 1 else 0))
+    if sd.tri_exact and sd.num_tris > 0 and not sd.use_bvh and sd.tri_tr_t0 is not None:
+        per_lane += sd.tri_tr_t0.shape[0] * (
+            EXACT_VERTEX_BYTES + EXACT_SEGMENT_BYTES * (sd.tri_tr_t0.shape[1]
+                                                       + sd.tri_sc_t0.shape[1]))
+    return max(512, EXACT_BUDGET_BYTES // per_lane // 512 * 512)
+
+
+def exact_chunks(sd: SceneData, r: int) -> list:
+    """The lane slices of R lanes in chunks of :func:`exact_lanes`."""
+    step = exact_lanes(sd)
+    return [slice(lo, min(r, lo + step)) for lo in range(0, r, step)] or [slice(0, 0)]
+
+
+def exact_time(sd: SceneData, w):
+    """Each path's absolute time in a motion_exact scene's shutter window:
+    motion_t0 + w * (motion_t1 - motion_t0)."""
+    return sd.motion_t0 + w * (sd.motion_t1 - sd.motion_t0)
+
+
+def exact_sphere_winner(sd: SceneData, i_s, t_ray):
+    """The spheres ``i_s`` (R,) at the times ``t_ray`` (R,) -> (center (R,
+    3), radius (R,)): their rows' tracks gathered and evaluated per lane,
+    O(R K) (the record's and the replay's counterpart of the exact branch's
+    (R, N) evaluation)."""
+    i_s = i_s.long()
+
+    def rows(x):
+        return torch.index_select(x, 0, i_s)
+
+    c_w = tl_mod.eval_translate_rows(rows(sd.sph_tr_t0), rows(sd.sph_tr_t1),
+                                     rows(sd.sph_tr_delta), rows(sd.sph_tr_init), t_ray)
+    r_w = tl_mod.eval_scale_rows(rows(sd.sph_sc_t0), rows(sd.sph_sc_t1), rows(sd.sph_sc_from),
+                                 rows(sd.sph_sc_to), t_ray)[..., 0]
+    return c_w, r_w
+
+
+def exact_tri_vertices(sd: SceneData, pid, t_ray):
+    """The vertices of triangles ``pid`` (any shape; leaf order for a BVH
+    mesh) at the times ``t_ray`` (broadcast against ``pid``) -> (a, b, c),
+    each pid.shape + (3,): each vertex's track rows (vertex-major, row vi *
+    M + k) gathered and evaluated as scale(t) * translate(t), O(candidates
+    x K), never (R, M)."""
+    shape = pid.shape
+    pid = pid.reshape(-1).long()
+    t = torch.broadcast_to(t_ray, shape).reshape(-1)
+    m_rows = sd.tri_v0.shape[0]
+    out = []
+    for vi in range(3):
+        rows = pid + vi * m_rows
+
+        def g(x):
+            return torch.index_select(x, 0, rows)
+
+        pos = tl_mod.eval_translate_rows(g(sd.tri_tr_t0), g(sd.tri_tr_t1), g(sd.tri_tr_delta),
+                                         g(sd.tri_tr_init), t)
+        scl = tl_mod.eval_scale_rows(g(sd.tri_sc_t0), g(sd.tri_sc_t1), g(sd.tri_sc_from),
+                                     g(sd.tri_sc_to), t)
+        out.append((scl * pos).reshape(shape + (3,)))
+    return tuple(out)
+
+
+def _exact_centers(sd: SceneData, t):
+    """Every sphere's center at the times ``t`` (L,) -> its components cx,
+    cy, cz, each (L, N): ``timeline.eval_translate``'s sum (init plus the
+    segments' ramped deltas, in segment order) without its (L, N, K, 3)
+    product."""
+    tt = t[:, None]
+    acc = None
+    for k in range(sd.sph_tr_t0.shape[1]):
+        r = tl_mod._ramp(tt, sd.sph_tr_t0[:, k], sd.sph_tr_t1[:, k])
+        terms = [r * sd.sph_tr_delta[:, k, i] for i in range(3)]
+        acc = terms if acc is None else [a + b for a, b in zip(acc, terms)]
+    return [sd.sph_tr_init[:, i] + a for i, a in enumerate(acc)]
+
+
+def _exact_search(sd: SceneData, o, d, t_ray):
+    """The exact branch's searches of every sphere, and of a brute
+    ``tri_exact`` mesh's triangles, evaluated at each ray's time, in lane
+    chunks of :func:`exact_lanes` -> ((t, idx) of the spheres, outside
+    autograd (:func:`intersect_scene` puts t on the tape through the
+    winners), and (t, idx, hit) of the triangles or None)."""
+    brute_tris = sd.tri_exact and sd.num_tris > 0 and not sd.use_bvh
+    act = sd.sph_active.to(torch.bool)[None]
+    sph, tri = [], []
+    for sl in exact_chunks(sd, o.shape[0]):
+        t = t_ray[sl]
+        if sd.sph_sc_t0.shape[1] == 1:
+            # Only the init segments (no radius keyed): eval_scale gives
+            # their from-value at every time past -0.1, bit for bit.
+            radii = sd.sph_sc_from[None, :, 0, 0]
+        else:
+            radii = tl_mod.eval_scale(sd.sph_sc_t0, sd.sph_sc_t1, sd.sph_sc_from,
+                                      sd.sph_sc_to, t)[..., 0]  # (L, N)
+        sph.append(intersect.per_ray_closest(o[sl], d[sl], *_exact_centers(sd, t), radii, act,
+                                             T_MIN))
+        if brute_tris:
+            # Every vertex at the ray's time: scale(t) * translate(t), (L, 3M, 3).
+            verts = tl_mod.eval_scale(sd.tri_sc_t0, sd.tri_sc_t1, sd.tri_sc_from,
+                                      sd.tri_sc_to, t) * tl_mod.eval_translate(
+                sd.tri_tr_t0, sd.tri_tr_t1, sd.tri_tr_delta, sd.tri_tr_init, t)
+            m_rows = sd.tri_v0.shape[0]
+            tri.append(intersect.hit_triangles(
+                o[sl], d[sl], verts[:, :m_rows], verts[:, m_rows:2 * m_rows],
+                verts[:, 2 * m_rows:], sd.tri_active, T_MIN))
+    cat = [torch.cat(x) for x in zip(*sph)]
+    return cat, ([torch.cat(x) for x in zip(*tri)] if brute_tris else None)
 
 
 def _motion_deltas(sd: SceneData):
@@ -100,11 +247,27 @@ def intersect_scene(sd: SceneData, o, d, w=None):
     wins only where it is strictly nearer than the nearest sphere; its
     normal is the geometric one, its uv (0, 0).
 
+    A motion_exact scene takes the exact branch: every sphere (and a
+    ``tri_exact`` mesh's vertices: a brute mesh's all, a BVH mesh's per
+    leaf candidate through the walk's ``vertex_fn``) at each ray's absolute
+    time ``exact_time(sd, w)``, the winner's again for its normal
+    (:func:`exact_sphere_winner`, :func:`exact_tri_vertices`).
+
     Returns a dict of per-ray tensors: hit (bool), t, point (R, 3), normal
     (R, 3) the unit normal flipped against d, front (bool), u, v, mat
     (int64), i_sph and i_tri (the winning rows) and is_tri."""
     _check_staged(sd)
-    if sd.animated:
+    exact = sd.animated and sd.motion_exact
+    tri_hits = None
+    if exact:
+        if w is None:
+            raise ValueError("an animated scene needs per-ray shutter fractions w")
+        t_ray = exact_time(sd, w)
+        (t, i_s), tri_hits = _exact_search(sd, o, d, t_ray)
+        hit = t < BIG
+        c_w, r_w = exact_sphere_winner(sd, i_s, t_ray)
+        t = intersect.winner_t(o, d, t, hit, c_w, r_w)
+    elif sd.animated:
         if w is None:
             raise ValueError("an animated scene needs per-ray shutter fractions w")
         cd, rd = _motion_deltas(sd)
@@ -117,10 +280,16 @@ def intersect_scene(sd: SceneData, o, d, w=None):
         )
     i_s = i_s.to(torch.int64)
     # A moving mesh: every vertex at the ray's shutter fraction.
-    moving = mesh_moves(sd)
+    tri_exact = exact and sd.tri_exact
+    moving = mesh_moves(sd) and not tri_exact
     motion = dict(v0d=sd.tri_v0_d, v1d=sd.tri_v1_d, v2d=sd.tri_v2_d, w=w) if moving else {}
+    if tri_exact and sd.use_bvh:
+        motion = dict(vertex_fn=lambda lanes, rows: exact_tri_vertices(
+            sd, rows, t_ray[lanes][:, None]))
     if sd.num_tris > 0:
-        if sd.use_bvh:
+        if tri_hits is not None:
+            t_t, i_t, hit_t = tri_hits
+        elif sd.use_bvh:
             t_t, i_t, hit_t = bvh_hit_triangles(
                 o, d, sd.tri_v0, sd.tri_v1, sd.tri_v2, sd.bvh_min, sd.bvh_max,
                 sd.bvh_first, sd.bvh_count, sd.bvh_miss, T_MIN, BIG, sd.bvh_leaf_size,
@@ -138,17 +307,21 @@ def intersect_scene(sd: SceneData, o, d, w=None):
     # masked-out lanes stay finite (0 * inf would NaN their gradients).
     t_shade = torch.where(hit, t, 1.0)
     point = o + t_shade[:, None] * d
-    c_w = torch.index_select(sd.sph_center, 0, i_s)
-    r_w = torch.index_select(sd.sph_radius, 0, i_s)
-    if sd.animated:
-        c_w = c_w + w[:, None] * torch.index_select(cd, 0, i_s)
-        r_w = r_w + w * torch.index_select(rd, 0, i_s)
+    if not exact:  # the exact branch has its winners' spheres already
+        c_w = torch.index_select(sd.sph_center, 0, i_s)
+        r_w = torch.index_select(sd.sph_radius, 0, i_s)
+        if sd.animated:
+            c_w = c_w + w[:, None] * torch.index_select(cd, 0, i_s)
+            r_w = r_w + w * torch.index_select(rd, 0, i_s)
     n_out = (point - c_w) / torch.clamp_min(r_w, 1e-20)[:, None]
     u, v = intersect.sphere_uv(n_out)
     mat = torch.index_select(sd.sph_mat, 0, i_s).to(torch.int64)
     out = dict(i_sph=i_s)
     if sd.num_tris > 0:
-        verts = [torch.index_select(x, 0, i_t) for x in (sd.tri_v0, sd.tri_v1, sd.tri_v2)]
+        if tri_exact:
+            verts = exact_tri_vertices(sd, i_t, t_ray)
+        else:
+            verts = [torch.index_select(x, 0, i_t) for x in (sd.tri_v0, sd.tri_v1, sd.tri_v2)]
         if moving:  # the winner's vertices at the ray's shutter fraction
             verts = [v + w[:, None] * torch.index_select(vd, 0, i_t)
                      for v, vd in zip(verts, (sd.tri_v0_d, sd.tri_v1_d, sd.tri_v2_d))]
@@ -403,7 +576,8 @@ def _mesh_unsupported_reason(sd: SceneData, cp: CameraParams):
          "triangle stage, K7, walks a BVH, in record mode too; such meshes take the "
          "pixel schedule, as in the JAX package)"),
         (not sd.tri_exact, "exact-time motion of a mesh, a keyframe inside the shutter "
-                           "(ROADMAP A7)"),
+                           "(the staged bounce's exact branch takes it, as in the JAX "
+                           "package)"),
     )
     return next((what for ok, what in checks if not ok), None)
 
@@ -460,7 +634,8 @@ def megakernel_record_unsupported_reason(sd: SceneData, cp: CameraParams):
         rows_what = f"more than {mk.MAX_ROWS} sphere rows without the sphere-BVH tables"
     checks = (
         (not sd.motion_exact and not cp.motion_exact,
-         "exact-time motion, a keyframe inside the shutter (ROADMAP A7)"),
+         "exact-time motion, a keyframe inside the shutter (the staged record takes it, "
+         "as in the JAX package)"),
         (rows_ok, rows_what),
     )
     return next((what for ok, what in checks if not ok), _mesh_unsupported_reason(sd, cp))

@@ -106,7 +106,9 @@ def auto_schedule(sd: SceneData, cp: CameraParams, device) -> str:
     (``crucible_tpu/models/render.py:162-181``) with its accelerator test
     read as "a CUDA device": 'mega' where the megakernel renders the scene,
     else 'pixel' where the fused bounce (K9) takes it, else 'record' on a
-    CUDA device where the record megakernel takes it, else 'pixel'."""
+    CUDA device where the record megakernel takes it, else 'pixel'. So
+    exact-time motion, which neither megakernel takes, renders on 'pixel':
+    a camera's alone with K9, a scene's on the staged bounce."""
     if integrator.megakernel_supported(sd, cp):
         return "mega"
     if integrator.fused_supported(sd):
@@ -159,8 +161,11 @@ def render_image_persistent(
     is the same bit for bit. A walk raises ``ValueError`` on a scene
     without its tables, and so does ``cull=False`` above the brute kernel's
     ``mk.MAX_ROWS`` rows (``mk.MAX_ROWS_ANIMATED`` for a moving table).
-    Exact-time motion (a keyframe inside the shutter window) raises
-    ``NotImplementedError``.
+    Exact-time motion (a keyframe inside the shutter window), which the
+    megakernels do not take, goes to 'pixel' under 'auto': a scene's on the
+    staged bounce, whose exact branch runs in lane chunks of
+    ``integrator.exact_lanes`` (which also caps the schedule's lanes); a
+    camera's alone through the fused bounce (K9).
 
     ``progress``: None (one dispatch, no host sync), True (``samples`` in
     about ``PROGRESS_CHUNKS`` chunks, ``render s/spp (t s)`` printed to
@@ -172,8 +177,6 @@ def render_image_persistent(
     its own record chunks. A failed dispatch raises: nothing falls back to
     another schedule."""
     _check_device(sd, cp, device)
-    if sd.motion_exact or cp.motion_exact:
-        raise NotImplementedError(integrator.EXACT_MOTION)
     if schedule == "auto":
         schedule = auto_schedule(sd, cp, device)
     report = _reporter(progress)
@@ -182,7 +185,7 @@ def render_image_persistent(
                                              progress=report)
         return fb.reshape(height, width, 3) / samples
     if schedule == "pixel":
-        lanes = default_lanes(device)
+        lanes = min(default_lanes(device), integrator.exact_lanes(sd))
 
         def dispatch(s0, s1):
             return integrator.trace_persistent(sd, cp, width, height, s1, max_depth, seed,

@@ -41,9 +41,12 @@ the record kernel's decisions, shaded by the eager replay, which evaluates
 image textures and checkers nested to any depth (``textures.value``) that
 the megakernel's shading does not take. :func:`trace_record` is the staged
 record over ``integrator.bounce_step`` for the scenes the record megakernel
-does not take (a mesh without a BVH; ``record_mode='auto'`` routes there).
-Not ported yet: the exact-time motion of the staged record and of the
-eager replay (each raises ``NotImplementedError``, ROADMAP A7). Not ported
+does not take (a mesh without a BVH, exact-time motion;
+``record_mode='auto'`` routes there). Exact-time motion (a keyframe inside
+the shutter) records and replays as in the JAX package: the record's
+far-root bit and the replay's t and normals come from the winners' spheres
+and vertices re-derived at each path's absolute time
+(``integrator.exact_sphere_winner`` / ``exact_tri_vertices``). Not ported
 by design (ROADMAP "Do not port"): the head/tail carry-handoff
 ``replay_split`` and its switch ``CRUCIBLE_GRAD_DEEP_IMPL=split``, which
 raises.
@@ -113,8 +116,8 @@ def rec_winner_id(rec: torch.Tensor) -> torch.Tensor:
 
 def replay_supported(sd: SceneData) -> bool:
     """True for every scene: the replay kernels take what
-    :func:`_use_replay_kernel` accepts and the eager replay the rest (it
-    raises, naming the queue item, on what is not ported yet)."""
+    :func:`_use_replay_kernel` accepts and the eager replay the rest,
+    exact-time motion included."""
     return True
 
 
@@ -123,14 +126,6 @@ def _use_replay_kernel(sd: SceneData) -> bool:
     static scenes with solid / checker textures under the default sky, up
     to ``rk.MAX_TABLE_ROWS`` rows."""
     return rk.supported(sd, int(sd.sph_center.shape[0]))
-
-
-def _check_eager(sd: SceneData) -> None:
-    """Raise for what the eager replay does not take yet."""
-    if sd.motion_exact or sd.tri_exact:
-        raise NotImplementedError(
-            "the replay of exact-time motion (a keyframe inside the shutter) is "
-            "not ported to crucible_tpu_torch yet (ROADMAP A7)")
 
 
 def _pack(flags: dict) -> torch.Tensor:
@@ -182,46 +177,65 @@ def trace_record(
     stay zero. The far-root bit F_ROOT1 is recomputed per sphere winner
     with the replay's own arithmetic (``_winner_quadratic``, which
     ``_replay_row`` takes its t from: the winner's quadratic, its center
-    and radius at the path's shutter fraction), so that the replayed t
-    follows the recorded root. The loop stops when no
-    lane is alive: one host sync a bounce, ``alive.any()`` before it.
-    Exact-time motion raises (ROADMAP A7)."""
+    and radius at the path's shutter fraction; in a motion_exact scene at
+    its absolute time, ``integrator.exact_sphere_winner``), so that the
+    replayed t follows the recorded root. The loop stops when no
+    lane is alive: one host sync a bounce, ``alive.any()`` before it. A
+    motion_exact scene records in lane chunks of ``integrator.exact_lanes``,
+    each its own bounce loop (lanes are independent: the same words), so
+    that no bounce holds the per-ray tables of every lane."""
     _check_record_capacity(sd)
-    _check_eager(sd)
+    integrator._check_staged(sd)
     with torch.no_grad():
         r = o.shape[0]
         rec = torch.zeros((max_depth, r), dtype=torch.int32, device=o.device)
         w = integrator.shutter_fraction(pixel_ids, sample_ids, seed) if sd.animated else None
-        cd, rd = integrator._motion_deltas(sd)
-        alive = torch.ones((r,), dtype=torch.bool, device=o.device)
-        o_c, d_c = o, d
-        for bounce in range(max_depth):
-            if not bool(alive.any()):  # the host sync of the bounce
-                break
-            s = integrator.bounce_step(sd, o_c, d_c, pixel_ids, sample_ids, bounce, seed,
-                                       return_decisions=True)
-            hit = alive & s["hit"]
-            is_tri = s["is_tri"] & hit
-            i_s = s["i_sph"]
+        for sl in integrator.exact_chunks(sd, r):  # one chunk without exact time
+            rec[:, sl] = _record_lanes(sd, o[sl], d[sl], pixel_ids[sl], sample_ids[sl], seed,
+                                       max_depth, None if w is None else w[sl])
+    return rec
+
+
+def _record_lanes(sd, o, d, pixel_ids, sample_ids, seed, max_depth, w):
+    """:func:`trace_record`'s bounce loop over one set of lanes (``w`` their
+    shutter fractions, None for a static scene) -> (max_depth, R) words."""
+    r = o.shape[0]
+    rec = torch.zeros((max_depth, r), dtype=torch.int32, device=o.device)
+    cd, rd = integrator._motion_deltas(sd)
+    t_ray = integrator.exact_time(sd, w) if sd.motion_exact and w is not None else None
+    alive = torch.ones((r,), dtype=torch.bool, device=o.device)
+    o_c, d_c = o, d
+    for bounce in range(max_depth):
+        if not bool(alive.any()):  # the host sync of the bounce
+            break
+        s = integrator.bounce_step(sd, o_c, d_c, pixel_ids, sample_ids, bounce, seed,
+                                   return_decisions=True)
+        hit = alive & s["hit"]
+        is_tri = s["is_tri"] & hit
+        i_s = s["i_sph"]
+        if t_ray is not None:
+            _, _, a_q, h_q, disc = _winner_quadratic(
+                o_c, d_c, *integrator.exact_sphere_winner(sd, i_s, t_ray))
+        else:
             _, _, a_q, h_q, disc = _winner_quadratic(
                 o_c, d_c, torch.index_select(sd.sph_center, 0, i_s),
                 torch.index_select(sd.sph_radius, 0, i_s), w,
                 None if w is None else torch.index_select(cd, 0, i_s),
                 None if w is None else torch.index_select(rd, 0, i_s))
-            near = (h_q - torch.sqrt(torch.clamp_min(disc, 0.0))) / a_q
-            root1 = ~(near > integrator.T_MIN)
-            cont = hit & s["scattered"]
-            flags = _pack(dict(
-                alive=alive, hit=hit, tri=is_tri, scat=cont, front=s["front"],
-                refl=s["decisions"]["reflect"], degen=s["decisions"]["degenerate"],
-                root1=root1 & ~is_tri))
-            win = torch.where(is_tri, s["i_tri"], i_s)
-            word = pack_record(torch.where(hit, win, 0), flags)
-            # A miss keeps the alive bit alone, a finished path nothing.
-            rec[bounce] = torch.where(hit, word, torch.where(alive, F_ALIVE, 0))
-            o_c = torch.where(cont[:, None], s["new_o"], o_c)
-            d_c = torch.where(cont[:, None], s["new_d"], d_c)
-            alive = cont
+        near = (h_q - torch.sqrt(torch.clamp_min(disc, 0.0))) / a_q
+        root1 = ~(near > integrator.T_MIN)
+        cont = hit & s["scattered"]
+        flags = _pack(dict(
+            alive=alive, hit=hit, tri=is_tri, scat=cont, front=s["front"],
+            refl=s["decisions"]["reflect"], degen=s["decisions"]["degenerate"],
+            root1=root1 & ~is_tri))
+        win = torch.where(is_tri, s["i_tri"], i_s)
+        word = pack_record(torch.where(hit, win, 0), flags)
+        # A miss keeps the alive bit alone, a finished path nothing.
+        rec[bounce] = torch.where(hit, word, torch.where(alive, F_ALIVE, 0))
+        o_c = torch.where(cont[:, None], s["new_o"], o_c)
+        d_c = torch.where(cont[:, None], s["new_d"], d_c)
+        alive = cont
     return rec
 
 
@@ -350,7 +364,6 @@ def trace_replay(
             integrator.make_sphere_table(sd), o, d, pixel_ids, sample_ids, seed, rec,
             accum_from=accum_from, valid=thr_mask, rad_given=rad_given,
         )
-    _check_eager(sd)
     if thr_in is None:
         thr_in = torch.ones_like(o) if thr_mask is None else (
             torch.where(thr_mask[:, None], 1.0, torch.zeros_like(o)))
@@ -376,7 +389,7 @@ def _full_textures(sd: SceneData) -> bool:
 
 
 def _replay_row(sub, sky_image, o_c, d_c, thr, word, w, pixel_ids, sample_ids, mesh, *,
-                pos, sky_kind, seed, bounce, accumulate, tex=None):
+                pos, sky_kind, seed, bounce, accumulate, tex=None, exact=None):
     """One replayed bounce (the step of the JAX package's jnp replay,
     ``crucible_tpu/models/replay.py:426-586``) -> (o, d, thr, the radiance
     it adds). ``sub`` (N, K) holds the table columns ``pos`` maps to their
@@ -386,7 +399,11 @@ def _replay_row(sub, sky_image, o_c, d_c, thr, word, w, pixel_ids, sample_ids, m
     (leaf order; ``integrator.make_tri_tables``' mats); ``tex`` None, or
     the texture table that ``textures.value`` evaluates at the winner (its
     texture id from table column 30, or ``mats`` column 18 for a triangle;
-    a sphere's uv from its outward normal, a triangle's (0, 0))."""
+    a sphere's uv from its outward normal, a triangle's (0, 0)); ``exact``
+    None, or (scene, t_ray) for a motion_exact scene: the winner's sphere
+    (and with ``tri_exact`` its triangle's vertices) from the scene's
+    tracks at the paths' absolute times ``t_ray`` (R,), as the record's
+    root bit and the staged bounce take them."""
     dec = rk._decode(word)
     hit, cont, front = dec["hit"], dec["cont"], dec["front"]
     idx = dec["idx"].long()
@@ -404,9 +421,13 @@ def _replay_row(sub, sky_image, o_c, d_c, thr, word, w, pixel_ids, sample_ids, m
         return srow[:, pos[c]:pos[c] + 3]
 
     # Hit t as the recorded root of the winner's quadratic.
-    c_w, r_w, a_q, h_q, disc = _winner_quadratic(
-        o_c, d_c, attr3(0), attr(3), w, None if w is None else attr3(24),
-        None if w is None else attr(27))
+    if exact is not None:
+        c_w, r_w, a_q, h_q, disc = _winner_quadratic(o_c, d_c, *integrator.exact_sphere_winner(
+            exact[0], torch.where(is_tri, 0, idx) if mesh else idx, exact[1]))
+    else:
+        c_w, r_w, a_q, h_q, disc = _winner_quadratic(
+            o_c, d_c, attr3(0), attr(3), w, None if w is None else attr3(24),
+            None if w is None else attr(27))
     ok = disc > 0.0
     sqrtd = torch.where(ok, torch.sqrt(torch.where(ok, disc, 1.0)), 0.0)
     t_hit = (h_q + torch.where(dec["root1"], sqrtd, -sqrtd)) / a_q
@@ -418,7 +439,10 @@ def _replay_row(sub, sky_image, o_c, d_c, thr, word, w, pixel_ids, sample_ids, m
         # holds table column c), each an indexed load.
         tv0, tv1, tv2, tri_mat, mats, deltas = mesh
         ti = torch.where(is_tri, idx, 0)
-        v0, v1, v2 = (gather.rows(v, ti) for v in (tv0, tv1, tv2))
+        if exact is not None and exact[0].tri_exact:
+            v0, v1, v2 = integrator.exact_tri_vertices(exact[0], ti, exact[1])
+        else:
+            v0, v1, v2 = (gather.rows(v, ti) for v in (tv0, tv1, tv2))
         if deltas is not None:
             v0, v1, v2 = (v + w[:, None] * gather.rows(vd, ti)
                           for v, vd in zip((v0, v1, v2), deltas))
@@ -491,10 +515,12 @@ def _replay_eager(sd, table, o, d, pixel_ids, sample_ids, seed, rec, *, early_ex
     sub = torch.index_select(table, 1, torch.tensor(cols, device=table.device))
     pos = {c: i for i, c in enumerate(cols)}
     w = integrator.shutter_fraction(pixel_ids, sample_ids, seed) if sd.animated else None
+    integrator._check_staged(sd)
+    exact = (sd, integrator.exact_time(sd, w)) if sd.motion_exact and sd.animated else None
     mesh = None
     if sd.num_tris > 0:
-        deltas = ((sd.tri_v0_d, sd.tri_v1_d, sd.tri_v2_d) if integrator.mesh_moves(sd)
-                  else None)
+        deltas = ((sd.tri_v0_d, sd.tri_v1_d, sd.tri_v2_d)
+                  if integrator.mesh_moves(sd) and not sd.tri_exact else None)
         mesh = (sd.tri_v0, sd.tri_v1, sd.tri_v2, sd.tri_mat, integrator.make_tri_tables(sd)[2],
                 deltas)
     rows = rec.shape[0]
@@ -505,7 +531,8 @@ def _replay_eager(sd, table, o, d, pixel_ids, sample_ids, seed, rec, *, early_ex
     for b in range(rows):
         bounce = bounce0 + b
         row = functools.partial(_replay_row, pos=pos, sky_kind=sd.sky_kind, seed=seed,
-                                bounce=bounce, accumulate=bounce >= accum_from, tex=tex)
+                                bounce=bounce, accumulate=bounce >= accum_from, tex=tex,
+                                exact=exact)
         args = (sub, sd.sky_image, o_c, d_c, thr, rec[b], w, pixel_ids, sample_ids, mesh)
         if torch.is_grad_enabled():
             o_c, d_c, thr, add = checkpoint(row, *args, use_reentrant=False,
@@ -895,8 +922,11 @@ def _record_replay_chunk(sd, cp, width, height, sample0, spp, seed, chunk_spp, m
                        device=dev).repeat_interleave(p)
     o, d, _ = generate_rays(cp, width, height, pix, smp, seed)
     smp_rec = torch.where(smp < spp, smp, mk.NO_SAMPLE)
-    rec = _phase("record", dev, trace_record_mega, sd, cp, width, height, pix, smp_rec,
+    mode = resolve_record_mode("auto", sd, cp)
+    rec = _phase("record", dev, record_pass, mode, sd, cp, width, height, pix, smp_rec,
                  seed, max_depth)
+    if mode == "staged":  # the staged record traces padding lanes too: drop them
+        rec = torch.where((smp < spp)[None], rec, 0)
     rad = _phase("replay", dev, trace_replay, sd, o, d, pix, smp, seed, max_depth, rec,
                  early_exit=True)
     return rad.reshape(chunk_spp, p, 3).sum(dim=0)
@@ -915,7 +945,8 @@ def render_record_replay(
 ) -> torch.Tensor:
     """The ``record`` schedule's forward render -> per-pixel radiance SUMS
     (P, 3) over ``spp`` samples (divide by spp): the record megakernel (K2,
-    or K5-K8 where the scene routes there) writes each path's decisions,
+    or K5-K8 where the scene routes there; the staged record where it does
+    not take the scene, ``resolve_record_mode``) writes each path's decisions,
     which read no albedo or sky, and the eager replay shades them unsplit,
     walking only the rows that hold a live lane. It takes image textures
     and nested checkers, which the megakernel's shading does not.

@@ -200,10 +200,8 @@ class IdVendor:
 class SceneData:
     """Flat SoA scene: tensors on one device + static metadata.
 
-    Field names and layouts are those of the JAX package's ``SceneData``;
-    the exact-time track fields are absent because the port does not
-    render them yet (``motion_exact`` and ``tri_exact`` still say whether a
-    bridged scene needs them). ``sky_image`` is None under the
+    Field names and layouts are those of the JAX package's ``SceneData``.
+    ``sky_image`` is None under the
     default sky (where the JAX package keeps a (1, 1, 3) placeholder).
     ``Scene.build`` always fills the triangle and triangle-BVH fields, with
     the JAX package's one-row placeholders where there is no mesh; a
@@ -236,6 +234,30 @@ class SceneData:
     # The shutter window (absolute times) of a motion_exact scene, else None.
     motion_t0: Optional[torch.Tensor] = None  # () float32
     motion_t1: Optional[torch.Tensor] = None  # () float32
+    # Exact-time tracks (a motion_exact scene's, else None): every sphere's
+    # translate and scale tracks (timeline.lower_translate / lower_scale,
+    # padded by pad_tracks / pad_scale_tracks to the table's rows), which
+    # the staged bounce evaluates at each ray's absolute time t = motion_t0
+    # + w * (motion_t1 - motion_t0); the radius is scale component 0.
+    sph_tr_t0: Optional[torch.Tensor] = None  # (N, Kt) float32
+    sph_tr_t1: Optional[torch.Tensor] = None
+    sph_tr_delta: Optional[torch.Tensor] = None  # (N, Kt, 3)
+    sph_tr_init: Optional[torch.Tensor] = None  # (N, 3)
+    sph_sc_t0: Optional[torch.Tensor] = None  # (N, Ks)
+    sph_sc_t1: Optional[torch.Tensor] = None
+    sph_sc_from: Optional[torch.Tensor] = None  # (N, Ks, 3)
+    sph_sc_to: Optional[torch.Tensor] = None
+    # A tri_exact mesh's vertex tracks, vertex-major (row vi * M + k is
+    # vertex vi of triangle k, in the vertex arrays' order: leaf order for
+    # a BVH mesh, padded for a brute one).
+    tri_tr_t0: Optional[torch.Tensor] = None  # (3M, Kt)
+    tri_tr_t1: Optional[torch.Tensor] = None
+    tri_tr_delta: Optional[torch.Tensor] = None  # (3M, Kt, 3)
+    tri_tr_init: Optional[torch.Tensor] = None  # (3M, 3)
+    tri_sc_t0: Optional[torch.Tensor] = None  # (3M, Ks)
+    tri_sc_t1: Optional[torch.Tensor] = None
+    tri_sc_from: Optional[torch.Tensor] = None  # (3M, Ks, 3)
+    tri_sc_to: Optional[torch.Tensor] = None
 
     sky_kind: int = sky_mod.DEFAULT
     num_spheres: int = 0
@@ -326,6 +348,40 @@ def _shutter_vertices(tris, va, t_open: float, t_close: float):
                * tl_mod.eval_translate_np(p0, p1, pd, init, t))
         out[anim] = pos.reshape(-1, 3, 3).astype(np.float32)
     return va, vb
+
+
+def _exact_tracks(prefix: str, timelines: dict, init, scale0) -> dict:
+    """The exact-time track fields ``<prefix>_tr_*`` / ``<prefix>_sc_*``
+    (numpy, float32) of len(init) rows: row k lowers ``timelines[k]`` where
+    it has one; every other row holds still at ``init[k]`` with uniform
+    scale ``scale0[k]`` (one init segment), filled in one numpy batch. The
+    arrays equal the JAX lowering's, which pads a still timeline's tracks
+    per row."""
+    n = len(init)
+    rows = np.asarray(list(timelines), np.int64)
+    tls = list(timelines.values())
+    tr = [tl.lower_translate() for tl in tls]
+    sc = [tl.lower_scale() for tl in tls]
+    # A still row lowers to no translate segment and one scale segment.
+    a0, a1, ad = tl_mod.pad_tracks(tr, max([len(x[0]) for x in tr] + [1]))
+    b0, b1, bf, bt = tl_mod.pad_scale_tracks(sc, max([len(x[0]) for x in sc] + [1]))
+    t0 = np.zeros((n, a0.shape[1]), np.float32)
+    t1 = np.zeros_like(t0)
+    delta = np.zeros((n, a0.shape[1], 3), np.float32)
+    s0 = np.full((n, b0.shape[1]), np.inf, np.float32)
+    s1 = np.full_like(s0, np.inf)
+    sf = np.ones((n, b0.shape[1], 3), np.float32)
+    s0[:, 0] = s1[:, 0] = np.float32(tl_mod._INIT_TIME)
+    sf[:, 0] = np.asarray(scale0, np.float32)[:, None]
+    st = sf.copy()
+    pos = np.asarray(init, np.float32).copy()
+    if len(rows):
+        t0[rows], t1[rows], delta[rows] = a0, a1, ad
+        s0[rows], s1[rows], sf[rows], st[rows] = b0, b1, bf, bt
+        pos[rows] = np.asarray([tl.init_pos for tl in tls], np.float32)
+    return {f"{prefix}_tr_t0": t0, f"{prefix}_tr_t1": t1, f"{prefix}_tr_delta": delta,
+            f"{prefix}_tr_init": pos, f"{prefix}_sc_t0": s0, f"{prefix}_sc_t1": s1,
+            f"{prefix}_sc_from": sf, f"{prefix}_sc_to": st}
 
 
 def _union_kinks(tris, lo, hi, t_open: float, t_close: float):
@@ -694,9 +750,12 @@ class Scene:
         deltas (``tri_v0_d`` ... for every mesh, zeros for a triangle
         without keyframes); the renderers lerp them per ray. A timeline
         boundary strictly inside the window sets ``motion_exact`` (and
-        ``motion_t0`` / ``motion_t1``; ``tri_exact`` for a triangle's): the
-        linear lowering departs from the timeline there, and the exact-time
-        tracks that the renderers would need are not ported.
+        ``tri_exact`` for a triangle's): the linear lowering departs from
+        the timeline there, so the scene also carries the shutter window
+        (``motion_t0`` / ``motion_t1``) and every sphere's exact-time
+        tracks (``sph_tr_*`` / ``sph_sc_*``), and with ``tri_exact`` every
+        vertex's (``tri_tr_*`` / ``tri_sc_*``, vertex-major in the vertex
+        arrays' order), which the staged bounce evaluates per ray.
 
         Visible triangles above ``BVH_MIN_TRIS`` get a BVH (``bvh_method``
         "sah" or "median", ``leaf_size`` triangles a leaf: None means
@@ -812,6 +871,20 @@ class Scene:
                               tri_v2_d=t(v_close[2] - v2, np.float32))
         if motion_exact:
             motion.update(motion_t0=t(t_open, np.float32), motion_t1=t(t_close, np.float32))
+            tracks = _exact_tracks(
+                "sph", {k: s.timeline for k, s in enumerate(spheres) if s.timeline is not None},
+                np.pad(np.asarray([s.center for s in spheres], np.float32).reshape(-1, 3),
+                       ((0, n_pad - n), (0, 0))),
+                np.pad(np.asarray([s.radius for s in spheres], np.float32), (0, n_pad - n),
+                       constant_values=1.0))
+            if tri_mid and m:
+                m_rows = v0.shape[0]  # leaf order for a BVH mesh, padded for a brute one
+                src = [vis_tris[j] for j in perm] if use_bvh else vis_tris
+                tracks.update(_exact_tracks(
+                    "tri", {vi * m_rows + k: tr.timelines[vi] for vi in range(3)
+                            for k, tr in enumerate(src) if tr.timelines is not None},
+                    np.concatenate([v0, v1, v2]), np.ones((3 * m_rows,), np.float32)))
+            motion.update({k: t(a, np.float32) for k, a in tracks.items()})
 
         # Structure tables for the megakernel's walks, past the brute
         # search's crossover: a static scene's sphere BVH (the JAX

@@ -6,7 +6,9 @@ CUDA tensors, its plain version for CPU tensors. The backward differentiates
 the hit distance as an IMPLICIT function of the winning sphere's quadratic
 f(t) = |o + t d - c|^2 - r^2 = 0: dt/dtheta = -(df/dtheta) / (df/dt), so it
 touches only the R winners instead of an (R, N) candidate matrix. Winners
-and hit flags are discrete and carry no gradient.
+and hit flags are discrete and carry no gradient. Per-ray tables, each
+sphere at each ray's own time (exact-time motion), take a plain (R, N)
+search with the same backward.
 
 :func:`hit_spheres_moving` is the closest hit against linearly moving
 spheres, in plain torch with the same winner-only backward: the semantic
@@ -14,7 +16,8 @@ reference of the motion branches of K8 and K9, and the staged bounce's
 search for animated scenes (direct AD on a moving scene runs it).
 
 Triangles: :func:`hit_triangles`, the brute (R, M) Möller–Trumbore search
-of small meshes, differentiable through the winner's own t;
+of small meshes (shared or per-ray vertices), differentiable through the
+winner's own t;
 :func:`triangle_normal`; and :func:`hit_aabbs`, the batched slab test. The
 BVH walk over big meshes is ``ops/traverse.py``.
 """
@@ -32,45 +35,76 @@ BIG = sphere_hit.BIG
 MT_EPS = 1e-8  # Möller–Trumbore determinant guard (parallel ray and plane)
 
 
-class _ClosestHit(torch.autograd.Function):
-    """(o, d, centers, radii, active_f, t_min) -> (t, idx, hit)."""
+def per_ray_closest(o, d, cx, cy, cz, radii, act, t_min):
+    """The (R, N) closest-hit search of per-ray tables, given as their
+    centers' components cx, cy, cz (R, N) and radii (R, N) or (1, N), with
+    ``act`` (R, N) or (1, N) bool -> (t (R,), BIG on a miss; idx (R,)
+    int64, the lowest row at the minimum). The JAX package's per-ray form:
+    d.c and o.c summed per component, a root needs a discriminant >= 0,
+    the near root preferred. No autograd (see :func:`winner_t`)."""
+    with torch.no_grad():
+        d_dot_c = d[:, 0:1] * cx + d[:, 1:2] * cy + d[:, 2:3] * cz
+        o_dot_c = o[:, 0:1] * cx + o[:, 1:2] * cy + o[:, 2:3] * cz
+        c_sq = cx * cx + cy * cy + cz * cz
+        a = dot(d, d)[:, None]
+        h = d_dot_c - dot(d, o)[:, None]
+        c = c_sq - 2.0 * o_dot_c + dot(o, o)[:, None] - radii * radii
+        disc = h * h - a * c
+        pos = disc > 0.0
+        sqrtd = torch.where(pos, torch.sqrt(torch.where(pos, disc, 1.0)), 0.0)
+        root0 = (h - sqrtd) / a
+        root1 = (h + sqrtd) / a
+        ok0 = (root0 > t_min) & (root0 < math.inf)
+        ok1 = (root1 > t_min) & (root1 < math.inf)
+        root = torch.where(ok0, root0, root1)
+        t_all = torch.where((disc >= 0.0) & (ok0 | ok1) & act, root, BIG)
+        return t_all.min(dim=1)
+
+
+class _WinnerT(torch.autograd.Function):
+    """(o, d, c_w, r_w, t, hit) -> t, each ray's hit distance on its
+    winning sphere (center c_w (R, 3), radius r_w (R,)), with the implicit
+    backward on that sphere's quadratic (module docstring): the cotangents
+    of o, d, c_w and r_w."""
 
     @staticmethod
-    def forward(ctx, o, d, centers, radii, active_f, t_min):
-        c0, c1, c2 = centers[:, 0], centers[:, 1], centers[:, 2]
-        csr = c0 * c0 + c1 * c1 + c2 * c2 - radii * radii
-        t, idx, hit = sphere_hit.hit_spheres(
-            o.contiguous(), d.contiguous(), centers.contiguous(),
-            csr.contiguous(), active_f.contiguous(), t_min,
-        )
-        ctx.mark_non_differentiable(idx, hit)
-        ctx.save_for_backward(o, d, centers, radii, t, idx, hit)
-        return t, idx, hit
+    def forward(ctx, o, d, c_w, r_w, t, hit):
+        ctx.save_for_backward(o, d, c_w, r_w, t, hit)
+        return t.clone()
 
     @staticmethod
-    def backward(ctx, t_bar, _idx_bar, _hit_bar):
-        o, d, centers, radii, t, idx, hit = ctx.saved_tensors
-        idx = idx.to(torch.int64)
-        c_w = torch.index_select(centers, 0, idx)
-        # Miss lanes carry t = BIG; BIG * |d| overflows to inf and 0 * inf
-        # would NaN the masked-out products below, so mask t first.
-        t_safe = torch.where(hit, t, 1.0)
-        nvec = o + t_safe[:, None] * d - c_w  # hit point minus center
-        den = (d * nvec).sum(-1)  # (df/dt) / 2 at the root
-        # Tangent hits (den ~ 0) have a diverging derivative: no gradient.
-        steep = torch.abs(den) > 1e-12
-        g = torch.where(hit & steep, t_bar / torch.where(steep, den, 1.0), 0.0)
-        need_o, need_d, need_c, need_r = ctx.needs_input_grad[:4]
-        go = -g[:, None] * nvec if need_o else None
-        gd = -(g * t_safe)[:, None] * nvec if need_d else None
-        gc = gr = None
-        if need_c:
-            gc_rows = torch.where(hit[:, None], g[:, None] * nvec, 0.0)
-            gc = torch.zeros_like(centers).index_add_(0, idx, gc_rows)
-        if need_r:
-            gr_rows = torch.where(hit, g * torch.index_select(radii, 0, idx), 0.0)
-            gr = torch.zeros_like(radii).index_add_(0, idx, gr_rows)
-        return go, gd, gc, gr, None, None
+    def backward(ctx, t_bar):
+        o, d, c_w, r_w, t, hit = ctx.saved_tensors
+        return (*_winner_cotangents(o, d, c_w, r_w, t, hit, t_bar, ctx.needs_input_grad),
+                None, None)
+
+
+def _winner_cotangents(o, d, c_w, r_w, t, hit, t_bar, need):
+    """The cotangents of o, d, c_w and r_w (None where ``need`` says no)
+    of hit distances t on the winners' quadratics (module docstring)."""
+    # Miss lanes carry t = BIG; BIG * |d| overflows to inf and 0 * inf
+    # would NaN the masked-out products below, so mask t first.
+    t_safe = torch.where(hit, t, 1.0)
+    nvec = o + t_safe[:, None] * d - c_w  # hit point minus center
+    den = (d * nvec).sum(-1)  # (df/dt) / 2 at the root
+    # Tangent hits (den ~ 0) have a diverging derivative: no gradient.
+    steep = torch.abs(den) > 1e-12
+    g = torch.where(hit & steep, t_bar / torch.where(steep, den, 1.0), 0.0)
+    go = -g[:, None] * nvec if need[0] else None
+    gd = -(g * t_safe)[:, None] * nvec if need[1] else None
+    gc = torch.where(hit[:, None], g[:, None] * nvec, 0.0) if need[2] else None
+    gr = torch.where(hit, g * r_w, 0.0) if need[3] else None
+    return go, gd, gc, gr
+
+
+def winner_t(o, d, t, hit, c_w, r_w):
+    """The hit distances ``t`` (R,) of a search made outside autograd, on
+    the tape: differentiable in o, d and the winners' centers c_w (R, 3)
+    and radii r_w (R,) (each ray's distance as an implicit function of
+    its winner's quadratic). Every sphere search here returns its t so;
+    a table's cotangent comes from the gather of its winners' rows
+    (``index_select``, whose backward is an ``index_add``)."""
+    return _WinnerT.apply(o, d, c_w, r_w, t, hit)
 
 
 def hit_spheres(o, d, centers, radii, active, t_min):
@@ -78,20 +112,38 @@ def hit_spheres(o, d, centers, radii, active, t_min):
 
     Args:
       o, d: (R, 3) float32 ray origins / directions (d need not be unit).
-      centers: (N, 3); radii: (N,); active: (N,) bool or 0/1, False for
-        hidden and padding rows.
+      centers: (N, 3), or (R, N, 3) per-ray tables (exact-time motion: every
+        sphere at each ray's own time); radii: (N,) or (R, N); active: (N,)
+        or (R, N) bool or 0/1, False for hidden and padding rows.
       t_min: float, the exclusive lower bound of accepted roots; roots are
         accepted below BIG (the JAX callers' t_max is infinite).
 
-    Returns (t (R,), BIG on a miss; idx (R,) int32, 0 on a miss; hit (R,)).
-    """
-    if centers.dim() != 2:
-        raise NotImplementedError(
-            "per-ray sphere tables (exact-time motion) are not ported to "
-            "crucible_tpu_torch yet"
-        )
+    Returns (t (R,), BIG on a miss; idx (R,) int32, 0 on a miss, the lowest
+    row among equal t; hit (R,)). A shared table goes to K10; per-ray
+    tables are searched in plain torch (no kernel computes them, in the
+    JAX package either), with the same winner-only backward, so the caller
+    keeps (R, N) small (``integrator.exact_lanes``)."""
+    if centers.dim() == 3:
+        act = torch.as_tensor(active, device=centers.device).to(torch.float32) > 0.0
+        radii = torch.broadcast_to(radii, centers.shape[:2])
+        t, idx = per_ray_closest(o, d, *centers.unbind(-1), radii,
+                                 act if act.dim() == 2 else act[None], float(t_min))
+        # The winners' rows, gathered on the tape (their backward scatters
+        # at (ray, winner)).
+        c_w = torch.gather(centers, 1, idx[:, None, None].expand(-1, 1, 3))[:, 0]
+        r_w = torch.gather(radii, 1, idx[:, None])[:, 0]
+        hit = t < BIG
+        return winner_t(o, d, t, hit, c_w, r_w), idx.to(torch.int32), hit
     active_f = torch.as_tensor(active, device=centers.device).to(torch.float32)
-    return _ClosestHit.apply(o, d, centers, radii, active_f, float(t_min))
+    with torch.no_grad():
+        c0, c1, c2 = centers[:, 0], centers[:, 1], centers[:, 2]
+        csr = c0 * c0 + c1 * c1 + c2 * c2 - radii * radii
+        t, idx, hit = sphere_hit.hit_spheres(
+            o.contiguous(), d.contiguous(), centers.contiguous(), csr.contiguous(),
+            active_f.contiguous(), float(t_min))
+    rows = idx.to(torch.int64)
+    return (winner_t(o, d, t, hit, torch.index_select(centers, 0, rows),
+                     torch.index_select(radii, 0, rows)), idx, hit)
 
 
 def _moving_closest(o, d, w, ca, cd, ra, rd, act, t_min):
@@ -142,20 +194,12 @@ class _MovingHit(torch.autograd.Function):
         wc = w[:, None]
         c_w = torch.index_select(ca, 0, idx) + wc * torch.index_select(cd, 0, idx)
         r_w = torch.index_select(ra, 0, idx) + w * torch.index_select(rd, 0, idx)
-        # Miss lanes carry t = BIG: mask it before it meets d (see _ClosestHit).
-        t_safe = torch.where(hit, t, 1.0)
-        nvec = o + t_safe[:, None] * d - c_w
-        den = (d * nvec).sum(-1)
-        steep = torch.abs(den) > 1e-12
-        g = torch.where(hit & steep, t_bar / torch.where(steep, den, 1.0), 0.0)
         need = ctx.needs_input_grad
-        go = -g[:, None] * nvec if need[0] else None
-        gd = -(g * t_safe)[:, None] * nvec if need[1] else None
+        go, gd, gc_rows, gr_rows = _winner_cotangents(o, d, c_w, r_w, t, hit, t_bar,
+                                                      (need[0], need[1], True, True))
         # w is a random sample: detached (its derivative would move the
         # shutter instant, which the detached-sampling estimator excludes).
         gw = torch.zeros_like(w) if need[2] else None
-        gc_rows = torch.where(hit[:, None], g[:, None] * nvec, 0.0)
-        gr_rows = torch.where(hit, g * r_w, 0.0)
 
         def scatter(like, rows, on):  # index_add, not an indexed put (C8)
             return torch.zeros_like(like).index_add_(0, idx, rows) if on else None
@@ -237,6 +281,8 @@ def hit_triangles(o, d, v0, v1, v2, active, t_min, t_max=math.inf, v0d=None, v1d
       v0d, v1d, v2d, w: optional linear shutter motion: vertex + w * delta
         with per-ray w (R,), which forms (R, M, 3) tensors, so keep M small
         (the BVH walk, ``ops/traverse.py``, lerps per leaf instead).
+      v0, v1, v2 may instead be (R, M, 3) per-ray vertices (exact-time
+        motion: every vertex at each ray's own time), without deltas.
 
     Returns (t (R,), BIG on a miss; idx (R,) int32, the lowest row among
     equal nearest t, 0 on a miss; hit (R,)). The (R, M) search runs outside
@@ -244,14 +290,15 @@ def hit_triangles(o, d, v0, v1, v2, active, t_min, t_max=math.inf, v0d=None, v1d
     the gradient reaches o, d and the winners' vertices without saving an
     (R, M) tensor (the JAX package differentiates the same value).
     """
-    if v0.dim() != 2:
-        raise NotImplementedError(
-            "per-ray triangle vertices (exact-time motion) are not ported to "
-            "crucible_tpu_torch yet (ROADMAP A7)"
-        )
+    per_ray = v0.dim() == 3
+    if per_ray and v0d is not None:
+        raise ValueError("per-ray triangle vertices take no shutter deltas")
     moving = v0d is not None
 
     def at(v, vd, rows=None):  # the vertices, lerped to each ray's w
+        if per_ray:
+            return v if rows is None else torch.gather(
+                v, 1, rows[:, None, None].expand(-1, 1, 3))[:, 0]
         if rows is None:
             return v[None] if not moving else v[None] + w[:, None, None] * vd[None]
         v = torch.index_select(v, 0, rows)
@@ -261,7 +308,7 @@ def hit_triangles(o, d, v0, v1, v2, active, t_min, t_max=math.inf, v0d=None, v1d
     with torch.no_grad():
         t_all, valid = mt_hit(o.detach()[:, None, :], d.detach()[:, None, :],
                               at(v0, v0d), at(v1, v1d), at(v2, v2d), t_min, t_max)
-        t_all = torch.where(valid & act[None, :], t_all, BIG)
+        t_all = torch.where(valid & act[None, :] if act.dim() == 1 else valid & act, t_all, BIG)
         t_best, idx = t_all.min(dim=1)
     hit = t_best < BIG
     t_win, _ = mt_hit(o, d, at(v0, v0d, idx), at(v1, v1d, idx), at(v2, v2d, idx),

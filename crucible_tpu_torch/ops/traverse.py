@@ -11,7 +11,9 @@ at most as many steps as there are nodes.
 
 :func:`lockstep_walk` is the walk with a pluggable leaf test: the staged
 path's :func:`bvh_hit_triangles` (Möller–Trumbore, ``intersect.mt_hit``, the
-one form of the JAX package's ``_mt_components`` / ``_mt_single``) and the
+one form of the JAX package's ``_mt_components`` / ``_mt_single``, on the
+leaf rows' vertices, lerped for a moving mesh, or from the exact-time
+vertex hook ``vertex_fn``) and the
 plain version of the megakernel's triangle stage (K7, the Woop
 unit-triangle test, ``ops/kernels/megakernel.py``) both run it.
 """
@@ -104,18 +106,18 @@ def bvh_hit_triangles(o, d, v0, v1, v2, node_min, node_max, node_first, node_cou
       leaf_size: the tree's largest leaf (the walk reads each leaf's count).
       v0d, v1d, v2d, w: optional linear shutter motion, vertex(w) = v + w
         vd with per-ray w, lerped per leaf row.
-      vertex_fn: the exact per-ray-time vertex hook, not ported (raises).
+      vertex_fn: the exact per-ray-time vertex hook: ``vertex_fn(lanes,
+        rows) -> (a, b, c)``, each (L, W, 3), the vertices of the leaf rows
+        ``rows`` (L, W) at the times of the rays ``lanes`` (L,) (their ids
+        in this batch), in place of v0 / v1 / v2 (which then only give the
+        row count). The node boxes must hold each triangle over the whole
+        shutter window (``Scene.build`` grows them at every kink).
 
     Returns (t (R,), BIG on a miss; idx (R,) int32, the winner in leaf
     order; hit (R,)). The walk carries no gradient, as the JAX package's
     ``lax.while_loop`` does not in reverse mode: with autograd recording,
     inputs that need a gradient raise ``NotImplementedError``.
     """
-    if vertex_fn is not None:
-        raise NotImplementedError(
-            "exact per-ray-time triangle vertices are not ported to "
-            "crucible_tpu_torch yet (ROADMAP A7)"
-        )
     if torch.is_grad_enabled() and any(
             x is not None and x.requires_grad for x in (o, d, v0, v1, v2, v0d, v1d, v2d)):
         raise NotImplementedError(
@@ -126,6 +128,11 @@ def bvh_hit_triangles(o, d, v0, v1, v2, node_min, node_max, node_first, node_cou
     moving = v0d is not None
 
     def leaf_test(lanes, rows):
+        if vertex_fn is not None:
+            a, b, c = vertex_fn(lanes, rows)
+            return mt_hit(o[lanes][:, None, :], d[lanes][:, None, :], a, b, c, t_min,
+                          math.inf)
+
         def vert(v, vd):
             x = v[rows]
             return x if not moving else x + w[lanes][:, None, None] * vd[rows]

@@ -133,8 +133,9 @@ def render_image_sharded(
     linear radiance (height, width, 3) float32: the pixel ids, padded with
     the last one to a multiple of the positions, split in equal flat
     shares (``mesh.ray_sharding``); each position traces its pixels'
-    ``samples`` through ``integrator.render_rays`` (K10 on the card) and
-    averages them. Bit for bit ``integrator.render_rays`` over the whole
+    ``samples`` through ``integrator.render_rays`` (K10 on the card; the
+    exact branch for exact-time motion, which the megakernel does not
+    take) and averages them. Bit for bit ``integrator.render_rays`` over the whole
     image."""
     mesh = mesh_mod.make_mesh() if mesh is None else mesh
     w, h, spp, depth, seed_v = _settings(scene, samples, max_depth, seed)

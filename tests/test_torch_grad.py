@@ -221,14 +221,16 @@ def _with_env(env, fn):
 @pytest.mark.parametrize(
     "call",
     [
-        # Direct AD takes moving spheres; exact-time motion raises (A7).
-        lambda a: G.loss_and_grad(a[0], replace(a[1], animated=True, motion_exact=True),
-                                  *a[2:6], method="ad", **a[6]),
+        # Direct AD takes moving spheres and exact-time motion (A7,
+        # tests/test_torch_exact_grad.py); a scene that says exact time
+        # without its tracks raises ValueError.
+        (lambda a: G.loss_and_grad(a[0], replace(a[1], animated=True, motion_exact=True),
+                                   *a[2:6], method="ad", **a[6]), ValueError),
         # The head/tail replay_split is under ROADMAP's "Do not port".
-        lambda a: _with_env(
+        (lambda a: _with_env(
             {"CRUCIBLE_GRAD_DEEP_IMPL": "split"},
             lambda: G.loss_and_grad(*a[:6], grad_split=True, **a[6]),
-        ),
+        ), NotImplementedError),
         # The staged record, refused until ROADMAP A10, runs:
         # _staged_record_matches_mega.
         "staged_record",
@@ -246,7 +248,8 @@ def test_unported_paths_raise(call):
     if call == "staged_record":
         _staged_record_matches_mega(sd, cp, pix)
         return
-    with pytest.raises(NotImplementedError):
+    call, error = call
+    with pytest.raises(error):
         call((params, sd, cp, target, pix, 0, kw))
 
 

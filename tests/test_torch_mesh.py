@@ -511,17 +511,24 @@ def test_what_still_raises():
     with pytest.raises(NotImplementedError, match="BVH"):
         G.loss_and_grad(G.extract_params(sd, cp), sd, cp, torch.zeros((16, 3)), torch.arange(16),
                         0, width=4, height=4, spp=1, max_depth=2, method="ad")
-    with pytest.raises(NotImplementedError, match="A7"):
-        ttraverse.bvh_hit_triangles(torch.zeros(1, 3), torch.ones(1, 3), sd.tri_v0, sd.tri_v1,
-                                    sd.tri_v2, sd.bvh_min, sd.bvh_max, sd.bvh_first,
-                                    sd.bvh_count, sd.bvh_miss, tmk.T_MIN, tmk.BIG, 32,
-                                    vertex_fn=lambda pid: None)
-    # A moving mesh whose keyframe falls inside the shutter: exact time (A7).
+    # The exact-time vertex hook (ROADMAP A7): a hook that returns the
+    # leaf rows' own vertices walks as the walk without it, bit for bit.
+    g = torch.Generator().manual_seed(5)
+    o = torch.randn((256, 3), generator=g) * 0.1 + cp.look_from
+    d = torch.randn((256, 3), generator=g)
+    walk = (o, d, sd.tri_v0, sd.tri_v1, sd.tri_v2, sd.bvh_min, sd.bvh_max, sd.bvh_first,
+            sd.bvh_count, sd.bvh_miss, tmk.T_MIN, tmk.BIG, 32)
+    hooked = ttraverse.bvh_hit_triangles(
+        *walk, vertex_fn=lambda lanes, rows: (sd.tri_v0[rows], sd.tri_v1[rows], sd.tri_v2[rows]))
+    plain = ttraverse.bvh_hit_triangles(*walk)
+    assert all(torch.equal(x, y) for x, y in zip(hooked, plain)) and bool(plain[2].any())
+    # A moving mesh whose keyframe falls inside the shutter renders through
+    # the staged bounce (exact time, A7; the megakernel refuses it).
     sc = meshes.fan(tscene, 16)
     sc.translate_y(0.5, 1.0 / 96.0, "lerp", "local", "tri0")
-    assert sc.build(device="cpu").tri_exact
-    with pytest.raises(NotImplementedError, match="exact-time"):
-        trender.render_image(sc, 1, 2, device="cpu")
+    msd = sc.build(device="cpu")
+    assert msd.tri_exact and not tint.megakernel_supported(msd, sc.scene_cam.params(device="cpu"))
+    assert bool(torch.isfinite(trender.render_image(sc, 1, 2, device="cpu")).all())
     with pytest.raises(FileNotFoundError, match="teapot.obj"):
         tdemo.moving_teapot()
     # A mesh beside the sphere walk, refused until ROADMAP A11, runs: the
@@ -547,8 +554,9 @@ def test_what_still_raises():
     got = tmk.run_megakernel_record(**tree, **tri, max_depth=2)
     want = tmk.run_megakernel_record(**inputs, **tri, max_depth=2)
     assert all(torch.equal(x, y) for x, y in zip(got, want))
-    # The eager replay of a mesh whose keyframe falls inside the shutter.
-    with pytest.raises(NotImplementedError, match="A7"):
+    # The eager replay of a mesh that says its keyframe falls inside the
+    # shutter, without its vertex tracks.
+    with pytest.raises(ValueError, match="vertex tracks"):
         trep.trace_replay(replace(sd, animated=True, tri_exact=True), torch.zeros(4, 3),
                           torch.ones(4, 3), torch.arange(4), torch.zeros(4), 0, 2,
                           torch.zeros((2, 4), dtype=torch.int32))

@@ -3,7 +3,9 @@ scene and camera lowering, the animated camera's rays, the moving-sphere
 closest hit, the sphere table's motion columns, the plain K8 (the
 megakernel's motion variants) against the JAX megakernel in interpret
 mode, the pixel schedule with moving spheres, and the movie driver; and
-what still raises (exact-time motion, moving_teapot, the gradient)."""
+what still raises (moving_teapot, a moving scene without shutter
+fractions) beside what no longer does (exact-time motion renders and
+differentiates, tests/test_torch_exact.py)."""
 
 import math
 import shutil
@@ -300,22 +302,24 @@ def test_motion_entry_points_default_to_cuda(call, tmp_path, monkeypatch):
 
 def test_what_still_raises():
     sc = _mid_shutter(tscene)
-    with pytest.raises(NotImplementedError, match="exact-time"):
-        trender.render_image(sc, 1, 2, device="cpu")
+    assert bool(torch.isfinite(trender.render_image(sc, 1, 2, device="cpu")).all())
     sd = sc.build(device="cpu")
-    with pytest.raises(NotImplementedError, match="exact-time"):
-        tint.intersect_scene(sd, torch.zeros(1, 3), torch.ones(1, 3), torch.zeros(1))
+    assert sd.motion_exact
+    hit = tint.intersect_scene(sd, torch.zeros(1, 3), torch.ones(1, 3), torch.zeros(1))
+    assert bool(torch.isfinite(hit["t"]).all())
     with pytest.raises(FileNotFoundError, match="teapot.obj"):  # fault C1
         tdemo.MOVIE_WORLDS[2]()
     moving = bouncing_book1(tdemo, 16)
     msd, mcp = moving.build(device="cpu"), moving.scene_cam.params(device="cpu")
     with pytest.raises(ValueError, match="shutter"):
         tint.intersect_scene(msd, torch.zeros(1, 3), torch.ones(1, 3))
-    # Linear motion differentiates (K8's record, the eager replay); exact
-    # time does not.
+    # Linear motion differentiates (K8's record, the eager replay), and so
+    # does exact time (the staged record, the eager replay).
     assert tint.megakernel_record_supported(msd, mcp)
     cp = sc.scene_cam.params(device="cpu")
-    with pytest.raises(NotImplementedError, match="exact-time"):
-        grad.loss_and_grad(grad.extract_params(sd, cp), sd, cp, torch.zeros(32 * 18, 3),
-                           torch.arange(32 * 18), 0, width=32, height=18, spp=1, max_depth=2)
+    assert not tint.megakernel_record_supported(sd, cp)
+    loss, _ = grad.loss_and_grad(grad.extract_params(sd, cp), sd, cp, torch.zeros(32 * 18, 3),
+                                 torch.arange(32 * 18), 0, width=32, height=18, spp=1,
+                                 max_depth=2)
+    assert math.isfinite(float(loss))
     assert math.isfinite(float(trender.render_image(moving, 1, 2, device="cpu").mean()))

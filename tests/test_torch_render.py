@@ -83,21 +83,22 @@ def _render(sc):
 
 def _triangle(sc):
     """Static triangles render (K7, tests/test_torch_mesh.py), and so do
-    moving ones (tests/test_torch_mesh_motion.py); a triangle whose keyframe
-    falls inside the shutter needs exact-time motion, not ported."""
+    moving ones (tests/test_torch_mesh_motion.py) and one whose keyframe
+    falls inside the shutter (exact-time motion) -> the last image."""
     sc.add_element(tscene.Triangle((0, 0, 0), (1, 0, 0), (0, 1, 0),
                                    tscene.Metal((0.5, 0.5, 0.5))), "tri")
     _render(sc)
     sc.translate_y(0.5, 1.0, "lerp", "local", "tri")
     _render(sc)
     sc.translate_y(0.5, 1.0 / 96.0, "lerp", "local", "tri")
-    _render(sc)
+    assert sc.build(device="cpu").tri_exact
+    return _render(sc)
 
 
 def _obj_asset(sc):
     """An OBJ asset loads (here from a temporary asset directory) and its
-    mesh moves; a keyframe inside the shutter needs exact-time motion, not
-    ported."""
+    mesh moves, also with a keyframe inside the shutter (exact-time motion)
+    -> the last image."""
     import tempfile
 
     from crucible_tpu_torch.io import assets
@@ -114,20 +115,22 @@ def _obj_asset(sc):
     sc.translate_x(1.0, 1.0, "lerp", "world", "mesh")
     _render(sc)
     sc.translate_x(1.0, 1.0 / 96.0, "lerp", "world", "mesh")
-    _render(sc)
+    assert sc.build(device="cpu").tri_exact
+    return _render(sc)
 
 
 def _movie(sc):
     """A movie renders frame by frame (``first_movie``, and moving meshes in
-    tests/test_torch_mesh_motion.py); a frame whose shutter holds a
-    keyframe needs exact-time motion, not ported. (``moving_teapot`` needs
-    ``teapot.obj``: fault C1.)"""
+    tests/test_torch_mesh_motion.py), a frame whose shutter holds a
+    keyframe too (exact-time motion) -> the frames' sizes in bytes.
+    (``moving_teapot`` needs ``teapot.obj``: fault C1.)"""
     import tempfile
 
     sc.duration = 2.0 / 24.0
     sc.translate_y(0.5, 1.0 / 96.0, "lerp", "local", "ball")
     with tempfile.TemporaryDirectory() as tmp:
         trender.render_movie(sc, str(Path(tmp) / "movie"), verbose=False, device="cpu")
+        return [f.stat().st_size for f in sorted((Path(tmp) / "movie").rglob("image*.ppm"))]
 
 
 def _temp_asset(name, texels):
@@ -178,10 +181,11 @@ def _spherical_sky(sc):
 
 
 def _timeline(sc):
-    """A keyframe inside the shutter window needs exact-time motion."""
+    """A keyframe inside the shutter window renders through the staged
+    bounce's exact branch (tests/test_torch_exact.py) -> the image."""
     sc.translate_y(1.0, 1.0 / 96.0, "lerp", "local", "ball")
     assert sc.build(device="cpu").motion_exact
-    _render(sc)
+    return _render(sc)
 
 
 def _animator(sc):
@@ -266,7 +270,7 @@ def _bridged_triangles(sc):
         _animator,
         _obj_asset,
         _spherical_sky,
-        lambda sc: _movie(sc),
+        _movie,
         _too_many_spheres,
         _bridged_triangles,
         # 'record' runs on both devices (tests/test_torch_record_schedule.py);
@@ -281,6 +285,14 @@ def _bridged_triangles(sc):
 def test_unported_features_raise(use):
     if use is _too_many_spheres:  # taken since ROADMAP A11
         assert use(tdemo.smoke_scene(width=32)) == (None, None)
+        return
+    if use in (_timeline, _triangle, _obj_asset):  # exact time, taken since ROADMAP A7
+        img = use(tdemo.smoke_scene(width=32))
+        assert img.shape == (18, 32, 3) and bool(torch.isfinite(img).all())
+        return
+    if use is _movie:
+        sizes = use(tdemo.smoke_scene(width=32))
+        assert len(sizes) == 2 and min(sizes) > 0
         return
     with pytest.raises(NotImplementedError):
         use(tdemo.smoke_scene(width=32))

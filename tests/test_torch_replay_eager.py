@@ -302,7 +302,8 @@ def test_routing_follows_jax():
 
 
 def test_eager_replay_names_what_it_lacks():
-    """Exact-time motion raises, naming its queue item (A7). Nested checkers
+    """A scene that says exact-time motion without its tracks raises
+    ValueError (exact scenes replay, tests/test_torch_exact_grad.py). Nested checkers
     under the spherical sky, which the replay once refused too, replay: K2's
     records (its plain version) replayed match the staged bounce loop on
     the same lanes, at the JAX package's cross-schedule bounds
@@ -316,7 +317,7 @@ def test_eager_replay_names_what_it_lacks():
     args = (torch.zeros((4, 3)), torch.ones((4, 3)), torch.arange(4), torch.zeros(4),
             0, 2, torch.zeros((2, 4), dtype=torch.int32))
     for change in (dict(tri_exact=True), dict(motion_exact=True)):
-        with pytest.raises(NotImplementedError, match="A7"):
+        with pytest.raises(ValueError, match="tracks"):
             trep.trace_replay(replace(sd, **change), *args)
 
     sc = tdemo.nested_checkers(width=32, nest=3)

@@ -155,13 +155,21 @@ def test_generate_rays_static_matches_jax(name):
 
 def test_generate_rays_refuses_animated_camera():
     """A linearly animated camera renders (tests/test_torch_motion.py); one
-    whose keyframe falls inside the shutter needs exact-time tracks, which
-    are not ported."""
+    whose keyframe falls inside the shutter carries exact-time tracks and
+    generates its rays from them (tests/test_torch_exact.py); a camera that
+    says exact time without its tracks raises ValueError."""
     cp = tdemo.smoke_scene(width=32).scene_cam.params(device="cpu")
     cp.animated = cp.motion_exact = True
-    with pytest.raises(NotImplementedError, match="exact-time"):
+    with pytest.raises(ValueError, match="exact-time"):
         tcam.generate_rays(cp, 32, 18, torch.zeros(4, dtype=torch.int64),
                            torch.zeros(4, dtype=torch.int64), 0)
+    sc = tdemo.smoke_scene(width=32)
+    sc.cam_translate_y(0.5, 1.0 / 96.0, "lerp", "local", "from")
+    cp = sc.scene_cam.params(device="cpu")
+    assert cp.motion_exact and cp.from_tr_t0 is not None
+    o, d, _ = tcam.generate_rays(cp, 32, 18, torch.arange(4), torch.zeros(4, dtype=torch.int64),
+                                 0)
+    assert bool(torch.isfinite(o).all() and torch.isfinite(d).all())
 
 
 # --- shading building blocks ----------------------------------------------------

@@ -159,9 +159,35 @@ def test_cotangents_only_where_asked():
 
 
 def test_per_ray_tables_raise():
-    o, d, centers, radii, active = (torch.from_numpy(x) for x in _random(6))
-    with pytest.raises(NotImplementedError):
-        tinter.hit_spheres(o[:4], d[:4], centers[None].expand(4, -1, -1), radii, active, 1e-3)
+    """Per-ray tables (exact-time motion: (R, N, 3) centers, (R, N) radii,
+    once refused) take the plain per-ray search: winners and distances as
+    the JAX ``hit_spheres``' per-ray branch gives them, and its custom VJP
+    on the same residuals (table cotangents at (ray, winner))."""
+    import jax.numpy as jnp
+    from crucible_tpu.ops import intersect as jinter
+
+    o, d, centers, radii, active = _random(6)
+    g = np.random.default_rng(8)
+    r = 512
+    o, d = o[:r], d[:r]
+    c_rt = (centers[None] + g.normal(0, 0.05, (r, N, 3))).astype(np.float32)
+    r_rt = (radii[None] * g.uniform(0.9, 1.1, (r, N))).astype(np.float32)
+    want = [np.asarray(x) for x in jinter.hit_spheres(
+        jnp.asarray(o), jnp.asarray(d), jnp.asarray(c_rt), jnp.asarray(r_rt),
+        jnp.asarray(active > 0), 1e-3, jnp.inf)]
+    t_bar = g.normal(size=r).astype(np.float32)
+    (t, idx, hit), grads = _port_grads(o, d, c_rt, r_rt, active, t_bar)
+    assert (hit == want[2]).mean() > 0.99 and hit.any() and not hit.all()
+    both = hit & want[2]
+    assert (idx[both] == want[1][both]).mean() > 0.99
+    np.testing.assert_allclose(t[both], want[0][both], rtol=1e-5)
+    jg = _jax_vjp(o, d, c_rt, r_rt, active, t, idx, hit, t_bar)
+    for a, b in zip(grads, jg):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+    # Shared radii (N,) beside per-ray centers broadcast.
+    shared = tinter.hit_spheres(*(torch.from_numpy(x) for x in (o, d, c_rt, radii)),
+                                torch.from_numpy(active), 1e-3)
+    assert shared[2].any()
 
 
 def test_sphere_uv_matches_jax():

@@ -128,8 +128,9 @@ def test_record_modes_route():
     with pytest.raises(ValueError, match="megakernel"):  # only mega fuses the radiance
         trep.record_pass("staged", book_sd, book_cp, 32, 18, torch.arange(4), torch.zeros(4),
                          0, 2, radiance=True)
-    # Exact-time motion: the staged record raises, naming A7.
-    with pytest.raises(NotImplementedError, match="A7"):
+    # Exact-time motion records staged (tests/test_torch_exact.py); a scene
+    # that says so without its tracks raises ValueError.
+    with pytest.raises(ValueError, match="tracks"):
         trep.trace_record(replace(book_sd, animated=True, motion_exact=True),
                           torch.zeros(4, 3), torch.ones(4, 3), torch.arange(4), torch.zeros(4),
                           0, 2)
