@@ -342,7 +342,10 @@ PEAK_BYTES = 3.35e12
 SEARCH_OPS = 22  # one ray against one table row in the closest-hit loop
 # K10's and K9's searches (csrc/sphere_hit.cu, csrc/sphere_shade.cu)
 # per (ray, active row): up to the discriminant, then the square root and
-# the two roots where it is not negative.
+# the two roots where it is not negative. HIT_DISC_OPS counts the static
+# arithmetic, which K10 always takes and K9 takes where no staged row
+# moves (book1, garden, n7744); SHADE_DISC_OPS the moving arithmetic
+# (motion terms included), K9's on a table with motion columns.
 HIT_DISC_OPS, SHADE_DISC_OPS, ROOT_OPS = 17, 35, 5
 ROW_OPS = 52  # a replayed row: quadratic, hit point, normal, unit d, radiance
 SCATTER_OPS = 45  # a continuing row: albedo, the sampled direction, scatter
@@ -1976,7 +1979,9 @@ def exact_path(dev, kernels: dict, mark) -> dict:
         (``grad.record_decisions``, ``generate_rays``): the loss (L2
         against zero) and its gradient in the radiometric leaves (albedo,
         emission: fault C4), held at loss rel 1e-4 and normalized 1e-3;
-        the fuzz gradient's agreement is printed. The rays are the card's
+        the fuzz gradient's agreement is printed (fault C11: one grazing
+        lane parts it on bouncing book1, tools/torch_exact_fuzz.py). The
+        rays are the card's
         because a per-ray camera basis rounds its square roots on each
         device: one lane of 4,608 parting breaks 1e-4."""
         small = make(64)
@@ -2105,7 +2110,13 @@ def exact_path(dev, kernels: dict, mark) -> dict:
           f"{ms / 1e3:.3f} s, {p * 32 / ms / 1e3:.2f} Mpaths/s, peak memory {peak:.2f} GiB, "
           f"mean {img.mean().item():.5f}; launches {got}")
     kernels["sphere_shade"]["launches"] += got["k9"]
-    cells["camera_render"] = dict(ms=ms, peak_gib=peak, k9_launches=got["k9"])
+    k9_share = got["k9"] * kernels["sphere_shade"]["main_ms"] / ms
+    print(f"  K9's share of the render: {got['k9']} launches x "
+          f"{kernels['sphere_shade']['main_ms']:.4f} ms (its main shape's time) = "
+          f"{got['k9'] * kernels['sphere_shade']['main_ms'] / 1e3:.3f} s of {ms / 1e3:.3f} s "
+          f"({100 * k9_share:.1f}%)")
+    cells["camera_render"] = dict(ms=ms, peak_gib=peak, k9_launches=got["k9"],
+                                  k9_share=k9_share)
     table = integrator.make_sphere_table(sd).contiguous()
     o, d, _ = generate_rays(cp, w, h, torch.arange(p, device=dev),
                             torch.zeros(p, dtype=torch.int64, device=dev), seed)
@@ -2821,7 +2832,7 @@ def main() -> None:
     ms = cuda_ms(lambda: sh.hit_spheres(*args), 3)
     print(f"K10 2^20 rays x {n_rows} rows: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms")
     kernels["sphere_hit"]["past_capacity_ms"] = ms
-    del o, d, args, stress_sd
+    del o, d, args
 
     # --- K9: fused hit + fetch vs its plain version -----------------------------
     mark('K9: fused hit + fetch vs its plain version')
@@ -2830,8 +2841,20 @@ def main() -> None:
         out = ss.hit_spheres_fetch(*args)
         ref, plain_ms = host_ms(lambda: ss.hit_spheres_fetch_reference(*args))
         err = bit_equal(out, ref, f"{what}, all {ss.C_OUT} rows")
+        if not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
+            raise AssertionError(f"{what}: kernel and plain version differ in a bit")
         print(f"  {what}: {(out[0] < ss.BIG).float().mean().item():.3f} of the rays hit")
         return args, err, plain_ms
+
+    def k9_time(args, disc_ops, what, reps=5):
+        """K9's CUDA-event time on ``args`` beside its bound and launch shape."""
+        ms = cuda_ms(lambda: ss.hit_spheres_fetch(*args), reps)
+        r = args[0].shape[0]
+        lim, by = bound(search_ops(*args, disc_ops), nbytes(*args) + ss.C_OUT * 4 * r)
+        shape = ss.launch_shape(args[3].shape[0], r)
+        print(f"K9 {what} ({r} rays x {args[3].shape[0]} rows): kernel {ms:.4f} ms, bound "
+              f"{lim:.4f} ms ({by}); launch: {json.dumps(shape)}")
+        return ms, lim, by, shape
 
     o, d = random_rays(1 << 20, 3)
     k9_check(o, d, torch.zeros(o.shape[0], device=dev), b1_table, "K9 2^20 random rays x book1")
@@ -2843,24 +2866,44 @@ def main() -> None:
     moving[:, 28] = (moving[:, 0:3] * cd).sum(1) - moving[:, 3] * rd
     moving[:, 29] = (cd * cd).sum(1) - rd * rd
     w = torch.rand((o.shape[0],), device=dev, generator=gen)
-    k9_check(o, d, w, moving, "K9 2^20 random rays x book1 with motion, random w")
+    k9_in, _, _ = k9_check(o, d, w, moving, "K9 2^20 random rays x book1 with motion, random w")
+    moving_ms, *_ = k9_time(k9_in, SHADE_DISC_OPS, "2^20 random rays x book1 with motion")
+    # Past the rows a block stages at a time: n7744's four chunks.
+    stress_table = integrator.make_sphere_table(stress_sd).contiguous()
+    o, d = random_rays(1 << 20, 5)
+    k9_in, _, _ = k9_check(o, d, torch.zeros(o.shape[0], device=dev), stress_table,
+                           f"K9 2^20 random rays x sphere_stress n7744 "
+                           f"({ss.launch_shape(stress_table.shape[0], o.shape[0])['chunks']} "
+                           f"chunks)")
+    stress_ms, *_ = k9_time(k9_in, HIT_DISC_OPS, "2^20 random rays x n7744", reps=3)
+    del stress_sd, stress_table
+    # The pixel schedule's launches under a keyed camera (main path 26b: 746
+    # of them at 1920x1080 32 spp d50): book1's 1920x1080 primary rays of
+    # one sample against its 488 static rows; timed as the kernel's main
+    # shape.
+    pix = torch.arange(p_full, device=dev)
+    o, d, _ = generate_rays(b1080_cp, 1920, 1080, pix, torch.zeros_like(pix), 0)
+    k9_in, main_err, main_plain = k9_check(o, d, torch.zeros(p_full, device=dev), b1_table,
+                                           "K9 book1 1920x1080 primary rays")
+    main_ms, main_bound, main_by, main_shape = k9_time(k9_in, HIT_DISC_OPS,
+                                                       "book1 1920x1080 primary rays", reps=10)
     sc = demo.garden_skybox(width=1920)
     g_sd, g_cp = sc.build(device=dev), sc.scene_cam.params(device=dev)
     g_table = integrator.make_sphere_table(g_sd).contiguous()
-    pix = torch.arange(p_full, device=dev)
     o, d, _ = generate_rays(g_cp, 1920, 1080, pix, torch.zeros_like(pix), 0)
     k9_in, k9_err, k9_plain = k9_check(o, d, torch.zeros(p_full, device=dev), g_table,
                                        "K9 garden 1920x1080 primary rays")
-    k9_ms = cuda_ms(lambda: ss.hit_spheres_fetch(*k9_in), 5)
-    k9_bound, k9_by = bound(search_ops(*k9_in, SHADE_DISC_OPS),
-                            nbytes(*k9_in) + ss.C_OUT * 4 * p_full)
-    print(f"K9 garden 1920x1080 ({p_full} rays x {g_table.shape[0]} rows): kernel "
-          f"{k9_ms:.4f} ms, plain {k9_plain:.2f} ms, bound {k9_bound:.4f} ms ({k9_by})")
+    k9_ms, k9_bound, k9_by, g_shape = k9_time(k9_in, HIT_DISC_OPS, "garden 1920x1080 primary rays",
+                                              reps=10)
+    print(f"K9 garden 1920x1080: plain {k9_plain:.2f} ms; book1 1920x1080: plain "
+          f"{main_plain:.2f} ms")
     kernels["sphere_shade"] = dict(
         source="crucible_tpu_torch/csrc/sphere_shade.cu",
         replaces="crucible_tpu/ops/pallas/sphere_shade.py:136",
-        max_abs_err=k9_err, ms=k9_ms, plain_ms=k9_plain,
-        bound_ms=k9_bound, bound_by=k9_by,
+        max_abs_err=max(k9_err, main_err), ms=k9_ms, plain_ms=k9_plain,
+        bound_ms=k9_bound, bound_by=k9_by, main_ms=main_ms, main_bound_ms=main_bound,
+        main_bound_by=main_by, main_plain_ms=main_plain, moving_ms=moving_ms,
+        past_capacity_ms=stress_ms, shape=main_shape, garden_shape=g_shape,
     )
     del o, d, w, moving, k9_in, pix
 

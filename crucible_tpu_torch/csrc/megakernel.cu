@@ -493,86 +493,31 @@ __device__ __forceinline__ bool shade_bounce(
   return true;
 }
 
-// One staged row against the ray, in K10's arithmetic (sphere_hit.cu
-// row_disc, row_root); the entry replaces (best, k_win) only when strictly
-// nearer.
+// One staged row against the ray, in K10's arithmetic (common.cuh
+// static_terms, take_root); the entry replaces (best, k_win) only when
+// strictly nearer.
 __device__ __forceinline__ void brute_row(const float4 c, int k, float ox, float oy,
                                           float oz, float dx, float dy, float dz,
                                           float a_q, float d_dot_o, float o_sq,
                                           float inv_a, float t_min, float& best,
                                           int& k_win) {
-  const float dck = c.x * dx + c.y * dy + c.z * dz;
-  const float ock = c.x * ox + c.y * oy + c.z * oz;
-  const float h = dck - d_dot_o;
-  const float c_q = c.w - 2.0f * ock + o_sq;
-  const float disc = h * h - a_q * c_q;
-  if (disc >= 0.0f) {
-    const float sq = sqrtf(disc);
-    const float root0 = (h - sq) * inv_a;
-    const float root1 = (h + sq) * inv_a;
-    const bool ok0 = (root0 > t_min) && (root0 < BIG);
-    const bool ok1 = (root1 > t_min) && (root1 < BIG);
-    const float root = ok0 ? root0 : root1;
-    if ((ok0 || ok1) && root < best) {
-      best = root;
-      k_win = k;
-    }
-  }
+  float h, c_q;
+  static_terms(c, ox, oy, oz, dx, dy, dz, d_dot_o, o_sq, h, c_q);
+  take_root(h, h * h - a_q * c_q, k, inv_a, t_min, best, k_win);
 }
 
 // A moving row (entries c, m = (cdx, cdy, cdz, s1) and s2) at the path's
-// shutter fraction in K9's association (sphere_shade.cu),
-// operation for operation, in brute_row's form: the entry replaces (best,
-// k_win) only when strictly nearer.
+// shutter fraction in K9's association (common.cuh moving_terms), in
+// brute_row's form: the entry replaces (best, k_win) only when strictly
+// nearer.
 __device__ __forceinline__ void moving_row(const float4 c, const float4 m, float s2, int k,
                                            float ox, float oy, float oz, float dx, float dy,
                                            float dz, float a_q, float d_dot_o, float o_sq,
                                            float inv_a, float w, float two_w, float w_sq,
                                            float t_min, float& best, int& k_win) {
-  const float dck = (c.x * dx + c.y * dy + c.z * dz) + w * (m.x * dx + m.y * dy + m.z * dz);
-  const float ock = (c.x * ox + c.y * oy + c.z * oz) + w * (m.x * ox + m.y * oy + m.z * oz);
-  const float csrk = c.w + two_w * m.w + w_sq * s2;
-  const float h = dck - d_dot_o;
-  const float c_q = csrk - 2.0f * ock + o_sq;
-  const float disc = h * h - a_q * c_q;
-  if (disc >= 0.0f) {
-    const float sq = sqrtf(disc);
-    const float root0 = (h - sq) * inv_a;
-    const float root1 = (h + sq) * inv_a;
-    const bool ok0 = (root0 > t_min) && (root0 < BIG);
-    const bool ok1 = (root1 > t_min) && (root1 < BIG);
-    const float root = ok0 ? root0 : root1;
-    if ((ok0 || ok1) && root < best) {
-      best = root;
-      k_win = k;
-    }
-  }
-}
-
-// A static row entry c = (cx, cy, cz, |c|^2 - r^2) against the ray ->
-// (h, c_q), in K10's association (sphere_hit.cu row_disc).
-__device__ __forceinline__ void static_terms(const float4 c, float ox, float oy, float oz,
-                                             float dx, float dy, float dz, float d_dot_o,
-                                             float o_sq, float& h, float& c_q) {
-  const float dck = c.x * dx + c.y * dy + c.z * dz;
-  const float ock = c.x * ox + c.y * oy + c.z * oz;
-  h = dck - d_dot_o;
-  c_q = c.w - 2.0f * ock + o_sq;
-}
-
-// A moving row (entries c, m = (cdx, cdy, cdz, s1) and s2) at the path's
-// shutter fraction w -> (h, c_q), in K9's association (sphere_shade.cu),
-// operation for operation.
-__device__ __forceinline__ void moving_terms(const float4 c, const float4 m, float s2,
-                                             float ox, float oy, float oz, float dx,
-                                             float dy, float dz, float d_dot_o, float o_sq,
-                                             float w, float two_w, float w_sq, float& h,
-                                             float& c_q) {
-  const float dck = (c.x * dx + c.y * dy + c.z * dz) + w * (m.x * dx + m.y * dy + m.z * dz);
-  const float ock = (c.x * ox + c.y * oy + c.z * oz) + w * (m.x * ox + m.y * oy + m.z * oz);
-  const float csrk = c.w + two_w * m.w + w_sq * s2;
-  h = dck - d_dot_o;
-  c_q = csrk - 2.0f * ock + o_sq;
+  float h, c_q;
+  moving_terms(c, m, s2, ox, oy, oz, dx, dy, dz, d_dot_o, o_sq, w, two_w, w_sq, h, c_q);
+  take_root(h, h * h - a_q * c_q, k, inv_a, t_min, best, k_win);
 }
 
 // K5's and K6's closest hit over a tree of spheres (see the note at the

@@ -25,17 +25,17 @@
 //   as 16-byte entries (cx, cy, cz, |c|^2 - r^2) in shared memory sized to
 //   the table (dynamic, 20 bytes a row), packed by a warp ballot and a block
 //   prefix sum, with each entry's table row in a parallel array that is read
-//   once per ray, for the winner. The entry list is padded to a multiple of 4
-//   with copies of its last entry, which never win (the strict '<' below).
+//   once per ray, for the winner (common.cuh pack_rows). The entry list is
+//   padded to a multiple of 4 with copies of its last entry, which never win
+//   (the strict '<' below).
 // - Four rays a thread (RPT): each broadcast LDS.128 of a row serves all of
 //   them. Rows go four at a time, all four loaded first. A thread's last
 //   rays, fewer than RPT, take the 2- and 1-ray forms, so no lane computes
 //   a dead ray.
-// - Per ray and four rows, one branch: the discriminants' sign bits ANDed.
-//   A discriminant is never -0 (h * h >= +0), so a clear sign bit marks one
-//   that is >= 0, or a NaN (which the row's own test then rejects). The
-//   root test keeps its update inside the root's branch, as the
-//   megakernel's brute_row does (the other form cost K1 / K2 ~25%).
+// - Per ray and four rows, one branch: the discriminants' sign bits ANDed
+//   (common.cuh search_staged, which K9 shares). The root test keeps its
+//   update inside the root's branch (take_root, as the megakernel's
+//   brute_row; the other form cost K1 / K2 ~25%).
 // - A table past STAGE_ROWS rows goes through chunks of that many rows: the
 //   block restages, and each ray carries its best root through its output
 //   (read back, and written only where the chunk gave a nearer winner). No
@@ -50,7 +50,8 @@
 // replaces the best only when strictly nearer, so the lowest table row wins
 // ties, as the TPU's min-then-first-index reduction does. A miss returns
 // t = BIG, idx = 0. The megakernel's flat loop runs the same arithmetic on
-// the same 16-byte entries (megakernel.cu brute_row).
+// the same 16-byte entries (megakernel.cu brute_row, over common.cuh's
+// static_terms and take_root).
 //
 // Numerics: -fmad=false and no fast math (ops/kernels/build.py), so the
 // kernel rounds like its eager version (ops/kernels/sphere_hit.py
@@ -69,108 +70,30 @@ namespace {
 
 using namespace crucible;
 
-constexpr int BLOCK = 128;        // threads per block
-constexpr int RPT = 4;            // rays a thread
-constexpr int STAGE_ROWS = 2048;  // table rows staged at a time: 40 KB at most
-
-// Entries staged for an N-row table: its first chunk, padded to 4.
-__host__ __device__ int staged_entries(int n) {
-  const int rows = n < STAGE_ROWS ? n : STAGE_ROWS;
-  return (rows + 3) & ~3;
-}
+constexpr int BLOCK = 128;  // threads per block
+constexpr int RPT = 4;      // rays a thread
 
 __host__ __device__ int smem_bytes(int n) {
   return staged_entries(n) * (int)(sizeof(float4) + sizeof(int32_t));
 }
 
-// One ray and its running winner; k_win indexes the staged entries.
-struct Ray {
-  float ox, oy, oz, dx, dy, dz, a_q, d_dot_o, o_sq, inv_a, best;
-  int k_win;
-};
-
-__device__ __forceinline__ void load_ray(const float* o, const float* d, size_t i, Ray& y) {
-  y.ox = o[3 * i];
-  y.oy = o[3 * i + 1];
-  y.oz = o[3 * i + 2];
-  y.dx = d[3 * i];
-  y.dy = d[3 * i + 1];
-  y.dz = d[3 * i + 2];
-  y.a_q = y.dx * y.dx + y.dy * y.dy + y.dz * y.dz;
-  y.d_dot_o = y.dx * y.ox + y.dy * y.oy + y.dz * y.oz;
-  y.o_sq = y.ox * y.ox + y.oy * y.oy + y.oz * y.oz;
-  y.inv_a = 1.0f / y.a_q;
-  y.k_win = -1;
-}
-
-// A staged entry c = (cx, cy, cz, |c|^2 - r^2) against the ray -> disc; h
-// beside it.
-__device__ __forceinline__ float row_disc(const float4 c, const Ray& y, float& h) {
-  const float dck = c.x * y.dx + c.y * y.dy + c.z * y.dz;
-  const float ock = c.x * y.ox + c.y * y.oy + c.z * y.oz;
-  h = dck - y.d_dot_o;
-  const float c_q = c.w - 2.0f * ock + y.o_sq;
-  return h * h - y.a_q * c_q;
-}
-
-// Entry k's accepted root, where its discriminant is not negative; it
-// replaces the ray's best only when strictly nearer.
-__device__ __forceinline__ void row_root(float h, float disc, int k, float t_min, Ray& y) {
-  if (disc >= 0.0f) {
-    const float sq = sqrtf(disc);
-    const float root0 = (h - sq) * y.inv_a;
-    const float root1 = (h + sq) * y.inv_a;
-    const bool ok0 = (root0 > t_min) && (root0 < BIG);
-    const bool ok1 = (root1 > t_min) && (root1 < BIG);
-    const float root = ok0 ? root0 : root1;
-    if ((ok0 || ok1) && root < y.best) {
-      y.best = root;
-      y.k_win = k;
-    }
-  }
-}
-
-// K rays against the n4 staged entries (n4 a multiple of 4).
-template <int K>
-__device__ __forceinline__ void search(const float4* rows, int n4, float t_min, Ray (&y)[K]) {
-  for (int k = 0; k < n4; k += 4) {
-    const float4 c0 = rows[k], c1 = rows[k + 1], c2 = rows[k + 2], c3 = rows[k + 3];
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      float h0, h1, h2, h3;
-      const float e0 = row_disc(c0, y[j], h0);
-      const float e1 = row_disc(c1, y[j], h1);
-      const float e2 = row_disc(c2, y[j], h2);
-      const float e3 = row_disc(c3, y[j], h3);
-      const uint32_t signs = __float_as_uint(e0) & __float_as_uint(e1) &
-                             __float_as_uint(e2) & __float_as_uint(e3);
-      if ((int32_t)signs >= 0) {
-        row_root(h0, e0, k, t_min, y[j]);
-        row_root(h1, e1, k + 1, t_min, y[j]);
-        row_root(h2, e2, k + 2, t_min, y[j]);
-        row_root(h3, e3, k + 3, t_min, y[j]);
-      }
-    }
-  }
-}
-
 // The rays first, first + stride, ... (K of them) against the staged
-// chunk. In the first chunk every ray's result is written; in a later one
-// the best so far is read from t_out and both outputs are written only
-// where this chunk holds a nearer root.
+// chunk (common.cuh search_staged). In the first chunk every ray's result
+// is written; in a later one the best so far is read from t_out and both
+// outputs are written only where this chunk holds a nearer root.
 template <int K>
 __device__ __forceinline__ void batch(const float* o, const float* d, size_t first,
                                       size_t stride, const float4* rows, const int32_t* ids,
                                       int n4, bool resume, float t_min, float* t_out,
                                       int32_t* idx_out) {
-  Ray y[K];
+  SearchRay y[K];
 #pragma unroll
   for (int j = 0; j < K; ++j) {
     const size_t i = first + j * stride;
-    load_ray(o, d, i, y[j]);
+    load_search_ray(o, d, i, y[j]);
     y[j].best = resume ? t_out[i] : BIG;
   }
-  search<K>(rows, n4, t_min, y);
+  search_staged<K, false>(rows, nullptr, nullptr, n4, t_min, y);
 #pragma unroll
   for (int j = 0; j < K; ++j) {
     const size_t i = first + j * stride;
@@ -185,38 +108,19 @@ __device__ __forceinline__ void batch(const float* o, const float* d, size_t fir
 }
 
 // Stage the active rows of table rows [base, base + count) as entries in
-// table order, then pad to a multiple of 4 -> the padded entry count. Every
-// thread of the block calls it.
+// table order (common.cuh pack_rows), then pad to a multiple of 4 -> the
+// padded entry count. Every thread of the block calls it.
 __device__ int stage(const float* centers, const float* csr, const float* active, int base,
                      int count, float4* s_rows, int32_t* s_ids, int* s_warp) {
   __syncthreads();  // the previous chunk is no longer read
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int total = 0;
-  for (int k0 = 0; k0 < count; k0 += BLOCK) {
-    const int k = k0 + threadIdx.x;
-    const bool on = k < count && active[base + k] > 0.0f;
-    const uint32_t mask = __ballot_sync(0xffffffffu, on);
-    if (lane == 0) s_warp[warp] = __popc(mask);
-    __syncthreads();
-    int pos = total, sum = total;
-    for (int w = 0; w < BLOCK / 32; ++w) {
-      if (w < warp) pos += s_warp[w];
-      sum += s_warp[w];
-    }
-    if (on) {
-      pos += __popc(mask & ((1u << lane) - 1u));
-      const float* c = centers + 3 * (size_t)(base + k);
-      s_rows[pos] = make_float4(c[0], c[1], c[2], csr[base + k]);
-      s_ids[pos] = base + k;
-    }
-    total = sum;
-    __syncthreads();  // s_warp is written again; the entries are complete
-  }
-  const int n4 = (total + 3) & ~3;
-  if ((int)threadIdx.x < n4 - total) {
-    s_rows[total + threadIdx.x] = s_rows[total - 1];
-    s_ids[total + threadIdx.x] = s_ids[total - 1];
-  }
+  const int total = pack_rows<BLOCK, int>(
+      count, s_warp, [&](int k, int&) { return active[base + k] > 0.0f; },
+      [&](int pos, int k, int) {
+        const float* c = centers + 3 * (size_t)(base + k);
+        s_rows[pos] = make_float4(c[0], c[1], c[2], csr[base + k]);
+        s_ids[pos] = base + k;
+      });
+  const int n4 = pad_staged<false>(total, s_rows, nullptr, nullptr, s_ids);
   __syncthreads();
   return n4;
 }

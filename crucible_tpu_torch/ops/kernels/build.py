@@ -63,7 +63,8 @@ SIGNATURES = {
         "crucible_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "sphere_shade": {
-        "crucible_sphere_shade": ([_P] * 4 + [_I, _I, _F] + [_P] * 2, _I),
+        "crucible_sphere_shade": ([_P] * 4 + [_I, _I, _F, _I] + [_P] * 2, _I),
+        "crucible_sphere_shade_shape": ([_I, ctypes.POINTER(_I)], _I),
         "crucible_cuda_error_string": ([_I], ctypes.c_char_p),
     },
 }

@@ -40,8 +40,8 @@ REFERENCE_CHUNK_ELEMS = 1 << 22
 # Launches of the CUDA kernel since the last reset.
 LAUNCHES = 0
 
-# Table rows the kernel stages at a time (csrc/sphere_hit.cu STAGE_ROWS); a
-# larger table goes through chunks of this many rows.
+# Table rows the kernel stages at a time (csrc/common.cuh STAGE_ROWS, K9's
+# too); a larger table goes through chunks of this many rows.
 STAGE_ROWS = 2048
 
 
@@ -71,33 +71,52 @@ def staged_entries(n: int) -> int:
     return (min(n, STAGE_ROWS) + 3) & ~3
 
 
-@functools.cache
-def _shape(entries: int, device: int) -> tuple:
-    """The C library's launch shape, queried once per (staged entries,
-    card); the query also lets the kernel take its dynamic shared memory,
-    so each launch is sized from here and queries nothing."""
-    lib = build.load("sphere_hit")
+def query_shape(stem: str, entries: int, device: int) -> tuple:
+    """The launch shape of the staged search of library ``stem`` (K10's
+    ``sphere_hit`` or K9's ``sphere_shade``) for ``entries`` staged entries
+    on card ``device``: its ``crucible_<stem>_shape``, which also lets the
+    kernel take its dynamic shared memory, so each launch is sized from a
+    cached query and queries nothing."""
+    lib = build.load(stem)
     shape = (ctypes.c_int * 8)()
     with torch.cuda.device(device):
-        build.check(lib, lib.crucible_sphere_hit_shape(entries, shape), "sphere_hit shape")
+        build.check(lib, getattr(lib, f"crucible_{stem}_shape")(entries, shape), f"{stem} shape")
     return tuple(shape)
+
+
+@functools.cache
+def _shape(entries: int, device: int) -> tuple:
+    """K10's launch shape, queried once per (staged entries, card)."""
+    return query_shape("sphere_hit", entries, device)
+
+
+def device_index(device=None) -> int:
+    """The index of ``device``, or of the current card where it is None or
+    names no index."""
+    index = None if device is None else torch.device(device).index
+    return torch.cuda.current_device() if index is None else index
+
+
+def staged_shape(raw: tuple, n: int, r: int, source: str) -> dict:
+    """A staged search's launch (K9, K10) for an n-row table and R rays from
+    its queried ``raw`` shape: grid (as many blocks as stay resident, none
+    more than the rays need at one ray a thread), resident blocks per SM,
+    SMs, threads per block, rays a thread, registers and local (spill) bytes
+    per thread, dynamic shared memory per block, table rows staged at a
+    time and the chunks the table takes."""
+    per_sm, sms, threads, regs, local, smem, stage, rpt = raw
+    if stage != STAGE_ROWS:
+        raise RuntimeError(f"{source} stages {stage} rows, the wrapper {STAGE_ROWS}")
+    return dict(grid=min(per_sm * sms, -(-r // threads)), blocks_per_sm=per_sm, sms=sms,
+                threads=threads, rays_per_thread=rpt, registers=regs, spill_bytes=local,
+                smem_bytes=smem, stage_rows=stage, chunks=-(-n // stage))
 
 
 def launch_shape(n: int, r: int, device=None) -> dict:
     """K10's launch on the current card (or ``device``) for an n-row table
-    and R rays: grid (as many blocks as stay resident, none more than the
-    rays need at one ray a thread), resident blocks per SM, SMs, threads
-    per block, rays a thread, registers and local (spill) bytes per thread,
-    dynamic shared memory per block, table rows staged at a time and the
-    chunks the table takes."""
-    index = None if device is None else torch.device(device).index
-    dev = torch.cuda.current_device() if index is None else index
-    per_sm, sms, threads, regs, local, smem, stage, rpt = _shape(staged_entries(n), dev)
-    if stage != STAGE_ROWS:
-        raise RuntimeError(f"csrc/sphere_hit.cu stages {stage} rows, the wrapper {STAGE_ROWS}")
-    return dict(grid=min(per_sm * sms, -(-r // threads)), blocks_per_sm=per_sm, sms=sms,
-                threads=threads, rays_per_thread=rpt, registers=regs, spill_bytes=local,
-                smem_bytes=smem, stage_rows=stage, chunks=-(-n // stage))
+    and R rays (:func:`staged_shape`)."""
+    raw = _shape(staged_entries(n), device_index(device))
+    return staged_shape(raw, n, r, "csrc/sphere_hit.cu")
 
 
 def _launch(o, d, centers, csr, active, t_min):

@@ -22,18 +22,23 @@ padding that it never writes and nothing reads, and are left out.
 
 :func:`hit_spheres_fetch` launches ``csrc/sphere_shade.cu`` for CUDA
 tensors (or raises) and runs :func:`hit_spheres_fetch_reference` for CPU
-tensors; the two round alike. ``LAUNCHES`` counts kernel launches.
+tensors; the two round alike. The kernel runs on a persistent grid
+(:func:`launch_shape`, queried once per staged table size and card), each
+block staging the table's active rows once as K8's 36-byte moving rows and
+taking K10's static arithmetic where none of them moves, each thread
+carrying four rays. ``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from crucible_tpu_torch.ops.kernels import build
+from crucible_tpu_torch.ops.kernels import build, sphere_hit
 from crucible_tpu_torch.ops.kernels.sphere_hit import (
-    BIG, REFERENCE_CHUNK_ELEMS, T_MIN, nearest_root,
+    BIG, REFERENCE_CHUNK_ELEMS, T_MIN, nearest_root, staged_entries,
 )
 
 C_IN = 32
@@ -41,6 +46,14 @@ C_OUT = 28
 
 # Launches of the CUDA kernel since the last reset.
 LAUNCHES = 0
+
+# Staged entries up to which K9 takes one ray a thread on a grid of
+# ceil(R / 128) blocks instead of the resident grid's four: a table that
+# small is bound by the bytes, and short one-ray threads keep more of them
+# in flight (garden's 8 rows at 1080p, NVIDIA H100 80GB HBM3, 700 W:
+# 0.108 ms against 0.118 on the resident grid; book1's 488 rows 0.967
+# against 0.727; tools/torch_shade_ab.py).
+ONE_RAY_ENTRIES = 16
 
 
 def hit_spheres_fetch(o, d, w, table, t_min: float = T_MIN):
@@ -56,18 +69,41 @@ def hit_spheres_fetch(o, d, w, table, t_min: float = T_MIN):
     ))
     if o.device.type == "cpu":
         return hit_spheres_fetch_reference(o, d, w, table, t_min)
+    if table.data_ptr() % 16:
+        raise ValueError("table must be 16-byte aligned (the kernel reads its rows as float4)")
     return _launch(o, d, w, table, t_min)
+
+
+@functools.cache
+def _shape(entries: int, device: int) -> tuple:
+    """K9's launch shape, queried once per (staged entries, card)."""
+    return sphere_hit.query_shape("sphere_shade", entries, device)
+
+
+def launch_shape(n: int, r: int, device=None) -> dict:
+    """K9's launch on the current card (or ``device``) for an n-row table
+    and R rays (``sphere_hit.staged_shape``: grid, blocks an SM, registers,
+    spill, shared memory, rows staged at a time, chunks); up to
+    ``ONE_RAY_ENTRIES`` staged entries a grid of one ray a thread. Shared
+    memory holds 40 bytes a staged entry."""
+    entries = staged_entries(n)
+    raw = _shape(entries, sphere_hit.device_index(device))
+    shape = sphere_hit.staged_shape(raw, n, r, "csrc/sphere_shade.cu")
+    if entries <= ONE_RAY_ENTRIES:
+        shape.update(grid=-(-r // shape["threads"]), rays_per_thread=1)
+    return shape
 
 
 def _launch(o, d, w, table, t_min):
     global LAUNCHES
     lib = build.load("sphere_shade")
     n, r = table.shape[0], o.shape[0]
+    shape = launch_shape(n, r, device=o.device)
     out = torch.empty((C_OUT, r), dtype=torch.float32, device=o.device)
     with torch.cuda.device(o.device):
         err = lib.crucible_sphere_shade(
             o.data_ptr(), d.data_ptr(), w.data_ptr(), table.data_ptr(), n, r,
-            ctypes.c_float(t_min), out.data_ptr(),
+            ctypes.c_float(t_min), shape["grid"], out.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     build.check(lib, err, "sphere_shade")
