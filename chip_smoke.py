@@ -308,7 +308,21 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
    1/96 s through the exact branch (its lanes, chunks and peak memory) and
    its step by phase; the torus rising inside the shutter through the BVH
    walk's vertex hook at 320x180; card against CPU at 64 wide.
-29. Prints a JSON line describing each kernel (times at the comparison
+29. The golden check (main path 27, :func:`golden_path`,
+   ``tools/torch_golden.py``): every config of
+   ``tests/goldens/golden_tpu_v1.npz`` (the JAX package's renders at 64 px,
+   8 spp, depth 8) through its production schedule on the card and
+   ``book1_deep50`` through the deep gradient path's forward, held at the
+   JAX harness's bounds; earth and load_teapot not held without their
+   original assets; direct AD against the replay, three central-difference
+   checks and the depth-50 gradients; each row's launches held to its
+   route (K1, K5, K9, K2; K10, K2, K3).
+30. The ``pixel`` schedule by stage (main path 28, :func:`pixel_profile_path`,
+   ``tools/torch_profile_persistent.py``): book1 400 wide, 32 spp, depth 50
+   at 2^20 target lanes; ray generation, K9 and the fused bounce an
+   iteration (CUDA events and device time), the render's iterations (one
+   K9 launch each), its split and the device's idle share.
+31. Prints a JSON line describing each kernel (times at the comparison
    shape, where kernel and twin run the same inputs in full; K5's, K6's
    and others' also at their main shape), the card's line again, and, as
    the last line, ``{"ok": true, "device": {...}}``.
@@ -2250,6 +2264,109 @@ def exact_path(dev, kernels: dict, mark) -> dict:
         raise AssertionError(f"exact torus step: launches {got} (no kernel expected)")
     cells["torus_step"] = cell
     return cells
+
+
+# Main path 27 (golden_path): the kernels each config's route launches on the
+# card, by launch-counter key (:func:`_launch_counter`); the gradient check's
+# over all its checks. The fused record pass gives the replay's primal, so K4
+# runs in none of them (the JAX harness's replay_given likewise).
+GOLDEN_ROUTES = {
+    "smoke_scene": ("forward_brute",),
+    "book1_end_scene": ("forward_brute",),
+    "checkered_spheres": ("forward_brute",),
+    "earth": ("record_brute",),
+    "load_teapot": ("forward_tri",),
+    "garden_skybox": ("k9",),
+    "sphere_stress": ("forward_walk",),
+    "nested_checkers": ("record_brute",),
+    "book1_deep50": ("record_brute",),
+}
+GRADCHECK_ROUTE = ("k10", "record_brute", "k3")
+# Launch-counter keys -> the names of the kernels line.
+KERNEL_OF_COUNT = {
+    "forward_brute": "megakernel_forward", "forward_walk": "megakernel_walk",
+    "forward_tri": "megakernel_tri", "record_brute": "megakernel_record",
+    "k9": "sphere_shade", "k10": "sphere_hit", "k4": "replay_forward", "k3": "replay_backward",
+}
+
+
+def golden_path(dev, kernels: dict, mark) -> dict:
+    """Main path 27, the golden check on the card (``tools/torch_golden.py``):
+    every config of ``tests/goldens/golden_tpu_v1.npz`` through its
+    production schedule (``auto``; ``book1_deep50`` through the deep
+    gradient path's forward), held to the JAX package's image at the JAX
+    harness's bounds; earth and load_teapot held where their original
+    assets resolve, else printed as not held (earth over a generated map,
+    through ``record``). Then the gradient check: direct AD against the
+    replay (smoke, book1), three central-difference checks, the depth-50
+    gradients finite. One JSON line a config and one for the gradient
+    check. Each row's launches are counted from 0 and must hold the kernels
+    of its route (``GOLDEN_ROUTES``, ``GRADCHECK_ROUTE``); they are added to
+    ``kernels``. Any failed check raises."""
+    from tools import torch_golden as tg
+
+    cells, counts = {}, {}
+
+    def route(what, got, want):
+        missing = [k for k in want if not got.get(k)]
+        if missing:
+            raise AssertionError(f"golden {what}: no launch of {missing} (launches {got})")
+        for key, n in got.items():
+            if key not in KERNEL_OF_COUNT:
+                raise AssertionError(f"golden {what}: an unexpected kernel {key} ({got})")
+            counts[key] = counts.get(key, 0) + n
+
+    mark("main path 27a: the golden check, every config of golden_tpu_v1.npz")
+    t0 = time.perf_counter()
+    verdict = tg.golden(str(dev))
+    for row in verdict["configs"]:
+        print("golden " + json.dumps(row))
+        if "launches" in row:
+            route(row["config"], row["launches"], GOLDEN_ROUTES[row["config"]])
+    cells["golden_s"] = time.perf_counter() - t0
+    if not verdict["ok"]:
+        raise AssertionError(f"golden drift in: {verdict['drifted']}")
+
+    mark("main path 27b: the gradient check (AD vs replay, central differences, depth 50)")
+    t0 = time.perf_counter()
+    checked = tg.gradcheck(str(dev))
+    print("gradcheck " + json.dumps(checked))
+    total = {}
+    for got in checked["launches"].values():
+        for key, n in got.items():
+            total[key] = total.get(key, 0) + n
+    route("gradcheck", total, GRADCHECK_ROUTE)
+    cells["gradcheck_s"] = time.perf_counter() - t0
+    cells["gradcheck_launches"] = total
+    if not checked["ok"]:
+        raise AssertionError(f"gradcheck drift in: {checked['failed']}")
+    for key, n in counts.items():
+        name = KERNEL_OF_COUNT[key]
+        kernels[name]["launches"] += n
+        kernels[name]["golden_path_launches"] = n
+    cells["launches"] = counts
+    print("golden path launches: " + json.dumps(counts))
+    return cells
+
+
+def pixel_profile_path(dev, kernels: dict, mark) -> dict:
+    """Main path 28, one iteration of the ``pixel`` schedule by stage
+    (``tools/torch_profile_persistent.py``): book1 400 wide at 2^20 target
+    lanes, ``generate_rays``, K9 alone and ``bounce_step_fused`` timed by
+    CUDA events, then ``trace_persistent`` at 32 spp, depth 50, its
+    iterations (one K9 launch each, held by the tool) and its time split
+    into iters x (raygen + bounce) and the bookkeeping. The render's K9
+    launches are added to ``kernels``. Any failed check raises."""
+    from tools import torch_profile_persistent as tpp
+
+    mark("main path 28: the pixel schedule by stage, book1 400w 32 spp d50")
+    out = tpp.profile(400, 32, dev)
+    times = ("raygen_ms", "k9_ms", "bounce_ms", "total_ms", "image_mean")
+    if not (out["iters"] > 0 and all(math.isfinite(out[k]) and out[k] > 0 for k in times)):
+        raise AssertionError(f"pixel profile: {out}")
+    kernels["sphere_shade"]["launches"] += out["k9_launches"]
+    kernels["sphere_shade"]["pixel_profile_launches"] = out["k9_launches"]
+    return out
 
 
 def main() -> None:
@@ -5386,6 +5503,12 @@ def main() -> None:
 
     # --- main path 26: exact-time motion ----------------------------------------------
     print("exact cells: " + json.dumps(exact_path(dev, kernels, mark)))
+
+    # --- main path 27: the golden check ---------------------------------------------
+    print("golden cells: " + json.dumps(golden_path(dev, kernels, mark)))
+
+    # --- main path 28: the pixel schedule by stage -------------------------------------
+    print("pixel profile cells: " + json.dumps(pixel_profile_path(dev, kernels, mark)))
 
     print("gradient cells: " + json.dumps(grad_cells))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check")
